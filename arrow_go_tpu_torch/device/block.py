@@ -1,0 +1,252 @@
+"""Device block format of the port: a column in device memory.
+
+As in the JAX package (arrow_go_tpu/device/block.py), a column on the
+device is a fixed-width, bucket-padded tensor plus packed validity
+words, with the logical row count carried separately. The padding rule
+(`pad_length`) is the JAX package's, so both packages hold the same
+padded shapes and the parity tests compare like with like.
+
+Validity words are int32 tensors that carry the u32 bit patterns of the
+JAX package's words (LSB-first: word w bit b <-> row w*32+b); torch's
+uint32 supports too few operations, so every shift of a word is masked
+afterwards (ops/bitmap.py).
+
+Results that leave the device (the group-sized output of group_by)
+come back as a numpy-backed HostBatch.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import dtypes as dt
+from .. import torchenv
+
+LANE = 128
+WORD_BITS = 32
+
+
+def pad_length(n: int) -> int:
+    """Bucketed padding: next multiple of pow2ceil(n)/8, min 128."""
+    n = max(int(n), 1)
+    if n <= LANE:
+        return LANE
+    p = 1 << (n - 1).bit_length()          # pow2 ceiling
+    step = max(p // 8, LANE)
+    return (n + step - 1) // step * step
+
+
+def _pack_words(mask: np.ndarray, padded: int) -> np.ndarray:
+    """bool mask -> packed uint32 validity words (LSB-first), padding bits 0."""
+    full = np.zeros(padded, dtype=np.bool_)
+    full[: len(mask)] = mask
+    bits = np.packbits(full, bitorder="little")  # uint8 LSB-first
+    return bits.view(np.uint32) if bits.nbytes % 4 == 0 else np.pad(
+        bits, (0, 4 - bits.nbytes % 4)).view(np.uint32)
+
+
+def _unpack_words(words: np.ndarray, n: int) -> np.ndarray:
+    bits = np.ascontiguousarray(words).view(np.uint8)
+    return np.unpackbits(bits, bitorder="little")[:n].astype(np.bool_)
+
+
+def row_mask(padded: int, length, device) -> torch.Tensor:
+    """mask[i] = i < length (length a Python int or a 0-d tensor)."""
+    return torch.arange(padded, device=device) < length
+
+
+def valid_rows(validity: Optional[torch.Tensor], padded: int, length,
+               device) -> torch.Tensor:
+    """mask[i] = i < length and validity bit i is set (or no words)."""
+    m = row_mask(padded, length, device)
+    if validity is not None:
+        from ..ops import bitmap
+        m = m & bitmap.expand_words(validity, padded)
+    return m
+
+
+@dataclass
+class DeviceColumn:
+    """One column resident in device memory.
+
+    values:   tensor, shape (padded,)
+    validity: int32 words carrying u32 bit patterns, shape (padded/32,),
+              or None (all valid)
+    length:   logical row count
+    type:     the logical type
+    """
+
+    values: torch.Tensor
+    validity: Optional[torch.Tensor]
+    length: int
+    type: dt.DataType
+    _mask_cache: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.values.shape[0] % WORD_BITS:
+            raise ValueError(
+                f"padded length {self.values.shape[0]} not word-aligned")
+        if self.validity is not None and (
+                self.validity.shape[0] * WORD_BITS != self.values.shape[0]):
+            raise ValueError(
+                f"validity words {self.validity.shape[0]} != padded/32")
+
+    @property
+    def padded(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def validity_mask(self) -> torch.Tensor:
+        """Expanded bool mask over the padded domain (False beyond length),
+        cached after the first expansion (columns are never mutated in
+        place; transforms build new columns)."""
+        if self._mask_cache is None:
+            self._mask_cache = valid_rows(self.validity, self.padded,
+                                          self.length, self.device)
+        return self._mask_cache
+
+
+@dataclass
+class DeviceBatch:
+    """Schema + device columns: the device-resident RecordBatch."""
+
+    schema: dt.Schema
+    columns: List[DeviceColumn]
+    length: int
+
+    def column(self, key) -> DeviceColumn:
+        if isinstance(key, str):
+            i = self.schema.field_index(key)
+            if i < 0:
+                raise KeyError(f"no column {key!r}")
+            key = i
+        return self.columns[key]
+
+    @property
+    def padded(self) -> int:
+        return self.columns[0].padded if self.columns else pad_length(
+            self.length)
+
+
+def _words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
+    w = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(w.copy()).to(device)
+
+
+def batch_from_numpy(fields: Sequence[Tuple[str, str]],
+                     columns: Sequence[Tuple[np.ndarray,
+                                             Optional[np.ndarray]]],
+                     length: int, device=None) -> DeviceBatch:
+    """DeviceBatch from already padded host buffers.
+
+    fields:  (name, type name) per column, e.g. ("l_okey", "int64").
+    columns: (values, validity words or None) per column: the padded
+             values ndarray and the uint32 validity words, exactly what
+             `np.asarray` gives for a JAX DeviceColumn's `.values` and
+             `.validity`, so both packages hold bit-identical inputs.
+    """
+    dev = torchenv.device(device)
+    if len(fields) != len(columns):
+        raise ValueError("one (values, validity) pair per field")
+    flds, cols = [], []
+    padded = None
+    for (name, tname), (vals, words) in zip(fields, columns):
+        t = dt.type_for_name(tname)
+        vals = np.asarray(vals)
+        if vals.ndim != 1 or vals.dtype != t.np_dtype:
+            raise ValueError(
+                f"column {name!r}: expected 1-D {t.np_dtype}, got "
+                f"{vals.ndim}-D {vals.dtype}")
+        if padded is None:
+            padded = vals.shape[0]
+        if vals.shape[0] != padded or padded < length:
+            raise ValueError(f"column {name!r}: padded length "
+                             f"{vals.shape[0]} does not fit the batch")
+        v = torch.from_numpy(np.ascontiguousarray(vals).copy()).to(dev)
+        w = None if words is None else _words_to_tensor(words, dev)
+        flds.append(dt.Field(name, t))
+        cols.append(DeviceColumn(v, w, int(length), t))
+    return DeviceBatch(dt.Schema(flds), cols, int(length))
+
+
+def batch_to_device(data: Dict[str, np.ndarray], device=None,
+                    pad: Optional[int] = None) -> DeviceBatch:
+    """Null-free numpy columns (all of one length) -> a padded DeviceBatch."""
+    names = list(data)
+    n = len(data[names[0]]) if names else 0
+    P = pad if pad is not None else pad_length(n)
+    fields, columns = [], []
+    for name in names:
+        v = np.asarray(data[name])
+        if len(v) != n:
+            raise ValueError(f"column {name!r} has {len(v)} rows, not {n}")
+        t = dt.from_numpy_dtype(v.dtype)
+        host = np.zeros(P, dtype=t.np_dtype)
+        host[:n] = v
+        fields.append((name, t.name))
+        columns.append((host, None))
+    return batch_from_numpy(fields, columns, n, device)
+
+
+# ---------------------------------------------------------------------------
+# host results
+# ---------------------------------------------------------------------------
+
+class HostArray:
+    """A numpy-backed result column: values[:n] plus an optional bool mask
+    (True = valid)."""
+
+    def __init__(self, values: np.ndarray, mask: Optional[np.ndarray],
+                 type: dt.DataType):
+        self.values = np.asarray(values)
+        self.mask = None if mask is None else np.asarray(mask, np.bool_)
+        self.type = type
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def validity_bools(self) -> np.ndarray:
+        if self.mask is None:
+            return np.ones(len(self.values), np.bool_)
+        return self.mask
+
+    def to_pylist(self) -> list:
+        vals = self.values.tolist()
+        if self.mask is None:
+            return vals
+        return [v if ok else None for v, ok in zip(vals, self.mask.tolist())]
+
+
+class HostBatch:
+    """Schema + HostArrays: the host-side RecordBatch of the port."""
+
+    def __init__(self, schema: dt.Schema, columns: List[HostArray],
+                 num_rows: int):
+        self.schema = schema
+        self.columns = list(columns)
+        self.num_rows = num_rows
+
+    @classmethod
+    def from_arrays(cls, arrays: Dict[str, HostArray]) -> "HostBatch":
+        cols = list(arrays.values())
+        n = len(cols[0]) if cols else 0
+        return cls(dt.Schema([dt.Field(k, a.type)
+                              for k, a in arrays.items()]), cols, n)
+
+    def column(self, key: Union[str, int]) -> HostArray:
+        if isinstance(key, str):
+            i = self.schema.field_index(key)
+            if i < 0:
+                raise KeyError(f"no column {key!r}")
+            key = i
+        return self.columns[key]
+
+    def to_pydict(self) -> Dict[str, list]:
+        return {f.name: c.to_pylist()
+                for f, c in zip(self.schema.fields, self.columns)}

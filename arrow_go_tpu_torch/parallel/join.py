@@ -1,0 +1,141 @@
+"""Local sort-merge join core: join state and gather-free pair expansion.
+
+Port of the single-device part of arrow_go_tpu/parallel/join.py (the
+shard_map wrapper and the mesh stay in the JAX package). Phase 1
+(`join_sorted_state`) sorts both sides at once and counts matches with
+prefix sums and one forward fill (K2 on the card); phase 2 (`join_expand`) scatters each emitting position's
+owner fields to its first output slot and fills them forward with ONE
+running u64 max (ops/scan.py, K2 on the card). The right rank -> row
+map `rperm` comes from a stable compaction (K1 on the card).
+
+Only inner joins are ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.compaction import compact_flagged
+from ..ops.scan import cummax_u32, cummax_u64_lanes
+from ..ops.sort import lexsort_stable
+
+
+class JoinState(NamedTuple):
+    """Sorted-domain join state: everything the pair expansion needs, all
+    [N]-shaped (N = PL + PR)."""
+    starts_j: torch.Tensor     # [N] first output slot per position
+    emitting: torch.Tensor     # [N] bool: position emits >= 1 pair
+    is_left: torch.Tensor      # [N] bool (valid left row at position)
+    sorig: torch.Tensor        # [N] original row id at position
+    rank: torch.Tensor         # [N] right rank (R_incl - 1)
+    counts_pos: torch.Tensor   # [N] match count per left position
+    R_before: torch.Tensor     # [N] rights before the position's group
+    total: torch.Tensor        # 0-d: pairs to emit
+    rperm: torch.Tensor        # [PR] right rank -> original right row
+
+
+def _check_how(how: str) -> None:
+    if how != "inner":
+        raise NotImplementedError(f"join type {how!r} is not ported")
+
+
+def join_sorted_state(lkeys, lvalid, rkeys, rvalid,
+                      how: str = "inner") -> JoinState:
+    """Phase 1: one combined stable sort of [rights; lefts] on
+    (invalid flag, key) + prefix-sum match counts."""
+    _check_how(how)
+    PL, PR = lkeys.shape[0], rkeys.shape[0]
+    dev = lkeys.device
+    keys_all = torch.cat([rkeys, lkeys])
+    valid_all = torch.cat([rvalid, lvalid])
+    # side+orig fold into ONE i32 lane (side in bit 30). It is ascending
+    # in input order, so a stable sort on (flag, key) gives the JAX
+    # package's 4-key (flag, khi, klo, side_orig) order exactly.
+    side_orig = torch.cat([
+        torch.arange(PR, dtype=torch.int32, device=dev),
+        torch.arange(PL, dtype=torch.int32, device=dev) | (1 << 30)])
+    flag = ~valid_all
+    perm = lexsort_stable([flag.to(torch.int8), keys_all])
+    sflag = flag.index_select(0, perm)
+    skey = keys_all.index_select(0, perm)
+    sso = side_orig.index_select(0, perm)
+    sside = sso >> 30
+    sorig = (sso & ((1 << 30) - 1)).to(torch.int64)
+    start = torch.ones_like(sflag)
+    start[1:] = skey[1:] != skey[:-1]
+    start = start & ~sflag
+    is_right = (sside == 0) & ~sflag
+    is_left = (sside == 1) & ~sflag
+    R_incl = torch.cumsum(is_right.to(torch.int64), 0)
+    # rights before each group: marks at starts are monotone across
+    # groups, so a running max forward-fills them. Non-start slots hold
+    # 0, which gives the JAX package's max(cummax(marks or -1), 0).
+    R_before = cummax_u32(torch.where(start, R_incl - is_right.to(
+        torch.int64), 0))
+    counts_pos = torch.where(is_left, R_incl - R_before, 0)
+    emit_pos = counts_pos
+    offsets = torch.cumsum(emit_pos, 0)
+    total = offsets[-1]
+    rank = R_incl - 1
+    # rights in key-sorted order ARE rank order: the stable compaction
+    # of the right positions is the rank -> row map
+    rperm = compact_flagged(is_right, (sorig,))[0][:max(PR, 1)]
+    return JoinState(offsets - emit_pos, emit_pos > 0, is_left, sorig,
+                     rank, counts_pos, R_before, total, rperm)
+
+
+def join_expand(st: JoinState, cap_out: int):
+    """Phase 2: the gather-free pair expansion. Each emitting position
+    sets its first output slot (slots are distinct); the owner fields
+    ride two u64 packs whose high word is the (monotone) output base,
+    filled forward by one running max:
+
+      pack A: [base:32][owner_left:1][matched:1][orig_or_rank:30]
+      pack B: [base:32][R_before:32]
+
+    Returns (li, ri, overflow): li = original left rows, ri = right
+    KEY-SORTED ranks (-1 = no pair / padding)."""
+    dev = st.starts_j.device
+    overflow = st.total > cap_out
+    # scatter into cap_out + 1 slots; the last one takes the
+    # non-emitting positions and is dropped (JAX's mode="drop")
+    tgt = torch.where(st.emitting, torch.clamp(st.starts_j, 0, cap_out - 1),
+                      cap_out)
+    field = torch.where(st.is_left, st.sorig, st.rank)
+    lane_hi = st.starts_j
+    lane_a = ((st.is_left.to(torch.int64) << 31)
+              | ((st.counts_pos > 0).to(torch.int64) << 30) | field)
+    lane_b = torch.where(st.emitting, st.R_before, 0)
+
+    def scatter(lane):
+        buf = torch.zeros(cap_out + 1, dtype=torch.int64, device=dev)
+        buf.index_put_((tgt,), lane)
+        return buf[:cap_out]
+
+    fill_hi, fill_a, fill_b = cummax_u64_lanes(
+        scatter(lane_hi), [scatter(lane_a), scatter(lane_b)])
+    f_left = ((fill_a >> 31) & 1) != 0
+    f_match = ((fill_a >> 30) & 1) != 0
+    f_field = fill_a & ((1 << 30) - 1)
+    j = torch.arange(cap_out, dtype=torch.int64, device=dev)
+    r_rank = fill_b + (j - fill_hi)
+    in_range = j < st.total
+    li = torch.where(in_range & f_left, f_field, -1)
+    ri = torch.where(in_range & f_left & f_match, r_rank,
+                     torch.where(in_range & ~f_left, f_field, -1))
+    return li, ri, overflow
+
+
+def local_join_inner(lkeys, lvalid, rkeys, rvalid, cap_out: int,
+                     how: str = "inner"):
+    """Sort-merge inner join of one pair of key columns.
+
+    Returns (li[cap_out], ri[cap_out], rperm[PR], n_out, overflow):
+    li = original left row ids; ri = right-side KEY-SORTED ranks
+    (-1 = no match / padding); rperm[rank] = original right row.
+    Sides are limited to 2^30 rows per call (rank/id pack in 30 bits).
+    """
+    st = join_sorted_state(lkeys, lvalid, rkeys, rvalid, how)
+    li, ri, overflow = join_expand(st, cap_out)
+    return li, ri, st.rperm, st.total, overflow

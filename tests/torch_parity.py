@@ -1,0 +1,34 @@
+"""Helpers of the parity tests between arrow_go_tpu (JAX) and its
+PyTorch port: the same inputs, made from a seed with numpy, go to both."""
+import numpy as np
+
+import arrow_go_tpu as agt
+from arrow_go_tpu.device.block import batch_to_device as jax_batch_to_device
+
+import arrow_go_tpu_torch as agt_torch
+
+
+def jax_batch(data, masks=None):
+    """dict of numpy columns (+ optional validity masks by name, True =
+    valid) -> JAX DeviceBatch."""
+    masks = masks or {}
+    rb = agt.record_batch({k: agt.from_numpy(v, masks.get(k))
+                           for k, v in data.items()})
+    return jax_batch_to_device(rb)
+
+
+def port_batch(jdb):
+    """The port's DeviceBatch holding bit-identical copies of a JAX
+    DeviceBatch's padded values and validity words, on the CPU."""
+    fields = [(f.name, f.type.name) for f in jdb.schema.fields]
+    columns = [(np.asarray(c.values),
+                None if c.validity is None else np.asarray(c.validity))
+               for c in jdb.columns]
+    return agt_torch.batch_from_numpy(fields, columns, jdb.length,
+                                      device="cpu")
+
+
+def words_u32(t):
+    """The port's int32 validity words as the JAX package's uint32."""
+    return t.numpy().view(np.uint32)
+
