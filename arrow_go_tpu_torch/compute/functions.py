@@ -1,9 +1,10 @@
-"""Selection and sort functions: filter, take, sort_indices.
+"""Selection, sort and scalar aggregate functions.
 
 Port of the paths of arrow_go_tpu/compute/functions.py that the device
 pipeline runs: the DeviceBatch filter (every column rides the stable
-compaction, K1 on the card), take, and sort_indices with the small-host
-fast path for group-sized results.
+compaction, K1 on the card), take, sort_indices with the small-host
+fast path for group-sized results, and the scalar aggregates sum / min /
+max / mean / count / min_max (masked reductions, K3 on the card).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from .. import dtypes as dt
 from .. import torchenv
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             pad_length)
-from ..ops import bitmap, selection
+from ..ops import bitmap, reductions, selection
 from ..ops import sort as sort_ops
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
 
@@ -30,6 +31,11 @@ class FilterOptions:
 @dataclass
 class TakeOptions:
     bounds_check: bool = True
+
+
+@dataclass
+class CountOptions:
+    mode: str = "only_valid"              # 'only_valid' | 'only_null' | 'all'
 
 
 def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
@@ -212,6 +218,64 @@ def sort_indices(values, *, order: str = "ascending",
                             nulls_first=nulls_first)
     perm = sort_ops.argsort_single(key)
     return DeviceColumn(perm, None, values.length, dt.int64)
+
+
+# ---------------------------------------------------------------------------
+# scalar aggregates (reference compute "sum"/"min_max"/"count"/"mean")
+# ---------------------------------------------------------------------------
+
+def _as_device(values) -> DeviceColumn:
+    if not isinstance(values, DeviceColumn):
+        raise ArrowNotImplemented(
+            f"the port aggregates DeviceColumns, got {type(values).__name__}")
+    return values
+
+
+def _n_valid(col: DeviceColumn) -> int:
+    return int(reductions.count_valid(col.values, col.validity, col.length))
+
+
+def _reduce(values, op: str):
+    """One masked reduction as a Python scalar; None when no row is
+    valid."""
+    col = _as_device(values)
+    if _n_valid(col) == 0:
+        return None
+    return reductions.reduce(col.values, col.validity, col.length,
+                             op).item()
+
+
+def agg_sum(values, options=None):
+    return _reduce(values, "sum")
+
+
+def agg_min(values, options=None):
+    return _reduce(values, "min")
+
+
+def agg_max(values, options=None):
+    return _reduce(values, "max")
+
+
+def agg_mean(values, options=None):
+    col = _as_device(values)
+    if _n_valid(col) == 0:
+        return None
+    return reductions.mean(col.values, col.validity, col.length).item()
+
+
+def agg_count(values, options: Optional[CountOptions] = None):
+    options = options or CountOptions()
+    col = _as_device(values)
+    if options.mode == "only_valid":
+        return _n_valid(col)
+    if options.mode == "only_null":
+        return col.length - _n_valid(col)
+    return col.length
+
+
+def min_max(values, options=None):
+    return {"min": agg_min(values), "max": agg_max(values)}
 
 
 def _host_to_device(arr: HostArray, dev):

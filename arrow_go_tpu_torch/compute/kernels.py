@@ -1,8 +1,9 @@
 """Scalar (elementwise) kernels over device columns.
 
-Port of the arithmetic and comparison part of
+Port of the arithmetic, comparison and boolean part of
 arrow_go_tpu/compute/kernels.py (reference arrow/compute/arithmetic.go,
-internal/kernels/scalar_comparisons.go). Null semantics follow the
+internal/kernels/scalar_comparisons.go, scalar_bool.go). Null semantics
+of the plain kernels follow the
 executor-kernel contract NullHandling=Intersection (exec/kernel.go:457):
 output validity = AND of the input validity words.
 
@@ -112,3 +113,60 @@ def compare(op: str, a, b) -> DeviceColumn:
     out = _COMPARE[op](av, bv)
     return DeviceColumn(out, _out_validity(a, b), max(a.length, b.length),
                         dt.bool_)
+
+
+# ---------------------------------------------------------------------------
+# boolean kernels incl. Kleene (reference scalar_bool.go:123-140)
+# ---------------------------------------------------------------------------
+
+_BOOLEAN = {"and": torch.logical_and, "or": torch.logical_or}
+_KLEENE = ("and_kleene", "or_kleene")
+
+
+def _known(c: DeviceColumn) -> torch.Tensor:
+    if c.validity is None:
+        return torch.ones(c.padded, dtype=torch.bool, device=c.device)
+    return bitmap.expand_words(c.validity, c.padded)
+
+
+def kleene(op: str, a: DeviceColumn, b: DeviceColumn
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kleene logic (null = unknown): (values, known) of `op` on aligned
+    boolean columns."""
+    av, bv = a.values, b.values
+    a_known, b_known = _known(a), _known(b)
+    if op == "and_kleene":
+        out = av & bv
+        known = (a_known & b_known) | (a_known & ~av) | (b_known & ~bv)
+    elif op == "or_kleene":
+        out = av | bv
+        known = (a_known & b_known) | (a_known & av) | (b_known & bv)
+    else:
+        raise ArrowNotImplemented(f"boolean {op!r} is not ported")
+    return out, known
+
+
+def align_booleans(op: str, a, b) -> Tuple[DeviceColumn, DeviceColumn]:
+    a, b = _align(a, b)
+    if a.type != dt.bool_ or b.type != dt.bool_:
+        raise ArrowNotImplemented(f"{op} requires booleans")
+    return a, b
+
+
+def boolean_binary(op: str, a, b) -> DeviceColumn:
+    """and / or (nulls intersect) and and_kleene / or_kleene. A Kleene
+    result whose every row is known carries no validity words."""
+    a, b = align_booleans(op, a, b)
+    n = max(a.length, b.length)
+    if op in _BOOLEAN:
+        return DeviceColumn(_BOOLEAN[op](a.values, b.values),
+                            _out_validity(a, b), n, dt.bool_)
+    out, known = kleene(op, a, b)
+    validity = None if bool(known.all()) else bitmap.pack_mask(known)
+    return DeviceColumn(out, validity, n, dt.bool_)
+
+
+def invert(a: DeviceColumn) -> DeviceColumn:
+    if a.type != dt.bool_:
+        raise ArrowNotImplemented("invert requires boolean")
+    return DeviceColumn(~a.values, a.validity, a.length, dt.bool_)

@@ -1,6 +1,6 @@
 """Logical types of the port: the subset of the JAX package's dtypes that
-the device pipeline carries (bool, int32, int64, float64), with the
-same names and type ids, plus the torch dtype of each."""
+the device pipeline carries (bool, int32, int64, float32, float64), with
+the same names and type ids, plus the torch dtype of each."""
 from __future__ import annotations
 
 import enum
@@ -16,6 +16,7 @@ class TypeId(enum.IntEnum):
     BOOL = 1
     INT32 = 7
     INT64 = 9
+    FLOAT32 = 11
     FLOAT64 = 12
 
 
@@ -34,7 +35,7 @@ class DataType:
 
     @property
     def is_floating(self) -> bool:
-        return self.id == TypeId.FLOAT64
+        return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
 
     @property
     def is_numeric(self) -> bool:
@@ -55,16 +56,19 @@ class DataType:
 bool_ = DataType(TypeId.BOOL, "bool", np.bool_, torch.bool)
 int32 = DataType(TypeId.INT32, "int32", np.int32, torch.int32)
 int64 = DataType(TypeId.INT64, "int64", np.int64, torch.int64)
+float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32)
 float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64)
 
 _BY_NAME: Dict[str, DataType] = {
-    "bool": bool_, "int32": int32, "int64": int64,
-    "double": float64, "float64": float64}
-_FROM_NUMPY = {t.np_dtype: t for t in (bool_, int32, int64, float64)}
+    "bool": bool_, "int32": int32, "int64": int64, "float": float32,
+    "float32": float32, "double": float64, "float64": float64}
+_FROM_NUMPY = {t.np_dtype: t for t in (bool_, int32, int64, float32,
+                                       float64)}
 
 
 def type_for_name(name: str) -> DataType:
-    """Type by its name ('int32', 'int64', 'double' or 'float64', 'bool')."""
+    """Type by its name ('int32', 'int64', 'float' or 'float32', 'double'
+    or 'float64', 'bool')."""
     try:
         return _BY_NAME[name]
     except KeyError:

@@ -1,8 +1,9 @@
 """Parity of the port's operators with the JAX package on inputs with
 nulls, on the CPU: filter indices and the DeviceBatch filter in both
 null-selection modes, joins on null
-and multi-column keys, group-by on null keys and null values, and the
-checked arithmetic's overflow error.
+and multi-column keys, group-by on null keys and null values, the
+checked arithmetic's overflow error, and the boolean kernels (Kleene
+logic included).
 
 Ints, bitmaps and counts must match bit for bit; float sums agree to
 rtol=1e-9; padded outputs are compared over their [0, count) prefix.
@@ -144,3 +145,36 @@ def test_checked_integer_overflow_raises_like_jax(op):
     got = kernels.arithmetic_binary(op, tok.column("a"), tok.column("b"))
     np.testing.assert_array_equal(got.values.numpy()[:2],
                                   np.asarray(want.values)[:2])
+
+
+@pytest.mark.parametrize("with_nulls", [False, True])
+@pytest.mark.parametrize("op", ["and", "or", "and_kleene", "or_kleene",
+                                "invert"])
+def test_boolean_kernels_match_jax(rng, op, with_nulls):
+    """The boolean kernels (Q6's conjunction), called directly and
+    through an expression, with and without nulls."""
+    from arrow_go_tpu import dtypes as jdt
+    from arrow_go_tpu.compute import kernels as jkernels
+    from arrow_go_tpu.device.block import DeviceBatch as JaxDeviceBatch
+    from arrow_go_tpu_torch import dtypes as tdt
+    from arrow_go_tpu_torch.device.block import DeviceBatch
+    n = 3000
+    data = {"a": rng.random(n) < 0.5, "b": rng.random(n) < 0.5}
+    masks = {"a": rng.random(n) > 0.2, "b": rng.random(n) > 0.2} \
+        if with_nulls else None
+    jdb = jax_batch(data, masks)
+    tdb = port_batch(jdb)
+    args = ["a"] if op == "invert" else ["a", "b"]
+    expr_j = jpc.call(op, [jpc.field(c) for c in args])
+    expr_t = pc.call(op, [pc.field(c) for c in args])
+    direct = (kernels.invert(tdb.column("a")),
+              jkernels.invert(jdb.column("a"))) if op == "invert" else (
+        kernels.boolean_binary(op, tdb.column("a"), tdb.column("b")),
+        jkernels.boolean_binary(op, jdb.column("a"), jdb.column("b")))
+    via_expr = (pc.execute_scalar_expression(expr_t, tdb),
+                jpc.execute_scalar_expression(expr_j, jdb))
+    for tcol, jcol in (direct, via_expr):
+        _assert_columns_equal(
+            DeviceBatch(tdt.Schema([tdt.Field("x", tdt.bool_)]), [tcol], n),
+            JaxDeviceBatch(jdt.Schema([jdt.Field("x", jdt.bool_)]), [jcol],
+                           n))

@@ -208,3 +208,13 @@ def test_sort_indices_and_take_match_jax(order):
                                order=order, device="cpu")
         assert tidx.to_pylist() == jidx.to_pylist()
     assert pc.take(tarr, tidx).to_pylist() == jpc.take(jarr, jidx).to_pylist()
+
+
+@pytest.mark.parametrize("a", ["int32", "int64", "float32", "float64"])
+@pytest.mark.parametrize("b", ["int32", "int64", "float32", "float64"])
+def test_common_numeric_type_matches_jax(a, b):
+    """Implicit casts of the binary kernels, float32 included."""
+    from arrow_go_tpu.compute.kernels import common_numeric_type
+    want = common_numeric_type(getattr(jdt, a), getattr(jdt, b))
+    got = tdt.common_numeric_type(tdt.type_for_name(a), tdt.type_for_name(b))
+    assert got.name == want.name and got.np_dtype == want.np_dtype
