@@ -12,9 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, List, Sequence, Union
 
-from .. import dtypes as dt
 from ..device.block import DeviceBatch, DeviceColumn
-from ..ops import bitmap
 from . import kernels
 from .errors import ArrowInvalid, ArrowKeyError
 
@@ -91,21 +89,11 @@ def _apply(fname: str, args: List[Any]):
                                          checked=False)
     if fname in kernels._COMPARE:
         return kernels.compare(fname, args[0], args[1])
-    if fname in kernels._BOOLEAN:
+    if fname in kernels._BOOLEAN or fname in kernels._KLEENE:
         return kernels.boolean_binary(fname, args[0], args[1])
-    if fname in kernels._KLEENE:
-        return _kleene_no_sync(fname, args[0], args[1])
     if fname == "invert":
         return kernels.invert(args[0])
     raise ArrowKeyError(f"expression function {fname!r} is not ported")
-
-
-def _kleene_no_sync(op: str, a, b) -> DeviceColumn:
-    """Kleene logic without the all-known host check of
-    kernels.boolean_binary: the validity words are always packed."""
-    a, b = kernels.align_booleans(op, a, b)
-    out, known = kernels.kleene(op, a, b)
-    return DeviceColumn(out, bitmap.pack_mask(known), a.length, dt.bool_)
 
 
 def execute_scalar_expression(expr: Expression, batch: DeviceBatch) -> Any:

@@ -129,11 +129,19 @@ def _known(c: DeviceColumn) -> torch.Tensor:
     return bitmap.expand_words(c.validity, c.padded)
 
 
-def kleene(op: str, a: DeviceColumn, b: DeviceColumn
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kleene logic (null = unknown): (values, known) of `op` on aligned
-    boolean columns."""
+def boolean_binary(op: str, a, b) -> DeviceColumn:
+    """and / or (nulls intersect) and and_kleene / or_kleene (null =
+    unknown). A Kleene result always carries its validity words, so no
+    host sync decides their presence: where the JAX package drops the
+    words of an all-known result, these words are all set."""
+    a, b = _align(a, b)
+    if a.type != dt.bool_ or b.type != dt.bool_:
+        raise ArrowNotImplemented(f"{op} requires booleans")
     av, bv = a.values, b.values
+    n = max(a.length, b.length)
+    if op in _BOOLEAN:
+        return DeviceColumn(_BOOLEAN[op](av, bv), _out_validity(a, b), n,
+                            dt.bool_)
     a_known, b_known = _known(a), _known(b)
     if op == "and_kleene":
         out = av & bv
@@ -143,27 +151,7 @@ def kleene(op: str, a: DeviceColumn, b: DeviceColumn
         known = (a_known & b_known) | (a_known & av) | (b_known & bv)
     else:
         raise ArrowNotImplemented(f"boolean {op!r} is not ported")
-    return out, known
-
-
-def align_booleans(op: str, a, b) -> Tuple[DeviceColumn, DeviceColumn]:
-    a, b = _align(a, b)
-    if a.type != dt.bool_ or b.type != dt.bool_:
-        raise ArrowNotImplemented(f"{op} requires booleans")
-    return a, b
-
-
-def boolean_binary(op: str, a, b) -> DeviceColumn:
-    """and / or (nulls intersect) and and_kleene / or_kleene. A Kleene
-    result whose every row is known carries no validity words."""
-    a, b = align_booleans(op, a, b)
-    n = max(a.length, b.length)
-    if op in _BOOLEAN:
-        return DeviceColumn(_BOOLEAN[op](a.values, b.values),
-                            _out_validity(a, b), n, dt.bool_)
-    out, known = kleene(op, a, b)
-    validity = None if bool(known.all()) else bitmap.pack_mask(known)
-    return DeviceColumn(out, validity, n, dt.bool_)
+    return DeviceColumn(out, bitmap.pack_mask(known), n, dt.bool_)
 
 
 def invert(a: DeviceColumn) -> DeviceColumn:

@@ -42,7 +42,6 @@
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define UNROLL 4
-#define MAX_PARTIALS 4096  // partials the caller allocates: a grid cap
 
 enum { OP_SUM = 0, OP_PROD = 1, OP_MIN = 2, OP_MAX = 3 };
 enum { DT_INT32 = 0, DT_INT64 = 1, DT_FLOAT32 = 2, DT_FLOAT64 = 3 };
@@ -192,47 +191,54 @@ static int resident_blocks(K kernel) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
   const int r = sms * per_sm;
-  return r < 1 ? 1 : r > MAX_PARTIALS ? MAX_PARTIALS : r;
+  return r < 1 ? 1 : r;
 }
 
 template <typename T, typename A, int OP, bool VALID>
 static int launch(const void* vals, const void* words, long long n,
-                  int aligned, void* partials, void* out, cudaStream_t s) {
+                  int aligned, void* partials, int max_partials, void* out,
+                  cudaStream_t s) {
   const auto kernel = reduce_pass1<T, A, OP, VALID>;
   static const int resident = resident_blocks(kernel);  // per kernel
   constexpr int VEC = 16 / sizeof(T);
   const long long need = ((n + VEC - 1) / VEC + THREADS - 1) / THREADS;
-  const int grid = need < 1 ? 1 : need < resident ? (int)need : resident;
-  kernel<<<grid, THREADS, 0, s>>>(static_cast<const T*>(vals),
+  long long grid = need < resident ? need : resident;
+  if (grid > max_partials) grid = max_partials;  // one partial per block
+  if (grid < 1) grid = 1;
+  kernel<<<(int)grid, THREADS, 0, s>>>(static_cast<const T*>(vals),
                                   static_cast<const uint32_t*>(words), n,
                                   aligned, static_cast<A*>(partials));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   reduce_pass2<A, OP><<<1, THREADS, 0, s>>>(static_cast<const A*>(partials),
-                                            grid, static_cast<A*>(out));
+                                            (int)grid, static_cast<A*>(out));
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename A, int OP>
 static int launch(const void* vals, const void* words, long long n,
-                  int aligned, void* partials, void* out, cudaStream_t s) {
+                  int aligned, void* partials, int max_partials, void* out,
+                  cudaStream_t s) {
   return words ? launch<T, A, OP, true>(vals, words, n, aligned, partials,
-                                        out, s)
+                                        max_partials, out, s)
                : launch<T, A, OP, false>(vals, words, n, aligned, partials,
-                                         out, s);
+                                         max_partials, out, s);
 }
 
 // vals: n values (dtype); words: validity words (u32, LSB-first) or
-// null; aligned: vals is 16-byte aligned; partials: MAX_PARTIALS
-// accumulators of scratch; out: one accumulator. Returns a CUDA error
-// code.
+// null; aligned: vals is 16-byte aligned; partials: max_partials (>= 1)
+// accumulators of scratch, which cap pass 1's grid; out: one
+// accumulator. Returns a CUDA error code.
 extern "C" int agt_reduce(int dtype, int op, const void* vals,
                           const void* words, long long n, int aligned,
-                          void* partials, void* out, void* stream) {
+                          void* partials, int max_partials, void* out,
+                          void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (max_partials < 1) return (int)cudaErrorInvalidValue;
 #define K3_CASE(D, O, T, A) \
   case D * 4 + O:           \
-    return launch<T, A, O>(vals, words, n, aligned, partials, out, s);
+    return launch<T, A, O>(vals, words, n, aligned, partials, max_partials, \
+                           out, s);
   switch (dtype * 4 + op) {
     K3_CASE(DT_INT32, OP_SUM, int, unsigned long long)
     K3_CASE(DT_INT32, OP_PROD, int, unsigned int)

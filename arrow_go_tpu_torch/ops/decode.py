@@ -212,24 +212,6 @@ def rle_hybrid_decode_device(seg_starts: torch.Tensor,
     return torch.where(run, pay, packed_vals)
 
 
-def segments_to_device(tables, device) -> tuple:
-    """parse_rle_segments' numpy tables -> the tensors
-    rle_hybrid_decode_device takes."""
-    st, ir, pay, words = tables
-    return (torch.from_numpy(st.astype(np.int64)).to(device),
-            torch.from_numpy(ir.astype(np.bool_)).to(device),
-            torch.from_numpy(np.ascontiguousarray(pay, np.int64)).to(device),
-            torch.from_numpy(words.view(np.int32).copy()).to(device))
-
-
-def rle_decode_device(data, n: int, bit_width: int,
-                      device="cpu") -> torch.Tensor:
-    """Convenience: host control parse + device decode in one call."""
-    tables = parse_rle_segments(data, n, bit_width)
-    return rle_hybrid_decode_device(*segments_to_device(tables, device),
-                                    bit_width, n)
-
-
 # ---------------------------------------------------------------------------
 # PLAIN, BYTE_STREAM_SPLIT, dictionary
 # ---------------------------------------------------------------------------

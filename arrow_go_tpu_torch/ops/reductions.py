@@ -34,7 +34,7 @@ OPS = ("sum", "prod", "min", "max")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}                 # OP_* in K3
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}                               # DT_* in K3
-_MAX_PARTIALS = 4096                             # MAX_PARTIALS in K3
+_PARTIALS = 4096                # K3's scratch: caps its pass-1 grid
 _ctypes_ready = False
 
 
@@ -123,7 +123,8 @@ def _lib():
     if not _ctypes_ready:
         p = ctypes.c_void_p
         lib.agt_reduce.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
-                                   ctypes.c_longlong, ctypes.c_int, p, p, p]
+                                   ctypes.c_longlong, ctypes.c_int, p,
+                                   ctypes.c_int, p, p]
         lib.agt_reduce.restype = ctypes.c_int
         _ctypes_ready = True
     return lib
@@ -149,12 +150,12 @@ def _reduce_cuda(values: torch.Tensor, validity: Optional[torch.Tensor],
     lib = _lib()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        partials = torch.empty(_MAX_PARTIALS, dtype=acc, device=values.device)
+        partials = torch.empty(_PARTIALS, dtype=acc, device=values.device)
         out = torch.empty((), dtype=acc, device=values.device)
         cuda_build.check(lib.agt_reduce(
             _DTYPE_CODE[values.dtype], _OP_CODE[op], values.data_ptr(),
             None if validity is None else validity.data_ptr(), n,
             int(values.data_ptr() % 16 == 0), partials.data_ptr(),
-            out.data_ptr(), stream), "K3 reduce")
+            partials.numel(), out.data_ptr(), stream), "K3 reduce")
     reduce.launches += 1
     return out

@@ -249,7 +249,14 @@ def _plan_fused(splits, desc, np_dtype, has_dict, stager, host):
     decode (the JAX package's _fused_chunk_read; reference
     parquet/pqarrow/file_reader.go reads a chunk at a time). Returns the
     decode, or None when a page needs the per-page path (mixed
-    encodings, BYTE_STREAM_SPLIT, BOOLEAN, varying dictionary widths)."""
+    encodings, BYTE_STREAM_SPLIT, BOOLEAN, varying dictionary widths).
+
+    The per-page path could decode these chunks too, but the slot of a
+    null row ahead of its page's first present row would then hold that
+    row's value, where this path, as the JAX package's, holds the last
+    present value before it in the chunk. Each path matches its JAX
+    counterpart bit for bit, null slots included. chip_smoke.py times
+    the scan both ways (its `scan_page_by_page` line)."""
     if not splits:
         return None
     encs = {s[3] for s in splits}

@@ -9,7 +9,9 @@ without one. Phases:
      against their plain PyTorch versions over a sweep of lengths,
      densities and types: K1 and K2 bit for bit, K3 bit for bit for
      ints, min, max and (exact) products, float sums at rtol 1e-9 (f64)
-     and 1e-5 (f32), and every K3 result identical over two launches;
+     and 1e-5 (f32), and every K3 result identical over two launches
+     (K3 again, in phase 6, on the very columns Q6 and the summary
+     reduce);
   4. Q3 (filter -> hash join -> group-by -> sort, the pipeline of
      benchmarks/engine_e2e.py) from device-resident batches at TPC-H
      SF10 scale (59,986,052 lineitem rows), checked against a numpy
@@ -18,7 +20,8 @@ without one. Phases:
      torch.profiler: device time by kernel and the device's idle share;
   5. the same tables (plus l_qty) written to parquet bytes by the
      port's writer, then scanned onto the card (read_batch_device),
-     with the host-parse / host-to-device / device-decode split;
+     with the host-parse / host-to-device / device-decode split, once
+     as it runs and once with every chunk decoded page by page;
   6. from parquet bytes: TPC-H Q6 (predicate -> filter -> expression ->
      SUM/COUNT), the lineitem summary aggregates, and Q3, each checked
      against a numpy oracle, each with its kernels' launch counts;
@@ -39,6 +42,7 @@ import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -49,6 +53,7 @@ from arrow_go_tpu_torch import cuda_build, dtypes as dt
 from arrow_go_tpu_torch import parquet as tpq
 from arrow_go_tpu_torch.device.block import DeviceBatch, HostBatch
 from arrow_go_tpu_torch.ops import bitmap, compaction, reductions, scan
+from arrow_go_tpu_torch.parquet import device_read
 
 LINEITEM_SF1 = 6_001_215          # TPC-H spec 4.2.5: lineitem rows at SF1
 LINEITEM_SF10 = 59_986_052        # ... and at SF10
@@ -174,6 +179,15 @@ def q6_expression():
     return pred
 
 
+def q6_revenue(li_db: DeviceBatch):
+    """Q6 up to its aggregates: l_price * l_disc over the rows that pass
+    the WHERE clause (the column Q6's SUM reduces)."""
+    mask = pc.execute_scalar_expression(q6_expression(), li_db)
+    li_f = pc.filter(project(li_db, ["l_price", "l_disc"]), mask)
+    return pc.execute_scalar_expression(
+        pc.call("multiply", [pc.field("l_price"), pc.field("l_disc")]), li_f)
+
+
 def compute_q6(li_db: DeviceBatch) -> dict:
     """The port's TPC-H Q6:
 
@@ -181,10 +195,7 @@ def compute_q6(li_db: DeviceBatch) -> dict:
         WHERE l_sdate >= 8766 AND l_sdate < 9131
           AND l_disc >= 0.05 AND l_disc <= 0.07 AND l_qty < 24
     """
-    mask = pc.execute_scalar_expression(q6_expression(), li_db)
-    li_f = pc.filter(project(li_db, ["l_price", "l_disc"]), mask)
-    rev = pc.execute_scalar_expression(
-        pc.call("multiply", [pc.field("l_price"), pc.field("l_disc")]), li_f)
+    rev = q6_revenue(li_db)
     return {"revenue": pc.agg_sum(rev),
             "count": pc.agg_count(rev, pc.CountOptions("all"))}
 
@@ -215,6 +226,13 @@ def compute_summary(li_db: DeviceBatch) -> dict:
             "sum_qty": pc.agg_sum(qty), "min_sdate": pc.agg_min(sdate),
             "max_sdate": pc.agg_max(sdate), "avg_price": pc.agg_mean(price),
             "sum_price": pc.agg_sum(price)}
+
+
+def summary_reductions(li_db: DeviceBatch) -> list:
+    """(column, op) of the K3 launches of compute_summary (AVG(l_price)
+    reduces as SUM(l_price) does)."""
+    qty, sdate, price = (li_db.column(c) for c in SUMMARY_COLUMNS)
+    return [(qty, "sum"), (sdate, "min"), (sdate, "max"), (price, "sum")]
 
 
 def summary_oracle(li) -> dict:
@@ -516,6 +534,25 @@ def check_k3(dev, sizes=K3_SIZES) -> float:
     return err
 
 
+def check_k3_at(what: str, reductions_of_path) -> float:
+    """K3 against its plain version on the very inputs a path hands it:
+    each (column, op) reduced as agg_* reduces it (values, validity
+    words, length), compared as check_k3 compares."""
+    err = 0.0
+    for col, op in reductions_of_path:
+        x, w, n = col.values, col.validity, col.length
+        err = max(err, _k3_compare(
+            reductions.reduce(x, w, n, op), reductions.reduce(x, w, n, op),
+            reductions.reduce_plain(x, w, n, op), x.dtype, op,
+            f"{what} {x.dtype} {op} n={n} P={x.shape[0]}"))
+    shapes = sorted({(c.length, c.padded, str(c.values.dtype))
+                     for c, _ in reductions_of_path})
+    print(f"K3 at the {what} shapes (n, P, dtype) {shapes}: "
+          f"{len(reductions_of_path)} reductions agree with the plain "
+          f"version; max |kernel - plain| {err!r}", flush=True)
+    return err
+
+
 def time_k3(dev, P: int, n: int) -> list:
     """K3 at the lineitem summary's shape (P padded rows, n real): an
     f64 sum without validity (SUM(l_price)) and an int32 min with
@@ -647,6 +684,30 @@ def check_scan(dbs: dict, sources: dict) -> None:
                 raise AssertionError(f"scan {tname}.{name}: values differ")
 
 
+def time_scan(blobs: dict, dev, sources: dict) -> dict:
+    """Three scans of every column of both files, the first checked
+    against the numpy sources: each run's ms, and the median run's
+    host-parse / host-to-device / device-decode split."""
+    runs = []
+    for i in range(3):
+        phases = {}
+        t = time.perf_counter()
+        dbs = {k: scan_parquet(b, device=dev, times=phases)
+               for k, b in blobs.items()}
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t) * 1e3, phases))
+        if i == 0:
+            check_scan(dbs, sources)
+        del dbs
+    med = sorted(runs, key=lambda r: r[0])[1]
+    file_bytes = sum(len(b) for b in blobs.values())
+    return {"ms_runs": [r[0] for r in runs], "ms_median": med[0],
+            "median_split_ms": {k[:-2] + "_ms": v * 1e3
+                                for k, v in med[1].items()},
+            "file_bytes": file_bytes,
+            "file_gb_per_s": file_bytes / med[0] / 1e6, "verified": True}
+
+
 def _print_ptxas(names) -> None:
     """Each source's kernels: how many, their registers, and any spill."""
     for name in names:
@@ -733,28 +794,16 @@ def main(argv=None) -> int:
         "write_s": write_s, "bytes": {k: len(b) for k, b in blobs.items()},
         "encodings": encodings}}), flush=True)
 
-    # scan: both files, every column, three runs with the phase split
+    # scan: both files, every column, three runs with the phase split;
+    # then the same with every chunk decoded page by page (as chunks of
+    # mixed encodings, BOOLEAN or BYTE_STREAM_SPLIT are): what the fused
+    # chunk decode saves
     sources = {"lineitem": li, "orders": orders}
-    scan_runs = []
-    for i in range(3):
-        phases = {}
-        t = time.perf_counter()
-        dbs = {k: scan_parquet(b, device=dev, times=phases)
-               for k, b in blobs.items()}
-        torch.cuda.synchronize()
-        scan_runs.append(((time.perf_counter() - t) * 1e3, phases))
-        if i == 0:
-            check_scan(dbs, sources)
-    del dbs
-    scan_ms = sorted(scan_runs, key=lambda r: r[0])[1]
-    file_bytes = sum(len(b) for b in blobs.values())
-    print(json.dumps({"scan": {
-        "ms_runs": [r[0] for r in scan_runs], "ms_median": scan_ms[0],
-        "median_split_ms": {k[:-2] + "_ms": v * 1e3
-                            for k, v in scan_ms[1].items()},
-        "file_bytes": file_bytes,
-        "file_gb_per_s": file_bytes / scan_ms[0] / 1e6,
-        "verified": True}}), flush=True)
+    print(json.dumps({"scan": time_scan(blobs, dev, sources)}), flush=True)
+    with mock.patch.object(device_read, "_plan_fused", lambda *a: None):
+        print(json.dumps({"scan_page_by_page": time_scan(blobs, dev,
+                                                         sources)}),
+              flush=True)
 
     # Q6 from parquet bytes
     q6_cols = ["l_price", "l_disc", "l_sdate", "l_qty"]
@@ -765,6 +814,7 @@ def main(argv=None) -> int:
     got, q6_launches = run_path("Q6", q6_from_bytes, ("K1", "K3"))
     check_q6(got, q6_want)
     li_q6 = scan_parquet(blobs["lineitem"], q6_cols, dev)
+    k3_err = max(k3_err, check_k3_at("Q6", [(q6_revenue(li_q6), "sum")]))
     outs, compute_runs = timed(lambda: compute_q6(li_q6))
     del li_q6
     outs_e2e, e2e_runs = timed(q6_from_bytes)
@@ -788,6 +838,7 @@ def main(argv=None) -> int:
             blobs["lineitem"], SUMMARY_COLUMNS, dev)), ("K3",))
     check_summary(got, sum_want)
     li_sum = scan_parquet(blobs["lineitem"], SUMMARY_COLUMNS, dev)
+    k3_err = max(k3_err, check_k3_at("summary", summary_reductions(li_sum)))
     outs, sum_runs = timed(lambda: compute_summary(li_sum))
     del li_sum
     for out in outs:

@@ -19,6 +19,16 @@ def _vals(rng, n: int, bw: int) -> np.ndarray:
     return rng.integers(0, 2 ** bw, n, dtype=np.uint64).astype(np.uint32)
 
 
+def _rle_decode(stream, n: int, bw: int) -> np.ndarray:
+    """The port's RLE/bit-packed decode as the scan runs it: the host
+    parse, then the segment tables decoded as CPU tensors."""
+    st, ir, pay, words = tdd.parse_rle_segments(stream, n, bw)
+    return tdd.rle_hybrid_decode_device(
+        torch.from_numpy(st.astype(np.int64)),
+        torch.from_numpy(ir.astype(np.bool_)), torch.from_numpy(pay),
+        torch.from_numpy(words.view(np.int32).copy()), bw, n).numpy()
+
+
 def _runs(rng, n: int, bw: int) -> np.ndarray:
     """Long constant runs (RLE) mixed with noise (bit-packed groups)."""
     vals = np.empty(n, np.uint32)
@@ -55,7 +65,7 @@ def test_rle_hybrid_decode_device(rng, bw, encoder):
     tables = tdd.parse_rle_segments(stream, n, bw)
     for got, want in zip(tables, jdd.parse_rle_segments(stream, n, bw)):
         np.testing.assert_array_equal(got, want)
-    got = tdd.rle_decode_device(stream, n, bw).numpy()
+    got = _rle_decode(stream, n, bw)
     np.testing.assert_array_equal(
         got, np.asarray(jdd.rle_decode_device(stream, n, bw)))
     np.testing.assert_array_equal(got, vals)
@@ -89,12 +99,11 @@ def test_parse_rle_segments_takes_equal_runs_together(rng, cut):
         np.testing.assert_array_equal(g, w)
     assert len(got[0]) > 5
     if cut != "bytes_mid_run":
-        np.testing.assert_array_equal(
-            tdd.rle_decode_device(stream, n, 9).numpy(), vals[:n])
+        np.testing.assert_array_equal(_rle_decode(stream, n, 9), vals[:n])
 
 
 def test_rle_decode_device_zero_width():
-    assert tdd.rle_decode_device(b"", 7, 0).tolist() == [0] * 7
+    assert _rle_decode(b"", 7, 0).tolist() == [0] * 7
 
 
 def test_levels_stream_decode_device(rng):
@@ -103,7 +112,7 @@ def test_levels_stream_decode_device(rng):
     levels = (rng.random(4096) < 0.9).astype(np.uint32)
     stream = tenc.levels_encode_v1(levels, 1)
     oracle, used = jenc.levels_decode_v1(stream, len(levels), 1)
-    got = tdd.rle_decode_device(stream[4:used], len(levels), 1).numpy()
+    got = _rle_decode(stream[4:used], len(levels), 1)
     np.testing.assert_array_equal(got, oracle)
 
 

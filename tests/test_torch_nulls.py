@@ -157,7 +157,7 @@ def test_boolean_kernels_match_jax(rng, op, with_nulls):
     from arrow_go_tpu.compute import kernels as jkernels
     from arrow_go_tpu.device.block import DeviceBatch as JaxDeviceBatch
     from arrow_go_tpu_torch import dtypes as tdt
-    from arrow_go_tpu_torch.device.block import DeviceBatch
+    from arrow_go_tpu_torch.device.block import DeviceBatch, DeviceColumn
     n = 3000
     data = {"a": rng.random(n) < 0.5, "b": rng.random(n) < 0.5}
     masks = {"a": rng.random(n) > 0.2, "b": rng.random(n) > 0.2} \
@@ -174,6 +174,13 @@ def test_boolean_kernels_match_jax(rng, op, with_nulls):
     via_expr = (pc.execute_scalar_expression(expr_t, tdb),
                 jpc.execute_scalar_expression(expr_j, jdb))
     for tcol, jcol in (direct, via_expr):
+        if jcol.validity is None and op.endswith("_kleene"):
+            # the JAX kernel drops an all-known result's words after a
+            # host check; the port keeps them, every bit in [0, n) set
+            bits = np.unpackbits(words_u32(tcol.validity).view(np.uint8),
+                                 bitorder="little")[:n]
+            assert bits.all()
+            tcol = DeviceColumn(tcol.values, None, tcol.length, tcol.type)
         _assert_columns_equal(
             DeviceBatch(tdt.Schema([tdt.Field("x", tdt.bool_)]), [tcol], n),
             JaxDeviceBatch(jdt.Schema([jdt.Field("x", jdt.bool_)]), [jcol],
