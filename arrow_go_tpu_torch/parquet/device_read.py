@@ -170,45 +170,6 @@ def _split_page(hdr, body, desc, codec):
     return nv, def_stream, vals_raw, fmt.Encoding(dph.encoding or 0)
 
 
-def _cat_rle_tables(tables, nvs):
-    """Concatenate per-page parse_rle_segments tables into ONE table over
-    the whole column chunk: output indices shift by the running value
-    count, packed-group bit offsets by the running word count (each
-    page's word stream is word-aligned, so offsets stay exact)."""
-    sts, irs, pays, words = [], [], [], []
-    out_off = 0
-    word_off = 0
-    for (s, i, p, w), nv in zip(tables, nvs):
-        sts.append(s.astype(np.int64) + out_off)
-        irs.append(i)
-        pays.append(np.where(i == 1, p.astype(np.int64),
-                             p.astype(np.int64) + word_off * 32))
-        words.append(w)
-        out_off += nv
-        word_off += len(w)
-    return (np.concatenate(sts), np.concatenate(irs), np.concatenate(pays),
-            np.concatenate(words))
-
-
-def _count_ones_rle(table, nv: int) -> int:
-    """Host count of 1-bits in a parsed bit-width-1 RLE/packed stream
-    (per-page present count; control-plane only)."""
-    st, ir, pay, words = table
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    total = 0
-    for s in range(len(st)):
-        start = int(st[s])
-        end = int(st[s + 1]) if s + 1 < len(st) else nv
-        end = min(end, nv)
-        cnt = max(end - start, 0)
-        if ir[s] == 1:
-            total += cnt * int(pay[s] & 1)
-        else:
-            b0 = int(pay[s])
-            total += int(bits[b0:b0 + cnt].sum())
-    return total
-
-
 # ---------------------------------------------------------------------------
 # host plans and their device decodes
 # ---------------------------------------------------------------------------
@@ -244,79 +205,14 @@ def _spread(dense: torch.Tensor, present: Optional[torch.Tensor]):
     return dense.index_select(0, pos)
 
 
-def _plan_fused(splits, desc, np_dtype, has_dict, stager, host):
-    """ALL data pages of a column chunk as one buffer per stream and ONE
-    decode (the JAX package's _fused_chunk_read; reference
-    parquet/pqarrow/file_reader.go reads a chunk at a time). Returns the
-    decode, or None when a page needs the per-page path (mixed
-    encodings, BYTE_STREAM_SPLIT, BOOLEAN, varying dictionary widths).
-
-    The per-page path could decode these chunks too, but the slot of a
-    null row ahead of its page's first present row would then hold that
-    row's value, where this path, as the JAX package's, holds the last
-    present value before it in the chunk. Each path matches its JAX
-    counterpart bit for bit, null slots included. chip_smoke.py times
-    the scan both ways (its `scan_page_by_page` line)."""
-    if not splits:
-        return None
-    encs = {s[3] for s in splits}
-    if encs == {fmt.Encoding.PLAIN} and \
-            desc.physical_type != fmt.Type.BOOLEAN:
-        kind = "plain"
-    elif encs <= _DICT_ENCODINGS:
-        if len({s[2][0] for s in splits}) != 1:
-            return None
-        kind = "dict"
-        width = splits[0][2][0]
-    else:
-        return None
-
-    nvs = [s[0] for s in splits]
-    total_nv = sum(nvs)
-    def_tables = None
-    if desc.max_def_level > 0:
-        def_tables = [dd.parse_rle_segments(s[1], nv, 1)
-                      for s, nv in zip(splits, nvs)]
-        _stage_rle(stager, host, "def", _cat_rle_tables(def_tables, nvs))
-
-    if kind == "plain":
-        k = np.dtype(np_dtype).itemsize
-        parts = []
-        n_present = 0
-        for nv, _ds, vals_raw, _e in splits:
-            npre = min(len(vals_raw) // k, nv)
-            parts.append(vals_raw[: npre * k])
-            n_present += npre
-        host["raw"] = stager.bytes(parts)
-
-        def dense(d):
-            return _pad(dd.plain_decode_device(d["raw"], np_dtype, n_present),
-                        total_nv)
-    else:
-        if not has_dict:
-            raise ArrowInvalid("dictionary page missing")
-        # the code stream holds only PRESENT values: pages concatenate at
-        # their present counts (host-counted from the def tables)
-        npres = nvs if def_tables is None else [
-            _count_ones_rle(tb, nv) for tb, nv in zip(def_tables, nvs)]
-        total_present = sum(npres)
-        _stage_rle(stager, host, "codes", _cat_rle_tables(
-            [dd.parse_rle_segments(s[2][1:], npre, width)
-             for s, npre in zip(splits, npres)], npres))
-
-        def dense(d):
-            codes = _pad(_rle(d, "codes", width, total_present), total_nv)
-            return dd.dict_decode_device(codes, d["dict"])
-
-    def decode(d: Host) -> Decoded:
-        present = None if def_tables is None else \
-            _rle(d, "def", 1, total_nv) == 1
-        return _spread(dense(d), present), present
-    return decode
-
-
 def _plan_page(split, desc, np_dtype, has_dict, stager, host, key):
-    """One data page (the JAX package's _decode_data_page)."""
+    """One data page (the JAX package's _decode_data_page). A column
+    chunk decodes page by page: the JAX package's fused chunk read (one
+    decode per uniform chunk) guards against a recompile per page, which
+    has no counterpart here; on an H100 the SF10 scan is faster without
+    it (PERF.md). A null row's slot holds a value of its own
+    page, where the fused read takes one of the chunk's: unspecified in
+    both."""
     nv, def_stream, vals_raw, encoding = split
     if def_stream is not None:
         _stage_rle(stager, host, key + "def",
@@ -387,16 +283,14 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager) -> _Plan:
         splits.append(_split_page(hdr, body, desc, codec))
     has_dict = "dict" in host
     n = sum(s[0] for s in splits)
-    decode = _plan_fused(splits, desc, np_dtype, has_dict, stager, host)
-    if decode is None:
-        pages = [_plan_page(s, desc, np_dtype, has_dict, stager, host,
-                            f"p{i}.") for i, s in enumerate(splits)]
+    pages = [_plan_page(s, desc, np_dtype, has_dict, stager, host, f"p{i}.")
+             for i, s in enumerate(splits)]
 
-        def decode(d: Host) -> Decoded:
-            outs = [page(d) for page in pages]
-            present = None if desc.max_def_level == 0 else \
-                torch.cat([o[1] for o in outs])
-            return torch.cat([o[0] for o in outs]), present
+    def decode(d: Host) -> Decoded:
+        outs = [page(d) for page in pages]
+        present = None if desc.max_def_level == 0 else \
+            torch.cat([o[1] for o in outs])
+        return torch.cat([o[0] for o in outs]), present
     return _Plan(host, decode, n, t, desc.max_def_level > 0)
 
 

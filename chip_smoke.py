@@ -20,8 +20,7 @@ without one. Phases:
      torch.profiler: device time by kernel and the device's idle share;
   5. the same tables (plus l_qty) written to parquet bytes by the
      port's writer, then scanned onto the card (read_batch_device),
-     with the host-parse / host-to-device / device-decode split, once
-     as it runs and once with every chunk decoded page by page;
+     with the host-parse / host-to-device / device-decode split;
   6. from parquet bytes: TPC-H Q6 (predicate -> filter -> expression ->
      SUM/COUNT), the lineitem summary aggregates, and Q3, each checked
      against a numpy oracle, each with its kernels' launch counts;
@@ -42,7 +41,6 @@ import re
 import subprocess
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 import torch
@@ -53,7 +51,6 @@ from arrow_go_tpu_torch import cuda_build, dtypes as dt
 from arrow_go_tpu_torch import parquet as tpq
 from arrow_go_tpu_torch.device.block import DeviceBatch, HostBatch
 from arrow_go_tpu_torch.ops import bitmap, compaction, reductions, scan
-from arrow_go_tpu_torch.parquet import device_read
 
 LINEITEM_SF1 = 6_001_215          # TPC-H spec 4.2.5: lineitem rows at SF1
 LINEITEM_SF10 = 59_986_052        # ... and at SF10
@@ -794,16 +791,9 @@ def main(argv=None) -> int:
         "write_s": write_s, "bytes": {k: len(b) for k, b in blobs.items()},
         "encodings": encodings}}), flush=True)
 
-    # scan: both files, every column, three runs with the phase split;
-    # then the same with every chunk decoded page by page (as chunks of
-    # mixed encodings, BOOLEAN or BYTE_STREAM_SPLIT are): what the fused
-    # chunk decode saves
+    # scan: both files, every column, three runs with the phase split
     sources = {"lineitem": li, "orders": orders}
     print(json.dumps({"scan": time_scan(blobs, dev, sources)}), flush=True)
-    with mock.patch.object(device_read, "_plan_fused", lambda *a: None):
-        print(json.dumps({"scan_page_by_page": time_scan(blobs, dev,
-                                                         sources)}),
-              flush=True)
 
     # Q6 from parquet bytes
     q6_cols = ["l_price", "l_disc", "l_sdate", "l_qty"]

@@ -61,12 +61,18 @@ def _same_batch(tdb, jdb) -> None:
         assert tc.padded == jc.padded == agt.device.pad_length(tdb.length)
         n = tc.length
         assert n == jc.length
-        np.testing.assert_array_equal(_bits(tc.values[:n].numpy()),
-                                      _bits(np.asarray(jc.values)[:n]))
         assert (tc.validity is None) == (jc.validity is None), f.name
+        valid = np.ones(n, np.bool_)
         if tc.validity is not None:
             np.testing.assert_array_equal(words_u32(tc.validity),
                                           np.asarray(jc.validity))
+            valid = np.unpackbits(words_u32(tc.validity).view(np.uint8),
+                                  bitorder="little")[:n].astype(bool)
+        # values bit for bit where rows are valid: a null slot's value is
+        # unspecified (the port decodes page by page, the JAX package a
+        # uniform chunk at once, and the two fill null slots differently)
+        np.testing.assert_array_equal(_bits(tc.values[:n].numpy())[valid],
+                                      _bits(np.asarray(jc.values)[:n])[valid])
 
 
 def _check_against_source(tdb, data, masks, rows: slice) -> None:
