@@ -232,17 +232,21 @@ def _as_device(values) -> DeviceColumn:
 
 
 def _n_valid(col: DeviceColumn) -> int:
+    """Valid rows of a column: its length when it has no validity words,
+    else one popcount read from the device."""
+    if col.validity is None:
+        return col.length
     return int(reductions.count_valid(col.values, col.validity, col.length))
 
 
 def _reduce(values, op: str):
     """One masked reduction as a Python scalar; None when no row is
-    valid."""
+    valid. The accumulator and the valid count come from one K3 launch
+    and one device-to-host copy."""
     col = _as_device(values)
-    if _n_valid(col) == 0:
-        return None
-    return reductions.reduce(col.values, col.validity, col.length,
-                             op).item()
+    acc, count = reductions.reduce_with_count_host(
+        col.values, col.validity, col.length, op)
+    return None if count == 0 else acc
 
 
 def agg_sum(values, options=None):
@@ -258,10 +262,12 @@ def agg_max(values, options=None):
 
 
 def agg_mean(values, options=None):
+    """Sum over count of the valid rows, in float64, from one K3 launch
+    and one device-to-host copy; None when no row is valid."""
     col = _as_device(values)
-    if _n_valid(col) == 0:
-        return None
-    return reductions.mean(col.values, col.validity, col.length).item()
+    total, count = reductions.reduce_with_count_host(
+        col.values, col.validity, col.length, "sum")
+    return None if count == 0 else float(total) / count
 
 
 def agg_count(values, options: Optional[CountOptions] = None):

@@ -5,153 +5,386 @@
 // sorted on ~keep and a sequential grid writes each block's kept prefix
 // at its offset, later blocks overwriting earlier blocks' tails. Hopper
 // runs blocks concurrently, so nothing may rely on write order: here
-// every row is written exactly once, to its final place.
-//
-//   1. count:   per tile of TILE rows, the kept count (ballot + popc).
-//   2. offsets: inclusive scan of the tile counts (torch.cumsum in the
-//               wrapper; the JAX package also scans outside its kernel).
-//   3. scatter: each row's rank among the tile's kept rows comes from
-//               the warp ballot (popc of the lanes below) plus the warp
-//               prefix in shared memory. Kept rows go to off + rank,
-//               un-kept rows to total + (rows before the tile that were
-//               not kept) + (un-kept rows of the tile before this one).
-//
-// The output is the whole stable partition, tail included, identical to
-// the plain version (a stable argsort on ~keep), so no later gather can
-// read a stale tail. All payloads move in one launch; each is copied by
-// its element size (1, 2, 4 or 8 bytes).
+// every row is written exactly once, to its final place, and the output
+// is the whole stable partition (kept rows in order, then the un-kept
+// rows in order), tail included, identical to the plain version.
 //
 // Bound on this card: bytes. Each payload is read once and written once
-// and keep is read twice (count and scatter); there is no arithmetic to
-// speak of. Reads are coalesced; writes of a warp land on two
-// contiguous runs (kept and un-kept), so they stay near-coalesced.
+// and keep is read twice (the count pass and the scatter pass); there is
+// no arithmetic to speak of. What the design does about it:
+//
+//   count:   one warp per tile of TILE rows, 16-byte loads of keep,
+//            kept bytes counted with __vcmpne4 + popc. The tile counts
+//            go to `stat`; their sum (the kept total, which places the
+//            un-kept rows) is added up with integer atomics and taken by
+//            the last block to finish (a ticket), which resets the
+//            per-stream scratch for the next call. Reads keep only.
+//   scatter: one block per tile; each thread owns RPT consecutive rows
+//            (one 16-byte load of keep). The kept counts are scanned in
+//            registers, with __shfl_up_sync and one shared-memory step
+//            across warps. The tile's offset comes from a decoupled
+//            look-back over `stat` in the same kernel: a tile publishes
+//            its inclusive prefix (flagged) as soon as it knows it, and a
+//            later tile adds the counts of the tiles between it and the
+//            nearest published prefix. Every count is already there from
+//            the count pass, so no block ever waits on another. Each
+//            row's place in the partitioned tile goes to a shared-memory
+//            map once per tile; then each payload in turn is loaded with
+//            coalesced 16-byte loads (scalar ones for a view that is not
+//            16-byte aligned, with the same bits), permuted into one
+//            shared staging buffer, and written out as two contiguous
+//            runs, consecutive threads on consecutive addresses. Loads
+//            start one payload ahead (the first before the keep
+//            scan, the next before the write-out of the current one), so
+//            the block keeps reads in flight while it scans and writes.
+//            The element size (1, 2, 4, 8) is a template parameter: one
+//            switch per payload and tile, none per row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE 2048
 #define THREADS 256
 #define WARPS (THREADS / 32)
+#define RPT 16                       // rows per thread: one 16-byte keep load
+#define TILE (THREADS * RPT)         // rows per tile
 #define MAX_PAYLOADS 16
+#define INCL_FLAG (1LL << 62)        // stat[t] holds tile t's inclusive prefix
+#define FULL 0xffffffffu
+
+struct Payload {
+  const void* src;
+  void* dst;
+  int size;
+  int aligned;                       // src is 16-byte aligned
+};
 
 struct Payloads {
-  const void* src[MAX_PAYLOADS];
-  void* dst[MAX_PAYLOADS];
-  int size[MAX_PAYLOADS];
+  Payload p[MAX_PAYLOADS];
   int n;
 };
 
+// Per-stream scratch, zeroed once when it is allocated: the running kept
+// total of the count pass, its ticket, and the total of the last call.
+struct Scratch {
+  unsigned long long running;
+  unsigned long long ticket;
+  long long total;
+};
+
+// Kept bytes among the 4 of w, as a 4-bit mask (bit j = byte j).
+__device__ __forceinline__ uint32_t keep_bits4(uint32_t w) {
+  const uint32_t b = __vcmpne4(w, 0u) & 0x01010101u;
+  return (b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xfu;
+}
+
+__device__ __forceinline__ int keep_count16(uint4 v) {
+  return __popc(__vcmpne4(v.x, 0u) & 0x01010101u) +
+         __popc(__vcmpne4(v.y, 0u) & 0x01010101u) +
+         __popc(__vcmpne4(v.z, 0u) & 0x01010101u) +
+         __popc(__vcmpne4(v.w, 0u) & 0x01010101u);
+}
+
+template <typename V>
+__device__ __forceinline__ V warp_sum(V v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+  return v;
+}
+
+// ---------------------------------------------------------------- count
+
 __global__ void __launch_bounds__(THREADS)
 count_kernel(const unsigned char* __restrict__ keep, long long n,
-             long long* __restrict__ counts) {
-  __shared__ int warp_cnt[WARPS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * TILE;
-  int c = 0;
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    const long long row = base + i;
-    const bool k = row < n && keep[row] != 0;
-    c += __popc(__ballot_sync(0xffffffffu, k));
+             int aligned, long long tiles, long long* __restrict__ stat,
+             Scratch* scratch) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * WARPS;
+  long long mine = 0;
+  for (long long t = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+       t < tiles; t += warps) {
+    const long long base = t * TILE;
+    const long long rows = n - base < TILE ? n - base : TILE;
+    int c = 0;
+    if (aligned && rows == TILE) {
+      const uint4* k = reinterpret_cast<const uint4*>(keep + base);
+      uint4 v[TILE / 16 / 32];
+#pragma unroll
+      for (int i = 0; i < TILE / 16 / 32; ++i) v[i] = k[lane + 32 * i];
+#pragma unroll
+      for (int i = 0; i < TILE / 16 / 32; ++i) c += keep_count16(v[i]);
+    } else {
+      for (long long r = lane; r < rows; r += 32) c += keep[base + r] != 0;
+    }
+    c = warp_sum(c);
+    if (lane == 0) stat[t] = c;
+    mine += c;
   }
-  if (lane == 0) warp_cnt[warp] = c;
+  if (lane == 0 && mine) {
+    atomicAdd(&scratch->running, (unsigned long long)mine);
+    __threadfence();
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
-    long long t = 0;
-    for (int w = 0; w < WARPS; ++w) t += warp_cnt[w];
-    counts[blockIdx.x] = t;
+    __threadfence();
+    if (atomicAdd(&scratch->ticket, 1ULL) == gridDim.x - 1) {
+      __threadfence();
+      scratch->total = (long long)atomicExch(&scratch->running, 0ULL);
+      scratch->ticket = 0;
+    }
   }
 }
 
-__device__ __forceinline__ void copy_elem(const void* src, void* dst,
-                                          int size, long long from,
-                                          long long to) {
-  switch (size) {
-    case 1:
-      static_cast<uint8_t*>(dst)[to] = static_cast<const uint8_t*>(src)[from];
-      break;
-    case 2:
-      static_cast<uint16_t*>(dst)[to] =
-          static_cast<const uint16_t*>(src)[from];
-      break;
-    case 4:
-      static_cast<uint32_t*>(dst)[to] =
-          static_cast<const uint32_t*>(src)[from];
-      break;
-    default:
-      static_cast<uint64_t*>(dst)[to] =
-          static_cast<const uint64_t*>(src)[from];
-      break;
+// -------------------------------------------------------------- scatter
+
+// Tiles before `tile` hold their count or (flagged) their inclusive
+// prefix; walk back 32 at a time to the nearest inclusive prefix.
+// Returns the rows kept before the tile (on every lane of the warp).
+__device__ long long lookback(const long long* stat, long long tile,
+                              int lane) {
+  long long excl = 0;
+  for (long long j = tile - 1;; j -= 32) {
+    const long long idx = j - lane;
+    // before tile 0 stands an inclusive prefix of 0
+    const long long v =
+        idx >= 0 ? *(reinterpret_cast<const volatile long long*>(stat) + idx)
+                 : INCL_FLAG;
+    const unsigned inc = __ballot_sync(FULL, (v & INCL_FLAG) != 0);
+    if (inc) {
+      const int first = __ffs(inc) - 1;   // the nearest published tile
+      excl += warp_sum(lane < first ? v
+                                    : lane == first ? (v & ~INCL_FLAG) : 0LL);
+      return excl;
+    }
+    excl += warp_sum(v);
+  }
+}
+
+template <int S> struct Elem;
+template <> struct Elem<1> { typedef uint8_t T; };
+template <> struct Elem<2> { typedef uint16_t T; };
+template <> struct Elem<4> { typedef uint32_t T; };
+template <> struct Elem<8> { typedef unsigned long long T; };
+
+// Start this thread's 16-byte loads of one payload's rows of the tile
+// (coalesced: load k of thread t is vector t + k * THREADS), where the
+// source is aligned. They stay in flight until scatter_payload uses
+// them, so the kernel starts them early: the first payload's before the
+// keep scan, each next payload's before the current one's write-out.
+template <int S>
+__device__ __forceinline__ void load_payload(const Payload& pl,
+                                             long long base, int rows,
+                                             uint4 (&v)[8]) {
+  typedef typename Elem<S>::T E;
+  constexpr int VEC = 16 / S;                   // elements per load
+  constexpr int VPT = TILE / VEC / THREADS;     // loads per thread (= S)
+  const uint4* src = reinterpret_cast<const uint4*>(
+      static_cast<const E*>(pl.src) + base);
+  const int nvec = pl.aligned ? rows / VEC : 0;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int vi = threadIdx.x + k * THREADS;
+    if (vi < nvec) v[k] = src[vi];
+  }
+}
+
+// The payload's rows of the tile into `stage`, in partitioned order:
+// row r goes to slot[r]. Rows past the loaded vectors (the ragged end,
+// or every row of a source that is not 16-byte aligned) are read here,
+// one element a thread.
+template <int S>
+__device__ __forceinline__ void scatter_payload(const Payload& pl,
+                                                long long base, int rows,
+                                                const uint4 (&v)[8],
+                                                const uint16_t* slot,
+                                                unsigned char* stage) {
+  typedef typename Elem<S>::T E;
+  constexpr int VEC = 16 / S;
+  constexpr int VPT = TILE / VEC / THREADS;
+  const E* src = static_cast<const E*>(pl.src) + base;
+  E* st = reinterpret_cast<E*>(stage);
+  const int nvec = pl.aligned ? rows / VEC : 0;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int vi = threadIdx.x + k * THREADS;
+    if (vi < nvec) {
+      const E* e = reinterpret_cast<const E*>(&v[k]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) st[slot[vi * VEC + j]] = e[j];
+    }
+  }
+  for (int r = nvec * VEC + threadIdx.x; r < rows; r += THREADS)
+    st[slot[r]] = src[r];
+}
+
+// The partitioned tile out of `stage`: slots [0, kept) to kept_dst..,
+// slots [kept, rows) to unkept_dst..; consecutive threads, consecutive
+// addresses.
+template <int S>
+__device__ __forceinline__ void write_payload(const Payload& pl,
+                                              const unsigned char* stage,
+                                              int rows, int kept,
+                                              long long kept_dst,
+                                              long long unkept_dst) {
+  typedef typename Elem<S>::T E;
+  const E* st = reinterpret_cast<const E*>(stage);
+  E* dst = static_cast<E*>(pl.dst);
+#pragma unroll 4
+  for (int s = threadIdx.x; s < rows; s += THREADS)
+    dst[s < kept ? kept_dst + s : unkept_dst + (s - kept)] = st[s];
+}
+
+__device__ __forceinline__ void load_any(const Payload& q, long long base,
+                                         int rows, uint4 (&v)[8]) {
+  switch (q.size) {
+    case 1: load_payload<1>(q, base, rows, v); break;
+    case 2: load_payload<2>(q, base, rows, v); break;
+    case 4: load_payload<4>(q, base, rows, v); break;
+    default: load_payload<8>(q, base, rows, v); break;
   }
 }
 
 __global__ void __launch_bounds__(THREADS)
 scatter_kernel(const unsigned char* __restrict__ keep, long long n,
-               const long long* __restrict__ incl, Payloads pl) {
-  __shared__ int warp_cnt[WARPS];
-  __shared__ int warp_off[WARPS + 1];
+               int keep_aligned, long long* stat,
+               const Scratch* __restrict__ scratch,
+               const __grid_constant__ Payloads pl) {
+  __shared__ __align__(16) unsigned char stage[TILE * 8];
+  __shared__ __align__(16) uint16_t slot[TILE];
+  __shared__ int warp_tot[WARPS];
+  __shared__ long long tile_excl;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long tile = blockIdx.x;
   const long long base = tile * TILE;
-  const long long excl = tile == 0 ? 0 : incl[tile - 1];
-  const long long total = incl[gridDim.x - 1];
-  const unsigned below = (1u << lane) - 1u;
-  int running = 0;  // kept rows of this tile before the current chunk
-  for (int chunk = 0; chunk < TILE; chunk += THREADS) {
-    const long long row = base + chunk + threadIdx.x;
-    const bool in = row < n;
-    const bool k = in && keep[row] != 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, k);
-    if (lane == 0) warp_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      for (int w = 0; w < WARPS; ++w) {
-        warp_off[w] = s;
-        s += warp_cnt[w];
-      }
-      warp_off[WARPS] = s;
+  const int rows = (int)(n - base < TILE ? n - base : TILE);
+  uint4 v[8];                           // one payload's loads in flight
+  load_any(pl.p[0], base, rows, v);
+
+  if (warp == 0) {
+    const long long cnt = stat[tile];   // this tile's count, from the count pass
+    const long long excl = lookback(stat, tile, lane);
+    if (lane == 0) {
+      *(reinterpret_cast<volatile long long*>(stat) + tile) =
+          (excl + cnt) | INCL_FLAG;
+      tile_excl = excl;
+    }
+  }
+
+  // this thread's RPT rows: a bit mask of the kept ones
+  const int row0 = threadIdx.x * RPT;
+  uint32_t m = 0;
+  if (keep_aligned && row0 + RPT <= rows) {
+    const uint4 v = reinterpret_cast<const uint4*>(keep + base)[threadIdx.x];
+    m = keep_bits4(v.x) | (keep_bits4(v.y) << 4) | (keep_bits4(v.z) << 8) |
+        (keep_bits4(v.w) << 12);
+  } else {
+    for (int j = 0; j < RPT; ++j)
+      if (row0 + j < rows && keep[base + row0 + j]) m |= 1u << j;
+  }
+  // block exclusive scan of the per-thread kept counts
+  const int c = __popc(m);
+  int incl = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int kept = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int t = warp_tot[w];
+    before += w < warp ? t : 0;
+    kept += t;
+  }
+  const int rank = before + incl - c;   // kept rows of the tile before row0
+  // each row's slot in the partitioned tile: kept rows first, in order
+  uint32_t sl[RPT / 2];              // two 16-bit slots a word
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    const int k = rank + __popc(m & ((1u << j) - 1u));
+    const uint32_t s = ((m >> j) & 1u) ? k : kept + (row0 + j - k);
+    sl[j / 2] = j % 2 ? sl[j / 2] | (s << 16) : s;
+  }
+  uint4* slot4 = reinterpret_cast<uint4*>(slot + row0);
+  slot4[0] = make_uint4(sl[0], sl[1], sl[2], sl[3]);
+  slot4[1] = make_uint4(sl[4], sl[5], sl[6], sl[7]);
+  __syncthreads();
+
+  const long long excl = tile_excl;
+  const long long kept_dst = excl;
+  const long long unkept_dst = scratch->total + (base - excl);
+  for (int p = 0; p < pl.n; ++p) {
+    const Payload& q = pl.p[p];
+    switch (q.size) {
+      case 1: scatter_payload<1>(q, base, rows, v, slot, stage); break;
+      case 2: scatter_payload<2>(q, base, rows, v, slot, stage); break;
+      case 4: scatter_payload<4>(q, base, rows, v, slot, stage); break;
+      default: scatter_payload<8>(q, base, rows, v, slot, stage); break;
     }
     __syncthreads();
-    if (in) {
-      // kept rows of this tile strictly before `row`
-      const long long rank = running + warp_off[warp] + __popc(ballot & below);
-      const long long local = chunk + threadIdx.x;
-      const long long dst =
-          k ? excl + rank : total + (base - excl) + (local - rank);
-      for (int p = 0; p < pl.n; ++p)
-        copy_elem(pl.src[p], pl.dst[p], pl.size[p], row, dst);
+    if (p + 1 < pl.n) load_any(pl.p[p + 1], base, rows, v);
+    switch (q.size) {
+      case 1: write_payload<1>(q, stage, rows, kept, kept_dst, unkept_dst);
+        break;
+      case 2: write_payload<2>(q, stage, rows, kept, kept_dst, unkept_dst);
+        break;
+      case 4: write_payload<4>(q, stage, rows, kept, kept_dst, unkept_dst);
+        break;
+      default: write_payload<8>(q, stage, rows, kept, kept_dst, unkept_dst);
+        break;
     }
-    running += warp_off[WARPS];
-    __syncthreads();  // warp_cnt / warp_off are rewritten by the next chunk
+    __syncthreads();   // the next payload reuses the staging buffer
   }
 }
 
-extern "C" int agt_compact_count(const void* keep, long long n, void* counts,
-                                 void* stream) {
-  const long long tiles = (n + TILE - 1) / TILE;
-  count_kernel<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(keep), n,
-      static_cast<long long*>(counts));
-  return (int)cudaGetLastError();
+// Blocks of the count pass resident at once on the card: its grid.
+static int count_grid(long long tiles) {
+  static int resident = 0;
+  if (!resident) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, count_kernel,
+                                                  THREADS, 0);
+    resident = sms * per_sm < 1 ? 1 : sms * per_sm;
+  }
+  const long long need = (tiles + WARPS - 1) / WARPS;
+  return (int)(need < resident ? need : resident);
 }
 
-extern "C" int agt_compact_scatter(const void* keep, long long n,
-                                   const void* incl, int n_pay,
-                                   void* const* srcs, void* const* dsts,
-                                   const int* sizes, void* stream) {
-  if (n_pay < 1 || n_pay > MAX_PAYLOADS) return (int)cudaErrorInvalidValue;
+// keep: n flag bytes (keep_aligned: 16-byte aligned); srcs/dsts/sizes/
+// aligned: n_pay payloads of n elements (sizes 1, 2, 4 or 8; aligned:
+// src 16-byte aligned); stat: ceil(n / TILE) int64 of scratch for this
+// call; scratch: 3 int64 per stream, zeroed before its first use.
+// Returns a CUDA error code.
+extern "C" int agt_compact(const void* keep, long long n, int keep_aligned,
+                           int n_pay, void* const* srcs, void* const* dsts,
+                           const int* sizes, const int* aligned, void* stat,
+                           void* scratch, void* stream) {
+  if (n_pay < 1 || n_pay > MAX_PAYLOADS || n < 1)
+    return (int)cudaErrorInvalidValue;
   Payloads pl;
   pl.n = n_pay;
   for (int p = 0; p < n_pay; ++p) {
     if (sizes[p] != 1 && sizes[p] != 2 && sizes[p] != 4 && sizes[p] != 8)
       return (int)cudaErrorInvalidValue;
-    pl.src[p] = srcs[p];
-    pl.dst[p] = dsts[p];
-    pl.size[p] = sizes[p];
+    pl.p[p].src = srcs[p];
+    pl.p[p].dst = dsts[p];
+    pl.p[p].size = sizes[p];
+    pl.p[p].aligned = aligned[p];
   }
   const long long tiles = (n + TILE - 1) / TILE;
-  scatter_kernel<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(keep), n,
-      static_cast<const long long*>(incl), pl);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto* k = static_cast<const unsigned char*>(keep);
+  count_kernel<<<count_grid(tiles), THREADS, 0, s>>>(
+      k, n, keep_aligned, tiles, static_cast<long long*>(stat),
+      static_cast<Scratch*>(scratch));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<(unsigned)tiles, THREADS, 0, s>>>(
+      k, n, keep_aligned, static_cast<long long*>(stat),
+      static_cast<const Scratch*>(scratch), pl);
   return (int)cudaGetLastError();
 }

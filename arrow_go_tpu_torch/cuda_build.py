@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_scratch: Dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -96,3 +99,15 @@ def check(rc: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def stream_scratch(name: str, device: torch.device, stream: int,
+                   words: int) -> torch.Tensor:
+    """`words` int64 of zeroed scratch for kernel `name` on one device
+    and stream, allocated at first use and kept. A kernel leaves it as it
+    found it (its last block resets its ticket), so no call pays a fill,
+    and two streams never share a ticket."""
+    key = (name, device.index, stream)
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(words, dtype=torch.int64, device=device)
+    return _scratch[key]

@@ -22,7 +22,8 @@ from .. import cuda_build
 from ..torchenv import use_kernels
 
 _MAX_PAYLOADS = 16             # MAX_PAYLOADS in csrc/compaction.cu
-_TILE = 2048                   # TILE in csrc/compaction.cu
+_TILE = 4096                   # TILE in csrc/compaction.cu
+_SCRATCH_WORDS = 3             # sizeof(Scratch) / 8 in csrc/compaction.cu
 _ctypes_ready = False
 
 
@@ -69,11 +70,9 @@ def _lib():
     lib = cuda_build.load("compaction")
     if not _ctypes_ready:
         p = ctypes.c_void_p
-        lib.agt_compact_count.argtypes = [p, ctypes.c_longlong, p, p]
-        lib.agt_compact_count.restype = ctypes.c_int
-        lib.agt_compact_scatter.argtypes = [
-            p, ctypes.c_longlong, p, ctypes.c_int, p, p, p, p]
-        lib.agt_compact_scatter.restype = ctypes.c_int
+        lib.agt_compact.argtypes = [p, ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, p, p, p, p, p, p, p]
+        lib.agt_compact.restype = ctypes.c_int
         _ctypes_ready = True
     return lib
 
@@ -100,6 +99,11 @@ def _check_inputs(keep: torch.Tensor, payloads: Tuple[torch.Tensor, ...]):
                              f"{p.element_size()} not supported")
 
 
+def _aligned(t: torch.Tensor) -> int:
+    """1 when the kernel may read `t` with 16-byte loads."""
+    return int(t.data_ptr() % 16 == 0)
+
+
 def _compact_cuda(keep: torch.Tensor, payloads: Tuple[torch.Tensor, ...]):
     _check_inputs(keep, payloads)
     outs = tuple(torch.empty_like(p) for p in payloads)
@@ -107,19 +111,20 @@ def _compact_cuda(keep: torch.Tensor, payloads: Tuple[torch.Tensor, ...]):
     if n == 0:
         return outs
     lib = _lib()
-    tiles = -(-n // _TILE)
+    k = len(payloads)
     with torch.cuda.device(keep.device):
         stream = torch.cuda.current_stream(keep.device).cuda_stream
-        counts = torch.empty(tiles, dtype=torch.int64, device=keep.device)
-        cuda_build.check(lib.agt_compact_count(
-            keep.data_ptr(), n, counts.data_ptr(), stream), "K1 count")
-        incl = torch.cumsum(counts, 0)
-        k = len(payloads)
+        stat = torch.empty(-(-n // _TILE), dtype=torch.int64,
+                           device=keep.device)
         srcs = (ctypes.c_void_p * k)(*[p.data_ptr() for p in payloads])
         dsts = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
         sizes = (ctypes.c_int * k)(*[p.element_size() for p in payloads])
-        cuda_build.check(lib.agt_compact_scatter(
-            keep.data_ptr(), n, incl.data_ptr(), k, srcs, dsts, sizes,
-            stream), "K1 scatter")
+        aligned = (ctypes.c_int * k)(*[_aligned(p) for p in payloads])
+        cuda_build.check(lib.agt_compact(
+            keep.data_ptr(), n, _aligned(keep), k, srcs, dsts, sizes,
+            aligned, stat.data_ptr(),
+            cuda_build.stream_scratch("compaction", keep.device, stream,
+                                      _SCRATCH_WORDS).data_ptr(),
+            stream), "K1 compact")
     compact_flagged.launches += 1
     return outs

@@ -6,13 +6,17 @@ validity_words[P/32] | None, n): row i counts when i < n and its
 validity bit is set; rows in [n, P) hold whatever a filter left there
 and never count.
 
-On a CUDA tensor `reduce` launches K3 (csrc/reduce.cu), the hand-written
-Hopper kernel that replaces the TPU kernel `_reduce_kernel`. It expands
-the packed validity words itself, as the TPU kernel does. On a CPU
-tensor it runs the plain version, `reduce_plain` (the JAX package's
-`reduce_xla`: a masked torch reduction). The TPU kernel takes 32-bit
-lanes only and leaves int64 and float64 to XLA; on the card K3 takes
-all four types the port carries: int32, int64, float32 and float64.
+On a CUDA tensor `reduce` and `reduce_with_count` launch K3
+(csrc/reduce.cu), the hand-written Hopper kernel that replaces the TPU
+kernel `_reduce_kernel`: one launch that expands the packed validity
+words itself, as the TPU kernel does, and counts the rows it takes in
+the same pass. `reduce_with_count_host` reads the accumulator and the
+count with one device-to-host copy. On a CPU tensor the plain versions
+run: `reduce_plain` (the JAX package's `reduce_xla`: a masked torch
+reduction) and `reduce_with_count_plain` (`reduce_plain` +
+`count_valid`). The TPU kernel takes 32-bit lanes only and leaves int64
+and float64 to XLA; on the card K3 takes all four types the port
+carries: int32, int64, float32 and float64.
 
 Result types follow `_acc_dtype`: integer sums accumulate in int64,
 everything else in the value type. Integer sums and products wrap on
@@ -21,7 +25,7 @@ overflow, as in the JAX package; min, max and float sums propagate NaN.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,7 +38,7 @@ OPS = ("sum", "prod", "min", "max")
 _OP_CODE = {op: i for i, op in enumerate(OPS)}                 # OP_* in K3
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}                               # DT_* in K3
-_PARTIALS = 4096                # K3's scratch: caps its pass-1 grid
+_PARTIALS = 4096                # K3's partials per stream: cap its grid
 _ctypes_ready = False
 
 
@@ -93,7 +97,8 @@ def reduce(values: torch.Tensor, validity: Optional[torch.Tensor], n: int,
     tensor of `_acc_dtype(op, values.dtype)` on the values' device."""
     if not use_kernels(values):
         return reduce_plain(values, validity, n, op)
-    return _reduce_cuda(values, validity, n, op)
+    return _acc_of(_reduce_cuda(values, validity, n, op),
+                   _acc_dtype(op, values.dtype))
 
 
 reduce.launches = 0
@@ -109,12 +114,42 @@ def count_valid(values: torch.Tensor, validity: Optional[torch.Tensor],
     return bitmap.popcount_words(words)
 
 
+def reduce_with_count_plain(values: torch.Tensor,
+                            validity: Optional[torch.Tensor], n: int,
+                            op: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `reduce_with_count`: `reduce_plain` and
+    `count_valid`."""
+    return (reduce_plain(values, validity, n, op),
+            count_valid(values, validity, n))
+
+
+def reduce_with_count(values: torch.Tensor, validity: Optional[torch.Tensor],
+                      n: int, op: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(`reduce(values, validity, n, op)`, the count of the rows it took
+    as a 0-d int64 tensor), from one K3 launch on the card."""
+    if not use_kernels(values):
+        return reduce_with_count_plain(values, validity, n, op)
+    out = _reduce_cuda(values, validity, n, op)
+    return _acc_of(out, _acc_dtype(op, values.dtype)), out[1]
+
+
+def reduce_with_count_host(values: torch.Tensor,
+                           validity: Optional[torch.Tensor], n: int,
+                           op: str) -> tuple:
+    """`reduce_with_count` as (Python scalar, int), read from the card
+    with one device-to-host copy."""
+    if not use_kernels(values):
+        acc, cnt = reduce_with_count_plain(values, validity, n, op)
+        return acc.item(), int(cnt)
+    host = _reduce_cuda(values, validity, n, op).cpu()
+    return _acc_of(host, _acc_dtype(op, values.dtype)).item(), int(host[1])
+
+
 def mean(values: torch.Tensor, validity: Optional[torch.Tensor],
          n: int) -> torch.Tensor:
     """Sum over count of the valid rows (float64; 0.0 when none)."""
-    s = reduce(values, validity, n, "sum").to(torch.float64)
-    c = count_valid(values, validity, n).to(torch.float64)
-    return s / torch.clamp(c, min=1)
+    s, c = reduce_with_count(values, validity, n, "sum")
+    return s.to(torch.float64) / torch.clamp(c.to(torch.float64), min=1)
 
 
 def _lib():
@@ -130,8 +165,15 @@ def _lib():
     return lib
 
 
+def _acc_of(out: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """The accumulator K3 wrote into the first bytes of out[0] (0-d)."""
+    return out[:1].view(acc)[0]
+
+
 def _reduce_cuda(values: torch.Tensor, validity: Optional[torch.Tensor],
                  n: int, op: str) -> torch.Tensor:
+    """One K3 launch; returns its 2 int64 of output: the accumulator's
+    bits in out[0], the count of rows taken in out[1]."""
     _check(values, op)
     if not values.is_contiguous():
         raise ValueError("reduce: values must be contiguous")
@@ -146,16 +188,16 @@ def _reduce_cuda(values: torch.Tensor, validity: Optional[torch.Tensor],
         if validity.shape[0] * 32 < n:
             raise ValueError(f"reduce: {validity.shape[0]} validity words do "
                              f"not cover {n} rows")
-    acc = _acc_dtype(op, values.dtype)
     lib = _lib()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        partials = torch.empty(_PARTIALS, dtype=acc, device=values.device)
-        out = torch.empty((), dtype=acc, device=values.device)
+        scratch = cuda_build.stream_scratch("reduce", values.device, stream,
+                                            2 * _PARTIALS + 1)
+        out = torch.empty(2, dtype=torch.int64, device=values.device)
         cuda_build.check(lib.agt_reduce(
             _DTYPE_CODE[values.dtype], _OP_CODE[op], values.data_ptr(),
             None if validity is None else validity.data_ptr(), n,
-            int(values.data_ptr() % 16 == 0), partials.data_ptr(),
-            partials.numel(), out.data_ptr(), stream), "K3 reduce")
+            int(values.data_ptr() % 16 == 0), scratch.data_ptr(),
+            _PARTIALS, out.data_ptr(), stream), "K3 reduce")
     reduce.launches += 1
     return out

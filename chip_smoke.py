@@ -5,32 +5,43 @@ without one. Phases:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build:  the port's CUDA kernels, compiled from csrc/ with nvcc;
-  3. K1 (compact_flagged), K2 (cummax_u64_lanes) and K3 (reduce)
-     against their plain PyTorch versions over a sweep of lengths,
-     densities and types: K1 and K2 bit for bit, K3 bit for bit for
-     ints, min, max and (exact) products, float sums at rtol 1e-9 (f64)
-     and 1e-5 (f32), and every K3 result identical over two launches
-     (K3 again, in phase 6, on the very columns Q6 and the summary
-     reduce);
+  3. K1 (compact_flagged), K2 (cummax_u64_lanes) and K3 (reduce,
+     reduce_with_count) against their plain PyTorch versions over a
+     sweep of lengths, densities and types: K1 and K2 bit for bit (K1
+     over its whole length, with views at an element offset that are
+     not 16-byte aligned and with 16 mixed-width payloads), K3 bit for
+     bit for ints, min, max and (exact) products, float sums at rtol
+     1e-9 (f64) and 1e-5 (f32), its counts exact, and every K3 result
+     identical over two launches and over two launches with another
+     between them (K3 again, in phase 6, on the very columns Q6 and the
+     summary reduce);
   4. Q3 (filter -> hash join -> group-by -> sort, the pipeline of
      benchmarks/engine_e2e.py) from device-resident batches at TPC-H
      SF10 scale (59,986,052 lineitem rows), checked against a numpy
      oracle, with each kernel's launch count over one run of it; one
-     more run broken down by stage (host clock), and one under
-     torch.profiler: device time by kernel and the device's idle share;
+     more run broken down by stage (host clock), one under
+     torch.profiler (device time by kernel and the device's idle
+     share), and one that captures what each K1 call site hands K1,
+     timed at each of those shapes;
   5. the same tables (plus l_qty) written to parquet bytes by the
      port's writer, then scanned onto the card (read_batch_device),
      with the host-parse / host-to-device / device-decode split;
   6. from parquet bytes: TPC-H Q6 (predicate -> filter -> expression ->
      SUM/COUNT), the lineitem summary aggregates, and Q3, each checked
      against a numpy oracle, each with its kernels' launch counts;
-  7. K1, K2 and K3 timed at the shapes of those paths, beside their
-     plain versions, a one-call PyTorch yardstick and their memory-bound
+  7. K2 and K3 timed at the shapes of those paths, beside their plain
+     versions, a one-call PyTorch yardstick and their memory-bound
      least time;
   8. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-Usage: python3 chip_smoke.py [--sf 10]
+With --timing-only it skips phase 3 and the lines of phase 8: a run
+that times every path and kernel shape using only entry points that
+earlier trees have too, so that two trees can be run in turns on one
+card (copy this script into a tree unpacked with `git archive` and run
+it there, then here, here, there).
+
+Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
 from __future__ import annotations
 
@@ -325,11 +336,44 @@ def _payloads(kind: str, n: int, g: torch.Generator, dev):
             ints(torch.int32))
 
 
-K1_SIZES = (1, 31, 8191, 8192, 65_537, 67_108_864)
+K1_TILE = compaction._TILE
+K1_SIZES = (1, 31, K1_TILE - 1, K1_TILE, K1_TILE + 1, 8191, 8192, 65_537,
+            67_108_864)
 K2_SIZES = (1, 31, 8191, 8192, 65_537, 33_554_432, 67_108_864)
+K1_MIXED = (torch.bool, torch.int8, torch.int16, torch.float16, torch.int32,
+            torch.float32, torch.int64, torch.float64)
+
+
+def _mixed_payloads(n: int, g: torch.Generator, dev) -> tuple:
+    """16 payloads, two of each of K1_MIXED: 1-, 2-, 4- and 8-byte."""
+    out = []
+    for dtype in K1_MIXED * 2:
+        bits = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                             device=dev)
+        if dtype == torch.bool:
+            out.append(bits > 0)
+        else:
+            out.append(bits.to(_INT_VIEW[dtype.itemsize]).view(dtype))
+    return tuple(out)
+
+
+def _k1_case(keep, pays) -> float:
+    """K1 against its plain version over the whole length, twice (a
+    ticket left set by the first launch would show in the second)."""
+    err = 0.0
+    for _ in range(2):
+        got = compaction.compact_flagged(keep, pays)
+        want = compaction.compact_flagged_plain(keep, pays)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, want))
+    return err
 
 
 def check_k1(dev, sizes=K1_SIZES) -> float:
+    """K1 bit for bit against its plain version over the whole length:
+    sizes around one and two tiles, densities 0 to 1, every element
+    size; 16 mixed payloads; keep and payloads as views at an element
+    offset (not 16-byte aligned)."""
     g = torch.Generator(device=dev).manual_seed(1)
     err = 0.0
     cases = 0
@@ -338,13 +382,22 @@ def check_k1(dev, sizes=K1_SIZES) -> float:
             keep = torch.rand(n, generator=g, device=dev) < density
             for kind in ("bool", "int32", "int64", "float16", "float64",
                          "three"):
-                pays = _payloads(kind, n, g, dev)
-                got = compaction.compact_flagged(keep, pays)
-                want = compaction.compact_flagged_plain(keep, pays)
-                torch.cuda.synchronize()
-                err = max(err, _max_abs_err(got, want))
+                err = max(err, _k1_case(keep, _payloads(kind, n, g, dev)))
                 cases += 1
-    print(f"K1 check: {cases} cases bit-identical to the plain version")
+            if n <= 65_537 or density == 0.5:
+                err = max(err, _k1_case(keep, _mixed_payloads(n, g, dev)))
+                cases += 1
+        for off in (1, 3):
+            # views at an element offset: keep and every payload start
+            # off elements into a larger tensor
+            keep = (torch.rand(n + off, generator=g, device=dev) < 0.5)[off:]
+            pays = tuple(p[off:] for p in _payloads("three", n + off, g, dev)
+                         + _mixed_payloads(n + off, g, dev)[:13])
+            assert all(p.data_ptr() % 16 for p in (keep,) + pays[:3])
+            err = max(err, _k1_case(keep, pays))
+            cases += 1
+    print(f"K1 check: {cases} cases bit-identical to the plain version "
+          f"over the whole length, each launched twice")
     return err
 
 
@@ -385,27 +438,74 @@ def check_k2(dev, sizes=K2_SIZES) -> float:
     return err
 
 
-def time_k1(dev, P: int, n_rows: int) -> dict:
-    """K1 at the Q3 filter's shape: keep over P padded rows (about half of
-    the n_rows real ones kept), payloads l_okey/l_price/l_disc."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    keep = (torch.rand(P, generator=g, device=dev) < 0.5) & (
-        torch.arange(P, device=dev) < n_rows)
-    pays = (torch.randint(0, 2 ** 40, (P,), generator=g, device=dev),
-            torch.rand(P, generator=g, device=dev, dtype=torch.float64),
-            torch.rand(P, generator=g, device=dev, dtype=torch.float64))
-    stacked = torch.stack([pays[0], pays[1].view(torch.int64),
-                           pays[2].view(torch.int64)])
-    nbytes = keep.numel() + 2 * sum(p.numel() * p.element_size()
-                                    for p in pays)
-    return {
-        "ms": _time_ms(lambda: compaction.compact_flagged(keep, pays), 20),
-        "plain_ms": _time_ms(
-            lambda: compaction.compact_flagged_plain(keep, pays), 5),
-        "library_ms": _time_ms(lambda: stacked[:, keep], 10),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "shape": f"P={P}, payloads int64+float64+float64",
-    }
+def capture_k1(fn):
+    """Run fn once with every K1 call site of the engine recording what
+    it hands K1. Returns (fn's result, [(site, keep, payloads)]), site
+    being the function that asked for the compaction."""
+    from arrow_go_tpu_torch.ops import groupagg, selection
+    from arrow_go_tpu_torch.parallel import join as pjoin
+    calls = []
+
+    def recording(keep, payloads):
+        payloads = tuple(payloads)
+        caller = sys._getframe(1).f_code.co_name
+        if caller == "compact_runs":           # groupagg's thin wrapper
+            caller = sys._getframe(2).f_code.co_name
+        calls.append((caller, keep, payloads))
+        return compaction.compact_flagged(keep, payloads)
+
+    mods = (selection, groupagg, pjoin)
+    saved = [m.compact_flagged for m in mods]
+    for m in mods:
+        m.compact_flagged = recording
+    try:
+        out = fn()
+    finally:
+        for m, f in zip(mods, saved):
+            m.compact_flagged = f
+    return out, calls
+
+
+def _k1_library(keep, pays):
+    """One PyTorch call that computes K1's kept rows: boolean indexing
+    of the payloads stacked as rows (one element size) or packed side by
+    side as bytes (mixed sizes)."""
+    sizes = {p.element_size() for p in pays}
+    if len(sizes) == 1:
+        stacked = torch.stack([_bits(p) for p in pays])
+        return lambda: stacked[:, keep]
+    packed = torch.cat([p.view(torch.uint8).view(-1, p.element_size())
+                        for p in pays], 1)
+    return lambda: packed[keep]
+
+
+def time_k1(calls) -> list:
+    """K1 at each shape the main path hands it (capture_k1), on those
+    very inputs: kernel, plain version and library call, and the bound:
+    keep read once and every payload read and written once. copy_ms is
+    a device copy of every payload (one `copy_` each): the rate a plain
+    read and write of the same payload bytes reaches on this card."""
+    out = []
+    for site, keep, pays in calls:
+        P = keep.numel()
+        nbytes = P + 2 * sum(p.numel() * p.element_size() for p in pays)
+        copies = [torch.empty_like(p) for p in pays]
+        out.append({
+            "site": site, "P": P, "kept": int(keep.sum()),
+            "payloads": "+".join(str(p.dtype).replace("torch.", "")
+                                 for p in pays),
+            "ms": _time_ms(lambda: compaction.compact_flagged(keep, pays),
+                           20),
+            "plain_ms": _time_ms(
+                lambda: compaction.compact_flagged_plain(keep, pays), 5),
+            "library_ms": _time_ms(_k1_library(keep, pays), 10),
+            "copy_ms": _time_ms(lambda: [c.copy_(p) for c, p in
+                                         zip(copies, pays)], 10),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes,
+        })
+        del copies
+    return out
 
 
 def time_k2(dev, n: int, total: int) -> dict:
@@ -484,8 +584,38 @@ def _k3_compare(got, again, want, dtype, op, what) -> float:
     return abs(g - w)
 
 
+def _k3_with_count(x, words, n, op, other, dtype, what) -> float:
+    """reduce_with_count against reduce_plain + count_valid: the count
+    exact, the accumulator as _k3_compare holds it, and the pair the
+    same over two launches, and over two more with a launch on `other`
+    (another input) between them, so that a ticket left set would show."""
+    want, want_count = reductions.reduce_with_count_plain(x, words, n, op)
+    runs = [reductions.reduce_with_count(x, words, n, op) for _ in range(2)]
+    runs.append(reductions.reduce_with_count(x, words, n, op))
+    reductions.reduce_with_count(*other)
+    runs.append(reductions.reduce_with_count(x, words, n, op))
+    err = 0.0
+    for (acc, count), (again, count2) in zip(runs[::2], runs[1::2]):
+        if count.item() != want_count.item() or \
+                count2.item() != want_count.item():
+            raise AssertionError(f"K3 count {what}: {count.item()} / "
+                                 f"{count2.item()}, plain "
+                                 f"{want_count.item()}")
+        err = max(err, _k3_compare(acc, again, want, dtype, op,
+                                   f"with count {what}"))
+    if not torch.equal(_bits(runs[0][0].reshape(1)),
+                       _bits(runs[2][0].reshape(1))):
+        raise AssertionError(f"K3 {what}: a launch between two launches "
+                             f"changed the result")
+    return err
+
+
 def check_k3(dev, sizes=K3_SIZES) -> float:
+    """K3 over the sweep, through reduce and through reduce_with_count
+    (whose count must be exact)."""
     g = torch.Generator(device=dev).manual_seed(5)
+    other_v = torch.rand(1024, generator=g, device=dev, dtype=torch.float64)
+    other = (other_v, _k3_words(0.3, 999, 1024, g, dev), 999, "sum")
     err = 0.0
     cases = 0
     for n in sizes:
@@ -496,12 +626,14 @@ def check_k3(dev, sizes=K3_SIZES) -> float:
                 words = _k3_words(density, n, P, g, dev)
                 for op in reductions.OPS:
                     x = prod if op == "prod" else v
+                    what = f"{dtype} {op} n={n} density={density}"
                     got = reductions.reduce(x, words, n, op)
                     again = reductions.reduce(x, words, n, op)
                     want = reductions.reduce_plain(x, words, n, op)
-                    err = max(err, _k3_compare(
-                        got, again, want, dtype, op,
-                        f"{dtype} {op} n={n} density={density}"))
+                    err = max(err, _k3_compare(got, again, want, dtype, op,
+                                               what))
+                    err = max(err, _k3_with_count(x, words, n, op, other,
+                                                  dtype, what))
                     cases += 1
             if not dtype.is_floating_point:
                 continue
@@ -520,14 +652,19 @@ def check_k3(dev, sizes=K3_SIZES) -> float:
                     if bool(torch.isnan(got)) != nan:
                         raise AssertionError(f"K3 NaN {dtype} {op} n={n}: "
                                              f"{got.item()!r}")
+                    what = f"NaN {dtype} {op} n={n} nan={nan}"
                     err = max(err, _k3_compare(
                         got, reductions.reduce(x, words, n, op), want,
-                        dtype, op, f"NaN {dtype} {op} n={n} nan={nan}"))
+                        dtype, op, what))
+                    err = max(err, _k3_with_count(x, words, n, op, other,
+                                                  dtype, what))
                     cases += 1
     torch.cuda.synchronize()
-    print(f"K3 check: {cases} cases; ints, min, max and products "
-          f"bit-identical to the plain version, float sums within rtol; "
-          f"max |kernel - plain| {err!r}")
+    print(f"K3 check: {cases} cases through reduce and reduce_with_count; "
+          f"ints, min, max and products bit-identical to the plain "
+          f"version, float sums within rtol, counts exact, results the "
+          f"same over repeated and interleaved launches; max |kernel - "
+          f"plain| {err!r}")
     return err
 
 
@@ -722,6 +859,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor of the data (default 10)")
+    ap.add_argument("--timing-only", action="store_true",
+                    help="skip the kernel sweeps (phase 3) and the final "
+                         "kernels and ok lines: a run that times every "
+                         "path and kernel shape, for comparing two trees "
+                         "in turns on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -736,9 +878,12 @@ def main(argv=None) -> int:
     print(f"build: {t_build:.1f} s (nvcc, sm_90a)", flush=True)
     _print_ptxas(sources)
 
-    k1_err = check_k1(dev)
-    k2_err = check_k2(dev)
-    k3_err = check_k3(dev)
+    if args.timing_only:
+        k1_err = k2_err = k3_err = 0.0
+    else:
+        k1_err = check_k1(dev)
+        k2_err = check_k2(dev)
+        k3_err = check_k3(dev)
 
     n_li = LINEITEM_SF10 if args.sf == 10 else int(round(LINEITEM_SF1
                                                          * args.sf))
@@ -772,6 +917,20 @@ def main(argv=None) -> int:
         "verified": True}}), flush=True)
     print(json.dumps({"q3_profile": profile_q3(li_db, ord_db, oracle)}),
           flush=True)
+    # K1 at each of its Q3 shapes, on the inputs one Q3 run hands it
+    out, calls = capture_k1(lambda: compute_q3(li_db, ord_db, CUTOFF))
+    check_q3(out, oracle)
+    if len(calls) != launches["K1"]:
+        raise AssertionError(f"captured {len(calls)} K1 calls of Q3, "
+                             f"counted {launches['K1']}")
+    k1s = time_k1(calls)
+    del calls
+    for t in k1s:
+        print(f"K1 at {t['site']} (P={t['P']}, {t['payloads']}, "
+              f"kept {t['kept']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"copy {t['copy_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    print(json.dumps({"k1_shapes": k1s}), flush=True)
     P_li = li_db.padded
     cap = agt.pad_length(n_joined)
     del li_db, ord_db
@@ -854,13 +1013,17 @@ def main(argv=None) -> int:
         "ms_runs": runs, "ms_median": float(np.median(runs)),
         "launches_per_run": q3b_launches, "verified": True}}), flush=True)
 
-    k1 = time_k1(dev, P_li, n_li)
+    k1 = next(t for t in k1s if t["site"] == "filter_with_payload")
     k2 = time_k2(dev, cap, n_joined)
     k3s = time_k3(dev, P_li, n_li)
-    for name, t in [("K1", k1), ("K2", k2)] + [("K3", t) for t in k3s]:
+    for name, t in [("K2", k2)] + [("K3", t) for t in k3s]:
         print(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms")
+    print(json.dumps({"k2_k3_timed": [k2] + k3s}), flush=True)
+    if args.timing_only:
+        print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
+        return 0
     k3 = k3s[0]
     kernels = [
         {"name": "compact_flagged", "route": "cuda",

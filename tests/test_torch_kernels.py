@@ -82,6 +82,70 @@ def test_compact_flagged_stability_and_multi_payload():
     assert np.all(np.diff(got[0].numpy()[c:]) > 0)
 
 
+TILE = compaction._TILE
+MIXED = ["bool", "int8", "int16", "float16", "int32", "float32", "int64",
+         "float64"] * 2                  # 16 payloads of 1, 2, 4, 8 bytes
+
+
+def _k1_both(keep, pays):
+    """The port's compact_flagged against the JAX compact_flagged over the
+    [0, count) prefix and against the plain version over the whole
+    length, payload by payload, bit for bit."""
+    got = compaction.compact_flagged(torch.from_numpy(keep),
+                                     tuple(torch.from_numpy(p) for p in pays))
+    want = jcompaction.compact_flagged(jnp.asarray(keep),
+                                       tuple(jnp.asarray(p) for p in pays))
+    whole = compaction.compact_flagged_plain(
+        torch.from_numpy(keep), tuple(torch.from_numpy(p) for p in pays))
+    c = int(keep.sum())
+    assert len(got) == len(pays)
+    for g, w, h, p in zip(got, want, whole, pays):
+        g = g.numpy()
+        assert g.dtype == p.dtype and g.shape == p.shape
+        np.testing.assert_array_equal(_bits(g[:c]), _bits(np.asarray(w)[:c]))
+        np.testing.assert_array_equal(_bits(g), _bits(h.numpy()))
+
+
+@pytest.mark.parametrize("off", [1, 3, 5])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 2 * TILE + 3])
+def test_compact_flagged_offset_views_match_jax(n, off):
+    """keep and the payloads as views that start `off` elements into a
+    larger array (not 16-byte aligned)."""
+    rng = np.random.default_rng(n + off)
+    keep = (rng.random(n + off) < 0.5)[off:]
+    pays = tuple(_rand(rng, d, n + off)[off:] for d in
+                 ("int64", "float64", "int32", "uint16", "bool"))
+    assert not keep.flags.owndata and keep.ctypes.data % 16
+    _k1_both(keep, pays)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("n", [TILE - 1, TILE + 1, 3 * TILE])
+def test_compact_flagged_sixteen_mixed_payloads_match_jax(n, density):
+    rng = np.random.default_rng(n)
+    keep = rng.random(n) < density
+    _k1_both(keep, tuple(_rand(rng, d, n) for d in MIXED))
+
+
+def test_compact_flagged_wrapper_raises_on_what_k1_does_not_take():
+    """The CUDA wrapper's checks, which run before any launch."""
+    keep = torch.ones(8, dtype=torch.bool)
+    x = torch.arange(8)
+    bad = [
+        (keep.to(torch.uint8), (x,)),                     # keep not bool
+        (torch.ones(16, dtype=torch.bool)[::2], (x,)),    # keep strided
+        (keep, ()),                                       # no payload
+        (keep, (x,) * 17),                                # too many
+        (keep, (torch.arange(9),)),                       # length
+        (keep, (torch.arange(16)[::2],)),                 # strided payload
+        (keep, (x.reshape(2, 4),)),                       # not 1-D
+        (keep, (torch.zeros(8, dtype=torch.complex128),)),  # 16-byte rows
+    ]
+    for k, pays in bad:
+        with pytest.raises(ValueError, match="compact_flagged"):
+            compaction._compact_cuda(k, pays)
+
+
 # ---------------------------------------------------------------- K2
 
 @pytest.mark.parametrize("n", [1, 777, 8192 * 4 + 5])

@@ -148,6 +148,62 @@ def test_count_valid_and_mean_match_jax(rng, n, density):
     assert np.isclose(got, want, rtol=1e-9, atol=0)
 
 
+@pytest.mark.parametrize("n", [0, 1, 777, P])
+@pytest.mark.parametrize("density", [None, 0.0, 0.5])
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_reduce_with_count_matches_jax(rng, dtype, op, density, n):
+    """reduce_with_count (its plain version, as on the CPU) against the
+    JAX reduce, both ways, and the JAX valid count; density 0.0 is an
+    all-null column, n = 0 an empty one."""
+    vals = _values(rng, dtype, op, n)
+    words = _words(rng, n, density)
+    w = None if words is None else torch.from_numpy(words.view(np.int32))
+    acc, count = tred.reduce_with_count(torch.from_numpy(vals), w, n, op)
+    want_count = int(jred.count_valid(
+        jnp.asarray(vals), None if words is None else jnp.asarray(words), n))
+    assert count.dtype == torch.int64 and count.item() == want_count
+    assert acc.dtype == tred.reduce(torch.from_numpy(vals), w, n, op).dtype
+    for impl in ("pallas", "xla"):
+        _same(acc, _jax(vals, words, n, op, impl), dtype, op)
+    host_acc, host_count = tred.reduce_with_count_host(
+        torch.from_numpy(vals), w, n, op)
+    assert host_count == want_count and type(host_count) is int
+    assert host_acc == acc.item() or (math.isnan(host_acc)
+                                      and math.isnan(acc.item()))
+
+
+def test_reduce_with_count_takes_the_plain_version_on_cpu(rng):
+    """A CPU tensor never reaches K3: the launch count stays put."""
+    vals = _values(rng, "float64", "sum", 500)
+    before = tred.reduce.launches
+    tred.reduce_with_count(torch.from_numpy(vals), None, 500, "sum")
+    tred.reduce_with_count_host(torch.from_numpy(vals), None, 500, "max")
+    assert tred.reduce.launches == before
+
+
+def test_reduce_wrapper_raises_on_what_k3_does_not_take():
+    """The CUDA wrapper's checks, which run before any launch, and the
+    op and type checks every path shares."""
+    x = torch.arange(64, dtype=torch.int64)
+    words = torch.zeros(2, dtype=torch.int32)
+    bad = [
+        (torch.arange(128)[::2], None, 64, "sum"),             # strided
+        (x, words.to(torch.int64), 64, "sum"),                 # word type
+        (x, torch.zeros(4, dtype=torch.int32)[::2], 64, "sum"),
+        (x, torch.zeros(1, dtype=torch.int32), 64, "sum"),     # too few
+        (x, words, 64, "mean"),                                # op
+        (x.to(torch.int16), None, 64, "sum"),                  # value type
+        (x.reshape(8, 8), None, 64, "sum"),                    # not 1-D
+    ]
+    for args in bad:
+        with pytest.raises(ValueError, match="reduce"):
+            tred._reduce_cuda(*args)
+    for op, vals in (("mean", x), ("sum", x.to(torch.uint8))):
+        with pytest.raises(ValueError, match="reduce"):
+            tred.reduce_with_count(vals, None, 64, op)
+
+
 # ---------------------------------------------------------------------------
 # scalar aggregates on DeviceColumns
 # ---------------------------------------------------------------------------
