@@ -3,13 +3,15 @@
 Port of the paths of arrow_go_tpu/compute/functions.py that the device
 pipeline runs: the DeviceBatch filter (every column rides the stable
 compaction, K1 on the card), take, sort_indices with the small-host
-fast path for group-sized results, and the scalar aggregates sum / min /
-max / mean / count / min_max (masked reductions, K3 on the card).
+fast path for group-sized results and its record form over sort keys
+(a dictionary column sorts by its values' string order), and the scalar
+aggregates sum / min / max / mean / count / min_max (masked reductions,
+K3 on the card).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field as dc_field
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +36,18 @@ class TakeOptions:
 
 
 @dataclass
+class SortKey:
+    target: Union[str, int]
+    order: str = "ascending"              # 'ascending' | 'descending'
+
+
+@dataclass
+class SortOptions:
+    keys: List[SortKey] = dc_field(default_factory=list)
+    null_placement: str = "at_end"        # 'at_end' | 'at_start'
+
+
+@dataclass
 class CountOptions:
     mode: str = "only_valid"              # 'only_valid' | 'only_null' | 'all'
 
@@ -44,8 +58,10 @@ def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
     if newP < col.padded:
         words = col.validity[: newP // 32] if col.validity is not None \
             else None
-        return DeviceColumn(col.values[:newP], words, count, col.type)
-    return DeviceColumn(col.values, col.validity, count, col.type)
+        return DeviceColumn(col.values[:newP], words, count, col.type,
+                            col.dictionary)
+    return DeviceColumn(col.values, col.validity, count, col.type,
+                        col.dictionary)
 
 
 def _filter_batch(mvals, mvalidity, col_vals, col_valids, length,
@@ -97,7 +113,7 @@ def filter_(values, mask, options: Optional[FilterOptions] = None):
         [c.validity for c in db.columns], db.length,
         options.null_selection)
     count = int(cnt)
-    cols = [_trim(DeviceColumn(v, w, count, c.type), count)
+    cols = [_trim(DeviceColumn(v, w, count, c.type, c.dictionary), count)
             for v, w, c in zip(out_vals, out_valids, db.columns)]
     return DeviceBatch(db.schema, cols, count)
 
@@ -127,7 +143,8 @@ def _take_host(arr: HostArray, idx: np.ndarray) -> HostArray:
                                                       arr.values.dtype)
     mask = (idx >= 0) & arr.validity_bools()[safe] if len(arr) else \
         np.zeros(len(idx), np.bool_)
-    return HostArray(vals, None if mask.all() else mask, arr.type)
+    return HostArray(vals, None if mask.all() else mask, arr.type,
+                     arr.dictionary)
 
 
 def take(values, indices, options: Optional[TakeOptions] = None):
@@ -158,7 +175,8 @@ def take(values, indices, options: Optional[TakeOptions] = None):
         vals = selection.gather(values.values, idx)
         words = selection.take_validity(values.validity, idx,
                                         indices.length, indices.padded)
-        return DeviceColumn(vals, words, indices.length, values.type)
+        return DeviceColumn(vals, words, indices.length, values.type,
+                            values.dictionary)
     raise ArrowNotImplemented(
         f"take of {type(values).__name__} by {type(indices).__name__}")
 
@@ -170,13 +188,25 @@ def take(values, indices, options: Optional[TakeOptions] = None):
 _HOST_SMALL = 4096     # below this a host argsort beats a device round trip
 
 
-def _argsort_host_small(arr: HostArray, desc: bool,
-                        nulls_first: bool) -> np.ndarray:
-    """Host argsort: the device path's total order (NaN greatest, stable,
-    null placement) on numpy."""
+def _dictionary_rank(dictionary: np.ndarray) -> np.ndarray:
+    """Rank of each dictionary code in its values' order (ties by code),
+    int64, at least one entry."""
+    order = sorted(range(len(dictionary)), key=lambda i: dictionary[i])
+    rank = np.zeros(max(len(dictionary), 1), np.int64)
+    rank[order] = np.arange(len(order), dtype=np.int64)
+    return rank
+
+
+def _host_sort_operand(arr: HostArray, desc: bool, nulls_first: bool):
+    """(order bits, null group) of a host column: the device path's total
+    order (NaN greatest, dictionary codes by their values' rank) as
+    unsigned ints, and the rank of its null placement."""
     v = np.ascontiguousarray(arr.values)
     d = v.dtype
-    if d.kind == "b":
+    if arr.dictionary is not None:
+        rank = _dictionary_rank(arr.dictionary)
+        bits = rank[np.clip(v, 0, len(rank) - 1)].astype(np.uint64)
+    elif d.kind == "b":
         bits = v.astype(np.uint8)
     elif d.kind == "i":
         u = v.view(f"u{d.itemsize}")
@@ -190,33 +220,89 @@ def _argsort_host_small(arr: HostArray, desc: bool,
         bits = ~bits
     valid = arr.validity_bools()
     ngroup = valid if nulls_first else ~valid
+    return bits, ngroup.astype(np.uint8)
+
+
+def _argsort_host_small(arr: HostArray, desc: bool,
+                        nulls_first: bool) -> np.ndarray:
+    """Host argsort: the device path's total order (NaN greatest, stable,
+    null placement) on numpy."""
+    bits, ngroup = _host_sort_operand(arr, desc, nulls_first)
     # lexsort: last key is primary; stable by position
-    return np.lexsort((bits, ngroup.astype(np.uint8))).astype(np.int64)
+    return np.lexsort((bits, ngroup)).astype(np.int64)
 
 
-def sort_indices(values, *, order: str = "ascending",
-                 null_placement: str = "at_end", device=None):
+def _column_sort_key(col: DeviceColumn, descending: bool,
+                     nulls_first: bool) -> sort_ops.SortOperand:
+    """A device column's sort operand; a dictionary column's codes sort
+    by their values' rank (host-computed from the dictionary)."""
+    rank = None
+    if col.dictionary is not None:
+        rank = torch.from_numpy(_dictionary_rank(col.dictionary)).to(
+            col.device)
+    return sort_ops.sort_key(col.values, col.type, col.validity, col.length,
+                             descending=descending, nulls_first=nulls_first,
+                             rank=rank)
+
+
+def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
+                 device):
+    """sort_indices of a HostBatch or DeviceBatch by options.keys, first
+    key most significant, stable."""
+    if not options or not options.keys:
+        raise ArrowInvalid("record sort requires SortOptions.keys")
+    descs = [k.order == "descending" for k in options.keys]
+    if isinstance(values, HostBatch):
+        cols = [values.column(k.target) for k in options.keys]
+        if values.num_rows <= _HOST_SMALL:
+            lex = []
+            for col, desc in zip(reversed(cols), reversed(descs)):
+                lex.extend(_host_sort_operand(col, desc, nulls_first))
+            perm = np.lexsort(lex).astype(np.int64) if lex else \
+                np.arange(values.num_rows, dtype=np.int64)
+            return HostArray(perm, None, dt.int64)
+        dev = torchenv.device(device)
+        cols = [DeviceColumn(*_host_to_device(c, dev), len(c), c.type,
+                             c.dictionary) for c in cols]
+        n = values.num_rows
+    else:
+        cols = [values.column(k.target) for k in options.keys]
+        n = values.length
+    perm = sort_ops.argsort_multi([_column_sort_key(c, desc, nulls_first)
+                                   for c, desc in zip(cols, descs)])
+    if isinstance(values, HostBatch):
+        return HostArray(perm[:n].cpu().numpy(), None, dt.int64)
+    return DeviceColumn(perm, None, n, dt.int64)
+
+
+def sort_indices(values, options: Optional[SortOptions] = None, *,
+                 order: str = "ascending", null_placement: str = "at_end",
+                 device=None):
     """Sort indices of a HostArray (returned as a HostArray) or a
-    DeviceColumn (returned as a DeviceColumn). A HostArray longer than
-    _HOST_SMALL sorts on `device` (the card unless named)."""
-    desc = order == "descending"
-    nulls_first = null_placement == "at_start"
+    DeviceColumn (returned as a DeviceColumn); of a HostBatch or a
+    DeviceBatch by `options.keys` (the record form; a HostArray or a
+    DeviceColumn back). Host input longer than _HOST_SMALL rows sorts on
+    `device` (the card unless named)."""
+    nulls_first = ((options.null_placement if options else null_placement)
+                   == "at_start")
+    if isinstance(values, (HostBatch, DeviceBatch)):
+        return _sort_record(values, options, nulls_first, device)
+    desc = (options.keys[0].order == "descending") if (
+        options and options.keys) else order == "descending"
     if isinstance(values, HostArray):
         if len(values) <= _HOST_SMALL:
             return HostArray(_argsort_host_small(values, desc, nulls_first),
                              None, dt.int64)
         dev = torchenv.device(device)
         col = DeviceColumn(*_host_to_device(values, dev), len(values),
-                           values.type)
-        perm = sort_indices(col, order=order, null_placement=null_placement)
-        return HostArray(perm.values[:len(values)].cpu().numpy(), None,
-                         dt.int64)
+                           values.type, values.dictionary)
+        perm = sort_ops.argsort_single(_column_sort_key(col, desc,
+                                                        nulls_first))
+        return HostArray(perm[:len(values)].cpu().numpy(), None, dt.int64)
     if not isinstance(values, DeviceColumn):
         raise ArrowNotImplemented(f"sort_indices of {type(values).__name__}")
-    key = sort_ops.sort_key(values.values, values.type, values.validity,
-                            values.length, descending=desc,
-                            nulls_first=nulls_first)
-    perm = sort_ops.argsort_single(key)
+    perm = sort_ops.argsort_single(_column_sort_key(values, desc,
+                                                    nulls_first))
     return DeviceColumn(perm, None, values.length, dt.int64)
 
 

@@ -1,13 +1,14 @@
 """Hash aggregate: GROUP BY over a DeviceBatch (single device).
 
-Port of the sum/count path of arrow_go_tpu/compute/groupby.py: the
-sort-based grouping core (ops/hashing.py) plus segment aggregation in
-the key-sorted domain (ops/groupagg.py). The group count is read on the
-host once; then the group-sized results and the key representatives
-come back as a HostBatch.
+Port of arrow_go_tpu/compute/groupby.py: the sort-based grouping core
+(ops/hashing.py) plus segment aggregation in the key-sorted domain
+(ops/groupagg.py), for every aggregation the JAX package takes. The
+group count is read on the host once; then the group-sized results and
+the key representatives come back as a HostBatch.
 
 Null keys form their own group; groups appear in first-occurrence
-order (PARITY.md D3).
+order (PARITY.md D3). A dictionary (string) key groups on its int32
+codes, and its output column carries the dictionary.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ from .. import dtypes as dt
 from ..device.block import (DeviceBatch, HostArray, HostBatch, _unpack_words,
                             pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
+from ..ops.sort import _orderable_bits, sortable
 from .errors import ArrowNotImplemented
 
-_AGGS = ("sum", "count")
+_AGGS = ("sum", "count", "count_all", "min", "max", "mean", "product",
+         "any", "all", "first", "last")
 
 
 def _combined_key(key_vals, key_valids, key_types, length):
@@ -49,14 +52,31 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     dev = combined.device
     row_ok = row_mask(P, length, dev)
 
-    # every agg's (cast) values and validity ride the encode sort as
-    # payload lanes, so the aggregation reads them in sorted order
+    # the sum family's (cast) values and validity, and the valid masks
+    # the other aggregations count with, ride the encode sort as payload
+    # lanes, so the aggregation reads them in sorted order
     payloads = []
-    for vals, valids in zip(agg_vals, agg_valids):
+    plan = []     # per agg: (vmask, value payload index, mask payload index)
+    for vals, valids, agg in zip(agg_vals, agg_valids, agg_names):
         vmask = row_ok if valids is None else (
             bitmap.expand_words(valids, P) & row_ok)
-        acc = torch.int64 if not vals.dtype.is_floating_point else vals.dtype
-        payloads.extend((vals.to(acc), vmask))
+        vi = mi = None
+        if agg in ("sum", "count", "mean"):
+            acc = vals.dtype if vals.dtype.is_floating_point else torch.int64
+            vi = len(payloads)
+            payloads.append(vals.to(acc))
+            mi = len(payloads)
+            payloads.append(vmask)
+        elif agg == "any":
+            mi = len(payloads)
+            payloads.append(vmask & vals.to(torch.bool))
+        elif agg == "all":
+            mi = len(payloads)
+            payloads.append(vmask & ~vals.to(torch.bool))
+        elif agg in ("min", "max", "first", "last"):
+            mi = len(payloads)       # only the valid count needs it
+            payloads.append(vmask)
+        plan.append((vmask, vi, mi))
     enc, spay = hashing.encode_sorted_with(combined, dt.int64, None,
                                            length, tuple(payloads))
     n_groups = enc.n_unique
@@ -68,20 +88,81 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     order = torch.argsort(first_x, stable=True)
     rep_rows = first_x.index_select(0, order)
 
+    # the min/max family's key, in original row order
+    skey = sortable(_orderable_bits(combined, dt.int64))
     results = []
-    for i, agg in enumerate(agg_names):
-        s, c = groupagg.segment_sum_count(
-            enc, agg_vals[i], None, values_sorted=spay[2 * i],
-            valid_sorted=spay[2 * i + 1])
-        r, v = (c, None) if agg == "count" else (s, c > 0)
+    for vals, agg, (vmask, vi, mi) in zip(agg_vals, agg_names, plan):
+        r, v = _segment_agg(enc, skey, vals, vmask, agg,
+                            None if vi is None else spay[vi],
+                            None if mi is None else spay[mi])
         results.append((r.index_select(0, order),
                         None if v is None else v.index_select(0, order)))
     return n_groups, rep_rows, results
 
 
+def _segment_agg(enc, skey, v, vmask, agg: str, values_sorted,
+                 mask_sorted):
+    """Per-run aggregation (key order) -> (by_run[P], valid[P] or None).
+    values_sorted / mask_sorted are payload lanes carried through the
+    encode sort."""
+    P = v.shape[0]
+    zeros64 = torch.zeros(P, dtype=torch.int64, device=v.device)
+
+    def valid_count():
+        return groupagg.segment_sum_count(enc, zeros64, None,
+                                          values_sorted=zeros64,
+                                          valid_sorted=mask_sorted)[1]
+
+    if agg == "count_all":
+        return groupagg.segment_sum_count(enc, zeros64, None,
+                                          values_sorted=zeros64)[1], None
+    if agg == "any":
+        return valid_count() > 0, None
+    if agg == "all":
+        return valid_count() == 0, None
+    if agg in ("sum", "count", "mean"):
+        s, c = groupagg.segment_sum_count(enc, v, None,
+                                          values_sorted=values_sorted,
+                                          valid_sorted=mask_sorted)
+        if agg == "count":
+            return c, None
+        if agg == "mean":
+            return (s.to(torch.float64)
+                    / torch.clamp(c, min=1).to(torch.float64), c > 0)
+        return s, c > 0
+    if agg in ("min", "max"):
+        out = groupagg.segment_min_max(skey, v,
+                                       sortable(_orderable_bits(v)), vmask,
+                                       agg)
+        return out, valid_count() > 0
+    if agg in ("first", "last"):
+        iota = torch.arange(P, dtype=torch.int64, device=v.device)
+        sel = groupagg.segment_min_max(skey, iota, iota, vmask,
+                                       "min" if agg == "first" else "max")
+        return (v.index_select(0, sel.clamp(0, P - 1)),
+                valid_count() > 0)
+    if agg == "product":
+        # rare: the JAX package's scatter path, by each row's run id
+        codes = torch.full((P,), -1, dtype=torch.int64, device=v.device)
+        codes[enc.sidx] = torch.where(enc.svalid, enc.run_id.to(torch.int64),
+                                      -1)
+        slot = torch.where(vmask & (codes >= 0), codes, P)
+        acc = v.dtype if v.dtype.is_floating_point else torch.int64
+        s = torch.ones(P + 1, dtype=acc, device=v.device).scatter_reduce_(
+            0, slot, torch.where(vmask, v.to(acc), torch.ones((), dtype=acc,
+                                                             device=v.device)),
+            "prod")
+        cnt = torch.zeros(P + 1, dtype=torch.int32,
+                          device=v.device).scatter_add_(
+            0, slot, vmask.to(torch.int32))
+        return s[:P], cnt[:P] > 0
+    raise ArrowNotImplemented(agg)
+
+
 def group_by(data: DeviceBatch, keys,
              aggregations: Sequence[Tuple[str, str]]) -> HostBatch:
-    """GROUP BY `keys` with aggregations [(column, 'sum'|'count'), ...].
+    """GROUP BY `keys` with aggregations [(column, agg), ...], agg one of
+    sum, count, count_all, min, max, mean, product, any, all, first, last.
 
     Output columns: key columns (first-occurrence values) followed by
     '<col>_<agg>' result columns, as a HostBatch.
@@ -92,13 +173,17 @@ def group_by(data: DeviceBatch, keys,
         keys = [keys]
     for _, agg in aggregations:
         if agg not in _AGGS:
-            raise ArrowNotImplemented(f"aggregation {agg!r} is not ported")
+            raise ArrowNotImplemented(f"aggregation {agg!r}")
     key_cols = [data.column(k) for k in keys]
     agg_cols = [data.column(c) for c, _ in aggregations]
+    for (_, agg), vcol in zip(aggregations, agg_cols):
+        if vcol.dictionary is not None and agg not in ("count", "count_all"):
+            raise ArrowNotImplemented(f"{agg} on string/dictionary column")
     n_groups_dev, rep_rows, results = _group_program(
         [c.values for c in key_cols], [c.validity for c in key_cols],
         [c.values for c in agg_cols], [c.validity for c in agg_cols],
-        data.length, [c.type for c in key_cols],
+        data.length,
+        [dt.int32 if c.dictionary is not None else c.type for c in key_cols],
         [agg for _, agg in aggregations])
 
     # the group COUNT first (one scalar), then only group-sized slices
@@ -114,14 +199,14 @@ def group_by(data: DeviceBatch, keys,
         kwords = selection.take_validity(c.validity, idx, n_groups, kb)
         kmask = _unpack_words(kwords.cpu().numpy().view(np.uint32),
                               n_groups)
-        out_cols.append(HostArray(kvals, kmask, c.type))
+        out_cols.append(HostArray(kvals, kmask, c.type, c.dictionary))
         names.append(name)
     for (col_name, agg), vcol, (res, valid) in zip(aggregations, agg_cols,
                                                    results):
-        res_np = res[:n_groups].cpu().numpy()
+        t = _out_type(vcol.type, agg)
+        res_np = res[:n_groups].cpu().numpy().astype(t.np_dtype, copy=False)
         mask_np = None if valid is None else valid[:n_groups].cpu().numpy()
-        out_cols.append(HostArray(res_np, mask_np,
-                                  _out_type(vcol.type, agg)))
+        out_cols.append(HostArray(res_np, mask_np, t))
         names.append(f"{col_name}_{agg}")
     return HostBatch(dt.Schema([dt.Field(nm, c.type)
                                 for nm, c in zip(names, out_cols)]),
@@ -129,6 +214,12 @@ def group_by(data: DeviceBatch, keys,
 
 
 def _out_type(t: dt.DataType, agg: str) -> dt.DataType:
-    if agg == "count" or t.is_integer or t == dt.bool_:
+    if agg in ("count", "count_all"):
+        return dt.int64
+    if agg == "mean":
+        return dt.float64
+    if agg in ("any", "all"):
+        return dt.bool_
+    if agg == "sum" and (t.is_integer or t == dt.bool_):
         return dt.int64
     return t

@@ -11,6 +11,10 @@ JAX package's words (LSB-first: word w bit b <-> row w*32+b); torch's
 uint32 supports too few operations, so every shift of a word is masked
 afterwards (ops/bitmap.py).
 
+Strings and binary values are dictionary-encoded at ingest, as in the
+JAX package: int32 codes live on the device, the values stay in a host
+dictionary (a numpy object array of str or bytes) that rides the column.
+
 Results that leave the device (the group-sized output of group_by)
 come back as a numpy-backed HostBatch.
 """
@@ -76,13 +80,16 @@ class DeviceColumn:
     validity: int32 words carrying u32 bit patterns, shape (padded/32,),
               or None (all valid)
     length:   logical row count
-    type:     the logical type
+    type:     the logical type (dictionary(int32, string) for strings)
+    dictionary: the host values the codes of a dictionary column index
+              (numpy object array), else None
     """
 
     values: torch.Tensor
     validity: Optional[torch.Tensor]
     length: int
     type: dt.DataType
+    dictionary: Optional[np.ndarray] = None
     _mask_cache: Optional[torch.Tensor] = None
 
     def __post_init__(self):
@@ -139,9 +146,49 @@ def _words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(w.copy()).to(device)
 
 
+def dictionary_values(values, t: dt.DataType) -> np.ndarray:
+    """A dictionary's values as a numpy object array of str (string, from
+    str or UTF-8 bytes) or bytes (binary)."""
+    if t == dt.string:
+        vals = [v.decode() if isinstance(v, (bytes, bytearray, memoryview))
+                else str(v) for v in values]
+    else:
+        vals = [bytes(v) for v in values]
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return out
+
+
+def dictionary_type(dictionary) -> dt.DataType:
+    """binary for a dictionary of bytes values, string otherwise."""
+    return dt.binary if len(dictionary) and isinstance(
+        dictionary[0], (bytes, bytearray)) else dt.string
+
+
+def factorize(values: np.ndarray, mask: Optional[np.ndarray] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(int32 codes, dictionary) of a string/bytes array, the dictionary
+    in first-occurrence order of the valid rows (the JAX package's
+    DictionaryBuilder order); null rows take code 0."""
+    values = np.asarray(values)
+    live = values if mask is None else values[mask]
+    if not len(live):
+        return np.zeros(len(values), np.int32), values[:0].astype(object)
+    uniq, first, inv = np.unique(live, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    code_of = np.empty(len(uniq), np.int32)
+    code_of[order] = np.arange(len(uniq), dtype=np.int32)
+    codes = np.zeros(len(values), np.int32)
+    if mask is None:
+        codes[:] = code_of[inv.reshape(-1)]
+    else:
+        codes[mask] = code_of[inv.reshape(-1)]
+    return codes, uniq[order].astype(object)
+
+
 def batch_from_numpy(fields: Sequence[Tuple[str, str]],
-                     columns: Sequence[Tuple[np.ndarray,
-                                             Optional[np.ndarray]]],
+                     columns: Sequence[tuple],
                      length: int, device=None) -> DeviceBatch:
     """DeviceBatch from already padded host buffers.
 
@@ -149,15 +196,25 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
     columns: (values, validity words or None) per column: the padded
              values ndarray and the uint32 validity words, exactly what
              `np.asarray` gives for a JAX DeviceColumn's `.values` and
-             `.validity`, so both packages hold bit-identical inputs.
+             `.validity`, so both packages hold bit-identical inputs. A
+             string or binary field takes (int32 codes, words,
+             dictionary values): a dictionary(int32, ...) column.
     """
     dev = torchenv.device(device)
     if len(fields) != len(columns):
         raise ValueError("one (values, validity) pair per field")
     flds, cols = [], []
     padded = None
-    for (name, tname), (vals, words) in zip(fields, columns):
-        t = dt.type_for_name(tname)
+    for (name, tname), col in zip(fields, columns):
+        ft = dt.type_for_name(tname)
+        vals, words = col[0], col[1]
+        t, dictionary = ft, None
+        if ft.is_binary_like:
+            if len(col) != 3:
+                raise ValueError(f"column {name!r}: a {tname} column takes "
+                                 f"(codes, words, dictionary)")
+            t = dt.dictionary(dt.int32, ft)
+            dictionary = dictionary_values(col[2], ft)
         vals = np.asarray(vals)
         if vals.ndim != 1 or vals.dtype != t.np_dtype:
             raise ValueError(
@@ -170,28 +227,47 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
                              f"{vals.shape[0]} does not fit the batch")
         v = torch.from_numpy(np.ascontiguousarray(vals).copy()).to(dev)
         w = None if words is None else _words_to_tensor(words, dev)
-        flds.append(dt.Field(name, t))
-        cols.append(DeviceColumn(v, w, int(length), t))
+        flds.append(dt.Field(name, ft))
+        cols.append(DeviceColumn(v, w, int(length), t, dictionary))
     return DeviceBatch(dt.Schema(flds), cols, int(length))
 
 
-def batch_to_device(data: Dict[str, np.ndarray], device=None,
+def batch_to_device(data: Dict[str, object], device=None,
                     pad: Optional[int] = None) -> DeviceBatch:
-    """Null-free numpy columns (all of one length) -> a padded DeviceBatch."""
+    """Null-free numpy columns (all of one length) -> a padded DeviceBatch.
+
+    A string column is a numpy str/object array (dictionary-encoded here,
+    first-occurrence order) or an (int32 codes, values) pair taken as it
+    stands; bytes values make a binary column."""
     names = list(data)
-    n = len(data[names[0]]) if names else 0
-    P = pad if pad is not None else pad_length(n)
     fields, columns = [], []
+    n = None
     for name in names:
-        v = np.asarray(data[name])
-        if len(v) != n:
-            raise ValueError(f"column {name!r} has {len(v)} rows, not {n}")
-        t = dt.from_numpy_dtype(v.dtype)
-        host = np.zeros(P, dtype=t.np_dtype)
-        host[:n] = v
-        fields.append((name, t.name))
-        columns.append((host, None))
-    return batch_from_numpy(fields, columns, n, device)
+        v = data[name]
+        if isinstance(v, tuple):
+            codes, dictionary = np.asarray(v[0], np.int32), v[1]
+        else:
+            v = np.asarray(v)
+            codes = dictionary = None
+            if v.dtype.kind in "USO":
+                codes, dictionary = factorize(v)
+        m = len(codes if codes is not None else v)
+        n = m if n is None else n
+        if m != n:
+            raise ValueError(f"column {name!r} has {m} rows, not {n}")
+        if codes is None:
+            t = dt.from_numpy_dtype(v.dtype)
+            host = np.zeros(pad if pad is not None else pad_length(n),
+                            dtype=t.np_dtype)
+            host[:n] = v
+            fields.append((name, t.name))
+            columns.append((host, None))
+            continue
+        host = np.zeros(pad if pad is not None else pad_length(n), np.int32)
+        host[:n] = codes
+        fields.append((name, dictionary_type(dictionary).name))
+        columns.append((host, None, dictionary))
+    return batch_from_numpy(fields, columns, n or 0, device)
 
 
 # ---------------------------------------------------------------------------
@@ -200,13 +276,15 @@ def batch_to_device(data: Dict[str, np.ndarray], device=None,
 
 class HostArray:
     """A numpy-backed result column: values[:n] plus an optional bool mask
-    (True = valid)."""
+    (True = valid). A dictionary column holds codes in `values` and the
+    values they index in `dictionary`."""
 
     def __init__(self, values: np.ndarray, mask: Optional[np.ndarray],
-                 type: dt.DataType):
+                 type: dt.DataType, dictionary: Optional[np.ndarray] = None):
         self.values = np.asarray(values)
         self.mask = None if mask is None else np.asarray(mask, np.bool_)
         self.type = type
+        self.dictionary = dictionary
 
     def __len__(self) -> int:
         return len(self.values)
@@ -217,10 +295,16 @@ class HostArray:
         return self.mask
 
     def to_pylist(self) -> list:
+        """Python values; a dictionary column's codes decode to its
+        dictionary's values."""
         vals = self.values.tolist()
+        oks = self.validity_bools().tolist()
+        if self.dictionary is not None:
+            vals = [self.dictionary[c] if ok else None
+                    for c, ok in zip(vals, oks)]
         if self.mask is None:
             return vals
-        return [v if ok else None for v, ok in zip(vals, self.mask.tolist())]
+        return [v if ok else None for v, ok in zip(vals, oks)]
 
 
 class HostBatch:

@@ -1,6 +1,8 @@
 """Logical types of the port: the subset of the JAX package's dtypes that
 the device pipeline carries (bool, int32, int64, float32, float64), with
-the same names and type ids, plus the torch dtype of each."""
+the same names and type ids, plus the torch dtype of each; and the
+variable-width string and binary types, which live on the device as a
+dictionary type: int32 codes there, the values in a host dictionary."""
 from __future__ import annotations
 
 import enum
@@ -18,6 +20,9 @@ class TypeId(enum.IntEnum):
     INT64 = 9
     FLOAT32 = 11
     FLOAT64 = 12
+    STRING = 13
+    BINARY = 14
+    DICTIONARY = 29
 
 
 class DataType:
@@ -41,6 +46,10 @@ class DataType:
     def is_numeric(self) -> bool:
         return self.is_integer or self.is_floating
 
+    @property
+    def is_binary_like(self) -> bool:
+        return self.id in (TypeId.STRING, TypeId.BINARY)
+
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, DataType):
             return NotImplemented
@@ -58,17 +67,54 @@ int32 = DataType(TypeId.INT32, "int32", np.int32, torch.int32)
 int64 = DataType(TypeId.INT64, "int64", np.int64, torch.int64)
 float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32)
 float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64)
+# host values are Python str / bytes objects; on the device a column of
+# these types is a dictionary(int32, ...) column of codes
+string = DataType(TypeId.STRING, "utf8", np.object_, None)
+binary = DataType(TypeId.BINARY, "binary", np.object_, None)
+
+
+class DictionaryType(DataType):
+    """Codes of `index_type` into a host dictionary of `value_type` values
+    (the JAX package's DictionaryType, unordered)."""
+
+    def __init__(self, index_type: DataType, value_type: DataType):
+        if not index_type.is_integer:
+            raise ValueError("dictionary index type must be integer")
+        super().__init__(TypeId.DICTIONARY, "dictionary",
+                         index_type.np_dtype, index_type.torch_dtype)
+        self.index_type = index_type
+        self.value_type = value_type
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, DataType):
+            return NotImplemented
+        return isinstance(other, DictionaryType) and (
+            self.index_type, self.value_type) == (other.index_type,
+                                                  other.value_type)
+
+    def __hash__(self) -> int:
+        return hash((int(self.id), self.index_type, self.value_type))
+
+    def __repr__(self) -> str:
+        return (f"dictionary<values={self.value_type!r}, "
+                f"indices={self.index_type!r}>")
+
+
+def dictionary(index_type: DataType, value_type: DataType) -> DictionaryType:
+    return DictionaryType(index_type, value_type)
+
 
 _BY_NAME: Dict[str, DataType] = {
     "bool": bool_, "int32": int32, "int64": int64, "float": float32,
-    "float32": float32, "double": float64, "float64": float64}
+    "float32": float32, "double": float64, "float64": float64,
+    "utf8": string, "string": string, "binary": binary}
 _FROM_NUMPY = {t.np_dtype: t for t in (bool_, int32, int64, float32,
                                        float64)}
 
 
 def type_for_name(name: str) -> DataType:
     """Type by its name ('int32', 'int64', 'float' or 'float32', 'double'
-    or 'float64', 'bool')."""
+    or 'float64', 'bool', 'utf8' or 'string', 'binary')."""
     try:
         return _BY_NAME[name]
     except KeyError:

@@ -2,7 +2,8 @@
 
 Port of arrow_go_tpu/ops/decode.py (the device analog of the reference's
 SIMD decode tier: the bit-unpack of parquet/internal/utils/_lib, the
-RLE/bit-packed hybrid of internal/utils/rle.go, BYTE_STREAM_SPLIT).
+RLE/bit-packed hybrid of internal/utils/rle.go, BYTE_STREAM_SPLIT,
+DELTA_BINARY_PACKED of parquet/internal/encoding/delta_bit_packing.go).
 
 The host parses the control stream (page headers, RLE run headers) into
 flat segment tables; the bulk bytes go to the device once and every
@@ -28,6 +29,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .. import native
 
 _U32 = 0xFFFFFFFF
 _TORCH_OF = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
@@ -89,7 +92,7 @@ def words_from_bytes(data) -> np.ndarray:
 # RLE/bit-packed hybrid (parquet levels + dictionary indices)
 # ---------------------------------------------------------------------------
 
-def parse_rle_segments(data, n: int, bit_width: int
+def parse_rle_segments(data, n: int, bit_width: int, alloc=None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                   np.ndarray]:
     """Host control-stream parse of an RLE/bit-packed hybrid stream.
@@ -102,93 +105,22 @@ def parse_rle_segments(data, n: int, bit_width: int
                      offset of the segment's first value in `words`
       words          uint32 bit stream of ALL packed groups, concatenated
                      byte-aligned per group (+ guard word)
-    Only headers are touched in Python; packed group bytes are sliced
-    wholesale. A bit-packed run followed by runs of the same header and
-    length (an encoder's full runs: 512 values each in Arrow's and this
-    port's writer) is taken in one numpy step: the next runs' headers
-    sit at fixed strides, so they are checked and their bodies copied
-    together.
+    The run headers are walked in the host codec library (native.py): a
+    stream of short runs (string codes) has a header every few bytes.
+    `alloc(nbytes)` gives the uint8 array that the walk copies the packed
+    bodies into and `words` views (np.empty by default; the scan passes
+    its pinned staging memory, so the bodies are copied once).
     """
-    data = memoryview(data)
-    raw = np.frombuffer(data, np.uint8)
-    L = len(data)
-    # the packed bodies, never longer than the stream; `words` views it
-    packed = np.empty(L + 8, np.uint8)
-    o = 0
-    chunks = []                          # (starts, is_run, payload) arrays
-    starts, is_run, payload = [], [], []  # segments since the last chunk
-
-    def flush():
-        chunks.append((np.asarray(starts, np.int64),
-                       np.asarray(is_run, np.uint32),
-                       np.asarray(payload, np.int64)))
-        starts.clear()
-        is_run.clear()
-        payload.clear()
-
-    got = 0
-    pos = 0
-    nbytes = (bit_width + 7) // 8
-    while got < n and pos < L:
-        head = pos
-        header = 0
-        shift = 0
-        while True:
-            b = data[pos]
-            pos += 1
-            header |= (b & 0x7F) << shift
-            if not (b & 0x80):
-                break
-            shift += 7
-        if header & 1:                      # bit-packed group of 8s
-            count = (header >> 1) * 8
-            need = (count * bit_width + 7) // 8
-            hlen = pos - head
-            step = hlen + need
-            # runs k = 0..K-1 at head + k * step: whole in the data,
-            # starting before n, each with this run's header bytes
-            K = min((L - head) // step, -(-(n - got) // count)) if count \
-                else 1
-            if K > 1:
-                runs = raw[head:head + K * step].reshape(K, step)
-                same = np.all(runs[:, :hlen] == runs[0, :hlen], axis=1)
-                if not same.all():
-                    K = int(np.argmin(same))
-            if K > 1:
-                flush()
-                k = np.arange(K, dtype=np.int64)
-                chunks.append((got + k * count, np.zeros(K, np.uint32),
-                               (o + k * need) * 8))
-                packed[o:o + K * need].reshape(K, need)[...] = \
-                    runs[:K, hlen:]
-                o += K * need
-                pos = head + K * step
-            else:
-                body = raw[pos:pos + need]
-                starts.append(got)
-                is_run.append(0)
-                payload.append(o * 8)        # bit offset into `words`
-                packed[o:o + len(body)] = body
-                o += len(body)
-                pos += need
-                K = 1
-            got = min(got + K * count, n)
-        else:                               # RLE run
-            count = header >> 1
-            starts.append(got)
-            is_run.append(1)
-            payload.append(int.from_bytes(data[pos:pos + nbytes], "little"))
-            pos += nbytes
-            got += min(count, n - got)
-    flush()
-    st, ir, pay = (np.concatenate(c) for c in zip(*chunks))
+    st, ir, pay, packed, _ = native.rle_parse(data, n, bit_width,
+                                              alloc or _empty_u8)
     if not len(st):
         st, ir, pay = np.zeros(1, np.int64), np.ones(1, np.uint32), \
             np.zeros(1, np.int64)
-    # words_from_bytes without its copies: zero padding + a guard word
-    end = o + (-o) % 4 + 4
-    packed[o:end] = 0
-    return st.astype(np.int32), ir, pay, packed[:end].view("<u4")
+    return st.astype(np.int32), ir, pay, packed.view("<u4")
+
+
+def _empty_u8(nbytes: int) -> np.ndarray:
+    return np.empty(nbytes, np.uint8)
 
 
 def rle_hybrid_decode_device(seg_starts: torch.Tensor,
@@ -243,3 +175,74 @@ def dict_decode_device(indices: torch.Tensor,
     if dictionary.shape[0] == 0:
         return dictionary.new_zeros(indices.shape[0])
     return _take(dictionary, indices.to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# DELTA_BINARY_PACKED: the host walks the block / miniblock headers (in
+# the host codec library: each block's length depends on its widths);
+# the device unpacks each delta at its miniblock's width, adds the
+# block's min delta and takes a prefix sum
+# ---------------------------------------------------------------------------
+
+def _uvarint(data, pos: int) -> Tuple[int, int]:
+    out = shift = 0
+    while True:
+        b = data[pos]
+        pos += 1
+        out |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return out, pos
+        shift += 7
+
+
+def parse_delta_segments(data):
+    """Host control parse of a DELTA_BINARY_PACKED stream. Returns
+    (mb_starts, mb_bit0, mb_width, mb_min, words, first, total): per
+    miniblock that holds deltas, the index of its first delta (int64),
+    the bit offset of its packed values in `words` (int64), its width
+    (int32) and its block's min delta (int64); `words` is the stream
+    itself as uint32 words (+ guard word), so the packed values are not
+    copied out of it; then the first value and the value count. A width
+    over 32 raises ArrowNotImplemented, as the JAX package's device read
+    does (its decode reads a two-word window)."""
+    data = memoryview(data)
+    block_size, pos = _uvarint(data, 0)
+    miniblocks, pos = _uvarint(data, pos)
+    total, pos = _uvarint(data, pos)
+    z, pos = _uvarint(data, pos)
+    first = (z >> 1) ^ -(z & 1)
+    st, b0, wd, mn = native.delta_parse(data, pos, total,
+                                        block_size // miniblocks, miniblocks)
+    if not len(st):
+        st, b0, wd, mn = (np.zeros(1, np.int64), np.zeros(1, np.int64),
+                          np.zeros(1, np.int32), np.zeros(1, np.int64))
+    return st, b0, wd, mn, words_from_bytes(data), first, total
+
+
+def delta_decode_device(mb_starts: torch.Tensor, mb_bit0: torch.Tensor,
+                        mb_width: torch.Tensor, mb_min: torch.Tensor,
+                        words: torch.Tensor, first: int,
+                        n: int) -> torch.Tensor:
+    """n int64 values from the tables of parse_delta_segments (as int64 /
+    int64 / int32-or-int64 / int64 / int32-word tensors). Deltas and the
+    prefix sum wrap in int64, as the format and the JAX package do."""
+    dev = words.device
+    if n <= 1:
+        return torch.full((n,), first, dtype=torch.int64, device=dev)
+    i = torch.arange(n - 1, dtype=torch.int64, device=dev)
+    seg = torch.searchsorted(mb_starts, i, right=True) - 1
+    w = _take(mb_width, seg).to(torch.int64)
+    bit0 = _take(mb_bit0, seg) + (i - _take(mb_starts, seg)) * w
+    w64 = words.to(torch.int64) & _U32
+    wi = bit0 >> 5
+    off = bit0 & 31
+    lo = _take(w64, wi) >> off
+    hi = torch.where(off > 0, _take(w64, wi + 1) << torch.where(
+        off > 0, 32 - off, 0), 0)
+    raw = (lo | hi) & ((1 << w) - 1)
+    deltas = raw + _take(mb_min, seg)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    out[0] = first
+    torch.cumsum(deltas, 0, out=out[1:])
+    out[1:] += first
+    return out

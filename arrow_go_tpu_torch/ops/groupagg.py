@@ -3,9 +3,11 @@
 Port of arrow_go_tpu/ops/groupagg.py. Per-group sums and counts run in
 the key-sorted domain: a cumulative sum, the prefix at each run's last
 position moved to the front by one stable compaction (K1 on the card),
-then prefix differences. The JAX package's chunked cumsum/cummax were
-TPU compile workarounds; plain `torch.cumsum` / `torch.cummax` take
-their place.
+then prefix differences. Per-group min and max take one more stable
+(key, value) sort: each run's first position holds its extremum, moved
+to the front by the same compaction. The JAX package's chunked
+cumsum/cummax were TPU compile workarounds; plain `torch.cumsum` /
+`torch.cummax` take their place.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import torch
 
 from .compaction import compact_flagged
 from .hashing import SortedEncode
-from .sort import INT64_MIN
+from .sort import INT64_MIN, lexsort_stable
+
+INT64_MAX = (1 << 63) - 1
 
 
 def cummax_u64(v: torch.Tensor) -> torch.Tensor:
@@ -59,3 +63,27 @@ def segment_sum_count(enc: SortedEncode, values: torch.Tensor,
     prev_cnt = torch.cat([cnts_at_last.new_zeros(1), cnts_at_last[:-1]])
     return (sums_at_last - prev_sum,
             (cnts_at_last - prev_cnt).to(torch.int64))
+
+
+def segment_min_max(key: torch.Tensor, values: torch.Tensor,
+                    value_key: torch.Tensor,
+                    valid_rows: Optional[torch.Tensor], op: str):
+    """Per-run min ('min') or max ('max') of `values` by ONE stable
+    (key, value_key) sort: each run's first position holds the extremum.
+
+    key: the encode's int64 key in original row order (run boundaries
+    where it changes; the same runs as the encode's, in the same order).
+    value_key: int64 whose signed order is the values' order. Rows where
+    valid_rows is False keep their key run (so run ids stay aligned with
+    the encode's) but sort last within it; a run with no valid row
+    returns an unspecified value, masked by the caller's count > 0.
+    Returns values_by_run[P] (key order; slots >= n_unique padding)."""
+    vkey = value_key if op == "min" else ~value_key
+    if valid_rows is not None:
+        vkey = torch.where(valid_rows, vkey, INT64_MAX)
+    perm = lexsort_stable([key, vkey])
+    skey = key.index_select(0, perm)
+    start = torch.ones_like(skey, dtype=torch.bool)
+    start[1:] = skey[1:] != skey[:-1]
+    (out,) = compact_runs(start, (values.index_select(0, perm),))
+    return out

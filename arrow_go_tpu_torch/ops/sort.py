@@ -84,10 +84,17 @@ def lexsort_stable(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 def sort_key(col_values: torch.Tensor, t: dt.DataType,
              validity: Optional[torch.Tensor], n,
              descending: bool = False,
-             nulls_first: bool = False) -> SortOperand:
-    """Build the (flag, key) operand for one sort column."""
+             nulls_first: bool = False,
+             rank: Optional[torch.Tensor] = None) -> SortOperand:
+    """Build the (flag, key) operand for one sort column. `rank` (int64,
+    one per dictionary code, >= 0) orders a dictionary column's codes by
+    their values: the key of a row is its code's rank."""
     P = col_values.shape[0]
-    key = sortable(_orderable_bits(col_values, t))
+    if rank is not None:
+        key = rank.index_select(0, col_values.to(torch.int64).clamp(
+            0, rank.shape[0] - 1))
+    else:
+        key = sortable(_orderable_bits(col_values, t))
     if descending:
         key = ~key
     flag = torch.ones(P, dtype=torch.int32, device=col_values.device)

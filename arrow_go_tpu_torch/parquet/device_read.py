@@ -18,9 +18,15 @@ phase ends; without `times` nothing synchronizes.
 
 Supported: max_rep_level == 0, max_def_level <= 1 (flat, optionally
 nullable), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN, encodings PLAIN /
-RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT, v1 and v2 data
-pages, codecs UNCOMPRESSED and GZIP. DELTA_BINARY_PACKED pages, string
-columns and the other codecs raise ArrowNotImplemented.
+RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT /
+DELTA_BINARY_PACKED (INT32/INT64, miniblocks up to 32 bits wide), v1 and
+v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP and LZ4_RAW (the host
+decompresses; `times` splits its seconds out as "decompress_s", a part
+of "parse_s"). String and binary columns read as their dictionary codes
+(`codes_only` in the JAX package): a dictionary(int32, string) column of
+int32 codes on the device and the dictionary page's values on the host;
+a chunk with PLAIN (dictionary fallback) pages raises. Other encodings
+and codecs raise ArrowNotImplemented.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 from .. import dtypes as dt
 from .. import torchenv
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..device.block import DeviceBatch, DeviceColumn, pad_length
+from ..device.block import (DeviceBatch, DeviceColumn, dictionary_values,
+                            pad_length)
 from ..ops import bitmap
 from ..ops import decode as dd
 from . import compress as comp
@@ -61,6 +68,7 @@ class _Plan:
     n: int
     type: dt.DataType
     nullable: bool
+    dictionary: Optional[np.ndarray] = None    # a string column's values
 
 
 class _Stager:
@@ -70,6 +78,9 @@ class _Stager:
 
     def __init__(self, device: torch.device):
         self.pin = device.type == "cuda"
+
+    def empty(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pin)
 
     def array(self, a: np.ndarray) -> torch.Tensor:
         if a.dtype == np.uint32:
@@ -113,6 +124,17 @@ class _Clock:
         self.times[name] = self.times.get(name, 0.0) + (
             time.perf_counter() - t0)
 
+    def decompress(self, codec: int, data, size: int):
+        """comp.decompress, its seconds added to "decompress_s" (a host
+        call: no sync)."""
+        if self.times is None:
+            return comp.decompress(codec, data, size)
+        t0 = time.perf_counter()
+        out = comp.decompress(codec, data, size)
+        self.times["decompress_s"] = self.times.get("decompress_s", 0.0) + (
+            time.perf_counter() - t0)
+        return out
+
 
 def _leaf_of(pf, column: str):
     for li, desc in enumerate(pf.leaves):
@@ -143,14 +165,14 @@ def _iter_pages(pf, chunk):
         yield hdr, body
 
 
-def _split_page(hdr, body, desc, codec):
+def _split_page(hdr, body, desc, codec, clock: _Clock):
     """Header control-plane split of one data page ->
     (nv, def_stream, vals_raw, encoding)."""
     ptype = fmt.PageType(hdr.type)
     if ptype == fmt.PageType.DATA_PAGE:
         dph = hdr.data_page_header
         nv = dph.num_values or 0
-        payload = comp.decompress(codec, body, hdr.uncompressed_page_size)
+        payload = clock.decompress(codec, body, hdr.uncompressed_page_size)
         off = 0
         def_stream = None
         if desc.max_def_level > 0:
@@ -165,7 +187,7 @@ def _split_page(hdr, body, desc, codec):
     def_stream = body[rl:rl + dl] if desc.max_def_level > 0 else None
     vals_raw = body[rl + dl:]
     if dph.is_compressed is not False and codec:
-        vals_raw = comp.decompress(
+        vals_raw = clock.decompress(
             codec, vals_raw, (hdr.uncompressed_page_size or 0) - rl - dl)
     return nv, def_stream, vals_raw, fmt.Encoding(dph.encoding or 0)
 
@@ -174,12 +196,20 @@ def _split_page(hdr, body, desc, codec):
 # host plans and their device decodes
 # ---------------------------------------------------------------------------
 
-def _stage_rle(stager: _Stager, host: Host, key: str, tables) -> None:
-    st, ir, pay, words = tables
+def _stage_rle(stager: _Stager, host: Host, key: str, data, n: int,
+               bit_width: int) -> None:
+    """Parse an RLE/bit-packed stream and stage its tables; the walk
+    copies the packed bodies straight into staging memory."""
+    bufs = []
+
+    def alloc(nbytes: int) -> np.ndarray:
+        bufs.append(stager.empty(nbytes))
+        return bufs[-1].numpy()
+    st, ir, pay, _ = dd.parse_rle_segments(data, n, bit_width, alloc)
     host[key + ".st"] = stager.array(st.astype(np.int64))
     host[key + ".ir"] = stager.array(ir.astype(np.bool_))
     host[key + ".pay"] = stager.array(pay.astype(np.int64))
-    host[key + ".words"] = stager.array(words)
+    host[key + ".words"] = bufs[0].view(torch.int32)
 
 
 def _rle(d: Host, key: str, bit_width: int, n: int) -> torch.Tensor:
@@ -205,23 +235,49 @@ def _spread(dense: torch.Tensor, present: Optional[torch.Tensor]):
     return dense.index_select(0, pos)
 
 
-def _plan_page(split, desc, np_dtype, has_dict, stager, host, key):
+def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
+               key):
     """One data page (the JAX package's _decode_data_page). A column
     chunk decodes page by page: the JAX package's fused chunk read (one
     decode per uniform chunk) guards against a recompile per page, which
     has no counterpart here; on an H100 the SF10 scan is faster without
     it (PERF.md). A null row's slot holds a value of its own
     page, where the fused read takes one of the chunk's: unspecified in
-    both."""
+    both. With `codes_only` (a string column) the page decodes to its
+    int32 dictionary codes."""
     nv, def_stream, vals_raw, encoding = split
     if def_stream is not None:
-        _stage_rle(stager, host, key + "def",
-                   dd.parse_rle_segments(def_stream, nv, 1))
+        _stage_rle(stager, host, key + "def", def_stream, nv, 1)
     phys = desc.physical_type
     k = np.dtype(np_dtype).itemsize
     # clamp: trailing padding bytes must not push n_present past nv
     n_present = min(len(vals_raw) // k, nv)
-    if encoding == fmt.Encoding.PLAIN and phys == fmt.Type.BOOLEAN:
+    if codes_only:
+        if encoding not in _DICT_ENCODINGS:
+            raise ArrowNotImplemented(
+                "device string read needs all-dictionary pages (page "
+                f"encoding {encoding.name})")
+        width = vals_raw[0]
+        _stage_rle(stager, host, key + "codes", vals_raw[1:], nv, width)
+
+        def dense(d):
+            return _rle(d, key + "codes", width, nv).to(torch.int32)
+    elif encoding == fmt.Encoding.DELTA_BINARY_PACKED and phys in (
+            fmt.Type.INT32, fmt.Type.INT64):
+        st, b0, wd, mn, words, first, total = dd.parse_delta_segments(
+            vals_raw)
+        n_present = min(total, nv)
+        for name, a in (("st", st), ("b0", b0), ("wd", wd), ("mn", mn),
+                        ("words", words)):
+            host[key + "delta." + name] = stager.array(a)
+
+        def dense(d):
+            out = dd.delta_decode_device(
+                *(d[key + "delta." + name]
+                  for name in ("st", "b0", "wd", "mn", "words")),
+                first, n_present)
+            return _pad(out.to(dd.torch_dtype(np_dtype)), nv)
+    elif encoding == fmt.Encoding.PLAIN and phys == fmt.Type.BOOLEAN:
         # PLAIN boolean is 1-bit packed over the present values
         host[key + "bits"] = stager.array(dd.words_from_bytes(vals_raw))
 
@@ -237,8 +293,7 @@ def _plan_page(split, desc, np_dtype, has_dict, stager, host, key):
         if not has_dict:
             raise ArrowInvalid("dictionary page missing")
         width = vals_raw[0]
-        _stage_rle(stager, host, key + "codes",
-                   dd.parse_rle_segments(vals_raw[1:], nv, width))
+        _stage_rle(stager, host, key + "codes", vals_raw[1:], nv, width)
 
         def dense(d):
             return dd.dict_decode_device(_rle(d, key + "codes", width, nv),
@@ -260,38 +315,51 @@ def _plan_page(split, desc, np_dtype, has_dict, stager, host, key):
     return decode
 
 
-def _plan_column(pf, rg_i: int, column: str, stager: _Stager) -> _Plan:
+def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
+                 clock: _Clock) -> _Plan:
     li, desc = _leaf_of(pf, column)
     if desc.max_rep_level != 0 or desc.max_def_level > 1:
         raise ArrowNotImplemented("device read supports flat columns only")
     t = desc.arrow_type
-    np_dtype = t.np_dtype
+    codes_only = t.is_binary_like
+    np_dtype = np.int32 if codes_only else t.np_dtype
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
     host: Host = {}
     splits = []
+    dictionary = None
     for hdr, body in _iter_pages(pf, chunk):
         ptype = fmt.PageType(hdr.type)
         if ptype == fmt.PageType.DICTIONARY_PAGE:
-            payload = comp.decompress(codec, body, hdr.uncompressed_page_size)
+            payload = clock.decompress(codec, body,
+                                       hdr.uncompressed_page_size)
             nvd = hdr.dictionary_page_header.num_values or 0
-            host["dict"] = stager.array(np.ascontiguousarray(
-                enc.plain_decode(desc.physical_type, payload, nvd)))
+            values = enc.plain_decode(desc.physical_type, payload, nvd)
+            if codes_only:
+                # the values stay on the host; the codes index them
+                dictionary = dictionary_values(values, t)
+            else:
+                host["dict"] = stager.array(np.ascontiguousarray(values))
             continue
         if ptype not in (fmt.PageType.DATA_PAGE, fmt.PageType.DATA_PAGE_V2):
             raise ArrowNotImplemented(f"page type {ptype.name}")
-        splits.append(_split_page(hdr, body, desc, codec))
-    has_dict = "dict" in host
+        splits.append(_split_page(hdr, body, desc, codec, clock))
+    has_dict = "dict" in host or dictionary is not None
     n = sum(s[0] for s in splits)
-    pages = [_plan_page(s, desc, np_dtype, has_dict, stager, host, f"p{i}.")
+    pages = [_plan_page(s, desc, np_dtype, has_dict, codes_only, stager,
+                        host, f"p{i}.")
              for i, s in enumerate(splits)]
+    if codes_only:
+        t = dt.dictionary(dt.int32, t)
+        if dictionary is None:
+            dictionary = dictionary_values([], desc.arrow_type)
 
     def decode(d: Host) -> Decoded:
         outs = [page(d) for page in pages]
         present = None if desc.max_def_level == 0 else \
             torch.cat([o[1] for o in outs])
         return torch.cat([o[0] for o in outs]), present
-    return _Plan(host, decode, n, t, desc.max_def_level > 0)
+    return _Plan(host, decode, n, t, desc.max_def_level > 0, dictionary)
 
 
 def _ship(host: Host, device: torch.device) -> Host:
@@ -302,16 +370,17 @@ def _column(plan: _Plan, shipped: Host, pad: Optional[int]) -> DeviceColumn:
     values, present = plan.decode(shipped)
     P = pad if pad is not None else pad_length(plan.n)
     validity = bitmap.pack_mask(_pad(present, P)) if plan.nullable else None
-    return DeviceColumn(_pad(values, P), validity, plan.n, plan.type)
+    return DeviceColumn(_pad(values, P), validity, plan.n, plan.type,
+                        plan.dictionary)
 
 
 def read_column_device(pf, rg_i: int, column: str, pad=None,
                        device=None) -> DeviceColumn:
-    """Read one flat numeric column of one row group straight into a
+    """Read one flat column of one row group straight into a
     DeviceColumn (values + packed validity words in device memory), on
     `device` (the card unless named)."""
     dev = torchenv.device(device)
-    plan = _plan_column(pf, rg_i, column, _Stager(dev))
+    plan = _plan_column(pf, rg_i, column, _Stager(dev), _Clock(None, dev))
     return _column(plan, _ship(plan.host, dev), pad)
 
 
@@ -323,7 +392,8 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
     card unless named), with no host materialization of the values.
 
     times: when given, receives the seconds of the phases "parse_s",
-    "h2d_s" and "decode_s" (added to any value already there)."""
+    "h2d_s" and "decode_s", and "decompress_s", the codec calls' share
+    of "parse_s" (each added to any value already there)."""
     dev = torchenv.device(device)
     if columns is None:
         columns = [f.name for f in pf.schema.fields]
@@ -339,7 +409,7 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
     clock = _Clock(times, dev)
     with clock.phase("parse_s"):
         stager = _Stager(dev)
-        plans = [_plan_column(pf, rg_i, c, stager) for c in columns]
+        plans = [_plan_column(pf, rg_i, c, stager, clock) for c in columns]
     with clock.phase("h2d_s"):
         shipped = [_ship(p.host, dev) for p in plans]
     with clock.phase("decode_s"):

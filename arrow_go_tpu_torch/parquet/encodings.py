@@ -1,13 +1,16 @@
-"""Parquet encodings on the host: PLAIN and the RLE/bit-packed hybrid.
+"""Parquet encodings on the host: PLAIN, the RLE/bit-packed hybrid and
+the DELTA_BINARY_PACKED encoder.
 
 Port of the parts of arrow_go_tpu/parquet/encodings.py that the port's
 writer and the dictionary page read need (reference
-parquet/internal/encoding plain_encoding_types.go, internal/utils/rle.go).
-Bit packing is vectorised numpy (the JAX package calls its native
-library for it). The hybrid encoder writes its bit-packed runs as
-Arrow's RleEncoder does: at most 512 values (64 groups of 8) per run, so
-a run header fits one varint of two bytes, and constant runs of 8 or
-more values become RLE runs.
+parquet/internal/encoding plain_encoding_types.go, delta_bit_packing.go,
+internal/utils/rle.go). Bit packing is vectorised numpy (the JAX package
+calls its native library for it). The hybrid encoder writes its
+bit-packed runs as Arrow's RleEncoder does: at most 512 values (64
+groups of 8) per run, so a run header fits one varint of two bytes, and
+constant runs of 8 or more values become RLE runs. The DELTA encoder
+writes the JAX package's bytes with numpy over all blocks at once, where
+the JAX encoder loops in Python over blocks and miniblocks.
 """
 from __future__ import annotations
 
@@ -28,26 +31,61 @@ MIN_RLE_RUN = 8            # shortest constant run written as an RLE run
 MAX_PACKED_GROUPS = 64     # groups of 8 values per bit-packed run (512)
 
 
+def _byte_array_encode(values) -> bytes:
+    """PLAIN BYTE_ARRAY: <u32 length><bytes> per value, built by one
+    scatter of the length words and one of the value bytes."""
+    values = [bytes(v) for v in values]
+    if not values:
+        return b""
+    lens = np.fromiter(map(len, values), np.int64, len(values))
+    starts = np.concatenate(([0], np.cumsum(lens + 4)[:-1]))
+    out = np.empty(int(lens.sum()) + 4 * len(values), np.uint8)
+    out[starts[:, None] + np.arange(4)] = \
+        lens.astype("<u4").view(np.uint8).reshape(-1, 4)
+    body = np.frombuffer(b"".join(values), np.uint8)
+    # byte k of value i lands at starts[i] + 4 + k
+    out[np.repeat(starts + 4 - (np.cumsum(lens) - lens), lens)
+        + np.arange(len(body))] = body
+    return out.tobytes()
+
+
+def _byte_array_decode(data, n: int) -> list:
+    """PLAIN BYTE_ARRAY -> n bytes objects (a sequential walk: each
+    value's position follows from the lengths before it)."""
+    mv = memoryview(data)
+    out, pos = [], 0
+    for _ in range(n):
+        (ln,) = struct.unpack_from("<I", mv, pos)
+        out.append(bytes(mv[pos + 4:pos + 4 + ln]))
+        pos += 4 + ln
+    return out
+
+
 def plain_encode(phys: fmt.Type, values) -> bytes:
     if phys in _PHYS_NP:
         return np.ascontiguousarray(values, dtype=_PHYS_NP[phys]).tobytes()
     if phys == fmt.Type.BOOLEAN:
         return np.packbits(np.asarray(values, dtype=np.bool_),
                            bitorder="little").tobytes()
+    if phys == fmt.Type.BYTE_ARRAY:
+        return _byte_array_encode(values)
     raise NotImplementedError(phys)
 
 
-def plain_decode(phys: fmt.Type, data, n: int) -> np.ndarray:
+def plain_decode(phys: fmt.Type, data, n: int):
+    """PLAIN values: a numpy array, or a list of bytes for BYTE_ARRAY."""
     if phys in _PHYS_NP:
         return np.frombuffer(data, dtype=_PHYS_NP[phys], count=n)
     if phys == fmt.Type.BOOLEAN:
         return np.unpackbits(np.frombuffer(data, dtype=np.uint8),
                              bitorder="little")[:n].astype(np.bool_)
+    if phys == fmt.Type.BYTE_ARRAY:
+        return _byte_array_decode(data, n)
     raise NotImplementedError(phys)
 
 
 def pack_bits(values: np.ndarray, w: int) -> bytes:
-    """LSB-first bit-pack of values < 2**w at width w (0..32): value i
+    """LSB-first bit-pack of values < 2**w at width w (0..64): value i
     takes bits [i*w, (i+1)*w) of the stream. 64 values fill exactly w
     u64 words, so each of the 64 positions in a block has a fixed word
     and shift; the loop runs over those positions, numpy over blocks."""
@@ -76,15 +114,12 @@ def _uvarint(v: int) -> bytes:
     return bytes(out)
 
 
-def _emit_packed(out: bytearray, vals: np.ndarray, w: int) -> None:
-    """Bit-packed runs of at most MAX_PACKED_GROUPS groups; the last
-    group is zero-padded to 8 values."""
-    groups = -(-len(vals) // 8)
+def _emit_packed(out: bytearray, body: np.ndarray, groups: int,
+                 w: int) -> None:
+    """`groups` groups of 8 bit-packed values (`body`, groups * w bytes)
+    as bit-packed runs of at most MAX_PACKED_GROUPS groups."""
     if not groups:
         return
-    padded = np.zeros(groups * 8, np.uint32)
-    padded[:len(vals)] = vals
-    body = np.frombuffer(pack_bits(padded, w), np.uint8)
     full, rest = divmod(groups, MAX_PACKED_GROUPS)
     run_bytes = MAX_PACKED_GROUPS * w
     if full:
@@ -104,27 +139,50 @@ def rle_encode(values: np.ndarray, bit_width: int) -> bytes:
     A constant run becomes an RLE run when, after lending the values the
     pending literal needs to end on a group of 8, at least MIN_RLE_RUN
     of it remain; everything else is bit-packed. Only the long runs are
-    visited in Python; literal stretches pack in bulk."""
+    visited in Python. Every literal stretch, zero-padded to whole
+    groups, packs in ONE pack_bits call: a group of 8 values fills
+    exactly bit_width bytes, so each stretch's bytes start on a byte of
+    the whole."""
     values = np.ascontiguousarray(values, dtype=np.uint32)
     n = len(values)
-    out = bytearray()
     if n == 0:
         return b""
     nbytes = (bit_width + 7) // 8
     change = np.flatnonzero(values[1:] != values[:-1]) + 1
     starts = np.concatenate(([0], change))
     ends = np.concatenate((change, [n]))
-    pos = 0                        # first value not yet written
+    lit_a, lit_b, rle = [], [], []   # literal stretches, then an RLE run
+    pos = 0                          # first value not yet written
     for r in np.flatnonzero(ends - starts >= MIN_RLE_RUN).tolist():
         s, e = int(starts[r]), int(ends[r])
-        lend = (pos - s) % 8       # values the pending literal borrows
+        lend = (pos - s) % 8         # values the pending literal borrows
         if e - s - lend < MIN_RLE_RUN:
             continue
-        _emit_packed(out, values[pos:s + lend], bit_width)
-        out += _uvarint((e - s - lend) << 1)
-        out += int(values[s]).to_bytes(nbytes, "little")
+        lit_a.append(pos)
+        lit_b.append(s + lend)
+        rle.append((e - s - lend, int(values[s])))
         pos = e
-    _emit_packed(out, values[pos:], bit_width)
+    lit_a.append(pos)
+    lit_b.append(n)
+    a, b = np.array(lit_a, np.int64), np.array(lit_b, np.int64)
+    lens = b - a
+    groups = -(-lens // 8)
+    dst0 = np.concatenate(([0], np.cumsum(groups * 8)))
+    padded = np.zeros(int(dst0[-1]), np.uint32)
+    # value k of stretch i lands at dst0[i] + k
+    within = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                    lens)
+    padded[np.repeat(dst0[:-1], lens) + within] = \
+        values[np.repeat(a, lens) + within]
+    body = np.frombuffer(pack_bits(padded, bit_width), np.uint8)
+    byte0 = dst0 // 8 * bit_width
+    out = bytearray()
+    for i, g in enumerate(groups.tolist()):
+        _emit_packed(out, body[byte0[i]:byte0[i + 1]], g, bit_width)
+        if i < len(rle):
+            count, value = rle[i]
+            out += _uvarint(count << 1)
+            out += value.to_bytes(nbytes, "little")
     return bytes(out)
 
 
@@ -137,3 +195,92 @@ def levels_encode_v1(levels: np.ndarray, bit_width: int) -> bytes:
     """V1 data page levels: int32 byte length prefix + hybrid stream."""
     enc = rle_encode(levels, bit_width)
     return struct.pack("<I", len(enc)) + enc
+
+
+# ---------------------------------------------------------------------------
+# DELTA_BINARY_PACKED encoder
+# ---------------------------------------------------------------------------
+
+_U64 = np.uint64
+
+
+def _bit_lengths(x: np.ndarray) -> np.ndarray:
+    """Bit length of each uint64 (0 for 0), by halving."""
+    x = x.astype(_U64)
+    w = np.zeros(len(x), np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        hi = (x >> _U64(s)) != 0
+        x = np.where(hi, x >> _U64(s), x)
+        w += hi * s
+    return w + (x != 0)
+
+
+def _uvarints(z: np.ndarray):
+    """ULEB128 varints of uint64 values: ((k, 10) byte matrix, (k, 10)
+    mask of the bytes each varint uses)."""
+    z = z.astype(_U64)
+    k = np.arange(10)
+    length = 1 + sum(((z >> _U64(7 * j)) != 0).astype(np.int64)
+                     for j in range(1, 10))
+    groups = (z[:, None] >> (_U64(7) * k.astype(_U64))) & _U64(0x7F)
+    cont = (k[None, :] < (length - 1)[:, None]).astype(_U64) << _U64(7)
+    return (groups | cont).astype(np.uint8), k[None, :] < length[:, None]
+
+
+def _zigzag(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, np.int64)
+    return (v.astype(_U64) << _U64(1)) ^ (v >> 63).astype(_U64)
+
+
+def delta_binary_packed_encode(values, block_size: int = 128,
+                               miniblocks: int = 4) -> bytes:
+    """DELTA_BINARY_PACKED bytes of int values, the bytes the JAX
+    package's encoder writes (default geometry 128 / 4, as the reference
+    writer): a header (block size, miniblocks per block, count, zigzag
+    first value), then per block a zigzag min delta, one width byte per
+    miniblock and the bit-packed (delta - min) of each miniblock that
+    holds deltas, padded to whole miniblocks. Deltas wrap in int64."""
+    v = np.ascontiguousarray(values, dtype=np.int64)
+    total = len(v)
+    vpm = block_size // miniblocks
+    if vpm % 32 or block_size % miniblocks:
+        raise ValueError("miniblocks must hold a multiple of 32 values")
+    head, used = _uvarints(np.array([block_size, miniblocks, total], _U64))
+    hz, hu = _uvarints(_zigzag(v[:1] if total else np.zeros(1, np.int64)))
+    header = np.concatenate([head[used], hz[hu]])
+    if total <= 1:
+        return header.tobytes()
+    deltas = v[1:] - v[:-1]
+    nd = len(deltas)
+    nb = -(-nd // block_size)
+    mins = np.minimum.reduceat(deltas, np.arange(0, nd, block_size))
+    adjusted = deltas.view(_U64) - np.repeat(mins.view(_U64),
+                                             block_size)[:nd]
+    n_mb = -(-nd // vpm)             # miniblocks that hold deltas
+    widths = np.zeros(nb * miniblocks, np.int64)
+    widths[:n_mb] = _bit_lengths(np.maximum.reduceat(
+        adjusted, np.arange(0, nd, vpm)))
+    sizes = (widths * vpm // 8).reshape(nb, miniblocks)
+    vz, vu = _uvarints(_zigzag(mins))
+    vlen = vu.sum(1)
+    block_len = vlen + miniblocks + sizes.sum(1)
+    block_off = len(header) + np.concatenate(([0], np.cumsum(block_len)))
+    out = np.zeros(int(block_off[-1]), np.uint8)
+    out[:len(header)] = header
+    rows = np.broadcast_to(block_off[:-1, None], vu.shape)
+    out[(rows + np.arange(10))[vu]] = vz[vu]
+    wpos = (block_off[:-1] + vlen)[:, None] + np.arange(miniblocks)
+    out[wpos] = widths.reshape(nb, miniblocks)
+    mb_off = ((block_off[:-1] + vlen + miniblocks)[:, None]
+              + np.cumsum(sizes, 1) - sizes).reshape(-1)[:n_mb]
+    padded = np.zeros(n_mb * vpm, _U64)
+    padded[:nd] = adjusted
+    padded = padded.reshape(n_mb, vpm)
+    w_of = widths[:n_mb]
+    for w in np.unique(w_of[w_of > 0]).tolist():
+        idx = np.flatnonzero(w_of == w)
+        nbytes = vpm * w // 8
+        body = np.frombuffer(pack_bits(padded[idx].reshape(-1), w), np.uint8)
+        out[mb_off[idx][:, None] + np.arange(nbytes)] = body.reshape(
+            len(idx), nbytes)
+    return out.tobytes()

@@ -2,9 +2,11 @@
 
 Port of the flat-column part of arrow_go_tpu/parquet/schema.py
 (reference parquet/schema + parquet/pqarrow/schema.go): BOOLEAN, INT32,
-INT64, FLOAT and DOUBLE leaves, required or optional, directly under the
-root. Groups (lists, maps, structs), other physical types and logical
-annotations the port has no type for raise ArrowNotImplemented.
+INT64, FLOAT and DOUBLE leaves, and BYTE_ARRAY leaves (string with the
+STRING / UTF8 annotation, binary without one), required or optional,
+directly under the root. Groups (lists, maps, structs), other physical
+types and logical annotations the port has no type for raise
+ArrowNotImplemented.
 """
 from __future__ import annotations
 
@@ -33,10 +35,12 @@ class ColumnDescriptor:
 _PHYSICAL = {dt.TypeId.BOOL: fmt.Type.BOOLEAN, dt.TypeId.INT32: fmt.Type.INT32,
              dt.TypeId.INT64: fmt.Type.INT64,
              dt.TypeId.FLOAT32: fmt.Type.FLOAT,
-             dt.TypeId.FLOAT64: fmt.Type.DOUBLE}
+             dt.TypeId.FLOAT64: fmt.Type.DOUBLE,
+             dt.TypeId.STRING: fmt.Type.BYTE_ARRAY,
+             dt.TypeId.BINARY: fmt.Type.BYTE_ARRAY}
 _LOGICAL = {fmt.Type.BOOLEAN: dt.bool_, fmt.Type.INT32: dt.int32,
             fmt.Type.INT64: dt.int64, fmt.Type.FLOAT: dt.float32,
-            fmt.Type.DOUBLE: dt.float64}
+            fmt.Type.DOUBLE: dt.float64, fmt.Type.BYTE_ARRAY: dt.binary}
 
 
 def physical_for(t: dt.DataType) -> Tuple[fmt.Type, int]:
@@ -61,6 +65,9 @@ def schema_to_elements(schema: dt.Schema
             fmt.Repetition.REQUIRED
         el = fmt.SchemaElement(name=f.name, type=int(phys),
                                repetition_type=int(rep))
+        if f.type == dt.string:
+            el.logicalType = fmt.LogicalType(STRING=fmt.StringType())
+            el.converted_type = int(fmt.ConvertedType.UTF8)
         elements.append(el)
         leaves.append(ColumnDescriptor((f.name,), phys, tlen,
                                        1 if f.nullable else 0, 0, f.type,
@@ -71,6 +78,10 @@ def schema_to_elements(schema: dt.Schema
 def _type_of(el: fmt.SchemaElement) -> dt.DataType:
     phys = fmt.Type(el.type)
     lt = el.logicalType
+    if phys == fmt.Type.BYTE_ARRAY and (
+            (lt is not None and lt.STRING is not None)
+            or el.converted_type == int(fmt.ConvertedType.UTF8)):
+        return dt.string
     plain_int = lt is not None and lt.INTEGER is not None and \
         bool(lt.INTEGER.isSigned) and lt.INTEGER.bitWidth == {
             fmt.Type.INT32: 32, fmt.Type.INT64: 64}.get(phys)

@@ -1,18 +1,21 @@
-"""A small parquet writer for flat numeric columns.
+"""A small parquet writer for flat columns.
 
 The port's own writer (after arrow_go_tpu/parquet/writer.py:write_table,
 reference parquet/file/file_writer.go): numpy columns (bool, int32,
-int64, float32, float64), each optionally with a validity mask, in row
-groups of `row_group_size` rows and v1 data pages of about
-`data_page_size` bytes, UNCOMPRESSED or GZIP.
+int64, float32, float64, and strings or bytes), each optionally with a
+validity mask, in row groups of `row_group_size` rows and v1 data pages
+of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP or LZ4_RAW.
 
 With `use_dictionary` every non-boolean column chunk is dictionary
 encoded (a PLAIN dictionary page, RLE_DICTIONARY data pages) unless its
 dictionary page would pass `dictionary_pagesize_limit` bytes; then the
 whole chunk is PLAIN, as the reference falls back
-(column_writer.go FallbackToPlainEncoding). The dictionary holds the
-distinct bit patterns in ascending order, so -0.0, 0.0 and NaN payloads
-survive a round trip.
+(column_writer.go FallbackToPlainEncoding). A numeric dictionary holds
+the distinct bit patterns in ascending order, so -0.0, 0.0 and NaN
+payloads survive a round trip; a string dictionary holds the values in
+first-occurrence order (the JAX package's DictionaryBuilder), or, for a
+column given as (codes, values), those values as they stand.
+`column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import dtypes as dt
-from ..compute.errors import ArrowInvalid
+from ..compute.errors import ArrowInvalid, ArrowNotImplemented
+from ..device.block import dictionary_type, factorize
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
@@ -66,16 +70,32 @@ def _dictionary(vals: np.ndarray, limit: int
         np.uint32)
 
 
+def _string_bytes(dictionary: np.ndarray, t: dt.DataType) -> list:
+    return [v.encode() if t == dt.string else bytes(v) for v in dictionary]
+
+
 def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                  mask: Optional[np.ndarray], desc: psch.ColumnDescriptor,
                  codec: int, use_dictionary: bool, dict_limit: int,
-                 data_page_size: Optional[int]) -> fmt.ColumnChunk:
+                 data_page_size: Optional[int],
+                 encoding: Optional[fmt.Encoding] = None,
+                 dictionary: Optional[np.ndarray] = None) -> fmt.ColumnChunk:
+    """One column chunk. A string column arrives as int32 codes into
+    `dictionary`."""
     num_values = len(vals)
     nullable = desc.max_def_level > 0
     present = vals if mask is None else vals[mask]
     phys = desc.physical_type
     coded = None
-    if use_dictionary and phys != fmt.Type.BOOLEAN:
+    if dictionary is not None:
+        page_values = _string_bytes(dictionary, desc.arrow_type)
+        if use_dictionary and sum(map(len, page_values)) + 4 * len(
+                page_values) <= dict_limit:
+            coded = page_values, present.astype(np.uint32)
+        else:
+            present = [page_values[c] for c in present.tolist()]
+    elif use_dictionary and encoding in (None, fmt.Encoding.PLAIN) and \
+            phys != fmt.Type.BOOLEAN:
         coded = _dictionary(np.ascontiguousarray(present), dict_limit)
     start_offset = sink.tell()
     total_unc = total_comp = 0
@@ -99,8 +119,12 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         value_encoding = fmt.Encoding.RLE_DICTIONARY
         row_bytes = width / 8
     else:
-        value_encoding = fmt.Encoding.PLAIN
-        row_bytes = vals.dtype.itemsize if phys != fmt.Type.BOOLEAN else 1 / 8
+        value_encoding = encoding or fmt.Encoding.PLAIN
+        if phys == fmt.Type.BYTE_ARRAY:
+            row_bytes = 4 + sum(map(len, present)) / max(len(present), 1)
+        else:
+            row_bytes = vals.dtype.itemsize if phys != fmt.Type.BOOLEAN \
+                else 1 / 8
     if nullable:
         row_bytes += 1 / 8
     rows_per_page = num_values if not data_page_size else max(
@@ -117,6 +141,8 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             if nullable else b""
         if coded is not None:
             data = bytes([width]) + enc.rle_encode(codes[p0:p1], width)
+        elif value_encoding == fmt.Encoding.DELTA_BINARY_PACKED:
+            data = enc.delta_binary_packed_encode(present[p0:p1])
         else:
             data = enc.plain_encode(phys, present[p0:p1])
         payload = levels + data
@@ -148,45 +174,84 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
     return fmt.ColumnChunk(file_offset=start_offset, meta_data=meta)
 
 
-def write_table(data: Dict[str, np.ndarray], sink,
+_ENCODING_NAMES = {"plain": fmt.Encoding.PLAIN,
+                   "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED}
+
+
+def _prepare(name: str, v, mask: Optional[np.ndarray]):
+    """(type, values or codes, dictionary or None) of one input column:
+    a string or bytes column becomes int32 codes + its dictionary."""
+    if isinstance(v, tuple):
+        codes, dictionary = np.asarray(v[0], np.int32), np.asarray(
+            v[1], dtype=object)
+        live = codes if mask is None else codes[mask]
+        if len(live) and (live.min() < 0 or live.max() >= len(dictionary)):
+            raise ArrowInvalid(f"column {name!r}: codes outside the "
+                               f"dictionary")
+    else:
+        v = np.asarray(v)
+        if v.dtype.kind not in "USO":
+            return dt.from_numpy_dtype(v.dtype), v, None
+        codes, dictionary = factorize(v, mask)
+    return dictionary_type(dictionary), codes, dictionary
+
+
+def write_table(data: Dict[str, object], sink,
                 masks: Optional[Dict[str, np.ndarray]] = None,
                 compression: str = "none", use_dictionary: bool = True,
                 dictionary_pagesize_limit: int = 1 << 20,
                 data_page_size: Optional[int] = None,
-                row_group_size: Optional[int] = None) -> None:
-    """Write numpy columns (all of one length) to a parquet file.
+                row_group_size: Optional[int] = None,
+                column_encodings: Optional[Dict[str, str]] = None) -> None:
+    """Write columns (all of one length) to a parquet file.
 
+    data:  numpy arrays by name; a string (or bytes) column is a numpy
+           str/object array or an (int32 codes, values) pair.
     masks: validity by column name (True = valid); a column with a mask
            is written OPTIONAL, one without it REQUIRED.
+    column_encodings: a value encoding by column name, "plain" or
+           "delta_binary_packed" (INT32/INT64 columns); such a column
+           takes no dictionary.
     sink:  a path or a binary file object.
     """
     masks = masks or {}
+    encs = {}
+    for name, e in (column_encodings or {}).items():
+        if e not in _ENCODING_NAMES:
+            raise ArrowNotImplemented(f"encoding {e!r} is not ported")
+        encs[name] = _ENCODING_NAMES[e]
     names = list(data)
-    n = len(data[names[0]]) if names else 0
-    fields = []
+    fields, cols = [], {}
+    n = None
     for name in names:
-        v = np.asarray(data[name])
+        m = masks.get(name)
+        t, v, dictionary = _prepare(name, data[name], m)
+        n = len(v) if n is None else n
         if v.ndim != 1 or len(v) != n:
             raise ArrowInvalid(f"column {name!r}: expected 1-D length {n}")
-        m = masks.get(name)
         if m is not None and (len(m) != n or np.asarray(m).dtype != np.bool_):
             raise ArrowInvalid(f"mask of {name!r}: expected bool[{n}]")
-        fields.append(dt.Field(name, dt.from_numpy_dtype(v.dtype),
-                               m is not None))
+        if encs.get(name) == fmt.Encoding.DELTA_BINARY_PACKED and \
+                t not in (dt.int32, dt.int64):
+            raise ArrowInvalid(f"column {name!r}: DELTA_BINARY_PACKED "
+                               f"takes INT32/INT64")
+        fields.append(dt.Field(name, t, m is not None))
+        cols[name] = (v, dictionary)
+    n = n or 0
     codec = comp.codec_for_name(compression)
     schema = dt.Schema(fields)
     elements, leaves = psch.schema_to_elements(schema)
+    args = (cols, masks, elements, leaves, n, codec, use_dictionary,
+            dictionary_pagesize_limit, data_page_size, row_group_size, encs)
     if hasattr(sink, "write"):
-        _write(data, masks, sink, elements, leaves, n, codec, use_dictionary,
-               dictionary_pagesize_limit, data_page_size, row_group_size)
+        _write(sink, *args)
         return
     with open(sink, "wb") as f:
-        _write(data, masks, f, elements, leaves, n, codec, use_dictionary,
-               dictionary_pagesize_limit, data_page_size, row_group_size)
+        _write(f, *args)
 
 
-def _write(data, masks, sink, elements, leaves, n, codec, use_dictionary,
-           dict_limit, data_page_size, row_group_size) -> None:
+def _write(sink, cols, masks, elements, leaves, n, codec, use_dictionary,
+           dict_limit, data_page_size, row_group_size, encs) -> None:
     sink.write(MAGIC)
     rg_rows = row_group_size or max(n, 1)
     row_groups: List[fmt.RowGroup] = []
@@ -197,10 +262,11 @@ def _write(data, masks, sink, elements, leaves, n, codec, use_dictionary,
         for desc in leaves:
             name = desc.path[0]
             m = masks.get(name)
+            v, dictionary = cols[name]
             chunks.append(_write_chunk(
-                sink, np.asarray(data[name])[a:b],
-                None if m is None else np.asarray(m)[a:b], desc, codec,
-                use_dictionary, dict_limit, data_page_size))
+                sink, v[a:b], None if m is None else np.asarray(m)[a:b],
+                desc, codec, use_dictionary, dict_limit, data_page_size,
+                encs.get(name), dictionary))
         total = sum(c.meta_data.total_compressed_size for c in chunks)
         row_groups.append(fmt.RowGroup(
             columns=chunks, total_byte_size=total, num_rows=b - a,

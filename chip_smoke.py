@@ -32,20 +32,32 @@ without one. Phases:
   7. K2 and K3 timed at the shapes of those paths, beside their plain
      versions, a one-call PyTorch yardstick and their memory-bound
      least time;
-  8. a `kernels` JSON line, then the last line
+  8. the engine's own files: lineitem (plus l_tax, l_lstatus, l_rflag)
+     and orders written SNAPPY with the settings of engine_e2e.py, and
+     the two key columns DELTA_BINARY_PACKED, each scanned back bit for
+     bit (string columns by codes and dictionary) with the scan's
+     decompress split; TPC-H Q1 (string group keys, sums, means,
+     COUNT(*), ORDER BY the keys) device-resident and from the snappy
+     bytes against a numpy oracle, profiled once, with K1 timed at each
+     of its Q1 call sites; every other group-by aggregation (min, max,
+     first, last, count, any, all, product) over the scanned lineitem
+     against numpy;
+  9. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phase 3 and the lines of phase 8: a run
+With --timing-only it skips phase 3 and the lines of phase 9: a run
 that times every path and kernel shape using only entry points that
 earlier trees have too, so that two trees can be run in turns on one
 card (copy this script into a tree unpacked with `git archive` and run
-it there, then here, here, there).
+it there, then here, here, there). Phase 8 runs only in a tree that
+has its entry points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import io
 import json
 import re
@@ -261,12 +273,198 @@ def check_summary(got: dict, want: dict) -> None:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-9)
 
 
-def write_parquet(table: dict) -> bytes:
-    """One row group, UNCOMPRESSED, dictionary on (PLAIN past the 1 MiB
-    dictionary limit), 8 MiB data pages: the layout of
-    benchmarks/engine_e2e.py:write_parquet_ours, without its codec."""
+# TPC-H Q1 (spec 2.4.1) with its validation substitution DELTA = 90:
+# 1998-12-01 - 90 days as days since 1970-01-01
+Q1_SHIPDATE_MAX = 10471
+# TPC-H spec 4.2.3: CURRENTDATE 1995-06-17 as days since 1970-01-01
+CURRENT_DATE = 9298
+RFLAG_VALUES = np.array(["N", "R", "A"], dtype=object)
+LSTATUS_VALUES = np.array(["O", "F"], dtype=object)
+Q1_COLUMNS = ["l_rflag", "l_lstatus", "l_qty", "l_price", "l_disc",
+              "l_tax", "l_sdate"]
+Q1_SUMS = [("l_qty", "sum"), ("l_price", "sum"), ("disc_price", "sum"),
+           ("charge", "sum"), ("l_qty", "mean"), ("l_price", "mean"),
+           ("l_disc", "mean"), ("l_qty", "count_all")]
+
+
+def add_q1_columns(li) -> None:
+    """l_tax, l_lstatus and l_rflag after TPC-H spec 4.2.3 (CURRENTDATE
+    = day 9298), from a generator of their own (seed 9), so the earlier
+    columns stay as they were. The two flags are (int32 codes, values)
+    pairs: the codes index RFLAG_VALUES / LSTATUS_VALUES."""
+    rng = np.random.default_rng(9)
+    sdate = li["l_sdate"]
+    n = len(sdate)
+    li["l_tax"] = rng.integers(0, 9, n) / 100.0
+    li["l_lstatus"] = ((sdate <= CURRENT_DATE).astype(np.int32),
+                       LSTATUS_VALUES)
+    returned = sdate + rng.integers(1, 31, n) <= CURRENT_DATE
+    ra = rng.integers(1, 3, n).astype(np.int32)     # 1 R, 2 A
+    li["l_rflag"] = (np.where(returned, ra, 0).astype(np.int32),
+                     RFLAG_VALUES)
+
+
+def compute_q1(li_db: DeviceBatch, mark=lambda stage: None) -> HostBatch:
+    """The port's TPC-H Q1:
+
+        SELECT l_rflag, l_lstatus, SUM(l_qty), SUM(l_price),
+               SUM(l_price * (1 - l_disc)),
+               SUM(l_price * (1 - l_disc) * (1 + l_tax)),
+               AVG(l_qty), AVG(l_price), AVG(l_disc), COUNT(*)
+        FROM lineitem WHERE l_sdate <= 10471
+        GROUP BY l_rflag, l_lstatus ORDER BY l_rflag, l_lstatus
+
+    `mark(stage)` is called as each stage ends (the profile's timer).
+    """
+    f, lit, call = pc.field, pc.literal, pc.call
+    mask = pc.execute_scalar_expression(
+        call("less_equal", [f("l_sdate"), lit(Q1_SHIPDATE_MAX)]), li_db)
+    mark("predicate")
+    li_f = pc.filter(project(li_db, Q1_COLUMNS[:-1]), mask)
+    mark("filter")
+    disc_price = pc.execute_scalar_expression(call("multiply", [
+        f("l_price"), call("subtract", [lit(1.0), f("l_disc")])]), li_f)
+    with_dp = DeviceBatch(
+        dt.Schema(list(li_f.schema.fields)
+                  + [dt.Field("disc_price", dt.float64)]),
+        li_f.columns + [disc_price], li_f.length)
+    charge = pc.execute_scalar_expression(call("multiply", [
+        f("disc_price"), call("add", [lit(1.0), f("l_tax")])]), with_dp)
+    gb = DeviceBatch(
+        dt.Schema(list(with_dp.schema.fields)
+                  + [dt.Field("charge", dt.float64)]),
+        with_dp.columns + [charge], with_dp.length)
+    mark("expressions")
+    g = pc.group_by(gb, ["l_rflag", "l_lstatus"], Q1_SUMS)
+    mark("group_by")
+    idx = pc.sort_indices(g, pc.SortOptions([pc.SortKey("l_rflag"),
+                                             pc.SortKey("l_lstatus")]))
+    out = pc.take(g, idx)
+    mark("sort_take")
+    return out
+
+
+def q1_oracle(li) -> dict:
+    """numpy Q1 over the combined flag code, rows in (l_rflag, l_lstatus)
+    string order: the key strings, exact counts and integer sums, float
+    sums and means."""
+    m = li["l_sdate"] <= Q1_SHIPDATE_MAX
+    rcode, rvals = li["l_rflag"]
+    scode, svals = li["l_lstatus"]
+    key = (rcode[m].astype(np.int64) * len(svals) + scode[m])
+    nk = len(rvals) * len(svals)
+    price, disc = li["l_price"][m], li["l_disc"][m]
+    disc_price = price * (1.0 - disc)
+    cnt = np.bincount(key, minlength=nk)
+    # integer sums far below 2**53 are exact in float64
+    qty = np.bincount(key, weights=li["l_qty"][m], minlength=nk).astype(
+        np.int64)
+    sums = {c: np.bincount(key, weights=w, minlength=nk) for c, w in (
+        ("l_price", price), ("disc_price", disc_price),
+        ("charge", disc_price * (1.0 + li["l_tax"][m])), ("l_disc", disc))}
+    ks = np.array(sorted(np.flatnonzero(cnt), key=lambda k: (
+        rvals[k // len(svals)], svals[k % len(svals)])), np.int64)
+    return {"l_rflag": [rvals[k // len(svals)] for k in ks],
+            "l_lstatus": [svals[k % len(svals)] for k in ks],
+            "l_qty_sum": qty[ks].tolist(),
+            "l_price_sum": sums["l_price"][ks],
+            "disc_price_sum": sums["disc_price"][ks],
+            "charge_sum": sums["charge"][ks],
+            "l_qty_mean": qty[ks] / cnt[ks],
+            "l_price_mean": sums["l_price"][ks] / cnt[ks],
+            "l_disc_mean": sums["l_disc"][ks] / cnt[ks],
+            "l_qty_count_all": cnt[ks].tolist()}
+
+
+def check_q1(out: HostBatch, want: dict) -> None:
+    """Keys and their order, counts and integer sums exact; float sums
+    and means at rtol 1e-9."""
+    got = out.to_pydict()
+    if out.num_rows != len(want["l_rflag"]) or out.num_rows < 1:
+        raise AssertionError(f"Q1: {out.num_rows} groups, oracle "
+                             f"{len(want['l_rflag'])}")
+    for k in ("l_rflag", "l_lstatus", "l_qty_sum", "l_qty_count_all"):
+        if got[k] != want[k]:
+            raise AssertionError(f"Q1 {k}: {got[k]!r}, oracle {want[k]!r}")
+    for k in ("l_price_sum", "disc_price_sum", "charge_sum", "l_qty_mean",
+              "l_price_mean", "l_disc_mean"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-9, err_msg=k)
+
+
+AGG_SET = [("l_sdate", "min"), ("l_sdate", "max"), ("l_price", "first"),
+           ("l_price", "last"), ("l_price", "count"), ("big_qty", "any"),
+           ("big_qty", "all"), ("l_pfac", "product")]
+
+
+def product_factors(n: int) -> np.ndarray:
+    """int64 factors, 1 but for about 30 twos and 30 minus ones at SF10
+    (seed 10): every group's true product fits int64."""
+    rng = np.random.default_rng(10)
+    u = rng.random(n)
+    return np.where(u < 5e-7, 2, np.where(u > 1 - 5e-7, -1, 1))
+
+
+def compute_aggs(li_db: DeviceBatch, pfac) -> HostBatch:
+    """Every aggregation that Q1 does not run, grouped by l_rflag over
+    the scanned lineitem: MIN/MAX(l_sdate), FIRST/LAST(l_price),
+    COUNT(l_price), ANY/ALL(l_qty > 25) and PRODUCT(l_pfac) (`pfac`, a
+    device column of product_factors)."""
+    big = pc.execute_scalar_expression(
+        pc.call("greater", [pc.field("l_qty"), pc.literal(25)]), li_db)
+    gb = DeviceBatch(
+        dt.Schema([li_db.schema.field(li_db.schema.field_index(c))
+                   for c in ("l_rflag", "l_sdate", "l_price")]
+                  + [dt.Field("big_qty", dt.bool_),
+                     dt.Field("l_pfac", dt.int64)]),
+        [li_db.column(c) for c in ("l_rflag", "l_sdate", "l_price")]
+        + [big, pfac], li_db.length)
+    return pc.group_by(gb, "l_rflag", AGG_SET)
+
+
+def aggs_oracle(li, pfac) -> dict:
+    """numpy per l_rflag group, groups in first-occurrence order."""
+    codes, values = li["l_rflag"]
+    groups = sorted(np.unique(codes).tolist(),
+                    key=lambda g: int(np.argmax(codes == g)))
+    out = {k: [] for k in ["l_rflag"] + [f"{c}_{a}" for c, a in AGG_SET]}
+    for g in groups:
+        rows = np.flatnonzero(codes == g)
+        sdate, price = li["l_sdate"][rows], li["l_price"][rows]
+        big = li["l_qty"][rows] > 25
+        f = pfac[rows]
+        prod = (2 ** int((f == 2).sum())) * (-1) ** int((f == -1).sum())
+        for k, v in (("l_rflag", values[g]), ("l_sdate_min", sdate.min()),
+                     ("l_sdate_max", sdate.max()),
+                     ("l_price_first", price[0]),
+                     ("l_price_last", price[-1]),
+                     ("l_price_count", len(rows)),
+                     ("big_qty_any", big.any()), ("big_qty_all", big.all()),
+                     ("l_pfac_product", prod)):
+            out[k].append(v.item() if hasattr(v, "item") else v)
+    return out
+
+
+def check_aggs(out: HostBatch, want: dict) -> None:
+    """Every value exact (first and last are row values, not sums)."""
+    got = out.to_pydict()
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"aggregations {k}: {got[k]!r}, oracle "
+                                 f"{v!r}")
+
+
+def write_parquet(table: dict, compression: str = "none",
+                  column_encodings=None) -> bytes:
+    """One row group, dictionary on (PLAIN past the 1 MiB dictionary
+    limit), 8 MiB data pages: the layout of
+    benchmarks/engine_e2e.py:write_parquet_ours, UNCOMPRESSED unless
+    `compression` names its codec (snappy)."""
     buf = io.BytesIO()
-    tpq.write_table(table, buf, data_page_size=8 << 20)
+    # (older trees' writers take no column_encodings)
+    extra = {"column_encodings": column_encodings} if column_encodings \
+        else {}
+    tpq.write_table(table, buf, data_page_size=8 << 20,
+                    compression=compression, **extra)
     return buf.getvalue()
 
 
@@ -805,16 +1003,26 @@ def timed(fn, reps: int = 3):
 
 def check_scan(dbs: dict, sources: dict) -> None:
     """Every scanned column equals its numpy source over [0, n), at the
-    padded length pad_length(n)."""
+    padded length pad_length(n): values bit for bit; a string column,
+    given as (codes, values), by its codes and its dictionary."""
     for tname, db in dbs.items():
         for name, want in sources[tname].items():
             c = db.column(name)
+            if isinstance(want, tuple):
+                want, values = want
+                if c.dictionary is None or \
+                        list(c.dictionary) != list(values):
+                    raise AssertionError(f"scan {tname}.{name}: dictionary "
+                                         f"{c.dictionary!r}")
             n = len(want)
             if db.length != n or c.length != n or \
                     c.padded != agt.pad_length(n) or c.validity is not None:
                 raise AssertionError(f"scan {tname}.{name}: length "
                                      f"{c.length}/{n}, padded {c.padded}")
-            if not np.array_equal(c.values[:n].cpu().numpy(), want):
+            got = c.values[:n].cpu().numpy()
+            if got.dtype != want.dtype or not np.array_equal(
+                    got.view(f"u{got.itemsize}"),
+                    want.view(f"u{want.itemsize}")):
                 raise AssertionError(f"scan {tname}.{name}: values differ")
 
 
@@ -855,6 +1063,127 @@ def _print_ptxas(names) -> None:
               f"registers, spills: {spills or 'none'}")
 
 
+def profile_q1(li_db, want) -> dict:
+    """One Q1 run by stage (host clock, synced at each stage's end), then
+    the device activity of one more run (profile_device)."""
+    stages = {}
+    last = [0.0]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage] = (now - last[0]) * 1e3
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    check_q1(compute_q1(li_db, mark), want)
+    return {"stages_ms": stages, **profile_device(
+        lambda: compute_q1(li_db), lambda out: check_q1(out, want))}
+
+
+def print_k1_shapes(line: str, k1s) -> None:
+    for t in k1s:
+        print(f"K1 at {t['site']} (P={t['P']}, {t['payloads']}, "
+              f"kept {t['kept']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"copy {t['copy_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    print(json.dumps({line: k1s}), flush=True)
+
+
+def q1_phases(li, orders, dev) -> dict:
+    """This slice's paths: the engine's snappy files (every column read
+    back bit for bit, with the decompress split), DELTA_BINARY_PACKED
+    key columns, TPC-H Q1 device-resident and from snappy bytes, K1 at
+    Q1's call sites, and every other aggregation over the scanned
+    lineitem. Returns each path's launch counts."""
+    launches = {}
+    add_q1_columns(li)
+    t0 = time.perf_counter()
+    snappy = {"lineitem": write_parquet(li, "snappy"),
+              "orders": write_parquet(orders, "snappy")}
+    delta = {"l_okey": write_parquet(
+        {"l_okey": li["l_okey"]}, "snappy",
+        {"l_okey": "delta_binary_packed"}),
+        "o_okey": write_parquet({"o_okey": orders["o_okey"]}, "snappy",
+                                {"o_okey": "delta_binary_packed"})}
+    write_s = time.perf_counter() - t0
+    encodings = {}
+    for tname, blob in {**snappy, **delta}.items():
+        pf = tpq.ParquetFile(blob)
+        for c in pf.metadata.row_groups[0].columns:
+            encodings[f"{tname}.{c.meta_data.path_in_schema[0]}"] = [
+                tpq.format.Encoding(e).name for e in c.meta_data.encodings]
+    print(json.dumps({"parquet_snappy": {
+        "write_s": write_s,
+        "bytes": {k: len(b) for k, b in {**snappy, **delta}.items()},
+        "encodings": encodings}}), flush=True)
+    print(json.dumps({"scan_snappy": time_scan(
+        snappy, dev, {"lineitem": li, "orders": orders})}), flush=True)
+    print(json.dumps({"scan_delta": time_scan(
+        delta, dev, {"l_okey": {"l_okey": li["l_okey"]},
+                     "o_okey": {"o_okey": orders["o_okey"]}})}), flush=True)
+
+    want = q1_oracle(li)
+    n_li = len(li["l_sdate"])
+    li_db = agt.batch_to_device({c: li[c] for c in Q1_COLUMNS}, device=dev)
+    out, launches["Q1"] = run_path("Q1", lambda: compute_q1(li_db),
+                                   ("K1",))
+    check_q1(out, want)
+    outs, runs = timed(lambda: compute_q1(li_db))
+    for out in outs:
+        check_q1(out, want)
+    n_pass = int(sum(out.column("l_qty_count_all").to_pylist()))
+    print(json.dumps({"q1": {
+        "lineitem_rows": n_li, "rows_passing": n_pass,
+        "selectivity": n_pass / n_li, "groups": out.num_rows,
+        "result": out.to_pydict(), "ms_runs": runs,
+        "ms_median": float(np.median(runs)),
+        "rows_per_s": n_li / float(np.median(runs)) * 1e3,
+        "launches_per_run": launches["Q1"], "verified": True}}), flush=True)
+    print(json.dumps({"q1_profile": profile_q1(li_db, want)}), flush=True)
+    out, calls = capture_k1(lambda: compute_q1(li_db))
+    check_q1(out, want)
+    if len(calls) != launches["Q1"]["K1"]:
+        raise AssertionError(f"captured {len(calls)} K1 calls of Q1, "
+                             f"counted {launches['Q1']['K1']}")
+    k1s = time_k1(calls)
+    del calls, li_db
+    print_k1_shapes("k1_q1_shapes", k1s)
+
+    def q1_from_bytes():
+        return compute_q1(scan_parquet(snappy["lineitem"], Q1_COLUMNS, dev))
+    out, launches["Q1 from bytes"] = run_path("Q1 from bytes",
+                                              q1_from_bytes, ("K1",))
+    check_q1(out, want)
+    outs, runs = timed(q1_from_bytes)
+    for out in outs:
+        check_q1(out, want)
+    print(json.dumps({"q1_from_bytes": {
+        "ms_runs": runs, "ms_median": float(np.median(runs)),
+        "launches_per_run": launches["Q1 from bytes"], "verified": True}}),
+        flush=True)
+
+    # the other aggregations, over the scanned (snappy) lineitem
+    pfac_np = product_factors(n_li)
+    li_s = scan_parquet(snappy["lineitem"],
+                        ["l_rflag", "l_sdate", "l_price", "l_qty"], dev)
+    pfac = agt.batch_to_device({"l_pfac": pfac_np}, device=dev).column(0)
+    want_aggs = aggs_oracle(li, pfac_np)
+    out, launches["aggregations"] = run_path(
+        "aggregations", lambda: compute_aggs(li_s, pfac), ("K1",))
+    check_aggs(out, want_aggs)
+    outs, runs = timed(lambda: compute_aggs(li_s, pfac))
+    for out in outs:
+        check_aggs(out, want_aggs)
+    print(json.dumps({"aggregations": {
+        "result": out.to_pydict(), "ms_runs": runs,
+        "ms_median": float(np.median(runs)),
+        "launches_per_run": launches["aggregations"], "verified": True}}),
+        flush=True)
+    return {"launches": launches, "k1s": k1s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -877,6 +1206,12 @@ def main(argv=None) -> int:
     t_build = cuda_build.build(sources)
     print(f"build: {t_build:.1f} s (nvcc, sm_90a)", flush=True)
     _print_ptxas(sources)
+    # the host codecs (csrc/codecs.cc; older trees have none)
+    if importlib.util.find_spec("arrow_go_tpu_torch.native"):
+        from arrow_go_tpu_torch import native
+        t0 = time.perf_counter()
+        print(f"build: {native.build().name} in "
+              f"{time.perf_counter() - t0:.1f} s (g++)", flush=True)
 
     if args.timing_only:
         k1_err = k2_err = k3_err = 0.0
@@ -925,12 +1260,7 @@ def main(argv=None) -> int:
                              f"counted {launches['K1']}")
     k1s = time_k1(calls)
     del calls
-    for t in k1s:
-        print(f"K1 at {t['site']} (P={t['P']}, {t['payloads']}, "
-              f"kept {t['kept']}): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"copy {t['copy_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-    print(json.dumps({"k1_shapes": k1s}), flush=True)
+    print_k1_shapes("k1_shapes", k1s)
     P_li = li_db.padded
     cap = agt.pad_length(n_joined)
     del li_db, ord_db
@@ -1021,10 +1351,15 @@ def main(argv=None) -> int:
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms")
     print(json.dumps({"k2_k3_timed": [k2] + k3s}), flush=True)
+    # (an older tree, run with --timing-only, has no Q1 entry points)
+    q1 = q1_phases(li, orders, dev) if hasattr(pc, "SortOptions") else None
     if args.timing_only:
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     k3 = k3s[0]
+    by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
+               "summary from bytes": sum_launches,
+               "Q3 from bytes": q3b_launches, **q1["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",
@@ -1048,6 +1383,12 @@ def main(argv=None) -> int:
          "bound_ms": k3["bound_ms"], "bound_by": "bytes",
          "library_ms": k3["library_ms"]},
     ]
+    for kern, key in zip(kernels, KERNELS):
+        # `launches` counts every path run_path drove once
+        kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        kern["launches"] = sum(kern["launches_by_path"].values())
+    kernels[0]["q1_filter"] = next(t for t in q1["k1s"]
+                                   if t["site"] == "filter_with_payload")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ from arrow_go_tpu.ops import decode as jdd
 from arrow_go_tpu.parquet import encodings as jenc
 from arrow_go_tpu.parquet import format as jfmt
 
+from arrow_go_tpu_torch.compute.errors import (ArrowInvalid,
+                                               ArrowNotImplemented)
 from arrow_go_tpu_torch.ops import decode as tdd
 from arrow_go_tpu_torch.parquet import encodings as tenc
 from arrow_go_tpu_torch.parquet import format as tfmt
@@ -180,3 +182,80 @@ def test_plain_decode_host_dictionary_page(rng, phys):
     np.testing.assert_array_equal(got, jenc.plain_decode(jfmt.Type[phys],
                                                          data, n))
     np.testing.assert_array_equal(got, vals)
+
+
+def test_byte_array_plain_encode_and_decode(rng):
+    """PLAIN BYTE_ARRAY (the dictionary page of a string column): the
+    same bytes as the JAX encoder, decoded to the same values."""
+    vals = [bytes(rng.integers(0, 256, int(k), np.uint8))
+            for k in rng.integers(0, 40, 500)] + [b"", "é".encode()]
+    data = jenc.plain_encode(jfmt.Type.BYTE_ARRAY, vals)
+    assert tenc.plain_encode(tfmt.Type.BYTE_ARRAY, vals) == data
+    got = tenc.plain_decode(tfmt.Type.BYTE_ARRAY, data, len(vals))
+    assert got == vals
+    assert [bytes(v) for v in jenc.plain_decode(jfmt.Type.BYTE_ARRAY, data,
+                                                len(vals))] == got
+
+
+def _delta_values(rng, case: str) -> np.ndarray:
+    n = 1000
+    if case == "single":
+        return np.array([-7], np.int64)
+    if case == "two":
+        return np.array([5, -3], np.int64)
+    if case == "partial_last_miniblock":
+        return np.cumsum(rng.integers(-50, 50, 128 * 3 + 45))
+    if case == "width0":
+        return 3 * np.arange(n, dtype=np.int64) - 40
+    if case == "width32":
+        d = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+        d[::64], d[1::64] = 0, 2 ** 32 - 1
+        return np.cumsum(d)
+    if case == "negative":
+        return np.cumsum(rng.integers(-10 ** 6, 10, n))
+    if case == "wrapping":
+        # counts up through int64's maximum: each delta wraps to +1
+        return (np.uint64(2 ** 63 - 300)
+                + np.arange(n, dtype=np.uint64)).view(np.int64)
+    if case == "int32":
+        return rng.integers(-2 ** 30, 2 ** 30, n).astype(np.int32)
+    raise ValueError(case)
+
+
+def _port_delta(stream: bytes) -> np.ndarray:
+    st, b0, wd, mn, words, first, total = tdd.parse_delta_segments(stream)
+    return tdd.delta_decode_device(
+        torch.from_numpy(st), torch.from_numpy(b0), torch.from_numpy(wd),
+        torch.from_numpy(mn), torch.from_numpy(words.view(np.int32).copy()),
+        first, total).numpy()
+
+
+@pytest.mark.parametrize("geometry", [(128, 4), (256, 8), (128, 1)])
+@pytest.mark.parametrize("case", ["single", "two", "partial_last_miniblock",
+                                  "width0", "width32", "negative",
+                                  "wrapping", "int32"])
+def test_delta_decode_device_matches_jax(rng, case, geometry):
+    vals = _delta_values(rng, case)
+    stream = jenc.delta_binary_packed_encode(vals, *geometry)
+    assert tenc.delta_binary_packed_encode(vals, *geometry) == stream
+    got = _port_delta(stream)
+    parsed = jdd.parse_delta_segments(stream)
+    want = np.asarray(jdd.delta_decode_jit(parsed, parsed[6]))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, vals.astype(np.int64))
+    if case == "width32":
+        assert 32 in tdd.parse_delta_segments(stream)[2]
+
+
+def test_delta_wider_than_32_bits_raises_as_jax():
+    vals = np.array([0, 2 ** 40, -2 ** 40, 5] * 40, np.int64)
+    stream = jenc.delta_binary_packed_encode(vals)
+    assert jdd.parse_delta_segments(stream) is None
+    with pytest.raises(ArrowNotImplemented, match="33|4[0-9]"):
+        tdd.parse_delta_segments(stream)
+
+
+def test_delta_stream_that_ends_early_raises():
+    stream = tenc.delta_binary_packed_encode(np.arange(0, 5000, 7))
+    with pytest.raises(ArrowInvalid):
+        tdd.parse_delta_segments(stream[:len(stream) // 2])

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-its native codec library) nor pyarrow nor zstandard nor triton, and it
-never moves to the CPU unless asked."""
+its native codec library) nor pyarrow nor zstandard nor triton, its own
+codec library is built from its own source with no switch or fallback,
+and it never moves to the CPU unless asked."""
 import ast
 import pathlib
 import subprocess
@@ -28,13 +29,31 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys, arrow_go_tpu_torch, arrow_go_tpu_torch.compute\n"
             "import arrow_go_tpu_torch.parquet\n"
             "import arrow_go_tpu_torch.ops.reductions\n"
+            "import arrow_go_tpu_torch.native as native\n"
+            "import arrow_go_tpu_torch.compute.groupby\n"
+            "import arrow_go_tpu_torch.parquet.device_read\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
-            "print(repr(bad))\n")
+            "print(repr(bad), native._lib is None)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "[]"
+    # importing the codec loader neither imports the JAX package's
+    # native library nor builds or loads its own
+    assert r.stdout.strip() == "[] True"
+
+
+def test_codecs_are_the_ports_own_with_no_switch_or_fallback():
+    """csrc/codecs.cc is built from the port's tree alone, and nothing
+    turns the library off or swaps in a Python codec."""
+    from arrow_go_tpu_torch import native
+    assert native.SOURCE.parent == PKG / "csrc"
+    text = native.SOURCE.read_text()
+    assert "arrow_go_tpu/" not in text.split("//", 1)[0]
+    assert all(not ln.lstrip().startswith("#include \"")
+               for ln in text.splitlines())
+    src = (PKG / "native.py").read_text()
+    assert "environ" not in src and "except" not in src
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -14,6 +14,8 @@ import pytest
 
 import arrow_go_tpu as agt
 from arrow_go_tpu import parquet as jpq
+from arrow_go_tpu.compute.errors import \
+    ArrowNotImplemented as JaxNotImplemented
 from arrow_go_tpu.parquet import device_read as jdr
 
 from arrow_go_tpu_torch import parquet as tpq
@@ -141,7 +143,7 @@ def test_scan_column_order_and_errors(rng):
         tpq.read_batch_device(tpf, 0, columns=["i32", "i32"], device="cpu")
 
 
-@pytest.mark.parametrize("codec", ["snappy", "zstd"])
+@pytest.mark.parametrize("codec", ["brotli", "zstd"])
 def test_codecs_the_port_does_not_read_raise(rng, codec):
     data, masks = _table(rng, 300)
     tpf = tpq.ParquetFile(_jax_file(data, masks, compression=codec))
@@ -153,12 +155,24 @@ def test_codecs_the_port_does_not_read_raise(rng, codec):
 
 @pytest.mark.parametrize("column", ["string", "list"])
 def test_string_and_nested_columns_raise(column):
+    """A nested column has no port type; a string column reads only as
+    dictionary codes, so a chunk of PLAIN strings raises at the scan, as
+    the JAX package's device read does."""
     arr = agt.array(["a", "b", None]) if column == "string" else \
         agt.array([[1], None, [2, 3]], agt.dtypes.list_(agt.dtypes.int64))
     buf = io.BytesIO()
-    jpq.write_table(agt.table({"c": arr}), buf)
-    with pytest.raises(ArrowNotImplemented):
-        tpq.ParquetFile(buf.getvalue())
+    jpq.write_table(agt.table({"c": arr}), buf,
+                    properties=jpq.WriterProperties(
+                        use_dictionary=column != "string"))
+    if column == "list":
+        with pytest.raises(ArrowNotImplemented):
+            tpq.ParquetFile(buf.getvalue())
+        return
+    with pytest.raises(JaxNotImplemented):
+        jdr.read_batch_device(jpq.ParquetFile(buf.getvalue()), 0)
+    with pytest.raises(ArrowNotImplemented, match="all-dictionary"):
+        tpq.read_batch_device(tpq.ParquetFile(buf.getvalue()), 0,
+                              device="cpu")
 
 
 def _port_file(data, masks, **kw) -> bytes:
@@ -226,3 +240,149 @@ def test_port_writer_round_trip_keeps_float_bits():
         got = tpq.read_batch_device(tpf, 0, device="cpu").column("x")
         np.testing.assert_array_equal(got.values[:7].numpy().view(np.uint64),
                                       vals.view(np.uint64))
+
+
+# ---------------------------------------------------------------------------
+# snappy / LZ4 pages, string (dictionary) columns, DELTA_BINARY_PACKED
+# ---------------------------------------------------------------------------
+
+FLAGS = np.array(["N", "R", "A", "a longer value", "ü"], dtype=object)
+
+
+def _mixed(rng, n: int):
+    """Strings (nullable and not), DELTA-able ints (nullable and not) and
+    a float column; (numpy data, masks) for the JAX writer."""
+    data = {
+        "s": FLAGS[rng.integers(0, 5, n)],
+        "s_null": FLAGS[rng.integers(0, 3, n)],
+        "d64": np.cumsum(rng.integers(-1000, 10 ** 6, n)),
+        "d32": rng.integers(-2 ** 30, 2 ** 30, n).astype(np.int32),
+        "f": rng.standard_normal(n),
+    }
+    masks = {"s_null": rng.random(n) < 0.7, "d32": rng.random(n) < 0.8}
+    return data, masks
+
+
+def _jax_mixed_file(data, masks, **props) -> bytes:
+    cols = {}
+    for k, v in data.items():
+        m = masks.get(k)
+        if v.dtype == object:
+            cols[k] = agt.array([x if m is None or m[i] else None
+                                 for i, x in enumerate(v.tolist())])
+        else:
+            cols[k] = agt.from_numpy(v, m)
+    buf = io.BytesIO()
+    jpq.write_table(agt.table(cols), buf,
+                    properties=jpq.WriterProperties(**props))
+    return buf.getvalue()
+
+
+def _same_strings(tc, jc) -> None:
+    assert list(tc.dictionary) == jc.dictionary.to_pylist()
+
+
+def _check_mixed_source(tdb, data, masks) -> None:
+    for name, v in data.items():
+        c = tdb.column(name)
+        n = c.length
+        m = masks.get(name, np.ones(n, np.bool_))
+        if c.validity is not None:
+            valid = np.unpackbits(words_u32(c.validity).view(np.uint8),
+                                  bitorder="little")[:n].astype(bool)
+            np.testing.assert_array_equal(valid, m)
+        got = c.values[:n].numpy()
+        if c.dictionary is not None:
+            got = c.dictionary[got]
+        np.testing.assert_array_equal(got[m], v[m])
+
+
+@pytest.mark.parametrize("page_version", ["1.0", "2.0"])
+@pytest.mark.parametrize("compression", ["snappy", "lz4_raw", "gzip"])
+def test_scan_of_jax_written_strings_and_delta_matches_jax(
+        rng, compression, page_version):
+    n = 6000
+    data, masks = _mixed(rng, n)
+    blob = _jax_mixed_file(
+        data, masks, compression=compression, data_page_size=2048,
+        data_page_version=page_version,
+        column_properties={"d64": {"encoding": "delta_binary_packed"},
+                           "d32": {"encoding": "delta_binary_packed"}})
+    tpf, jpf = tpq.ParquetFile(blob), jpq.ParquetFile(blob)
+    encs = {c.meta_data.path_in_schema[0]: set(c.meta_data.encodings)
+            for c in tpf.metadata.row_groups[0].columns}
+    assert int(tfmt.Encoding.DELTA_BINARY_PACKED) in encs["d64"]
+    assert encs["s"] & {int(tfmt.Encoding.RLE_DICTIONARY),
+                        int(tfmt.Encoding.PLAIN_DICTIONARY)}
+    assert tpf.metadata.row_groups[0].columns[0].meta_data.codec == int(
+        tfmt.Codec[compression.upper()])
+    times = {}
+    tdb = tpq.read_batch_device(tpf, 0, device="cpu", times=times)
+    jdb = jdr.read_batch_device(jpf, 0)
+    _same_batch(tdb, jdb)
+    for name in ("s", "s_null"):
+        _same_strings(tdb.column(name), jdb.column(name))
+        assert tdb.schema.field(tdb.schema.field_index(name)).type.name == \
+            "utf8"
+    _check_mixed_source(tdb, data, masks)
+    assert set(times) == {"parse_s", "h2d_s", "decode_s", "decompress_s"}
+    assert 0 < times["decompress_s"] <= times["parse_s"]
+
+
+@pytest.mark.parametrize("strings", ["numpy", "codes"])
+@pytest.mark.parametrize("compression", ["snappy", "lz4_raw"])
+def test_port_writer_strings_and_delta_read_by_jax_and_port(
+        rng, compression, strings):
+    n = 5000
+    data, masks = _mixed(rng, n)
+    written = dict(data)
+    if strings == "codes":
+        # (codes, values) pairs are written as they stand: the dictionary
+        # page holds FLAGS in this order, unused values included
+        for name in ("s", "s_null"):
+            codes = np.searchsorted(FLAGS.astype(str), data[name].astype(str),
+                                    sorter=np.argsort(FLAGS.astype(str)))
+            written[name] = (np.argsort(FLAGS.astype(str))[codes].astype(
+                np.int32), FLAGS)
+    blob = _port_file(written, masks, compression=compression,
+                      data_page_size=4096,
+                      column_encodings={"d64": "delta_binary_packed",
+                                        "d32": "delta_binary_packed"})
+    jt = jpq.read_table(io.BytesIO(blob))
+    for name, v in data.items():
+        m = masks.get(name)
+        assert jt.column(name).to_pylist() == [
+            x if m is None or m[i] else None for i, x in enumerate(v.tolist())]
+    tpf = tpq.ParquetFile(blob)
+    tdb = tpq.read_batch_device(tpf, 0, device="cpu")
+    jdb = jdr.read_batch_device(jpq.ParquetFile(blob), 0)
+    _same_batch(tdb, jdb)
+    for name in ("s", "s_null"):
+        _same_strings(tdb.column(name), jdb.column(name))
+    _check_mixed_source(tdb, data, masks)
+    if strings == "codes":
+        assert list(tdb.column("s").dictionary) == list(FLAGS)
+    else:   # first-occurrence order, as the JAX DictionaryBuilder
+        assert list(tdb.column("s").dictionary) == list(
+            dict.fromkeys(data["s"].tolist()))
+
+
+def test_port_writer_string_past_the_dictionary_limit_is_plain(rng):
+    vals = np.array([f"value {i:06d}" for i in range(3000)], dtype=object)
+    blob = _port_file({"s": vals}, None, dictionary_pagesize_limit=1024)
+    assert jpq.read_table(io.BytesIO(blob)).column("s").to_pylist() == \
+        vals.tolist()
+    with pytest.raises(ArrowNotImplemented, match="all-dictionary"):
+        tpq.read_batch_device(tpq.ParquetFile(blob), 0, device="cpu")
+
+
+def test_port_writer_rejects_bad_string_codes_and_delta_types(rng):
+    with pytest.raises(ArrowInvalid):
+        tpq.write_table({"s": (np.array([0, 3], np.int32), FLAGS[:2])},
+                        io.BytesIO())
+    with pytest.raises(ArrowInvalid):
+        tpq.write_table({"f": np.ones(4)}, io.BytesIO(),
+                        column_encodings={"f": "delta_binary_packed"})
+    with pytest.raises(ArrowNotImplemented):
+        tpq.write_table({"i": np.ones(4, np.int64)}, io.BytesIO(),
+                        column_encodings={"i": "delta_length_byte_array"})

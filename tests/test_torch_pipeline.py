@@ -6,7 +6,9 @@ drives on the card. Groups and their order must be the same and counts
 exact; revenues agree to rtol=1e-9 (engine_e2e.py:185's tolerance).
 TPC-H Q6 and Q3 also run from parquet bytes written by the port's
 writer: Q6 against the same composition in the JAX package and numpy,
-Q3 against the device-resident run.
+Q3 against the device-resident run. TPC-H Q1 (string group keys, sums,
+means, COUNT(*), ORDER BY the keys) runs device-resident in both
+packages and from the port's snappy files, against numpy.
 """
 import collections
 
@@ -23,12 +25,17 @@ from benchmarks.engine_e2e import compute_ours, make_data
 import arrow_go_tpu_torch.compute as pc
 from arrow_go_tpu_torch import dtypes as tdt
 from arrow_go_tpu_torch.device.block import DeviceBatch
-from chip_smoke import (CUTOFF, Q6_DATE_HI, Q6_DATE_LO, Q6_DISC_HI,
-                        Q6_DISC_LO, Q6_QTY, add_quantity, check_q3, check_q6,
-                        check_summary, compute_q3, compute_q6,
-                        compute_summary, q3_oracle, q6_oracle, scan_parquet,
+from chip_smoke import (CUTOFF, Q1_COLUMNS, Q1_SHIPDATE_MAX, Q1_SUMS,
+                        Q6_DATE_HI, Q6_DATE_LO, Q6_DISC_HI, Q6_DISC_LO,
+                        Q6_QTY, add_q1_columns, add_quantity, aggs_oracle,
+                        check_aggs, check_q1, check_q3, check_q6,
+                        check_summary, compute_aggs, compute_q1, compute_q3,
+                        compute_q6, compute_summary, product_factors,
+                        q1_oracle, q3_oracle, q6_oracle, scan_parquet,
                         summary_oracle, write_parquet)
 from torch_parity import jax_batch, port_batch
+
+import arrow_go_tpu_torch as agt_torch
 
 
 def test_q3_matches_jax_and_oracle():
@@ -141,3 +148,88 @@ def test_q3_from_parquet_bytes_matches_device_resident():
         scan_parquet(ord_blob, device="cpu"), CUTOFF)
     assert from_bytes.to_pydict() == resident.to_pydict()
     check_q3(from_bytes, q3_oracle(li, orders, CUTOFF))
+
+
+def _q1_lineitem(n: int):
+    li, _ = make_data(n, n // 4)
+    add_quantity(li)
+    add_q1_columns(li)
+    return li
+
+
+def _jax_q1(li_db):
+    """TPC-H Q1 composed of the JAX package's functions, as compute_q1
+    composes the port's."""
+    f, lit, call = jpc.field, jpc.literal, jpc.call
+    mask = jpc.execute_scalar_expression(
+        call("less_equal", [f("l_sdate"), lit(Q1_SHIPDATE_MAX)]), li_db)
+    keep = Q1_COLUMNS[:-1]
+    li_f = jpc.filter(JaxDeviceBatch(jdt.Schema([li_db.schema.field(
+        li_db.schema.field_index(c)) for c in keep]),
+        [li_db.column(c) for c in keep], li_db.length), mask)
+    dp = jpc.execute_scalar_expression(call("multiply", [
+        f("l_price"), call("subtract", [lit(1.0), f("l_disc")])]), li_f)
+    with_dp = JaxDeviceBatch(jdt.Schema(list(li_f.schema.fields) + [
+        jdt.Field("disc_price", jdt.float64)]), li_f.columns + [dp],
+        li_f.length)
+    charge = jpc.execute_scalar_expression(call("multiply", [
+        f("disc_price"), call("add", [lit(1.0), f("l_tax")])]), with_dp)
+    gb = JaxDeviceBatch(jdt.Schema(list(with_dp.schema.fields) + [
+        jdt.Field("charge", jdt.float64)]), with_dp.columns + [charge],
+        with_dp.length)
+    g = jpc.group_by(gb, ["l_rflag", "l_lstatus"], Q1_SUMS)
+    idx = jpc.sort_indices(g, jpc.SortOptions(
+        keys=[jpc.SortKey("l_rflag"), jpc.SortKey("l_lstatus")]))
+    return jpc.take(g, idx)
+
+
+def _same_q1(tout, jout) -> None:
+    assert tout.schema.names == jout.schema.names
+    for name in tout.schema.names:
+        got, want = tout.column(name).to_pylist(), \
+            jout.column(name).to_pylist()
+        if tout.column(name).type == tdt.float64:
+            np.testing.assert_allclose(got, want, rtol=1e-9, err_msg=name)
+        else:
+            assert got == want, name
+
+
+def test_q1_matches_jax_and_oracle():
+    li = _q1_lineitem(20_000)
+    data = {c: li[c] for c in Q1_COLUMNS}
+    for c in ("l_rflag", "l_lstatus"):
+        codes, values = li[c]
+        data[c] = values[codes]         # strings, as the JAX package takes
+    jdb = jax_batch(data)
+    tout = compute_q1(port_batch(jdb))
+    _same_q1(tout, _jax_q1(jdb))
+    want = q1_oracle(li)
+    check_q1(tout, want)
+    assert tout.num_rows == 4
+    assert tout.column("l_rflag").to_pylist() == ["A", "N", "N", "R"]
+    # the (codes, values) pairs on the port's device as they stand
+    check_q1(compute_q1(agt_torch.batch_to_device(
+        {c: li[c] for c in Q1_COLUMNS}, device="cpu")), want)
+
+
+def test_q1_from_snappy_bytes_matches_jax_and_oracle():
+    li = _q1_lineitem(30_000)
+    blob = write_parquet(li, "snappy")
+    got = compute_q1(scan_parquet(blob, Q1_COLUMNS, device="cpu"))
+    check_q1(got, q1_oracle(li))
+    _same_q1(got, _jax_q1(read_batch_device(jpq.ParquetFile(blob), 0,
+                                            columns=Q1_COLUMNS)))
+
+
+def test_every_other_aggregation_over_scanned_lineitem():
+    li = _q1_lineitem(20_000)
+    blob = write_parquet(li, "snappy")
+    li_s = scan_parquet(blob, ["l_rflag", "l_sdate", "l_price", "l_qty"],
+                        device="cpu")
+    pfac = product_factors(len(li["l_sdate"]))
+    pfac[::997] = 2                      # nonzero products to compare
+    col = agt_torch.batch_to_device({"p": pfac}, device="cpu").column(0)
+    want = aggs_oracle(li, pfac)
+    check_aggs(compute_aggs(li_s, col), want)
+    assert sorted(want["l_rflag"]) == ["A", "N", "R"]
+    assert max(abs(p) for p in want["l_pfac_product"]) > 2 ** 5

@@ -12,17 +12,29 @@ def jax_batch(data, masks=None):
     """dict of numpy columns (+ optional validity masks by name, True =
     valid) -> JAX DeviceBatch."""
     masks = masks or {}
-    rb = agt.record_batch({k: agt.from_numpy(v, masks.get(k))
+    rb = agt.record_batch({k: _jax_array(v, masks.get(k))
                            for k, v in data.items()})
     return jax_batch_to_device(rb)
 
 
+def _jax_array(v, mask):
+    """A numpy column as a JAX package array; an object (str) column
+    becomes a string array, which the device holds as dictionary codes."""
+    if v.dtype != object:
+        return agt.from_numpy(v, mask)
+    return agt.array([x if mask is None or mask[i] else None
+                      for i, x in enumerate(v.tolist())])
+
+
 def port_batch(jdb):
     """The port's DeviceBatch holding bit-identical copies of a JAX
-    DeviceBatch's padded values and validity words, on the CPU."""
+    DeviceBatch's padded values and validity words (and a string
+    column's codes and dictionary), on the CPU."""
     fields = [(f.name, f.type.name) for f in jdb.schema.fields]
     columns = [(np.asarray(c.values),
                 None if c.validity is None else np.asarray(c.validity))
+               + (() if c.dictionary is None
+                  else (c.dictionary.to_pylist(),))
                for c in jdb.columns]
     return agt_torch.batch_from_numpy(fields, columns, jdb.length,
                                       device="cpu")
