@@ -3,9 +3,11 @@
 Port of the eager path of arrow_go_tpu/compute/expression.py (reference
 arrow/compute/expression.go:52 Literal / FieldRef / Call trees,
 exprs/exec.go ExecuteScalarExpression). The ported functions are the
-arithmetic, comparison and boolean kernels of compute/kernels.py;
-expressions run them unchecked and without host checks, so no host
-sync happens inside an expression.
+arithmetic, comparison, boolean and validity kernels of
+compute/kernels.py, and fill_null, if_else and is_in of
+compute/functions.py; expressions run the arithmetic unchecked, so no
+overflow check syncs with the host inside an expression. `cast` waits
+for the port of compute/cast.py.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from dataclasses import dataclass
 from typing import Any, List, Sequence, Union
 
 from ..device.block import DeviceBatch, DeviceColumn
-from . import kernels
+from . import functions, kernels
 from .errors import ArrowInvalid, ArrowKeyError
 
 
@@ -79,20 +81,35 @@ def _eval(expr: Expression, db: DeviceBatch):
     if isinstance(expr, FieldRef):
         return _resolve_field(db, expr)
     if isinstance(expr, Call):
-        return _apply(expr.function, [_eval(a, db) for a in expr.args])
+        return _apply(expr.function, [_eval(a, db) for a in expr.args],
+                      expr.options)
     raise ArrowInvalid(f"bad expression node {expr!r}")
 
 
-def _apply(fname: str, args: List[Any]):
+_UNARY = {"invert": kernels.invert, "is_null": kernels.is_null,
+          "is_valid": kernels.is_valid, "is_nan": kernels.is_nan,
+          "is_finite": kernels.is_finite}
+
+
+def _apply(fname: str, args: List[Any], options):
     if fname in kernels._ARITH_BINARY:
         return kernels.arithmetic_binary(fname, args[0], args[1],
                                          checked=False)
+    if fname in kernels._ARITH_UNARY:
+        return kernels.arithmetic_unary(fname, args[0], checked=False)
     if fname in kernels._COMPARE:
         return kernels.compare(fname, args[0], args[1])
     if fname in kernels._BOOLEAN or fname in kernels._KLEENE:
         return kernels.boolean_binary(fname, args[0], args[1])
-    if fname == "invert":
-        return kernels.invert(args[0])
+    if fname in _UNARY:
+        return _UNARY[fname](args[0])
+    if fname == "fill_null":
+        return functions.fill_null(args[0], args[1])
+    if fname == "if_else":
+        return functions.if_else(args[0], args[1], args[2])
+    if fname == "is_in":
+        vs = options["value_set"] if isinstance(options, dict) else options
+        return functions.is_in(args[0], value_set=vs)
     raise ArrowKeyError(f"expression function {fname!r} is not ported")
 
 

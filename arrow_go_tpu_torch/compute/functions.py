@@ -1,17 +1,21 @@
-"""Selection, sort and scalar aggregate functions.
+"""Selection, sort, vector hash, set lookup and scalar aggregate functions.
 
 Port of the paths of arrow_go_tpu/compute/functions.py that the device
 pipeline runs: the DeviceBatch filter (every column rides the stable
 compaction, K1 on the card), take, sort_indices with the small-host
 fast path for group-sized results and its record form over sort keys
-(a dictionary column sorts by its values' string order), and the scalar
-aggregates sum / min / max / mean / count / min_max (masked reductions,
-K3 on the card).
+(a dictionary column sorts by its values' string order); unique and
+dictionary_encode (first-occurrence codes, ops/hashing.py); is_in and
+index_in against a host value set; fill_null and if_else; and the
+scalar aggregates sum / min / max / mean / count / min_max / product /
+variance / stddev (masked reductions, K3 on the card), count_distinct,
+any and all. `value_counts` and `make_struct` return struct arrays,
+which the port does not carry yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
-from typing import List, Optional, Union
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
@@ -19,8 +23,8 @@ import torch
 from .. import dtypes as dt
 from .. import torchenv
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
-                            pad_length)
-from ..ops import bitmap, reductions, selection
+                            host_array_to_device, pad_length, row_mask)
+from ..ops import bitmap, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
 
@@ -50,6 +54,17 @@ class SortOptions:
 @dataclass
 class CountOptions:
     mode: str = "only_valid"              # 'only_valid' | 'only_null' | 'all'
+
+
+@dataclass
+class SetLookupOptions:
+    value_set: Any = None
+    skip_nulls: bool = False
+
+
+@dataclass
+class VarianceOptions:
+    ddof: int = 0
 
 
 def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
@@ -262,8 +277,7 @@ def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
                 np.arange(values.num_rows, dtype=np.int64)
             return HostArray(perm, None, dt.int64)
         dev = torchenv.device(device)
-        cols = [DeviceColumn(*_host_to_device(c, dev), len(c), c.type,
-                             c.dictionary) for c in cols]
+        cols = [host_array_to_device(c, dev) for c in cols]
         n = values.num_rows
     else:
         cols = [values.column(k.target) for k in options.keys]
@@ -294,8 +308,7 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
             return HostArray(_argsort_host_small(values, desc, nulls_first),
                              None, dt.int64)
         dev = torchenv.device(device)
-        col = DeviceColumn(*_host_to_device(values, dev), len(values),
-                           values.type, values.dictionary)
+        col = host_array_to_device(values, dev)
         perm = sort_ops.argsort_single(_column_sort_key(col, desc,
                                                         nulls_first))
         return HostArray(perm[:len(values)].cpu().numpy(), None, dt.int64)
@@ -370,12 +383,270 @@ def min_max(values, options=None):
     return {"min": agg_min(values), "max": agg_max(values)}
 
 
-def _host_to_device(arr: HostArray, dev):
-    from ..device.block import _pack_words, _words_to_tensor
-    n = len(arr)
+def agg_count_distinct(values, options=None):
+    """Distinct values, a null counting as one (one host read)."""
+    col = _as_device(values)
+    res = hashing.encode_codes(col.values, col.type, col.validity,
+                               col.length, order="key")
+    n_unique, has_null = torch.stack([res.n_unique,
+                                      res.has_null.to(torch.int64)]).tolist()
+    return n_unique + has_null
+
+
+def agg_any(values, options=None):
+    col = _as_device(values)
+    return bool((col.values & col.validity_mask()).any())
+
+
+def agg_all(values, options=None):
+    col = _as_device(values)
+    return bool((col.values | ~col.validity_mask()).all())
+
+
+def agg_product(values, options=None):
+    """Product of the valid rows (K3), None when there is none. int32
+    widens to int64 first, as `jnp.prod` promotes it; integer products
+    wrap."""
+    col = _as_device(values)
+    v = col.values.to(torch.int64) if col.values.dtype == torch.int32 \
+        else col.values
+    acc, count = reductions.reduce_with_count_host(v, col.validity,
+                                                   col.length, "prod")
+    return None if count == 0 else acc
+
+
+def agg_variance(values, options: Optional[VarianceOptions] = None):
+    """Population variance (ddof 0) or with `options.ddof`, in float64:
+    two K3 sums, of the values (with their count) and of the squared
+    deviations from their mean."""
+    options = options or VarianceOptions()
+    col = _as_device(values)
+    x = col.values.to(torch.float64)
+    total, count = reductions.reduce_with_count_host(x, col.validity,
+                                                     col.length, "sum")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mean = np.float64(total) / np.float64(count)
+        sq, _ = reductions.reduce_with_count_host(
+            (x - float(mean)) ** 2, col.validity, col.length, "sum")
+        return float(np.float64(sq) / np.float64(count - options.ddof))
+
+
+def agg_stddev(values, options: Optional[VarianceOptions] = None):
+    return float(np.sqrt(agg_variance(values, options)))
+
+
+# ---------------------------------------------------------------------------
+# vector hash: unique / dictionary_encode (reference vector_hash.go)
+# ---------------------------------------------------------------------------
+
+def _first_occurrences(col: DeviceColumn):
+    """(first-occurrence codes, the row of each code's first occurrence
+    (on the column's device), the output position of the null or None):
+    one encode and one host read."""
+    res = hashing.encode_codes(col.values, col.type, col.validity,
+                               col.length)
+    n_unique, has_null, null_row = torch.stack([
+        res.n_unique, res.has_null.to(torch.int64),
+        res.null_first_row]).tolist()
+    first = res.first_index[:n_unique]
+    null_at = None
+    if has_null:
+        # the null goes where it first occurs among the distinct values
+        null_at = int((first < null_row).sum())
+    return res.codes, first, null_at
+
+
+def _with_null(vals: torch.Tensor, null_at) -> tuple:
+    """`vals` with a null slot inserted at null_at (None: no null), as
+    (padded values, validity words or None, length)."""
+    n = vals.shape[0] + (null_at is not None)
     P = pad_length(n)
-    host = np.zeros(P, dtype=arr.type.np_dtype)
-    host[:n] = arr.values
-    words = None if arr.mask is None else _words_to_tensor(
-        _pack_words(arr.mask, P), dev)
-    return torch.from_numpy(host).to(dev), words
+    out = torch.zeros(P, dtype=vals.dtype, device=vals.device)
+    words = None
+    if null_at is None:
+        out[:n] = vals
+    else:
+        out[:null_at] = vals[:null_at]
+        out[null_at + 1:n] = vals[null_at:]
+        ok = row_mask(P, n, vals.device)
+        ok[null_at] = False
+        words = bitmap.pack_mask(ok)
+    return out, words, n
+
+
+def unique(values, options=None) -> DeviceColumn:
+    """The distinct values in first-occurrence order, a null (if any)
+    where it first occurs. A dictionary column's result is a dictionary
+    column of its distinct values."""
+    col = _as_device(values)
+    _, first, null_at = _first_occurrences(col)
+    vals = col.values.index_select(0, first)
+    if col.dictionary is None:
+        out, words, n = _with_null(vals, null_at)
+        return DeviceColumn(out, words, n, col.type)
+    codes = vals.cpu().numpy()
+    k = len(codes)
+    out, words, n = _with_null(torch.arange(k, dtype=torch.int32,
+                                            device=col.device), null_at)
+    return DeviceColumn(out, words, n, col.type, col.dictionary[codes])
+
+
+def dictionary_encode(values, options=None) -> DeviceColumn:
+    """int32 codes into a dictionary of the distinct non-null values in
+    first-occurrence order; null rows keep their validity (code 0). A
+    dictionary column comes back as it is."""
+    col = _as_device(values)
+    if col.dictionary is not None:
+        return col
+    codes, first, _ = _first_occurrences(col)
+    dictionary = col.values.index_select(0, first).cpu().numpy()
+    return DeviceColumn(torch.where(codes >= 0, codes, 0).to(torch.int32),
+                        col.validity, col.length,
+                        dt.dictionary(dt.int32, col.type), dictionary)
+
+
+# ---------------------------------------------------------------------------
+# set lookup (reference scalar_set_lookup.go IsIn / IndexIn)
+# ---------------------------------------------------------------------------
+
+def _set_options(options, value_set) -> SetLookupOptions:
+    return options if options is not None else SetLookupOptions(
+        value_set=value_set)
+
+
+def _set_list(vset) -> list:
+    """The value set as Python values (None for a null)."""
+    if isinstance(vset, HostArray):
+        return vset.to_pylist()
+    return list(vset)
+
+
+def _set_table(col: DeviceColumn, vset: list):
+    """(sorted distinct non-null set values as a tensor of the column's
+    dtype on its device, each one's first position in the set as int32;
+    None when no value survives). A value that the column's dtype does
+    not hold exactly matches nothing; NaN never matches."""
+    np_dtype = col.type.np_dtype
+    vals, pos = [], []
+    for i, v in enumerate(vset):
+        if v is not None and np.asarray(v, np_dtype).item() == v:
+            vals.append(v)
+            pos.append(i)
+    if not vals:
+        return None
+    uniq, first = np.unique(np.asarray(vals, np_dtype), return_index=True)
+    if np_dtype == np.bool_:                 # searchsorted takes no bool
+        uniq = uniq.astype(np.uint8)
+    return (torch.from_numpy(uniq).to(col.device),
+            torch.from_numpy(np.asarray(pos, np.int32)[first]).to(
+                col.device))
+
+
+def _lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
+    """Per row: the first position of its value in the set, -1 when not
+    there (null rows included)."""
+    if col.dictionary is not None:
+        where = {}
+        for i, v in enumerate(vset):
+            if v is not None:
+                where.setdefault(v, i)
+        table = torch.tensor([where.get(v, -1) for v in col.dictionary]
+                             or [-1], dtype=torch.int32, device=col.device)
+        idx = table.index_select(0, col.values.to(torch.int64).clamp(
+            0, table.shape[0] - 1))
+    else:
+        st = _set_table(col, vset)
+        if st is None:
+            return torch.full((col.padded,), -1, dtype=torch.int32,
+                              device=col.device)
+        sv, spos = st
+        x = col.values.to(sv.dtype)
+        at = torch.searchsorted(sv, x).clamp(max=sv.shape[0] - 1)
+        idx = torch.where(sv.index_select(0, at) == x,
+                          spos.index_select(0, at), -1)
+    return torch.where(col.validity_mask(), idx, -1)
+
+
+def is_in(values, options: Optional[SetLookupOptions] = None,
+          value_set=None) -> DeviceColumn:
+    """Whether each row's value is in the value set. A null row is true
+    when the set holds a null and `skip_nulls` is off, else false; the
+    result has no nulls."""
+    options = _set_options(options, value_set)
+    col = _as_device(values)
+    vset = _set_list(options.value_set)
+    out = _lookup(col, vset) >= 0
+    if None in vset and not options.skip_nulls and \
+            col.validity is not None:
+        out = out | ~bitmap.expand_words(col.validity, col.padded)
+    return DeviceColumn(out & row_mask(col.padded, col.length, col.device),
+                        None, col.length, dt.bool_)
+
+
+def index_in(values, options: Optional[SetLookupOptions] = None,
+             value_set=None) -> DeviceColumn:
+    """The first position of each row's value in the value set (int32),
+    null where it is not there. A null row takes the position of the
+    set's first null, if it has one."""
+    options = _set_options(options, value_set)
+    col = _as_device(values)
+    vset = _set_list(options.value_set)
+    idx = _lookup(col, vset)
+    if None in vset:
+        isnull = ~col.validity_mask() & row_mask(col.padded, col.length,
+                                                 col.device)
+        idx = torch.where(isnull, vset.index(None), idx)
+    return DeviceColumn(torch.where(idx >= 0, idx, 0).to(torch.int32),
+                        bitmap.pack_mask(idx >= 0), col.length, dt.int32)
+
+
+# ---------------------------------------------------------------------------
+# fill_null / if_else
+# ---------------------------------------------------------------------------
+
+def fill_null(values, fill_value) -> DeviceColumn:
+    """Null rows take `fill_value` (a scalar or a DeviceColumn's row);
+    the dictionary, if any, stays."""
+    col = _as_device(values)
+    if col.validity is None:
+        return col
+    fv = fill_value.values if isinstance(fill_value, DeviceColumn) else \
+        torch.full((col.padded,), fill_value, dtype=col.values.dtype,
+                   device=col.device)
+    isvalid = bitmap.expand_words(col.validity, col.padded)
+    return DeviceColumn(torch.where(isvalid, col.values, fv), None,
+                        col.length, col.type, col.dictionary)
+
+
+def if_else(cond, left, right) -> DeviceColumn:
+    """left where cond, else right (scalars broadcast; two scalars make
+    an int64, float64 or bool column). A null cond gives a null row; the
+    result always carries its validity words."""
+    c = _as_device(cond)
+    P, dev = c.padded, c.device
+    col = left if isinstance(left, DeviceColumn) else right
+    if isinstance(col, DeviceColumn):
+        t = col.type
+    elif all(isinstance(x, bool) for x in (left, right)):
+        t = dt.bool_
+    else:
+        # two constants (a SQL CASE of literals), typed as a literal
+        # broadcast is: int64, or float64 beside a float
+        t = dt.float64 if any(isinstance(x, float)
+                              for x in (left, right)) else dt.int64
+
+    def vals_mask(x):
+        if isinstance(x, DeviceColumn):
+            ok = torch.ones(P, dtype=torch.bool, device=dev) \
+                if x.validity is None else bitmap.expand_words(x.validity, P)
+            return x.values, ok
+        return (torch.full((P,), x, dtype=t.torch_dtype, device=dev),
+                torch.ones(P, dtype=torch.bool, device=dev))
+
+    lv, lm = vals_mask(left)
+    rv, rm = vals_mask(right)
+    chosen = torch.where(c.values, lm, rm)
+    if c.validity is not None:
+        chosen = chosen & bitmap.expand_words(c.validity, P)
+    return DeviceColumn(torch.where(c.values, lv, rv), bitmap.pack_mask(
+        chosen), c.length, t)

@@ -1,24 +1,68 @@
-"""Hash join over DeviceBatches (single device, inner).
+"""Hash join over DeviceBatches and HostBatches (single device).
 
-Port of the DeviceBatch path of arrow_go_tpu/compute/join.py: both
-sides' keys are encoded into ONE shared code space (a sort-based encode
-over the concatenated key column), then the sort-merge core
-(parallel/join.py) counts the pairs; the host reads that count once to
-size the output bucket (count-then-materialize), the pair expansion
-runs at that capacity, and only the projected output columns are
-gathered. Null keys never match (SQL semantics).
+Port of arrow_go_tpu/compute/join.py: both sides' keys are encoded into
+ONE shared code space (a sort-based encode over the concatenated key
+column; string keys first map their two dictionaries into one), then
+the sort-merge core (parallel/join.py) counts the pairs; the host reads
+that count once to size the output bucket (count-then-materialize), the
+pair expansion runs at that capacity, and only the projected output
+columns are gathered. Null keys never match (SQL semantics); an outer
+join keeps its outer side's null-key rows, with a null opposite side.
+
+DeviceBatch inputs return a DeviceBatch (inner and the outer types).
+HostBatch inputs (the port's stand-in for the JAX package's RecordBatch
+path) return a HostBatch for all eight types; a long probe side streams
+through the join in chunks of `probe_chunk` rows where the join type
+decomposes over probe rows.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..device.block import DeviceBatch, DeviceColumn, pad_length, row_mask
+from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
+                            concat_host_arrays, device_batch_to_host,
+                            factorize, host_batch_to_device, pad_length,
+                            row_mask)
 from ..ops import bitmap, hashing, selection
-from ..parallel.join import join_expand, join_sorted_state
+from ..ops.compaction import compact_flagged
+from ..parallel.join import join_expand, join_sorted_state, local_join_semi
 from .errors import ArrowInvalid, ArrowNotImplemented
+from .functions import _take_host
+
+_HOWS = ("inner", "left outer", "right outer", "full outer",
+         "left semi", "left anti", "right semi", "right anti")
+_DEVICE_HOWS = ("inner", "left outer", "right outer", "full outer")
+
+#: probe rows per chunk when the probe side streams through the join
+#: core: expansion buffers scale with the chunk, not the table
+PROBE_CHUNK_DEFAULT = 1 << 23
+
+#: join types where probe-side chunking is an exact decomposition (each
+#: left row's output depends only on itself and the build side)
+_CHUNKABLE = ("inner", "left outer", "left semi", "left anti")
+
+
+def _shared_dict_codes(lc: DeviceColumn, rc: DeviceColumn):
+    """Both dictionary columns' codes mapped into one shared code space,
+    numbered by first occurrence over [left dictionary; right
+    dictionary] (the JAX package's numbering): a host factorize of the
+    two dictionaries, then one gather per side on the device. int32."""
+    if lc.dictionary is None or rc.dictionary is None:
+        raise ArrowInvalid("join keys must both be strings/dictionary")
+    ld, rd = lc.dictionary, rc.dictionary
+    codes, _ = factorize(np.concatenate([ld, rd]))
+
+    def remap(col, table):
+        t = torch.from_numpy(table if len(table) else np.zeros(1, np.int32))
+        t = t.to(col.device)
+        return t.index_select(0, col.values.to(torch.int64).clamp(
+            0, t.shape[0] - 1))
+
+    return remap(lc, codes[:len(ld)]), remap(rc, codes[len(ld):])
 
 
 def _key_codes(left: DeviceBatch, right: DeviceBatch,
@@ -28,13 +72,19 @@ def _key_codes(left: DeviceBatch, right: DeviceBatch,
     combined = None
     for lname, rname in zip(left_keys, right_keys):
         lc, rc = left.column(lname), right.column(rname)
-        if lc.values.dtype != rc.values.dtype:
-            raise ArrowInvalid(
-                f"join key dtype mismatch: {lc.type} vs {rc.type}")
-        both = torch.cat([lc.values, rc.values])
+        if lc.type.id == dt.TypeId.DICTIONARY or \
+                rc.type.id == dt.TypeId.DICTIONARY:
+            lv, rv = _shared_dict_codes(lc, rc)
+            t = dt.int32
+        else:
+            if lc.values.dtype != rc.values.dtype:
+                raise ArrowInvalid(
+                    f"join key dtype mismatch: {lc.type} vs {rc.type}")
+            lv, rv, t = lc.values, rc.values, lc.type
+        both = torch.cat([lv, rv])
         words = bitmap.pack_mask(torch.cat([lc.validity_mask(),
                                             rc.validity_mask()]))
-        res = hashing.encode_codes(both, lc.type, words, both.shape[0],
+        res = hashing.encode_codes(both, t, words, both.shape[0],
                                    order="key")
         part = torch.where(res.codes >= 0, res.codes, -1)
         if combined is None:
@@ -46,18 +96,7 @@ def _key_codes(left: DeviceBatch, right: DeviceBatch,
     return combined[:PL], combined[PL:]
 
 
-def hash_join(left: DeviceBatch, right: DeviceBatch, keys=None, *,
-              left_keys=None, right_keys=None, join_type: str = "inner",
-              left_suffix: str = "", right_suffix: str = "_right",
-              output_columns: Optional[Sequence[str]] = None) -> DeviceBatch:
-    """Join two DeviceBatches; the joined columns stay on the device.
-
-    `output_columns` projects the output: only the named columns
-    (post-suffix names) are gathered."""
-    if join_type != "inner":
-        raise ArrowNotImplemented(f"join type {join_type!r} is not ported")
-    if not (isinstance(left, DeviceBatch) and isinstance(right, DeviceBatch)):
-        raise ArrowNotImplemented("the port joins DeviceBatches")
+def _key_lists(keys, left_keys, right_keys):
     if keys is not None:
         left_keys = right_keys = [keys] if isinstance(keys, str) else list(
             keys)
@@ -65,25 +104,151 @@ def hash_join(left: DeviceBatch, right: DeviceBatch, keys=None, *,
         left_keys = [left_keys]
     if isinstance(right_keys, str):
         right_keys = [right_keys]
-    return _join_device(left, right, list(left_keys), list(right_keys),
-                        left_suffix, right_suffix, output_columns)
+    return list(left_keys), list(right_keys)
 
 
-def _join_device(ldb, rdb, left_keys, right_keys, left_suffix,
+def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
+              join_type: str = "inner", left_suffix: str = "",
+              right_suffix: str = "_right",
+              probe_chunk: Optional[int] = None,
+              output_columns: Optional[Sequence[str]] = None, device=None):
+    """Join two DeviceBatches or two HostBatches.
+
+    DeviceBatch in (either side; a HostBatch beside it moves to its
+    device): the joined columns stay on the device and a DeviceBatch
+    returns; inner and outer types only. HostBatch in: a HostBatch
+    returns, for all eight types; the join runs on `device` (the card
+    unless named). `output_columns` projects the output: only the named
+    columns (post-suffix names) are gathered."""
+    if join_type not in _HOWS:
+        raise ArrowNotImplemented(f"join type {join_type!r}")
+    left_keys, right_keys = _key_lists(keys, left_keys, right_keys)
+    if isinstance(left, DeviceBatch) or isinstance(right, DeviceBatch):
+        if join_type not in _DEVICE_HOWS:
+            raise ArrowNotImplemented(
+                "device-batch join supports inner/outer types")
+        dev = (left if isinstance(left, DeviceBatch) else right).columns[
+            0].device
+        ldb = left if isinstance(left, DeviceBatch) else \
+            host_batch_to_device(left, dev)
+        rdb = right if isinstance(right, DeviceBatch) else \
+            host_batch_to_device(right, dev)
+        return _join_device(ldb, rdb, left_keys, right_keys, join_type,
+                            left_suffix, right_suffix, output_columns)
+    if not (isinstance(left, HostBatch) and isinstance(right, HostBatch)):
+        raise ArrowNotImplemented(
+            "the port joins DeviceBatches or HostBatches")
+    chunk = probe_chunk or PROBE_CHUNK_DEFAULT
+    if left.num_rows > chunk and join_type in _CHUNKABLE:
+        parts = [hash_join(left.slice(lo, chunk), right,
+                           left_keys=left_keys, right_keys=right_keys,
+                           join_type=join_type, left_suffix=left_suffix,
+                           right_suffix=right_suffix, probe_chunk=chunk,
+                           output_columns=output_columns, device=device)
+                 for lo in range(0, left.num_rows, chunk)]
+        return HostBatch(parts[0].schema, [
+            concat_host_arrays([p.columns[i] for p in parts])
+            for i in range(len(parts[0].columns))],
+            sum(p.num_rows for p in parts))
+    ldb = host_batch_to_device(_renumber_keys(left, left_keys), device)
+    rdb = host_batch_to_device(_renumber_keys(right, right_keys), device)
+    if join_type in _DEVICE_HOWS:
+        return device_batch_to_host(_join_device(
+            ldb, rdb, left_keys, right_keys, join_type, left_suffix,
+            right_suffix, output_columns))
+    # semi / anti: the verdict per probe row selects rows of that side;
+    # the right forms are the left forms with the sides swapped
+    lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
+    if join_type.startswith("right"):
+        ldb, rdb, lcodes, rcodes = rdb, ldb, rcodes, lcodes
+        left = right
+    how = "left semi" if join_type.endswith("semi") else "left anti"
+    PL, PR = ldb.padded, rdb.padded
+    in_l = row_mask(PL, ldb.length, lcodes.device)
+    verdict = local_join_semi(lcodes, in_l & (lcodes >= 0), rcodes,
+                              row_mask(PR, rdb.length, rcodes.device)
+                              & (rcodes >= 0), how)
+    if how == "left anti":            # a null key matches nothing
+        verdict = verdict | ~(lcodes >= 0)
+    return _project(_select_left(left, verdict & in_l), output_columns)
+
+
+def _renumber_keys(batch: HostBatch, keys) -> HostBatch:
+    """The batch with each dictionary key column's dictionary renumbered
+    by first occurrence among its valid rows (unused values dropped), as
+    the JAX package encodes a RecordBatch's strings: the shared key codes,
+    and so the output's row order, then match it, chunk by chunk too."""
+    cols = list(batch.columns)
+    for name in keys:
+        i = batch.schema.field_index(name)
+        arr = cols[i]
+        if arr.dictionary is None:
+            continue
+        valid = arr.validity_bools()
+        uniq, first = np.unique(arr.values[valid], return_index=True)
+        order = uniq[np.argsort(first, kind="stable")]
+        remap = np.zeros(max(len(arr.dictionary), 1), np.int32)
+        remap[order] = np.arange(len(order), dtype=np.int32)
+        codes = np.where(valid, remap[np.clip(arr.values, 0,
+                                              len(remap) - 1)], 0)
+        cols[i] = HostArray(codes.astype(np.int32), arr.mask, arr.type,
+                            arr.dictionary[order])
+    return HostBatch(batch.schema, cols, batch.num_rows)
+
+
+def _project(batch: HostBatch, cols) -> HostBatch:
+    if cols is None:
+        return batch
+    want = set(cols)
+    keep = [i for i, f in enumerate(batch.schema.fields) if f.name in want]
+    return HostBatch(dt.Schema([batch.schema.fields[i] for i in keep]),
+                     [batch.columns[i] for i in keep], batch.num_rows)
+
+
+def _select_left(batch: HostBatch, mask: torch.Tensor) -> HostBatch:
+    """The rows of `batch` where `mask` (over its padded rows) is set."""
+    idx = np.flatnonzero(mask[:batch.num_rows].cpu().numpy())
+    return HostBatch(batch.schema, [_take_host(c, idx)
+                                    for c in batch.columns], len(idx))
+
+
+def _join_device(ldb, rdb, left_keys, right_keys, join_type, left_suffix,
                  right_suffix, output_columns):
     """Two phases sharing the sorted state: phase 1 sorts and counts, the
-    host reads `total` to size the output bucket, phase 2 expands at
-    that capacity."""
+    host reads `total` (and an outer join's null-key counts, in the same
+    copy) to size the output bucket, phase 2 expands at that capacity."""
     lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
     PL, PR = ldb.padded, rdb.padded
-    lvalid = row_mask(PL, ldb.length, lcodes.device) & (lcodes >= 0)
-    rvalid = row_mask(PR, rdb.length, rcodes.device) & (rcodes >= 0)
-    st = join_sorted_state(lcodes, lvalid, rcodes, rvalid, how="inner")
-    out_n = int(st.total)                       # the single host read
-    cap = pad_length(max(out_n, 1))
-    li, ri_rank, _ = join_expand(st, cap)
-    return _emit_join_output(ldb, rdb, li, ri_rank, st.rperm, out_n,
-                             left_keys, right_keys, left_suffix,
+    dev = lcodes.device
+    in_l = row_mask(PL, ldb.length, dev)
+    in_r = row_mask(PR, rdb.length, dev)
+    st = join_sorted_state(lcodes, in_l & (lcodes >= 0), rcodes,
+                           in_r & (rcodes >= 0), how=join_type)
+    # outer joins also emit the NULL-KEY rows of their outer side: they
+    # match nothing but stay in the output with a null opposite side
+    null_left = in_l & (lcodes < 0) if join_type in (
+        "left outer", "full outer") else None
+    null_right = in_r & (rcodes < 0) if join_type in (
+        "right outer", "full outer") else None
+    reads = [st.total] + [m.sum() for m in (null_left, null_right)
+                          if m is not None]
+    counts = torch.stack(reads).tolist()     # the single host read
+    total = counts[0]
+    n_null_l = counts[1] if null_left is not None else 0
+    n_null_r = counts[-1] if null_right is not None else 0
+    out_n = total + n_null_l + n_null_r
+    li, ri, _ = join_expand(st, pad_length(max(out_n, 1)))
+    # ri arrives as key-sorted right RANKS: resolve them to right rows
+    ri = torch.where(ri >= 0, selection.gather(st.rperm, ri), -1)
+    for mask, n, idx, at in ((null_left, n_null_l, li, total),
+                             (null_right, n_null_r, ri, total + n_null_l)):
+        if n:
+            iota = torch.arange(mask.shape[0], dtype=torch.int64,
+                                device=dev)
+            (rows,) = compact_flagged(mask, (iota,))
+            idx[at:at + n] = rows[:n]
+    return _emit_join_output(ldb, rdb, li, ri, out_n, left_keys,
+                             right_keys, join_type, left_suffix,
                              right_suffix, output_columns)
 
 
@@ -91,13 +256,16 @@ def _gather_column(col: DeviceColumn, idx: torch.Tensor, out_n: int,
                    trim_to: int) -> DeviceColumn:
     vals = selection.gather(col.values, idx)[:trim_to]
     words = selection.take_validity(col.validity, idx, out_n, idx.shape[0])
-    return DeviceColumn(vals, words[:(trim_to + 31) // 32], out_n, col.type)
+    return DeviceColumn(vals, words[:(trim_to + 31) // 32], out_n, col.type,
+                        col.dictionary)
 
 
-def _emit_join_output(ldb, rdb, li, ri_rank, rperm, out_n, left_keys,
-                      right_keys, left_suffix, right_suffix,
+def _emit_join_output(ldb, rdb, li, ri, out_n, left_keys, right_keys,
+                      join_type, left_suffix, right_suffix,
                       output_columns) -> DeviceBatch:
-    """Gather the projected output columns through the pair indices."""
+    """Gather the projected output columns through the pair indices (-1
+    = a null row of that side). The right key columns are left out of
+    an inner join only."""
     trim_to = min(pad_length(max(out_n, 1)), li.shape[0])
     want = None if output_columns is None else set(output_columns)
     # suffix decisions use the FULL (unprojected) left name set so a
@@ -108,8 +276,6 @@ def _emit_join_output(ldb, rdb, li, ri_rank, rperm, out_n, left_keys,
         return f.name + (right_suffix
                          if (f.name + left_suffix) in full_left else "")
 
-    # ri arrives as key-sorted right RANKS: resolve them to right rows
-    ri = torch.where(ri_rank >= 0, selection.gather(rperm, ri_rank), -1)
     fields: List[dt.Field] = []
     cols: List[DeviceColumn] = []
     for f, c in zip(ldb.schema.fields, ldb.columns):
@@ -119,7 +285,8 @@ def _emit_join_output(ldb, rdb, li, ri_rank, rperm, out_n, left_keys,
             cols.append(_gather_column(c, li, out_n, trim_to))
     rkey_set, lkey_set = set(right_keys), set(left_keys)
     for f, c in zip(rdb.schema.fields, rdb.columns):
-        if f.name in rkey_set and f.name in lkey_set:
+        if join_type == "inner" and f.name in rkey_set and \
+                f.name in lkey_set:
             continue
         name = right_name(f)
         if want is None or name in want:

@@ -1,6 +1,6 @@
 """Scalar (elementwise) kernels over device columns.
 
-Port of the arithmetic, comparison and boolean part of
+Port of the arithmetic, comparison, boolean and validity part of
 arrow_go_tpu/compute/kernels.py (reference arrow/compute/arithmetic.go,
 internal/kernels/scalar_comparisons.go, scalar_bool.go). Null semantics
 of the plain kernels follow the
@@ -8,23 +8,89 @@ executor-kernel contract NullHandling=Intersection (exec/kernel.go:457):
 output validity = AND of the input validity words.
 
 Checked arithmetic ('add' etc. called directly) detects integer overflow
-like the reference's non-_unchecked functions and raises ArrowInvalid;
-expressions run unchecked, as in the JAX package.
+and division by zero like the reference's non-_unchecked functions and
+raises ArrowInvalid; expressions run unchecked, as in the JAX package.
+Integer division truncates toward zero (Go semantics); `mod` is floored
+(the sign of the divisor), as `jnp.mod`. Decimals and rounding are not
+ported yet.
 """
 from __future__ import annotations
 
+import operator
 from typing import Optional, Tuple
 
 import torch
 
 from .. import dtypes as dt
-from ..device.block import DeviceColumn, valid_rows
+from ..device.block import DeviceColumn, row_mask, valid_rows
 from ..ops import bitmap
 from .errors import ArrowInvalid, ArrowNotImplemented
 
+
+def _divide(a, b):
+    if a.dtype.is_floating_point:
+        return a / b
+    # truncation toward zero; x / 0 is x, as in the JAX package, and
+    # x / -1 is -x (INT_MIN / -1 traps on x86, and wraps to INT_MIN here)
+    minus_one = b == -1
+    q = torch.div(a, torch.where((b == 0) | minus_one, 1, b),
+                  rounding_mode="trunc")
+    return torch.where(minus_one, -a, q)
+
+
+def _shift_left(a, b):
+    return a << (b & (a.element_size() * 8 - 1))
+
+
+def _shift_right(a, b):
+    return a >> (b & (a.element_size() * 8 - 1))
+
+
+def _logb(a, b):
+    return torch.log(a) / torch.log(b)
+
+
+def _mod(a, b):
+    if a.dtype.is_floating_point:
+        return torch.remainder(a, b)
+    # x mod 0 is 0 as in jnp.mod, and x mod -1 is 0 (INT_MIN % -1 traps
+    # on x86): both take the divisor 1
+    return torch.remainder(a, torch.where((b == 0) | (b == -1), 1, b))
+
+
 _ARITH_BINARY = {
     "add": torch.add, "subtract": torch.subtract, "multiply": torch.multiply,
+    "divide": _divide,
+    "power": torch.pow, "atan2": torch.atan2, "logb": _logb,
+    "bit_wise_and": torch.bitwise_and, "bit_wise_or": torch.bitwise_or,
+    "bit_wise_xor": torch.bitwise_xor,
+    "shift_left": _shift_left, "shift_right": _shift_right,
+    "max_element_wise": torch.maximum, "min_element_wise": torch.minimum,
+    "mod": _mod,
 }
+
+
+def _sign(a):
+    # torch.sign(NaN) is 0; the sign of NaN is NaN, as in jnp.sign
+    out = torch.sign(a)
+    return torch.where(torch.isnan(a), a, out) if a.is_floating_point() \
+        else out
+
+
+_ARITH_UNARY = {
+    "negate": torch.neg, "abs": torch.abs, "sign": _sign,
+    "sqrt": torch.sqrt, "exp": torch.exp, "expm1": torch.expm1,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "ln": torch.log, "log10": torch.log10, "log2": torch.log2,
+    "log1p": torch.log1p, "floor": torch.floor, "ceil": torch.ceil,
+    "trunc": torch.trunc, "bit_wise_not": torch.bitwise_not,
+}
+
+_FLOAT_ONLY = {"sqrt", "exp", "expm1", "sin", "cos", "tan", "asin", "acos",
+               "atan", "sinh", "cosh", "tanh", "ln", "log10", "log2",
+               "log1p", "power", "atan2", "logb"}
 
 _COMPARE = {
     "equal": torch.eq, "not_equal": torch.ne,
@@ -77,13 +143,40 @@ def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
         raise ArrowNotImplemented(f"arithmetic {op!r} is not ported")
     a, b = _align(a, b)
     to = dt.common_numeric_type(a.type, b.type)
+    if op in _FLOAT_ONLY and not to.is_floating:
+        to = dt.float64
+    if op.startswith(("bit_wise", "shift")) and not to.is_integer:
+        raise ArrowNotImplemented(f"{op} requires integers, got {to}")
     av, bv = _cast_operands(a, b, to)
     validity = _out_validity(a, b)
     n = max(a.length, b.length)
+    if checked and op == "divide" and to.is_integer and bool(
+            ((bv == 0) & valid_rows(validity, av.shape[0], n,
+                                    av.device)).any()):
+        raise ArrowInvalid("divide by zero")
     out = _ARITH_BINARY[op](av, bv).to(to.torch_dtype)
-    if checked and to.is_integer:
+    if checked and to.is_integer and op in ("add", "subtract", "multiply"):
         _check_overflow(op, av, bv, out, validity, n, to)
     return DeviceColumn(out, validity, n, to)
+
+
+def arithmetic_unary(op: str, a: DeviceColumn,
+                     checked: bool = True) -> DeviceColumn:
+    if op not in _ARITH_UNARY:
+        raise ArrowNotImplemented(f"arithmetic {op!r} is not ported")
+    to = a.type
+    if op in _FLOAT_ONLY and not to.is_floating:
+        to = dt.float64
+    if op == "bit_wise_not" and not to.is_integer:
+        raise ArrowNotImplemented("bit_wise_not requires integers")
+    av = a.values.to(to.torch_dtype) if to != a.type else a.values
+    if op == "negate" and checked and not av.dtype.is_signed and \
+            av.dtype != torch.bool and bool(
+                ((av != 0) & valid_rows(a.validity, a.padded, a.length,
+                                        a.device)).any()):
+        raise ArrowInvalid("negate overflow on unsigned")
+    out = _ARITH_UNARY[op](av).to(to.torch_dtype)
+    return DeviceColumn(out, a.validity, a.length, to)
 
 
 def _overflow_flag(op, av, bv, out, mask) -> torch.Tensor:
@@ -105,8 +198,26 @@ def _check_overflow(op, av, bv, out, validity, n, to):
         raise ArrowInvalid(f"integer overflow in {op} ({to})")
 
 
+_FLIP = {"equal": "equal", "not_equal": "not_equal", "less": "greater",
+         "less_equal": "greater_equal", "greater": "less",
+         "greater_equal": "less_equal"}
+
+
+def _is_dict(x) -> bool:
+    return isinstance(x, DeviceColumn) and x.type.id == dt.TypeId.DICTIONARY
+
+
 def compare(op: str, a, b) -> DeviceColumn:
+    # string comparisons: dictionary codes vs a host literal resolve to a
+    # per-code truth table gathered on the device
+    if _is_dict(a) and isinstance(b, (str, bytes)):
+        return _compare_dict_scalar(op, a, b)
+    if _is_dict(b) and isinstance(a, (str, bytes)):
+        return _compare_dict_scalar(_FLIP[op], b, a)
     a, b = _align(a, b)
+    if _is_dict(a) or _is_dict(b):
+        raise ArrowNotImplemented(
+            "compare dictionary vs dictionary: decode first")
     to = dt.common_numeric_type(a.type, b.type) if a.type != b.type \
         else a.type
     av, bv = _cast_operands(a, b, to)
@@ -115,12 +226,29 @@ def compare(op: str, a, b) -> DeviceColumn:
                         dt.bool_)
 
 
+def _compare_dict_scalar(op: str, a: DeviceColumn, lit) -> DeviceColumn:
+    """Each dictionary value compared with the literal on the host, then
+    one gather of that table by the codes."""
+    fn = {"equal": operator.eq, "not_equal": operator.ne,
+          "less": operator.lt, "less_equal": operator.le,
+          "greater": operator.gt, "greater_equal": operator.ge}[op]
+    dvals = list(a.dictionary)
+    if isinstance(lit, bytes) and dvals and isinstance(dvals[0], str):
+        lit = lit.decode("utf-8")
+    table = torch.tensor([bool(fn(v, lit)) for v in dvals] or [False],
+                         device=a.device)
+    out = table.index_select(0, a.values.to(torch.int64).clamp(
+        0, table.shape[0] - 1))
+    return DeviceColumn(out, a.validity, a.length, dt.bool_)
+
+
 # ---------------------------------------------------------------------------
 # boolean kernels incl. Kleene (reference scalar_bool.go:123-140)
 # ---------------------------------------------------------------------------
 
-_BOOLEAN = {"and": torch.logical_and, "or": torch.logical_or}
-_KLEENE = ("and_kleene", "or_kleene")
+_BOOLEAN = {"and": torch.logical_and, "or": torch.logical_or,
+            "xor": torch.logical_xor, "and_not": lambda x, y: x & ~y}
+_KLEENE = ("and_kleene", "or_kleene", "and_not_kleene")
 
 
 def _known(c: DeviceColumn) -> torch.Tensor:
@@ -130,10 +258,11 @@ def _known(c: DeviceColumn) -> torch.Tensor:
 
 
 def boolean_binary(op: str, a, b) -> DeviceColumn:
-    """and / or (nulls intersect) and and_kleene / or_kleene (null =
-    unknown). A Kleene result always carries its validity words, so no
-    host sync decides their presence: where the JAX package drops the
-    words of an all-known result, these words are all set."""
+    """and / or / xor / and_not (nulls intersect) and and_kleene /
+    or_kleene / and_not_kleene (null = unknown). A Kleene result always
+    carries its validity words, so no host sync decides their presence:
+    where the JAX package drops the words of an all-known result, these
+    words are all set."""
     a, b = _align(a, b)
     if a.type != dt.bool_ or b.type != dt.bool_:
         raise ArrowNotImplemented(f"{op} requires booleans")
@@ -149,6 +278,9 @@ def boolean_binary(op: str, a, b) -> DeviceColumn:
     elif op == "or_kleene":
         out = av | bv
         known = (a_known & b_known) | (a_known & av) | (b_known & bv)
+    elif op == "and_not_kleene":
+        out = av & ~bv
+        known = (a_known & b_known) | (a_known & ~av) | (b_known & bv)
     else:
         raise ArrowNotImplemented(f"boolean {op!r} is not ported")
     return DeviceColumn(out, bitmap.pack_mask(known), n, dt.bool_)
@@ -158,3 +290,34 @@ def invert(a: DeviceColumn) -> DeviceColumn:
     if a.type != dt.bool_:
         raise ArrowNotImplemented("invert requires boolean")
     return DeviceColumn(~a.values, a.validity, a.length, dt.bool_)
+
+
+# ---------------------------------------------------------------------------
+# validity predicates
+# ---------------------------------------------------------------------------
+
+def is_null(a: DeviceColumn) -> DeviceColumn:
+    """True where the validity bit is clear (padding rows included)."""
+    if a.validity is None:
+        out = torch.zeros(a.padded, dtype=torch.bool, device=a.device)
+    else:
+        out = ~bitmap.expand_words(a.validity, a.padded)
+    return DeviceColumn(out, None, a.length, dt.bool_)
+
+
+def is_valid(a: DeviceColumn) -> DeviceColumn:
+    return DeviceColumn(~is_null(a).values & row_mask(a.padded, a.length,
+                                                      a.device),
+                        None, a.length, dt.bool_)
+
+
+def is_nan(a: DeviceColumn) -> DeviceColumn:
+    out = torch.isnan(a.values) if a.type.is_floating else torch.zeros(
+        a.padded, dtype=torch.bool, device=a.device)
+    return DeviceColumn(out, a.validity, a.length, dt.bool_)
+
+
+def is_finite(a: DeviceColumn) -> DeviceColumn:
+    out = torch.isfinite(a.values) if a.type.is_floating else torch.ones(
+        a.padded, dtype=torch.bool, device=a.device)
+    return DeviceColumn(out, a.validity, a.length, dt.bool_)

@@ -334,3 +334,73 @@ class HostBatch:
     def to_pydict(self) -> Dict[str, list]:
         return {f.name: c.to_pylist()
                 for f, c in zip(self.schema.fields, self.columns)}
+
+    def slice(self, offset: int, length: int) -> "HostBatch":
+        """Rows [offset, offset + length) (views of the same buffers)."""
+        end = min(offset + length, self.num_rows)
+        return HostBatch(self.schema, [
+            HostArray(c.values[offset:end],
+                      None if c.mask is None else c.mask[offset:end],
+                      c.type, c.dictionary) for c in self.columns],
+            max(end - offset, 0))
+
+
+def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
+    """One HostArray of the arrays' rows in order. Dictionary arrays that
+    share one dictionary keep it; otherwise their dictionaries merge in
+    first-occurrence order and the codes are mapped into the merged one."""
+    first = arrays[0]
+    mask = None
+    if any(a.mask is not None for a in arrays):
+        mask = np.concatenate([a.validity_bools() for a in arrays])
+    if first.dictionary is None or all(
+            a.dictionary is first.dictionary or np.array_equal(
+                a.dictionary, first.dictionary) for a in arrays[1:]):
+        values = np.concatenate([a.values for a in arrays])
+        return HostArray(values, mask, first.type, first.dictionary)
+    codes, merged = factorize(np.concatenate([a.dictionary
+                                              for a in arrays]))
+    parts, base = [], 0
+    for a in arrays:
+        remap = codes[base:base + len(a.dictionary)]
+        base += len(a.dictionary)
+        parts.append(remap[np.clip(a.values, 0, max(len(remap) - 1, 0))]
+                     if len(remap) else np.zeros(len(a), np.int32))
+    return HostArray(np.concatenate(parts).astype(np.int32), mask,
+                     first.type, merged)
+
+
+def host_array_to_device(arr: HostArray, dev) -> DeviceColumn:
+    """A HostArray as a DeviceColumn on `dev`: values padded to
+    pad_length(n), validity words when it has a mask; a dictionary
+    array keeps its codes and dictionary."""
+    n = len(arr)
+    P = pad_length(n)
+    host = np.zeros(P, dtype=arr.type.np_dtype)
+    host[:n] = arr.values
+    words = None if arr.mask is None else _words_to_tensor(
+        _pack_words(arr.mask, P), dev)
+    return DeviceColumn(torch.from_numpy(host).to(dev), words, n, arr.type,
+                        arr.dictionary)
+
+
+def column_to_host(col: DeviceColumn) -> HostArray:
+    """The [0, length) rows of a DeviceColumn as a HostArray."""
+    n = col.length
+    mask = None
+    if col.validity is not None:
+        mask = _unpack_words(col.validity.cpu().numpy().view(np.uint32), n)
+    return HostArray(col.values[:n].cpu().numpy(), mask, col.type,
+                     col.dictionary)
+
+
+def host_batch_to_device(hb: HostBatch, device=None) -> DeviceBatch:
+    """A HostBatch as a DeviceBatch on `device` (the card unless named)."""
+    dev = torchenv.device(device)
+    return DeviceBatch(hb.schema, [host_array_to_device(c, dev)
+                                   for c in hb.columns], hb.num_rows)
+
+
+def device_batch_to_host(db: DeviceBatch) -> HostBatch:
+    return HostBatch(db.schema, [column_to_host(c) for c in db.columns],
+                     db.length)

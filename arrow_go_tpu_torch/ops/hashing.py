@@ -1,12 +1,17 @@
-"""Sort-based key encoding: dense codes and sorted-domain run structure.
+"""Sort-based key encoding, and the vector hash of fixed-width columns.
 
 Port of arrow_go_tpu/ops/hashing.py (the memo-table analog of the
 reference's internal/hashing/xxh3_memo_table.go): one stable radix-key
 sort of the rows, run starts where the key changes, run id = prefix
-count of run starts. Codes here are numbered in key order
-(`order="key"`), the order every consumer on the device pipeline needs
-(join code spaces, group-by internals); first-occurrence numbering is
-not ported yet.
+count of run starts. `encode_codes` numbers the codes in key order
+(`order="key"`: join code spaces, group-by internals, distinct counts)
+or by first occurrence (`order="first_occurrence"`: unique,
+dictionary_encode). The first-occurrence numbering fills each run's
+first row forward with a running max of (position, row) packs, K2 on
+the card (ops/scan.py), then sorts the runs by that row.
+
+`hash32` is the murmur3-finalizer hash of any fixed-width column, and
+`hash_combine` folds a second column's hash into a first.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import row_mask, valid_rows
+from .scan import cummax_u64_lanes
 from .sort import _orderable_bits, lexsort_stable, sortable
 
 
@@ -68,26 +74,122 @@ def encode_sorted_with(values: torch.Tensor, t: dt.DataType,
 
 def encode_codes(values: torch.Tensor, t: dt.DataType,
                  validity: Optional[torch.Tensor], n,
-                 order: str = "key") -> EncodeResult:
-    """Dense codes for each row, numbered in key-sorted order."""
-    if order != "key":
-        raise NotImplementedError(
-            "encode_codes: only order='key' is ported")
+                 order: str = "first_occurrence") -> EncodeResult:
+    """Dense codes for each row (the MemoTable analog).
+
+    order='first_occurrence': codes numbered by first appearance, the
+    reference memo table's numbering (unique / dictionary_encode).
+    order='key': codes numbered in key-sorted order, for consumers that
+    only test equality (join code spaces, group-by internals); it skips
+    the forward fill and the second sort."""
+    if order not in ("key", "first_occurrence"):
+        raise ValueError(f"encode_codes: unknown order {order!r}")
+    from .groupagg import compact_runs
     P = values.shape[0]
+    dev = values.device
     valid, sidx, svalid, start, n_unique = _sorted_runs(
         values, t, validity, n)
-    iota = torch.arange(P, device=values.device)
-    isnull = ~valid & row_mask(P, n, values.device)
+    iota = torch.arange(P, device=dev)
+    isnull = ~valid & row_mask(P, n, dev)
     has_null = isnull.any()
     null_first_row = torch.where(isnull, iota, P).min()
-    # run id in key order IS the code; sidx is a permutation, so the
-    # scatter through it is the inverse permutation
-    run_id = torch.cumsum(start.to(torch.int64), 0) - 1
-    codes = torch.empty(P, dtype=torch.int64, device=values.device)
-    codes[sidx] = torch.where(svalid, run_id, -1)
-    # run-start rows compacted to the front are already in run order
-    from .groupagg import compact_runs
-    (first_index,) = compact_runs(start, (sidx,))
+    codes = torch.empty(P, dtype=torch.int64, device=dev)
+    if order == "key":
+        # run id in key order IS the code; sidx is a permutation, so the
+        # scatter through it is the inverse permutation
+        run_id = torch.cumsum(start.to(torch.int64), 0) - 1
+        codes[sidx] = torch.where(svalid, run_id, -1)
+        # run-start rows compacted to the front are already in run order
+        (first_index,) = compact_runs(start, (sidx,))
+        first_index = torch.where(iota < n_unique, first_index, P)
+        return EncodeResult(codes, n_unique, has_null, first_index,
+                            null_first_row)
+    # each run's first row (the stable sort puts its smallest row at the
+    # run start) filled forward through the run: the (position, row)
+    # pack's position lane is monotone, so a running max fills it
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    first = cummax_u64_lanes(torch.where(start, iota, zero),
+                             [torch.where(start, sidx, zero)])[1]
+    # runs sorted by their first row are in first-occurrence order; the
+    # invalid rows stay at the tail behind their flag
+    perm = lexsort_stable([(~svalid).to(torch.int8), first])
+    f2 = first.index_select(0, perm)
+    valid2 = svalid.index_select(0, perm)
+    start2 = torch.ones_like(valid2)
+    start2[1:] = f2[1:] != f2[:-1]
+    start2 = start2 & valid2
+    code2 = torch.cumsum(start2.to(torch.int64), 0) - 1
+    codes[sidx.index_select(0, perm)] = torch.where(valid2, code2, -1)
+    # run starts compacted to the front are in code order
+    (first_index,) = compact_runs(start2, (f2,))
     first_index = torch.where(iota < n_unique, first_index, P)
     return EncodeResult(codes, n_unique, has_null, first_index,
                         null_first_row)
+
+
+def value_counts_from_codes(res: EncodeResult, P: int, n) -> torch.Tensor:
+    """counts[code] for code in [0, n_unique); slot P holds the null
+    count. Rows beyond n are not counted."""
+    dev = res.codes.device
+    slot = torch.where(res.codes >= 0, res.codes, P)
+    slot = torch.where(row_mask(P, n, dev), slot, P + 1)
+    counts = torch.zeros(P + 2, dtype=torch.int64, device=dev)
+    counts.index_add_(0, slot, torch.ones_like(slot))
+    return counts[:P + 1]
+
+
+# ---------------------------------------------------------------------------
+# scalar hashing for partitioning (reference hash_funcs.go prime-multiply)
+# ---------------------------------------------------------------------------
+
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for x in [0, 2**32), in int64 with no overflow:
+    the high and low 16 bits of x multiply separately."""
+    hi = (((x >> 16) * m) & 0xFFFF) << 16
+    return (hi + (x & 0xFFFF) * m) & _U32
+
+
+def hash32(values: torch.Tensor) -> torch.Tensor:
+    """Avalanching 32-bit hash of a fixed-width column (murmur3
+    finalizer; the role of the reference's prime-multiply hash,
+    hash_funcs.go:27): bool, signed and unsigned ints of 1 to 8 bytes,
+    float16, float32 and float64. Every NaN hashes as one NaN, and -0.0
+    (and a float32 or float64 denormal) as 0.0. Returns int64 carrying
+    the u32 hash."""
+    d = values.dtype
+    if d == torch.bool:
+        x = values.to(torch.int64)
+    elif d.is_floating_point:
+        canon = torch.where(torch.isnan(values),
+                            torch.full_like(values, float("nan")), values)
+        # zero is canonical; float32 and float64 denormals hash as zero
+        # too, as in the JAX package (XLA flushes them to zero there)
+        zero = canon == 0 if d.itemsize < 4 else \
+            canon.abs() < torch.finfo(d).tiny
+        canon = torch.where(zero, torch.zeros_like(canon), canon)
+        if d.itemsize <= 4:
+            x = canon.to(torch.float32).view(torch.int32).to(
+                torch.int64) & _U32
+        else:
+            b = canon.view(torch.int64)
+            x = (b ^ (b >> 32)) & _U32
+    elif d.itemsize <= 4:
+        x = values.to(torch.int64) & _U32
+    else:
+        b = values if d == torch.int64 else values.view(torch.int64)
+        x = (b ^ (b >> 32)) & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, _M1)
+    x = x ^ (x >> 13)
+    x = _mul_u32(x, _M2)
+    return x ^ (x >> 16)
+
+
+def hash_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boost-style hash combine of two u32 hashes (int64 carrying u32)."""
+    return a ^ ((b + 0x9E3779B9 + ((a << 6) & _U32) + (a >> 2)) & _U32)

@@ -8,7 +8,8 @@ owner fields to its first output slot and fills them forward with ONE
 running u64 max (ops/scan.py, K2 on the card). The right rank -> row
 map `rperm` comes from a stable compaction (K1 on the card).
 
-Only inner joins are ported.
+Inner, left/right/full outer (`join_sorted_state`) and left semi/anti
+(`local_join_semi`) joins are ported.
 """
 from __future__ import annotations
 
@@ -35,16 +36,21 @@ class JoinState(NamedTuple):
     rperm: torch.Tensor        # [PR] right rank -> original right row
 
 
-def _check_how(how: str) -> None:
-    if how != "inner":
-        raise NotImplementedError(f"join type {how!r} is not ported")
+class _Sorted(NamedTuple):
+    """The combined sort of [rights; lefts] and its run structure."""
+    sflag: torch.Tensor        # [N] bool: invalid (null key or padding)
+    sside: torch.Tensor        # [N] 0 right, 1 left
+    sorig: torch.Tensor        # [N] original row id on its side
+    start: torch.Tensor        # [N] bool: a valid key run starts here
+    is_right: torch.Tensor     # [N] bool: valid right row
+    is_left: torch.Tensor      # [N] bool: valid left row
+    R_incl: torch.Tensor       # [N] valid rights at or before
+    R_before: torch.Tensor     # [N] valid rights before the run
 
 
-def join_sorted_state(lkeys, lvalid, rkeys, rvalid,
-                      how: str = "inner") -> JoinState:
-    """Phase 1: one combined stable sort of [rights; lefts] on
-    (invalid flag, key) + prefix-sum match counts."""
-    _check_how(how)
+def _sort_sides(lkeys, lvalid, rkeys, rvalid) -> _Sorted:
+    """One combined stable sort of [rights; lefts] on (invalid flag,
+    key), run starts, and the rights before each run."""
     PL, PR = lkeys.shape[0], rkeys.shape[0]
     dev = lkeys.device
     keys_all = torch.cat([rkeys, lkeys])
@@ -73,16 +79,51 @@ def join_sorted_state(lkeys, lvalid, rkeys, rvalid,
     # 0, which gives the JAX package's max(cummax(marks or -1), 0).
     R_before = cummax_u32(torch.where(start, R_incl - is_right.to(
         torch.int64), 0))
-    counts_pos = torch.where(is_left, R_incl - R_before, 0)
-    emit_pos = counts_pos
+    return _Sorted(sflag, sside, sorig, start, is_right, is_left, R_incl,
+                   R_before)
+
+
+def join_sorted_state(lkeys, lvalid, rkeys, rvalid,
+                      how: str = "inner") -> JoinState:
+    """Phase 1: one combined stable sort of [rights; lefts] on
+    (invalid flag, key) + prefix-sum match counts.
+
+    how: 'inner' | 'left outer' | 'right outer' | 'full outer'."""
+    s = _sort_sides(lkeys, lvalid, rkeys, rvalid)
+    is_left, is_right, start = s.is_left, s.is_right, s.start
+    counts_pos = torch.where(is_left, s.R_incl - s.R_before, 0)
+    if how in ("left outer", "full outer"):
+        emit_pos = torch.where(is_left, torch.clamp(counts_pos, min=1), 0)
+    else:
+        emit_pos = counts_pos
+    if how in ("right outer", "full outer"):
+        # rights whose run has NO left emit one (li=-1, ri=self-rank)
+        # row. Lefts in a run = L at the run's end - L before its start:
+        # L_before fills forward from the start marks; L at the end fills
+        # backward from the end-of-run marks by a reverse running min,
+        # taken as imax - (running max of imax - marks, reversed), so
+        # both fills run on K2.
+        L_incl = torch.cumsum(is_left.to(torch.int64), 0)
+        L_before = cummax_u32(torch.where(start, L_incl - is_left.to(
+            torch.int64), 0))
+        one = torch.ones(1, dtype=torch.bool, device=start.device)
+        is_last = ~s.sflag & (torch.cat([start[1:], one])
+                              | torch.cat([s.sflag[1:], one]))
+        imax = (1 << 31) - 1
+        marks = imax - torch.where(is_last, L_incl, imax)
+        grp_L_end = imax - torch.flip(cummax_u32(torch.flip(marks, (0,))),
+                                      (0,))
+        unmatched_right = is_right & (grp_L_end - L_before == 0)
+        emit_pos = emit_pos + unmatched_right.to(torch.int64)
     offsets = torch.cumsum(emit_pos, 0)
     total = offsets[-1]
-    rank = R_incl - 1
+    rank = s.R_incl - 1
     # rights in key-sorted order ARE rank order: the stable compaction
     # of the right positions is the rank -> row map
-    rperm = compact_flagged(is_right, (sorig,))[0][:max(PR, 1)]
-    return JoinState(offsets - emit_pos, emit_pos > 0, is_left, sorig,
-                     rank, counts_pos, R_before, total, rperm)
+    PR = rkeys.shape[0]
+    rperm = compact_flagged(is_right, (s.sorig,))[0][:max(PR, 1)]
+    return JoinState(offsets - emit_pos, emit_pos > 0, is_left, s.sorig,
+                     rank, counts_pos, s.R_before, total, rperm)
 
 
 def join_expand(st: JoinState, cap_out: int):
@@ -139,3 +180,23 @@ def local_join_inner(lkeys, lvalid, rkeys, rvalid, cap_out: int,
     st = join_sorted_state(lkeys, lvalid, rkeys, rvalid, how)
     li, ri, overflow = join_expand(st, cap_out)
     return li, ri, st.rperm, st.total, overflow
+
+
+def local_join_semi(lkeys, lvalid, rkeys, rvalid, how: str):
+    """Semi/anti verdict per ORIGINAL left row (the sort-merge probe of
+    local_join_inner). how: 'left semi' | 'left anti'.
+
+    A left row matches when its run holds a right. The verdict goes back
+    to row order by one scatter over every left-side position, invalid
+    rows included (their verdict is False), where the JAX package sorts
+    by original row."""
+    s = _sort_sides(lkeys, lvalid, rkeys, rvalid)
+    PL = lkeys.shape[0]
+    matched = s.is_left & (s.R_incl - s.R_before > 0)
+    # right positions go to slot PL, which is dropped
+    out = torch.zeros(PL + 1, dtype=torch.bool, device=lkeys.device)
+    out[torch.where(s.sside == 1, s.sorig, PL)] = matched
+    out = out[:PL]
+    if how == "left anti":
+        return ~out & lvalid
+    return out & lvalid

@@ -42,10 +42,21 @@ without one. Phases:
      of its Q1 call sites; every other group-by aggregation (min, max,
      first, last, count, any, all, product) over the scanned lineitem
      against numpy;
-  9. a `kernels` JSON line, then the last line
+  9. the joins: lineitem and orders gain TPC-H's ship mode, receipt and
+     commit dates, order priority and customer key, beside a customer
+     table (spec 4.2.3); TPC-H Q4 (EXISTS as a semi join), Q12 (an
+     inner join carrying strings, IN, CASE) and Q13 (a left outer join)
+     device-resident against numpy, each profiled once; every join type
+     over DeviceBatch (inner, outer) and HostBatch (all eight, the
+     probe chunked at PROBE_CHUNK_DEFAULT rows) inputs with null keys,
+     out-rows and per-column checksums against numpy; is_in, index_in,
+     unique, dictionary_encode, count_distinct, product, variance,
+     stddev, any and all over the scanned lineitem against numpy; K2
+     timed at Q13's join length;
+  10. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phase 3 and the lines of phase 9: a run
+With --timing-only it skips phases 3, 9 and 10: a run
 that times every path and kernel shape using only entry points that
 earlier trees have too, so that two trees can be run in turns on one
 card (copy this script into a tree unpacked with `git archive` and run
@@ -72,7 +83,8 @@ import arrow_go_tpu_torch as agt
 import arrow_go_tpu_torch.compute as pc
 from arrow_go_tpu_torch import cuda_build, dtypes as dt
 from arrow_go_tpu_torch import parquet as tpq
-from arrow_go_tpu_torch.device.block import DeviceBatch, HostBatch
+from arrow_go_tpu_torch.device.block import (DeviceBatch, DeviceColumn,
+                                             HostArray, HostBatch)
 from arrow_go_tpu_torch.ops import bitmap, compaction, reductions, scan
 
 LINEITEM_SF1 = 6_001_215          # TPC-H spec 4.2.5: lineitem rows at SF1
@@ -451,6 +463,251 @@ def check_aggs(out: HostBatch, want: dict) -> None:
         if got[k] != v:
             raise AssertionError(f"aggregations {k}: {got[k]!r}, oracle "
                                  f"{v!r}")
+
+
+# TPC-H spec 4.2.3: the five order priorities and the seven ship modes,
+# each list in string order, so a code's order is its string's order
+PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                       "5-LOW"], dtype=object)
+SHIPMODES = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                      "TRUCK"], dtype=object)
+# Q4: two of make_data's 40 o_odate days (about 5% of orders; TPC-H's
+# three-month window keeps 3.8%)
+Q4_ODATE_LO, Q4_ODATE_HI = 700, 702
+# Q12 with its validation substitutions (spec 2.4.12): SHIPMODE1 MAIL,
+# SHIPMODE2 SHIP, the year from 1994-01-01 (day 8766) rebased by 234
+# days onto the repo's l_sdate span: l_rdate in [9000, 9365)
+Q12_MODES = ["MAIL", "SHIP"]
+Q12_HIGH = ["1-URGENT", "2-HIGH"]
+Q12_RDATE_LO, Q12_RDATE_HI = 9000, 9365
+
+
+def add_join_columns(li, orders) -> None:
+    """The columns TPC-H Q4, Q12 and Q13 read, after TPC-H spec 4.2.3,
+    each from a generator of its own so the earlier columns stay as they
+    were: o_opri (seed 11; (codes, PRIORITIES)), o_custkey (seed 12; in
+    [1, n_cust], never a multiple of 3, n_cust = orders / 10), l_smode
+    ((codes, SHIPMODES)), l_rdate = l_sdate + U[1, 30] and l_cdate =
+    l_sdate + U[30, 90] - U[1, 121] (seed 13). The spec offsets
+    l_cdate from the order date; it is rebased on l_sdate here because
+    make_data draws l_sdate independently of o_odate. Returns the
+    customer table: c_custkey = 1..n_cust."""
+    n_ord = len(orders["o_okey"])
+    rng = np.random.default_rng(11)
+    orders["o_opri"] = (rng.integers(0, 5, n_ord).astype(np.int32),
+                        PRIORITIES)
+    n_cust = max(n_ord // 10, 3)
+    rng = np.random.default_rng(12)
+    j = rng.integers(0, n_cust - n_cust // 3, n_ord)
+    orders["o_custkey"] = 3 * (j // 2) + j % 2 + 1
+    rng = np.random.default_rng(13)
+    n = len(li["l_sdate"])
+    sdate = li["l_sdate"]
+    li["l_smode"] = (rng.integers(0, 7, n).astype(np.int32), SHIPMODES)
+    li["l_rdate"] = (sdate + rng.integers(1, 31, n)).astype(np.int32)
+    li["l_cdate"] = (sdate + rng.integers(30, 91, n)
+                     - rng.integers(1, 122, n)).astype(np.int32)
+    return {"c_custkey": np.arange(1, n_cust + 1, dtype=np.int64)}
+
+
+def _sorted_by_key(g: HostBatch, key: str) -> HostBatch:
+    return pc.take(g, pc.sort_indices(g, pc.SortOptions([pc.SortKey(key)])))
+
+
+def q4_exists(ord_f: DeviceBatch, li_f: DeviceBatch) -> DeviceColumn:
+    """EXISTS (lineitem row with l_okey = o_okey) per order row: the semi
+    verdict of the join core over the shared key codes, on the device
+    (the steps hash_join's record path runs for a left semi join)."""
+    from arrow_go_tpu_torch.compute.join import _key_codes
+    from arrow_go_tpu_torch.device.block import row_mask
+    from arrow_go_tpu_torch.parallel.join import local_join_semi
+    oc, lc = _key_codes(ord_f, li_f, ["o_okey"], ["l_okey"])
+    dev = oc.device
+    ok = row_mask(ord_f.padded, ord_f.length, dev) & (oc >= 0)
+    verdict = local_join_semi(
+        oc, ok, lc, row_mask(li_f.padded, li_f.length, dev) & (lc >= 0),
+        "left semi")
+    return DeviceColumn(verdict, None, ord_f.length, dt.bool_)
+
+
+def compute_q4(li_db: DeviceBatch, ord_db: DeviceBatch,
+               mark=lambda stage: None) -> HostBatch:
+    """The port's TPC-H Q4:
+
+        SELECT o_opri, COUNT(*) FROM orders
+        WHERE o_odate >= 700 AND o_odate < 702
+          AND EXISTS (SELECT * FROM lineitem
+                      WHERE l_okey = o_okey AND l_cdate < l_rdate)
+        GROUP BY o_opri ORDER BY o_opri
+    """
+    f, lit, call = pc.field, pc.literal, pc.call
+    o_mask = pc.execute_scalar_expression(call("and", [
+        call("greater_equal", [f("o_odate"), lit(Q4_ODATE_LO)]),
+        call("less", [f("o_odate"), lit(Q4_ODATE_HI)])]), ord_db)
+    ord_f = pc.filter(project(ord_db, ["o_okey", "o_opri"]), o_mask)
+    l_mask = pc.execute_scalar_expression(
+        call("less", [f("l_cdate"), f("l_rdate")]), li_db)
+    li_f = pc.filter(project(li_db, ["l_okey"]), l_mask)
+    mark("filters")
+    hits = pc.filter(ord_f, q4_exists(ord_f, li_f))
+    mark("semi_join")
+    g = pc.group_by(hits, "o_opri", [("o_okey", "count_all")])
+    mark("group_by")
+    out = _sorted_by_key(g, "o_opri")
+    mark("sort_take")
+    return out
+
+
+def q4_oracle(li, orders) -> dict:
+    codes, values = orders["o_opri"]
+    odate = orders["o_odate"]
+    exists = np.zeros(len(odate), np.bool_)
+    m = li["l_cdate"] < li["l_rdate"]
+    exists[li["l_okey"][m]] = True
+    keep = exists & (odate >= Q4_ODATE_LO) & (odate < Q4_ODATE_HI)
+    cnt = np.bincount(codes[keep], minlength=len(values))
+    present = [c for c in np.argsort(values) if cnt[c]]
+    return {"o_opri": [values[c] for c in present],
+            "o_okey_count_all": [int(cnt[c]) for c in present]}
+
+
+def q12_predicate():
+    """Q12's lineitem predicate: l_smode IN ('MAIL', 'SHIP') AND l_cdate <
+    l_rdate AND l_sdate < l_cdate AND l_rdate in [9000, 9365)."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    pred = call("is_in", [f("l_smode")], {"value_set": Q12_MODES})
+    for c in (call("less", [f("l_cdate"), f("l_rdate")]),
+              call("less", [f("l_sdate"), f("l_cdate")]),
+              call("greater_equal", [f("l_rdate"), lit(Q12_RDATE_LO)]),
+              call("less", [f("l_rdate"), lit(Q12_RDATE_HI)])):
+        pred = call("and", [pred, c])
+    return pred
+
+
+def compute_q12(li_db: DeviceBatch, ord_db: DeviceBatch,
+                mark=lambda stage: None) -> HostBatch:
+    """The port's TPC-H Q12:
+
+        SELECT l_smode,
+               SUM(CASE WHEN o_opri IN ('1-URGENT', '2-HIGH') THEN 1
+                        ELSE 0 END),
+               SUM(CASE WHEN o_opri NOT IN ('1-URGENT', '2-HIGH') THEN 1
+                        ELSE 0 END)
+        FROM orders JOIN lineitem ON o_okey = l_okey
+        WHERE (q12_predicate) GROUP BY l_smode ORDER BY l_smode
+    """
+    f, lit, call = pc.field, pc.literal, pc.call
+    mask = pc.execute_scalar_expression(q12_predicate(), li_db)
+    li_f = pc.filter(project(li_db, ["l_okey", "l_smode"]), mask)
+    mark("filter")
+    joined = pc.hash_join(li_f, project(ord_db, ["o_okey", "o_opri"]),
+                          left_keys=["l_okey"], right_keys=["o_okey"],
+                          output_columns=["l_smode", "o_opri"])
+    mark("hash_join")
+    high = call("is_in", [f("o_opri")], {"value_set": Q12_HIGH})
+    cols = [pc.execute_scalar_expression(
+        call("if_else", [cond, lit(1), lit(0)]), joined)
+        for cond in (high, call("invert", [high]))]
+    gb = DeviceBatch(dt.Schema([dt.Field("l_smode", dt.string),
+                                dt.Field("high", dt.int64),
+                                dt.Field("low", dt.int64)]),
+                     [joined.column("l_smode")] + cols, joined.length)
+    mark("case")
+    g = pc.group_by(gb, "l_smode", [("high", "sum"), ("low", "sum")])
+    mark("group_by")
+    out = _sorted_by_key(g, "l_smode")
+    mark("sort_take")
+    return out
+
+
+def q12_oracle(li, orders) -> dict:
+    mcodes, modes = li["l_smode"]
+    pcodes, pvalues = orders["o_opri"]
+    cdate, rdate = li["l_cdate"], li["l_rdate"]
+    m = (np.isin(modes[mcodes], Q12_MODES) & (cdate < rdate)
+         & (li["l_sdate"] < cdate) & (rdate >= Q12_RDATE_LO)
+         & (rdate < Q12_RDATE_HI))
+    high = np.isin(pvalues[pcodes[li["l_okey"][m]]], Q12_HIGH)
+    k = len(modes)
+    hi = np.bincount(mcodes[m][high], minlength=k)
+    lo = np.bincount(mcodes[m][~high], minlength=k)
+    present = [c for c in np.argsort(modes) if hi[c] + lo[c]]
+    return {"l_smode": [modes[c] for c in present],
+            "high_sum": [int(hi[c]) for c in present],
+            "low_sum": [int(lo[c]) for c in present]}
+
+
+def compute_q13(cust_db: DeviceBatch, ord_db: DeviceBatch,
+                mark=lambda stage: None) -> HostBatch:
+    """The port's TPC-H Q13 (without its o_comment NOT LIKE predicate:
+    the repo has no comment column and no LIKE):
+
+        SELECT c_count, COUNT(*) AS custdist FROM (
+            SELECT c_custkey, COUNT(o_okey) AS c_count
+            FROM customer LEFT OUTER JOIN orders ON c_custkey = o_custkey
+            GROUP BY c_custkey)
+        GROUP BY c_count ORDER BY custdist DESC, c_count DESC
+    """
+    joined = pc.hash_join(cust_db, project(ord_db, ["o_okey", "o_custkey"]),
+                          left_keys=["c_custkey"], right_keys=["o_custkey"],
+                          join_type="left outer",
+                          output_columns=["c_custkey", "o_okey"])
+    mark("hash_join")
+    per_cust = pc.group_by(joined, "c_custkey", [("o_okey", "count")])
+    mark("group_by_customer")
+    counts = agt.batch_to_device({"c_count": per_cust.column(
+        "o_okey_count").values}, device=cust_db.columns[0].device)
+    g = pc.group_by(counts, "c_count", [("c_count", "count_all")])
+    mark("group_by_count")
+    idx = pc.sort_indices(g, pc.SortOptions([
+        pc.SortKey("c_count_count_all", "descending"),
+        pc.SortKey("c_count", "descending")]))
+    out = pc.take(g, idx)
+    mark("sort_take")
+    return out
+
+
+def q13_oracle(orders, n_cust: int) -> dict:
+    per_cust = np.bincount(orders["o_custkey"], minlength=n_cust + 1)[1:]
+    dist = np.bincount(per_cust)
+    present = np.flatnonzero(dist)
+    order = sorted(present.tolist(), key=lambda c: (-dist[c], -c))
+    return {"c_count": order,
+            "c_count_count_all": [int(dist[c]) for c in order]}
+
+
+def join_row_counts(li, orders, n_cust: int) -> dict:
+    """The row counts of Q4, Q12 and Q13's inputs and stages (numpy)."""
+    mcodes, modes = li["l_smode"]
+    cdate, rdate = li["l_cdate"], li["l_rdate"]
+    odate = orders["o_odate"]
+    late = cdate < rdate
+    q12 = (np.isin(modes[mcodes], Q12_MODES) & late
+           & (li["l_sdate"] < cdate) & (rdate >= Q12_RDATE_LO)
+           & (rdate < Q12_RDATE_HI))
+    has_order = np.bincount(orders["o_custkey"], minlength=n_cust + 1)[1:]
+    return {
+        "q4": {"orders": len(odate),
+               "orders_in_window": int(((odate >= Q4_ODATE_LO)
+                                        & (odate < Q4_ODATE_HI)).sum()),
+               "lineitem": len(cdate), "lineitem_commit_before_receipt":
+               int(late.sum())},
+        "q12": {"lineitem_passing": int(q12.sum())},
+        "q13": {"customers": n_cust, "orders": len(odate),
+                "customers_without_orders": int((has_order == 0).sum()),
+                "joined_rows": len(odate) + int((has_order == 0).sum())}}
+
+
+def check_rows(what: str, out: HostBatch, want: dict) -> None:
+    """Every column of the result exactly as the oracle has it, rows in
+    its order."""
+    got = out.to_pydict()
+    if out.num_rows < 1 or list(got) != list(want):
+        raise AssertionError(f"{what}: columns {list(got)}, {out.num_rows} "
+                             f"rows; oracle {list(want)}")
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{what} {k}: {got[k]!r}, oracle {v!r}")
 
 
 def write_parquet(table: dict, compression: str = "none",
@@ -946,10 +1203,10 @@ def profile_device(fn, check, top: int = 12) -> dict:
                               for name, (ms, calls) in ranked]}
 
 
-def profile_q3(li_db, ord_db, oracle) -> dict:
-    """Where one Q3 run's time goes: the host-clock time of each stage
-    (synchronized at each stage's end), then the device activity of one
-    more run (profile_device)."""
+def profile_stages(run, check) -> dict:
+    """Where one run's time goes: the host-clock time of each stage of
+    `run(mark)` (synchronized at each stage's end), then the device
+    activity of one more run (profile_device)."""
     stages = {}
     last = [0.0]
 
@@ -961,10 +1218,15 @@ def profile_q3(li_db, ord_db, oracle) -> dict:
 
     torch.cuda.synchronize()
     last[0] = time.perf_counter()
-    check_q3(compute_q3(li_db, ord_db, CUTOFF, mark), oracle)
-    return {"stages_ms": stages, **profile_device(
-        lambda: compute_q3(li_db, ord_db, CUTOFF),
-        lambda out: check_q3(out, oracle))}
+    check(run(mark))
+    return {"stages_ms": stages, **profile_device(lambda: run(
+        lambda stage: None), check)}
+
+
+def profile_q3(li_db, ord_db, oracle) -> dict:
+    return profile_stages(
+        lambda mark: compute_q3(li_db, ord_db, CUTOFF, mark),
+        lambda out: check_q3(out, oracle))
 
 
 def _nvidia_smi() -> str:
@@ -1064,22 +1326,8 @@ def _print_ptxas(names) -> None:
 
 
 def profile_q1(li_db, want) -> dict:
-    """One Q1 run by stage (host clock, synced at each stage's end), then
-    the device activity of one more run (profile_device)."""
-    stages = {}
-    last = [0.0]
-
-    def mark(stage):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[stage] = (now - last[0]) * 1e3
-        last[0] = now
-
-    torch.cuda.synchronize()
-    last[0] = time.perf_counter()
-    check_q1(compute_q1(li_db, mark), want)
-    return {"stages_ms": stages, **profile_device(
-        lambda: compute_q1(li_db), lambda out: check_q1(out, want))}
+    return profile_stages(lambda mark: compute_q1(li_db, mark),
+                          lambda out: check_q1(out, want))
 
 
 def print_k1_shapes(line: str, k1s) -> None:
@@ -1181,7 +1429,301 @@ def q1_phases(li, orders, dev) -> dict:
         "ms_median": float(np.median(runs)),
         "launches_per_run": launches["aggregations"], "verified": True}}),
         flush=True)
-    return {"launches": launches, "k1s": k1s}
+    return {"launches": launches, "k1s": k1s, "snappy": snappy}
+
+
+# the join sweep's sides: lineitem rows with l_cdate < l_rdate shipped
+# before day 9200 (11 M rows at SF10, over PROBE_CHUNK_DEFAULT, so the
+# HostBatch route streams them in chunks) and orders dated before day
+# 710 (a quarter); every 101st lineitem and 97th order key is null
+SWEEP_SDATE_MAX = 9200
+SWEEP_ODATE_MAX = 710
+SWEEP_HOWS = ("inner", "left outer", "right outer", "full outer",
+              "left semi", "left anti", "right semi", "right anti")
+
+
+def sweep_sides(li, orders):
+    """numpy sides of the join sweep: {column: (values, valid or None,
+    dictionary or None)} for lineitem (l_okey, l_smode) and orders
+    (o_okey, o_opri)."""
+    m = (li["l_cdate"] < li["l_rdate"]) & (li["l_sdate"] < SWEEP_SDATE_MAX)
+    r = orders["o_odate"] < SWEEP_ODATE_MAX
+    lk, rk = li["l_okey"][m], orders["o_okey"][r]
+    return ({"l_okey": (lk, np.arange(len(lk)) % 101 != 0, None),
+             "l_smode": (li["l_smode"][0][m], None, SHIPMODES)},
+            {"o_okey": (rk, np.arange(len(rk)) % 97 != 0, None),
+             "o_opri": (orders["o_opri"][0][r], None, PRIORITIES)})
+
+
+def sweep_host_batch(side: dict) -> HostBatch:
+    arrays = {}
+    for name, (vals, valid, dictionary) in side.items():
+        t = dt.int64 if dictionary is None else dt.dictionary(dt.int32,
+                                                              dt.string)
+        arrays[name] = HostArray(vals, valid, t, dictionary)
+    return HostBatch.from_arrays(arrays)
+
+
+def sweep_oracle(left: dict, right: dict, how: str) -> dict:
+    """{output column: (valid rows, sum of the valid values)} of the
+    join, a string column summed by its value's index in SHIPMODES or
+    PRIORITIES, and the output row count under "rows"."""
+    lk, lvalid, _ = left["l_okey"]
+    rk, rvalid, _ = right["o_okey"]
+    pos = np.full(int(max(lk.max(initial=0), rk.max(initial=0))) + 1, -1)
+    pos[rk[rvalid]] = np.flatnonzero(rvalid)
+    lmatch = np.where(lvalid, pos[lk], -1)
+    li_in = np.flatnonzero(lmatch >= 0)
+    rmatched = np.zeros(len(rk), np.bool_)
+    rmatched[lmatch[li_in]] = True
+    none = np.zeros(0, np.int64)
+    l_un, r_un = np.flatnonzero(lmatch < 0), np.flatnonzero(~rmatched)
+    li, ri = {
+        "inner": (li_in, lmatch[li_in]),
+        "left outer": (np.arange(len(lk)), lmatch),
+        "right outer": (np.concatenate([li_in, np.full(len(r_un), -1)]),
+                        np.concatenate([lmatch[li_in], r_un])),
+        "full outer": (np.concatenate([li_in, l_un,
+                                       np.full(len(r_un), -1)]),
+                       np.concatenate([lmatch[li_in],
+                                       np.full(len(l_un), -1), r_un])),
+        "left semi": (li_in, None), "left anti": (l_un, None),
+        "right semi": (None, np.flatnonzero(rmatched)),
+        "right anti": (None, r_un)}[how]
+    out = {}
+    for side, idx in ((left, li), (right, ri)):
+        if idx is None:
+            continue
+        for name, (vals, valid, _) in side.items():
+            ok = idx >= 0
+            if valid is not None:
+                ok[ok] = valid[idx[ok]]
+            out[name] = (int(ok.sum()), int(vals[idx[ok]].sum()))
+        out["rows"] = len(idx)
+    return out
+
+
+def _canonical(dictionary) -> np.ndarray:
+    """Each value's index in SHIPMODES or PRIORITIES (the sweep's string
+    columns), what sweep_oracle sums."""
+    index = {v: i for names in (SHIPMODES, PRIORITIES)
+             for i, v in enumerate(names)}
+    return np.array([index[v] for v in dictionary] or [0], np.int64)
+
+
+def sweep_checksums(out) -> dict:
+    """sweep_oracle's summary of a join result (HostBatch or DeviceBatch;
+    a DeviceBatch sums on its device)."""
+    res = {}
+    if isinstance(out, HostBatch):
+        res["rows"] = out.num_rows
+        for f, c in zip(out.schema.fields, out.columns):
+            ok = c.validity_bools()
+            vals = c.values if c.dictionary is None else _canonical(
+                c.dictionary)[c.values]
+            res[f.name] = (int(ok.sum()), int(vals[ok].astype(np.int64).sum()))
+        return res
+    res["rows"] = out.length
+    for f, c in zip(out.schema.fields, out.columns):
+        ok = c.validity_mask()
+        vals = c.values.to(torch.int64)
+        if c.dictionary is not None:
+            vals = torch.from_numpy(_canonical(c.dictionary)).to(
+                vals.device).index_select(0, vals.clamp(0))
+        res[f.name] = tuple(torch.stack([
+            ok.sum(), torch.where(ok, vals, 0).sum()]).tolist())
+    return res
+
+
+def sweep_join(how: str, route: str, hosts, devs):
+    left, right = (hosts if route == "host" else devs)
+    return pc.hash_join(left, right, left_keys=["l_okey"],
+                        right_keys=["o_okey"], join_type=how,
+                        device=devs[0].columns[0].device)
+
+
+def compute_functions(li_s: DeviceBatch, pfac: DeviceColumn) -> dict:
+    """The set-lookup, vector-hash and scalar-aggregate functions over
+    the scanned lineitem columns (and the product factors)."""
+    rflag, lstatus, qty, price, okey = (li_s.column(c) for c in (
+        "l_rflag", "l_lstatus", "l_qty", "l_price", "l_okey"))
+    big = pc.execute_scalar_expression(
+        pc.call("greater", [pc.field("l_qty"), pc.literal(25)]), li_s)
+    from arrow_go_tpu_torch.device.block import column_to_host
+    return {
+        "is_in": column_to_host(pc.is_in(rflag, value_set=["R", "A"])),
+        "index_in": column_to_host(pc.index_in(lstatus,
+                                               value_set=["F", "X", "O"])),
+        "unique_rflag": column_to_host(pc.unique(rflag)).to_pylist(),
+        "unique_qty": column_to_host(pc.unique(qty)).to_pylist(),
+        "dictionary_encode": column_to_host(pc.dictionary_encode(qty)),
+        "count_distinct": pc.agg_count_distinct(okey),
+        "product": pc.agg_product(pfac),
+        "variance": pc.agg_variance(price), "stddev": pc.agg_stddev(price),
+        "any": pc.agg_any(big), "all": pc.agg_all(big)}
+
+
+def _first_occurrence(values: np.ndarray) -> np.ndarray:
+    uniq, first = np.unique(values, return_index=True)
+    return uniq[np.argsort(first, kind="stable")]
+
+
+def functions_oracle(li, pfac) -> dict:
+    rcodes, rvalues = li["l_rflag"]
+    scodes, svalues = li["l_lstatus"]
+    qty = li["l_qty"]
+    uqty = _first_occurrence(qty)
+    code_of = np.zeros(int(qty.max()) + 1, np.int32)
+    code_of[uqty] = np.arange(len(uqty), dtype=np.int32)
+    where = {"F": 0, "X": 1, "O": 2}
+    f = pfac
+    return {
+        "is_in": np.isin(rvalues[rcodes], ["R", "A"]),
+        "index_in": np.array([where[v] for v in svalues])[scodes],
+        "unique_rflag": rvalues[_first_occurrence(rcodes)].tolist(),
+        "unique_qty": uqty.tolist(),
+        "dictionary_encode": (code_of[qty], uqty),
+        "count_distinct": int(np.count_nonzero(np.bincount(li["l_okey"]))),
+        "product": (2 ** int((f == 2).sum())) * (-1) ** int((f == -1).sum()),
+        "variance": float(np.var(li["l_price"])),
+        "stddev": float(np.std(li["l_price"])),
+        "any": bool((qty > 25).any()), "all": bool((qty > 25).all())}
+
+
+def check_functions(got: dict, want: dict) -> None:
+    """Lookups, codes, distinct values and counts exact; variance and
+    standard deviation at rtol 1e-9."""
+    for k in ("is_in", "index_in"):
+        h = got[k]
+        if h.mask is not None and not h.mask.all() or \
+                not np.array_equal(h.values, want[k]):
+            raise AssertionError(f"functions {k}: differs from numpy")
+    codes, dictionary = want["dictionary_encode"]
+    de = got["dictionary_encode"]
+    if not np.array_equal(de.values, codes) or \
+            de.dictionary.tolist() != dictionary.tolist():
+        raise AssertionError("functions dictionary_encode: differs")
+    for k in ("unique_rflag", "unique_qty", "count_distinct", "product",
+              "any", "all"):
+        if got[k] != want[k]:
+            raise AssertionError(f"functions {k}: {got[k]!r}, numpy "
+                                 f"{want[k]!r}")
+    for k in ("variance", "stddev"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-9, err_msg=k)
+
+
+def time_k2_fill(dev, n: int) -> dict:
+    """K2 as the join state's forward fills call it (cummax_u32: one
+    lane of monotone run-start marks, zero elsewhere) at n slots."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    marks = torch.cumsum(torch.randint(0, 2, (n,), generator=g,
+                                       device=dev), 0)
+    x = torch.where(torch.rand(n, generator=g, device=dev) < 0.3, marks, 0)
+    nbytes = 4 * 8 * n          # hi and lo lanes read, both fills written
+    return {"shape": f"n={n}, one lane (cummax_u32)",
+            "ms": _time_ms(lambda: scan.cummax_u32(x), 20),
+            "plain_ms": _time_ms(lambda: scan.cummax_u64_lanes_plain(
+                x, [torch.zeros_like(x)]), 3),
+            "library_ms": _time_ms(lambda: torch.cummax(x, 0), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def join_phases(li, orders, dev, snappy, card: str) -> dict:
+    """This slice's paths, at the scale of `li`: TPC-H Q4 (semi join),
+    Q12 (inner join carrying strings, IN, CASE) and Q13 (left outer
+    join) device-resident, every join type of both routes over the
+    sweep's sides, and the set-lookup / vector-hash / aggregate
+    functions over the scanned lineitem, each against numpy. Returns
+    each path's launch counts and K2's time at Q13's join length."""
+    launches = {}
+    customer = add_join_columns(li, orders)
+    li_db = agt.batch_to_device({c: li[c] for c in (
+        "l_okey", "l_sdate", "l_cdate", "l_rdate", "l_smode")}, device=dev)
+    ord_db = agt.batch_to_device({c: orders[c] for c in (
+        "o_okey", "o_odate", "o_opri", "o_custkey")}, device=dev)
+    cust_db = agt.batch_to_device(customer, device=dev)
+    n_cust = len(customer["c_custkey"])
+    queries = (
+        ("q4", lambda mark=lambda s: None: compute_q4(li_db, ord_db, mark),
+         q4_oracle(li, orders)),
+        ("q12", lambda mark=lambda s: None: compute_q12(li_db, ord_db,
+                                                        mark),
+         q12_oracle(li, orders)),
+        ("q13", lambda mark=lambda s: None: compute_q13(cust_db, ord_db,
+                                                        mark),
+         q13_oracle(orders, n_cust)))
+    row_counts = join_row_counts(li, orders, n_cust)
+    for name, run, want in queries:
+        out, launches[name.upper()] = run_path(name.upper(), run,
+                                               ("K1", "K2"))
+        check_rows(name, out, want)
+        outs, runs = timed(run)
+        for out in outs:
+            check_rows(name, out, want)
+        print(json.dumps({name: {
+            "rows": row_counts[name], "result": out.to_pydict(),
+            "ms_runs": runs,
+            "ms_median": float(np.median(runs)),
+            "launches_per_run": launches[name.upper()], "card": card,
+            "verified": True}}), flush=True)
+        print(json.dumps({f"{name}_profile": profile_stages(
+            run, lambda out: check_rows(name, out, want))}), flush=True)
+    k2_q13 = time_k2_fill(dev, cust_db.padded + ord_db.padded)
+    del li_db, ord_db, cust_db
+
+    # every join type, both routes, over the sweep's sides
+    sides = sweep_sides(li, orders)
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    hosts = tuple(sweep_host_batch(s) for s in sides)
+    devs = tuple(host_batch_to_device(h, dev) for h in hosts)
+    cases = [(how, "device") for how in SWEEP_HOWS[:4]] + [
+        (how, "host") for how in SWEEP_HOWS]
+    wants = {how: sweep_oracle(*sides, how) for how in SWEEP_HOWS}
+
+    def sweep_all():
+        for how, route in cases:
+            got = sweep_checksums(sweep_join(how, route, hosts, devs))
+            if got != wants[how]:
+                raise AssertionError(f"join sweep {how} ({route}): {got} "
+                                     f"vs numpy {wants[how]}")
+    _, launches["joins"] = run_path("joins", sweep_all, ("K1", "K2"))
+    per_type = {}
+    for how, route in cases:
+        outs, runs = timed(lambda: sweep_join(how, route, hosts, devs))
+        for out in outs:
+            if sweep_checksums(out) != wants[how]:
+                raise AssertionError(f"join sweep {how} ({route}) timed run")
+        per_type[f"{how} ({route})"] = {
+            "rows": wants[how]["rows"], "ms_runs": runs,
+            "ms_median": float(np.median(runs))}
+    print(json.dumps({"joins": {
+        "left_rows": hosts[0].num_rows, "right_rows": hosts[1].num_rows,
+        "probe_chunk": pc.PROBE_CHUNK_DEFAULT,
+        "chunked": hosts[0].num_rows > pc.PROBE_CHUNK_DEFAULT,
+        "by_type": per_type, "launches_per_run": launches["joins"],
+        "card": card, "verified": True}}), flush=True)
+    del hosts, devs
+
+    # the functions, over the scanned (snappy) lineitem
+    li_s = scan_parquet(snappy["lineitem"], ["l_rflag", "l_lstatus", "l_qty",
+                                             "l_price", "l_okey"], dev)
+    pfac_np = product_factors(len(li["l_okey"]))
+    pfac = agt.batch_to_device({"l_pfac": pfac_np}, device=dev).column(0)
+    want = functions_oracle(li, pfac_np)
+    got, launches["functions"] = run_path(
+        "functions", lambda: compute_functions(li_s, pfac),
+        ("K1", "K2", "K3"))
+    check_functions(got, want)
+    outs, runs = timed(lambda: compute_functions(li_s, pfac))
+    for got in outs:
+        check_functions(got, want)
+    print(json.dumps({"functions": {
+        k: got[k] for k in ("unique_rflag", "count_distinct", "product",
+                            "variance", "stddev", "any", "all")}
+        | {"ms_runs": runs, "ms_median": float(np.median(runs)),
+           "launches_per_run": launches["functions"], "card": card,
+           "verified": True}}), flush=True)
+    return {"launches": launches, "k2_q13": k2_q13}
 
 
 def main(argv=None) -> int:
@@ -1356,10 +1898,17 @@ def main(argv=None) -> int:
     if args.timing_only:
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
+    joins = join_phases(li, orders, dev, q1["snappy"], card)
+    k2q = joins["k2_q13"]
+    print(f"K2 at {k2q['shape']} (Q13's join): kernel {k2q['ms']:.4f} ms, "
+          f"plain {k2q['plain_ms']:.4f} ms, library {k2q['library_ms']:.4f} "
+          f"ms, bound {k2q['bound_ms']:.4f} ms")
+    print(json.dumps({"k2_q13": k2q}), flush=True)
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
-               "Q3 from bytes": q3b_launches, **q1["launches"]}
+               "Q3 from bytes": q3b_launches, **q1["launches"],
+               **joins["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -1,0 +1,425 @@
+"""The port's scalar kernels, expression branches, vector hash, set
+lookup and scalar aggregates against the JAX package, on the CPU.
+
+Inputs are seeded numpy columns with nulls, held by both packages
+bit for bit (torch_parity). Ints, bools, codes and validity words must
+match exactly. Floats from an elementwise kernel agree to rtol 1e-12
+(float64) and 1e-5 (float32), NaN where JAX has NaN: torch and XLA
+evaluate transcendental functions with their own code; and a denormal
+result may be zero in the JAX package, whose XLA flushes denormals to
+zero on the CPU. Float sums,
+products and variances agree to rtol 1e-9 (order of addition).
+"""
+import numpy as np
+import pytest
+import torch
+
+import arrow_go_tpu.compute as jpc
+from arrow_go_tpu.compute import functions as jf
+from arrow_go_tpu.compute import kernels as jk
+from arrow_go_tpu.device.block import from_device
+
+import arrow_go_tpu_torch.compute as pc
+from arrow_go_tpu_torch import dtypes as tdt
+from arrow_go_tpu_torch.compute import kernels
+from arrow_go_tpu_torch.device.block import DeviceColumn, column_to_host
+from torch_parity import jax_batch, port_batch, words_u32
+
+N = 700
+WORDS = np.array(["MAIL", "SHIP", "AIR", "RAIL", "TRUCK", "FOB",
+                  "REG AIR"], dtype=object)
+
+
+def _columns(rng, n=N):
+    """A batch of every column kind, with nulls: (jax batch, port batch)."""
+    data = {
+        "i32": rng.integers(-40, 40, n).astype(np.int32),
+        "i64": rng.integers(-10 ** 6, 10 ** 6, n).astype(np.int64),
+        "f32": (rng.standard_normal(n) * 3).astype(np.float32),
+        "f64": rng.standard_normal(n) * 3,
+        "b": rng.random(n) < 0.5,
+        "c": rng.random(n) < 0.3,
+        "s": WORDS[rng.integers(0, 7, n)],
+        "small": rng.integers(-3, 4, n).astype(np.int64),
+        "amt": rng.integers(-70, 70, n).astype(np.int32),
+        "g": rng.uniform(-5.0, 5.0, n),
+    }
+    data["f64"][rng.integers(0, n, 6)] = np.nan
+    data["f64"][rng.integers(0, n, 6)] = np.inf
+    data["f64"][rng.integers(0, n, 6)] = -0.0
+    masks = {c: rng.random(n) > 0.12 for c in data}
+    masks["i64"] = None
+    jdb = jax_batch(data, {k: m for k, m in masks.items() if m is not None})
+    return jdb, port_batch(jdb)
+
+
+@pytest.fixture(scope="module")
+def cols():
+    return _columns(np.random.default_rng(5))
+
+
+FLOAT_RTOL = {np.dtype(np.float64): 1e-12, np.dtype(np.float32): 1e-5}
+
+
+def _same(tc, jc):
+    """A port DeviceColumn against a JAX one: type, length, validity words
+    bit for bit, values on the valid rows of [0, n)."""
+    assert tc.type.name == jc.type.name
+    assert tc.length == jc.length
+    assert tc.padded == jc.padded
+    n = jc.length
+    jv = None if jc.validity is None else np.asarray(jc.validity)
+    tv = None if tc.validity is None else words_u32(tc.validity)
+    assert (tv is None) == (jv is None)
+    valid = np.ones(n, np.bool_)
+    if jv is not None:
+        np.testing.assert_array_equal(tv, jv)
+        valid = np.unpackbits(jv.view(np.uint8),
+                              bitorder="little")[:n].astype(bool)
+    got = tc.values.numpy()[:n][valid]
+    want = np.asarray(jc.values)[:n][valid]
+    assert got.dtype == want.dtype
+    if got.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, rtol=FLOAT_RTOL[got.dtype],
+                                   atol=np.finfo(got.dtype).tiny,
+                                   equal_nan=True)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+BINARY = ["add", "subtract", "multiply", "divide", "power", "atan2", "logb",
+          "bit_wise_and", "bit_wise_or", "bit_wise_xor", "shift_left",
+          "shift_right", "max_element_wise", "min_element_wise", "mod"]
+PAIRS = [("i32", "small"), ("i64", "amt"), ("f64", "i32"), ("f32", "f32"),
+         ("f64", "f64")]
+
+
+@pytest.mark.parametrize("op", BINARY)
+@pytest.mark.parametrize("pair", PAIRS)
+def test_arithmetic_binary_matches_jax(cols, op, pair):
+    jdb, tdb = cols
+    ja, jb = (jdb.column(c) for c in pair)
+    ta, tb = (tdb.column(c) for c in pair)
+    try:
+        want = jk.arithmetic_binary(op, ja, jb, checked=False)
+    except jpc.ArrowNotImplemented:
+        with pytest.raises(pc.ArrowNotImplemented):
+            kernels.arithmetic_binary(op, ta, tb, checked=False)
+        return
+    _same(kernels.arithmetic_binary(op, ta, tb, checked=False), want)
+    # a scalar on the right broadcasts
+    _same(kernels.arithmetic_binary(op, ta, 3, checked=False),
+          jk.arithmetic_binary(op, ja, 3, checked=False))
+
+
+def _int_col(values, dtype=np.int64):
+    v = np.asarray(values, dtype)
+    jdb = jax_batch({"x": v})
+    return jdb.column("x"), port_batch(jdb).column("x")
+
+
+def test_integer_divide_truncates_toward_zero_like_jax():
+    a = [7, -7, 7, -7, 0, 5, -(2 ** 63), -9]
+    b = [2, 2, -2, -2, 3, 0, -1, 4]
+    (ja, ta), (jb, tb) = _int_col(a), _int_col(b)
+    got = kernels.arithmetic_binary("divide", ta, tb, checked=False)
+    _same(got, jk.arithmetic_binary("divide", ja, jb, checked=False))
+    assert got.values[:8].tolist() == [3, -3, -3, 3, 0, 5, -(2 ** 63), -2]
+    for mod in (jk, kernels):
+        with pytest.raises((jpc.ArrowInvalid, pc.ArrowInvalid),
+                           match="divide by zero"):
+            mod.arithmetic_binary("divide", ja if mod is jk else ta,
+                                  jb if mod is jk else tb)
+    # a zero divisor in a null row does not raise
+    jdb = jax_batch({"a": np.array(a), "b": np.array(b)},
+                    {"b": np.array(b) != 0})
+    tdb = port_batch(jdb)
+    _same(kernels.arithmetic_binary("divide", tdb.column("a"),
+                                    tdb.column("b")),
+          jk.arithmetic_binary("divide", jdb.column("a"), jdb.column("b")))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float64])
+def test_mod_takes_the_divisor_sign_like_jax(dtype):
+    a = [7, -7, 7, -7, 6, 5, -5, 0]
+    b = [3, 3, -3, -3, 3, 0, -1, 4]
+    if np.dtype(dtype).kind == "i":
+        a[-1] = np.iinfo(dtype).min
+    (ja, ta), (jb, tb) = _int_col(a, dtype), _int_col(b, dtype)
+    got = kernels.arithmetic_binary("mod", ta, tb)
+    _same(got, jk.arithmetic_binary("mod", ja, jb))
+    assert got.values[:4].tolist() == [1, 2, -2, -1]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_shifts_mask_the_amount_to_the_width_like_jax(dtype):
+    bits = np.dtype(dtype).itemsize * 8
+    a = [1, -8, 5, 1, -1, 3, 12345, -12345]
+    b = [bits, bits + 1, -1, bits - 1, 3, 2 * bits + 2, 0, 5]
+    (ja, ta), (jb, tb) = _int_col(a, dtype), _int_col(b, dtype)
+    for op in ("shift_left", "shift_right"):
+        _same(kernels.arithmetic_binary(op, ta, tb),
+              jk.arithmetic_binary(op, ja, jb))
+    got = kernels.arithmetic_binary("shift_left", ta, tb)
+    assert got.values[:2].tolist() == [1, -16]
+
+
+UNARY = ["negate", "abs", "sign", "sqrt", "exp", "expm1", "sin", "cos",
+         "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh", "ln",
+         "log10", "log2", "log1p", "floor", "ceil", "trunc", "bit_wise_not"]
+
+
+@pytest.mark.parametrize("op", UNARY)
+@pytest.mark.parametrize("col", ["i32", "i64", "f32", "f64"])
+def test_arithmetic_unary_matches_jax(cols, op, col):
+    jdb, tdb = cols
+    try:
+        want = jk.arithmetic_unary(op, jdb.column(col), checked=False)
+    except jpc.ArrowNotImplemented:
+        with pytest.raises(pc.ArrowNotImplemented):
+            kernels.arithmetic_unary(op, tdb.column(col), checked=False)
+        return
+    _same(kernels.arithmetic_unary(op, tdb.column(col), checked=False),
+          want)
+
+
+def test_checked_negate_of_unsigned_values_raises():
+    vals = torch.zeros(128, dtype=torch.uint8)
+    col = DeviceColumn(vals, None, 3, tdt.int32)
+    kernels.arithmetic_unary("negate", col)       # all zero: no overflow
+    vals[1] = 2
+    with pytest.raises(pc.ArrowInvalid, match="unsigned"):
+        kernels.arithmetic_unary("negate", col)
+    kernels.arithmetic_unary("negate", col, checked=False)
+
+
+OPS = ["equal", "not_equal", "less", "less_equal", "greater",
+       "greater_equal"]
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("lit", ["RAIL", "NONE", "A", b"SHIP"])
+def test_compare_dictionary_with_a_string_literal_matches_jax(cols, op, lit):
+    jdb, tdb = cols
+    _same(kernels.compare(op, tdb.column("s"), lit),
+          jk.compare(op, jdb.column("s"), lit))
+    _same(kernels.compare(op, lit, tdb.column("s")),
+          jk.compare(op, lit, jdb.column("s")))
+
+
+def test_compare_dictionary_with_dictionary_raises(cols):
+    _, tdb = cols
+    with pytest.raises(pc.ArrowNotImplemented, match="dictionary"):
+        kernels.compare("equal", tdb.column("s"), tdb.column("s"))
+
+
+@pytest.mark.parametrize("fn", ["is_null", "is_valid", "is_nan",
+                                "is_finite"])
+@pytest.mark.parametrize("col", ["i32", "i64", "f32", "f64", "s"])
+def test_validity_predicates_match_jax(cols, fn, col):
+    jdb, tdb = cols
+    tc = getattr(kernels, fn)(tdb.column(col))
+    jc = getattr(jk, fn)(jdb.column(col))
+    _same(tc, jc)
+    # is_null / is_valid have no nulls: their padding compares too
+    if fn in ("is_null", "is_valid"):
+        np.testing.assert_array_equal(tc.values.numpy(),
+                                      np.asarray(jc.values))
+
+
+@pytest.mark.parametrize("op", ["xor", "and_not", "and_not_kleene"])
+def test_new_boolean_kernels_match_jax(cols, op):
+    jdb, tdb = cols
+    tc = kernels.boolean_binary(op, tdb.column("b"), tdb.column("c"))
+    jc = jk.boolean_binary(op, jdb.column("b"), jdb.column("c"))
+    n = jc.length
+    known = np.ones(n, bool) if jc.validity is None else np.unpackbits(
+        np.asarray(jc.validity).view(np.uint8), bitorder="little")[:n] > 0
+    tknown = np.unpackbits(words_u32(tc.validity).view(np.uint8),
+                           bitorder="little")[:n] > 0
+    np.testing.assert_array_equal(tknown, known)
+    np.testing.assert_array_equal(tc.values.numpy()[:n][known],
+                                  np.asarray(jc.values)[:n][known])
+
+
+EXPRESSIONS = [
+    ("negate", ["i64"], None), ("sqrt", ["f64"], None),
+    ("abs", ["i32"], None), ("is_null", ["f64"], None),
+    ("is_valid", ["s"], None), ("is_nan", ["f64"], None),
+    ("is_finite", ["f64"], None), ("xor", ["b", "c"], None),
+    ("and_not", ["b", "c"], None), ("and_not_kleene", ["b", "c"], None),
+    ("fill_null", ["i32", 0], None), ("fill_null", ["f64", "f64"], None),
+    ("if_else", ["b", "i32", -1], None),
+    ("if_else", ["c", 2.5, "f64"], None),
+    ("is_in", ["s"], {"value_set": ["MAIL", "SHIP"]}),
+    ("is_in", ["i32"], {"value_set": [1, 2, 3, None]}),
+    ("divide", ["f64", "i32"], None), ("mod", ["i64", "small"], None),
+]
+
+
+@pytest.mark.parametrize("fname,args,options", EXPRESSIONS)
+def test_new_expression_branches_match_jax(cols, fname, args, options):
+    jdb, tdb = cols
+
+    def expr(m):
+        return m.call(fname, [m.field(a) if isinstance(a, str) else
+                              m.literal(a) for a in args], options)
+    tc = pc.execute_scalar_expression(expr(pc), tdb)
+    jc = jpc.execute_scalar_expression(expr(jpc), jdb)
+    if fname == "and_not_kleene":
+        # the JAX expression keeps Kleene validity words, as here
+        np.testing.assert_array_equal(words_u32(tc.validity),
+                                      np.asarray(jc.validity))
+    _same(tc, jc)
+
+
+def test_cast_in_an_expression_is_not_ported(cols):
+    _, tdb = cols
+    with pytest.raises(pc.ArrowKeyError, match="cast"):
+        pc.execute_scalar_expression(
+            pc.call("cast", [pc.field("i32")], {"to_type": tdt.int64}), tdb)
+
+
+SETS = {
+    "i32": [[3, -7, 3, 11], [0, None, 5], [], [None]],
+    "i64": [[1, 2, 3], [None, 99]],
+    "f64": [[np.nan, 0.0, 1.5], [None, -0.0, np.inf]],
+    "s": [["MAIL", "SHIP"], ["AIR", None, "NOPE", "AIR"], []],
+    "b": [[True], [False, None]],
+}
+SET_CASES = [(c, i) for c, sets in SETS.items() for i in range(len(sets))]
+
+
+@pytest.mark.parametrize("col,which", SET_CASES)
+@pytest.mark.parametrize("skip_nulls", [False, True])
+def test_is_in_matches_jax(cols, col, which, skip_nulls):
+    jdb, tdb = cols
+    vset = SETS[col][which]
+    _same(pc.is_in(tdb.column(col), pc.SetLookupOptions(vset, skip_nulls)),
+          jf.is_in(jdb.column(col), jf.SetLookupOptions(vset, skip_nulls)))
+
+
+@pytest.mark.parametrize("col,which", SET_CASES)
+def test_index_in_matches_jax(cols, col, which):
+    jdb, tdb = cols
+    vset = SETS[col][which]
+    got = column_to_host(pc.index_in(tdb.column(col), value_set=vset))
+    want = from_device(jf.index_in(jdb.column(col), value_set=vset))
+    assert got.to_pylist() == want.to_pylist()
+
+
+@pytest.mark.parametrize("col", ["i32", "f64", "s", "b"])
+def test_fill_null_matches_jax(cols, col):
+    jdb, tdb = cols
+    fill = {"i32": 7, "f64": -1.0, "s": 2, "b": True}[col]
+    tc = pc.fill_null(tdb.column(col), fill)
+    _same(tc, jf.fill_null(jdb.column(col), fill))
+    assert tc.dictionary is tdb.column(col).dictionary
+    _same(pc.fill_null(tdb.column("i64"), 0),
+          jf.fill_null(jdb.column("i64"), 0))
+
+
+@pytest.mark.parametrize("left,right", [("i32", "amt"), ("f64", 0.5),
+                                        (-4, "i64"), ("b", "c")])
+@pytest.mark.parametrize("cond", ["b", "c"])
+def test_if_else_matches_jax(cols, cond, left, right):
+    jdb, tdb = cols
+
+    def arg(db, a):
+        return db.column(a) if isinstance(a, str) else a
+    tc = pc.if_else(tdb.column(cond), arg(tdb, left), arg(tdb, right))
+    jc = jf.if_else(jdb.column(cond), arg(jdb, left), arg(jdb, right))
+    assert tc.validity is not None
+    _same(tc, jc)
+
+
+def _pylist_nan(xs):
+    return [("nan" if isinstance(x, float) and np.isnan(x) else x)
+            for x in xs]
+
+
+@pytest.mark.parametrize("col", ["i32", "i64", "f64", "s", "b", "small"])
+def test_unique_matches_jax(cols, col):
+    jdb, tdb = cols
+    got = column_to_host(pc.unique(tdb.column(col))).to_pylist()
+    want = from_device(jf.unique(jdb.column(col))).to_pylist()
+    assert _pylist_nan(got) == _pylist_nan(want)
+
+
+@pytest.mark.parametrize("col", ["i32", "i64", "f64", "small"])
+def test_dictionary_encode_matches_jax(cols, col):
+    jdb, tdb = cols
+    tc = pc.dictionary_encode(tdb.column(col))
+    jc = jf.dictionary_encode(jdb.column(col))
+    assert tc.type == tdt.dictionary(tdt.int32, tdb.column(col).type)
+    n = jc.length
+    np.testing.assert_array_equal(tc.values.numpy()[:n],
+                                  np.asarray(jc.values)[:n])
+    assert (tc.validity is None) == (jc.validity is None)
+    assert _pylist_nan(tc.dictionary.tolist()) == _pylist_nan(
+        jc.dictionary.to_pylist())
+    s = tdb.column("s")
+    assert pc.dictionary_encode(s) is s
+
+
+AGG_COLS = ["i32", "i64", "f32", "g", "small"]
+
+
+@pytest.mark.parametrize("col", AGG_COLS + ["s", "b"])
+def test_count_distinct_matches_jax(cols, col):
+    jdb, tdb = cols
+    assert pc.agg_count_distinct(tdb.column(col)) == \
+        jf.agg_count_distinct(jdb.column(col))
+
+
+@pytest.mark.parametrize("fn", ["agg_any", "agg_all"])
+@pytest.mark.parametrize("col", ["b", "c"])
+def test_any_all_match_jax(cols, fn, col):
+    jdb, tdb = cols
+    assert getattr(pc, fn)(tdb.column(col)) == getattr(jf, fn)(
+        jdb.column(col))
+
+
+def _agg_col(rng, dtype, n, density):
+    if np.dtype(dtype).kind == "f":
+        v = rng.uniform(0.5, 1.5, n).astype(dtype)
+    else:
+        v = rng.choice(np.array([1, -1, 2, 3, 1, 1, -1], dtype), n)
+    masks = None if density is None else {"x": rng.random(n) < density}
+    jdb = jax_batch({"x": v}, masks)
+    return jdb.column("x"), port_batch(jdb).column("x")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32,
+                                   np.float64])
+@pytest.mark.parametrize("density", [None, 0.4, 0.0])
+def test_product_matches_jax(rng, dtype, density):
+    jc, tc = _agg_col(rng, dtype, 90, density)
+    got, want = pc.agg_product(tc), jf.agg_product(jc)
+    if want is None:
+        assert got is None
+    elif np.dtype(dtype).kind == "f":
+        np.testing.assert_allclose(got, want, rtol=1e-9 if dtype ==
+                                   np.float64 else 1e-5)
+    else:
+        assert got == want and isinstance(got, int)
+
+
+def test_product_widens_int32_like_jax():
+    jc, tc = _int_col([2 ** 20, 2 ** 20, 3, -1], np.int32)
+    assert pc.agg_product(tc) == jf.agg_product(jc) == -3 * 2 ** 40
+
+
+@pytest.mark.parametrize("col", AGG_COLS)
+@pytest.mark.parametrize("ddof", [0, 1])
+def test_variance_and_stddev_match_jax(cols, col, ddof):
+    jdb, tdb = cols
+    for fn in ("agg_variance", "agg_stddev"):
+        got = getattr(pc, fn)(tdb.column(col), pc.VarianceOptions(ddof))
+        want = getattr(jf, fn)(jdb.column(col), jf.VarianceOptions(ddof))
+        np.testing.assert_allclose(got, want, rtol=1e-9)
+
+
+def test_variance_of_no_valid_row_is_nan_like_jax(rng):
+    jc, tc = _agg_col(rng, np.float64, 50, 0.0)
+    assert np.isnan(pc.agg_variance(tc)) and np.isnan(jf.agg_variance(jc))

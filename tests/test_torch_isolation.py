@@ -31,6 +31,8 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.ops.reductions\n"
             "import arrow_go_tpu_torch.native as native\n"
             "import arrow_go_tpu_torch.compute.groupby\n"
+            "import arrow_go_tpu_torch.compute.join\n"
+            "import arrow_go_tpu_torch.ops.hashing\n"
             "import arrow_go_tpu_torch.parquet.device_read\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -92,6 +94,19 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.tensor([3, 1, 2])
     assert scan.cummax_u64_lanes(x, [x])[1].tolist() == [3, 3, 3]
     assert reductions.reduce(x, None, 2, "sum").item() == 4
+    # the join's fills (forward, and the reverse fill of a full outer
+    # join), its compactions and the first-occurrence fill of an encode
+    from arrow_go_tpu_torch import dtypes
+    from arrow_go_tpu_torch.ops import hashing
+    from arrow_go_tpu_torch.parallel import join
+    k = torch.tensor([1, 2, 2, 5])
+    ok = torch.tensor([True, True, True, False])
+    st = join.join_sorted_state(k, ok, k.flip(0), ok, "full outer")
+    assert int(st.total) == 6          # 2 x 2 pairs, two unmatched
+    assert join.local_join_semi(k, ok, k[:1], ok[:1], "left semi").tolist() \
+        == [True, False, False, False]
+    res = hashing.encode_codes(k.flip(0), dtypes.int64, None, 4)
+    assert res.codes.tolist() == [0, 1, 1, 2]
     assert [k.launches for k in kernels] == before
 
 

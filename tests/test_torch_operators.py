@@ -125,6 +125,61 @@ def test_local_join_inner_matches_jax():
     assert pairs == want
 
 
+@pytest.mark.parametrize("how", ["left outer", "right outer", "full outer"])
+def test_local_join_outer_matches_jax(how):
+    """The outer branches of the join state: the unmatched left rows
+    (max(count, 1)) and the unmatched rights (the reverse fill of the
+    lefts in their run, K2 on the card) emit one row each."""
+    rng = np.random.default_rng(5)
+    PL, PR = 1024, 512
+    lk, lw = _keys_with_nulls(rng, 1000, PL, 60)
+    rk, rw = _keys_with_nulls(rng, 400, PR, 60)
+    lvalid = np.unpackbits(lw.view(np.uint8), bitorder="little").astype(bool)
+    rvalid = np.unpackbits(rw.view(np.uint8), bitorder="little").astype(bool)
+    cap = 8192
+    jli, jri, jrperm, jtot, _ = jjoin.local_join_inner(
+        jnp.asarray(lk), jnp.asarray(lvalid), jnp.asarray(rk),
+        jnp.asarray(rvalid), cap, how)
+    tli, tri, trperm, ttot, tov = tjoin.local_join_inner(
+        torch.from_numpy(lk), torch.from_numpy(lvalid), torch.from_numpy(rk),
+        torch.from_numpy(rvalid), cap, how)
+    assert int(ttot) == int(jtot) and not bool(tov)
+    np.testing.assert_array_equal(tli.numpy(), np.asarray(jli))
+    np.testing.assert_array_equal(tri.numpy(), np.asarray(jri))
+    nr = int(rvalid.sum())
+    np.testing.assert_array_equal(trperm.numpy()[:nr],
+                                  np.asarray(jrperm)[:nr])
+    st = tjoin.join_sorted_state(torch.from_numpy(lk),
+                                 torch.from_numpy(lvalid),
+                                 torch.from_numpy(rk),
+                                 torch.from_numpy(rvalid), how)
+    jst = jjoin.join_sorted_state(jnp.asarray(lk), jnp.asarray(lvalid),
+                                  jnp.asarray(rk), jnp.asarray(rvalid), how)
+    for name in ("starts_j", "emitting", "counts_pos", "R_before"):
+        np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                      np.asarray(getattr(jst, name)))
+
+
+@pytest.mark.parametrize("how", ["left semi", "left anti"])
+@pytest.mark.parametrize("PL,PR", [(1024, 512), (128, 2048)])
+def test_local_join_semi_matches_jax(how, PL, PR):
+    rng = np.random.default_rng(6)
+    lk, lw = _keys_with_nulls(rng, PL - 24, PL, 80)
+    rk, rw = _keys_with_nulls(rng, PR - 100, PR, 80)
+    lvalid = np.unpackbits(lw.view(np.uint8), bitorder="little").astype(bool)
+    rvalid = np.unpackbits(rw.view(np.uint8), bitorder="little").astype(bool)
+    want = np.asarray(jjoin.local_join_semi(
+        jnp.asarray(lk), jnp.asarray(lvalid), jnp.asarray(rk),
+        jnp.asarray(rvalid), how))
+    got = tjoin.local_join_semi(
+        torch.from_numpy(lk), torch.from_numpy(lvalid), torch.from_numpy(rk),
+        torch.from_numpy(rvalid), how)
+    np.testing.assert_array_equal(got.numpy(), want)
+    hit = np.isin(lk, rk[rvalid]) & lvalid
+    np.testing.assert_array_equal(got.numpy(), hit if how == "left semi"
+                                  else ~hit & lvalid)
+
+
 def _assert_batches_equal(tdb, jdb, rtol=None):
     assert tdb.schema.names == jdb.schema.names
     assert tdb.length == jdb.length
