@@ -156,21 +156,31 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
         return device_batch_to_host(_join_device(
             ldb, rdb, left_keys, right_keys, join_type, left_suffix,
             right_suffix, output_columns))
-    # semi / anti: the verdict per probe row selects rows of that side;
-    # the right forms are the left forms with the sides swapped
+    verdict = semi_verdict(ldb, rdb, left_keys, right_keys, join_type)
+    kept = right if join_type.startswith("right") else left
+    return _project(_select_left(kept, verdict), output_columns)
+
+
+def semi_verdict(ldb: DeviceBatch, rdb: DeviceBatch, left_keys: Sequence[str],
+                 right_keys: Sequence[str], join_type: str) -> torch.Tensor:
+    """The semi / anti verdict on the device: a bool tensor over the
+    padded rows of the kept side (the left side for the left forms, the
+    right side for the right forms, which are the left forms with the
+    sides swapped), False on padding. A null key matches nothing, so an
+    anti join keeps its row."""
+    if join_type not in _HOWS[4:]:
+        raise ArrowInvalid(f"not a semi or anti join: {join_type!r}")
     lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
     if join_type.startswith("right"):
         ldb, rdb, lcodes, rcodes = rdb, ldb, rcodes, lcodes
-        left = right
     how = "left semi" if join_type.endswith("semi") else "left anti"
-    PL, PR = ldb.padded, rdb.padded
-    in_l = row_mask(PL, ldb.length, lcodes.device)
+    in_l = row_mask(ldb.padded, ldb.length, lcodes.device)
     verdict = local_join_semi(lcodes, in_l & (lcodes >= 0), rcodes,
-                              row_mask(PR, rdb.length, rcodes.device)
+                              row_mask(rdb.padded, rdb.length, rcodes.device)
                               & (rcodes >= 0), how)
-    if how == "left anti":            # a null key matches nothing
+    if how == "left anti":
         verdict = verdict | ~(lcodes >= 0)
-    return _project(_select_left(left, verdict & in_l), output_columns)
+    return verdict & in_l
 
 
 def _renumber_keys(batch: HostBatch, keys) -> HostBatch:

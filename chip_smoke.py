@@ -515,18 +515,10 @@ def _sorted_by_key(g: HostBatch, key: str) -> HostBatch:
 
 
 def q4_exists(ord_f: DeviceBatch, li_f: DeviceBatch) -> DeviceColumn:
-    """EXISTS (lineitem row with l_okey = o_okey) per order row: the semi
-    verdict of the join core over the shared key codes, on the device
-    (the steps hash_join's record path runs for a left semi join)."""
-    from arrow_go_tpu_torch.compute.join import _key_codes
-    from arrow_go_tpu_torch.device.block import row_mask
-    from arrow_go_tpu_torch.parallel.join import local_join_semi
-    oc, lc = _key_codes(ord_f, li_f, ["o_okey"], ["l_okey"])
-    dev = oc.device
-    ok = row_mask(ord_f.padded, ord_f.length, dev) & (oc >= 0)
-    verdict = local_join_semi(
-        oc, ok, lc, row_mask(li_f.padded, li_f.length, dev) & (lc >= 0),
-        "left semi")
+    """EXISTS (lineitem row with l_okey = o_okey) per order row: the left
+    semi verdict hash_join's record path selects rows by, on the device."""
+    from arrow_go_tpu_torch.compute.join import semi_verdict
+    verdict = semi_verdict(ord_f, li_f, ["o_okey"], ["l_okey"], "left semi")
     return DeviceColumn(verdict, None, ord_f.length, dt.bool_)
 
 
@@ -792,9 +784,12 @@ def _payloads(kind: str, n: int, g: torch.Generator, dev):
 
 
 K1_TILE = compaction._TILE
+# 1,572,864: Q13's customers, padded (the outer join's null-key rows)
 K1_SIZES = (1, 31, K1_TILE - 1, K1_TILE, K1_TILE + 1, 8191, 8192, 65_537,
+            1_572_864, 67_108_864)
+# 18,350,080 and 42,729,472: Q13's and Q4's join lengths at SF10
+K2_SIZES = (1, 31, 8191, 8192, 65_537, 18_350_080, 33_554_432, 42_729_472,
             67_108_864)
-K2_SIZES = (1, 31, 8191, 8192, 65_537, 33_554_432, 67_108_864)
 K1_MIXED = (torch.bool, torch.int8, torch.int16, torch.float16, torch.int32,
             torch.float32, torch.int64, torch.float64)
 
@@ -874,6 +869,18 @@ def _join_like_lanes(n: int, total: int, g: torch.Generator, dev,
     return hi, los
 
 
+def _fill_inputs(n: int, g: torch.Generator, dev):
+    """The join state's one-lane fills (cummax_u32): run-start marks that
+    grow along the rows, zero elsewhere (R_before, L_before), and
+    grp_L_end's input, imax - end-of-run marks, reversed."""
+    marks = torch.cumsum(torch.randint(0, 3, (n,), generator=g,
+                                       device=dev), 0)
+    at = torch.rand(n, generator=g, device=dev) < 0.3
+    imax = (1 << 31) - 1
+    return (torch.where(at, marks, 0),
+            torch.flip(imax - torch.where(at, marks, imax), (0,)))
+
+
 def check_k2(dev, sizes=K2_SIZES) -> float:
     g = torch.Generator(device=dev).manual_seed(2)
     err = 0.0
@@ -889,6 +896,11 @@ def check_k2(dev, sizes=K2_SIZES) -> float:
                 torch.cuda.synchronize()
                 err = max(err, _max_abs_err(got, want))
                 cases += 1
+        for x in _fill_inputs(n, g, dev):   # a zero lo lane, as cummax_u32
+            lanes = [torch.zeros_like(x)]
+            err = max(err, _max_abs_err(scan.cummax_u64_lanes(x, lanes),
+                                        scan.cummax_u64_lanes_plain(x, lanes)))
+            cases += 1
     print(f"K2 check: {cases} cases bit-identical to the plain version")
     return err
 
@@ -897,6 +909,7 @@ def capture_k1(fn):
     """Run fn once with every K1 call site of the engine recording what
     it hands K1. Returns (fn's result, [(site, keep, payloads)]), site
     being the function that asked for the compaction."""
+    from arrow_go_tpu_torch.compute import join as cjoin
     from arrow_go_tpu_torch.ops import groupagg, selection
     from arrow_go_tpu_torch.parallel import join as pjoin
     calls = []
@@ -909,7 +922,7 @@ def capture_k1(fn):
         calls.append((caller, keep, payloads))
         return compaction.compact_flagged(keep, payloads)
 
-    mods = (selection, groupagg, pjoin)
+    mods = (selection, groupagg, pjoin, cjoin)
     saved = [m.compact_flagged for m in mods]
     for m in mods:
         m.compact_flagged = recording
@@ -919,6 +932,58 @@ def capture_k1(fn):
         for m, f in zip(mods, saved):
             m.compact_flagged = f
     return out, calls
+
+
+def check_path_calls(name: str, fn, counted: dict):
+    """Run fn once with every K1 and K2 call site holding each call's
+    result against the plain version on the same inputs, bit for bit
+    (these launches compare; they are not the path's counted run). Fails
+    unless as many calls were held as `counted` says the path's counted
+    run launched. Returns (fn's result, {kernel: summary})."""
+    from arrow_go_tpu_torch.compute import join as cjoin
+    from arrow_go_tpu_torch.ops import groupagg, hashing, selection
+    from arrow_go_tpu_torch.parallel import join as pjoin
+    seen = {"K1": [], "K2": []}
+
+    def k1(keep, payloads):
+        payloads = tuple(payloads)
+        got = compaction.compact_flagged(keep, payloads)
+        if keep.shape[0]:
+            seen["K1"].append((keep.shape[0], len(payloads), _max_abs_err(
+                got, compaction.compact_flagged_plain(keep, payloads))))
+        return got
+
+    def k2(hi, los):
+        los = list(los)
+        got = scan.cummax_u64_lanes(hi, los)
+        if hi.shape[0]:
+            seen["K2"].append((hi.shape[0], len(los), _max_abs_err(
+                got, scan.cummax_u64_lanes_plain(hi, los))))
+        return got
+
+    patches = [(m, "compact_flagged", k1)
+               for m in (selection, groupagg, pjoin, cjoin)] + [
+        (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
+        # scan.cummax_u32's call, a zero lo lane
+        (pjoin, "cummax_u32", lambda x: k2(x, [torch.zeros_like(x)])[0])]
+    saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
+    for m, attr, f in patches:
+        setattr(m, attr, f)
+    try:
+        out = fn()
+    finally:
+        for m, attr, f in saved:
+            setattr(m, attr, f)
+    summary = {}
+    for k, calls in seen.items():
+        if len(calls) != counted[k]:
+            raise AssertionError(f"{name}: held {len(calls)} {k} calls "
+                                 f"against the plain version, counted "
+                                 f"{counted[k]} launches")
+        summary[k] = {"calls": len(calls),
+                      "shapes": sorted({(n, lanes) for n, lanes, _ in calls}),
+                      "max_abs_err": max((e for *_, e in calls), default=0.0)}
+    return out, summary
 
 
 def _k1_library(keep, pays):
@@ -1614,18 +1679,23 @@ def check_functions(got: dict, want: dict) -> None:
 
 def time_k2_fill(dev, n: int) -> dict:
     """K2 as the join state's forward fills call it (cummax_u32: one
-    lane of monotone run-start marks, zero elsewhere) at n slots."""
+    lane of monotone run-start marks, zero elsewhere) at n slots, held
+    bit for bit against the plain version. The bound counts what the
+    function needs, one int64 lane read and one written (16 B a slot);
+    K2 also reads the zero lo lane cummax_u32 passes it and writes that
+    lane's fill, 32 B a slot (`kernel_bytes_ms`)."""
     g = torch.Generator(device=dev).manual_seed(7)
-    marks = torch.cumsum(torch.randint(0, 2, (n,), generator=g,
-                                       device=dev), 0)
-    x = torch.where(torch.rand(n, generator=g, device=dev) < 0.3, marks, 0)
-    nbytes = 4 * 8 * n          # hi and lo lanes read, both fills written
-    return {"shape": f"n={n}, one lane (cummax_u32)",
+    x, _ = _fill_inputs(n, g, dev)
+    zero = [torch.zeros_like(x)]
+    err = _max_abs_err(scan.cummax_u64_lanes(x, zero),
+                       scan.cummax_u64_lanes_plain(x, zero))
+    return {"shape": f"n={n}, one lane (cummax_u32)", "max_abs_err": err,
             "ms": _time_ms(lambda: scan.cummax_u32(x), 20),
             "plain_ms": _time_ms(lambda: scan.cummax_u64_lanes_plain(
                 x, [torch.zeros_like(x)]), 3),
             "library_ms": _time_ms(lambda: torch.cummax(x, 0), 5),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3,
+            "kernel_bytes_ms": 32 * n / HBM_BYTES_PER_S * 1e3}
 
 
 def join_phases(li, orders, dev, snappy, card: str) -> dict:
@@ -1653,9 +1723,12 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
                                                         mark),
          q13_oracle(orders, n_cust)))
     row_counts = join_row_counts(li, orders, n_cust)
+    held = {}
     for name, run, want in queries:
         out, launches[name.upper()] = run_path(name.upper(), run,
                                                ("K1", "K2"))
+        check_rows(name, out, want)
+        out, held[name] = check_path_calls(name, run, launches[name.upper()])
         check_rows(name, out, want)
         outs, runs = timed(run)
         for out in outs:
@@ -1687,6 +1760,8 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
                 raise AssertionError(f"join sweep {how} ({route}): {got} "
                                      f"vs numpy {wants[how]}")
     _, launches["joins"] = run_path("joins", sweep_all, ("K1", "K2"))
+    _, held["joins"] = check_path_calls("joins", sweep_all,
+                                        launches["joins"])
     per_type = {}
     for how, route in cases:
         outs, runs = timed(lambda: sweep_join(how, route, hosts, devs))
@@ -1714,6 +1789,10 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
         "functions", lambda: compute_functions(li_s, pfac),
         ("K1", "K2", "K3"))
     check_functions(got, want)
+    got, held["functions"] = check_path_calls(
+        "functions", lambda: compute_functions(li_s, pfac),
+        launches["functions"])
+    check_functions(got, want)
     outs, runs = timed(lambda: compute_functions(li_s, pfac))
     for got in outs:
         check_functions(got, want)
@@ -1723,7 +1802,12 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
         | {"ms_runs": runs, "ms_median": float(np.median(runs)),
            "launches_per_run": launches["functions"], "card": card,
            "verified": True}}), flush=True)
-    return {"launches": launches, "k2_q13": k2_q13}
+    # every K1 and K2 call of these paths, on its own inputs
+    print(json.dumps({"path_checks": held}), flush=True)
+    errs = {k: max(h[k]["max_abs_err"] for h in held.values())
+            for k in ("K1", "K2")}
+    errs["K2"] = max(errs["K2"], k2_q13["max_abs_err"])
+    return {"launches": launches, "k2_q13": k2_q13, "errs": errs}
 
 
 def main(argv=None) -> int:
@@ -1899,10 +1983,13 @@ def main(argv=None) -> int:
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
+    k1_err = max(k1_err, joins["errs"]["K1"])
+    k2_err = max(k2_err, joins["errs"]["K2"])
     k2q = joins["k2_q13"]
     print(f"K2 at {k2q['shape']} (Q13's join): kernel {k2q['ms']:.4f} ms, "
           f"plain {k2q['plain_ms']:.4f} ms, library {k2q['library_ms']:.4f} "
-          f"ms, bound {k2q['bound_ms']:.4f} ms")
+          f"ms, bound {k2q['bound_ms']:.4f} ms (one lane in, one out; "
+          f"{k2q['kernel_bytes_ms']:.4f} ms for the bytes K2 moves)")
     print(json.dumps({"k2_q13": k2q}), flush=True)
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,

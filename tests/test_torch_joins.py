@@ -206,6 +206,25 @@ def test_empty_sides_match_jax(rng, empty, how):
                      jpc.hash_join(jl, jr, "i", join_type=how))
 
 
+@pytest.mark.parametrize("how", ALL_HOWS[4:])
+@pytest.mark.parametrize("keys", [["k"], ["k", "i"]])
+def test_semi_verdict_selects_the_rows_jax_keeps(rng, how, keys):
+    """The device verdict that the HostBatch route selects rows by, over
+    DeviceBatches: its set rows are the rows the JAX record-batch join
+    keeps, in order, and no padding row is set."""
+    from arrow_go_tpu_torch.compute.join import semi_verdict
+    jl, jr, tl, tr = _both(rng)
+    verdict = semi_verdict(tl, tr, keys, keys, how).numpy()
+    kept = tr if how.startswith("right") else tl
+    assert verdict.shape == (kept.padded,)
+    assert not verdict[kept.length:].any()
+    rows = device_batch_to_host(kept).to_pydict()
+    idx = np.flatnonzero(verdict)
+    want = jpc.hash_join(_jax_record(jl), _jax_record(jr), keys,
+                         join_type=how)
+    assert {c: [v[i] for i in idx] for c, v in rows.items()} == _rows(want)
+
+
 def test_semi_and_anti_raise_on_device_batches(rng):
     _, _, tl, tr = _both(rng, 10, 10)
     for how in ALL_HOWS[4:]:
