@@ -23,7 +23,8 @@ import torch
 from .. import dtypes as dt
 from .. import torchenv
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
-                            host_array_to_device, pad_length, row_mask)
+                            factorize, host_array_to_device, pad_length,
+                            row_mask)
 from ..ops import bitmap, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
@@ -604,12 +605,67 @@ def index_in(values, options: Optional[SetLookupOptions] = None,
 # fill_null / if_else
 # ---------------------------------------------------------------------------
 
+def shared_dict_codes(a: DeviceColumn, b: DeviceColumn, what: str):
+    """Two dictionary columns' codes in one code space, numbered by first
+    occurrence over [a's dictionary; b's dictionary] (the JAX package's
+    numbering of a join's string keys): a host factorize of the two
+    dictionaries, then one gather per column on its device. Returns (a's
+    int32 codes, b's, the merged dictionary). Raises ArrowInvalid unless
+    both columns are dictionaries."""
+    if a.dictionary is None or b.dictionary is None:
+        raise ArrowInvalid(f"{what} must both be strings/dictionary")
+    ad, bd = a.dictionary, b.dictionary
+    codes, merged = factorize(np.concatenate([ad, bd]))
+
+    def remap(col, table):
+        t = torch.from_numpy(table if len(table) else np.zeros(1, np.int32))
+        t = t.to(col.device)
+        return t.index_select(0, col.values.to(torch.int64).clamp(
+            0, t.shape[0] - 1))
+
+    return remap(a, codes[:len(ad)]), remap(b, codes[len(ad):]), merged
+
+
+def _one_code_space(x, y, what: str):
+    """Operands x, y of a selection, at least one a dictionary column,
+    in one code space: two columns by `shared_dict_codes`; a string
+    scalar becomes its code in the column's dictionary, appended when it
+    is absent; an int scalar is a code already. Returns (x, y), each
+    column recoded and carrying the shared dictionary."""
+    if isinstance(x, DeviceColumn) and isinstance(y, DeviceColumn):
+        xc, yc, merged = shared_dict_codes(x, y, what)
+        return tuple(DeviceColumn(c.to(col.values.dtype), col.validity,
+                                  col.length, col.type, merged)
+                     for col, c in ((x, xc), (y, yc)))
+    x_col = isinstance(x, DeviceColumn)
+    col, s = (x, y) if x_col else (y, x)
+    if isinstance(s, (str, bytes)):
+        d = col.dictionary
+        hit = np.flatnonzero(d == s)
+        if len(hit):
+            s = int(hit[0])
+        else:
+            s, d = len(d), np.concatenate([d, np.array([s], dtype=object)])
+            col = DeviceColumn(col.values, col.validity, col.length,
+                               col.type, d)
+    return (col, s) if x_col else (s, col)
+
+
+def _is_dict(x) -> bool:
+    return isinstance(x, DeviceColumn) and x.dictionary is not None
+
+
 def fill_null(values, fill_value) -> DeviceColumn:
-    """Null rows take `fill_value` (a scalar or a DeviceColumn's row);
-    the dictionary, if any, stays."""
+    """Null rows take `fill_value` (a scalar or a DeviceColumn's row).
+    String operands select in one code space (`_one_code_space`) and the
+    result carries its dictionary; a string fill beside a column that is
+    not a string column raises ArrowInvalid."""
     col = _as_device(values)
     if col.validity is None:
         return col
+    if _is_dict(col) or _is_dict(fill_value):
+        col, fill_value = _one_code_space(col, fill_value,
+                                          "fill_null operands")
     fv = fill_value.values if isinstance(fill_value, DeviceColumn) else \
         torch.full((col.padded,), fill_value, dtype=col.values.dtype,
                    device=col.device)
@@ -621,9 +677,14 @@ def fill_null(values, fill_value) -> DeviceColumn:
 def if_else(cond, left, right) -> DeviceColumn:
     """left where cond, else right (scalars broadcast; two scalars make
     an int64, float64 or bool column). A null cond gives a null row; the
-    result always carries its validity words."""
+    result always carries its validity words. String operands select in
+    one code space (`_one_code_space`) and the result carries its
+    dictionary; a string column beside a column that is not a string
+    column raises ArrowInvalid."""
     c = _as_device(cond)
     P, dev = c.padded, c.device
+    if _is_dict(left) or _is_dict(right):
+        left, right = _one_code_space(left, right, "if_else operands")
     col = left if isinstance(left, DeviceColumn) else right
     if isinstance(col, DeviceColumn):
         t = col.type
@@ -648,5 +709,6 @@ def if_else(cond, left, right) -> DeviceColumn:
     chosen = torch.where(c.values, lm, rm)
     if c.validity is not None:
         chosen = chosen & bitmap.expand_words(c.validity, P)
+    dictionary = col.dictionary if isinstance(col, DeviceColumn) else None
     return DeviceColumn(torch.where(c.values, lv, rv), bitmap.pack_mask(
-        chosen), c.length, t)
+        chosen), c.length, t, dictionary)

@@ -25,13 +25,12 @@ import torch
 from .. import dtypes as dt
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             concat_host_arrays, device_batch_to_host,
-                            factorize, host_batch_to_device, pad_length,
-                            row_mask)
+                            host_batch_to_device, pad_length, row_mask)
 from ..ops import bitmap, hashing, selection
 from ..ops.compaction import compact_flagged
 from ..parallel.join import join_expand, join_sorted_state, local_join_semi
 from .errors import ArrowInvalid, ArrowNotImplemented
-from .functions import _take_host
+from .functions import _take_host, shared_dict_codes
 
 _HOWS = ("inner", "left outer", "right outer", "full outer",
          "left semi", "left anti", "right semi", "right anti")
@@ -46,25 +45,6 @@ PROBE_CHUNK_DEFAULT = 1 << 23
 _CHUNKABLE = ("inner", "left outer", "left semi", "left anti")
 
 
-def _shared_dict_codes(lc: DeviceColumn, rc: DeviceColumn):
-    """Both dictionary columns' codes mapped into one shared code space,
-    numbered by first occurrence over [left dictionary; right
-    dictionary] (the JAX package's numbering): a host factorize of the
-    two dictionaries, then one gather per side on the device. int32."""
-    if lc.dictionary is None or rc.dictionary is None:
-        raise ArrowInvalid("join keys must both be strings/dictionary")
-    ld, rd = lc.dictionary, rc.dictionary
-    codes, _ = factorize(np.concatenate([ld, rd]))
-
-    def remap(col, table):
-        t = torch.from_numpy(table if len(table) else np.zeros(1, np.int32))
-        t = t.to(col.device)
-        return t.index_select(0, col.values.to(torch.int64).clamp(
-            0, t.shape[0] - 1))
-
-    return remap(lc, codes[:len(ld)]), remap(rc, codes[len(ld):])
-
-
 def _key_codes(left: DeviceBatch, right: DeviceBatch,
                left_keys: Sequence[str], right_keys: Sequence[str]):
     """Shared-space dense codes for both sides (-1 = null/padding)."""
@@ -74,7 +54,7 @@ def _key_codes(left: DeviceBatch, right: DeviceBatch,
         lc, rc = left.column(lname), right.column(rname)
         if lc.type.id == dt.TypeId.DICTIONARY or \
                 rc.type.id == dt.TypeId.DICTIONARY:
-            lv, rv = _shared_dict_codes(lc, rc)
+            lv, rv, _ = shared_dict_codes(lc, rc, "join keys")
             t = dt.int32
         else:
             if lc.values.dtype != rc.values.dtype:
@@ -129,10 +109,13 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
                 "device-batch join supports inner/outer types")
         dev = (left if isinstance(left, DeviceBatch) else right).columns[
             0].device
-        ldb = left if isinstance(left, DeviceBatch) else \
-            host_batch_to_device(left, dev)
-        rdb = right if isinstance(right, DeviceBatch) else \
-            host_batch_to_device(right, dev)
+
+        def on_device(batch, keys):
+            # a HostBatch's dictionary keys are renumbered as on the
+            # HostBatch route, so the row order matches it
+            return batch if isinstance(batch, DeviceBatch) else \
+                host_batch_to_device(_renumber_keys(batch, keys), dev)
+        ldb, rdb = on_device(left, left_keys), on_device(right, right_keys)
         return _join_device(ldb, rdb, left_keys, right_keys, join_type,
                             left_suffix, right_suffix, output_columns)
     if not (isinstance(left, HostBatch) and isinstance(right, HostBatch)):

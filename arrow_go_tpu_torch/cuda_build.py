@@ -103,11 +103,16 @@ def check(rc: int, what: str) -> None:
 
 def stream_scratch(name: str, device: torch.device, stream: int,
                    words: int) -> torch.Tensor:
-    """`words` int64 of zeroed scratch for kernel `name` on one device
-    and stream, allocated at first use and kept. A kernel leaves it as it
-    found it (its last block resets its ticket), so no call pays a fill,
+    """At least `words` int64 of scratch for kernel `name` on one device
+    and stream, zeroed when it is allocated (at first use, and again,
+    at least twice as large, when a call needs more) and kept. A kernel
+    leaves it ready for its next call (its last block resets its ticket;
+    K2's status words carry the call's epoch), so no call pays a fill,
     and two streams never share a ticket."""
     key = (name, device.index, stream)
-    if key not in _scratch:
-        _scratch[key] = torch.zeros(words, dtype=torch.int64, device=device)
-    return _scratch[key]
+    s = _scratch.get(key)
+    if s is None or s.numel() < words:
+        grown = words if s is None else max(words, 2 * s.numel())
+        s = _scratch[key] = torch.zeros(grown, dtype=torch.int64,
+                                        device=device)
+    return s

@@ -5,11 +5,13 @@ without one. Phases:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build:  the port's CUDA kernels, compiled from csrc/ with nvcc;
-  3. K1 (compact_flagged), K2 (cummax_u64_lanes) and K3 (reduce,
-     reduce_with_count) against their plain PyTorch versions over a
-     sweep of lengths, densities and types: K1 and K2 bit for bit (K1
-     over its whole length, with views at an element offset that are
-     not 16-byte aligned and with 16 mixed-width payloads), K3 bit for
+  3. K1 (compact_flagged), K2 (cummax_u64_lanes, and its hi-only mode
+     cummax_u32) and K3 (reduce, reduce_with_count) against their plain
+     PyTorch versions over a sweep of lengths, densities and types: K1
+     and K2 bit for bit, each case launched twice (K1 over its whole
+     length, with views at an element offset that are not 16-byte
+     aligned and with 16 mixed-width payloads; K2 with 0 to 4 lo lanes
+     and offset views too), K3 bit for
      bit for ints, min, max and (exact) products, float sums at rtol
      1e-9 (f64) and 1e-5 (f32), its counts exact, and every K3 result
      identical over two launches and over two launches with another
@@ -51,17 +53,22 @@ without one. Phases:
      probe chunked at PROBE_CHUNK_DEFAULT rows) inputs with null keys,
      out-rows and per-column checksums against numpy; is_in, index_in,
      unique, dictionary_encode, count_distinct, product, variance,
-     stddev, any and all over the scanned lineitem against numpy; K2
-     timed at Q13's join length;
+     stddev, any and all over the scanned lineitem against numpy;
+     if_else and fill_null over its string columns (two dictionaries,
+     string scalars, a null condition) and a join of a DeviceBatch with
+     a HostBatch whose dictionary is not in first-occurrence order,
+     against numpy; every K1 and K2 call of one more run of Q4, Q12,
+     Q13, the sweep and the functions against the plain version; K2's
+     hi-only mode timed at Q13's and Q4's join lengths;
   10. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 9 and 10: a run
-that times every path and kernel shape using only entry points that
-earlier trees have too, so that two trees can be run in turns on one
-card (copy this script into a tree unpacked with `git archive` and run
-it there, then here, here, there). Phase 8 runs only in a tree that
-has its entry points.
+With --timing-only it skips phases 3 and 10 and, of phase 9, all but
+the three queries and K2's timings: a run that times every path and
+kernel shape using only entry points that earlier trees have too, so
+that two trees can be run in turns on one card (copy this script into
+a tree unpacked with `git archive` and run it there, then here, here,
+there). Phases 8 and 9 run only in a tree that has their entry points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
@@ -881,7 +888,36 @@ def _fill_inputs(n: int, g: torch.Generator, dev):
             torch.flip(imax - torch.where(at, marks, imax), (0,)))
 
 
+def _k2_case(hi, los) -> float:
+    """K2 against its plain version, launched twice (look-back scratch
+    left stale by the first launch would show in the second). No lo lane
+    is the hi-only mode, called through cummax_u32 as the join state
+    calls it."""
+    if los:
+        want = scan.cummax_u64_lanes_plain(hi, los)
+
+        def run():
+            return scan.cummax_u64_lanes(hi, los)
+    else:
+        want = [scan.cummax_u32_plain(hi)]
+
+        def run():
+            return [scan.cummax_u32(hi)]
+    err = 0.0
+    for _ in range(2):
+        got = run()
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, want))
+    return err
+
+
 def check_k2(dev, sizes=K2_SIZES) -> float:
+    """K2 bit for bit against its plain version at every size, each case
+    launched twice: the join's pack lanes (one and two lo lanes, as the
+    encode and the expansion call it, and three and four), and the
+    hi-only mode on the join state's fills (run-start marks, the
+    reversed fill) and on random u32 values; both modes on views at an
+    element offset (not 16-byte aligned)."""
     g = torch.Generator(device=dev).manual_seed(2)
     err = 0.0
     cases = 0
@@ -890,18 +926,24 @@ def check_k2(dev, sizes=K2_SIZES) -> float:
                                  (0.3, True)):
             hi, los = _join_like_lanes(n, n - n // 9, g, dev, share,
                                        random_hi)
-            for lanes in (los[:1], los):    # the join state's, expansion's
-                got = scan.cummax_u64_lanes(hi, lanes)
-                want = scan.cummax_u64_lanes_plain(hi, lanes)
-                torch.cuda.synchronize()
-                err = max(err, _max_abs_err(got, want))
+            for lanes in (los[:1], los):    # the encode's, the expansion's
+                err = max(err, _k2_case(hi, lanes))
                 cases += 1
-        for x in _fill_inputs(n, g, dev):   # a zero lo lane, as cummax_u32
-            lanes = [torch.zeros_like(x)]
-            err = max(err, _max_abs_err(scan.cummax_u64_lanes(x, lanes),
-                                        scan.cummax_u64_lanes_plain(x, lanes)))
+        more = [_u32(n, g, dev) for _ in range(2)]
+        for lanes in (los + more[:1], los + more):
+            err = max(err, _k2_case(hi, lanes))
             cases += 1
-    print(f"K2 check: {cases} cases bit-identical to the plain version")
+        for x in _fill_inputs(n, g, dev) + (_u32(n, g, dev),):
+            err = max(err, _k2_case(x, []))
+            cases += 1
+        hi, los = _join_like_lanes(n + 1, n, g, dev, 0.3)
+        hi, los = hi[1:], [lo[1:] for lo in los]
+        assert hi.data_ptr() % 16 and los[0].data_ptr() % 16
+        for lanes in (los, []):
+            err = max(err, _k2_case(hi, lanes))
+            cases += 1
+    print(f"K2 check: {cases} cases bit-identical to the plain version, "
+          f"each launched twice")
     return err
 
 
@@ -961,11 +1003,18 @@ def check_path_calls(name: str, fn, counted: dict):
                 got, scan.cummax_u64_lanes_plain(hi, los))))
         return got
 
+    def k2_fill(x):
+        # the hi-only mode, shown as 0 lo lanes
+        got = scan.cummax_u32(x)
+        if x.shape[0]:
+            seen["K2"].append((x.shape[0], 0, _max_abs_err(
+                [got], [scan.cummax_u32_plain(x)])))
+        return got
+
     patches = [(m, "compact_flagged", k1)
                for m in (selection, groupagg, pjoin, cjoin)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
-        # scan.cummax_u32's call, a zero lo lane
-        (pjoin, "cummax_u32", lambda x: k2(x, [torch.zeros_like(x)])[0])]
+        (pjoin, "cummax_u32", k2_fill)]
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
     for m, attr, f in patches:
         setattr(m, attr, f)
@@ -1029,16 +1078,21 @@ def time_k1(calls) -> list:
 
 
 def time_k2(dev, n: int, total: int) -> dict:
-    """K2 at the Q3 join expansion's shape: cap slots, hi + 2 lo lanes."""
+    """K2 at the Q3 join expansion's shape: cap slots, hi + 2 lo lanes.
+    copy_ms is a device copy of the three lanes (one `copy_` each): the
+    rate a plain read and write of the same bytes reaches."""
     g = torch.Generator(device=dev).manual_seed(4)
     hi, los = _join_like_lanes(n, total, g, dev, 1.0)
     packs = torch.stack([(hi << 32) | lo for lo in los])
     nbytes = 2 * 8 * n * (1 + len(los))
+    copies = [torch.empty_like(hi) for _ in range(1 + len(los))]
     return {
         "ms": _time_ms(lambda: scan.cummax_u64_lanes(hi, los), 20),
         "plain_ms": _time_ms(lambda: scan.cummax_u64_lanes_plain(hi, los),
                              5),
         "library_ms": _time_ms(lambda: torch.cummax(packs, 1), 10),
+        "copy_ms": _time_ms(lambda: [c.copy_(t) for c, t in
+                                     zip(copies, [hi] + los)], 10),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "shape": f"n={n}, hi + 2 lo lanes",
     }
@@ -1677,34 +1731,161 @@ def check_functions(got: dict, want: dict) -> None:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-9, err_msg=k)
 
 
-def time_k2_fill(dev, n: int) -> dict:
-    """K2 as the join state's forward fills call it (cummax_u32: one
-    lane of monotone run-start marks, zero elsewhere) at n slots, held
-    bit for bit against the plain version. The bound counts what the
-    function needs, one int64 lane read and one written (16 B a slot);
-    K2 also reads the zero lo lane cummax_u32 passes it and writes that
-    lane's fill, 32 B a slot (`kernel_bytes_ms`)."""
+def fill_lengths(run) -> list:
+    """The length of every join-state fill (cummax_u32) of one run."""
+    from arrow_go_tpu_torch.parallel import join as pjoin
+    seen, fill = [], pjoin.cummax_u32
+
+    def recording(x):
+        seen.append(x.shape[0])
+        return fill(x)
+    pjoin.cummax_u32 = recording
+    try:
+        run()
+    finally:
+        pjoin.cummax_u32 = fill
+    return seen
+
+
+def time_k2_fill(dev, n: int, what: str) -> dict:
+    """K2's hi-only mode as the join state's forward fills call it
+    (cummax_u32: one lane of monotone run-start marks, zero elsewhere)
+    at n slots, held bit for bit against its plain version. The bound:
+    one int64 lane read and one written, 16 B a slot; copy_ms: one
+    `copy_` of the lane, the same bytes. (An older tree has no
+    cummax_u32_plain; the hi lane of a zero-lo-lane call is the same
+    function.)"""
     g = torch.Generator(device=dev).manual_seed(7)
     x, _ = _fill_inputs(n, g, dev)
-    zero = [torch.zeros_like(x)]
-    err = _max_abs_err(scan.cummax_u64_lanes(x, zero),
-                       scan.cummax_u64_lanes_plain(x, zero))
-    return {"shape": f"n={n}, one lane (cummax_u32)", "max_abs_err": err,
+    plain = getattr(scan, "cummax_u32_plain", None) or (
+        lambda t: scan.cummax_u64_lanes_plain(t, [torch.zeros_like(t)])[0])
+    err = _max_abs_err([scan.cummax_u32(x)], [plain(x)])
+    dst = torch.empty_like(x)
+    return {"shape": f"n={n}, one lane (cummax_u32, {what})",
+            "max_abs_err": err,
             "ms": _time_ms(lambda: scan.cummax_u32(x), 20),
-            "plain_ms": _time_ms(lambda: scan.cummax_u64_lanes_plain(
-                x, [torch.zeros_like(x)]), 3),
+            "plain_ms": _time_ms(lambda: plain(x), 3),
             "library_ms": _time_ms(lambda: torch.cummax(x, 0), 5),
-            "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3,
-            "kernel_bytes_ms": 32 * n / HBM_BYTES_PER_S * 1e3}
+            "copy_ms": _time_ms(lambda: dst.copy_(x), 10),
+            "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3}
 
 
-def join_phases(li, orders, dev, snappy, card: str) -> dict:
+def _string_ids(col: DeviceColumn, names) -> torch.Tensor:
+    """Each row of [0, length) as its string's index in `names`, -1 where
+    null, on the column's device."""
+    at = {v: i for i, v in enumerate(names)}
+    table = torch.tensor([at[v] for v in col.dictionary] or [-1],
+                         device=col.device)
+    ids = table.index_select(0, col.values.to(torch.int64).clamp(
+        0, table.shape[0] - 1))
+    return torch.where(col.validity_mask(), ids, -1)[:col.length]
+
+
+def check_string_selections(li_s: DeviceBatch, li) -> dict:
+    """if_else and fill_null over string operands on the card, over the
+    scanned lineitem: if_else(l_qty > 25, l_rflag, l_lstatus), two
+    dictionaries, every 13th condition null; fill_null of l_rflag with
+    every 7th row null, from l_lstatus, from a value of its dictionary
+    and from one that is not. Every row's string against numpy."""
+    dev, n = li_s.columns[0].device, li_s.length
+    rflag, lstatus = li_s.column("l_rflag"), li_s.column("l_lstatus")
+    rows = torch.arange(li_s.padded, device=dev)
+    big = pc.execute_scalar_expression(
+        pc.call("greater", [pc.field("l_qty"), pc.literal(25)]), li_s)
+    cond = DeviceColumn(big.values, bitmap.pack_mask(rows % 13 != 0), n,
+                        dt.bool_)
+    holed = DeviceColumn(rflag.values, bitmap.pack_mask(rows % 7 != 0), n,
+                         rflag.type, rflag.dictionary)
+    rcodes, rvalues = li["l_rflag"]
+    scodes, svalues = li["l_lstatus"]
+    names = sorted(set(rvalues) | set(svalues) | {"X"})
+    at = {v: i for i, v in enumerate(names)}
+    r_ids = np.array([at[v] for v in rvalues])[rcodes]
+    s_ids = np.array([at[v] for v in svalues])[scodes]
+    j = np.arange(n)
+    hole = j % 7 == 0
+    present = rvalues[-1]
+    cases = {
+        "if_else": (pc.if_else(cond, rflag, lstatus), np.where(
+            j % 13 == 0, -1, np.where(li["l_qty"] > 25, r_ids, s_ids))),
+        "fill_null column": (pc.fill_null(holed, lstatus),
+                             np.where(hole, s_ids, r_ids)),
+        "fill_null present": (pc.fill_null(holed, present),
+                              np.where(hole, at[present], r_ids)),
+        "fill_null absent": (pc.fill_null(holed, "X"),
+                             np.where(hole, at["X"], r_ids))}
+    for what, (out, want) in cases.items():
+        if not torch.equal(_string_ids(out, names),
+                           torch.from_numpy(want).to(dev)):
+            raise AssertionError(f"{what} over strings differs from numpy")
+    return {"rows": n, "cases": list(cases)}
+
+
+# F5's right side: ship modes over a dictionary in string order, not in
+# first-occurrence order; TRAIN and BARGE match no lineitem
+MIXED_MODES = np.array(["TRAIN", "SHIP", "BARGE", "AIR", "MAIL"],
+                       dtype=object)
+MIXED_IDS = np.array([11, 22, 33, 44, 55], dtype=np.int64)
+
+
+def check_mixed_join(left_db: DeviceBatch, left: dict) -> dict:
+    """The mixed route on the card: the join sweep's lineitem side as a
+    DeviceBatch, joined on l_smode with a HostBatch of MIXED_MODES
+    (right and full outer). Row count, the valid count and sum of l_okey
+    and r_id, and the right-only rows in the HostBatch's row order (the
+    order its renumbering gives), against numpy."""
+    dictionary = np.array(sorted(MIXED_MODES), dtype=object)
+    at = {v: i for i, v in enumerate(dictionary)}
+    t = dt.dictionary(dt.int32, dt.string)
+    right = HostBatch.from_arrays({
+        "r_mode": HostArray(np.array([at[m] for m in MIXED_MODES], np.int32),
+                            None, t, dictionary),
+        "r_id": HostArray(MIXED_IDS, None, dt.int64)})
+    lk, lvalid, _ = left["l_okey"]
+    smode = SHIPMODES[left["l_smode"][0]]
+    rid_of = dict(zip(MIXED_MODES, MIXED_IDS))
+    matched = np.isin(smode, MIXED_MODES)
+    right_only = [i for m, i in zip(MIXED_MODES, MIXED_IDS)
+                  if m not in set(SHIPMODES)]
+    rids = np.array([rid_of.get(m, 0) for m in SHIPMODES])[
+        left["l_smode"][0]][matched]
+    res = {}
+    for how in ("right outer", "full outer"):
+        keep = matched if how == "right outer" else np.ones_like(matched)
+        want = {"rows": int(keep.sum()) + len(right_only),
+                "l_okey": (int((keep & lvalid).sum()),
+                           int(lk[keep & lvalid].sum())),
+                "r_id": (int(matched.sum()) + len(right_only),
+                         int(rids.sum()) + int(sum(right_only))),
+                "right_only": right_only}
+        out = pc.hash_join(left_db, right, left_keys=["l_smode"],
+                           right_keys=["r_mode"], join_type=how)
+        no_left = ~out.column("l_smode").validity_mask()[:out.length]
+        got = {"rows": out.length}
+        for name in ("l_okey", "r_id"):
+            c = out.column(name)
+            ok = c.validity_mask()
+            got[name] = tuple(torch.stack([
+                ok.sum(), torch.where(ok, c.values, 0).sum()]).tolist())
+        got["right_only"] = out.column("r_id").values[:out.length][
+            no_left].tolist()
+        if got != want:
+            raise AssertionError(f"mixed-route {how} join: {got} vs numpy "
+                                 f"{want}")
+        res[how] = got["rows"]
+    return res
+
+
+def join_phases(li, orders, dev, snappy, card: str,
+                timing_only: bool = False) -> dict:
     """This slice's paths, at the scale of `li`: TPC-H Q4 (semi join),
     Q12 (inner join carrying strings, IN, CASE) and Q13 (left outer
     join) device-resident, every join type of both routes over the
-    sweep's sides, and the set-lookup / vector-hash / aggregate
-    functions over the scanned lineitem, each against numpy. Returns
-    each path's launch counts and K2's time at Q13's join length."""
+    sweep's sides, the mixed route, the set-lookup / vector-hash /
+    aggregate functions and the string selections over the scanned
+    lineitem, each against numpy. Returns each path's launch counts and
+    K2's times at Q13's and Q4's join lengths. With `timing_only`, only
+    the three queries (not held call by call) and K2's times."""
     launches = {}
     customer = add_join_columns(li, orders)
     li_db = agt.batch_to_device({c: li[c] for c in (
@@ -1728,8 +1909,10 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
         out, launches[name.upper()] = run_path(name.upper(), run,
                                                ("K1", "K2"))
         check_rows(name, out, want)
-        out, held[name] = check_path_calls(name, run, launches[name.upper()])
-        check_rows(name, out, want)
+        if not timing_only:
+            out, held[name] = check_path_calls(name, run,
+                                               launches[name.upper()])
+            check_rows(name, out, want)
         outs, runs = timed(run)
         for out in outs:
             check_rows(name, out, want)
@@ -1741,8 +1924,16 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
             "verified": True}}), flush=True)
         print(json.dumps({f"{name}_profile": profile_stages(
             run, lambda out: check_rows(name, out, want))}), flush=True)
-    k2_q13 = time_k2_fill(dev, cust_db.padded + ord_db.padded)
+    k2_fills = [time_k2_fill(dev, max(fill_lengths(run)), name)
+                for name, run, _ in queries if name in ("q13", "q4")]
+    for k2 in k2_fills:
+        print(f"K2 at {k2['shape']}: kernel {k2['ms']:.4f} ms, plain "
+              f"{k2['plain_ms']:.4f} ms, library {k2['library_ms']:.4f} ms, "
+              f"bound {k2['bound_ms']:.4f} ms (one lane in, one out)")
+    print(json.dumps({"k2_fills": k2_fills}), flush=True)
     del li_db, ord_db, cust_db
+    if timing_only:
+        return {"launches": launches, "k2_fills": k2_fills}
 
     # every join type, both routes, over the sweep's sides
     sides = sweep_sides(li, orders)
@@ -1777,6 +1968,8 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
         "chunked": hosts[0].num_rows > pc.PROBE_CHUNK_DEFAULT,
         "by_type": per_type, "launches_per_run": launches["joins"],
         "card": card, "verified": True}}), flush=True)
+    print(json.dumps({"mixed_route": check_mixed_join(devs[0], sides[0])}),
+          flush=True)
     del hosts, devs
 
     # the functions, over the scanned (snappy) lineitem
@@ -1802,12 +1995,15 @@ def join_phases(li, orders, dev, snappy, card: str) -> dict:
         | {"ms_runs": runs, "ms_median": float(np.median(runs)),
            "launches_per_run": launches["functions"], "card": card,
            "verified": True}}), flush=True)
+    print(json.dumps({"string_selections": check_string_selections(li_s,
+                                                                   li)}),
+          flush=True)
     # every K1 and K2 call of these paths, on its own inputs
     print(json.dumps({"path_checks": held}), flush=True)
     errs = {k: max(h[k]["max_abs_err"] for h in held.values())
             for k in ("K1", "K2")}
-    errs["K2"] = max(errs["K2"], k2_q13["max_abs_err"])
-    return {"launches": launches, "k2_q13": k2_q13, "errs": errs}
+    errs["K2"] = max([errs["K2"]] + [k2["max_abs_err"] for k2 in k2_fills])
+    return {"launches": launches, "k2_fills": k2_fills, "errs": errs}
 
 
 def main(argv=None) -> int:
@@ -1980,17 +2176,14 @@ def main(argv=None) -> int:
     # (an older tree, run with --timing-only, has no Q1 entry points)
     q1 = q1_phases(li, orders, dev) if hasattr(pc, "SortOptions") else None
     if args.timing_only:
+        # (an older tree may have no join entry points)
+        if hasattr(pc, "hash_join") and q1 is not None:
+            join_phases(li, orders, dev, q1["snappy"], card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
     k1_err = max(k1_err, joins["errs"]["K1"])
     k2_err = max(k2_err, joins["errs"]["K2"])
-    k2q = joins["k2_q13"]
-    print(f"K2 at {k2q['shape']} (Q13's join): kernel {k2q['ms']:.4f} ms, "
-          f"plain {k2q['plain_ms']:.4f} ms, library {k2q['library_ms']:.4f} "
-          f"ms, bound {k2q['bound_ms']:.4f} ms (one lane in, one out; "
-          f"{k2q['kernel_bytes_ms']:.4f} ms for the bytes K2 moves)")
-    print(json.dumps({"k2_q13": k2q}), flush=True)
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,

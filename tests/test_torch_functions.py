@@ -333,6 +333,87 @@ def test_if_else_matches_jax(cols, cond, left, right):
     _same(tc, jc)
 
 
+# Two string columns over different dictionaries (first occurrence
+# "x", "y", "z", "w" and "p", "q", "r"), "a" with nulls; a condition "c"
+# with a null row and one "k" without nulls; an int column "i".
+STR_DATA = {"a": np.array(["x", "y", "x", "z", "y", "w", "z"], dtype=object),
+            "b": np.array(["p", "q", "r", "p", "x", "q", "r"], dtype=object),
+            "c": np.array([True, False, True, False, True, False, True]),
+            "k": np.array([False, True, True, False, False, True, True]),
+            "i": np.arange(7, dtype=np.int32)}
+STR_MASKS = {"a": np.array([True, False, True, False, True, True, False]),
+             "c": np.array([True, True, False, True, True, True, True])}
+
+
+def _py(name):
+    """Column `name` of STR_DATA as Python values, None where null."""
+    m = STR_MASKS.get(name)
+    return [v if m is None or m[i] else None
+            for i, v in enumerate(STR_DATA[name].tolist())]
+
+
+def _py_if_else(cond, left, right):
+    return [None if c is None else (lv if c else rv)
+            for c, lv, rv in zip(_py(cond), left, right)]
+
+
+def _py_fill_null(values, fill):
+    return [f if v is None else v for v, f in zip(values, fill)]
+
+
+N_STR = len(STR_DATA["a"])
+# (function, args: a column name or a Python scalar, the Python result)
+STRING_SELECTIONS = [
+    ("if_else", ["c", "a", "b"], _py_if_else("c", _py("a"), _py("b"))),
+    ("if_else", ["k", "b", "a"], _py_if_else("k", _py("b"), _py("a"))),
+    ("if_else", ["c", "a", "y"], _py_if_else("c", _py("a"), ["y"] * N_STR)),
+    ("if_else", ["k", "v", "b"], _py_if_else("k", ["v"] * N_STR, _py("b"))),
+    ("fill_null", ["a", "b"], _py_fill_null(_py("a"), _py("b"))),
+    ("fill_null", ["a", "z"], _py_fill_null(_py("a"), ["z"] * N_STR)),
+    ("fill_null", ["a", "v"], _py_fill_null(_py("a"), ["v"] * N_STR)),
+]
+
+
+def _jax_pylist_or_raised(fn):
+    try:
+        return from_device(fn()).to_pylist()
+    except Exception as e:      # the reference's failure is the point
+        return type(e).__name__
+
+
+@pytest.mark.parametrize("fname,args,want", STRING_SELECTIONS)
+def test_string_selections_give_the_python_values(fname, args, want):
+    """if_else and fill_null over string (dictionary) operands select in
+    one code space and carry its dictionary: two columns over different
+    dictionaries, a string scalar in the dictionary or not, a null
+    condition. The JAX package raises or gives other values on the same
+    inputs (a deviation on purpose, ROADMAP §3)."""
+    jdb = jax_batch(STR_DATA, STR_MASKS)
+    tdb = port_batch(jdb)
+
+    def call(mod, db):
+        return getattr(mod, fname)(*[db.column(a) if a in STR_DATA else a
+                                     for a in args])
+    out = call(pc, tdb)
+    assert out.type == tdb.column("a").type and out.dictionary is not None
+    assert column_to_host(out).to_pylist() == want
+    # the same through an expression
+    expr = pc.call(fname, [pc.field(a) if a in STR_DATA else pc.literal(a)
+                           for a in args])
+    assert column_to_host(pc.execute_scalar_expression(expr, tdb)
+                          ).to_pylist() == want
+    assert _jax_pylist_or_raised(lambda: call(jf, jdb)) != want
+
+
+def test_string_beside_a_non_string_column_raises():
+    tdb = port_batch(jax_batch(STR_DATA, STR_MASKS))
+    a, c, i = (tdb.column(n) for n in ("a", "c", "i"))
+    for fn in (lambda: pc.if_else(c, a, i), lambda: pc.if_else(c, i, a),
+               lambda: pc.fill_null(a, i)):
+        with pytest.raises(pc.ArrowInvalid):
+            fn()
+
+
 def _pylist_nan(xs):
     return [("nan" if isinstance(x, float) and np.isnan(x) else x)
             for x in xs]

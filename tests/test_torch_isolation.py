@@ -93,6 +93,9 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
         == [0, 2, 1]
     x = torch.tensor([3, 1, 2])
     assert scan.cummax_u64_lanes(x, [x])[1].tolist() == [3, 3, 3]
+    # K2's hi-only mode, as the join state's fills call it
+    assert scan.cummax_u32(torch.tensor([2, 0, 5, 1])).tolist() == \
+        [2, 2, 5, 5]
     assert reductions.reduce(x, None, 2, "sum").item() == 4
     # the join's fills (forward, and the reverse fill of a full outer
     # join), its compactions and the first-occurrence fill of an encode

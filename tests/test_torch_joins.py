@@ -246,6 +246,28 @@ def test_mixed_host_and_device_inputs_join_on_the_device(rng):
     _same_device(got, jpc.hash_join(jl, jr, "k", join_type="left outer"))
 
 
+@pytest.mark.parametrize("how", DEVICE_HOWS)
+def test_mixed_route_renumbers_a_host_batch_dictionary(how):
+    """A right HostBatch built directly, its rows "z", "y", "a" over the
+    dictionary ["a", "y", "z"] (not in first-occurrence order, as no
+    HostBatch made from a JAX batch is), beside a left DeviceBatch: the
+    rows and their order are the JAX package's, whose right side numbers
+    its strings by first occurrence."""
+    left = {"k": np.array(["a", "b", "a", "c"], dtype=object),
+            "x": np.arange(4, dtype=np.int64)}
+    right = {"k": np.array(["z", "y", "a"], dtype=object),
+             "w": np.array([10, 20, 30], dtype=np.int64)}
+    jl, jr = jax_batch(left), jax_batch(right)
+    t = agt_torch.dtypes.dictionary(agt_torch.dtypes.int32,
+                                    agt_torch.dtypes.string)
+    host_right = HostBatch.from_arrays({
+        "k": HostArray(np.array([2, 1, 0], np.int32), None, t,
+                       np.array(["a", "y", "z"], dtype=object)),
+        "w": HostArray(right["w"], None, agt_torch.dtypes.int64)})
+    got = pc.hash_join(port_batch(jl), host_right, "k", join_type=how)
+    _same_device(got, jpc.hash_join(jl, jr, "k", join_type=how))
+
+
 @pytest.mark.parametrize("shared", [True, False])
 def test_concat_host_arrays_keeps_or_merges_dictionaries(shared):
     d1 = np.array(["x", "y"], dtype=object)

@@ -172,6 +172,57 @@ def test_cummax_u64_lanes_matches_jax(n):
                                       np.asarray(w).astype(np.int64))
 
 
+def _fill_lane(kind, n, rng):
+    """One u32 lane as the join state hands K2's hi-only mode: run-start
+    marks that grow along the rows, zero elsewhere (R_before, L_before);
+    grp_L_end's reversed imax - end-of-run marks; or random u32 values,
+    bit 31 set in about half."""
+    marks = np.cumsum(rng.integers(0, 3, n))
+    at = rng.random(n) < 0.3
+    imax = (1 << 31) - 1
+    if kind == "marks":
+        return np.where(at, marks, 0).astype(np.uint32)
+    if kind == "reversed":
+        return (imax - np.where(at, marks, imax))[::-1].astype(np.uint32)
+    return rng.integers(0, 2 ** 32, n).astype(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["marks", "reversed", "random"])
+@pytest.mark.parametrize("n", [1, 31, 8191, 8192, 65_537])
+def test_cummax_u32_matches_jax_hi_lane(n, kind):
+    """cummax_u32 (K2's hi-only mode) against the JAX package's hi lane
+    of cummax_u64_lanes(x, [zeros]), bit for bit."""
+    x = _fill_lane(kind, n, np.random.default_rng(n))
+    want = jscan.cummax_u64_lanes(jnp.asarray(x),
+                                  [jnp.zeros(n, jnp.uint32)])[0]
+    t = torch.from_numpy(x.astype(np.int64))
+    got = scan.cummax_u32(t)
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int64))
+    # the plain version of the mode, and the pack call with no lo lane
+    np.testing.assert_array_equal(scan.cummax_u32_plain(t).numpy(),
+                                  got.numpy())
+    np.testing.assert_array_equal(scan.cummax_u64_lanes(t, [])[0].numpy(),
+                                  got.numpy())
+
+
+def test_cummax_wrapper_raises_on_what_k2_does_not_take():
+    """The CUDA wrapper's checks, which run before any launch."""
+    x = torch.arange(8)
+    bad = [
+        (x, [x] * 5),                                  # too many lo lanes
+        (x.to(torch.int32), []),                       # not int64
+        (torch.arange(16)[::2], []),                   # strided
+        (x.reshape(2, 4), []),                         # not 1-D
+        (x, [torch.arange(9)]),                        # length
+        (x, [x.to(torch.int32)]),                      # lo not int64
+    ]
+    for hi, los in bad:
+        with pytest.raises(ValueError, match="cummax_u64_lanes"):
+            scan._cummax_cuda(hi, los)
+
+
 # ---------------------------------------------------------------- bitmaps
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 4097])
