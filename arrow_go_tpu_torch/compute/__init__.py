@@ -1,4 +1,8 @@
 """Compute functions of the port (mirrors arrow_go_tpu.compute)."""
+from typing import Optional
+
+from .. import dtypes as dt
+from .cast import CastOptions, can_cast, cast_device
 from .errors import (ArrowError, ArrowIndexError, ArrowInvalid, ArrowKeyError,
                      ArrowNotImplemented)
 from .expression import call, execute_scalar_expression, field, literal
@@ -12,9 +16,26 @@ from .functions import (CountOptions, FilterOptions, SetLookupOptions,
 from .groupby import group_by
 from .join import PROBE_CHUNK_DEFAULT, hash_join
 from .kernels import (arithmetic_binary, arithmetic_unary, boolean_binary,
-                      compare, invert, is_finite, is_nan, is_null, is_valid)
+                      compare, invert, is_finite, is_nan, is_null, is_valid,
+                      round_, round_to_multiple)
+from .registry import (FunctionRegistry, call_function, default_registry,
+                       new_child_registry)
+from .temporal import ceil_temporal, floor_temporal, round_temporal
 
 filter = filter_  # noqa: A001  (the reference's name)
+
+
+def cast(values, target_type: dt.DataType,
+         options: Optional[CastOptions] = None, safe: bool = True,
+         device=None):
+    """`values` (a DeviceColumn or a HostArray) as `target_type`, through
+    the registry's cast (a HostArray moves to `device`, the card unless
+    named)."""
+    if options is None and not safe:
+        options = CastOptions.unsafe()
+    return call_function("cast", [values], {"to_type": target_type,
+                                            "options": options},
+                         device=device)
 
 __all__ = ["ArrowError", "ArrowIndexError", "ArrowInvalid", "ArrowKeyError",
            "ArrowNotImplemented", "call", "execute_scalar_expression",
@@ -27,4 +48,8 @@ __all__ = ["ArrowError", "ArrowIndexError", "ArrowInvalid", "ArrowKeyError",
            "index_in", "is_in", "min_max", "sort_indices", "take", "unique",
            "group_by", "PROBE_CHUNK_DEFAULT", "hash_join",
            "arithmetic_binary", "arithmetic_unary", "boolean_binary",
-           "compare", "invert", "is_finite", "is_nan", "is_null", "is_valid"]
+           "compare", "invert", "is_finite", "is_nan", "is_null", "is_valid",
+           "round_", "round_to_multiple", "CastOptions", "can_cast", "cast",
+           "cast_device", "FunctionRegistry", "call_function",
+           "default_registry", "new_child_registry", "ceil_temporal",
+           "floor_temporal", "round_temporal"]

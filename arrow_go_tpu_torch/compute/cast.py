@@ -1,0 +1,296 @@
+"""Cast kernels.
+
+Port of arrow_go_tpu/compute/cast.py (reference arrow/compute/cast.go:80
+and internal/kernels/{numeric_cast,boolean_cast,string_casts,
+cast_temporal}.go). `cast_device` runs on the column's device:
+numeric <-> numeric, bool <-> numeric, temporal rescaling by a constant
+factor, and the decode of a numeric-valued dictionary; each safety
+check is one device reduction read once on the host. `cast_host` runs
+the casts with a binary-like side over HostArrays (strings live on the
+host by design).
+
+The values convert as the JAX package's `astype` does (ops/convert.py):
+integers wrap, and with the checks off a float becomes an integer by
+truncation, NaN as 0 and an out-of-range value as the target's minimum
+or maximum. As in the JAX package, only two types with a time unit
+rescale: date32 and date64 have none, so a cast between them and a
+timestamp keeps the stored number.
+"""
+from __future__ import annotations
+
+import datetime as _dt
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import dtypes as dt
+from ..device.block import DeviceColumn, HostArray, factorize, valid_rows
+from ..ops.convert import convert, int_range, storage_view
+from .errors import ArrowInvalid, ArrowNotImplemented
+
+
+@dataclass
+class CastOptions:
+    """Safety toggles (reference compute.CastOptions)."""
+
+    allow_int_overflow: bool = False
+    allow_time_truncate: bool = False
+    allow_float_truncate: bool = False
+    allow_invalid_utf8: bool = False
+
+    @staticmethod
+    def safe() -> "CastOptions":
+        return CastOptions()
+
+    @staticmethod
+    def unsafe() -> "CastOptions":
+        return CastOptions(True, True, True, True)
+
+
+def _fixed(t: dt.DataType) -> bool:
+    return t.is_numeric or t == dt.bool_ or t.is_temporal
+
+
+def can_cast(from_t: dt.DataType, to_t: dt.DataType) -> bool:
+    if from_t == to_t or _fixed(from_t) and _fixed(to_t):
+        return True
+    if from_t.id == dt.TypeId.DICTIONARY:
+        return can_cast(from_t.value_type, to_t)
+    if from_t.is_binary_like and (to_t.is_binary_like or to_t.is_numeric):
+        return True
+    return to_t.is_binary_like and (from_t.is_numeric or from_t == dt.bool_)
+
+
+def _valid(col: DeviceColumn) -> torch.Tensor:
+    return valid_rows(col.validity, col.padded, col.length, col.device)
+
+
+def _narrowing(a: dt.DataType, b: dt.DataType) -> bool:
+    if a.is_floating and b.is_integer:
+        return True
+    if a.is_integer and b.is_integer:
+        return a.bit_width > b.bit_width or (
+            a.is_signed_integer != b.is_signed_integer)
+    return False
+
+
+def _rescale(col: DeviceColumn, to_t: dt.DataType,
+             options: CastOptions) -> DeviceColumn:
+    """Temporal -> temporal: the int64 ticks times or floor-divided by
+    the ratio of the units when both types have one."""
+    from_t = col.type
+    v = col.values.to(torch.int64)
+    f_unit, t_unit = getattr(from_t, "unit", None), getattr(to_t, "unit",
+                                                            None)
+    if f_unit is not None and t_unit is not None:
+        fm, tm = f_unit.multiplier, t_unit.multiplier
+        if tm >= fm:
+            v = v * (tm // fm)
+        else:
+            q = fm // tm
+            if not options.allow_time_truncate and bool(
+                    ((torch.remainder(v, q) != 0) & _valid(col)).any()):
+                raise ArrowInvalid(
+                    f"casting {from_t} -> {to_t} would lose data")
+            v = torch.div(v, q, rounding_mode="floor")
+    return DeviceColumn(v.to(to_t.torch_dtype), col.validity, col.length,
+                        to_t)
+
+
+def _check_numeric(col: DeviceColumn, out: torch.Tensor, to_t: dt.DataType,
+                   options: CastOptions) -> None:
+    """The float-truncation and integer-overflow checks of a numeric
+    cast, over the valid rows."""
+    from_t, v = col.type, col.values
+    valid = _valid(col)
+    if from_t.is_floating and to_t.is_integer and \
+            not options.allow_float_truncate:
+        back = convert(out, to_t, from_t)
+        if bool(((back != v) & valid & ~torch.isnan(v)).any()):
+            raise ArrowInvalid(f"float value truncated casting to {to_t}")
+    if options.allow_int_overflow or not _narrowing(from_t, to_t):
+        return
+    if from_t.is_floating:
+        lo, hi = (float(x) for x in int_range(to_t))
+        bad = (v < lo) | (v > hi) | torch.isnan(v)
+    else:
+        bad = convert(out, to_t, from_t) != v
+        if from_t.is_signed_integer and to_t.is_unsigned_integer:
+            bad = bad | (v < 0)
+        if from_t.is_unsigned_integer and to_t.is_signed_integer:
+            bad = bad | (out < 0)
+    if bool((bad & valid).any()):
+        raise ArrowInvalid(f"integer value out of bounds casting "
+                           f"{from_t} -> {to_t}")
+
+
+def cast_device(col: DeviceColumn, to_t: dt.DataType,
+                options: Optional[CastOptions] = None) -> DeviceColumn:
+    """A device column as `to_t`, on its device."""
+    options = options or CastOptions()
+    from_t = col.type
+    if from_t == to_t:
+        return col
+    if from_t.id == dt.TypeId.DICTIONARY:
+        # decode: gather the dictionary's values through the codes, for
+        # a numeric or bool dictionary; a string dictionary stays put
+        vt = from_t.value_type
+        if not (vt.is_numeric or vt == dt.bool_):
+            raise ArrowNotImplemented(f"device cast from {from_t}")
+        table = torch.from_numpy(storage_view(np.ascontiguousarray(
+            col.dictionary, vt.np_dtype), vt))
+        if not len(table):
+            table = torch.zeros(1, dtype=vt.torch_dtype)
+        codes = col.values.to(torch.int64).clamp(0, table.shape[0] - 1)
+        decoded = table.to(col.device).index_select(0, codes)
+        return cast_device(DeviceColumn(decoded, col.validity, col.length,
+                                        vt), to_t, options)
+    if from_t.is_temporal and to_t.is_temporal:
+        return _rescale(col, to_t, options)
+    if not (_fixed(from_t) and _fixed(to_t)):
+        raise ArrowNotImplemented(f"device cast {from_t} -> {to_t}")
+    out = convert(col.values, from_t, to_t)
+    if from_t != dt.bool_ and to_t != dt.bool_:
+        _check_numeric(col, out, to_t, options)
+    return DeviceColumn(out, col.validity, col.length, to_t)
+
+
+# ---------------------------------------------------------------------------
+# host casts with a binary-like side
+# ---------------------------------------------------------------------------
+
+_EPOCH = _dt.datetime(1970, 1, 1)
+
+
+def _format_value(v, t: dt.DataType) -> str:
+    """Arrow cast-to-string formatting (reference string_casts.go: bool
+    -> true/false, integers decimal, floats shortest-repr, temporals
+    ISO)."""
+    if t == dt.bool_:
+        return "true" if v else "false"
+    if t.is_floating:
+        f = float(v)
+        if f != f:
+            return "nan"
+        if f in (float("inf"), float("-inf")):
+            return "inf" if f > 0 else "-inf"
+        if f == int(f) and abs(f) < 1e16:
+            return str(int(f))
+        return repr(f)
+    if t.is_integer:
+        return str(int(v))
+    if t.id == dt.TypeId.DATE32:
+        return (_dt.date(1970, 1, 1) + _dt.timedelta(days=int(v))).isoformat()
+    if t.id == dt.TypeId.DATE64:
+        return (_EPOCH + _dt.timedelta(milliseconds=int(v))).date(
+        ).isoformat()
+    if t.id in (dt.TypeId.TIMESTAMP, dt.TypeId.TIME32, dt.TypeId.TIME64):
+        at = _EPOCH + _dt.timedelta(
+            microseconds=int(v) * 10**6 // t.unit.multiplier)
+        if t.id != dt.TypeId.TIMESTAMP:
+            return at.time().isoformat()
+        return at.isoformat().replace("T", " ")
+    return str(int(v))
+
+
+def _parse_value(s, to_t: dt.DataType):
+    """String -> typed value (reference string_casts.go parse kernels)."""
+    if isinstance(s, (bytes, bytearray)):
+        s = bytes(s).decode("utf-8")
+    s = s.strip()
+    if to_t.is_integer:
+        return int(s, 10)
+    if to_t.is_floating:
+        return float(s)
+    if to_t == dt.bool_:
+        low = s.lower()
+        if low in ("true", "1"):
+            return True
+        if low in ("false", "0"):
+            return False
+        raise ValueError(f"cannot parse {s!r} as bool")
+    # temporal values as their ticks
+    if to_t.id == dt.TypeId.DATE32:
+        return (_dt.date.fromisoformat(s) - _dt.date(1970, 1, 1)).days
+    if to_t.id == dt.TypeId.TIMESTAMP:
+        return _ticks(_dt.datetime.fromisoformat(s.replace(" ", "T"))
+                      - _EPOCH, to_t)
+    if to_t.id in (dt.TypeId.TIME32, dt.TypeId.TIME64):
+        t = _dt.time.fromisoformat(s)
+        return _ticks(_dt.timedelta(hours=t.hour, minutes=t.minute,
+                                    seconds=t.second,
+                                    microseconds=t.microsecond), to_t)
+    raise ArrowNotImplemented(f"parse string -> {to_t}")
+
+
+def _ticks(delta: _dt.timedelta, t: dt.DataType) -> int:
+    us = (delta.days * 86_400 + delta.seconds) * 10**6 + delta.microseconds
+    return us * t.unit.multiplier // 10**6
+
+
+def _string_array(strs, valid, to_t: dt.DataType) -> HostArray:
+    """Python str values (None where not valid) as a dictionary HostArray
+    of `to_t` (string, or binary of their UTF-8 bytes)."""
+    vals = np.empty(len(strs), dtype=object)
+    vals[:] = [s if to_t == dt.string or s is None else s.encode()
+               for s in strs]
+    codes, dictionary = factorize(vals, valid)
+    return HostArray(codes, None if valid.all() else valid,
+                     dt.dictionary(dt.int32, to_t), dictionary)
+
+
+def _typed_array(values, valid, to_t: dt.DataType) -> HostArray:
+    """Parsed Python values (None where not valid) as a HostArray of
+    `to_t`; a value outside its range raises ArrowInvalid."""
+    out = np.zeros(len(values), to_t.np_dtype)
+    for i, v in enumerate(values):
+        if v is not None:
+            try:
+                out[i] = v
+            except OverflowError as e:
+                raise ArrowInvalid(f"cast to {to_t}: {e}") from None
+            if to_t.is_integer and int(out[i]) != v:
+                raise ArrowInvalid(f"cast to {to_t}: {v} out of range")
+    return HostArray(out, None if valid.all() else valid, to_t)
+
+
+def cast_host(arr: HostArray, to_t: dt.DataType,
+              options: Optional[CastOptions] = None) -> HostArray:
+    """The host cast path: any cast with a binary-like side. A string
+    result is a dictionary HostArray (codes and values)."""
+    from_t = arr.type
+    if from_t == to_t:
+        return arr
+    valid = arr.validity_bools()
+    if from_t.id == dt.TypeId.DICTIONARY:
+        vt = from_t.value_type
+        if vt.is_binary_like and to_t.is_binary_like:
+            if vt == to_t:
+                return arr
+            values = np.empty(len(arr.dictionary), dtype=object)
+            values[:] = [v.encode() if to_t == dt.binary else
+                         bytes(v).decode("utf-8") for v in arr.dictionary]
+            return HostArray(arr.values, arr.mask, dt.dictionary(
+                dt.int32, to_t), values)
+        if not vt.is_binary_like:
+            decoded = np.asarray(arr.dictionary, vt.np_dtype)[
+                np.clip(arr.values, 0, max(len(arr.dictionary) - 1, 0))]
+            return cast_host(HostArray(decoded, arr.mask, vt), to_t,
+                             options)
+        out = []
+        for code, ok in zip(arr.values.tolist(), valid.tolist()):
+            if not ok:
+                out.append(None)
+                continue
+            try:
+                out.append(_parse_value(arr.dictionary[code], to_t))
+            except (ValueError, ArithmeticError) as e:
+                raise ArrowInvalid(f"cast {vt} -> {to_t}: {e}") from None
+        return _typed_array(out, valid, to_t)
+    if to_t.is_binary_like:
+        strs = [_format_value(v, from_t) if ok else None
+                for v, ok in zip(arr.values.tolist(), valid.tolist())]
+        return _string_array(strs, valid, to_t)
+    raise ArrowNotImplemented(f"host cast {from_t} -> {to_t}")

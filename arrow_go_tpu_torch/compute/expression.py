@@ -5,9 +5,9 @@ arrow/compute/expression.go:52 Literal / FieldRef / Call trees,
 exprs/exec.go ExecuteScalarExpression). The ported functions are the
 arithmetic, comparison, boolean and validity kernels of
 compute/kernels.py, and fill_null, if_else and is_in of
-compute/functions.py; expressions run the arithmetic unchecked, so no
-overflow check syncs with the host inside an expression. `cast` waits
-for the port of compute/cast.py.
+compute/functions.py, and cast (compute/cast.py); expressions run the
+arithmetic unchecked and cast with CastOptions.unsafe(), as the JAX
+package does, so no check syncs with the host inside an expression.
 """
 from __future__ import annotations
 
@@ -15,12 +15,17 @@ from dataclasses import dataclass
 from typing import Any, List, Sequence, Union
 
 from ..device.block import DeviceBatch, DeviceColumn
+from .. import dtypes as dt
 from . import functions, kernels
+from .cast import CastOptions, cast_device
 from .errors import ArrowInvalid, ArrowKeyError
 
 
 class Expression:
     """Base expression node."""
+
+    def cast(self, to_type: dt.DataType, safe: bool = True) -> "Call":
+        return Call("cast", [self], {"to_type": to_type, "safe": safe})
 
 
 @dataclass(frozen=True)
@@ -107,6 +112,9 @@ def _apply(fname: str, args: List[Any], options):
         return functions.fill_null(args[0], args[1])
     if fname == "if_else":
         return functions.if_else(args[0], args[1], args[2])
+    if fname == "cast":
+        to_t = options["to_type"] if isinstance(options, dict) else options
+        return cast_device(args[0], to_t, CastOptions.unsafe())
     if fname == "is_in":
         vs = options["value_set"] if isinstance(options, dict) else options
         return functions.is_in(args[0], value_set=vs)

@@ -25,8 +25,9 @@ from .. import torchenv
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             factorize, host_array_to_device, pad_length,
                             row_mask)
-from ..ops import bitmap, hashing, reductions, selection
+from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
+from .cast import cast_device, cast_host
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
 
 
@@ -224,6 +225,8 @@ def _host_sort_operand(arr: HostArray, desc: bool, nulls_first: bool):
         bits = rank[np.clip(v, 0, len(rank) - 1)].astype(np.uint64)
     elif d.kind == "b":
         bits = v.astype(np.uint8)
+    elif d.kind == "u":
+        bits = v
     elif d.kind == "i":
         u = v.view(f"u{d.itemsize}")
         bits = u ^ np.dtype(f"u{d.itemsize}").type(1 << (d.itemsize * 8 - 1))
@@ -538,7 +541,10 @@ def _set_table(col: DeviceColumn, vset: list):
     uniq, first = np.unique(np.asarray(vals, np_dtype), return_index=True)
     if np_dtype == np.bool_:                 # searchsorted takes no bool
         uniq = uniq.astype(np.uint8)
-    return (torch.from_numpy(uniq).to(col.device),
+    # an unsigned type's set, like its column, compares in order_bits
+    table = convert.order_bits(torch.from_numpy(
+        convert.storage_view(uniq, col.type)), col.type)
+    return (table.to(col.device),
             torch.from_numpy(np.asarray(pos, np.int32)[first]).to(
                 col.device))
 
@@ -561,7 +567,7 @@ def _lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
             return torch.full((col.padded,), -1, dtype=torch.int32,
                               device=col.device)
         sv, spos = st
-        x = col.values.to(sv.dtype)
+        x = convert.order_bits(col.values, col.type).to(sv.dtype)
         at = torch.searchsorted(sv, x).clamp(max=sv.shape[0] - 1)
         idx = torch.where(sv.index_select(0, at) == x,
                           spos.index_select(0, at), -1)
@@ -712,3 +718,145 @@ def if_else(cond, left, right) -> DeviceColumn:
     dictionary = col.dictionary if isinstance(col, DeviceColumn) else None
     return DeviceColumn(torch.where(c.values, lv, rv), bitmap.pack_mask(
         chosen), c.length, t, dictionary)
+
+
+# ---------------------------------------------------------------------------
+# registration (the JAX package's register_all, for the ported functions)
+# ---------------------------------------------------------------------------
+
+#: per-target cast functions (reference cast.go:80 RegisterScalarCast); a
+#: target with parameters takes its type through options["to_type"]
+CAST_TARGETS = {
+    "cast_int8": dt.int8, "cast_int16": dt.int16, "cast_int32": dt.int32,
+    "cast_int64": dt.int64, "cast_uint8": dt.uint8,
+    "cast_uint16": dt.uint16, "cast_uint32": dt.uint32,
+    "cast_uint64": dt.uint64, "cast_half_float": dt.float16,
+    "cast_float": dt.float32, "cast_double": dt.float64,
+    "cast_boolean": dt.bool_, "cast_string": dt.string,
+    "cast_binary": dt.binary, "cast_date32": dt.date32,
+    "cast_date64": dt.date64, "cast_time32": None, "cast_time64": None,
+    "cast_timestamp": None, "cast_duration": None,
+}
+
+
+def register_all(reg) -> None:
+    from . import kernels, temporal
+    from .registry import Arity, Function, FunctionKind as K
+
+    def add(name, kind, arity, fn, raw_args=False):
+        reg.register(Function(name, kind, arity, fn, raw_args=raw_args))
+
+    # scalar arithmetic: checked + unchecked variants (reference
+    # arithmetic.go)
+    for op in kernels._ARITH_BINARY:
+        for suffix, checked in (("", True), ("_unchecked", False)):
+            add(op + suffix, K.SCALAR, Arity.binary(),
+                lambda a, b, options=None, op=op, checked=checked:
+                kernels.arithmetic_binary(op, a, b, checked=checked))
+    for op in kernels._ARITH_UNARY:
+        for suffix, checked in (("", True), ("_unchecked", False)):
+            add(op + suffix, K.SCALAR, Arity.unary(),
+                lambda a, options=None, op=op, checked=checked:
+                kernels.arithmetic_unary(op, a, checked=checked))
+    add("round", K.SCALAR, Arity.unary(),
+        lambda a, options=None: kernels.round_(a, **(options or {})))
+    add("round_to_multiple", K.SCALAR, Arity.unary(),
+        lambda a, options=None: kernels.round_to_multiple(
+            a, **(options or {"multiple": 1.0})))
+    # temporal rounding (reference arithmetic.go:593-625)
+    for name in ("floor_temporal", "ceil_temporal", "round_temporal"):
+        add(name, K.SCALAR, Arity.unary(),
+            lambda a, options=None, f=getattr(temporal, name):
+            f(a, **(options or {})))
+    for op in kernels._COMPARE:
+        add(op, K.SCALAR, Arity.binary(),
+            lambda a, b, options=None, op=op: kernels.compare(op, a, b))
+    for op in tuple(kernels._BOOLEAN) + kernels._KLEENE:
+        add(op, K.SCALAR, Arity.binary(),
+            lambda a, b, options=None, op=op: kernels.boolean_binary(op, a,
+                                                                     b))
+    for name in ("invert", "is_null", "is_valid", "is_nan", "is_finite"):
+        add(name, K.SCALAR, Arity.unary(),
+            lambda a, options=None, f=getattr(kernels, name): f(a))
+    reg.add_alias("not", "invert")          # reference scalar_bool.go
+    reg.add_alias("is_not_null", "is_valid")
+    reg.add_alias("sub", "subtract")        # reference arithmetic.go:680
+    reg.add_alias("sub_unchecked", "subtract_unchecked")
+
+    # cast: the host path for binary-like sides, the device path for the
+    # fixed-width lattice
+    add("cast", K.SCALAR, Arity.unary(), _exec_cast, raw_args=True)
+    for name, target in CAST_TARGETS.items():
+        add(name, K.SCALAR, Arity.unary(), _cast_to(name, target),
+            raw_args=True)
+
+    # selection, sort and vector hash
+    def filter_fn(values, mask, options=None, device=None):
+        return filter_(values, mask, options)
+
+    def take_fn(values, indices, options=None, device=None):
+        return take(values, indices, options)
+
+    add("filter", K.META, Arity.binary(), filter_fn, raw_args=True)
+    add("array_filter", K.VECTOR, Arity.binary(), filter_fn, raw_args=True)
+    add("take", K.META, Arity.binary(), take_fn, raw_args=True)
+    add("array_take", K.VECTOR, Arity.binary(), take_fn, raw_args=True)
+    add("sort_indices", K.VECTOR, Arity.unary(), sort_indices,
+        raw_args=True)
+    add("unique", K.VECTOR, Arity.unary(), unique)
+    add("dictionary_encode", K.VECTOR, Arity.unary(), dictionary_encode)
+    # set lookup and the structural selections
+    add("is_in", K.SCALAR, Arity.unary(), is_in)
+    add("index_in", K.SCALAR, Arity.unary(), index_in)
+    add("fill_null", K.SCALAR, Arity.binary(),
+        lambda a, b, options=None: fill_null(a, b))
+    add("if_else", K.SCALAR, Arity.ternary(),
+        lambda c, a, b, options=None: if_else(c, a, b))
+    # scalar aggregates
+    for name, fn in (("sum", agg_sum), ("min", agg_min), ("max", agg_max),
+                     ("mean", agg_mean), ("count", agg_count),
+                     ("count_distinct", agg_count_distinct),
+                     ("any", agg_any), ("all", agg_all),
+                     ("product", agg_product), ("variance", agg_variance),
+                     ("stddev", agg_stddev), ("min_max", min_max)):
+        add(name, K.SCALAR_AGGREGATE, Arity.unary(), fn)
+
+
+def _cast_to(name: str, default_t):
+    def exec_fn(a, options=None, device=None):
+        to_t, opts = default_t, None
+        if isinstance(options, dt.DataType):
+            to_t = options
+        elif isinstance(options, dict):
+            to_t = options.get("to_type") or default_t
+            opts = options.get("options")
+        if to_t is None:
+            raise ArrowInvalid(f"{name} requires to_type in options")
+        return _exec_cast(a, {"to_type": to_t, "options": opts}, device)
+    exec_fn.__name__ = name
+    return exec_fn
+
+
+def _exec_cast(a, options=None, device=None):
+    """cast's routing: a DeviceColumn casts on its device (to a string
+    type on the host); a HostArray casts on the host when a side is
+    binary-like, else on `device` (the card unless named) and back."""
+    from ..device.block import column_to_host
+    if isinstance(options, dt.DataType):
+        to_t, opts = options, None
+    elif isinstance(options, dict):
+        to_t, opts = options.get("to_type"), options.get("options")
+    else:
+        raise ArrowInvalid("cast requires target type")
+    if isinstance(a, DeviceColumn):
+        if to_t.is_binary_like:
+            return cast_host(column_to_host(a), to_t, opts)
+        return cast_device(a, to_t, opts)
+    if isinstance(a, HostArray):
+        t = a.type
+        storage = t.value_type if t.id == dt.TypeId.DICTIONARY else t
+        if storage.is_binary_like or to_t.is_binary_like:
+            return cast_host(a, to_t, opts)
+        return column_to_host(cast_device(
+            host_array_to_device(a, torchenv.device(device)), to_t, opts))
+    raise ArrowInvalid(f"cannot cast {type(a)}")

@@ -21,6 +21,7 @@ from .. import dtypes as dt
 from ..device.block import (DeviceBatch, HostArray, HostBatch, _unpack_words,
                             pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
+from ..ops.convert import as_int64, host_view
 from ..ops.sort import _orderable_bits, sortable
 from .errors import ArrowNotImplemented
 
@@ -43,7 +44,7 @@ def _combined_key(key_vals, key_valids, key_types, length):
 
 
 def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
-                   key_types, agg_names):
+                   key_types, agg_names, agg_types):
     """Key encode + first-occurrence ordering + every aggregation.
     Returns (n_groups, rep_rows, [(result_by_group, valid_by_group)])
     over the padded domain; slots >= n_groups are padding."""
@@ -57,14 +58,15 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     # lanes, so the aggregation reads them in sorted order
     payloads = []
     plan = []     # per agg: (vmask, value payload index, mask payload index)
-    for vals, valids, agg in zip(agg_vals, agg_valids, agg_names):
+    for vals, valids, agg, t in zip(agg_vals, agg_valids, agg_names,
+                                    agg_types):
         vmask = row_ok if valids is None else (
             bitmap.expand_words(valids, P) & row_ok)
         vi = mi = None
         if agg in ("sum", "count", "mean"):
-            acc = vals.dtype if vals.dtype.is_floating_point else torch.int64
             vi = len(payloads)
-            payloads.append(vals.to(acc))
+            payloads.append(vals if vals.dtype.is_floating_point
+                            else as_int64(vals, t))
             mi = len(payloads)
             payloads.append(vmask)
         elif agg == "any":
@@ -91,8 +93,9 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     # the min/max family's key, in original row order
     skey = sortable(_orderable_bits(combined, dt.int64))
     results = []
-    for vals, agg, (vmask, vi, mi) in zip(agg_vals, agg_names, plan):
-        r, v = _segment_agg(enc, skey, vals, vmask, agg,
+    for vals, agg, t, (vmask, vi, mi) in zip(agg_vals, agg_names,
+                                             agg_types, plan):
+        r, v = _segment_agg(enc, skey, vals, t, vmask, agg,
                             None if vi is None else spay[vi],
                             None if mi is None else spay[mi])
         results.append((r.index_select(0, order),
@@ -100,7 +103,7 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     return n_groups, rep_rows, results
 
 
-def _segment_agg(enc, skey, v, vmask, agg: str, values_sorted,
+def _segment_agg(enc, skey, v, t, vmask, agg: str, values_sorted,
                  mask_sorted):
     """Per-run aggregation (key order) -> (by_run[P], valid[P] or None).
     values_sorted / mask_sorted are payload lanes carried through the
@@ -132,7 +135,7 @@ def _segment_agg(enc, skey, v, vmask, agg: str, values_sorted,
         return s, c > 0
     if agg in ("min", "max"):
         out = groupagg.segment_min_max(skey, v,
-                                       sortable(_orderable_bits(v)), vmask,
+                                       sortable(_orderable_bits(v, t)), vmask,
                                        agg)
         return out, valid_count() > 0
     if agg in ("first", "last"):
@@ -184,7 +187,7 @@ def group_by(data: DeviceBatch, keys,
         [c.values for c in agg_cols], [c.validity for c in agg_cols],
         data.length,
         [dt.int32 if c.dictionary is not None else c.type for c in key_cols],
-        [agg for _, agg in aggregations])
+        [agg for _, agg in aggregations], [c.type for c in agg_cols])
 
     # the group COUNT first (one scalar), then only group-sized slices
     # and the key representatives leave the device
@@ -195,7 +198,8 @@ def group_by(data: DeviceBatch, keys,
     out_cols: List[HostArray] = []
     names: List[str] = []
     for name, c in zip(keys, key_cols):
-        kvals = selection.gather(c.values, idx)[:n_groups].cpu().numpy()
+        kvals = host_view(
+            selection.gather(c.values, idx)[:n_groups].cpu().numpy(), c.type)
         kwords = selection.take_validity(c.validity, idx, n_groups, kb)
         kmask = _unpack_words(kwords.cpu().numpy().view(np.uint32),
                               n_groups)
@@ -204,7 +208,8 @@ def group_by(data: DeviceBatch, keys,
     for (col_name, agg), vcol, (res, valid) in zip(aggregations, agg_cols,
                                                    results):
         t = _out_type(vcol.type, agg)
-        res_np = res[:n_groups].cpu().numpy().astype(t.np_dtype, copy=False)
+        res_np = host_view(res[:n_groups].cpu().numpy(), t).astype(
+            t.np_dtype, copy=False)
         mask_np = None if valid is None else valid[:n_groups].cpu().numpy()
         out_cols.append(HostArray(res_np, mask_np, t))
         names.append(f"{col_name}_{agg}")

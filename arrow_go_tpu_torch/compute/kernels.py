@@ -11,8 +11,14 @@ Checked arithmetic ('add' etc. called directly) detects integer overflow
 and division by zero like the reference's non-_unchecked functions and
 raises ArrowInvalid; expressions run unchecked, as in the JAX package.
 Integer division truncates toward zero (Go semantics); `mod` is floored
-(the sign of the divisor), as `jnp.mod`. Decimals and rounding are not
-ported yet.
+(the sign of the divisor), as `jnp.mod`. uint16, uint32 and uint64
+columns hold their bits in signed storage (dtypes.py), so every
+operation whose result depends on signedness (compares, divide, mod,
+shift right, min/max, the overflow checks, widening) reads them as
+unsigned through ops/convert.py. Two temporal operands combine only
+when they share a type; a Python int beside a temporal column is
+broadcast to the column's type. `round_` and `round_to_multiple` take
+the nine round modes. Decimals are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from .. import dtypes as dt
 from ..device.block import DeviceColumn, row_mask, valid_rows
 from ..ops import bitmap
+from ..ops import convert as cv
 from .errors import ArrowInvalid, ArrowNotImplemented
 
 
@@ -110,6 +117,8 @@ def _broadcast_scalar(v, t: dt.DataType, P: int, n: int,
         vals = torch.zeros(P, dtype=t.torch_dtype, device=device)
         words = torch.zeros(P // 32, dtype=torch.int32, device=device)
         return DeviceColumn(vals, words, n, t)
+    if t.stores_unsigned_as_signed and v >= 1 << (t.bit_width - 1):
+        v -= 1 << t.bit_width              # the same bits, signed
     return DeviceColumn(torch.full((P,), v, dtype=t.torch_dtype,
                                    device=device), None, n, t)
 
@@ -133,9 +142,30 @@ def _out_validity(a: DeviceColumn, b: Optional[DeviceColumn] = None):
 
 
 def _cast_operands(a: DeviceColumn, b: DeviceColumn, to: dt.DataType):
-    av = a.values.to(to.torch_dtype) if a.type != to else a.values
-    bv = b.values.to(to.torch_dtype) if b.type != to else b.values
-    return av, bv
+    return cv.convert(a.values, a.type, to), cv.convert(b.values, b.type, to)
+
+
+def _unsigned_binary(op: str, av, bv, t: dt.DataType):
+    """The ops whose result depends on signedness, on unsigned storage
+    (divide and mod take the divisor 1 for 0, as the signed ops do)."""
+    if op in ("max_element_wise", "min_element_wise"):
+        ge = cv.order_bits(av, t) >= cv.order_bits(bv, t)
+        return torch.where(ge if op == "max_element_wise" else ~ge, av, bv)
+    if op == "shift_right":
+        return cv.shift_right_logical(av, bv & (t.bit_width - 1))
+    zero = bv == 0
+    if t.bit_width == 64:
+        q, r = cv.u64_divmod(av, torch.where(zero, 1, bv))
+    else:
+        a64, b64 = cv.as_int64(av, t), cv.as_int64(bv, t)
+        b64 = torch.where(zero, 1, b64)
+        q, r = a64 // b64, a64 % b64
+    out = q if op == "divide" else torch.where(zero, 0, r)
+    return out.to(t.torch_dtype)
+
+
+_UNSIGNED_OPS = ("divide", "mod", "shift_right", "max_element_wise",
+                 "min_element_wise")
 
 
 def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
@@ -154,7 +184,10 @@ def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
             ((bv == 0) & valid_rows(validity, av.shape[0], n,
                                     av.device)).any()):
         raise ArrowInvalid("divide by zero")
-    out = _ARITH_BINARY[op](av, bv).to(to.torch_dtype)
+    if to.is_unsigned_integer and op in _UNSIGNED_OPS:
+        out = _unsigned_binary(op, av, bv, to)
+    else:
+        out = _ARITH_BINARY[op](av, bv).to(to.torch_dtype)
     if checked and to.is_integer and op in ("add", "subtract", "multiply"):
         _check_overflow(op, av, bv, out, validity, n, to)
     return DeviceColumn(out, validity, n, to)
@@ -169,32 +202,40 @@ def arithmetic_unary(op: str, a: DeviceColumn,
         to = dt.float64
     if op == "bit_wise_not" and not to.is_integer:
         raise ArrowNotImplemented("bit_wise_not requires integers")
-    av = a.values.to(to.torch_dtype) if to != a.type else a.values
-    if op == "negate" and checked and not av.dtype.is_signed and \
-            av.dtype != torch.bool and bool(
-                ((av != 0) & valid_rows(a.validity, a.padded, a.length,
-                                        a.device)).any()):
+    av = cv.convert(a.values, a.type, to)
+    if op == "negate" and checked and to.is_unsigned_integer and bool(
+            ((av != 0) & valid_rows(a.validity, a.padded, a.length,
+                                    a.device)).any()):
         raise ArrowInvalid("negate overflow on unsigned")
-    out = _ARITH_UNARY[op](av).to(to.torch_dtype)
+    if to.is_unsigned_integer and op in ("abs", "sign"):
+        out = av if op == "abs" else (av != 0).to(to.torch_dtype)
+    else:
+        out = _ARITH_UNARY[op](av).to(to.torch_dtype)
     return DeviceColumn(out, a.validity, a.length, to)
 
 
-def _overflow_flag(op, av, bv, out, mask) -> torch.Tensor:
-    if op == "add":
+def _overflow_flag(op, av, bv, out, mask, to) -> torch.Tensor:
+    if to.is_unsigned_integer and op in ("add", "subtract"):
+        # an unsigned sum wrapped iff it is below an addend; a difference
+        # iff the subtrahend is the larger
+        x, y = (out, av) if op == "add" else (av, bv)
+        bad = cv.order_bits(x, to) < cv.order_bits(y, to)
+    elif op == "add":
         bad = ((av > 0) & (bv > 0) & (out < 0)) | (
             (av < 0) & (bv < 0) & (out >= 0))
     elif op == "subtract":
         bad = ((av >= 0) & (bv < 0) & (out < 0)) | (
             (av < 0) & (bv > 0) & (out >= 0))
     else:  # multiply: recompute in float64 and compare magnitude
-        approx = av.to(torch.float64) * bv.to(torch.float64)
-        bad = torch.abs(approx - out.to(torch.float64)) > 1.0
+        approx = cv.convert(av, to, dt.float64) * cv.convert(bv, to,
+                                                            dt.float64)
+        bad = torch.abs(approx - cv.convert(out, to, dt.float64)) > 1.0
     return (bad & mask).any()
 
 
 def _check_overflow(op, av, bv, out, validity, n, to):
     mask = valid_rows(validity, av.shape[0], n, av.device)
-    if bool(_overflow_flag(op, av, bv, out, mask)):
+    if bool(_overflow_flag(op, av, bv, out, mask, to)):
         raise ArrowInvalid(f"integer overflow in {op} ({to})")
 
 
@@ -221,7 +262,7 @@ def compare(op: str, a, b) -> DeviceColumn:
     to = dt.common_numeric_type(a.type, b.type) if a.type != b.type \
         else a.type
     av, bv = _cast_operands(a, b, to)
-    out = _COMPARE[op](av, bv)
+    out = _COMPARE[op](cv.order_bits(av, to), cv.order_bits(bv, to))
     return DeviceColumn(out, _out_validity(a, b), max(a.length, b.length),
                         dt.bool_)
 
@@ -321,3 +362,55 @@ def is_finite(a: DeviceColumn) -> DeviceColumn:
     out = torch.isfinite(a.values) if a.type.is_floating else torch.ones(
         a.padded, dtype=torch.bool, device=a.device)
     return DeviceColumn(out, a.validity, a.length, dt.bool_)
+
+
+# ---------------------------------------------------------------------------
+# rounding (reference internal/kernels/rounding.go)
+# ---------------------------------------------------------------------------
+
+def _half_up(x):
+    return torch.floor(x + 0.5)
+
+
+def _half_down(x):
+    return torch.ceil(x - 0.5)
+
+
+_ROUND_MODES = {
+    "half_to_even": torch.round, "down": torch.floor, "up": torch.ceil,
+    "towards_zero": torch.trunc,
+    "towards_infinity": lambda x: torch.where(x >= 0, torch.ceil(x),
+                                              torch.floor(x)),
+    "half_up": _half_up, "half_down": _half_down,
+    "half_towards_zero": lambda x: torch.where(x >= 0, _half_down(x),
+                                               _half_up(x)),
+    "half_towards_infinity": lambda x: torch.where(x >= 0, _half_up(x),
+                                                   _half_down(x)),
+}
+
+
+def round_(a: DeviceColumn, ndigits: int = 0,
+           mode: str = "half_to_even") -> DeviceColumn:
+    """Round a float column to `ndigits` decimal digits in one of nine
+    modes (x * 10**ndigits rounded, divided back); any other column
+    comes back as it is."""
+    if not a.type.is_floating:
+        return a
+    if mode not in _ROUND_MODES:
+        raise ArrowNotImplemented(f"round mode {mode}")
+    scale = 10.0 ** ndigits
+    return DeviceColumn(_ROUND_MODES[mode](a.values * scale) / scale,
+                        a.validity, a.length, a.type)
+
+
+def round_to_multiple(a: DeviceColumn, multiple: float,
+                      mode: str = "half_to_even") -> DeviceColumn:
+    """Round a float column to a multiple of `multiple` (> 0); any other
+    column comes back as it is."""
+    if multiple <= 0:
+        raise ArrowInvalid("multiple must be positive")
+    if not a.type.is_floating:
+        return a
+    r = round_(DeviceColumn(a.values / multiple, a.validity, a.length,
+                            a.type), 0, mode)
+    return DeviceColumn(r.values * multiple, a.validity, a.length, a.type)

@@ -11,6 +11,12 @@ JAX package's words (LSB-first: word w bit b <-> row w*32+b); torch's
 uint32 supports too few operations, so every shift of a word is masked
 afterwards (ops/bitmap.py).
 
+Values are stored in their type's `torch_dtype`: uint16, uint32 and
+uint64 as the raw bits in int16, int32 and int64 (dtypes.py). Every
+conversion between numpy and the device here is a bit-for-bit view,
+so a HostArray holds numpy's unsigned dtype and the device its signed
+storage of the same bits.
+
 Strings and binary values are dictionary-encoded at ingest, as in the
 JAX package: int32 codes live on the device, the values stay in a host
 dictionary (a numpy object array of str or bytes) that rides the column.
@@ -28,6 +34,7 @@ import torch
 
 from .. import dtypes as dt
 from .. import torchenv
+from ..ops.convert import host_view, storage_view
 
 LANE = 128
 WORD_BITS = 32
@@ -192,7 +199,8 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
                      length: int, device=None) -> DeviceBatch:
     """DeviceBatch from already padded host buffers.
 
-    fields:  (name, type name) per column, e.g. ("l_okey", "int64").
+    fields:  (name, type) per column, the type a DataType or its name
+             (`dt.type_for_name`), e.g. ("l_okey", "int64").
     columns: (values, validity words or None) per column: the padded
              values ndarray and the uint32 validity words, exactly what
              `np.asarray` gives for a JAX DeviceColumn's `.values` and
@@ -206,12 +214,13 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
     flds, cols = [], []
     padded = None
     for (name, tname), col in zip(fields, columns):
-        ft = dt.type_for_name(tname)
+        ft = tname if isinstance(tname, dt.DataType) else \
+            dt.type_for_name(tname)
         vals, words = col[0], col[1]
         t, dictionary = ft, None
         if ft.is_binary_like:
             if len(col) != 3:
-                raise ValueError(f"column {name!r}: a {tname} column takes "
+                raise ValueError(f"column {name!r}: a {ft} column takes "
                                  f"(codes, words, dictionary)")
             t = dt.dictionary(dt.int32, ft)
             dictionary = dictionary_values(col[2], ft)
@@ -225,7 +234,8 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
         if vals.shape[0] != padded or padded < length:
             raise ValueError(f"column {name!r}: padded length "
                              f"{vals.shape[0]} does not fit the batch")
-        v = torch.from_numpy(np.ascontiguousarray(vals).copy()).to(dev)
+        v = torch.from_numpy(storage_view(np.ascontiguousarray(vals).copy(),
+                                          t)).to(dev)
         w = None if words is None else _words_to_tensor(words, dev)
         flds.append(dt.Field(name, ft))
         cols.append(DeviceColumn(v, w, int(length), t, dictionary))
@@ -260,7 +270,7 @@ def batch_to_device(data: Dict[str, object], device=None,
             host = np.zeros(pad if pad is not None else pad_length(n),
                             dtype=t.np_dtype)
             host[:n] = v
-            fields.append((name, t.name))
+            fields.append((name, t))
             columns.append((host, None))
             continue
         host = np.zeros(pad if pad is not None else pad_length(n), np.int32)
@@ -370,18 +380,19 @@ def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
                      first.type, merged)
 
 
-def host_array_to_device(arr: HostArray, dev) -> DeviceColumn:
-    """A HostArray as a DeviceColumn on `dev`: values padded to
-    pad_length(n), validity words when it has a mask; a dictionary
-    array keeps its codes and dictionary."""
+def host_array_to_device(arr: HostArray, dev,
+                         pad: Optional[int] = None) -> DeviceColumn:
+    """A HostArray as a DeviceColumn on `dev`: values padded to `pad`
+    (default pad_length(n)), validity words when it has a mask; a
+    dictionary array keeps its codes and dictionary."""
     n = len(arr)
-    P = pad_length(n)
+    P = pad_length(n) if pad is None else pad
     host = np.zeros(P, dtype=arr.type.np_dtype)
     host[:n] = arr.values
     words = None if arr.mask is None else _words_to_tensor(
         _pack_words(arr.mask, P), dev)
-    return DeviceColumn(torch.from_numpy(host).to(dev), words, n, arr.type,
-                        arr.dictionary)
+    return DeviceColumn(torch.from_numpy(storage_view(host, arr.type)).to(
+        dev), words, n, arr.type, arr.dictionary)
 
 
 def column_to_host(col: DeviceColumn) -> HostArray:
@@ -390,8 +401,8 @@ def column_to_host(col: DeviceColumn) -> HostArray:
     mask = None
     if col.validity is not None:
         mask = _unpack_words(col.validity.cpu().numpy().view(np.uint32), n)
-    return HostArray(col.values[:n].cpu().numpy(), mask, col.type,
-                     col.dictionary)
+    return HostArray(host_view(col.values[:n].cpu().numpy(), col.type), mask,
+                     col.type, col.dictionary)
 
 
 def host_batch_to_device(hb: HostBatch, device=None) -> DeviceBatch:

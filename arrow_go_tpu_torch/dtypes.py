@@ -1,12 +1,25 @@
-"""Logical types of the port: the subset of the JAX package's dtypes that
-the device pipeline carries (bool, int32, int64, float32, float64), with
-the same names and type ids, plus the torch dtype of each; and the
-variable-width string and binary types, which live on the device as a
-dictionary type: int32 codes there, the values in a host dictionary."""
+"""Logical types of the port, with the JAX package's type ids, names,
+numpy dtypes and bit widths (arrow_go_tpu/dtypes.py): bool; the signed
+and unsigned integers of 8 to 64 bits; float16, float32 and float64;
+date32, date64, timestamp(unit, tz), time32(unit), time64(unit) and
+duration(unit); and the variable-width string and binary types, which
+live on the device as a dictionary type: int32 codes there, the values
+in a host dictionary.
+
+Each fixed-width type carries the torch dtype its device tensor is
+stored in (`torch_dtype`). torch computes on none of uint16, uint32 and
+uint64, so those types store their raw bits in int16, int32 and int64
+(uint8 stays torch.uint8); every operation whose result depends on
+signedness reads such bits as unsigned (`is_unsigned_integer`), and
+the host sees them through a view as numpy's unsigned dtype. A
+temporal type stores int32 (date32, time32) or int64 (the others), its
+`np_dtype` in the JAX package.
+"""
 from __future__ import annotations
 
 import enum
-from typing import Dict, List, Sequence
+import re
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,61 +29,198 @@ class TypeId(enum.IntEnum):
     """Logical type ids, mirroring arrow.Type (reference arrow/datatype.go)."""
 
     BOOL = 1
+    UINT8 = 2
+    INT8 = 3
+    UINT16 = 4
+    INT16 = 5
+    UINT32 = 6
     INT32 = 7
+    UINT64 = 8
     INT64 = 9
+    FLOAT16 = 10
     FLOAT32 = 11
     FLOAT64 = 12
     STRING = 13
     BINARY = 14
+    DATE32 = 16
+    DATE64 = 17
+    TIMESTAMP = 18
+    TIME32 = 19
+    TIME64 = 20
     DICTIONARY = 29
+    DURATION = 33
+
+
+class TimeUnit(enum.IntEnum):
+    SECOND = 0
+    MILLISECOND = 1
+    MICROSECOND = 2
+    NANOSECOND = 3
+
+    @property
+    def multiplier(self) -> int:
+        """Ticks of this unit in one second."""
+        return (1, 10**3, 10**6, 10**9)[int(self)]
+
+    def __str__(self) -> str:
+        return ("s", "ms", "us", "ns")[int(self)]
+
+
+_TIMEUNIT_FROM_STR = {"s": TimeUnit.SECOND, "ms": TimeUnit.MILLISECOND,
+                      "us": TimeUnit.MICROSECOND, "ns": TimeUnit.NANOSECOND}
+
+
+def timeunit_from_str(s: str) -> TimeUnit:
+    return _TIMEUNIT_FROM_STR[s]
+
+
+def _unit(u) -> TimeUnit:
+    return timeunit_from_str(u) if isinstance(u, str) else TimeUnit(u)
+
+
+_INTEGERS = (TypeId.UINT8, TypeId.INT8, TypeId.UINT16, TypeId.INT16,
+             TypeId.UINT32, TypeId.INT32, TypeId.UINT64, TypeId.INT64)
+_UNSIGNED = (TypeId.UINT8, TypeId.UINT16, TypeId.UINT32, TypeId.UINT64)
+_FLOATS = (TypeId.FLOAT16, TypeId.FLOAT32, TypeId.FLOAT64)
+_TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
+             TypeId.TIME64, TypeId.DURATION)
 
 
 class DataType:
-    """A fixed-width logical type with its numpy and torch dtypes."""
+    """A logical type with its numpy dtype (None for string and binary),
+    bit width and torch storage dtype."""
 
-    def __init__(self, type_id: TypeId, name: str, np_dtype, torch_dtype):
+    def __init__(self, type_id: TypeId, name: str, np_dtype, torch_dtype,
+                 bit_width: int = 0):
         self.id = type_id
         self.name = name
-        self.np_dtype = np.dtype(np_dtype)
+        self.np_dtype = None if np_dtype is None else np.dtype(np_dtype)
         self.torch_dtype = torch_dtype
+        self.bit_width = bit_width
 
     @property
     def is_integer(self) -> bool:
-        return self.id in (TypeId.INT32, TypeId.INT64)
+        return self.id in _INTEGERS
+
+    @property
+    def is_signed_integer(self) -> bool:
+        return self.is_integer and self.id not in _UNSIGNED
+
+    @property
+    def is_unsigned_integer(self) -> bool:
+        return self.id in _UNSIGNED
 
     @property
     def is_floating(self) -> bool:
-        return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
+        return self.id in _FLOATS
 
     @property
     def is_numeric(self) -> bool:
         return self.is_integer or self.is_floating
 
     @property
+    def is_temporal(self) -> bool:
+        return self.id in _TEMPORAL
+
+    @property
     def is_binary_like(self) -> bool:
         return self.id in (TypeId.STRING, TypeId.BINARY)
+
+    @property
+    def stores_unsigned_as_signed(self) -> bool:
+        """uint16, uint32, uint64: raw bits in a signed torch dtype."""
+        return self.is_unsigned_integer and self.id != TypeId.UINT8
+
+    def _eq_extra(self) -> tuple:
+        return ()
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, DataType):
             return NotImplemented
-        return self.id == other.id
+        return self.id == other.id and self._eq_extra() == other._eq_extra()
 
     def __hash__(self) -> int:
-        return hash(int(self.id))
+        return hash((int(self.id), self._eq_extra()))
 
-    def __repr__(self) -> str:
+    def __str__(self) -> str:
         return self.name
 
+    def __repr__(self) -> str:
+        return str(self)
 
-bool_ = DataType(TypeId.BOOL, "bool", np.bool_, torch.bool)
-int32 = DataType(TypeId.INT32, "int32", np.int32, torch.int32)
-int64 = DataType(TypeId.INT64, "int64", np.int64, torch.int64)
-float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32)
-float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64)
+
+class _UnitType(DataType):
+    """A temporal type with a time unit (its ticks are 1/multiplier s)."""
+
+    def __init__(self, type_id: TypeId, name: str, np_dtype, torch_dtype,
+                 bit_width: int, unit):
+        super().__init__(type_id, name, np_dtype, torch_dtype, bit_width)
+        self.unit = _unit(unit)
+
+    def _eq_extra(self) -> tuple:
+        return (self.unit,)
+
+    def __str__(self) -> str:
+        return f"{self.name}[{self.unit}]"
+
+
+class TimestampType(_UnitType):
+    def __init__(self, unit=TimeUnit.MICROSECOND, tz: Optional[str] = None):
+        super().__init__(TypeId.TIMESTAMP, "timestamp", np.int64,
+                         torch.int64, 64, unit)
+        self.tz = tz
+
+    def _eq_extra(self) -> tuple:
+        return (self.unit, self.tz)
+
+    def __str__(self) -> str:
+        if self.tz:
+            return f"timestamp[{self.unit}, tz={self.tz}]"
+        return f"timestamp[{self.unit}]"
+
+
+bool_ = DataType(TypeId.BOOL, "bool", np.bool_, torch.bool, 1)
+int8 = DataType(TypeId.INT8, "int8", np.int8, torch.int8, 8)
+int16 = DataType(TypeId.INT16, "int16", np.int16, torch.int16, 16)
+int32 = DataType(TypeId.INT32, "int32", np.int32, torch.int32, 32)
+int64 = DataType(TypeId.INT64, "int64", np.int64, torch.int64, 64)
+uint8 = DataType(TypeId.UINT8, "uint8", np.uint8, torch.uint8, 8)
+uint16 = DataType(TypeId.UINT16, "uint16", np.uint16, torch.int16, 16)
+uint32 = DataType(TypeId.UINT32, "uint32", np.uint32, torch.int32, 32)
+uint64 = DataType(TypeId.UINT64, "uint64", np.uint64, torch.int64, 64)
+float16 = DataType(TypeId.FLOAT16, "halffloat", np.float16, torch.float16,
+                   16)
+float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32, 32)
+float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64, 64)
+date32 = DataType(TypeId.DATE32, "date32", np.int32, torch.int32, 32)
+date64 = DataType(TypeId.DATE64, "date64", np.int64, torch.int64, 64)
 # host values are Python str / bytes objects; on the device a column of
 # these types is a dictionary(int32, ...) column of codes
-string = DataType(TypeId.STRING, "utf8", np.object_, None)
-binary = DataType(TypeId.BINARY, "binary", np.object_, None)
+string = DataType(TypeId.STRING, "utf8", None, None)
+binary = DataType(TypeId.BINARY, "binary", None, None)
+
+
+def timestamp(unit="us", tz: Optional[str] = None) -> TimestampType:
+    return TimestampType(unit, tz)
+
+
+def time32(unit="ms") -> _UnitType:
+    if _unit(unit) not in (TimeUnit.SECOND, TimeUnit.MILLISECOND):
+        raise ValueError("time32 requires s or ms unit")
+    return _UnitType(TypeId.TIME32, "time32", np.int32, torch.int32, 32,
+                     unit)
+
+
+def time64(unit="us") -> _UnitType:
+    if _unit(unit) not in (TimeUnit.MICROSECOND, TimeUnit.NANOSECOND):
+        raise ValueError("time64 requires us or ns unit")
+    return _UnitType(TypeId.TIME64, "time64", np.int64, torch.int64, 64,
+                     unit)
+
+
+def duration(unit="us") -> _UnitType:
+    return _UnitType(TypeId.DURATION, "duration", np.int64, torch.int64, 64,
+                     unit)
 
 
 class DictionaryType(DataType):
@@ -81,21 +231,15 @@ class DictionaryType(DataType):
         if not index_type.is_integer:
             raise ValueError("dictionary index type must be integer")
         super().__init__(TypeId.DICTIONARY, "dictionary",
-                         index_type.np_dtype, index_type.torch_dtype)
+                         index_type.np_dtype, index_type.torch_dtype,
+                         index_type.bit_width)
         self.index_type = index_type
         self.value_type = value_type
 
-    def __eq__(self, other: object) -> bool:
-        if not isinstance(other, DataType):
-            return NotImplemented
-        return isinstance(other, DictionaryType) and (
-            self.index_type, self.value_type) == (other.index_type,
-                                                  other.value_type)
+    def _eq_extra(self) -> tuple:
+        return (self.index_type, self.value_type)
 
-    def __hash__(self) -> int:
-        return hash((int(self.id), self.index_type, self.value_type))
-
-    def __repr__(self) -> str:
+    def __str__(self) -> str:
         return (f"dictionary<values={self.value_type!r}, "
                 f"indices={self.index_type!r}>")
 
@@ -104,28 +248,54 @@ def dictionary(index_type: DataType, value_type: DataType) -> DictionaryType:
     return DictionaryType(index_type, value_type)
 
 
-_BY_NAME: Dict[str, DataType] = {
-    "bool": bool_, "int32": int32, "int64": int64, "float": float32,
-    "float32": float32, "double": float64, "float64": float64,
-    "utf8": string, "string": string, "binary": binary}
-_FROM_NUMPY = {t.np_dtype: t for t in (bool_, int32, int64, float32,
-                                       float64)}
+_SIMPLE = (bool_, int8, int16, int32, int64, uint8, uint16, uint32, uint64,
+           float16, float32, float64, date32, date64, string, binary)
+_BY_NAME: Dict[str, DataType] = {t.name: t for t in _SIMPLE}
+_BY_NAME.update({"float16": float16, "float32": float32,
+                 "float64": float64, "string": string})
+_PARAMETRIZED = re.compile(r"(timestamp|time32|time64|duration)"
+                           r"\[(s|ms|us|ns)(?:, tz=(.+))?\]")
+_FROM_NUMPY = {t.np_dtype: t for t in (bool_, int8, int16, int32, int64,
+                                       uint8, uint16, uint32, uint64,
+                                       float16, float32, float64)}
 
 
 def type_for_name(name: str) -> DataType:
-    """Type by its name ('int32', 'int64', 'float' or 'float32', 'double'
-    or 'float64', 'bool', 'utf8' or 'string', 'binary')."""
-    try:
-        return _BY_NAME[name]
-    except KeyError:
-        raise ValueError(f"the port carries no type named {name!r}") from None
+    """Type by its name ('int8' ... 'uint64', 'halffloat' or 'float16',
+    'float' or 'float32', 'double' or 'float64', 'bool', 'utf8' or
+    'string', 'binary', 'date32', 'date64') or by the str() of a type
+    with a unit ('timestamp[ms]', 'timestamp[us, tz=UTC]', 'time32[s]',
+    'time64[ns]', 'duration[ms]')."""
+    t = _BY_NAME.get(name)
+    if t is not None:
+        return t
+    m = _PARAMETRIZED.fullmatch(name)
+    if m is None:
+        raise ValueError(f"the port carries no type named {name!r}")
+    kind, unit, tz = m.groups()
+    if kind == "timestamp":
+        return timestamp(unit, tz)
+    if tz is not None:
+        raise ValueError(f"the port carries no type named {name!r}")
+    return {"time32": time32, "time64": time64, "duration": duration}[kind](
+        unit)
 
 
 def from_numpy_dtype(d) -> DataType:
-    try:
-        return _FROM_NUMPY[np.dtype(d)]
-    except KeyError:
-        raise ValueError(f"the port carries no type for numpy {d}") from None
+    """Type of a numpy dtype: the fixed-width numeric dtypes, and
+    datetime64 (D: date32; s/ms/us/ns: timestamp) and timedelta64
+    (s/ms/us/ns: duration), as the JAX package maps them."""
+    d = np.dtype(d)
+    t = _FROM_NUMPY.get(d)
+    if t is not None:
+        return t
+    if d.kind in "Mm":
+        unit = np.datetime_data(d)[0]
+        if d.kind == "M" and unit == "D":
+            return date32
+        if unit in _TIMEUNIT_FROM_STR:
+            return timestamp(unit) if d.kind == "M" else duration(unit)
+    raise ValueError(f"the port carries no type for numpy {d}")
 
 
 class Field:
@@ -194,13 +364,12 @@ class Schema:
 
 def common_numeric_type(a: DataType, b: DataType) -> DataType:
     """Implicit cast target of a binary numeric kernel (numpy promotion,
-    as the reference's DispatchBest, compute/exec.go:100)."""
+    as the reference's DispatchBest, compute/exec.go:100, and the JAX
+    package's compute/kernels.py): two temporal values combine only
+    when they share a type."""
     from .compute.errors import ArrowNotImplemented
     if a == b:
         return a
     if not (a.is_numeric and b.is_numeric):
         raise ArrowNotImplemented(f"no common type for {a} and {b}")
-    try:
-        return from_numpy_dtype(np.promote_types(a.np_dtype, b.np_dtype))
-    except ValueError as e:
-        raise ArrowNotImplemented(str(e)) from None
+    return from_numpy_dtype(np.promote_types(a.np_dtype, b.np_dtype))

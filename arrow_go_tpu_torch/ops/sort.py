@@ -1,9 +1,12 @@
 """Order-preserving key transforms and stable multi-key sorts.
 
 Port of arrow_go_tpu/ops/sort.py. Every key column maps to an
-order-isomorphic unsigned 64-bit "radix key" (`_orderable_bits`): ints
-by a sign-bit flip, floats by the sign-flip bit trick with NaN
-canonicalized above +inf. torch has no usable uint64, so a radix key is
+order-isomorphic unsigned 64-bit "radix key" (`_orderable_bits`): signed
+ints (and the temporal types, by their storage) by a sign-bit flip,
+unsigned ints as their zero-extended bits (uint64 as its bits, so a
+value of 2**63 or more sorts above the small ones), floats of 16, 32
+and 64 bits by the sign-flip bit trick with NaN canonicalized above
++inf. torch has no usable uint64, so a radix key is
 an int64 tensor carrying the u64 bit pattern, and `sortable` flips its
 sign bit so that torch's signed order is the unsigned order.
 
@@ -21,6 +24,7 @@ import torch
 from .. import dtypes as dt
 from ..device.block import row_mask
 from . import bitmap
+from .convert import as_int64
 
 INT64_MIN = -(1 << 63)
 
@@ -38,10 +42,13 @@ def f64_bits(x: torch.Tensor) -> torch.Tensor:
 def _orderable_bits(values: torch.Tensor,
                     t: Optional[dt.DataType] = None) -> torch.Tensor:
     """Radix key: int64 carrying the u64 bit pattern whose unsigned order
-    is the logical order (the JAX package's value after .astype(uint64))."""
+    is the logical order of type t (the JAX package's value after
+    .astype(uint64)); without t, ints of a signed dtype are signed."""
     d = values.dtype
-    if d == torch.bool:
+    if d in (torch.bool, torch.uint8):
         return values.to(torch.int64)
+    if t is not None and t.is_unsigned_integer:
+        return as_int64(values, t)
     if d in (torch.int8, torch.int16, torch.int32):
         width = torch.iinfo(d).bits
         return values.to(torch.int64) + (1 << (width - 1))
@@ -52,13 +59,15 @@ def _orderable_bits(values: torch.Tensor,
                             torch.full_like(values, float("nan")), values)
         bits = f64_bits(canon)
         return torch.where(bits < 0, ~bits, bits | INT64_MIN)
-    if d == torch.float32:
+    if d in (torch.float32, torch.float16):
+        ibits = {torch.float32: torch.int32, torch.float16: torch.int16}[d]
+        width = torch.iinfo(ibits).bits
         canon = torch.where(torch.isnan(values),
                             torch.full_like(values, float("nan")), values)
-        bits = canon.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        sign = 1 << 31
-        return torch.where((bits & sign) != 0, ~bits & 0xFFFFFFFF,
-                           bits | sign)
+        umask = (1 << width) - 1
+        bits = canon.view(ibits).to(torch.int64) & umask
+        sign = 1 << (width - 1)
+        return torch.where((bits & sign) != 0, ~bits & umask, bits | sign)
     raise NotImplementedError(f"radix key for {d}")
 
 

@@ -17,7 +17,10 @@ adds each phase's seconds to the dict, synchronizing the device at the
 phase ends; without `times` nothing synchronizes.
 
 Supported: max_rep_level == 0, max_def_level <= 1 (flat, optionally
-nullable), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN, encodings PLAIN /
+nullable), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN (an INT32 or INT64
+column decodes as its physical ints and then takes its annotated type on
+the device: int8, int16, uint8 and uint16 narrow there; uint32, uint64
+and the temporal types keep the bits; schema.py maps the annotations), encodings PLAIN /
 RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT /
 DELTA_BINARY_PACKED (INT32/INT64, miniblocks up to 32 bits wide), v1 and
 v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP and LZ4_RAW (the host
@@ -44,11 +47,12 @@ from .. import torchenv
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import (DeviceBatch, DeviceColumn, dictionary_values,
                             pad_length)
-from ..ops import bitmap
+from ..ops import bitmap, convert
 from ..ops import decode as dd
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
+from . import schema
 from .thrift import CompactReader
 
 _DICT_ENCODINGS = {fmt.Encoding.RLE_DICTIONARY, fmt.Encoding.PLAIN_DICTIONARY}
@@ -322,7 +326,7 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
         raise ArrowNotImplemented("device read supports flat columns only")
     t = desc.arrow_type
     codes_only = t.is_binary_like
-    np_dtype = np.int32 if codes_only else t.np_dtype
+    np_dtype = np.int32 if codes_only else schema.physical_np_dtype(t)
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
     host: Host = {}
@@ -368,6 +372,9 @@ def _ship(host: Host, device: torch.device) -> Host:
 
 def _column(plan: _Plan, shipped: Host, pad: Optional[int]) -> DeviceColumn:
     values, present = plan.decode(shipped)
+    if values.dtype != plan.type.torch_dtype:
+        # an 8- or 16-bit int from its INT32 physical values
+        values = convert.convert(values, dt.int32, plan.type)
     P = pad if pad is not None else pad_length(plan.n)
     validity = bitmap.pack_mask(_pad(present, P)) if plan.nullable else None
     return DeviceColumn(_pad(values, P), validity, plan.n, plan.type,

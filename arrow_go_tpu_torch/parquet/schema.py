@@ -4,14 +4,19 @@ Port of the flat-column part of arrow_go_tpu/parquet/schema.py
 (reference parquet/schema + parquet/pqarrow/schema.go): BOOLEAN, INT32,
 INT64, FLOAT and DOUBLE leaves, and BYTE_ARRAY leaves (string with the
 STRING / UTF8 annotation, binary without one), required or optional,
-directly under the root. Groups (lists, maps, structs), other physical
-types and logical annotations the port has no type for raise
+directly under the root. INT32 and INT64 leaves take the logical and
+converted annotations of the JAX package: DATE, TIME, TIMESTAMP and
+INTEGER(8/16/32/64, signed or not), or INT_8/16, UINT_8..64, DATE,
+TIME_* and TIMESTAMP_*. Groups (lists, maps, structs), FIXED_LEN_BYTE_ARRAY
+and INT96 leaves, and the DECIMAL and FLOAT16 annotations raise
 ArrowNotImplemented.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
+
+import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowNotImplemented
@@ -32,15 +37,22 @@ class ColumnDescriptor:
     schema_elements: List[fmt.SchemaElement]  # root-to-leaf elements
 
 
-_PHYSICAL = {dt.TypeId.BOOL: fmt.Type.BOOLEAN, dt.TypeId.INT32: fmt.Type.INT32,
-             dt.TypeId.INT64: fmt.Type.INT64,
+_INT32_TYPES = (dt.TypeId.INT8, dt.TypeId.INT16, dt.TypeId.INT32,
+                dt.TypeId.UINT8, dt.TypeId.UINT16, dt.TypeId.UINT32,
+                dt.TypeId.DATE32, dt.TypeId.TIME32)
+_INT64_TYPES = (dt.TypeId.INT64, dt.TypeId.UINT64, dt.TypeId.TIMESTAMP,
+                dt.TypeId.TIME64, dt.TypeId.DATE64, dt.TypeId.DURATION)
+_PHYSICAL = {dt.TypeId.BOOL: fmt.Type.BOOLEAN,
              dt.TypeId.FLOAT32: fmt.Type.FLOAT,
              dt.TypeId.FLOAT64: fmt.Type.DOUBLE,
              dt.TypeId.STRING: fmt.Type.BYTE_ARRAY,
-             dt.TypeId.BINARY: fmt.Type.BYTE_ARRAY}
-_LOGICAL = {fmt.Type.BOOLEAN: dt.bool_, fmt.Type.INT32: dt.int32,
-            fmt.Type.INT64: dt.int64, fmt.Type.FLOAT: dt.float32,
-            fmt.Type.DOUBLE: dt.float64, fmt.Type.BYTE_ARRAY: dt.binary}
+             dt.TypeId.BINARY: fmt.Type.BYTE_ARRAY,
+             **{i: fmt.Type.INT32 for i in _INT32_TYPES},
+             **{i: fmt.Type.INT64 for i in _INT64_TYPES}}
+_PLAIN = {fmt.Type.BOOLEAN: dt.bool_, fmt.Type.INT32: dt.int32,
+          fmt.Type.INT64: dt.int64, fmt.Type.FLOAT: dt.float32,
+          fmt.Type.DOUBLE: dt.float64, fmt.Type.BYTE_ARRAY: dt.binary}
+_PHYSICAL_NP = {fmt.Type.INT32: np.int32, fmt.Type.INT64: np.int64}
 
 
 def physical_for(t: dt.DataType) -> Tuple[fmt.Type, int]:
@@ -50,6 +62,70 @@ def physical_for(t: dt.DataType) -> Tuple[fmt.Type, int]:
     except KeyError:
         raise ArrowNotImplemented(
             f"no parquet physical type for {t}") from None
+
+
+def physical_np_dtype(t: dt.DataType) -> np.dtype:
+    """The numpy dtype of a non-string type's physical values: int32 or
+    int64 for every integer and temporal type, else the type's own."""
+    return np.dtype(_PHYSICAL_NP.get(physical_for(t)[0], t.np_dtype))
+
+
+_UNITS = {dt.TimeUnit.MILLISECOND: ("MILLIS", fmt.MilliSeconds),
+          dt.TimeUnit.MICROSECOND: ("MICROS", fmt.MicroSeconds),
+          dt.TimeUnit.NANOSECOND: ("NANOS", fmt.NanoSeconds)}
+
+
+def _unit_of(unit: dt.TimeUnit) -> Optional[fmt.TimeUnitU]:
+    if unit not in _UNITS:
+        return None
+    field, cls = _UNITS[unit]
+    return fmt.TimeUnitU(**{field: cls()})
+
+
+_INT_ANNOTATIONS = {
+    dt.TypeId.UINT8: (8, False, fmt.ConvertedType.UINT_8),
+    dt.TypeId.UINT16: (16, False, fmt.ConvertedType.UINT_16),
+    dt.TypeId.UINT32: (32, False, fmt.ConvertedType.UINT_32),
+    dt.TypeId.UINT64: (64, False, fmt.ConvertedType.UINT_64),
+    dt.TypeId.INT8: (8, True, fmt.ConvertedType.INT_8),
+    dt.TypeId.INT16: (16, True, fmt.ConvertedType.INT_16)}
+
+
+def _logical_for(t: dt.DataType) -> Tuple[Optional[fmt.LogicalType],
+                                          Optional[int]]:
+    """(LogicalType, converted_type) annotations, as the JAX writer
+    gives them (arrow_go_tpu/parquet/schema.py:_logical_for): a
+    timestamp in seconds, date64 and duration go unannotated."""
+    C = fmt.ConvertedType
+    tid = t.id
+    if tid == dt.TypeId.STRING:
+        return fmt.LogicalType(STRING=fmt.StringType()), int(C.UTF8)
+    if tid == dt.TypeId.DATE32:
+        return fmt.LogicalType(DATE=fmt.DateLType()), int(C.DATE)
+    if tid == dt.TypeId.TIMESTAMP:
+        u = _unit_of(t.unit)
+        if u is None:
+            return None, None
+        conv = {dt.TimeUnit.MILLISECOND: C.TIMESTAMP_MILLIS,
+                dt.TimeUnit.MICROSECOND: C.TIMESTAMP_MICROS}.get(t.unit)
+        return fmt.LogicalType(TIMESTAMP=fmt.TimestampLType(
+            isAdjustedToUTC=bool(t.tz), unit=u)), \
+            None if conv is None else int(conv)
+    if tid in (dt.TypeId.TIME32, dt.TypeId.TIME64):
+        # a time32 is written in ms whatever its unit, as the JAX writer
+        # writes it
+        unit = dt.TimeUnit.MILLISECOND if tid == dt.TypeId.TIME32 \
+            else t.unit
+        conv = {dt.TimeUnit.MILLISECOND: C.TIME_MILLIS,
+                dt.TimeUnit.MICROSECOND: C.TIME_MICROS}.get(unit)
+        return fmt.LogicalType(TIME=fmt.TimeLType(
+            isAdjustedToUTC=False, unit=_unit_of(unit))), \
+            None if conv is None else int(conv)
+    if tid in _INT_ANNOTATIONS:
+        width, signed, conv = _INT_ANNOTATIONS[tid]
+        return fmt.LogicalType(INTEGER=fmt.IntLType(
+            bitWidth=width, isSigned=signed)), int(conv)
+    return None, None
 
 
 def schema_to_elements(schema: dt.Schema
@@ -63,11 +139,10 @@ def schema_to_elements(schema: dt.Schema
         phys, tlen = physical_for(f.type)
         rep = fmt.Repetition.OPTIONAL if f.nullable else \
             fmt.Repetition.REQUIRED
+        logical, conv = _logical_for(f.type)
         el = fmt.SchemaElement(name=f.name, type=int(phys),
-                               repetition_type=int(rep))
-        if f.type == dt.string:
-            el.logicalType = fmt.LogicalType(STRING=fmt.StringType())
-            el.converted_type = int(fmt.ConvertedType.UTF8)
+                               repetition_type=int(rep),
+                               converted_type=conv, logicalType=logical)
         elements.append(el)
         leaves.append(ColumnDescriptor((f.name,), phys, tlen,
                                        1 if f.nullable else 0, 0, f.type,
@@ -75,23 +150,67 @@ def schema_to_elements(schema: dt.Schema
     return elements, leaves
 
 
+_CONVERTED = {
+    fmt.ConvertedType.UTF8: dt.string, fmt.ConvertedType.DATE: dt.date32,
+    fmt.ConvertedType.TIME_MILLIS: dt.time32("ms"),
+    fmt.ConvertedType.TIME_MICROS: dt.time64("us"),
+    fmt.ConvertedType.TIMESTAMP_MILLIS: dt.timestamp("ms"),
+    fmt.ConvertedType.TIMESTAMP_MICROS: dt.timestamp("us"),
+    fmt.ConvertedType.UINT_8: dt.uint8, fmt.ConvertedType.UINT_16: dt.uint16,
+    fmt.ConvertedType.UINT_32: dt.uint32,
+    fmt.ConvertedType.UINT_64: dt.uint64,
+    fmt.ConvertedType.INT_8: dt.int8, fmt.ConvertedType.INT_16: dt.int16,
+    fmt.ConvertedType.INT_32: dt.int32, fmt.ConvertedType.INT_64: dt.int64}
+_INTEGERS = {(8, True): dt.int8, (16, True): dt.int16, (32, True): dt.int32,
+             (64, True): dt.int64, (8, False): dt.uint8,
+             (16, False): dt.uint16, (32, False): dt.uint32,
+             (64, False): dt.uint64}
+
+
+def _annotated(el: fmt.SchemaElement) -> Optional[dt.DataType]:
+    """The type a leaf's logical annotation, else its converted type,
+    names (the JAX reader's precedence), or None for a plain leaf."""
+    lt = el.logicalType
+    if lt is not None:
+        if lt.STRING is not None:
+            return dt.string
+        if lt.DATE is not None:
+            return dt.date32
+        if lt.TIMESTAMP is not None:
+            return dt.timestamp(lt.TIMESTAMP.unit.unit_str,
+                                "UTC" if lt.TIMESTAMP.isAdjustedToUTC
+                                else None)
+        if lt.TIME is not None:
+            unit = lt.TIME.unit.unit_str
+            return dt.time32(unit) if unit == "ms" else dt.time64(unit)
+        if lt.INTEGER is not None:
+            return _INTEGERS[(lt.INTEGER.bitWidth, bool(lt.INTEGER.isSigned))]
+        if lt.DECIMAL is not None or lt.FLOAT16 is not None:
+            raise ArrowNotImplemented(
+                f"column {el.name!r}: logical {lt} is not ported")
+    if el.converted_type is not None:
+        conv = fmt.ConvertedType(el.converted_type)
+        if conv in _CONVERTED:
+            return _CONVERTED[conv]
+        if conv == fmt.ConvertedType.DECIMAL:
+            raise ArrowNotImplemented(
+                f"column {el.name!r}: DECIMAL is not ported")
+    return None
+
+
 def _type_of(el: fmt.SchemaElement) -> dt.DataType:
     phys = fmt.Type(el.type)
-    lt = el.logicalType
-    if phys == fmt.Type.BYTE_ARRAY and (
-            (lt is not None and lt.STRING is not None)
-            or el.converted_type == int(fmt.ConvertedType.UTF8)):
-        return dt.string
-    plain_int = lt is not None and lt.INTEGER is not None and \
-        bool(lt.INTEGER.isSigned) and lt.INTEGER.bitWidth == {
-            fmt.Type.INT32: 32, fmt.Type.INT64: 64}.get(phys)
-    if (lt is not None and not plain_int) or el.converted_type not in (
-            None, int(fmt.ConvertedType.INT_32),
-            int(fmt.ConvertedType.INT_64)) or phys not in _LOGICAL:
+    if phys not in _PLAIN:
         raise ArrowNotImplemented(
-            f"column {el.name!r}: physical {phys.name} with logical "
-            f"{lt} / converted {el.converted_type} is not ported")
-    return _LOGICAL[phys]
+            f"column {el.name!r}: physical {phys.name} is not ported")
+    t = _annotated(el)
+    if t is None:
+        return _PLAIN[phys]
+    if (phys == fmt.Type.BYTE_ARRAY) != t.is_binary_like or (
+            not t.is_binary_like and physical_for(t)[0] != phys):
+        raise ArrowNotImplemented(
+            f"column {el.name!r}: {t} on physical {phys.name}")
+    return t
 
 
 def elements_to_schema(elements: List[fmt.SchemaElement]

@@ -1,9 +1,9 @@
 """A small parquet writer for flat columns.
 
 The port's own writer (after arrow_go_tpu/parquet/writer.py:write_table,
-reference parquet/file/file_writer.go): numpy columns (bool, int32,
-int64, float32, float64, and strings or bytes), each optionally with a
-validity mask, in row groups of `row_group_size` rows and v1 data pages
+reference parquet/file/file_writer.go): numpy columns (bool, the signed
+and unsigned ints, float32, float64, the temporal types, and strings or
+bytes), each optionally with a validity mask, in row groups of `row_group_size` rows and v1 data pages
 of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP or LZ4_RAW.
 
 With `use_dictionary` every non-boolean column chunk is dictionary
@@ -16,6 +16,11 @@ payloads survive a round trip; a string dictionary holds the values in
 first-occurrence order (the JAX package's DictionaryBuilder), or, for a
 column given as (codes, values), those values as they stand.
 `column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED.
+A column's type is its numpy dtype's (`dt.from_numpy_dtype`) unless
+`types` names it: a date32 column of int32 days, say. Such a column is
+written with the JAX writer's annotations (DATE, TIME, TIMESTAMP,
+INTEGER) and its physical INT32 or INT64 values: an 8- or 16-bit int
+widened to INT32 by its value, a uint32 or uint64 as its bits.
 """
 from __future__ import annotations
 
@@ -178,9 +183,12 @@ _ENCODING_NAMES = {"plain": fmt.Encoding.PLAIN,
                    "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED}
 
 
-def _prepare(name: str, v, mask: Optional[np.ndarray]):
-    """(type, values or codes, dictionary or None) of one input column:
-    a string or bytes column becomes int32 codes + its dictionary."""
+def _prepare(name: str, v, mask: Optional[np.ndarray],
+             t: Optional[dt.DataType]):
+    """(type, physical values or codes, dictionary or None) of one input
+    column: a string or bytes column becomes int32 codes + its
+    dictionary; a column of type `t` (its numpy dtype's when None) its
+    physical values."""
     if isinstance(v, tuple):
         codes, dictionary = np.asarray(v[0], np.int32), np.asarray(
             v[1], dtype=object)
@@ -188,12 +196,19 @@ def _prepare(name: str, v, mask: Optional[np.ndarray]):
         if len(live) and (live.min() < 0 or live.max() >= len(dictionary)):
             raise ArrowInvalid(f"column {name!r}: codes outside the "
                                f"dictionary")
-    else:
-        v = np.asarray(v)
-        if v.dtype.kind not in "USO":
-            return dt.from_numpy_dtype(v.dtype), v, None
+        return dictionary_type(dictionary), codes, dictionary
+    v = np.asarray(v)
+    if v.dtype.kind in "USO":
         codes, dictionary = factorize(v, mask)
-    return dictionary_type(dictionary), codes, dictionary
+        return dictionary_type(dictionary), codes, dictionary
+    t = t or dt.from_numpy_dtype(v.dtype)
+    if t.is_binary_like or v.dtype.kind not in "biuf":
+        raise ArrowInvalid(f"column {name!r}: {v.dtype} values for {t}")
+    vals = v.astype(t.np_dtype, copy=False)
+    phys = psch.physical_np_dtype(t)
+    if t.is_unsigned_integer and t.bit_width == phys.itemsize * 8:
+        return t, vals.view(phys), None
+    return t, vals.astype(phys, copy=False), None
 
 
 def write_table(data: Dict[str, object], sink,
@@ -202,7 +217,8 @@ def write_table(data: Dict[str, object], sink,
                 dictionary_pagesize_limit: int = 1 << 20,
                 data_page_size: Optional[int] = None,
                 row_group_size: Optional[int] = None,
-                column_encodings: Optional[Dict[str, str]] = None) -> None:
+                column_encodings: Optional[Dict[str, str]] = None,
+                types: Optional[Dict[str, dt.DataType]] = None) -> None:
     """Write columns (all of one length) to a parquet file.
 
     data:  numpy arrays by name; a string (or bytes) column is a numpy
@@ -212,9 +228,12 @@ def write_table(data: Dict[str, object], sink,
     column_encodings: a value encoding by column name, "plain" or
            "delta_binary_packed" (INT32/INT64 columns); such a column
            takes no dictionary.
+    types: a column's type by name, where its numpy dtype's is not the
+           one (date32 for int32 days, uint32, timestamp("ms", "UTC")).
     sink:  a path or a binary file object.
     """
     masks = masks or {}
+    types = types or {}
     encs = {}
     for name, e in (column_encodings or {}).items():
         if e not in _ENCODING_NAMES:
@@ -225,14 +244,15 @@ def write_table(data: Dict[str, object], sink,
     n = None
     for name in names:
         m = masks.get(name)
-        t, v, dictionary = _prepare(name, data[name], m)
+        t, v, dictionary = _prepare(name, data[name], m, types.get(name))
         n = len(v) if n is None else n
         if v.ndim != 1 or len(v) != n:
             raise ArrowInvalid(f"column {name!r}: expected 1-D length {n}")
         if m is not None and (len(m) != n or np.asarray(m).dtype != np.bool_):
             raise ArrowInvalid(f"mask of {name!r}: expected bool[{n}]")
-        if encs.get(name) == fmt.Encoding.DELTA_BINARY_PACKED and \
-                t not in (dt.int32, dt.int64):
+        if encs.get(name) == fmt.Encoding.DELTA_BINARY_PACKED and (
+                t.is_binary_like or psch.physical_for(t)[0] not in (
+                    fmt.Type.INT32, fmt.Type.INT64)):
             raise ArrowInvalid(f"column {name!r}: DELTA_BINARY_PACKED "
                                f"takes INT32/INT64")
         fields.append(dt.Field(name, t, m is not None))

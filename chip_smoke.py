@@ -60,15 +60,28 @@ without one. Phases:
      against numpy; every K1 and K2 call of one more run of Q4, Q12,
      Q13, the sweep and the functions against the plain version; K2's
      hi-only mode timed at Q13's and Q4's join lengths;
-  10. a `kernels` JSON line, then the last line
+  10. dates, times and casts over the snappy lineitem, whose l_sdate
+     is a DATE column (date32) since this phase's file was written with
+     its type: TPC-H Q6 on it (`typed_q6`); floor/ceil/round_temporal
+     by year, quarter, month and week over every row and a
+     timestamp("ms", "+05:30") rounded to the hour, then the revenue by
+     ship year (`temporal`); the cast chains, the safety checks, the
+     float-to-int saturation, float16 and the unsigned order of l_okey
+     as uint64 and uint32 (`casts`); Q6's predicate through
+     call_function with a host array to the card and back
+     (`registry`); each against numpy, every K1 and K3 call of these
+     paths held against the plain version;
+  11. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 10 and, of phase 9, all but
-the three queries and K2's timings: a run that times every path and
+With --timing-only it skips phases 3 and 11 and, of phase 9, all but
+the three queries and K2's timings, and holds no call of phase 10
+against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 and 9 run only in a tree that has their entry points.
+there). Phases 8, 9 and 10 run only in a tree that has their entry
+points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
@@ -105,6 +118,9 @@ Q6_DISC_LO, Q6_DISC_HI = 0.05, 0.07
 Q6_QTY = 24
 KERNELS = {"K1": compaction.compact_flagged, "K2": scan.cummax_u64_lanes,
            "K3": reductions.reduce}
+# the engine's snappy lineitem annotates l_sdate as DATE (a tree without
+# the temporal types writes it as INT32)
+LI_TYPES = {"l_sdate": dt.date32} if hasattr(dt, "date32") else None
 
 
 def make_data(n_li: int, n_ord: int):
@@ -710,15 +726,17 @@ def check_rows(what: str, out: HostBatch, want: dict) -> None:
 
 
 def write_parquet(table: dict, compression: str = "none",
-                  column_encodings=None) -> bytes:
+                  column_encodings=None, types=None) -> bytes:
     """One row group, dictionary on (PLAIN past the 1 MiB dictionary
     limit), 8 MiB data pages: the layout of
     benchmarks/engine_e2e.py:write_parquet_ours, UNCOMPRESSED unless
     `compression` names its codec (snappy)."""
     buf = io.BytesIO()
-    # (older trees' writers take no column_encodings)
+    # (older trees' writers take no column_encodings and no types)
     extra = {"column_encodings": column_encodings} if column_encodings \
         else {}
+    if types:
+        extra["types"] = types
     tpq.write_table(table, buf, data_page_size=8 << 20,
                     compression=compression, **extra)
     return buf.getvalue()
@@ -1382,13 +1400,16 @@ def timed(fn, reps: int = 3):
     return outs, runs
 
 
-def check_scan(dbs: dict, sources: dict) -> None:
+def check_scan(dbs: dict, sources: dict, types=None) -> None:
     """Every scanned column equals its numpy source over [0, n), at the
     padded length pad_length(n): values bit for bit; a string column,
-    given as (codes, values), by its codes and its dictionary."""
+    given as (codes, values), by its codes and its dictionary; a column
+    named in `types` has that type."""
     for tname, db in dbs.items():
         for name, want in sources[tname].items():
             c = db.column(name)
+            if types and name in types and c.type != types[name]:
+                raise AssertionError(f"scan {tname}.{name}: type {c.type}")
             if isinstance(want, tuple):
                 want, values = want
                 if c.dictionary is None or \
@@ -1407,7 +1428,7 @@ def check_scan(dbs: dict, sources: dict) -> None:
                 raise AssertionError(f"scan {tname}.{name}: values differ")
 
 
-def time_scan(blobs: dict, dev, sources: dict) -> dict:
+def time_scan(blobs: dict, dev, sources: dict, types=None) -> dict:
     """Three scans of every column of both files, the first checked
     against the numpy sources: each run's ms, and the median run's
     host-parse / host-to-device / device-decode split."""
@@ -1420,7 +1441,7 @@ def time_scan(blobs: dict, dev, sources: dict) -> dict:
         torch.cuda.synchronize()
         runs.append(((time.perf_counter() - t) * 1e3, phases))
         if i == 0:
-            check_scan(dbs, sources)
+            check_scan(dbs, sources, types)
         del dbs
     med = sorted(runs, key=lambda r: r[0])[1]
     file_bytes = sum(len(b) for b in blobs.values())
@@ -1467,7 +1488,7 @@ def q1_phases(li, orders, dev) -> dict:
     launches = {}
     add_q1_columns(li)
     t0 = time.perf_counter()
-    snappy = {"lineitem": write_parquet(li, "snappy"),
+    snappy = {"lineitem": write_parquet(li, "snappy", types=LI_TYPES),
               "orders": write_parquet(orders, "snappy")}
     delta = {"l_okey": write_parquet(
         {"l_okey": li["l_okey"]}, "snappy",
@@ -1486,7 +1507,8 @@ def q1_phases(li, orders, dev) -> dict:
         "bytes": {k: len(b) for k, b in {**snappy, **delta}.items()},
         "encodings": encodings}}), flush=True)
     print(json.dumps({"scan_snappy": time_scan(
-        snappy, dev, {"lineitem": li, "orders": orders})}), flush=True)
+        snappy, dev, {"lineitem": li, "orders": orders}, LI_TYPES)}),
+        flush=True)
     print(json.dumps({"scan_delta": time_scan(
         delta, dev, {"l_okey": {"l_okey": li["l_okey"]},
                      "o_okey": {"o_okey": orders["o_okey"]}})}), flush=True)
@@ -2006,6 +2028,335 @@ def join_phases(li, orders, dev, snappy, card: str,
     return {"launches": launches, "k2_fills": k2_fills, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# dates, times and casts over the snappy lineitem (l_sdate a DATE column)
+# ---------------------------------------------------------------------------
+
+Q6_COLUMNS = ["l_price", "l_disc", "l_sdate", "l_qty"]
+# the timestamp phase's zone: a fixed offset (TPC-H's dates carry none)
+TS_ZONE = "+05:30"
+TS_OFFSET_MS = (5 * 3600 + 30 * 60) * 1000
+HOUR_MS = 3_600_000
+DAY_MS = 86_400_000
+
+
+def _days(d64: np.ndarray) -> np.ndarray:
+    return d64.astype("datetime64[D]").astype(np.int64)
+
+
+def temporal_oracle(sdate: np.ndarray) -> dict:
+    """numpy datetime64 arithmetic (no code shared with the port): each
+    row's year, quarter, month and Monday-week start as days; the next
+    month's start (a calendar ceil is strictly greater); the nearer of
+    the two (half up, at the midpoint in ns, which is a whole number of
+    days times 2)."""
+    d = sdate.astype("datetime64[D]")
+    month = d.astype("datetime64[M]")
+    quarter = (month.astype(np.int64) // 3 * 3).astype("datetime64[M]")
+    start, end = _days(month), _days(month + 1)
+    days = sdate.astype(np.int64)
+    return {"year": _days(d.astype("datetime64[Y]")),
+            "quarter": _days(quarter), "month": start,
+            "week": (days + 3) // 7 * 7 - 3, "ceil_month": end,
+            "round_month": np.where(2 * (days - start) < end - start,
+                                    start, end)}
+
+
+ROUNDINGS = {"year": ("floor_temporal", "year"),
+             "quarter": ("floor_temporal", "quarter"),
+             "month": ("floor_temporal", "month"),
+             "week": ("floor_temporal", "week"),
+             "ceil_month": ("ceil_temporal", "month"),
+             "round_month": ("round_temporal", "month")}
+
+
+def revenue_by_year(li_s: DeviceBatch) -> HostBatch:
+    """SELECT year(l_sdate), SUM(l_price * (1 - l_disc)), COUNT(*)
+    GROUP BY 1: the shape of TPC-H Q7/Q9's extract(year from
+    l_shipdate), the year as floor_temporal's first day of it."""
+    year = pc.floor_temporal(li_s.column("l_sdate"), unit="year")
+    rev = pc.execute_scalar_expression(pc.call("multiply", [
+        pc.field("l_price"),
+        pc.call("subtract", [pc.literal(1.0), pc.field("l_disc")])]), li_s)
+    gb = DeviceBatch(dt.Schema([dt.Field("year", year.type),
+                                dt.Field("rev", dt.float64)]), [year, rev],
+                     li_s.length)
+    return pc.group_by(gb, "year", [("rev", "sum"), ("rev", "count")])
+
+
+def revenue_by_year_oracle(li) -> dict:
+    year = _days(li["l_sdate"].astype("datetime64[D]").astype(
+        "datetime64[Y]"))
+    keys, first, inv = np.unique(year, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first)               # first-occurrence order
+    rev = li["l_price"] * (1.0 - li["l_disc"])
+    return {"year": keys[order].tolist(),
+            "rev_sum": np.bincount(inv, weights=rev)[order],
+            "rev_count": np.bincount(inv)[order].tolist()}
+
+
+def check_revenue_by_year(out: HostBatch, want: dict) -> None:
+    got = out.to_pydict()
+    if got["year"] != want["year"] or got["rev_count"] != want["rev_count"]:
+        raise AssertionError(f"revenue by year: {got['year']} "
+                             f"{got['rev_count']}, oracle {want}")
+    np.testing.assert_allclose(got["rev_sum"], want["rev_sum"], rtol=1e-9)
+
+
+def _host(col: DeviceColumn) -> np.ndarray:
+    return col.values[:col.length].cpu().numpy()
+
+
+def _equal(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Bit for bit (a float by its bit pattern)."""
+    if got.dtype.kind == "f":
+        got, want = got.view(f"u{got.itemsize}"), want.view(
+            f"u{want.itemsize}")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = int(np.count_nonzero(got != want)) if got.shape == \
+            want.shape else -1
+        raise AssertionError(f"{what}: {bad} rows differ from numpy")
+
+
+def _raises(what: str, fn) -> None:
+    try:
+        fn()
+    except pc.ArrowInvalid:
+        return
+    raise AssertionError(f"{what} did not raise ArrowInvalid")
+
+
+def _sync_ms(fn):
+    """(fn's result, its host-clock ms, ending in a device sync)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def timestamp_phase(li_s: DeviceBatch, okey: DeviceColumn) -> dict:
+    """A timestamp("ms", "+05:30") column made on the card from l_sdate
+    (midnight UTC plus l_okey's residue in the day, as ms), rounded to
+    the hour, against numpy."""
+    ms = pc.arithmetic_binary("add", pc.arithmetic_binary(
+        "multiply", pc.cast_device(li_s.column("l_sdate"), dt.int64),
+        DAY_MS), pc.arithmetic_binary("mod", okey, DAY_MS))
+    ts = pc.cast_device(ms, dt.timestamp("ms", TS_ZONE))
+    out, t_ms = _sync_ms(lambda: pc.round_temporal(ts, unit="hour"))
+    local = _host(ms) + TS_OFFSET_MS
+    lo = local // HOUR_MS * HOUR_MS
+    want = np.where(local - lo < HOUR_MS // 2, lo, lo + HOUR_MS) \
+        - TS_OFFSET_MS
+    _equal("round_temporal(timestamp[ms, +05:30], hour)", _host(out), want)
+    return {"round_hour_ms": t_ms, "type": str(out.type)}
+
+
+def cast_phase(li_s: DeviceBatch, okey: DeviceColumn, li) -> dict:
+    """The casts of the slice against numpy, over the scanned lineitem
+    and l_okey: the date32 -> timestamp chains, the time truncation
+    check, int32 -> int8 -> uint8 -> int64, an int8 overflow, float64 ->
+    int64 safe (raises) and unsafe (truncates; NaN and +-1e20 saturate),
+    float64 -> float32 and float16, and l_okey as uint64 and uint32 with
+    values above 2**63 and 2**31: compares and sort_indices in numpy's
+    unsigned order. Returns each step's ms."""
+    sdate, qty, price = (li_s.column(c) for c in ("l_sdate", "l_qty",
+                                                  "l_price"))
+    days = li["l_sdate"].astype(np.int64)
+    times = {}
+
+    def timed_cast(what, fn):
+        out, times[what] = _sync_ms(fn)
+        return out
+
+    unsafe = pc.CastOptions.unsafe()
+    # date32 has no unit: the cast keeps the day number (as the JAX
+    # package's does); the instants go through int64 ms
+    same = timed_cast("date32->timestamp[ms]", lambda: pc.cast_device(
+        sdate, dt.timestamp("ms")))
+    _equal("date32 -> timestamp[ms]", _host(same), days)
+    ms = pc.cast_device(pc.arithmetic_binary(
+        "multiply", pc.cast_device(sdate, dt.int64), DAY_MS),
+        dt.timestamp("ms"))
+    secs = timed_cast("timestamp[ms]->timestamp[s]", lambda: pc.cast_device(
+        ms, dt.timestamp("s")))
+    _equal("timestamp[ms] -> timestamp[s]", _host(secs), days * 86_400)
+    back = pc.cast_device(pc.arithmetic_binary(
+        "divide", pc.cast_device(secs, dt.int64), 86_400), dt.date32)
+    _equal("date32 -> ... -> date32", _host(back), li["l_sdate"])
+    off = pc.cast_device(pc.arithmetic_binary(
+        "add", pc.cast_device(ms, dt.int64), pc.arithmetic_binary(
+            "mod", okey, 1000)), dt.timestamp("ms"))
+    _raises("timestamp[ms] -> [s] off the second", lambda: pc.cast_device(
+        off, dt.timestamp("s")))
+    trunc = pc.cast_device(off, dt.timestamp("s"),
+                           pc.CastOptions(allow_time_truncate=True))
+    _equal("timestamp[ms] -> [s] truncated", _host(trunc),
+           (days * DAY_MS + li["l_okey"] % 1000) // 1000)
+    # int32 -> int8 -> uint8 -> int64
+    q8 = timed_cast("int32->int8", lambda: pc.cast_device(qty, dt.int8))
+    q64 = pc.cast_device(pc.cast_device(q8, dt.uint8), dt.int64)
+    _equal("l_qty int32 -> int8 -> uint8 -> int64", _host(q64),
+           li["l_qty"].astype(np.int64))
+    _raises("int64 -> int8 overflow", lambda: pc.cast_device(okey, dt.int8))
+    # float64 -> int64: safe raises on the fractions, unsafe truncates
+    _raises("float64 -> int64 safe", lambda: pc.cast_device(price,
+                                                            dt.int64))
+    p = price.values.clone()
+    p[:3] = torch.tensor([float("nan"), 1e20, -1e20], dtype=torch.float64)
+    pcol = DeviceColumn(p, None, price.length, dt.float64)
+    i64 = timed_cast("float64->int64 unsafe", lambda: pc.cast_device(
+        pcol, dt.int64, unsafe))
+    ph = _host(pcol)
+    want = np.trunc(np.where(np.isnan(ph), 0.0, np.clip(
+        ph, -1e18, 1e18))).astype(np.int64)
+    want[1], want[2] = 2 ** 63 - 1, -2 ** 63      # the clamp saturates
+    _equal("float64 -> int64 unsafe", _host(i64), want)
+    for to, npd in ((dt.float32, np.float32), (dt.float16, np.float16)):
+        out = timed_cast(f"float64->{to}", lambda: pc.cast_device(pcol, to))
+        with np.errstate(over="ignore"):      # +-1e20 -> +-inf in float16
+            _equal(f"float64 -> {to}", _host(out), ph.astype(npd))
+    # l_okey as uint64 above 2**63 and as uint32 above 2**31
+    raw = okey.values.clone()
+    raw[1::2] |= -(1 << 63)
+    u64 = DeviceColumn(raw, None, okey.length, dt.uint64)
+    # (Knuth's multiplicative hash spreads the keys over all of uint32)
+    u32 = pc.cast_device(pc.arithmetic_binary("multiply", okey,
+                                              2_654_435_761), dt.uint32,
+                         unsafe)
+    out = {"ms": times}
+    for col in (u64, u32):
+        h = _host(col).view(col.type.np_dtype)
+        lim = int(np.iinfo(col.type.np_dtype).max // 2 + 1)
+        for op, npop in (("greater", np.greater),
+                         ("less_equal", np.less_equal)):
+            got = _host(pc.compare(op, col, lim))
+            if not np.array_equal(got, npop(h, np.array(lim, h.dtype))):
+                raise AssertionError(f"{col.type} {op} {lim} differs")
+        perm, out[f"sort_{col.type}_ms"] = _sync_ms(
+            lambda: _host(pc.sort_indices(col)))
+        sv = h[perm]
+        if not (np.all(sv[1:] >= sv[:-1]) and np.all(
+                (sv[1:] != sv[:-1]) | (perm[1:] > perm[:-1]))
+                and np.array_equal(np.bincount(perm, minlength=len(h)),
+                                   np.ones(len(h), np.int64))):
+            raise AssertionError(f"sort_indices of {col.type} is not "
+                                 f"numpy's stable unsigned order")
+        out[f"above_half_{col.type}"] = int(np.count_nonzero(
+            h > np.array(lim, h.dtype)))
+    return out
+
+
+def registry_q6(li_s: DeviceBatch, disc_host: HostArray):
+    """TPC-H Q6 through call_function over the card's columns, and one
+    HostArray argument (l_disc * 100, to the card and back)."""
+    cf = pc.call_function
+    c = {n: li_s.column(n) for n in Q6_COLUMNS}
+    dates = cf("and", [cf("greater_equal", [c["l_sdate"], Q6_DATE_LO]),
+                       cf("less", [c["l_sdate"], Q6_DATE_HI])])
+    disc = cf("and", [cf("greater_equal", [c["l_disc"], Q6_DISC_LO]),
+                      cf("less_equal", [c["l_disc"], Q6_DISC_HI])])
+    mask = cf("and", [cf("and", [dates, disc]),
+                      cf("less", [c["l_qty"], Q6_QTY])])
+    kept = cf("filter", [project(li_s, ["l_price", "l_disc"]), mask])
+    rev = cf("multiply", [kept.column("l_price"), kept.column("l_disc")])
+    return ({"revenue": cf("sum", [rev]),
+             "count": cf("count", [rev], pc.CountOptions("all"))},
+            cf("multiply", [disc_host, 100.0]))
+
+
+def typed_phases(li, snappy: dict, dev, card: str,
+                 timing_only: bool = False) -> dict:
+    """This slice's paths over the snappy lineitem with its DATE
+    l_sdate: Q6, the temporal rounding and the revenue by year, the
+    casts, and Q6 through the registry, each against numpy; every K1 and
+    K3 call of Q6, the revenue by year and the registry's Q6 held
+    against the plain version (not with `timing_only`). Returns each
+    path's launch counts and the largest kernel - plain difference."""
+    launches, held = {}, {}
+    li_s = scan_parquet(snappy["lineitem"], Q6_COLUMNS, dev)
+    okey = scan_parquet(snappy["lineitem"], ["l_okey"], dev).column(0)
+    sdate = li_s.column("l_sdate")
+    if sdate.type != dt.date32:
+        raise AssertionError(f"l_sdate scanned as {sdate.type}")
+    q6_want = q6_oracle(li)
+    disc_host = HostArray(li["l_disc"], None, dt.float64)
+    paths = (
+        ("typed Q6", "typed_q6", lambda: compute_q6(li_s),
+         lambda out: check_q6(out, q6_want), ("K1", "K3")),
+        ("revenue by year", "revenue_by_year", lambda: revenue_by_year(
+            li_s), lambda out, want=revenue_by_year_oracle(li):
+            check_revenue_by_year(out, want), ("K1",)),
+        ("registry Q6", "registry_q6", lambda: registry_q6(li_s, disc_host),
+         lambda out: check_q6(out[0], q6_want), ("K1", "K3")))
+    runs = {}
+    for name, key, run, check, needs in paths:
+        out, launches[name] = run_path(name, run, needs)
+        check(out)
+        if not timing_only:
+            out, held[key] = check_path_calls(key, run, launches[name])
+            check(out)
+        outs, runs[key] = timed(run)
+        for out in outs:
+            check(out)
+    print(json.dumps({"typed_q6": {
+        **compute_q6(li_s), "l_sdate_type": str(sdate.type),
+        "selectivity": q6_want["count"] / sdate.length,
+        "ms_runs": runs["typed_q6"],
+        "ms_median": float(np.median(runs["typed_q6"])),
+        "launches_per_run": launches["typed Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    want = temporal_oracle(li["l_sdate"])
+    rounding_ms = {}
+    for k, (fn, unit) in ROUNDINGS.items():
+        out = getattr(pc, fn)(sdate, unit=unit)
+        if out.type != dt.date32:
+            raise AssertionError(f"{fn}({unit}) gave {out.type}")
+        _equal(f"{fn}({unit})", _host(out).astype(np.int64), want[k])
+        rounding_ms[k] = _time_ms(lambda: getattr(pc, fn)(sdate, unit=unit),
+                                  3)
+    del out
+    print(json.dumps({"temporal": {
+        "rows": sdate.length, "rounding_ms": rounding_ms,
+        "timestamp": timestamp_phase(li_s, okey),
+        "revenue_by_year": revenue_by_year(li_s).to_pydict(),
+        "revenue_by_year_ms_runs": runs["revenue_by_year"],
+        "revenue_by_year_ms_median": float(np.median(
+            runs["revenue_by_year"])),
+        "launches_per_run": launches["revenue by year"], "card": card,
+        "verified": True}}), flush=True)
+
+    print(json.dumps({"casts": {**cast_phase(li_s, okey, li), "card": card,
+                                "verified": True}}), flush=True)
+
+    got, disc100 = registry_q6(li_s, disc_host)
+    if not isinstance(disc100, HostArray):
+        raise AssertionError("call_function kept a host argument's result "
+                             "on the card")
+    _equal("call_function(multiply, [HostArray, 100.0])", disc100.values,
+           li["l_disc"] * 100.0)
+    print(json.dumps({"registry": {
+        **got, "host_argument_rows": len(disc100),
+        "ms_runs": runs["registry_q6"],
+        "ms_median": float(np.median(runs["registry_q6"])),
+        "launches_per_run": launches["registry Q6"], "card": card,
+        "verified": True}}), flush=True)
+    errs = {"K1": 0.0, "K3": 0.0}
+    if not timing_only:
+        print(json.dumps({"typed_path_checks": held}), flush=True)
+        errs["K1"] = max(h["K1"]["max_abs_err"] for h in held.values())
+        kept = pc.call_function("filter", [
+            project(li_s, ["l_price", "l_disc"]),
+            pc.execute_scalar_expression(q6_expression(), li_s)])
+        rev = pc.call_function("multiply", [kept.column("l_price"),
+                                            kept.column("l_disc")])
+        errs["K3"] = check_k3_at("typed Q6 and registry Q6", [
+            (q6_revenue(li_s), "sum"), (rev, "sum")])
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -2175,20 +2526,26 @@ def main(argv=None) -> int:
     print(json.dumps({"k2_k3_timed": [k2] + k3s}), flush=True)
     # (an older tree, run with --timing-only, has no Q1 entry points)
     q1 = q1_phases(li, orders, dev) if hasattr(pc, "SortOptions") else None
+    # (an older tree may have no join entry points and no temporal types)
+    typed = hasattr(pc, "floor_temporal") and q1 is not None
     if args.timing_only:
-        # (an older tree may have no join entry points)
         if hasattr(pc, "hash_join") and q1 is not None:
             join_phases(li, orders, dev, q1["snappy"], card, timing_only=True)
+        if typed:
+            typed_phases(li, q1["snappy"], dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
     k1_err = max(k1_err, joins["errs"]["K1"])
     k2_err = max(k2_err, joins["errs"]["K2"])
+    types = typed_phases(li, q1["snappy"], dev, card)
+    k1_err = max(k1_err, types["errs"]["K1"])
+    k3_err = max(k3_err, types["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
-               **joins["launches"]}
+               **joins["launches"], **types["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

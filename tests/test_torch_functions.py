@@ -185,7 +185,7 @@ def test_arithmetic_unary_matches_jax(cols, op, col):
 
 def test_checked_negate_of_unsigned_values_raises():
     vals = torch.zeros(128, dtype=torch.uint8)
-    col = DeviceColumn(vals, None, 3, tdt.int32)
+    col = DeviceColumn(vals, None, 3, tdt.uint8)
     kernels.arithmetic_unary("negate", col)       # all zero: no overflow
     vals[1] = 2
     with pytest.raises(pc.ArrowInvalid, match="unsigned"):
@@ -274,10 +274,17 @@ def test_new_expression_branches_match_jax(cols, fname, args, options):
 
 
 def test_cast_in_an_expression_is_not_ported(cols):
-    _, tdb = cols
-    with pytest.raises(pc.ArrowKeyError, match="cast"):
-        pc.execute_scalar_expression(
-            pc.call("cast", [pc.field("i32")], {"to_type": tdt.int64}), tdb)
+    """The cast branch of an expression (once missing) runs the unsafe
+    device cast, as the JAX package's does."""
+    from arrow_go_tpu import dtypes as jdt
+    jdb, tdb = cols
+    for to in ("int64", "int8", "float32", "float64"):
+        expr = pc.call("cast", [pc.field("i32")],
+                       {"to_type": tdt.type_for_name(to)})
+        jexpr = jpc.call("cast", [jpc.field("i32")],
+                         {"to_type": getattr(jdt, to)})
+        _same(pc.execute_scalar_expression(expr, tdb),
+              jpc.execute_scalar_expression(jexpr, jdb))
 
 
 SETS = {

@@ -34,6 +34,11 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.compute.join\n"
             "import arrow_go_tpu_torch.ops.hashing\n"
             "import arrow_go_tpu_torch.parquet.device_read\n"
+            "import arrow_go_tpu_torch.compute.cast\n"
+            "import arrow_go_tpu_torch.compute.temporal\n"
+            "import arrow_go_tpu_torch.compute.registry\n"
+            "import arrow_go_tpu_torch.ops.convert\n"
+            "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
             "print(repr(bad), native._lib is None)\n")

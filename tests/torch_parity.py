@@ -30,7 +30,7 @@ def port_batch(jdb):
     """The port's DeviceBatch holding bit-identical copies of a JAX
     DeviceBatch's padded values and validity words (and a string
     column's codes and dictionary), on the CPU."""
-    fields = [(f.name, f.type.name) for f in jdb.schema.fields]
+    fields = [(f.name, port_type(f.type)) for f in jdb.schema.fields]
     columns = [(np.asarray(c.values),
                 None if c.validity is None else np.asarray(c.validity))
                + (() if c.dictionary is None
@@ -38,6 +38,25 @@ def port_batch(jdb):
                for c in jdb.columns]
     return agt_torch.batch_from_numpy(fields, columns, jdb.length,
                                       device="cpu")
+
+
+def port_type(jt):
+    """The port's type of a JAX package type (same name and parameters;
+    a dictionary column's field type is its value type)."""
+    return agt_torch.dtypes.type_for_name(str(jt))
+
+
+def jax_type(t):
+    """The JAX package's type of a port type."""
+    from arrow_go_tpu import dtypes as jdt
+    if t.id == agt_torch.dtypes.TypeId.TIMESTAMP:
+        return jdt.timestamp(str(t.unit), t.tz)
+    if hasattr(t, "unit"):
+        return getattr(jdt, t.name)(str(t.unit))
+    return {"halffloat": jdt.float16, "float": jdt.float32,
+            "double": jdt.float64, "utf8": jdt.string}.get(
+                t.name) or getattr(jdt, t.name.rstrip("_") if t.name
+                                   != "bool" else "bool_")
 
 
 def words_u32(t):
