@@ -7,7 +7,9 @@ numeric <-> numeric, bool <-> numeric, temporal rescaling by a constant
 factor, and the decode of a numeric-valued dictionary; each safety
 check is one device reduction read once on the host. `cast_host` runs
 the casts with a binary-like side over HostArrays (strings live on the
-host by design).
+host by design): among them string <-> decimal, the only decimal casts
+the JAX package has (every other cast to or from a decimal raises
+ArrowNotImplemented there and here).
 
 The values convert as the JAX package's `astype` does (ops/convert.py):
 integers wrap, and with the checks off a float becomes an integer by
@@ -19,6 +21,7 @@ timestamp keeps the stored number.
 from __future__ import annotations
 
 import datetime as _dt
+import decimal as pydec
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +31,7 @@ import torch
 from .. import dtypes as dt
 from ..device.block import DeviceColumn, HostArray, factorize, valid_rows
 from ..ops.convert import convert, int_range, storage_view
+from ..ops.decimal import from_ints
 from .errors import ArrowInvalid, ArrowNotImplemented
 
 
@@ -181,6 +185,8 @@ def _format_value(v, t: dt.DataType) -> str:
         return repr(f)
     if t.is_integer:
         return str(int(v))
+    if t.is_decimal:
+        return str(v)
     if t.id == dt.TypeId.DATE32:
         return (_dt.date(1970, 1, 1) + _dt.timedelta(days=int(v))).isoformat()
     if t.id == dt.TypeId.DATE64:
@@ -211,6 +217,8 @@ def _parse_value(s, to_t: dt.DataType):
         if low in ("false", "0"):
             return False
         raise ValueError(f"cannot parse {s!r} as bool")
+    if to_t.is_decimal:
+        return pydec.Decimal(s)
     # temporal values as their ticks
     if to_t.id == dt.TypeId.DATE32:
         return (_dt.date.fromisoformat(s) - _dt.date(1970, 1, 1)).days
@@ -241,9 +249,31 @@ def _string_array(strs, valid, to_t: dt.DataType) -> HostArray:
                      dt.dictionary(dt.int32, to_t), dictionary)
 
 
+def _decimal_array(values, valid, to_t: dt.DataType) -> HostArray:
+    """Parsed Decimals (None where not valid) as a decimal HostArray; a
+    value with more digits than the scale raises ArrowInvalid (a
+    ValueError, the JAX package's DecimalBuilder error)."""
+    unscaled = []
+    for v in values:
+        if v is None:
+            unscaled.append(0)
+            continue
+        q = v.scaleb(to_t.scale, pydec.Context(prec=80))
+        if q != q.to_integral_value():
+            raise ArrowInvalid(f"{v} does not fit scale {to_t.scale}")
+        unscaled.append(int(q))
+    if to_t.limbs:
+        out = from_ints(unscaled, to_t.limbs)
+    else:
+        out = np.array(unscaled, dtype=object).astype(to_t.np_dtype)
+    return HostArray(out, None if valid.all() else valid, to_t)
+
+
 def _typed_array(values, valid, to_t: dt.DataType) -> HostArray:
     """Parsed Python values (None where not valid) as a HostArray of
     `to_t`; a value outside its range raises ArrowInvalid."""
+    if to_t.is_decimal:
+        return _decimal_array(values, valid, to_t)
     out = np.zeros(len(values), to_t.np_dtype)
     for i, v in enumerate(values):
         if v is not None:
@@ -290,7 +320,9 @@ def cast_host(arr: HostArray, to_t: dt.DataType,
                 raise ArrowInvalid(f"cast {vt} -> {to_t}: {e}") from None
         return _typed_array(out, valid, to_t)
     if to_t.is_binary_like:
+        values = arr.to_pylist() if from_t.is_decimal else \
+            arr.values.tolist()
         strs = [_format_value(v, from_t) if ok else None
-                for v, ok in zip(arr.values.tolist(), valid.tolist())]
+                for v, ok in zip(values, valid.tolist())]
         return _string_array(strs, valid, to_t)
     raise ArrowNotImplemented(f"host cast {from_t} -> {to_t}")

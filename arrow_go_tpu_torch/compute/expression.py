@@ -7,7 +7,10 @@ arithmetic, comparison, boolean and validity kernels of
 compute/kernels.py, and fill_null, if_else and is_in of
 compute/functions.py, and cast (compute/cast.py); expressions run the
 arithmetic unchecked and cast with CastOptions.unsafe(), as the JAX
-package does, so no check syncs with the host inside an expression.
+package does, so no check syncs with the host inside an expression. A
+literal reaches its kernel as it is: a `decimal.Decimal` beside a
+decimal128 / decimal256 column becomes the column's unscaled value
+there (compute/kernels.py).
 """
 from __future__ import annotations
 

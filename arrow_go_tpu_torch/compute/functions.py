@@ -11,9 +11,18 @@ scalar aggregates sum / min / max / mean / count / min_max / product /
 variance / stddev (masked reductions, K3 on the card), count_distinct,
 any and all. `value_counts` and `make_struct` return struct arrays,
 which the port does not carry yet.
+
+A decimal128 / decimal256 column is a (P, k) limb matrix: the batch
+filter carries each limb as a payload of its own, take gathers rows and
+sort_indices sorts by k keys. Its aggregates (but count), unique,
+dictionary_encode and is_in raise ArrowNotImplemented, as the JAX
+package has none (it fails on the matrix's shape); index_in looks the
+rows up on the host, as the JAX package does. decimal32 / decimal64
+aggregate their unscaled ints, as in the JAX package.
 """
 from __future__ import annotations
 
+import decimal as pydec
 from dataclasses import dataclass, field as dc_field
 from typing import Any, List, Optional, Union
 
@@ -27,6 +36,7 @@ from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             row_mask)
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
+from ..ops.decimal import to_ints
 from .cast import cast_device, cast_host
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
 
@@ -84,13 +94,18 @@ def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
 def _filter_batch(mvals, mvalidity, col_vals, col_valids, length,
                   null_selection):
     """Filter every column of a batch in ONE compaction: each column (and
-    its validity, as a bool lane) rides it as a payload."""
+    its validity, as a bool lane) rides it as a payload; each limb of a
+    decimal128 / decimal256 column rides as a payload of its own."""
     P = mvals.shape[0]
     payloads = []
     plan = []
     for v, w in zip(col_vals, col_valids):
         vi = len(payloads)
-        payloads.append(v)
+        if v.dim() == 2:
+            payloads.extend(v[:, i].contiguous() for i in range(v.shape[1]))
+            vi = slice(vi, len(payloads))
+        else:
+            payloads.append(v)
         wi = None
         if w is not None:
             wi = len(payloads)
@@ -102,7 +117,8 @@ def _filter_batch(mvals, mvalidity, col_vals, col_valids, length,
     emit = null_selection == "emit_null"
     outs, valids = [], []
     for vi, wi in plan:
-        outs.append(outs_all[vi])
+        outs.append(torch.stack(outs_all[vi], dim=1) if isinstance(vi, slice)
+                    else outs_all[vi])
         if wi is None and not emit:
             # drop mode introduces no nulls: tail invalidity is already
             # row_mask(P, count), so no word buffer
@@ -215,40 +231,57 @@ def _dictionary_rank(dictionary: np.ndarray) -> np.ndarray:
 
 
 def _host_sort_operand(arr: HostArray, desc: bool, nulls_first: bool):
-    """(order bits, null group) of a host column: the device path's total
-    order (NaN greatest, dictionary codes by their values' rank) as
-    unsigned ints, and the rank of its null placement."""
+    """(order bits, most significant first; null group) of a host
+    column: the device path's total order (NaN greatest, dictionary
+    codes by their values' rank, decimal limbs from the top) as unsigned
+    ints, and the rank of its null placement."""
     v = np.ascontiguousarray(arr.values)
     d = v.dtype
     if arr.dictionary is not None:
         rank = _dictionary_rank(arr.dictionary)
-        bits = rank[np.clip(v, 0, len(rank) - 1)].astype(np.uint64)
+        keys = [rank[np.clip(v, 0, len(rank) - 1)].astype(np.uint64)]
+    elif v.ndim == 2:
+        u = v.view(np.uint64)
+        k = u.shape[1]
+        keys = [u[:, k - 1] ^ np.uint64(1 << 63)] + [
+            u[:, i] for i in reversed(range(k - 1))]
     elif d.kind == "b":
-        bits = v.astype(np.uint8)
+        keys = [v.astype(np.uint8)]
     elif d.kind == "u":
-        bits = v
+        keys = [v]
     elif d.kind == "i":
         u = v.view(f"u{d.itemsize}")
-        bits = u ^ np.dtype(f"u{d.itemsize}").type(1 << (d.itemsize * 8 - 1))
+        keys = [u ^ np.dtype(f"u{d.itemsize}").type(
+            1 << (d.itemsize * 8 - 1))]
     else:
         canon = np.where(np.isnan(v), np.array(np.nan, d), v)
         b = canon.view(f"u{d.itemsize}")
         sign = np.dtype(f"u{d.itemsize}").type(1 << (d.itemsize * 8 - 1))
-        bits = np.where((b & sign) != 0, ~b, b | sign)
+        keys = [np.where((b & sign) != 0, ~b, b | sign)]
     if desc:
-        bits = ~bits
+        keys = [~k for k in keys]
     valid = arr.validity_bools()
     ngroup = valid if nulls_first else ~valid
-    return bits, ngroup.astype(np.uint8)
+    return keys, ngroup.astype(np.uint8)
+
+
+def _lex_keys(cols, descs, nulls_first: bool) -> list:
+    """np.lexsort's keys (last most significant) of host columns, the
+    first column most significant."""
+    lex = []
+    for col, desc in zip(reversed(cols), reversed(descs)):
+        keys, ngroup = _host_sort_operand(col, desc, nulls_first)
+        lex.extend(reversed(keys))
+        lex.append(ngroup)
+    return lex
 
 
 def _argsort_host_small(arr: HostArray, desc: bool,
                         nulls_first: bool) -> np.ndarray:
     """Host argsort: the device path's total order (NaN greatest, stable,
     null placement) on numpy."""
-    bits, ngroup = _host_sort_operand(arr, desc, nulls_first)
-    # lexsort: last key is primary; stable by position
-    return np.lexsort((bits, ngroup)).astype(np.int64)
+    return np.lexsort(_lex_keys([arr], [desc], nulls_first)).astype(
+        np.int64)
 
 
 def _column_sort_key(col: DeviceColumn, descending: bool,
@@ -274,9 +307,7 @@ def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
     if isinstance(values, HostBatch):
         cols = [values.column(k.target) for k in options.keys]
         if values.num_rows <= _HOST_SMALL:
-            lex = []
-            for col, desc in zip(reversed(cols), reversed(descs)):
-                lex.extend(_host_sort_operand(col, desc, nulls_first))
+            lex = _lex_keys(cols, descs, nulls_first)
             perm = np.lexsort(lex).astype(np.int64) if lex else \
                 np.arange(values.num_rows, dtype=np.int64)
             return HostArray(perm, None, dt.int64)
@@ -327,10 +358,15 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
 # scalar aggregates (reference compute "sum"/"min_max"/"count"/"mean")
 # ---------------------------------------------------------------------------
 
-def _as_device(values) -> DeviceColumn:
+def _as_device(values, what: str = "") -> DeviceColumn:
+    """`values` as a DeviceColumn; naming `what` refuses a decimal128 /
+    decimal256 column (the JAX package has no such aggregate or set
+    operation: it fails there on the limb matrix's shape)."""
     if not isinstance(values, DeviceColumn):
         raise ArrowNotImplemented(
             f"the port aggregates DeviceColumns, got {type(values).__name__}")
+    if what and values.type.limbs:
+        raise ArrowNotImplemented(f"{what} of {values.type}")
     return values
 
 
@@ -345,8 +381,9 @@ def _n_valid(col: DeviceColumn) -> int:
 def _reduce(values, op: str):
     """One masked reduction as a Python scalar; None when no row is
     valid. The accumulator and the valid count come from one K3 launch
-    and one device-to-host copy."""
-    col = _as_device(values)
+    and one device-to-host copy. A decimal32 / decimal64 column reduces
+    its unscaled ints, as the JAX package does."""
+    col = _as_device(values, op)
     acc, count = reductions.reduce_with_count_host(
         col.values, col.validity, col.length, op)
     return None if count == 0 else acc
@@ -367,7 +404,7 @@ def agg_max(values, options=None):
 def agg_mean(values, options=None):
     """Sum over count of the valid rows, in float64, from one K3 launch
     and one device-to-host copy; None when no row is valid."""
-    col = _as_device(values)
+    col = _as_device(values, "mean")
     total, count = reductions.reduce_with_count_host(
         col.values, col.validity, col.length, "sum")
     return None if count == 0 else float(total) / count
@@ -389,7 +426,7 @@ def min_max(values, options=None):
 
 def agg_count_distinct(values, options=None):
     """Distinct values, a null counting as one (one host read)."""
-    col = _as_device(values)
+    col = _as_device(values, "count_distinct")
     res = hashing.encode_codes(col.values, col.type, col.validity,
                                col.length, order="key")
     n_unique, has_null = torch.stack([res.n_unique,
@@ -398,12 +435,12 @@ def agg_count_distinct(values, options=None):
 
 
 def agg_any(values, options=None):
-    col = _as_device(values)
+    col = _as_device(values, "any")
     return bool((col.values & col.validity_mask()).any())
 
 
 def agg_all(values, options=None):
-    col = _as_device(values)
+    col = _as_device(values, "all")
     return bool((col.values | ~col.validity_mask()).all())
 
 
@@ -411,7 +448,7 @@ def agg_product(values, options=None):
     """Product of the valid rows (K3), None when there is none. int32
     widens to int64 first, as `jnp.prod` promotes it; integer products
     wrap."""
-    col = _as_device(values)
+    col = _as_device(values, "product")
     v = col.values.to(torch.int64) if col.values.dtype == torch.int32 \
         else col.values
     acc, count = reductions.reduce_with_count_host(v, col.validity,
@@ -424,7 +461,7 @@ def agg_variance(values, options: Optional[VarianceOptions] = None):
     two K3 sums, of the values (with their count) and of the squared
     deviations from their mean."""
     options = options or VarianceOptions()
-    col = _as_device(values)
+    col = _as_device(values, "variance")
     x = col.values.to(torch.float64)
     total, count = reductions.reduce_with_count_host(x, col.validity,
                                                      col.length, "sum")
@@ -482,7 +519,7 @@ def unique(values, options=None) -> DeviceColumn:
     """The distinct values in first-occurrence order, a null (if any)
     where it first occurs. A dictionary column's result is a dictionary
     column of its distinct values."""
-    col = _as_device(values)
+    col = _as_device(values, "unique")
     _, first, null_at = _first_occurrences(col)
     vals = col.values.index_select(0, first)
     if col.dictionary is None:
@@ -499,7 +536,7 @@ def dictionary_encode(values, options=None) -> DeviceColumn:
     """int32 codes into a dictionary of the distinct non-null values in
     first-occurrence order; null rows keep their validity (code 0). A
     dictionary column comes back as it is."""
-    col = _as_device(values)
+    col = _as_device(values, "dictionary_encode")
     if col.dictionary is not None:
         return col
     codes, first, _ = _first_occurrences(col)
@@ -518,11 +555,29 @@ def _set_options(options, value_set) -> SetLookupOptions:
         value_set=value_set)
 
 
-def _set_list(vset) -> list:
-    """The value set as Python values (None for a null)."""
+def _set_list(vset, t: dt.DataType) -> list:
+    """The value set as Python values (None for a null). For a decimal
+    column each value becomes an unscaled int of its type, as the JAX
+    package builds the set as an array of the column's type: a Decimal
+    scales exactly (ArrowInvalid when it has more digits than the
+    scale), a float rounds, an int is taken as unscaled."""
     if isinstance(vset, HostArray):
-        return vset.to_pylist()
-    return list(vset)
+        return vset.unscaled() if vset.type.is_decimal else vset.to_pylist()
+    vset = list(vset)
+    if t.is_decimal:
+        return [None if v is None else _unscaled_of(v, t) for v in vset]
+    return vset
+
+
+def _unscaled_of(v, t: dt.DataType) -> int:
+    if isinstance(v, pydec.Decimal):
+        q = v.scaleb(t.scale)
+        if q != q.to_integral_value():
+            raise ArrowInvalid(f"{v} does not fit scale {t.scale}")
+        return int(q)
+    if isinstance(v, float):
+        return int(round(v * 10 ** t.scale))
+    return int(v)
 
 
 def _set_table(col: DeviceColumn, vset: list):
@@ -574,14 +629,28 @@ def _lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
     return torch.where(col.validity_mask(), idx, -1)
 
 
+def _limb_lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
+    """`_lookup` of a decimal128 / decimal256 column, on the host by
+    unscaled value, as the JAX package's index_in looks up every row."""
+    where = {}
+    for i, v in enumerate(vset):
+        if v is not None:
+            where.setdefault(v, i)
+    rows = to_ints(col.values[:col.length].cpu().numpy())
+    idx = torch.full((col.padded,), -1, dtype=torch.int64)
+    idx[:col.length] = torch.tensor([where.get(v, -1) for v in rows],
+                                    dtype=torch.int64)
+    return torch.where(col.validity_mask(), idx.to(col.device), -1)
+
+
 def is_in(values, options: Optional[SetLookupOptions] = None,
           value_set=None) -> DeviceColumn:
     """Whether each row's value is in the value set. A null row is true
     when the set holds a null and `skip_nulls` is off, else false; the
     result has no nulls."""
     options = _set_options(options, value_set)
-    col = _as_device(values)
-    vset = _set_list(options.value_set)
+    col = _as_device(values, "is_in")
+    vset = _set_list(options.value_set, col.type)
     out = _lookup(col, vset) >= 0
     if None in vset and not options.skip_nulls and \
             col.validity is not None:
@@ -597,8 +666,8 @@ def index_in(values, options: Optional[SetLookupOptions] = None,
     set's first null, if it has one."""
     options = _set_options(options, value_set)
     col = _as_device(values)
-    vset = _set_list(options.value_set)
-    idx = _lookup(col, vset)
+    vset = _set_list(options.value_set, col.type)
+    idx = _limb_lookup(col, vset) if col.type.limbs else _lookup(col, vset)
     if None in vset:
         isnull = ~col.validity_mask() & row_mask(col.padded, col.length,
                                                  col.device)
@@ -735,7 +804,8 @@ CAST_TARGETS = {
     "cast_boolean": dt.bool_, "cast_string": dt.string,
     "cast_binary": dt.binary, "cast_date32": dt.date32,
     "cast_date64": dt.date64, "cast_time32": None, "cast_time64": None,
-    "cast_timestamp": None, "cast_duration": None,
+    "cast_timestamp": None, "cast_duration": None, "cast_decimal": None,
+    "cast_decimal256": None,
 }
 
 
@@ -839,8 +909,9 @@ def _cast_to(name: str, default_t):
 
 def _exec_cast(a, options=None, device=None):
     """cast's routing: a DeviceColumn casts on its device (to a string
-    type on the host); a HostArray casts on the host when a side is
-    binary-like, else on `device` (the card unless named) and back."""
+    or decimal type on the host); a HostArray casts on the host when a
+    side is binary-like or decimal, else on `device` (the card unless
+    named) and back."""
     from ..device.block import column_to_host
     if isinstance(options, dt.DataType):
         to_t, opts = options, None
@@ -849,13 +920,14 @@ def _exec_cast(a, options=None, device=None):
     else:
         raise ArrowInvalid("cast requires target type")
     if isinstance(a, DeviceColumn):
-        if to_t.is_binary_like:
+        if to_t.is_binary_like or to_t.is_decimal:
             return cast_host(column_to_host(a), to_t, opts)
         return cast_device(a, to_t, opts)
     if isinstance(a, HostArray):
         t = a.type
         storage = t.value_type if t.id == dt.TypeId.DICTIONARY else t
-        if storage.is_binary_like or to_t.is_binary_like:
+        if storage.is_binary_like or to_t.is_binary_like or \
+                storage.is_decimal or to_t.is_decimal:
             return cast_host(a, to_t, opts)
         return column_to_host(cast_device(
             host_array_to_device(a, torchenv.device(device)), to_t, opts))

@@ -8,7 +8,13 @@ the key representatives come back as a HostBatch.
 
 Null keys form their own group; groups appear in first-occurrence
 order (PARITY.md D3). A dictionary (string) key groups on its int32
-codes, and its output column carries the dictionary.
+codes, and its output column carries the dictionary. A decimal32 or
+decimal64 column groups and aggregates as its unscaled ints, as in the
+JAX package: sum, min, max, first and last come back typed as the
+decimal, mean as a float64 of the unscaled values and product as the
+integer product typed as the decimal. A decimal128 / decimal256 column
+raises ArrowNotImplemented, as a key or a value (the JAX package has no
+such group-by: it fails on the limb matrix's shape).
 """
 from __future__ import annotations
 
@@ -179,6 +185,9 @@ def group_by(data: DeviceBatch, keys,
             raise ArrowNotImplemented(f"aggregation {agg!r}")
     key_cols = [data.column(k) for k in keys]
     agg_cols = [data.column(c) for c, _ in aggregations]
+    for c in key_cols + agg_cols:
+        if c.type.limbs:
+            raise ArrowNotImplemented(f"group_by over a {c.type} column")
     for (_, agg), vcol in zip(aggregations, agg_cols):
         if vcol.dictionary is not None and agg not in ("count", "count_all"):
             raise ArrowNotImplemented(f"{agg} on string/dictionary column")

@@ -18,10 +18,21 @@ shift right, min/max, the overflow checks, widening) reads them as
 unsigned through ops/convert.py. Two temporal operands combine only
 when they share a type; a Python int beside a temporal column is
 broadcast to the column's type. `round_` and `round_to_multiple` take
-the nine round modes. Decimals are not ported yet.
+the nine round modes.
+
+decimal128 and decimal256 operands (limb matrices) take
+`_decimal_binary`, as in the JAX package: add, subtract and the
+compares align the scales by powers of ten, multiply adds precisions
+and scales, and an int or Decimal scalar becomes the column's unscaled
+value (int(Decimal.scaleb(scale)) truncates, as there); every other op
+and a non-decimal operand raise ArrowNotImplemented. decimal32 and
+decimal64 run as their storage integers, as in the JAX package: an int
+scalar is an unscaled value, a product keeps the operand type, no
+overflow check runs, and divide truncates.
 """
 from __future__ import annotations
 
+import decimal as pydec
 import operator
 from typing import Optional, Tuple
 
@@ -31,6 +42,7 @@ from .. import dtypes as dt
 from ..device.block import DeviceColumn, row_mask, valid_rows
 from ..ops import bitmap
 from ..ops import convert as cv
+from ..ops import decimal as dec
 from .errors import ArrowInvalid, ArrowNotImplemented
 
 
@@ -168,7 +180,13 @@ _UNSIGNED_OPS = ("divide", "mod", "shift_right", "max_element_wise",
                  "min_element_wise")
 
 
+def _wide_decimal(x) -> bool:
+    return isinstance(x, DeviceColumn) and x.type.limbs > 0
+
+
 def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
+    if _wide_decimal(a) or _wide_decimal(b):
+        return _decimal_binary(op, a, b)
     if op not in _ARITH_BINARY:
         raise ArrowNotImplemented(f"arithmetic {op!r} is not ported")
     a, b = _align(a, b)
@@ -249,6 +267,8 @@ def _is_dict(x) -> bool:
 
 
 def compare(op: str, a, b) -> DeviceColumn:
+    if _wide_decimal(a) or _wide_decimal(b):
+        return _decimal_binary(op, a, b)
     # string comparisons: dictionary codes vs a host literal resolve to a
     # per-code truth table gathered on the device
     if _is_dict(a) and isinstance(b, (str, bytes)):
@@ -265,6 +285,59 @@ def compare(op: str, a, b) -> DeviceColumn:
     out = _COMPARE[op](cv.order_bits(av, to), cv.order_bits(bv, to))
     return DeviceColumn(out, _out_validity(a, b), max(a.length, b.length),
                         dt.bool_)
+
+
+def _decimal_binary(op: str, a, b) -> DeviceColumn:
+    """decimal128 / decimal256 add, subtract, multiply and compares on
+    limb matrices (reference decimal promotion rules; arrow/decimal256
+    4x64-limb semantics): the narrower operand is sign-extended to the
+    wider's limbs, add / subtract / compare bring both to the larger
+    scale, and the result is decimal256 when either side is."""
+    if not isinstance(a, DeviceColumn):
+        a = _decimal_scalar_to_col(a, b)
+    if not isinstance(b, DeviceColumn):
+        b = _decimal_scalar_to_col(b, a)
+    ta, tb = a.type, b.type
+    if not (ta.limbs and tb.limbs):
+        raise ArrowNotImplemented(f"decimal binary {op} with {ta} vs {tb}")
+    if a.padded != b.padded:
+        raise ArrowInvalid(f"length/padding mismatch {a.padded} vs {b.padded}")
+    validity = _out_validity(a, b)
+    n = max(a.length, b.length)
+    k = max(ta.limbs, tb.limbs)
+    max_p, mk = (76, dt.decimal256) if k == 4 else (38, dt.decimal128)
+    av, bv = dec.sign_extend(a.values, k), dec.sign_extend(b.values, k)
+    if op in ("add", "subtract") or op in _COMPARE:
+        s_out = max(ta.scale, tb.scale)
+        av = dec.scale_by_pow10_n(av, s_out - ta.scale)
+        bv = dec.scale_by_pow10_n(bv, s_out - tb.scale)
+        if op in _COMPARE:
+            c = dec.cmpn(av, bv)
+            return DeviceColumn(_COMPARE[op](c, 0), validity, n, dt.bool_)
+        out = dec.addn(av, bv) if op == "add" else dec.subn(av, bv)
+        p = min(max_p, max(ta.precision - ta.scale,
+                           tb.precision - tb.scale) + s_out + 1)
+        return DeviceColumn(out, validity, n, mk(p, s_out))
+    if op == "multiply":
+        p = min(max_p, ta.precision + tb.precision + 1)
+        return DeviceColumn(dec.muln(av, bv), validity, n,
+                            mk(p, ta.scale + tb.scale))
+    raise ArrowNotImplemented(f"decimal {op}")
+
+
+def _decimal_scalar_to_col(v, like: DeviceColumn) -> DeviceColumn:
+    """An int or Decimal scalar as a constant column of `like`'s decimal
+    type: its unscaled value, truncated (int(Decimal.scaleb))."""
+    t = like.type
+    if isinstance(v, pydec.Decimal):
+        unscaled = int(v.scaleb(t.scale))
+    elif isinstance(v, int):
+        unscaled = v * 10 ** t.scale
+    else:
+        raise ArrowNotImplemented(f"decimal scalar {type(v)}")
+    row = torch.from_numpy(dec.from_ints([unscaled], t.limbs)).to(
+        like.device)
+    return DeviceColumn(row.expand(like.padded, -1), None, like.length, t)
 
 
 def _compare_dict_scalar(op: str, a: DeviceColumn, lit) -> DeviceColumn:

@@ -20,12 +20,22 @@ storage of the same bits.
 Strings and binary values are dictionary-encoded at ingest, as in the
 JAX package: int32 codes live on the device, the values stay in a host
 dictionary (a numpy object array of str or bytes) that rides the column.
+A fixed_size_binary column is coded the same way, over its distinct
+values in byte order (the JAX package's np.unique of the rows;
+ops/decode.fixed_size_codes).
+
+A decimal128 or decimal256 column holds a (padded, 2) or (padded, 4)
+int64 matrix of little-endian limbs (dtypes.py); every other column a
+1-D tensor. Its host values are the same (n, k) matrix, and
+`HostArray.to_pylist` gives `decimal.Decimal` values for every decimal
+type, as the JAX package's DecimalArray does.
 
 Results that leave the device (the group-sized output of group_by)
 come back as a numpy-backed HostBatch.
 """
 from __future__ import annotations
 
+import decimal as pydec
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -35,6 +45,7 @@ import torch
 from .. import dtypes as dt
 from .. import torchenv
 from ..ops.convert import host_view, storage_view
+from ..ops.decimal import to_ints
 
 LANE = 128
 WORD_BITS = 32
@@ -83,7 +94,8 @@ def valid_rows(validity: Optional[torch.Tensor], padded: int, length,
 class DeviceColumn:
     """One column resident in device memory.
 
-    values:   tensor, shape (padded,)
+    values:   tensor, shape (padded,), or (padded, k) limbs for
+              decimal128 / decimal256
     validity: int32 words carrying u32 bit patterns, shape (padded/32,),
               or None (all valid)
     length:   logical row count
@@ -194,6 +206,30 @@ def factorize(values: np.ndarray, mask: Optional[np.ndarray] = None
     return codes, uniq[order].astype(object)
 
 
+def storage_zeros(t: dt.DataType, P: int) -> np.ndarray:
+    """Zeroed host storage of P values of t: (P, k) int64 limbs for a
+    decimal128 / decimal256, else P of its numpy dtype."""
+    if t.limbs:
+        return np.zeros((P, t.limbs), np.int64)
+    return np.zeros(P, dtype=t.np_dtype)
+
+
+def _host_values(vals: np.ndarray, t: dt.DataType) -> np.ndarray:
+    """Padded host values of t (limbs as uint64 or int64) as their torch
+    storage, checked against t's shape and dtype."""
+    if t.limbs:
+        ok = vals.ndim == 2 and vals.shape[1] == t.limbs and \
+            vals.dtype in (np.uint64, np.int64)
+        want = f"(P, {t.limbs}) uint64 limbs"
+    else:
+        ok = vals.ndim == 1 and vals.dtype == t.np_dtype
+        want = f"1-D {t.np_dtype}"
+    if not ok:
+        raise ValueError(f"expected {want}, got {vals.ndim}-D {vals.dtype}")
+    vals = np.ascontiguousarray(vals).copy()
+    return vals.view(np.int64) if t.limbs else storage_view(vals, t)
+
+
 def batch_from_numpy(fields: Sequence[Tuple[str, str]],
                      columns: Sequence[tuple],
                      length: int, device=None) -> DeviceBatch:
@@ -205,8 +241,10 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
              values ndarray and the uint32 validity words, exactly what
              `np.asarray` gives for a JAX DeviceColumn's `.values` and
              `.validity`, so both packages hold bit-identical inputs. A
-             string or binary field takes (int32 codes, words,
-             dictionary values): a dictionary(int32, ...) column.
+             string, binary or fixed_size_binary field takes (int32
+             codes, words, dictionary values): a dictionary(int32, ...)
+             column. A decimal128 / decimal256 field takes its (P, k)
+             limbs.
     """
     dev = torchenv.device(device)
     if len(fields) != len(columns):
@@ -218,24 +256,23 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
             dt.type_for_name(tname)
         vals, words = col[0], col[1]
         t, dictionary = ft, None
-        if ft.is_binary_like:
+        if ft.codes_on_device:
             if len(col) != 3:
                 raise ValueError(f"column {name!r}: a {ft} column takes "
                                  f"(codes, words, dictionary)")
             t = dt.dictionary(dt.int32, ft)
             dictionary = dictionary_values(col[2], ft)
         vals = np.asarray(vals)
-        if vals.ndim != 1 or vals.dtype != t.np_dtype:
-            raise ValueError(
-                f"column {name!r}: expected 1-D {t.np_dtype}, got "
-                f"{vals.ndim}-D {vals.dtype}")
+        try:
+            host = _host_values(vals, t)
+        except ValueError as e:
+            raise ValueError(f"column {name!r}: {e}") from None
         if padded is None:
             padded = vals.shape[0]
         if vals.shape[0] != padded or padded < length:
             raise ValueError(f"column {name!r}: padded length "
                              f"{vals.shape[0]} does not fit the batch")
-        v = torch.from_numpy(storage_view(np.ascontiguousarray(vals).copy(),
-                                          t)).to(dev)
+        v = torch.from_numpy(host).to(dev)
         w = None if words is None else _words_to_tensor(words, dev)
         flds.append(dt.Field(name, ft))
         cols.append(DeviceColumn(v, w, int(length), t, dictionary))
@@ -284,6 +321,12 @@ def batch_to_device(data: Dict[str, object], device=None,
 # host results
 # ---------------------------------------------------------------------------
 
+def decimal_value(unscaled: int, scale: int) -> pydec.Decimal:
+    """unscaled * 10**-scale, exact whatever the digits (the JAX
+    package's DecimalArray.value)."""
+    return pydec.Decimal(unscaled).scaleb(-scale, pydec.Context(prec=80))
+
+
 class HostArray:
     """A numpy-backed result column: values[:n] plus an optional bool mask
     (True = valid). A dictionary column holds codes in `values` and the
@@ -304,10 +347,20 @@ class HostArray:
             return np.ones(len(self.values), np.bool_)
         return self.mask
 
+    def unscaled(self) -> list:
+        """A decimal array's unscaled values as Python ints."""
+        if self.type.limbs:
+            return to_ints(self.values).tolist()
+        return self.values.tolist()
+
     def to_pylist(self) -> list:
         """Python values; a dictionary column's codes decode to its
-        dictionary's values."""
-        vals = self.values.tolist()
+        dictionary's values, a decimal's unscaled ints to Decimals."""
+        if self.type.is_decimal:
+            vals = [decimal_value(u, self.type.scale)
+                    for u in self.unscaled()]
+        else:
+            vals = self.values.tolist()
         oks = self.validity_bools().tolist()
         if self.dictionary is not None:
             vals = [self.dictionary[c] if ok else None
@@ -387,7 +440,7 @@ def host_array_to_device(arr: HostArray, dev,
     dictionary array keeps its codes and dictionary."""
     n = len(arr)
     P = pad_length(n) if pad is None else pad
-    host = np.zeros(P, dtype=arr.type.np_dtype)
+    host = storage_zeros(arr.type, P)
     host[:n] = arr.values
     words = None if arr.mask is None else _words_to_tensor(
         _pack_words(arr.mask, P), dev)

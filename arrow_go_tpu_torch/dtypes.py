@@ -2,9 +2,11 @@
 numpy dtypes and bit widths (arrow_go_tpu/dtypes.py): bool; the signed
 and unsigned integers of 8 to 64 bits; float16, float32 and float64;
 date32, date64, timestamp(unit, tz), time32(unit), time64(unit) and
-duration(unit); and the variable-width string and binary types, which
-live on the device as a dictionary type: int32 codes there, the values
-in a host dictionary.
+duration(unit); decimal32, decimal64, decimal128 and
+decimal256(precision, scale); fixed_size_binary(byte_width); and the
+variable-width string and binary types, which live on the device as a
+dictionary type: int32 codes there, the values in a host dictionary (a
+fixed_size_binary column too, as in the JAX package).
 
 Each fixed-width type carries the torch dtype its device tensor is
 stored in (`torch_dtype`). torch computes on none of uint16, uint32 and
@@ -13,7 +15,11 @@ uint64, so those types store their raw bits in int16, int32 and int64
 signedness reads such bits as unsigned (`is_unsigned_integer`), and
 the host sees them through a view as numpy's unsigned dtype. A
 temporal type stores int32 (date32, time32) or int64 (the others), its
-`np_dtype` in the JAX package.
+`np_dtype` in the JAX package. decimal32 and decimal64 store their
+unscaled values in int32 and int64; decimal128 and decimal256 in a
+(padded, 2) or (padded, 4) int64 matrix of little-endian 64-bit limbs
+carrying u64 bits (`limbs`), the JAX package's uint64 limb layout, so
+a column's first dimension is its padded length whatever its type.
 """
 from __future__ import annotations
 
@@ -42,13 +48,18 @@ class TypeId(enum.IntEnum):
     FLOAT64 = 12
     STRING = 13
     BINARY = 14
+    FIXED_SIZE_BINARY = 15
     DATE32 = 16
     DATE64 = 17
     TIMESTAMP = 18
     TIME32 = 19
     TIME64 = 20
+    DECIMAL128 = 23
+    DECIMAL256 = 24
     DICTIONARY = 29
     DURATION = 33
+    DECIMAL32 = 43
+    DECIMAL64 = 44
 
 
 class TimeUnit(enum.IntEnum):
@@ -82,6 +93,8 @@ _INTEGERS = (TypeId.UINT8, TypeId.INT8, TypeId.UINT16, TypeId.INT16,
              TypeId.UINT32, TypeId.INT32, TypeId.UINT64, TypeId.INT64)
 _UNSIGNED = (TypeId.UINT8, TypeId.UINT16, TypeId.UINT32, TypeId.UINT64)
 _FLOATS = (TypeId.FLOAT16, TypeId.FLOAT32, TypeId.FLOAT64)
+_DECIMALS = (TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128,
+             TypeId.DECIMAL256)
 _TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
              TypeId.TIME64, TypeId.DURATION)
 
@@ -123,8 +136,26 @@ class DataType:
         return self.id in _TEMPORAL
 
     @property
+    def is_decimal(self) -> bool:
+        return self.id in _DECIMALS
+
+    @property
+    def limbs(self) -> int:
+        """64-bit limbs per value of a decimal128 (2) or decimal256 (4)
+        column, 0 for a type stored one value per element."""
+        if self.id in (TypeId.DECIMAL128, TypeId.DECIMAL256):
+            return self.bit_width // 64
+        return 0
+
+    @property
     def is_binary_like(self) -> bool:
         return self.id in (TypeId.STRING, TypeId.BINARY)
+
+    @property
+    def codes_on_device(self) -> bool:
+        """string, binary and fixed_size_binary: int32 codes on the
+        device, the values in a host dictionary."""
+        return self.is_binary_like or self.id == TypeId.FIXED_SIZE_BINARY
 
     @property
     def stores_unsigned_as_signed(self) -> bool:
@@ -200,6 +231,68 @@ string = DataType(TypeId.STRING, "utf8", None, None)
 binary = DataType(TypeId.BINARY, "binary", None, None)
 
 
+class DecimalType(DataType):
+    """decimal32/64/128/256(precision, scale): unscaled two's-complement
+    integers of 32, 64, 128 or 256 bits; a value is unscaled * 10**-scale
+    (the JAX package's _DecimalType)."""
+
+    _SPEC = {TypeId.DECIMAL32: ("decimal32", 32, 9, np.int32, torch.int32),
+             TypeId.DECIMAL64: ("decimal64", 64, 18, np.int64, torch.int64),
+             TypeId.DECIMAL128: ("decimal128", 128, 38, None, torch.int64),
+             TypeId.DECIMAL256: ("decimal256", 256, 76, None, torch.int64)}
+
+    def __init__(self, type_id: TypeId, precision: int, scale: int = 0):
+        name, bits, max_p, np_dtype, torch_dtype = self._SPEC[type_id]
+        if not 1 <= precision <= max_p:
+            raise ValueError(f"{name} precision out of range [1, {max_p}]: "
+                             f"{precision}")
+        super().__init__(type_id, name, np_dtype, torch_dtype, bits)
+        self.precision = int(precision)
+        self.scale = int(scale)
+
+    def _eq_extra(self) -> tuple:
+        return (self.precision, self.scale)
+
+    def __str__(self) -> str:
+        return f"{self.name}({self.precision}, {self.scale})"
+
+
+def decimal32(precision, scale=0) -> DecimalType:
+    return DecimalType(TypeId.DECIMAL32, precision, scale)
+
+
+def decimal64(precision, scale=0) -> DecimalType:
+    return DecimalType(TypeId.DECIMAL64, precision, scale)
+
+
+def decimal128(precision, scale=0) -> DecimalType:
+    return DecimalType(TypeId.DECIMAL128, precision, scale)
+
+
+def decimal256(precision, scale=0) -> DecimalType:
+    return DecimalType(TypeId.DECIMAL256, precision, scale)
+
+
+class FixedSizeBinaryType(DataType):
+    """Values of `byte_width` bytes each; on the device a dictionary
+    column of codes into the distinct values (host bytes)."""
+
+    def __init__(self, byte_width: int):
+        super().__init__(TypeId.FIXED_SIZE_BINARY, "fixed_size_binary", None,
+                         None, int(byte_width) * 8)
+        self.byte_width = int(byte_width)
+
+    def _eq_extra(self) -> tuple:
+        return (self.byte_width,)
+
+    def __str__(self) -> str:
+        return f"fixed_size_binary[{self.byte_width}]"
+
+
+def fixed_size_binary(byte_width: int) -> FixedSizeBinaryType:
+    return FixedSizeBinaryType(byte_width)
+
+
 def timestamp(unit="us", tz: Optional[str] = None) -> TimestampType:
     return TimestampType(unit, tz)
 
@@ -255,6 +348,9 @@ _BY_NAME.update({"float16": float16, "float32": float32,
                  "float64": float64, "string": string})
 _PARAMETRIZED = re.compile(r"(timestamp|time32|time64|duration)"
                            r"\[(s|ms|us|ns)(?:, tz=(.+))?\]")
+_DECIMAL_NAME = re.compile(r"(decimal32|decimal64|decimal128|decimal256)"
+                           r"\((\d+), *(-?\d+)\)")
+_FIXED_NAME = re.compile(r"fixed_size_binary\[(\d+)\]")
 _FROM_NUMPY = {t.np_dtype: t for t in (bool_, int8, int16, int32, int64,
                                        uint8, uint16, uint32, uint64,
                                        float16, float32, float64)}
@@ -265,10 +361,17 @@ def type_for_name(name: str) -> DataType:
     'float' or 'float32', 'double' or 'float64', 'bool', 'utf8' or
     'string', 'binary', 'date32', 'date64') or by the str() of a type
     with a unit ('timestamp[ms]', 'timestamp[us, tz=UTC]', 'time32[s]',
-    'time64[ns]', 'duration[ms]')."""
+    'time64[ns]', 'duration[ms]'), a decimal ('decimal128(15, 2)') or a
+    fixed-size binary ('fixed_size_binary[12]')."""
     t = _BY_NAME.get(name)
     if t is not None:
         return t
+    m = _DECIMAL_NAME.fullmatch(name)
+    if m is not None:
+        return globals()[m.group(1)](int(m.group(2)), int(m.group(3)))
+    m = _FIXED_NAME.fullmatch(name)
+    if m is not None:
+        return fixed_size_binary(int(m.group(1)))
     m = _PARAMETRIZED.fullmatch(name)
     if m is None:
         raise ValueError(f"the port carries no type named {name!r}")

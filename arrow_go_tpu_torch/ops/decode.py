@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import native
+from .sort import lexsort_stable, sortable
 
 _U32 = 0xFFFFFFFF
 _TORCH_OF = {np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
@@ -173,8 +174,103 @@ def dict_decode_device(indices: torch.Tensor,
     """RLE_DICTIONARY: gather decoded dictionary values by code (zeros
     when the dictionary is empty: every row of such a chunk is null)."""
     if dictionary.shape[0] == 0:
-        return dictionary.new_zeros(indices.shape[0])
+        return dictionary.new_zeros((indices.shape[0],)
+                                    + dictionary.shape[1:])
     return _take(dictionary, indices.to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# FIXED_LEN_BYTE_ARRAY and INT96: a page's values are rows of `width`
+# bytes; each type turns its byte matrix into its values
+# ---------------------------------------------------------------------------
+
+_JULIAN_EPOCH = 2440588              # the Julian day of 1970-01-01
+_NS_PER_DAY = 86_400 * 10**9
+
+
+class FixedRows:
+    """Callable (raw uint8 bytes, m) -> the m values of a FIXED_LEN_BYTE_
+    ARRAY or INT96 column, `width` bytes each."""
+
+    def __init__(self, width: int, fn):
+        self.width = width
+        self._fn = fn
+
+    def __call__(self, raw: torch.Tensor, m: int) -> torch.Tensor:
+        return self._fn(raw[: m * self.width].reshape(m, self.width))
+
+
+_BYTE_PAIRS = 0x00FF00FF00FF00FF
+_HALF_PAIRS = 0x0000FFFF0000FFFF
+
+
+def bswap64(x: torch.Tensor) -> torch.Tensor:
+    """The bytes of each int64 reversed (a big-endian word read as
+    little-endian and back): three shift-and-mask rounds, each right
+    shift masked, so the sign bit spreads nowhere."""
+    x = ((x & _BYTE_PAIRS) << 8) | ((x >> 8) & _BYTE_PAIRS)
+    x = ((x & _HALF_PAIRS) << 16) | ((x >> 16) & _HALF_PAIRS)
+    return (x << 32) | ((x >> 32) & _U32)
+
+
+def _words(rows: torch.Tensor) -> torch.Tensor:
+    """(m, 8j) bytes as (m, j) int64 words, read little-endian."""
+    return rows.contiguous().view(torch.int64)
+
+
+def decimal_limbs(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """(m, L) big-endian two's-complement bytes -> (m, k) little-endian
+    int64 limbs. L == 8k (the usual 16 or 32 bytes): each big-endian
+    word byte-swapped, the words in reverse order. Otherwise the bytes
+    reversed and sign-extended from L to 8k bytes (the high bytes
+    dropped when L > 8k), viewed as int64."""
+    m, width = rows.shape
+    if width == 8 * k:
+        return bswap64(_words(rows).flip(1))
+    le = rows.flip(1)
+    if width > 8 * k:
+        le = le[:, : 8 * k]
+    else:
+        sign = (rows[:, :1] >= 0x80).to(torch.uint8) * 0xFF
+        le = torch.cat([le, sign.expand(m, 8 * k - width)], dim=1)
+    return _words(le)
+
+
+def int96_nanos(rows: torch.Tensor) -> torch.Tensor:
+    """(m, 12) INT96 rows (nanoseconds of the day as int64, then the
+    Julian day as int32, little-endian) -> int64 ns since the epoch, as
+    the JAX package's host reader computes it (reader.py)."""
+    nanos = rows[:, :8].contiguous().view(torch.int64).reshape(-1)
+    days = rows[:, 8:].contiguous().view(torch.int32).reshape(-1)
+    return (days.to(torch.int64) - _JULIAN_EPOCH) * _NS_PER_DAY + nanos
+
+
+def fixed_size_codes(rows: torch.Tensor, present):
+    """(int32 codes, host dictionary of bytes) of an (m, width) byte
+    matrix: codes over the distinct rows in byte order, null rows
+    counted as zero bytes (the JAX package's np.unique of the rows).
+    Each row sorts as its big-endian 64-bit words (zero-padded), read
+    unsigned: one stable sort pass per word."""
+    m, width = rows.shape
+    if present is not None:
+        rows = torch.where(present.unsqueeze(1), rows, 0)
+    if m == 0:
+        return torch.zeros(0, dtype=torch.int32, device=rows.device), \
+            np.empty(0, dtype=object)
+    pad = -width % 8
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(m, pad)], dim=1)
+    words = sortable(bswap64(_words(rows)))
+    order = lexsort_stable(list(words.unbind(1)))
+    sw = words.index_select(0, order)
+    start = torch.ones(m, dtype=torch.bool, device=rows.device)
+    start[1:] = (sw[1:] != sw[:-1]).any(dim=1)
+    codes = torch.empty(m, dtype=torch.int32, device=rows.device)
+    codes[order] = (torch.cumsum(start, 0) - 1).to(torch.int32)
+    uniq = rows.index_select(0, order[start])[:, :width].cpu().numpy()
+    dictionary = np.empty(len(uniq), dtype=object)
+    dictionary[:] = [r.tobytes() for r in uniq]
+    return codes, dictionary
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import row_mask, valid_rows
+from .convert import as_int64
 from .scan import cummax_u64_lanes
 from .sort import _orderable_bits, lexsort_stable, sortable
 
@@ -154,15 +155,20 @@ def _mul_u32(x: torch.Tensor, m: int) -> torch.Tensor:
     return (hi + (x & 0xFFFF) * m) & _U32
 
 
-def hash32(values: torch.Tensor) -> torch.Tensor:
+def hash32(values: torch.Tensor,
+           t: Optional[dt.DataType] = None) -> torch.Tensor:
     """Avalanching 32-bit hash of a fixed-width column (murmur3
     finalizer; the role of the reference's prime-multiply hash,
     hash_funcs.go:27): bool, signed and unsigned ints of 1 to 8 bytes,
     float16, float32 and float64. Every NaN hashes as one NaN, and -0.0
-    (and a float32 or float64 denormal) as 0.0. Returns int64 carrying
-    the u32 hash."""
+    (and a float32 or float64 denormal) as 0.0. `t` is the column's
+    type: a uint16 or uint32 column, stored in int16 or int32, is
+    zero-extended as the JAX package's `astype(uint32)` extends it.
+    Returns int64 carrying the u32 hash."""
     d = values.dtype
-    if d == torch.bool:
+    if t is not None and t.is_unsigned_integer and d.itemsize <= 4:
+        x = as_int64(values, t) & _U32
+    elif d == torch.bool:
         x = values.to(torch.int64)
     elif d.is_floating_point:
         canon = torch.where(torch.isnan(values),

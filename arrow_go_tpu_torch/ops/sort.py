@@ -31,7 +31,8 @@ INT64_MIN = -(1 << 63)
 
 class SortOperand(NamedTuple):
     flag: torch.Tensor   # int32: 0 null-first, 1 valid, 2 null-last, 3 padding
-    key: torch.Tensor    # int64 whose signed order is the column's order
+    keys: tuple          # int64s whose signed lexicographic order, first
+    # key most significant, is the column's order
 
 
 def f64_bits(x: torch.Tensor) -> torch.Tensor:
@@ -95,17 +96,24 @@ def sort_key(col_values: torch.Tensor, t: dt.DataType,
              descending: bool = False,
              nulls_first: bool = False,
              rank: Optional[torch.Tensor] = None) -> SortOperand:
-    """Build the (flag, key) operand for one sort column. `rank` (int64,
+    """Build the (flag, keys) operand for one sort column. `rank` (int64,
     one per dictionary code, >= 0) orders a dictionary column's codes by
-    their values: the key of a row is its code's rank."""
+    their values: the key of a row is its code's rank. A (P, k) limb
+    column (decimal128 / decimal256) gives k keys, most significant
+    first: the top limb as signed, the others as unsigned bits (the JAX
+    package's key words, top limb sign-flipped)."""
     P = col_values.shape[0]
     if rank is not None:
-        key = rank.index_select(0, col_values.to(torch.int64).clamp(
-            0, rank.shape[0] - 1))
+        keys = [rank.index_select(0, col_values.to(torch.int64).clamp(
+            0, rank.shape[0] - 1))]
+    elif col_values.dim() == 2:
+        k = col_values.shape[1]
+        keys = [col_values[:, k - 1]] + [sortable(col_values[:, i])
+                                         for i in reversed(range(k - 1))]
     else:
-        key = sortable(_orderable_bits(col_values, t))
+        keys = [sortable(_orderable_bits(col_values, t))]
     if descending:
-        key = ~key
+        keys = [~key for key in keys]
     flag = torch.ones(P, dtype=torch.int32, device=col_values.device)
     if validity is not None:
         isnull = ~bitmap.expand_words(validity, P)
@@ -113,7 +121,7 @@ def sort_key(col_values: torch.Tensor, t: dt.DataType,
             torch.int32)
     flag = torch.where(row_mask(P, n, col_values.device), flag, 3).to(
         torch.int32)
-    return SortOperand(flag, key)
+    return SortOperand(flag, tuple(keys))
 
 
 def argsort_single(op: SortOperand) -> torch.Tensor:
@@ -125,5 +133,6 @@ def argsort_multi(ops: List[SortOperand]) -> torch.Tensor:
     """Stable multi-key argsort, first operand most significant."""
     keys = []
     for op in ops:
-        keys.extend((op.flag, op.key))
+        keys.append(op.flag)
+        keys.extend(op.keys)
     return lexsort_stable(keys)

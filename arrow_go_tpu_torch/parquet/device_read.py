@@ -20,7 +20,14 @@ Supported: max_rep_level == 0, max_def_level <= 1 (flat, optionally
 nullable), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN (an INT32 or INT64
 column decodes as its physical ints and then takes its annotated type on
 the device: int8, int16, uint8 and uint16 narrow there; uint32, uint64
-and the temporal types keep the bits; schema.py maps the annotations), encodings PLAIN /
+and the temporal types keep the bits; schema.py maps the annotations),
+and FIXED_LEN_BYTE_ARRAY and INT96 (each page's values stage as a byte
+matrix of `type_length` or 12 bytes a row, and ops/decode.py turns the
+rows into the type's values on the device: a decimal's big-endian
+two's complement into sign-extended little-endian limbs, a float16's two
+bytes into float16, an INT96's day and nanoseconds into a timestamp in
+ns; a fixed_size_binary column's rows become codes over its distinct
+rows, the JAX package's layout), encodings PLAIN /
 RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT /
 DELTA_BINARY_PACKED (INT32/INT64, miniblocks up to 32 bits wide), v1 and
 v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP and LZ4_RAW (the host
@@ -73,6 +80,7 @@ class _Plan:
     type: dt.DataType
     nullable: bool
     dictionary: Optional[np.ndarray] = None    # a string column's values
+    fixed_codes: bool = False    # fixed_size_binary: rows -> codes
 
 
 class _Stager:
@@ -227,7 +235,7 @@ def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
         raise ArrowInvalid(f"{t.shape[0]} values do not fit {n} slots")
     if t.shape[0] == n:
         return t
-    return torch.cat([t, t.new_zeros(n - t.shape[0])])
+    return torch.cat([t, t.new_zeros((n - t.shape[0],) + t.shape[1:])])
 
 
 def _spread(dense: torch.Tensor, present: Optional[torch.Tensor]):
@@ -240,7 +248,7 @@ def _spread(dense: torch.Tensor, present: Optional[torch.Tensor]):
 
 
 def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
-               key):
+               key, rows=None):
     """One data page (the JAX package's _decode_data_page). A column
     chunk decodes page by page: the JAX package's fused chunk read (one
     decode per uniform chunk) guards against a recompile per page, which
@@ -248,15 +256,26 @@ def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
     it (PERF.md). A null row's slot holds a value of its own
     page, where the fused read takes one of the chunk's: unspecified in
     both. With `codes_only` (a string column) the page decodes to its
-    int32 dictionary codes."""
+    int32 dictionary codes. `rows` (a FIXED_LEN_BYTE_ARRAY or INT96
+    column) takes a PLAIN page's bytes and its value count to the
+    column's values; np_dtype is then None."""
     nv, def_stream, vals_raw, encoding = split
     if def_stream is not None:
         _stage_rle(stager, host, key + "def", def_stream, nv, 1)
     phys = desc.physical_type
-    k = np.dtype(np_dtype).itemsize
+    k = rows.width if rows is not None else np.dtype(np_dtype).itemsize
     # clamp: trailing padding bytes must not push n_present past nv
     n_present = min(len(vals_raw) // k, nv)
-    if codes_only:
+    if rows is not None and encoding not in _DICT_ENCODINGS | {
+            fmt.Encoding.PLAIN}:
+        raise ArrowNotImplemented(
+            f"device decode of {phys.name} pages in {encoding.name}")
+    if rows is not None and encoding == fmt.Encoding.PLAIN:
+        host[key + "raw"] = stager.bytes([vals_raw[:n_present * k]])
+
+        def dense(d):
+            return _pad(rows(d[key + "raw"], n_present), nv)
+    elif codes_only:
         if encoding not in _DICT_ENCODINGS:
             raise ArrowNotImplemented(
                 "device string read needs all-dictionary pages (page "
@@ -319,6 +338,22 @@ def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
     return decode
 
 
+def _fixed_rows(t: dt.DataType, phys: fmt.Type, type_length: int):
+    """The FixedRows of a column of port type t on physical type `phys`,
+    or None for the physical types that are not rows of bytes."""
+    if phys == fmt.Type.INT96:
+        return dd.FixedRows(12, dd.int96_nanos)
+    if phys != fmt.Type.FIXED_LEN_BYTE_ARRAY:
+        return None
+    if t.limbs:
+        return dd.FixedRows(type_length,
+                            lambda r: dd.decimal_limbs(r, t.limbs))
+    if t == dt.float16:
+        return dd.FixedRows(2, lambda r: r.contiguous().view(
+            torch.float16).reshape(-1))
+    return dd.FixedRows(type_length, lambda r: r)
+
+
 def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
                  clock: _Clock) -> _Plan:
     li, desc = _leaf_of(pf, column)
@@ -326,18 +361,26 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
         raise ArrowNotImplemented("device read supports flat columns only")
     t = desc.arrow_type
     codes_only = t.is_binary_like
-    np_dtype = np.int32 if codes_only else schema.physical_np_dtype(t)
+    rows = _fixed_rows(t, desc.physical_type, desc.type_length)
+    np_dtype = None if rows is not None else np.int32 if codes_only else \
+        schema.physical_np_dtype(t)
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
     host: Host = {}
     splits = []
     dictionary = None
+    dict_rows = 0
     for hdr, body in _iter_pages(pf, chunk):
         ptype = fmt.PageType(hdr.type)
         if ptype == fmt.PageType.DICTIONARY_PAGE:
             payload = clock.decompress(codec, body,
                                        hdr.uncompressed_page_size)
             nvd = hdr.dictionary_page_header.num_values or 0
+            if rows is not None:
+                # the dictionary's rows decode on the device, once
+                host["dict"] = stager.bytes([payload[:nvd * rows.width]])
+                dict_rows = nvd
+                continue
             values = enc.plain_decode(desc.physical_type, payload, nvd)
             if codes_only:
                 # the values stay on the host; the codes index them
@@ -351,19 +394,23 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
     has_dict = "dict" in host or dictionary is not None
     n = sum(s[0] for s in splits)
     pages = [_plan_page(s, desc, np_dtype, has_dict, codes_only, stager,
-                        host, f"p{i}.")
+                        host, f"p{i}.", rows)
              for i, s in enumerate(splits)]
-    if codes_only:
+    fixed_codes = t.id == dt.TypeId.FIXED_SIZE_BINARY
+    if codes_only or fixed_codes:
         t = dt.dictionary(dt.int32, t)
         if dictionary is None:
             dictionary = dictionary_values([], desc.arrow_type)
 
     def decode(d: Host) -> Decoded:
+        if rows is not None and "dict" in d:
+            d = dict(d, dict=rows(d["dict"], dict_rows))
         outs = [page(d) for page in pages]
         present = None if desc.max_def_level == 0 else \
             torch.cat([o[1] for o in outs])
         return torch.cat([o[0] for o in outs]), present
-    return _Plan(host, decode, n, t, desc.max_def_level > 0, dictionary)
+    return _Plan(host, decode, n, t, desc.max_def_level > 0, dictionary,
+                 fixed_codes)
 
 
 def _ship(host: Host, device: torch.device) -> Host:
@@ -372,13 +419,16 @@ def _ship(host: Host, device: torch.device) -> Host:
 
 def _column(plan: _Plan, shipped: Host, pad: Optional[int]) -> DeviceColumn:
     values, present = plan.decode(shipped)
-    if values.dtype != plan.type.torch_dtype:
+    dictionary = plan.dictionary
+    if plan.fixed_codes:
+        values, dictionary = dd.fixed_size_codes(values, present)
+    elif values.dtype != plan.type.torch_dtype:
         # an 8- or 16-bit int from its INT32 physical values
         values = convert.convert(values, dt.int32, plan.type)
     P = pad if pad is not None else pad_length(plan.n)
     validity = bitmap.pack_mask(_pad(present, P)) if plan.nullable else None
     return DeviceColumn(_pad(values, P), validity, plan.n, plan.type,
-                        plan.dictionary)
+                        dictionary)
 
 
 def read_column_device(pf, rg_i: int, column: str, pad=None,

@@ -69,6 +69,9 @@ def plain_encode(phys: fmt.Type, values) -> bytes:
                            bitorder="little").tobytes()
     if phys == fmt.Type.BYTE_ARRAY:
         return _byte_array_encode(values)
+    if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
+        # rows of type_length (or 12) bytes, as an (n, width) uint8 matrix
+        return np.ascontiguousarray(values, dtype=np.uint8).tobytes()
     raise NotImplementedError(phys)
 
 

@@ -7,9 +7,13 @@ STRING / UTF8 annotation, binary without one), required or optional,
 directly under the root. INT32 and INT64 leaves take the logical and
 converted annotations of the JAX package: DATE, TIME, TIMESTAMP and
 INTEGER(8/16/32/64, signed or not), or INT_8/16, UINT_8..64, DATE,
-TIME_* and TIMESTAMP_*. Groups (lists, maps, structs), FIXED_LEN_BYTE_ARRAY
-and INT96 leaves, and the DECIMAL and FLOAT16 annotations raise
-ArrowNotImplemented.
+TIME_* and TIMESTAMP_*. DECIMAL (logical or converted) maps by physical
+type and precision, as the JAX package's `_decimal_for` does: INT32 to
+decimal32 (precision <= 9), INT64 to decimal64 (<= 18), either to
+decimal128 above that, and FIXED_LEN_BYTE_ARRAY to decimal128 (<= 38)
+or decimal256. A FIXED_LEN_BYTE_ARRAY leaf is float16 with the FLOAT16
+annotation, else fixed_size_binary(type_length); an INT96 leaf is
+timestamp("ns"). Groups (lists, maps, structs) raise ArrowNotImplemented.
 """
 from __future__ import annotations
 
@@ -51,12 +55,31 @@ _PHYSICAL = {dt.TypeId.BOOL: fmt.Type.BOOLEAN,
              **{i: fmt.Type.INT64 for i in _INT64_TYPES}}
 _PLAIN = {fmt.Type.BOOLEAN: dt.bool_, fmt.Type.INT32: dt.int32,
           fmt.Type.INT64: dt.int64, fmt.Type.FLOAT: dt.float32,
-          fmt.Type.DOUBLE: dt.float64, fmt.Type.BYTE_ARRAY: dt.binary}
+          fmt.Type.DOUBLE: dt.float64, fmt.Type.BYTE_ARRAY: dt.binary,
+          fmt.Type.INT96: dt.timestamp("ns")}
 _PHYSICAL_NP = {fmt.Type.INT32: np.int32, fmt.Type.INT64: np.int64}
 
 
-def physical_for(t: dt.DataType) -> Tuple[fmt.Type, int]:
-    """(physical type, type_length) of a port type."""
+def physical_for(t: dt.DataType, store_decimal_as_integer: bool = False
+                 ) -> Tuple[fmt.Type, int]:
+    """(physical type, type_length) of a port type (the JAX package's
+    physical_for): decimal32 / decimal64 on INT32 / INT64, decimal128 /
+    decimal256 on FIXED_LEN_BYTE_ARRAY of 16 / 32 bytes (with
+    `store_decimal_as_integer`, a decimal of precision <= 9 / <= 18 on
+    INT32 / INT64, reference WithStoreDecimalAsInteger), float16 on
+    FIXED_LEN_BYTE_ARRAY(2), fixed_size_binary on its byte width."""
+    if t.is_decimal:
+        if store_decimal_as_integer and t.precision <= 9 or \
+                t.id == dt.TypeId.DECIMAL32:
+            return fmt.Type.INT32, 0
+        if store_decimal_as_integer and t.precision <= 18 or \
+                t.id == dt.TypeId.DECIMAL64:
+            return fmt.Type.INT64, 0
+        return fmt.Type.FIXED_LEN_BYTE_ARRAY, t.bit_width // 8
+    if t.id == dt.TypeId.FLOAT16:
+        return fmt.Type.FIXED_LEN_BYTE_ARRAY, 2
+    if t.id == dt.TypeId.FIXED_SIZE_BINARY:
+        return fmt.Type.FIXED_LEN_BYTE_ARRAY, t.byte_width
     try:
         return _PHYSICAL[t.id], 0
     except KeyError:
@@ -125,24 +148,39 @@ def _logical_for(t: dt.DataType) -> Tuple[Optional[fmt.LogicalType],
         width, signed, conv = _INT_ANNOTATIONS[tid]
         return fmt.LogicalType(INTEGER=fmt.IntLType(
             bitWidth=width, isSigned=signed)), int(conv)
+    if t.is_decimal:
+        return fmt.LogicalType(DECIMAL=fmt.DecimalLType(
+            scale=t.scale, precision=t.precision)), int(C.DECIMAL)
+    if tid == dt.TypeId.FLOAT16:
+        return fmt.LogicalType(FLOAT16=fmt.Float16LType()), None
     return None, None
 
 
-def schema_to_elements(schema: dt.Schema
+def schema_to_elements(schema: dt.Schema,
+                       store_decimal_as_integer: bool = False,
+                       int96_timestamps: bool = False
                        ) -> Tuple[List[fmt.SchemaElement],
                                   List[ColumnDescriptor]]:
-    """Port schema -> flat SchemaElement list + leaf columns."""
+    """Port schema -> flat SchemaElement list + leaf columns. With
+    `int96_timestamps` a timestamp column is an unannotated INT96 leaf
+    (reference WithDeprecatedInt96Timestamps)."""
     root = fmt.SchemaElement(name="schema", num_children=len(schema))
     elements = [root]
     leaves: List[ColumnDescriptor] = []
     for f in schema.fields:
-        phys, tlen = physical_for(f.type)
+        int96 = int96_timestamps and f.type.id == dt.TypeId.TIMESTAMP
+        phys, tlen = (fmt.Type.INT96, 12) if int96 else physical_for(
+            f.type, store_decimal_as_integer)
         rep = fmt.Repetition.OPTIONAL if f.nullable else \
             fmt.Repetition.REQUIRED
-        logical, conv = _logical_for(f.type)
+        logical, conv = (None, None) if int96 else _logical_for(f.type)
         el = fmt.SchemaElement(name=f.name, type=int(phys),
+                               type_length=tlen if phys ==
+                               fmt.Type.FIXED_LEN_BYTE_ARRAY else None,
                                repetition_type=int(rep),
                                converted_type=conv, logicalType=logical)
+        if f.type.is_decimal:
+            el.scale, el.precision = f.type.scale, f.type.precision
         elements.append(el)
         leaves.append(ColumnDescriptor((f.name,), phys, tlen,
                                        1 if f.nullable else 0, 0, f.type,
@@ -185,27 +223,42 @@ def _annotated(el: fmt.SchemaElement) -> Optional[dt.DataType]:
             return dt.time32(unit) if unit == "ms" else dt.time64(unit)
         if lt.INTEGER is not None:
             return _INTEGERS[(lt.INTEGER.bitWidth, bool(lt.INTEGER.isSigned))]
-        if lt.DECIMAL is not None or lt.FLOAT16 is not None:
-            raise ArrowNotImplemented(
-                f"column {el.name!r}: logical {lt} is not ported")
+        if lt.DECIMAL is not None:
+            return _decimal_for(el, lt.DECIMAL.precision, lt.DECIMAL.scale)
+        if lt.FLOAT16 is not None:
+            return dt.float16
     if el.converted_type is not None:
         conv = fmt.ConvertedType(el.converted_type)
         if conv in _CONVERTED:
             return _CONVERTED[conv]
         if conv == fmt.ConvertedType.DECIMAL:
-            raise ArrowNotImplemented(
-                f"column {el.name!r}: DECIMAL is not ported")
+            return _decimal_for(el, el.precision, el.scale)
     return None
+
+
+def _decimal_for(el: fmt.SchemaElement, p: int, s: int) -> dt.DataType:
+    phys = fmt.Type(el.type)
+    if phys == fmt.Type.INT32:
+        return dt.decimal32(p, s) if p <= 9 else dt.decimal128(p, s)
+    if phys == fmt.Type.INT64:
+        return dt.decimal64(p, s) if p <= 18 else dt.decimal128(p, s)
+    if phys == fmt.Type.FIXED_LEN_BYTE_ARRAY:
+        return dt.decimal128(p, s) if p <= 38 else dt.decimal256(p, s)
+    raise ArrowNotImplemented(
+        f"column {el.name!r}: DECIMAL on physical {phys.name}")
 
 
 def _type_of(el: fmt.SchemaElement) -> dt.DataType:
     phys = fmt.Type(el.type)
-    if phys not in _PLAIN:
+    if phys not in _PLAIN and phys != fmt.Type.FIXED_LEN_BYTE_ARRAY:
         raise ArrowNotImplemented(
             f"column {el.name!r}: physical {phys.name} is not ported")
     t = _annotated(el)
     if t is None:
-        return _PLAIN[phys]
+        return dt.fixed_size_binary(el.type_length or 0) if phys == \
+            fmt.Type.FIXED_LEN_BYTE_ARRAY else _PLAIN[phys]
+    if t.is_decimal:
+        return t
     if (phys == fmt.Type.BYTE_ARRAY) != t.is_binary_like or (
             not t.is_binary_like and physical_for(t)[0] != phys):
         raise ArrowNotImplemented(

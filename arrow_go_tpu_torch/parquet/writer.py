@@ -2,25 +2,40 @@
 
 The port's own writer (after arrow_go_tpu/parquet/writer.py:write_table,
 reference parquet/file/file_writer.go): numpy columns (bool, the signed
-and unsigned ints, float32, float64, the temporal types, and strings or
-bytes), each optionally with a validity mask, in row groups of `row_group_size` rows and v1 data pages
-of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP or LZ4_RAW.
+and unsigned ints, float16, float32, float64, the temporal types, the
+decimals, fixed-size binaries, and strings or bytes), each optionally
+with a validity mask, in row groups of `row_group_size` rows and v1
+data pages of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP
+or LZ4_RAW.
 
-With `use_dictionary` every non-boolean column chunk is dictionary
-encoded (a PLAIN dictionary page, RLE_DICTIONARY data pages) unless its
-dictionary page would pass `dictionary_pagesize_limit` bytes; then the
-whole chunk is PLAIN, as the reference falls back
-(column_writer.go FallbackToPlainEncoding). A numeric dictionary holds
+With `use_dictionary` a boolean column chunk is PLAIN and every other
+one but a FIXED_LEN_BYTE_ARRAY one is dictionary encoded (a PLAIN
+dictionary page, RLE_DICTIONARY data pages) unless its dictionary page
+would pass `dictionary_pagesize_limit` bytes; then the whole chunk is
+PLAIN. A numeric dictionary holds
 the distinct bit patterns in ascending order, so -0.0, 0.0 and NaN
 payloads survive a round trip; a string dictionary holds the values in
 first-occurrence order (the JAX package's DictionaryBuilder), or, for a
 column given as (codes, values), those values as they stand.
+A FIXED_LEN_BYTE_ARRAY chunk is dictionary encoded (its distinct values
+in key order) until its dictionary reaches `dictionary_pagesize_limit`
+bytes, and PLAIN from the next page on, as the reference falls back
+(column_writer.go FallbackToPlainEncoding): the pages written before
+stay dictionary coded, so one chunk mixes both encodings.
 `column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED.
 A column's type is its numpy dtype's (`dt.from_numpy_dtype`) unless
 `types` names it: a date32 column of int32 days, say. Such a column is
 written with the JAX writer's annotations (DATE, TIME, TIMESTAMP,
-INTEGER) and its physical INT32 or INT64 values: an 8- or 16-bit int
-widened to INT32 by its value, a uint32 or uint64 as its bits.
+INTEGER, DECIMAL, FLOAT16) and its physical values: an 8- or 16-bit
+int widened to INT32 by its value, a uint32 or uint64 as its bits, a
+decimal32 / decimal64 as its unscaled INT32 / INT64, a decimal128 /
+decimal256 as FIXED_LEN_BYTE_ARRAY of 16 / 32 big-endian bytes (the
+JAX writer's layout; INT32 / INT64 with `store_decimal_as_integer` up
+to precision 18), a float16 as two little-endian bytes and a
+fixed_size_binary as its bytes. With `int96_timestamps` a timestamp
+column is written as INT96 (nanoseconds of the day and Julian day,
+reference WithDeprecatedInt96Timestamps).
+
 """
 from __future__ import annotations
 
@@ -79,6 +94,60 @@ def _string_bytes(dictionary: np.ndarray, t: dt.DataType) -> list:
     return [v.encode() if t == dt.string else bytes(v) for v in dictionary]
 
 
+def _row_keys(rows: np.ndarray):
+    """(int64 key per row, keys -> rows) of an (n, width) byte matrix:
+    the rows' own value when each is a big-endian int64 sign-extended
+    to `width` bytes (a decimal of up to 18 digits), else codes over
+    the distinct rows."""
+    n, width = rows.shape
+    if width >= 8:
+        low = np.ascontiguousarray(rows[:, -8:][:, ::-1]).view(
+            np.int64).reshape(-1)
+        if (rows[:, :-8] == np.where(low < 0, 255, 0).astype(
+                np.uint8)[:, None]).all():
+            def rows_of(keys):
+                limbs = np.repeat((keys >> 63)[:, None], -(-width // 8), 1)
+                limbs[:, 0] = keys
+                return _big_endian(limbs, width)
+            return low, rows_of
+    keyed = np.ascontiguousarray(rows).view(np.dtype((np.void, width)))
+    uniq, inv = np.unique(keyed.reshape(-1), return_inverse=True)
+    return inv.reshape(-1).astype(np.int64), \
+        lambda keys: uniq[keys].view(np.uint8).reshape(len(keys), width)
+
+
+def _fixed_dictionary(rows: np.ndarray, page_ends: List[int], limit: int):
+    """(dictionary rows in byte-key order, uint32 codes of the rows of the
+    dictionary pages, number of leading pages that are dictionary coded)
+    of an (n, width) byte matrix whose pages end at the present-row
+    counts `page_ends`: the dictionary holds the values of the pages up
+    to the first one after which it reaches `limit` bytes."""
+    n, width = rows.shape
+    if not n:
+        return rows, np.zeros(0, np.uint32), len(page_ends)
+    keys, rows_of = _row_keys(rows)
+    lo, hi = int(keys.min()), int(keys.max())
+    if hi - lo < _RANGE_TABLE_MAX:
+        base, rel = None, keys - lo
+    else:
+        base, rel = np.unique(keys, return_inverse=True)
+        rel = rel.reshape(-1)
+    seen = np.zeros(int(rel.max()) + 1, np.bool_)
+    count, start, pages = 0, 0, len(page_ends)
+    for p, end in enumerate(page_ends):
+        new = np.unique(rel[start:end][~seen[rel[start:end]]])
+        seen[new] = True
+        count += len(new)
+        start = end
+        if count * width >= limit:
+            pages = p + 1
+            break
+    held = np.flatnonzero(seen)
+    code_of = (np.cumsum(seen, dtype=np.int64) - 1).astype(np.uint32)
+    dict_keys = held + lo if base is None else base[held]
+    return rows_of(dict_keys), code_of[rel[:start]], pages
+
+
 def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                  mask: Optional[np.ndarray], desc: psch.ColumnDescriptor,
                  codec: int, use_dictionary: bool, dict_limit: int,
@@ -92,7 +161,22 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
     present = vals if mask is None else vals[mask]
     phys = desc.physical_type
     coded = None
-    if dictionary is not None:
+    dict_pages = None          # leading dictionary-coded pages (all)
+    fixed = phys == fmt.Type.FIXED_LEN_BYTE_ARRAY
+    if fixed or phys == fmt.Type.INT96:
+        rows_per_page = num_values if not data_page_size else max(8, int(
+            data_page_size / (vals.shape[1] + nullable / 8)))
+        starts = range(0, max(num_values, 1), max(rows_per_page, 1))
+        page_ends = [min(a + rows_per_page, num_values) for a in starts]
+        if mask is not None:
+            before = np.concatenate(([0], np.cumsum(mask, dtype=np.int64)))
+            page_ends = [int(before[e]) for e in page_ends]
+        if fixed and use_dictionary and encoding in (None,
+                                                     fmt.Encoding.PLAIN):
+            keys, codes, dict_pages = _fixed_dictionary(
+                np.ascontiguousarray(present), page_ends, dict_limit)
+            coded = keys, codes
+    elif dictionary is not None:
         page_values = _string_bytes(dictionary, desc.arrow_type)
         if use_dictionary and sum(map(len, page_values)) + 4 * len(
                 page_values) <= dict_limit:
@@ -105,6 +189,7 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
     start_offset = sink.tell()
     total_unc = total_comp = 0
     dict_page_offset = None
+    plain_encoding = encoding or fmt.Encoding.PLAIN
     if coded is not None:
         keys, codes = coded
         width = max(enc.bit_width_for(len(keys) - 1), 1)
@@ -132,19 +217,27 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                 else 1 / 8
     if nullable:
         row_bytes += 1 / 8
-    rows_per_page = num_values if not data_page_size else max(
-        8, int(data_page_size / row_bytes))
+    if not (fixed or phys == fmt.Type.INT96):
+        rows_per_page = num_values if not data_page_size else max(
+            8, int(data_page_size / row_bytes))
     present_before = None if mask is None else np.concatenate(
         ([0], np.cumsum(mask, dtype=np.int64)))
 
     data_page_offset = None
-    for start in range(0, max(num_values, 1), max(rows_per_page, 1)):
+    page_encodings = set()
+    for page, start in enumerate(range(0, max(num_values, 1),
+                                       max(rows_per_page, 1))):
         end = min(start + rows_per_page, num_values)
         p0, p1 = (start, end) if mask is None else (
             int(present_before[start]), int(present_before[end]))
         levels = enc.levels_encode_v1(mask[start:end].astype(np.uint32), 1) \
             if nullable else b""
-        if coded is not None:
+        page_dict = coded is not None and (dict_pages is None
+                                           or page < dict_pages)
+        if not page_dict:
+            value_encoding = plain_encoding
+        page_encodings.add(int(value_encoding))
+        if page_dict:
             data = bytes([width]) + enc.rle_encode(codes[p0:p1], width)
         elif value_encoding == fmt.Encoding.DELTA_BINARY_PACKED:
             data = enc.delta_binary_packed_encode(present[p0:p1])
@@ -167,7 +260,7 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         total_unc += len(hb) + len(payload)
         total_comp += len(hb) + len(body)
 
-    encodings = {int(fmt.Encoding.PLAIN), int(value_encoding)}
+    encodings = {int(fmt.Encoding.PLAIN)} | page_encodings
     if nullable:
         encodings.add(int(fmt.Encoding.RLE))
     meta = fmt.ColumnMetaData(
@@ -183,12 +276,56 @@ _ENCODING_NAMES = {"plain": fmt.Encoding.PLAIN,
                    "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED}
 
 
+def _big_endian(limbs: np.ndarray, width: int) -> np.ndarray:
+    """(n, k) little-endian int64 limbs -> (n, width) big-endian
+    two's-complement bytes (the low `width` bytes)."""
+    le = np.ascontiguousarray(limbs).view(np.uint8).reshape(len(limbs), -1)
+    return np.ascontiguousarray(le[:, :width][:, ::-1])
+
+
+def _int96(ns: np.ndarray) -> np.ndarray:
+    """int64 ns since the epoch -> (n, 12) INT96 rows: nanoseconds of the
+    day (int64), then the Julian day (int32), little-endian."""
+    day, nanos = np.divmod(ns, 86_400 * 10**9)
+    out = np.empty((len(ns), 12), np.uint8)
+    out[:, :8] = nanos.astype("<i8").view(np.uint8).reshape(-1, 8)
+    out[:, 8:] = (day + 2440588).astype("<i4").view(np.uint8).reshape(-1, 4)
+    return out
+
+
+def _fixed_values(name: str, v: np.ndarray, t: dt.DataType,
+                  phys: fmt.Type) -> np.ndarray:
+    """Physical values of a decimal, float16, fixed_size_binary or INT96
+    timestamp column: an (n, width) byte matrix on FIXED_LEN_BYTE_ARRAY
+    or INT96, unscaled INT32 / INT64 values otherwise. A decimal128 /
+    decimal256 column comes as its (n, k) limbs or as 1-D ints."""
+    if t.is_decimal:
+        low = (v if v.ndim == 1 else v.view(np.int64)[:, 0]).astype(np.int64)
+        if phys != fmt.Type.FIXED_LEN_BYTE_ARRAY:
+            return low.astype(np.int32 if phys == fmt.Type.INT32
+                              else np.int64)
+        if v.ndim == 1:               # unscaled ints, sign-extended
+            v = np.repeat((low >> 63)[:, None], t.limbs, axis=1)
+            v[:, 0] = low
+        return _big_endian(v.view(np.int64), t.bit_width // 8)
+    if phys == fmt.Type.INT96:
+        ns = v.astype(np.int64) * (10**9 // t.unit.multiplier)
+        return _int96(ns)
+    if t == dt.float16:
+        return np.ascontiguousarray(v.astype("<f2")).view(np.uint8).reshape(
+            -1, 2)
+    if v.ndim != 2 or v.dtype != np.uint8 or v.shape[1] != t.byte_width:
+        raise ArrowInvalid(f"column {name!r}: a {t} column takes an "
+                           f"(n, {t.byte_width}) uint8 matrix")
+    return v
+
+
 def _prepare(name: str, v, mask: Optional[np.ndarray],
-             t: Optional[dt.DataType]):
+             t: Optional[dt.DataType], phys: Optional[fmt.Type] = None):
     """(type, physical values or codes, dictionary or None) of one input
     column: a string or bytes column becomes int32 codes + its
     dictionary; a column of type `t` (its numpy dtype's when None) its
-    physical values."""
+    physical values (`phys`, its physical type, when t is given)."""
     if isinstance(v, tuple):
         codes, dictionary = np.asarray(v[0], np.int32), np.asarray(
             v[1], dtype=object)
@@ -204,6 +341,9 @@ def _prepare(name: str, v, mask: Optional[np.ndarray],
     t = t or dt.from_numpy_dtype(v.dtype)
     if t.is_binary_like or v.dtype.kind not in "biuf":
         raise ArrowInvalid(f"column {name!r}: {v.dtype} values for {t}")
+    if t.is_decimal or phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
+                                fmt.Type.INT96):
+        return t, _fixed_values(name, v, t, phys), None
     vals = v.astype(t.np_dtype, copy=False)
     phys = psch.physical_np_dtype(t)
     if t.is_unsigned_integer and t.bit_width == phys.itemsize * 8:
@@ -218,7 +358,9 @@ def write_table(data: Dict[str, object], sink,
                 data_page_size: Optional[int] = None,
                 row_group_size: Optional[int] = None,
                 column_encodings: Optional[Dict[str, str]] = None,
-                types: Optional[Dict[str, dt.DataType]] = None) -> None:
+                types: Optional[Dict[str, dt.DataType]] = None,
+                store_decimal_as_integer: bool = False,
+                int96_timestamps: bool = False) -> None:
     """Write columns (all of one length) to a parquet file.
 
     data:  numpy arrays by name; a string (or bytes) column is a numpy
@@ -229,7 +371,12 @@ def write_table(data: Dict[str, object], sink,
            "delta_binary_packed" (INT32/INT64 columns); such a column
            takes no dictionary.
     types: a column's type by name, where its numpy dtype's is not the
-           one (date32 for int32 days, uint32, timestamp("ms", "UTC")).
+           one (date32 for int32 days, uint32, timestamp("ms", "UTC"),
+           decimal128(15, 2) for unscaled ints or (n, 2) limbs,
+           fixed_size_binary(12) for an (n, 12) uint8 matrix).
+    store_decimal_as_integer: a decimal of precision <= 18 as INT32 /
+           INT64 (read back as decimal32 / decimal64).
+    int96_timestamps: timestamp columns as INT96.
     sink:  a path or a binary file object.
     """
     masks = masks or {}
@@ -244,10 +391,17 @@ def write_table(data: Dict[str, object], sink,
     n = None
     for name in names:
         m = masks.get(name)
-        t, v, dictionary = _prepare(name, data[name], m, types.get(name))
+        t = types.get(name)
+        phys = None
+        if t is not None:
+            phys = fmt.Type.INT96 if int96_timestamps and \
+                t.id == dt.TypeId.TIMESTAMP else psch.physical_for(
+                    t, store_decimal_as_integer)[0]
+        t, v, dictionary = _prepare(name, data[name], m, t, phys)
         n = len(v) if n is None else n
-        if v.ndim != 1 or len(v) != n:
-            raise ArrowInvalid(f"column {name!r}: expected 1-D length {n}")
+        if v.ndim != (2 if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
+                                    fmt.Type.INT96) else 1) or len(v) != n:
+            raise ArrowInvalid(f"column {name!r}: expected length {n}")
         if m is not None and (len(m) != n or np.asarray(m).dtype != np.bool_):
             raise ArrowInvalid(f"mask of {name!r}: expected bool[{n}]")
         if encs.get(name) == fmt.Encoding.DELTA_BINARY_PACKED and (
@@ -260,7 +414,8 @@ def write_table(data: Dict[str, object], sink,
     n = n or 0
     codec = comp.codec_for_name(compression)
     schema = dt.Schema(fields)
-    elements, leaves = psch.schema_to_elements(schema)
+    elements, leaves = psch.schema_to_elements(
+        schema, store_decimal_as_integer, int96_timestamps)
     args = (cols, masks, elements, leaves, n, codec, use_dictionary,
             dictionary_pagesize_limit, data_page_size, row_group_size, encs)
     if hasattr(sink, "write"):

@@ -71,16 +71,33 @@ without one. Phases:
      call_function with a host array to the card and back
      (`registry`); each against numpy, every K1 and K3 call of these
      paths held against the plain version;
-  11. a `kernels` JSON line, then the last line
+  11. decimals: l_qty, l_price and l_disc as DECIMAL(15,2) in 16-byte
+     FIXED_LEN_BYTE_ARRAY (decimal128, beside the DATE l_sdate) and
+     l_qty, l_price, l_disc and l_tax in INT64 (decimal64, beside the
+     two flags), both files SNAPPY from the port's writer, their values
+     exactly the cents of the float columns; both scanned on the card
+     and held bit for bit (`decimal_scan`); TPC-H Q6 from the FLBA
+     bytes with Decimal literals and a decimal128(31, 4) product
+     (`decimal_q6`), Q1's l_price * (1 - l_disc) over every row
+     (`disc_price`), Q1's sums, minima, maxima and counts on decimal64
+     (`decimal_q1`), agg_sum of decimal64 l_price through K3
+     (`decimal_sum`) and the decimal128 descending sort
+     (`decimal_sort`), each exact against numpy's int64 arithmetic;
+     every K1 call of decimal Q6 and Q1 and the K3 call of the sum held
+     against the plain version (`decimal_path_checks`); decimal128 and
+     decimal256 arithmetic, compares and a sort on random full-width
+     limbs against Python integers, and FLOAT16, fixed_size_binary(12)
+     and INT96 files scanned on the card (`limb_checks`);
+  12. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 11 and, of phase 9, all but
-the three queries and K2's timings, and holds no call of phase 10
-against the plain version: a run that times every path and
+With --timing-only it skips phases 3 and 12 and, of phase 9, all but
+the three queries and K2's timings, and holds no call of phases 10 and
+11 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8, 9 and 10 run only in a tree that has their entry
+there). Phases 8 to 11 run only in a tree that has their entry
 points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
@@ -88,6 +105,7 @@ Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 from __future__ import annotations
 
 import argparse
+import decimal
 import importlib.util
 import io
 import json
@@ -1428,10 +1446,12 @@ def check_scan(dbs: dict, sources: dict, types=None) -> None:
                 raise AssertionError(f"scan {tname}.{name}: values differ")
 
 
-def time_scan(blobs: dict, dev, sources: dict, types=None) -> dict:
+def time_scan(blobs: dict, dev, sources: dict, types=None,
+              check=None) -> dict:
     """Three scans of every column of both files, the first checked
-    against the numpy sources: each run's ms, and the median run's
-    host-parse / host-to-device / device-decode split."""
+    against the numpy sources (by `check`, check_scan unless named):
+    each run's ms, and the median run's host-parse / host-to-device /
+    device-decode split."""
     runs = []
     for i in range(3):
         phases = {}
@@ -1441,7 +1461,7 @@ def time_scan(blobs: dict, dev, sources: dict, types=None) -> dict:
         torch.cuda.synchronize()
         runs.append(((time.perf_counter() - t) * 1e3, phases))
         if i == 0:
-            check_scan(dbs, sources, types)
+            (check or check_scan)(dbs, sources, types)
         del dbs
     med = sorted(runs, key=lambda r: r[0])[1]
     file_bytes = sum(len(b) for b in blobs.values())
@@ -2356,6 +2376,414 @@ def typed_phases(li, snappy: dict, dev, card: str,
             (q6_revenue(li_s), "sum"), (rev, "sum")])
     return {"launches": launches, "errs": errs}
 
+# ---------------------------------------------------------------------------
+# decimals: TPC-H's money columns as DECIMAL(15,2)
+# ---------------------------------------------------------------------------
+
+MONEY128 = dt.decimal128(15, 2) if hasattr(dt, "decimal128") else None
+MONEY64 = dt.decimal64(15, 2) if hasattr(dt, "decimal64") else None
+LIMB_ROWS = 1 << 20               # rows of the limb checks and small files
+
+
+def money_cents(li) -> dict:
+    """The decimal sources: the unscaled DECIMAL(15,2) values (cents) of
+    exactly the float columns the other phases use."""
+    return {"l_price": np.rint(li["l_price"] * 100).astype(np.int64),
+            "l_disc": np.rint(li["l_disc"] * 100).astype(np.int64),
+            "l_tax": np.rint(li["l_tax"] * 100).astype(np.int64),
+            "l_qty": li["l_qty"].astype(np.int64) * 100}
+
+
+def decimal_q6(li_d: DeviceBatch):
+    """TPC-H Q6 over DECIMAL money columns up to its SUM: the predicate
+    (Decimal literals for the discount range, an int quantity that the
+    decimal kernels scale), the DeviceBatch filter (K1, each limb a
+    payload) and l_price * l_disc as decimal128(31, 4)."""
+    c, cmp, both = li_d.column, pc.compare, pc.boolean_binary
+    mask = both("and", cmp("greater_equal", c("l_sdate"), Q6_DATE_LO),
+                cmp("less", c("l_sdate"), Q6_DATE_HI))
+    mask = both("and", mask, cmp("greater_equal", c("l_disc"),
+                                 decimal.Decimal("0.05")))
+    mask = both("and", mask, cmp("less_equal", c("l_disc"),
+                                 decimal.Decimal("0.07")))
+    mask = both("and", mask, cmp("less", c("l_qty"), Q6_QTY))
+    kept = pc.filter(project(li_d, ["l_price", "l_disc"]), mask)
+    return pc.arithmetic_binary("multiply", kept.column("l_price"),
+                                kept.column("l_disc"))
+
+
+def _limb_ints(col: DeviceColumn, n: int) -> tuple:
+    """(low limbs, high limbs) of a decimal128 column's rows [0, n) on
+    the host."""
+    v = col.values[:n].cpu().numpy()
+    return v[:, 0], v[:, 1]
+
+
+def check_limbs(what: str, col: DeviceColumn, want: np.ndarray) -> None:
+    """A decimal128 column whose values fit int64 equals `want` (int64)
+    exactly: the low limb is the value, the high limb its sign."""
+    lo, hi = _limb_ints(col, len(want))
+    if col.length != len(want):
+        raise AssertionError(f"{what}: {col.length} rows, numpy "
+                             f"{len(want)}")
+    _equal(f"{what} low limbs", lo, want)
+    _equal(f"{what} high limbs", hi, want >> 63)
+
+
+def decimal_q6_check(cents, keep):
+    want = cents["l_price"][keep] * cents["l_disc"][keep]
+
+    def check(rev):
+        if str(rev.type) != "decimal128(31, 4)":
+            raise AssertionError(f"decimal Q6: product type {rev.type}")
+        check_limbs("decimal Q6 l_price * l_disc", rev, want)
+    return check, want
+
+
+def disc_price(li_d: DeviceBatch):
+    """Q1's l_price * (1 - l_disc) on decimal128: a scaled int scalar, a
+    subtract and a limb multiply over every row."""
+    return pc.arithmetic_binary("multiply", li_d.column("l_price"),
+                                pc.arithmetic_binary(
+                                    "subtract", 1, li_d.column("l_disc")))
+
+
+DEC_Q1_AGGS = [(c, a) for c in ("l_qty", "l_price", "l_disc", "l_tax")
+               for a in ("sum", "min", "max", "count")]
+
+
+def decimal_q1(li_i: DeviceBatch) -> HostBatch:
+    """Q1's sums, minima, maxima and counts of the decimal64 money
+    columns by (l_rflag, l_lstatus), over every row."""
+    return pc.group_by(li_i, ["l_rflag", "l_lstatus"], DEC_Q1_AGGS)
+
+
+def decimal_q1_oracle(li, cents) -> dict:
+    """Exact int64 sums, minima, maxima and counts by group, keyed by the
+    (l_rflag, l_lstatus) strings."""
+    rcode, rvals = li["l_rflag"]
+    scode, svals = li["l_lstatus"]
+    key = rcode.astype(np.int64) * len(svals) + scode
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    starts = np.flatnonzero(np.r_[True, skey[1:] != skey[:-1]])
+    out = {}
+    for k0, a, b in zip(skey[starts], starts, np.r_[starts[1:],
+                                                    len(skey)]):
+        out[(rvals[k0 // len(svals)], svals[k0 % len(svals)])] = {
+            "count": int(b - a)}
+    for c in ("l_qty", "l_price", "l_disc", "l_tax"):
+        v = cents[c][order]
+        for fn, name in ((np.add, "sum"), (np.minimum, "min"),
+                         (np.maximum, "max")):
+            red = fn.reduceat(v, starts)
+            for (key_, got), x in zip(out.items(), red):
+                got[f"{c}_{name}"] = int(x)
+    return out
+
+
+def check_decimal_q1(out: HostBatch, want: dict) -> None:
+    got = out.to_pydict()
+    if out.num_rows != len(want):
+        raise AssertionError(f"decimal Q1: {out.num_rows} groups, numpy "
+                             f"{len(want)}")
+    for r in range(out.num_rows):
+        w = want[(got["l_rflag"][r], got["l_lstatus"][r])]
+        for c, a in DEC_Q1_AGGS:
+            g = got[f"{c}_{a}"][r]
+            if a == "count":
+                ok = g == w["count"]
+            else:
+                ok = type(g).__name__ == "Decimal" and g.as_tuple()[2] == -2 \
+                    and g == decimal.Decimal(w[f"{c}_{a}"]).scaleb(-2)
+            if not ok:
+                raise AssertionError(f"decimal Q1 {c}_{a} row {r}: {g!r}, "
+                                     f"numpy {w}")
+
+
+def check_decimal_scan(dbs: dict, sources: dict, types=None) -> None:
+    """Every scanned column equals its source over [0, n): a decimal128
+    column by its limbs (the cents sign-extended), a decimal64 or
+    date32 column bit for bit, a string column by codes and dictionary;
+    every column has its written type."""
+    for tname, db in dbs.items():
+        plain = {}
+        for name, want in sources[tname].items():
+            c = db.column(name)
+            if c.type != types[tname].get(name, c.type):
+                raise AssertionError(f"scan {tname}.{name}: type {c.type}")
+            if c.type.is_decimal and c.type.limbs:
+                check_limbs(f"scan {tname}.{name}", c, want)
+            else:
+                plain[name] = want
+        check_scan({tname: project(db, list(plain))}, {tname: plain})
+
+
+def _random_limbs(rng, n: int, k: int) -> np.ndarray:
+    a = rng.integers(0, 2**64, (n, k), dtype=np.uint64, endpoint=False)
+    special = np.array([0, 1, 2**64 - 1, 2**63, 2**63 - 1, 2**32],
+                       np.uint64)
+    a[:4096] = special[rng.integers(0, len(special), (4096, k))]
+    return a.view(np.int64)
+
+
+def limb_checks(dev) -> dict:
+    """decimal128 and decimal256 add, subtract, multiply, the six
+    compares and an ascending sort with nulls over LIMB_ROWS rows of
+    random full-width limbs, each held against Python integers mod
+    2**128 / 2**256; then FLOAT16, fixed_size_binary(12) and INT96 files
+    of LIMB_ROWS rows scanned on the card against numpy."""
+    from arrow_go_tpu_torch.ops import decimal as tdec
+    rng = np.random.default_rng(21)
+    n = LIMB_ROWS
+    P = agt.pad_length(n)
+    out = {}
+    for t in (dt.decimal128(38, 2), dt.decimal256(76, 2)):
+        k, M = t.limbs, 1 << (64 * t.limbs)
+        a, b = _random_limbs(rng, n, k), _random_limbs(rng, n, k)
+        b[:1000] = a[:1000]
+        mask = rng.random(n) < 0.9
+        words = bitmap.pack_mask(torch.from_numpy(np.pad(
+            mask, (0, P - n))).to(dev))
+
+        def col(x):
+            v = np.zeros((P, k), np.int64)
+            v[:n] = x
+            return DeviceColumn(torch.from_numpy(v).to(dev), words, n, t)
+        ca, cb = col(a), col(b)
+        ia, ib = tdec.to_ints(a), tdec.to_ints(b)
+        ms = {}
+        for op, fn in (("add", lambda x, y: (x + y) % M),
+                       ("subtract", lambda x, y: (x - y) % M),
+                       ("multiply", lambda x, y: (x * y) % M)):
+            res, ms[op] = _sync_ms(lambda: pc.arithmetic_binary(op, ca, cb))
+            got = tdec.to_ints(res.values[:n].cpu().numpy()) % M
+            if not np.array_equal(got[mask], fn(ia, ib)[mask]):
+                raise AssertionError(f"{t} {op} differs from Python ints")
+        for op, fn in (("equal", np.equal), ("not_equal", np.not_equal),
+                       ("less", np.less), ("less_equal", np.less_equal),
+                       ("greater", np.greater),
+                       ("greater_equal", np.greater_equal)):
+            res, ms[op] = _sync_ms(lambda: pc.compare(op, ca, cb))
+            got = res.values[:n].cpu().numpy()
+            if not np.array_equal(got[mask], fn(ia, ib).astype(bool)[mask]):
+                raise AssertionError(f"{t} {op} differs from Python ints")
+        perm, ms["sort"] = _sync_ms(lambda: pc.sort_indices(ca))
+        # valid rows by value, then the null rows, which (as in the JAX
+        # package) keep sorting by the values they hold
+        live, dead = np.flatnonzero(mask), np.flatnonzero(~mask)
+        want = np.concatenate([live[np.argsort(ia[live], kind="stable")],
+                               dead[np.argsort(ia[dead], kind="stable")]])
+        _equal(f"{t} sort_indices", perm.values[:n].cpu().numpy(), want)
+        out[str(t)] = {"rows": n, "ms": ms}
+        del ca, cb, res, perm
+    out["files"] = fixed_files(rng, dev)
+    return out
+
+
+def fixed_files(rng, dev) -> dict:
+    """FLOAT16, fixed_size_binary(12) and INT96 columns of LIMB_ROWS rows
+    (with nulls), written SNAPPY by the port's writer and scanned on the
+    card: float16 bit for bit, the binary rows through their codes and
+    dictionary, the INT96 rows as their ns timestamps."""
+    n = LIMB_ROWS
+    mask = rng.random(n) < 0.9
+    h = rng.standard_normal(n).astype(np.float16)
+    fsb = rng.integers(0, 4, (n, 12)).astype(np.uint8)
+    ts = rng.integers(-4 * 10**18, 4 * 10**18, n)
+    buf = io.BytesIO()
+    tpq.write_table({"h": h, "f": fsb, "t": ts}, buf,
+                    masks={"h": mask, "f": mask, "t": mask},
+                    types={"h": dt.float16, "f": dt.fixed_size_binary(12),
+                           "t": dt.timestamp("ns")},
+                    compression="snappy", data_page_size=1 << 20,
+                    int96_timestamps=True)
+    blob = buf.getvalue()
+    times = {}
+    db, ms = _sync_ms(lambda: scan_parquet(blob, device=dev, times=times))
+    valid = db.column("h").validity_mask()[:n].cpu().numpy()
+    _equal("FLOAT16 validity", valid, mask)
+    _equal("FLOAT16 scan", _host(db.column("h"))[mask], h[mask])
+    _equal("INT96 scan", _host(db.column("t"))[mask], ts[mask])
+    f = db.column("f")
+    rows = np.frombuffer(b"".join(f.dictionary), np.uint8).reshape(-1, 12)
+    _equal("fixed_size_binary scan", rows[_host(f)][mask], fsb[mask])
+    encs = {c.meta_data.path_in_schema[0]: [
+        tpq.format.Encoding(e).name for e in c.meta_data.encodings]
+        for c in tpq.ParquetFile(blob).metadata.row_groups[0].columns}
+    return {"rows": n, "file_bytes": len(blob), "scan_ms": ms,
+            "split_ms": {k[:-2] + "_ms": v * 1e3 for k, v in times.items()},
+            "encodings": encs, "fixed_size_binary_distinct":
+            len(f.dictionary), "verified": True}
+
+
+def data_page_encodings(blob: bytes) -> dict:
+    """Each column's data pages counted by encoding: a FLBA chunk whose
+    dictionary passed its limit shows RLE_DICTIONARY pages, then
+    PLAIN ones."""
+    from arrow_go_tpu_torch.parquet.device_read import _iter_pages
+    pf = tpq.ParquetFile(blob)
+    out = {}
+    for c in pf.metadata.row_groups[0].columns:
+        kinds = []
+        for hdr, _ in _iter_pages(pf, c):
+            if hdr.data_page_header is not None:
+                kinds.append(tpq.format.Encoding(
+                    hdr.data_page_header.encoding).name)
+        out[c.meta_data.path_in_schema[0]] = {
+            k: kinds.count(k) for k in dict.fromkeys(kinds)}
+        out[c.meta_data.path_in_schema[0]]["order"] = list(
+            dict.fromkeys(kinds))
+    return out
+
+
+def decimal_phases(li, dev, card: str, q6_count: int,
+                   timing_only: bool = False) -> dict:
+    """This slice's paths at the scale of `li`: the two decimal files
+    (FLBA decimal128 and INT64 decimal64) scanned and held bit for bit
+    against their sources; decimal Q6 from the FLBA bytes; Q1's
+    disc_price over every row; Q1's sums, minima, maxima and counts on
+    decimal64; agg_sum of decimal64 l_price (K3); the decimal128
+    descending sort; the limb checks and the small FLOAT16 /
+    fixed_size_binary / INT96 files. Every K1 call of decimal Q6 and
+    decimal Q1 and the K3 call of the decimal sum are held against the
+    plain version (not with `timing_only`). Returns each path's launch
+    counts and the largest kernel - plain difference."""
+    cents = money_cents(li)
+    n = len(cents["l_price"])
+    t0 = time.perf_counter()
+    flba = write_parquet({"l_sdate": li["l_sdate"], "l_qty": cents["l_qty"],
+                          "l_price": cents["l_price"],
+                          "l_disc": cents["l_disc"]}, "snappy",
+                         types={"l_sdate": dt.date32, "l_qty": MONEY128,
+                                "l_price": MONEY128, "l_disc": MONEY128})
+    flba_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int64 = write_parquet({"l_rflag": li["l_rflag"],
+                           "l_lstatus": li["l_lstatus"],
+                           **{c: cents[c] for c in ("l_qty", "l_price",
+                                                    "l_disc", "l_tax")}},
+                          "snappy", types={c: MONEY64 for c in (
+                              "l_qty", "l_price", "l_disc", "l_tax")})
+    int64_s = time.perf_counter() - t0
+    blobs = {"flba": flba, "int64": int64}
+    encodings = {}
+    for fname, blob in blobs.items():
+        pf = tpq.ParquetFile(blob)
+        for c in pf.metadata.row_groups[0].columns:
+            encodings[f"{fname}.{c.meta_data.path_in_schema[0]}"] = [
+                tpq.format.Encoding(e).name for e in c.meta_data.encodings]
+    print(json.dumps({"decimal_pages": data_page_encodings(flba)}),
+          flush=True)
+    sources = {"flba": {"l_sdate": li["l_sdate"], "l_qty": cents["l_qty"],
+                        "l_price": cents["l_price"],
+                        "l_disc": cents["l_disc"]},
+               "int64": {"l_rflag": li["l_rflag"],
+                         "l_lstatus": li["l_lstatus"],
+                         **{c: cents[c] for c in ("l_qty", "l_price",
+                                                  "l_disc", "l_tax")}}}
+    types = {"flba": {"l_sdate": dt.date32, "l_qty": MONEY128,
+                      "l_price": MONEY128, "l_disc": MONEY128},
+             "int64": {c: MONEY64 for c in ("l_qty", "l_price", "l_disc",
+                                            "l_tax")}}
+    scan = time_scan(blobs, dev, sources, types, check=check_decimal_scan)
+    print(json.dumps({"decimal_scan": {
+        **scan, "bytes": {k: len(b) for k, b in blobs.items()},
+        "write_s": {"flba": flba_s, "int64": int64_s},
+        "encodings": encodings, "card": card}}), flush=True)
+    print(json.dumps({"decimal_scan_profile": profile_device(
+        lambda: [scan_parquet(b, device=dev) for b in blobs.values()],
+        lambda dbs: None, top=10)}), flush=True)
+
+    launches, held, runs = {}, {}, {}
+    keep = ((li["l_sdate"] >= Q6_DATE_LO) & (li["l_sdate"] < Q6_DATE_HI)
+            & (cents["l_disc"] >= 5) & (cents["l_disc"] <= 7)
+            & (cents["l_qty"] < Q6_QTY * 100))
+    if int(keep.sum()) != q6_count:
+        raise AssertionError(f"decimal Q6 keeps {int(keep.sum())} rows, "
+                             f"the int Q6 {q6_count}")
+    q6_check, q6_want = decimal_q6_check(cents, keep)
+    q6_cols = ["l_sdate", "l_qty", "l_price", "l_disc"]
+
+    def q6_from_bytes():
+        return decimal_q6(scan_parquet(flba, q6_cols, dev))
+    li_d = scan_parquet(flba, None, dev)
+    li_i = scan_parquet(int64, None, dev)
+    price64 = li_i.column("l_price")
+    dp_want = cents["l_price"] * (100 - cents["l_disc"])
+    q1_want = decimal_q1_oracle(li, cents)
+    sort_want = np.argsort(-cents["l_price"], kind="stable")
+    price128 = li_d.column("l_price")
+
+    def check_sum(x):
+        if x != int(cents["l_price"].sum()):
+            raise AssertionError(f"decimal64 agg_sum(l_price) {x!r}")
+
+    def check_disc_price(col):
+        if str(col.type) != "decimal128(32, 4)":
+            raise AssertionError(f"disc_price type {col.type}")
+        check_limbs("disc_price", col, dp_want)
+
+    def check_sort(perm):
+        _equal("decimal128 sort_indices descending",
+               perm.values[:n].cpu().numpy(), sort_want)
+    paths = (
+        ("decimal Q6", "decimal_q6", q6_from_bytes, q6_check, ("K1",)),
+        ("disc_price", "disc_price", lambda: disc_price(li_d),
+         check_disc_price, ()),
+        ("decimal Q1", "decimal_q1", lambda: decimal_q1(li_i),
+         lambda out: check_decimal_q1(out, q1_want), ("K1",)),
+        ("decimal sum", "decimal_sum", lambda: pc.agg_sum(price64),
+         check_sum, ("K3",)),
+        ("decimal sort", "decimal_sort", lambda: pc.sort_indices(
+            price128, order="descending"), check_sort, ()))
+    for name, key, run, check, needs in paths:
+        out, launches[name] = run_path(name, run, needs)
+        check(out)
+        if not timing_only and "K1" in needs:
+            out, held[key] = check_path_calls(key, run, launches[name])
+            check(out)
+        outs, runs[key] = timed(run)
+        for out in outs:
+            check(out)
+        del outs, out
+
+    def line(key, name, **extra):
+        print(json.dumps({key: {
+            **extra, "ms_runs": runs[key],
+            "ms_median": float(np.median(runs[key])),
+            "launches_per_run": launches[name], "card": card,
+            "verified": True}}), flush=True)
+    rev = decimal_q6(li_d)
+    revenue = int(_limb_ints(rev, rev.length)[0].sum())
+    if revenue != int(q6_want.sum()):
+        raise AssertionError(f"decimal Q6 revenue {revenue}")
+    outs, compute_runs = timed(lambda: decimal_q6(li_d))
+    for out in outs:
+        q6_check(out)
+    line("decimal_q6", "decimal Q6", rows=rev.length,
+         revenue=str(decimal.Decimal(revenue).scaleb(-4)), product_type=str(
+             rev.type), from_bytes=True, compute_ms_runs=compute_runs,
+         compute_ms_median=float(np.median(compute_runs)))
+    del rev, outs, out
+    line("disc_price", "disc_price", rows=n, type="decimal128(32, 4)",
+         profile=profile_device(lambda: disc_price(li_d), check_disc_price,
+                                top=6))
+    line("decimal_q1", "decimal Q1", groups=len(q1_want),
+         result={f"{r}|{s}": v for (r, s), v in q1_want.items()})
+    line("decimal_sum", "decimal sum", rows=n,
+         unscaled=int(cents["l_price"].sum()))
+    line("decimal_sort", "decimal sort", rows=n, order="descending")
+    errs = {"K1": 0.0, "K3": 0.0}
+    if not timing_only:
+        print(json.dumps({"decimal_path_checks": held}), flush=True)
+        errs["K1"] = max(h["K1"]["max_abs_err"] for h in held.values())
+        errs["K3"] = check_k3_at("decimal sum", [(price64, "sum")])
+    del li_d, li_i, price64, price128
+    print(json.dumps({"limb_checks": {**limb_checks(dev), "card": card,
+                                      "verified": True}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -2533,6 +2961,9 @@ def main(argv=None) -> int:
             join_phases(li, orders, dev, q1["snappy"], card, timing_only=True)
         if typed:
             typed_phases(li, q1["snappy"], dev, card, timing_only=True)
+        if typed and MONEY128 is not None:
+            decimal_phases(li, dev, card, q6_want["count"],
+                           timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -2541,11 +2972,15 @@ def main(argv=None) -> int:
     types = typed_phases(li, q1["snappy"], dev, card)
     k1_err = max(k1_err, types["errs"]["K1"])
     k3_err = max(k3_err, types["errs"]["K3"])
+    decs = decimal_phases(li, dev, card, q6_want["count"])
+    k1_err = max(k1_err, decs["errs"]["K1"])
+    k3_err = max(k3_err, decs["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
-               **joins["launches"], **types["launches"]}
+               **joins["launches"], **types["launches"],
+               **decs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

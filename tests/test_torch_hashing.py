@@ -1,6 +1,7 @@
 """ops/hashing.py of the port against the JAX package, on the CPU:
 `hash32` bit for bit for every fixed-width dtype (NaN payloads, +-0.0,
-infinities and denormals included), `hash_combine`, the
+infinities and denormals included) and for uint16 / uint32 columns in
+the port's signed storage, `hash_combine`, the
 first-occurrence `encode_codes` (codes, distinct count, null tracking,
 first_index) and `value_counts_from_codes`."""
 import numpy as np
@@ -51,6 +52,21 @@ def test_hash32_bit_identical_to_jax(rng, dtype):
         nan = np.isnan(v)
         assert len(set(got.numpy()[nan].tolist())) == 1
         assert got[4] == got[5]
+
+
+@pytest.mark.parametrize("name", ["uint16", "uint32"])
+def test_hash32_of_unsigned_storage_matches_jax(rng, name):
+    """A uint16 or uint32 column lives in int16 or int32 storage; its
+    hash zero-extends the bits, as the JAX package's uint32 cast does
+    (65535 hashes as 0x0000ffff, not as a sign-extended -1)."""
+    t = tdt.type_for_name(name)
+    edges = [0, 1, 2**15, 2**16 - 1, 2**31, 2**32 - 1]
+    v = np.array([e for e in edges if e < 1 << t.bit_width]
+                 + rng.integers(0, 1 << t.bit_width, 500).tolist(),
+                 t.np_dtype)
+    want = np.asarray(jhashing.hash32(jnp.asarray(v))).astype(np.int64)
+    stored = torch.from_numpy(v.view(f"i{v.itemsize}"))
+    np.testing.assert_array_equal(hashing.hash32(stored, t).numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", ["int32", "int64", "float64"])

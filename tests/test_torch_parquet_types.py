@@ -100,6 +100,12 @@ def test_port_writer_round_trips_through_the_jax_reader():
 
 @pytest.mark.parametrize("annotation", ["DECIMAL", "FLOAT16"])
 def test_decimal_and_float16_columns_raise(annotation):
+    """An INT32 leaf annotated DECIMAL(9, 2) reads as decimal32(9, 2), as
+    the JAX package maps it (the decimal slice ported it); a FLOAT16
+    annotation on INT32, which no writer gives (FLOAT16 annotates a
+    2-byte FIXED_LEN_BYTE_ARRAY), still raises."""
+    from arrow_go_tpu.parquet import format as jfmt
+    from arrow_go_tpu.parquet import schema as jpsch
     from arrow_go_tpu_torch.parquet import format as fmt
     from arrow_go_tpu_torch.parquet import schema as psch
     lt = fmt.LogicalType(DECIMAL=fmt.DecimalLType(scale=2, precision=9)) \
@@ -107,9 +113,19 @@ def test_decimal_and_float16_columns_raise(annotation):
             FLOAT16=fmt.Float16LType())
     el = fmt.SchemaElement(name="x", type=int(fmt.Type.INT32),
                            repetition_type=0, logicalType=lt)
-    with pytest.raises(pc.ArrowNotImplemented):
-        psch.elements_to_schema([fmt.SchemaElement(name="schema",
-                                                   num_children=1), el])
+    root = fmt.SchemaElement(name="schema", num_children=1)
+    if annotation == "FLOAT16":
+        with pytest.raises(pc.ArrowNotImplemented):
+            psch.elements_to_schema([root, el])
+        return
+    jlt = jfmt.LogicalType(DECIMAL=jfmt.DecimalLType(scale=2, precision=9))
+    jel = jfmt.SchemaElement(name="x", type=int(jfmt.Type.INT32),
+                             repetition_type=0, logicalType=jlt)
+    jschema, _ = jpsch.elements_to_schema(
+        [jfmt.SchemaElement(name="schema", num_children=1), jel])
+    schema, _ = psch.elements_to_schema([root, el])
+    assert str(schema.field(0).type) == str(jschema.field(0).type) == \
+        "decimal32(9, 2)"
 
 
 # the slice as a whole: TPC-H Q6 on a DATE l_sdate, and the revenue by

@@ -26,16 +26,16 @@ from torch_parity import jax_batch, jax_type, port_batch
 jcast = importlib.import_module("arrow_go_tpu.compute.cast")
 
 # JAX names whose functions the port does not have yet: casts to types
-# it does not carry (decimals, lists, structs, views, large and
-# fixed-size binaries, intervals, dictionaries, extensions), the struct
-# results (value_counts, make_struct), run-end encoding and sort.
+# it does not carry (lists, structs, views, large and fixed-size
+# binaries, intervals, dictionaries, extensions), the struct results
+# (value_counts, make_struct), run-end encoding and sort.
 MISSING = {
-    "cast_binary_view", "cast_decimal", "cast_decimal256",
-    "cast_dictionary", "cast_extension", "cast_fixed_size_list",
-    "cast_fixed_sized_binary", "cast_large_binary", "cast_large_list",
-    "cast_large_string", "cast_list", "cast_month_day_nano_interval",
-    "cast_string_view", "cast_struct", "make_struct", "run_end_decode",
-    "run_end_encode", "sort", "value_counts"}
+    "cast_binary_view", "cast_dictionary", "cast_extension",
+    "cast_fixed_size_list", "cast_fixed_sized_binary", "cast_large_binary",
+    "cast_large_list", "cast_large_string", "cast_list",
+    "cast_month_day_nano_interval", "cast_string_view", "cast_struct",
+    "make_struct", "run_end_decode", "run_end_encode", "sort",
+    "value_counts"}
 
 PORT_NAMES = registry.default_registry().function_names()
 N = 96
@@ -63,6 +63,8 @@ def _data():
         "d": (rng.integers(-800, 20_000, N).astype(np.int32), mask,
               dt.date32),
         "idx": (rng.integers(0, N, N), None, dt.int64),
+        "m": (np.array([f"{x / 1000:.3f}" for x in rng.integers(
+            -10**9, 10**9, N)], dtype=object), mask, dt.string),
     }
 
 
@@ -117,7 +119,12 @@ def _case(name: str):
         to = CAST_TARGETS[base] or {
             "cast_time32": dt.time32("s"), "cast_time64": dt.time64("us"),
             "cast_timestamp": dt.timestamp("ms"),
-            "cast_duration": dt.duration("s")}[base]
+            "cast_duration": dt.duration("s"),
+            "cast_decimal": dt.decimal128(20, 3),
+            "cast_decimal256": dt.decimal256(50, 3)}[base]
+        if to.is_decimal:       # the one decimal cast: from strings
+            return (["m_host"], {"to_type": jax_type(to)},
+                    {"to_type": to})
         return (["f" if to.is_numeric or to == dt.bool_ else "i"],
                 {"to_type": jax_type(to),
                  "options": jcast.CastOptions.unsafe()},
@@ -159,7 +166,14 @@ def _args(spec, host_first: bool):
         key, nonnull = a.split("_")[0], a.endswith("_nonnull")
         v, mask, t = DATA[key]
         mask = None if nonnull else mask
-        if host_first and k == 0 or a.endswith("_host"):
+        if t == dt.string:              # decimal strings, as host arrays
+            from arrow_go_tpu_torch.device.block import factorize
+            codes, dictionary = factorize(v, mask)
+            jargs.append(agt.array([x if ok else None
+                                    for x, ok in zip(v.tolist(), mask)]))
+            targs.append(HostArray(codes, mask, dt.dictionary(dt.int32, t),
+                                   dictionary))
+        elif host_first and k == 0 or a.endswith("_host"):
             jargs.append(agt.from_numpy(v, mask, jax_type(t)))
             targs.append(HostArray(v, mask, t))
         else:
@@ -206,6 +220,10 @@ def _same(got, want, rtol=None) -> None:
             _same(got[k], want[k])
         return
     if isinstance(got, HostArray):
+        if got.type.is_decimal:
+            assert str(got.type) == str(want.type)
+            assert got.to_pylist() == want.to_pylist()
+            return
         if got.dictionary is not None:
             assert got.to_pylist() == want.to_pylist()
             return

@@ -49,6 +49,10 @@ def port_type(jt):
 def jax_type(t):
     """The JAX package's type of a port type."""
     from arrow_go_tpu import dtypes as jdt
+    if t.is_decimal:
+        return getattr(jdt, t.name)(t.precision, t.scale)
+    if t.id == agt_torch.dtypes.TypeId.FIXED_SIZE_BINARY:
+        return jdt.fixed_size_binary(t.byte_width)
     if t.id == agt_torch.dtypes.TypeId.TIMESTAMP:
         return jdt.timestamp(str(t.unit), t.tz)
     if hasattr(t, "unit"):
