@@ -1,9 +1,11 @@
 """The port's host codec library: csrc/codecs.cc, built with g++.
 
-Snappy and LZ4 raw (compress, decompress) and the header walks of the
-RLE/bit-packed hybrid and of DELTA_BINARY_PACKED streams, in C++ with a
-plain C interface loaded with ctypes. The library is built at its first
-use into `arrow_go_tpu_torch/build/`
+Snappy, LZ4 raw and zstd (compress, decompress), XXH64, the header walks
+of the RLE/bit-packed hybrid and of DELTA_BINARY_PACKED streams, and the
+byte-array walks of string pages (PLAIN, the DELTA lengths and prefixes
+decoded in full, DELTA_BYTE_ARRAY rebuilt row by row, a first-occurrence
+memo table), in C++ with a plain C interface loaded with ctypes. The
+library is built at its first use into `arrow_go_tpu_torch/build/`
 (beside the CUDA kernels, ignored by git), named by a hash of the source
 and the flags, so an unchanged source is reused. Nothing is built when
 the package is imported.
@@ -48,6 +50,18 @@ _SIGNATURES = {
                              _P, _P, _P]),
     "agt_delta_parse": (_I64, [_P, _SIZE, _SIZE, _I64, _I64, _I64, _I64,
                                _P, _P, _P, _P, _P]),
+    "agt_xxh64": (ctypes.c_uint64, [_P, _SIZE, ctypes.c_uint64]),
+    "agt_zstd_decompress": (_I64, [_P, _SIZE, _P, _SIZE]),
+    "agt_zstd_compress_bound": (_SIZE, [_SIZE]),
+    "agt_zstd_compress": (_I64, [_P, _SIZE, _P, _SIZE, ctypes.c_int32]),
+    "agt_plain_byte_array": (_I64, [_P, _SIZE, _I64, _P, _P, _SIZE]),
+    "agt_delta_decode": (_I64, [_P, _SIZE, _I64, _P, _P]),
+    "agt_delta_byte_array_rebuild": (_I64, [_P, _P, _P, _I64, _P, _P,
+                                            _SIZE]),
+    "agt_rle_decode": (_I64, [_P, _SIZE, _I64, ctypes.c_int32, _P]),
+    "agt_gather_rows": (None, [_P, _P, _P, _I64, _P]),
+    "agt_factorize": (_I64, [_P, _P, _I64, _P, _P]),
+    "agt_xxh64_rows": (None, [_P, _P, _I64, _P]),
 }
 
 
@@ -184,3 +198,169 @@ def delta_parse(data, pos: int, total: int, values_per_miniblock: int,
     if rows < 0:
         raise ArrowInvalid("DELTA_BINARY_PACKED stream ends early")
     return starts[:rows], bit0[:rows], width[:rows], mins[:rows]
+
+
+# ---------------------------------------------------------------------------
+# XXH64 and zstd
+# ---------------------------------------------------------------------------
+
+_ZSTD_DICTIONARY, _ZSTD_TOO_SMALL = -2, -3
+
+
+def xxh64(data) -> int:
+    """XXH64 (seed 0) of a byte buffer: the parquet bloom filter's hash."""
+    src, ptr = _in(data)
+    return int(lib().agt_xxh64(ptr, len(src), 0))
+
+
+def xxh64_rows(ends: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """XXH64 (seed 0) of each row of (ends, data), as uint64."""
+    ends = np.ascontiguousarray(ends, np.int64)
+    data = np.ascontiguousarray(data, np.uint8)
+    out = np.empty(max(len(ends), 1), np.uint64)
+    lib().agt_xxh64_rows(data.ctypes.data, ends.ctypes.data, len(ends),
+                         out.ctypes.data)
+    return out[:len(ends)]
+
+
+def zstd_compress(data, level: int = 3) -> memoryview:
+    """One zstd frame (RFC 8878) of `data`: content size in the header,
+    greedy hash-chain matches searched deeper as `level` rises, raw
+    literals and sequences in the predefined FSE mode."""
+    lb = lib()
+    src, ptr = _in(data)
+    cap = lb.agt_zstd_compress_bound(len(src))
+    out = np.empty(cap, np.uint8)
+    n = lb.agt_zstd_compress(ptr, len(src), out.ctypes.data, cap,
+                             int(level))
+    if n < 0:
+        raise ArrowInvalid(f"zstd compression of {len(src)} bytes failed")
+    return memoryview(out)[:n]
+
+
+def zstd_decompress(data, uncompressed_size: int) -> memoryview:
+    """Every frame of a zstd stream (skippable frames skipped), whose
+    content must be `uncompressed_size` bytes. A corrupt or truncated
+    stream, a failed checksum or another size raises ArrowInvalid; a
+    frame that names a dictionary ArrowNotImplemented."""
+    src, ptr = _in(data)
+    out = np.empty(max(uncompressed_size, 1), np.uint8)
+    n = lib().agt_zstd_decompress(ptr, len(src), out.ctypes.data,
+                                  uncompressed_size)
+    if n == _ZSTD_DICTIONARY:
+        raise ArrowNotImplemented("zstd frames with a dictionary are not "
+                                  "ported")
+    if n == _ZSTD_TOO_SMALL:
+        raise ArrowInvalid(f"zstd stream holds more than "
+                           f"{uncompressed_size} bytes")
+    if n < 0:
+        raise ArrowInvalid("corrupt zstd stream")
+    if n != uncompressed_size:
+        raise ArrowInvalid(f"zstd stream holds {n} bytes, not "
+                           f"{uncompressed_size}")
+    return memoryview(out)[:n]
+
+
+# ---------------------------------------------------------------------------
+# byte-array walks: a column of byte strings is (ends, data), value i the
+# bytes [ends[i - 1], ends[i]) of data (ends[-1] = 0)
+# ---------------------------------------------------------------------------
+
+def plain_byte_array(data, n: int):
+    """n PLAIN BYTE_ARRAY values -> (int64 ends, uint8 data, stream bytes
+    used). A stream that ends inside a value raises ArrowInvalid."""
+    src, ptr = _in(data)
+    ends = np.empty(max(n, 1), np.int64)
+    out = np.empty(max(len(src) - 4 * n, 1), np.uint8)
+    used = lib().agt_plain_byte_array(ptr, len(src), n, ends.ctypes.data,
+                                      out.ctypes.data, len(out))
+    if used < 0:
+        raise ArrowInvalid("PLAIN BYTE_ARRAY page ends inside a value")
+    total = int(ends[n - 1]) if n else 0
+    return ends[:n], out[:total], int(used)
+
+
+def delta_decode(data, max_count: int):
+    """A DELTA_BINARY_PACKED stream of at most `max_count` values decoded
+    in full on the host (widths up to 64 bits): (int64 values, stream
+    bytes used). A malformed or truncated stream, or one that holds more
+    values, raises ArrowInvalid."""
+    src, ptr = _in(data)
+    used = np.zeros(1, np.int64)
+    out = np.empty(max(max_count, 1), np.int64)
+    n = lib().agt_delta_decode(ptr, len(src), max_count, out.ctypes.data,
+                               used.ctypes.data)
+    if n == -2:
+        raise ArrowInvalid(f"DELTA_BINARY_PACKED stream holds more than "
+                           f"{max_count} values")
+    if n < 0:
+        raise ArrowInvalid("malformed DELTA_BINARY_PACKED stream")
+    return out[:n], int(used[0])
+
+
+def delta_byte_array_rebuild(prefix: np.ndarray, suffix_ends: np.ndarray,
+                             suffixes: np.ndarray):
+    """DELTA_BYTE_ARRAY rows from their prefix lengths and suffixes:
+    (int64 ends, uint8 data). A prefix longer than the value before it
+    raises ArrowInvalid."""
+    n = len(prefix)
+    prefix = np.ascontiguousarray(prefix, np.int64)
+    suffix_ends = np.ascontiguousarray(suffix_ends, np.int64)
+    suffixes = np.ascontiguousarray(suffixes, np.uint8)
+    if len(suffix_ends) != n:
+        raise ArrowInvalid(f"{n} prefix lengths for {len(suffix_ends)} "
+                           f"suffixes")
+    cap = int(prefix.sum()) + len(suffixes) if n else 0
+    if n and prefix.min() < 0:
+        raise ArrowInvalid("negative DELTA_BYTE_ARRAY prefix length")
+    ends = np.empty(max(n, 1), np.int64)
+    out = np.empty(max(cap, 1), np.uint8)
+    got = lib().agt_delta_byte_array_rebuild(
+        prefix.ctypes.data, suffix_ends.ctypes.data, suffixes.ctypes.data, n,
+        ends.ctypes.data, out.ctypes.data, cap)
+    if got < 0:
+        raise ArrowInvalid("DELTA_BYTE_ARRAY prefix passes the value "
+                           "before it")
+    return ends[:n], out[:got]
+
+
+def rle_decode(data, n: int, bit_width: int) -> np.ndarray:
+    """The n values of an RLE/bit-packed hybrid stream (bit_width <= 32)
+    on the host, as uint32. A stream that ends early raises
+    ArrowInvalid."""
+    src, ptr = _in(data)
+    out = np.empty(max(n, 1), np.uint32)
+    if lib().agt_rle_decode(ptr, len(src), n, bit_width,
+                            out.ctypes.data) != n:
+        raise ArrowInvalid("RLE/bit-packed stream ends early")
+    return out[:n]
+
+
+def gather_rows(ends: np.ndarray, data: np.ndarray, idx: np.ndarray):
+    """Rows idx of (ends, data) as a new (ends, data)."""
+    ends = np.ascontiguousarray(ends, np.int64)
+    data = np.ascontiguousarray(data, np.uint8)
+    idx = np.ascontiguousarray(idx, np.int32)
+    if len(idx) and (idx.min() < 0 or idx.max() >= len(ends)):
+        raise ArrowInvalid("row index outside the values")
+    lens = np.diff(ends, prepend=0)[idx]
+    out_ends = np.cumsum(lens, dtype=np.int64)
+    out = np.empty(max(int(out_ends[-1]) if len(idx) else 0, 1), np.uint8)
+    lib().agt_gather_rows(data.ctypes.data, ends.ctypes.data,
+                          idx.ctypes.data, len(idx), out.ctypes.data)
+    return out_ends, out[:int(out_ends[-1]) if len(idx) else 0]
+
+
+def factorize(ends: np.ndarray, data: np.ndarray):
+    """First-occurrence codes of the rows of (ends, data): (int32 codes,
+    int64 row of each distinct value's first appearance)."""
+    ends = np.ascontiguousarray(ends, np.int64)
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(ends)
+    codes = np.empty(max(n, 1), np.int32)
+    first = np.empty(max(n, 1), np.int64)
+    k = lib().agt_factorize(data.ctypes.data, ends.ctypes.data, n,
+                            codes.ctypes.data, first.ctypes.data)
+    if k < 0:
+        raise MemoryError("factorize memo table")
+    return codes[:n], first[:k]

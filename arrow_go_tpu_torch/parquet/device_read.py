@@ -30,13 +30,23 @@ ns; a fixed_size_binary column's rows become codes over its distinct
 rows, the JAX package's layout), encodings PLAIN /
 RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT /
 DELTA_BINARY_PACKED (INT32/INT64, miniblocks up to 32 bits wide), v1 and
-v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP and LZ4_RAW (the host
-decompresses; `times` splits its seconds out as "decompress_s", a part
-of "parse_s"). String and binary columns read as their dictionary codes
-(`codes_only` in the JAX package): a dictionary(int32, string) column of
-int32 codes on the device and the dictionary page's values on the host;
-a chunk with PLAIN (dictionary fallback) pages raises. Other encodings
-and codecs raise ArrowNotImplemented.
+v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP, LZ4_RAW and ZSTD (the
+host decompresses; `times` splits its seconds out as "decompress_s", a
+part of "parse_s"). String and binary columns read as their dictionary
+codes (`codes_only` in the JAX package): a dictionary(int32, string)
+column of int32 codes on the device and its values on the host. A chunk
+of dictionary pages only keeps its dictionary page's order and decodes
+its codes on the device. A chunk with any PLAIN, DELTA_LENGTH_BYTE_ARRAY
+or DELTA_BYTE_ARRAY page (a writer's dictionary fallback, whole or part
+way, or a writer without dictionaries) decodes on the host, in the codec
+library (native.py): its values, the dictionary page's rows that its
+dictionary-coded pages name among them, are numbered by first
+occurrence over the chunk's rows, a null row counting as the empty
+string (the codes and dictionary the JAX package's Scanner gives such a
+chunk: its host read, then batch_to_device's memo table); the codes
+stage as one int32 buffer and copy as the other columns do. `times`
+splits the seconds of that host decode out as "strings_s", a part of
+"parse_s". Other encodings and codecs raise ArrowNotImplemented.
 """
 from __future__ import annotations
 
@@ -50,7 +60,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from .. import torchenv
+from .. import native, torchenv
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import (DeviceBatch, DeviceColumn, dictionary_values,
                             pad_length)
@@ -135,6 +145,16 @@ class _Clock:
         self._sync()
         self.times[name] = self.times.get(name, 0.0) + (
             time.perf_counter() - t0)
+
+    @contextmanager
+    def strings(self):
+        """The host decode of a chunk of string pages: its seconds added
+        to "strings_s" (a host call: no sync)."""
+        t0 = time.perf_counter()
+        yield
+        if self.times is not None:
+            self.times["strings_s"] = self.times.get("strings_s", 0.0) + (
+                time.perf_counter() - t0)
 
     def decompress(self, codec: int, data, size: int):
         """comp.decompress, its seconds added to "decompress_s" (a host
@@ -354,6 +374,61 @@ def _fixed_rows(t: dt.DataType, phys: fmt.Type, type_length: int):
     return dd.FixedRows(type_length, lambda r: r)
 
 
+def _dictionary_from_rows(ends: np.ndarray, data: np.ndarray,
+                         t: dt.DataType) -> np.ndarray:
+    """The rows of (ends, data) as a dictionary's numpy object array: str
+    (UTF-8) for a string column, bytes for a binary one."""
+    raw = data.tobytes()
+    bounds = np.concatenate(([0], ends)).tolist()
+    if t == dt.string and raw.isascii():
+        text = raw.decode("ascii")
+        vals = [text[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    elif t == dt.string:
+        vals = [raw[a:b].decode() for a, b in zip(bounds[:-1], bounds[1:])]
+    else:
+        vals = [raw[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return out
+
+
+def _string_chunk_codes(splits, desc, dict_page):
+    """(int32 codes per row, dictionary) of a string chunk with any PLAIN
+    or DELTA byte-array page, on the host: every page's values as rows
+    (a dictionary-coded page's as the dictionary page's rows it names;
+    a null row empty), then one first-occurrence memo table over them."""
+    lens, parts = [], []
+    for nv, def_stream, vals_raw, encoding in splits:
+        present = None if def_stream is None else \
+            native.rle_decode(def_stream, nv, 1).astype(np.bool_)
+        n_present = nv if present is None else int(present.sum())
+        if encoding in _DICT_ENCODINGS and not n_present:
+            ends, data = np.zeros(0, np.int64), np.zeros(0, np.uint8)
+        elif encoding in _DICT_ENCODINGS:
+            if dict_page is None:
+                raise ArrowInvalid("dictionary page missing")
+            codes = native.rle_decode(vals_raw[1:], n_present, vals_raw[0])
+            if n_present and int(codes.max()) >= len(dict_page[0]):
+                raise ArrowInvalid("dictionary code past the dictionary")
+            ends, data = native.gather_rows(*dict_page, codes)
+        else:
+            ends, data = enc.byte_array_decode(encoding, vals_raw,
+                                               n_present)
+        page_lens = np.diff(ends, prepend=0)
+        if present is not None:
+            row_lens = np.zeros(nv, np.int64)
+            row_lens[present] = page_lens
+            page_lens = row_lens
+        lens.append(page_lens)
+        parts.append(data)
+    ends = np.cumsum(np.concatenate(lens) if lens else np.zeros(0, np.int64),
+                     dtype=np.int64)
+    data = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    codes, first = native.factorize(ends, data)
+    return codes, _dictionary_from_rows(
+        *native.gather_rows(ends, data, first), desc.arrow_type)
+
+
 def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
                  clock: _Clock) -> _Plan:
     li, desc = _leaf_of(pf, column)
@@ -369,6 +444,7 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
     host: Host = {}
     splits = []
     dictionary = None
+    dict_page = None           # a string dictionary page's (ends, data)
     dict_rows = 0
     for hdr, body in _iter_pages(pf, chunk):
         ptype = fmt.PageType(hdr.type)
@@ -381,18 +457,35 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
                 host["dict"] = stager.bytes([payload[:nvd * rows.width]])
                 dict_rows = nvd
                 continue
-            values = enc.plain_decode(desc.physical_type, payload, nvd)
             if codes_only:
                 # the values stay on the host; the codes index them
-                dictionary = dictionary_values(values, t)
+                dict_page = native.plain_byte_array(payload, nvd)[:2]
             else:
-                host["dict"] = stager.array(np.ascontiguousarray(values))
+                host["dict"] = stager.array(np.ascontiguousarray(
+                    enc.plain_decode(desc.physical_type, payload, nvd)))
             continue
         if ptype not in (fmt.PageType.DATA_PAGE, fmt.PageType.DATA_PAGE_V2):
             raise ArrowNotImplemented(f"page type {ptype.name}")
         splits.append(_split_page(hdr, body, desc, codec, clock))
-    has_dict = "dict" in host or dictionary is not None
+    has_dict = "dict" in host or dict_page is not None
     n = sum(s[0] for s in splits)
+    if codes_only and any(sp[3] not in _DICT_ENCODINGS for sp in splits):
+        with clock.strings():
+            codes, dictionary = _string_chunk_codes(splits, desc, dict_page)
+        host["codes"] = stager.array(codes)
+        defs = [(f"p{i}.def", sp[0], sp[1]) for i, sp in enumerate(splits)]
+        for key, nv, def_stream in defs:
+            if def_stream is not None:
+                _stage_rle(stager, host, key, def_stream, nv, 1)
+
+        def string_codes(d: Host) -> Decoded:
+            present = None if desc.max_def_level == 0 else torch.cat(
+                [_rle(d, key, 1, nv) == 1 for key, nv, _ in defs])
+            return d["codes"], present
+        return _Plan(host, string_codes, n, dt.dictionary(dt.int32, t),
+                     desc.max_def_level > 0, dictionary)
+    if dict_page is not None:
+        dictionary = _dictionary_from_rows(*dict_page, t)
     pages = [_plan_page(s, desc, np_dtype, has_dict, codes_only, stager,
                         host, f"p{i}.", rows)
              for i, s in enumerate(splits)]

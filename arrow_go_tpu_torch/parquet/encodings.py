@@ -1,23 +1,30 @@
-"""Parquet encodings on the host: PLAIN, the RLE/bit-packed hybrid and
-the DELTA_BINARY_PACKED encoder.
+"""Parquet encodings on the host: PLAIN, the RLE/bit-packed hybrid, the
+DELTA_BINARY_PACKED encoder and the byte-array encodings
+DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY.
 
 Port of the parts of arrow_go_tpu/parquet/encodings.py that the port's
-writer and the dictionary page read need (reference
-parquet/internal/encoding plain_encoding_types.go, delta_bit_packing.go,
-internal/utils/rle.go). Bit packing is vectorised numpy (the JAX package
-calls its native library for it). The hybrid encoder writes its
-bit-packed runs as Arrow's RleEncoder does: at most 512 values (64
-groups of 8) per run, so a run header fits one varint of two bytes, and
-constant runs of 8 or more values become RLE runs. The DELTA encoder
-writes the JAX package's bytes with numpy over all blocks at once, where
-the JAX encoder loops in Python over blocks and miniblocks.
+writer and the host decode of dictionary and string pages need
+(reference parquet/internal/encoding plain_encoding_types.go,
+delta_bit_packing.go, delta_length_byte_array.go, delta_byte_array.go,
+internal/utils/rle.go). A string page decodes in the host codec
+library (native.py) to (ends, data): value i is the bytes
+[ends[i - 1], ends[i]) of data. Bit packing is vectorised numpy (the
+JAX package calls its native library for it). The hybrid encoder
+writes its bit-packed runs as Arrow's RleEncoder does: at most 512
+values (64 groups of 8) per run, so a run header fits one varint of two
+bytes, and constant runs of 8 or more values become RLE runs. The DELTA
+encoder writes the JAX package's bytes with numpy over all blocks at
+once, where the JAX encoder loops in Python over blocks and miniblocks.
 """
 from __future__ import annotations
 
 import struct
+from typing import Tuple
 
 import numpy as np
 
+from .. import native
+from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from . import format as fmt
 
 _PHYS_NP = {
@@ -49,18 +56,6 @@ def _byte_array_encode(values) -> bytes:
     return out.tobytes()
 
 
-def _byte_array_decode(data, n: int) -> list:
-    """PLAIN BYTE_ARRAY -> n bytes objects (a sequential walk: each
-    value's position follows from the lengths before it)."""
-    mv = memoryview(data)
-    out, pos = [], 0
-    for _ in range(n):
-        (ln,) = struct.unpack_from("<I", mv, pos)
-        out.append(bytes(mv[pos + 4:pos + 4 + ln]))
-        pos += 4 + ln
-    return out
-
-
 def plain_encode(phys: fmt.Type, values) -> bytes:
     if phys in _PHYS_NP:
         return np.ascontiguousarray(values, dtype=_PHYS_NP[phys]).tobytes()
@@ -83,7 +78,10 @@ def plain_decode(phys: fmt.Type, data, n: int):
         return np.unpackbits(np.frombuffer(data, dtype=np.uint8),
                              bitorder="little")[:n].astype(np.bool_)
     if phys == fmt.Type.BYTE_ARRAY:
-        return _byte_array_decode(data, n)
+        ends, body = byte_array_decode(fmt.Encoding.PLAIN, data, n)
+        raw = body.tobytes()
+        return [raw[a:b] for a, b in zip([0] + ends[:-1].tolist(),
+                                         ends.tolist())]
     raise NotImplementedError(phys)
 
 
@@ -287,3 +285,104 @@ def delta_binary_packed_encode(values, block_size: int = 128,
         out[mb_off[idx][:, None] + np.arange(nbytes)] = body.reshape(
             len(idx), nbytes)
     return out.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# byte-array encodings (arrow_go_tpu/parquet/encodings.py:307-328,392-414)
+# ---------------------------------------------------------------------------
+
+def _ends_data(values) -> Tuple[np.ndarray, np.ndarray]:
+    """A list of byte strings as (int64 ends, uint8 data)."""
+    values = [bytes(v) for v in values]
+    ends = np.cumsum(np.fromiter(map(len, values), np.int64, len(values)),
+                     dtype=np.int64)
+    return ends, np.frombuffer(b"".join(values), np.uint8)
+
+
+def _common_prefixes(ends: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """Length of the prefix value i shares with value i - 1 (0 for the
+    first), over a zero-padded matrix of the values, in slices of rows."""
+    n = len(ends)
+    out = np.zeros(n, np.int64)
+    if n < 2:
+        return out
+    lens = np.diff(ends, prepend=0)
+    starts = ends - lens
+    width = int(lens.max())
+    step = max(1, (1 << 24) // max(width, 1))
+    for a in range(1, n, step):
+        b = min(a + step, n)
+        rows = np.arange(a - 1, b)
+        col = np.arange(width)
+        inside = col[None, :] < lens[rows][:, None]
+        idx = np.where(inside, starts[rows][:, None] + col[None, :], 0)
+        mat = np.where(inside, data[idx] if len(data) else 0, -1).astype(
+            np.int16)
+        same = mat[1:] == mat[:-1]
+        same &= col[None, :] < np.minimum(lens[rows[1:]], lens[rows[:-1]]
+                                          )[:, None]
+        # the first column that differs, or the shorter length
+        out[a:b] = np.where(same.all(1), np.minimum(
+            lens[rows[1:]], lens[rows[:-1]]), np.argmin(same, 1))
+    return out
+
+
+def delta_length_byte_array_encode(values) -> bytes:
+    """DELTA_LENGTH_BYTE_ARRAY: the lengths DELTA_BINARY_PACKED, then the
+    values' bytes back to back."""
+    ends, data = _ends_data(values)
+    return delta_binary_packed_encode(np.diff(ends, prepend=0)) + \
+        data.tobytes()
+
+
+def delta_byte_array_encode(values) -> bytes:
+    """DELTA_BYTE_ARRAY: each value's prefix length shared with the value
+    before it (DELTA_BINARY_PACKED), then the suffixes as
+    DELTA_LENGTH_BYTE_ARRAY."""
+    ends, data = _ends_data(values)
+    prefix = _common_prefixes(ends, data)
+    lens = np.diff(ends, prepend=0)
+    starts = ends - lens
+    keep = np.repeat(starts + prefix, lens - prefix) + (
+        np.arange(int((lens - prefix).sum()))
+        - np.repeat(np.cumsum(lens - prefix) - (lens - prefix),
+                    lens - prefix))
+    suffix_lens = lens - prefix
+    return delta_binary_packed_encode(prefix) + \
+        delta_binary_packed_encode(suffix_lens) + data[keep].tobytes()
+
+
+def byte_array_decode(encoding: fmt.Encoding, data, n: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The n values of a PLAIN, DELTA_LENGTH_BYTE_ARRAY or
+    DELTA_BYTE_ARRAY page as (ends, data). The DELTA lengths and
+    prefixes decode on the host in full (any width up to 64 bits); a
+    DELTA stream of another count raises ArrowInvalid."""
+    if encoding == fmt.Encoding.PLAIN:
+        ends, out, _ = native.plain_byte_array(data, n)
+        return ends, out
+    if encoding == fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY:
+        return _delta_lengths(memoryview(data), n)[:2]
+    if encoding == fmt.Encoding.DELTA_BYTE_ARRAY:
+        mv = memoryview(data)
+        prefix, used = native.delta_decode(mv, n)
+        suffix_ends, suffixes, _ = _delta_lengths(mv[used:], len(prefix))
+        if len(prefix) < n:
+            raise ArrowInvalid(f"DELTA_BYTE_ARRAY page holds {len(prefix)} "
+                               f"values, not {n}")
+        return native.delta_byte_array_rebuild(prefix[:n], suffix_ends[:n],
+                                               suffixes)
+    raise ArrowNotImplemented(f"byte-array decode of {encoding.name}")
+
+
+def _delta_lengths(mv: memoryview, n: int):
+    lens, used = native.delta_decode(mv, n)
+    if len(lens) < n or (len(lens) and lens.min() < 0):
+        raise ArrowInvalid("DELTA_LENGTH_BYTE_ARRAY lengths do not cover "
+                           "the page")
+    ends = np.cumsum(lens[:n], dtype=np.int64)
+    total = int(ends[-1]) if n else 0
+    body = np.frombuffer(mv[used:], np.uint8)
+    if total > len(body):
+        raise ArrowInvalid("DELTA_LENGTH_BYTE_ARRAY values pass the page")
+    return ends, body[:total], used + total

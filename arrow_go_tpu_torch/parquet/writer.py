@@ -5,8 +5,10 @@ reference parquet/file/file_writer.go): numpy columns (bool, the signed
 and unsigned ints, float16, float32, float64, the temporal types, the
 decimals, fixed-size binaries, and strings or bytes), each optionally
 with a validity mask, in row groups of `row_group_size` rows and v1
-data pages of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP
-or LZ4_RAW.
+data pages of about `data_page_size` bytes, UNCOMPRESSED, SNAPPY, GZIP,
+LZ4_RAW or ZSTD (at `compression_level`), each chunk with statistics
+(the JAX writer's _stats_for rules) and, where asked for, a bloom
+filter.
 
 With `use_dictionary` a boolean column chunk is PLAIN and every other
 one but a FIXED_LEN_BYTE_ARRAY one is dictionary encoded (a PLAIN
@@ -22,7 +24,10 @@ in key order) until its dictionary reaches `dictionary_pagesize_limit`
 bytes, and PLAIN from the next page on, as the reference falls back
 (column_writer.go FallbackToPlainEncoding): the pages written before
 stay dictionary coded, so one chunk mixes both encodings.
-`column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED.
+`column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED
+and a string or binary column DELTA_LENGTH_BYTE_ARRAY or
+DELTA_BYTE_ARRAY (with no dictionary); `use_dictionary` may name
+columns.
 A column's type is its numpy dtype's (`dt.from_numpy_dtype`) unless
 `types` names it: a date32 column of int32 days, say. Such a column is
 written with the JAX writer's annotations (DATE, TIME, TIMESTAMP,
@@ -40,13 +45,15 @@ reference WithDeprecatedInt96Timestamps).
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import dictionary_type, factorize
+from . import bloom as bloom_mod
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
@@ -91,7 +98,9 @@ def _dictionary(vals: np.ndarray, limit: int
 
 
 def _string_bytes(dictionary: np.ndarray, t: dt.DataType) -> list:
-    return [v.encode() if t == dt.string else bytes(v) for v in dictionary]
+    if t == dt.string:
+        return [v.encode() for v in dictionary]
+    return [bytes(v) for v in dictionary]
 
 
 def _row_keys(rows: np.ndarray):
@@ -148,14 +157,28 @@ def _fixed_dictionary(rows: np.ndarray, page_ends: List[int], limit: int):
     return rows_of(dict_keys), code_of[rel[:start]], pages
 
 
+@dataclass
+class _Options:
+    """The writer's settings, resolved for one column."""
+
+    codec: int
+    level: Optional[int]
+    use_dictionary: bool
+    dict_limit: int
+    data_page_size: Optional[int]
+    statistics: bool
+    bloom: bool
+
+
 def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                  mask: Optional[np.ndarray], desc: psch.ColumnDescriptor,
-                 codec: int, use_dictionary: bool, dict_limit: int,
-                 data_page_size: Optional[int],
-                 encoding: Optional[fmt.Encoding] = None,
-                 dictionary: Optional[np.ndarray] = None) -> fmt.ColumnChunk:
-    """One column chunk. A string column arrives as int32 codes into
-    `dictionary`."""
+                 opts: _Options, encoding: Optional[fmt.Encoding] = None,
+                 dictionary: Optional[np.ndarray] = None):
+    """One column chunk and its bloom filter (None unless asked for). A
+    string column arrives as int32 codes into `dictionary`."""
+    codec, use_dictionary, dict_limit = (opts.codec, opts.use_dictionary,
+                                         opts.dict_limit)
+    data_page_size = opts.data_page_size
     num_values = len(vals)
     nullable = desc.max_def_level > 0
     present = vals if mask is None else vals[mask]
@@ -178,14 +201,21 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             coded = keys, codes
     elif dictionary is not None:
         page_values = _string_bytes(dictionary, desc.arrow_type)
-        if use_dictionary and sum(map(len, page_values)) + 4 * len(
-                page_values) <= dict_limit:
+        codes = present         # the statistics read the codes
+        if use_dictionary and encoding in (None, fmt.Encoding.PLAIN) and \
+                sum(map(len, page_values)) + 4 * len(page_values) <= \
+                dict_limit:
             coded = page_values, present.astype(np.uint32)
         else:
             present = [page_values[c] for c in present.tolist()]
     elif use_dictionary and encoding in (None, fmt.Encoding.PLAIN) and \
             phys != fmt.Type.BOOLEAN:
         coded = _dictionary(np.ascontiguousarray(present), dict_limit)
+    values, entries = (codes, page_values) if dictionary is not None else \
+        (present, None)
+    stats = _statistics(phys, values, num_values - len(values), entries) \
+        if opts.statistics else None
+    bloom = _bloom(phys, values, entries) if opts.bloom else None
     start_offset = sink.tell()
     total_unc = total_comp = 0
     dict_page_offset = None
@@ -194,7 +224,7 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         keys, codes = coded
         width = max(enc.bit_width_for(len(keys) - 1), 1)
         page = enc.plain_encode(phys, keys)
-        body = comp.compress(codec, page)
+        body = comp.compress(codec, page, opts.level)
         hb = _thrift_bytes(fmt.PageHeader(
             type=int(fmt.PageType.DICTIONARY_PAGE),
             uncompressed_page_size=len(page),
@@ -241,10 +271,14 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             data = bytes([width]) + enc.rle_encode(codes[p0:p1], width)
         elif value_encoding == fmt.Encoding.DELTA_BINARY_PACKED:
             data = enc.delta_binary_packed_encode(present[p0:p1])
+        elif value_encoding == fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY:
+            data = enc.delta_length_byte_array_encode(present[p0:p1])
+        elif value_encoding == fmt.Encoding.DELTA_BYTE_ARRAY:
+            data = enc.delta_byte_array_encode(present[p0:p1])
         else:
             data = enc.plain_encode(phys, present[p0:p1])
         payload = levels + data
-        body = comp.compress(codec, payload)
+        body = comp.compress(codec, payload, opts.level)
         hb = _thrift_bytes(fmt.PageHeader(
             type=int(fmt.PageType.DATA_PAGE),
             uncompressed_page_size=len(payload),
@@ -268,12 +302,94 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         path_in_schema=list(desc.path), codec=int(codec),
         num_values=num_values, total_uncompressed_size=total_unc,
         total_compressed_size=total_comp, data_page_offset=data_page_offset,
-        dictionary_page_offset=dict_page_offset)
-    return fmt.ColumnChunk(file_offset=start_offset, meta_data=meta)
+        dictionary_page_offset=dict_page_offset, statistics=stats)
+    return fmt.ColumnChunk(file_offset=start_offset, meta_data=meta), bloom
 
 
-_ENCODING_NAMES = {"plain": fmt.Encoding.PLAIN,
-                   "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED}
+_ENCODING_NAMES = {
+    "plain": fmt.Encoding.PLAIN,
+    "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED,
+    "delta_length_byte_array": fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY,
+    "delta_byte_array": fmt.Encoding.DELTA_BYTE_ARRAY}
+_BYTE_ARRAY_ENCODINGS = {fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY,
+                         fmt.Encoding.DELTA_BYTE_ARRAY}
+_STAT_PACK = {fmt.Type.INT32: "<i", fmt.Type.INT64: "<q",
+              fmt.Type.FLOAT: "<f", fmt.Type.DOUBLE: "<d"}
+MAX_STAT_BYTES = 64    # the JAX writer's bound on byte-string statistics
+BLOOM_FPP = 0.01       # the JAX writer's default false-positive rate
+
+
+def _row_extreme(rows: np.ndarray, largest: bool) -> bytes:
+    """The lexicographically least (or largest) row of an (n, w) byte
+    matrix, narrowing the candidates big-endian word by word (the rows
+    zero-padded to whole words when w is not a multiple of 8)."""
+    n, w = rows.shape
+    if w % 8:
+        rows = np.concatenate([rows, np.zeros((n, -w % 8), np.uint8)], 1)
+    words = np.ascontiguousarray(rows).view(">u8")
+    cand = None
+    for j in range(words.shape[1]):
+        col = words[:, j] if cand is None else words[cand, j]
+        best = col.max() if largest else col.min()
+        hit = np.flatnonzero(col == best)
+        cand = hit if cand is None else cand[hit]
+    return rows[cand[0], :w].tobytes()
+
+
+def _used(codes: np.ndarray, page_values: list) -> list:
+    """The dictionary entries that `codes` name, in entry order."""
+    return np.flatnonzero(np.bincount(codes, minlength=len(page_values))
+                          ).tolist()
+
+
+def _statistics(phys: fmt.Type, present, null_count: int,
+                page_values: Optional[list]) -> fmt.Statistics:
+    """A chunk's statistics as the JAX writer's _stats_for makes them:
+    the null count, and min_value / max_value of the present values
+    (ints and floats by value as their physical type, booleans as one
+    byte, byte strings by their bytes, and those only when the first
+    present value is under 64 bytes; none for INT96). A string column's
+    present values are codes into `page_values`."""
+    st = fmt.Statistics(null_count=int(null_count))
+    if not len(present):
+        return st
+    if page_values is not None:
+        if len(page_values[int(present[0])]) >= MAX_STAT_BYTES:
+            return st
+        vs = [page_values[c] for c in _used(present, page_values)]
+        st.min_value, st.max_value = min(vs), max(vs)
+    elif phys == fmt.Type.BOOLEAN:
+        st.min_value = b"\x01" if present.min() else b"\x00"
+        st.max_value = b"\x01" if present.max() else b"\x00"
+    elif phys in _STAT_PACK:
+        st.min_value = struct.pack(_STAT_PACK[phys], present.min())
+        st.max_value = struct.pack(_STAT_PACK[phys], present.max())
+    elif phys == fmt.Type.FIXED_LEN_BYTE_ARRAY and \
+            present.shape[1] < MAX_STAT_BYTES:
+        st.min_value = _row_extreme(present, False)
+        st.max_value = _row_extreme(present, True)
+    return st
+
+
+def _bloom(phys: fmt.Type, present, page_values: Optional[list]):
+    """The bloom filter of a chunk's present values, sized for their
+    distinct count at a false-positive rate of BLOOM_FPP (None for
+    BOOLEAN and INT96, as in the JAX writer)."""
+    if phys in (fmt.Type.BOOLEAN, fmt.Type.INT96):
+        return None
+    if page_values is not None:
+        rows = [page_values[c] for c in _used(present, page_values)]
+    elif phys == fmt.Type.FIXED_LEN_BYTE_ARRAY:
+        uniq = np.unique(np.ascontiguousarray(present).view(
+            np.dtype((np.void, present.shape[1]))).reshape(-1))
+        rows = [bytes(r) for r in uniq]
+    else:
+        item = present.dtype.itemsize
+        uniq = np.unique(np.ascontiguousarray(present).view(f"i{item}"))
+        return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
+            uniq.view(present.dtype), phys), len(uniq), BLOOM_FPP)
+    return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
+        enc._ends_data(rows), phys), len(rows), BLOOM_FPP)
 
 
 def _big_endian(limbs: np.ndarray, width: int) -> np.ndarray:
@@ -353,23 +469,41 @@ def _prepare(name: str, v, mask: Optional[np.ndarray],
 
 def write_table(data: Dict[str, object], sink,
                 masks: Optional[Dict[str, np.ndarray]] = None,
-                compression: str = "none", use_dictionary: bool = True,
+                compression: str = "none",
+                use_dictionary: Union[bool, Dict[str, bool]] = True,
                 dictionary_pagesize_limit: int = 1 << 20,
                 data_page_size: Optional[int] = None,
                 row_group_size: Optional[int] = None,
                 column_encodings: Optional[Dict[str, str]] = None,
                 types: Optional[Dict[str, dt.DataType]] = None,
                 store_decimal_as_integer: bool = False,
-                int96_timestamps: bool = False) -> None:
+                int96_timestamps: bool = False,
+                compression_level: Optional[int] = None,
+                write_statistics: bool = True,
+                write_bloom_filters: Union[bool, Sequence[str]] = False
+                ) -> None:
     """Write columns (all of one length) to a parquet file.
 
     data:  numpy arrays by name; a string (or bytes) column is a numpy
            str/object array or an (int32 codes, values) pair.
     masks: validity by column name (True = valid); a column with a mask
            is written OPTIONAL, one without it REQUIRED.
-    column_encodings: a value encoding by column name, "plain" or
-           "delta_binary_packed" (INT32/INT64 columns); such a column
-           takes no dictionary.
+    compression: "none", "snappy", "gzip", "lz4_raw" or "zstd", at
+           `compression_level` (gzip's and zstd's; None = the codec's
+           default, zstd 3).
+    use_dictionary: for every column, or by column name (True for the
+           columns not named).
+    column_encodings: a value encoding by column name: "plain",
+           "delta_binary_packed" (INT32/INT64 columns; no dictionary),
+           "delta_length_byte_array" or "delta_byte_array" (string and
+           binary columns; no dictionary).
+    write_statistics: each chunk's null count, min and max (the JAX
+           writer's rules: byte strings only when the first present
+           value is under 64 bytes, nothing for INT96).
+    write_bloom_filters: a split-block bloom filter per chunk (not for
+           BOOLEAN or INT96) of every column, or of the named columns,
+           sized for the chunk's distinct values at a false-positive
+           rate of 1%, written after the row groups.
     types: a column's type by name, where its numpy dtype's is not the
            one (date32 for int32 days, uint32, timestamp("ms", "UTC"),
            decimal128(15, 2) for unscaled ints or (n, 2) limbs,
@@ -409,6 +543,9 @@ def write_table(data: Dict[str, object], sink,
                     fmt.Type.INT32, fmt.Type.INT64)):
             raise ArrowInvalid(f"column {name!r}: DELTA_BINARY_PACKED "
                                f"takes INT32/INT64")
+        if encs.get(name) in _BYTE_ARRAY_ENCODINGS and dictionary is None:
+            raise ArrowInvalid(f"column {name!r}: {encs[name].name} takes "
+                               f"string or binary values")
         fields.append(dt.Field(name, t, m is not None))
         cols[name] = (v, dictionary)
     n = n or 0
@@ -416,8 +553,15 @@ def write_table(data: Dict[str, object], sink,
     schema = dt.Schema(fields)
     elements, leaves = psch.schema_to_elements(
         schema, store_decimal_as_integer, int96_timestamps)
-    args = (cols, masks, elements, leaves, n, codec, use_dictionary,
-            dictionary_pagesize_limit, data_page_size, row_group_size, encs)
+    blooms = set(names) if write_bloom_filters is True else \
+        set(write_bloom_filters or ())
+    opts = {name: _Options(
+        codec, compression_level,
+        use_dictionary.get(name, True) if isinstance(use_dictionary, dict)
+        else bool(use_dictionary), dictionary_pagesize_limit,
+        data_page_size, write_statistics, name in blooms)
+        for name in names}
+    args = (cols, masks, elements, leaves, n, opts, row_group_size, encs)
     if hasattr(sink, "write"):
         _write(sink, *args)
         return
@@ -425,11 +569,12 @@ def write_table(data: Dict[str, object], sink,
         _write(f, *args)
 
 
-def _write(sink, cols, masks, elements, leaves, n, codec, use_dictionary,
-           dict_limit, data_page_size, row_group_size, encs) -> None:
+def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
+           encs) -> None:
     sink.write(MAGIC)
     rg_rows = row_group_size or max(n, 1)
     row_groups: List[fmt.RowGroup] = []
+    blooms = []
     for a in range(0, n, rg_rows):
         b = min(a + rg_rows, n)
         rg_start = sink.tell()
@@ -438,15 +583,22 @@ def _write(sink, cols, masks, elements, leaves, n, codec, use_dictionary,
             name = desc.path[0]
             m = masks.get(name)
             v, dictionary = cols[name]
-            chunks.append(_write_chunk(
+            chunk, bloom = _write_chunk(
                 sink, v[a:b], None if m is None else np.asarray(m)[a:b],
-                desc, codec, use_dictionary, dict_limit, data_page_size,
-                encs.get(name), dictionary))
+                desc, opts[name], encs.get(name), dictionary)
+            chunks.append(chunk)
+            if bloom is not None:
+                blooms.append((chunk, bloom))
         total = sum(c.meta_data.total_compressed_size for c in chunks)
         row_groups.append(fmt.RowGroup(
             columns=chunks, total_byte_size=total, num_rows=b - a,
             file_offset=rg_start, total_compressed_size=total,
             ordinal=len(row_groups)))
+    for chunk, bloom in blooms:     # after the row groups, as the JAX writer
+        blob = bloom.serialize()
+        chunk.meta_data.bloom_filter_offset = sink.tell()
+        chunk.meta_data.bloom_filter_length = len(blob)
+        sink.write(blob)
     meta = fmt.FileMetaData(
         version=2, schema=elements, num_rows=n, row_groups=row_groups,
         created_by=CREATED_BY,

@@ -88,16 +88,32 @@ without one. Phases:
      decimal256 arithmetic, compares and a sort on random full-width
      limbs against Python integers, and FLOAT16, fixed_size_binary(12)
      and INT96 files scanned on the card (`limb_checks`);
-  12. a `kernels` JSON line, then the last line
+  12. datasets from other writers: the lineitem (sorted by l_sdate, in
+     8 files of equal l_sdate ranges), orders (sorted by o_odate, 2
+     files, a bloom filter on o_custkey) and customer (C_NAME as TPC-H
+     writes it, once with its dictionary past 1 MiB so that it falls
+     back to PLAIN, once DELTA_LENGTH_BYTE_ARRAY, once DELTA_BYTE_ARRAY)
+     written zstd at level 3 in the Arrow C++ writer's layout (row
+     groups of 1,048,576 rows, 1 MiB pages, statistics on) into a
+     temporary directory; Q6 through the dataset scanner, its row groups
+     pruned by l_sdate statistics (`dataset_q6`) and not
+     (`dataset_q6_unpruned`); TPC-H Q10 (`dataset_q10`); one customer's
+     orders by o_custkey == k, pruned by statistics and bloom filters
+     (`dataset_lookup`); c_name in each encoding held bit for bit with
+     its codes in first-occurrence order (`string_pages`); the file
+     bytes beside a snappy lineitem and the host zstd decoder's MB/s
+     (`zstd`); every K1, K2 and K3 call of one more run of dataset Q6
+     and Q10 against the plain version (`dataset_path_checks`);
+  13. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 12 and, of phase 9, all but
-the three queries and K2's timings, and holds no call of phases 10 and
-11 against the plain version: a run that times every path and
+With --timing-only it skips phases 3 and 13 and, of phase 9, all but
+the three queries and K2's timings, and holds no call of phases 10 to
+12 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 11 run only in a tree that has their entry
+there). Phases 8 to 12 run only in a tree that has their entry
 points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
@@ -537,7 +553,7 @@ def add_join_columns(li, orders) -> None:
     rng = np.random.default_rng(11)
     orders["o_opri"] = (rng.integers(0, 5, n_ord).astype(np.int32),
                         PRIORITIES)
-    n_cust = max(n_ord // 10, 3)
+    n_cust = len(customer_table(n_ord)["c_custkey"])
     rng = np.random.default_rng(12)
     j = rng.integers(0, n_cust - n_cust // 3, n_ord)
     orders["o_custkey"] = 3 * (j // 2) + j % 2 + 1
@@ -548,7 +564,13 @@ def add_join_columns(li, orders) -> None:
     li["l_rdate"] = (sdate + rng.integers(1, 31, n)).astype(np.int32)
     li["l_cdate"] = (sdate + rng.integers(30, 91, n)
                      - rng.integers(1, 122, n)).astype(np.int32)
-    return {"c_custkey": np.arange(1, n_cust + 1, dtype=np.int64)}
+    return customer_table(n_ord)
+
+
+def customer_table(n_ord: int) -> dict:
+    """c_custkey = 1..n_cust, n_cust = orders / 10 (at least 3)."""
+    return {"c_custkey": np.arange(1, max(n_ord // 10, 3) + 1,
+                                   dtype=np.int64)}
 
 
 def _sorted_by_key(g: HostBatch, key: str) -> HostBatch:
@@ -1012,16 +1034,21 @@ def capture_k1(fn):
     return out, calls
 
 
-def check_path_calls(name: str, fn, counted: dict):
+def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     """Run fn once with every K1 and K2 call site holding each call's
     result against the plain version on the same inputs, bit for bit
-    (these launches compare; they are not the path's counted run). Fails
-    unless as many calls were held as `counted` says the path's counted
-    run launched. Returns (fn's result, {kernel: summary})."""
+    (these launches compare; they are not the path's counted run), and
+    with `k3` every K3 call of the aggregates (reduce_with_count_host)
+    too, as check_k3 holds K3. Fails unless as many calls were held as
+    `counted` says the path's counted run launched. Returns (fn's
+    result, {kernel: summary})."""
     from arrow_go_tpu_torch.compute import join as cjoin
     from arrow_go_tpu_torch.ops import groupagg, hashing, selection
     from arrow_go_tpu_torch.parallel import join as pjoin
     seen = {"K1": [], "K2": []}
+    if k3:
+        seen["K3"] = []
+    reduce_host = reductions.reduce_with_count_host
 
     def k1(keep, payloads):
         payloads = tuple(payloads)
@@ -1047,10 +1074,28 @@ def check_path_calls(name: str, fn, counted: dict):
                 [got], [scan.cummax_u32_plain(x)])))
         return got
 
+    def k3_host(values, validity, n, op):
+        acc, count = reduce_host(values, validity, n, op)
+        want, want_count = reductions.reduce_with_count_plain(
+            values, validity, n, op)
+        if count != int(want_count):
+            raise AssertionError(f"{name}: K3 count {count}, plain "
+                                 f"{int(want_count)}")
+        if values.dtype.is_floating_point and op == "sum":
+            ok = np.isclose(acc, want.item(), rtol=K3_RTOL[values.dtype],
+                            atol=0)
+        else:
+            ok = acc == want.item()
+        if not ok:
+            raise AssertionError(f"{name}: K3 {acc!r}, plain {want.item()!r}")
+        seen["K3"].append((values.shape[0], 1, abs(acc - want.item())))
+        return acc, count
+
     patches = [(m, "compact_flagged", k1)
                for m in (selection, groupagg, pjoin, cjoin)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
-        (pjoin, "cummax_u32", k2_fill)]
+        (pjoin, "cummax_u32", k2_fill)] + (
+        [(reductions, "reduce_with_count_host", k3_host)] if k3 else [])
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
     for m, attr, f in patches:
         setattr(m, attr, f)
@@ -2785,6 +2830,425 @@ def decimal_phases(li, dev, card: str, q6_count: int,
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# datasets from other writers: zstd files of many row groups with
+# statistics and bloom filters, strings in PLAIN and DELTA pages
+# ---------------------------------------------------------------------------
+
+# the Arrow C++ parquet writer's defaults: row groups of at most
+# parquet::DEFAULT_MAX_ROW_GROUP_LENGTH rows, 1 MiB data pages, a 1 MiB
+# dictionary page limit; zstd at level 3 (Polars' default codec)
+DATASET_ROWS_PER_GROUP = 1 << 20
+DATASET_PAGE_BYTES = 1 << 20
+DATASET_DICT_LIMIT = 1 << 20
+DATASET_LEVEL = 3
+LI_DATASET_FILES, ORD_DATASET_FILES = 8, 2
+LI_DATASET_COLUMNS = ["l_okey", "l_sdate", "l_qty", "l_price", "l_disc",
+                      "l_rflag"]
+Q10_COLUMNS = ["l_okey", "l_price", "l_disc", "l_rflag"]
+Q10_TOP = 20
+STRING_ENCODINGS = {"plain": None,
+                    "delta_length": "delta_length_byte_array",
+                    "delta": "delta_byte_array"}
+
+
+def customer_names(custkey: np.ndarray) -> np.ndarray:
+    """C_NAME = "Customer#" and the key in 9 digits (TPC-H spec 4.2.3)."""
+    out = np.empty(len(custkey), dtype=object)
+    out[:] = ["Customer#%09d" % k for k in custkey.tolist()]
+    return out
+
+
+def dataset_tables(li, orders, cust) -> tuple:
+    """The dataset's three tables: the lineitem columns sorted stably by
+    l_sdate (a table clustered by ship date), the orders by o_odate, and
+    the customers with their names."""
+    order = np.argsort(li["l_sdate"], kind="stable")
+    codes, values = li["l_rflag"]
+    lis = {c: li[c][order] for c in LI_DATASET_COLUMNS if c != "l_rflag"}
+    lis["l_rflag"] = (codes[order], values)
+    order = np.argsort(orders["o_odate"], kind="stable")
+    ords = {c: orders[c][order] for c in ("o_okey", "o_odate", "o_custkey")}
+    keys = cust["c_custkey"]
+    return lis, ords, {"c_custkey": keys, "c_name": (
+        np.arange(len(keys), dtype=np.int32), customer_names(keys))}
+
+
+def _rows(table: dict, a: int, b: int) -> dict:
+    return {k: (v[0][a:b], v[1]) if isinstance(v, tuple) else v[a:b]
+            for k, v in table.items()}
+
+
+def write_dataset(root: str, lis, ords, cust, compression: str = "zstd",
+                  rows_per_group: int = DATASET_ROWS_PER_GROUP,
+                  dict_limit: int = DATASET_DICT_LIMIT,
+                  tables=("lineitem", "orders", "customer")) -> dict:
+    """The dataset's files under `root`, one directory a table: the
+    lineitem in LI_DATASET_FILES files of equal l_sdate ranges, the
+    orders in ORD_DATASET_FILES of equal row counts (a bloom filter on
+    o_custkey), the customers once per c_name encoding (PLAIN where its
+    dictionary passes `dict_limit`, DELTA_LENGTH_BYTE_ARRAY,
+    DELTA_BYTE_ARRAY). Returns {table: [paths]}."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    opts = dict(compression=compression, compression_level=DATASET_LEVEL
+                if compression == "zstd" else None,
+                data_page_size=DATASET_PAGE_BYTES,
+                row_group_size=rows_per_group,
+                dictionary_pagesize_limit=dict_limit)
+    out, jobs = {}, []
+
+    def write(table, name, data, **extra):
+        d = os.path.join(root, table)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, name)
+        jobs.append((path, data, extra))
+        out.setdefault(table, []).append(path)
+    if "lineitem" in tables:
+        sdate = lis["l_sdate"]
+        edges = np.linspace(int(sdate[0]), int(sdate[-1]) + 1,
+                            LI_DATASET_FILES + 1)
+        cuts = np.searchsorted(sdate, edges).tolist()
+        for i in range(LI_DATASET_FILES):
+            write("lineitem", f"part-{i}.parquet",
+                  _rows(lis, cuts[i], cuts[i + 1]))
+    if "orders" in tables:
+        cuts = np.linspace(0, len(ords["o_okey"]), ORD_DATASET_FILES + 1
+                           ).astype(int).tolist()
+        for i in range(ORD_DATASET_FILES):
+            write("orders", f"part-{i}.parquet",
+                  _rows(ords, cuts[i], cuts[i + 1]),
+                  write_bloom_filters=["o_custkey"])
+    if "customer" in tables:
+        for name, encoding in STRING_ENCODINGS.items():
+            write(f"customer_{name}", "part-0.parquet", cust,
+                  column_encodings={"c_name": encoding} if encoding
+                  else None)
+    # the files are written side by side, one thread a file: the codecs
+    # and most of numpy release the GIL
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        for f in [pool.submit(tpq.write_table, data, path, **opts, **extra)
+                  for path, data, extra in jobs]:
+            f.result()
+    return out
+
+
+def q6_over_batches(batches) -> dict:
+    """Q6's SUM (K3) and COUNT over batches, each filtered (K1) by the
+    WHERE clause, added across batches."""
+    revenue, count = 0.0, 0
+    for db in batches:
+        rev = q6_revenue(db)
+        if rev.length:
+            revenue += pc.agg_sum(rev)
+        count += rev.length
+    return {"revenue": revenue, "count": count}
+
+
+def dataset_q6(ds, dev, times=None, pruned: bool = True) -> dict:
+    """TPC-H Q6 over a lineitem dataset: its WHERE clause as the
+    scanner's filter, whose guards prune row groups by l_sdate's
+    statistics (unless not `pruned`: every batch)."""
+    sc = ds.scanner(columns=Q6_COLUMNS,
+                    filter=q6_expression() if pruned else None, device=dev)
+    return q6_over_batches(sc.device_batches(times=times))
+
+
+def q10_window():
+    """Q10's order-date window: Q4's two days (4.99% of the orders)."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    return call("and", [call("greater_equal", [f("o_odate"),
+                                               lit(Q4_ODATE_LO)]),
+                        call("less", [f("o_odate"), lit(Q4_ODATE_HI)])])
+
+
+def dataset_q10(li_ds, ord_ds, cust_ds, dev) -> HostBatch:
+    """TPC-H Q10 (spec 2.4.10) as far as the tables go:
+
+        SELECT c_custkey, c_name, SUM(l_price * (1 - l_disc)) AS revenue
+        FROM customer, orders, lineitem
+        WHERE c_custkey = o_custkey AND l_okey = o_okey
+          AND o_odate in the window AND l_rflag = 'R'
+        GROUP BY c_custkey, c_name ORDER BY revenue DESC LIMIT 20
+
+    (c_acctbal, c_phone, n_name, c_address and c_comment are left out:
+    the tables have no such columns). The orders in the window come
+    from the scanner's to_table; each lineitem batch is filtered by
+    l_rflag (its own dictionary's 'R'), inner-joined to them and summed
+    by o_custkey; the partial sums are combined, the top 20 taken, and
+    their names read from the customer dataset."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    orders = ord_ds.to_table(columns=["o_okey", "o_custkey"],
+                             filter=q10_window(), device=dev)
+    ord_db = agt.device.block.host_batch_to_device(orders, dev)
+    returned = call("equal", [f("l_rflag"), lit("R")])
+    rev_expr = call("multiply", [f("l_price"), call("subtract", [
+        lit(1.0), f("l_disc")])])
+    keys, sums = [], []
+    for db in li_ds.scanner(columns=Q10_COLUMNS, filter=returned,
+                            device=dev).device_batches():
+        li_f = pc.filter(project(db, ["l_okey", "l_price", "l_disc"]),
+                         pc.execute_scalar_expression(returned, db))
+        if not li_f.length:
+            continue
+        j = pc.hash_join(li_f, ord_db, left_keys=["l_okey"],
+                         right_keys=["o_okey"],
+                         output_columns=["l_price", "l_disc", "o_custkey"])
+        rev = pc.execute_scalar_expression(rev_expr, j)
+        g = pc.group_by(DeviceBatch(
+            dt.Schema([dt.Field("o_custkey", dt.int64),
+                       dt.Field("rev", dt.float64)]),
+            [j.column("o_custkey"), rev], j.length), "o_custkey",
+            [("rev", "sum")])
+        keys.append(g.column("o_custkey").values)
+        sums.append(g.column("rev_sum").values)
+    both = agt.batch_to_device({"o_custkey": np.concatenate(keys),
+                                "rev": np.concatenate(sums)}, device=dev)
+    g = pc.group_by(both, "o_custkey", [("rev", "sum")])
+    idx = pc.sort_indices(g.column("rev_sum"), order="descending")
+    top = {nm: pc.take(g.column(nm), idx).values[:Q10_TOP]
+           for nm in ("o_custkey", "rev_sum")}
+    names = cust_ds.to_table(columns=["c_custkey", "c_name"], filter=call(
+        "is_in", [f("c_custkey")], {"value_set": top["o_custkey"].tolist()}),
+        device=dev).to_pydict()
+    name_of = dict(zip(names["c_custkey"], names["c_name"]))
+    return HostBatch.from_arrays({
+        "c_custkey": HostArray(top["o_custkey"], None, dt.int64),
+        "c_name": HostArray(np.array([name_of[k] for k in top[
+            "o_custkey"].tolist()], dtype=object), None, dt.string),
+        "revenue": HostArray(top["rev_sum"], None, dt.float64)})
+
+
+def q10_oracle(li, orders) -> dict:
+    """numpy Q10: the top customers' keys, names and revenues."""
+    in_window = (orders["o_odate"] >= Q4_ODATE_LO) & (
+        orders["o_odate"] < Q4_ODATE_HI)
+    codes, values = li["l_rflag"]
+    m = (values[codes] == "R") & in_window[li["l_okey"]]
+    cust = orders["o_custkey"][li["l_okey"][m]]
+    rev = np.bincount(cust, weights=(li["l_price"] * (1 - li["l_disc"]))[m])
+    present = np.flatnonzero(np.bincount(cust, minlength=len(rev)))
+    top = present[np.argsort(-rev[present], kind="stable")][:Q10_TOP]
+    return {"c_custkey": top.tolist(),
+            "c_name": customer_names(top).tolist(), "revenue": rev[top]}
+
+
+def check_q10(out: HostBatch, want: dict) -> None:
+    got = out.to_pydict()
+    if got["c_custkey"] != want["c_custkey"] or \
+            got["c_name"] != want["c_name"]:
+        raise AssertionError(f"Q10: customers {got['c_custkey']} / "
+                             f"{got['c_name'][:2]}..., oracle "
+                             f"{want['c_custkey']}")
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9)
+
+
+def dataset_lookup(ord_ds, key: int, dev) -> dict:
+    """The orders of one customer through to_table(o_custkey == key),
+    and the row groups kept by statistics alone and by statistics and
+    the bloom filter."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    expr = call("equal", [f("o_custkey"), lit(key)])
+    sc = ord_ds.scanner(columns=["o_okey"], filter=expr, device=dev)
+    kept = [sum(len(k) for _, k, _ in sc.row_groups(bloom))
+            for bloom in (False, True)]
+    okeys = sc.to_table().column("o_okey").values
+    return {"key": key, "rows": len(okeys), "o_okey": np.sort(okeys),
+            "kept_by_stats": kept[0], "kept_by_bloom": kept[1]}
+
+
+def check_string_pages(ds, names: np.ndarray, dev, times=None) -> int:
+    """c_name scanned from a customer dataset: each batch's values are
+    the names of its rows, bit for bit, and its codes number them in
+    order of first occurrence. Returns the rows checked."""
+    start = 0
+    for db in ds.scanner(columns=["c_name"], device=dev).device_batches(
+            times=times):
+        c = db.column("c_name")
+        codes = c.values[:c.length].cpu().numpy()
+        got = c.dictionary[codes]
+        want = names[start:start + c.length]
+        if c.validity is not None or not np.array_equal(got, want):
+            raise AssertionError("string pages: values differ")
+        # codes by first occurrence: each code is at most one past the
+        # largest before it, and the largest is the dictionary's last
+        run = np.maximum.accumulate(np.concatenate(([-1], codes)))
+        if (codes > run[:-1] + 1).any() or \
+                run[-1] + 1 != len(c.dictionary):
+            raise AssertionError("string pages: codes not in first-"
+                                 "occurrence order")
+        start += c.length
+    if start != len(names):
+        raise AssertionError(f"string pages: {start} rows of {len(names)}")
+    return start
+
+
+def zstd_decode_rate(paths) -> dict:
+    """The host zstd decoder over every page of the files, timed alone:
+    MB of output per second, pages and bytes."""
+    from arrow_go_tpu_torch import native
+    from arrow_go_tpu_torch.parquet.device_read import _iter_pages
+    pages = []
+    for path in paths:
+        with tpq.ParquetFile(path) as pf:
+            for rg in pf.metadata.row_groups:
+                for c in rg.columns:
+                    pages += [(bytes(body), hdr.uncompressed_page_size)
+                              for hdr, body in _iter_pages(pf, c)]
+    t0 = time.perf_counter()
+    for body, size in pages:
+        native.zstd_decompress(body, size)
+    sec = time.perf_counter() - t0
+    out = sum(size for _, size in pages)
+    return {"pages": len(pages), "in_bytes": sum(len(b) for b, _ in pages),
+            "out_bytes": out, "s": sec, "mb_per_s": out / sec / 1e6}
+
+
+def dataset_phases(li, orders, dev, card: str,
+                   timing_only: bool = False) -> dict:
+    """This slice's paths at the scale of `li`: the lineitem, orders and
+    customer tables written as a zstd dataset of many files and row
+    groups (write_dataset) into a temporary directory; Q6 pruned by
+    statistics and not, Q10, the bloom-filter lookups, the three string
+    encodings and the codec, each against numpy. Every K1, K2 and K3
+    call of one more run of dataset Q6 and Q10 is held against the plain
+    version (not with `timing_only`). Returns each path's launch counts
+    and the largest kernel - plain difference."""
+    import os
+    import tempfile
+    from arrow_go_tpu_torch.dataset import dataset
+    t_phase = time.perf_counter()
+    lis, ords, cus = dataset_tables(li, orders,
+                                    customer_table(len(orders["o_okey"])))
+    names = cus["c_name"][1]
+    launches, runs, held = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_dataset(os.path.join(root, "zstd"), lis, ords, cus)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snappy = write_dataset(os.path.join(root, "snappy"), lis, ords, cus,
+                               compression="snappy", tables=("lineitem",))
+        snappy_s = time.perf_counter() - t0
+        sets = {t: dataset(os.path.dirname(p[0])) for t, p in paths.items()}
+        li_ds, ord_ds = sets["lineitem"], sets["orders"]
+        nbytes = {t: sum(os.path.getsize(p) for p in ps)
+                  for t, ps in paths.items()}
+        print(json.dumps({"dataset": {
+            "files": {t: len(p) for t, p in paths.items()},
+            "row_groups": {t: sum(n for *_, n in d.scanner().row_groups())
+                           for t, d in sets.items()},
+            "zstd_bytes": nbytes, "snappy_lineitem_bytes": sum(
+                os.path.getsize(p) for p in snappy["lineitem"]),
+            "write_s": write_s, "snappy_write_s": snappy_s,
+            "card": card}}), flush=True)
+
+        def line(key, **extra):
+            print(json.dumps({key: {
+                **extra, "ms_runs": runs[key],
+                "ms_median": float(np.median(runs[key])), "card": card,
+                "verified": True}}), flush=True)
+
+        def kept(ds, expr):
+            rgs = ds.scanner(filter=expr).row_groups()
+            return {"kept": sum(len(k) for _, k, _ in rgs),
+                    "total": sum(n for *_, n in rgs)}
+        q6_want = q6_oracle(li)
+
+        def q6():
+            return dataset_q6(li_ds, dev)
+
+        def q6_unpruned():
+            return dataset_q6(li_ds, dev, pruned=False)
+        for key, name, run in (("dataset_q6", "dataset Q6", q6),
+                               ("dataset_q6_unpruned", "dataset Q6 unpruned",
+                                q6_unpruned)):
+            got, launches[name] = run_path(name, run, ("K1", "K3"))
+            check_q6(got, q6_want)
+            outs, runs[key] = timed(run)
+            for out in outs:
+                check_q6(out, q6_want)
+            split = {}
+            dataset_q6(li_ds, dev, split, pruned=run is q6)
+            line(key, **got, row_groups=kept(
+                li_ds, q6_expression() if run is q6 else None),
+                split_ms={k[:-2] + "_ms": v * 1e3 for k, v in split.items()},
+                launches_per_run=launches[name])
+
+        q10_want = q10_oracle(li, orders)
+
+        def q10():
+            return dataset_q10(li_ds, ord_ds, sets["customer_plain"], dev)
+        out, launches["dataset Q10"] = run_path("dataset Q10", q10,
+                                                ("K1", "K2"))
+        check_q10(out, q10_want)
+        outs, runs["dataset_q10"] = timed(q10)
+        for out in outs:
+            check_q10(out, q10_want)
+        f, lit, call = pc.field, pc.literal, pc.call
+        line("dataset_q10", top=out.to_pydict(),
+             orders_row_groups=kept(ord_ds, q10_window()),
+             lineitem_row_groups=kept(li_ds, call("equal", [
+                 f("l_rflag"), lit("R")])),
+             left_out="c_acctbal, c_phone, n_name, c_address, c_comment "
+                      "(no such columns)",
+             launches_per_run=launches["dataset Q10"])
+
+        ck = orders["o_custkey"]
+        n_cust = len(names)
+        keys = [int(ck[i]) for i in np.linspace(0, len(ck) - 1, 4
+                                                ).astype(int)] + \
+            [3, 3 * (n_cust // 9 + 1), 3 * (n_cust // 6 + 1), 3 * (
+                n_cust // 3)]
+        lookups = []
+        for k in keys:
+            t0 = time.perf_counter()
+            r = dataset_lookup(ord_ds, k, dev)
+            r["ms"] = (time.perf_counter() - t0) * 1e3
+            want = np.sort(orders["o_okey"][ck == k])
+            if not np.array_equal(r.pop("o_okey"), want):
+                raise AssertionError(f"lookup {k}: rows differ from numpy")
+            lookups.append(r)
+        print(json.dumps({"dataset_lookup": {
+            "lookups": lookups, "card": card, "verified": True}}),
+            flush=True)
+
+        pages = {}
+        for name in STRING_ENCODINGS:
+            split = {}
+            t0 = time.perf_counter()
+            rows = check_string_pages(sets[f"customer_{name}"], names, dev,
+                                      split)
+            pages[name] = {
+                "rows": rows, "bytes": nbytes[f"customer_{name}"],
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "host_decode_ms": split.get("strings_s", 0.0) * 1e3,
+                "split_ms": {k[:-2] + "_ms": v * 1e3
+                             for k, v in split.items()}}
+        print(json.dumps({"string_pages": {**pages, "card": card,
+                                           "verified": True}}), flush=True)
+        print(json.dumps({"zstd": {
+            "bytes": nbytes, "snappy_lineitem_bytes": sum(
+                os.path.getsize(p) for p in snappy["lineitem"]),
+            "level": DATASET_LEVEL,
+            "decode": zstd_decode_rate(paths["lineitem"]),
+            "card": card}}), flush=True)
+        errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+        if not timing_only:
+            out, held["dataset_q6"] = check_path_calls(
+                "dataset_q6", q6, launches["dataset Q6"], k3=True)
+            check_q6(out, q6_want)
+            out, held["dataset_q10"] = check_path_calls(
+                "dataset_q10", q10, launches["dataset Q10"], k3=True)
+            check_q10(out, q10_want)
+            print(json.dumps({"dataset_path_checks": held}), flush=True)
+            for k in errs:
+                errs[k] = max(h[k]["max_abs_err"] for h in held.values())
+    print(json.dumps({"dataset_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -2964,6 +3428,8 @@ def main(argv=None) -> int:
         if typed and MONEY128 is not None:
             decimal_phases(li, dev, card, q6_want["count"],
                            timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.dataset"):
+            dataset_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -2975,12 +3441,16 @@ def main(argv=None) -> int:
     decs = decimal_phases(li, dev, card, q6_want["count"])
     k1_err = max(k1_err, decs["errs"]["K1"])
     k3_err = max(k3_err, decs["errs"]["K3"])
+    dsets = dataset_phases(li, orders, dev, card)
+    k1_err = max(k1_err, dsets["errs"]["K1"])
+    k2_err = max(k2_err, dsets["errs"]["K2"])
+    k3_err = max(k3_err, dsets["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
                **joins["launches"], **types["launches"],
-               **decs["launches"]}
+               **decs["launches"], **dsets["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

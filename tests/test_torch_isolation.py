@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-its native codec library) nor pyarrow nor zstandard nor triton, its own
+its native codec library) nor pyarrow nor zstandard nor xxhash nor
+triton, its own
 codec library is built from its own source with no switch or fallback,
 and it never moves to the CPU unless asked."""
 import ast
@@ -18,7 +19,7 @@ from arrow_go_tpu_torch.device.block import batch_to_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
-             "zstandard", "triton")
+             "zstandard", "xxhash", "triton")
 
 
 def _forbidden(name: str) -> bool:
@@ -41,6 +42,8 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.ops.decimal\n"
             "import arrow_go_tpu_torch.ops.decode\n"
             "import arrow_go_tpu_torch.parquet.writer\n"
+            "import arrow_go_tpu_torch.parquet.bloom\n"
+            "import arrow_go_tpu_torch.dataset\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -131,4 +134,18 @@ def test_scan_runs_on_the_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpq.read_batch_device(pf, 0)
     db = tpq.read_batch_device(pf, 0, device="cpu")
+    assert db.column("a").values[:10].tolist() == list(range(10))
+
+
+def test_dataset_scan_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
+    from arrow_go_tpu_torch import parquet as tpq
+    from arrow_go_tpu_torch.dataset import dataset
+    tpq.write_table({"a": np.arange(10)}, str(tmp_path / "a.parquet"))
+    ds = dataset(str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(ds.scanner().device_batches())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ds.to_table()
+    db = next(ds.scanner().device_batches(device="cpu"))
     assert db.column("a").values[:10].tolist() == list(range(10))

@@ -18,9 +18,11 @@ from arrow_go_tpu.compute.errors import \
     ArrowNotImplemented as JaxNotImplemented
 from arrow_go_tpu.parquet import device_read as jdr
 
+from arrow_go_tpu_torch import native as tnative
 from arrow_go_tpu_torch import parquet as tpq
 from arrow_go_tpu_torch.compute.errors import (ArrowInvalid,
                                                ArrowNotImplemented)
+from arrow_go_tpu_torch.parquet import compress as tcomp
 from arrow_go_tpu_torch.parquet import format as tfmt
 from torch_parity import words_u32
 
@@ -145,8 +147,25 @@ def test_scan_column_order_and_errors(rng):
 
 @pytest.mark.parametrize("codec", ["brotli", "zstd"])
 def test_codecs_the_port_does_not_read_raise(rng, codec):
+    """brotli raises at the scan and at the writer. zstd reads (the same
+    batch as the JAX package's read) and writes; of zstd, only a frame
+    that names a dictionary raises."""
     data, masks = _table(rng, 300)
-    tpf = tpq.ParquetFile(_jax_file(data, masks, compression=codec))
+    blob = _jax_file(data, masks, compression=codec)
+    tpf = tpq.ParquetFile(blob)
+    if codec == "zstd":
+        _same_batch(tpq.read_batch_device(tpf, 0, device="cpu"),
+                    jdr.read_batch_device(jpq.ParquetFile(blob), 0))
+        _check_against_source(tpq.read_batch_device(tpq.ParquetFile(
+            _port_file(data, masks, compression="zstd")), 0, device="cpu"),
+            data, masks, slice(0, 300))
+        frame = bytes(tnative.zstd_compress(b"abc" * 100))
+        # Dictionary_ID_flag 1 and a one-byte dictionary id after the
+        # frame header descriptor
+        named = frame[:4] + bytes([frame[4] | 1, 7]) + frame[5:]
+        with pytest.raises(ArrowNotImplemented):
+            tcomp.decompress(tfmt.Codec.ZSTD, named, 300)
+        return
     with pytest.raises(ArrowNotImplemented):
         tpq.read_batch_device(tpf, 0, device="cpu")
     with pytest.raises(ArrowNotImplemented):
@@ -170,9 +189,13 @@ def test_string_and_nested_columns_raise(column):
         return
     with pytest.raises(JaxNotImplemented):
         jdr.read_batch_device(jpq.ParquetFile(buf.getvalue()), 0)
-    with pytest.raises(ArrowNotImplemented, match="all-dictionary"):
-        tpq.read_batch_device(tpq.ParquetFile(buf.getvalue()), 0,
-                              device="cpu")
+    # the port's device read takes the PLAIN string chunk: codes by first
+    # occurrence on the device, the values on the host
+    col = tpq.read_batch_device(tpq.ParquetFile(buf.getvalue()), 0,
+                                device="cpu").column("c")
+    valid = col.validity_mask()[:3].tolist()
+    assert valid == [True, True, False]
+    assert [col.dictionary[c] for c in col.values[:2].tolist()] == ["a", "b"]
 
 
 def _port_file(data, masks, **kw) -> bytes:
@@ -372,8 +395,12 @@ def test_port_writer_string_past_the_dictionary_limit_is_plain(rng):
     blob = _port_file({"s": vals}, None, dictionary_pagesize_limit=1024)
     assert jpq.read_table(io.BytesIO(blob)).column("s").to_pylist() == \
         vals.tolist()
-    with pytest.raises(ArrowNotImplemented, match="all-dictionary"):
-        tpq.read_batch_device(tpq.ParquetFile(blob), 0, device="cpu")
+    # the PLAIN chunk reads on the port's device read: codes by first
+    # occurrence (here the rows' order), the values on the host
+    col = tpq.read_batch_device(tpq.ParquetFile(blob), 0,
+                                device="cpu").column("s")
+    assert col.values[:3000].tolist() == list(range(3000))
+    assert list(col.dictionary) == vals.tolist()
 
 
 def test_port_writer_rejects_bad_string_codes_and_delta_types(rng):
@@ -383,6 +410,9 @@ def test_port_writer_rejects_bad_string_codes_and_delta_types(rng):
     with pytest.raises(ArrowInvalid):
         tpq.write_table({"f": np.ones(4)}, io.BytesIO(),
                         column_encodings={"f": "delta_binary_packed"})
-    with pytest.raises(ArrowNotImplemented):
+    with pytest.raises(ArrowInvalid):
         tpq.write_table({"i": np.ones(4, np.int64)}, io.BytesIO(),
                         column_encodings={"i": "delta_length_byte_array"})
+    with pytest.raises(ArrowNotImplemented):
+        tpq.write_table({"i": np.ones(4, np.int64)}, io.BytesIO(),
+                        column_encodings={"i": "byte_stream_split"})

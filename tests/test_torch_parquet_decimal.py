@@ -278,8 +278,11 @@ def test_hand_built_fixed_length_decimal(type_length, precision,
     desc = psch.ColumnDescriptor(("d",), fmt.Type.FIXED_LEN_BYTE_ARRAY,
                                  type_length, 1, 0, t, [el])
     buf = io.BytesIO()
+    opts = pw._Options(codec=0, level=None, use_dictionary=use_dictionary,
+                       dict_limit=1 << 20, data_page_size=2048,
+                       statistics=True, bloom=False)
     pw._write(buf, {"d": (rows, None)}, {"d": mask}, [root, el], [desc], n,
-              0, use_dictionary, 1 << 20, 2048, None, {})
+              {"d": opts}, None, {})
     blob = buf.getvalue()
     jt = jpq.read_table(io.BytesIO(blob))
     got = tpq.read_batch_device(tpq.ParquetFile(blob), 0, device="cpu")
