@@ -1,12 +1,15 @@
-"""Local sort-merge join core: join state and gather-free pair expansion.
+"""Distributed hash join over the process mesh, and its local core.
 
-Port of the single-device part of arrow_go_tpu/parallel/join.py (the
-shard_map wrapper and the mesh stay in the JAX package). Phase 1
-(`join_sorted_state`) sorts both sides at once and counts matches with
-prefix sums and one forward fill (K2 on the card); phase 2 (`join_expand`) scatters each emitting position's
-owner fields to its first output slot and fills them forward with ONE
-running u64 max (ops/scan.py, K2 on the card). The right rank -> row
-map `rperm` comes from a stable compaction (K1 on the card).
+Port of arrow_go_tpu/parallel/join.py. `make_distributed_join` is the
+narrow distributed inner join: both sides hash-partition by key over the
+ranks (shuffle.py), then each rank runs the local sort-merge join of
+what it received. The local core: phase 1 (`join_sorted_state`)
+sorts both sides at once and counts matches with prefix sums and one
+forward fill (K2 on the card); phase 2 (`join_expand`) scatters each
+emitting position's owner fields to its first output slot and fills
+them forward with ONE running u64 max (ops/scan.py, K2 on the card).
+The right rank -> row map `rperm` comes from a stable compaction (K1 on
+the card).
 
 Inner, left/right/full outer (`join_sorted_state`) and left semi/anti
 (`local_join_semi`) joins are ported.
@@ -17,9 +20,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import hashing
 from ..ops.compaction import compact_flagged
 from ..ops.scan import cummax_u32, cummax_u64_lanes
 from ..ops.sort import lexsort_stable
+from . import shuffle as shuf
+from .mesh import Mesh, all_max
 
 
 class JoinState(NamedTuple):
@@ -200,3 +206,38 @@ def local_join_semi(lkeys, lvalid, rkeys, rvalid, how: str):
     if how == "left anti":
         return ~out & lvalid
     return out & lvalid
+
+
+def make_distributed_join(mesh: Mesh, cap_shuffle: int, cap_out: int):
+    """Distributed inner join on int64 keys with one payload column per
+    side.
+
+    Per-rank inputs: lkeys, lvals, lvalid, rkeys, rvals, rvalid.
+    Per-rank outputs: joined key, lval, rval (padding -1/0 beyond n_out),
+    n_out[1], overflow flag (the same on every rank)."""
+    D = mesh.world_size
+    body = shuf.shuffle_shard_fn(mesh, cap_shuffle)
+
+    def step(lkeys, lvals, lvalid, rkeys, rvals, rvalid):
+        ldest = shuf.partition_of(hashing.hash32(lkeys, shuf._dt_of(lkeys)),
+                                  D)
+        (slk, slv), lcounts, lov = body(ldest, lvalid, lkeys, lvals)
+        rdest = shuf.partition_of(hashing.hash32(rkeys, shuf._dt_of(rkeys)),
+                                  D)
+        (srk, srv), rcounts, rov = body(rdest, rvalid, rkeys, rvals)
+        lrows = shuf.row_validity_mask(slk, lcounts, cap_shuffle)
+        rrows = shuf.row_validity_mask(srk, rcounts, cap_shuffle)
+        li, ri, rperm, n_out, jov = local_join_inner(slk, lrows, srk, rrows,
+                                                     cap_out)
+        lidx = li.clamp(0, slk.shape[0] - 1)
+        out_k = torch.where(li >= 0, slk.index_select(0, lidx), -1)
+        out_l = torch.where(li >= 0, slv.index_select(0, lidx), 0)
+        # ri is a key-sorted right RANK: permute the payload once
+        # (build-sized gather), then the per-pair gather rides ranks
+        srv_ranked = srv.index_select(0, rperm.clamp(0, srv.shape[0] - 1))
+        out_r = torch.where(ri >= 0, srv_ranked.index_select(
+            0, ri.clamp(0, srv.shape[0] - 1)), 0)
+        return (out_k, out_l, out_r, n_out.reshape(1),
+                all_max(mesh, lov | rov | jov))
+
+    return step

@@ -104,16 +104,32 @@ without one. Phases:
      bytes beside a snappy lineitem and the host zstd decoder's MB/s
      (`zstd`); every K1, K2 and K3 call of one more run of dataset Q6
      and Q10 against the plain version (`dataset_path_checks`);
-  13. a `kernels` JSON line, then the last line
+  13. the distributed tier (arrow_go_tpu_torch.parallel) on one NCCL
+     process group of world size 1, every exchange through NCCL's
+     all_to_all: TPC-H Q1's keys with sum, mean, count, min and max of
+     three columns over every lineitem row through distributed_group_by
+     (`dist_q1`); lineitem joined with the orders of a date window by
+     make_distributed_join, all six join types (`dist_join`); Zipf(1.1)
+     lineitem keys joined with every order, hot_k=16, inner and left
+     outer, the Zipf side probing (hot path A) and building (hot path
+     B), each equal to the same join without hot keys
+     (`dist_hot_join`); orders sorted on (o_odate, o_okey) by
+     distributed_sort (`dist_sort`); the chunk-pipelined streamed
+     group-by by l_okey beside the barrier form (`dist_streamed`,
+     `dist_barrier`); each against numpy, with the exchange's bytes and
+     the peak memory (`dist`), a `dist_profile` of Q1 and the inner
+     join, and every K1 and K2 call of one more run of each path against
+     the plain version (`dist_path_checks`);
+  14. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 13 and, of phase 9, all but
+With --timing-only it skips phases 3 and 14 and, of phase 9, all but
 the three queries and K2's timings, and holds no call of phases 10 to
-12 against the plain version: a run that times every path and
+13 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 12 run only in a tree that has their entry
+there). Phases 8 to 13 run only in a tree that has their entry
 points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
@@ -3249,6 +3265,414 @@ def dataset_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# the distributed tier (arrow_go_tpu_torch.parallel) at world size 1
+# ---------------------------------------------------------------------------
+
+DIST_AGGS = [(c, a) for c in ("l_qty", "l_price", "l_disc")
+             for a in ("sum", "mean", "count", "min", "max")]
+DIST_ODATE_MAX = 736              # orders kept by the join sweep's window
+DIST_HOWS = ["inner", "left outer", "right outer", "full outer",
+             "left semi", "left anti"]
+ZIPF_S = 1.1                      # the hot join's probe-key skew
+HOT_K = 16
+STREAM_TABLE = 1 << 25            # hash slots of the streamed group-by
+
+
+def host_batch(table: dict, names) -> HostBatch:
+    """A HostBatch of the named columns of a numpy table; an (int32
+    codes, values) pair becomes a dictionary column."""
+    cols = {}
+    for nm in names:
+        v = table[nm]
+        if isinstance(v, tuple):
+            cols[nm] = HostArray(v[0], None, dt.dictionary(dt.int32,
+                                                           dt.string), v[1])
+        else:
+            cols[nm] = HostArray(v, None, dt.from_numpy_dtype(v.dtype))
+    return HostBatch.from_arrays(cols)
+
+
+def dist_q1_oracle(li) -> dict:
+    """Q1's keys with sum, mean, count, min and max of l_qty, l_price and
+    l_disc per (l_rflag, l_lstatus), groups in code order (numpy)."""
+    rcode, rvals = li["l_rflag"]
+    scode, svals = li["l_lstatus"]
+    key = rcode.astype(np.int64) * len(svals) + scode
+    groups = np.flatnonzero(np.bincount(key, minlength=len(rvals)
+                                        * len(svals)))
+    out = {"l_rflag": [rvals[g // len(svals)] for g in groups],
+           "l_lstatus": [svals[g % len(svals)] for g in groups]}
+    masks = [key == g for g in groups]
+    counts = [int(m.sum()) for m in masks]
+    for c in ("l_qty", "l_price", "l_disc"):
+        v = li[c]
+        sums = [_np_sum(v, m) for m in masks]
+        big = np.inf if v.dtype.kind == "f" else np.iinfo(v.dtype).max
+        out.update({f"{c}_sum": sums,
+                    f"{c}_mean": [x / k for x, k in zip(sums, counts)],
+                    f"{c}_count": counts,
+                    f"{c}_min": [v.min(where=m, initial=big).item()
+                                 for m in masks],
+                    f"{c}_max": [v.max(where=m, initial=-big).item()
+                                 for m in masks]})
+    return {k: out[k] for k in ["l_rflag", "l_lstatus"] + [
+        f"{c}_{a}" for c, a in DIST_AGGS]}
+
+
+def check_dist_q1(out: HostBatch, want: dict) -> None:
+    """Keys, order, counts, minima and maxima exact; sums and means at
+    rtol 1e-9."""
+    got = out.to_pydict()
+    if list(got) != list(want):
+        raise AssertionError(f"dist_q1 columns {list(got)}")
+    for k, v in want.items():
+        if k.endswith(("_sum", "_mean")) and isinstance(v[0], float):
+            if not np.allclose(got[k], v, rtol=1e-9, atol=0):
+                raise AssertionError(f"dist_q1 {k}: {got[k]}, numpy {v}")
+        elif got[k] != v:
+            raise AssertionError(f"dist_q1 {k}: {got[k]}, numpy {v}")
+
+
+def _np_sum(a: np.ndarray, where=None):
+    total = np.sum(a, where=True if where is None else where)
+    return float(total) if a.dtype.kind == "f" else int(total)
+
+
+def _sum(t: torch.Tensor):
+    """A column's sum: float64 for floats, exact int64 for the rest."""
+    if t.dtype.is_floating_point:
+        return float(t.to(torch.float64).sum())
+    return int(t.to(torch.int64).sum())
+
+
+def join_sums(lk, lp, rk, rp, right_unique: bool = True) -> dict:
+    """numpy, for each join type: rows and per-column sums of lk/lp JOIN
+    rk/rp, the right side's keys unique (or the left's:
+    right_unique=False); unmatched rows carry 0 payloads and their own
+    side's key; for semi/anti the verdict's rows."""
+    uk, mk = (rk, lk) if right_unique else (lk, rk)   # unique, many
+    pos = np.full(int(max(lk.max(), rk.max())) + 1, -1, np.int64)
+    pos[uk] = np.arange(len(uk))
+    at = pos[mk]
+    m = at >= 0                       # many-side rows that match
+    per_u = np.bincount(at[m], minlength=len(uk))     # pairs a unique row
+    hit = per_u > 0                   # unique-side rows that match
+    lhit, rhit = (m, hit) if right_unique else (hit, m)
+    up, mp = (rp, lp) if right_unique else (lp, rp)
+    # pairs: one per matching many-side row
+    pairs = {"rows": int(m.sum()), "key": _np_sum(mk, m),
+             "matched": int(m.sum())}
+    many_sum = _np_sum(mp, m)
+    uniq_sum = float(np.dot(up.astype(np.float64), per_u)) \
+        if up.dtype.kind == "f" else int(np.dot(up.astype(np.int64), per_u))
+    pairs["lpay"], pairs["rpay"] = (many_sum, uniq_sum) if right_unique \
+        else (uniq_sum, many_sum)
+    out = {"left semi": {"rows": int(lhit.sum())},
+           "left anti": {"rows": int((~lhit).sum())}}
+    for how in ("inner", "left outer", "right outer", "full outer"):
+        o = dict(pairs)
+        if how in ("left outer", "full outer"):
+            o["rows"] += int((~lhit).sum())
+            o["key"] += _np_sum(lk, ~lhit)
+            o["lpay"] += _np_sum(lp, ~lhit)
+        if how in ("right outer", "full outer"):
+            o["rows"] += int((~rhit).sum())
+            o["key"] += _np_sum(rk, ~rhit)
+            o["rpay"] += _np_sum(rp, ~rhit)
+        out[how] = o
+    return out
+
+
+def dist_join_sums(how: str, out, n_groups: int) -> dict:
+    """The same sums over a distributed join's outputs (each group's
+    [0, n) prefix; semi/anti: the verdict)."""
+    if how in ("left semi", "left anti"):
+        return {"rows": int(out[0].sum())}
+    got = {"rows": 0, "key": 0, "lpay": 0, "rpay": 0, "matched": 0}
+    for g in range(n_groups):
+        keys, lp, rp, rmatch, n = out[5 * g: 5 * g + 5]
+        n = int(n[0])
+        got["rows"] += n
+        got["key"] += _sum(keys[0][:n])
+        got["lpay"] += _sum(lp[0][:n])
+        got["rpay"] += _sum(rp[0][:n])
+        got["matched"] += int(rmatch[:n].sum())
+    return got
+
+
+def check_join_sums(what: str, got: dict, want: dict) -> None:
+    for k, w in want.items():
+        g = got[k]
+        ok = np.isclose(g, w, rtol=1e-9, atol=0) if isinstance(w, float) \
+            else g == w
+        if not ok:
+            raise AssertionError(f"{what} {k}: {g}, numpy {w}")
+
+
+def zipf_keys(n: int, n_keys: int, dev) -> torch.Tensor:
+    """n keys over [0, n_keys), the key of rank r (1-based) drawn with
+    probability proportional to r**-ZIPF_S (inverse CDF of uniforms of
+    seed 14, on the device), ranks mapped to keys by a fixed random
+    permutation so that the hot keys spread over the key range."""
+    rng = np.random.default_rng(14)
+    w = np.arange(1, n_keys + 1, dtype=np.float64) ** -ZIPF_S
+    cdf = torch.from_numpy(np.cumsum(w) / w.sum()).to(dev)
+    u = torch.from_numpy(rng.random(n)).to(dev)
+    ranks = torch.searchsorted(cdf, u).clamp(max=n_keys - 1)
+    return torch.from_numpy(rng.permutation(n_keys)).to(dev)[ranks]
+
+
+def dist_phases(li, orders, dev, card: str,
+                timing_only: bool = False) -> dict:
+    """This slice's paths on one NCCL process group of world size 1
+    (tcp://127.0.0.1:<free port>), every exchange through NCCL:
+    `dist_q1` (distributed_group_by of every lineitem row by the two Q1
+    flags), `dist_join` (make_distributed_join of lineitem with the
+    orders of o_odate < DIST_ODATE_MAX, all six types), `dist_hot_join`
+    (Zipf(1.1) lineitem keys over all orders, hot_k=16, inner and left
+    outer: path A with the Zipf keys probing, path B with them as the
+    build side; each equal to the hot_k=0 join), `dist_sort`
+    (distributed_sort of orders on (o_odate, o_okey)) and
+    `dist_streamed` (make_group_by_sum_streamed against
+    make_group_by_sum by l_okey), each against numpy after one counted
+    run, then 3 timed runs. Every K1 and K2 call of one more run of each
+    path is held against the plain version (not with `timing_only`).
+    Returns each path's launch counts and the largest kernel - plain
+    difference."""
+    import torch.distributed as tdist
+    from arrow_go_tpu_torch.parallel.mesh import free_port
+    t_phase = time.perf_counter()
+    tdist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+        world_size=1, rank=0)
+    try:
+        out = _dist_paths(li, orders, dev, card, timing_only)
+    finally:
+        tdist.destroy_process_group()
+    print(json.dumps({"dist_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return out
+
+
+def _dist_paths(li, orders, dev, card, timing_only) -> dict:
+    import torch.distributed as tdist
+    from arrow_go_tpu_torch.parallel import api as papi
+    from arrow_go_tpu_torch.parallel import aggregate, mesh as pmesh
+    from arrow_go_tpu_torch.parallel import dist as pdist, overlap
+    mesh = pmesh.make_mesh(dev)
+    if tdist.get_backend() != "nccl" or mesh.world_size != 1:
+        raise AssertionError(f"dist: {tdist.get_backend()} group of "
+                             f"{mesh.world_size}")
+    n_li, n_ord = len(li["l_okey"]), len(orders["o_okey"])
+    launches, paths, runs, held = {}, {}, {}, {}
+    oracle_s = [0.0]                  # host time of the numpy oracles
+
+    def oracle(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        oracle_s[0] += time.perf_counter() - t0
+        return out
+
+    def run(key, name, fn, check, needs, **extra):
+        """One counted run, 3 timed runs, each checked; the exchange's
+        bytes and the peak memory of the counted run."""
+        for f in (pmesh.all_to_all, pmesh.all_gather):
+            f.bytes = 0
+        torch.cuda.reset_peak_memory_stats()
+        got, launches[name] = run_path(name, fn, needs)
+        check(got)
+        moved = pmesh.all_to_all.bytes + pmesh.all_gather.bytes
+        peak = torch.cuda.max_memory_allocated()
+        outs, runs[key] = timed(fn)
+        for o in outs:
+            check(o)
+        paths[key] = {**extra, "ms_runs": runs[key],
+                      "ms_median": float(np.median(runs[key])),
+                      "exchange_bytes": moved, "peak_mem_bytes": peak,
+                      "launches_per_run": launches[name]}
+        return got
+
+    # ---- dist_q1: the HostBatch API over every lineitem row
+    li_hb = host_batch(li, ["l_rflag", "l_lstatus", "l_qty", "l_price",
+                            "l_disc"])
+    q1_want = oracle(dist_q1_oracle, li)
+
+    def q1():
+        # after the local pre-aggregation a rank ships one row a group
+        return papi.distributed_group_by(
+            li_hb, ["l_rflag", "l_lstatus"], DIST_AGGS, mesh=mesh, cap=1024)
+    out = run("dist_q1", "dist Q1", q1, lambda o: check_dist_q1(o, q1_want),
+              ("K1",), rows=n_li, groups=len(q1_want["l_rflag"]))
+
+    # ---- dist_join: lineitem JOIN the orders of a date window, six types
+    keep = orders["o_odate"] < DIST_ODATE_MAX
+    l_key, l_pay = li["l_okey"], li["l_price"]
+    o_key, o_pay = orders["o_okey"][keep], orders["o_odate"][keep]
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    lk, lp, rk, rp = on(l_key), on(l_pay), on(o_key), on(o_pay)
+    lval = torch.ones(n_li, dtype=torch.bool, device=dev)
+    rval = torch.ones(len(o_key), dtype=torch.bool, device=dev)
+    lnull = torch.zeros(n_li, dtype=torch.bool, device=dev)
+    join_fns = {}
+    wants = oracle(join_sums, l_key, l_pay, o_key, o_pay)
+    for how in DIST_HOWS:
+        fn = pdist.make_distributed_join(
+            mesh, cap_shuffle=n_li, cap_out=n_li + len(o_key), how=how)
+        args = (lk, lp, lval, rk, rp, rval) + (
+            (lnull,) if how in ("left semi", "left anti") else ())
+        want = wants[how]
+
+        def call(fn=fn, args=args):
+            return fn(*args)
+
+        def check(o, how=how, want=want):
+            if bool(o[-1]):
+                raise AssertionError(f"dist_join {how}: overflow")
+            check_join_sums(f"dist_join {how}", dist_join_sums(how, o, 1),
+                            want)
+        run(f"dist_join {how}", f"dist join {how}", call, check,
+            ("K1", "K2"), rows=want["rows"], probe_rows=n_li,
+            build_rows=len(o_key))
+        join_fns[how] = (call, check)
+
+    # ---- dist_hot_join: Zipf probe keys, paths A and B, against hot_k=0
+    zk = zipf_keys(n_li, n_ord, dev)
+    z_key = zk.cpu().numpy()
+    okey, odate = on(orders["o_okey"]), on(orders["o_odate"])
+    oval = torch.ones(n_ord, dtype=torch.bool, device=dev)
+    counts = np.bincount(z_key, minlength=n_ord)
+    top = np.sort(counts)[::-1][:HOT_K]
+    hot_kw = {"hot_k": HOT_K, "hot_thresh": int(top[-1]) // 2,
+              "cap_hot": 1024, "cap_hot_out": n_li + n_ord}
+    sides = {"A": ((zk, lp, lval, okey, odate, oval),
+                   (z_key, l_pay, orders["o_okey"], orders["o_odate"],
+                    True)),
+             "B": ((okey, odate, oval, zk, lp, lval),
+                   (orders["o_okey"], orders["o_odate"], z_key, l_pay,
+                    False))}
+    hot = {}
+    for side, (args, host) in sides.items():
+        wants = oracle(join_sums, *host)
+        for how in ("inner", "left outer"):
+            want = wants[how]
+            kw = {"cap_shuffle": n_li, "cap_out": n_li + n_ord, "how": how}
+            fn = pdist.make_distributed_join(mesh, **kw, **hot_kw)
+            plain = pdist.make_distributed_join(mesh, **kw)
+
+            def call(fn=fn, args=args):
+                return fn(*args)
+
+            def check(o, how=how, want=want, side=side):
+                if bool(o[-1]):
+                    raise AssertionError(f"dist_hot_join {side} {how}: "
+                                         "overflow")
+                got = dist_join_sums(how, o, 3)
+                check_join_sums(f"dist_hot_join {side} {how}", got, want)
+                # the hot paths took rows: path A's or path B's group
+                n_hot = int(o[9 if side == "A" else 14][0])
+                if n_hot < 1:
+                    raise AssertionError(f"dist_hot_join {side} {how}: "
+                                         "no row took the hot path")
+            key = f"dist_hot_join {side} {how}"
+            run(key, f"dist hot join {side} {how}", call, check,
+                ("K1", "K2"), rows=want["rows"], hot_keys=HOT_K,
+                top_key_rows=int(top[0]))
+            flat = plain(*args)
+            check_join_sums(f"{key} hot_k=0", dist_join_sums(how, flat, 1),
+                            want)
+            hot[key] = (call, check)
+
+    # ---- dist_sort: orders on (o_odate, o_okey) through the API
+    ord_hb = host_batch(orders, ["o_odate", "o_okey", "o_custkey"])
+    order = oracle(np.lexsort, (orders["o_okey"], orders["o_odate"]))
+
+    def sort():
+        return papi.distributed_sort(ord_hb, ["o_odate", "o_okey"],
+                                     mesh=mesh)
+
+    def check_sort(o):
+        for c in ("o_odate", "o_okey", "o_custkey"):
+            if not np.array_equal(o.column(c).values, orders[c][order]):
+                raise AssertionError(f"dist_sort {c} differs from lexsort")
+    run("dist_sort", "dist sort", sort, check_sort, (), rows=n_ord)
+
+    # ---- dist_streamed: the chunk pipeline against the barrier form
+    qty = on(li["l_qty"].astype(np.int64))
+    sums_want = oracle(np.bincount, l_key, weights=li["l_qty"],
+                       minlength=n_ord)
+    cnt_want = oracle(np.bincount, l_key, minlength=n_ord)
+    present = np.flatnonzero(cnt_want)
+    streamed = overlap.make_group_by_sum_streamed(
+        mesh, cap=n_li // 4 + 1, n_chunks=4, table_size=STREAM_TABLE)
+    barrier = aggregate.make_group_by_sum(mesh, cap=n_li)
+
+    def check_groups(what, keys, sums, counts, n_groups, overflow):
+        if bool(overflow) or n_groups != len(present):
+            raise AssertionError(f"{what}: {n_groups} groups, numpy "
+                                 f"{len(present)}, overflow {bool(overflow)}")
+        o = torch.argsort(keys)
+        if not (np.array_equal(keys[o].cpu().numpy(), present)
+                and np.array_equal(sums[o].cpu().numpy(),
+                                   sums_want[present].astype(np.int64))
+                and np.array_equal(counts[o].cpu().numpy(),
+                                   cnt_want[present])):
+            raise AssertionError(f"{what}: groups differ from numpy")
+
+    def stream():
+        return streamed(lk, qty, lval)
+
+    def check_stream(o):
+        tk, sums, counts, occ, ng, ov = o
+        check_groups("dist_streamed", tk[occ], sums[occ], counts[occ],
+                     int(ng[0]), ov)
+
+    def barrier_run():
+        return barrier(lk, qty, lval)
+
+    def check_barrier(o):
+        gk, sums, counts, ng, ov = o
+        n = int(ng[0])
+        check_groups("dist_barrier", gk[:n], sums[:n], counts[:n], n, ov)
+    run("dist_streamed", "dist streamed", stream, check_stream, (),
+        rows=n_li, groups=len(present), n_chunks=4,
+        table_size=STREAM_TABLE)
+    run("dist_barrier", "dist barrier", barrier_run, check_barrier, ("K1",),
+        rows=n_li, groups=len(present))
+
+    print(json.dumps({"dist": {
+        "world_size": mesh.world_size, "backend": tdist.get_backend(),
+        "device": str(mesh.device), "paths": paths,
+        "streamed_vs_barrier_ms": [paths["dist_streamed"]["ms_median"],
+                                   paths["dist_barrier"]["ms_median"]],
+        "oracle_s": oracle_s[0], "card": card, "verified": True}}),
+        flush=True)
+    print(json.dumps({"dist_profile": {
+        "dist_q1": profile_device(q1, lambda o: check_dist_q1(o, q1_want)),
+        "dist_join inner": profile_device(*join_fns["inner"])}}),
+        flush=True)
+    errs = {"K1": 0.0, "K2": 0.0}
+    if not timing_only:
+        checks = {"dist_q1": (q1, lambda o: check_dist_q1(o, q1_want),
+                              "dist Q1")}
+        for how, (call, check) in join_fns.items():
+            checks[f"dist_join {how}"] = (call, check, f"dist join {how}")
+        for key, (call, check) in hot.items():
+            checks[key] = (call, check, "dist hot join" + key[13:])
+        checks["dist_sort"] = (sort, check_sort, "dist sort")
+        checks["dist_streamed"] = (stream, check_stream, "dist streamed")
+        checks["dist_barrier"] = (barrier_run, check_barrier, "dist barrier")
+        t0 = time.perf_counter()
+        for key, (call, check, name) in checks.items():
+            o, held[key] = check_path_calls(key, call, launches[name])
+            check(o)
+        print(json.dumps({"dist_path_checks": {
+            **held, "s": time.perf_counter() - t0}}), flush=True)
+        for k in errs:
+            errs[k] = max(h[k]["max_abs_err"] for h in held.values())
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -3430,6 +3854,8 @@ def main(argv=None) -> int:
                            timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.dataset"):
             dataset_phases(li, orders, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.parallel.api"):
+            dist_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -3445,12 +3871,16 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, dsets["errs"]["K1"])
     k2_err = max(k2_err, dsets["errs"]["K2"])
     k3_err = max(k3_err, dsets["errs"]["K3"])
+    dists = dist_phases(li, orders, dev, card)
+    k1_err = max(k1_err, dists["errs"]["K1"])
+    k2_err = max(k2_err, dists["errs"]["K2"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
                **joins["launches"], **types["launches"],
-               **decs["launches"], **dsets["launches"]}
+               **decs["launches"], **dsets["launches"],
+               **dists["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

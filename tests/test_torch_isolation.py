@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-its native codec library) nor pyarrow nor zstandard nor xxhash nor
-triton, its own
+its native codec library, nor its ci/ workers) nor pyarrow nor zstandard
+nor xxhash nor triton, its own
 codec library is built from its own source with no switch or fallback,
 and it never moves to the CPU unless asked."""
 import ast
@@ -19,7 +19,7 @@ from arrow_go_tpu_torch.device.block import batch_to_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
-             "zstandard", "xxhash", "triton")
+             "zstandard", "xxhash", "triton", "ci")
 
 
 def _forbidden(name: str) -> bool:
@@ -44,6 +44,18 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.parquet.writer\n"
             "import arrow_go_tpu_torch.parquet.bloom\n"
             "import arrow_go_tpu_torch.dataset\n"
+            "import arrow_go_tpu_torch.parallel\n"
+            "import arrow_go_tpu_torch.parallel.mesh\n"
+            "import arrow_go_tpu_torch.parallel.shuffle\n"
+            "import arrow_go_tpu_torch.parallel.aggregate\n"
+            "import arrow_go_tpu_torch.parallel.join\n"
+            "import arrow_go_tpu_torch.parallel.sort\n"
+            "import arrow_go_tpu_torch.parallel.dist\n"
+            "import arrow_go_tpu_torch.parallel.overlap\n"
+            "import arrow_go_tpu_torch.parallel.api\n"
+            "import arrow_go_tpu_torch.parallel.multiproc\n"
+            "import arrow_go_tpu_torch.parallel.multiproc_worker\n"
+            "import arrow_go_tpu_torch.ops.hashtable\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -149,3 +161,22 @@ def test_dataset_scan_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
         ds.to_table()
     db = next(ds.scanner().device_batches(device="cpu"))
     assert db.column("a").values[:10].tolist() == list(range(10))
+
+
+def test_distributed_tier_runs_on_the_card_unless_asked(monkeypatch):
+    """The tier's mesh and its table-level entry points resolve the card
+    when no device is named, and starting no process group on the way."""
+    import torch.distributed as dist
+    from arrow_go_tpu_torch import dtypes as dt, parallel
+    from arrow_go_tpu_torch.device.block import HostArray, HostBatch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hb = HostBatch(dt.Schema([dt.Field("k", dt.int64)]),
+                   [HostArray(np.arange(4), None, dt.int64)], 4)
+    for call in (lambda: parallel.make_mesh(),
+                 lambda: parallel.distributed_group_by(hb, "k",
+                                                       [("k", "count")]),
+                 lambda: parallel.distributed_sort(hb, "k"),
+                 lambda: parallel.distributed_hash_join(hb, hb, "k")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()

@@ -67,3 +67,28 @@ def words_u32(t):
     """The port's int32 validity words as the JAX package's uint32."""
     return t.numpy().view(np.uint32)
 
+
+def host_tables(data, masks=None):
+    """(the JAX package's RecordBatch, the port's HostBatch) of the same
+    columns (object columns as strings, dictionary-coded)."""
+    from arrow_go_tpu.device.block import batch_from_device
+    from arrow_go_tpu_torch.device.block import device_batch_to_host
+    jdb = jax_batch(data, masks)
+    return batch_from_device(jdb), device_batch_to_host(port_batch(jdb))
+
+
+def same_batch(got, want) -> None:
+    """A port HostBatch equal to a JAX RecordBatch: names, rows, and each
+    column's values (floats at rtol 1e-9, nulls where they are)."""
+    assert list(got.schema.names) == list(want.schema.names)
+    assert got.num_rows == want.num_rows
+    for i, name in enumerate(want.schema.names):
+        g, w = got.column(i).to_pylist(), want.column(i).to_pylist()
+        assert [x is None for x in g] == [x is None for x in w], name
+        gv = [x for x in g if x is not None]
+        wv = [x for x in w if x is not None]
+        if wv and isinstance(wv[0], float):
+            np.testing.assert_allclose(gv, wv, rtol=1e-9, atol=0,
+                                       equal_nan=True, err_msg=name)
+        else:
+            assert gv == wv, name
