@@ -9,9 +9,13 @@ mirror the JAX package. The port imports torch and numpy, never jax or
 arrow_go_tpu.
 """
 from . import compute, dtypes, parquet, torchenv
-from .device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
-                           batch_from_numpy, batch_to_device, pad_length)
+from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
+                           HostArray, HostBatch, HostColumn, batch_from_numpy,
+                           batch_to_device, list_from_device,
+                           list_take_device, list_to_device, pad_length)
 
-__all__ = ["compute", "dtypes", "parquet", "torchenv", "DeviceBatch", "DeviceColumn",
-           "HostArray", "HostBatch", "batch_from_numpy", "batch_to_device",
+__all__ = ["compute", "dtypes", "parquet", "torchenv", "DeviceBatch",
+           "DeviceColumn", "DeviceListColumn", "HostArray", "HostBatch",
+           "HostColumn", "batch_from_numpy", "batch_to_device",
+           "list_from_device", "list_take_device", "list_to_device",
            "pad_length"]

@@ -5,14 +5,16 @@ from .. import dtypes as dt
 from .cast import CastOptions, can_cast, cast_device
 from .errors import (ArrowError, ArrowIndexError, ArrowInvalid, ArrowKeyError,
                      ArrowNotImplemented)
-from .expression import call, execute_scalar_expression, field, literal
-from .functions import (CountOptions, FilterOptions, SetLookupOptions,
-                        SortKey, SortOptions, TakeOptions, VarianceOptions,
+from .expression import (call, execute_scalar_expression, field, literal,
+                         project)
+from .functions import (CountOptions, FilterOptions, MakeStructOptions,
+                        SetLookupOptions, SortKey, SortOptions, TakeOptions,
+                        VarianceOptions,
                         agg_all, agg_any, agg_count, agg_count_distinct,
                         agg_max, agg_mean, agg_min, agg_product, agg_stddev,
                         agg_sum, agg_variance, dictionary_encode, fill_null,
-                        filter_, if_else, index_in, is_in, min_max,
-                        sort_indices, take, unique)
+                        filter_, if_else, index_in, is_in, make_struct,
+                        min_max, sort_indices, take, unique, value_counts)
 from .groupby import group_by
 from .join import PROBE_CHUNK_DEFAULT, hash_join
 from .kernels import (arithmetic_binary, arithmetic_unary, boolean_binary,
@@ -39,7 +41,8 @@ def cast(values, target_type: dt.DataType,
 
 __all__ = ["ArrowError", "ArrowIndexError", "ArrowInvalid", "ArrowKeyError",
            "ArrowNotImplemented", "call", "execute_scalar_expression",
-           "field", "literal", "CountOptions", "FilterOptions",
+           "field", "literal", "project", "CountOptions", "FilterOptions",
+           "MakeStructOptions", "make_struct", "value_counts",
            "SetLookupOptions", "SortKey", "SortOptions", "TakeOptions",
            "VarianceOptions", "agg_all", "agg_any", "agg_count",
            "agg_count_distinct", "agg_max", "agg_mean", "agg_min",

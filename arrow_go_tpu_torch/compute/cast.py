@@ -53,6 +53,10 @@ class CastOptions:
         return CastOptions(True, True, True, True)
 
 
+LIST_KINDS = (dt.TypeId.LIST, dt.TypeId.LARGE_LIST,
+              dt.TypeId.FIXED_SIZE_LIST)
+
+
 def _fixed(t: dt.DataType) -> bool:
     return t.is_numeric or t == dt.bool_ or t.is_temporal
 
@@ -64,6 +68,8 @@ def can_cast(from_t: dt.DataType, to_t: dt.DataType) -> bool:
         return can_cast(from_t.value_type, to_t)
     if from_t.is_binary_like and (to_t.is_binary_like or to_t.is_numeric):
         return True
+    if from_t.id in LIST_KINDS and to_t.id in LIST_KINDS:
+        return can_cast(from_t.value_type, to_t.value_type)
     return to_t.is_binary_like and (from_t.is_numeric or from_t == dt.bool_)
 
 
@@ -286,6 +292,58 @@ def _typed_array(values, valid, to_t: dt.DataType) -> HostArray:
     return HostArray(out, None if valid.all() else valid, to_t)
 
 
+def _cast_child(child: HostArray, to_t: dt.DataType,
+                options: Optional[CastOptions]) -> HostArray:
+    """A list's child cast to its new value type: on the host, a fixed-
+    width cast through the plain device cast on the CPU."""
+    t = child.type.value_type if child.dictionary is not None else \
+        child.type
+    if t == to_t:
+        return child
+    if _fixed(t) and _fixed(to_t):
+        from ..device.block import column_to_host, host_array_to_device
+        return column_to_host(cast_device(host_array_to_device(
+            child, torch.device("cpu")), to_t, options))
+    return cast_host(child, to_t, options)
+
+
+def _cast_list(arr: HostArray, to_t: dt.DataType,
+               options: Optional[CastOptions]) -> HostArray:
+    """list <-> large_list <-> fixed_size_list with the child cast (the
+    JAX package rebuilds each valid row into the target's builder): a
+    null row keeps no child rows, or list_size null ones in a
+    fixed_size_list; a fixed_size_list target takes only rows of its
+    size."""
+    from ..device.block import nested_array
+    from .nested_selection import expand_runs, take_host_vec
+    n = len(arr)
+    valid = arr.validity_bools()
+    if arr.type.id == dt.TypeId.FIXED_SIZE_LIST:
+        k = arr.type.list_size
+        starts = np.arange(n, dtype=np.int64) * k
+        lens = np.full(n, k, np.int64)
+    else:
+        off = arr.offsets.astype(np.int64)
+        starts, lens = off[:-1], np.diff(off)
+    lens = np.where(valid, lens, 0)
+    if to_t.id == dt.TypeId.FIXED_SIZE_LIST:
+        k = to_t.list_size
+        if (lens[valid] != k).any():
+            raise ArrowInvalid(f"cast to {to_t}: a row's length is not {k}")
+        child_idx = np.where(np.repeat(valid, k), (
+            starts[:, None] + np.arange(k)).reshape(-1), -1)
+        child = take_host_vec(arr.children[0], child_idx)
+        return nested_array(to_t, n, arr.mask, [
+            _cast_child(child, to_t.value_type, options)])
+    child = take_host_vec(arr.children[0], expand_runs(starts, lens))
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    if offsets[-1] > np.iinfo(to_t.offset_dtype).max:
+        raise ArrowInvalid(f"cast to {to_t}: offsets overflow")
+    return nested_array(to_t, n, arr.mask, [
+        _cast_child(child, to_t.value_type, options)], offsets)
+
+
 def cast_host(arr: HostArray, to_t: dt.DataType,
               options: Optional[CastOptions] = None) -> HostArray:
     """The host cast path: any cast with a binary-like side. A string
@@ -293,6 +351,10 @@ def cast_host(arr: HostArray, to_t: dt.DataType,
     from_t = arr.type
     if from_t == to_t:
         return arr
+    if from_t.id in LIST_KINDS and to_t.id in LIST_KINDS:
+        return _cast_list(arr, to_t, options)
+    if from_t.is_nested or to_t.is_nested:
+        raise ArrowNotImplemented(f"cast {from_t} -> {to_t}")
     valid = arr.validity_bools()
     if from_t.id == dt.TypeId.DICTIONARY:
         vt = from_t.value_type

@@ -10,7 +10,8 @@ arithmetic unchecked and cast with CastOptions.unsafe(), as the JAX
 package does, so no check syncs with the host inside an expression. A
 literal reaches its kernel as it is: a `decimal.Decimal` beside a
 decimal128 / decimal256 column becomes the column's unscaled value
-there (compute/kernels.py).
+there (compute/kernels.py). `project` is a `make_struct` call, whose
+struct result lives on the host (device blocks are flat).
 """
 from __future__ import annotations
 
@@ -75,6 +76,12 @@ def call(function: str, args: Sequence[Expression], options=None) -> Call:
                            for a in args], options)
 
 
+def project(values: Sequence[Expression], names: Sequence[str]) -> Call:
+    """Shorthand for a `make_struct` call of record-batch shape
+    (reference expression.go:573-581 Project)."""
+    return call("make_struct", list(values), {"field_names": list(names)})
+
+
 def _resolve_field(db: DeviceBatch, ref: FieldRef) -> DeviceColumn:
     p = ref.path[0]
     idx = db.schema.field_index(p) if isinstance(p, str) else p
@@ -118,6 +125,8 @@ def _apply(fname: str, args: List[Any], options):
     if fname == "cast":
         to_t = options["to_type"] if isinstance(options, dict) else options
         return cast_device(args[0], to_t, CastOptions.unsafe())
+    if fname == "make_struct":
+        return functions.make_struct(*args, options=options)
     if fname == "is_in":
         vs = options["value_set"] if isinstance(options, dict) else options
         return functions.is_in(args[0], value_set=vs)

@@ -8,9 +8,13 @@ fast path for group-sized results and its record form over sort keys
 dictionary_encode (first-occurrence codes, ops/hashing.py); is_in and
 index_in against a host value set; fill_null and if_else; and the
 scalar aggregates sum / min / max / mean / count / min_max / product /
-variance / stddev (masked reductions, K3 on the card), count_distinct,
-any and all. `value_counts` and `make_struct` return struct arrays,
-which the port does not carry yet.
+variance / stddev (masked reductions, K3 on the card; bool, the narrow
+integers and float16 widened to the JAX package's accumulators first,
+unsigned values read unsigned), count_distinct, any and all;
+`value_counts` and `make_struct`, whose struct results are host
+columns. filter_ and take take DeviceBatches, DeviceColumns,
+DeviceListColumns, HostBatches and HostArrays; nested columns select on
+the host (compute/nested_selection.py).
 
 A decimal128 / decimal256 column is a (P, k) limb matrix: the batch
 filter carries each limb as a payload of its own, take gathers rows and
@@ -31,12 +35,16 @@ import torch
 
 from .. import dtypes as dt
 from .. import torchenv
-from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
-                            factorize, host_array_to_device, pad_length,
+from ..device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
+                            HostArray, HostBatch, HostColumn, column_to_host,
+                            device_batch_to_host, factorize,
+                            host_array_to_device, host_batch_to_device,
+                            list_take_device, nested_array, pad_length,
                             row_mask)
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from ..ops.decimal import to_ints
+from . import nested_selection
 from .cast import cast_device, cast_host
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
 
@@ -77,6 +85,15 @@ class SetLookupOptions:
 @dataclass
 class VarianceOptions:
     ddof: int = 0
+
+
+@dataclass
+class MakeStructOptions:
+    """Field names, nullability and metadata of make_struct's result
+    (reference compute.MakeStructOptions)."""
+    field_names: List[str] = dc_field(default_factory=list)
+    field_nullability: Optional[List[bool]] = None
+    field_metadata: Optional[List[Optional[dict]]] = None
 
 
 def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
@@ -129,26 +146,125 @@ def _filter_batch(mvals, mvalidity, col_vals, col_valids, length,
     return cnt, outs, valids
 
 
-def filter_(values, mask, options: Optional[FilterOptions] = None):
-    """DeviceBatch in -> DeviceBatch out: the rows where `mask` is true."""
-    options = options or FilterOptions()
-    if not isinstance(values, DeviceBatch):
-        raise ArrowNotImplemented("the port filters DeviceBatches")
-    db = values
+def _mask_on(mask, dev, P: int) -> DeviceColumn:
+    """A boolean filter mask (DeviceColumn or HostArray) as a DeviceColumn
+    on `dev` padded to P."""
+    if isinstance(mask, HostArray):
+        mask = host_array_to_device(mask, dev, P)
     if not isinstance(mask, DeviceColumn) or mask.type != dt.bool_:
         raise ArrowNotImplemented("filter mask must be a boolean "
-                                  "DeviceColumn")
-    if mask.padded != db.padded:
-        raise ArrowInvalid(f"mask padding {mask.padded} != batch padding "
-                           f"{db.padded}")
-    cnt, out_vals, out_valids = _filter_batch(
-        mask.values, mask.validity, [c.values for c in db.columns],
-        [c.validity for c in db.columns], db.length,
-        options.null_selection)
-    count = int(cnt)
-    cols = [_trim(DeviceColumn(v, w, count, c.type, c.dictionary), count)
-            for v, w, c in zip(out_vals, out_valids, db.columns)]
+                                  "DeviceColumn or HostArray")
+    if mask.padded != P:
+        raise ArrowInvalid(f"mask padding {mask.padded} != values padding "
+                           f"{P}")
+    return mask
+
+
+def _host_mask(mask):
+    """A boolean filter mask -> (values, validity) bool ndarrays."""
+    if isinstance(mask, DeviceColumn):
+        mask = column_to_host(mask)
+    if not isinstance(mask, HostArray) or mask.type != dt.bool_:
+        raise ArrowNotImplemented("filter mask must be a boolean "
+                                  "DeviceColumn or HostArray")
+    return mask.values.astype(np.bool_), mask.validity_bools()
+
+
+def _host_filter_indices(mask, options: FilterOptions) -> np.ndarray:
+    return nested_selection.filter_indices_host(*_host_mask(mask),
+                                                options.null_selection)
+
+
+def _filter_device_batch(db: DeviceBatch, mask,
+                         options: FilterOptions) -> DeviceBatch:
+    """Every device column rides one compaction (K1 on the card); a
+    HostColumn takes the same rows on the host."""
+    devs = db.device_columns
+    hidx = None
+    if devs:
+        mcol = _mask_on(mask, devs[0].device, db.padded)
+        cnt, out_vals, out_valids = _filter_batch(
+            mcol.values, mcol.validity, [c.values for c in devs],
+            [c.validity for c in devs], db.length, options.null_selection)
+        count = int(cnt)
+        outs = iter(zip(out_vals, out_valids))
+    else:
+        hidx = _host_filter_indices(mask, options)
+        count = len(hidx)
+    cols = []
+    for c in db.columns:
+        if isinstance(c, HostColumn):
+            if hidx is None:
+                hidx = _host_filter_indices(mcol, options)
+            cols.append(HostColumn(nested_selection.take_host_vec(c.array,
+                                                                  hidx)))
+            continue
+        v, w = next(outs)
+        cols.append(_trim(DeviceColumn(v, w, count, c.type, c.dictionary),
+                          count))
     return DeviceBatch(db.schema, cols, count)
+
+
+def _filter_column(col: DeviceColumn, mask,
+                   options: FilterOptions) -> DeviceColumn:
+    """One column's values (its limbs, each a payload) and its validity
+    ride the compaction (K1 on the card), as the JAX package's single
+    column filter does."""
+    mcol = _mask_on(mask, col.device, col.padded)
+    cnt, (v,), (w,) = _filter_batch(mcol.values, mcol.validity,
+                                    [col.values], [col.validity],
+                                    col.length, options.null_selection)
+    count = int(cnt)
+    return _trim(DeviceColumn(v, w, count, col.type, col.dictionary), count)
+
+
+def filter_(values, mask, options: Optional[FilterOptions] = None,
+            device=None):
+    """The rows where `mask` (a boolean DeviceColumn or HostArray) is
+    true. A DeviceBatch or DeviceColumn filters on its device (K1), a
+    DeviceBatch's HostColumns on the host; a DeviceListColumn by
+    filter_indices (K1) and list_take_device. A HostBatch or HostArray
+    of flat columns filters on `device` (the card unless named) and
+    comes back to the host; one with a nested column filters on the
+    host (compute/nested_selection.py). A host input or mask gives a
+    host result, as in the JAX package."""
+    options = options or FilterOptions()
+    host_mask = isinstance(mask, HostArray)
+    if isinstance(values, DeviceBatch):
+        out = _filter_device_batch(values, mask, options)
+        return device_batch_to_host(out) if host_mask else out
+    if isinstance(values, DeviceColumn):
+        out = _filter_column(values, mask, options)
+        return column_to_host(out) if host_mask else out
+    if isinstance(values, DeviceListColumn):
+        mcol = _mask_on(mask, values.device, values.padded)
+        idx, cnt = selection.filter_indices(mcol.values, mcol.validity,
+                                            mcol.length,
+                                            options.null_selection)
+        return list_take_device(values, idx, int(cnt))
+    if isinstance(values, HostBatch):
+        if any(c.type.is_nested for c in values.columns):
+            hidx = _host_filter_indices(mask, options)
+            return HostBatch(values.schema, [
+                nested_selection.take_host_vec(c, hidx)
+                for c in values.columns], len(hidx))
+        db = host_batch_to_device(values, _device_of(mask, device))
+        return device_batch_to_host(_filter_device_batch(db, mask, options))
+    if isinstance(values, HostArray):
+        if values.type.is_nested:
+            return nested_selection.take_host_vec(
+                values, _host_filter_indices(mask, options))
+        col = host_array_to_device(values, _device_of(mask, device))
+        return column_to_host(_filter_column(col, mask, options))
+    raise ArrowNotImplemented(f"filter of {type(values).__name__}")
+
+
+def _device_of(other, device):
+    """The device of `other` when it is a DeviceColumn, else `device`
+    (the card unless named)."""
+    if isinstance(other, DeviceColumn):
+        return other.device
+    return torchenv.device(device)
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +273,11 @@ def filter_(values, mask, options: Optional[FilterOptions] = None):
 
 def _host_take_indices(indices: HostArray, n_src: int,
                        options: TakeOptions) -> np.ndarray:
-    """Take-indices -> int64 ndarray with -1 for null slots."""
-    if indices.type not in (dt.int32, dt.int64):
+    """Take-indices of any integer type -> int64 ndarray with -1 for
+    null slots, bounds-checked before the null slots become -1."""
+    if not indices.type.is_integer:
         raise ArrowNotImplemented("take indices must be integer")
-    idx = np.asarray(indices.values, dtype=np.int64).copy()
+    idx = np.asarray(indices.values).astype(np.int64)
     valid = indices.validity_bools()
     if options.bounds_check and len(idx) and (
             (valid & ((idx < 0) | (idx >= n_src))).any()):
@@ -170,46 +287,82 @@ def _host_take_indices(indices: HostArray, n_src: int,
     return idx
 
 
-def _take_host(arr: HostArray, idx: np.ndarray) -> HostArray:
-    safe = np.clip(idx, 0, max(len(arr) - 1, 0))
-    vals = arr.values[safe] if len(arr) else np.zeros(len(idx),
-                                                      arr.values.dtype)
-    mask = (idx >= 0) & arr.validity_bools()[safe] if len(arr) else \
-        np.zeros(len(idx), np.bool_)
-    return HostArray(vals, None if mask.all() else mask, arr.type,
-                     arr.dictionary)
+def _device_take_indices(icol: DeviceColumn, n_src: int,
+                         options: TakeOptions) -> torch.Tensor:
+    """Take-indices of any integer type on the device -> int64 with -1
+    for null slots. The bounds check reads the raw values under the
+    validity (the JAX package's take_indices_checked), so a valid -1,
+    or a uint32 0xFFFFFFFF, is out of bounds; an unsigned index reads
+    unsigned."""
+    if not icol.type.is_integer:
+        raise ArrowNotImplemented("take indices must be integer")
+    raw = convert.as_int64(icol.values, icol.type)
+    valid = icol.validity_mask()
+    if options.bounds_check and bool(
+            (valid & ((raw < 0) | (raw >= n_src))).any()):
+        raise ArrowIndexError(
+            f"take index out of bounds (source length {n_src})")
+    return torch.where(valid, raw, -1)
 
 
-def take(values, indices, options: Optional[TakeOptions] = None):
-    """values[indices]: host arrays take on the host; device columns
-    take on their device."""
+def _take_device_column(col: DeviceColumn, idx: torch.Tensor,
+                        count: int) -> DeviceColumn:
+    return DeviceColumn(selection.gather(col.values, idx),
+                        selection.take_validity(col.validity, idx, count,
+                                                idx.shape[0]),
+                        count, col.type, col.dictionary)
+
+
+def take(values, indices, options: Optional[TakeOptions] = None,
+         device=None):
+    """values[indices], indices of any integer type (a null index gives
+    a null row). Host values by host indices take on the host (nested
+    columns too, compute/nested_selection.py). A DeviceColumn,
+    DeviceListColumn or DeviceBatch takes on its device; a DeviceBatch's
+    HostColumns on the host. A DeviceColumn by host indices, or a flat
+    HostArray by DeviceColumn indices, moves both to the device, and
+    the result comes back to the host, as the JAX package's take does."""
     options = options or TakeOptions()
+    if isinstance(values, (HostBatch, HostArray)) and isinstance(
+            indices, DeviceColumn):
+        if isinstance(values, HostBatch) or values.type.is_nested:
+            indices = column_to_host(indices)
+        else:
+            return column_to_host(take(host_array_to_device(
+                values, indices.device), indices, options))
     if isinstance(values, HostBatch):
         hidx = _host_take_indices(indices, values.num_rows, options)
         return HostBatch(values.schema,
-                         [_take_host(c, hidx) for c in values.columns],
+                         [nested_selection.take_host_vec(c, hidx) for c in values.columns],
                          len(hidx))
     if isinstance(values, HostArray):
-        return _take_host(values, _host_take_indices(indices, len(values),
-                                                     options))
-    if isinstance(values, DeviceColumn) and isinstance(indices,
-                                                       DeviceColumn):
-        idx = indices.values.to(torch.int64)
-        if indices.validity is not None:
-            idx = torch.where(
-                bitmap.expand_words(indices.validity, indices.padded),
-                idx, -1)
-        live = torch.arange(indices.padded, device=idx.device) \
-            < indices.length
-        if options.bounds_check and bool(
-                (live & ((idx < -1) | (idx >= values.length))).any()):
-            raise ArrowIndexError(
-                f"take index out of bounds (source length {values.length})")
-        vals = selection.gather(values.values, idx)
-        words = selection.take_validity(values.validity, idx,
-                                        indices.length, indices.padded)
-        return DeviceColumn(vals, words, indices.length, values.type,
-                            values.dictionary)
+        return nested_selection.take_host_vec(
+            values, _host_take_indices(indices, len(values), options))
+    if isinstance(indices, HostArray) and isinstance(values, DeviceColumn):
+        return column_to_host(take(values, host_array_to_device(
+            indices, values.device), options))
+    if not isinstance(indices, DeviceColumn):
+        raise ArrowNotImplemented(
+            f"take of {type(values).__name__} by {type(indices).__name__}")
+    if isinstance(values, DeviceColumn):
+        idx = _device_take_indices(indices, values.length, options)
+        return _take_device_column(values, idx, indices.length)
+    if isinstance(values, DeviceListColumn):
+        idx = _device_take_indices(indices, values.length, options)
+        return list_take_device(values, idx, indices.length)
+    if isinstance(values, DeviceBatch):
+        idx = _device_take_indices(indices, values.length, options)
+        hidx = None
+        cols = []
+        for c in values.columns:
+            if isinstance(c, HostColumn):
+                if hidx is None:
+                    hidx = idx[:indices.length].cpu().numpy()
+                cols.append(HostColumn(nested_selection.take_host_vec(
+                    c.array, hidx)))
+            else:
+                cols.append(_take_device_column(c, idx, indices.length))
+        return DeviceBatch(values.schema, cols, indices.length)
     raise ArrowNotImplemented(
         f"take of {type(values).__name__} by {type(indices).__name__}")
 
@@ -378,6 +531,46 @@ def _n_valid(col: DeviceColumn) -> int:
     return int(reductions.count_valid(col.values, col.validity, col.length))
 
 
+_U64 = 1 << 64
+
+
+def _agg_operand(col: DeviceColumn, op: str) -> torch.Tensor:
+    """A column's values as K3 takes them, in the accumulator the JAX
+    package uses (ops/reductions._acc_dtype; jnp.prod promotes ints):
+    a sum or product of bool or any integer type in int64 (unsigned
+    zero-extended; a uint64's bits wrap as uint64 does), a float16 in
+    float32; min and max of an 8- or 16-bit integer in int32, of a
+    uint32 zero-extended to int64, of a uint64 with its sign bit
+    flipped (`_agg_result` flips it back), of a float16 in float32."""
+    t, v = col.type, col.values
+    if t.is_decimal or t.is_temporal or t.id == dt.TypeId.DICTIONARY:
+        return v
+    if t == dt.float16:
+        return v.to(torch.float32)
+    if op in ("sum", "prod"):
+        return v if v.dtype.is_floating_point else convert.as_int64(v, t)
+    if t.id == dt.TypeId.UINT64:
+        return convert.order_bits(v, t)
+    if t == dt.uint32:
+        return convert.as_int64(v, t)
+    if t.is_integer and t.bit_width < 32:
+        return convert.as_int64(v, t).to(torch.int32)
+    return v
+
+
+def _agg_result(acc, t: dt.DataType, op: str):
+    """K3's accumulator as the JAX package's result: an unsigned sum or
+    product mod 2**64, a uint64 minimum or maximum with its sign bit
+    back, a float16 product rounded to float16."""
+    if t.is_unsigned_integer:
+        if op in ("min", "max") and t.id == dt.TypeId.UINT64:
+            return acc + (1 << 63)
+        return acc % _U64
+    if t == dt.float16 and op == "prod":
+        return float(np.float16(acc))
+    return acc
+
+
 def _reduce(values, op: str):
     """One masked reduction as a Python scalar; None when no row is
     valid. The accumulator and the valid count come from one K3 launch
@@ -385,8 +578,8 @@ def _reduce(values, op: str):
     its unscaled ints, as the JAX package does."""
     col = _as_device(values, op)
     acc, count = reductions.reduce_with_count_host(
-        col.values, col.validity, col.length, op)
-    return None if count == 0 else acc
+        _agg_operand(col, op), col.validity, col.length, op)
+    return None if count == 0 else _agg_result(acc, col.type, op)
 
 
 def agg_sum(values, options=None):
@@ -406,8 +599,10 @@ def agg_mean(values, options=None):
     and one device-to-host copy; None when no row is valid."""
     col = _as_device(values, "mean")
     total, count = reductions.reduce_with_count_host(
-        col.values, col.validity, col.length, "sum")
-    return None if count == 0 else float(total) / count
+        _agg_operand(col, "sum"), col.validity, col.length, "sum")
+    if count == 0:
+        return None
+    return float(_agg_result(total, col.type, "sum")) / count
 
 
 def agg_count(values, options: Optional[CountOptions] = None):
@@ -445,24 +640,21 @@ def agg_all(values, options=None):
 
 
 def agg_product(values, options=None):
-    """Product of the valid rows (K3), None when there is none. int32
-    widens to int64 first, as `jnp.prod` promotes it; integer products
-    wrap."""
-    col = _as_device(values, "product")
-    v = col.values.to(torch.int64) if col.values.dtype == torch.int32 \
-        else col.values
-    acc, count = reductions.reduce_with_count_host(v, col.validity,
-                                                   col.length, "prod")
-    return None if count == 0 else acc
+    """Product of the valid rows (K3), None when there is none; bool and
+    every integer type multiply in int64 (uint64 bits), as `jnp.prod`
+    promotes them; integer products wrap."""
+    return _reduce(values, "prod")
 
 
 def agg_variance(values, options: Optional[VarianceOptions] = None):
     """Population variance (ddof 0) or with `options.ddof`, in float64:
     two K3 sums, of the values (with their count) and of the squared
-    deviations from their mean."""
+    deviations from their mean. Unsigned values read unsigned."""
     options = options or VarianceOptions()
     col = _as_device(values, "variance")
-    x = col.values.to(torch.float64)
+    t = col.type
+    x = convert.convert(col.values, t, dt.float64) if (
+        t.is_numeric or t == dt.bool_) else col.values.to(torch.float64)
     total, count = reductions.reduce_with_count_host(x, col.validity,
                                                      col.length, "sum")
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -540,10 +732,99 @@ def dictionary_encode(values, options=None) -> DeviceColumn:
     if col.dictionary is not None:
         return col
     codes, first, _ = _first_occurrences(col)
-    dictionary = col.values.index_select(0, first).cpu().numpy()
+    dictionary = convert.host_view(
+        col.values.index_select(0, first).cpu().numpy(), col.type)
     return DeviceColumn(torch.where(codes >= 0, codes, 0).to(torch.int32),
                         col.validity, col.length,
                         dt.dictionary(dt.int32, col.type), dictionary)
+
+
+def _with_null_host(vals: np.ndarray, null_at) -> tuple:
+    """Host values with a null slot inserted at null_at (None: no null),
+    as (values, mask or None)."""
+    if null_at is None:
+        return vals, None
+    out = np.insert(vals, null_at, np.zeros((), vals.dtype), axis=0)
+    mask = np.ones(len(out), np.bool_)
+    mask[null_at] = False
+    return out, mask
+
+
+def value_counts(values, options=None, device=None) -> HostArray:
+    """struct<values, counts: int64> of the distinct values in
+    first-occurrence order, the null (if any) where it first occurs,
+    with its count: one encode, one count scatter and one host read of
+    the group-sized results (the JAX package builds the same struct row
+    by row). A HostArray counts on `device` (the card unless named)."""
+    col = values if isinstance(values, DeviceColumn) else \
+        host_array_to_device(values, torchenv.device(device)) \
+        if isinstance(values, HostArray) else values
+    col = _as_device(col, "value_counts")
+    res = hashing.encode_codes(col.values, col.type, col.validity,
+                               col.length)
+    counts = hashing.value_counts_from_codes(res, col.padded, col.length)
+    n_unique, has_null, null_row, null_count = torch.stack([
+        res.n_unique, res.has_null.to(torch.int64), res.null_first_row,
+        counts[col.padded]]).tolist()
+    first = res.first_index[:n_unique]
+    null_at = int((first < null_row).sum()) if has_null else None
+    vals, mask = _with_null_host(convert.host_view(
+        col.values.index_select(0, first).cpu().numpy(), col.type),
+        null_at)
+    cnts = counts[:n_unique].cpu().numpy()
+    if null_at is not None:
+        cnts = np.insert(cnts, null_at, null_count)
+    vtype = col.type.value_type if col.dictionary is not None else col.type
+    st = dt.struct([dt.Field("values", vtype), dt.Field("counts", dt.int64)])
+    return nested_array(st, len(cnts), None, [
+        HostArray(vals, mask, col.type, col.dictionary),
+        HostArray(cnts.astype(np.int64), None, dt.int64)])
+
+
+def _scalar_array(v, n: int) -> HostArray:
+    """n copies of a Python scalar, typed as the JAX package's array()
+    infers it: bool, int64, float64 or string."""
+    if isinstance(v, (str, bytes)):
+        t = dt.string if isinstance(v, str) else dt.binary
+        d = np.empty(1, dtype=object)
+        d[0] = v
+        return HostArray(np.zeros(n, np.int32), None,
+                         dt.dictionary(dt.int32, t), d)
+    t = dt.bool_ if isinstance(v, bool) else dt.int64 if isinstance(
+        v, int) else dt.float64
+    return HostArray(np.full(n, v, t.np_dtype), None, t)
+
+
+def make_struct(*args, options=None) -> HostArray:
+    """Zip columns into one struct column whose rows are never null
+    (nulls stay in the children), as the JAX package's make_struct:
+    DeviceColumns come to the host, HostArrays go as they are, a Python
+    scalar repeats. options: MakeStructOptions, a dict of its fields,
+    or a list of field names (missing names are "0", "1", ...)."""
+    if options is None:
+        options = MakeStructOptions()
+    elif isinstance(options, dict):
+        options = MakeStructOptions(**options)
+    elif isinstance(options, (list, tuple)):
+        options = MakeStructOptions(field_names=list(options))
+    names = list(options.field_names)
+    names += [str(i) for i in range(len(names), len(args))]
+    lengths = {len(a) if isinstance(a, HostArray) else a.length
+               for a in args if isinstance(a, (HostArray, DeviceColumn))}
+    if not lengths:
+        raise ArrowInvalid("make_struct needs at least one array argument")
+    if len(lengths) > 1:
+        raise ArrowInvalid(f"make_struct column lengths {sorted(lengths)}")
+    (n,) = lengths
+    children = [column_to_host(a) if isinstance(a, DeviceColumn) else a
+                if isinstance(a, HostArray) else _scalar_array(a, n)
+                for a in args]
+    nullable = list(options.field_nullability or [])
+    nullable += [True] * (len(children) - len(nullable))
+    st = dt.struct([dt.Field(nm, c.type.value_type if c.dictionary
+                             is not None else c.type, bool(nb))
+                    for nm, c, nb in zip(names, children, nullable)])
+    return nested_array(st, n, None, children)
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +1011,14 @@ def _is_dict(x) -> bool:
     return isinstance(x, DeviceColumn) and x.dictionary is not None
 
 
+def _storage_scalar(v, t: dt.DataType):
+    """A scalar of type t as its storage value: an unsigned integer's
+    bits in the signed storage dtype (uint32 2**31 -> -2**31)."""
+    if t.stores_unsigned_as_signed and isinstance(v, (int, np.integer)):
+        return int(np.array(v, t.np_dtype).view(f"i{t.bit_width // 8}"))
+    return v
+
+
 def fill_null(values, fill_value) -> DeviceColumn:
     """Null rows take `fill_value` (a scalar or a DeviceColumn's row).
     String operands select in one code space (`_one_code_space`) and the
@@ -742,8 +1031,8 @@ def fill_null(values, fill_value) -> DeviceColumn:
         col, fill_value = _one_code_space(col, fill_value,
                                           "fill_null operands")
     fv = fill_value.values if isinstance(fill_value, DeviceColumn) else \
-        torch.full((col.padded,), fill_value, dtype=col.values.dtype,
-                   device=col.device)
+        torch.full((col.padded,), _storage_scalar(fill_value, col.type),
+                   dtype=col.values.dtype, device=col.device)
     isvalid = bitmap.expand_words(col.validity, col.padded)
     return DeviceColumn(torch.where(isvalid, col.values, fv), None,
                         col.length, col.type, col.dictionary)
@@ -776,7 +1065,8 @@ def if_else(cond, left, right) -> DeviceColumn:
             ok = torch.ones(P, dtype=torch.bool, device=dev) \
                 if x.validity is None else bitmap.expand_words(x.validity, P)
             return x.values, ok
-        return (torch.full((P,), x, dtype=t.torch_dtype, device=dev),
+        return (torch.full((P,), _storage_scalar(x, t), dtype=t.torch_dtype,
+                           device=dev),
                 torch.ones(P, dtype=torch.bool, device=dev))
 
     lv, lm = vals_mask(left)
@@ -805,7 +1095,8 @@ CAST_TARGETS = {
     "cast_binary": dt.binary, "cast_date32": dt.date32,
     "cast_date64": dt.date64, "cast_time32": None, "cast_time64": None,
     "cast_timestamp": None, "cast_duration": None, "cast_decimal": None,
-    "cast_decimal256": None,
+    "cast_decimal256": None, "cast_list": None, "cast_large_list": None,
+    "cast_fixed_size_list": None, "cast_struct": None,
 }
 
 
@@ -862,10 +1153,10 @@ def register_all(reg) -> None:
 
     # selection, sort and vector hash
     def filter_fn(values, mask, options=None, device=None):
-        return filter_(values, mask, options)
+        return filter_(values, mask, options, device)
 
     def take_fn(values, indices, options=None, device=None):
-        return take(values, indices, options)
+        return take(values, indices, options, device)
 
     add("filter", K.META, Arity.binary(), filter_fn, raw_args=True)
     add("array_filter", K.VECTOR, Arity.binary(), filter_fn, raw_args=True)
@@ -874,6 +1165,8 @@ def register_all(reg) -> None:
     add("sort_indices", K.VECTOR, Arity.unary(), sort_indices,
         raw_args=True)
     add("unique", K.VECTOR, Arity.unary(), unique)
+    add("value_counts", K.VECTOR, Arity.unary(), value_counts,
+        raw_args=True)
     add("dictionary_encode", K.VECTOR, Arity.unary(), dictionary_encode)
     # set lookup and the structural selections
     add("is_in", K.SCALAR, Arity.unary(), is_in)
@@ -882,6 +1175,9 @@ def register_all(reg) -> None:
         lambda a, b, options=None: fill_null(a, b))
     add("if_else", K.SCALAR, Arity.ternary(),
         lambda c, a, b, options=None: if_else(c, a, b))
+    add("make_struct", K.SCALAR, Arity.varargs(1),
+        lambda *args, options=None, device=None: make_struct(
+            *args, options=options), raw_args=True)
     # scalar aggregates
     for name, fn in (("sum", agg_sum), ("min", agg_min), ("max", agg_max),
                      ("mean", agg_mean), ("count", agg_count),
@@ -910,8 +1206,8 @@ def _cast_to(name: str, default_t):
 def _exec_cast(a, options=None, device=None):
     """cast's routing: a DeviceColumn casts on its device (to a string
     or decimal type on the host); a HostArray casts on the host when a
-    side is binary-like or decimal, else on `device` (the card unless
-    named) and back."""
+    side is binary-like, decimal or nested, else on `device` (the card
+    unless named) and back."""
     from ..device.block import column_to_host
     if isinstance(options, dt.DataType):
         to_t, opts = options, None
@@ -927,7 +1223,8 @@ def _exec_cast(a, options=None, device=None):
         t = a.type
         storage = t.value_type if t.id == dt.TypeId.DICTIONARY else t
         if storage.is_binary_like or to_t.is_binary_like or \
-                storage.is_decimal or to_t.is_decimal:
+                storage.is_decimal or to_t.is_decimal or \
+                storage.is_nested or to_t.is_nested:
             return cast_host(a, to_t, opts)
         return column_to_host(cast_device(
             host_array_to_device(a, torchenv.device(device)), to_t, opts))

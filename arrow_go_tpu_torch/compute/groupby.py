@@ -27,7 +27,7 @@ from .. import dtypes as dt
 from ..device.block import (DeviceBatch, HostArray, HostBatch, _unpack_words,
                             pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
-from ..ops.convert import as_int64, host_view
+from ..ops.convert import as_int64, convert, host_view
 from ..ops.sort import _orderable_bits, sortable
 from .errors import ArrowNotImplemented
 
@@ -71,8 +71,7 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
         vi = mi = None
         if agg in ("sum", "count", "mean"):
             vi = len(payloads)
-            payloads.append(vals if vals.dtype.is_floating_point
-                            else as_int64(vals, t))
+            payloads.append(_sum_lane(vals, t))
             mi = len(payloads)
             payloads.append(vmask)
         elif agg == "any":
@@ -136,8 +135,10 @@ def _segment_agg(enc, skey, v, t, vmask, agg: str, values_sorted,
         if agg == "count":
             return c, None
         if agg == "mean":
-            return (s.to(torch.float64)
-                    / torch.clamp(c, min=1).to(torch.float64), c > 0)
+            # a uint64 sum's bits read unsigned
+            total = convert(s, dt.uint64, dt.float64) if \
+                t.id == dt.TypeId.UINT64 else s.to(torch.float64)
+            return total / torch.clamp(c, min=1).to(torch.float64), c > 0
         return s, c > 0
     if agg in ("min", "max"):
         out = groupagg.segment_min_max(skey, v,
@@ -156,10 +157,11 @@ def _segment_agg(enc, skey, v, t, vmask, agg: str, values_sorted,
         codes[enc.sidx] = torch.where(enc.svalid, enc.run_id.to(torch.int64),
                                       -1)
         slot = torch.where(vmask & (codes >= 0), codes, P)
-        acc = v.dtype if v.dtype.is_floating_point else torch.int64
+        lane = _sum_lane(v, t)
+        acc = lane.dtype
         s = torch.ones(P + 1, dtype=acc, device=v.device).scatter_reduce_(
-            0, slot, torch.where(vmask, v.to(acc), torch.ones((), dtype=acc,
-                                                             device=v.device)),
+            0, slot, torch.where(vmask, lane, torch.ones((), dtype=acc,
+                                                         device=v.device)),
             "prod")
         cnt = torch.zeros(P + 1, dtype=torch.int32,
                           device=v.device).scatter_add_(
@@ -227,13 +229,27 @@ def group_by(data: DeviceBatch, keys,
                      out_cols, n_groups)
 
 
+def _sum_lane(v: torch.Tensor, t: dt.DataType) -> torch.Tensor:
+    """A sum, mean or product's values in their accumulator: bool and
+    the integers in int64 (unsigned zero-extended, a uint64's bits), a
+    float16 in float32 (a deviation: the JAX package accumulates
+    float16 in float16), other floats as they are."""
+    if v.dtype == torch.float16:
+        return v.to(torch.float32)
+    return v if v.dtype.is_floating_point else as_int64(v, t)
+
+
 def _out_type(t: dt.DataType, agg: str) -> dt.DataType:
+    """The result type, the JAX package's: a sum of bool or a signed
+    integer is int64, of an unsigned one uint64."""
     if agg in ("count", "count_all"):
         return dt.int64
     if agg == "mean":
         return dt.float64
     if agg in ("any", "all"):
         return dt.bool_
+    if agg == "sum" and t.is_unsigned_integer:
+        return dt.uint64
     if agg == "sum" and (t.is_integer or t == dt.bool_):
         return dt.int64
     return t

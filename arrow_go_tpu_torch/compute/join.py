@@ -13,7 +13,10 @@ DeviceBatch inputs return a DeviceBatch (inner and the outer types).
 HostBatch inputs (the port's stand-in for the JAX package's RecordBatch
 path) return a HostBatch for all eight types; a long probe side streams
 through the join in chunks of `probe_chunk` rows where the join type
-decomposes over probe rows.
+decomposes over probe rows. A carried nested column (a HostColumn, or
+a nested column of a HostBatch) gathers on the host through the pair
+indices (compute/nested_selection.py) on both routes, as the JAX
+package's join does; a key column must be flat.
 """
 from __future__ import annotations
 
@@ -24,13 +27,15 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
-                            concat_host_arrays, device_batch_to_host,
-                            host_batch_to_device, pad_length, row_mask)
+                            HostColumn, concat_host_arrays,
+                            device_batch_to_host, host_batch_to_device,
+                            pad_length, row_mask)
 from ..ops import bitmap, hashing, selection
 from ..ops.compaction import compact_flagged
 from ..parallel.join import join_expand, join_sorted_state, local_join_semi
 from .errors import ArrowInvalid, ArrowNotImplemented
-from .functions import _take_host, shared_dict_codes
+from .functions import shared_dict_codes
+from .nested_selection import take_host_vec
 
 _HOWS = ("inner", "left outer", "right outer", "full outer",
          "left semi", "left anti", "right semi", "right anti")
@@ -107,8 +112,8 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
         if join_type not in _DEVICE_HOWS:
             raise ArrowNotImplemented(
                 "device-batch join supports inner/outer types")
-        dev = (left if isinstance(left, DeviceBatch) else right).columns[
-            0].device
+        dev = (left if isinstance(left, DeviceBatch) else right
+               ).device_columns[0].device
 
         def on_device(batch, keys):
             # a HostBatch's dictionary keys are renumbered as on the
@@ -201,7 +206,7 @@ def _project(batch: HostBatch, cols) -> HostBatch:
 def _select_left(batch: HostBatch, mask: torch.Tensor) -> HostBatch:
     """The rows of `batch` where `mask` (over its padded rows) is set."""
     idx = np.flatnonzero(mask[:batch.num_rows].cpu().numpy())
-    return HostBatch(batch.schema, [_take_host(c, idx)
+    return HostBatch(batch.schema, [take_host_vec(c, idx)
                                     for c in batch.columns], len(idx))
 
 
@@ -245,8 +250,16 @@ def _join_device(ldb, rdb, left_keys, right_keys, join_type, left_suffix,
                              right_suffix, output_columns)
 
 
-def _gather_column(col: DeviceColumn, idx: torch.Tensor, out_n: int,
-                   trim_to: int) -> DeviceColumn:
+def _gather_column(col, idx: torch.Tensor, out_n: int, trim_to: int,
+                   host_idx: dict):
+    """A column's output rows: a DeviceColumn gathers on its device, a
+    HostColumn (a nested column) on the host through the pair indices
+    read once a side (host_idx caches them), as the JAX package does."""
+    if isinstance(col, HostColumn):
+        key = id(idx)
+        if key not in host_idx:
+            host_idx[key] = idx[:out_n].cpu().numpy().astype(np.int64)
+        return HostColumn(take_host_vec(col.array, host_idx[key]))
     vals = selection.gather(col.values, idx)[:trim_to]
     words = selection.take_validity(col.validity, idx, out_n, idx.shape[0])
     return DeviceColumn(vals, words[:(trim_to + 31) // 32], out_n, col.type,
@@ -271,11 +284,12 @@ def _emit_join_output(ldb, rdb, li, ri, out_n, left_keys, right_keys,
 
     fields: List[dt.Field] = []
     cols: List[DeviceColumn] = []
+    host_idx = {}
     for f, c in zip(ldb.schema.fields, ldb.columns):
         name = f.name + left_suffix
         if want is None or name in want:
             fields.append(f.with_name(name))
-            cols.append(_gather_column(c, li, out_n, trim_to))
+            cols.append(_gather_column(c, li, out_n, trim_to, host_idx))
     rkey_set, lkey_set = set(right_keys), set(left_keys)
     for f, c in zip(rdb.schema.fields, rdb.columns):
         if join_type == "inner" and f.name in rkey_set and \
@@ -284,5 +298,5 @@ def _emit_join_output(ldb, rdb, li, ri, out_n, left_keys, right_keys,
         name = right_name(f)
         if want is None or name in want:
             fields.append(f.with_name(name))
-            cols.append(_gather_column(c, ri, out_n, trim_to))
+            cols.append(_gather_column(c, ri, out_n, trim_to, host_idx))
     return DeviceBatch(dt.Schema(fields), cols, out_n)

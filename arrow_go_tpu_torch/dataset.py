@@ -7,8 +7,10 @@ the simple conjuncts of its filter (`column op literal`, with column
 statistics and, for `==`, bloom filters: parquet/reader.py), reads each
 kept row group onto the device with `read_batch_device` (one DeviceBatch
 per row group, in file and row-group order), and evaluates the filter
-there as one expression per batch, then the filter (K1). There is no
-host read: a column the device read cannot take raises, where the JAX
+there as one expression per batch, then the filter (K1). A nested
+column comes back as a HostColumn, read on the host
+(parquet/reader.read_field_host), as the JAX package's Scanner reads
+it; any other column the device read cannot take raises, where the JAX
 package's Scanner drops to its host reader. `.arrow`, `.feather` and
 `.csv` fragments raise ArrowNotImplemented (the port has no IPC or CSV
 reader). Fragments are scanned one after another on the calling thread.
@@ -26,9 +28,9 @@ from . import torchenv
 from .compute import expression as ex
 from .compute.errors import ArrowInvalid, ArrowNotImplemented
 from .compute.functions import filter_
+from .compute.nested_selection import null_rows
 from .device.block import (DeviceBatch, HostArray, HostBatch,
-                           concat_host_arrays, device_batch_to_host,
-                           storage_zeros)
+                           concat_host_arrays, device_batch_to_host)
 from .parquet import ParquetFile, read_batch_device
 
 _OPS = {"equal": "==", "less": "<", "less_equal": "<=", "greater": ">",
@@ -249,10 +251,9 @@ def _used_entries(col: HostArray) -> HostArray:
 
 
 def _empty(t: dt.DataType) -> HostArray:
-    if t.is_binary_like:
-        return HostArray(np.zeros(0, np.int32), None,
-                         dt.dictionary(dt.int32, t), np.empty(0, object))
-    return HostArray(storage_zeros(t, 0), None, t)
+    out = null_rows(t, 0)
+    out.mask = None
+    return out
 
 
 def dataset(paths, format: Optional[str] = None) -> Dataset:

@@ -32,6 +32,13 @@ type, as the JAX package's DecimalArray does.
 
 Results that leave the device (the group-sized output of group_by)
 come back as a numpy-backed HostBatch.
+
+Nested columns (list, large_list, fixed_size_list, struct, map) are
+HostArrays of child HostArrays; in a DeviceBatch one rides as a
+HostColumn, picked by its type id. A list of a flat type also has a
+device form, DeviceListColumn (offsets plus a flat child DeviceColumn),
+whose take (`list_take_device`) expands the child runs with K2's
+hi-only fills on the card.
 """
 from __future__ import annotations
 
@@ -139,11 +146,30 @@ class DeviceColumn:
 
 
 @dataclass
+class HostColumn:
+    """A nested column that rides a DeviceBatch but stays on the host
+    (the JAX package's HostColumn): the device block format carries
+    flat columns only. Batch filter, take and join select it on the
+    host (compute/nested_selection.py); a device kernel refuses it."""
+
+    array: "HostArray"
+
+    @property
+    def length(self) -> int:
+        return len(self.array)
+
+    @property
+    def type(self) -> dt.DataType:
+        return self.array.type
+
+
+@dataclass
 class DeviceBatch:
-    """Schema + device columns: the device-resident RecordBatch."""
+    """Schema + device columns: the device-resident RecordBatch. A
+    nested column is a HostColumn."""
 
     schema: dt.Schema
-    columns: List[DeviceColumn]
+    columns: List[Union[DeviceColumn, HostColumn]]
     length: int
 
     def column(self, key) -> DeviceColumn:
@@ -156,8 +182,14 @@ class DeviceBatch:
 
     @property
     def padded(self) -> int:
-        return self.columns[0].padded if self.columns else pad_length(
-            self.length)
+        for c in self.columns:
+            if isinstance(c, DeviceColumn):
+                return c.padded
+        return pad_length(self.length)
+
+    @property
+    def device_columns(self) -> List[DeviceColumn]:
+        return [c for c in self.columns if isinstance(c, DeviceColumn)]
 
 
 def _words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
@@ -285,7 +317,39 @@ def batch_to_device(data: Dict[str, object], device=None,
 
     A string column is a numpy str/object array (dictionary-encoded here,
     first-occurrence order) or an (int32 codes, values) pair taken as it
-    stands; bytes values make a binary column."""
+    stands; bytes values make a binary column. A HostArray goes as it
+    is: a nested one as a HostColumn (picked by its type id), a flat one
+    as a DeviceColumn with its validity."""
+    hosts = {k: v for k, v in data.items() if isinstance(v, HostArray)}
+    flat = {k: v for k, v in data.items() if k not in hosts}
+    if not hosts:
+        return _flat_batch_to_device(data, device, pad)
+    n = len(next(iter(hosts.values())))
+    P = pad if pad is not None else pad_length(n)
+    db = _flat_batch_to_device(flat, device, P) if flat else None
+    if db is not None and db.length != n:
+        raise ValueError(f"columns of {db.length} and {n} rows")
+    dev = torchenv.device(device)
+    fields, cols = [], []
+    for name in data:
+        if name in hosts:
+            a = hosts[name]
+            if len(a) != n:
+                raise ValueError(f"column {name!r} has {len(a)} rows, "
+                                 f"not {n}")
+            t = a.type.value_type if a.dictionary is not None else a.type
+            fields.append(dt.Field(name, t))
+            cols.append(HostColumn(a) if a.type.is_nested else
+                        host_array_to_device(a, dev, P))
+        else:
+            i = db.schema.field_index(name)
+            fields.append(db.schema.field(i))
+            cols.append(db.columns[i])
+    return DeviceBatch(dt.Schema(fields), cols, n)
+
+
+def _flat_batch_to_device(data: Dict[str, object], device,
+                          pad: Optional[int]) -> DeviceBatch:
     names = list(data)
     fields, columns = [], []
     n = None
@@ -328,23 +392,43 @@ def decimal_value(unscaled: int, scale: int) -> pydec.Decimal:
 
 
 class HostArray:
-    """A numpy-backed result column: values[:n] plus an optional bool mask
+    """A numpy-backed column: values[:n] plus an optional bool mask
     (True = valid). A dictionary column holds codes in `values` and the
-    values they index in `dictionary`."""
+    values they index in `dictionary`.
 
-    def __init__(self, values: np.ndarray, mask: Optional[np.ndarray],
-                 type: dt.DataType, dictionary: Optional[np.ndarray] = None):
-        self.values = np.asarray(values)
+    A nested column (list, large_list, map, fixed_size_list, struct)
+    has no `values`: a list or map holds `offsets` (n + 1, the type's
+    offset dtype, absolute into its child, so a slice shares the child)
+    and one child HostArray (a map's is struct<key, value>); a
+    fixed_size_list one child whose rows [i * k, (i + 1) * k) are row
+    i's (present under null rows too); a struct one child of n rows a
+    field."""
+
+    def __init__(self, values: Optional[np.ndarray],
+                 mask: Optional[np.ndarray], type: dt.DataType,
+                 dictionary: Optional[np.ndarray] = None, *,
+                 offsets: Optional[np.ndarray] = None,
+                 children: Sequence["HostArray"] = (),
+                 length: Optional[int] = None):
+        self.values = None if values is None else np.asarray(values)
         self.mask = None if mask is None else np.asarray(mask, np.bool_)
         self.type = type
         self.dictionary = dictionary
+        self.offsets = None if offsets is None else np.asarray(offsets)
+        self.children = list(children)
+        if self.values is not None:
+            self.length = len(self.values)
+        elif self.offsets is not None:
+            self.length = len(self.offsets) - 1
+        else:
+            self.length = int(length)
 
     def __len__(self) -> int:
-        return len(self.values)
+        return self.length
 
     def validity_bools(self) -> np.ndarray:
         if self.mask is None:
-            return np.ones(len(self.values), np.bool_)
+            return np.ones(self.length, np.bool_)
         return self.mask
 
     def unscaled(self) -> list:
@@ -353,10 +437,38 @@ class HostArray:
             return to_ints(self.values).tolist()
         return self.values.tolist()
 
+    def _nested_values(self) -> list:
+        t, n = self.type, self.length
+        if t.id == dt.TypeId.STRUCT:
+            cols = [c.to_pylist() for c in self.children]
+            names = [f.name for f in t.fields()]
+            return [dict(zip(names, row)) for row in zip(*cols)] if cols \
+                else [{} for _ in range(n)]
+        if t.id == dt.TypeId.FIXED_SIZE_LIST:
+            k = t.list_size
+            child = self.children[0].slice(0, n * k).to_pylist()
+            return [child[i * k:(i + 1) * k] for i in range(n)]
+        off = self.offsets.astype(np.int64)
+        lo = int(off[0]) if n else 0
+        child = self.children[0].slice(lo, int(off[-1]) - lo) if n else \
+            self.children[0].slice(0, 0)
+        if t.id == dt.TypeId.MAP:
+            keys = child.children[0].to_pylist()
+            items = child.children[1].to_pylist()
+            entries = list(zip(keys, items))
+        else:
+            entries = child.to_pylist()
+        rel = (off - lo).tolist()
+        return [entries[a:b] for a, b in zip(rel[:-1], rel[1:])]
+
     def to_pylist(self) -> list:
         """Python values; a dictionary column's codes decode to its
-        dictionary's values, a decimal's unscaled ints to Decimals."""
-        if self.type.is_decimal:
+        dictionary's values, a decimal's unscaled ints to Decimals, a
+        list's rows to lists, a map's to lists of (key, value) tuples
+        and a struct's to dicts (the JAX package's to_pylist)."""
+        if self.type.is_nested:
+            vals = self._nested_values()
+        elif self.type.is_decimal:
             vals = [decimal_value(u, self.type.scale)
                     for u in self.unscaled()]
         else:
@@ -368,6 +480,42 @@ class HostArray:
         if self.mask is None:
             return vals
         return [v if ok else None for v, ok in zip(vals, oks)]
+
+    def slice(self, offset: int, length: int) -> "HostArray":
+        """Rows [offset, offset + length) (views of the same buffers; a
+        list's child is shared, a fixed_size_list's and a struct's
+        children are sliced)."""
+        end = min(offset + length, self.length)
+        offset = min(offset, end)
+        mask = None if self.mask is None else self.mask[offset:end]
+        t = self.type
+        if not t.is_nested:
+            return HostArray(self.values[offset:end], mask, t,
+                             self.dictionary)
+        if t.id == dt.TypeId.STRUCT:
+            return HostArray(None, mask, t, children=[
+                c.slice(offset, end - offset) for c in self.children],
+                length=end - offset)
+        if t.id == dt.TypeId.FIXED_SIZE_LIST:
+            k = t.list_size
+            return HostArray(None, mask, t, children=[
+                self.children[0].slice(offset * k, (end - offset) * k)],
+                length=end - offset)
+        return HostArray(None, mask, t, offsets=self.offsets[offset:end + 1],
+                         children=self.children)
+
+
+def nested_array(t: dt.DataType, length: int, mask: Optional[np.ndarray],
+                 children: Sequence[HostArray],
+                 offsets: Optional[np.ndarray] = None) -> HostArray:
+    """A nested HostArray of type t (offsets for a list, large_list or
+    map, in the type's offset dtype); a mask with no null is dropped."""
+    if mask is not None and np.asarray(mask).all():
+        mask = None
+    if offsets is not None:
+        offsets = np.ascontiguousarray(offsets, dtype=t.offset_dtype)
+    return HostArray(None, mask, t, offsets=offsets, children=children,
+                     length=length)
 
 
 class HostBatch:
@@ -401,21 +549,46 @@ class HostBatch:
     def slice(self, offset: int, length: int) -> "HostBatch":
         """Rows [offset, offset + length) (views of the same buffers)."""
         end = min(offset + length, self.num_rows)
-        return HostBatch(self.schema, [
-            HostArray(c.values[offset:end],
-                      None if c.mask is None else c.mask[offset:end],
-                      c.type, c.dictionary) for c in self.columns],
-            max(end - offset, 0))
+        return HostBatch(self.schema, [c.slice(offset, length)
+                                       for c in self.columns],
+                         max(end - offset, 0))
+
+
+def _concat_nested(arrays: Sequence[HostArray], mask) -> HostArray:
+    t = arrays[0].type
+    n = sum(len(a) for a in arrays)
+    if t.id == dt.TypeId.STRUCT:
+        return nested_array(t, n, mask, [
+            concat_host_arrays([a.children[i] for a in arrays])
+            for i in range(len(arrays[0].children))])
+    if t.id == dt.TypeId.FIXED_SIZE_LIST:
+        k = t.list_size
+        return nested_array(t, n, mask, [concat_host_arrays(
+            [a.children[0].slice(0, len(a) * k) for a in arrays])])
+    parts, offs, base = [], [np.zeros(1, np.int64)], 0
+    for a in arrays:
+        off = a.offsets.astype(np.int64)
+        lo = int(off[0]) if len(a) else 0
+        hi = int(off[-1]) if len(a) else 0
+        parts.append(a.children[0].slice(lo, hi - lo))
+        offs.append(off[1:] - lo + base)
+        base += hi - lo
+    return nested_array(t, n, mask, [concat_host_arrays(parts)],
+                        np.concatenate(offs))
 
 
 def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
     """One HostArray of the arrays' rows in order. Dictionary arrays that
     share one dictionary keep it; otherwise their dictionaries merge in
-    first-occurrence order and the codes are mapped into the merged one."""
+    first-occurrence order and the codes are mapped into the merged one.
+    Nested arrays concatenate their children (a list's offsets
+    rebased)."""
     first = arrays[0]
     mask = None
     if any(a.mask is not None for a in arrays):
         mask = np.concatenate([a.validity_bools() for a in arrays])
+    if first.type.is_nested:
+        return _concat_nested(arrays, mask)
     if first.dictionary is None or all(
             a.dictionary is first.dictionary or np.array_equal(
                 a.dictionary, first.dictionary) for a in arrays[1:]):
@@ -435,9 +608,14 @@ def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
 
 def host_array_to_device(arr: HostArray, dev,
                          pad: Optional[int] = None) -> DeviceColumn:
-    """A HostArray as a DeviceColumn on `dev`: values padded to `pad`
+    """A flat HostArray as a DeviceColumn on `dev`: values padded to `pad`
     (default pad_length(n)), validity words when it has a mask; a
-    dictionary array keeps its codes and dictionary."""
+    dictionary array keeps its codes and dictionary. A nested array
+    raises ArrowNotImplemented (it rides a batch as a HostColumn; a
+    list of a flat type goes to the device by list_to_device)."""
+    if arr.type.is_nested:
+        from ..compute.errors import ArrowNotImplemented
+        raise ArrowNotImplemented(f"a {arr.type} column stays on the host")
     n = len(arr)
     P = pad_length(n) if pad is None else pad
     host = storage_zeros(arr.type, P)
@@ -459,12 +637,142 @@ def column_to_host(col: DeviceColumn) -> HostArray:
 
 
 def host_batch_to_device(hb: HostBatch, device=None) -> DeviceBatch:
-    """A HostBatch as a DeviceBatch on `device` (the card unless named)."""
+    """A HostBatch as a DeviceBatch on `device` (the card unless named);
+    a nested column rides as a HostColumn."""
     dev = torchenv.device(device)
-    return DeviceBatch(hb.schema, [host_array_to_device(c, dev)
-                                   for c in hb.columns], hb.num_rows)
+    return DeviceBatch(hb.schema, [
+        HostColumn(c) if c.type.is_nested else host_array_to_device(c, dev)
+        for c in hb.columns], hb.num_rows)
 
 
 def device_batch_to_host(db: DeviceBatch) -> HostBatch:
-    return HostBatch(db.schema, [column_to_host(c) for c in db.columns],
-                     db.length)
+    return HostBatch(db.schema, [
+        c.array if isinstance(c, HostColumn) else column_to_host(c)
+        for c in db.columns], db.length)
+
+
+# ---------------------------------------------------------------------------
+# list<flat> columns on the device
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeviceListColumn:
+    """A list of a flat type in device memory (the JAX package's
+    DeviceListColumn): padded int32 offsets (P + 1, absolute into the
+    child, the tail repeating the last one) and a flat child
+    DeviceColumn. Its take (`list_take_device`) gathers the offsets,
+    expands the child runs with two running-max fills (K2's hi-only mode
+    on the card) and takes the child once."""
+
+    offsets: torch.Tensor           # int32 (P + 1,)
+    child: DeviceColumn
+    validity: Optional[torch.Tensor]  # int32 words over the rows, or None
+    length: int
+    type: dt.DataType
+
+    @property
+    def padded(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    @property
+    def null_count(self) -> int:
+        if self.validity is None:
+            return 0
+        return self.length - int(valid_rows(self.validity, self.padded,
+                                            self.length, self.device).sum())
+
+
+def list_to_device(arr: HostArray, pad: Optional[int] = None,
+                   device=None) -> DeviceListColumn:
+    """A list or large_list HostArray of a flat type as a
+    DeviceListColumn on `device` (the card unless named): its offsets
+    rebased to 0 (a sliced array's start at the child's row 0), the
+    child's rows [first, last offset) as a DeviceColumn."""
+    if arr.type.id not in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST) or \
+            arr.type.value_type.is_nested:
+        from ..compute.errors import ArrowNotImplemented
+        raise ArrowNotImplemented(f"list_to_device of {arr.type}")
+    dev = torchenv.device(device)
+    n = len(arr)
+    P = pad if pad is not None else pad_length(n)
+    host_off = arr.offsets.astype(np.int64)
+    base = int(host_off[0]) if n else 0
+    last = int(host_off[-1]) if n else 0
+    if last - base >= 1 << 31:
+        raise ValueError("list_to_device: the child passes int32 offsets")
+    off = np.zeros(P + 1, np.int32)
+    off[:n + 1] = host_off - base
+    off[n + 1:] = off[n]
+    child = host_array_to_device(arr.children[0].slice(base, last - base),
+                                 dev)
+    words = None if arr.mask is None else _words_to_tensor(
+        _pack_words(arr.mask, P), dev)
+    return DeviceListColumn(torch.from_numpy(off).to(dev), child, words, n,
+                            arr.type)
+
+
+def list_from_device(col: DeviceListColumn) -> HostArray:
+    """The [0, length) rows of a DeviceListColumn as a list HostArray
+    (offsets in the type's offset dtype, the child cut at the last
+    offset)."""
+    n = col.length
+    off = col.offsets[:n + 1].cpu().numpy().astype(col.type.offset_dtype)
+    child = column_to_host(col.child).slice(0, int(off[-1]) if n else 0)
+    mask = None if col.validity is None else _unpack_words(
+        col.validity.cpu().numpy().view(np.uint32), n)
+    return HostArray(None, mask, col.type, offsets=off, children=[child])
+
+
+def list_take_device(col: DeviceListColumn, idx: torch.Tensor,
+                     count: int) -> DeviceListColumn:
+    """Take on a list column on its device: rows idx[i] for i < count
+    (idx over the output's padded domain, -1 = a null row). Gathers the
+    offsets, expands the child runs (a scatter of each row's position
+    and output start, then two running-max fills: K2's hi-only mode
+    `cummax_u32` on the card) and takes the child once. One host read
+    sizes the child output (count, then materialize)."""
+    from ..ops import bitmap, selection
+    from ..ops.scan import cummax_u32
+    P_out = idx.shape[0]
+    dev = idx.device
+    idx = idx.to(torch.int64)
+    safe = idx.clamp(0, col.padded - 1)
+    offsets = col.offsets.to(torch.int64)
+    starts = offsets.index_select(0, safe)
+    lens = offsets.index_select(0, safe + 1) - starts
+    in_row = (idx >= 0) & row_mask(P_out, count, dev)
+    if col.validity is not None:
+        bits = (col.validity.index_select(0, safe // WORD_BITS)
+                >> (safe % WORD_BITS).to(torch.int32)) & 1
+        in_row = in_row & (bits == 1)
+    lens = torch.where(in_row, lens, 0)
+    starts = torch.where(in_row, starts, 0)
+    new_off = torch.zeros(P_out + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=new_off[1:])
+    total = int(new_off[P_out])                 # the one host read
+    cap = pad_length(max(total, 1))
+    # each non-empty row marks its first child slot, an empty or null row
+    # a spare slot of its own past `cap` (the JAX scatter's mode="drop"):
+    # no two rows share a slot, so a plain scatter is exact (one shared
+    # spare slot serialises its writers on the card)
+    pos = torch.arange(P_out, dtype=torch.int64, device=dev)
+    tgt = torch.where(lens > 0, new_off[:-1].clamp(0, cap - 1), cap + pos)
+    seeds = torch.zeros((2, cap + P_out), dtype=torch.int64, device=dev)
+    seeds[0].scatter_(0, tgt, pos)
+    seeds[1].scatter_(0, tgt, new_off[:-1])
+    rowpos = cummax_u32(seeds[0, :cap].contiguous())
+    fill_start_out = cummax_u32(seeds[1, :cap].contiguous())
+    j = torch.arange(cap, dtype=torch.int64, device=dev)
+    child_idx = starts.index_select(0, rowpos) + (j - fill_start_out)
+    child_idx = torch.where(j < total, child_idx, -1)
+    child = col.child
+    new_child = DeviceColumn(
+        selection.gather(child.values, child_idx),
+        selection.take_validity(child.validity, child_idx, total, cap),
+        total, child.type, child.dictionary)
+    return DeviceListColumn(new_off.to(torch.int32), new_child,
+                            bitmap.pack_mask(in_row), count, col.type)

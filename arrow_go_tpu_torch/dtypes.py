@@ -20,6 +20,12 @@ unscaled values in int32 and int64; decimal128 and decimal256 in a
 (padded, 2) or (padded, 4) int64 matrix of little-endian 64-bit limbs
 carrying u64 bits (`limbs`), the JAX package's uint64 limb layout, so
 a column's first dimension is its padded length whatever its type.
+
+The nested types list, large_list, fixed_size_list, struct and map
+(`list_`, `large_list`, `fixed_size_list`, `struct`, `map_`) have the
+JAX package's names, str(), equality, child fields and offset dtypes;
+their columns live on the host (device/block.py HostArray), a list of
+a flat type also on the device (DeviceListColumn).
 """
 from __future__ import annotations
 
@@ -56,8 +62,13 @@ class TypeId(enum.IntEnum):
     TIME64 = 20
     DECIMAL128 = 23
     DECIMAL256 = 24
+    LIST = 25
+    STRUCT = 26
     DICTIONARY = 29
+    MAP = 30
+    FIXED_SIZE_LIST = 32
     DURATION = 33
+    LARGE_LIST = 36
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -97,6 +108,8 @@ _DECIMALS = (TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128,
              TypeId.DECIMAL256)
 _TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
              TypeId.TIME64, TypeId.DURATION)
+_NESTED = (TypeId.LIST, TypeId.LARGE_LIST, TypeId.FIXED_SIZE_LIST,
+           TypeId.STRUCT, TypeId.MAP)
 
 
 class DataType:
@@ -150,6 +163,20 @@ class DataType:
     @property
     def is_binary_like(self) -> bool:
         return self.id in (TypeId.STRING, TypeId.BINARY)
+
+    @property
+    def is_nested(self) -> bool:
+        """list, large_list, fixed_size_list, struct and map: host
+        columns of child arrays (device/block.py)."""
+        return self.id in _NESTED
+
+    def fields(self) -> List["Field"]:
+        """The child fields of a nested type (none for the others)."""
+        return []
+
+    @property
+    def num_fields(self) -> int:
+        return len(self.fields())
 
     @property
     def codes_on_device(self) -> bool:
@@ -425,6 +452,146 @@ class Field:
 
     def __repr__(self):
         return f"Field({self.name}: {self.type})"
+
+
+
+class ListType(DataType):
+    """list<item>: int32 offsets into one child array (the JAX
+    package's ListType; `large_list` has int64 offsets)."""
+
+    offset_dtype = np.dtype(np.int32)
+
+    def __init__(self, value, nullable: bool = True,
+                 type_id: TypeId = TypeId.LIST, name: str = "list"):
+        super().__init__(type_id, name, None, None)
+        self.value_field = value if isinstance(value, Field) else \
+            Field("item", value, nullable)
+
+    @property
+    def value_type(self) -> DataType:
+        return self.value_field.type
+
+    def fields(self) -> List[Field]:
+        return [self.value_field]
+
+    def _eq_extra(self) -> tuple:
+        return (self.value_field.type, self.value_field.nullable)
+
+    def __str__(self) -> str:
+        return f"{self.name}<{self.value_field.name}: {self.value_type}>"
+
+
+class LargeListType(ListType):
+    offset_dtype = np.dtype(np.int64)
+
+    def __init__(self, value, nullable: bool = True):
+        super().__init__(value, nullable, TypeId.LARGE_LIST, "large_list")
+
+
+class FixedSizeListType(DataType):
+    """fixed_size_list<item>[list_size]: row i is the child's rows
+    [i * list_size, (i + 1) * list_size), present under null rows too."""
+
+    def __init__(self, value, list_size: int, nullable: bool = True):
+        super().__init__(TypeId.FIXED_SIZE_LIST, "fixed_size_list", None,
+                         None)
+        self.value_field = value if isinstance(value, Field) else \
+            Field("item", value, nullable)
+        self.list_size = int(list_size)
+
+    @property
+    def value_type(self) -> DataType:
+        return self.value_field.type
+
+    def fields(self) -> List[Field]:
+        return [self.value_field]
+
+    def _eq_extra(self) -> tuple:
+        return (self.value_field.type, self.list_size)
+
+    def __str__(self) -> str:
+        return (f"fixed_size_list<{self.value_field.name}: "
+                f"{self.value_type}>[{self.list_size}]")
+
+
+class StructType(DataType):
+    """struct<fields>: one child array a field, each of the struct's
+    length."""
+
+    def __init__(self, fields: Sequence[Field]):
+        super().__init__(TypeId.STRUCT, "struct", None, None)
+        self._fields = list(fields)
+
+    def fields(self) -> List[Field]:
+        return list(self._fields)
+
+    def field(self, i: int) -> Field:
+        return self._fields[i]
+
+    def field_index(self, name: str) -> int:
+        for i, f in enumerate(self._fields):
+            if f.name == name:
+                return i
+        return -1
+
+    def _eq_extra(self) -> tuple:
+        return tuple((f.name, f.type, f.nullable) for f in self._fields)
+
+    def __str__(self) -> str:
+        inner = ", ".join(f"{f.name}: {f.type}" for f in self._fields)
+        return f"struct<{inner}>"
+
+
+class MapType(ListType):
+    """map<key, value>: stored as list<entries: struct<key, value>>, the
+    key not nullable (the JAX package's MapType)."""
+
+    def __init__(self, key: DataType, item: DataType,
+                 keys_sorted: bool = False, item_nullable: bool = True):
+        self.key_field = Field("key", key, nullable=False)
+        self.item_field = Field("value", item, nullable=item_nullable)
+        self.keys_sorted = keys_sorted
+        super().__init__(Field("entries", StructType(
+            [self.key_field, self.item_field]), nullable=False),
+            type_id=TypeId.MAP, name="map")
+
+    @property
+    def key_type(self) -> DataType:
+        return self.key_field.type
+
+    @property
+    def item_type(self) -> DataType:
+        return self.item_field.type
+
+    def _eq_extra(self) -> tuple:
+        return (self.key_type, self.item_type, self.keys_sorted)
+
+    def __str__(self) -> str:
+        return f"map<{self.key_type}, {self.item_type}>"
+
+
+def list_(value, nullable: bool = True) -> ListType:
+    return ListType(value, nullable)
+
+
+def large_list(value, nullable: bool = True) -> LargeListType:
+    return LargeListType(value, nullable)
+
+
+def fixed_size_list(value, list_size: int) -> FixedSizeListType:
+    return FixedSizeListType(value, list_size)
+
+
+def struct(fields) -> StructType:
+    """struct of Fields, or of a {name: type} dict."""
+    if isinstance(fields, dict):
+        fields = [Field(k, v) for k, v in fields.items()]
+    return StructType(fields)
+
+
+def map_(key: DataType, item: DataType, keys_sorted: bool = False
+         ) -> MapType:
+    return MapType(key, item, keys_sorted)
 
 
 class Schema:

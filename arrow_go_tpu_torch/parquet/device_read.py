@@ -16,8 +16,9 @@ per buffer) and decode (device). `read_batch_device(..., times={})`
 adds each phase's seconds to the dict, synchronizing the device at the
 phase ends; without `times` nothing synchronizes.
 
-Supported: max_rep_level == 0, max_def_level <= 1 (flat, optionally
-nullable), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN (an INT32 or INT64
+Supported on the device: max_rep_level == 0, max_def_level <= 1 (flat,
+optionally nullable; a nested column is read on the host into a
+HostColumn), physical INT32/INT64/FLOAT/DOUBLE/BOOLEAN (an INT32 or INT64
 column decodes as its physical ints and then takes its annotated type on
 the device: int8, int16, uint8 and uint16 narrow there; uint32, uint64
 and the temporal types keep the bits; schema.py maps the annotations),
@@ -62,14 +63,15 @@ import torch
 from .. import dtypes as dt
 from .. import native, torchenv
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..device.block import (DeviceBatch, DeviceColumn, dictionary_values,
-                            pad_length)
+from ..device.block import (DeviceBatch, DeviceColumn, HostColumn,
+                            dictionary_values, pad_length)
 from ..ops import bitmap, convert
 from ..ops import decode as dd
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
 from . import schema
+from .reader import read_field_host
 from .thrift import CompactReader
 
 _DICT_ENCODINGS = {fmt.Encoding.RLE_DICTIONARY, fmt.Encoding.PLAIN_DICTIONARY}
@@ -539,7 +541,9 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
                       times: Optional[dict] = None) -> DeviceBatch:
     """The scan entry point of device pipelines: the requested columns
     (all by default) of a row group as a DeviceBatch on `device` (the
-    card unless named), with no host materialization of the values.
+    card unless named), with no host materialization of the values; a
+    nested column is read on the host (reader.read_field_host) and
+    rides the batch as a HostColumn, as the JAX scanner gives it.
 
     times: when given, receives the seconds of the phases "parse_s",
     "h2d_s" and "decode_s", and "decompress_s", the codec calls' share
@@ -556,13 +560,21 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
     missing = [c for c in columns if c not in by_name]
     if missing:
         raise ArrowInvalid(f"unknown columns {missing!r}")
+    # a nested column (its leaves' descriptors under a group) is read on
+    # the host and rides the batch as a HostColumn
+    nested = {c for c in columns if by_name[c].type.is_nested}
+    flat = [c for c in columns if c not in nested]
     clock = _Clock(times, dev)
     with clock.phase("parse_s"):
         stager = _Stager(dev)
-        plans = [_plan_column(pf, rg_i, c, stager, clock) for c in columns]
+        plans = [_plan_column(pf, rg_i, c, stager, clock) for c in flat]
+        hosts = {c: HostColumn(read_field_host(pf, rg_i, c)) for c in nested}
     with clock.phase("h2d_s"):
         shipped = [_ship(p.host, dev) for p in plans]
     with clock.phase("decode_s"):
-        cols = [_column(p, d, pad) for p, d in zip(plans, shipped)]
+        decoded = dict(zip(flat, [_column(p, d, pad)
+                                  for p, d in zip(plans, shipped)]))
     # fields in REQUESTED order so the schema stays aligned with cols
-    return DeviceBatch(dt.Schema([by_name[c] for c in columns]), cols, nrows)
+    return DeviceBatch(dt.Schema([by_name[c] for c in columns]),
+                       [hosts[c] if c in hosts else decoded[c]
+                        for c in columns], nrows)

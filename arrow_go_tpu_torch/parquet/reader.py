@@ -4,8 +4,15 @@ parquet/file/file_reader.go:51), and the row-group pruning of the
 dataset scan by column statistics and bloom filters
 (arrow_go_tpu/parquet/reader.py:683-689,720-796).
 
-Values are not read here: `device_read.read_batch_device` reads the
-column chunks of a row group and decodes them on the device. Encrypted
+Flat values are not read here: `device_read.read_batch_device` reads
+the column chunks of a row group and decodes them on the device. A
+nested column (list, map, struct) is read on the host, as the JAX
+reader reads it (arrow_go_tpu/parquet/reader.py:_read_field):
+`read_field_host` decodes each of its leaf chunks' repetition and
+definition levels (the codec library's RLE walk) and present values
+(PLAIN, dictionary, DELTA_BINARY_PACKED and the byte-array encodings;
+a FIXED_LEN_BYTE_ARRAY or INT96 leaf raises ArrowNotImplemented), and
+parquet/levels.py rebuilds the column. Encrypted
 files (the PARE magic, or a plaintext footer that names an encryption
 algorithm) are not ported and raise ArrowNotImplemented.
 
@@ -23,9 +30,16 @@ import struct
 import threading
 from typing import BinaryIO, List, Optional, Union
 
+import numpy as np
+
 from .. import dtypes as dt
+from .. import native
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
+from ..device.block import HostArray, factorize
+from . import compress as comp
+from . import encodings as enc
 from . import format as fmt
+from . import levels as lv
 from . import schema as psch
 from .thrift import CompactReader
 
@@ -173,3 +187,160 @@ def _decode_stats(st: fmt.Statistics, desc):
                     st.max_value.decode("utf-8", "replace"))
         return (st.min_value, st.max_value)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the host read of a nested column
+# ---------------------------------------------------------------------------
+
+_DICT_ENCODINGS = (fmt.Encoding.RLE_DICTIONARY, fmt.Encoding.PLAIN_DICTIONARY)
+
+
+def _levels(stream, n: int, max_level: int) -> np.ndarray:
+    return native.rle_decode(stream, n, enc.bit_width_for(max_level))
+
+
+def _split_levels(hdr, body, desc, codec):
+    """One data page -> (repetition levels, definition levels, value
+    bytes, encoding): v1 pages hold both level streams length-prefixed
+    in the compressed payload, v2 pages uncompressed before it."""
+    if fmt.PageType(hdr.type) == fmt.PageType.DATA_PAGE:
+        dph = hdr.data_page_header
+        nv = dph.num_values or 0
+        payload = memoryview(comp.decompress(codec, body,
+                                             hdr.uncompressed_page_size))
+        off, streams = 0, []
+        for max_level in (desc.max_rep_level, desc.max_def_level):
+            if max_level == 0:
+                streams.append(np.zeros(nv, np.uint32))
+                continue
+            (ln,) = struct.unpack_from("<I", payload, off)
+            streams.append(_levels(payload[off + 4:off + 4 + ln], nv,
+                                   max_level))
+            off += 4 + ln
+        return streams[0], streams[1], payload[off:], fmt.Encoding(
+            dph.encoding or 0)
+    dph = hdr.data_page_header_v2
+    nv = dph.num_values or 0
+    rl = dph.repetition_levels_byte_length or 0
+    dl = dph.definition_levels_byte_length or 0
+    reps = _levels(body[:rl], nv, desc.max_rep_level) if \
+        desc.max_rep_level else np.zeros(nv, np.uint32)
+    defs = _levels(body[rl:rl + dl], nv, desc.max_def_level) if \
+        desc.max_def_level else np.zeros(nv, np.uint32)
+    vals = body[rl + dl:]
+    if dph.is_compressed is not False and codec:
+        vals = comp.decompress(codec, vals,
+                               (hdr.uncompressed_page_size or 0) - rl - dl)
+    return reps, defs, vals, fmt.Encoding(dph.encoding or 0)
+
+
+def _page_values(phys: fmt.Type, encoding: fmt.Encoding, raw, n: int,
+                 dictionary):
+    """The n present values of a page: a numpy array of the physical
+    type, or (int64 ends, uint8 data) rows of a BYTE_ARRAY leaf."""
+    if encoding in _DICT_ENCODINGS:
+        if dictionary is None:
+            raise ArrowInvalid("dictionary page missing")
+        codes = native.rle_decode(raw[1:], n, raw[0]) if n else \
+            np.zeros(0, np.uint32)
+        if phys == fmt.Type.BYTE_ARRAY:
+            return native.gather_rows(*dictionary, codes.astype(np.int64))
+        return dictionary[codes]
+    if phys == fmt.Type.BYTE_ARRAY:
+        return enc.byte_array_decode(encoding, raw, n)
+    if encoding == fmt.Encoding.DELTA_BINARY_PACKED:
+        vals, _ = native.delta_decode(raw, n)
+        return vals.astype(np.int32 if phys == fmt.Type.INT32 else np.int64)
+    if encoding == fmt.Encoding.PLAIN:
+        return enc.plain_decode(phys, raw, n)
+    raise ArrowNotImplemented(f"host decode of {encoding.name} pages")
+
+
+def _leaf_array(desc, parts) -> HostArray:
+    """A leaf's present values as a flat HostArray of its type: strings
+    and binaries as a dictionary array (first-occurrence codes), a
+    narrow or unsigned integer or temporal type from its physical
+    ints."""
+    t = desc.arrow_type
+    if desc.physical_type == fmt.Type.BYTE_ARRAY:
+        from .device_read import _dictionary_from_rows
+        lens = [np.diff(e, prepend=0) for e, _ in parts]
+        ends = np.cumsum(np.concatenate(lens) if lens else
+                         np.zeros(0, np.int64), dtype=np.int64)
+        data = np.concatenate([d for _, d in parts]) if parts else \
+            np.zeros(0, np.uint8)
+        codes, dictionary = factorize(_dictionary_from_rows(ends, data, t))
+        return HostArray(codes, None, dt.dictionary(dt.int32, t), dictionary)
+    phys = np.concatenate(parts) if parts else np.zeros(
+        0, psch.physical_np_dtype(t))
+    if t == dt.bool_:
+        return HostArray(phys.astype(np.bool_), None, t)
+    if phys.dtype.itemsize == t.np_dtype.itemsize:
+        return HostArray(phys.view(t.np_dtype), None, t)
+    return HostArray(phys.astype(t.np_dtype), None, t)
+
+
+def _read_leaf(pf: ParquetFile, rg_i: int, li: int):
+    """(definition levels, repetition levels, present values) of leaf
+    li's chunk in row group rg_i."""
+    from .device_read import _iter_pages
+    desc = pf.leaves[li]
+    phys = desc.physical_type
+    if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
+        raise ArrowNotImplemented(
+            f"a nested column's {phys.name} leaf is not ported")
+    chunk = pf.metadata.row_groups[rg_i].columns[li]
+    codec = chunk.meta_data.codec or 0
+    dictionary = None
+    defs, reps, parts = [], [], []
+    for hdr, body in _iter_pages(pf, chunk):
+        ptype = fmt.PageType(hdr.type)
+        if ptype == fmt.PageType.DICTIONARY_PAGE:
+            payload = comp.decompress(codec, body,
+                                      hdr.uncompressed_page_size)
+            nvd = hdr.dictionary_page_header.num_values or 0
+            dictionary = native.plain_byte_array(payload, nvd)[:2] if \
+                phys == fmt.Type.BYTE_ARRAY else np.asarray(
+                    enc.plain_decode(phys, payload, nvd))
+            continue
+        if ptype not in (fmt.PageType.DATA_PAGE, fmt.PageType.DATA_PAGE_V2):
+            raise ArrowNotImplemented(f"page type {ptype.name}")
+        r, d, raw, encoding = _split_levels(hdr, body, desc, codec)
+        n_present = int((d == desc.max_def_level).sum())
+        parts.append(_page_values(phys, encoding, raw, n_present,
+                                  dictionary))
+        defs.append(d)
+        reps.append(r)
+    cat = (lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.uint32))
+    return cat(defs), cat(reps), _leaf_array(desc, parts)
+
+
+def read_field_host(pf: ParquetFile, rg_i: int, name: str) -> HostArray:
+    """A nested top-level column of row group rg_i, read on the host: its
+    leaves' levels and values through levels.rebuild_nested, joined by
+    levels.merge_leaf_datas; a map column is read as its list storage
+    and retyped."""
+    li = 0
+    for f in pf.schema.fields:
+        g = lv.map_storage_field(f) if f.type.id == dt.TypeId.MAP else f
+        paths = lv.leaf_paths(g.type)
+        if f.name == name:
+            break
+        li += len(paths)
+    else:
+        raise ArrowInvalid(f"unknown column {name!r}")
+    datas = []
+    for off, path in enumerate(paths):
+        defs, reps, values = _read_leaf(pf, rg_i, li + off)
+        datas.append(lv.rebuild_nested(lv.prune_field(g, path), defs, reps,
+                                       values))
+    out = lv.merge_leaf_datas(g, datas)
+    if f.type.id == dt.TypeId.MAP:
+        entries = out.children[0]
+        out = HostArray(None, out.mask, f.type, offsets=out.offsets,
+                        children=[HostArray(None, entries.mask,
+                                            f.type.value_type,
+                                            children=entries.children,
+                                            length=len(entries))])
+    return out

@@ -13,7 +13,16 @@ decimal32 (precision <= 9), INT64 to decimal64 (<= 18), either to
 decimal128 above that, and FIXED_LEN_BYTE_ARRAY to decimal128 (<= 38)
 or decimal256. A FIXED_LEN_BYTE_ARRAY leaf is float16 with the FLOAT16
 annotation, else fixed_size_binary(type_length); an INT96 leaf is
-timestamp("ns"). Groups (lists, maps, structs) raise ArrowNotImplemented.
+timestamp("ns").
+
+Nested columns convert both ways as the JAX package's do
+(arrow_go_tpu/parquet/schema.py): a struct is a group of its fields; a
+list or large_list a LIST-annotated group holding a repeated group
+"list" of one "element" (a fixed_size_list is written as a list, and a
+large_list reads back as a list); a map a MAP-annotated group holding a
+repeated group "key_value" of "key" and "value". A repeated field
+outside such a group (the legacy two-level lists) raises
+ArrowNotImplemented.
 """
 from __future__ import annotations
 
@@ -161,30 +170,65 @@ def schema_to_elements(schema: dt.Schema,
                        int96_timestamps: bool = False
                        ) -> Tuple[List[fmt.SchemaElement],
                                   List[ColumnDescriptor]]:
-    """Port schema -> flat SchemaElement list + leaf columns. With
-    `int96_timestamps` a timestamp column is an unannotated INT96 leaf
-    (reference WithDeprecatedInt96Timestamps)."""
-    root = fmt.SchemaElement(name="schema", num_children=len(schema))
-    elements = [root]
+    """Port schema -> flat SchemaElement list (depth first) + leaf
+    columns. With `int96_timestamps` a timestamp column is an
+    unannotated INT96 leaf (reference WithDeprecatedInt96Timestamps)."""
+    elements = [fmt.SchemaElement(name="schema", num_children=len(schema))]
     leaves: List[ColumnDescriptor] = []
-    for f in schema.fields:
-        int96 = int96_timestamps and f.type.id == dt.TypeId.TIMESTAMP
-        phys, tlen = (fmt.Type.INT96, 12) if int96 else physical_for(
-            f.type, store_decimal_as_integer)
+
+    def group(name, rep, n, conv=None, logical=None):
+        el = fmt.SchemaElement(name=name, repetition_type=int(rep),
+                               num_children=n, converted_type=conv,
+                               logicalType=logical)
+        elements.append(el)
+        return el
+
+    def walk(f: dt.Field, path, max_def, max_rep, ancestry):
+        t = f.type
         rep = fmt.Repetition.OPTIONAL if f.nullable else \
             fmt.Repetition.REQUIRED
-        logical, conv = (None, None) if int96 else _logical_for(f.type)
+        d = max_def + (1 if f.nullable else 0)
+        if t.id == dt.TypeId.STRUCT:
+            el = group(f.name, rep, t.num_fields)
+            for cf in t.fields():
+                walk(cf, path + (f.name,), d, max_rep, ancestry + [el])
+            return
+        if t.id == dt.TypeId.MAP:
+            el = group(f.name, rep, 1, int(fmt.ConvertedType.MAP),
+                       fmt.LogicalType(MAP=fmt.MapLType()))
+            mid = group("key_value", fmt.Repetition.REPEATED, 2)
+            for cf in (dt.Field("key", t.key_type, False),
+                       dt.Field("value", t.item_type, t.item_field.nullable)):
+                walk(cf, path + (f.name, "key_value"), d + 1, max_rep + 1,
+                     ancestry + [el, mid])
+            return
+        if t.id in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST,
+                    dt.TypeId.FIXED_SIZE_LIST):
+            el = group(f.name, rep, 1, int(fmt.ConvertedType.LIST),
+                       fmt.LogicalType(LIST=fmt.ListLType()))
+            mid = group("list", fmt.Repetition.REPEATED, 1)
+            walk(dt.Field("element", t.value_type, t.value_field.nullable),
+                 path + (f.name, "list"), d + 1, max_rep + 1,
+                 ancestry + [el, mid])
+            return
+        storage = t.value_type if t.id == dt.TypeId.DICTIONARY else t
+        int96 = int96_timestamps and storage.id == dt.TypeId.TIMESTAMP
+        phys, tlen = (fmt.Type.INT96, 12) if int96 else physical_for(
+            storage, store_decimal_as_integer)
+        logical, conv = (None, None) if int96 else _logical_for(storage)
         el = fmt.SchemaElement(name=f.name, type=int(phys),
                                type_length=tlen if phys ==
                                fmt.Type.FIXED_LEN_BYTE_ARRAY else None,
                                repetition_type=int(rep),
                                converted_type=conv, logicalType=logical)
-        if f.type.is_decimal:
-            el.scale, el.precision = f.type.scale, f.type.precision
+        if storage.is_decimal:
+            el.scale, el.precision = storage.scale, storage.precision
         elements.append(el)
-        leaves.append(ColumnDescriptor((f.name,), phys, tlen,
-                                       1 if f.nullable else 0, 0, f.type,
-                                       [el]))
+        leaves.append(ColumnDescriptor(path + (f.name,), phys, tlen, d,
+                                       max_rep, storage, ancestry + [el]))
+
+    for f in schema.fields:
+        walk(f, (), 0, 0, [])
     return elements, leaves
 
 
@@ -269,22 +313,47 @@ def _type_of(el: fmt.SchemaElement) -> dt.DataType:
 def elements_to_schema(elements: List[fmt.SchemaElement]
                        ) -> Tuple[dt.Schema, List[ColumnDescriptor]]:
     """Parquet SchemaElement list -> port schema + leaf descriptors."""
-    root = elements[0]
-    n = root.num_children or 0
-    if len(elements) != n + 1 or any(el.num_children
-                                     for el in elements[1:]):
-        raise ArrowNotImplemented("nested parquet columns are not ported")
-    fields: List[dt.Field] = []
+    pos = [1]
     leaves: List[ColumnDescriptor] = []
-    for el in elements[1:]:
+
+    def read_node(path, max_def, max_rep, ancestry) -> dt.Field:
+        el = elements[pos[0]]
+        pos[0] += 1
         rep = fmt.Repetition(el.repetition_type or 0)
         if rep == fmt.Repetition.REPEATED:
             raise ArrowNotImplemented(
-                f"repeated column {el.name!r} is not ported")
+                f"repeated field {el.name!r} outside a LIST or MAP group "
+                f"is not ported")
         nullable = rep == fmt.Repetition.OPTIONAL
-        t = _type_of(el)
-        fields.append(dt.Field(el.name, t, nullable))
-        leaves.append(ColumnDescriptor((el.name,), fmt.Type(el.type),
-                                       el.type_length or 0,
-                                       1 if nullable else 0, 0, t, [el]))
+        d = max_def + (1 if nullable else 0)
+        if not el.num_children:
+            t = _type_of(el)
+            leaves.append(ColumnDescriptor(
+                path + (el.name,), fmt.Type(el.type), el.type_length or 0,
+                d, max_rep, t, ancestry + [el]))
+            return dt.Field(el.name, t, nullable)
+        conv, lt = el.converted_type, el.logicalType
+        is_map = conv in (int(fmt.ConvertedType.MAP),
+                          int(fmt.ConvertedType.MAP_KEY_VALUE)) or (
+            lt is not None and lt.MAP is not None)
+        is_list = conv == int(fmt.ConvertedType.LIST) or (
+            lt is not None and lt.LIST is not None)
+        if is_map or is_list:
+            mid = elements[pos[0]]
+            pos[0] += 1
+            inner = path + (el.name, mid.name)
+            kids = [read_node(inner, d + 1, max_rep + 1, ancestry + [el, mid])
+                    for _ in range(2 if is_map else 1)]
+            if is_map:
+                t = dt.map_(kids[0].type, kids[1].type)
+            else:
+                t = dt.list_(dt.Field("element", kids[0].type,
+                                      kids[0].nullable))
+            return dt.Field(el.name, t, nullable)
+        fields = [read_node(path + (el.name,), d, max_rep, ancestry + [el])
+                  for _ in range(el.num_children)]
+        return dt.Field(el.name, dt.struct(fields), nullable)
+
+    root = elements[0]
+    fields = [read_node((), 0, 0, []) for _ in range(root.num_children or 0)]
     return dt.Schema(fields), leaves

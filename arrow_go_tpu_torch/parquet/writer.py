@@ -41,6 +41,13 @@ fixed_size_binary as its bytes. With `int96_timestamps` a timestamp
 column is written as INT96 (nanoseconds of the day and Julian day,
 reference WithDeprecatedInt96Timestamps).
 
+A nested column (a HostArray of a list, large_list, fixed_size_list,
+struct or map type, nested to any depth) is written OPTIONAL, its
+validity its own, one chunk a leaf through parquet/levels.py (a map as
+its list<struct<key, value>> storage, a fixed_size_list as a list, as
+the JAX writer writes them): one v1 data page a chunk, repetition and
+definition levels RLE, the leaf's present values PLAIN, no statistics.
+Its leaves are bool, integer, float, temporal, string or binary.
 """
 from __future__ import annotations
 
@@ -52,11 +59,12 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..device.block import dictionary_type, factorize
+from ..device.block import HostArray, dictionary_type, factorize
 from . import bloom as bloom_mod
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
+from . import levels as lv
 from . import schema as psch
 from .thrift import CompactWriter
 
@@ -525,6 +533,16 @@ def write_table(data: Dict[str, object], sink,
     n = None
     for name in names:
         m = masks.get(name)
+        v = data[name]
+        if isinstance(v, HostArray) and v.type.is_nested:
+            n = len(v) if n is None else n
+            if len(v) != n or m is not None:
+                raise ArrowInvalid(f"column {name!r}: expected length {n} "
+                                   f"and no mask (a nested column carries "
+                                   f"its validity)")
+            fields.append(dt.Field(name, v.type, True))
+            cols[name] = (v, None)
+            continue
         t = types.get(name)
         phys = None
         if t is not None:
@@ -569,6 +587,70 @@ def write_table(data: Dict[str, object], sink,
         _write(f, *args)
 
 
+def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
+    """A nested column's present leaf values as plain_encode takes them."""
+    t = desc.arrow_type
+    if leaf.dictionary is not None:
+        page_values = _string_bytes(leaf.dictionary, t)
+        return [page_values[c] for c in leaf.values.tolist()]
+    if t.is_decimal or desc.physical_type in (
+            fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
+        raise ArrowNotImplemented(f"a nested column's {t} leaf")
+    if t == dt.bool_:
+        return leaf.values
+    phys = psch.physical_np_dtype(t)
+    vals = leaf.values
+    if vals.dtype.itemsize == phys.itemsize:
+        return vals.view(phys)
+    return vals.astype(phys)
+
+
+def _write_levels_chunk(sink: BinaryIO, arr: HostArray, field: dt.Field,
+                        desc: psch.ColumnDescriptor, opts: _Options):
+    """One leaf chunk of a nested column: its levels and present values
+    in one v1 data page."""
+    defs, reps, leaf = lv.generate_levels_nested(arr, field)
+    levels = b""
+    if desc.max_rep_level:
+        levels += enc.levels_encode_v1(reps, enc.bit_width_for(
+            desc.max_rep_level))
+    if desc.max_def_level:
+        levels += enc.levels_encode_v1(defs, enc.bit_width_for(
+            desc.max_def_level))
+    payload = levels + enc.plain_encode(desc.physical_type,
+                                        _physical_leaf(leaf, desc))
+    body = comp.compress(opts.codec, payload, opts.level)
+    hb = _thrift_bytes(fmt.PageHeader(
+        type=int(fmt.PageType.DATA_PAGE), uncompressed_page_size=len(payload),
+        compressed_page_size=len(body),
+        data_page_header=fmt.DataPageHeader(
+            num_values=len(defs), encoding=int(fmt.Encoding.PLAIN),
+            definition_level_encoding=int(fmt.Encoding.RLE),
+            repetition_level_encoding=int(fmt.Encoding.RLE))))
+    start = sink.tell()
+    sink.write(hb)
+    sink.write(body)
+    meta = fmt.ColumnMetaData(
+        type=int(desc.physical_type),
+        encodings=[int(fmt.Encoding.PLAIN), int(fmt.Encoding.RLE)],
+        path_in_schema=list(desc.path), codec=int(opts.codec),
+        num_values=len(defs), total_uncompressed_size=len(hb) + len(payload),
+        total_compressed_size=len(hb) + len(body), data_page_offset=start)
+    return fmt.ColumnChunk(file_offset=start, meta_data=meta)
+
+
+def _write_nested(sink: BinaryIO, arr: HostArray, f: dt.Field, descs,
+                  opts: _Options) -> list:
+    """The chunks of a nested column's rows, one a leaf."""
+    if f.type.id == dt.TypeId.MAP:
+        f, arr = lv.map_storage_field(f), lv.map_storage_data(arr)
+    elif f.type.id == dt.TypeId.FIXED_SIZE_LIST:
+        f, arr = lv.fsl_storage_field(f), lv.fsl_storage_data(arr)
+    return [_write_levels_chunk(sink, *lv.prune_to_leaf(arr, f, path), desc,
+                                opts)
+            for path, desc in zip(lv.leaf_paths(f.type), descs)]
+
+
 def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
            encs) -> None:
     sink.write(MAGIC)
@@ -579,10 +661,19 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
         b = min(a + rg_rows, n)
         rg_start = sink.tell()
         chunks = []
-        for desc in leaves:
+        for li, desc in enumerate(leaves):
             name = desc.path[0]
-            m = masks.get(name)
             v, dictionary = cols[name]
+            if isinstance(v, HostArray):
+                # a nested column's leaves are consecutive; all of them
+                # are written at the first
+                if li and leaves[li - 1].path[0] == name:
+                    continue
+                chunks.extend(_write_nested(
+                    sink, v.slice(a, b - a), dt.Field(name, v.type, True),
+                    [d for d in leaves if d.path[0] == name], opts[name]))
+                continue
+            m = masks.get(name)
             chunk, bloom = _write_chunk(
                 sink, v[a:b], None if m is None else np.asarray(m)[a:b],
                 desc, opts[name], encs.get(name), dictionary)

@@ -120,16 +120,26 @@ without one. Phases:
      the peak memory (`dist`), a `dist_profile` of Q1 and the inner
      join, and every K1 and K2 call of one more run of each path against
      the plain version (`dist_path_checks`);
-  14. a `kernels` JSON line, then the last line
+  14. nested types on the same SF10 arrays: a list<double> of each
+     order's l_price on the card (DeviceListColumn: offsets from the
+     counts of l_okey, the child by one stable sort), its take by 15 M
+     seeded indices, 5% null, with repeats (K2's hi-only fills), its
+     filter by o_odate < 720 (K1, then the take), value_counts of l_okey
+     and of o_odate, l_price filtered as one column by Q6's predicate
+     (K1) and the scalar aggregates of l_qty as int8 and as uint32 +
+     2**31 (K3), each exact against numpy (`nested`, `nested_profile`),
+     every K1, K2 and K3 call of one more run of each path against the
+     plain version (`nested_path_checks`);
+  15. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 14 and, of phase 9, all but
+With --timing-only it skips phases 3 and 15 and, of phase 9, all but
 the three queries and K2's timings, and holds no call of phases 10 to
-13 against the plain version: a run that times every path and
+14 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 13 run only in a tree that has their entry
+there). Phases 8 to 14 run only in a tree that has their entry
 points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
@@ -1065,6 +1075,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     if k3:
         seen["K3"] = []
     reduce_host = reductions.reduce_with_count_host
+    fill_u32 = scan.cummax_u32
 
     def k1(keep, payloads):
         payloads = tuple(payloads)
@@ -1084,7 +1095,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
 
     def k2_fill(x):
         # the hi-only mode, shown as 0 lo lanes
-        got = scan.cummax_u32(x)
+        got = fill_u32(x)
         if x.shape[0]:
             seen["K2"].append((x.shape[0], 0, _max_abs_err(
                 [got], [scan.cummax_u32_plain(x)])))
@@ -1110,7 +1121,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     patches = [(m, "compact_flagged", k1)
                for m in (selection, groupagg, pjoin, cjoin)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
-        (pjoin, "cummax_u32", k2_fill)] + (
+        (pjoin, "cummax_u32", k2_fill), (scan, "cummax_u32", k2_fill)] + (
         [(reductions, "reduce_with_count_host", k3_host)] if k3 else [])
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
     for m, attr, f in patches:
@@ -3673,6 +3684,287 @@ def _dist_paths(li, orders, dev, card, timing_only) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# nested types: a list column on the card, value_counts, the column filter
+# and the narrow / unsigned aggregates
+# ---------------------------------------------------------------------------
+
+NESTED_ODATE_MAX = 720            # the list filter keeps o_odate < 720
+NESTED_TAKE_NULL = 0.05           # share of null take indices
+
+
+def order_price_lists(okey: torch.Tensor, price: torch.Tensor,
+                      n_ord: int) -> tuple:
+    """(list<double> of each order's l_price on the card, the sort's
+    permutation): offsets from the counts of l_okey, the child ordered
+    by one stable sort of l_okey."""
+    dev = okey.device
+    sidx = torch.sort(okey, stable=True).indices
+    counts = torch.bincount(okey, minlength=n_ord)
+    P = agt.pad_length(n_ord)
+    off = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=off[1:n_ord + 1])
+    off[n_ord + 1:] = off[n_ord]
+    n = okey.shape[0]
+    child = torch.zeros(agt.pad_length(n), dtype=torch.float64, device=dev)
+    child[:n] = price.index_select(0, sidx)
+    return agt.DeviceListColumn(
+        off.to(torch.int32), DeviceColumn(child, None, n, dt.float64), None,
+        n_ord, dt.list_(dt.float64)), sidx
+
+
+def check_list_build(col, sidx: torch.Tensor, li) -> tuple:
+    """The list column against numpy: the sort a stable permutation of
+    l_okey, the offsets the counts' prefix sums, the child l_price in that
+    order, bit for bit. Returns the host offsets and child."""
+    okey, n_ord = li["l_okey"], col.length
+    s = sidx.cpu().numpy()
+    k = okey[s]
+    if not ((np.diff(k) >= 0).all() and (np.diff(s)[np.diff(k) == 0] > 0
+                                         ).all()):
+        raise AssertionError("nested: the l_okey sort is not stable")
+    if not (np.bincount(s, minlength=len(okey)) == 1).all():
+        raise AssertionError("nested: the l_okey sort is no permutation")
+    off = np.concatenate(([0], np.cumsum(np.bincount(okey,
+                                                     minlength=n_ord))))
+    _equal("nested list offsets", col.offsets[:n_ord + 1].cpu().numpy(),
+           off.astype(np.int32))
+    child = li["l_price"][s]
+    _equal("nested list child", _host(col.child).view(np.int64),
+           child.view(np.int64))
+    return off, child
+
+
+def list_take_oracle(off: np.ndarray, child: np.ndarray, idx: np.ndarray):
+    """(offsets, child, validity) of rows idx (-1 = null) of the list
+    (off, child), with numpy (the port's expand_runs)."""
+    from arrow_go_tpu_torch.compute.nested_selection import expand_runs
+    ok = idx >= 0
+    safe = np.where(ok, idx, 0)
+    starts = np.where(ok, off[:-1][safe], 0)
+    lens = np.where(ok, np.diff(off)[safe], 0)
+    out_off = np.concatenate(([0], np.cumsum(lens)))
+    return out_off, child[expand_runs(starts, lens)], ok
+
+
+def check_list_take(what: str, out, want) -> None:
+    off, child, ok = want
+    n = out.length
+    if n != len(ok):
+        raise AssertionError(f"{what}: {n} rows, numpy {len(ok)}")
+    _equal(f"{what} offsets", out.offsets[:n + 1].cpu().numpy(),
+           off.astype(np.int32))
+    _equal(f"{what} child", _host(out.child).view(np.int64),
+           child.view(np.int64))
+    words = out.validity.cpu().numpy().view(np.uint32)
+    _equal(f"{what} validity", np.unpackbits(
+        words.view(np.uint8), bitorder="little")[:n].astype(bool), ok)
+
+
+def value_counts_oracle(v: np.ndarray, n_keys: int):
+    """(values, counts) of v's distinct values (ints in [0, n_keys)) in
+    first-occurrence order, with numpy in O(n): the first row of each
+    value by a reversed scatter."""
+    counts = np.bincount(v, minlength=n_keys)
+    first = np.full(n_keys, len(v), np.int64)
+    first[v[::-1]] = np.arange(len(v) - 1, -1, -1)
+    keys = np.flatnonzero(counts)
+    keys = keys[np.argsort(first[keys], kind="stable")]
+    return keys, counts[keys]
+
+
+def check_value_counts(what: str, got: HostArray, v, n_keys: int,
+                       base: int = 0) -> int:
+    keys, counts = value_counts_oracle(v - base, n_keys)
+    _equal(f"{what} values", got.children[0].values.astype(np.int64),
+           keys + base)
+    _equal(f"{what} counts", got.children[1].values, counts)
+    if got.children[0].mask is not None:
+        raise AssertionError(f"{what}: a null entry without nulls")
+    return len(keys)
+
+
+def same_result(what: str, got, want) -> None:
+    """A repeated run's result bit for bit equal to the first, verified
+    one (on the device for a list column or a DeviceColumn)."""
+    if isinstance(want, agt.DeviceListColumn):
+        n = want.length
+        same = (got.length == n and torch.equal(
+            got.offsets[:n + 1], want.offsets[:n + 1]) and torch.equal(
+            got.validity, want.validity) and torch.equal(
+            _bits(got.child.values[:got.child.length]),
+            _bits(want.child.values[:want.child.length])))
+    elif isinstance(want, DeviceColumn):
+        same = got.length == want.length and torch.equal(
+            _bits(got.values[:got.length]), _bits(want.values[:want.length]))
+    elif isinstance(want, HostArray):
+        same = all(np.array_equal(g.values, w.values) for g, w in zip(
+            got.children, want.children))
+    else:
+        same = got == want
+    if not same:
+        raise AssertionError(f"{what}: a repeated run differs from the "
+                             f"first")
+
+
+def nested_phases(li, orders, dev, card: str,
+                  timing_only: bool = False) -> dict:
+    """This slice's paths on the SF10 arrays already in memory: a
+    list<double> of each order's l_price on the card (DeviceListColumn),
+    `nested_take` (list_take_device by 15 M seeded indices, 5% null,
+    with repeats: K2's hi-only fills), `nested_filter` (the list filter
+    by o_odate < 720: K1 then the take), `value_counts` of l_okey and of
+    o_odate, `column_filter` (F13: l_price by Q6's predicate, K1) and
+    `narrow_aggregates` (F8 / F9: l_qty as int8 and as uint32 + 2**31,
+    K3), each exact against numpy after one counted run, then 3 timed
+    runs (`nested` line: ms and peak bytes a path), a `nested_profile`
+    of the take, and every K1, K2 and K3 call of one more run of each
+    path held against the plain version (`nested_path_checks`; not with
+    `timing_only`). Returns each path's launch counts and the largest
+    kernel - plain difference."""
+    t_phase = time.perf_counter()
+    n_li, n_ord = len(li["l_okey"]), len(orders["o_okey"])
+    okey = torch.from_numpy(li["l_okey"]).to(dev)
+    price = torch.from_numpy(li["l_price"]).to(dev)
+    t0 = time.perf_counter()
+    col, sidx = order_price_lists(okey, price, n_ord)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t_oracle = time.perf_counter()
+    off, child = check_list_build(col, sidx, li)
+    del sidx, okey, price
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    P_out = agt.pad_length(n_ord)
+    idx = torch.full((P_out,), -1, dtype=torch.int64, device=dev)
+    idx[:n_ord] = torch.randint(0, n_ord, (n_ord,), generator=g, device=dev)
+    null = torch.rand(n_ord, generator=g, device=dev) < NESTED_TAKE_NULL
+    idx[:n_ord] = torch.where(null, -1, idx[:n_ord])
+    idx_np = idx[:n_ord].cpu().numpy()
+    ords = agt.batch_to_device({"o_odate": orders["o_odate"]}, device=dev)
+    keep = pc.call_function("less", [ords.column("o_odate"),
+                                     NESTED_ODATE_MAX])
+    li_db = agt.batch_to_device({c: li[c] for c in Q6_COLUMNS}, device=dev)
+    q6_mask = pc.execute_scalar_expression(q6_expression(), li_db)
+    price_col = li_db.column("l_price")
+    del li_db
+    q6_keep = ((li["l_sdate"] >= Q6_DATE_LO) & (li["l_sdate"] < Q6_DATE_HI)
+               & (li["l_disc"] >= Q6_DISC_LO) & (li["l_disc"] <= Q6_DISC_HI)
+               & (li["l_qty"] < Q6_QTY))
+    qty = torch.from_numpy(li["l_qty"]).to(dev)
+    P_li = agt.pad_length(n_li)
+    qty8 = torch.zeros(P_li, dtype=torch.int8, device=dev)
+    qty8[:n_li] = qty.to(torch.int8)
+    qty_u32 = torch.zeros(P_li, dtype=torch.int32, device=dev)
+    qty_u32[:n_li] = qty + torch.iinfo(torch.int32).min  # + 2**31, bits
+    del qty
+    q8 = DeviceColumn(qty8, None, n_li, dt.int8)
+    qu = DeviceColumn(qty_u32, None, n_li, dt.uint32)
+    okey_col = agt.batch_to_device({"l_okey": li["l_okey"]},
+                                   device=dev).column(0)
+    odate_col = ords.column("o_odate")
+
+    def narrow_aggs():
+        return {"int8": [pc.agg_sum(q8), pc.agg_mean(q8), pc.agg_min(q8),
+                         pc.agg_max(q8)],
+                "uint32": [pc.agg_sum(qu), pc.agg_mean(qu), pc.agg_min(qu),
+                           pc.agg_max(qu)]}
+
+    q = li["l_qty"].astype(np.int64)
+    aggs_want = {"int8": [int(q.sum()), float(q.sum()) / n_li, int(q.min()),
+                          int(q.max())],
+                 "uint32": [int(q.sum()) + n_li * 2 ** 31,
+                            float(int(q.sum()) + n_li * 2 ** 31) / n_li,
+                            int(q.min()) + 2 ** 31, int(q.max()) + 2 ** 31]}
+    take_want = list_take_oracle(off, child, idx_np)
+    filt_want = list_take_oracle(off, child, np.flatnonzero(
+        orders["o_odate"] < NESTED_ODATE_MAX))
+    price_want = li["l_price"][q6_keep]
+    del child
+
+    def check_filter(out):
+        _equal("column_filter", _host(out).view(np.int64),
+               price_want.view(np.int64))
+
+    def check_aggs(got):
+        if got != aggs_want:
+            raise AssertionError(f"narrow_aggregates {got}, numpy "
+                                 f"{aggs_want}")
+
+    distinct = {}
+
+    def check_vc(what, v, n_keys, base=0):
+        def check(out):
+            distinct[what] = check_value_counts(what, out, v, n_keys, base)
+        return check
+
+    paths = {
+        "nested take": (lambda: agt.list_take_device(col, idx, n_ord),
+                        lambda out: check_list_take("nested_take", out,
+                                                    take_want), ("K2",)),
+        "nested filter": (lambda: pc.filter_(col, keep),
+                          lambda out: check_list_take("nested_filter", out,
+                                                      filt_want),
+                          ("K1", "K2")),
+        "value_counts l_okey": (lambda: pc.value_counts(okey_col),
+                                check_vc("value_counts l_okey",
+                                         li["l_okey"], n_ord), ("K2",)),
+        "value_counts o_odate": (lambda: pc.value_counts(odate_col),
+                                 check_vc("value_counts o_odate",
+                                          orders["o_odate"], 64, 700),
+                                 ("K2",)),
+        "column filter": (lambda: pc.filter_(price_col, q6_mask),
+                          check_filter, ("K1",)),
+        "narrow aggregates": (narrow_aggs, check_aggs, ("K3",)),
+    }
+    launches, runs, peaks, held, firsts = {}, {}, {}, {}, {}
+    host_s = time.perf_counter() - t_oracle
+    for name, (fn, check, needs) in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, launches[name] = run_path(name, fn, needs)
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        check(out)
+        host_s += time.perf_counter() - t0
+        firsts[name] = out
+        outs, runs[name] = timed(fn)
+        for out in outs:
+            same_result(name, out, firsts[name])
+        del outs
+    take_rows = int(take_want[0][-1])
+    print(json.dumps({"nested": {
+        "orders": n_ord, "lineitem_rows": n_li, "list_build_ms": build_ms,
+        "setup_and_oracles_s": host_s,
+        "take_rows": n_ord, "take_child_rows": take_rows,
+        "filter_rows": len(filt_want[2]),
+        "filter_child_rows": int(filt_want[0][-1]),
+        "distinct": distinct, "column_filter_rows": len(price_want),
+        "ms_runs": runs,
+        "ms_median": {k: float(np.median(v)) for k, v in runs.items()},
+        "peak_bytes": peaks, "launches_per_run": launches,
+        "card": card, "verified": True}}), flush=True)
+    print(json.dumps({"nested_profile": profile_device(
+        lambda: agt.list_take_device(col, idx, n_ord),
+        lambda out: same_result("nested take", out, firsts["nested take"]))}),
+        flush=True)
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    if not timing_only:
+        for name, (fn, check, _) in paths.items():
+            out, held[name] = check_path_calls(
+                name, fn, launches[name], k3=name == "narrow aggregates")
+            same_result(name, out, firsts[name])
+            del out
+        print(json.dumps({"nested_path_checks": held}), flush=True)
+        for k in errs:
+            errs[k] = max((h[k]["max_abs_err"] for h in held.values()
+                           if k in h), default=0.0)
+    print(json.dumps({"nested_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -3856,6 +4148,8 @@ def main(argv=None) -> int:
             dataset_phases(li, orders, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.parallel.api"):
             dist_phases(li, orders, dev, card, timing_only=True)
+        if hasattr(agt, "list_take_device"):
+            nested_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -3874,13 +4168,17 @@ def main(argv=None) -> int:
     dists = dist_phases(li, orders, dev, card)
     k1_err = max(k1_err, dists["errs"]["K1"])
     k2_err = max(k2_err, dists["errs"]["K2"])
+    nested = nested_phases(li, orders, dev, card)
+    k1_err = max(k1_err, nested["errs"]["K1"])
+    k2_err = max(k2_err, nested["errs"]["K2"])
+    k3_err = max(k3_err, nested["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
                **joins["launches"], **types["launches"],
                **decs["launches"], **dsets["launches"],
-               **dists["launches"]}
+               **dists["launches"], **nested["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

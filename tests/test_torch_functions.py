@@ -511,3 +511,124 @@ def test_variance_and_stddev_match_jax(cols, col, ddof):
 def test_variance_of_no_valid_row_is_nan_like_jax(rng):
     jc, tc = _agg_col(rng, np.float64, 50, 0.0)
     assert np.isnan(pc.agg_variance(tc)) and np.isnan(jf.agg_variance(jc))
+
+
+# F6: the device take checks the raw index values under the validity
+
+@pytest.mark.parametrize("itype,bad", [(np.int64, -1), (np.int32, -1),
+                                       (np.int8, -1), (np.uint32, 2 ** 32 - 1),
+                                       (np.int64, 4), (np.uint8, 200)])
+def test_take_bounds_check_reads_the_raw_indices_like_jax(itype, bad):
+    from arrow_go_tpu.compute.errors import ArrowIndexError as JaxIndexError
+    vals = {"v": np.array([10, 20, 30, 40], np.int64)}
+    idx = {"i": np.array([0, bad, 2], itype)}
+    jv, ji = jax_batch(vals), jax_batch(idx)
+    with pytest.raises(JaxIndexError):
+        jf.take(jv.column("v"), ji.column("i"))
+    with pytest.raises(pc.ArrowIndexError):
+        pc.take(port_batch(jv).column("v"), port_batch(ji).column("i"))
+    # the same slot null: a null row in both packages
+    ji = jax_batch(idx, {"i": np.array([True, False, True])})
+    want = from_device(jf.take(jv.column("v"), ji.column("i"))).to_pylist()
+    got = column_to_host(pc.take(port_batch(jv).column("v"),
+                                 port_batch(ji).column("i"))).to_pylist()
+    assert got == want == [10, None, 30]
+
+
+# F7: take accepts every integer index type, and mixed host / device
+# operands
+
+INDEX_TYPES = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16,
+               np.uint32, np.uint64]
+
+
+@pytest.mark.parametrize("itype", INDEX_TYPES)
+@pytest.mark.parametrize("route", ["host", "device", "device_by_host",
+                                   "host_by_device"])
+def test_take_by_every_integer_index_type_matches_jax(itype, route):
+    import arrow_go_tpu as agt
+    from arrow_go_tpu_torch.device.block import HostArray
+    rng = np.random.default_rng(int(np.dtype(itype).itemsize) * 7)
+    vals = np.array([10, 20, 30, 40, 50], np.int64)
+    vmask = np.array([True, True, False, True, True])
+    idx = rng.integers(0, 5, 40).astype(itype)
+    imask = rng.random(40) > 0.2
+    jdv = jax_batch({"v": vals}, {"v": vmask})
+    jdi = jax_batch({"i": idx}, {"i": imask})
+    jhv, jhi = agt.from_numpy(vals, vmask), agt.from_numpy(idx, imask)
+    thv = HostArray(vals, vmask, tdt.int64)
+    thi = HostArray(idx, imask, tdt.from_numpy_dtype(idx.dtype))
+    tdv, tdi = port_batch(jdv).column("v"), port_batch(jdi).column("i")
+    jargs, targs = {"host": ((jhv, jhi), (thv, thi)),
+                    "device": ((jdv.column("v"), jdi.column("i")),
+                               (tdv, tdi)),
+                    "device_by_host": ((jdv.column("v"), jhi), (tdv, thi)),
+                    "host_by_device": ((jhv, jdi.column("i")),
+                                       (thv, tdi))}[route]
+    want = jf.take(*jargs)
+    got = pc.take(*targs, device="cpu")
+    want = (from_device(want) if route == "device" else want).to_pylist()
+    got = (column_to_host(got) if route == "device" else got).to_pylist()
+    assert got == want
+
+
+def test_take_of_indices_3_0_2_by_int8_gives_the_rows():
+    from arrow_go_tpu_torch.device.block import HostArray
+    got = pc.take(HostArray(np.array([10, 20, 30, 40], np.int64), None,
+                            tdt.int64),
+                  HostArray(np.array([3, 0, 2], np.int8), None, tdt.int8))
+    assert got.to_pylist() == [40, 10, 30]
+
+
+def test_int64_take_index_past_int32_is_a_recorded_deviation():
+    """Decided on purpose: the JAX package casts a take's indices to
+    int32 before its bounds check, so an int64 index of 2**32 wraps to
+    row 0 there; the port checks the int64 value and raises, as the JAX
+    package's own host route does."""
+    vals = {"v": np.array([10, 20, 30, 40], np.int64)}
+    idx = {"i": np.array([2 ** 32, 1], np.int64)}
+    jv, ji = jax_batch(vals), jax_batch(idx)
+    assert from_device(jf.take(jv.column("v"),
+                               ji.column("i"))).to_pylist() == [10, 20]
+    with pytest.raises(pc.ArrowIndexError):
+        pc.take(port_batch(jv).column("v"), port_batch(ji).column("i"))
+
+
+# F13: filter takes a DeviceColumn (K1's payloads), a HostArray and a
+# HostBatch, as the JAX package's filter does
+
+@pytest.mark.parametrize("col", ["i32", "f64", "s", "b", "i64"])
+@pytest.mark.parametrize("null_selection", ["drop", "emit_null"])
+def test_filter_of_a_column_matches_jax(cols, col, null_selection):
+    jdb, tdb = cols
+    opts = dict(null_selection=null_selection)
+    want = jf.filter_(jdb.column(col), jdb.column("c"),
+                      jf.FilterOptions(**opts))
+    got = pc.filter_(tdb.column(col), tdb.column("c"),
+                     pc.FilterOptions(**opts))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("null_selection", ["drop", "emit_null"])
+def test_filter_of_host_arrays_and_batches_matches_jax(cols,
+                                                       null_selection):
+    from arrow_go_tpu.device.block import batch_from_device
+    from arrow_go_tpu_torch.device.block import device_batch_to_host
+    jdb, tdb = cols
+    jhb, thb = batch_from_device(jdb), device_batch_to_host(tdb)
+    jm, tm = jhb.column("c"), thb.column("c")
+    jo = jf.FilterOptions(null_selection=null_selection)
+    to = pc.FilterOptions(null_selection=null_selection)
+    want = jf.filter_(jhb, jm, jo)
+    got = pc.filter_(thb, tm, to, device="cpu")
+    assert got.num_rows == want.num_rows
+    assert got.to_pydict() == {k: v for k, v in
+                               zip(want.schema.names,
+                                   [c.to_pylist() for c in want.columns])}
+    for name in ("i32", "s", "f64"):
+        want = jf.filter_(jhb.column(name), jm, jo).to_pylist()
+        got = pc.filter_(thb.column(name), tm, to,
+                         device="cpu").to_pylist()
+        assert got == want or np.allclose(
+            [np.nan if x is None else x for x in got],
+            [np.nan if x is None else x for x in want], equal_nan=True)

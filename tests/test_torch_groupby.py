@@ -88,3 +88,72 @@ def test_string_value_columns_take_counts_only(rng):
             pc.group_by(tdb, "k1", [("s", agg)])
     with pytest.raises(ArrowNotImplemented):
         pc.group_by(tdb, "k1", [("v", "median")])
+
+
+# F10: unsigned sums are uint64 and a uint64 group reads unsigned
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32,
+                                   np.uint64])
+def test_unsigned_sums_and_means_match_jax(dtype):
+    rng = np.random.default_rng(11)
+    n = 200
+    info = np.iinfo(dtype)
+    v = rng.integers(0, info.max, n, dtype=dtype, endpoint=True)
+    if dtype == np.uint64:
+        v[:4] = [2 ** 63 + 1, 7, 2 ** 64 - 1, 2 ** 63]
+    data = {"k": rng.integers(0, 5, n).astype(np.int32), "v": v}
+    masks = {"v": rng.random(n) > 0.1}
+    aggs = [("v", "sum"), ("v", "mean"), ("v", "min"), ("v", "max")]
+    want = jpc.group_by(jax_batch(data, masks), ["k"], aggs)
+    got = pc.group_by(port_batch(jax_batch(data, masks)), ["k"], aggs)
+    for name in ("v_sum", "v_mean", "v_min", "v_max"):
+        jc, tc = want.column(name), got.column(name)
+        assert str(tc.type) == str(jc.type), name
+        np.testing.assert_array_equal(tc.validity_bools(),
+                                      jc.validity_bools())
+        if name == "v_mean":
+            np.testing.assert_allclose(tc.to_pylist(), jc.to_pylist(),
+                                       rtol=1e-12)
+        else:
+            assert tc.to_pylist() == jc.to_pylist(), name
+    assert str(got.column("v_sum").type) == "uint64"
+
+
+def test_uint64_group_sum_example_from_the_fault():
+    data = {"k": np.zeros(2, np.int32),
+            "v": np.array([2 ** 63 + 1, 7], np.uint64)}
+    got = pc.group_by(port_batch(jax_batch(data)), ["k"],
+                      [("v", "sum"), ("v", "mean")])
+    assert got.column("v_sum").to_pylist() == [9223372036854775816]
+    assert got.column("v_mean").to_pylist()[0] > 4.6e18
+
+
+@pytest.mark.parametrize("agg", ["sum", "mean", "product"])
+def test_float16_group_accumulation_is_a_recorded_deviation(agg):
+    """Decided on purpose: the port sums (and multiplies) float16 groups
+    in float32 and rounds once, as the scalar aggregates do; the JAX
+    package accumulates in float16. Both keep the JAX result types; the
+    port's sum is the float16 rounding of the exact sum of its rows,
+    the JAX package's only within float16's accumulated error."""
+    rng = np.random.default_rng(4)
+    n = 36 if agg == "product" else 400
+    v = (rng.standard_normal(n) * (0.5 if agg == "product" else 1.0)
+         + (1.0 if agg == "product" else 0.0)).astype(np.float16)
+    data = {"k": rng.integers(0, 3, n).astype(np.int32), "v": v}
+    want = jpc.group_by(jax_batch(data), ["k"], [("v", agg)])
+    got = pc.group_by(port_batch(jax_batch(data)), ["k"], [("v", agg)])
+    name = f"v_{agg}"
+    assert str(got.column(name).type) == str(want.column(name).type)
+    keys = got.column("k").to_pylist()
+    exact = {k: v[data["k"] == k].astype(np.float64) for k in keys}
+    for k, g, w in zip(keys, got.column(name).to_pylist(),
+                       want.column(name).to_pylist()):
+        x = exact[k]
+        ref = {"sum": x.sum(), "mean": x.mean(), "product": x.prod()}[agg]
+        if agg == "mean":
+            assert g == pytest.approx(ref, rel=1e-6)
+        else:
+            # float32 accumulation, one float16 rounding: within half a
+            # float16 ulp of the exact result (plus float32's error)
+            assert abs(g - ref) <= abs(float(np.spacing(np.float16(ref))))
+        assert w == pytest.approx(ref, rel=0.05, abs=0.5)

@@ -174,9 +174,10 @@ def test_codecs_the_port_does_not_read_raise(rng, codec):
 
 @pytest.mark.parametrize("column", ["string", "list"])
 def test_string_and_nested_columns_raise(column):
-    """A nested column has no port type; a string column reads only as
-    dictionary codes, so a chunk of PLAIN strings raises at the scan, as
-    the JAX package's device read does."""
+    """A nested column reads on the host into a HostColumn, as the JAX
+    package's scanner reads it (the JAX device read refuses it); a
+    chunk of PLAIN strings raises at the JAX package's device read, and
+    the port's device read takes it as first-occurrence codes."""
     arr = agt.array(["a", "b", None]) if column == "string" else \
         agt.array([[1], None, [2, 3]], agt.dtypes.list_(agt.dtypes.int64))
     buf = io.BytesIO()
@@ -184,8 +185,12 @@ def test_string_and_nested_columns_raise(column):
                     properties=jpq.WriterProperties(
                         use_dictionary=column != "string"))
     if column == "list":
-        with pytest.raises(ArrowNotImplemented):
-            tpq.ParquetFile(buf.getvalue())
+        from arrow_go_tpu.compute.errors import ArrowInvalid as JaxInvalid
+        with pytest.raises(JaxInvalid):
+            jdr.read_batch_device(jpq.ParquetFile(buf.getvalue()), 0)
+        col = tpq.read_batch_device(tpq.ParquetFile(buf.getvalue()), 0,
+                                    device="cpu").columns[0]
+        assert col.array.to_pylist() == [[1], None, [2, 3]]
         return
     with pytest.raises(JaxNotImplemented):
         jdr.read_batch_device(jpq.ParquetFile(buf.getvalue()), 0)

@@ -269,3 +269,66 @@ def test_aggregates_count_valid_rows_only():
     assert tfn.min_max(tcol) == {"min": 1, "max": 8}
     assert tfn.agg_count(tcol) == 6
     assert tfn.agg_count(tcol, tfn.CountOptions("only_null")) == 4
+
+
+# F8, F9: the scalar aggregates of narrow and unsigned types read them as
+# the JAX package does (its accumulators, its result values and types)
+
+def _narrow_column(rng, dtype, n=61):
+    if dtype == np.bool_:
+        return rng.random(n) < 0.5
+    if np.dtype(dtype).kind == "f":
+        return rng.standard_normal(n).astype(dtype)
+    info = np.iinfo(dtype)
+    v = rng.integers(max(info.min, -100), min(info.max, 100), n).astype(dtype)
+    if dtype == np.uint32:
+        v[:3] = [2 ** 32 - 1, 2 ** 32 - 2, 2 ** 31 + 5]
+    if dtype == np.uint64:
+        v[:3] = [2 ** 64 - 1, 2 ** 63 + 1, 2 ** 63 - 1]
+    return v
+
+
+AGG_FNS = ["agg_sum", "agg_mean", "agg_min", "agg_max", "agg_product",
+           "min_max", "agg_variance", "agg_stddev"]
+
+
+# the JAX package has no min or max of bool
+@pytest.mark.parametrize("dtype,fn", [
+    (d, f) for d in (np.bool_, np.int8, np.int16, np.uint8, np.uint16,
+                     np.uint32, np.uint64, np.float16) for f in AGG_FNS
+    if not (d == np.bool_ and f in ("agg_min", "agg_max", "min_max"))])
+def test_narrow_and_unsigned_aggregates_match_jax(rng, dtype, fn):
+    v = _narrow_column(rng, dtype)
+    jdb = jax_batch({"v": v}, {"v": rng.random(len(v)) > 0.2})
+    want = getattr(jfn, fn)(jdb.column("v"))
+    got = getattr(tfn, fn)(port_batch(jdb).column("v"))
+    pairs = list(zip(got.values(), want.values())) if fn == "min_max" \
+        else [(got, want)]
+    for g, w in pairs:
+        assert type(g) is type(w), (g, w)
+        if isinstance(w, float) and (fn in ("agg_variance", "agg_stddev")
+                                     or dtype == np.float16):
+            # order of addition: float64 at 1e-9, float16's float32 sums
+            # at 1e-5
+            tol = 1e-5 if dtype == np.float16 and fn in (
+                "agg_sum", "agg_mean", "agg_product") else 1e-9
+            assert math.isclose(g, w, rel_tol=tol), (g, w)
+        else:
+            assert g == w
+
+
+def test_uint32_sum_reads_unsigned_like_jax(rng):
+    """F9's example: 2**32 - 1, 2**32 - 2 and 5 sum to 8589934594 (the
+    signed storage gave 2)."""
+    v = np.array([2 ** 32 - 1, 2 ** 32 - 2, 5], np.uint32)
+    jdb = jax_batch({"v": v})
+    assert jfn.agg_sum(jdb.column("v")) == 8589934594
+    assert tfn.agg_sum(port_batch(jdb).column("v")) == 8589934594
+
+
+def test_int8_sum_widens_like_jax():
+    """F8's example: an int8 column sums in int64."""
+    v = np.array([100, 100, 100, -41], np.int8)
+    jdb = jax_batch({"v": v})
+    assert tfn.agg_sum(port_batch(jdb).column("v")) == \
+        jfn.agg_sum(jdb.column("v")) == 259

@@ -21,7 +21,8 @@ from arrow_go_tpu_torch.compute import registry
 from arrow_go_tpu_torch.device.block import (DeviceBatch, DeviceColumn,
                                              HostArray, host_array_to_device)
 from test_torch_types import jax_column, port_column, same_column
-from torch_parity import jax_batch, jax_type, port_batch
+from torch_parity import (jax_batch, jax_type, port_array, port_batch,
+                          port_type, same_array)
 
 jcast = importlib.import_module("arrow_go_tpu.compute.cast")
 
@@ -31,11 +32,9 @@ jcast = importlib.import_module("arrow_go_tpu.compute.cast")
 # (value_counts, make_struct), run-end encoding and sort.
 MISSING = {
     "cast_binary_view", "cast_dictionary", "cast_extension",
-    "cast_fixed_size_list", "cast_fixed_sized_binary", "cast_large_binary",
-    "cast_large_list", "cast_large_string", "cast_list",
-    "cast_month_day_nano_interval", "cast_string_view", "cast_struct",
-    "make_struct", "run_end_decode", "run_end_encode", "sort",
-    "value_counts"}
+    "cast_fixed_sized_binary", "cast_large_binary", "cast_large_string",
+    "cast_month_day_nano_interval", "cast_string_view", "run_end_decode",
+    "run_end_encode", "sort"}
 
 PORT_NAMES = registry.default_registry().function_names()
 N = 96
@@ -69,6 +68,41 @@ def _data():
 
 
 DATA = _data()
+_RNG = np.random.default_rng(22)
+# nested host arguments: (Python rows, the JAX type)
+NESTED = {
+    "lst": ([None if _RNG.random() < 0.1 else
+             [None if _RNG.random() < 0.1 else int(x)
+              for x in _RNG.integers(-50, 50, _RNG.integers(0, 4))]
+             for _ in range(N)], "list<int32>"),
+    "pairs": ([None if _RNG.random() < 0.1 else
+               [int(x) for x in _RNG.integers(-50, 50, 2)]
+               for _ in range(N)], "list<int32>"),
+    "st": ([{"a": int(x), "b": float(x) / 4} for x in
+            _RNG.integers(0, 9, N)], "struct<a: int32, b: double>"),
+}
+
+
+def _nested_type(name: str):
+    from arrow_go_tpu import dtypes as jdt
+    return {"list<int32>": jdt.list_(jdt.int32),
+            "struct<a: int32, b: double>": jdt.struct(
+                {"a": jdt.int32, "b": jdt.float64})}[name]
+
+
+def _nested_targets():
+    """(JAX type, port type) of each nested cast case."""
+    from arrow_go_tpu import dtypes as jdt
+    pairs = {"cast_list": jdt.list_(jdt.float64),
+             "cast_large_list": jdt.large_list(jdt.int64),
+             "cast_fixed_size_list": jdt.fixed_size_list(jdt.int64, 2),
+             "cast_struct": jdt.struct({"a": jdt.int64, "b": jdt.float64})}
+    return {k: (v, port_type(v)) for k, v in pairs.items()}
+
+
+# casts the JAX package refuses (its struct cast fails); the port
+# refuses them with ArrowNotImplemented
+BOTH_REFUSE = {"cast_struct"}
 FLOAT_BINARY = {"power", "atan2", "logb"}
 FLOAT_UNARY = {"sqrt", "exp", "expm1", "sin", "cos", "tan", "asin", "acos",
                "atan", "sinh", "cosh", "tanh", "ln", "log10", "log2",
@@ -110,6 +144,16 @@ def _case(name: str):
         return ["p"], None, None
     if base in ("is_null", "is_valid", "is_nan", "is_finite"):
         return ["f"], None, None
+    if base in _nested_targets():
+        jt, tt = _nested_targets()[base]
+        arg = {"cast_fixed_size_list": "pairs",
+               "cast_struct": "st"}.get(base, "lst")
+        return [arg], {"to_type": jt}, {"to_type": tt}
+    if base == "make_struct":
+        o = {"field_names": ["x", "y"]}
+        return ["i", "f", 5], o, o
+    if base == "value_counts":
+        return ["i"], None, None
     if base == "cast":
         return (["f"], {"to_type": jax_type(dt.int32),
                         "options": jcast.CastOptions.unsafe()},
@@ -156,6 +200,12 @@ def _args(spec, host_first: bool):
         if not isinstance(a, str):
             jargs.append(a)
             targs.append(a)
+            continue
+        if a in NESTED:
+            rows, tname = NESTED[a]
+            jarr = agt.array(rows, _nested_type(tname))
+            jargs.append(jarr)
+            targs.append(port_array(jarr))
             continue
         if a == "batch":
             data = {k: DATA[k][0] for k in ("f", "i", "d")}
@@ -219,6 +269,9 @@ def _same(got, want, rtol=None) -> None:
         for k in want:
             _same(got[k], want[k])
         return
+    if isinstance(got, HostArray) and got.type.is_nested:
+        same_array(got, want)
+        return
     if isinstance(got, HostArray):
         if got.type.is_decimal:
             assert str(got.type) == str(want.type)
@@ -252,6 +305,12 @@ def test_call_function_matches_jax(name):
             continue          # a batch is no host array; the JAX date32
             # host array holds datetime.date values
         jargs, targs = _args(spec, host_first)
+        if name in BOTH_REFUSE:
+            with pytest.raises(Exception):
+                jreg.call_function(name, jargs, jopts)
+            with pytest.raises(pc.ArrowNotImplemented):
+                registry.call_function(name, targs, topts, device="cpu")
+            continue
         if name in JAX_TYPE_ERROR:
             with pytest.raises(TypeError):
                 jreg.call_function(name, jargs, jopts)

@@ -244,3 +244,46 @@ def test_group_by_new_key_types_matches_jax(t):
             assert got[name] == [int(x) if not isinstance(x, bool) else x
                                  for x in np.asarray(want[name]).astype(
                                      g.dtype).tolist()], name
+
+
+# F11: dictionary_encode keeps unsigned dictionary values
+
+@pytest.mark.parametrize("t", UNSIGNED)
+def test_dictionary_encode_of_unsigned_matches_jax(t, rng):
+    v = values_of(t, 300, rng)
+    v[10:20] = v[:10]
+    mask = rng.random(300) > 0.1
+    want = from_device(jf.dictionary_encode(jax_column(v, mask, t)))
+    got = column_to_host(pc.dictionary_encode(port_column(v, mask, t)))
+    assert got.dictionary.dtype == t.np_dtype
+    assert got.dictionary.tolist() == want.dictionary.to_pylist()
+    assert got.to_pylist() == want.decode().to_pylist()
+
+
+def test_dictionary_encode_of_uint32_example_from_the_fault():
+    v = np.array([2 ** 32 - 1, 2 ** 31 + 3, 2 ** 32 - 1], np.uint32)
+    got = pc.dictionary_encode(port_column(v, None, dt.uint32))
+    assert got.dictionary.tolist() == [4294967295, 2147483651]
+
+
+# F12: unsigned scalars in fill_null and if_else fill as their bits
+
+@pytest.mark.parametrize("t,scalar", [
+    (dt.uint16, 2 ** 15), (dt.uint16, 2 ** 16 - 1), (dt.uint32, 2 ** 31),
+    (dt.uint32, 2 ** 32 - 1), (dt.uint64, 2 ** 63), (dt.uint64, 2 ** 64 - 1),
+    (dt.uint8, 255)])
+def test_unsigned_scalar_fill_matches_jax(t, scalar, rng):
+    v = values_of(t, 200, rng)
+    mask = rng.random(200) > 0.3
+    cond = rng.random(200) < 0.5
+    want = from_device(jf.fill_null(jax_column(v, mask, t), scalar))
+    got = column_to_host(pc.fill_null(port_column(v, mask, t), scalar))
+    assert got.to_pylist() == want.to_pylist()
+    jcond = jax_column(cond, None, dt.bool_)
+    tcond = port_column(cond, None, dt.bool_)
+    for args in ((scalar, "col"), ("col", scalar)):
+        jargs = [jax_column(v, mask, t) if a == "col" else a for a in args]
+        targs = [port_column(v, mask, t) if a == "col" else a for a in args]
+        want = from_device(jf.if_else(jcond, *jargs))
+        got = column_to_host(pc.if_else(tcond, *targs))
+        assert got.to_pylist() == want.to_pylist()

@@ -42,13 +42,47 @@ def port_batch(jdb):
 
 def port_type(jt):
     """The port's type of a JAX package type (same name and parameters;
-    a dictionary column's field type is its value type)."""
-    return agt_torch.dtypes.type_for_name(str(jt))
+    a dictionary column's field type is its value type); nested types
+    recursively."""
+    from arrow_go_tpu import dtypes as jdt
+    tdt = agt_torch.dtypes
+    tid = jt.id
+    if tid == jdt.TypeId.MAP:
+        return tdt.map_(port_type(jt.key_type), port_type(jt.item_type),
+                        jt.keys_sorted)
+    if tid in (jdt.TypeId.LIST, jdt.TypeId.LARGE_LIST,
+               jdt.TypeId.FIXED_SIZE_LIST):
+        vf = jt.value_field
+        f = tdt.Field(vf.name, port_type(vf.type), vf.nullable)
+        if tid == jdt.TypeId.FIXED_SIZE_LIST:
+            return tdt.fixed_size_list(f, jt.list_size)
+        return (tdt.list_ if tid == jdt.TypeId.LIST else tdt.large_list)(f)
+    if tid == jdt.TypeId.STRUCT:
+        return tdt.struct([tdt.Field(f.name, port_type(f.type), f.nullable)
+                           for f in jt.fields()])
+    return tdt.type_for_name(str(jt))
 
 
 def jax_type(t):
-    """The JAX package's type of a port type."""
+    """The JAX package's type of a port type (nested types
+    recursively)."""
     from arrow_go_tpu import dtypes as jdt
+    tdt = agt_torch.dtypes
+    if t.id == tdt.TypeId.MAP:
+        return jdt.map_(jax_type(t.key_type), jax_type(t.item_type),
+                        t.keys_sorted)
+    if t.id in (tdt.TypeId.LIST, tdt.TypeId.LARGE_LIST,
+                tdt.TypeId.FIXED_SIZE_LIST):
+        vf = t.value_field
+        f = jdt.Field(vf.name, jax_type(vf.type), vf.nullable)
+        if t.id == tdt.TypeId.FIXED_SIZE_LIST:
+            return jdt.fixed_size_list(f, t.list_size)
+        return (jdt.list_ if t.id == tdt.TypeId.LIST else jdt.large_list)(f)
+    if t.id == tdt.TypeId.STRUCT:
+        return jdt.struct([jdt.Field(f.name, jax_type(f.type), f.nullable)
+                           for f in t.fields()])
+    if t.id == tdt.TypeId.DICTIONARY:
+        return jax_type(t.value_type)
     if t.is_decimal:
         return getattr(jdt, t.name)(t.precision, t.scale)
     if t.id == agt_torch.dtypes.TypeId.FIXED_SIZE_BINARY:
@@ -92,3 +126,99 @@ def same_batch(got, want) -> None:
                                        equal_nan=True, err_msg=name)
         else:
             assert gv == wv, name
+
+
+# ---------------------------------------------------------------------------
+# nested arrays: the JAX package's host Arrays <-> the port's HostArrays
+# ---------------------------------------------------------------------------
+
+def field_type(a):
+    """A port HostArray's field type (a dictionary array's value type)."""
+    return a.type.value_type if a.dictionary is not None else a.type
+
+
+def port_array(ja):
+    """The port's HostArray of a JAX package host Array, nested types
+    recursively with their offsets (as they stand, sliced arrays too),
+    validity at every level and a fixed_size_list's child rows under
+    null rows; a string or binary leaf becomes a dictionary array, a
+    primitive leaf its values (0 under a null)."""
+    from arrow_go_tpu import dtypes as jdt
+    from arrow_go_tpu.array.arrays import make_array
+    from arrow_go_tpu_torch.device.block import (HostArray, factorize,
+                                                 nested_array)
+    t, n = ja.type, len(ja)
+    mask = ja.validity_bools() if ja.null_count else None
+    tid = t.id
+    pt = port_type(t)
+    if tid in (jdt.TypeId.LIST, jdt.TypeId.LARGE_LIST, jdt.TypeId.MAP):
+        return nested_array(pt, n, mask,
+                            [port_array(make_array(ja.data.children[0]))],
+                            np.asarray(ja.offsets))
+    if tid == jdt.TypeId.FIXED_SIZE_LIST:
+        k = t.list_size
+        child = make_array(ja.data.children[0]).slice(ja.offset * k, n * k)
+        return nested_array(pt, n, mask, [port_array(child)])
+    if tid == jdt.TypeId.STRUCT:
+        return nested_array(pt, n, mask, [port_array(ja.field(i))
+                                          for i in range(ja.num_fields)])
+    vals = ja.to_pylist()
+    ok = np.array([v is not None for v in vals], np.bool_)
+    if t.is_binary_like:
+        obj = np.empty(n, dtype=object)
+        obj[:] = ["" if v is None else v for v in vals]
+        codes, dictionary = factorize(obj, ok)
+        return HostArray(codes, mask, agt_torch.dtypes.dictionary(
+            agt_torch.dtypes.int32, pt), dictionary)
+    out = np.zeros(n, pt.np_dtype)
+    out[ok] = [v for v in vals if v is not None]
+    return HostArray(out, mask, pt)
+
+
+def jax_array(a):
+    """The JAX package's host Array of a port HostArray (its Python
+    values through the JAX builders)."""
+    return agt.array(a.to_pylist(), jax_type(field_type(a)))
+
+
+def same_array(got, want, what: str = "") -> None:
+    """A port HostArray equal to a JAX package Array: field type,
+    validity at every level, offsets rebased to 0 exactly, a
+    fixed_size_list's child rows, ints and strings exactly and floats at
+    rtol 1e-9."""
+    from arrow_go_tpu import dtypes as jdt
+    from arrow_go_tpu.array.arrays import make_array
+    assert str(field_type(got)) == str(want.type), (what, field_type(got),
+                                                    want.type)
+    assert len(got) == len(want), what
+    np.testing.assert_array_equal(got.validity_bools(),
+                                  want.validity_bools(), err_msg=what)
+    tid = want.type.id
+    if tid in (jdt.TypeId.LIST, jdt.TypeId.LARGE_LIST, jdt.TypeId.MAP):
+        go, wo = got.offsets.astype(np.int64), np.asarray(
+            want.offsets, np.int64)
+        assert got.offsets.dtype == np.dtype(want.type.offset_dtype), what
+        np.testing.assert_array_equal(go - go[0], wo - wo[0], err_msg=what)
+        same_array(got.children[0].slice(int(go[0]), int(go[-1] - go[0])),
+                   make_array(want.data.children[0]).slice(
+                       int(wo[0]), int(wo[-1] - wo[0])), what + ".child")
+        return
+    if tid == jdt.TypeId.FIXED_SIZE_LIST:
+        k = want.type.list_size
+        same_array(got.children[0].slice(0, len(got) * k),
+                   make_array(want.data.children[0]).slice(
+                       want.offset * k, len(want) * k), what + ".child")
+        return
+    if tid == jdt.TypeId.STRUCT:
+        for i in range(want.num_fields):
+            same_array(got.children[i], want.field(i), f"{what}.{i}")
+        return
+    g, w = got.to_pylist(), want.to_pylist()
+    assert [x is None for x in g] == [x is None for x in w], what
+    gv = [x for x in g if x is not None]
+    wv = [x for x in w if x is not None]
+    if wv and isinstance(wv[0], float):
+        np.testing.assert_allclose(gv, wv, rtol=1e-9, atol=0,
+                                   equal_nan=True, err_msg=what)
+    else:
+        assert gv == wv, what
