@@ -507,6 +507,19 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
     return DeviceColumn(perm, None, values.length, dt.int64)
 
 
+def sort(values, options: Optional[SortOptions] = None, *,
+         order: str = "ascending", null_placement: str = "at_end",
+         device=None):
+    """A sorted copy of a HostArray, DeviceColumn, HostBatch or
+    DeviceBatch: take(values, sort_indices(values)), the reference's
+    "sort" MetaFunction (compute/vector_sort.go:65-82). A batch sorts by
+    `options.keys`; host input longer than _HOST_SMALL rows sorts on
+    `device` (the card unless named)."""
+    idx = sort_indices(values, options, order=order,
+                       null_placement=null_placement, device=device)
+    return take(values, idx, device=device)
+
+
 # ---------------------------------------------------------------------------
 # scalar aggregates (reference compute "sum"/"min_max"/"count"/"mean")
 # ---------------------------------------------------------------------------
@@ -1163,6 +1176,18 @@ def register_all(reg) -> None:
     add("take", K.META, Arity.binary(), take_fn, raw_args=True)
     add("array_take", K.VECTOR, Arity.binary(), take_fn, raw_args=True)
     add("sort_indices", K.VECTOR, Arity.unary(), sort_indices,
+        raw_args=True)
+    add("sort", K.META, Arity.unary(),
+        lambda values, options=None, device=None: sort(values, options,
+                                                       device=device),
+        raw_args=True)
+    # run-end encode / decode (reference vector_run_ends.go:45-90)
+    from . import run_ends
+    add("run_end_encode", K.VECTOR, Arity.unary(),
+        lambda a, options=None, device=None: run_ends.run_end_encode(
+            a, **(options or {}), device=device), raw_args=True)
+    add("run_end_decode", K.VECTOR, Arity.unary(),
+        lambda a, options=None, device=None: run_ends.run_end_decode(a),
         raw_args=True)
     add("unique", K.VECTOR, Arity.unary(), unique)
     add("value_counts", K.VECTOR, Arity.unary(), value_counts,

@@ -40,6 +40,7 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import DeviceColumn, row_mask, valid_rows
+from ..dtypes import common_numeric_type  # noqa: F401  (the JAX name)
 from ..ops import bitmap
 from ..ops import convert as cv
 from ..ops import decimal as dec

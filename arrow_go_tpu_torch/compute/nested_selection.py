@@ -6,7 +6,8 @@ column (list, large_list, map, fixed_size_list, struct, at any depth)
 selects on the host with vectorised numpy, the JAX package's
 offsets-rebuild gather. A flat column takes its values and mask by the
 same index vector (its existing route); a dictionary column takes its
-codes and keeps its dictionary.
+codes and keeps its dictionary; a run_end_encoded column takes each
+row's run and merges equal neighbouring runs, as the JAX package does.
 
 Index vectors are int64 numpy arrays: idx[i] >= 0 selects source row
 idx[i], idx[i] == -1 emits a null row.
@@ -18,7 +19,8 @@ from typing import Optional
 import numpy as np
 
 from .. import dtypes as dt
-from ..device.block import HostArray, nested_array, storage_zeros
+from ..device.block import (HostArray, RunEndEncodedArray, nested_array,
+                            storage_zeros)
 from .errors import ArrowIndexError
 
 _LISTS = (dt.TypeId.LIST, dt.TypeId.LARGE_LIST, dt.TypeId.MAP)
@@ -59,6 +61,10 @@ def null_rows(t: dt.DataType, n: int) -> HostArray:
     if t.id == dt.TypeId.STRUCT:
         return HostArray(None, mask, t, children=[
             null_rows(f.type, n) for f in t.fields()], length=n)
+    if t.id == dt.TypeId.RUN_END_ENCODED:     # one null run, or none
+        ends = np.full(min(n, 1), n, t.run_ends_type.np_dtype)
+        return RunEndEncodedArray(HostArray(ends, None, t.run_ends_type),
+                                  null_rows(t.values_type, len(ends)), n)
     if t.id == dt.TypeId.DICTIONARY or t.codes_on_device:
         dict_t = t if t.id == dt.TypeId.DICTIONARY else dt.dictionary(
             dt.int32, t)
@@ -81,6 +87,26 @@ def _take_flat(arr: HostArray, idx: np.ndarray) -> HostArray:
                      arr.dictionary)
 
 
+def _take_run_ends(arr: RunEndEncodedArray, idx: np.ndarray
+                   ) -> RunEndEncodedArray:
+    """Rows idx of a run_end_encoded column: each row's run, equal
+    neighbouring runs merged back into one (a null index is a run of
+    its own)."""
+    n_out = len(idx)
+    phys = np.searchsorted(arr.run_ends.values.astype(np.int64),
+                           arr.offset + np.where(idx < 0, 0, idx),
+                           side="right")
+    phys = np.where(idx < 0, -1, phys)
+    change = np.ones(n_out, np.bool_)
+    change[1:] = phys[1:] != phys[:-1]
+    keep = np.flatnonzero(change)
+    ends = np.append(keep[1:], n_out)[:len(keep)].astype(
+        arr.type.run_ends_type.np_dtype)
+    return RunEndEncodedArray(
+        HostArray(ends, None, arr.type.run_ends_type),
+        take_host_vec(arr.values, phys[keep]), n_out)
+
+
 def take_host_vec(arr: HostArray, idx: np.ndarray) -> HostArray:
     """Rows idx of a host column of any type the port carries (idx
     int64, -1 = a null row)."""
@@ -93,6 +119,8 @@ def take_host_vec(arr: HostArray, idx: np.ndarray) -> HostArray:
         return null_rows(t, n_out)
     if not t.is_nested:
         return _take_flat(arr, idx)
+    if t.id == dt.TypeId.RUN_END_ENCODED:
+        return _take_run_ends(arr, idx)
     safe = np.where(idx < 0, 0, idx)
     mask = _out_mask(arr, idx, safe)
     if t.id in _LISTS:

@@ -5,8 +5,10 @@ arrow/compute/registry.go:30, functions.go Function/Arity/kinds,
 exec.go:191 CallFunction). A name resolves to a Python callable over
 whole DeviceColumns. HostArray arguments move to the device
 (`torchenv.device()`: the card unless the caller named one) and the
-results of such a call come back to the host. Calls are not timed: the
-port has no metrics module yet.
+results of such a call come back to the host. While `utils.metrics.
+metrics` is enabled, each call is recorded there (calls, rows, host
+seconds), as in the JAX package: the host clock with no device
+synchronize, so on the card it times the dispatch, not the device work.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 from .. import torchenv
 from ..device.block import (DeviceColumn, HostArray, column_to_host,
                             host_array_to_device, pad_length)
+from ..utils.metrics import metrics
 from .errors import ArrowKeyError, ArrowNotImplemented
 
 
@@ -155,7 +158,8 @@ def call_function(name: str, args: Sequence[Any], options: Any = None,
     fn = reg.get_function(name)
     fn.validate_arity(len(args))
     if fn.raw_args:
-        return fn.exec(*args, options=options, device=device)
+        with metrics.time_op(name):
+            return fn.exec(*args, options=options, device=device)
 
     pad = max([a.padded for a in args if isinstance(a, DeviceColumn)]
               + [pad_length(len(a)) for a in args
@@ -169,7 +173,10 @@ def call_function(name: str, args: Sequence[Any], options: Any = None,
             raise ArrowNotImplemented(
                 f"cannot coerce {type(a)} to device column")
         coerced.append(a)
-    result = fn.exec(*coerced, options=options)
+    rows = max((c.length for c in coerced if isinstance(c, DeviceColumn)),
+               default=0)
+    with metrics.time_op(name, rows=rows):
+        result = fn.exec(*coerced, options=options)
     return _to_host(result) if any_host else result
 
 

@@ -38,7 +38,8 @@ HostArrays of child HostArrays; in a DeviceBatch one rides as a
 HostColumn, picked by its type id. A list of a flat type also has a
 device form, DeviceListColumn (offsets plus a flat child DeviceColumn),
 whose take (`list_take_device`) expands the child runs with K2's
-hi-only fills on the card.
+hi-only fills on the card. A run_end_encoded column is a HostArray too
+(RunEndEncodedArray, children run_ends and values).
 """
 from __future__ import annotations
 
@@ -503,6 +504,75 @@ class HostArray:
                 length=end - offset)
         return HostArray(None, mask, t, offsets=self.offsets[offset:end + 1],
                          children=self.children)
+
+
+class RunEndEncodedArray(HostArray):
+    """A run_end_encoded column (the JAX package's RunEndEncodedArray):
+    children (run_ends, values), run i covering logical rows
+    [run_ends[i - 1], run_ends[i]) of the unsliced array, with value
+    values[i]. It has no validity of its own (a null is a null run
+    value). A slice keeps the children and moves `offset`."""
+
+    def __init__(self, run_ends: HostArray, values: HostArray, length: int,
+                 offset: int = 0):
+        vt = values.type.value_type if values.dictionary is not None \
+            else values.type
+        self.type = dt.run_end_encoded(run_ends.type, vt)
+        self.mask = self.dictionary = self.offsets = None
+        self.children = [run_ends, values]
+        self.length = int(length)
+        self.offset = int(offset)
+
+    @property
+    def run_ends(self) -> HostArray:
+        return self.children[0]
+
+    @property
+    def values(self) -> HostArray:   # the values child, as in the JAX type
+        return self.children[1]
+
+    def _physical_index(self, i: int) -> int:
+        return int(np.searchsorted(self.run_ends.values, self.offset + i,
+                                   side="right"))
+
+    def _runs(self):
+        """(first run, the row count of each run from it on) over the
+        logical rows [offset, offset + length)."""
+        ends = self.run_ends.values.astype(np.int64)
+        lo, hi = self.offset, self.offset + self.length
+        first = int(np.searchsorted(ends, lo, side="right"))
+        last = int(np.searchsorted(ends, hi, side="left")) + 1
+        cut = np.clip(ends[first:last], lo, hi)
+        return first, np.diff(cut, prepend=lo)
+
+    def is_valid(self, i: int) -> bool:
+        return bool(self.values.validity_bools()[self._physical_index(i)])
+
+    def __getitem__(self, i: int):
+        return self.values.slice(self._physical_index(i), 1).to_pylist()[0]
+
+    def decode(self) -> HostArray:
+        """The logical rows: each run's value repeated over its rows
+        (np.repeat of the run lengths, where the JAX package searches
+        each row's run)."""
+        first, lens = self._runs()
+        vals = self.values.slice(first, len(lens))
+        if vals.type.is_nested:
+            from ..compute.nested_selection import take_host_vec
+            return take_host_vec(vals, np.repeat(
+                np.arange(len(lens), dtype=np.int64), lens))
+        mask = None if vals.mask is None else np.repeat(vals.mask, lens)
+        return HostArray(np.repeat(vals.values, lens, axis=0), mask,
+                         vals.type, vals.dictionary)
+
+    def to_pylist(self) -> list:
+        return self.decode().to_pylist()
+
+    def slice(self, offset: int, length: int) -> "RunEndEncodedArray":
+        end = min(offset + length, self.length)
+        offset = min(offset, end)
+        return RunEndEncodedArray(self.run_ends, self.values, end - offset,
+                                  self.offset + offset)
 
 
 def nested_array(t: dt.DataType, length: int, mask: Optional[np.ndarray],

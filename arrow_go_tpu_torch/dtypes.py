@@ -40,6 +40,7 @@ import torch
 class TypeId(enum.IntEnum):
     """Logical type ids, mirroring arrow.Type (reference arrow/datatype.go)."""
 
+    NULL = 0
     BOOL = 1
     UINT8 = 2
     INT8 = 3
@@ -69,6 +70,7 @@ class TypeId(enum.IntEnum):
     FIXED_SIZE_LIST = 32
     DURATION = 33
     LARGE_LIST = 36
+    RUN_END_ENCODED = 38
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -109,7 +111,7 @@ _DECIMALS = (TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128,
 _TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
              TypeId.TIME64, TypeId.DURATION)
 _NESTED = (TypeId.LIST, TypeId.LARGE_LIST, TypeId.FIXED_SIZE_LIST,
-           TypeId.STRUCT, TypeId.MAP)
+           TypeId.STRUCT, TypeId.MAP, TypeId.RUN_END_ENCODED)
 
 
 class DataType:
@@ -254,6 +256,8 @@ date32 = DataType(TypeId.DATE32, "date32", np.int32, torch.int32, 32)
 date64 = DataType(TypeId.DATE64, "date64", np.int64, torch.int64, 64)
 # host values are Python str / bytes objects; on the device a column of
 # these types is a dictionary(int32, ...) column of codes
+# the type of a typeless null (Scalar(None)); the port has no null column
+null = DataType(TypeId.NULL, "null", None, None)
 string = DataType(TypeId.STRING, "utf8", None, None)
 binary = DataType(TypeId.BINARY, "binary", None, None)
 
@@ -568,6 +572,44 @@ class MapType(ListType):
 
     def __str__(self) -> str:
         return f"map<{self.key_type}, {self.item_type}>"
+
+
+class RunEndEncodedType(DataType):
+    """run_end_encoded<run_ends, values>: int16 / int32 / int64 run ends
+    (not nullable) and one values child, one entry a run (the JAX
+    package's RunEndEncodedType). Its columns live on the host
+    (device/block.py RunEndEncodedArray)."""
+
+    def __init__(self, run_ends: DataType, values: DataType):
+        if run_ends.id not in (TypeId.INT16, TypeId.INT32, TypeId.INT64):
+            raise ValueError("run-ends must be int16/int32/int64")
+        super().__init__(TypeId.RUN_END_ENCODED, "run_end_encoded", None,
+                         None)
+        self.run_ends_field = Field("run_ends", run_ends, nullable=False)
+        self.values_field = Field("values", values, nullable=True)
+
+    @property
+    def run_ends_type(self) -> DataType:
+        return self.run_ends_field.type
+
+    @property
+    def values_type(self) -> DataType:
+        return self.values_field.type
+
+    def fields(self) -> List[Field]:
+        return [self.run_ends_field, self.values_field]
+
+    def _eq_extra(self) -> tuple:
+        return (self.run_ends_type, self.values_type)
+
+    def __str__(self) -> str:
+        return (f"run_end_encoded<run_ends: {self.run_ends_type}, "
+                f"values: {self.values_type}>")
+
+
+def run_end_encoded(run_ends: DataType, values: DataType
+                    ) -> RunEndEncodedType:
+    return RunEndEncodedType(run_ends, values)
 
 
 def list_(value, nullable: bool = True) -> ListType:

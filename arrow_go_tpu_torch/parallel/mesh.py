@@ -70,6 +70,18 @@ def make_mesh(device=None, group=None) -> Mesh:
     return Mesh(group, dist.get_rank(group), dist.get_world_size(group), dev)
 
 
+def global_mesh(device=None) -> Mesh:
+    """The mesh over the initialised default group: every rank of every
+    host (the JAX package's mesh over all devices of all hosts), on
+    `device` (default: the card). Raises RuntimeError when no process
+    group is initialised: make_mesh or initialize_multihost starts one."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group is initialised; make_mesh or "
+                           "initialize_multihost starts one")
+    dev = _rank_device(torchenv.device(device))
+    return Mesh(None, dist.get_rank(), dist.get_world_size(), dev)
+
+
 def initialize_multihost(init_method: str, world_size: int, rank: int,
                          device=None) -> Mesh:
     """Join this process to a process group of `world_size` ranks at

@@ -1,0 +1,5 @@
+"""Observability helpers of the port (mirrors arrow_go_tpu.utils):
+per-function metrics and a profiler trace, and the device-memory leak
+watcher. The debug assertions are `utils.debug`."""
+from .memwatch import DeviceMemoryWatcher, device_live_bytes  # noqa: F401
+from .metrics import Metrics, metrics, trace  # noqa: F401

@@ -130,10 +130,24 @@ without one. Phases:
      2**31 (K3), each exact against numpy (`nested`, `nested_profile`),
      every K1, K2 and K3 call of one more run of each path against the
      plain version (`nested_path_checks`);
-  15. a `kernels` JSON line, then the last line
+  15. the compute front on the same arrays: TPC-H Q6 built with the
+     expression operators and run through compile_expression, its two
+     expressions under torch.cuda's sync debug mode "error", then the
+     filter (K1) and pc.sum / pc.count (K3), exact against numpy, its
+     mask bit for bit the eager one, timed beside the eager Q6
+     (`compiled_q6`); l_okey and o_odate sorted on the card and
+     run-end encoded, their run starts compacted by K1, exact against
+     numpy, decoded back bit for bit (`run_ends`); DeviceMemoryWatcher
+     around a warm Q3 and a compiled Q6 (`memwatch`); the registry's Q6
+     under the metrics registry, and a compiled Q6 under the profiler
+     trace, its K1 / K3 kernel events beside the launch counters
+     (`metrics`); a tensor of two columns on the card (`tensor`); every
+     K1 and K3 call of one more run of each path against the plain
+     version (`front_path_checks`);
+  16. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3 and 15 and, of phase 9, all but
+With --timing-only it skips phases 3, 15 and 16 and, of phase 9, all but
 the three queries and K2's timings, and holds no call of phases 10 to
 14 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
@@ -151,9 +165,11 @@ import decimal
 import importlib.util
 import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1068,7 +1084,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     too, as check_k3 holds K3. Fails unless as many calls were held as
     `counted` says the path's counted run launched. Returns (fn's
     result, {kernel: summary})."""
-    from arrow_go_tpu_torch.compute import join as cjoin
+    from arrow_go_tpu_torch.compute import join as cjoin, run_ends
     from arrow_go_tpu_torch.ops import groupagg, hashing, selection
     from arrow_go_tpu_torch.parallel import join as pjoin
     seen = {"K1": [], "K2": []}
@@ -1119,7 +1135,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
         return acc, count
 
     patches = [(m, "compact_flagged", k1)
-               for m in (selection, groupagg, pjoin, cjoin)] + [
+               for m in (selection, groupagg, pjoin, cjoin, run_ends)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
         (pjoin, "cummax_u32", k2_fill), (scan, "cummax_u32", k2_fill)] + (
         [(reductions, "reduce_with_count_host", k3_host)] if k3 else [])
@@ -3965,6 +3981,296 @@ def nested_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# the compute front, run-end encoding and the utilities
+# ---------------------------------------------------------------------------
+
+FRONT_TENSOR_ROWS = 1 << 20        # rows of the tensor check
+K1_KERNELS = ("count_kernel", "scatter_kernel")    # csrc/compaction.cu
+K3_KERNELS = ("reduce_kernel",)                    # csrc/reduce.cu
+
+
+def q6_operators():
+    """Q6's WHERE clause and revenue built with the operator methods:
+    (predicate, revenue)."""
+    f = pc.field
+    pred = ((f("l_sdate") >= Q6_DATE_LO) & (f("l_sdate") < Q6_DATE_HI)
+            & (f("l_disc") >= Q6_DISC_LO) & (f("l_disc") <= Q6_DISC_HI)
+            & (f("l_qty") < Q6_QTY))
+    return pred, f("l_price") * f("l_disc")
+
+
+class sync_errors:
+    """torch.cuda's sync debug mode "error" over a region: any operation
+    that waits for the device from the host raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+def compile_q6(schema):
+    """Q6 through compile_expression: the predicate over `schema`, the
+    revenue over the filtered (l_price, l_disc). Returns run(li_db) ->
+    (the Q6 dict, the mask); both expressions run under sync_errors."""
+    pred, rev = q6_operators()
+    pred_fn = pc.compile_expression(pred, schema)
+    kept = ["l_price", "l_disc"]
+    rev_fn = pc.compile_expression(rev, dt.Schema(
+        [schema.field(schema.field_index(n)) for n in kept]))
+
+    def run(li_db: DeviceBatch):
+        with sync_errors():
+            mask = pred_fn(li_db)
+        li_f = pc.filter(project(li_db, kept), mask)
+        with sync_errors():
+            r = rev_fn(li_f)
+        return {"revenue": pc.sum(r),
+                "count": pc.count(r, pc.CountOptions("all"))}, mask
+    return run
+
+
+def graph_costs(li_db: DeviceBatch, mask) -> dict:
+    """What a CUDA graph of Q6's compiled predicate would save and cost:
+    the predicate captured once over static copies of its columns and
+    replayed, beside its eager evaluation and the copy of the columns
+    into the static buffers that each call of a graph needs (CUDA events,
+    mean of 5). The replay's mask must equal `mask`."""
+    pred = pc.compile_expression(q6_operators()[0], li_db.schema)
+    static = [DeviceColumn(c.values.clone(), None, c.length, c.type)
+              for c in li_db.columns]
+    sdb = DeviceBatch(li_db.schema, static, li_db.length)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pred(sdb)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pred(sdb)
+    graph.replay()
+    _equal("graph replay of the Q6 predicate", _host(out), _host(mask))
+    q6_cols = [li_db.column(n) for n in Q6_COLUMNS]
+    q6_static = [sdb.column(n) for n in Q6_COLUMNS]
+
+    def copy_in():
+        for dst, src in zip(q6_static, q6_cols):
+            dst.values.copy_(src.values)
+    return {"graph_replay_ms": _time_ms(graph.replay, 5),
+            "eager_predicate_ms": _time_ms(lambda: pred(li_db), 5),
+            "input_copy_ms": _time_ms(copy_in, 5),
+            "input_bytes": sum(c.values.numel() * c.values.element_size()
+                               for c in q6_cols)}
+
+
+def run_end_oracle(v: np.ndarray):
+    """(sorted v, run ends int32, run values) by numpy."""
+    s = np.sort(v)
+    vals, counts = np.unique(s, return_counts=True)
+    return s, np.cumsum(counts).astype(np.int32), vals
+
+
+def check_runs(what: str, ree, want) -> None:
+    s, ends, vals = want
+    _equal(f"{what} run ends", ree.run_ends.values, ends)
+    _equal(f"{what} run values", ree.values.values, vals)
+    if ree.values.mask is not None:
+        raise AssertionError(f"{what}: a null run without nulls")
+    _equal(f"{what} decode", pc.run_end_decode(ree).values, s)
+
+
+def encode_sorted(col: DeviceColumn, times: dict = None):
+    """pc.sort of a column, then run_end_encode of it; with `times`, ms
+    of the sort, of the run detection (K1 compacts the starts; one count
+    read back) and of the host copy of starts and values, each ending in
+    a device synchronize."""
+    from arrow_go_tpu_torch.compute import run_ends as ree
+    if times is None:
+        return pc.run_end_encode(pc.sort(col))
+    srt, times["sort_ms"] = _sync_ms(lambda: pc.sort(col))
+    (starts, vals, ok), times["detect_ms"] = _sync_ms(
+        lambda: ree.device_runs(srt))
+    host, times["host_copy_ms"] = _sync_ms(
+        lambda: (starts.cpu().numpy(), vals.cpu().numpy(),
+                 ok.cpu().numpy()))
+    del host
+    return pc.run_end_encode(srt)
+
+
+def kernel_events(trace_path: str) -> dict:
+    """CUDA kernel events of a Chrome trace, counted by the name of each
+    K1 and K3 kernel (the demangled name without its "void ", template
+    arguments and parameters: torch's own reductions are
+    at::native::reduce_kernel)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [re.sub(r"^void ", "", e.get("name", "")).split("<")[0].split(
+        "(")[0] for e in events if e.get("cat") == "kernel"]
+    return {k: names.count(k) for k in K1_KERNELS + K3_KERNELS}
+
+
+def front_phases(li, orders, dev, card: str) -> dict:
+    """This slice's paths over the SF10 arrays already in memory:
+    `compiled_q6` (Q6 built with the operator methods, through
+    compile_expression, then filter (K1) and pc.sum / pc.count (K3);
+    exact against numpy, its mask bit for bit the eager q6_expression's,
+    its two expressions under sync debug "error"), `run_ends` (pc.sort of
+    l_okey and of o_odate, then run_end_encode, whose run starts K1
+    compacts; exact against numpy, and run_end_decode gives the sorted
+    column back), `memwatch` (DeviceMemoryWatcher around a warm Q3 and a
+    compiled Q6), `metrics` (the registry's Q6 under metrics.enable(),
+    and the trace's K1 / K3 kernel events of a compiled Q6 beside the
+    launch counters), `tensor` and `front_path_checks` (every K1 and K3
+    call of one more run of each path against the plain version).
+    Returns each path's launch counts and the largest kernel - plain
+    difference."""
+    from arrow_go_tpu_torch.tensor import tensor
+    from arrow_go_tpu_torch.utils import (DeviceMemoryWatcher,
+                                          device_live_bytes, metrics, trace)
+    t_phase = time.perf_counter()
+    n_li = len(li["l_okey"])
+    cols = ["l_okey", "l_price", "l_disc", "l_sdate", "l_qty"]
+    li_db = agt.batch_to_device({c: li[c] for c in cols}, device=dev)
+    ord_db = agt.batch_to_device(orders, device=dev)
+    launches, held, runs = {}, {}, {}
+
+    # compiled Q6 against numpy and the eager mask
+    q6_want = q6_oracle(li)
+    compiled = compile_q6(li_db.schema)
+    (got, mask), launches["compiled Q6"] = run_path(
+        "compiled Q6", lambda: compiled(li_db), ("K1", "K3"))
+    check_q6(got, q6_want)
+    eager = pc.execute_scalar_expression(q6_expression(), li_db)
+    _equal("compiled Q6 mask", _host(mask), _host(eager))
+    _equal("compiled Q6 mask validity",
+           mask.validity_mask()[:n_li].cpu().numpy(),
+           eager.validity_mask()[:n_li].cpu().numpy())
+    graph = graph_costs(li_db, mask)
+    del mask, eager
+    outs, runs["compiled"] = timed(lambda: compiled(li_db)[0])
+    for out in outs:
+        check_q6(out, q6_want)
+    outs, runs["eager"] = timed(lambda: compute_q6(li_db))
+    for out in outs:
+        check_q6(out, q6_want)
+    print(json.dumps({"compiled_q6": {
+        **got, "oracle": q6_want, "rows": n_li,
+        "ms_runs": runs["compiled"],
+        "ms_median": float(np.median(runs["compiled"])),
+        "eager_ms_runs": runs["eager"],
+        "eager_ms_median": float(np.median(runs["eager"])),
+        "no_host_sync": True, "mask_equals_eager": True, "graph": graph,
+        "launches_per_run": launches["compiled Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    # run-end encoding of the sorted keys
+    okey, odate = li_db.column("l_okey"), ord_db.column("o_odate")
+    t0 = time.perf_counter()
+    want = {"l_okey": run_end_oracle(li["l_okey"]),
+            "o_odate": run_end_oracle(orders["o_odate"])}
+    oracle_s = time.perf_counter() - t0
+    ree_info = {}
+    for name, col in (("l_okey", okey), ("o_odate", odate)):
+        path = f"run_end_encode {name}"
+        ree, launches[path] = run_path(path, lambda col=col: encode_sorted(
+            col), ("K1",))
+        check_runs(path, ree, want[name])
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = {}
+        ree = encode_sorted(col, times)
+        peak = torch.cuda.max_memory_allocated() - base
+        check_runs(path, ree, want[name])
+        t0 = time.perf_counter()
+        pc.run_end_decode(ree)
+        times["decode_ms"] = (time.perf_counter() - t0) * 1e3
+        ree_info[name] = {"rows": col.length, "runs": len(ree.values),
+                          **times, "peak_bytes": peak,
+                          "launches_per_run": launches[path]}
+    if ree_info["l_okey"]["runs"] != len(want["l_okey"][2]):
+        raise AssertionError("l_okey runs differ from numpy")
+    print(json.dumps({"run_ends": {**ree_info, "oracle_s": oracle_s,
+                                   "card": card, "verified": True}}),
+          flush=True)
+
+    # the leak check: a warm Q3 and a compiled Q6
+    oracle = q3_oracle(li, orders, CUTOFF)
+    check_q3(compute_q3(li_db, ord_db, CUTOFF), oracle)      # warm-up
+    check_q6(compiled(li_db)[0], q6_want)
+    live = device_live_bytes()
+    if live is None:
+        raise AssertionError("device_live_bytes gave None on the card")
+    with DeviceMemoryWatcher(tolerance=1 << 20) as w:
+        check_q3(compute_q3(li_db, ord_db, CUTOFF), oracle)
+        check_q6(compiled(li_db)[0], q6_want)
+    print(json.dumps({"memwatch": {
+        "start_bytes": w.start, "end_bytes": w.end, "growth_bytes": w.growth,
+        "tolerance_bytes": 1 << 20, "warmed_up": True, "card": card,
+        "verified": True}}), flush=True)
+
+    # the metrics registry and the profiler trace
+    disc_host = HostArray(li["l_disc"], None, dt.float64)
+    metrics.reset()
+    metrics.enable()
+    try:
+        got, _ = registry_q6(li_db, disc_host)
+    finally:
+        metrics.disable()
+    check_q6(got, q6_want)
+    snap = {k: {"calls": s.calls, "rows": s.rows, "host_ms": s.total_s * 1e3}
+            for k, s in metrics.snapshot().items()}
+    metrics.reset()
+    with tempfile.TemporaryDirectory() as d:
+        for k in KERNELS.values():
+            k.launches = 0
+        with trace("compiled_q6", log_dir=d, device=dev):
+            check_q6(compiled(li_db)[0], q6_want)
+        torch.cuda.synchronize()
+        counted = {k: f.launches for k, f in KERNELS.items()}
+        path = os.path.join(d, "compiled_q6.json")
+        trace_bytes = os.path.getsize(path)
+        events = kernel_events(path)
+    print(json.dumps({"metrics": {
+        "registry_q6": snap, "trace_bytes": trace_bytes,
+        "trace_kernel_events": events,
+        "counted_launches": {"K1": counted["K1"], "K3": counted["K3"]},
+        "card": card, "verified": True}}), flush=True)
+
+    # a tensor of two lineitem columns
+    m = np.stack([li["l_price"][:FRONT_TENSOR_ROWS],
+                  li["l_disc"][:FRONT_TENSOR_ROWS]], 1)
+    on_card = tensor(m).to_device()
+    _equal("tensor", on_card.cpu().numpy(), m)
+    print(json.dumps({"tensor": {"shape": list(on_card.shape),
+                                 "device": str(on_card.device),
+                                 "card": card, "verified": True}}),
+          flush=True)
+    del on_card
+
+    paths = {"compiled Q6": (lambda: compiled(li_db)[0],
+                             lambda out: check_q6(out, q6_want), True),
+             "run_end_encode l_okey": (
+                 lambda: encode_sorted(okey),
+                 lambda out: check_runs("l_okey", out, want["l_okey"]),
+                 False),
+             "run_end_encode o_odate": (
+                 lambda: encode_sorted(odate),
+                 lambda out: check_runs("o_odate", out, want["o_odate"]),
+                 False)}
+    for name, (fn, check, k3) in paths.items():
+        out, held[name] = check_path_calls(name, fn, launches[name], k3=k3)
+        check(out)
+    print(json.dumps({"front_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"front_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -4172,13 +4478,17 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, nested["errs"]["K1"])
     k2_err = max(k2_err, nested["errs"]["K2"])
     k3_err = max(k3_err, nested["errs"]["K3"])
+    front = front_phases(li, orders, dev, card)
+    k1_err = max(k1_err, front["errs"]["K1"])
+    k3_err = max(k3_err, front["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
                "Q3 from bytes": q3b_launches, **q1["launches"],
                **joins["launches"], **types["launches"],
                **decs["launches"], **dsets["launches"],
-               **dists["launches"], **nested["launches"]}
+               **dists["launches"], **nested["launches"],
+               **front["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

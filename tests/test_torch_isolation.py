@@ -59,6 +59,13 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.compute.nested_selection\n"
             "import arrow_go_tpu_torch.parquet.levels\n"
             "import arrow_go_tpu_torch.parquet.reader\n"
+            "import arrow_go_tpu_torch.compute.run_ends\n"
+            "import arrow_go_tpu_torch.compute.scalars\n"
+            "import arrow_go_tpu_torch.tensor\n"
+            "import arrow_go_tpu_torch.utils\n"
+            "import arrow_go_tpu_torch.utils.metrics\n"
+            "import arrow_go_tpu_torch.utils.memwatch\n"
+            "import arrow_go_tpu_torch.utils.debug\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -82,6 +89,16 @@ def test_codecs_are_the_ports_own_with_no_switch_or_fallback():
                for ln in text.splitlines())
     src = (PKG / "native.py").read_text()
     assert "environ" not in src and "except" not in src
+
+
+def test_the_scan_reaches_the_new_modules():
+    """The AST scan below covers every module of the package, these
+    included."""
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    for mod in ("compute/run_ends.py", "compute/scalars.py", "tensor.py",
+                "utils/__init__.py", "utils/metrics.py", "utils/memwatch.py",
+                "utils/debug.py"):
+        assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -183,3 +200,30 @@ def test_distributed_tier_runs_on_the_card_unless_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not dist.is_initialized()
+
+
+def test_front_and_utilities_run_on_the_card_unless_asked(monkeypatch):
+    """run_end_encode and sort of a host array, a HostBatch expression, a
+    scalar's numeric cast, the typed wrappers over host arrays, the
+    memory watcher, the trace and Tensor.to_device resolve the card when
+    no device is named."""
+    import arrow_go_tpu_torch.compute as pc
+    from arrow_go_tpu_torch import dtypes
+    from arrow_go_tpu_torch.device.block import HostArray, HostBatch
+    from arrow_go_tpu_torch.tensor import tensor
+    from arrow_go_tpu_torch.utils import DeviceMemoryWatcher, trace
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = HostArray(np.arange(5000), None, dtypes.int64)
+    hb = HostBatch.from_arrays({"a": a})
+
+    def with_trace():
+        with trace():
+            pass
+
+    for call in (lambda: pc.run_end_encode(a), lambda: pc.sort(a),
+                 lambda: pc.execute_scalar_expression(pc.field("a") > 1, hb),
+                 lambda: pc.scalar(5).cast(dtypes.float64),
+                 lambda: pc.add(a, 1), lambda: DeviceMemoryWatcher(),
+                 with_trace, lambda: tensor(np.eye(2)).to_device()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

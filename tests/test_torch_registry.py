@@ -11,6 +11,7 @@ import pytest
 import arrow_go_tpu as agt
 from arrow_go_tpu.compute import functions as jf
 from arrow_go_tpu.compute import registry as jreg
+from arrow_go_tpu.compute.run_ends import run_end_encode
 from arrow_go_tpu.device.block import DeviceBatch as JaxBatch
 from arrow_go_tpu.device.block import DeviceColumn as JaxColumn
 from arrow_go_tpu.device.block import to_device
@@ -26,15 +27,13 @@ from torch_parity import (jax_batch, jax_type, port_array, port_batch,
 
 jcast = importlib.import_module("arrow_go_tpu.compute.cast")
 
-# JAX names whose functions the port does not have yet: casts to types
-# it does not carry (lists, structs, views, large and fixed-size
-# binaries, intervals, dictionaries, extensions), the struct results
-# (value_counts, make_struct), run-end encoding and sort.
+# JAX names whose functions the port does not have yet: the casts to
+# types it does not carry (views, large and fixed-size binaries, the
+# month-day-nano interval, dictionaries, extensions).
 MISSING = {
     "cast_binary_view", "cast_dictionary", "cast_extension",
     "cast_fixed_sized_binary", "cast_large_binary", "cast_large_string",
-    "cast_month_day_nano_interval", "cast_string_view", "run_end_decode",
-    "run_end_encode", "sort"}
+    "cast_month_day_nano_interval", "cast_string_view"}
 
 PORT_NAMES = registry.default_registry().function_names()
 N = 96
@@ -178,8 +177,11 @@ def _case(name: str):
     if base in ("take", "array_take"):
         # (the JAX take reads its indices on the host)
         return ["f_host", "idx_host"], None, None
-    if base in ("sort_indices", "unique", "dictionary_encode"):
+    if base in ("sort_indices", "unique", "dictionary_encode", "sort",
+                "run_end_encode"):
         return ["i"], None, None
+    if base == "run_end_decode":
+        return ["ree"], None, None
     if base in ("is_in", "index_in"):
         vs = [3, -7, None, 11]
         return (["i"], jf.SetLookupOptions(value_set=vs),
@@ -206,6 +208,12 @@ def _args(spec, host_first: bool):
             jarr = agt.array(rows, _nested_type(tname))
             jargs.append(jarr)
             targs.append(port_array(jarr))
+            continue
+        if a == "ree":                  # the encoded runs of a column
+            v, mask, t = DATA["j"]
+            jargs.append(run_end_encode(agt.from_numpy(v, mask)))
+            targs.append(pc.run_end_encode(HostArray(v, mask, t),
+                                           device="cpu"))
             continue
         if a == "batch":
             data = {k: DATA[k][0] for k in ("f", "i", "d")}

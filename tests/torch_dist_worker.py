@@ -69,12 +69,22 @@ def mesh_info(mesh, n_rows: int):
             _to_host(pm.replicated(mesh).put(data)))
 
 
+def global_mesh_info(mesh):
+    """(rank, world size, device type, whether its group is the default
+    one) of global_mesh() on the CPU, beside this rank's mesh."""
+    from arrow_go_tpu_torch.parallel import global_mesh
+    g = global_mesh(device="cpu")
+    return (g.rank, g.world_size, g.device.type, g.group is None,
+            mesh.rank, mesh.world_size)
+
+
 def bench_overlap(mesh, **kwargs):
     from arrow_go_tpu_torch.parallel import overlap
     return overlap.bench_overlap(mesh, **kwargs)
 
 
-TASKS = {f.__name__: f for f in (builder, api, mesh_info, bench_overlap)}
+TASKS = {f.__name__: f for f in (builder, api, mesh_info, global_mesh_info,
+                                  bench_overlap)}
 
 
 # ---------------------------------------------------------------------------
