@@ -8,14 +8,17 @@ kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
 arrow_go_tpu.
 """
-from . import compute, dtypes, parquet, torchenv
+from . import compute, dtypes, extensions, parquet, torchenv
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
-                           HostArray, HostBatch, HostColumn, batch_from_numpy,
+                           ExtensionArray, HostArray, HostBatch, HostColumn,
+                           ListViewArray, UnionArray, batch_from_numpy,
                            batch_to_device, list_from_device,
-                           list_take_device, list_to_device, pad_length)
+                           list_take_device, list_to_device, null_array,
+                           pad_length)
 
-__all__ = ["compute", "dtypes", "parquet", "torchenv", "DeviceBatch",
-           "DeviceColumn", "DeviceListColumn", "HostArray", "HostBatch",
-           "HostColumn", "batch_from_numpy", "batch_to_device",
-           "list_from_device", "list_take_device", "list_to_device",
-           "pad_length"]
+__all__ = ["compute", "dtypes", "extensions", "parquet", "torchenv",
+           "DeviceBatch", "DeviceColumn", "DeviceListColumn",
+           "ExtensionArray", "HostArray", "HostBatch", "HostColumn",
+           "ListViewArray", "UnionArray", "batch_from_numpy",
+           "batch_to_device", "list_from_device", "list_take_device",
+           "list_to_device", "null_array", "pad_length"]

@@ -9,7 +9,11 @@ check is one device reduction read once on the host. `cast_host` runs
 the casts with a binary-like side over HostArrays (strings live on the
 host by design): among them string <-> decimal, the only decimal casts
 the JAX package has (every other cast to or from a decimal raises
-ArrowNotImplemented there and here).
+ArrowNotImplemented there and here), the casts among the six
+binary-like types (a re-typed dictionary: the JAX package rebuilds
+every row where the layout changes) and among list, large_list,
+list_view, large_list_view and fixed_size_list (one gather of the kept
+child rows).
 
 The values convert as the JAX package's `astype` does (ops/convert.py):
 integers wrap, and with the checks off a float becomes an integer by
@@ -54,11 +58,16 @@ class CastOptions:
 
 
 LIST_KINDS = (dt.TypeId.LIST, dt.TypeId.LARGE_LIST,
-              dt.TypeId.FIXED_SIZE_LIST)
+              dt.TypeId.FIXED_SIZE_LIST, dt.TypeId.LIST_VIEW,
+              dt.TypeId.LARGE_LIST_VIEW)
+_LIST_VIEWS = (dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW)
 
 
 def _fixed(t: dt.DataType) -> bool:
-    return t.is_numeric or t == dt.bool_ or t.is_temporal
+    """bool, numeric and temporal types stored one number a row (not
+    the structured day_time / month_day_nano intervals)."""
+    return (t.is_numeric or t == dt.bool_ or t.is_temporal) and \
+        t.torch_dtype is not None
 
 
 def can_cast(from_t: dt.DataType, to_t: dt.DataType) -> bool:
@@ -246,9 +255,9 @@ def _ticks(delta: _dt.timedelta, t: dt.DataType) -> int:
 
 def _string_array(strs, valid, to_t: dt.DataType) -> HostArray:
     """Python str values (None where not valid) as a dictionary HostArray
-    of `to_t` (string, or binary of their UTF-8 bytes)."""
+    of `to_t` (a string type, or a binary type of their UTF-8 bytes)."""
     vals = np.empty(len(strs), dtype=object)
-    vals[:] = [s if to_t == dt.string or s is None else s.encode()
+    vals[:] = [s if to_t.is_utf8 or s is None else s.encode()
                for s in strs]
     codes, dictionary = factorize(vals, valid)
     return HostArray(codes, None if valid.all() else valid,
@@ -309,12 +318,13 @@ def _cast_child(child: HostArray, to_t: dt.DataType,
 
 def _cast_list(arr: HostArray, to_t: dt.DataType,
                options: Optional[CastOptions]) -> HostArray:
-    """list <-> large_list <-> fixed_size_list with the child cast (the
-    JAX package rebuilds each valid row into the target's builder): a
-    null row keeps no child rows, or list_size null ones in a
-    fixed_size_list; a fixed_size_list target takes only rows of its
-    size."""
-    from ..device.block import nested_array
+    """list <-> large_list <-> list_view <-> large_list_view <->
+    fixed_size_list with the child cast (the JAX package rebuilds each
+    valid row into the target's builder; here one gather of the kept
+    child rows): a null row keeps no child rows, or list_size null ones
+    in a fixed_size_list; a fixed_size_list target takes only rows of
+    its size; a list view target's rows are in order."""
+    from ..device.block import ListViewArray, nested_array
     from .nested_selection import expand_runs, take_host_vec
     n = len(arr)
     valid = arr.validity_bools()
@@ -322,6 +332,9 @@ def _cast_list(arr: HostArray, to_t: dt.DataType,
         k = arr.type.list_size
         starts = np.arange(n, dtype=np.int64) * k
         lens = np.full(n, k, np.int64)
+    elif arr.type.id in _LIST_VIEWS:
+        starts, lens = arr.offsets.astype(np.int64), arr.sizes.astype(
+            np.int64)
     else:
         off = arr.offsets.astype(np.int64)
         starts, lens = off[:-1], np.diff(off)
@@ -340,14 +353,27 @@ def _cast_list(arr: HostArray, to_t: dt.DataType,
     np.cumsum(lens, out=offsets[1:])
     if offsets[-1] > np.iinfo(to_t.offset_dtype).max:
         raise ArrowInvalid(f"cast to {to_t}: offsets overflow")
-    return nested_array(to_t, n, arr.mask, [
-        _cast_child(child, to_t.value_type, options)], offsets)
+    child = _cast_child(child, to_t.value_type, options)
+    if to_t.id in _LIST_VIEWS:
+        return ListViewArray(to_t, arr.mask, offsets[:-1], lens, child)
+    return nested_array(to_t, n, arr.mask, [child], offsets)
+
+
+def _as_text(v) -> str:
+    return v if isinstance(v, str) else bytes(v).decode("utf-8")
+
+
+def _as_bytes(v) -> bytes:
+    return v.encode() if isinstance(v, str) else bytes(v)
 
 
 def cast_host(arr: HostArray, to_t: dt.DataType,
               options: Optional[CastOptions] = None) -> HostArray:
-    """The host cast path: any cast with a binary-like side. A string
-    result is a dictionary HostArray (codes and values)."""
+    """The host cast path: any cast with a binary-like side, and the
+    list casts. A string or binary result (of any of the six binary-like
+    types) is a dictionary HostArray (codes and values); a cast among
+    them re-types the dictionary and keeps the codes, so its cost is the
+    dictionary's, not the column's."""
     from_t = arr.type
     if from_t == to_t:
         return arr
@@ -355,17 +381,19 @@ def cast_host(arr: HostArray, to_t: dt.DataType,
         return _cast_list(arr, to_t, options)
     if from_t.is_nested or to_t.is_nested:
         raise ArrowNotImplemented(f"cast {from_t} -> {to_t}")
+    if from_t.id == dt.TypeId.DICTIONARY and from_t.value_type.is_binary_like \
+            and to_t.is_binary_like:
+        if from_t.value_type == to_t:
+            return arr
+        # a re-typed dictionary: the codes and the mask stay as they are
+        values = np.empty(len(arr.dictionary), dtype=object)
+        values[:] = [_as_text(v) if to_t.is_utf8 else _as_bytes(v)
+                     for v in arr.dictionary]
+        return HostArray(arr.values, arr.mask, dt.dictionary(dt.int32, to_t),
+                         values)
     valid = arr.validity_bools()
     if from_t.id == dt.TypeId.DICTIONARY:
         vt = from_t.value_type
-        if vt.is_binary_like and to_t.is_binary_like:
-            if vt == to_t:
-                return arr
-            values = np.empty(len(arr.dictionary), dtype=object)
-            values[:] = [v.encode() if to_t == dt.binary else
-                         bytes(v).decode("utf-8") for v in arr.dictionary]
-            return HostArray(arr.values, arr.mask, dt.dictionary(
-                dt.int32, to_t), values)
         if not vt.is_binary_like:
             decoded = np.asarray(arr.dictionary, vt.np_dtype)[
                 np.clip(arr.values, 0, max(len(arr.dictionary) - 1, 0))]

@@ -13,8 +13,11 @@ integers and float16 widened to the JAX package's accumulators first,
 unsigned values read unsigned), count_distinct, any and all;
 `value_counts` and `make_struct`, whose struct results are host
 columns. filter_ and take take DeviceBatches, DeviceColumns,
-DeviceListColumns, HostBatches and HostArrays; nested columns select on
-the host (compute/nested_selection.py).
+DeviceListColumns, HostBatches and HostArrays; a column the device
+block format does not carry (nested, a union, a list view, the
+day_time and month_day_nano intervals, an extension of such a storage)
+selects on the host (compute/nested_selection.py), as the JAX package's
+`_device_selectable` routes it.
 
 A decimal128 / decimal256 column is a (P, k) limb matrix: the batch
 filter carries each limb as a payload of its own, take gathers rows and
@@ -224,10 +227,12 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
     true. A DeviceBatch or DeviceColumn filters on its device (K1), a
     DeviceBatch's HostColumns on the host; a DeviceListColumn by
     filter_indices (K1) and list_take_device. A HostBatch or HostArray
-    of flat columns filters on `device` (the card unless named) and
-    comes back to the host; one with a nested column filters on the
-    host (compute/nested_selection.py). A host input or mask gives a
-    host result, as in the JAX package."""
+    of columns the device block format carries (`DataType.on_device`)
+    filters on `device` (the card unless named) and comes back to the
+    host; one with another column (nested, day_time_interval, ...)
+    filters on the host (compute/nested_selection.py), as the JAX
+    package routes them. A host input or mask gives a host result, as
+    in the JAX package."""
     options = options or FilterOptions()
     host_mask = isinstance(mask, HostArray)
     if isinstance(values, DeviceBatch):
@@ -243,7 +248,7 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
                                             options.null_selection)
         return list_take_device(values, idx, int(cnt))
     if isinstance(values, HostBatch):
-        if any(c.type.is_nested for c in values.columns):
+        if not all(c.type.on_device for c in values.columns):
             hidx = _host_filter_indices(mask, options)
             return HostBatch(values.schema, [
                 nested_selection.take_host_vec(c, hidx)
@@ -251,7 +256,7 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
         db = host_batch_to_device(values, _device_of(mask, device))
         return device_batch_to_host(_filter_device_batch(db, mask, options))
     if isinstance(values, HostArray):
-        if values.type.is_nested:
+        if not values.type.on_device:
             return nested_selection.take_host_vec(
                 values, _host_filter_indices(mask, options))
         col = host_array_to_device(values, _device_of(mask, device))
@@ -325,7 +330,7 @@ def take(values, indices, options: Optional[TakeOptions] = None,
     options = options or TakeOptions()
     if isinstance(values, (HostBatch, HostArray)) and isinstance(
             indices, DeviceColumn):
-        if isinstance(values, HostBatch) or values.type.is_nested:
+        if isinstance(values, HostBatch) or not values.type.on_device:
             indices = column_to_host(indices)
         else:
             return column_to_host(take(host_array_to_device(
@@ -1105,11 +1110,16 @@ CAST_TARGETS = {
     "cast_uint64": dt.uint64, "cast_half_float": dt.float16,
     "cast_float": dt.float32, "cast_double": dt.float64,
     "cast_boolean": dt.bool_, "cast_string": dt.string,
-    "cast_binary": dt.binary, "cast_date32": dt.date32,
-    "cast_date64": dt.date64, "cast_time32": None, "cast_time64": None,
-    "cast_timestamp": None, "cast_duration": None, "cast_decimal": None,
-    "cast_decimal256": None, "cast_list": None, "cast_large_list": None,
-    "cast_fixed_size_list": None, "cast_struct": None,
+    "cast_large_string": dt.large_string, "cast_binary": dt.binary,
+    "cast_large_binary": dt.large_binary,
+    "cast_string_view": dt.string_view, "cast_binary_view": dt.binary_view,
+    "cast_date32": dt.date32, "cast_date64": dt.date64,
+    "cast_month_day_nano_interval": dt.month_day_nano_interval,
+    "cast_time32": None, "cast_time64": None, "cast_timestamp": None,
+    "cast_duration": None, "cast_decimal": None, "cast_decimal256": None,
+    "cast_fixed_sized_binary": None, "cast_list": None,
+    "cast_large_list": None, "cast_fixed_size_list": None,
+    "cast_struct": None, "cast_extension": None, "cast_dictionary": None,
 }
 
 

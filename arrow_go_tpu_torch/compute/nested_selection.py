@@ -5,9 +5,16 @@ HostArrays: the device block format carries flat columns, so a nested
 column (list, large_list, map, fixed_size_list, struct, at any depth)
 selects on the host with vectorised numpy, the JAX package's
 offsets-rebuild gather. A flat column takes its values and mask by the
-same index vector (its existing route); a dictionary column takes its
-codes and keeps its dictionary; a run_end_encoded column takes each
-row's run and merges equal neighbouring runs, as the JAX package does.
+same index vector (its existing route; an interval's structured
+values too); a dictionary column takes its codes and keeps its
+dictionary (the large and view string and binary types are such
+columns); a run_end_encoded column takes each row's run and merges
+equal neighbouring runs, as the JAX package does. A null column takes
+only a length, an extension column takes its storage, a list view its
+offsets and sizes (the new offsets a running sum of the kept sizes), a
+sparse union each child by the same rows and a dense union its type
+codes and offsets, a null index pointing at one null row appended to
+child 0 under `type_codes[0]`, as the JAX package's take_host_vec does.
 
 Index vectors are int64 numpy arrays: idx[i] >= 0 selects source row
 idx[i], idx[i] == -1 emits a null row.
@@ -19,9 +26,11 @@ from typing import Optional
 import numpy as np
 
 from .. import dtypes as dt
-from ..device.block import (HostArray, RunEndEncodedArray, nested_array,
+from ..device.block import (ExtensionArray, HostArray, ListViewArray,
+                            RunEndEncodedArray, UnionArray,
+                            concat_host_arrays, nested_array, null_array,
                             storage_zeros)
-from .errors import ArrowIndexError
+from .errors import ArrowIndexError, ArrowNotImplemented
 
 _LISTS = (dt.TypeId.LIST, dt.TypeId.LARGE_LIST, dt.TypeId.MAP)
 
@@ -49,8 +58,19 @@ def expand_runs(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
 
 def null_rows(t: dt.DataType, n: int) -> HostArray:
     """n null rows of t (a take of an empty source by null indices; with
-    n = 0, an empty column of t)."""
+    n = 0, an empty column of t). A union or extension type raises
+    ArrowNotImplemented, as the JAX package's `nulls` (it has no builder
+    for them)."""
     mask = np.zeros(n, np.bool_)
+    if t.id == dt.TypeId.NULL:
+        return null_array(n)
+    if t.id in (dt.TypeId.SPARSE_UNION, dt.TypeId.DENSE_UNION,
+                dt.TypeId.EXTENSION):
+        raise ArrowNotImplemented(f"null rows of {t}")
+    if t.id in (dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW):
+        zeros = np.zeros(n, t.offset_dtype)
+        return ListViewArray(t, mask, zeros, zeros,
+                             null_rows(t.value_type, 0))
     if t.id in _LISTS:
         return HostArray(None, mask, t,
                          offsets=np.zeros(n + 1, t.offset_dtype),
@@ -113,16 +133,29 @@ def take_host_vec(arr: HostArray, idx: np.ndarray) -> HostArray:
     idx = np.asarray(idx, dtype=np.int64)
     t = arr.type
     n_out = len(idx)
+    if t.id == dt.TypeId.NULL:
+        return null_array(n_out)
     if len(arr) == 0:
         if (idx >= 0).any():
             raise ArrowIndexError("take index out of bounds (empty source)")
         return null_rows(t, n_out)
+    if t.id == dt.TypeId.EXTENSION:
+        return ExtensionArray(t, take_host_vec(arr.storage, idx))
     if not t.is_nested:
         return _take_flat(arr, idx)
     if t.id == dt.TypeId.RUN_END_ENCODED:
         return _take_run_ends(arr, idx)
+    if t.id in (dt.TypeId.SPARSE_UNION, dt.TypeId.DENSE_UNION):
+        return _take_union(arr, idx)
     safe = np.where(idx < 0, 0, idx)
     mask = _out_mask(arr, idx, safe)
+    if t.id in (dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW):
+        starts = np.where(idx < 0, 0, arr.offsets.astype(np.int64)[safe])
+        lens = np.where(idx < 0, 0, arr.sizes.astype(np.int64)[safe])
+        child = take_host_vec(arr.children[0], expand_runs(starts, lens))
+        new_off = np.zeros(n_out, np.int64)
+        np.cumsum(lens[:-1], out=new_off[1:])
+        return ListViewArray(t, mask, new_off, lens, child)
     if t.id in _LISTS:
         off = arr.offsets.astype(np.int64)
         starts = np.where(idx < 0, 0, off[:-1][safe])
@@ -140,6 +173,29 @@ def take_host_vec(arr: HostArray, idx: np.ndarray) -> HostArray:
                             [take_host_vec(arr.children[0], child_idx)])
     return nested_array(t, n_out, mask, [take_host_vec(c, idx)
                                          for c in arr.children])
+
+
+def _take_union(arr: UnionArray, idx: np.ndarray) -> UnionArray:
+    """Rows idx of a union: a sparse union's children by the same rows
+    (a null index is null in every child, whatever its type code); a
+    dense union's type codes and offsets, its children shared, a null
+    index at one null row appended to child 0 under type_codes[0]."""
+    safe = np.where(idx < 0, 0, idx)
+    tids = arr.type_ids[safe]
+    if not arr.dense:
+        return UnionArray(arr.type, tids, [take_host_vec(c, idx)
+                                           for c in arr.children])
+    voff = arr.value_offsets[safe]
+    children = list(arr.children)
+    neg = idx < 0
+    if neg.any():
+        c0 = children[0]
+        children[0] = concat_host_arrays([c0, null_rows(
+            c0.type.value_type if c0.dictionary is not None else c0.type,
+            1)])
+        tids = np.where(neg, np.int8(arr.type.type_codes[0]), tids)
+        voff = np.where(neg, np.int32(len(c0)), voff)
+    return UnionArray(arr.type, tids, children, voff)
 
 
 def filter_indices_host(mask_vals: np.ndarray, mask_valid: np.ndarray,

@@ -8,8 +8,10 @@ decimal128(38, scale), datetime -> timestamp[us], date -> date32, ...;
 no value -> the null type). `make_array_from_scalar` broadcasts one to
 a HostArray with np.full of its storage value (a date as days, a
 timestamp as ticks, a decimal as its unscaled value or limbs, a string
-as one dictionary entry). A typeless null has no column in the port
-(there is no null column yet) and raises ArrowNotImplemented.
+of any binary-like type as one dictionary entry, an interval as its
+numpy value). A typeless null broadcasts to a column of the null type,
+as in the JAX package; a union or extension scalar raises
+ArrowNotImplemented, as the JAX package's builders have none for them.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ from typing import Any, Optional
 import numpy as np
 
 from .. import dtypes as dt
-from ..device.block import (HostArray, dictionary_values, factorize,
-                            nested_array)
+from ..device.block import (HostArray, ListViewArray, dictionary_values,
+                            factorize, nested_array, null_array)
 from ..ops.decimal import from_ints
 from .errors import ArrowInvalid, ArrowNotImplemented
 
@@ -105,6 +107,16 @@ def _array_of(values: list, t: dt.DataType) -> HostArray:
     n = len(values)
     ok = np.array([v is not None for v in values], np.bool_)
     mask = None if ok.all() else ok
+    if t.id == dt.TypeId.NULL:
+        return null_array(n)
+    if t.id in (dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW):
+        lens = np.array([len(v) if v is not None else 0 for v in values],
+                        np.int64)
+        off = np.zeros(n, np.int64)
+        np.cumsum(lens[:-1], out=off[1:])
+        flat = [x for v in values if v is not None for x in v]
+        return ListViewArray(t, mask, off, lens,
+                             _array_of(flat, t.value_type))
     if t.id in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST):
         lens = [len(v) if v is not None else 0 for v in values]
         off = np.zeros(n + 1, np.int64)
@@ -116,12 +128,16 @@ def _array_of(values: list, t: dt.DataType) -> HostArray:
         return nested_array(t, n, mask, [
             _array_of([None if v is None else v.get(f.name)
                        for v in values], f.type) for f in t.fields()])
-    if t.is_nested:
+    if t.is_nested or t.id == dt.TypeId.EXTENSION:
         raise ArrowNotImplemented(f"an array of {t} from Python values")
     if t.codes_on_device:
         codes, d = factorize(dictionary_values(
             ["" if v is None else v for v in values], t), mask)
         return HostArray(codes, mask, dt.dictionary(dt.int32, t), d)
+    if t.np_dtype is not None and t.np_dtype.names:      # an interval
+        zero = (0,) * len(t.np_dtype.names)
+        return HostArray(np.array([zero if v is None else tuple(v)
+                                   for v in values], t.np_dtype), mask, t)
     stored = [storage_value(v, t) if v is not None else 0 for v in values]
     if t.limbs:
         return HostArray(from_ints(stored, t.limbs), mask, t)
@@ -181,9 +197,9 @@ def make_array_from_scalar(s: Scalar, length: int) -> HostArray:
     MakeArrayFromScalar)."""
     t = s.type
     if t.id == dt.TypeId.NULL:
-        raise ArrowNotImplemented("a column of the null type is not "
-                                  "ported: give the null scalar a type")
-    if t.is_nested:
+        return null_array(length)
+    if t.is_nested or t.id == dt.TypeId.EXTENSION or (
+            t.np_dtype is not None and t.np_dtype.names):
         return _array_of([s.value] * length, t)
     mask = None if s.is_valid else np.zeros(length, np.bool_)
     if t.codes_on_device:

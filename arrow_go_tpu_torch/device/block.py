@@ -35,11 +35,23 @@ come back as a numpy-backed HostBatch.
 
 Nested columns (list, large_list, fixed_size_list, struct, map) are
 HostArrays of child HostArrays; in a DeviceBatch one rides as a
-HostColumn, picked by its type id. A list of a flat type also has a
+HostColumn, as does every column whose type the block format does not
+carry (`DataType.on_device`). A list of a flat type also has a
 device form, DeviceListColumn (offsets plus a flat child DeviceColumn),
 whose take (`list_take_device`) expands the child runs with K2's
 hi-only fills on the card. A run_end_encoded column is a HostArray too
-(RunEndEncodedArray, children run_ends and values).
+(RunEndEncodedArray, children run_ends and values), and so are a list
+view (ListViewArray: offsets and sizes into one child), a union
+(UnionArray: int8 type codes, a dense one's int32 offsets, a child a
+field) and an extension column (ExtensionArray: its storage HostArray).
+
+The other types of the JAX package's set: a null column holds a length
+only (on the device int8 zeros with all-false validity words, as the
+JAX package's to_device gives it); month_interval is int32 values (on
+the device too); day_time_interval and month_day_nano_interval hold
+numpy structured values and stay on the host; large_string,
+large_binary, string_view and binary_view are dictionary-coded as
+string and binary are, on the host and on the device.
 """
 from __future__ import annotations
 
@@ -148,10 +160,11 @@ class DeviceColumn:
 
 @dataclass
 class HostColumn:
-    """A nested column that rides a DeviceBatch but stays on the host
-    (the JAX package's HostColumn): the device block format carries
-    flat columns only. Batch filter, take and join select it on the
-    host (compute/nested_selection.py); a device kernel refuses it."""
+    """A column that rides a DeviceBatch but stays on the host (the
+    JAX package's HostColumn): a nested one, or one of another type the
+    device block format does not carry (`DataType.on_device`). Batch
+    filter, take and join select it on the host
+    (compute/nested_selection.py); a device kernel refuses it."""
 
     array: "HostArray"
 
@@ -199,9 +212,10 @@ def _words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
 
 
 def dictionary_values(values, t: dt.DataType) -> np.ndarray:
-    """A dictionary's values as a numpy object array of str (string, from
-    str or UTF-8 bytes) or bytes (binary)."""
-    if t == dt.string:
+    """A dictionary's values as a numpy object array of str (string,
+    large_string, string_view: from str or UTF-8 bytes) or bytes (the
+    binary types)."""
+    if t.is_utf8:
         vals = [v.decode() if isinstance(v, (bytes, bytearray, memoryview))
                 else str(v) for v in values]
     else:
@@ -319,8 +333,9 @@ def batch_to_device(data: Dict[str, object], device=None,
     A string column is a numpy str/object array (dictionary-encoded here,
     first-occurrence order) or an (int32 codes, values) pair taken as it
     stands; bytes values make a binary column. A HostArray goes as it
-    is: a nested one as a HostColumn (picked by its type id), a flat one
-    as a DeviceColumn with its validity."""
+    is: one the device block format does not carry as a HostColumn
+    (`DataType.on_device`), a flat one as a DeviceColumn with its
+    validity."""
     hosts = {k: v for k, v in data.items() if isinstance(v, HostArray)}
     flat = {k: v for k, v in data.items() if k not in hosts}
     if not hosts:
@@ -340,8 +355,8 @@ def batch_to_device(data: Dict[str, object], device=None,
                                  f"not {n}")
             t = a.type.value_type if a.dictionary is not None else a.type
             fields.append(dt.Field(name, t))
-            cols.append(HostColumn(a) if a.type.is_nested else
-                        host_array_to_device(a, dev, P))
+            cols.append(host_array_to_device(a, dev, P) if a.type.on_device
+                        else HostColumn(a))
         else:
             i = db.schema.field_index(name)
             fields.append(db.schema.field(i))
@@ -429,7 +444,7 @@ class HostArray:
 
     def validity_bools(self) -> np.ndarray:
         if self.mask is None:
-            return np.ones(self.length, np.bool_)
+            return np.full(self.length, self.type.id != dt.TypeId.NULL)
         return self.mask
 
     def unscaled(self) -> list:
@@ -466,7 +481,10 @@ class HostArray:
         """Python values; a dictionary column's codes decode to its
         dictionary's values, a decimal's unscaled ints to Decimals, a
         list's rows to lists, a map's to lists of (key, value) tuples
-        and a struct's to dicts (the JAX package's to_pylist)."""
+        and a struct's to dicts (the JAX package's to_pylist); a null
+        column's rows are None, an interval's tuples."""
+        if self.type.id == dt.TypeId.NULL:
+            return [None] * self.length
         if self.type.is_nested:
             vals = self._nested_values()
         elif self.type.is_decimal:
@@ -490,6 +508,8 @@ class HostArray:
         offset = min(offset, end)
         mask = None if self.mask is None else self.mask[offset:end]
         t = self.type
+        if t.id == dt.TypeId.NULL:
+            return HostArray(None, None, t, length=end - offset)
         if not t.is_nested:
             return HostArray(self.values[offset:end], mask, t,
                              self.dictionary)
@@ -575,6 +595,133 @@ class RunEndEncodedArray(HostArray):
                                   self.offset + offset)
 
 
+class ListViewArray(HostArray):
+    """A list_view or large_list_view column (the JAX package's
+    ListViewArray): `offsets` and `sizes` (n each, the type's offset
+    dtype) into one child, row i being the child's rows [offsets[i],
+    offsets[i] + sizes[i]), in any order. A slice keeps the child."""
+
+    def __init__(self, t: dt.DataType, mask: Optional[np.ndarray],
+                 offsets: np.ndarray, sizes: np.ndarray, child: HostArray):
+        self.type = t
+        self.values = self.dictionary = None
+        self.mask = None if mask is None else np.asarray(mask, np.bool_)
+        self.offsets = np.ascontiguousarray(offsets, t.offset_dtype)
+        self.sizes = np.ascontiguousarray(sizes, t.offset_dtype)
+        self.children = [child]
+        self.length = len(self.offsets)
+
+    def to_pylist(self) -> list:
+        off = self.offsets.astype(np.int64)
+        size = self.sizes.astype(np.int64)
+        lo = int(off.min()) if self.length else 0
+        hi = int((off + size).max()) if self.length else 0
+        entries = self.children[0].slice(lo, hi - lo).to_pylist()
+        rows = [entries[a - lo:a - lo + b]
+                for a, b in zip(off.tolist(), size.tolist())]
+        return [v if ok else None
+                for v, ok in zip(rows, self.validity_bools().tolist())]
+
+    def slice(self, offset: int, length: int) -> "ListViewArray":
+        end = min(offset + length, self.length)
+        offset = min(offset, end)
+        mask = None if self.mask is None else self.mask[offset:end]
+        return ListViewArray(self.type, mask, self.offsets[offset:end],
+                             self.sizes[offset:end], self.children[0])
+
+
+class UnionArray(HostArray):
+    """A sparse or dense union column (the JAX package's UnionArray):
+    `type_ids` (int8 type codes, n) and one child a field; a dense
+    union also `value_offsets` (int32, n) into the child its code
+    names, a sparse union's children having the union's rows (a slice
+    slices them; a dense union's slice shares them). A union has no
+    validity of its own: row i is valid when its child's row is, as the
+    JAX package's `is_valid` reads it."""
+
+    def __init__(self, t: dt.DataType, type_ids: np.ndarray,
+                 children: Sequence[HostArray],
+                 value_offsets: Optional[np.ndarray] = None):
+        self.type = t
+        self.values = self.dictionary = self.offsets = self.mask = None
+        self.type_ids = np.ascontiguousarray(type_ids, np.int8)
+        self.value_offsets = None if value_offsets is None else \
+            np.ascontiguousarray(value_offsets, np.int32)
+        self.children = list(children)
+        self.length = len(self.type_ids)
+
+    @property
+    def dense(self) -> bool:
+        return self.type.id == dt.TypeId.DENSE_UNION
+
+    def child_rows(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(the child index of each row, its row in that child)."""
+        lut = np.zeros(256, np.int64)
+        for k, code in enumerate(self.type.type_codes):
+            lut[code & 0xFF] = k
+        cid = lut[self.type_ids.view(np.uint8)]
+        pos = self.value_offsets.astype(np.int64) if self.dense else \
+            np.arange(self.length, dtype=np.int64)
+        return cid, pos
+
+    def validity_bools(self) -> np.ndarray:
+        cid, pos = self.child_rows()
+        out = np.zeros(self.length, np.bool_)
+        for k, c in enumerate(self.children):
+            sel = cid == k
+            if sel.any():
+                out[sel] = c.validity_bools()[pos[sel]]
+        return out
+
+    def to_pylist(self) -> list:
+        cid, pos = self.child_rows()
+        values = [c.to_pylist() if (cid == k).any() else []
+                  for k, c in enumerate(self.children)]
+        return [values[k][p] for k, p in zip(cid.tolist(), pos.tolist())]
+
+    def slice(self, offset: int, length: int) -> "UnionArray":
+        end = min(offset + length, self.length)
+        offset = min(offset, end)
+        if self.dense:
+            return UnionArray(self.type, self.type_ids[offset:end],
+                              self.children,
+                              self.value_offsets[offset:end])
+        return UnionArray(self.type, self.type_ids[offset:end],
+                          [c.slice(offset, end - offset)
+                           for c in self.children])
+
+
+class ExtensionArray(HostArray):
+    """An extension column (the JAX package's ExtensionArray): its
+    storage HostArray under the extension type, whose values, validity,
+    slices and takes are the storage's."""
+
+    def __init__(self, t: dt.DataType, storage: HostArray):
+        self.type = t
+        self.values = self.dictionary = self.offsets = None
+        self.mask = storage.mask
+        self.children = [storage]
+        self.length = len(storage)
+
+    @property
+    def storage(self) -> HostArray:
+        return self.children[0]
+
+    def validity_bools(self) -> np.ndarray:
+        return self.storage.validity_bools()
+
+    def to_pylist(self) -> list:
+        return self.storage.to_pylist()
+
+    def slice(self, offset: int, length: int) -> "ExtensionArray":
+        return ExtensionArray(self.type, self.storage.slice(offset, length))
+
+
+def null_array(n: int) -> HostArray:
+    """A column of n rows of the null type."""
+    return HostArray(None, None, dt.null, length=n)
+
+
 def nested_array(t: dt.DataType, length: int, mask: Optional[np.ndarray],
                  children: Sequence[HostArray],
                  offsets: Optional[np.ndarray] = None) -> HostArray:
@@ -647,16 +794,43 @@ def _concat_nested(arrays: Sequence[HostArray], mask) -> HostArray:
                         np.concatenate(offs))
 
 
+def _concat_list_views(arrays: Sequence[HostArray], mask) -> HostArray:
+    from ..compute.nested_selection import expand_runs, take_host_vec
+    children, sizes = [], []
+    for a in arrays:
+        size = np.where(a.validity_bools(), a.sizes.astype(np.int64), 0)
+        children.append(take_host_vec(a.children[0], expand_runs(
+            a.offsets.astype(np.int64), size)))
+        sizes.append(size)
+    size = np.concatenate(sizes)
+    off = np.zeros(len(size), np.int64)
+    np.cumsum(size[:-1], out=off[1:])
+    return ListViewArray(arrays[0].type, mask, off, size,
+                         concat_host_arrays(children))
+
+
 def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
     """One HostArray of the arrays' rows in order. Dictionary arrays that
     share one dictionary keep it; otherwise their dictionaries merge in
     first-occurrence order and the codes are mapped into the merged one.
     Nested arrays concatenate their children (a list's offsets
-    rebased)."""
+    rebased; a list view's rows compacted in order, a null row empty,
+    as the JAX package's builder rebuilds them). Unions and extension
+    columns raise ArrowNotImplemented: the JAX package has no builder
+    for them (array/concat.py)."""
     first = arrays[0]
+    t = first.type
+    if t.id == dt.TypeId.NULL:
+        return null_array(sum(len(a) for a in arrays))
+    if t.id in (dt.TypeId.SPARSE_UNION, dt.TypeId.DENSE_UNION,
+                dt.TypeId.EXTENSION):
+        from ..compute.errors import ArrowNotImplemented
+        raise ArrowNotImplemented(f"concat of {t} columns")
     mask = None
     if any(a.mask is not None for a in arrays):
         mask = np.concatenate([a.validity_bools() for a in arrays])
+    if t.id in (dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW):
+        return _concat_list_views(arrays, mask)
     if first.type.is_nested:
         return _concat_nested(arrays, mask)
     if first.dictionary is None or all(
@@ -680,14 +854,24 @@ def host_array_to_device(arr: HostArray, dev,
                          pad: Optional[int] = None) -> DeviceColumn:
     """A flat HostArray as a DeviceColumn on `dev`: values padded to `pad`
     (default pad_length(n)), validity words when it has a mask; a
-    dictionary array keeps its codes and dictionary. A nested array
-    raises ArrowNotImplemented (it rides a batch as a HostColumn; a
-    list of a flat type goes to the device by list_to_device)."""
-    if arr.type.is_nested:
+    dictionary array keeps its codes and dictionary; a null column is
+    int8 zeros with all-false words; an extension column is its
+    storage's column under the extension type. A column the block
+    format does not carry raises ArrowNotImplemented (it rides a batch
+    as a HostColumn; a list of a flat type goes to the device by
+    list_to_device)."""
+    if not arr.type.on_device:
         from ..compute.errors import ArrowNotImplemented
         raise ArrowNotImplemented(f"a {arr.type} column stays on the host")
     n = len(arr)
     P = pad_length(n) if pad is None else pad
+    if arr.type.id == dt.TypeId.NULL:
+        return DeviceColumn(torch.zeros(P, dtype=torch.int8, device=dev),
+                            torch.zeros(P // WORD_BITS, dtype=torch.int32,
+                                        device=dev), n, arr.type)
+    if arr.type.id == dt.TypeId.EXTENSION:
+        col = host_array_to_device(arr.storage, dev, P)
+        return DeviceColumn(col.values, col.validity, n, arr.type)
     host = storage_zeros(arr.type, P)
     host[:n] = arr.values
     words = None if arr.mask is None else _words_to_tensor(
@@ -699,6 +883,11 @@ def host_array_to_device(arr: HostArray, dev,
 def column_to_host(col: DeviceColumn) -> HostArray:
     """The [0, length) rows of a DeviceColumn as a HostArray."""
     n = col.length
+    if col.type.id == dt.TypeId.NULL:
+        return null_array(n)
+    if col.type.id == dt.TypeId.EXTENSION:
+        return ExtensionArray(col.type, column_to_host(DeviceColumn(
+            col.values, col.validity, n, col.type.storage_type)))
     mask = None
     if col.validity is not None:
         mask = _unpack_words(col.validity.cpu().numpy().view(np.uint32), n)
@@ -708,10 +897,10 @@ def column_to_host(col: DeviceColumn) -> HostArray:
 
 def host_batch_to_device(hb: HostBatch, device=None) -> DeviceBatch:
     """A HostBatch as a DeviceBatch on `device` (the card unless named);
-    a nested column rides as a HostColumn."""
+    a column the block format does not carry rides as a HostColumn."""
     dev = torchenv.device(device)
     return DeviceBatch(hb.schema, [
-        HostColumn(c) if c.type.is_nested else host_array_to_device(c, dev)
+        host_array_to_device(c, dev) if c.type.on_device else HostColumn(c)
         for c in hb.columns], hb.num_rows)
 
 

@@ -3,10 +3,13 @@ numpy dtypes and bit widths (arrow_go_tpu/dtypes.py): bool; the signed
 and unsigned integers of 8 to 64 bits; float16, float32 and float64;
 date32, date64, timestamp(unit, tz), time32(unit), time64(unit) and
 duration(unit); decimal32, decimal64, decimal128 and
-decimal256(precision, scale); fixed_size_binary(byte_width); and the
-variable-width string and binary types, which live on the device as a
-dictionary type: int32 codes there, the values in a host dictionary (a
-fixed_size_binary column too, as in the JAX package).
+decimal256(precision, scale); fixed_size_binary(byte_width); the
+intervals (month_interval, day_time_interval, month_day_nano_interval);
+the null type; and the variable-width string and binary types (with
+large_string, large_binary, string_view and binary_view), which live on
+the device as a dictionary type: int32 codes there, the values in a
+host dictionary (a fixed_size_binary column too, as in the JAX
+package).
 
 Each fixed-width type carries the torch dtype its device tensor is
 stored in (`torch_dtype`). torch computes on none of uint16, uint32 and
@@ -21,11 +24,14 @@ unscaled values in int32 and int64; decimal128 and decimal256 in a
 carrying u64 bits (`limbs`), the JAX package's uint64 limb layout, so
 a column's first dimension is its padded length whatever its type.
 
-The nested types list, large_list, fixed_size_list, struct and map
-(`list_`, `large_list`, `fixed_size_list`, `struct`, `map_`) have the
-JAX package's names, str(), equality, child fields and offset dtypes;
-their columns live on the host (device/block.py HostArray), a list of
-a flat type also on the device (DeviceListColumn).
+The nested types list, large_list, fixed_size_list, list_view,
+large_list_view, struct, map and the sparse and dense unions (`list_`,
+`large_list`, `fixed_size_list`, `list_view`, `large_list_view`,
+`struct`, `map_`, `sparse_union`, `dense_union`) have the JAX package's
+names, str(), equality, child fields and offset dtypes; their columns
+live on the host (device/block.py HostArray), a list of a flat type
+also on the device (DeviceListColumn). An ExtensionType wraps a storage
+type (extensions.py has the canonical ones).
 """
 from __future__ import annotations
 
@@ -61,16 +67,28 @@ class TypeId(enum.IntEnum):
     TIMESTAMP = 18
     TIME32 = 19
     TIME64 = 20
+    INTERVAL_MONTHS = 21
+    INTERVAL_DAY_TIME = 22
     DECIMAL128 = 23
     DECIMAL256 = 24
     LIST = 25
     STRUCT = 26
+    SPARSE_UNION = 27
+    DENSE_UNION = 28
     DICTIONARY = 29
     MAP = 30
+    EXTENSION = 31
     FIXED_SIZE_LIST = 32
     DURATION = 33
+    LARGE_STRING = 34
+    LARGE_BINARY = 35
     LARGE_LIST = 36
+    INTERVAL_MONTH_DAY_NANO = 37
     RUN_END_ENCODED = 38
+    STRING_VIEW = 39
+    BINARY_VIEW = 40
+    LIST_VIEW = 41
+    LARGE_LIST_VIEW = 42
     DECIMAL32 = 43
     DECIMAL64 = 44
 
@@ -109,9 +127,15 @@ _FLOATS = (TypeId.FLOAT16, TypeId.FLOAT32, TypeId.FLOAT64)
 _DECIMALS = (TypeId.DECIMAL32, TypeId.DECIMAL64, TypeId.DECIMAL128,
              TypeId.DECIMAL256)
 _TEMPORAL = (TypeId.DATE32, TypeId.DATE64, TypeId.TIMESTAMP, TypeId.TIME32,
-             TypeId.TIME64, TypeId.DURATION)
+             TypeId.TIME64, TypeId.DURATION, TypeId.INTERVAL_MONTHS,
+             TypeId.INTERVAL_DAY_TIME, TypeId.INTERVAL_MONTH_DAY_NANO)
 _NESTED = (TypeId.LIST, TypeId.LARGE_LIST, TypeId.FIXED_SIZE_LIST,
-           TypeId.STRUCT, TypeId.MAP, TypeId.RUN_END_ENCODED)
+           TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW, TypeId.STRUCT,
+           TypeId.MAP, TypeId.SPARSE_UNION, TypeId.DENSE_UNION,
+           TypeId.RUN_END_ENCODED)
+_BINARY_LIKE = (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
+                TypeId.LARGE_BINARY, TypeId.STRING_VIEW, TypeId.BINARY_VIEW)
+_UTF8 = (TypeId.STRING, TypeId.LARGE_STRING, TypeId.STRING_VIEW)
 
 
 class DataType:
@@ -164,13 +188,37 @@ class DataType:
 
     @property
     def is_binary_like(self) -> bool:
-        return self.id in (TypeId.STRING, TypeId.BINARY)
+        """string, binary, their large and view forms."""
+        return self.id in _BINARY_LIKE
+
+    @property
+    def is_utf8(self) -> bool:
+        """string, large_string and string_view: str values."""
+        return self.id in _UTF8
 
     @property
     def is_nested(self) -> bool:
-        """list, large_list, fixed_size_list, struct and map: host
-        columns of child arrays (device/block.py)."""
+        """list, large_list, fixed_size_list, list_view,
+        large_list_view, struct, map, the unions and run_end_encoded:
+        host columns of child arrays (device/block.py)."""
         return self.id in _NESTED
+
+    @property
+    def on_device(self) -> bool:
+        """The device block format carries a column of this type (the
+        JAX package's `_device_selectable`): null, bool, the decimals,
+        fixed_size_binary, the binary-like types (as codes), a
+        dictionary of a flat type, and every type stored as one number
+        a row (integers, floats, temporals, month_interval, an extension
+        of such a storage). The others (nested types, day_time_interval,
+        month_day_nano_interval, an extension of other storage) select
+        on the host."""
+        if self.id in (TypeId.NULL, TypeId.BOOL, TypeId.FIXED_SIZE_BINARY) \
+                or self.is_decimal or self.is_binary_like:
+            return True
+        if self.id == TypeId.DICTIONARY:
+            return not self.value_type.is_nested
+        return self.np_dtype is not None and self.np_dtype.kind in "iufb"
 
     def fields(self) -> List["Field"]:
         """The child fields of a nested type (none for the others)."""
@@ -182,8 +230,8 @@ class DataType:
 
     @property
     def codes_on_device(self) -> bool:
-        """string, binary and fixed_size_binary: int32 codes on the
-        device, the values in a host dictionary."""
+        """The binary-like types and fixed_size_binary: int32 codes on
+        the device, the values in a host dictionary."""
         return self.is_binary_like or self.id == TypeId.FIXED_SIZE_BINARY
 
     @property
@@ -254,12 +302,42 @@ float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32, 32)
 float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64, 64)
 date32 = DataType(TypeId.DATE32, "date32", np.int32, torch.int32, 32)
 date64 = DataType(TypeId.DATE64, "date64", np.int64, torch.int64, 64)
-# host values are Python str / bytes objects; on the device a column of
-# these types is a dictionary(int32, ...) column of codes
-# the type of a typeless null (Scalar(None)); the port has no null column
+# the intervals: months as int32 (on the device too); (days, ms) and
+# (months, days, ns) as numpy structured values, host columns only
+month_interval = DataType(TypeId.INTERVAL_MONTHS, "month_interval",
+                          np.int32, torch.int32, 32)
+day_time_interval = DataType(
+    TypeId.INTERVAL_DAY_TIME, "day_time_interval",
+    [("days", np.int32), ("milliseconds", np.int32)], None, 64)
+month_day_nano_interval = DataType(
+    TypeId.INTERVAL_MONTH_DAY_NANO, "month_day_nano_interval",
+    [("months", np.int32), ("days", np.int32), ("nanoseconds", np.int64)],
+    None, 128)
+# a column of the null type holds a length only (int8 zeros with no
+# valid row on the device, as in the JAX package)
 null = DataType(TypeId.NULL, "null", None, None)
-string = DataType(TypeId.STRING, "utf8", None, None)
-binary = DataType(TypeId.BINARY, "binary", None, None)
+
+
+class BinaryType(DataType):
+    """string, binary and their large (int64 offsets) and view forms.
+    Host values are Python str / bytes objects; a column of any of them
+    is a dictionary(int32, ...) column of codes, on the host and on the
+    device (device/block.py), so the offsets or 16-byte views of the
+    JAX package's layouts are never built. `offset_dtype` is the JAX
+    type's (None for a view type, which has no offsets)."""
+
+    def __init__(self, type_id: TypeId, name: str, offset_dtype=None):
+        super().__init__(type_id, name, None, None)
+        self.offset_dtype = None if offset_dtype is None else np.dtype(
+            offset_dtype)
+
+
+string = BinaryType(TypeId.STRING, "utf8", np.int32)
+binary = BinaryType(TypeId.BINARY, "binary", np.int32)
+large_string = BinaryType(TypeId.LARGE_STRING, "large_utf8", np.int64)
+large_binary = BinaryType(TypeId.LARGE_BINARY, "large_binary", np.int64)
+string_view = BinaryType(TypeId.STRING_VIEW, "string_view")
+binary_view = BinaryType(TypeId.BINARY_VIEW, "binary_view")
 
 
 class DecimalType(DataType):
@@ -349,9 +427,11 @@ def duration(unit="us") -> _UnitType:
 
 class DictionaryType(DataType):
     """Codes of `index_type` into a host dictionary of `value_type` values
-    (the JAX package's DictionaryType, unordered)."""
+    (the JAX package's DictionaryType, with its `ordered` flag; the
+    port's own columns are unordered)."""
 
-    def __init__(self, index_type: DataType, value_type: DataType):
+    def __init__(self, index_type: DataType, value_type: DataType,
+                 ordered: bool = False):
         if not index_type.is_integer:
             raise ValueError("dictionary index type must be integer")
         super().__init__(TypeId.DICTIONARY, "dictionary",
@@ -359,24 +439,29 @@ class DictionaryType(DataType):
                          index_type.bit_width)
         self.index_type = index_type
         self.value_type = value_type
+        self.ordered = bool(ordered)
 
     def _eq_extra(self) -> tuple:
-        return (self.index_type, self.value_type)
+        return (self.index_type, self.value_type, self.ordered)
 
     def __str__(self) -> str:
         return (f"dictionary<values={self.value_type!r}, "
-                f"indices={self.index_type!r}>")
+                f"indices={self.index_type!r}, ordered={self.ordered}>")
 
 
-def dictionary(index_type: DataType, value_type: DataType) -> DictionaryType:
-    return DictionaryType(index_type, value_type)
+def dictionary(index_type: DataType, value_type: DataType,
+               ordered: bool = False) -> DictionaryType:
+    return DictionaryType(index_type, value_type, ordered)
 
 
-_SIMPLE = (bool_, int8, int16, int32, int64, uint8, uint16, uint32, uint64,
-           float16, float32, float64, date32, date64, string, binary)
+_SIMPLE = (null, bool_, int8, int16, int32, int64, uint8, uint16, uint32,
+           uint64, float16, float32, float64, date32, date64, string, binary,
+           large_string, large_binary, string_view, binary_view,
+           month_interval, day_time_interval, month_day_nano_interval)
 _BY_NAME: Dict[str, DataType] = {t.name: t for t in _SIMPLE}
 _BY_NAME.update({"float16": float16, "float32": float32,
-                 "float64": float64, "string": string})
+                 "float64": float64, "string": string,
+                 "large_string": large_string})
 _PARAMETRIZED = re.compile(r"(timestamp|time32|time64|duration)"
                            r"\[(s|ms|us|ns)(?:, tz=(.+))?\]")
 _DECIMAL_NAME = re.compile(r"(decimal32|decimal64|decimal128|decimal256)"
@@ -388,9 +473,12 @@ _FROM_NUMPY = {t.np_dtype: t for t in (bool_, int8, int16, int32, int64,
 
 
 def type_for_name(name: str) -> DataType:
-    """Type by its name ('int8' ... 'uint64', 'halffloat' or 'float16',
-    'float' or 'float32', 'double' or 'float64', 'bool', 'utf8' or
-    'string', 'binary', 'date32', 'date64') or by the str() of a type
+    """Type by its name ('null', 'int8' ... 'uint64', 'halffloat' or
+    'float16', 'float' or 'float32', 'double' or 'float64', 'bool',
+    'utf8' or 'string', 'binary', 'large_utf8' or 'large_string',
+    'large_binary', 'string_view', 'binary_view', 'date32', 'date64',
+    'month_interval', 'day_time_interval', 'month_day_nano_interval')
+    or by the str() of a type
     with a unit ('timestamp[ms]', 'timestamp[us, tz=UTC]', 'time32[s]',
     'time64[ns]', 'duration[ms]'), a decimal ('decimal128(15, 2)') or a
     fixed-size binary ('fixed_size_binary[12]')."""
@@ -490,6 +578,23 @@ class LargeListType(ListType):
 
     def __init__(self, value, nullable: bool = True):
         super().__init__(value, nullable, TypeId.LARGE_LIST, "large_list")
+
+
+class ListViewType(ListType):
+    """list_view<item>: an offset and a size a row (int32; int64 for
+    `large_list_view`) into one child array, in any order (the JAX
+    package's ListViewType)."""
+
+    def __init__(self, value, nullable: bool = True):
+        super().__init__(value, nullable, TypeId.LIST_VIEW, "list_view")
+
+
+class LargeListViewType(ListType):
+    offset_dtype = np.dtype(np.int64)
+
+    def __init__(self, value, nullable: bool = True):
+        super().__init__(value, nullable, TypeId.LARGE_LIST_VIEW,
+                         "large_list_view")
 
 
 class FixedSizeListType(DataType):
@@ -612,12 +717,85 @@ def run_end_encoded(run_ends: DataType, values: DataType
     return RunEndEncodedType(run_ends, values)
 
 
+class UnionType(DataType):
+    """sparse_union / dense_union<fields>: an int8 type code a row
+    naming its child (`type_codes`, 0..n-1 unless given; `child_id` maps
+    a code to its child), a dense union also an int32 offset a row into
+    that child (the JAX package's UnionType). Its columns live on the
+    host (device/block.py UnionArray)."""
+
+    def __init__(self, type_id: TypeId, name: str, fields: Sequence[Field],
+                 type_codes: Optional[Sequence[int]] = None):
+        super().__init__(type_id, name, None, None)
+        self._fields = list(fields)
+        self.type_codes = list(type_codes) if type_codes is not None \
+            else list(range(len(self._fields)))
+
+    def fields(self) -> List[Field]:
+        return list(self._fields)
+
+    def child_id(self, type_code: int) -> int:
+        return self.type_codes.index(type_code)
+
+    def _eq_extra(self) -> tuple:
+        return (tuple((f.name, f.type) for f in self._fields),
+                tuple(self.type_codes))
+
+    def __str__(self) -> str:
+        inner = ", ".join(f"{f.name}: {f.type}" for f in self._fields)
+        return f"{self.name}<{inner}>"
+
+
+def sparse_union(fields, type_codes=None) -> UnionType:
+    return UnionType(TypeId.SPARSE_UNION, "sparse_union", fields,
+                     type_codes)
+
+
+def dense_union(fields, type_codes=None) -> UnionType:
+    return UnionType(TypeId.DENSE_UNION, "dense_union", fields, type_codes)
+
+
+class ExtensionType(DataType):
+    """A named type over a storage type (the JAX package's
+    ExtensionType): its numpy and torch dtypes and its fields are the
+    storage's (its bit width is 0, as there). A column is its storage column under this type
+    (device/block.py ExtensionArray); one whose storage is one number a
+    row also lives on the device (`on_device`). The canonical types and
+    the registry are in extensions.py."""
+
+    def __init__(self, storage_type: DataType, extension_name: str,
+                 serialized: bytes = b""):
+        super().__init__(TypeId.EXTENSION, "extension",
+                         storage_type.np_dtype, storage_type.torch_dtype)
+        self.storage_type = storage_type
+        self.extension_name = extension_name
+        self.serialized = serialized
+
+    def fields(self) -> List[Field]:
+        return self.storage_type.fields()
+
+    def _eq_extra(self) -> tuple:
+        return (self.extension_name, self.storage_type, self.serialized)
+
+    def __str__(self) -> str:
+        return (f"extension<{self.extension_name}, "
+                f"storage={self.storage_type}>")
+
+
 def list_(value, nullable: bool = True) -> ListType:
     return ListType(value, nullable)
 
 
 def large_list(value, nullable: bool = True) -> LargeListType:
     return LargeListType(value, nullable)
+
+
+def list_view(value, nullable: bool = True) -> ListViewType:
+    return ListViewType(value, nullable)
+
+
+def large_list_view(value, nullable: bool = True) -> LargeListViewType:
+    return LargeListViewType(value, nullable)
 
 
 def fixed_size_list(value, list_size: int) -> FixedSizeListType:

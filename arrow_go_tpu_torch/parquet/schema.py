@@ -2,9 +2,12 @@
 
 Port of the flat-column part of arrow_go_tpu/parquet/schema.py
 (reference parquet/schema + parquet/pqarrow/schema.go): BOOLEAN, INT32,
-INT64, FLOAT and DOUBLE leaves, and BYTE_ARRAY leaves (string with the
-STRING / UTF8 annotation, binary without one), required or optional,
-directly under the root. INT32 and INT64 leaves take the logical and
+INT64, FLOAT and DOUBLE leaves, and BYTE_ARRAY leaves (string and
+large_string with the STRING / UTF8 annotation, binary and large_binary
+without one; each reads back as string or binary), required or
+optional, directly under the root. An extension column is written as
+its storage type and reads back as it, as in the JAX package; the view,
+interval, null, list view and union types have no physical type. INT32 and INT64 leaves take the logical and
 converted annotations of the JAX package: DATE, TIME, TIMESTAMP and
 INTEGER(8/16/32/64, signed or not), or INT_8/16, UINT_8..64, DATE,
 TIME_* and TIMESTAMP_*. DECIMAL (logical or converted) maps by physical
@@ -60,6 +63,8 @@ _PHYSICAL = {dt.TypeId.BOOL: fmt.Type.BOOLEAN,
              dt.TypeId.FLOAT64: fmt.Type.DOUBLE,
              dt.TypeId.STRING: fmt.Type.BYTE_ARRAY,
              dt.TypeId.BINARY: fmt.Type.BYTE_ARRAY,
+             dt.TypeId.LARGE_STRING: fmt.Type.BYTE_ARRAY,
+             dt.TypeId.LARGE_BINARY: fmt.Type.BYTE_ARRAY,
              **{i: fmt.Type.INT32 for i in _INT32_TYPES},
              **{i: fmt.Type.INT64 for i in _INT64_TYPES}}
 _PLAIN = {fmt.Type.BOOLEAN: dt.bool_, fmt.Type.INT32: dt.int32,
@@ -76,7 +81,10 @@ def physical_for(t: dt.DataType, store_decimal_as_integer: bool = False
     decimal256 on FIXED_LEN_BYTE_ARRAY of 16 / 32 bytes (with
     `store_decimal_as_integer`, a decimal of precision <= 9 / <= 18 on
     INT32 / INT64, reference WithStoreDecimalAsInteger), float16 on
-    FIXED_LEN_BYTE_ARRAY(2), fixed_size_binary on its byte width."""
+    FIXED_LEN_BYTE_ARRAY(2), fixed_size_binary on its byte width, the
+    string and binary types and their large forms on BYTE_ARRAY. The
+    view, interval, null, union and list view types have none and raise
+    ArrowNotImplemented, as in the JAX package."""
     if t.is_decimal:
         if store_decimal_as_integer and t.precision <= 9 or \
                 t.id == dt.TypeId.DECIMAL32:
@@ -130,7 +138,7 @@ def _logical_for(t: dt.DataType) -> Tuple[Optional[fmt.LogicalType],
     timestamp in seconds, date64 and duration go unannotated."""
     C = fmt.ConvertedType
     tid = t.id
-    if tid == dt.TypeId.STRING:
+    if tid in (dt.TypeId.STRING, dt.TypeId.LARGE_STRING):
         return fmt.LogicalType(STRING=fmt.StringType()), int(C.UTF8)
     if tid == dt.TypeId.DATE32:
         return fmt.LogicalType(DATE=fmt.DateLType()), int(C.DATE)
@@ -172,7 +180,9 @@ def schema_to_elements(schema: dt.Schema,
                                   List[ColumnDescriptor]]:
     """Port schema -> flat SchemaElement list (depth first) + leaf
     columns. With `int96_timestamps` a timestamp column is an
-    unannotated INT96 leaf (reference WithDeprecatedInt96Timestamps)."""
+    unannotated INT96 leaf (reference WithDeprecatedInt96Timestamps). An
+    extension column is written as its storage type, as the JAX writer
+    writes it (and reads back as that type)."""
     elements = [fmt.SchemaElement(name="schema", num_children=len(schema))]
     leaves: List[ColumnDescriptor] = []
 
@@ -185,6 +195,8 @@ def schema_to_elements(schema: dt.Schema,
 
     def walk(f: dt.Field, path, max_def, max_rep, ancestry):
         t = f.type
+        if t.id == dt.TypeId.EXTENSION:
+            t = t.storage_type
         rep = fmt.Repetition.OPTIONAL if f.nullable else \
             fmt.Repetition.REQUIRED
         d = max_def + (1 if f.nullable else 0)

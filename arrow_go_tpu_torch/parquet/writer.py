@@ -106,7 +106,7 @@ def _dictionary(vals: np.ndarray, limit: int
 
 
 def _string_bytes(dictionary: np.ndarray, t: dt.DataType) -> list:
-    if t == dt.string:
+    if t.is_utf8:
         return [v.encode() for v in dictionary]
     return [bytes(v) for v in dictionary]
 
@@ -444,6 +444,33 @@ def _fixed_values(name: str, v: np.ndarray, t: dt.DataType,
     return v
 
 
+def _string_type(dictionary: np.ndarray, t: Optional[dt.DataType]
+                 ) -> dt.DataType:
+    """A string column's type: `t` when it names a binary-like type
+    (large_string, say), else string or binary by its values."""
+    return t if t is not None and t.is_binary_like else \
+        dictionary_type(dictionary)
+
+
+def _host_column(v: HostArray, mask):
+    """A flat HostArray as write_table's (values or (codes, values),
+    mask, type); an extension column as its storage."""
+    if mask is not None:
+        raise ArrowInvalid("a HostArray column carries its validity")
+    if v.type.id == dt.TypeId.EXTENSION:
+        v = v.storage
+    if v.dictionary is None:
+        return v.values, v.mask, v.type
+    vt = v.type.value_type
+    if vt.id == dt.TypeId.FIXED_SIZE_BINARY:     # its (n, width) bytes
+        table = np.frombuffer(b"".join(v.dictionary), np.uint8).reshape(
+            -1, vt.byte_width)
+        rows = table[np.clip(v.values, 0, None)] if len(table) else \
+            np.zeros((len(v), vt.byte_width), np.uint8)
+        return rows, v.mask, vt
+    return (v.values, v.dictionary), v.mask, vt
+
+
 def _prepare(name: str, v, mask: Optional[np.ndarray],
              t: Optional[dt.DataType], phys: Optional[fmt.Type] = None):
     """(type, physical values or codes, dictionary or None) of one input
@@ -457,11 +484,11 @@ def _prepare(name: str, v, mask: Optional[np.ndarray],
         if len(live) and (live.min() < 0 or live.max() >= len(dictionary)):
             raise ArrowInvalid(f"column {name!r}: codes outside the "
                                f"dictionary")
-        return dictionary_type(dictionary), codes, dictionary
+        return _string_type(dictionary, t), codes, dictionary
     v = np.asarray(v)
     if v.dtype.kind in "USO":
         codes, dictionary = factorize(v, mask)
-        return dictionary_type(dictionary), codes, dictionary
+        return _string_type(dictionary, t), codes, dictionary
     t = t or dt.from_numpy_dtype(v.dtype)
     if t.is_binary_like or v.dtype.kind not in "biuf":
         raise ArrowInvalid(f"column {name!r}: {v.dtype} values for {t}")
@@ -494,6 +521,9 @@ def write_table(data: Dict[str, object], sink,
 
     data:  numpy arrays by name; a string (or bytes) column is a numpy
            str/object array or an (int32 codes, values) pair.
+           A HostArray goes as its values, codes and validity (a flat
+           one) or through parquet/levels.py (a nested one); an
+           extension column as its storage, as the JAX writer writes it.
     masks: validity by column name (True = valid); a column with a mask
            is written OPTIONAL, one without it REQUIRED.
     compression: "none", "snappy", "gzip", "lz4_raw" or "zstd", at
@@ -521,7 +551,7 @@ def write_table(data: Dict[str, object], sink,
     int96_timestamps: timestamp columns as INT96.
     sink:  a path or a binary file object.
     """
-    masks = masks or {}
+    masks = dict(masks or {})
     types = types or {}
     encs = {}
     for name, e in (column_encodings or {}).items():
@@ -534,6 +564,9 @@ def write_table(data: Dict[str, object], sink,
     for name in names:
         m = masks.get(name)
         v = data[name]
+        if isinstance(v, HostArray) and v.type.id == dt.TypeId.EXTENSION \
+                and v.storage.type.is_nested:
+            v = v.storage
         if isinstance(v, HostArray) and v.type.is_nested:
             n = len(v) if n is None else n
             if len(v) != n or m is not None:
@@ -544,12 +577,16 @@ def write_table(data: Dict[str, object], sink,
             cols[name] = (v, None)
             continue
         t = types.get(name)
+        if isinstance(v, HostArray):
+            v, m, t = _host_column(v, m)
+            if m is not None:
+                masks[name] = m
         phys = None
-        if t is not None:
+        if t is not None and not t.is_binary_like:
             phys = fmt.Type.INT96 if int96_timestamps and \
                 t.id == dt.TypeId.TIMESTAMP else psch.physical_for(
                     t, store_decimal_as_integer)[0]
-        t, v, dictionary = _prepare(name, data[name], m, t, phys)
+        t, v, dictionary = _prepare(name, v, m, t, phys)
         n = len(v) if n is None else n
         if v.ndim != (2 if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
                                     fmt.Type.INT96) else 1) or len(v) != n:

@@ -144,10 +144,25 @@ without one. Phases:
      (`metrics`); a tensor of two columns on the card (`tensor`); every
      K1 and K3 call of one more run of each path against the plain
      version (`front_path_checks`);
-  16. a `kernels` JSON line, then the last line
+  16. the remaining types on the same arrays: l_smode cast to
+     string_view and o_opri to large_string by the registry's casts
+     (each a re-typed dictionary), TPC-H Q12 over them with its key
+     typed string_view, exact against numpy and equal to the string Q12
+     of the same call, both timed (`q12_views`); an orders HostBatch
+     with a null column, a month_interval, o_opri as large_string and
+     as binary_view and a bool8 extension, filtered as a DeviceBatch by
+     o_odate < 720 on K1 (`typed_filter`); the same orders with
+     day_time and month_day_nano intervals, a dense and a sparse union,
+     a list_view<double> of each order's l_price and a uuid extension,
+     through the host route by that predicate and by 15 M seeded take
+     indices, 5% null, with ms and peak host bytes a column
+     (`host_types_filter`); each exact against numpy, and every K1 and
+     K2 call of one more run of Q12 views and typed_filter against the
+     plain version (`types_path_checks`);
+  17. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15 and 16 and, of phase 9, all but
+With --timing-only it skips phases 3, 15, 16 and 17 and, of phase 9, all but
 the three queries and K2's timings, and holds no call of phases 10 to
 14 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
@@ -682,8 +697,9 @@ def q12_predicate():
 
 
 def compute_q12(li_db: DeviceBatch, ord_db: DeviceBatch,
-                mark=lambda stage: None) -> HostBatch:
-    """The port's TPC-H Q12:
+                mark=lambda stage: None, key_type=None) -> HostBatch:
+    """The port's TPC-H Q12 (its group key's field typed `key_type`,
+    utf8 unless named):
 
         SELECT l_smode,
                SUM(CASE WHEN o_opri IN ('1-URGENT', '2-HIGH') THEN 1
@@ -705,7 +721,7 @@ def compute_q12(li_db: DeviceBatch, ord_db: DeviceBatch,
     cols = [pc.execute_scalar_expression(
         call("if_else", [cond, lit(1), lit(0)]), joined)
         for cond in (high, call("invert", [high]))]
-    gb = DeviceBatch(dt.Schema([dt.Field("l_smode", dt.string),
+    gb = DeviceBatch(dt.Schema([dt.Field("l_smode", key_type or dt.string),
                                 dt.Field("high", dt.int64),
                                 dt.Field("low", dt.int64)]),
                      [joined.column("l_smode")] + cols, joined.length)
@@ -4271,6 +4287,367 @@ def front_phases(li, orders, dev, card: str) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+TYPES_TAKE_NULL = 0.05            # share of null take indices
+
+
+def _months(odate: np.ndarray) -> np.ndarray:
+    return (odate // 30).astype(np.int32)
+
+
+def typed_orders(orders) -> tuple:
+    """(HostBatch, numpy oracle columns) of the orders with one column of
+    each new type the block format carries: o_okey; a null column;
+    months from o_odate as month_interval (null where o_okey % 11 ==
+    0); o_opri as large_string and as binary_view bytes (through the
+    registry's casts); o_odate even as bool8 (null where o_okey % 13 ==
+    0)."""
+    from arrow_go_tpu_torch import extensions
+    from arrow_go_tpu_torch.device.block import ExtensionArray, null_array
+    okey, odate = orders["o_okey"], orders["o_odate"]
+    n = len(okey)
+    pcodes, pvalues = orders["o_opri"]
+    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
+                     pvalues)
+    m_ok, b_ok = okey % 11 != 0, okey % 13 != 0
+    cols = {
+        "o_okey": HostArray(okey, None, dt.int64),
+        "o_null": null_array(n),
+        "o_months": HostArray(_months(odate), m_ok, dt.month_interval),
+        "o_opri_large": pc.call_function("cast_large_string", [opri]),
+        "o_opri_bytes": pc.call_function("cast_binary_view", [opri]),
+        "o_even": ExtensionArray(extensions.bool8, HostArray(
+            (odate % 2 == 0).astype(np.int8), b_ok, dt.int8)),
+    }
+    want = {"o_okey": (okey, None), "o_months": (_months(odate), m_ok),
+            "o_opri_large": ((pcodes, list(pvalues)), None),
+            "o_opri_bytes": ((pcodes, [v.encode() for v in pvalues]),
+                             None),
+            "o_even": ((odate % 2 == 0).astype(np.int8), b_ok)}
+    return HostBatch.from_arrays(cols), want
+
+
+def check_typed_filter(out: HostBatch, want: dict, keep: np.ndarray):
+    """Every column of the filtered batch exactly as numpy selects it:
+    values (a code column's codes, its dictionary unchanged) under
+    validity, validity, row count; the null column a length with no
+    valid row; each type kept."""
+    n = int(keep.sum())
+    if out.num_rows != n:
+        raise AssertionError(f"typed_filter: {out.num_rows} rows, numpy {n}")
+    null = out.column("o_null")
+    if null.type != dt.null or len(null) != n or null.validity_bools().any():
+        raise AssertionError("typed_filter: the null column")
+    for name, (vals, ok) in want.items():
+        col = out.column(name)
+        ok = np.ones(len(keep), np.bool_) if ok is None else ok
+        _equal(f"typed_filter {name} validity", col.validity_bools(),
+               ok[keep])
+        if col.dictionary is not None:       # codes into the dictionary
+            codes, values = vals
+            if list(col.dictionary) != list(values):
+                raise AssertionError(f"typed_filter {name}: dictionary")
+            got, vals = col.values, codes
+        else:
+            got = (col.storage if name == "o_even" else col).values
+        sel = ok[keep]
+        _equal(f"typed_filter {name}", got[sel], vals[keep][sel])
+    types = {f.name: str(getattr(c.type, "value_type", c.type))
+             for f, c in zip(out.schema.fields, out.columns)}
+    if types["o_months"] != "month_interval" or types["o_opri_large"] != \
+            "large_utf8" or types["o_opri_bytes"] != "binary_view" or \
+            types["o_even"] != "extension<arrow.bool8, storage=int8>":
+        raise AssertionError(f"typed_filter types: {types}")
+
+
+def host_typed_orders(orders, li, dev) -> tuple:
+    """(HostBatch, numpy parts) of the orders with the columns that stay
+    on the host: day_time_interval (o_odate days, o_okey * 37 % 1 day in
+    ms) and month_day_nano_interval (o_odate // 30 months, o_odate % 30
+    days, o_okey us in ns); a dense union<int64 o_okey, utf8 o_opri>
+    and a sparse union of the same children, o_okey's parity choosing;
+    a list_view<double> of each order's l_price (the nested phase's
+    offsets and its stably sorted child, built on the card) with its
+    sizes; a uuid (16 bytes, o_okey big-endian then 0x40 .. 0x4f)."""
+    from arrow_go_tpu_torch import extensions
+    from arrow_go_tpu_torch.device.block import (ExtensionArray,
+                                                 ListViewArray, UnionArray)
+    okey, odate = orders["o_okey"], orders["o_odate"]
+    n = len(okey)
+    pcodes, pvalues = orders["o_opri"]
+    day_time = np.zeros(n, dt.day_time_interval.np_dtype)
+    day_time["days"] = odate
+    day_time["milliseconds"] = okey * 37 % DAY_MS
+    mdn = np.zeros(n, dt.month_day_nano_interval.np_dtype)
+    mdn["months"], mdn["days"] = _months(odate), odate % 30
+    mdn["nanoseconds"] = okey * 1000
+    odd = (okey % 2).astype(np.int8)
+    fields = [dt.Field("k", dt.int64), dt.Field("p", dt.string)]
+    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
+                     pvalues)
+    kids = [HostArray(okey, None, dt.int64), opri]
+    rank = np.zeros(n, np.int32)
+    for k in (0, 1):
+        rank[odd == k] = np.arange(int((odd == k).sum()), dtype=np.int32)
+    dense = UnionArray(dt.dense_union(fields), odd, [
+        HostArray(okey[odd == 0], None, dt.int64),
+        HostArray(pcodes[odd == 1], None, opri.type, pvalues)], rank)
+    sparse = UnionArray(dt.sparse_union(fields), odd, kids)
+    col, sidx = order_price_lists(torch.from_numpy(li["l_okey"]).to(dev),
+                                  torch.from_numpy(li["l_price"]).to(dev), n)
+    off = col.offsets[:n + 1].cpu().numpy().astype(np.int64)
+    child = col.child.values[:col.child.length].cpu().numpy()
+    del col, sidx
+    sizes = np.diff(off)
+    lview = ListViewArray(dt.list_view(dt.float64), None, off[:-1], sizes,
+                          HostArray(child, None, dt.float64))
+    raw = np.zeros((n, 16), np.uint8)
+    raw[:, :8] = okey.astype(">u8").view(np.uint8).reshape(n, 8)
+    raw[:, 8:] = np.arange(0x40, 0x48, dtype=np.uint8)
+    raw[:, 15] |= 0x40
+    uuids = raw.view("S16").reshape(n).astype(object)
+    uuid = ExtensionArray(extensions.uuid, HostArray(
+        np.arange(n, dtype=np.int32), None,
+        dt.dictionary(dt.int32, dt.fixed_size_binary(16)), uuids))
+    hb = HostBatch.from_arrays({"o_day_time": HostArray(
+        day_time, None, dt.day_time_interval), "o_mdn": HostArray(
+        mdn, None, dt.month_day_nano_interval), "o_dense": dense,
+        "o_sparse": sparse, "o_prices": lview, "o_uuid": uuid})
+    parts = {"okey": okey, "pcodes": pcodes, "odd": odd, "rank": rank,
+             "day_time": day_time, "mdn": mdn, "off": off, "sizes": sizes,
+             "child": child, "uuids": uuids}
+    return hb, parts
+
+
+def check_host_types(what: str, cols: dict, parts: dict,
+                     idx: np.ndarray) -> None:
+    """Each host column's rows idx (-1 = a null row) exactly as numpy
+    gives them: values under validity, validity, a dense union's codes
+    and offsets (a null row on one null row appended to child 0, under
+    code 0), a sparse union's children, a list view's sizes, running-sum
+    offsets and child, a uuid's codes into its unchanged dictionary."""
+    neg = idx < 0
+    safe = np.where(neg, 0, idx)
+    ok = ~neg
+    for name, key in (("o_day_time", "day_time"), ("o_mdn", "mdn")):
+        c = cols[name]
+        _equal(f"{what} {name} validity", c.validity_bools(), ok)
+        if not np.array_equal(c.values[ok], parts[key][safe][ok]):
+            raise AssertionError(f"{what} {name}: values differ")
+    odd, rank = parts["odd"][safe], parts["rank"][safe]
+    d = cols["o_dense"]
+    n0 = int((parts["odd"] == 0).sum())
+    _equal(f"{what} o_dense codes", d.type_ids, np.where(neg, 0, odd).astype(
+        np.int8))
+    _equal(f"{what} o_dense offsets", d.value_offsets,
+           np.where(neg, n0, rank).astype(np.int32))
+    if len(d.children[0]) != n0 + int(neg.any()):
+        raise AssertionError(f"{what} o_dense: child 0 has "
+                             f"{len(d.children[0])} rows")
+    _equal(f"{what} o_dense validity", d.validity_bools(), ok)
+    s = cols["o_sparse"]
+    _equal(f"{what} o_sparse codes", s.type_ids, odd.astype(np.int8))
+    _equal(f"{what} o_sparse validity", s.validity_bools(), ok)
+    for k, want in ((0, parts["okey"]), (1, parts["pcodes"])):
+        ch = s.children[k]
+        _equal(f"{what} o_sparse child {k} validity", ch.validity_bools(),
+               ok)
+        _equal(f"{what} o_sparse child {k}", ch.values[ok], want[safe][ok])
+    lv = cols["o_prices"]
+    sizes = np.where(neg, 0, parts["sizes"][safe])
+    off = np.zeros(len(idx), np.int64)
+    np.cumsum(sizes[:-1], out=off[1:])
+    _equal(f"{what} o_prices sizes", lv.sizes, sizes)
+    _equal(f"{what} o_prices offsets", lv.offsets, off)
+    _equal(f"{what} o_prices validity", lv.validity_bools(), ok)
+    starts = np.repeat(parts["off"][:-1][safe] - off, sizes)
+    pos = starts + np.arange(int(sizes.sum()), dtype=np.int64)
+    _equal(f"{what} o_prices child", lv.children[0].values,
+           parts["child"][pos])
+    u = cols["o_uuid"]
+    if u.storage.dictionary is not parts["uuids"]:
+        raise AssertionError(f"{what} o_uuid: the dictionary was copied")
+    _equal(f"{what} o_uuid validity", u.validity_bools(), ok)
+    _equal(f"{what} o_uuid codes", u.storage.values[ok],
+           safe[ok].astype(np.int32))
+
+
+def host_types_runs(hb: HostBatch, parts: dict, keep: np.ndarray,
+                    idx: np.ndarray) -> dict:
+    """The host route of the batch by the predicate (filter) and by the
+    take indices: the whole batch once through pc.filter / pc.take,
+    checked; then each column's take_host_vec alone under tracemalloc
+    (numpy's allocations only: a few hooks a call), its ms and its peak
+    host bytes."""
+    import tracemalloc
+    from arrow_go_tpu_torch.compute.nested_selection import take_host_vec
+    keep_arr = HostArray(keep, None, dt.bool_)
+    take_arr = HostArray(np.where(idx < 0, 0, idx), idx >= 0, dt.int64)
+    out = {}
+    for what, run, rows in (
+            ("filter", lambda: pc.filter(hb, keep_arr),
+             np.flatnonzero(keep)),
+            ("take", lambda: pc.take(hb, take_arr), idx)):
+        t0 = time.perf_counter()
+        got = run()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        check_host_types(what, {f.name: c for f, c in zip(
+            got.schema.fields, got.columns)}, parts, rows)
+        del got
+        per = {}
+        for f, c in zip(hb.schema.fields, hb.columns):
+            tracemalloc.start()
+            t0 = time.perf_counter()
+            take_host_vec(c, rows)
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+            per[f.name] = {"ms": ms, "peak_host_bytes": peak}
+        out[what] = {"rows": len(rows), "batch_ms": batch_ms,
+                     "columns": per}
+    return out
+
+
+def types_phases(li, orders, dev, card: str) -> dict:
+    """This slice's paths over the SF10 arrays already in memory:
+    `q12_views` (l_smode cast to string_view and o_opri to large_string
+    by the registry's casts, each timed; TPC-H Q12 over them with its
+    key typed string_view, exact against numpy and equal to the string
+    Q12 of this call, both timed), `typed_filter` (an orders HostBatch
+    with a null column, a month_interval, o_opri as large_string and as
+    binary_view and a bool8, filtered as a DeviceBatch by o_odate < 720:
+    K1; exact against numpy), `host_types_filter` (the same orders with
+    day_time / month_day_nano intervals, a dense and a sparse union, a
+    list_view<double> of each order's l_price and a uuid, through the
+    host route by the same predicate and by 15 M seeded take indices,
+    5% null; exact against numpy, ms and peak host bytes a column) and
+    `types_path_checks` (every K1 and K2 call of one more run of Q12
+    views and typed_filter against the plain version). Returns each
+    path's launch counts and the largest kernel - plain difference."""
+    t_phase = time.perf_counter()
+    launches, held, runs = {}, {}, {}
+    mcodes, modes = li["l_smode"]
+    pcodes, pvalues = orders["o_opri"]
+    smode = HostArray(mcodes, None, dt.dictionary(dt.int32, dt.string),
+                      modes)
+    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
+                     pvalues)
+    # (the registry is built at its first call: warm it on one row)
+    pc.call_function("cast_string_view", [smode.slice(0, 1)])
+    t0 = time.perf_counter()
+    smode_v = pc.call_function("cast_string_view", [smode])
+    cast_sv_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    opri_l = pc.call_function("cast_large_string", [opri])
+    cast_ls_ms = (time.perf_counter() - t0) * 1e3
+    if smode_v.values is not mcodes or opri_l.values is not pcodes or \
+            list(smode_v.dictionary) != list(modes):
+        raise AssertionError("q12_views: a cast copied the codes")
+    li_cols = {c: li[c] for c in ("l_okey", "l_sdate", "l_cdate",
+                                  "l_rdate")}
+    li_s = agt.batch_to_device({**li_cols, "l_smode": smode}, device=dev)
+    li_v = agt.batch_to_device({**li_cols, "l_smode": smode_v}, device=dev)
+    ord_cols = {c: orders[c] for c in ("o_okey", "o_odate")}
+    ord_s = agt.batch_to_device({**ord_cols, "o_opri": opri}, device=dev)
+    ord_v = agt.batch_to_device({**ord_cols, "o_opri": opri_l}, device=dev)
+    want = q12_oracle(li, orders)
+
+    def q12_views():
+        return compute_q12(li_v, ord_v, key_type=dt.string_view)
+    out, launches["Q12 views"] = run_path("Q12 views", q12_views,
+                                          ("K1", "K2"))
+    check_rows("q12_views", out, want)
+    key_t = out.column("l_smode").type
+    key_t = getattr(key_t, "value_type", key_t)
+    if str(key_t) != "string_view" or str(li_v.schema.field(4).type) != \
+            "string_view" or str(ord_v.schema.field(2).type) != "large_utf8":
+        raise AssertionError(f"q12_views: key typed {out.schema}")
+    outs, runs["views"] = timed(q12_views)
+    for o in outs:
+        check_rows("q12_views", o, want)
+    outs, runs["strings"] = timed(lambda: compute_q12(li_s, ord_s))
+    for o in outs:
+        check_rows("q12 strings", o, want)
+    if outs[-1].to_pydict() != out.to_pydict():
+        raise AssertionError("q12_views differs from the string Q12")
+    views_ms = float(np.median(runs["views"]))
+    strings_ms = float(np.median(runs["strings"]))
+    print(json.dumps({"q12_views": {
+        "result": out.to_pydict(), "key_type": str(key_t),
+        "cast_string_view_ms": cast_sv_ms, "cast_large_string_ms": cast_ls_ms,
+        "cast_rows": {"l_smode": len(mcodes), "o_opri": len(pcodes)},
+        "ms_runs": runs["views"], "ms_median": views_ms,
+        "strings_ms_runs": runs["strings"], "strings_ms_median": strings_ms,
+        "views_over_strings": views_ms / strings_ms,
+        "launches_per_run": launches["Q12 views"], "card": card,
+        "verified": True}}), flush=True)
+    del li_s, ord_s
+
+    # the typed orders batch through the DeviceBatch filter (K1)
+    keep = orders["o_odate"] < NESTED_ODATE_MAX
+    hb, typed_want = typed_orders(orders)
+    from arrow_go_tpu_torch.device.block import (device_batch_to_host,
+                                                 host_batch_to_device)
+    t0 = time.perf_counter()
+    db = host_batch_to_device(hb, dev)
+    torch.cuda.synchronize()
+    to_device_ms = (time.perf_counter() - t0) * 1e3
+    if not all(isinstance(c, DeviceColumn) for c in db.columns):
+        raise AssertionError("typed_filter: a column stayed on the host")
+    ords = agt.batch_to_device({"o_odate": orders["o_odate"]}, device=dev)
+    mask = pc.call_function("less", [ords.column("o_odate"),
+                                     NESTED_ODATE_MAX])
+
+    def typed_filter():
+        return pc.filter(db, mask)
+    got, launches["typed_filter"] = run_path("typed_filter", typed_filter,
+                                             ("K1",))
+    check_typed_filter(device_batch_to_host(got), typed_want, keep)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    outs, runs["typed_filter"] = timed(typed_filter)
+    peak = torch.cuda.max_memory_allocated() - base
+    for o in outs:
+        check_typed_filter(device_batch_to_host(o), typed_want, keep)
+    del outs, got
+    print(json.dumps({"typed_filter": {
+        "rows": len(keep), "kept": int(keep.sum()),
+        "columns": {f.name: str(getattr(c.type, "value_type", c.type))
+                    for f, c in zip(db.schema.fields, db.columns)},
+        "to_device_ms": to_device_ms, "ms_runs": runs["typed_filter"],
+        "ms_median": float(np.median(runs["typed_filter"])),
+        "peak_bytes": peak, "launches_per_run": launches["typed_filter"],
+        "card": card, "verified": True}}), flush=True)
+
+    # the host-resident types through take_host_vec
+    t0 = time.perf_counter()
+    hhb, parts = host_typed_orders(orders, li, dev)
+    build_s = time.perf_counter() - t0
+    n_ord = len(keep)
+    g = np.random.default_rng(13)
+    idx = g.integers(0, n_ord, n_ord)
+    idx[g.random(n_ord) < TYPES_TAKE_NULL] = -1
+    host = host_types_runs(hhb, parts, keep, idx)
+    print(json.dumps({"host_types_filter": {
+        **host, "build_s": build_s, "child_rows": len(parts["child"]),
+        "columns": {f.name: str(f.type) for f in hhb.schema.fields},
+        "card": card, "verified": True}}), flush=True)
+    del hhb, parts
+
+    paths = {"Q12 views": (q12_views,
+                           lambda o: check_rows("q12_views", o, want)),
+             "typed_filter": (typed_filter, lambda o: check_typed_filter(
+                 device_batch_to_host(o), typed_want, keep))}
+    for name, (fn, check) in paths.items():
+        o, held[name] = check_path_calls(name, fn, launches[name])
+        check(o)
+    print(json.dumps({"types_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K2")}
+    print(json.dumps({"types_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -4481,6 +4858,9 @@ def main(argv=None) -> int:
     front = front_phases(li, orders, dev, card)
     k1_err = max(k1_err, front["errs"]["K1"])
     k3_err = max(k3_err, front["errs"]["K3"])
+    more = types_phases(li, orders, dev, card)
+    k1_err = max(k1_err, more["errs"]["K1"])
+    k2_err = max(k2_err, more["errs"]["K2"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -4488,7 +4868,7 @@ def main(argv=None) -> int:
                **joins["launches"], **types["launches"],
                **decs["launches"], **dsets["launches"],
                **dists["launches"], **nested["launches"],
-               **front["launches"]}
+               **front["launches"], **more["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

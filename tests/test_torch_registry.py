@@ -27,13 +27,10 @@ from torch_parity import (jax_batch, jax_type, port_array, port_batch,
 
 jcast = importlib.import_module("arrow_go_tpu.compute.cast")
 
-# JAX names whose functions the port does not have yet: the casts to
-# types it does not carry (views, large and fixed-size binaries, the
-# month-day-nano interval, dictionaries, extensions).
-MISSING = {
-    "cast_binary_view", "cast_dictionary", "cast_extension",
-    "cast_fixed_sized_binary", "cast_large_binary", "cast_large_string",
-    "cast_month_day_nano_interval", "cast_string_view"}
+# JAX names whose functions the port does not have: none (the casts to
+# the view, large and fixed-size binaries, the month-day-nano interval,
+# dictionaries and extensions came with those types).
+MISSING = set()
 
 PORT_NAMES = registry.default_registry().function_names()
 N = 96
@@ -99,9 +96,18 @@ def _nested_targets():
     return {k: (v, port_type(v)) for k, v in pairs.items()}
 
 
-# casts the JAX package refuses (its struct cast fails); the port
-# refuses them with ArrowNotImplemented
-BOTH_REFUSE = {"cast_struct"}
+# casts the JAX package refuses (its struct cast fails; from an int64
+# column, its casts to a dictionary, an extension and a fixed-size binary
+# raise ArrowNotImplemented and to a month-day-nano interval TypeError);
+# the port refuses them with ArrowNotImplemented
+BOTH_REFUSE = {"cast_struct", "cast_dictionary", "cast_extension",
+               "cast_fixed_sized_binary", "cast_month_day_nano_interval"}
+# (the JAX type, the port's) of the casts whose target takes parameters
+# the registry's dict of defaults does not name
+_REFUSED_TARGETS = {
+    "cast_dictionary": lambda m: m.dictionary(m.int32, m.int64),
+    "cast_extension": lambda m: m.ExtensionType(m.int8, "arrow.bool8"),
+    "cast_fixed_sized_binary": lambda m: m.fixed_size_binary(8)}
 FLOAT_BINARY = {"power", "atan2", "logb"}
 FLOAT_UNARY = {"sqrt", "exp", "expm1", "sin", "cos", "tan", "asin", "acos",
                "atan", "sinh", "cosh", "tanh", "ln", "log10", "log2",
@@ -157,6 +163,10 @@ def _case(name: str):
         return (["f"], {"to_type": jax_type(dt.int32),
                         "options": jcast.CastOptions.unsafe()},
                 {"to_type": dt.int32, "options": pc.CastOptions.unsafe()})
+    if base in _REFUSED_TARGETS:
+        from arrow_go_tpu import dtypes as jdt
+        make = _REFUSED_TARGETS[base]
+        return ["i"], {"to_type": make(jdt)}, {"to_type": make(dt)}
     if base.startswith("cast_"):
         from arrow_go_tpu_torch.compute.functions import CAST_TARGETS
         to = CAST_TARGETS[base] or {

@@ -2,8 +2,8 @@
 tests/test_misc_components.py (inferred types, validity, equality,
 broadcasts, parsing, casts), plus decimals, dates, timestamps, nested
 values and null scalars, through both packages. Broadcast columns are
-compared value for value (same_array); the one refusal, a typeless
-null's broadcast, is the port's (it has no null column)."""
+compared value for value (same_array), a typeless null's to the JAX
+package's null column."""
 import datetime
 import decimal
 
@@ -84,13 +84,16 @@ def test_typed_scalars_and_their_broadcasts_match_jax(v, tname):
                jpc.make_array_from_scalar(js, 4), repr((v, tname)))
 
 
-def test_a_typeless_null_has_no_column_in_the_port():
+def test_a_typeless_null_broadcasts_to_the_jax_null_column():
     s, js = pc.scalar(None), jpc.scalar(None)
     assert s.type == dt.null and str(s.type) == str(js.type) == "null"
     assert not s.is_valid and repr(s) == repr(js)
-    assert len(jpc.make_array_from_scalar(js, 2)) == 2
-    with pytest.raises(pc.ArrowNotImplemented):
-        pc.make_array_from_scalar(s, 2)
+    for n in (0, 2, 5):
+        got, want = pc.make_array_from_scalar(s, n), \
+            jpc.make_array_from_scalar(js, n)
+        assert got.type == dt.null and str(want.type) == "null"
+        same_array(got, want, f"null x {n}")
+        assert got.to_pylist() == want.to_pylist() == [None] * n
     assert s.cast(dt.int32).type == dt.int32
     assert not s.cast(dt.int32).is_valid
 

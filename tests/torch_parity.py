@@ -60,6 +60,21 @@ def port_type(jt):
     if tid == jdt.TypeId.STRUCT:
         return tdt.struct([tdt.Field(f.name, port_type(f.type), f.nullable)
                            for f in jt.fields()])
+    if tid in (jdt.TypeId.LIST_VIEW, jdt.TypeId.LARGE_LIST_VIEW):
+        vf = jt.value_field
+        f = tdt.Field(vf.name, port_type(vf.type), vf.nullable)
+        return (tdt.list_view if tid == jdt.TypeId.LIST_VIEW
+                else tdt.large_list_view)(f)
+    if tid in (jdt.TypeId.SPARSE_UNION, jdt.TypeId.DENSE_UNION):
+        return getattr(tdt, jt.name)(
+            [tdt.Field(f.name, port_type(f.type), f.nullable)
+             for f in jt.fields()], jt.type_codes)
+    if tid == jdt.TypeId.EXTENSION:
+        return tdt.ExtensionType(port_type(jt.storage_type),
+                                 jt.extension_name, jt.serialized)
+    if tid == jdt.TypeId.DICTIONARY:
+        return tdt.dictionary(port_type(jt.index_type),
+                              port_type(jt.value_type), jt.ordered)
     return tdt.type_for_name(str(jt))
 
 
@@ -81,6 +96,18 @@ def jax_type(t):
     if t.id == tdt.TypeId.STRUCT:
         return jdt.struct([jdt.Field(f.name, jax_type(f.type), f.nullable)
                            for f in t.fields()])
+    if t.id in (tdt.TypeId.LIST_VIEW, tdt.TypeId.LARGE_LIST_VIEW):
+        vf = t.value_field
+        f = jdt.Field(vf.name, jax_type(vf.type), vf.nullable)
+        return (jdt.ListViewType if t.id == tdt.TypeId.LIST_VIEW
+                else jdt.LargeListViewType)(f)
+    if t.id in (tdt.TypeId.SPARSE_UNION, tdt.TypeId.DENSE_UNION):
+        return getattr(jdt, t.name)(
+            [jdt.Field(f.name, jax_type(f.type), f.nullable)
+             for f in t.fields()], t.type_codes)
+    if t.id == tdt.TypeId.EXTENSION:
+        return jdt.ExtensionType(jax_type(t.storage_type), t.extension_name,
+                                 t.serialized)
     if t.id == tdt.TypeId.DICTIONARY:
         return jax_type(t.value_type)
     if t.is_decimal:
@@ -92,7 +119,8 @@ def jax_type(t):
     if hasattr(t, "unit"):
         return getattr(jdt, t.name)(str(t.unit))
     return {"halffloat": jdt.float16, "float": jdt.float32,
-            "double": jdt.float64, "utf8": jdt.string}.get(
+            "double": jdt.float64, "utf8": jdt.string,
+            "large_utf8": jdt.large_string}.get(
                 t.name) or getattr(jdt, t.name.rstrip("_") if t.name
                                    != "bool" else "bool_")
 
@@ -141,16 +169,38 @@ def port_array(ja):
     """The port's HostArray of a JAX package host Array, nested types
     recursively with their offsets (as they stand, sliced arrays too),
     validity at every level and a fixed_size_list's child rows under
-    null rows; a string or binary leaf becomes a dictionary array, a
-    primitive leaf its values (0 under a null)."""
+    null rows; a string, binary or fixed_size_binary leaf becomes a
+    dictionary array, a
+    primitive leaf its values (0 under a null). A null array becomes the
+    port's null column, an interval its structured values, a list view
+    its offsets, sizes and child, a union its type codes (a dense one's
+    offsets) and children (a sparse one's cut to its rows), an extension
+    array its storage's."""
     from arrow_go_tpu import dtypes as jdt
     from arrow_go_tpu.array.arrays import make_array
-    from arrow_go_tpu_torch.device.block import (HostArray, factorize,
-                                                 nested_array)
+    from arrow_go_tpu_torch.device.block import (
+        ExtensionArray, HostArray, ListViewArray, UnionArray, factorize,
+        nested_array, null_array)
     t, n = ja.type, len(ja)
-    mask = ja.validity_bools() if ja.null_count else None
     tid = t.id
     pt = port_type(t)
+    if tid == jdt.TypeId.NULL:
+        return null_array(n)
+    if tid == jdt.TypeId.EXTENSION:
+        return ExtensionArray(pt, port_array(ja.storage))
+    d = ja.data
+    if tid == jdt.TypeId.SPARSE_UNION:
+        return UnionArray(pt, ja.type_ids, [
+            port_array(make_array(c.slice(d.offset, n)))
+            for c in d.children])
+    if tid == jdt.TypeId.DENSE_UNION:
+        return UnionArray(pt, ja.type_ids, [
+            port_array(make_array(c)) for c in d.children],
+            d.buffers[1].view(np.int32)[d.offset:d.offset + n])
+    mask = ja.validity_bools() if ja.null_count else None
+    if tid in (jdt.TypeId.LIST_VIEW, jdt.TypeId.LARGE_LIST_VIEW):
+        return ListViewArray(pt, mask, ja.offsets, ja.sizes,
+                             port_array(make_array(d.children[0])))
     if tid in (jdt.TypeId.LIST, jdt.TypeId.LARGE_LIST, jdt.TypeId.MAP):
         return nested_array(pt, n, mask,
                             [port_array(make_array(ja.data.children[0]))],
@@ -164,7 +214,7 @@ def port_array(ja):
                                           for i in range(ja.num_fields)])
     vals = ja.to_pylist()
     ok = np.array([v is not None for v in vals], np.bool_)
-    if t.is_binary_like:
+    if t.is_binary_like or tid == jdt.TypeId.FIXED_SIZE_BINARY:
         obj = np.empty(n, dtype=object)
         obj[:] = ["" if v is None else v for v in vals]
         codes, dictionary = factorize(obj, ok)
@@ -185,15 +235,53 @@ def same_array(got, want, what: str = "") -> None:
     """A port HostArray equal to a JAX package Array: field type,
     validity at every level, offsets rebased to 0 exactly, a
     fixed_size_list's child rows, ints and strings exactly and floats at
-    rtol 1e-9."""
+    rtol 1e-9. A list view's offsets and sizes, and a union's type codes
+    and dense offsets, are held exactly, its children as they stand. A
+    union's validity is its rows' `is_valid` (the JAX package's
+    `validity_bools` of a union reads its type-code buffer as a bitmap,
+    ROADMAP §3). A JAX DictionaryArray (a string filter's result) is
+    held as the port's dictionary-coded column of its value type."""
     from arrow_go_tpu import dtypes as jdt
     from arrow_go_tpu.array.arrays import make_array
+    if want.type.id == jdt.TypeId.DICTIONARY and got.dictionary is not None:
+        assert str(field_type(got)) == str(want.type.value_type), what
+        assert got.to_pylist() == want.to_pylist(), what
+        return
     assert str(field_type(got)) == str(want.type), (what, field_type(got),
                                                     want.type)
     assert len(got) == len(want), what
-    np.testing.assert_array_equal(got.validity_bools(),
-                                  want.validity_bools(), err_msg=what)
     tid = want.type.id
+    unions = (jdt.TypeId.SPARSE_UNION, jdt.TypeId.DENSE_UNION)
+    np.testing.assert_array_equal(
+        got.validity_bools(),
+        [want.is_valid(i) for i in range(len(want))] if tid in unions
+        else want.validity_bools(), err_msg=what)
+    if tid == jdt.TypeId.EXTENSION:
+        same_array(got.storage, want.storage, what + ".storage")
+        return
+    if tid in unions:
+        np.testing.assert_array_equal(got.type_ids, want.type_ids,
+                                      err_msg=what)
+        d = want.data
+        if tid == jdt.TypeId.DENSE_UNION:
+            np.testing.assert_array_equal(
+                got.value_offsets, d.buffers[1].view(np.int32)[
+                    d.offset:d.offset + len(want)], err_msg=what)
+        for i, c in enumerate(d.children):
+            wc = make_array(c) if tid == jdt.TypeId.DENSE_UNION else \
+                make_array(c.slice(d.offset, len(want)))
+            same_array(got.children[i], wc, f"{what}.{i}")
+        assert got.to_pylist() == want.to_pylist(), what
+        return
+    if tid in (jdt.TypeId.LIST_VIEW, jdt.TypeId.LARGE_LIST_VIEW):
+        assert got.offsets.dtype == np.dtype(want.type.offset_dtype), what
+        np.testing.assert_array_equal(got.offsets, want.offsets,
+                                      err_msg=what)
+        np.testing.assert_array_equal(got.sizes, want.sizes, err_msg=what)
+        same_array(got.children[0], make_array(want.data.children[0]),
+                   what + ".child")
+        assert got.to_pylist() == want.to_pylist(), what
+        return
     if tid in (jdt.TypeId.LIST, jdt.TypeId.LARGE_LIST, jdt.TypeId.MAP):
         go, wo = got.offsets.astype(np.int64), np.asarray(
             want.offsets, np.int64)
