@@ -55,6 +55,48 @@ inline void copy_match(uint8_t* dst, size_t off, size_t len) {
     }
 }
 
+// Decodes one LZ4 block into out[start..cap), its matches reaching back
+// as far as out[floor] (floor = start for an independent block, 0 for a
+// block linked to the output before it, as the LZ4 frame format allows).
+// Returns the end of its output, or -1 on a malformed block or one that
+// does not fit.
+int64_t lz4_block_decode(const uint8_t* src, size_t n, uint8_t* out,
+                         size_t floor, size_t start, size_t cap) {
+    size_t s = 0, d = start;
+    while (s < n) {
+        uint8_t token = src[s++];
+        size_t lit = token >> 4;
+        if (lit == 15) {
+            while (s < n) {
+                uint8_t b = src[s++];
+                lit += b;
+                if (b != 255) break;
+            }
+        }
+        if (s + lit > n || d + lit > cap) return -1;
+        memcpy(out + d, src + s, lit);
+        s += lit;
+        d += lit;
+        if (s >= n) break;  // the last sequence has no match
+        if (s + 2 > n) return -1;
+        size_t off = (size_t)src[s] | ((size_t)src[s + 1] << 8);
+        s += 2;
+        size_t mlen = token & 0x0F;
+        if (mlen == 15) {
+            while (s < n) {
+                uint8_t b = src[s++];
+                mlen += b;
+                if (b != 255) break;
+            }
+        }
+        mlen += 4;
+        if (off == 0 || off > d - floor || d + mlen > cap) return -1;
+        copy_match(out + d, off, mlen);
+        d += mlen;
+    }
+    return (int64_t)d;
+}
+
 }  // namespace
 
 extern "C" {
@@ -283,39 +325,7 @@ int64_t agt_lz4_compress(const uint8_t* src, size_t n, uint8_t* dst,
 // that does not fit dst_cap.
 int64_t agt_lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
                            size_t dst_cap) {
-    size_t s = 0, d = 0;
-    while (s < n) {
-        uint8_t token = src[s++];
-        size_t lit = token >> 4;
-        if (lit == 15) {
-            while (s < n) {
-                uint8_t b = src[s++];
-                lit += b;
-                if (b != 255) break;
-            }
-        }
-        if (s + lit > n || d + lit > dst_cap) return -1;
-        memcpy(dst + d, src + s, lit);
-        s += lit;
-        d += lit;
-        if (s >= n) break;  // the last sequence has no match
-        if (s + 2 > n) return -1;
-        size_t off = (size_t)src[s] | ((size_t)src[s + 1] << 8);
-        s += 2;
-        size_t mlen = token & 0x0F;
-        if (mlen == 15) {
-            while (s < n) {
-                uint8_t b = src[s++];
-                mlen += b;
-                if (b != 255) break;
-            }
-        }
-        mlen += 4;
-        if (off == 0 || off > d || d + mlen > dst_cap) return -1;
-        copy_match(dst + d, off, mlen);
-        d += mlen;
-    }
-    return (int64_t)d;
+    return lz4_block_decode(src, n, dst, 0, 0, dst_cap);
 }
 
 // --------------------------------------------------------------------------
@@ -1698,6 +1708,153 @@ void agt_xxh64_rows(const uint8_t* data, const int64_t* ends, int64_t n,
         const int64_t a = i ? ends[i - 1] : 0;
         out[i] = xxh64(data + a, (size_t)(ends[i] - a), 0);
     }
+}
+
+}  // extern "C"
+
+// --------------------------------------------------------------------------
+// XXH32 and the LZ4 frame format (Arrow IPC body compression; the frame's
+// header checksum byte is XXH32 of its descriptor; lz4_Frame_format.md)
+// --------------------------------------------------------------------------
+
+namespace {
+
+const uint32_t kQ1 = 2654435761U;
+const uint32_t kQ2 = 2246822519U;
+const uint32_t kQ3 = 3266489917U;
+const uint32_t kQ4 = 668265263U;
+const uint32_t kQ5 = 374761393U;
+
+inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+inline uint32_t xxh32_round(uint32_t acc, uint32_t input) {
+    acc += input * kQ2;
+    acc = rotl32(acc, 13);
+    return acc * kQ1;
+}
+
+uint32_t xxh32(const uint8_t* p, size_t len, uint32_t seed) {
+    const uint8_t* end = p + len;
+    uint32_t h;
+    if (len >= 16) {
+        uint32_t v1 = seed + kQ1 + kQ2, v2 = seed + kQ2, v3 = seed,
+                 v4 = seed - kQ1;
+        const uint8_t* limit = end - 16;
+        do {
+            v1 = xxh32_round(v1, load32(p));
+            v2 = xxh32_round(v2, load32(p + 4));
+            v3 = xxh32_round(v3, load32(p + 8));
+            v4 = xxh32_round(v4, load32(p + 12));
+            p += 16;
+        } while (p <= limit);
+        h = rotl32(v1, 1) + rotl32(v2, 7) + rotl32(v3, 12) + rotl32(v4, 18);
+    } else {
+        h = seed + kQ5;
+    }
+    h += (uint32_t)len;
+    while (p + 4 <= end) {
+        h += load32(p) * kQ3;
+        h = rotl32(h, 17) * kQ4;
+        p += 4;
+    }
+    while (p < end) {
+        h += (uint32_t)(*p) * kQ5;
+        h = rotl32(h, 11) * kQ1;
+        p++;
+    }
+    h ^= h >> 15;
+    h *= kQ2;
+    h ^= h >> 13;
+    h *= kQ3;
+    h ^= h >> 16;
+    return h;
+}
+
+const uint32_t kLz4FrameMagic = 0x184D2204U;
+const uint8_t kFrameFlg = 0x40;   // version 01, no checksums, no size
+const uint8_t kFrameBd = 0x70;    // 4 MB maximum block size
+
+inline void put32(uint8_t* p, uint32_t v) { memcpy(p, &v, 4); }
+
+}  // namespace
+
+extern "C" {
+
+uint32_t agt_xxh32(const uint8_t* src, size_t n, uint32_t seed) {
+    return xxh32(src, n, seed);
+}
+
+size_t agt_lz4_frame_bound(size_t n, size_t block) {
+    size_t blocks = n / block + 1;
+    return 7 + blocks * (4 + agt_lz4_max_compressed_length(block)) + 4;
+}
+
+// One LZ4 frame of src, as the JAX package's lz4_frame_compress writes
+// it: the descriptor FLG 0x40 / BD 0x70 and its XXH32 byte, then blocks
+// of `block` bytes each compressed alone (stored raw, the high bit of
+// their size set, when that does not shrink them), then the end mark.
+// Returns the frame's length, or -1 when dst_cap is too small.
+int64_t agt_lz4_frame_compress(const uint8_t* src, size_t n, size_t block,
+                               uint8_t* dst, size_t dst_cap) {
+    if (dst_cap < 11 || block == 0) return -1;
+    put32(dst, kLz4FrameMagic);
+    dst[4] = kFrameFlg;
+    dst[5] = kFrameBd;
+    dst[6] = (uint8_t)((xxh32(dst + 4, 2, 0) >> 8) & 0xFF);
+    size_t d = 7;
+    for (size_t i = 0; i < n; i += block) {
+        size_t len = std::min(block, n - i);
+        if (d + 4 > dst_cap) return -1;
+        int64_t c = agt_lz4_compress(src + i, len, dst + d + 4,
+                                     dst_cap - d - 4);
+        if (c >= 0 && (size_t)c < len) {
+            put32(dst + d, (uint32_t)c);
+            d += 4 + (size_t)c;
+        } else {
+            if (d + 4 + len > dst_cap) return -1;
+            put32(dst + d, (uint32_t)len | 0x80000000U);
+            memcpy(dst + d + 4, src + i, len);
+            d += 4 + len;
+        }
+    }
+    if (d + 4 > dst_cap) return -1;
+    put32(dst + d, 0);
+    return (int64_t)(d + 4);
+}
+
+// Decodes every block of one LZ4 frame into dst, independent or linked
+// (a linked block's matches reach into the output before it), skipping
+// block and content checksums. Returns the bytes written, or -1 on a
+// bad magic, a truncated or malformed frame, or more output than
+// dst_cap.
+int64_t agt_lz4_frame_decompress(const uint8_t* src, size_t n, uint8_t* dst,
+                                 size_t dst_cap) {
+    if (n < 7 || load32(src) != kLz4FrameMagic) return -1;
+    uint8_t flg = src[4];
+    size_t s = 6 + ((flg & 0x08) ? 8 : 0) + ((flg & 0x01) ? 4 : 0) + 1;
+    bool independent = flg & 0x20, block_sum = flg & 0x10;
+    size_t d = 0;
+    while (true) {
+        if (s + 4 > n) return -1;
+        uint32_t size = load32(src + s);
+        s += 4;
+        if (size == 0) break;
+        bool raw = size & 0x80000000U;
+        size &= 0x7FFFFFFFU;
+        if (s + size > n) return -1;
+        if (raw) {
+            if (d + size > dst_cap) return -1;
+            memcpy(dst + d, src + s, size);
+            d += size;
+        } else {
+            int64_t e = lz4_block_decode(src + s, size, dst,
+                                         independent ? d : 0, d, dst_cap);
+            if (e < 0) return -1;
+            d = (size_t)e;
+        }
+        s += size + (block_sum ? 4 : 0);
+    }
+    return (int64_t)d;
 }
 
 }  // extern "C"

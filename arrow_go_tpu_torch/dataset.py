@@ -11,17 +11,23 @@ there as one expression per batch, then the filter (K1). A nested
 column comes back as a HostColumn, read on the host
 (parquet/reader.read_field_host), as the JAX package's Scanner reads
 it; any other column the device read cannot take raises, where the JAX
-package's Scanner drops to its host reader. `.arrow`, `.feather` and
-`.csv` fragments raise ArrowNotImplemented (the port has no IPC or CSV
-reader). Fragments are scanned one after another on the calling thread.
+package's Scanner drops to its host reader. An `.arrow` or `.feather`
+fragment is an Arrow IPC file (the JAX package's IpcFragment): its
+record batches are read on the host (ipc.open_file, read_all),
+projected and shipped to the device with host_batch_to_device, one
+DeviceBatch a file; no guard prunes it. `.csv` fragments raise
+ArrowNotImplemented (the port has no CSV reader). Fragments are scanned
+one after another on the calling thread.
 """
 from __future__ import annotations
 
 import glob as _glob
 import os
+import time
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import dtypes as dt
 from . import torchenv
@@ -30,7 +36,8 @@ from .compute.errors import ArrowInvalid, ArrowNotImplemented
 from .compute.functions import filter_
 from .compute.nested_selection import null_rows
 from .device.block import (DeviceBatch, HostArray, HostBatch,
-                           concat_host_arrays, device_batch_to_host)
+                           concat_host_arrays, device_batch_to_host,
+                           host_batch_to_device)
 from .parquet import ParquetFile, read_batch_device
 
 _OPS = {"equal": "==", "less": "<", "less_equal": "<=", "greater": ">",
@@ -102,8 +109,58 @@ class ParquetFragment(Fragment):
                                         device=device, times=times)
 
 
-_PARQUET = (".parquet", ".pq")
-_NOT_PORTED = (".arrow", ".feather", ".csv")    # IPC and CSV fragments
+class IpcFragment(Fragment):
+    """An Arrow IPC file, scanned whole: its record batches in one
+    DeviceBatch, as the JAX package's IpcFragment reads the file's
+    table and ships it. Where the JAX scanner reads fragments on a
+    thread pool, the port decompresses a file's bodies on one."""
+
+    def schema(self) -> dt.Schema:
+        from . import ipc
+        r = ipc.open_file(self.path)
+        try:
+            return r.schema
+        finally:
+            r.close()
+
+    def kept_row_groups(self, guards, bloom: bool = True) -> Tuple[list,
+                                                                   int]:
+        """([0], 1): the file is one unit, which no guard prunes."""
+        return [0], 1
+
+    def device_batches(self, columns, guards, device,
+                       times=None) -> Iterator[DeviceBatch]:
+        """The file's rows, projected to `columns`, on `device` (none when
+        it has no rows); `times` gathers the host read (`parse_s`) and
+        the copy to the device (`h2d_s`)."""
+        from . import ipc
+        t0 = time.perf_counter()
+        r = ipc.open_file(self.path,
+                          decompress_concurrency=os.cpu_count() or 1)
+        try:
+            hb = r.read_all()
+        finally:
+            r.close()
+        if columns is not None:
+            idx = [hb.schema.field_index(c) for c in columns]
+            hb = HostBatch(dt.Schema([hb.schema.field(j) for j in idx]),
+                           [hb.columns[j] for j in idx], hb.num_rows)
+        if not hb.num_rows:
+            return
+        t1 = time.perf_counter()
+        db = host_batch_to_device(hb, device)
+        if times is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times["parse_s"] = times.get("parse_s", 0.0) + t1 - t0
+            times["h2d_s"] = times.get("h2d_s", 0.0) + \
+                time.perf_counter() - t1
+        yield db
+
+
+_FRAGMENTS = {".parquet": ParquetFragment, ".pq": ParquetFragment,
+              ".arrow": IpcFragment, ".feather": IpcFragment}
+_NOT_PORTED = (".csv",)                          # CSV fragments
 
 
 class Dataset:
@@ -117,7 +174,8 @@ class Dataset:
                 paths = sorted(
                     p for p in _glob.glob(os.path.join(paths, "**", "*"),
                                           recursive=True)
-                    if os.path.splitext(p)[1] in _PARQUET + _NOT_PORTED)
+                    if os.path.splitext(p)[1] in (*_FRAGMENTS,
+                                                  *_NOT_PORTED))
             else:
                 paths = sorted(_glob.glob(paths)) or [paths]
         self.fragments: List[Fragment] = []
@@ -127,10 +185,10 @@ class Dataset:
             if ext in _NOT_PORTED:
                 raise ArrowNotImplemented(
                     f"{ext} fragments are not ported (the port reads "
-                    f"parquet only): {p}")
-            if ext not in _PARQUET:
+                    f"parquet and Arrow IPC files): {p}")
+            if ext not in _FRAGMENTS:
                 raise ArrowInvalid(f"unknown fragment format: {p}")
-            self.fragments.append(ParquetFragment(p))
+            self.fragments.append(_FRAGMENTS[ext](p))
         if not self.fragments:
             raise ArrowInvalid("empty dataset")
         self._schema = self.fragments[0].schema()

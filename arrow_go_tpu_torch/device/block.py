@@ -55,6 +55,7 @@ string and binary are, on the host and on the device.
 """
 from __future__ import annotations
 
+import datetime
 import decimal as pydec
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -733,6 +734,59 @@ def nested_array(t: dt.DataType, length: int, mask: Optional[np.ndarray],
         offsets = np.ascontiguousarray(offsets, dtype=t.offset_dtype)
     return HostArray(None, mask, t, offsets=offsets, children=children,
                      length=length)
+
+
+def _coerce(v, t: dt.DataType):
+    """A Python value as its column's storage (the JAX NumericBuilder's
+    coercions): a date as its days, a datetime as its units."""
+    if t.id == dt.TypeId.DATE32 and isinstance(v, datetime.date):
+        return (v - datetime.date(1970, 1, 1)).days
+    if t.id == dt.TypeId.TIMESTAMP and isinstance(v, datetime.datetime):
+        epoch = datetime.datetime(1970, 1, 1, tzinfo=v.tzinfo)
+        return int((v - epoch).total_seconds() * t.unit.multiplier)
+    return v
+
+
+def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
+    """A HostArray of t from Python values, None a null row (the JAX
+    package's `array(values, t)` for the types the port builds this
+    way): bool, the integers and floats, date32 (dates or days),
+    timestamp (datetimes or units), the binary-like types and
+    fixed_size_binary (dictionary-coded, first-occurrence order),
+    struct (dicts; a missing key is a null field), list and large_list
+    (lists). Another type raises ArrowNotImplemented."""
+    n = len(values)
+    ok = np.array([v is not None for v in values], np.bool_)
+    mask = None if ok.all() else ok
+    if t.id == dt.TypeId.NULL:
+        return null_array(n)
+    if t.codes_on_device:
+        obj = np.empty(n, dtype=object)
+        obj[:] = [("" if t.is_utf8 else b"") if v is None else
+                  (v.encode() if isinstance(v, str) and not t.is_utf8
+                   else v) for v in values]
+        codes, dictionary = factorize(obj, ok)
+        return HostArray(codes, mask, dt.dictionary(dt.int32, t),
+                         dictionary_values(dictionary, t))
+    if t.id == dt.TypeId.STRUCT:
+        cols = [from_pylist([None if v is None else v.get(f.name)
+                             for v in values], f.type) for f in t.fields()]
+        return nested_array(t, n, mask, cols)
+    if t.id in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST):
+        lens = [0 if v is None else len(v) for v in values]
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        child = from_pylist([x for v in values if v is not None for x in v],
+                            t.value_type)
+        return nested_array(t, n, mask, [child], off)
+    if t.np_dtype is None or t.is_nested or t.id == dt.TypeId.EXTENSION \
+            or t.limbs:
+        from ..compute.errors import ArrowNotImplemented
+        raise ArrowNotImplemented(f"a {t} column from Python values")
+    out = np.zeros(n, t.np_dtype)
+    if ok.any():
+        out[ok] = [_coerce(v, t) for v in values if v is not None]
+    return HostArray(out, mask, t)
 
 
 class HostBatch:

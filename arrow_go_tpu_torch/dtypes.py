@@ -520,18 +520,58 @@ def from_numpy_dtype(d) -> DataType:
     raise ValueError(f"the port carries no type for numpy {d}")
 
 
+class Metadata:
+    """Ordered string -> string key/value metadata of a field or a
+    schema (the JAX package's Metadata; reference arrow/schema.go)."""
+
+    __slots__ = ("keys", "values")
+
+    def __init__(self, pairs: Optional[Dict[str, str]] = None,
+                 keys: Sequence[str] = (), values: Sequence[str] = ()):
+        if pairs is not None:
+            keys, values = list(pairs), list(pairs.values())
+        self.keys = list(keys)
+        self.values = list(values)
+        if len(self.keys) != len(self.values):
+            raise ValueError("metadata keys/values length mismatch")
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self.values[self.keys.index(key)] if key in self.keys \
+            else default
+
+    def to_dict(self) -> Dict[str, str]:
+        return dict(zip(self.keys, self.values))
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, Metadata):
+            return NotImplemented
+        return (self.keys, self.values) == (other.keys, other.values)
+
+    def __repr__(self) -> str:
+        return f"Metadata({self.to_dict()!r})"
+
+
+EMPTY_METADATA = Metadata()
+
+
 class Field:
-    """Named, nullable-annotated slot in a schema."""
+    """Named, nullable-annotated slot in a schema, with key/value
+    metadata (not part of its equality, as in the JAX package)."""
 
-    __slots__ = ("name", "type", "nullable")
+    __slots__ = ("name", "type", "nullable", "metadata")
 
-    def __init__(self, name: str, type: DataType, nullable: bool = True):
+    def __init__(self, name: str, type: DataType, nullable: bool = True,
+                 metadata: Metadata = EMPTY_METADATA):
         self.name = name
         self.type = type
         self.nullable = bool(nullable)
+        self.metadata = metadata
 
     def with_name(self, name: str) -> "Field":
-        return Field(name, self.type, self.nullable)
+        return Field(name, self.type, self.nullable, self.metadata)
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Field):
@@ -815,12 +855,15 @@ def map_(key: DataType, item: DataType, keys_sorted: bool = False
 
 
 class Schema:
-    """Ordered field collection (reference arrow/schema.go:157)."""
+    """Ordered field collection with key/value metadata (reference
+    arrow/schema.go:157); its equality is the fields'."""
 
-    __slots__ = ("_fields", "_index")
+    __slots__ = ("_fields", "_index", "metadata")
 
-    def __init__(self, fields: Sequence[Field]):
+    def __init__(self, fields: Sequence[Field],
+                 metadata: Metadata = EMPTY_METADATA):
         self._fields = list(fields)
+        self.metadata = metadata
         self._index: Dict[str, int] = {}
         for i, f in enumerate(self._fields):
             self._index.setdefault(f.name, i)

@@ -1,6 +1,7 @@
 """The port's host codec library: csrc/codecs.cc, built with g++.
 
-Snappy, LZ4 raw and zstd (compress, decompress), XXH64, the header walks
+Snappy, LZ4 raw, the LZ4 frame format and zstd (compress, decompress),
+XXH64 and XXH32, the header walks
 of the RLE/bit-packed hybrid and of DELTA_BINARY_PACKED streams, and the
 byte-array walks of string pages (PLAIN, the DELTA lengths and prefixes
 decoded in full, DELTA_BYTE_ARRAY rebuilt row by row, a first-occurrence
@@ -62,6 +63,10 @@ _SIGNATURES = {
     "agt_gather_rows": (None, [_P, _P, _P, _I64, _P]),
     "agt_factorize": (_I64, [_P, _P, _I64, _P, _P]),
     "agt_xxh64_rows": (None, [_P, _P, _I64, _P]),
+    "agt_xxh32": (ctypes.c_uint32, [_P, _SIZE, ctypes.c_uint32]),
+    "agt_lz4_frame_bound": (_SIZE, [_SIZE, _SIZE]),
+    "agt_lz4_frame_compress": (_I64, [_P, _SIZE, _SIZE, _P, _SIZE]),
+    "agt_lz4_frame_decompress": (_I64, [_P, _SIZE, _P, _SIZE]),
 }
 
 
@@ -198,6 +203,39 @@ def delta_parse(data, pos: int, total: int, values_per_miniblock: int,
     if rows < 0:
         raise ArrowInvalid("DELTA_BINARY_PACKED stream ends early")
     return starts[:rows], bit0[:rows], width[:rows], mins[:rows]
+
+
+def lz4_frame_compress(data, block_size: int = 1 << 20) -> memoryview:
+    """One LZ4 frame of `data` (the Arrow IPC body codec "lz4"), laid out
+    as the JAX package's lz4_frame_compress writes it: no checksums and
+    no content size, blocks of `block_size` bytes each compressed alone
+    (stored raw where that does not shrink them)."""
+    lb = lib()
+    return _run(lambda src, n, dst, cap: lb.agt_lz4_frame_compress(
+        src, n, block_size, dst, cap), data,
+        lb.agt_lz4_frame_bound(len(data), block_size), "lz4 frame compression")
+
+
+def lz4_frame_decompress(data, uncompressed_size: int) -> memoryview:
+    """The content of one LZ4 frame, independent or linked blocks, which
+    must be `uncompressed_size` bytes. A bad magic, a truncated or
+    malformed frame, or another size raises ArrowInvalid."""
+    src, ptr = _in(data)
+    out = np.empty(max(uncompressed_size, 1), np.uint8)
+    n = lib().agt_lz4_frame_decompress(ptr, len(src), out.ctypes.data,
+                                       uncompressed_size)
+    if n < 0:
+        raise ArrowInvalid("corrupt or truncated lz4 frame")
+    if n != uncompressed_size:
+        raise ArrowInvalid(f"lz4 frame holds {n} bytes, not "
+                           f"{uncompressed_size}")
+    return memoryview(out)[:n]
+
+
+def xxh32(data, seed: int = 0) -> int:
+    """XXH32 of a byte buffer (the LZ4 frame's checksums)."""
+    src, ptr = _in(data)
+    return int(lib().agt_xxh32(ptr, len(src), seed))
 
 
 # ---------------------------------------------------------------------------

@@ -562,7 +562,9 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
         raise ArrowInvalid(f"unknown columns {missing!r}")
     # a nested column (its leaves' descriptors under a group) is read on
     # the host and rides the batch as a HostColumn
-    nested = {c for c in columns if by_name[c].type.is_nested}
+    nested = {c for c in columns if by_name[c].type.is_nested or (
+        by_name[c].type.id == dt.TypeId.EXTENSION
+        and by_name[c].type.storage_type.is_nested)}
     flat = [c for c in columns if c not in nested]
     clock = _Clock(times, dev)
     with clock.phase("parse_s"):

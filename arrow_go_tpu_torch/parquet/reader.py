@@ -35,7 +35,7 @@ import numpy as np
 from .. import dtypes as dt
 from .. import native
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..device.block import HostArray, factorize
+from ..device.block import ExtensionArray, HostArray, factorize
 from . import compress as comp
 from . import encodings as enc
 from . import format as fmt
@@ -323,7 +323,11 @@ def read_field_host(pf: ParquetFile, rg_i: int, name: str) -> HostArray:
     and retyped."""
     li = 0
     for f in pf.schema.fields:
-        g = lv.map_storage_field(f) if f.type.id == dt.TypeId.MAP else f
+        g = f
+        if f.type.id == dt.TypeId.EXTENSION:     # parquet.variant
+            g = dt.Field(f.name, f.type.storage_type, f.nullable)
+        if f.type.id == dt.TypeId.MAP:
+            g = lv.map_storage_field(f)
         paths = lv.leaf_paths(g.type)
         if f.name == name:
             break
@@ -343,4 +347,6 @@ def read_field_host(pf: ParquetFile, rg_i: int, name: str) -> HostArray:
                                             f.type.value_type,
                                             children=entries.children,
                                             length=len(entries))])
+    if f.type.id == dt.TypeId.EXTENSION:
+        out = ExtensionArray(f.type, out)
     return out

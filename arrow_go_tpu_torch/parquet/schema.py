@@ -25,7 +25,9 @@ list or large_list a LIST-annotated group holding a repeated group
 large_list reads back as a list); a map a MAP-annotated group holding a
 repeated group "key_value" of "key" and "value". A repeated field
 outside such a group (the legacy two-level lists) raises
-ArrowNotImplemented.
+ArrowNotImplemented. A struct group annotated VARIANT reads as the
+parquet.variant extension type over its struct (extensions.VariantType),
+and that type's storage is written as such a group.
 """
 from __future__ import annotations
 
@@ -195,13 +197,19 @@ def schema_to_elements(schema: dt.Schema,
 
     def walk(f: dt.Field, path, max_def, max_rep, ancestry):
         t = f.type
+        variant = None
         if t.id == dt.TypeId.EXTENSION:
+            # parquet.variant's group carries the VARIANT annotation
+            # (reference pqarrow/schema.go, schema/logical_types.go:1120)
+            if t.extension_name == "parquet.variant":
+                variant = fmt.LogicalType(
+                    VARIANT=fmt.VariantLType(specification_version=1))
             t = t.storage_type
         rep = fmt.Repetition.OPTIONAL if f.nullable else \
             fmt.Repetition.REQUIRED
         d = max_def + (1 if f.nullable else 0)
         if t.id == dt.TypeId.STRUCT:
-            el = group(f.name, rep, t.num_fields)
+            el = group(f.name, rep, t.num_fields, logical=variant)
             for cf in t.fields():
                 walk(cf, path + (f.name,), d, max_rep, ancestry + [el])
             return
@@ -364,6 +372,10 @@ def elements_to_schema(elements: List[fmt.SchemaElement]
             return dt.Field(el.name, t, nullable)
         fields = [read_node(path + (el.name,), d, max_rep, ancestry + [el])
                   for _ in range(el.num_children)]
+        if lt is not None and lt.VARIANT is not None:
+            from ..extensions import VariantType
+            return dt.Field(el.name, VariantType(dt.struct(fields)),
+                            nullable)
         return dt.Field(el.name, dt.struct(fields), nullable)
 
     root = elements[0]

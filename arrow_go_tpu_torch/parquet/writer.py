@@ -564,6 +564,7 @@ def write_table(data: Dict[str, object], sink,
     for name in names:
         m = masks.get(name)
         v = data[name]
+        ft = v.type if isinstance(v, HostArray) else None
         if isinstance(v, HostArray) and v.type.id == dt.TypeId.EXTENSION \
                 and v.storage.type.is_nested:
             v = v.storage
@@ -573,7 +574,7 @@ def write_table(data: Dict[str, object], sink,
                 raise ArrowInvalid(f"column {name!r}: expected length {n} "
                                    f"and no mask (a nested column carries "
                                    f"its validity)")
-            fields.append(dt.Field(name, v.type, True))
+            fields.append(dt.Field(name, ft, True))
             cols[name] = (v, None)
             continue
         t = types.get(name)

@@ -159,10 +159,32 @@ without one. Phases:
      (`host_types_filter`); each exact against numpy, and every K1 and
      K2 call of one more run of Q12 views and typed_filter against the
      plain version (`types_path_checks`);
-  17. a `kernels` JSON line, then the last line
+  17. the variant type and Arrow IPC on the same arrays: l_price,
+     l_disc, l_qty and l_sdate written by the port's new_file in record
+     batches of 1,048,576 rows, uncompressed, lz4 frame and zstd, each
+     read back by open_file, sent to the card batch by batch and run
+     through TPC-H Q6 (K1, K3), exact against numpy, every column bit
+     for bit, with the write ms, the read split (parse, decompress, copy
+     to the card, compute), the bytes and the uncompressed read's device
+     idle share (`ipc_q6`); o_opri as a dictionary field with one
+     dictionary delta and o_custkey through new_stream / open_stream in
+     15 batches, exact (`ipc_stream`); the lineitem sorted by l_sdate in
+     8 lz4 .arrow files in a temporary directory, Q6 through the dataset
+     scanner (one device batch a file), equal to `ipc_q6` and to phase
+     12's parquet `dataset_q6` (`ipc_dataset_q6`); 262,144 orders as
+     parquet.variant
+     objects of o_okey, o_odate and o_opri (a cut: the variant Builder
+     encodes row by row in Python), shredded to typed_value int64 /
+     int32 / string, round-tripped through the port's parquet writer and
+     reader and an IPC stream, unshredded and held row by row against
+     the source, the shredded o_odate filtered by < 720 on the card (K1)
+     against the plain column's filter (`variant`); every K1 and K3 call
+     of one more run of the uncompressed `ipc_q6`, `ipc_dataset_q6` and
+     the variant filter against the plain version (`ipc_path_checks`);
+  18. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16 and 17 and, of phase 9, all but
+With --timing-only it skips phases 3, 15, 16, 17 and 18 and, of phase 9, all but
 the three queries and K2's timings, and holds no call of phases 10 to
 14 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
@@ -2964,10 +2986,7 @@ def write_dataset(root: str, lis, ords, cust, compression: str = "zstd",
         jobs.append((path, data, extra))
         out.setdefault(table, []).append(path)
     if "lineitem" in tables:
-        sdate = lis["l_sdate"]
-        edges = np.linspace(int(sdate[0]), int(sdate[-1]) + 1,
-                            LI_DATASET_FILES + 1)
-        cuts = np.searchsorted(sdate, edges).tolist()
+        cuts = lineitem_cuts(lis["l_sdate"])
         for i in range(LI_DATASET_FILES):
             write("lineitem", f"part-{i}.parquet",
                   _rows(lis, cuts[i], cuts[i + 1]))
@@ -3219,11 +3238,13 @@ def dataset_phases(li, orders, dev, card: str,
 
         def q6_unpruned():
             return dataset_q6(li_ds, dev, pruned=False)
+        results = {}
         for key, name, run in (("dataset_q6", "dataset Q6", q6),
                                ("dataset_q6_unpruned", "dataset Q6 unpruned",
                                 q6_unpruned)):
             got, launches[name] = run_path(name, run, ("K1", "K3"))
             check_q6(got, q6_want)
+            results[key] = got
             outs, runs[key] = timed(run)
             for out in outs:
                 check_q6(out, q6_want)
@@ -3305,7 +3326,7 @@ def dataset_phases(li, orders, dev, card: str,
                 errs[k] = max(h[k]["max_abs_err"] for h in held.values())
     print(json.dumps({"dataset_phase": {
         "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
-    return {"launches": launches, "errs": errs}
+    return {"launches": launches, "errs": errs, "q6": results["dataset_q6"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4648,6 +4669,425 @@ def types_phases(li, orders, dev, card: str) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+
+# ---------------------------------------------------------------------------
+# the variant type and Arrow IPC: Q6 from IPC bytes, an IPC stream with a
+# dictionary delta, a dataset of .arrow fragments, and a shredded variant
+# ---------------------------------------------------------------------------
+
+IPC_BATCH_ROWS = 1 << 20          # rows of a record batch (58 at SF10)
+IPC_CODECS = (None, "lz4", "zstd")
+IPC_THREADS = os.cpu_count() or 8  # (de)compression threads
+IPC_Q6_COLUMNS = ["l_price", "l_disc", "l_qty", "l_sdate"]
+IPC_STREAM_BATCHES = 15
+VARIANT_ROWS = 1 << 18            # rows of the variant column (a cut)
+VARIANT_ODATE_MAX = 720           # the shredded o_odate's filter
+IPC_TYPES = {"l_price": dt.float64, "l_disc": dt.float64, "l_qty": dt.int32,
+             "l_sdate": dt.int32, "l_okey": dt.int64}
+
+
+def write_ipc(sink, table: dict, names, compression=None, rows=None,
+              start: int = 0, stop=None):
+    """Rows [start, stop) of the named numpy columns as an Arrow IPC
+    file (the port's new_file), in record batches of `rows` (default
+    IPC_BATCH_ROWS), bodies compressed on IPC_THREADS threads. Returns
+    the batches written."""
+    from arrow_go_tpu_torch import ipc
+    types = IPC_TYPES
+    rows = rows or IPC_BATCH_ROWS
+    schema = dt.Schema([dt.Field(c, types[c], False) for c in names])
+    stop = len(table[names[0]]) if stop is None else stop
+    n = 0
+    with ipc.new_file(sink, schema, compression,
+                      compression_concurrency=IPC_THREADS) as w:
+        for a in range(start, stop, rows):
+            b = min(a + rows, stop)
+            w.write(HostBatch(schema, [HostArray(table[c][a:b], None,
+                                                 types[c]) for c in names],
+                              b - a))
+            n += 1
+    return n
+
+
+def _same_bits(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.dtype != want.dtype or not np.array_equal(
+            got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8)):
+        raise AssertionError(f"{what}: the IPC read differs bit for bit")
+
+
+def ipc_q6(blob, dev, times=None, source=None) -> dict:
+    """TPC-H Q6 over an IPC file's record batches: each read on the host
+    (open_file, bodies decompressed on IPC_THREADS threads), sent to the
+    card (host_batch_to_device) and filtered (K1), its SUM on K3, added
+    across batches. `times` gathers the read (`read_s`, of which
+    `decompress_s`), the copy (`h2d_s`) and the compute (`compute_s`);
+    with `source` each batch's columns are held bit for bit against the
+    numpy columns, outside the timed spans."""
+    from arrow_go_tpu_torch import ipc
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    r = ipc.open_file(blob, decompress_concurrency=IPC_THREADS)
+    revenue, count, row = 0.0, 0, 0
+    spans = {"read_s": 0.0, "h2d_s": 0.0, "compute_s": 0.0}
+    for i in range(r.num_record_batches):
+        t0 = time.perf_counter()
+        hb = r.get_batch(i)
+        t1 = time.perf_counter()
+        db = host_batch_to_device(hb, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rev = q6_revenue(db)
+        if rev.length:
+            revenue += pc.agg_sum(rev)
+        count += rev.length
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(spans, (t1 - t0, t2 - t1, t3 - t2)):
+            spans[k] += v
+        if source is not None:
+            for f, c in zip(hb.schema.fields, hb.columns):
+                _same_bits(f"ipc_q6 {f.name} batch {i}", c.values,
+                           source[f.name][row:row + hb.num_rows])
+        row += hb.num_rows
+    if times is not None:
+        times.update(spans, decompress_s=r.decompress_s,
+                     batches=r.num_record_batches, rows=row)
+    return {"revenue": revenue, "count": count}
+
+
+def ipc_dataset_q6(ds, dev, times=None) -> dict:
+    """TPC-H Q6 over a dataset of .arrow fragments: the scanner's device
+    batches (one a file), filtered and summed as dataset_q6."""
+    sc = ds.scanner(columns=Q6_COLUMNS, filter=q6_expression(), device=dev)
+    return q6_over_batches(sc.device_batches(times=times))
+
+
+def lineitem_cuts(sdate: np.ndarray) -> list:
+    """Row bounds of LI_DATASET_FILES files of equal l_sdate ranges over
+    a lineitem sorted by l_sdate."""
+    edges = np.linspace(int(sdate[0]), int(sdate[-1]) + 1,
+                        LI_DATASET_FILES + 1)
+    return np.searchsorted(sdate, edges).tolist()
+
+
+def write_ipc_dataset(root: str, lis: dict, compression: str = "lz4"
+                      ) -> list:
+    """The sorted lineitem's Q6 columns and l_okey as LI_DATASET_FILES
+    .arrow files under `root` (the parquet dataset's l_sdate ranges and
+    record batches of its row-group size), one thread a file. Returns
+    the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+    cuts = lineitem_cuts(lis["l_sdate"])
+    names = Q6_COLUMNS + ["l_okey"]
+    paths = [os.path.join(root, f"part-{i}.arrow")
+             for i in range(LI_DATASET_FILES)]
+
+    def one(i):
+        with open(paths[i], "wb") as f:
+            write_ipc(f, lis, names, compression, DATASET_ROWS_PER_GROUP,
+                      cuts[i], cuts[i + 1])
+    os.makedirs(root, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=LI_DATASET_FILES) as pool:
+        for f in [pool.submit(one, i) for i in range(LI_DATASET_FILES)]:
+            f.result()
+    return paths
+
+
+def stream_orders(orders) -> tuple:
+    """The orders' o_opri (a dictionary field, its dictionary grown by
+    one delta) and o_custkey through new_stream / open_stream in
+    IPC_STREAM_BATCHES batches: the first half of the batches carry a
+    dictionary of the priorities their rows use, the rest all five.
+    Returns (the stream's bytes, the read HostBatch, ms of write, read)."""
+    from arrow_go_tpu_torch import ipc
+    codes, values = orders["o_opri"]
+    ck = orders["o_custkey"]
+    n = len(ck)
+    # first batches: only priorities 0-2, then the other two appended
+    early = codes < 3
+    order = np.concatenate([np.flatnonzero(early), np.flatnonzero(~early)])
+    codes, ck = codes[order], ck[order]
+    t = dt.dictionary(dt.int32, dt.string)
+    schema = dt.Schema([dt.Field("o_opri", t), dt.Field("o_custkey",
+                                                        dt.int64, False)])
+    cuts = np.linspace(0, n, IPC_STREAM_BATCHES + 1).astype(int)
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    with ipc.new_stream(sink, schema, emit_dictionary_deltas=True) as w:
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            d = values[:3] if codes[a:b].max() < 3 else values
+            w.write(HostBatch(schema, [HostArray(codes[a:b], None, t, d),
+                                       HostArray(ck[a:b], None, dt.int64)],
+                              b - a))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    blob = sink.getbuffer()
+    t0 = time.perf_counter()
+    got = ipc.open_stream(blob).read_all()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    opri = got.column("o_opri")
+    if list(opri.dictionary) != list(values) or not np.array_equal(
+            opri.values, codes) or not np.array_equal(
+            got.column("o_custkey").values, ck):
+        raise AssertionError("ipc_stream: the orders differ after the "
+                             "stream")
+    return blob, got, write_ms, read_ms
+
+
+def variant_orders(orders, n: int):
+    """A parquet.variant column of the first n orders, each row the
+    object {o_okey, o_odate, o_opri} (the variant Builder, row by row)."""
+    from arrow_go_tpu_torch import extensions as ext
+    from arrow_go_tpu_torch.device.block import ExtensionArray, from_pylist
+    from arrow_go_tpu_torch.parquet import variant as pv
+    codes, values = orders["o_opri"]
+    objs = [{"o_okey": k, "o_odate": d, "o_opri": values[c]}
+            for k, d, c in zip(orders["o_okey"][:n].tolist(),
+                               orders["o_odate"][:n].tolist(),
+                               codes[:n].tolist())]
+    rows = []
+    for o in objs:
+        meta, val = pv.encode(o)
+        rows.append({"metadata": meta, "value": val})
+    return objs, ExtensionArray(ext.variant, from_pylist(
+        rows, ext.variant.storage_type))
+
+
+def variant_to_card(sh, dev) -> DeviceBatch:
+    """The shredded o_okey and o_odate typed_values as a DeviceBatch."""
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    typed = sh.storage.children[2]
+    cols = {name: typed.children[typed.type.field_index(name)].children[1]
+            for name in ("o_okey", "o_odate")}
+    return host_batch_to_device(HostBatch.from_arrays(cols), dev)
+
+
+def variant_filter(db: DeviceBatch):
+    """The shredded typed_values on the card filtered by o_odate <
+    VARIANT_ODATE_MAX (K1)."""
+    mask = pc.call_function("less", [db.column("o_odate"),
+                                     VARIANT_ODATE_MAX])
+    return pc.filter(db, mask)
+
+
+def check_variant_filter(out, orders, n: int) -> None:
+    keep = orders["o_odate"][:n] < VARIANT_ODATE_MAX
+    for name in ("o_okey", "o_odate"):
+        got = out.column(name).values[:out.length].cpu().numpy()
+        if out.column(name).validity is not None or not np.array_equal(
+                got, orders[name][:n][keep]):
+            raise AssertionError(f"variant filter: {name} differs from the "
+                                 f"plain column's filter")
+
+
+def variant_phase(orders, dev, card: str) -> tuple:
+    """The variant line: VARIANT_ROWS orders as variant objects, shredded
+    (typed_value int64 / int32 / string), round-tripped through the
+    port's parquet writer and reader and through an IPC stream, each
+    equal to the shredded column, unshredded and held row by row against
+    the source objects; the shredded o_okey and o_odate sent to the card
+    and filtered there by o_odate (K1) against the plain column's
+    filter. Returns (the filter's path function, its check, its
+    launches)."""
+    from arrow_go_tpu_torch import extensions as ext, ipc
+    from arrow_go_tpu_torch.device.block import ExtensionArray
+    from arrow_go_tpu_torch.parquet import variant as pv
+    n = min(VARIANT_ROWS, len(orders["o_okey"]))
+    ms = {}
+    t0 = time.perf_counter()
+    objs, col = variant_orders(orders, n)
+    ms["build"] = (time.perf_counter() - t0) * 1e3
+    shred_t = dt.struct([dt.Field("o_okey", dt.int64),
+                         dt.Field("o_odate", dt.int32),
+                         dt.Field("o_opri", dt.string)])
+    t0 = time.perf_counter()
+    sh = ext.shred_variant(col, shred_t)
+    ms["shred"] = (time.perf_counter() - t0) * 1e3
+    want = sh.to_pylist()
+    t0 = time.perf_counter()
+    sink = io.BytesIO()
+    tpq.write_table({"v": sh}, sink)
+    ms["parquet_write"] = (time.perf_counter() - t0) * 1e3
+    pq_bytes = len(sink.getvalue())
+    t0 = time.perf_counter()
+    pf = tpq.ParquetFile(sink.getvalue())
+    from_pq = tpq.read_batch_device(pf, 0, columns=["v"], device=dev
+                                    ).column("v").array
+    ms["parquet_read"] = (time.perf_counter() - t0) * 1e3
+    if pf.schema.field(0).type != sh.type or from_pq.to_pylist() != want:
+        raise AssertionError("variant: the parquet round trip differs")
+    t0 = time.perf_counter()
+    sink = io.BytesIO()
+    schema = dt.Schema([dt.Field("v", sh.type)])
+    with ipc.new_stream(sink, schema) as w:
+        w.write(HostBatch(schema, [sh], n))
+    back = ipc.open_stream(sink.getvalue()).read_all().column("v")
+    ms["ipc_round_trip"] = (time.perf_counter() - t0) * 1e3
+    if back.type != sh.type or back.to_pylist() != want:
+        raise AssertionError("variant: the IPC round trip differs")
+    back = ExtensionArray(ext.VariantType(back.type.storage_type),
+                          back.storage)
+    t0 = time.perf_counter()
+    un = ext.unshred_variant(back)
+    ms["unshred"] = (time.perf_counter() - t0) * 1e3
+    for i, row in enumerate(un.to_pylist()):
+        if pv.decode(row["metadata"], row["value"]) != objs[i]:
+            raise AssertionError(f"variant: row {i} differs after the "
+                                 f"round trips")
+    typed = sh.storage.children[2]
+    shredded = all(typed.children[j].children[0].validity_bools().sum()
+                   == 0 for j in range(3))
+
+    t0 = time.perf_counter()
+    db = variant_to_card(sh, dev)
+    torch.cuda.synchronize()
+    ms["to_card"] = (time.perf_counter() - t0) * 1e3
+
+    def fn():
+        return variant_filter(db)
+
+    def check(out):
+        check_variant_filter(out, orders, n)
+    out, launches = run_path("variant filter", fn, ("K1",))
+    check(out)
+    outs, runs = timed(fn)
+    for o in outs:
+        check(o)
+    print(json.dumps({"variant": {
+        "rows": n, "rows_cut_from": len(orders["o_okey"]),
+        "shred_type": str(shred_t), "fully_shredded": bool(shredded),
+        "parquet_bytes": pq_bytes, "ms": ms,
+        "filter_ms_runs": runs, "filter_ms_median": float(np.median(runs)),
+        "kept": int((orders["o_odate"][:n] < VARIANT_ODATE_MAX).sum()),
+        "launches_per_run": launches, "card": card, "verified": True}}),
+        flush=True)
+    return fn, check, launches
+
+
+def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
+    """This slice's paths over the SF10 arrays already in memory:
+    `ipc_q6` (the Q6 columns written by new_file in record batches of
+    IPC_BATCH_ROWS, uncompressed, lz4 frame and zstd, each read back by
+    open_file and run through Q6 on the card, exact against numpy with
+    the read split and the bytes; the uncompressed read's device idle
+    share; every column bit for bit), `ipc_stream` (o_opri as a
+    dictionary field with one delta, and o_custkey, through new_stream
+    and open_stream), `ipc_dataset_q6` (the lineitem sorted by l_sdate
+    as LI_DATASET_FILES lz4 .arrow fragments in a temporary directory,
+    Q6 through the dataset scanner, its count equal to ipc_q6's and the
+    parquet dataset_q6's of this run and its revenue at rtol 1e-9),
+    `variant` (variant_phase) and
+    `ipc_path_checks` (every K1 and K3 call of one more run of the
+    uncompressed ipc_q6, ipc_dataset_q6 and the variant filter against
+    the plain version). Returns each path's launch counts and the
+    largest kernel - plain difference."""
+    import tempfile
+    from arrow_go_tpu_torch.dataset import dataset
+    t_phase = time.perf_counter()
+    launches, held = {}, {}
+    want = q6_oracle(li)
+    n_li = len(li["l_okey"])
+    lines = {}
+    for codec in IPC_CODECS:
+        key = codec or "none"
+        sink = io.BytesIO()
+        t0 = time.perf_counter()
+        batches = write_ipc(sink, li, IPC_Q6_COLUMNS, codec)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        blob = sink.getbuffer()
+        if codec is None:
+            plain = blob                  # kept for the profile and checks
+        name = f"IPC Q6 {key}"
+        got, launches[name] = run_path(
+            name, lambda: ipc_q6(blob, dev), ("K1", "K3"))
+        check_q6(got, want)
+        split = {}
+        again = ipc_q6(blob, dev, split, source=li)
+        check_q6(again, want)
+        if again != got:
+            raise AssertionError(f"{name}: two reads differ")
+        read_ms = sum(split[k] for k in ("read_s", "h2d_s",
+                                         "compute_s")) * 1e3
+        lines[key] = {
+            **got, "batches": batches, "rows": n_li, "bytes": len(blob),
+            "body_bytes": n_li * 24, "write_ms": write_ms,
+            "read_ms": read_ms, "split_ms": {
+                "parse": (split["read_s"] - split["decompress_s"]) * 1e3,
+                "decompress": split["decompress_s"] * 1e3,
+                "to_card": split["h2d_s"] * 1e3,
+                "compute": split["compute_s"] * 1e3},
+            "launches_per_run": launches[name], "verified_bits": True}
+        del sink, blob
+    prof = profile_device(lambda: ipc_q6(plain, dev),
+                          lambda out: check_q6(out, want), top=6)
+    lines["none"]["profile"] = prof
+    print(json.dumps({"ipc_q6": {**lines, "oracle": want, "threads":
+                                 IPC_THREADS, "card": card,
+                                 "verified": True}}), flush=True)
+
+    blob, got, write_ms, read_ms = stream_orders(orders)
+    print(json.dumps({"ipc_stream": {
+        "rows": got.num_rows, "batches": IPC_STREAM_BATCHES,
+        "bytes": len(blob), "write_ms": write_ms, "read_ms": read_ms,
+        "dictionary": list(got.column("o_opri").dictionary), "card": card,
+        "verified": True}}), flush=True)
+    launches["IPC stream"] = {k: 0 for k in KERNELS}
+    del blob, got
+
+    order = np.argsort(li["l_sdate"], kind="stable")
+    lis = {c: li[c][order] for c in Q6_COLUMNS + ["l_okey"]}
+    del order
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_ipc_dataset(root, lis)
+        ds_write_s = time.perf_counter() - t0
+        del lis
+        ds = dataset(root)
+        got, launches["IPC dataset Q6"] = run_path(
+            "IPC dataset Q6", lambda: ipc_dataset_q6(ds, dev), ("K1", "K3"))
+        check_q6(got, want)
+        if got["count"] != lines["none"]["count"] or not np.isclose(
+                got["revenue"], lines["none"]["revenue"], rtol=1e-9,
+                atol=0):
+            raise AssertionError("ipc_dataset_q6 differs from ipc_q6")
+        if dataset_q6_result is not None and (
+                got["count"] != dataset_q6_result["count"]
+                or not np.isclose(got["revenue"],
+                                  dataset_q6_result["revenue"], rtol=1e-9,
+                                  atol=0)):
+            raise AssertionError(f"ipc_dataset_q6 {got} differs from the "
+                                 f"parquet dataset_q6 {dataset_q6_result}")
+        split = {}
+        t0 = time.perf_counter()
+        check_q6(ipc_dataset_q6(ds, dev, split), want)
+        runs = [(time.perf_counter() - t0) * 1e3]
+        print(json.dumps({"ipc_dataset_q6": {
+            **got, "files": len(paths), "bytes": sum(
+                os.path.getsize(p) for p in paths), "write_s": ds_write_s,
+            "compression": "lz4", "ms_runs": runs,
+            "ms_median": float(np.median(runs)),
+            "split_ms": {k[:-2] + "_ms": v * 1e3 for k, v in split.items()},
+            "equals_parquet_dataset_q6": dataset_q6_result is not None,
+            "launches_per_run": launches["IPC dataset Q6"], "card": card,
+            "verified": True}}), flush=True)
+
+        vfn, vcheck, launches["variant filter"] = variant_phase(
+            orders, dev, card)
+        paths = {"ipc_q6": (lambda: ipc_q6(plain, dev),
+                            lambda o: check_q6(o, want), "IPC Q6 none"),
+                 "ipc_dataset_q6": (lambda: ipc_dataset_q6(ds, dev),
+                                    lambda o: check_q6(o, want),
+                                    "IPC dataset Q6"),
+                 "variant": (vfn, vcheck, "variant filter")}
+        for key, (fn, check, name) in paths.items():
+            out, held[key] = check_path_calls(key, fn, launches[name],
+                                              k3=key != "variant")
+            check(out)
+    print(json.dumps({"ipc_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"ipc_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -4861,6 +5301,9 @@ def main(argv=None) -> int:
     more = types_phases(li, orders, dev, card)
     k1_err = max(k1_err, more["errs"]["K1"])
     k2_err = max(k2_err, more["errs"]["K2"])
+    ipcs = ipc_phases(li, orders, dev, card, dsets["q6"])
+    k1_err = max(k1_err, ipcs["errs"]["K1"])
+    k3_err = max(k3_err, ipcs["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -4868,7 +5311,8 @@ def main(argv=None) -> int:
                **joins["launches"], **types["launches"],
                **decs["launches"], **dsets["launches"],
                **dists["launches"], **nested["launches"],
-               **front["launches"], **more["launches"]}
+               **front["launches"], **more["launches"],
+               **ipcs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

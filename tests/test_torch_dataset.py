@@ -1,9 +1,10 @@
 """The port's dataset scan (arrow_go_tpu_torch/dataset.py) against the JAX
 package's Dataset on the same directories: discovery, projection, the
 residual filter, row-group pruning by statistics and bloom filters, the
-device batches, the refusals (.arrow fragments, columns the device read
-cannot take), and TPC-H Q6 and Q10 over a small zstd dataset of many
-files and row groups against the same composition of JAX functions
+device batches, the refusals (.csv fragments, columns the device read
+cannot take), .arrow fragments beside parquet ones, and TPC-H Q6 and Q10
+over a small zstd dataset of many files and row groups (Q6 also over
+its lz4 .arrow twin) against the same composition of JAX functions
 (K3 as the JAX package runs it on the CPU: the Pallas kernel in
 interpret mode). Every port call passes device="cpu"."""
 import os
@@ -21,6 +22,7 @@ from arrow_go_tpu.device.block import DeviceBatch as JaxDeviceBatch
 from arrow_go_tpu.device.block import batch_to_device as jax_batch_to_device
 
 import arrow_go_tpu_torch.compute as pc
+from arrow_go_tpu_torch import ipc
 from arrow_go_tpu_torch import parquet as tpq
 from arrow_go_tpu_torch.compute.errors import ArrowNotImplemented
 from arrow_go_tpu_torch.dataset import _simple_guards, dataset
@@ -109,18 +111,36 @@ def test_dataset_empty_result(pq_dir):
 
 
 def test_dataset_mixed_glob_arrow_fragment_raises(pq_dir, tmp_path):
+    """A .parquet and an .arrow fragment (an IPC file of the JAX writer)
+    read as the JAX Dataset reads them; a .csv fragment still raises."""
     from arrow_go_tpu import ipc
-    t = agt.table({"id": [999], "cat": ["x"], "v": [0.0]})
+    t = agt.table({"id": [999, 1000], "cat": ["x", "c1"], "v": [0.0, 2.5]})
     p = tmp_path / "extra.arrow"
     with open(p, "wb") as f:
         with ipc.new_file(f, t.schema) as w:
             w.write_table(t)
     paths = [os.path.join(pq_dir, "part0.parquet"), str(p)]
-    assert jdataset(paths).to_table().num_rows == 101
+    jds, ds = jdataset(paths), dataset(paths)
+    assert [type(f).__name__ for f in ds.fragments] == \
+        [type(f).__name__ for f in jds.fragments] == ["ParquetFragment",
+                                                      "IpcFragment"]
+    assert jds.to_table().num_rows == 102
+    _same_table(ds.to_table(device=CPU), jds.to_table())
+    jf, tf = _both("greater_equal", "id", 99)
+    _same_table(ds.to_table(filter=tf, device=CPU), jds.to_table(filter=jf))
+    jf, tf = _both("equal", "cat", "c1")
+    _same_table(ds.to_table(columns=["v"], filter=tf, device=CPU),
+                jds.to_table(columns=["v"], filter=jf))
+    assert ds.count_rows(device=CPU) == 102
+    assert ds.scanner().row_groups()[1] == (str(p), [0], 1)
+    q = tmp_path / "extra.csv"
+    q.write_text("id,cat,v\n1,a,0.5\n")
     with pytest.raises(ArrowNotImplemented):
-        dataset(paths)
+        dataset([os.path.join(pq_dir, "part0.parquet"), str(q)])
     with pytest.raises(ArrowNotImplemented):
         dataset([os.path.join(pq_dir, "part0.parquet")], format="csv")
+    # format="arrow" reads any path as an IPC file, as in the JAX package
+    assert dataset([str(p)], format="feather").count_rows(device=CPU) == 2
 
 
 def test_dataset_device_batches(pq_dir):
@@ -232,11 +252,11 @@ def _jproject(db, names):
         [db.column(n) for n in names], db.length)
 
 
-def _jax_dataset_q6(root, pruned=True):
+def _jax_dataset_q6(root, pruned=True, table="lineitem"):
     """Q6 composed of the JAX package's Scanner and functions, as
     chip_smoke.dataset_q6 composes the port's."""
     pred = _jax_q6_expression()
-    sc = jdataset(os.path.join(root, "lineitem")).scanner(
+    sc = jdataset(os.path.join(root, table)).scanner(
         columns=Q6_COLUMNS, filter=pred if pruned else None)
     revenue, count, batches = 0.0, 0, 0
     for db in sc.device_batches():
@@ -269,6 +289,39 @@ def test_dataset_q6_matches_jax_and_oracle(tpch, pruned):
     assert sum(len(k) for _, k, _ in rgs) == batches
     assert (batches < total) == pruned
     assert times["decompress_s"] > 0 and times["parse_s"] > 0
+
+
+@pytest.mark.parametrize("compression", ["lz4", None, "zstd"])
+def test_ipc_dataset_q6_matches_jax_and_parquet(tpch, compression,
+                                                monkeypatch):
+    """Q6 over the sorted lineitem as .arrow fragments (chip_smoke's
+    write_ipc_dataset: the parquet dataset's files, in record batches of
+    its row-group size) against the JAX scanner over the same files (one
+    batch a file in both), and against the port's Q6 over the parquet
+    dataset."""
+    import chip_smoke
+    li, _, _, root = tpch
+    monkeypatch.setattr(chip_smoke, "DATASET_ROWS_PER_GROUP", ROWS_PER_GROUP)
+    order = np.argsort(li["l_sdate"], kind="stable")
+    lis = {c: li[c][order] for c in Q6_COLUMNS + ["l_okey"]}
+    sub = f"arrow_{compression}"
+    paths = chip_smoke.write_ipc_dataset(os.path.join(root, sub), lis,
+                                         compression)
+    assert len(paths) == 8
+    ds = dataset(os.path.join(root, sub))
+    assert {type(f).__name__ for f in ds.fragments} == {"IpcFragment"}
+    times = {}
+    got = chip_smoke.ipc_dataset_q6(ds, CPU, times)
+    check_q6(got, q6_oracle(li))
+    want, batches = _jax_dataset_q6(root, True, sub)
+    assert got["count"] == want["count"]
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9)
+    assert batches == 8 == sum(n for *_, n in ds.scanner().row_groups())
+    assert sum(ipc.open_file(p).num_record_batches for p in paths) == 16
+    pq = dataset_q6(dataset(os.path.join(root, "lineitem")), CPU)
+    assert got["count"] == pq["count"]
+    np.testing.assert_allclose(got["revenue"], pq["revenue"], rtol=1e-9)
+    assert times["parse_s"] > 0 and times["h2d_s"] > 0
 
 
 def _jax_dataset_q10(root):

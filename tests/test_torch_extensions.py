@@ -74,16 +74,17 @@ def test_the_canonical_types_match_jax(name):
 
 
 def test_the_registry_matches_jax():
-    """Both packages register their canonical types at import (the JAX
-    package's parquet.variant too, which the port does not carry yet);
-    a second registration of a name raises ArrowKeyError."""
+    """Both packages register their canonical types at import,
+    parquet.variant among them; a second registration of a name raises
+    ArrowKeyError."""
     names = ["arrow.uuid", "arrow.json", "arrow.bool8",
-             "arrow.timestamp_with_offset"]
+             "arrow.timestamp_with_offset", "parquet.variant"]
     for n in names:
         assert str(text.get_extension_type(n)) == str(
             jext.get_extension_type(n))
-    assert jext.get_extension_type("parquet.variant") is not None
-    assert text.get_extension_type("parquet.variant") is None
+    assert isinstance(text.get_extension_type("parquet.variant"),
+                      text.VariantType)
+    assert sorted(text._registry) == sorted(jext._registry)
     for reg, m, err in ((jext, jdt, JArrowKeyError),
                         (text, dt, pc.ArrowKeyError)):
         with pytest.raises(err):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 its native codec library, nor its ci/ workers) nor pyarrow nor zstandard
-nor xxhash nor triton, its own
+nor xxhash nor flatbuffers nor triton, its own
 codec library is built from its own source with no switch or fallback,
 and it never moves to the CPU unless asked."""
 import ast
@@ -19,7 +19,7 @@ from arrow_go_tpu_torch.device.block import batch_to_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
-             "zstandard", "xxhash", "triton", "ci")
+             "zstandard", "xxhash", "triton", "ci", "flatbuffers")
 
 
 def _forbidden(name: str) -> bool:
@@ -66,6 +66,12 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.utils.metrics\n"
             "import arrow_go_tpu_torch.utils.memwatch\n"
             "import arrow_go_tpu_torch.utils.debug\n"
+            "import arrow_go_tpu_torch.ipc\n"
+            "import arrow_go_tpu_torch.ipc.fb\n"
+            "import arrow_go_tpu_torch.ipc.metadata\n"
+            "import arrow_go_tpu_torch.ipc.core\n"
+            "import arrow_go_tpu_torch.parquet.variant\n"
+            "import arrow_go_tpu_torch.extensions\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -97,7 +103,8 @@ def test_the_scan_reaches_the_new_modules():
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
     for mod in ("compute/run_ends.py", "compute/scalars.py", "tensor.py",
                 "utils/__init__.py", "utils/metrics.py", "utils/memwatch.py",
-                "utils/debug.py"):
+                "utils/debug.py", "ipc/__init__.py", "ipc/fb.py",
+                "ipc/metadata.py", "ipc/core.py", "parquet/variant.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
