@@ -8,7 +8,7 @@ kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
 arrow_go_tpu.
 """
-from . import compute, dtypes, extensions, parquet, torchenv
+from . import compute, dtypes, extensions, formats, parquet, torchenv
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                            ExtensionArray, HostArray, HostBatch, HostColumn,
                            ListViewArray, UnionArray, batch_from_numpy,
@@ -16,7 +16,8 @@ from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                            list_take_device, list_to_device, null_array,
                            pad_length)
 
-__all__ = ["compute", "dtypes", "extensions", "parquet", "torchenv",
+__all__ = ["compute", "dtypes", "extensions", "formats", "parquet",
+           "torchenv",
            "DeviceBatch", "DeviceColumn", "DeviceListColumn",
            "ExtensionArray", "HostArray", "HostBatch", "HostColumn",
            "ListViewArray", "UnionArray", "batch_from_numpy",

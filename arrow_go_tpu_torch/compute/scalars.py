@@ -101,7 +101,7 @@ def storage_value(v, t: dt.DataType):
     return v
 
 
-def _array_of(values: list, t: dt.DataType) -> HostArray:
+def array_of(values: list, t: dt.DataType) -> HostArray:
     """A HostArray of type t holding Python `values` (None = null):
     the children of a nested scalar's broadcast."""
     n = len(values)
@@ -116,17 +116,17 @@ def _array_of(values: list, t: dt.DataType) -> HostArray:
         np.cumsum(lens[:-1], out=off[1:])
         flat = [x for v in values if v is not None for x in v]
         return ListViewArray(t, mask, off, lens,
-                             _array_of(flat, t.value_type))
+                             array_of(flat, t.value_type))
     if t.id in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST):
         lens = [len(v) if v is not None else 0 for v in values]
         off = np.zeros(n + 1, np.int64)
         np.cumsum(lens, out=off[1:])
         flat = [x for v in values if v is not None for x in v]
-        return nested_array(t, n, mask, [_array_of(flat, t.value_type)],
+        return nested_array(t, n, mask, [array_of(flat, t.value_type)],
                             off)
     if t.id == dt.TypeId.STRUCT:
         return nested_array(t, n, mask, [
-            _array_of([None if v is None else v.get(f.name)
+            array_of([None if v is None else v.get(f.name)
                        for v in values], f.type) for f in t.fields()])
     if t.is_nested or t.id == dt.TypeId.EXTENSION:
         raise ArrowNotImplemented(f"an array of {t} from Python values")
@@ -200,7 +200,7 @@ def make_array_from_scalar(s: Scalar, length: int) -> HostArray:
         return null_array(length)
     if t.is_nested or t.id == dt.TypeId.EXTENSION or (
             t.np_dtype is not None and t.np_dtype.names):
-        return _array_of([s.value] * length, t)
+        return array_of([s.value] * length, t)
     mask = None if s.is_valid else np.zeros(length, np.bool_)
     if t.codes_on_device:
         d = dictionary_values([s.value] if s.is_valid else [], t)

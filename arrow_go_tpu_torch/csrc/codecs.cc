@@ -1344,6 +1344,69 @@ int64_t agt_zstd_decompress(const uint8_t* src, size_t n, uint8_t* dst,
     }
 }
 
+// The summed Frame_Content_Size of every zstd frame of src (skippable
+// frames count 0), read from the frame headers and the block headers
+// that lead past each frame; -4 when a frame's header does not give its
+// size, kCorrupt for a malformed or truncated stream.
+int64_t agt_zstd_content_size(const uint8_t* src, size_t n) {
+    const int64_t kUnknown = -4;
+    try {
+        need(n > 0);
+        size_t s = 0;
+        uint64_t total = 0;
+        bool known = true;
+        while (s < n) {
+            need(s + 4 <= n);
+            const uint32_t magic = load32(src + s);
+            s += 4;
+            if ((magic & 0xFFFFFFF0U) == 0x184D2A50U) {
+                need(s + 4 <= n);
+                const size_t skip = load32(src + s);
+                s += 4;
+                need(skip <= n - s);
+                s += skip;
+                continue;
+            }
+            need(magic == kMagic && s < n);
+            const uint8_t fhd = src[s++];
+            const int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1,
+                      checksum = (fhd >> 2) & 1, did_flag = fhd & 3;
+            need((fhd & 8) == 0);
+            const int did_bytes = did_flag == 3 ? 4 : did_flag;
+            const int fcs_bytes = fcs_flag == 0 ? single : 1 << fcs_flag;
+            s += (single ? 0 : 1) + did_bytes;
+            need(s + fcs_bytes <= n);
+            uint64_t fcs = 0;
+            for (int k = 0; k < fcs_bytes; k++)
+                fcs |= (uint64_t)src[s + k] << (8 * k);
+            if (fcs_bytes == 2) fcs += 256;
+            s += fcs_bytes;
+            if (fcs_bytes == 0) known = false;
+            total += fcs;
+            for (;;) {
+                need(s + 3 <= n);
+                const uint32_t bh =
+                    src[s] | (src[s + 1] << 8) | (src[s + 2] << 16);
+                s += 3;
+                const int type = (bh >> 1) & 3;
+                const size_t size = type == 1 ? 1 : bh >> 3;
+                need(type != 3 && size <= n - s);
+                s += size;
+                if (bh & 1) break;
+            }
+            if (checksum) {
+                need(s + 4 <= n);
+                s += 4;
+            }
+        }
+        return known ? (int64_t)total : kUnknown;
+    } catch (const Fail& f) {
+        return f.code;
+    } catch (...) {
+        return kCorrupt;
+    }
+}
+
 size_t agt_zstd_compress_bound(size_t n) {
     return n + 3 * (n / kBlockMax + 1) + 32;
 }
@@ -1632,6 +1695,84 @@ void agt_gather_rows(const uint8_t* data, const int64_t* ends,
         memcpy(out + o, data + a, (size_t)(b - a));
         o += (size_t)(b - a);
     }
+}
+
+// The varint at every byte p of an Avro block of L bytes: vlen[p], its
+// length (the distance to the first byte under 0x80 at or after p, plus
+// one, else to the end plus one; at most 10) and val[p], its zigzag
+// value cut to 32 bits (the 7-bit groups of its first five bytes, a byte
+// past the end read as 0). Garbage where no varint starts: only field
+// positions are read.
+void agt_varint_lanes(const uint8_t* buf, int64_t L, int32_t* vlen,
+                      int32_t* val) {
+    int64_t stop = L;
+    for (int64_t p = L - 1; p >= 0; p--) {
+        if (buf[p] < 128) stop = p;
+        const int64_t n = std::min<int64_t>(stop - p + 1, 10);
+        vlen[p] = (int32_t)n;
+        uint32_t acc = 0;
+        for (int64_t k = 0; k < std::min<int64_t>(n, 5); k++) {
+            const uint32_t b = p + k < L ? buf[p + k] : 0;
+            acc |= (b & 0x7FU) << (7 * k);
+        }
+        val[p] = (int32_t)(acc >> 1) ^ -(int32_t)(acc & 1);
+    }
+}
+
+// The field positions of `count` records of a flat Avro record schema in
+// one block, from the block's varint lanes (vlen[p], val[p]: the length
+// and the zigzag value cut to 32 bits of the varint at byte p, as
+// agt_varint_lanes gives them). Field j
+// has kind[j] (0 null, 1 boolean, 2 a varint: int, long, enum, 3 float,
+// 4 double, 5 bytes or string) and null_branch[j] (-1: not a union, else
+// the union branch that is null). starts[r * nf + j] is where field j of
+// record r starts. Positions are clamped to L, a lane read at
+// min(pos, L - 1), and a record that starts at L starts the next one
+// there too, as the JAX package's record-jump walk does. Returns 0, or
+// -1 when a lane must be read from an empty block.
+int64_t agt_avro_flat_walk(const int32_t* vlen, const int32_t* val,
+                           int64_t L, int64_t count, int32_t nf,
+                           const int32_t* kind, const int32_t* null_branch,
+                           int64_t* starts) {
+    const int64_t last = L ? L - 1 : 0;
+    bool empty_read = false;
+    auto lane_at = [&](const int32_t* lane, int64_t p) -> int64_t {
+        if (L == 0) { empty_read = true; return 0; }
+        return lane[p];
+    };
+    auto size_at = [&](int32_t k, int64_t p) -> int64_t {
+        switch (k) {
+            case 0: return 0;
+            case 1: return 1;
+            case 2: return lane_at(vlen, p);
+            case 3: return 4;
+            case 4: return 8;
+            default: {
+                const int64_t n = lane_at(val, p);
+                return lane_at(vlen, p) + (n > 0 ? n : 0);
+            }
+        }
+    };
+    auto advance = [&](int64_t pos, int32_t j) -> int64_t {
+        const int64_t safe = std::min(pos, last);
+        if (null_branch[j] < 0)
+            return std::min(pos + size_at(kind[j], safe), L);
+        const int64_t branch = lane_at(val, safe);
+        const int64_t inner = std::min(pos + lane_at(vlen, safe), L);
+        const bool is_null = (branch == 0) == (null_branch[j] == 0);
+        if (is_null) return inner;
+        return std::min(inner + size_at(kind[j], std::min(inner, last)), L);
+    };
+    int64_t p = 0;
+    for (int64_t r = 0; r < count; r++) {
+        int64_t q = p;
+        for (int32_t j = 0; j < nf; j++) {
+            starts[r * nf + j] = q;
+            q = advance(q, j);
+        }
+        if (p < L) p = q;
+    }
+    return empty_read ? -1 : 0;
 }
 
 // First-occurrence codes of the n rows of (ends, data): codes[i] is the

@@ -15,9 +15,10 @@ package's Scanner drops to its host reader. An `.arrow` or `.feather`
 fragment is an Arrow IPC file (the JAX package's IpcFragment): its
 record batches are read on the host (ipc.open_file, read_all),
 projected and shipped to the device with host_batch_to_device, one
-DeviceBatch a file; no guard prunes it. `.csv` fragments raise
-ArrowNotImplemented (the port has no CSV reader). Fragments are scanned
-one after another on the calling thread.
+DeviceBatch a file; no guard prunes it. A `.csv` fragment (the JAX
+package's CsvFragment) is read whole by formats.read_csv, its types
+inferred file by file, projected and shipped the same way. Fragments
+are scanned one after another on the calling thread.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from . import dtypes as dt
 from . import torchenv
 from .compute import expression as ex
-from .compute.errors import ArrowInvalid, ArrowNotImplemented
+from .compute.errors import ArrowInvalid
 from .compute.functions import filter_
 from .compute.nested_selection import null_rows
 from .device.block import (DeviceBatch, HostArray, HostBatch,
@@ -109,19 +110,13 @@ class ParquetFragment(Fragment):
                                         device=device, times=times)
 
 
-class IpcFragment(Fragment):
-    """An Arrow IPC file, scanned whole: its record batches in one
-    DeviceBatch, as the JAX package's IpcFragment reads the file's
-    table and ships it. Where the JAX scanner reads fragments on a
-    thread pool, the port decompresses a file's bodies on one."""
+class _WholeFile(Fragment):
+    """A file read whole on the host (`_read`) and shipped as one
+    DeviceBatch, as the JAX package's IpcFragment and CsvFragment read
+    the file's table and ship it."""
 
-    def schema(self) -> dt.Schema:
-        from . import ipc
-        r = ipc.open_file(self.path)
-        try:
-            return r.schema
-        finally:
-            r.close()
+    def _read(self) -> HostBatch:
+        raise NotImplementedError
 
     def kept_row_groups(self, guards, bloom: bool = True) -> Tuple[list,
                                                                    int]:
@@ -133,14 +128,8 @@ class IpcFragment(Fragment):
         """The file's rows, projected to `columns`, on `device` (none when
         it has no rows); `times` gathers the host read (`parse_s`) and
         the copy to the device (`h2d_s`)."""
-        from . import ipc
         t0 = time.perf_counter()
-        r = ipc.open_file(self.path,
-                          decompress_concurrency=os.cpu_count() or 1)
-        try:
-            hb = r.read_all()
-        finally:
-            r.close()
+        hb = self._read()
         if columns is not None:
             idx = [hb.schema.field_index(c) for c in columns]
             hb = HostBatch(dt.Schema([hb.schema.field(j) for j in idx]),
@@ -158,9 +147,45 @@ class IpcFragment(Fragment):
         yield db
 
 
+class IpcFragment(_WholeFile):
+    """An Arrow IPC file: its record batches in one DeviceBatch. Where the
+    JAX scanner reads fragments on a thread pool, the port decompresses a
+    file's bodies on one."""
+
+    def schema(self) -> dt.Schema:
+        from . import ipc
+        r = ipc.open_file(self.path)
+        try:
+            return r.schema
+        finally:
+            r.close()
+
+    def _read(self) -> HostBatch:
+        from . import ipc
+        r = ipc.open_file(self.path,
+                          decompress_concurrency=os.cpu_count() or 1)
+        try:
+            return r.read_all()
+        finally:
+            r.close()
+
+
+class CsvFragment(_WholeFile):
+    """A csv file, read by read_csv: its types inferred from this file
+    alone."""
+
+    def schema(self) -> dt.Schema:
+        from .formats import read_csv
+        return read_csv(self.path).schema
+
+    def _read(self) -> HostBatch:
+        from .formats import read_csv
+        return read_csv(self.path)
+
+
 _FRAGMENTS = {".parquet": ParquetFragment, ".pq": ParquetFragment,
-              ".arrow": IpcFragment, ".feather": IpcFragment}
-_NOT_PORTED = (".csv",)                          # CSV fragments
+              ".arrow": IpcFragment, ".feather": IpcFragment,
+              ".csv": CsvFragment}
 
 
 class Dataset:
@@ -174,18 +199,13 @@ class Dataset:
                 paths = sorted(
                     p for p in _glob.glob(os.path.join(paths, "**", "*"),
                                           recursive=True)
-                    if os.path.splitext(p)[1] in (*_FRAGMENTS,
-                                                  *_NOT_PORTED))
+                    if os.path.splitext(p)[1] in _FRAGMENTS)
             else:
                 paths = sorted(_glob.glob(paths)) or [paths]
         self.fragments: List[Fragment] = []
         for p in paths:
             ext = "." + format.lstrip(".") if format else \
                 os.path.splitext(p)[1]
-            if ext in _NOT_PORTED:
-                raise ArrowNotImplemented(
-                    f"{ext} fragments are not ported (the port reads "
-                    f"parquet and Arrow IPC files): {p}")
             if ext not in _FRAGMENTS:
                 raise ArrowInvalid(f"unknown fragment format: {p}")
             self.fragments.append(_FRAGMENTS[ext](p))
@@ -282,6 +302,7 @@ class Scanner:
         batches = list(self.batches(times))
         if batches:
             first = batches[0]
+            _same_types([b.schema for b in batches])
             return HostBatch(first.schema, [
                 concat_host_arrays([b.columns[i] for b in batches])
                 for i in range(len(first.columns))],
@@ -292,7 +313,21 @@ class Scanner:
                          0)
 
     def count_rows(self) -> int:
-        return sum(db.length for db in self._filtered())
+        """The rows that pass the filter; fragments whose kept rows have
+        other types raise, as to_table does."""
+        kept = [db for db in self._filtered() if db.length]
+        _same_types([db.schema for db in kept])
+        return sum(db.length for db in kept)
+
+
+def _same_types(schemas) -> None:
+    """ArrowInvalid unless every batch's fields have the first's types (a
+    csv fragment infers its own), as the JAX package's Table refuses
+    chunks of another type."""
+    for s in schemas[1:]:
+        if [f.type for f in s.fields] != [f.type for f in schemas[0].fields]:
+            raise ArrowInvalid(f"chunk type mismatch: {s} after "
+                               f"{schemas[0]}")
 
 
 def _used_entries(col: HostArray) -> HostArray:

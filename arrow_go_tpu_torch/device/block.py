@@ -751,15 +751,42 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
     """A HostArray of t from Python values, None a null row (the JAX
     package's `array(values, t)` for the types the port builds this
     way): bool, the integers and floats, date32 (dates or days),
-    timestamp (datetimes or units), the binary-like types and
-    fixed_size_binary (dictionary-coded, first-occurrence order),
-    struct (dicts; a missing key is a null field), list and large_list
-    (lists). Another type raises ArrowNotImplemented."""
+    timestamp (datetimes or units), the decimals (Decimals, floats or
+    unscaled ints), the binary-like types and fixed_size_binary
+    (dictionary-coded, first-occurrence order), struct (dicts; a missing
+    key is a null field), list and large_list (lists), map (dicts or
+    (key, value) pairs) and a dictionary type (its values, coded in
+    first-occurrence order). Another type raises ArrowNotImplemented."""
     n = len(values)
     ok = np.array([v is not None for v in values], np.bool_)
     mask = None if ok.all() else ok
     if t.id == dt.TypeId.NULL:
         return null_array(n)
+    if t.id == dt.TypeId.DICTIONARY:
+        memo: Dict[object, int] = {}
+        codes = np.zeros(n, t.index_type.np_dtype)
+        for i, v in enumerate(values):
+            if v is not None:
+                key = bytes(v) if isinstance(v, (bytearray, memoryview)) \
+                    else v
+                codes[i] = memo.setdefault(key, len(memo))
+        uniq = list(memo)
+        if t.value_type.codes_on_device:
+            return HostArray(codes, mask, t,
+                             dictionary_values(uniq, t.value_type))
+        d = from_pylist(uniq, t.value_type)
+        return HostArray(codes, mask, t, d.values)
+    if t.id == dt.TypeId.MAP:
+        rows = [[] if v is None else list(v.items() if isinstance(v, dict)
+                                           else v) for v in values]
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum([len(r) for r in rows], out=off[1:])
+        child = from_pylist([{"key": k, "value": x} for r in rows
+                             for k, x in r], t.value_type)
+        return nested_array(t, n, mask, [child], off)
+    if t.is_decimal or (t.np_dtype is not None and t.np_dtype.names):
+        from ..compute.scalars import array_of      # decimal, interval
+        return array_of(values, t)
     if t.codes_on_device:
         obj = np.empty(n, dtype=object)
         obj[:] = [("" if t.is_utf8 else b"") if v is None else

@@ -502,7 +502,7 @@ class BodyReader:
                              bitorder="little").astype(np.bool_)
 
 
-def _coded(ends: np.ndarray, data: np.ndarray, mask, t: dt.DataType
+def coded_column(ends: np.ndarray, data: np.ndarray, mask, t: dt.DataType
            ) -> HostArray:
     """Rows (ends, data) as the port's dictionary-coded column: codes in
     first-occurrence order of the valid rows (native.factorize), a null
@@ -619,13 +619,13 @@ def load_array(br: BodyReader, t: dt.DataType, dictionaries: dict,
                 raise ArrowNotImplemented("endian swap of view buffers")
             views = br.array(np.uint8, n * 16)
             bufs = [br.next_buffer() for _ in range(br.next_variadic())]
-            return _coded(*_view_rows(views, bufs, n), mask, t)
+            return coded_column(*_view_rows(views, bufs, n), mask, t)
         off = br.array(t.offset_dtype, n + 1).astype(np.int64)
         data = np.frombuffer(br.next_buffer(), np.uint8)
         if n and (off[0] < 0 or (np.diff(off) < 0).any()
                   or off[-1] > len(data)):
             raise ArrowInvalid("string offsets outside their data")
-        return _coded(off[1:] - off[0], data[off[0]:off[-1]] if n
+        return coded_column(off[1:] - off[0], data[off[0]:off[-1]] if n
                       else data[:0], mask, t)
     if t.np_dtype is not None:
         return HostArray(br.array(t.np_dtype, n), mask, t)

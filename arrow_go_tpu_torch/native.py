@@ -53,6 +53,7 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P]),
     "agt_xxh64": (ctypes.c_uint64, [_P, _SIZE, ctypes.c_uint64]),
     "agt_zstd_decompress": (_I64, [_P, _SIZE, _P, _SIZE]),
+    "agt_zstd_content_size": (_I64, [_P, _SIZE]),
     "agt_zstd_compress_bound": (_SIZE, [_SIZE]),
     "agt_zstd_compress": (_I64, [_P, _SIZE, _P, _SIZE, ctypes.c_int32]),
     "agt_plain_byte_array": (_I64, [_P, _SIZE, _I64, _P, _P, _SIZE]),
@@ -62,6 +63,9 @@ _SIGNATURES = {
     "agt_rle_decode": (_I64, [_P, _SIZE, _I64, ctypes.c_int32, _P]),
     "agt_gather_rows": (None, [_P, _P, _P, _I64, _P]),
     "agt_factorize": (_I64, [_P, _P, _I64, _P, _P]),
+    "agt_varint_lanes": (None, [_P, _I64, _P, _P]),
+    "agt_avro_flat_walk": (_I64, [_P, _P, _I64, _I64, ctypes.c_int32, _P,
+                                  _P, _P]),
     "agt_xxh64_rows": (None, [_P, _P, _I64, _P]),
     "agt_xxh32": (ctypes.c_uint32, [_P, _SIZE, ctypes.c_uint32]),
     "agt_lz4_frame_bound": (_SIZE, [_SIZE, _SIZE]),
@@ -242,7 +246,7 @@ def xxh32(data, seed: int = 0) -> int:
 # XXH64 and zstd
 # ---------------------------------------------------------------------------
 
-_ZSTD_DICTIONARY, _ZSTD_TOO_SMALL = -2, -3
+_ZSTD_DICTIONARY, _ZSTD_TOO_SMALL, _ZSTD_UNKNOWN = -2, -3, -4
 
 
 def xxh64(data) -> int:
@@ -276,26 +280,54 @@ def zstd_compress(data, level: int = 3) -> memoryview:
     return memoryview(out)[:n]
 
 
-def zstd_decompress(data, uncompressed_size: int) -> memoryview:
-    """Every frame of a zstd stream (skippable frames skipped), whose
-    content must be `uncompressed_size` bytes. A corrupt or truncated
-    stream, a failed checksum or another size raises ArrowInvalid; a
-    frame that names a dictionary ArrowNotImplemented."""
+def zstd_content_size(data) -> Optional[int]:
+    """The content size that every frame's header of a zstd stream
+    gives, summed (None when a frame's header gives none); a malformed or
+    truncated stream raises ArrowInvalid."""
     src, ptr = _in(data)
-    out = np.empty(max(uncompressed_size, 1), np.uint8)
-    n = lib().agt_zstd_decompress(ptr, len(src), out.ctypes.data,
-                                  uncompressed_size)
+    n = lib().agt_zstd_content_size(ptr, len(src))
+    if n == _ZSTD_UNKNOWN:
+        return None
+    if n < 0:
+        raise ArrowInvalid("corrupt zstd stream")
+    return int(n)
+
+
+def zstd_decompress(data, uncompressed_size: Optional[int],
+                    max_size: int = 1 << 31) -> memoryview:
+    """Every frame of a zstd stream (skippable frames skipped), whose
+    content must be `uncompressed_size` bytes. With None, the size is
+    the frame headers' content size where each header gives it;
+    otherwise the stream decodes into a buffer that doubles, from four
+    times the input, up to `max_size` bytes. A corrupt or truncated
+    stream, a failed checksum, another size or more than `max_size`
+    bytes raises ArrowInvalid; a frame that names a dictionary
+    ArrowNotImplemented."""
+    exact = uncompressed_size is not None
+    cap = uncompressed_size if exact else zstd_content_size(data)
+    if cap is not None:
+        exact = True
+        if uncompressed_size is None and cap > max_size:
+            raise ArrowInvalid(f"zstd stream holds {cap} bytes, past "
+                               f"{max_size}")
+    else:
+        cap = min(max(4 * len(data), 1 << 16), max_size)
+    while True:
+        src, ptr = _in(data)
+        out = np.empty(max(cap, 1), np.uint8)
+        n = lib().agt_zstd_decompress(ptr, len(src), out.ctypes.data, cap)
+        if n != _ZSTD_TOO_SMALL or exact or cap >= max_size:
+            break
+        cap = min(2 * cap, max_size)
     if n == _ZSTD_DICTIONARY:
         raise ArrowNotImplemented("zstd frames with a dictionary are not "
                                   "ported")
     if n == _ZSTD_TOO_SMALL:
-        raise ArrowInvalid(f"zstd stream holds more than "
-                           f"{uncompressed_size} bytes")
+        raise ArrowInvalid(f"zstd stream holds more than {cap} bytes")
     if n < 0:
         raise ArrowInvalid("corrupt zstd stream")
-    if n != uncompressed_size:
-        raise ArrowInvalid(f"zstd stream holds {n} bytes, not "
-                           f"{uncompressed_size}")
+    if exact and n != cap:
+        raise ArrowInvalid(f"zstd stream holds {n} bytes, not {cap}")
     return memoryview(out)[:n]
 
 
@@ -402,3 +434,36 @@ def factorize(ends: np.ndarray, data: np.ndarray):
     if k < 0:
         raise MemoryError("factorize memo table")
     return codes[:n], first[:k]
+
+
+def varint_lanes(buf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(vlen, val): int32 a byte of an Avro block, the length and the
+    zigzag value cut to 32 bits of the varint starting there (a byte past
+    the end read as 0; see codecs.cc)."""
+    buf = np.ascontiguousarray(buf, np.uint8)
+    vlen = np.empty(len(buf), np.int32)
+    val = np.empty(len(buf), np.int32)
+    lib().agt_varint_lanes(buf.ctypes.data, len(buf), vlen.ctypes.data,
+                           val.ctypes.data)
+    return vlen, val
+
+
+def avro_flat_walk(vlen: np.ndarray, val: np.ndarray, count: int,
+                   kinds, null_branches) -> np.ndarray:
+    """(count, fields) int64 start of each field of each record of a flat
+    Avro block, walked over its varint lanes (`vlen`, `val`: int32 a
+    byte); `kinds` a field (0 null, 1 boolean, 2 varint, 3 float, 4
+    double, 5 bytes or string), `null_branches` (-1 when the field is no
+    union). A lane read from an empty block raises IndexError, as the
+    array walk it replaces does."""
+    vlen = np.ascontiguousarray(vlen, np.int32)
+    val = np.ascontiguousarray(val, np.int32)
+    kinds = np.ascontiguousarray(kinds, np.int32)
+    nbs = np.ascontiguousarray(null_branches, np.int32)
+    nf = len(kinds)
+    out = np.empty((count, nf), np.int64)
+    if lib().agt_avro_flat_walk(vlen.ctypes.data, val.ctypes.data, len(vlen),
+                                count, nf, kinds.ctypes.data,
+                                nbs.ctypes.data, out.ctypes.data) < 0:
+        raise IndexError("an Avro field read from an empty block")
+    return out

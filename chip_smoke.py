@@ -161,7 +161,8 @@ without one. Phases:
      plain version (`types_path_checks`);
   17. the variant type and Arrow IPC on the same arrays: l_price,
      l_disc, l_qty and l_sdate written by the port's new_file in record
-     batches of 1,048,576 rows, uncompressed, lz4 frame and zstd, each
+     batches of 1,048,576 rows, uncompressed, lz4 frame and zstd (the
+     zstd body its first 8 batches: a cut of the script's time), each
      read back by open_file, sent to the card batch by batch and run
      through TPC-H Q6 (K1, K3), exact against numpy, every column bit
      for bit, with the write ms, the read split (parse, decompress, copy
@@ -181,16 +182,38 @@ without one. Phases:
      against the plain column's filter (`variant`); every K1 and K3 call
      of one more run of the uncompressed `ipc_q6`, `ipc_dataset_q6` and
      the variant filter against the plain version (`ipc_path_checks`);
-  18. a `kernels` JSON line, then the last line
+  18. the file formats over the first 6,001,215 rows (TPC-H SF1's
+     lineitem; a cut of depth) of the same arrays: Q1's seven columns
+     as csv text built by array operations (l_sdate as ISO dates, the
+     flags as letters, floats as their repr), its first 65,536 rows
+     byte for byte the port's write_csv, read by read_csv on its numpy
+     tier with every column held against its source, TPC-H Q1 on the
+     card (`csv_q1`); the Q6 columns of the same text by
+     include_columns, Q6 on the card with the device's idle share of
+     read plus query (`csv_q6`); Q6 batch by batch over open_csv of
+     the first 524,288 rows, 262,144 a batch, the schema pinned
+     (`csv_stream`); the Q6 rows sorted by l_sdate as 8 .csv files in a
+     temporary directory, Q6 through the dataset scanner, equal to
+     csv_q6 (`csv_dataset_q6`); the Q6 columns as an Avro object
+     container file of 65,536-record blocks for each codec (null,
+     deflate, snappy, zstandard), read by OCFReader.read_all, every
+     column bit for bit, Q6 on the card (`avro_q6`); 262,144 orders
+     through write_json (its bytes json.dumps of each row) and
+     read_json, filtered by o_odate < 720 on the card (K1) and their
+     o_custkey summed (K3) (`json_orders`); every K1 and K3 call of the
+     device work of those paths against the plain version
+     (`formats_path_checks`); each exact against numpy, float sums at
+     rtol 1e-9;
+  19. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 18 and, of phase 9, all but
-the three queries and K2's timings, and holds no call of phases 10 to
-14 against the plain version: a run that times every path and
+With --timing-only it skips phases 3, 15, 16, 17 and 19 and, of phase 9,
+all but the three queries and K2's timings, and holds no call of phases
+10 to 14 and 18 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 14 run only in a tree that has their entry
+there). Phases 8 to 14 and 18 run only in a tree that has their entry
 points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
@@ -4677,6 +4700,10 @@ def types_phases(li, orders, dev, card: str) -> dict:
 
 IPC_BATCH_ROWS = 1 << 20          # rows of a record batch (58 at SF10)
 IPC_CODECS = (None, "lz4", "zstd")
+# the zstd body's record batches (of 58 at SF10): its write, the port's
+# encoder on one thread a buffer, is cut first to keep the script in its
+# time limit
+IPC_ZSTD_BATCHES = 8
 IPC_THREADS = os.cpu_count() or 8  # (de)compression threads
 IPC_Q6_COLUMNS = ["l_price", "l_disc", "l_qty", "l_sdate"]
 IPC_STREAM_BATCHES = 15
@@ -4965,7 +4992,8 @@ def variant_phase(orders, dev, card: str) -> tuple:
 def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     """This slice's paths over the SF10 arrays already in memory:
     `ipc_q6` (the Q6 columns written by new_file in record batches of
-    IPC_BATCH_ROWS, uncompressed, lz4 frame and zstd, each read back by
+    IPC_BATCH_ROWS, uncompressed, lz4 frame and zstd (its first
+    IPC_ZSTD_BATCHES batches), each read back by
     open_file and run through Q6 on the card, exact against numpy with
     the read split and the bytes; the uncompressed read's device idle
     share; every column bit for bit), `ipc_stream` (o_opri as a
@@ -4988,9 +5016,12 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     lines = {}
     for codec in IPC_CODECS:
         key = codec or "none"
+        rows = n_li if codec != "zstd" else min(
+            n_li, IPC_ZSTD_BATCHES * IPC_BATCH_ROWS)
+        cwant = want if rows == n_li else q6_oracle(_rows(li, 0, rows))
         sink = io.BytesIO()
         t0 = time.perf_counter()
-        batches = write_ipc(sink, li, IPC_Q6_COLUMNS, codec)
+        batches = write_ipc(sink, li, IPC_Q6_COLUMNS, codec, stop=rows)
         write_ms = (time.perf_counter() - t0) * 1e3
         blob = sink.getbuffer()
         if codec is None:
@@ -4998,17 +5029,17 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
         name = f"IPC Q6 {key}"
         got, launches[name] = run_path(
             name, lambda: ipc_q6(blob, dev), ("K1", "K3"))
-        check_q6(got, want)
+        check_q6(got, cwant)
         split = {}
         again = ipc_q6(blob, dev, split, source=li)
-        check_q6(again, want)
+        check_q6(again, cwant)
         if again != got:
             raise AssertionError(f"{name}: two reads differ")
         read_ms = sum(split[k] for k in ("read_s", "h2d_s",
                                          "compute_s")) * 1e3
         lines[key] = {
-            **got, "batches": batches, "rows": n_li, "bytes": len(blob),
-            "body_bytes": n_li * 24, "write_ms": write_ms,
+            **got, "batches": batches, "rows": rows, "rows_cut_from": n_li,
+            "bytes": len(blob), "body_bytes": rows * 24, "write_ms": write_ms,
             "read_ms": read_ms, "split_ms": {
                 "parse": (split["read_s"] - split["decompress_s"]) * 1e3,
                 "decompress": split["decompress_s"] * 1e3,
@@ -5087,6 +5118,610 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     print(json.dumps({"ipc_phase": {
         "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
     return {"launches": launches, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the file formats (CSV, line-delimited JSON, Avro)
+# ---------------------------------------------------------------------------
+
+FORMATS_ROWS = LINEITEM_SF1       # lineitem rows of the CSV and Avro paths
+CSV_CHECK_ROWS = 1 << 16          # rows held against the port's write_csv
+CSV_STREAM_ROWS = 1 << 19         # rows of the streamed read (a cut)
+CSV_STREAM_CHUNK = 1 << 18
+AVRO_BLOCK_ROWS = 1 << 16         # records an Avro block
+AVRO_CODECS = ("null", "deflate", "snappy", "zstandard")
+AVRO_SYNC = bytes(range(16))
+AVRO_Q6_SCHEMA = {"type": "record", "name": "lineitem", "fields": [
+    {"name": "l_price", "type": "double"},
+    {"name": "l_disc", "type": ["null", "double"]},
+    {"name": "l_qty", "type": "int"},
+    {"name": "l_sdate", "type": {"type": "int", "logicalType": "date"}}]}
+JSON_ROWS = 1 << 18               # orders of the JSON path (a cut)
+JSON_ODATE_MAX = 720              # its filter keeps o_odate < 720
+JSON_COLUMNS = ["o_okey", "o_custkey", "o_odate", "o_opri"]
+FORMATS_THREADS = os.cpu_count() or 8
+
+
+def _table_cells(keys: np.ndarray, text) -> tuple:
+    """(uint8 matrix, lengths) of each row's cell: `text(k)` of its int
+    key k, formatted once a distinct key (a loop over the keys present,
+    not over the rows) and gathered by key."""
+    lo = int(keys.min(initial=0))
+    k = keys.astype(np.int64) - lo
+    present = np.flatnonzero(np.bincount(k, minlength=1))
+    cells = [text(int(v) + lo).encode() for v in present]
+    width = max(map(len, cells), default=1)
+    at = np.zeros(int(present[-1]) + 1 if len(present) else 1, np.int64)
+    at[present] = np.arange(len(present))
+    mat = np.zeros((len(cells), width), np.uint8)
+    for i, c in enumerate(cells):
+        mat[i, :len(c)] = np.frombuffer(c, np.uint8)
+    lens = np.array([len(c) for c in cells], np.int64)
+    return mat[at[k]], lens[at[k]]
+
+
+def _rows_bytes(cells) -> bytes:
+    """Segments (matrix, lengths) of every row laid end to end, row after
+    row, as bytes."""
+    full = np.concatenate([m for m, _ in cells], 1)
+    keep = np.concatenate([np.arange(m.shape[1])[None, :] < np.asarray(
+        lens)[:, None] for m, lens in cells], 1)
+    return full[keep].tobytes()
+
+
+def _const_cells(n: int, b: bytes) -> tuple:
+    return (np.tile(np.frombuffer(b, np.uint8), (n, 1)),
+            np.full(n, len(b), np.int64))
+
+
+def _csv_cells(table: dict, name: str, a: int, b: int) -> tuple:
+    """The csv cells of rows [a, b) of one lineitem column: a flag as its
+    letter, l_sdate as an ISO date, l_qty as its digits, a float (a whole
+    number of hundredths, as make_data's and add_q1_columns' are) as its
+    repr, each distinct value formatted once (_table_cells)."""
+    v = table[name]
+    if isinstance(v, tuple):
+        codes, values = v
+        return _table_cells(codes[a:b], lambda c: values[c])
+    v = v[a:b]
+    if name == "l_sdate":
+        return _table_cells(v, lambda d: str(np.datetime64(d, "D")))
+    if v.dtype.kind == "f":
+        cents = np.rint(v * 100).astype(np.int64)
+        if not np.array_equal(cents / 100.0, v):
+            raise AssertionError(f"{name}: a float that is not a whole "
+                                 f"number of hundredths")
+        return _table_cells(cents, lambda c: repr(c / 100.0))
+    return _table_cells(v, str)
+
+
+def csv_text(table: dict, names, a: int = 0, b=None) -> bytes:
+    """Rows [a, b) of the named lineitem columns as csv text with a header
+    line, built by array operations (byte matrices, no loop over rows):
+    what the port's write_csv writes for the same rows with l_sdate as
+    its ISO strings."""
+    col = table[names[0]]
+    b = len(col[0] if isinstance(col, tuple) else col) if b is None else b
+    cells = []
+    for i, name in enumerate(names):
+        cells.append(_csv_cells(table, name, a, b))
+        cells.append(_const_cells(b - a, b"\n" if i == len(names) - 1
+                                  else b","))
+    return (",".join(names) + "\n").encode() + _rows_bytes(cells)
+
+
+def csv_writer_batch(table: dict, names, n: int) -> HostBatch:
+    """The first n rows of the named lineitem columns as the HostBatch
+    whose write_csv bytes csv_text gives: the flags as strings, l_sdate
+    as its ISO strings (a string column), the rest as they are."""
+    from arrow_go_tpu_torch.device.block import dictionary_values
+    fields, cols = [], []
+    for name in names:
+        v = table[name]
+        if isinstance(v, tuple):
+            cols.append(HostArray(v[0][:n], None, dt.dictionary(
+                dt.int32, dt.string), dictionary_values(v[1], dt.string)))
+            fields.append(dt.Field(name, dt.string))
+        elif name == "l_sdate":
+            iso = np.datetime_as_string(v[:n].astype("datetime64[D]"))
+            uniq, inv = np.unique(iso, return_inverse=True)
+            cols.append(HostArray(inv.astype(np.int32), None, dt.dictionary(
+                dt.int32, dt.string), dictionary_values(uniq, dt.string)))
+            fields.append(dt.Field(name, dt.string))
+        else:
+            t = dt.from_numpy_dtype(v.dtype)
+            cols.append(HostArray(v[:n], None, t))
+            fields.append(dt.Field(name, t))
+    return HostBatch(dt.Schema(fields), cols, n)
+
+
+def check_csv_writer(table: dict, names, text: bytes, n: int) -> int:
+    """The port's write_csv of the first n rows equals the first n rows
+    of `text` byte for byte. Returns the bytes compared."""
+    from arrow_go_tpu_torch.formats import write_csv
+    sink = io.StringIO()
+    write_csv(csv_writer_batch(table, names, n), sink)
+    want = sink.getvalue().encode()
+    if text[:len(want)] != want or text[len(want) - 1:len(want)] != b"\n":
+        raise AssertionError("csv text differs from the port's write_csv")
+    return len(want)
+
+
+def _same_column(what: str, got: HostArray, want, t: dt.DataType) -> None:
+    """A read column equals its numpy source: its type, no nulls, values
+    bit for bit; a flag, given as (codes, values), by its letters."""
+    gt = got.type.value_type if got.dictionary is not None else got.type
+    if got.mask is not None or gt.id != t.id:
+        raise AssertionError(f"{what}: read as {gt} with "
+                             f"{0 if got.mask is None else (~got.mask).sum()}"
+                             f" nulls, not {t}")
+    if isinstance(want, tuple):
+        codes, values = want
+        where = {v: i for i, v in enumerate(values)}
+        remap = np.array([where[v] for v in got.dictionary], np.int32)
+        if not np.array_equal(remap[got.values], codes):
+            raise AssertionError(f"{what}: letters differ from the source")
+        return
+    want = np.asarray(want)
+    if got.values.dtype.itemsize != want.dtype.itemsize or not \
+            np.array_equal(got.values.view(np.uint8),
+                           np.ascontiguousarray(want).view(np.uint8)):
+        raise AssertionError(f"{what}: values differ from the source")
+
+
+CSV_TYPES = {"l_rflag": dt.string, "l_lstatus": dt.string,
+             "l_qty": dt.int64, "l_price": dt.float64, "l_disc": dt.float64,
+             "l_tax": dt.float64, "l_sdate": dt.date32}
+
+
+def check_read(what: str, hb: HostBatch, table: dict, names, a: int,
+               b: int, types) -> None:
+    """Every column of a read HostBatch against rows [a, b) of its numpy
+    source (l_qty widened to the type the reader gives it)."""
+    if hb.schema.names != list(names) or hb.num_rows != b - a:
+        raise AssertionError(f"{what}: read {hb.schema.names}, "
+                             f"{hb.num_rows} rows")
+    for name in names:
+        t = types[name]
+        v = table[name]
+        want = (v[0][a:b], v[1]) if isinstance(v, tuple) else \
+            v[a:b].astype(t.np_dtype if t.id != dt.TypeId.DATE32
+                          else np.int32)
+        ft = hb.schema.field(hb.schema.field_index(name)).type
+        if ft != t:
+            raise AssertionError(f"{what} {name}: typed {ft}, not {t}")
+        _same_column(f"{what} {name}", hb.column(name), want, t)
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def to_card(read, dev, times: dict):
+    """Run `read` (-> HostBatch) and ship its result to `dev` (the card):
+    (HostBatch, DeviceBatch), `times` gaining read_s and h2d_s."""
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    t0 = time.perf_counter()
+    hb = read()
+    t1 = time.perf_counter()
+    db = host_batch_to_device(hb, dev)
+    _sync(dev)
+    times["read_s"] = times.get("read_s", 0.0) + t1 - t0
+    times["h2d_s"] = times.get("h2d_s", 0.0) + time.perf_counter() - t1
+    return hb, db
+
+
+def _compute(fn, dev, times: dict):
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    times["compute_s"] = times.get("compute_s", 0.0) + \
+        time.perf_counter() - t0
+    return out
+
+
+def csv_q1(text: bytes, dev, times: dict):
+    """TPC-H Q1 from csv text: read_csv (the numpy tier), the batch to
+    the card, compute_q1. Returns (HostBatch, DeviceBatch, Q1's rows)."""
+    from arrow_go_tpu_torch.formats import read_csv
+    hb, db = to_card(lambda: read_csv(text), dev, times)
+    return hb, db, _compute(lambda: compute_q1(db), dev, times)
+
+
+def csv_q6(text: bytes, dev, times: dict):
+    """TPC-H Q6 from the Q6 columns of csv text (include_columns)."""
+    from arrow_go_tpu_torch.formats import csv
+    hb, db = to_card(lambda: csv.read_csv(text, csv.ReadOptions(
+        include_columns=Q6_COLUMNS)), dev, times)
+    return hb, db, _compute(lambda: compute_q6(db), dev, times)
+
+
+def csv_stream_q6(text: bytes, dev, times: dict) -> tuple:
+    """Q6 batch by batch over open_csv(chunk_size=CSV_STREAM_CHUNK): each
+    batch to the card, filtered (K1), summed (K3), added up; every batch
+    in the first's schema. Returns (Q6, batches)."""
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    from arrow_go_tpu_torch.formats import csv
+    revenue, count, n, schema = 0.0, 0, 0, None
+    t0 = time.perf_counter()
+    with csv.open_csv(text, csv.ReadOptions(
+            chunk_size=CSV_STREAM_CHUNK,
+            include_columns=Q6_COLUMNS)) as r:
+        for hb in r:
+            if schema is None:
+                schema = hb.schema
+            elif hb.schema != schema:
+                raise AssertionError("csv_stream: a batch left the pinned "
+                                     "schema")
+            q = compute_q6(host_batch_to_device(hb, dev))
+            revenue += q["revenue"]
+            count += q["count"]
+            n += 1
+    _sync(dev)
+    times["s"] = time.perf_counter() - t0
+    return {"revenue": revenue, "count": count}, n
+
+
+def write_csv_dataset(root: str, lis: dict, names) -> list:
+    """The sorted lineitem's named columns as LI_DATASET_FILES .csv files
+    of equal l_sdate ranges under `root` (csv_text). Returns the paths."""
+    cuts = lineitem_cuts(lis["l_sdate"])
+    paths = []
+    for i in range(LI_DATASET_FILES):
+        paths.append(os.path.join(root, f"part-{i}.csv"))
+        with open(paths[-1], "wb") as f:
+            f.write(csv_text(lis, names, cuts[i], cuts[i + 1]))
+    return paths
+
+
+def _varint_cells(v: np.ndarray) -> tuple:
+    """Avro's zigzag varints of int64 values as (uint8 matrix, lengths)."""
+    zz = ((v.astype(np.int64) << 1) ^ (v.astype(np.int64) >> 63)).view(
+        np.uint64)
+    lens = np.ones(len(v), np.int64)
+    for k in range(1, 10):
+        lens += zz >= (np.uint64(1) << np.uint64(7 * k))
+    width = int(lens.max(initial=1))
+    k = np.arange(width)
+    groups = ((zz[:, None] >> (np.uint64(7) * k.astype(np.uint64)))
+              & np.uint64(0x7F)).astype(np.uint8)
+    more = (k[None, :] < lens[:, None] - 1).astype(np.uint8) << 7
+    return groups | more, lens
+
+
+def _avro_long(v: int) -> bytes:
+    m, n = _varint_cells(np.array([v], np.int64))
+    return m[0, :n[0]].tobytes()
+
+
+def avro_records(table: dict, a: int, b: int) -> tuple:
+    """Rows [a, b) of l_price, l_disc, l_qty, l_sdate as Avro records of
+    AVRO_Q6_SCHEMA (l_disc under union branch 1): (their bytes end to
+    end, each record's end offset)."""
+    n = b - a
+    f8 = [(np.ascontiguousarray(table[c][a:b], "<f8").view(np.uint8)
+           .reshape(n, 8), np.full(n, 8, np.int64))
+          for c in ("l_price", "l_disc")]
+    cells = [f8[0], _const_cells(n, b"\x02"), f8[1],
+             _varint_cells(table["l_qty"][a:b]),
+             _varint_cells(table["l_sdate"][a:b])]
+    ends = np.cumsum(sum(lens for _, lens in cells))
+    return _rows_bytes(cells), ends
+
+
+def write_avro(records: bytes, ends: np.ndarray, codec: str) -> bytes:
+    """An Avro object container file of AVRO_Q6_SCHEMA with `codec`,
+    AVRO_BLOCK_ROWS records a block (`records` and their end offsets
+    from avro_records): snappy blocks carry their CRC-32 suffix."""
+    import zlib
+    from arrow_go_tpu_torch import native
+    meta = {b"avro.schema": json.dumps(AVRO_Q6_SCHEMA).encode(),
+            b"avro.codec": codec.encode()}
+    out = [b"Obj\x01", _avro_long(len(meta))]
+    for k, v in meta.items():
+        out += [_avro_long(len(k)), k, _avro_long(len(v)), v]
+    out += [_avro_long(0), AVRO_SYNC]
+    bounds = np.concatenate([[0], ends])
+    for r in range(0, len(ends), AVRO_BLOCK_ROWS):
+        s = min(r + AVRO_BLOCK_ROWS, len(ends))
+        body = records[int(bounds[r]):int(bounds[s])]
+        if codec == "deflate":
+            z = zlib.compressobj(1, zlib.DEFLATED, -15)   # fast, raw
+            body = z.compress(body) + z.flush()
+        elif codec == "snappy":
+            body = bytes(native.snappy_compress(body)) + \
+                (zlib.crc32(body) & 0xFFFFFFFF).to_bytes(4, "big")
+        elif codec == "zstandard":
+            body = bytes(native.zstd_compress(body))
+        out += [_avro_long(s - r), _avro_long(len(body)), body, AVRO_SYNC]
+    return b"".join(out)
+
+
+def avro_q6(blob: bytes, dev, times: dict):
+    """TPC-H Q6 from an Avro file: OCFReader.read_all (the array tier),
+    the batch to the card, compute_q6; `times` gains the reader's
+    decompress_s and decode_s."""
+    from arrow_go_tpu_torch.formats import OCFReader
+
+    def read():
+        r = OCFReader(blob)
+        hb = r.read_all()
+        times["decompress_s"] = r.decompress_s
+        times["decode_s"] = r.decode_s
+        return hb
+    hb, db = to_card(read, dev, times)
+    return hb, db, _compute(lambda: compute_q6(db), dev, times)
+
+
+AVRO_TYPES = {"l_price": dt.float64, "l_disc": dt.float64,
+              "l_qty": dt.int32, "l_sdate": dt.date32}
+
+
+def orders_json_batch(orders, n: int) -> HostBatch:
+    """The first n orders' o_okey, o_custkey, o_odate and o_opri (a
+    string column) as a HostBatch."""
+    from arrow_go_tpu_torch.device.block import dictionary_values
+    codes, values = orders["o_opri"]
+    cols = {"o_okey": HostArray(orders["o_okey"][:n], None, dt.int64),
+            "o_custkey": HostArray(orders["o_custkey"][:n], None,
+                                   dt.int64),
+            "o_odate": HostArray(orders["o_odate"][:n], None, dt.int32),
+            "o_opri": HostArray(codes[:n], None, dt.dictionary(
+                dt.int32, dt.string), dictionary_values(values, dt.string))}
+    return HostBatch(dt.Schema([dt.Field(k, dt.string if k == "o_opri"
+                                         else a.type)
+                                for k, a in cols.items()]),
+                     list(cols.values()), n)
+
+
+def orders_json_text(orders, n: int) -> bytes:
+    """The bytes the JAX package's write_json gives for the same rows:
+    json.dumps of each row's object, one a line."""
+    codes, values = orders["o_opri"]
+    rows = zip(orders["o_okey"][:n].tolist(), orders["o_custkey"][:n].tolist(),
+               orders["o_odate"][:n].tolist(), values[codes[:n]].tolist())
+    return "".join(json.dumps(dict(zip(JSON_COLUMNS, r))) + "\n"
+                   for r in rows).encode()
+
+
+def json_filter(db: DeviceBatch) -> dict:
+    """o_custkey of the orders with o_odate < JSON_ODATE_MAX, filtered on
+    the card (K1) and summed (K3)."""
+    mask = pc.call_function("less", [db.column("o_odate"), JSON_ODATE_MAX])
+    kept = pc.filter(project(db, ["o_custkey"]), mask)
+    return {"sum": pc.agg_sum(kept.column("o_custkey")) if kept.length
+            else 0, "count": kept.length}
+
+
+def json_orders(blob: bytes, dev, times: dict):
+    """read_json of the orders' lines, the batch to the card, json_filter."""
+    from arrow_go_tpu_torch.formats import read_json
+    hb, db = to_card(lambda: read_json(blob), dev, times)
+    return hb, db, _compute(lambda: json_filter(db), dev, times)
+
+
+def _ms(times: dict) -> dict:
+    return {k[:-2] + "_ms": v * 1e3 for k, v in times.items()}
+
+
+def formats_phases(li, orders, dev, card: str,
+                   timing_only: bool = False) -> dict:
+    """This slice's paths over the first FORMATS_ROWS rows of the arrays
+    already in memory (TPC-H SF1's lineitem cardinality; a cut of depth):
+    `csv_q1` (Q1's seven columns as csv text built by csv_text, its first
+    CSV_CHECK_ROWS rows held byte for byte against the port's write_csv,
+    read by read_csv on the numpy tier, every column held against its
+    source, Q1 on the card against q1_oracle), `csv_q6` (the Q6 columns of
+    the same text by include_columns, Q6 on the card, the device's idle
+    share of read plus query), `csv_stream` (Q6 batch by batch over
+    open_csv of the first CSV_STREAM_ROWS rows, the schema pinned),
+    `csv_dataset_q6` (the Q6 rows sorted by l_sdate as LI_DATASET_FILES
+    .csv files in a temporary directory, Q6 through the dataset
+    scanner, equal to csv_q6), `avro_q6` (the Q6 columns in an Avro file
+    of each codec, read by OCFReader.read_all, every column bit for
+    bit, Q6 on the card), `json_orders` (JSON_ROWS orders through
+    write_json, byte for byte, and read_json, filtered by o_odate on the
+    card and o_custkey summed) and `formats_path_checks` (every K1 and K3
+    call of those paths' device work against the plain version; not with
+    `timing_only`). Returns each path's launch counts and the largest
+    kernel - plain difference."""
+    from arrow_go_tpu_torch.dataset import dataset
+    t_phase = time.perf_counter()
+    n = min(FORMATS_ROWS, len(li["l_okey"]))
+    src = _rows(li, 0, n)
+    launches, dbs, checks = {}, {}, {}
+
+    # csv_q1
+    t0 = time.perf_counter()
+    text = csv_text(src, Q1_COLUMNS)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    checked = check_csv_writer(src, Q1_COLUMNS, text, min(CSV_CHECK_ROWS, n))
+    writer_ms = (time.perf_counter() - t0) * 1e3
+    q1_want = q1_oracle(src)
+    times = {}
+    (hb, dbs["csv_q1"], out), launches["CSV Q1"] = run_path(
+        "CSV Q1", lambda: csv_q1(text, dev, times), ("K1",))
+    check_q1(out, q1_want)
+    check_read("csv_q1", hb, src, Q1_COLUMNS, 0, n, CSV_TYPES)
+    del hb
+    checks["csv_q1"] = (lambda: compute_q1(dbs["csv_q1"]),
+                        lambda o: check_q1(o, q1_want), "CSV Q1")
+    print(json.dumps({"csv_q1": {
+        "rows": n, "rows_cut_from": len(li["l_okey"]), "bytes": len(text),
+        "text_build_ms": build_ms, "writer_rows_checked": min(
+            CSV_CHECK_ROWS, n), "writer_bytes_checked": checked,
+        "writer_ms": writer_ms, **_ms(times),
+        "launches_per_run": launches["CSV Q1"], "card": card,
+        "verified": True}}), flush=True)
+
+    # csv_q6: the counted run under the profiler (read plus query)
+    want = q6_oracle(src)
+    times, got = {}, {}
+
+    def q6_profiled():
+        return profile_device(lambda: csv_q6(text, dev, times),
+                              lambda o: got.update(out=o), top=6)
+    prof, launches["CSV Q6"] = run_path("CSV Q6", q6_profiled, ("K1", "K3"))
+    hb, dbs["csv_q6"], q6 = got["out"]
+    check_q6(q6, want)
+    check_read("csv_q6", hb, src, [c for c in Q1_COLUMNS
+                                   if c in Q6_COLUMNS], 0, n, CSV_TYPES)
+    del hb
+    checks["csv_q6"] = (lambda: compute_q6(dbs["csv_q6"]),
+                        lambda o: check_q6(o, want), "CSV Q6")
+    print(json.dumps({"csv_q6": {
+        **q6, "oracle": want, "rows": n, **_ms(times),
+        "profile": prof, "launches_per_run": launches["CSV Q6"],
+        "card": card, "verified": True}}), flush=True)
+
+    # csv_stream: the csv-module tier over the first CSV_STREAM_ROWS rows
+    m = min(CSV_STREAM_ROWS, n)
+    cut = _line_end(text, m) if m < n else len(text)
+    stream_want = q6_oracle(_rows(src, 0, m))
+    times = {}
+    (sq6, batches), launches["CSV stream Q6"] = run_path(
+        "CSV stream Q6", lambda: csv_stream_q6(text[:cut], dev, times),
+        ("K1", "K3"))
+    check_q6(sq6, stream_want)
+    print(json.dumps({"csv_stream": {
+        **sq6, "rows": m, "rows_cut_from": n, "chunk": CSV_STREAM_CHUNK,
+        "batches": batches, "ms": times["s"] * 1e3,
+        "launches_per_run": launches["CSV stream Q6"], "card": card,
+        "verified": True}}), flush=True)
+    del text
+
+    # csv_dataset_q6
+    order = np.argsort(src["l_sdate"], kind="stable")
+    lis = {c: src[c][order] for c in Q6_COLUMNS}
+    del order
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_csv_dataset(root, lis, Q6_COLUMNS)
+        write_s = time.perf_counter() - t0
+        del lis
+        t0 = time.perf_counter()
+        ds = dataset(root)
+        open_s = time.perf_counter() - t0
+        times = {}
+
+        def ds_q6():
+            sc = ds.scanner(columns=Q6_COLUMNS, filter=q6_expression(),
+                            device=dev)
+            batches = list(sc.device_batches(times=times))
+            return batches, _compute(lambda: q6_over_batches(batches),
+                                     dev, times)
+        (dbs["csv_dataset_q6"], dq6), launches["CSV dataset Q6"] = run_path(
+            "CSV dataset Q6", ds_q6, ("K1", "K3"))
+        check_q6(dq6, want)
+        if dq6["count"] != q6["count"] or not np.isclose(
+                dq6["revenue"], q6["revenue"], rtol=1e-9, atol=0):
+            raise AssertionError(f"csv_dataset_q6 {dq6} differs from "
+                                 f"csv_q6 {q6}")
+        print(json.dumps({"csv_dataset_q6": {
+            **dq6, "files": len(paths), "bytes": sum(
+                os.path.getsize(p) for p in paths), "write_s": write_s,
+            "dataset_open_s": open_s, **_ms(times),
+            "equals_csv_q6": True,
+            "launches_per_run": launches["CSV dataset Q6"], "card": card,
+            "verified": True}}), flush=True)
+    checks["csv_dataset_q6"] = (
+        lambda: q6_over_batches(dbs["csv_dataset_q6"]),
+        lambda o: check_q6(o, want), "CSV dataset Q6")
+
+    # avro_q6: one file a codec
+    t0 = time.perf_counter()
+    records, ends = avro_records(src, 0, n)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    lines = {}
+    for codec in AVRO_CODECS:
+        t0 = time.perf_counter()
+        blob = write_avro(records, ends, codec)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        name = f"Avro Q6 {codec}"
+        times = {}
+        (hb, db, aq6), launches[name] = run_path(
+            name, lambda: avro_q6(blob, dev, times), ("K1", "K3"))
+        check_q6(aq6, want)
+        check_read(name, hb, src, list(AVRO_TYPES), 0, n, AVRO_TYPES)
+        if aq6 != q6 and not (aq6["count"] == q6["count"] and np.isclose(
+                aq6["revenue"], q6["revenue"], rtol=1e-9, atol=0)):
+            raise AssertionError(f"{name} {aq6} differs from csv_q6 {q6}")
+        if codec == "null":
+            dbs["avro_q6"] = db
+        del hb, db
+        lines[codec] = {**aq6, "bytes": len(blob), "write_ms": write_ms,
+                        **_ms(times), "launches_per_run": launches[name],
+                        "verified_bits": True}
+        del blob
+    del records, ends
+    checks["avro_q6"] = (lambda: compute_q6(dbs["avro_q6"]),
+                         lambda o: check_q6(o, want), "Avro Q6 null")
+    print(json.dumps({"avro_q6": {
+        **lines, "rows": n, "block_rows": AVRO_BLOCK_ROWS,
+        "encode_ms": encode_ms, "oracle": want, "card": card,
+        "verified": True}}), flush=True)
+
+    # json_orders
+    k = min(JSON_ROWS, len(orders["o_okey"]))
+    from arrow_go_tpu_torch.formats import write_json
+    t0 = time.perf_counter()
+    sink = io.BytesIO()
+    write_json(orders_json_batch(orders, k), sink)
+    jw_ms = (time.perf_counter() - t0) * 1e3
+    blob = sink.getvalue()
+    if blob != orders_json_text(orders, k):
+        raise AssertionError("json_orders: write_json's bytes differ from "
+                             "json.dumps of the rows")
+    keep = orders["o_odate"][:k] < JSON_ODATE_MAX
+    jwant = {"sum": int(orders["o_custkey"][:k][keep].sum()),
+             "count": int(keep.sum())}
+    times = {}
+    (hb, dbs["json_orders"], jgot), launches["JSON orders"] = run_path(
+        "JSON orders", lambda: json_orders(blob, dev, times), ("K1", "K3"))
+    for name, t in (("o_okey", dt.int64), ("o_custkey", dt.int64),
+                    ("o_odate", dt.int64)):
+        _same_column(f"json_orders {name}", hb.column(name),
+                     orders[name][:k].astype(np.int64), t)
+    _same_column("json_orders o_opri", hb.column("o_opri"),
+                 (orders["o_opri"][0][:k], orders["o_opri"][1]), dt.string)
+    del hb
+
+    def check_json(o):
+        if o != jwant:
+            raise AssertionError(f"json_orders: {o}, numpy {jwant}")
+    check_json(jgot)
+    checks["json_orders"] = (lambda: json_filter(dbs["json_orders"]),
+                             check_json, "JSON orders")
+    print(json.dumps({"json_orders": {
+        **jgot, "rows": k, "rows_cut_from": len(orders["o_okey"]),
+        "bytes": len(blob), "write_ms": jw_ms, **_ms(times),
+        "writer_equals_dumps": True,
+        "launches_per_run": launches["JSON orders"], "card": card,
+        "verified": True}}), flush=True)
+    del blob
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            out, held[key] = check_path_calls(key, fn, launches[name],
+                                              k3=True)
+            check(out)
+        print(json.dumps({"formats_path_checks": held}), flush=True)
+    dbs.clear()
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"formats_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
+def _line_end(text: bytes, rows: int) -> int:
+    """The offset just past the header and `rows` lines of csv text."""
+    nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
+    return int(nl[rows]) + 1
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -5273,6 +5908,9 @@ def main(argv=None) -> int:
             dist_phases(li, orders, dev, card, timing_only=True)
         if hasattr(agt, "list_take_device"):
             nested_phases(li, orders, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.formats") and \
+                "o_opri" in orders:
+            formats_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -5304,6 +5942,9 @@ def main(argv=None) -> int:
     ipcs = ipc_phases(li, orders, dev, card, dsets["q6"])
     k1_err = max(k1_err, ipcs["errs"]["K1"])
     k3_err = max(k3_err, ipcs["errs"]["K3"])
+    fmts = formats_phases(li, orders, dev, card)
+    k1_err = max(k1_err, fmts["errs"]["K1"])
+    k3_err = max(k3_err, fmts["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -5312,7 +5953,7 @@ def main(argv=None) -> int:
                **decs["launches"], **dsets["launches"],
                **dists["launches"], **nested["launches"],
                **front["launches"], **more["launches"],
-               **ipcs["launches"]}
+               **ipcs["launches"], **fmts["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

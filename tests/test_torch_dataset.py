@@ -1,10 +1,11 @@
 """The port's dataset scan (arrow_go_tpu_torch/dataset.py) against the JAX
 package's Dataset on the same directories: discovery, projection, the
 residual filter, row-group pruning by statistics and bloom filters, the
-device batches, the refusals (.csv fragments, columns the device read
-cannot take), .arrow fragments beside parquet ones, and TPC-H Q6 and Q10
-over a small zstd dataset of many files and row groups (Q6 also over
-its lz4 .arrow twin) against the same composition of JAX functions
+device batches, the refusals (columns the device read cannot take,
+fragments of other types), .arrow and .csv fragments beside parquet
+ones, and TPC-H Q6 and Q10 over a small zstd dataset of many files and
+row groups (Q6 also over its lz4 .arrow and its .csv twins) against the
+same composition of JAX functions
 (K3 as the JAX package runs it on the CPU: the Pallas kernel in
 interpret mode). Every port call passes device="cpu"."""
 import os
@@ -24,7 +25,9 @@ from arrow_go_tpu.device.block import batch_to_device as jax_batch_to_device
 import arrow_go_tpu_torch.compute as pc
 from arrow_go_tpu_torch import ipc
 from arrow_go_tpu_torch import parquet as tpq
-from arrow_go_tpu_torch.compute.errors import ArrowNotImplemented
+from arrow_go_tpu.compute.errors import ArrowInvalid as jArrowInvalid
+from arrow_go_tpu_torch import dtypes as tdt
+from arrow_go_tpu_torch.compute.errors import ArrowInvalid as tArrowInvalid
 from arrow_go_tpu_torch.dataset import _simple_guards, dataset
 from chip_smoke import (Q4_ODATE_HI, Q4_ODATE_LO, Q6_COLUMNS, Q6_DATE_HI,
                         Q6_DATE_LO, Q6_DISC_HI, Q6_DISC_LO, Q6_QTY, Q10_TOP,
@@ -34,6 +37,7 @@ from chip_smoke import (Q4_ODATE_HI, Q4_ODATE_LO, Q6_COLUMNS, Q6_DATE_HI,
                         dataset_q10, dataset_tables, make_data,
                         q6_expression, q6_oracle, q10_oracle,
                         write_dataset, STRING_ENCODINGS)
+from torch_parity import port_type
 
 CPU = "cpu"
 
@@ -110,37 +114,116 @@ def test_dataset_empty_result(pq_dir):
     assert t.schema.names == ["cat", "v"]       # schema order, as JAX's
 
 
-def test_dataset_mixed_glob_arrow_fragment_raises(pq_dir, tmp_path):
-    """A .parquet and an .arrow fragment (an IPC file of the JAX writer)
-    read as the JAX Dataset reads them; a .csv fragment still raises."""
+def test_dataset_mixed_glob_arrow_and_csv_fragments(pq_dir, tmp_path):
+    """A .parquet, an .arrow (an IPC file of the JAX writer) and a .csv
+    fragment read as the JAX Dataset reads them, each alone and mixed;
+    `format` reads any path as the format it names."""
     from arrow_go_tpu import ipc
     t = agt.table({"id": [999, 1000], "cat": ["x", "c1"], "v": [0.0, 2.5]})
     p = tmp_path / "extra.arrow"
     with open(p, "wb") as f:
         with ipc.new_file(f, t.schema) as w:
             w.write_table(t)
-    paths = [os.path.join(pq_dir, "part0.parquet"), str(p)]
-    jds, ds = jdataset(paths), dataset(paths)
-    assert [type(f).__name__ for f in ds.fragments] == \
-        [type(f).__name__ for f in jds.fragments] == ["ParquetFragment",
-                                                      "IpcFragment"]
-    assert jds.to_table().num_rows == 102
-    _same_table(ds.to_table(device=CPU), jds.to_table())
-    jf, tf = _both("greater_equal", "id", 99)
-    _same_table(ds.to_table(filter=tf, device=CPU), jds.to_table(filter=jf))
-    jf, tf = _both("equal", "cat", "c1")
-    _same_table(ds.to_table(columns=["v"], filter=tf, device=CPU),
-                jds.to_table(columns=["v"], filter=jf))
-    assert ds.count_rows(device=CPU) == 102
-    assert ds.scanner().row_groups()[1] == (str(p), [0], 1)
     q = tmp_path / "extra.csv"
-    q.write_text("id,cat,v\n1,a,0.5\n")
-    with pytest.raises(ArrowNotImplemented):
-        dataset([os.path.join(pq_dir, "part0.parquet"), str(q)])
-    with pytest.raises(ArrowNotImplemented):
-        dataset([os.path.join(pq_dir, "part0.parquet")], format="csv")
-    # format="arrow" reads any path as an IPC file, as in the JAX package
+    q.write_text("id,cat,v\n1,a,0.5\n7,c1,1.5\n")
+    part0 = os.path.join(pq_dir, "part0.parquet")
+    for paths, kinds, rows in (
+            ([part0, str(p)], ["ParquetFragment", "IpcFragment"], 102),
+            ([part0, str(p), str(q)], ["ParquetFragment", "IpcFragment",
+                                       "CsvFragment"], 104),
+            ([str(q), part0], ["CsvFragment", "ParquetFragment"], 102),
+            ([str(q)], ["CsvFragment"], 2)):
+        jds, ds = jdataset(paths), dataset(paths)
+        assert [type(f).__name__ for f in ds.fragments] == \
+            [type(f).__name__ for f in jds.fragments] == kinds
+        assert ds.schema == tdt.Schema([tdt.Field(f.name, port_type(
+            f.type)) for f in jds.schema.fields])
+        assert jds.to_table().num_rows == rows
+        _same_table(ds.to_table(device=CPU), jds.to_table())
+        jf, tf = _both("greater_equal", "id", 7)
+        _same_table(ds.to_table(filter=tf, device=CPU),
+                    jds.to_table(filter=jf))
+        jf, tf = _both("equal", "cat", "c1")
+        _same_table(ds.to_table(columns=["v"], filter=tf, device=CPU),
+                    jds.to_table(columns=["v"], filter=jf))
+        assert ds.count_rows(device=CPU) == jds.count_rows() == rows
+    assert dataset([part0, str(p)]).scanner().row_groups()[1] == (
+        str(p), [0], 1)
+    # format= reads any path as the format it names, as in the JAX package
     assert dataset([str(p)], format="feather").count_rows(device=CPU) == 2
+    r = tmp_path / "extra.txt"
+    r.write_bytes(q.read_bytes())
+    _same_table(dataset([str(r)], format="csv").to_table(device=CPU),
+                jdataset([str(r)], format="csv").to_table())
+    _same_table(dataset(str(tmp_path / "*.csv")).to_table(device=CPU),
+                jdataset(str(tmp_path / "*.csv")).to_table())
+    with pytest.raises(tArrowInvalid):
+        dataset([str(r)])
+    with pytest.raises(jArrowInvalid):
+        jdataset([str(r)])
+
+
+def test_csv_directory_matches_jax(tmp_path):
+    """A directory of .csv files written by the JAX writer (types inferred
+    file by file, nulls, strings): discovery, projection, the filter,
+    counts and the device batches with their parse / copy split."""
+    from arrow_go_tpu.formats import write_csv as jwrite_csv
+    for i in range(3):
+        t = agt.table({"id": list(range(i * 10, i * 10 + 10)),
+                       "cat": [f"c{j % 3}" for j in range(10)],
+                       "v": [None if j == 4 else j * 0.5 for j in range(10)],
+                       "d": [f"2020-01-{j + 1:02d}" for j in range(10)]})
+        jwrite_csv(t, str(tmp_path / f"part{i}.csv"))
+    ds, jds = dataset(str(tmp_path)), jdataset(str(tmp_path))
+    assert [f.path for f in ds.fragments] == [f.path for f in jds.fragments]
+    assert ds.schema.field(3).type == tdt.date32
+    _same_table(ds.to_table(device=CPU), jds.to_table())
+    for op, col, value in (("greater", "id", 14), ("equal", "cat", "c1"),
+                           ("less", "v", 2.0)):
+        jf, tf = _both(op, col, value)
+        _same_table(ds.to_table(filter=tf, device=CPU),
+                    jds.to_table(filter=jf))
+        _same_table(ds.to_table(columns=["cat"], filter=tf, device=CPU),
+                    jds.to_table(columns=["cat"], filter=jf))
+        assert ds.count_rows(filter=tf, device=CPU) == \
+            jds.count_rows(filter=jf)
+    times = {}
+    dbs = list(ds.scanner(columns=["id", "v"]).device_batches(
+        device=CPU, times=times))
+    jbs = list(jds.scanner(columns=["id", "v"]).device_batches())
+    assert [d.length for d in dbs] == [j.length for j in jbs] == [10] * 3
+    assert times["parse_s"] > 0 and times["h2d_s"] > 0
+    assert ds.scanner().row_groups()[0] == (ds.fragments[0].path, [0], 1)
+
+
+def test_csv_fragments_of_other_types_raise_like_jax(tmp_path):
+    """Each csv fragment infers its own types and the dataset's schema is
+    the first's; a fragment whose kept rows have other types makes the
+    table refuse its batches in both packages, while the batches
+    themselves come through with their own types."""
+    (tmp_path / "a.csv").write_text("id,v,s\n1,5,a\n2,6,b\n")
+    (tmp_path / "b.csv").write_text("id,v,s\n3,1.5,c\n4,,d\n")
+    ds, jds = dataset(str(tmp_path)), jdataset(str(tmp_path))
+    assert ds.schema.field(1).type == tdt.int64 == port_type(
+        jds.schema.field(1).type)
+    got = list(ds.scanner(device=CPU).batches())
+    want = list(jds.scanner().batches())
+    assert [b.schema.field(1).type for b in got] == [tdt.int64, tdt.float64]
+    for g, w in zip(got, want):
+        _same_table(g, w)
+    with pytest.raises(ValueError):
+        jds.to_table()
+    with pytest.raises(tArrowInvalid):
+        ds.to_table(device=CPU)
+    with pytest.raises(ValueError):
+        jds.count_rows()
+    with pytest.raises(tArrowInvalid):
+        ds.count_rows(device=CPU)
+    # a filter that keeps rows of one fragment only reads as one table
+    jf, tf = _both("less", "id", 3)
+    _same_table(ds.to_table(filter=tf, device=CPU), jds.to_table(filter=jf))
+    assert ds.count_rows(filter=tf, device=CPU) == jds.count_rows(
+        filter=jf) == 2
 
 
 def test_dataset_device_batches(pq_dir):
@@ -318,6 +401,34 @@ def test_ipc_dataset_q6_matches_jax_and_parquet(tpch, compression,
     np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9)
     assert batches == 8 == sum(n for *_, n in ds.scanner().row_groups())
     assert sum(ipc.open_file(p).num_record_batches for p in paths) == 16
+    pq = dataset_q6(dataset(os.path.join(root, "lineitem")), CPU)
+    assert got["count"] == pq["count"]
+    np.testing.assert_allclose(got["revenue"], pq["revenue"], rtol=1e-9)
+    assert times["parse_s"] > 0 and times["h2d_s"] > 0
+
+
+def test_csv_dataset_q6_matches_jax_and_parquet(tpch):
+    """Q6 over the sorted lineitem's Q6 columns as 8 .csv fragments
+    (chip_smoke's write_csv_dataset) through the port's scanner, as
+    chip_smoke.formats_phases runs it, against the JAX scanner over the
+    same files (one batch a file in both) and the parquet dataset."""
+    import chip_smoke
+    li, _, _, root = tpch
+    order = np.argsort(li["l_sdate"], kind="stable")
+    lis = {c: li[c][order] for c in Q6_COLUMNS}
+    sub = "csv"
+    os.makedirs(os.path.join(root, sub), exist_ok=True)
+    paths = chip_smoke.write_csv_dataset(os.path.join(root, sub), lis,
+                                         Q6_COLUMNS)
+    assert len(paths) == 8
+    ds = dataset(os.path.join(root, sub))
+    assert {type(f).__name__ for f in ds.fragments} == {"CsvFragment"}
+    times = {}
+    got = dataset_q6(ds, CPU, times)
+    check_q6(got, q6_oracle(li))
+    want, batches = _jax_dataset_q6(root, True, sub)
+    assert got["count"] == want["count"] and batches == 8
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9)
     pq = dataset_q6(dataset(os.path.join(root, "lineitem")), CPU)
     assert got["count"] == pq["count"]
     np.testing.assert_allclose(got["revenue"], pq["revenue"], rtol=1e-9)

@@ -72,6 +72,10 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.ipc.core\n"
             "import arrow_go_tpu_torch.parquet.variant\n"
             "import arrow_go_tpu_torch.extensions\n"
+            "import arrow_go_tpu_torch.formats\n"
+            "import arrow_go_tpu_torch.formats.csv\n"
+            "import arrow_go_tpu_torch.formats.json\n"
+            "import arrow_go_tpu_torch.formats.avro\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -104,7 +108,9 @@ def test_the_scan_reaches_the_new_modules():
     for mod in ("compute/run_ends.py", "compute/scalars.py", "tensor.py",
                 "utils/__init__.py", "utils/metrics.py", "utils/memwatch.py",
                 "utils/debug.py", "ipc/__init__.py", "ipc/fb.py",
-                "ipc/metadata.py", "ipc/core.py", "parquet/variant.py"):
+                "ipc/metadata.py", "ipc/core.py", "parquet/variant.py",
+                "formats/__init__.py", "formats/csv.py", "formats/json.py",
+                "formats/avro.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
@@ -234,3 +240,29 @@ def test_front_and_utilities_run_on_the_card_unless_asked(monkeypatch):
                  with_trace, lambda: tensor(np.eye(2)).to_device()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_formats_run_on_the_card_unless_asked(monkeypatch, tmp_path):
+    """The formats read and write on the host and name no device; a csv
+    dataset's scan resolves the card when no device is named; the Avro
+    zstandard codec is the port's own decoder, reached with no import of
+    the zstandard package."""
+    from arrow_go_tpu_torch.dataset import dataset
+    from arrow_go_tpu_torch.formats import avro, read_csv
+    (tmp_path / "a.csv").write_text("a,b\n1,x\n2,y\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert read_csv(str(tmp_path / "a.csv")).num_rows == 2
+    ds = dataset(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(ds.scanner().device_batches())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ds.to_table()
+    db = next(ds.scanner().device_batches(device="cpu"))
+    assert db.column("a").values[:2].tolist() == [1, 2]
+    text = (PKG / "formats" / "avro.py").read_text()
+    assert "zstandard" not in {n.split(".")[0] for node in ast.walk(
+        ast.parse(text)) if isinstance(node, (ast.Import, ast.ImportFrom))
+        for n in ([a.name for a in node.names] if isinstance(
+            node, ast.Import) else [node.module or ""])}
+    assert avro.native.zstd_decompress.__module__ == \
+        "arrow_go_tpu_torch.native"

@@ -310,3 +310,38 @@ def same_array(got, want, what: str = "") -> None:
                                    equal_nan=True, err_msg=what)
     else:
         assert gv == wv, what
+
+
+# ---------------------------------------------------------------------------
+# tables: a JAX Table or RecordBatch against a port HostBatch
+# ---------------------------------------------------------------------------
+
+def _exact(v):
+    """Python values with NaN made comparable (nested lists and dicts
+    too)."""
+    if isinstance(v, float) and v != v:
+        return "NaN"
+    if isinstance(v, (list, tuple)):
+        return [_exact(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _exact(x) for k, x in v.items()}
+    return v
+
+
+def same_table(got, want, what: str = "") -> None:
+    """A port HostBatch equal to a JAX Table or RecordBatch: names, field
+    types (a dictionary field by its value type where the port codes a
+    string), rows, each column as same_array and its Python values
+    exactly (floats bit for bit, NaN where NaN)."""
+    assert list(got.schema.names) == list(want.schema.names), what
+    assert [f.type for f in got.schema.fields] == \
+        [port_type(f.type) for f in want.schema.fields], (
+            what, got.schema, want.schema)
+    assert got.num_rows == want.num_rows, what
+    for i, name in enumerate(want.schema.names):
+        w = want.column(i)
+        if hasattr(w, "combine"):
+            w = w.combine()
+        same_array(got.column(i), w, f"{what} {name}")
+        assert _exact(got.column(i).to_pylist()) == _exact(w.to_pylist()), (
+            what, name)
