@@ -6,7 +6,9 @@ of the group-sized result, or -> scalar aggregates) on an NVIDIA Hopper
 card, with hand-written CUDA kernels where the JAX package has Pallas
 kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
-arrow_go_tpu.
+arrow_go_tpu. `interop` (the integration JSON, the protobuf wire format)
+and `cdata` (the C data interface) load on first use, as in the JAX
+package.
 """
 from . import compute, dtypes, extensions, formats, parquet, torchenv
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
@@ -23,3 +25,12 @@ __all__ = ["compute", "dtypes", "extensions", "formats", "parquet",
            "ListViewArray", "UnionArray", "batch_from_numpy",
            "batch_to_device", "list_from_device", "list_take_device",
            "list_to_device", "null_array", "pad_length"]
+
+
+def __getattr__(name):
+    if name in ("interop", "cdata"):
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(name)

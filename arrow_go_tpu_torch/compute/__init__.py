@@ -1,6 +1,7 @@
 """Compute functions of the port (mirrors arrow_go_tpu.compute): the
-registry's functions, the expression front, run-end encoding, scalars,
-and the typed wrappers (`add` ... `stddev`, each
+registry's functions, the expression front and its Substrait bridge
+(`serialize_expressions`, `deserialize_expressions`), run-end encoding,
+scalars, and the typed wrappers (`add` ... `stddev`, each
 fn(a[, b], options=None, device=None) over call_function; `sum`, `min`,
 `max`, `abs`, `round`, `any` and `all` shadow the builtins here, as in
 the JAX package)."""
@@ -30,6 +31,8 @@ from .registry import (FunctionRegistry, call_function, default_registry,
                        new_child_registry)
 from .run_ends import run_end_decode, run_end_encode
 from .scalars import Scalar, make_array_from_scalar, parse_scalar, scalar
+from .substrait import (BoundExpressions, deserialize_expressions,
+                        serialize_expressions)
 from .temporal import ceil_temporal, floor_temporal, round_temporal
 
 filter = filter_  # noqa: A001  (the reference's name)
@@ -98,5 +101,6 @@ __all__ = ["ArrowError", "ArrowIndexError", "ArrowInvalid", "ArrowKeyError",
            "default_registry", "new_child_registry", "ceil_temporal",
            "floor_temporal", "round_temporal", "run_end_decode",
            "run_end_encode", "Scalar", "make_array_from_scalar",
-           "parse_scalar", "scalar", "and_", "or_",
+           "parse_scalar", "scalar", "and_", "or_", "BoundExpressions",
+           "deserialize_expressions", "serialize_expressions",
            *_UNARY_WRAPPERS, *_BINARY_WRAPPERS]

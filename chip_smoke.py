@@ -162,7 +162,8 @@ without one. Phases:
   17. the variant type and Arrow IPC on the same arrays: l_price,
      l_disc, l_qty and l_sdate written by the port's new_file in record
      batches of 1,048,576 rows, uncompressed, lz4 frame and zstd (the
-     zstd body its first 8 batches: a cut of the script's time), each
+     lz4 and zstd bodies their first 8 batches: cuts of the script's
+     time), each
      read back by open_file, sent to the card batch by batch and run
      through TPC-H Q6 (K1, K3), exact against numpy, every column bit
      for bit, with the write ms, the read split (parse, decompress, copy
@@ -172,18 +173,17 @@ without one. Phases:
      15 batches, exact (`ipc_stream`); the lineitem sorted by l_sdate in
      8 lz4 .arrow files in a temporary directory, Q6 through the dataset
      scanner (one device batch a file), equal to `ipc_q6` and to phase
-     12's parquet `dataset_q6` (`ipc_dataset_q6`); 262,144 orders as
-     parquet.variant
-     objects of o_okey, o_odate and o_opri (a cut: the variant Builder
-     encodes row by row in Python), shredded to typed_value int64 /
+     12's parquet `dataset_q6` (`ipc_dataset_q6`); 65,536 orders as
+     parquet.variant objects of o_okey, o_odate and o_opri (a cut: the
+     variant Builder encodes row by row in Python), shredded to typed_value int64 /
      int32 / string, round-tripped through the port's parquet writer and
      reader and an IPC stream, unshredded and held row by row against
      the source, the shredded o_odate filtered by < 720 on the card (K1)
      against the plain column's filter (`variant`); every K1 and K3 call
      of one more run of the uncompressed `ipc_q6`, `ipc_dataset_q6` and
      the variant filter against the plain version (`ipc_path_checks`);
-  18. the file formats over the first 6,001,215 rows (TPC-H SF1's
-     lineitem; a cut of depth) of the same arrays: Q1's seven columns
+  18. the file formats over the first 3,000,607 rows (half of TPC-H
+     SF1's lineitem; a cut of depth) of the same arrays: Q1's seven columns
      as csv text built by array operations (l_sdate as ISO dates, the
      flags as letters, floats as their repr), its first 65,536 rows
      byte for byte the port's write_csv, read by read_csv on its numpy
@@ -204,17 +204,34 @@ without one. Phases:
      device work of those paths against the plain version
      (`formats_path_checks`); each exact against numpy, float sums at
      rtol 1e-9;
-  19. a `kernels` JSON line, then the last line
+  19. the interchange surface: Q6's predicate and revenue serialized
+     as a Substrait ExtendedExpression over the SF10 lineitem's schema,
+     decoded (`and` as and_kleene) and run over that lineitem on the
+     card, its count and revenue the eager Q6's of the same call bit
+     for bit, with the bytes and the serialize, deserialize, Substrait
+     and eager ms; Q1's disc_price and charge through Substrait bit for
+     bit against compute_q1's (`substrait_q6`); the Q6 columns as 58
+     HostBatches of 1,048,576 rows through export_stream into an
+     ArrowArrayStream and import_stream (each batch copied out), each to
+     the card for Q6, every column bit for bit, with the export, copy,
+     host-to-device and compute ms and the device's idle share, one
+     batch through export_device_array / import_device_array and a
+     device_type of 2 refused (`cdata_q6`); 262,144 orders with o_opri
+     a dictionary field through write_arrjson and read_arrjson, filtered
+     by o_odate < 720 on the card (K1) and o_custkey summed (K3)
+     (`arrjson_orders`); every K1 and K3 call of those paths against the
+     plain version (`interop_path_checks`);
+  20. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 19 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 20 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 against the plain version: a run that times every path and
+10 to 14, 18 and 19 against the plain version: a run that times every path and
 kernel shape using only entry points that earlier trees have too, so
 that two trees can be run in turns on one card (copy this script into
 a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 14 and 18 run only in a tree that has their entry
-points.
+there). Phases 8 to 14, 18 and 19 run only in a tree that has their
+entry points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
@@ -4700,14 +4717,14 @@ def types_phases(li, orders, dev, card: str) -> dict:
 
 IPC_BATCH_ROWS = 1 << 20          # rows of a record batch (58 at SF10)
 IPC_CODECS = (None, "lz4", "zstd")
-# the zstd body's record batches (of 58 at SF10): its write, the port's
-# encoder on one thread a buffer, is cut first to keep the script in its
-# time limit
-IPC_ZSTD_BATCHES = 8
+# the compressed bodies' record batches (of 58 at SF10), cuts that keep
+# the script in its time limit: zstd's first (its write, the port's
+# encoder on one thread a buffer), lz4's since the interop phase
+IPC_COMPRESSED_BATCHES = 8
 IPC_THREADS = os.cpu_count() or 8  # (de)compression threads
 IPC_Q6_COLUMNS = ["l_price", "l_disc", "l_qty", "l_sdate"]
 IPC_STREAM_BATCHES = 15
-VARIANT_ROWS = 1 << 18            # rows of the variant column (a cut)
+VARIANT_ROWS = 1 << 16            # rows of the variant column (a cut)
 VARIANT_ODATE_MAX = 720           # the shredded o_odate's filter
 IPC_TYPES = {"l_price": dt.float64, "l_disc": dt.float64, "l_qty": dt.int32,
              "l_sdate": dt.int32, "l_okey": dt.int64}
@@ -4993,7 +5010,7 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     """This slice's paths over the SF10 arrays already in memory:
     `ipc_q6` (the Q6 columns written by new_file in record batches of
     IPC_BATCH_ROWS, uncompressed, lz4 frame and zstd (its first
-    IPC_ZSTD_BATCHES batches), each read back by
+    IPC_COMPRESSED_BATCHES batches, as the lz4 one), each read back by
     open_file and run through Q6 on the card, exact against numpy with
     the read split and the bytes; the uncompressed read's device idle
     share; every column bit for bit), `ipc_stream` (o_opri as a
@@ -5016,8 +5033,8 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     lines = {}
     for codec in IPC_CODECS:
         key = codec or "none"
-        rows = n_li if codec != "zstd" else min(
-            n_li, IPC_ZSTD_BATCHES * IPC_BATCH_ROWS)
+        rows = n_li if codec is None else min(
+            n_li, IPC_COMPRESSED_BATCHES * IPC_BATCH_ROWS)
         cwant = want if rows == n_li else q6_oracle(_rows(li, 0, rows))
         sink = io.BytesIO()
         t0 = time.perf_counter()
@@ -5124,7 +5141,9 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
 # phase 18: the file formats (CSV, line-delimited JSON, Avro)
 # ---------------------------------------------------------------------------
 
-FORMATS_ROWS = LINEITEM_SF1       # lineitem rows of the CSV and Avro paths
+# lineitem rows of the CSV and Avro paths (a cut: half of TPC-H SF1's
+# lineitem since the interop phase, SF1's before)
+FORMATS_ROWS = LINEITEM_SF1 // 2
 CSV_CHECK_ROWS = 1 << 16          # rows held against the port's write_csv
 CSV_STREAM_ROWS = 1 << 19         # rows of the streamed read (a cut)
 CSV_STREAM_CHUNK = 1 << 18
@@ -5508,7 +5527,7 @@ def _ms(times: dict) -> dict:
 def formats_phases(li, orders, dev, card: str,
                    timing_only: bool = False) -> dict:
     """This slice's paths over the first FORMATS_ROWS rows of the arrays
-    already in memory (TPC-H SF1's lineitem cardinality; a cut of depth):
+    already in memory (half of TPC-H SF1's lineitem; a cut of depth):
     `csv_q1` (Q1's seven columns as csv text built by csv_text, its first
     CSV_CHECK_ROWS rows held byte for byte against the port's write_csv,
     read by read_csv on the numpy tier, every column held against its
@@ -5717,6 +5736,324 @@ def formats_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the interchange surface (Substrait, the C data interface, the
+# integration JSON)
+# ---------------------------------------------------------------------------
+
+SUBSTRAIT_COLUMNS = ["l_price", "l_disc", "l_qty", "l_sdate", "l_tax"]
+CDATA_BATCH_ROWS = IPC_BATCH_ROWS  # rows of a streamed batch (58 at SF10)
+ARRJSON_ROWS = JSON_ROWS           # orders of the integration JSON (a cut)
+ARROW_DEVICE_CUDA = 2              # kDLCUDA: refused by the import
+
+
+def substrait_q6(be, db: DeviceBatch) -> dict:
+    """TPC-H Q6 from decoded Substrait expressions: `pred` (its `and`s
+    decoded as and_kleene) filters l_price and l_disc (K1), `revenue`
+    multiplies them, and the SUM runs on K3."""
+    mask = pc.execute_scalar_expression(be.expressions["pred"], db)
+    li_f = pc.filter(project(db, ["l_price", "l_disc"]), mask)
+    rev = pc.execute_scalar_expression(be.expressions["revenue"], li_f)
+    return {"revenue": pc.agg_sum(rev),
+            "count": pc.agg_count(rev, pc.CountOptions("all"))}
+
+
+def q1_projections(db: DeviceBatch) -> tuple:
+    """Q1's disc_price and charge as compute_q1 evaluates them (charge
+    over disc_price as a column), over every row of `db`."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    dp = pc.execute_scalar_expression(call("multiply", [
+        f("l_price"), call("subtract", [lit(1.0), f("l_disc")])]), db)
+    with_dp = DeviceBatch(dt.Schema(list(db.schema.fields)
+                                    + [dt.Field("disc_price", dt.float64)]),
+                          db.columns + [dp], db.length)
+    return dp, pc.execute_scalar_expression(call("multiply", [
+        f("disc_price"), call("add", [lit(1.0), f("l_tax")])]), with_dp)
+
+
+def q1_substrait_expressions() -> dict:
+    """The same two projections as one tree each, for Substrait."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    dp = call("multiply", [f("l_price"), call("subtract", [lit(1.0),
+                                                            f("l_disc")])])
+    return {"disc_price": dp, "charge": call("multiply", [
+        dp, call("add", [lit(1.0), f("l_tax")])])}
+
+
+def q6_host_batches(li, rows: int = CDATA_BATCH_ROWS) -> list:
+    """The Q6 columns as HostBatches of `rows` rows (views of the
+    arrays), typed as IPC_TYPES."""
+    schema = dt.Schema([dt.Field(c, IPC_TYPES[c], False)
+                        for c in IPC_Q6_COLUMNS])
+    n = len(li["l_okey"])
+    return [HostBatch(schema, [HostArray(li[c][a:min(a + rows, n)], None,
+                                         IPC_TYPES[c])
+                               for c in IPC_Q6_COLUMNS], min(a + rows, n) - a)
+            for a in range(0, n, rows)]
+
+
+def cdata_q6(batches: list, dev, times=None, source=None) -> dict:
+    """TPC-H Q6 over an ArrowArrayStream: `batches` exported by
+    export_stream into a stream the port allocates, read by import_stream
+    (each batch copied out of the exported buffers, its array released),
+    sent to the card (host_batch_to_device), filtered (K1) and summed
+    (K3), added across batches. `times` gathers the read (`read_s`: the
+    producer's get_next and the copy), the copy to the card (`h2d_s`)
+    and the compute (`compute_s`); with `source` each batch's columns
+    are held bit for bit against the numpy columns, outside the spans."""
+    from arrow_go_tpu_torch import cdata
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    p = cdata.stream_handle()
+    cdata.export_stream((batches[0].schema, batches), p)
+    r = cdata.import_stream(p)
+    revenue, count, row, n = 0.0, 0, 0, 0
+    spans = {"read_s": 0.0, "h2d_s": 0.0, "compute_s": 0.0}
+    while True:
+        t0 = time.perf_counter()
+        hb = r.read_next_batch()
+        if hb is None:
+            break
+        t1 = time.perf_counter()
+        db = host_batch_to_device(hb, dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        rev = q6_revenue(db)
+        if rev.length:
+            revenue += pc.agg_sum(rev)
+        count += rev.length
+        _sync(dev)
+        t3 = time.perf_counter()
+        for k, v in zip(spans, (t1 - t0, t2 - t1, t3 - t2)):
+            spans[k] += v
+        if source is not None:
+            for f, c in zip(hb.schema.fields, hb.columns):
+                _same_bits(f"cdata_q6 {f.name} batch {n}", c.values,
+                           source[f.name][row:row + hb.num_rows])
+        row += hb.num_rows
+        n += 1
+    if times is not None:
+        times.update(spans, batches=n, rows=row)
+    return {"revenue": revenue, "count": count}
+
+
+def cdata_export_s(batches: list) -> float:
+    """Seconds of the producer's side alone: every batch exported
+    through the stream's get_next and released unread."""
+    import ctypes
+    from arrow_go_tpu_torch import cdata
+    p = cdata.stream_handle()
+    cdata.export_stream((batches[0].schema, batches), p)
+    c = cdata.ArrowArrayStream.from_address(p)
+    a = cdata.ArrowArray()
+    t0 = time.perf_counter()
+    while True:
+        if c.get_next(ctypes.pointer(c), ctypes.pointer(a)) != 0:
+            raise AssertionError("cdata_q6: get_next failed")
+        if not a.release:
+            break
+        a.release(ctypes.pointer(a))
+    s = time.perf_counter() - t0
+    c.release(ctypes.pointer(c))
+    return s
+
+
+def check_device_array(hb: HostBatch) -> dict:
+    """One batch's l_price through export_device_array and
+    import_device_array, bit for bit; the same export with device_type
+    2 (CUDA) refused with ArrowInvalid, then released."""
+    import ctypes
+    from arrow_go_tpu_torch import cdata
+    from arrow_go_tpu_torch.compute.errors import ArrowInvalid
+    col = hb.column("l_price")
+    d = cdata.device_array_handle()
+    s, _ = cdata.schema_handles()
+    t0 = time.perf_counter()
+    cdata.export_device_array(col, d, s)
+    back = cdata.import_device_array(d, s)
+    ms = (time.perf_counter() - t0) * 1e3
+    _same_bits("device array l_price", back.values, col.values)
+    d = cdata.device_array_handle()
+    cdata.export_device_array(col, d, s)
+    dev_arr = cdata.ArrowDeviceArray.from_address(d)
+    dev_arr.device_type = ARROW_DEVICE_CUDA
+    try:
+        cdata.import_device_array(d, s)
+    except ArrowInvalid:
+        pass
+    else:
+        raise AssertionError("a device_type of 2 was imported")
+    dev_arr.array.release(ctypes.pointer(dev_arr.array))
+    return {"rows": len(col), "ms": ms, "cuda_device_type_refused": True}
+
+
+def arrjson_orders_batch(orders, n: int) -> HostBatch:
+    """The first n orders' o_okey, o_custkey, o_odate, and o_opri as a
+    dictionary field (int32 indices, its values in the file's
+    dictionaries section)."""
+    hb = orders_json_batch(orders, n)
+    o_opri = dt.dictionary(dt.int32, dt.string)
+    col = hb.column("o_opri")
+    return HostBatch(dt.Schema([dt.Field(f.name, o_opri if f.name == "o_opri"
+                                         else f.type)
+                                for f in hb.schema.fields]),
+                     [HostArray(col.values, None, o_opri, col.dictionary)
+                      if c is col else c for c in hb.columns], n)
+
+
+def arrjson_orders(text: str, dev, times: dict):
+    """read_arrjson of the orders' text, the batch to the card,
+    json_filter."""
+    from arrow_go_tpu_torch.interop.arrjson import read_arrjson
+    hb, db = to_card(lambda: read_arrjson(text)[0], dev, times)
+    return hb, db, _compute(lambda: json_filter(db), dev, times)
+
+
+def interop_phases(li, orders, dev, card: str,
+                   timing_only: bool = False) -> dict:
+    """This slice's paths: `substrait_q6` (Q6's predicate and revenue
+    serialized as a Substrait ExtendedExpression over the SF10 lineitem's
+    schema, decoded, and run over that lineitem on the card: its count
+    and revenue equal the eager compute_q6 of the same call, bit for
+    bit, and the oracle at rtol 1e-9; Q1's disc_price and charge through
+    Substrait bit for bit against compute_q1's), `cdata_q6` (the Q6
+    columns as HostBatches of CDATA_BATCH_ROWS rows through export_stream
+    and import_stream, each batch to the card, Q6 per batch; one batch
+    through the device array, a CUDA device_type refused),
+    `arrjson_orders` (ARRJSON_ROWS orders, o_opri a dictionary field,
+    through write_arrjson and read_arrjson, filtered on the card and
+    summed) and `interop_path_checks` (every K1 and K3 call of those
+    paths against the plain version; not with `timing_only`). Returns
+    each path's launch counts and the largest kernel - plain
+    difference."""
+    from arrow_go_tpu_torch.interop.arrjson import write_arrjson
+    t_phase = time.perf_counter()
+    launches, checks = {}, {}
+    n_li = len(li["l_okey"])
+    want = q6_oracle(li)
+
+    # substrait_q6, over the lineitem on the card
+    db = agt.batch_to_device({c: li[c] for c in SUBSTRAIT_COLUMNS},
+                             device=dev)
+    exprs = {"pred": q6_expression(), "revenue": pc.call(
+        "multiply", [pc.field("l_price"), pc.field("l_disc")])}
+    t0 = time.perf_counter()
+    blob = pc.serialize_expressions(exprs, schema=db.schema)
+    ser_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    be = pc.deserialize_expressions(blob)
+    de_ms = (time.perf_counter() - t0) * 1e3
+    got, launches["Substrait Q6"] = run_path(
+        "Substrait Q6", lambda: substrait_q6(be, db), ("K1", "K3"))
+    check_q6(got, want)
+    eager = compute_q6(db)
+    if got != eager:
+        raise AssertionError(f"substrait_q6 {got} is not the eager Q6 "
+                             f"{eager} bit for bit")
+    outs, runs = timed(lambda: substrait_q6(be, db))
+    outs_e, runs_e = timed(lambda: compute_q6(db))
+    for out in outs + outs_e:
+        if out != eager:
+            raise AssertionError(f"substrait_q6: a run gave {out}")
+    q1_blob = pc.serialize_expressions(q1_substrait_expressions(),
+                                       schema=db.schema)
+    q1_be = pc.deserialize_expressions(q1_blob)
+    dp, charge = q1_projections(db)
+    for name, col in (("disc_price", dp), ("charge", charge)):
+        via = pc.execute_scalar_expression(q1_be.expressions[name], db)
+        _equal(f"substrait {name}", _host(via).view(np.int64),
+               _host(col).view(np.int64))
+    del dp, charge, via
+    checks["substrait_q6"] = (lambda: substrait_q6(be, db),
+                              lambda o: check_q6(o, want), "Substrait Q6")
+    print(json.dumps({"substrait_q6": {
+        **got, "oracle": want, "rows": n_li, "bytes": len(blob),
+        "q1_bytes": len(q1_blob), "serialize_ms": ser_ms,
+        "deserialize_ms": de_ms, "pred_function":
+            be.expressions["pred"].function,
+        "ms_runs": runs, "ms_median": float(np.median(runs)),
+        "eager_ms_runs": runs_e, "eager_ms_median": float(np.median(runs_e)),
+        "equals_eager_bits": True, "q1_projections_equal_bits": True,
+        "launches_per_run": launches["Substrait Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    # cdata_q6: an ArrowArrayStream of the Q6 columns
+    batches = q6_host_batches(li)
+    got, launches["C stream Q6"] = run_path(
+        "C stream Q6", lambda: cdata_q6(batches, dev), ("K1", "K3"))
+    check_q6(got, want)
+    split = {}
+    again = cdata_q6(batches, dev, split, source=li)
+    if again != got:
+        raise AssertionError("cdata_q6: two reads differ")
+    export_s = cdata_export_s(batches)
+    prof = profile_device(lambda: cdata_q6(batches, dev),
+                          lambda out: check_q6(out, want), top=6)
+    device_array = check_device_array(batches[0])
+    checks["cdata_q6"] = (lambda: cdata_q6(batches, dev),
+                          lambda o: check_q6(o, want), "C stream Q6")
+    print(json.dumps({"cdata_q6": {
+        **got, "oracle": want, "batches": split["batches"],
+        "rows": split["rows"], "body_bytes": split["rows"] * 24,
+        "export_ms": export_s * 1e3,
+        "import_copy_ms": (split["read_s"] - export_s) * 1e3,
+        "read_ms": split["read_s"] * 1e3, "to_card_ms": split["h2d_s"] * 1e3,
+        "compute_ms": split["compute_s"] * 1e3, "profile": prof,
+        "device_array": device_array, "verified_bits": True,
+        "launches_per_run": launches["C stream Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    # arrjson_orders
+    k = min(ARRJSON_ROWS, len(orders["o_okey"]))
+    hb_src = arrjson_orders_batch(orders, k)
+    t0 = time.perf_counter()
+    text = write_arrjson([hb_src])
+    write_ms = (time.perf_counter() - t0) * 1e3
+    keep = orders["o_odate"][:k] < JSON_ODATE_MAX
+    jwant = {"sum": int(orders["o_custkey"][:k][keep].sum()),
+             "count": int(keep.sum())}
+    times = {}
+    (hb, jdb, jgot), launches["arrjson orders"] = run_path(
+        "arrjson orders", lambda: arrjson_orders(text, dev, times),
+        ("K1", "K3"))
+    for name, t in (("o_okey", dt.int64), ("o_custkey", dt.int64),
+                    ("o_odate", dt.int32)):
+        _same_column(f"arrjson_orders {name}", hb.column(name),
+                     orders[name][:k], t)
+    _same_column("arrjson_orders o_opri", hb.column("o_opri"),
+                 (orders["o_opri"][0][:k], orders["o_opri"][1]), dt.string)
+    if hb.schema.field(3).type != hb_src.schema.field(3).type:
+        raise AssertionError("arrjson_orders: o_opri is not read back as "
+                             "its dictionary field")
+    del hb
+
+    def check_arrjson(o):
+        if o != jwant:
+            raise AssertionError(f"arrjson_orders: {o}, numpy {jwant}")
+    check_arrjson(jgot)
+    checks["arrjson_orders"] = (lambda: json_filter(jdb), check_arrjson,
+                                "arrjson orders")
+    print(json.dumps({"arrjson_orders": {
+        **jgot, "rows": k, "rows_cut_from": len(orders["o_okey"]),
+        "bytes": len(text.encode()), "write_ms": write_ms, **_ms(times),
+        "launches_per_run": launches["arrjson orders"], "card": card,
+        "verified": True}}), flush=True)
+    del text
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            out, held[key] = check_path_calls(key, fn, launches[name],
+                                              k3=True)
+            check(out)
+        print(json.dumps({"interop_path_checks": held}), flush=True)
+    del db, jdb, batches
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"interop_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -5911,6 +6248,9 @@ def main(argv=None) -> int:
         if importlib.util.find_spec("arrow_go_tpu_torch.formats") and \
                 "o_opri" in orders:
             formats_phases(li, orders, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.cdata") and \
+                "o_opri" in orders:
+            interop_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -5945,6 +6285,9 @@ def main(argv=None) -> int:
     fmts = formats_phases(li, orders, dev, card)
     k1_err = max(k1_err, fmts["errs"]["K1"])
     k3_err = max(k3_err, fmts["errs"]["K3"])
+    inter = interop_phases(li, orders, dev, card)
+    k1_err = max(k1_err, inter["errs"]["K1"])
+    k3_err = max(k3_err, inter["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -5953,7 +6296,8 @@ def main(argv=None) -> int:
                **decs["launches"], **dsets["launches"],
                **dists["launches"], **nested["launches"],
                **front["launches"], **more["launches"],
-               **ipcs["launches"], **fmts["launches"]}
+               **ipcs["launches"], **fmts["launches"],
+               **inter["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

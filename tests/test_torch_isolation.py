@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 its native codec library, nor its ci/ workers) nor pyarrow nor zstandard
-nor xxhash nor flatbuffers nor triton, its own
+nor xxhash nor flatbuffers nor triton nor cffi nor protobuf, its own
 codec library is built from its own source with no switch or fallback,
 and it never moves to the CPU unless asked."""
 import ast
@@ -19,7 +19,8 @@ from arrow_go_tpu_torch.device.block import batch_to_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
-             "zstandard", "xxhash", "triton", "ci", "flatbuffers")
+             "zstandard", "xxhash", "triton", "ci", "flatbuffers", "cffi",
+             "google.protobuf")
 
 
 def _forbidden(name: str) -> bool:
@@ -76,6 +77,12 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.formats.csv\n"
             "import arrow_go_tpu_torch.formats.json\n"
             "import arrow_go_tpu_torch.formats.avro\n"
+            "import arrow_go_tpu_torch.interop\n"
+            "import arrow_go_tpu_torch.interop.protowire\n"
+            "import arrow_go_tpu_torch.interop.arrjson\n"
+            "import arrow_go_tpu_torch.compute.substrait\n"
+            "import arrow_go_tpu_torch.cdata\n"
+            "arrow_go_tpu_torch.interop, arrow_go_tpu_torch.cdata\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -110,7 +117,9 @@ def test_the_scan_reaches_the_new_modules():
                 "utils/debug.py", "ipc/__init__.py", "ipc/fb.py",
                 "ipc/metadata.py", "ipc/core.py", "parquet/variant.py",
                 "formats/__init__.py", "formats/csv.py", "formats/json.py",
-                "formats/avro.py"):
+                "formats/avro.py", "interop/__init__.py",
+                "interop/protowire.py", "interop/arrjson.py",
+                "compute/substrait.py", "cdata.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 

@@ -175,12 +175,15 @@ def port_array(ja):
     port's null column, an interval its structured values, a list view
     its offsets, sizes and child, a union its type codes (a dense one's
     offsets) and children (a sparse one's cut to its rows), an extension
-    array its storage's."""
+    array its storage's. A dictionary array becomes its indices and the
+    port's dictionary values (str / bytes, or the values), a decimal
+    array its unscaled values (limbs for decimal128 / decimal256)."""
     from arrow_go_tpu import dtypes as jdt
     from arrow_go_tpu.array.arrays import make_array
     from arrow_go_tpu_torch.device.block import (
-        ExtensionArray, HostArray, ListViewArray, UnionArray, factorize,
-        nested_array, null_array)
+        ExtensionArray, HostArray, ListViewArray, UnionArray,
+        dictionary_values, factorize, nested_array, null_array)
+    from arrow_go_tpu_torch.ops.decimal import from_ints
     t, n = ja.type, len(ja)
     tid = t.id
     pt = port_type(t)
@@ -212,6 +215,18 @@ def port_array(ja):
     if tid == jdt.TypeId.STRUCT:
         return nested_array(pt, n, mask, [port_array(ja.field(i))
                                           for i in range(ja.num_fields)])
+    if tid == jdt.TypeId.DICTIONARY:
+        vt = pt.value_type
+        values = ja.dictionary.to_pylist()
+        return HostArray(np.asarray(ja.indices.to_numpy(),
+                                    pt.index_type.np_dtype), mask, pt,
+                         dictionary_values(values, vt)
+                         if vt.is_binary_like else np.asarray(values,
+                                                              vt.np_dtype))
+    if t.is_decimal:
+        ints = [int(u) for u in ja.unscaled_array()]
+        return HostArray(from_ints(ints, pt.limbs) if pt.limbs
+                         else np.asarray(ints, pt.np_dtype), mask, pt)
     vals = ja.to_pylist()
     ok = np.array([v is not None for v in vals], np.bool_)
     if t.is_binary_like or tid == jdt.TypeId.FIXED_SIZE_BINARY:
@@ -223,6 +238,17 @@ def port_array(ja):
     out = np.zeros(n, pt.np_dtype)
     out[ok] = [v for v in vals if v is not None]
     return HostArray(out, mask, pt)
+
+
+def port_record_batch(rb):
+    """The port's HostBatch of a JAX RecordBatch: its schema's fields
+    (port_type, nullability kept) and each column by port_array."""
+    from arrow_go_tpu_torch.device.block import HostBatch
+    tdt = agt_torch.dtypes
+    return HostBatch(tdt.Schema([tdt.Field(f.name, port_type(f.type),
+                                           f.nullable)
+                                 for f in rb.schema.fields]),
+                     [port_array(c) for c in rb.columns], rb.num_rows)
 
 
 def jax_array(a):
