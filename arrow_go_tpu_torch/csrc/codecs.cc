@@ -1999,3 +1999,299 @@ int64_t agt_lz4_frame_decompress(const uint8_t* src, size_t n, uint8_t* dst,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// AES (FIPS-197) in CTR and GCM (NIST SP 800-38D) modes, the cipher of
+// parquet modular encryption. The rounds run on AES-NI, eight CTR blocks
+// in flight, and GHASH on PCLMULQDQ (the carry-less multiply and
+// reduction of Intel's white paper "Carry-Less Multiplication and Its
+// Usage for Computing the GCM Mode"), four blocks folded per reduction
+// with H, H^2, H^3 and H^4, so no step looks up a table indexed by key
+// or data. A CPU without those instructions gets kAesNoCpu and nothing
+// else: there is no table-driven fallback.
+// ---------------------------------------------------------------------------
+
+#include <immintrin.h>
+
+#define AGT_AES __attribute__((target("aes,pclmul,sse4.1")))
+
+namespace {
+
+constexpr int64_t kAesBadKey = -1;
+constexpr int64_t kAesNoCpu = -2;
+constexpr int64_t kAesBadTag = -3;
+constexpr int64_t kAesShort = -4;
+
+bool aes_cpu() {
+    __builtin_cpu_init();
+    return __builtin_cpu_supports("aes") && __builtin_cpu_supports("pclmul")
+        && __builtin_cpu_supports("sse4.1");
+}
+
+struct AesKey {
+    __m128i rk[15];
+    int rounds;
+};
+
+// SubWord of one 32-bit word (the S-box on each byte) through
+// AESKEYGENASSIST, whose first dword is SubWord of the second input dword.
+AGT_AES inline uint32_t sub_word(uint32_t w) {
+    return (uint32_t)_mm_cvtsi128_si32(
+        _mm_aeskeygenassist_si128(_mm_set_epi32(0, 0, (int)w, 0), 0));
+}
+
+// The key expansion of FIPS-197 section 5.2 for 16, 24 or 32 byte keys,
+// word by word; a word's bytes sit little-endian in a uint32, so RotWord
+// is a right rotation by 8 bits. Returns false on another key length.
+AGT_AES bool aes_expand(const uint8_t* key, size_t len, AesKey* k) {
+    if (len != 16 && len != 24 && len != 32) return false;
+    static const uint8_t rcon[10] = {0x01, 0x02, 0x04, 0x08, 0x10,
+                                     0x20, 0x40, 0x80, 0x1b, 0x36};
+    const int nk = (int)(len / 4);
+    k->rounds = nk + 6;
+    const int total = 4 * (k->rounds + 1);
+    uint32_t w[60];
+    memcpy(w, key, len);
+    for (int i = nk; i < total; i++) {
+        uint32_t t = w[i - 1];
+        if (i % nk == 0) {
+            t = sub_word((t >> 8) | (t << 24)) ^ rcon[i / nk - 1];
+        } else if (nk > 6 && i % nk == 4) {
+            t = sub_word(t);
+        }
+        w[i] = w[i - nk] ^ t;
+    }
+    for (int r = 0; r <= k->rounds; r++)
+        k->rk[r] = _mm_loadu_si128((const __m128i*)(w + 4 * r));
+    return true;
+}
+
+AGT_AES inline __m128i aes_block(const AesKey& k, __m128i x) {
+    x = _mm_xor_si128(x, k.rk[0]);
+    for (int r = 1; r < k.rounds; r++) x = _mm_aesenc_si128(x, k.rk[r]);
+    return _mm_aesenclast_si128(x, k.rk[k.rounds]);
+}
+
+// The 12 bytes of iv with a zero count: the counter blocks' base.
+AGT_AES inline __m128i counter_base(const uint8_t* iv) {
+    alignas(16) uint8_t b[16] = {0};
+    memcpy(b, iv, 12);
+    return _mm_load_si128((const __m128i*)b);
+}
+
+// A counter block: the base, then the big-endian 32-bit count.
+AGT_AES inline __m128i counter_block(__m128i base, uint32_t c) {
+    return _mm_insert_epi32(base, (int)__builtin_bswap32(c), 3);
+}
+
+// CTR: dst = src xor the keystream of counters iv[0..12) || c, c + 1, ...
+// (the count incremented mod 2^32), eight blocks at a time so the AES
+// rounds of independent blocks overlap in the pipeline.
+AGT_AES void aes_ctr_run(const AesKey& k, const uint8_t* iv, uint32_t c,
+                         const uint8_t* src, size_t n, uint8_t* dst) {
+    const __m128i base = counter_base(iv);
+    size_t i = 0;
+    for (; i + 128 <= n; i += 128) {
+        __m128i x[8];
+        for (int j = 0; j < 8; j++)
+            x[j] = _mm_xor_si128(counter_block(base, c + j), k.rk[0]);
+        for (int r = 1; r < k.rounds; r++)
+            for (int j = 0; j < 8; j++) x[j] = _mm_aesenc_si128(x[j], k.rk[r]);
+        for (int j = 0; j < 8; j++) {
+            x[j] = _mm_aesenclast_si128(x[j], k.rk[k.rounds]);
+            __m128i p = _mm_loadu_si128((const __m128i*)(src + i + 16 * j));
+            _mm_storeu_si128((__m128i*)(dst + i + 16 * j),
+                             _mm_xor_si128(p, x[j]));
+        }
+        c += 8;
+    }
+    for (; i < n; i += 16, c++) {
+        alignas(16) uint8_t ks[16];
+        _mm_store_si128((__m128i*)ks, aes_block(k, counter_block(base, c)));
+        size_t m = std::min((size_t)16, n - i);
+        for (size_t j = 0; j < m; j++) dst[i + j] = src[i + j] ^ ks[j];
+    }
+}
+
+AGT_AES inline __m128i bswap128(__m128i x) {
+    return _mm_shuffle_epi8(x, _mm_set_epi8(0, 1, 2, 3, 4, 5, 6, 7, 8, 9,
+                                            10, 11, 12, 13, 14, 15));
+}
+
+// The 256-bit carry-less product of a and b as (lo, hi): four
+// PCLMULQDQs (the white paper's Algorithm 5 up to its shift).
+struct Wide {
+    __m128i lo, hi;
+};
+
+AGT_AES inline Wide clmul(__m128i a, __m128i b) {
+    __m128i t3 = _mm_clmulepi64_si128(a, b, 0x00);
+    __m128i t4 = _mm_clmulepi64_si128(a, b, 0x10);
+    __m128i t5 = _mm_clmulepi64_si128(a, b, 0x01);
+    __m128i t6 = _mm_clmulepi64_si128(a, b, 0x11);
+    t4 = _mm_xor_si128(t4, t5);
+    t5 = _mm_slli_si128(t4, 8);
+    t4 = _mm_srli_si128(t4, 8);
+    return {_mm_xor_si128(t3, t5), _mm_xor_si128(t6, t4)};
+}
+
+AGT_AES inline Wide wide_xor(Wide a, Wide b) {
+    return {_mm_xor_si128(a.lo, b.lo), _mm_xor_si128(a.hi, b.hi)};
+}
+
+// A 256-bit product of byte-reflected operands to its GF(2^128) value:
+// the shift left by one bit and the reduction modulo x^128 + x^7 + x^2
+// + x + 1 (the rest of Algorithm 5). Both are linear, so the sum of
+// several products reduces once.
+AGT_AES inline __m128i gf_reduce(Wide w) {
+    __m128i t3 = w.lo, t6 = w.hi, t4, t5;
+    __m128i t7 = _mm_srli_epi32(t3, 31);
+    __m128i t8 = _mm_srli_epi32(t6, 31);
+    t3 = _mm_slli_epi32(t3, 1);
+    t6 = _mm_slli_epi32(t6, 1);
+    __m128i t9 = _mm_srli_si128(t7, 12);
+    t8 = _mm_slli_si128(t8, 4);
+    t7 = _mm_slli_si128(t7, 4);
+    t3 = _mm_or_si128(t3, t7);
+    t6 = _mm_or_si128(t6, t8);
+    t6 = _mm_or_si128(t6, t9);
+    t7 = _mm_slli_epi32(t3, 31);
+    t8 = _mm_slli_epi32(t3, 30);
+    t9 = _mm_slli_epi32(t3, 25);
+    t7 = _mm_xor_si128(t7, t8);
+    t7 = _mm_xor_si128(t7, t9);
+    t8 = _mm_srli_si128(t7, 4);
+    t7 = _mm_slli_si128(t7, 12);
+    t3 = _mm_xor_si128(t3, t7);
+    __m128i t2 = _mm_srli_epi32(t3, 1);
+    t4 = _mm_srli_epi32(t3, 2);
+    t5 = _mm_srli_epi32(t3, 7);
+    t2 = _mm_xor_si128(t2, t4);
+    t2 = _mm_xor_si128(t2, t5);
+    t2 = _mm_xor_si128(t2, t8);
+    t3 = _mm_xor_si128(t3, t2);
+    return _mm_xor_si128(t6, t3);
+}
+
+// a * b in GCM's GF(2^128), both byte-reflected (bswap128 of the block).
+AGT_AES inline __m128i gf_mul(__m128i a, __m128i b) {
+    return gf_reduce(clmul(a, b));
+}
+
+// GHASH's key H and its powers, byte-reflected: hp[j] = H^(j + 1).
+struct GhashKey {
+    __m128i hp[4];
+};
+
+AGT_AES GhashKey ghash_key(const AesKey& k) {
+    GhashKey g;
+    g.hp[0] = bswap128(aes_block(k, _mm_setzero_si128()));
+    for (int j = 1; j < 4; j++) g.hp[j] = gf_mul(g.hp[j - 1], g.hp[0]);
+    return g;
+}
+
+AGT_AES inline __m128i load_block(const uint8_t* p) {
+    return bswap128(_mm_loadu_si128((const __m128i*)p));
+}
+
+// Folds n bytes into the GHASH state y (byte-reflected), the last
+// partial block zero-padded: four blocks at a time as
+// (y + x0) H^4 + x1 H^3 + x2 H^2 + x3 H, one reduction per four.
+AGT_AES __m128i ghash(const GhashKey& g, __m128i y, const uint8_t* p,
+                      size_t n) {
+    size_t i = 0;
+    for (; i + 64 <= n; i += 64) {
+        Wide w = clmul(_mm_xor_si128(y, load_block(p + i)), g.hp[3]);
+        w = wide_xor(w, clmul(load_block(p + i + 16), g.hp[2]));
+        w = wide_xor(w, clmul(load_block(p + i + 32), g.hp[1]));
+        w = wide_xor(w, clmul(load_block(p + i + 48), g.hp[0]));
+        y = gf_reduce(w);
+    }
+    const __m128i h = g.hp[0];
+    for (; i + 16 <= n; i += 16)
+        y = gf_mul(_mm_xor_si128(y, load_block(p + i)), h);
+    if (i < n) {
+        alignas(16) uint8_t b[16] = {0};
+        memcpy(b, p + i, n - i);
+        y = gf_mul(_mm_xor_si128(y, bswap128(_mm_load_si128(
+                       (const __m128i*)b))), h);
+    }
+    return y;
+}
+
+// The GCM tag of (aad, ciphertext) under a 12-byte nonce: E(K, J0) xor
+// GHASH(aad || ct || bitlen(aad) || bitlen(ct)), J0 = nonce || 1.
+AGT_AES void gcm_tag(const AesKey& k, const uint8_t* nonce,
+                     const uint8_t* aad, size_t aad_len, const uint8_t* ct,
+                     size_t n, uint8_t* tag) {
+    const GhashKey g = ghash_key(k);
+    __m128i y = ghash(g, _mm_setzero_si128(), aad, aad_len);
+    y = ghash(g, y, ct, n);
+    alignas(16) uint8_t lens[16];
+    uint64_t bits[2] = {(uint64_t)aad_len * 8, (uint64_t)n * 8};
+    for (int half = 0; half < 2; half++)
+        for (int j = 0; j < 8; j++)
+            lens[8 * half + j] = (uint8_t)(bits[half] >> (56 - 8 * j));
+    y = ghash(g, y, lens, 16);
+    __m128i t = _mm_xor_si128(bswap128(y),
+                              aes_block(k, counter_block(counter_base(nonce),
+                                                         1)));
+    _mm_storeu_si128((__m128i*)tag, t);
+}
+
+}  // namespace
+
+extern "C" {
+
+// AES-CTR of n bytes under a 16/24/32-byte key: iv16 is the first
+// counter block (its last four bytes the big-endian count). Returns n,
+// kAesBadKey or kAesNoCpu.
+AGT_AES int64_t agt_aes_ctr(const uint8_t* key, size_t key_len,
+                            const uint8_t* iv16, const uint8_t* src,
+                            size_t n, uint8_t* dst) {
+    if (!aes_cpu()) return kAesNoCpu;
+    AesKey k;
+    if (!aes_expand(key, key_len, &k)) return kAesBadKey;
+    uint32_t c = ((uint32_t)iv16[12] << 24) | ((uint32_t)iv16[13] << 16)
+        | ((uint32_t)iv16[14] << 8) | iv16[15];
+    aes_ctr_run(k, iv16, c, src, n, dst);
+    return (int64_t)n;
+}
+
+// AES-GCM encryption under a 12-byte nonce: dst gets the n ciphertext
+// bytes, then the 16-byte tag. Returns n + 16, kAesBadKey or kAesNoCpu.
+AGT_AES int64_t agt_aes_gcm_encrypt(const uint8_t* key, size_t key_len,
+                                    const uint8_t* nonce, const uint8_t* aad,
+                                    size_t aad_len, const uint8_t* src,
+                                    size_t n, uint8_t* dst) {
+    if (!aes_cpu()) return kAesNoCpu;
+    AesKey k;
+    if (!aes_expand(key, key_len, &k)) return kAesBadKey;
+    aes_ctr_run(k, nonce, 2, src, n, dst);
+    gcm_tag(k, nonce, aad, aad_len, dst, n, dst + n);
+    return (int64_t)n + 16;
+}
+
+// AES-GCM decryption of src = ciphertext || 16-byte tag (n bytes in all)
+// under a 12-byte nonce: the tag is checked first, in constant time, and
+// the plaintext written to dst only when it holds. Returns n - 16,
+// kAesShort (n < 16), kAesBadTag, kAesBadKey or kAesNoCpu.
+AGT_AES int64_t agt_aes_gcm_decrypt(const uint8_t* key, size_t key_len,
+                                    const uint8_t* nonce, const uint8_t* aad,
+                                    size_t aad_len, const uint8_t* src,
+                                    size_t n, uint8_t* dst) {
+    if (!aes_cpu()) return kAesNoCpu;
+    AesKey k;
+    if (!aes_expand(key, key_len, &k)) return kAesBadKey;
+    if (n < 16) return kAesShort;
+    size_t m = n - 16;
+    uint8_t tag[16];
+    gcm_tag(k, nonce, aad, aad_len, src, m, tag);
+    uint8_t diff = 0;
+    for (int j = 0; j < 16; j++) diff |= tag[j] ^ src[m + j];
+    if (diff) return kAesBadTag;
+    aes_ctr_run(k, nonce, 2, src, m, dst);
+    return (int64_t)m;
+}
+
+}  // extern "C"

@@ -1,7 +1,8 @@
 """The port's host codec library: csrc/codecs.cc, built with g++.
 
 Snappy, LZ4 raw, the LZ4 frame format and zstd (compress, decompress),
-XXH64 and XXH32, the header walks
+XXH64 and XXH32, AES in CTR and GCM modes (AES-NI and PCLMULQDQ; a CPU
+without them raises ArrowNotImplemented), the header walks
 of the RLE/bit-packed hybrid and of DELTA_BINARY_PACKED streams, and the
 byte-array walks of string pages (PLAIN, the DELTA lengths and prefixes
 decoded in full, DELTA_BYTE_ARRAY rebuilt row by row, a first-occurrence
@@ -71,6 +72,11 @@ _SIGNATURES = {
     "agt_lz4_frame_bound": (_SIZE, [_SIZE, _SIZE]),
     "agt_lz4_frame_compress": (_I64, [_P, _SIZE, _SIZE, _P, _SIZE]),
     "agt_lz4_frame_decompress": (_I64, [_P, _SIZE, _P, _SIZE]),
+    "agt_aes_ctr": (_I64, [_P, _SIZE, _P, _P, _SIZE, _P]),
+    "agt_aes_gcm_encrypt": (_I64, [_P, _SIZE, _P, _P, _SIZE, _P, _SIZE,
+                                   _P]),
+    "agt_aes_gcm_decrypt": (_I64, [_P, _SIZE, _P, _P, _SIZE, _P, _SIZE,
+                                   _P]),
 }
 
 
@@ -467,3 +473,78 @@ def avro_flat_walk(vlen: np.ndarray, val: np.ndarray, count: int,
                                 nbs.ctypes.data, out.ctypes.data) < 0:
         raise IndexError("an Avro field read from an empty block")
     return out
+
+
+# ---------------------------------------------------------------------------
+# AES-CTR and AES-GCM (parquet modular encryption)
+# ---------------------------------------------------------------------------
+
+_AES_BAD_KEY, _AES_NO_CPU, _AES_BAD_TAG, _AES_SHORT = -1, -2, -3, -4
+
+
+def _aes_check(n: int) -> int:
+    if n == _AES_BAD_KEY:
+        raise ArrowInvalid("AES keys must be 16/24/32 bytes")
+    if n == _AES_NO_CPU:
+        raise ArrowNotImplemented("AES needs a CPU with AES-NI, PCLMULQDQ "
+                                  "and SSE4.1")
+    if n == _AES_BAD_TAG:
+        raise ArrowInvalid("AES-GCM tag mismatch (wrong key or corrupt "
+                           "module)")
+    if n == _AES_SHORT:
+        raise ArrowInvalid("AES-GCM input shorter than its tag")
+    return n
+
+
+def aes_ctr(key, iv, data, out=None) -> memoryview:
+    """`data` xor the AES keystream of the counter blocks iv, iv + 1, ...
+    (iv a 16-byte block whose last four bytes are a big-endian count,
+    incremented mod 2**32): CTR encryption and decryption alike. With
+    `out` (a uint8 array of len(data) bytes) the result is written
+    there."""
+    k, kp = _in(key)
+    v, vp = _in(iv)
+    if len(v) != 16:
+        raise ArrowInvalid("an AES-CTR counter block is 16 bytes")
+    src, ptr = _in(data)
+    if out is None:
+        out = np.empty(max(len(src), 1), np.uint8)
+    _aes_check(lib().agt_aes_ctr(kp, len(k), vp, ptr, len(src),
+                                 out.ctypes.data))
+    return memoryview(out)[:len(src)]
+
+
+def aes_gcm_encrypt(key, nonce, data, aad=b"", out=None) -> memoryview:
+    """AES-GCM under a 12-byte nonce: the ciphertext of `data`, then its
+    16-byte tag over `aad` and the ciphertext. With `out` (a uint8 array
+    of len(data) + 16 bytes) the result is written there."""
+    k, kp = _in(key)
+    v, vp = _in(nonce)
+    if len(v) != 12:
+        raise ArrowInvalid("an AES-GCM nonce is 12 bytes")
+    a, ap = _in(aad)
+    src, ptr = _in(data)
+    if out is None:
+        out = np.empty(len(src) + 16, np.uint8)
+    n = _aes_check(lib().agt_aes_gcm_encrypt(kp, len(k), vp, ap, len(a),
+                                             ptr, len(src),
+                                             out.ctypes.data))
+    return memoryview(out)[:n]
+
+
+def aes_gcm_decrypt(key, nonce, data, aad=b"") -> memoryview:
+    """The plaintext of `data` (ciphertext, then its 16-byte tag) under a
+    12-byte nonce, after the tag over `aad` and the ciphertext is
+    checked in constant time; a mismatch raises ArrowInvalid and
+    returns nothing."""
+    k, kp = _in(key)
+    v, vp = _in(nonce)
+    if len(v) != 12:
+        raise ArrowInvalid("an AES-GCM nonce is 12 bytes")
+    a, ap = _in(aad)
+    src, ptr = _in(data)
+    out = np.empty(max(len(src) - 16, 1), np.uint8)
+    n = _aes_check(lib().agt_aes_gcm_decrypt(kp, len(k), vp, ap, len(a),
+                                             ptr, len(src),
+                                             out.ctypes.data))
+    return memoryview(out)[:n]

@@ -143,8 +143,10 @@ class BloomFilter:
     def check(self, v, phys: fmt.Type) -> bool:
         return self.check_hash(hash_value(v, phys))
 
-    def serialize(self) -> bytes:
-        """The thrift BloomFilterHeader, then the bitset."""
+    def serialize_parts(self) -> tuple:
+        """(header thrift bytes, bitset bytes): separate so encryption can
+        frame them as two modules (reference aes.go BloomFilterHeader /
+        BloomFilterBitset)."""
         hdr = BloomFilterHeader(
             numBytes=self.num_blocks * BYTES_PER_BLOCK,
             algorithm=BloomFilterAlgorithm(BLOCK=SplitBlockAlgorithm()),
@@ -152,7 +154,12 @@ class BloomFilter:
             compression=BloomFilterCompression(UNCOMPRESSED=Uncompressed()))
         w = CompactWriter()
         w.write_struct(hdr)
-        return bytes(w.out) + self.blocks.astype("<u4").tobytes()
+        return bytes(w.out), self.blocks.astype("<u4").tobytes()
+
+    def serialize(self) -> bytes:
+        """The thrift BloomFilterHeader, then the bitset."""
+        hdr_b, bits = self.serialize_parts()
+        return hdr_b + bits
 
     @staticmethod
     def deserialize(data) -> "BloomFilter":

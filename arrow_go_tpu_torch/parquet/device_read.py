@@ -69,6 +69,7 @@ from ..ops import bitmap, convert
 from ..ops import decode as dd
 from . import compress as comp
 from . import encodings as enc
+from . import encryption as encm
 from . import format as fmt
 from . import schema
 from .reader import read_field_host
@@ -158,16 +159,27 @@ class _Clock:
             self.times["strings_s"] = self.times.get("strings_s", 0.0) + (
                 time.perf_counter() - t0)
 
-    def decompress(self, codec: int, data, size: int):
-        """comp.decompress, its seconds added to "decompress_s" (a host
-        call: no sync)."""
+    def host(self, name: str, fn, *args):
+        """fn(*args), its seconds added to times[name] (a host call: no
+        sync)."""
         if self.times is None:
-            return comp.decompress(codec, data, size)
+            return fn(*args)
         t0 = time.perf_counter()
-        out = comp.decompress(codec, data, size)
-        self.times["decompress_s"] = self.times.get("decompress_s", 0.0) + (
+        out = fn(*args)
+        self.times[name] = self.times.get(name, 0.0) + (
             time.perf_counter() - t0)
         return out
+
+    def decompress(self, codec: int, data, size: int):
+        """comp.decompress, its seconds added to "decompress_s"."""
+        return self.host("decompress_s", comp.decompress, codec, data, size)
+
+    def decrypt(self, ctx, data, module: int, page: int = -1,
+                gcm: bool = True):
+        """One encrypted frame of a chunk (encryption.decrypt_module),
+        its seconds added to "decrypt_s"."""
+        return self.host("decrypt_s", encm.decrypt_module, ctx.key,
+                         ctx.aad(module, page), data, 0, gcm)
 
 
 def _leaf_of(pf, column: str):
@@ -177,21 +189,47 @@ def _leaf_of(pf, column: str):
     raise ArrowInvalid(f"no flat leaf column {column!r}")
 
 
-def _iter_pages(pf, chunk):
+def _iter_pages(pf, chunk, ctx=None, clock: Optional[_Clock] = None):
     """(PageHeader, raw_page_bytes) for every page of a column chunk, as
-    memoryviews of one read of the chunk. Control-plane only."""
+    memoryviews of one read of the chunk. Control-plane only.
+
+    With a crypto context (ParquetFile.column_crypto) each page header is
+    an encrypted frame, whose length comes from its u32 prefix, and each
+    page body one too (CTR under AES_GCM_CTR_V1), decrypted with the
+    module AADs in the JAX reader's order (arrow_go_tpu/parquet/
+    reader.py:396-452): the first header is the dictionary page's when
+    the chunk has a dictionary_page_offset (its kind is unknown until
+    it is decrypted), and the page ordinal counts the pages after the
+    dictionary page. `clock` adds the decryption's seconds to
+    "decrypt_s"."""
+    clock = clock or _Clock(None, None)
     meta = chunk.meta_data
     raw = pf.read_range(meta.dictionary_page_offset or meta.data_page_offset,
                         meta.total_compressed_size)
     pos = 0
     remaining = meta.num_values
+    page_ord = 0
     while remaining > 0 and pos < len(raw):
-        rd = CompactReader(raw, pos)
-        hdr = rd.read_struct(fmt.PageHeader)
-        pos = rd.pos
+        if ctx is None:
+            rd = CompactReader(raw, pos)
+            hdr = rd.read_struct(fmt.PageHeader)
+            pos = rd.pos
+        else:
+            first_dict = pos == 0 and meta.dictionary_page_offset is not None
+            hb, used = clock.decrypt(
+                ctx, raw[pos:], encm.DICT_PAGE_HEADER_MODULE if first_dict
+                else encm.DATA_PAGE_HEADER_MODULE, page_ord)
+            hdr = CompactReader(hb).read_struct(fmt.PageHeader)
+            pos += used
         body = raw[pos: pos + hdr.compressed_page_size]
         pos += hdr.compressed_page_size
         ptype = fmt.PageType(hdr.type)
+        if ctx is not None:
+            dict_page = ptype == fmt.PageType.DICTIONARY_PAGE
+            body, _ = clock.decrypt(
+                ctx, body, encm.DICT_PAGE_MODULE if dict_page
+                else encm.DATA_PAGE_MODULE, page_ord, ctx.gcm_pages)
+            page_ord += not dict_page
         if ptype in (fmt.PageType.DATA_PAGE, fmt.PageType.DATA_PAGE_V2):
             dph = (hdr.data_page_header if ptype == fmt.PageType.DATA_PAGE
                    else hdr.data_page_header_v2)
@@ -441,6 +479,7 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
     rows = _fixed_rows(t, desc.physical_type, desc.type_length)
     np_dtype = None if rows is not None else np.int32 if codes_only else \
         schema.physical_np_dtype(t)
+    ctx = pf.column_crypto(rg_i, li)
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
     host: Host = {}
@@ -448,7 +487,7 @@ def _plan_column(pf, rg_i: int, column: str, stager: _Stager,
     dictionary = None
     dict_page = None           # a string dictionary page's (ends, data)
     dict_rows = 0
-    for hdr, body in _iter_pages(pf, chunk):
+    for hdr, body in _iter_pages(pf, chunk, ctx, clock):
         ptype = fmt.PageType(hdr.type)
         if ptype == fmt.PageType.DICTIONARY_PAGE:
             payload = clock.decompress(codec, body,
@@ -546,8 +585,9 @@ def read_batch_device(pf, rg_i: int, columns: Optional[List[str]] = None,
     rides the batch as a HostColumn, as the JAX scanner gives it.
 
     times: when given, receives the seconds of the phases "parse_s",
-    "h2d_s" and "decode_s", and "decompress_s", the codec calls' share
-    of "parse_s" (each added to any value already there)."""
+    "h2d_s" and "decode_s", and "decompress_s" and "decrypt_s", the
+    codec calls' and the decryption's shares of "parse_s" (each added
+    to any value already there)."""
     dev = torchenv.device(device)
     if columns is None:
         columns = [f.name for f in pf.schema.fields]

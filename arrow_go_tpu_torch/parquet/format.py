@@ -332,3 +332,20 @@ class PageHeader(ThriftStruct):
               6: ("index_page_header", IndexPageHeader),
               7: ("dictionary_page_header", DictionaryPageHeader),
               8: ("data_page_header_v2", DataPageHeaderV2)}
+
+
+class PageLocation(ThriftStruct):
+    FIELDS = {1: ("offset", "i64"), 2: ("compressed_page_size", "i32"),
+              3: ("first_row_index", "i64")}
+
+
+class OffsetIndex(ThriftStruct):
+    FIELDS = {1: ("page_locations", ("list", PageLocation))}
+
+
+class ColumnIndex(ThriftStruct):
+    FIELDS = {1: ("null_pages", ("list", "bool")),
+              2: ("min_values", ("list", "binary")),
+              3: ("max_values", ("list", "binary")),
+              4: ("boundary_order", "i32"),
+              5: ("null_counts", ("list", "i64"))}

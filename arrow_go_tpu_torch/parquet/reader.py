@@ -1,20 +1,34 @@
-"""Parquet file footer and schema (the part of arrow_go_tpu/parquet/
-reader.py:ParquetFile that the device scan reads; reference
-parquet/file/file_reader.go:51), and the row-group pruning of the
-dataset scan by column statistics and bloom filters
-(arrow_go_tpu/parquet/reader.py:683-689,720-796).
+"""Parquet file reader: the footer and schema, the read front
+(`ParquetFile.read_table` / `read_row_group` / `read_rows` and the
+module's `read_table`), modular encryption, the page index, and the
+row-group pruning of the dataset scan by column statistics and bloom
+filters (arrow_go_tpu/parquet/reader.py; reference
+parquet/file/file_reader.go:51).
 
-Flat values are not read here: `device_read.read_batch_device` reads
-the column chunks of a row group and decodes them on the device. A
-nested column (list, map, struct) is read on the host, as the JAX
-reader reads it (arrow_go_tpu/parquet/reader.py:_read_field):
-`read_field_host` decodes each of its leaf chunks' repetition and
-definition levels (the codec library's RLE walk) and present values
-(PLAIN, dictionary, DELTA_BINARY_PACKED and the byte-array encodings;
-a FIXED_LEN_BYTE_ARRAY or INT96 leaf raises ArrowNotImplemented), and
-parquet/levels.py rebuilds the column. Encrypted
-files (the PARE magic, or a plaintext footer that names an encryption
-algorithm) are not ported and raise ArrowNotImplemented.
+Flat values are not read on the host here: `device_read.read_batch_device`
+reads the column chunks of a row group and decodes them on the device,
+and the read front returns its batches as HostBatches
+(`device_batch_to_host`), one read of a row group's chunks each. The
+JAX reader's `use_threads` and `ReaderProperties.buffered_stream` /
+`buffer_size` change how it stages its I/O, not what it reads: they are
+accepted and change nothing here. A nested column (list, map, struct)
+is read on the host, as the JAX reader reads it
+(arrow_go_tpu/parquet/reader.py:_read_field): `read_field_host`
+decodes each of its leaf chunks' repetition and definition levels (the
+codec library's RLE walk) and present values (PLAIN, dictionary,
+DELTA_BINARY_PACKED and the byte-array encodings; a FIXED_LEN_BYTE_ARRAY
+or INT96 leaf raises ArrowNotImplemented), and parquet/levels.py
+rebuilds the column.
+
+Encrypted files (encryption.py): the PARE magic (an encrypted footer,
+decrypted with the footer key) or a plaintext footer that names an
+encryption algorithm (its 28-byte signature verified when the footer
+key is known and `check_plaintext_footer_integrity` is set). Each
+encrypted chunk's key is resolved when the file opens and its
+decrypted ColumnMetaData spliced in; a key that cannot be had is kept
+and raised when that column is read, so the plaintext columns of a
+partly encrypted file read with no keys. The pages, the bloom filters
+and the page index decrypt as they are read.
 
 The pruning keeps the JAX package's semantics: only the statistics'
 `min_value` / `max_value` are read (not the deprecated `min` / `max`),
@@ -38,6 +52,7 @@ from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import ExtensionArray, HostArray, factorize
 from . import compress as comp
 from . import encodings as enc
+from . import encryption as encm
 from . import format as fmt
 from . import levels as lv
 from . import schema as psch
@@ -46,12 +61,39 @@ from .thrift import CompactReader
 MAGIC = b"PAR1"
 MAGIC_ENCRYPTED = b"PARE"
 
+DEFAULT_BUF_SIZE = 4096  # reference parquet.DefaultBufSize
+
+
+class ReaderProperties:
+    """Reference parquet.ReaderProperties (reader_properties.go:37):
+    `decryption` is used when ParquetFile is given none. `buffer_size`
+    and `buffered_stream` stage the JAX reader's I/O; the port reads a
+    chunk in one read whatever they say."""
+
+    def __init__(self, buffer_size: int = DEFAULT_BUF_SIZE,
+                 buffered_stream: bool = False,
+                 decryption: Optional[encm.FileDecryptionProperties] = None):
+        self.buffer_size = buffer_size
+        self.buffered_stream = buffered_stream
+        self.decryption = decryption
+
 
 class ParquetFile:
     """Footer, schema and leaf columns of a parquet file, plus its source
-    for the column-chunk reads."""
+    for the column-chunk reads, its keys (`decryption`, else
+    `properties.decryption`) and the read front."""
 
-    def __init__(self, source: Union[str, os.PathLike, BinaryIO, bytes]):
+    def __init__(self, source: Union[str, os.PathLike, BinaryIO, bytes],
+                 decryption: Optional[encm.FileDecryptionProperties] = None,
+                 properties: Optional[ReaderProperties] = None):
+        self.properties = properties or ReaderProperties()
+        if decryption is None:
+            decryption = self.properties.decryption
+        self._decryption = decryption
+        self._file_aad = b""
+        self._gcm_pages = True
+        self._footer_key: Optional[bytes] = None
+        self._col_crypto: dict = {}
         self._owned = isinstance(source, (str, os.PathLike))
         # a file given as bytes is sliced in place by read_range
         self._buffer = None
@@ -65,11 +107,17 @@ class ParquetFile:
         self._src_lock = threading.Lock()
         try:
             self.metadata = self._read_footer()
+            if self._file_aad:
+                self._resolve_column_crypto()
         except BaseException:
             self.close()
             raise
         self.schema, self.leaves = psch.elements_to_schema(
             self.metadata.schema)
+        kv = self.metadata.key_value_metadata or []
+        if kv:      # the file's key/value metadata, as the JAX reader keeps
+            self.schema = dt.Schema(self.schema.fields, dt.Metadata(
+                keys=[e.key for e in kv], values=[e.value or "" for e in kv]))
 
     def _read_footer(self) -> fmt.FileMetaData:
         src = self.src
@@ -81,20 +129,149 @@ class ParquetFile:
         head = src.read(4)
         src.seek(size - 8)
         tail = src.read(8)
-        if MAGIC_ENCRYPTED in (head, tail[4:]):
-            raise ArrowNotImplemented("encrypted parquet files are not "
-                                      "ported")
-        if head != MAGIC or tail[4:] != MAGIC:
+        if head not in (MAGIC, MAGIC_ENCRYPTED) or \
+                tail[4:] not in (MAGIC, MAGIC_ENCRYPTED):
             raise ArrowInvalid("bad parquet magic")
         (flen,) = struct.unpack("<I", tail[:4])
         if flen > size - 12:
             raise ArrowInvalid(f"footer length {flen} exceeds the file")
         src.seek(size - 8 - flen)
-        meta = CompactReader(src.read(flen)).read_struct(fmt.FileMetaData)
+        footer = src.read(flen)
+        if tail[4:] == MAGIC_ENCRYPTED:
+            return self._decrypt_footer(footer)
+        meta = CompactReader(footer).read_struct(fmt.FileMetaData)
         if meta.encryption_algorithm is not None:
-            raise ArrowNotImplemented("encrypted parquet files are not "
-                                      "ported")
+            self._plaintext_footer_crypto(meta, footer)
         return meta
+
+    # -- modular encryption (reference parquet/file/file_reader.go,
+    #    internal/encryption/decryptor.go) --------------------------------
+
+    def _algo_setup(self, algo: fmt.EncryptionAlgorithm) -> None:
+        a = algo.AES_GCM_V1 or algo.AES_GCM_CTR_V1
+        self._gcm_pages = algo.AES_GCM_V1 is not None
+        prefix = a.aad_prefix or b""
+        if a.supply_aad_prefix:
+            if self._decryption is None or not self._decryption.aad_prefix:
+                raise ArrowInvalid("file requires the caller to supply the "
+                                   "AAD prefix")
+            prefix = self._decryption.aad_prefix
+        self._file_aad = bytes(prefix) + bytes(a.aad_file_unique or b"")
+
+    def _decrypt_footer(self, blob: bytes) -> fmt.FileMetaData:
+        if self._decryption is None:
+            raise ArrowInvalid("encrypted-footer parquet file: pass "
+                               "decryption=FileDecryptionProperties(...)")
+        rd = CompactReader(blob)
+        fcmd = rd.read_struct(fmt.FileCryptoMetaData)
+        self._algo_setup(fcmd.encryption_algorithm)
+        self._footer_key = self._decryption.footer_key_for(
+            fcmd.key_metadata or b"")
+        pt, _ = encm.decrypt_module(
+            self._footer_key, encm.footer_aad(self._file_aad), blob, rd.pos)
+        return CompactReader(pt).read_struct(fmt.FileMetaData)
+
+    def _plaintext_footer_crypto(self, meta: fmt.FileMetaData,
+                                 footer: bytes) -> None:
+        """A plaintext footer of an encrypted file: its columns may be
+        encrypted, and its last 28 bytes sign the bytes before them."""
+        self._algo_setup(meta.encryption_algorithm)
+        if self._decryption is None:
+            return  # metadata and plaintext columns stay readable
+        try:
+            self._footer_key = self._decryption.footer_key_for(
+                meta.footer_signing_key_metadata or b"")
+        except ArrowInvalid:
+            self._footer_key = None
+        if (self._footer_key is not None
+                and self._decryption.check_plaintext_footer_integrity):
+            sig_len = encm.NONCE_LEN + encm.TAG_LEN
+            plain, sig = footer[:-sig_len], footer[-sig_len:]
+            if not encm.verify_footer_signature(
+                    self._footer_key, encm.footer_aad(self._file_aad),
+                    plain, sig):
+                raise ArrowInvalid("plaintext footer signature verification "
+                                   "failed")
+
+    def _resolve_column_crypto(self) -> None:
+        """{(rg, col) -> context, or the error its key gave}, with the
+        decrypted column metadata spliced back into the chunks before any
+        offset is read (reference metadata/column_chunk.go:95). The AAD
+        takes the row group's ordinal, not its place in the list."""
+        for rg_i, rg in enumerate(self.metadata.row_groups or []):
+            rg_ord = rg.ordinal if rg.ordinal is not None else rg_i
+            for li, chunk in enumerate(rg.columns or []):
+                cm = chunk.crypto_metadata
+                if cm is None:
+                    continue
+                # a missing key surfaces when its column is read, not
+                # here: the plaintext columns of a partly encrypted file
+                # read with no keys
+                try:
+                    if cm.ENCRYPTION_WITH_COLUMN_KEY is not None:
+                        ck = cm.ENCRYPTION_WITH_COLUMN_KEY
+                        if self._decryption is None:
+                            raise ArrowInvalid(
+                                "encrypted column without decryption "
+                                "properties")
+                        path = ".".join(ck.path_in_schema or [])
+                        key = self._decryption.column_key_for(
+                            path, ck.key_metadata or b"")
+                    else:
+                        if self._footer_key is None:
+                            raise ArrowInvalid(
+                                "column encrypted with footer key but no "
+                                "footer key available")
+                        key = self._footer_key
+                except ArrowInvalid as e:
+                    self._col_crypto[(rg_i, li)] = e
+                    continue
+                ctx = encm._ColumnCryptoContext(key, self._file_aad, rg_ord,
+                                                li, self._gcm_pages)
+                self._col_crypto[(rg_i, li)] = ctx
+                if chunk.encrypted_column_metadata:
+                    pt, _ = encm.decrypt_module(
+                        key, ctx.aad(encm.COLUMN_META_MODULE),
+                        chunk.encrypted_column_metadata)
+                    chunk.meta_data = CompactReader(pt).read_struct(
+                        fmt.ColumnMetaData)
+
+    def column_crypto(self, rg: int, col: int):
+        """The crypto context of leaf `col`'s chunk in row group `rg`, or
+        None for a plaintext chunk; raises the error its key gave."""
+        ctx = self._col_crypto.get((rg, col))
+        if isinstance(ctx, Exception):
+            raise ctx
+        return ctx
+
+    def _index_module(self, rg: int, col: int, offset, length, module: int):
+        """The bytes of a page-index structure, decrypted when its column
+        is encrypted (None when the chunk has none)."""
+        if offset is None:
+            return None
+        ctx = self.column_crypto(rg, col)
+        raw = self.read_range(offset, length)
+        if ctx is not None:
+            raw, _ = encm.decrypt_module(ctx.key, ctx.aad(module), raw)
+        return raw
+
+    def read_column_index(self, rg: int, col: int):
+        """The ColumnIndex of leaf `col` in row group `rg`, or None."""
+        chunk = self.metadata.row_groups[rg].columns[col]
+        raw = self._index_module(rg, col, chunk.column_index_offset,
+                                 chunk.column_index_length,
+                                 encm.COLUMN_INDEX_MODULE)
+        return None if raw is None else CompactReader(raw).read_struct(
+            fmt.ColumnIndex)
+
+    def read_offset_index(self, rg: int, col: int):
+        """The OffsetIndex of leaf `col` in row group `rg`, or None."""
+        chunk = self.metadata.row_groups[rg].columns[col]
+        raw = self._index_module(rg, col, chunk.offset_index_offset,
+                                 chunk.offset_index_length,
+                                 encm.OFFSET_INDEX_MODULE)
+        return None if raw is None else CompactReader(raw).read_struct(
+            fmt.OffsetIndex)
 
     def read_range(self, start: int, size: int) -> memoryview:
         """Bytes [start, start + size) of the file: a slice of the caller's
@@ -118,8 +295,16 @@ class ParquetFile:
         meta = self.metadata.row_groups[rg].columns[col].meta_data
         if meta.bloom_filter_offset is None:
             return None
-        return BloomFilter.deserialize(self.read_range(
-            meta.bloom_filter_offset, meta.bloom_filter_length or (1 << 20)))
+        raw = self.read_range(meta.bloom_filter_offset,
+                              meta.bloom_filter_length or (1 << 20))
+        ctx = self.column_crypto(rg, col)
+        if ctx is not None:     # two modules: the header, the bitset
+            hdr, used = encm.decrypt_module(
+                ctx.key, ctx.aad(encm.BLOOM_HEADER_MODULE), raw)
+            bits, _ = encm.decrypt_module(
+                ctx.key, ctx.aad(encm.BLOOM_BITSET_MODULE), raw, used)
+            raw = bytes(hdr) + bytes(bits)
+        return BloomFilter.deserialize(raw)
 
     def _row_group_may_match(self, rg_i: int, filters: List[tuple],
                              bloom: bool = True) -> bool:
@@ -154,8 +339,74 @@ class ParquetFile:
         return True
 
     @property
+    def num_rows(self) -> int:
+        return self.metadata.num_rows or 0
+
+    @property
     def num_row_groups(self) -> int:
         return len(self.metadata.row_groups or [])
+
+    # -- the read front: each row group through read_batch_device on
+    #    `device` (the card unless named), back as a HostBatch ---------
+
+    def _selected(self, columns: Optional[List[str]]) -> List[str]:
+        """The top-level fields `columns` names, in schema order (a name
+        the schema lacks is passed over, as the JAX reader does)."""
+        return [f.name for f in self.schema.fields
+                if columns is None or f.name in columns]
+
+    def read_row_group(self, i: int, columns: Optional[List[str]] = None,
+                       use_threads: bool = True, device=None):
+        """Row group i's `columns` (all by default) as a HostBatch, read
+        by read_batch_device on `device`."""
+        from ..device.block import HostBatch, device_batch_to_host
+        from .device_read import read_batch_device
+        hb = device_batch_to_host(read_batch_device(
+            self, i, self._selected(columns), device=device))
+        return HostBatch(dt.Schema(hb.schema.fields, self.schema.metadata),
+                         hb.columns, hb.num_rows)
+
+    def _concat(self, batches: list, columns: Optional[List[str]]):
+        from ..dataset import _empty
+        from ..device.block import HostBatch, concat_host_arrays
+        if len(batches) == 1:
+            return batches[0]
+        if batches:
+            return HostBatch(batches[0].schema, [
+                concat_host_arrays([b.columns[i] for b in batches])
+                for i in range(len(batches[0].columns))],
+                sum(b.num_rows for b in batches))
+        fields = [self.schema.field(self.schema.field_index(c))
+                  for c in self._selected(columns)]
+        return HostBatch(dt.Schema(fields, self.schema.metadata),
+                         [_empty(f.type) for f in fields], 0)
+
+    def read_table(self, columns: Optional[List[str]] = None,
+                   filters: Optional[List[tuple]] = None,
+                   use_threads: bool = True, device=None):
+        """Every row group that `filters` ((column, op, literal), ANDed)
+        may match by statistics and bloom filters, its `columns` read as
+        read_row_group reads them, in one HostBatch (a string column's
+        dictionaries merged in first-occurrence order)."""
+        keep = [i for i in range(self.num_row_groups)
+                if not filters or self._row_group_may_match(i, filters)]
+        return self._concat([self.read_row_group(i, columns, device=device)
+                             for i in keep], columns)
+
+    def read_rows(self, offset: int, num_rows: int,
+                  columns: Optional[List[str]] = None, device=None):
+        """Rows [offset, offset + num_rows) as a HostBatch: the row groups
+        that hold them, read whole and cut (the JAX reader's SeekToRow
+        analog, which also skips pages outside the range)."""
+        batches, row0 = [], 0
+        for i, rg in enumerate(self.metadata.row_groups or []):
+            n = rg.num_rows or 0
+            lo, hi = max(offset, row0), min(offset + num_rows, row0 + n)
+            if lo < hi:
+                batches.append(self.read_row_group(
+                    i, columns, device=device).slice(lo - row0, hi - lo))
+            row0 += n
+        return self._concat(batches, columns)
 
     def close(self) -> None:
         if self._owned:
@@ -290,11 +541,12 @@ def _read_leaf(pf: ParquetFile, rg_i: int, li: int):
     if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
         raise ArrowNotImplemented(
             f"a nested column's {phys.name} leaf is not ported")
+    ctx = pf.column_crypto(rg_i, li)
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
     dictionary = None
     defs, reps, parts = [], [], []
-    for hdr, body in _iter_pages(pf, chunk):
+    for hdr, body in _iter_pages(pf, chunk, ctx):
         ptype = fmt.PageType(hdr.type)
         if ptype == fmt.PageType.DICTIONARY_PAGE:
             payload = comp.decompress(codec, body,
@@ -350,3 +602,14 @@ def read_field_host(pf: ParquetFile, rg_i: int, name: str) -> HostArray:
     if f.type.id == dt.TypeId.EXTENSION:
         out = ExtensionArray(f.type, out)
     return out
+
+
+def read_table(source, columns: Optional[List[str]] = None,
+               filters: Optional[List[tuple]] = None,
+               decryption: Optional[encm.FileDecryptionProperties] = None,
+               properties: Optional[ReaderProperties] = None,
+               use_threads: bool = True, device=None):
+    """A parquet file's table as a HostBatch (ParquetFile.read_table),
+    read on `device` (the card unless named)."""
+    with ParquetFile(source, decryption, properties) as pf:
+        return pf.read_table(columns, filters, use_threads, device)

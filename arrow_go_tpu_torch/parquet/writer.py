@@ -48,6 +48,19 @@ its list<struct<key, value>> storage, a fixed_size_list as a list, as
 the JAX writer writes them): one v1 data page a chunk, repetition and
 definition levels RLE, the leaf's present values PLAIN, no statistics.
 Its leaves are bool, integer, float, temporal, string or binary.
+
+With `encryption` (encryption.FileEncryptionProperties) the file is
+written as the JAX writer writes it under parquet modular encryption:
+each encrypted chunk's page headers and pages as encrypted frames (the
+pages CTR under AES_GCM_CTR_V1; `compressed_page_size` counts the
+frame), its bloom filter as two modules, its page index encrypted, its
+ColumnMetaData encrypted where the reference does (with a redacted
+plaintext copy under a plaintext footer), and the footer encrypted
+("PARE") or signed. `write_page_index` writes each chunk's ColumnIndex
+(one entry from the chunk statistics) and OffsetIndex (its page
+locations) after the row groups and bloom filters; it is off by
+default (the JAX writer's default is on) so that files written without
+it keep their bytes.
 """
 from __future__ import annotations
 
@@ -63,12 +76,14 @@ from ..device.block import HostArray, dictionary_type, factorize
 from . import bloom as bloom_mod
 from . import compress as comp
 from . import encodings as enc
+from . import encryption as encm
 from . import format as fmt
 from . import levels as lv
 from . import schema as psch
 from .thrift import CompactWriter
 
 MAGIC = b"PAR1"
+MAGIC_ENCRYPTED = b"PARE"
 CREATED_BY = "arrow_go_tpu_torch v0.1.0"
 _RANGE_TABLE_MAX = 1 << 26     # widest value range dictionary-coded by table
 
@@ -178,12 +193,57 @@ class _Options:
     bloom: bool
 
 
+class _Pages:
+    """Writes a chunk's pages, each header and body an encrypted frame
+    when the chunk has a crypto context, and keeps their locations and
+    sizes."""
+
+    def __init__(self, sink: BinaryIO, crypto):
+        self.sink = sink
+        self.crypto = crypto
+        self.locations: List[fmt.PageLocation] = []
+        self.unc = self.comp = 0
+        self.ordinal = 0           # data pages written
+
+    def write(self, hdr: fmt.PageHeader, body, uncompressed: int,
+              first_row: Optional[int] = None) -> int:
+        """Writes one page (a dictionary page when first_row is None);
+        returns its offset."""
+        c = self.crypto
+        data_page = first_row is not None
+        if c is not None:
+            body = encm.encrypt_module(
+                c.key, c.aad(encm.DATA_PAGE_MODULE if data_page
+                             else encm.DICT_PAGE_MODULE, self.ordinal),
+                body, c.gcm_pages)
+            hdr.compressed_page_size = len(body)
+        hb = _thrift_bytes(hdr)
+        if c is not None:
+            hb = encm.encrypt_module(
+                c.key, c.aad(encm.DATA_PAGE_HEADER_MODULE if data_page
+                             else encm.DICT_PAGE_HEADER_MODULE,
+                             self.ordinal), hb)
+        off = self.sink.tell()
+        self.sink.write(hb)
+        self.sink.write(body)
+        self.unc += len(hb) + uncompressed
+        self.comp += len(hb) + len(body)
+        if data_page:
+            self.locations.append(fmt.PageLocation(
+                offset=off, compressed_page_size=len(hb) + len(body),
+                first_row_index=first_row))
+            self.ordinal += 1
+        return off
+
+
 def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                  mask: Optional[np.ndarray], desc: psch.ColumnDescriptor,
                  opts: _Options, encoding: Optional[fmt.Encoding] = None,
-                 dictionary: Optional[np.ndarray] = None):
-    """One column chunk and its bloom filter (None unless asked for). A
-    string column arrives as int32 codes into `dictionary`."""
+                 dictionary: Optional[np.ndarray] = None, crypto=None):
+    """One column chunk, its bloom filter (None unless asked for) and its
+    page locations. A string column arrives as int32 codes into
+    `dictionary`; `crypto` (an encryption._ColumnCryptoContext) encrypts
+    its pages."""
     codec, use_dictionary, dict_limit = (opts.codec, opts.use_dictionary,
                                          opts.dict_limit)
     data_page_size = opts.data_page_size
@@ -225,7 +285,7 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         if opts.statistics else None
     bloom = _bloom(phys, values, entries) if opts.bloom else None
     start_offset = sink.tell()
-    total_unc = total_comp = 0
+    pages = _Pages(sink, crypto)
     dict_page_offset = None
     plain_encoding = encoding or fmt.Encoding.PLAIN
     if coded is not None:
@@ -233,17 +293,13 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         width = max(enc.bit_width_for(len(keys) - 1), 1)
         page = enc.plain_encode(phys, keys)
         body = comp.compress(codec, page, opts.level)
-        hb = _thrift_bytes(fmt.PageHeader(
+        dict_page_offset = pages.write(fmt.PageHeader(
             type=int(fmt.PageType.DICTIONARY_PAGE),
             uncompressed_page_size=len(page),
             compressed_page_size=len(body),
             dictionary_page_header=fmt.DictionaryPageHeader(
-                num_values=len(keys), encoding=int(fmt.Encoding.PLAIN))))
-        dict_page_offset = sink.tell()
-        sink.write(hb)
-        sink.write(body)
-        total_unc += len(hb) + len(page)
-        total_comp += len(hb) + len(body)
+                num_values=len(keys), encoding=int(fmt.Encoding.PLAIN))),
+            body, len(page))
         value_encoding = fmt.Encoding.RLE_DICTIONARY
         row_bytes = width / 8
     else:
@@ -287,20 +343,17 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             data = enc.plain_encode(phys, present[p0:p1])
         payload = levels + data
         body = comp.compress(codec, payload, opts.level)
-        hb = _thrift_bytes(fmt.PageHeader(
+        off = pages.write(fmt.PageHeader(
             type=int(fmt.PageType.DATA_PAGE),
             uncompressed_page_size=len(payload),
             compressed_page_size=len(body),
             data_page_header=fmt.DataPageHeader(
                 num_values=end - start, encoding=int(value_encoding),
                 definition_level_encoding=int(fmt.Encoding.RLE),
-                repetition_level_encoding=int(fmt.Encoding.RLE))))
+                repetition_level_encoding=int(fmt.Encoding.RLE))),
+            body, len(payload), start)
         if data_page_offset is None:
-            data_page_offset = sink.tell()
-        sink.write(hb)
-        sink.write(body)
-        total_unc += len(hb) + len(payload)
-        total_comp += len(hb) + len(body)
+            data_page_offset = off
 
     encodings = {int(fmt.Encoding.PLAIN)} | page_encodings
     if nullable:
@@ -308,10 +361,11 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
     meta = fmt.ColumnMetaData(
         type=int(phys), encodings=sorted(encodings),
         path_in_schema=list(desc.path), codec=int(codec),
-        num_values=num_values, total_uncompressed_size=total_unc,
-        total_compressed_size=total_comp, data_page_offset=data_page_offset,
+        num_values=num_values, total_uncompressed_size=pages.unc,
+        total_compressed_size=pages.comp, data_page_offset=data_page_offset,
         dictionary_page_offset=dict_page_offset, statistics=stats)
-    return fmt.ColumnChunk(file_offset=start_offset, meta_data=meta), bloom
+    return fmt.ColumnChunk(file_offset=start_offset, meta_data=meta), \
+        bloom, pages.locations
 
 
 _ENCODING_NAMES = {
@@ -515,7 +569,9 @@ def write_table(data: Dict[str, object], sink,
                 int96_timestamps: bool = False,
                 compression_level: Optional[int] = None,
                 write_statistics: bool = True,
-                write_bloom_filters: Union[bool, Sequence[str]] = False
+                write_bloom_filters: Union[bool, Sequence[str]] = False,
+                write_page_index: bool = False,
+                encryption: Optional[encm.FileEncryptionProperties] = None
                 ) -> None:
     """Write columns (all of one length) to a parquet file.
 
@@ -549,6 +605,8 @@ def write_table(data: Dict[str, object], sink,
     store_decimal_as_integer: a decimal of precision <= 18 as INT32 /
            INT64 (read back as decimal32 / decimal64).
     int96_timestamps: timestamp columns as INT96.
+    write_page_index: each chunk's ColumnIndex and OffsetIndex.
+    encryption: parquet modular encryption of the file (module doc).
     sink:  a path or a binary file object.
     """
     masks = dict(masks or {})
@@ -617,7 +675,8 @@ def write_table(data: Dict[str, object], sink,
         else bool(use_dictionary), dictionary_pagesize_limit,
         data_page_size, write_statistics, name in blooms)
         for name in names}
-    args = (cols, masks, elements, leaves, n, opts, row_group_size, encs)
+    args = (cols, masks, elements, leaves, n, opts, row_group_size, encs,
+            write_page_index, encryption)
     if hasattr(sink, "write"):
         _write(sink, *args)
         return
@@ -644,9 +703,10 @@ def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
 
 
 def _write_levels_chunk(sink: BinaryIO, arr: HostArray, field: dt.Field,
-                        desc: psch.ColumnDescriptor, opts: _Options):
+                        desc: psch.ColumnDescriptor, opts: _Options,
+                        crypto=None):
     """One leaf chunk of a nested column: its levels and present values
-    in one v1 data page."""
+    in one v1 data page; returns the chunk and its page locations."""
     defs, reps, leaf = lv.generate_levels_nested(arr, field)
     levels = b""
     if desc.max_rep_level:
@@ -658,46 +718,111 @@ def _write_levels_chunk(sink: BinaryIO, arr: HostArray, field: dt.Field,
     payload = levels + enc.plain_encode(desc.physical_type,
                                         _physical_leaf(leaf, desc))
     body = comp.compress(opts.codec, payload, opts.level)
-    hb = _thrift_bytes(fmt.PageHeader(
+    pages = _Pages(sink, crypto)
+    start = pages.write(fmt.PageHeader(
         type=int(fmt.PageType.DATA_PAGE), uncompressed_page_size=len(payload),
         compressed_page_size=len(body),
         data_page_header=fmt.DataPageHeader(
             num_values=len(defs), encoding=int(fmt.Encoding.PLAIN),
             definition_level_encoding=int(fmt.Encoding.RLE),
-            repetition_level_encoding=int(fmt.Encoding.RLE))))
-    start = sink.tell()
-    sink.write(hb)
-    sink.write(body)
+            repetition_level_encoding=int(fmt.Encoding.RLE))),
+        body, len(payload), 0)
     meta = fmt.ColumnMetaData(
         type=int(desc.physical_type),
         encodings=[int(fmt.Encoding.PLAIN), int(fmt.Encoding.RLE)],
         path_in_schema=list(desc.path), codec=int(opts.codec),
-        num_values=len(defs), total_uncompressed_size=len(hb) + len(payload),
-        total_compressed_size=len(hb) + len(body), data_page_offset=start)
-    return fmt.ColumnChunk(file_offset=start, meta_data=meta)
+        num_values=len(defs), total_uncompressed_size=pages.unc,
+        total_compressed_size=pages.comp, data_page_offset=start)
+    return fmt.ColumnChunk(file_offset=start, meta_data=meta), \
+        pages.locations
 
 
 def _write_nested(sink: BinaryIO, arr: HostArray, f: dt.Field, descs,
-                  opts: _Options) -> list:
-    """The chunks of a nested column's rows, one a leaf."""
+                  opts: _Options, cryptos) -> list:
+    """(chunk, page locations) of each leaf of a nested column's rows."""
     if f.type.id == dt.TypeId.MAP:
         f, arr = lv.map_storage_field(f), lv.map_storage_data(arr)
     elif f.type.id == dt.TypeId.FIXED_SIZE_LIST:
         f, arr = lv.fsl_storage_field(f), lv.fsl_storage_data(arr)
     return [_write_levels_chunk(sink, *lv.prune_to_leaf(arr, f, path), desc,
-                                opts)
-            for path, desc in zip(lv.leaf_paths(f.type), descs)]
+                                opts, crypto)
+            for path, desc, crypto in zip(lv.leaf_paths(f.type), descs,
+                                          cryptos)]
+
+
+def _column_crypto(encryption, leaves, rg: int, li: int):
+    """(crypto context or None for a plaintext chunk, column key metadata,
+    whether the footer key encrypts it) of leaf li in row group rg."""
+    if encryption is None:
+        return None, None, None
+    key, key_meta, uses_footer = encryption.column_setup(
+        ".".join(leaves[li].path))
+    if key is None:
+        return None, None, None
+    ctx = encm._ColumnCryptoContext(
+        key, encryption.file_aad, rg, li,
+        gcm_pages=encryption.algorithm == encm.AES_GCM_V1)
+    return ctx, key_meta, uses_footer
+
+
+def _populate_crypto_metadata(chunk: fmt.ColumnChunk, desc, ctx,
+                              col_key_meta: bytes, uses_footer: bool,
+                              encryption) -> None:
+    """Set crypto_metadata / encrypted_column_metadata on one chunk
+    (reference metadata/column_chunk.go PopulateCryptoData:433)."""
+    if uses_footer:
+        chunk.crypto_metadata = fmt.ColumnCryptoMetaData(
+            ENCRYPTION_WITH_FOOTER_KEY=fmt.EncryptionWithFooterKey())
+    else:
+        chunk.crypto_metadata = fmt.ColumnCryptoMetaData(
+            ENCRYPTION_WITH_COLUMN_KEY=fmt.EncryptionWithColumnKey(
+                path_in_schema=list(desc.path), key_metadata=col_key_meta))
+    encrypted_footer = not encryption.plaintext_footer
+    if not encrypted_footer or not uses_footer:
+        chunk.encrypted_column_metadata = encm.encrypt_module(
+            ctx.key, ctx.aad(encm.COLUMN_META_MODULE),
+            _thrift_bytes(chunk.meta_data))
+        if encrypted_footer:
+            chunk.meta_data = None
+        else:
+            # a plaintext footer keeps a redacted copy for old readers
+            chunk.meta_data.statistics = None
+            chunk.meta_data.encoding_stats = None
+
+
+def _page_index(chunk: fmt.ColumnChunk, locations, ctx, module: int):
+    """The thrift bytes of a chunk's ColumnIndex (one entry from its
+    statistics) or OffsetIndex (its page locations), encrypted when the
+    chunk is."""
+    if module == encm.COLUMN_INDEX_MODULE:
+        st = chunk.meta_data.statistics
+        blob = _thrift_bytes(fmt.ColumnIndex(
+            null_pages=[st is None or st.min_value is None],
+            min_values=[st.min_value if st and st.min_value else b""],
+            max_values=[st.max_value if st and st.max_value else b""],
+            boundary_order=0,
+            null_counts=[st.null_count if st and st.null_count is not None
+                         else 0]))
+    else:
+        blob = _thrift_bytes(fmt.OffsetIndex(page_locations=locations))
+    if ctx is not None:
+        blob = encm.encrypt_module(ctx.key, ctx.aad(module), blob)
+    return blob
 
 
 def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
-           encs) -> None:
-    sink.write(MAGIC)
+           encs, write_page_index=False, encryption=None) -> None:
+    encrypted_footer = encryption is not None and \
+        not encryption.plaintext_footer
+    sink.write(MAGIC_ENCRYPTED if encrypted_footer else MAGIC)
     rg_rows = row_group_size or max(n, 1)
     row_groups: List[fmt.RowGroup] = []
-    blooms = []
+    written = []     # a chunk's (chunk, bloom, page locations, crypto, desc)
     for a in range(0, n, rg_rows):
         b = min(a + rg_rows, n)
         rg_start = sink.tell()
+        cryptos = [_column_crypto(encryption, leaves, len(row_groups), li)
+                   for li in range(len(leaves))]
         chunks = []
         for li, desc in enumerate(leaves):
             name = desc.path[0]
@@ -707,33 +832,87 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
                 # are written at the first
                 if li and leaves[li - 1].path[0] == name:
                     continue
-                chunks.extend(_write_nested(
-                    sink, v.slice(a, b - a), dt.Field(name, v.type, True),
-                    [d for d in leaves if d.path[0] == name], opts[name]))
+                lis = [k for k, d in enumerate(leaves) if d.path[0] == name]
+                for k, (chunk, locs) in zip(lis, _write_nested(
+                        sink, v.slice(a, b - a), dt.Field(name, v.type, True),
+                        [leaves[k] for k in lis], opts[name],
+                        [cryptos[k][0] for k in lis])):
+                    chunks.append(chunk)
+                    written.append((chunk, None, locs, cryptos[k], leaves[k]))
                 continue
             m = masks.get(name)
-            chunk, bloom = _write_chunk(
+            chunk, bloom, locs = _write_chunk(
                 sink, v[a:b], None if m is None else np.asarray(m)[a:b],
-                desc, opts[name], encs.get(name), dictionary)
+                desc, opts[name], encs.get(name), dictionary, cryptos[li][0])
             chunks.append(chunk)
-            if bloom is not None:
-                blooms.append((chunk, bloom))
+            written.append((chunk, bloom, locs, cryptos[li], desc))
         total = sum(c.meta_data.total_compressed_size for c in chunks)
+        # the ordinal is required for encrypted files: module AADs embed
+        # it and readers take it from this field, not the list position
         row_groups.append(fmt.RowGroup(
             columns=chunks, total_byte_size=total, num_rows=b - a,
             file_offset=rg_start, total_compressed_size=total,
             ordinal=len(row_groups)))
-    for chunk, bloom in blooms:     # after the row groups, as the JAX writer
-        blob = bloom.serialize()
+    # the bloom filters after the row groups, then the page index, as the
+    # JAX writer lays them out
+    for chunk, bloom, _, (ctx, *_), _ in written:
+        if bloom is None:
+            continue
+        if ctx is None:
+            blob = bloom.serialize()
+        else:
+            hdr_b, bits_b = bloom.serialize_parts()
+            blob = encm.encrypt_module(
+                ctx.key, ctx.aad(encm.BLOOM_HEADER_MODULE), hdr_b) + \
+                encm.encrypt_module(
+                    ctx.key, ctx.aad(encm.BLOOM_BITSET_MODULE), bits_b)
         chunk.meta_data.bloom_filter_offset = sink.tell()
         chunk.meta_data.bloom_filter_length = len(blob)
         sink.write(blob)
+    if write_page_index:
+        for rg in range(len(row_groups)):
+            here = written[rg * len(leaves):(rg + 1) * len(leaves)]
+            for module, where in ((encm.COLUMN_INDEX_MODULE, "column_index"),
+                                  (encm.OFFSET_INDEX_MODULE, "offset_index")):
+                for chunk, _, locs, (ctx, *_), _ in here:
+                    blob = _page_index(chunk, locs, ctx, module)
+                    setattr(chunk, where + "_offset", sink.tell())
+                    setattr(chunk, where + "_length", len(blob))
+                    sink.write(blob)
+    for chunk, _, _, (ctx, key_meta, uses_footer), desc in written:
+        if ctx is not None:
+            _populate_crypto_metadata(chunk, desc, ctx, key_meta,
+                                      uses_footer, encryption)
     meta = fmt.FileMetaData(
         version=2, schema=elements, num_rows=n, row_groups=row_groups,
         created_by=CREATED_BY,
         column_orders=[fmt.ColumnOrder(TYPE_ORDER=fmt.TypeDefinedOrder())
                        for _ in leaves])
+    if encrypted_footer:
+        # [FileCryptoMetaData][encrypted FileMetaData][u32 combined
+        # length]["PARE"] (reference file/file_writer.go closeEncryptedFile)
+        fb = _thrift_bytes(fmt.FileCryptoMetaData(
+            encryption_algorithm=encryption.algorithm_struct(),
+            key_metadata=encryption.footer_key_metadata or None))
+        ef = encm.encrypt_module(
+            encryption.footer_key, encm.footer_aad(encryption.file_aad),
+            _thrift_bytes(meta))
+        sink.write(fb)
+        sink.write(ef)
+        sink.write(struct.pack("<I", len(fb) + len(ef)))
+        sink.write(MAGIC_ENCRYPTED)
+        return
+    sig = b""
+    if encryption is not None:
+        # a plaintext footer, signed with the footer key
+        meta.encryption_algorithm = encryption.algorithm_struct()
+        meta.footer_signing_key_metadata = \
+            encryption.footer_key_metadata or None
     mb = _thrift_bytes(meta)
+    if encryption is not None:
+        sig = encm.sign_footer(encryption.footer_key,
+                               encm.footer_aad(encryption.file_aad), mb)
     sink.write(mb)
-    sink.write(struct.pack("<I", len(mb)))
+    sink.write(sig)
+    sink.write(struct.pack("<I", len(mb) + len(sig)))
     sink.write(MAGIC)

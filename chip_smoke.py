@@ -221,17 +221,38 @@ without one. Phases:
      by o_odate < 720 on the card (K1) and o_custkey summed (K3)
      (`arrjson_orders`); every K1 and K3 call of those paths against the
      plain version (`interop_path_checks`);
-  20. a `kernels` JSON line, then the last line
+  20. parquet modular encryption, in a temporary directory: the Q6
+     columns of the first 6,001,215 rows (TPC-H SF1's lineitem) written
+     AES_GCM_V1, uniform, with an encrypted footer, in the dataset's
+     layout (1,048,576-row groups, 1 MiB pages, snappy) with a page
+     index and an l_qty bloom filter, read back by parquet.read_table
+     bit for bit, and Q6 from the file on the card (each page decrypted
+     by the port's AES on the host, decoded on the card, K1 and K3)
+     against numpy, with the read split (parse, decrypt, decompress,
+     copy, decode), the decryption's GB/s and the device idle share
+     (`enc_q6`); the page index and bloom filter of that file,
+     decrypted and held against the rows (`enc_index_bloom`); 1,048,576
+     rows AES_GCM_CTR_V1 with a signed plaintext footer, column keys on
+     l_price and l_disc and an AAD prefix that is not stored: the
+     plaintext columns read with no keys, l_price with none, with a
+     wrong key and without the prefix refused, Q6 with the keys
+     (`enc_ctr_columns`); 65,536 rows under a CryptoFactory with double
+     wrapping over an in-memory KMS, Q6 (`enc_kms`); cli.main ls,
+     schema, cat --rows 5 and convert (.parquet -> .arrow -> .parquet)
+     against the numpy values (`cli`); every K1 and K3 call of enc_q6
+     and enc_ctr_columns against the plain version
+     (`encryption_path_checks`);
+  21. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 20 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 21 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14, 18 and 19 against the plain version: a run that times every path and
-kernel shape using only entry points that earlier trees have too, so
-that two trees can be run in turns on one card (copy this script into
-a tree unpacked with `git archive` and run it there, then here, here,
-there). Phases 8 to 14, 18 and 19 run only in a tree that has their
-entry points.
+10 to 14 and 18 to 20 against the plain version: a run that times every
+path and kernel shape using only entry points that earlier trees have
+too, so that two trees can be run in turns on one card (copy this
+script into a tree unpacked with `git archive` and run it there, then
+here, here, there). Phases 8 to 14 and 18 to 20 run only in a tree
+that has their entry points.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
 """
@@ -2305,11 +2326,12 @@ def _equal(what: str, got: np.ndarray, want: np.ndarray) -> None:
         raise AssertionError(f"{what}: {bad} rows differ from numpy")
 
 
-def _raises(what: str, fn) -> None:
+def _raises(what: str, fn) -> str:
+    """The message of the ArrowInvalid that fn raises."""
     try:
         fn()
-    except pc.ArrowInvalid:
-        return
+    except pc.ArrowInvalid as e:
+        return str(e)
     raise AssertionError(f"{what} did not raise ArrowInvalid")
 
 
@@ -6054,6 +6076,335 @@ def interop_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+ENC_ROWS = LINEITEM_SF1            # rows of enc_q6 (TPC-H SF1's lineitem)
+ENC_CTR_ROWS = 1 << 20             # rows of enc_ctr_columns
+ENC_KMS_ROWS = 1 << 16             # rows of enc_kms and of the cli file
+ENC_FOOTER_KEY = bytes(range(16))
+ENC_COLUMN_KEY = bytes(range(100, 132))
+ENC_AAD_PREFIX = b"tpch-lineitem-sf1"
+ENC_MASTER_KEYS = {"kf": bytes(range(200, 216)),
+                   "kc": bytes(range(50, 82))}
+
+
+def _q6_table(li, n: int) -> dict:
+    return {c: li[c][:n] for c in Q6_COLUMNS}
+
+
+def write_encrypted(path: str, table: dict, encryption, **extra) -> int:
+    """The table as a snappy parquet file in the dataset's layout (row
+    groups of DATASET_ROWS_PER_GROUP rows, DATASET_PAGE_BYTES pages, the
+    DATASET_DICT_LIMIT dictionary limit) under `encryption`; returns its
+    bytes."""
+    tpq.write_table(table, path, compression="snappy",
+                    data_page_size=DATASET_PAGE_BYTES,
+                    row_group_size=DATASET_ROWS_PER_GROUP,
+                    dictionary_pagesize_limit=DATASET_DICT_LIMIT,
+                    encryption=encryption, **extra)
+    return os.path.getsize(path)
+
+
+def encrypted_q6(path: str, decryption, dev, times=None,
+                 columns=Q6_COLUMNS) -> dict:
+    """TPC-H Q6 over an encrypted file: each row group's pages decrypted
+    on the host (the port's AES), decoded on the card (read_batch_device)
+    and run through Q6 (K1 filter, K3 sum), added across row groups."""
+    pf = tpq.ParquetFile(path, decryption=decryption)
+    try:
+        return q6_over_batches(
+            tpq.read_batch_device(pf, i, columns, device=dev, times=times)
+            for i in range(pf.num_row_groups))
+    finally:
+        pf.close()
+
+
+def check_read_table(what: str, hb: HostBatch, table: dict, n: int) -> None:
+    """Every column of a read_table HostBatch equals its numpy source
+    over [0, n), bit for bit."""
+    if hb.num_rows != n:
+        raise AssertionError(f"{what}: {hb.num_rows} rows, wrote {n}")
+    for f, c in zip(hb.schema.fields, hb.columns):
+        _same_bits(f"{what} {f.name}", c.values, table[f.name][:n])
+
+
+class LocalKms:
+    """An in-memory KMS: master keys by id, a key wrapped as base64 of
+    nonce || AES-GCM ciphertext || tag under its master key, with the
+    port's own AES-GCM."""
+
+    def __init__(self, master_keys: dict):
+        self.master_keys = master_keys
+
+    def wrap_key(self, key_bytes: bytes, master_key_identifier: str) -> str:
+        import base64
+        from arrow_go_tpu_torch import native
+        nonce = os.urandom(12)
+        ct = native.aes_gcm_encrypt(
+            self.master_keys[master_key_identifier], nonce, key_bytes)
+        return base64.b64encode(nonce + bytes(ct)).decode()
+
+    def unwrap_key(self, wrapped_key: str,
+                   master_key_identifier: str) -> bytes:
+        import base64
+        from arrow_go_tpu_torch import native
+        raw = base64.b64decode(wrapped_key)
+        return bytes(native.aes_gcm_decrypt(
+            self.master_keys[master_key_identifier], raw[:12], raw[12:]))
+
+
+def check_index_bloom(path: str, decryption, table: dict) -> dict:
+    """enc_q6's page index and l_qty's bloom filter, decrypted: each row
+    group's ColumnIndex min / max are its l_qty's, its OffsetIndex's
+    pages start at row 0 and ascend within the chunk, and the bloom
+    filter holds every l_qty value and few others."""
+    pf = tpq.ParquetFile(path, decryption=decryption)
+    li = pf._leaf_index_of("l_qty")
+    pages, false_pos, rg_rows = 0, 0, 0
+    for rg in range(pf.num_row_groups):
+        n = pf.metadata.row_groups[rg].num_rows
+        q = table["l_qty"][rg_rows:rg_rows + n]
+        ci = pf.read_column_index(rg, li)
+        got = [int(np.frombuffer(v, np.int32)[0])
+               for v in (ci.min_values[0], ci.max_values[0])]
+        if got != [int(q.min()), int(q.max())] or ci.null_pages != [False]:
+            raise AssertionError(f"enc_index_bloom: row group {rg} column "
+                                 f"index {got}")
+        locs = pf.read_offset_index(rg, li).page_locations
+        firsts = [p.first_row_index for p in locs]
+        offs = [p.offset for p in locs]
+        if firsts[0] != 0 or firsts != sorted(firsts) or offs != sorted(
+                offs) or firsts[-1] >= n:
+            raise AssertionError(f"enc_index_bloom: row group {rg} offset "
+                                 f"index {firsts}")
+        pages += len(locs)
+        bf = pf.read_bloom_filter(rg, li)
+        if not all(bf.check(int(v), tpq.format.Type.INT32)
+                   for v in np.unique(q)):
+            raise AssertionError(f"enc_index_bloom: row group {rg} bloom "
+                                 f"filter misses a value")
+        false_pos += sum(bf.check(v, tpq.format.Type.INT32)
+                         for v in range(1000, 2000))
+        rg_rows += n
+    pf.close()
+    if false_pos > 0.05 * 1000 * pf.num_row_groups:
+        raise AssertionError(f"enc_index_bloom: {false_pos} false positives")
+    return {"row_groups": pf.num_row_groups, "pages": pages,
+            "bloom_false_positives_per_1000": false_pos / pf.num_row_groups}
+
+
+def cli_phase(root: str, table: dict, dev) -> dict:
+    """cli.main ls, schema, cat --rows 5 and convert (.parquet -> .arrow
+    -> .parquet) on a plaintext file of the table, each held against
+    the numpy columns."""
+    import contextlib
+    from arrow_go_tpu_torch import cli
+
+    def run(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", str(dev), *argv])
+        return buf.getvalue()
+    n = len(table["l_qty"])
+    src = os.path.join(root, "cli.parquet")
+    tpq.write_table(table, src, compression="snappy")
+    t0 = time.perf_counter()
+    ls = run("ls", src)
+    want = [f"rows: {n}"] + [f"  {c}: {dt.from_numpy_dtype(table[c].dtype)}"
+                             " not null" for c in table]
+    if ls.splitlines() != want:
+        raise AssertionError(f"cli ls: {ls!r}")
+    schema = run("schema", src)
+    if f"rows: {n}  row_groups: 1" not in schema or \
+            schema.count("codec=SNAPPY") != len(table):
+        raise AssertionError(f"cli schema: {schema!r}")
+    cat = run("cat", "--rows", "5", src).splitlines()
+    rows = ["\t".join(table)] + ["\t".join(str(table[c][i].item())
+                                           for c in table) for i in range(5)]
+    if cat != rows:
+        raise AssertionError(f"cli cat: {cat!r}, numpy {rows!r}")
+    arrow, back = os.path.join(root, "cli.arrow"), os.path.join(
+        root, "cli_back.parquet")
+    run("convert", src, arrow)
+    run("convert", arrow, back)
+    check_read_table("cli convert", tpq.read_table(back, device=dev), table,
+                     n)
+    return {"rows": n, "ms": (time.perf_counter() - t0) * 1e3,
+            "ls_lines": len(want), "schema_bytes": len(schema)}
+
+
+def encryption_phases(li, dev, card: str, timing_only: bool = False) -> dict:
+    """This slice's paths, over the first rows of the SF10 arrays, all
+    files in a temporary directory: `enc_q6` (the Q6 columns of
+    ENC_ROWS rows written AES_GCM_V1, uniform, encrypted footer, in the
+    dataset's layout with a page index and an l_qty bloom filter; read
+    by parquet.read_table and held bit for bit; Q6 from the file on the
+    card against the oracle, with the read split, the decryption rate
+    and the device idle share), `enc_ctr_columns` (ENC_CTR_ROWS rows,
+    AES_GCM_CTR_V1, a signed plaintext footer, column keys on l_price
+    and l_disc, an AAD prefix that is not stored: the plaintext columns
+    read with no keys, l_price with none and a wrong key refused, Q6
+    with the keys), `enc_kms` (ENC_KMS_ROWS rows under a CryptoFactory
+    with double wrapping over an in-memory KMS), `enc_index_bloom`,
+    `cli` and `encryption_path_checks` (every K1 and K3 call of enc_q6
+    and enc_ctr_columns against the plain version; not with
+    `timing_only`). Returns each path's launch counts and the largest
+    kernel - plain difference."""
+    from arrow_go_tpu_torch.parquet import keytools
+    t_phase = time.perf_counter()
+    launches, checks = {}, {}
+    root_dir = tempfile.TemporaryDirectory()
+    root = root_dir.name
+    dec = tpq.FileDecryptionProperties(footer_key=ENC_FOOTER_KEY)
+
+    # enc_q6: SF1's lineitem Q6 columns, uniform AES_GCM_V1
+    n = min(ENC_ROWS, len(li["l_okey"]))
+    table = _q6_table(li, n)
+    want = q6_oracle(table)
+    path = os.path.join(root, "enc_q6.parquet")
+    t0 = time.perf_counter()
+    nbytes = write_encrypted(path, table, tpq.FileEncryptionProperties(
+        footer_key=ENC_FOOTER_KEY), write_page_index=True,
+        write_bloom_filters=["l_qty"])
+    write_ms = (time.perf_counter() - t0) * 1e3
+    with open(path, "rb") as f:
+        if f.read(4) != b"PARE":
+            raise AssertionError("enc_q6: the file does not start PARE")
+    t0 = time.perf_counter()
+    hb = tpq.read_table(path, decryption=dec, device=dev)
+    read_table_ms = (time.perf_counter() - t0) * 1e3
+    check_read_table("enc_q6 read_table", hb, table, n)
+    del hb
+    got, launches["encrypted Q6"] = run_path(
+        "encrypted Q6", lambda: encrypted_q6(path, dec, dev), ("K1", "K3"))
+    check_q6(got, want)
+    splits = []
+    for _ in range(3):
+        times = {}
+        t0 = time.perf_counter()
+        again = encrypted_q6(path, dec, dev, times)
+        times["ms"] = (time.perf_counter() - t0) * 1e3
+        if again != got:
+            raise AssertionError(f"enc_q6: a run gave {again}, first {got}")
+        splits.append(times)
+    split = min(splits, key=lambda t: t["ms"])
+    pf = tpq.ParquetFile(path, decryption=dec)
+    cipher_bytes = sum(c.meta_data.total_compressed_size
+                       for rg in pf.metadata.row_groups for c in rg.columns)
+    pf.close()
+    prof = profile_device(lambda: encrypted_q6(path, dec, dev),
+                          lambda o: check_q6(o, want), top=6)
+    checks["enc_q6"] = (lambda: encrypted_q6(path, dec, dev),
+                        lambda o: check_q6(o, want), "encrypted Q6")
+    print(json.dumps({"enc_q6": {
+        **got, "oracle": want, "rows": n, "file_bytes": nbytes,
+        "ciphertext_bytes": cipher_bytes, "write_ms": write_ms,
+        "read_table_ms": read_table_ms, "ms_runs": [t["ms"] for t in splits],
+        "split_ms": {k[:-2] + "_ms": v * 1e3 for k, v in split.items()
+                     if k.endswith("_s")},
+        "decrypt_gb_per_s": cipher_bytes / split["decrypt_s"] / 1e9,
+        "profile": prof, "launches_per_run": launches["encrypted Q6"],
+        "card": card, "verified": True}}), flush=True)
+
+    # enc_index_bloom, on enc_q6's file
+    print(json.dumps({"enc_index_bloom": {
+        **check_index_bloom(path, dec, table), "card": card,
+        "verified": True}}), flush=True)
+
+    # enc_ctr_columns: CTR pages, a signed plaintext footer, column keys
+    k = min(ENC_CTR_ROWS, n)
+    ctr_table = _q6_table(li, k)
+    ctr_want = q6_oracle(ctr_table)
+    cpath = os.path.join(root, "enc_ctr.parquet")
+    cbytes = write_encrypted(cpath, ctr_table, tpq.FileEncryptionProperties(
+        footer_key=ENC_FOOTER_KEY, plaintext_footer=True,
+        algorithm="AES_GCM_CTR_V1", aad_prefix=ENC_AAD_PREFIX,
+        store_aad_prefix=False,
+        column_keys={"l_price": ENC_COLUMN_KEY, "l_disc": ENC_COLUMN_KEY}))
+    no_keys = tpq.FileDecryptionProperties(aad_prefix=ENC_AAD_PREFIX)
+    plain = tpq.read_table(cpath, columns=["l_sdate", "l_qty"],
+                           decryption=no_keys, device=dev)
+    check_read_table("enc_ctr_columns plaintext", plain, ctr_table, k)
+    refused = {
+        "no_keys": _raises("enc_ctr_columns l_price", lambda:
+                                   tpq.read_table(cpath, columns=["l_price"],
+                                                  decryption=no_keys,
+                                                  device=dev)),
+        "wrong_key": _raises(
+            "enc_ctr_columns wrong key", lambda: tpq.read_table(
+                cpath, columns=["l_price"], device=dev,
+                decryption=tpq.FileDecryptionProperties(
+                    footer_key=ENC_FOOTER_KEY, aad_prefix=ENC_AAD_PREFIX,
+                    column_keys={"l_price": ENC_FOOTER_KEY,
+                                 "l_disc": ENC_COLUMN_KEY}))),
+        "no_aad_prefix": _raises(
+            "enc_ctr_columns no prefix", lambda: tpq.read_table(
+                cpath, device=dev, decryption=tpq.FileDecryptionProperties(
+                    footer_key=ENC_FOOTER_KEY,
+                    column_keys={"l_price": ENC_COLUMN_KEY,
+                                 "l_disc": ENC_COLUMN_KEY})))}
+    keys = tpq.FileDecryptionProperties(
+        footer_key=ENC_FOOTER_KEY, aad_prefix=ENC_AAD_PREFIX,
+        column_keys={"l_price": ENC_COLUMN_KEY, "l_disc": ENC_COLUMN_KEY})
+    times = {}
+    got, launches["CTR column-key Q6"] = run_path(
+        "CTR column-key Q6", lambda: encrypted_q6(cpath, keys, dev, times),
+        ("K1", "K3"))
+    check_q6(got, ctr_want)
+    checks["enc_ctr_columns"] = (lambda: encrypted_q6(cpath, keys, dev),
+                                 lambda o: check_q6(o, ctr_want),
+                                 "CTR column-key Q6")
+    print(json.dumps({"enc_ctr_columns": {
+        **got, "oracle": ctr_want, "rows": k, "file_bytes": cbytes,
+        "plaintext_columns_read_with_no_keys": True, "refused": refused,
+        "split_ms": {k2[:-2] + "_ms": v * 1e3 for k2, v in times.items()},
+        "launches_per_run": launches["CTR column-key Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    # enc_kms: envelope encryption, double wrapping, an in-memory KMS
+    m = min(ENC_KMS_ROWS, n)
+    kms_table = _q6_table(li, m)
+    kms_want = q6_oracle(kms_table)
+    factory = keytools.CryptoFactory(lambda cfg: LocalKms(ENC_MASTER_KEYS))
+    kcfg = keytools.KmsConnectionConfig()
+    eprops = factory.file_encryption_properties(
+        kcfg, keytools.EncryptionConfiguration(
+            footer_key="kf", column_keys={"kc": ["l_price", "l_disc"]},
+            double_wrapping=True))
+    kpath = os.path.join(root, "enc_kms.parquet")
+    kbytes = write_encrypted(kpath, kms_table, eprops)
+    kdec = factory.file_decryption_properties(kcfg)
+    check_read_table("enc_kms read_table",
+                     tpq.read_table(kpath, decryption=kdec, device=dev),
+                     kms_table, m)
+    got, launches["KMS Q6"] = run_path(
+        "KMS Q6", lambda: encrypted_q6(kpath, kdec, dev), ("K1", "K3"))
+    check_q6(got, kms_want)
+    print(json.dumps({"enc_kms": {
+        **got, "oracle": kms_want, "rows": m, "file_bytes": kbytes,
+        "double_wrapping": True,
+        "footer_key_material": json.loads(eprops.footer_key_metadata)[
+            "keyMaterialType"],
+        "launches_per_run": launches["KMS Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    # cli: ls, schema, cat and convert on a plaintext file
+    print(json.dumps({"cli": {**cli_phase(root, kms_table, dev),
+                              "card": card, "verified": True}}), flush=True)
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            out, held[key] = check_path_calls(key, fn, launches[name],
+                                              k3=True)
+            check(out)
+        print(json.dumps({"encryption_path_checks": held}), flush=True)
+    root_dir.cleanup()
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"encryption_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -6251,6 +6602,8 @@ def main(argv=None) -> int:
         if importlib.util.find_spec("arrow_go_tpu_torch.cdata") and \
                 "o_opri" in orders:
             interop_phases(li, orders, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.parquet.keytools"):
+            encryption_phases(li, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -6288,6 +6641,9 @@ def main(argv=None) -> int:
     inter = interop_phases(li, orders, dev, card)
     k1_err = max(k1_err, inter["errs"]["K1"])
     k3_err = max(k3_err, inter["errs"]["K3"])
+    encs = encryption_phases(li, dev, card)
+    k1_err = max(k1_err, encs["errs"]["K1"])
+    k3_err = max(k3_err, encs["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -6297,7 +6653,7 @@ def main(argv=None) -> int:
                **dists["launches"], **nested["launches"],
                **front["launches"], **more["launches"],
                **ipcs["launches"], **fmts["launches"],
-               **inter["launches"]}
+               **inter["launches"], **encs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

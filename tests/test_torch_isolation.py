@@ -20,7 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
              "zstandard", "xxhash", "triton", "ci", "flatbuffers", "cffi",
-             "google.protobuf")
+             "google.protobuf", "cryptography")
 
 
 def _forbidden(name: str) -> bool:
@@ -82,6 +82,9 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.interop.arrjson\n"
             "import arrow_go_tpu_torch.compute.substrait\n"
             "import arrow_go_tpu_torch.cdata\n"
+            "import arrow_go_tpu_torch.parquet.encryption\n"
+            "import arrow_go_tpu_torch.parquet.keytools\n"
+            "import arrow_go_tpu_torch.cli\n"
             "arrow_go_tpu_torch.interop, arrow_go_tpu_torch.cdata\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
@@ -119,7 +122,8 @@ def test_the_scan_reaches_the_new_modules():
                 "formats/__init__.py", "formats/csv.py", "formats/json.py",
                 "formats/avro.py", "interop/__init__.py",
                 "interop/protowire.py", "interop/arrjson.py",
-                "compute/substrait.py", "cdata.py"):
+                "compute/substrait.py", "cdata.py",
+                "parquet/encryption.py", "parquet/keytools.py", "cli.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
