@@ -6,9 +6,9 @@ of the group-sized result, or -> scalar aggregates) on an NVIDIA Hopper
 card, with hand-written CUDA kernels where the JAX package has Pallas
 kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
-arrow_go_tpu. `interop` (the integration JSON, the protobuf wire format)
-and `cdata` (the C data interface) load on first use, as in the JAX
-package.
+arrow_go_tpu. `interop` (the integration JSON, the protobuf wire format),
+`cdata` (the C data interface) and `flight` (Arrow Flight on the port's
+own gRPC) load on first use, as in the JAX package.
 """
 from . import compute, dtypes, extensions, formats, parquet, torchenv
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
@@ -28,7 +28,7 @@ __all__ = ["compute", "dtypes", "extensions", "formats", "parquet",
 
 
 def __getattr__(name):
-    if name in ("interop", "cdata"):
+    if name in ("interop", "cdata", "flight"):
         import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod

@@ -11,16 +11,14 @@ Usage:
 
 Tables are HostBatches. A parquet file is read by `parquet.read_table`,
 whose columns decode on the card unless `--device` names another device
-(`--device cpu`); the text printed for a file is the JAX CLI's. The
-port has no Flight, so `flight-integration` raises ArrowNotImplemented.
+(`--device cpu`); the text printed for a file is the JAX CLI's.
+`flight-integration` lists, serves and runs the ported Flight scenarios
+(flight/integration.py); the FlightSQL ones raise ArrowNotImplemented.
 """
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
-
-from .compute.errors import ArrowNotImplemented
 
 _PARQUET = (".parquet", ".pq")
 _IPC_FILE = (".arrow", ".feather", ".ipc")
@@ -46,24 +44,10 @@ def _read_any(path: str, device=None):
     raise SystemExit(f"unknown format: {path}")
 
 
-def _parquet_columns(hb) -> dict:
-    """A HostBatch as the port's write_table takes it: a nullable flat
-    field without a mask gets an all-valid one, so the file keeps the
-    field OPTIONAL as the JAX writer writes it."""
-    from .device.block import HostArray
-    data = {}
-    for f, c in zip(hb.schema.fields, hb.columns):
-        if f.nullable and c.mask is None and c.values is not None:
-            c = HostArray(c.values, np.ones(len(c), np.bool_), c.type,
-                          c.dictionary)
-        data[f.name] = c
-    return data
-
-
 def _write_any(hb, path: str):
     from . import formats, ipc, parquet
     if path.endswith(_PARQUET):
-        parquet.write_table(_parquet_columns(hb), path, compression="snappy")
+        parquet.write_table(hb, path, compression="snappy")
     elif path.endswith(_IPC_FILE) or path.endswith(".arrows"):
         new = ipc.new_stream if path.endswith(".arrows") else ipc.new_file
         with open(path, "wb") as f:
@@ -184,9 +168,21 @@ def cmd_json_integration(args):
 
 
 def cmd_flight_integration(args):
-    """The archery Flight integration server and client of the JAX CLI:
-    the port has no Flight."""
-    raise ArrowNotImplemented("flight is not ported")
+    """The archery Flight integration drivers (reference
+    arrow/flight/cmd/arrow-flight-integration-{server,client}) over the
+    ported scenarios; the FlightSQL ones raise ArrowNotImplemented."""
+    from .flight import integration as fi
+    if args.role == "list":
+        for name in sorted(fi.SCENARIOS):
+            print(name)
+        return
+    if args.scenario is None:
+        raise SystemExit("--scenario is required for server/client")
+    if args.role == "server":
+        fi.run_scenario_server(args.scenario, args.port)
+    else:
+        fi.run_scenario_client(args.scenario,
+                               args.uri or f"grpc://localhost:{args.port}")
 
 
 def main(argv=None):
@@ -220,7 +216,8 @@ def main(argv=None):
     j.set_defaults(fn=cmd_json_integration)
     fi = sub.add_parser(
         "flight-integration",
-        help="archery Flight scenario server/client (not ported)")
+        help="archery Flight scenario server/client "
+             "(arrow-flight-integration-server/-client)")
     fi.add_argument("role", choices=["server", "client", "list"])
     fi.add_argument("--scenario", default=None)
     fi.add_argument("--port", type=int, default=0)

@@ -61,6 +61,14 @@ plaintext copy under a plaintext footer), and the footer encrypted
 locations) after the row groups and bloom filters; it is off by
 default (the JAX writer's default is on) so that files written without
 it keep their bytes.
+
+`properties=WriterProperties(...)` (the JAX writer's option set, its
+defaults but `created_by`) wins over the keywords and adds the format
+version, `created_by`, DATA_PAGE_V2 pages (the levels uncompressed
+before the compressed values, the header's statistics on a one-page
+chunk, the JAX writer's encoding list), every option by column, the
+bloom filters' fpp and the row groups' sorting columns. A HostBatch
+input brings its schema's key/value metadata into the footer.
 """
 from __future__ import annotations
 
@@ -72,7 +80,8 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..device.block import HostArray, dictionary_type, factorize
+from ..device.block import (HostArray, HostBatch, dictionary_type,
+                            factorize)
 from . import bloom as bloom_mod
 from . import compress as comp
 from . import encodings as enc
@@ -86,6 +95,7 @@ MAGIC = b"PAR1"
 MAGIC_ENCRYPTED = b"PARE"
 CREATED_BY = "arrow_go_tpu_torch v0.1.0"
 _RANGE_TABLE_MAX = 1 << 26     # widest value range dictionary-coded by table
+BLOOM_FPP = 0.01       # the JAX writer's default false-positive rate
 
 
 def _thrift_bytes(obj) -> bytes:
@@ -239,9 +249,11 @@ class _Pages:
 def _write_chunk(sink: BinaryIO, vals: np.ndarray,
                  mask: Optional[np.ndarray], desc: psch.ColumnDescriptor,
                  opts: _Options, encoding: Optional[fmt.Encoding] = None,
-                 dictionary: Optional[np.ndarray] = None, crypto=None):
-    """One column chunk, its bloom filter (None unless asked for) and its
-    page locations. A string column arrives as int32 codes into
+                 dictionary: Optional[np.ndarray] = None, crypto=None,
+                 fpp: float = BLOOM_FPP, v2: bool = False):
+    """One column chunk, its bloom filter (None unless asked for, at a
+    false-positive rate of `fpp`) and its page locations, in DATA_PAGE_V2
+    pages when `v2`. A string column arrives as int32 codes into
     `dictionary`; `crypto` (an encryption._ColumnCryptoContext) encrypts
     its pages."""
     codec, use_dictionary, dict_limit = (opts.codec, opts.use_dictionary,
@@ -283,7 +295,7 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
         (present, None)
     stats = _statistics(phys, values, num_values - len(values), entries) \
         if opts.statistics else None
-    bloom = _bloom(phys, values, entries) if opts.bloom else None
+    bloom = _bloom(phys, values, entries, fpp) if opts.bloom else None
     start_offset = sink.tell()
     pages = _Pages(sink, crypto)
     dict_page_offset = None
@@ -341,23 +353,38 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             data = enc.delta_byte_array_encode(present[p0:p1])
         else:
             data = enc.plain_encode(phys, present[p0:p1])
-        payload = levels + data
-        body = comp.compress(codec, payload, opts.level)
-        off = pages.write(fmt.PageHeader(
-            type=int(fmt.PageType.DATA_PAGE),
-            uncompressed_page_size=len(payload),
-            compressed_page_size=len(body),
-            data_page_header=fmt.DataPageHeader(
-                num_values=end - start, encoding=int(value_encoding),
-                definition_level_encoding=int(fmt.Encoding.RLE),
-                repetition_level_encoding=int(fmt.Encoding.RLE))),
-            body, len(payload), start)
+        if v2:
+            defs = enc.rle_encode(mask[start:end].astype(np.uint32), 1) \
+                if nullable else b""
+            hdr, body, unc = _v2_page(
+                codec, opts.level, b"", defs, data, end - start,
+                end - start - (p1 - p0), end - start, value_encoding,
+                stats if rows_per_page >= num_values else None)
+        else:
+            payload = levels + data
+            body, unc = comp.compress(codec, payload, opts.level), \
+                len(payload)
+            hdr = fmt.PageHeader(
+                type=int(fmt.PageType.DATA_PAGE),
+                uncompressed_page_size=unc, compressed_page_size=len(body),
+                data_page_header=fmt.DataPageHeader(
+                    num_values=end - start, encoding=int(value_encoding),
+                    definition_level_encoding=int(fmt.Encoding.RLE),
+                    repetition_level_encoding=int(fmt.Encoding.RLE)))
+        off = pages.write(hdr, body, unc, start)
         if data_page_offset is None:
             data_page_offset = off
 
-    encodings = {int(fmt.Encoding.PLAIN)} | page_encodings
-    if nullable:
-        encodings.add(int(fmt.Encoding.RLE))
+    if v2:
+        # the JAX writer's list: RLE, PLAIN with a dictionary page, and
+        # the data pages' encodings
+        encodings = {int(fmt.Encoding.RLE)} | page_encodings
+        if coded is not None:
+            encodings.add(int(fmt.Encoding.PLAIN))
+    else:
+        encodings = {int(fmt.Encoding.PLAIN)} | page_encodings
+        if nullable:
+            encodings.add(int(fmt.Encoding.RLE))
     meta = fmt.ColumnMetaData(
         type=int(phys), encodings=sorted(encodings),
         path_in_schema=list(desc.path), codec=int(codec),
@@ -378,7 +405,6 @@ _BYTE_ARRAY_ENCODINGS = {fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY,
 _STAT_PACK = {fmt.Type.INT32: "<i", fmt.Type.INT64: "<q",
               fmt.Type.FLOAT: "<f", fmt.Type.DOUBLE: "<d"}
 MAX_STAT_BYTES = 64    # the JAX writer's bound on byte-string statistics
-BLOOM_FPP = 0.01       # the JAX writer's default false-positive rate
 
 
 def _row_extreme(rows: np.ndarray, largest: bool) -> bytes:
@@ -433,10 +459,30 @@ def _statistics(phys: fmt.Type, present, null_count: int,
     return st
 
 
-def _bloom(phys: fmt.Type, present, page_values: Optional[list]):
+def _v2_page(codec, level, reps: bytes, defs: bytes, data: bytes,
+             num_values: int, num_nulls: int, num_rows: int, encoding,
+             stats) -> tuple:
+    """(header, body, uncompressed size) of a DATA_PAGE_V2: the level
+    runs uncompressed (their byte lengths in the header), then the
+    compressed values (JAX writer.py:319-350)."""
+    body = reps + defs + comp.compress(codec, data, level)
+    return fmt.PageHeader(
+        type=int(fmt.PageType.DATA_PAGE_V2),
+        uncompressed_page_size=len(reps) + len(defs) + len(data),
+        compressed_page_size=len(body),
+        data_page_header_v2=fmt.DataPageHeaderV2(
+            num_values=num_values, num_nulls=num_nulls, num_rows=num_rows,
+            encoding=int(encoding), definition_levels_byte_length=len(defs),
+            repetition_levels_byte_length=len(reps),
+            is_compressed=bool(codec), statistics=stats)), body, \
+        len(reps) + len(defs) + len(data)
+
+
+def _bloom(phys: fmt.Type, present, page_values: Optional[list],
+           fpp: float = BLOOM_FPP):
     """The bloom filter of a chunk's present values, sized for their
-    distinct count at a false-positive rate of BLOOM_FPP (None for
-    BOOLEAN and INT96, as in the JAX writer)."""
+    distinct count at a false-positive rate of `fpp` (None for BOOLEAN
+    and INT96, as in the JAX writer)."""
     if phys in (fmt.Type.BOOLEAN, fmt.Type.INT96):
         return None
     if page_values is not None:
@@ -449,9 +495,9 @@ def _bloom(phys: fmt.Type, present, page_values: Optional[list]):
         item = present.dtype.itemsize
         uniq = np.unique(np.ascontiguousarray(present).view(f"i{item}"))
         return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
-            uniq.view(present.dtype), phys), len(uniq), BLOOM_FPP)
+            uniq.view(present.dtype), phys), len(uniq), fpp)
     return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
-        enc._ends_data(rows), phys), len(rows), BLOOM_FPP)
+        enc._ends_data(rows), phys), len(rows), fpp)
 
 
 def _big_endian(limbs: np.ndarray, width: int) -> np.ndarray:
@@ -556,7 +602,136 @@ def _prepare(name: str, v, mask: Optional[np.ndarray],
     return t, vals.astype(phys, copy=False), None
 
 
-def write_table(data: Dict[str, object], sink,
+class SortingColumn:
+    """Declared sort order of a row group's rows (JAX writer.py:401;
+    reference parquet.SortingColumn, WithSortingColumns). column_idx
+    indexes the leaf columns."""
+
+    def __init__(self, column_idx: int, descending: bool = False,
+                 nulls_first: bool = False):
+        self.column_idx = column_idx
+        self.descending = descending
+        self.nulls_first = nulls_first
+
+
+class WriterProperties:
+    """The writer's whole option set (JAX writer.py:413-485; reference
+    parquet/writer_properties.go), with the JAX defaults but for
+    `created_by`, which names the port. Per-column overrides live in
+    ``column_properties``: ``{"col": {"compression": "zstd",
+    "compression_level": 9, "use_dictionary": False, "encoding":
+    "delta_binary_packed", "write_statistics": False, "bloom": True}}``.
+    """
+
+    def __init__(self, *,
+                 version: str = "2.6",
+                 data_page_version: str = "1.0",
+                 created_by: str = CREATED_BY,
+                 compression: str = "snappy",
+                 compression_level: Optional[int] = None,
+                 use_dictionary: bool = True,
+                 dictionary_pagesize_limit: int = 1 << 20,
+                 data_page_size: Optional[int] = None,
+                 max_row_group_length: Optional[int] = None,
+                 write_statistics: bool = True,
+                 write_page_index: bool = True,
+                 write_bloom_filters: bool = False,
+                 bloom_filter_fpp: float = BLOOM_FPP,
+                 sorting_columns: Optional[List[SortingColumn]] = None,
+                 store_decimal_as_integer: bool = False,
+                 column_properties: Optional[dict] = None,
+                 encryption: Optional[encm.FileEncryptionProperties] = None):
+        if version not in ("1.0", "2.4", "2.6"):
+            raise ArrowInvalid(f"parquet format version {version!r}")
+        if data_page_version not in ("1.0", "2.0"):
+            raise ArrowInvalid(f"data page version {data_page_version!r}")
+        self.version = version
+        self.data_page_version = data_page_version
+        self.created_by = created_by
+        self.compression = compression
+        self.compression_level = compression_level
+        self.use_dictionary = use_dictionary
+        self.dictionary_pagesize_limit = dictionary_pagesize_limit
+        self.data_page_size = data_page_size
+        self.max_row_group_length = max_row_group_length
+        self.write_statistics = write_statistics
+        self.page_index = write_page_index
+        self.bloom = write_bloom_filters
+        self.bloom_filter_fpp = bloom_filter_fpp
+        self.sorting_columns = sorting_columns
+        self.store_decimal_as_integer = store_decimal_as_integer
+        self.per_column = column_properties or {}
+        self.encryption = encryption
+
+    def _col(self, name: str, key: str, default):
+        return self.per_column.get(name, {}).get(key, default)
+
+    def codec_for(self, name: str) -> int:
+        return int(comp.codec_for_name(
+            self._col(name, "compression", self.compression)))
+
+    def level_for(self, name: str) -> Optional[int]:
+        return self._col(name, "compression_level", self.compression_level)
+
+    def dict_for(self, name: str) -> bool:
+        return self._col(name, "use_dictionary", self.use_dictionary)
+
+    def encoding_for(self, name: str) -> Optional[str]:
+        return self._col(name, "encoding", None)
+
+    def stats_for(self, name: str) -> bool:
+        return self._col(name, "write_statistics", self.write_statistics)
+
+    def bloom_for(self, name: str) -> bool:
+        return self._col(name, "bloom", self.bloom)
+
+
+def _keyword_properties(names, compression, use_dictionary,
+                        dictionary_pagesize_limit, data_page_size,
+                        column_encodings, store_decimal_as_integer,
+                        compression_level, write_statistics,
+                        write_bloom_filters, write_page_index, encryption
+                        ) -> WriterProperties:
+    """write_table's keywords as WriterProperties: the by-name forms of
+    use_dictionary, column_encodings and write_bloom_filters (of the
+    columns `names`) become column properties."""
+    per: Dict[str, dict] = {}
+    for name, e in (column_encodings or {}).items():
+        per.setdefault(name, {})["encoding"] = e
+    if isinstance(use_dictionary, dict):
+        for name, u in use_dictionary.items():
+            per.setdefault(name, {})["use_dictionary"] = u
+        use_dictionary = True
+    if not isinstance(write_bloom_filters, bool):
+        named = set(write_bloom_filters)
+        for name in names:
+            per.setdefault(name, {})["bloom"] = name in named
+        write_bloom_filters = True
+    return WriterProperties(
+        compression=compression, compression_level=compression_level,
+        use_dictionary=bool(use_dictionary),
+        dictionary_pagesize_limit=dictionary_pagesize_limit,
+        data_page_size=data_page_size, write_statistics=write_statistics,
+        write_page_index=write_page_index,
+        write_bloom_filters=write_bloom_filters,
+        store_decimal_as_integer=store_decimal_as_integer,
+        column_properties=per, encryption=encryption)
+
+
+def _batch_columns(hb: HostBatch) -> Dict[str, HostArray]:
+    """A HostBatch as write_table's columns: a nullable flat field
+    without a mask gets an all-valid one, so the file keeps the field
+    OPTIONAL as the JAX writer writes it."""
+    data = {}
+    for f, c in zip(hb.schema.fields, hb.columns):
+        if f.nullable and c.mask is None and c.values is not None:
+            c = HostArray(c.values, np.ones(len(c), np.bool_), c.type,
+                          c.dictionary)
+        data[f.name] = c
+    return data
+
+
+def write_table(data: Union[HostBatch, Dict[str, object]], sink,
                 masks: Optional[Dict[str, np.ndarray]] = None,
                 compression: str = "none",
                 use_dictionary: Union[bool, Dict[str, bool]] = True,
@@ -571,15 +746,23 @@ def write_table(data: Dict[str, object], sink,
                 write_statistics: bool = True,
                 write_bloom_filters: Union[bool, Sequence[str]] = False,
                 write_page_index: bool = False,
-                encryption: Optional[encm.FileEncryptionProperties] = None
+                encryption: Optional[encm.FileEncryptionProperties] = None,
+                properties: Optional[WriterProperties] = None
                 ) -> None:
     """Write columns (all of one length) to a parquet file.
 
-    data:  numpy arrays by name; a string (or bytes) column is a numpy
+    data:  a HostBatch (its schema's key/value metadata goes into the
+           footer; `_batch_columns` says how its fields are written), or
+           numpy arrays by name; a string (or bytes) column is a numpy
            str/object array or an (int32 codes, values) pair.
            A HostArray goes as its values, codes and validity (a flat
            one) or through parquet/levels.py (a nested one); an
            extension column as its storage, as the JAX writer writes it.
+    properties: a WriterProperties; it wins over the keywords from
+           `compression` to `encryption` (as in the JAX writer), and
+           brings the format version, created_by, data page v2, the
+           column properties, the bloom filters' fpp and the sorting
+           columns. Without it the keywords below apply.
     masks: validity by column name (True = valid); a column with a mask
            is written OPTIONAL, one without it REQUIRED.
     compression: "none", "snappy", "gzip", "lz4_raw" or "zstd", at
@@ -609,14 +792,28 @@ def write_table(data: Dict[str, object], sink,
     encryption: parquet modular encryption of the file (module doc).
     sink:  a path or a binary file object.
     """
+    metadata = None
+    if isinstance(data, HostBatch):
+        metadata = data.schema.metadata
+        data = _batch_columns(data)
+    p = properties or _keyword_properties(
+        list(data), compression, use_dictionary, dictionary_pagesize_limit,
+        data_page_size, column_encodings, store_decimal_as_integer,
+        compression_level, write_statistics, write_bloom_filters,
+        write_page_index, encryption)
+    store_decimal_as_integer = p.store_decimal_as_integer
+    comp.codec_for_name(p.compression)          # an unknown codec raises
     masks = dict(masks or {})
     types = types or {}
-    encs = {}
-    for name, e in (column_encodings or {}).items():
-        if e not in _ENCODING_NAMES:
-            raise ArrowNotImplemented(f"encoding {e!r} is not ported")
-        encs[name] = _ENCODING_NAMES[e]
     names = list(data)
+    encs = {}
+    for name in names:
+        e = p.encoding_for(name)
+        if e is None:
+            continue
+        if e.lower() not in _ENCODING_NAMES:
+            raise ArrowNotImplemented(f"encoding {e!r} is not ported")
+        encs[name] = _ENCODING_NAMES[e.lower()]
     fields, cols = [], {}
     n = None
     for name in names:
@@ -663,20 +860,16 @@ def write_table(data: Dict[str, object], sink,
         fields.append(dt.Field(name, t, m is not None))
         cols[name] = (v, dictionary)
     n = n or 0
-    codec = comp.codec_for_name(compression)
     schema = dt.Schema(fields)
     elements, leaves = psch.schema_to_elements(
         schema, store_decimal_as_integer, int96_timestamps)
-    blooms = set(names) if write_bloom_filters is True else \
-        set(write_bloom_filters or ())
     opts = {name: _Options(
-        codec, compression_level,
-        use_dictionary.get(name, True) if isinstance(use_dictionary, dict)
-        else bool(use_dictionary), dictionary_pagesize_limit,
-        data_page_size, write_statistics, name in blooms)
+        p.codec_for(name), p.level_for(name), bool(p.dict_for(name)),
+        p.dictionary_pagesize_limit, p.data_page_size,
+        bool(p.stats_for(name)), bool(p.bloom and p.bloom_for(name)))
         for name in names}
-    args = (cols, masks, elements, leaves, n, opts, row_group_size, encs,
-            write_page_index, encryption)
+    args = (cols, masks, elements, leaves, n, opts,
+            row_group_size or p.max_row_group_length, encs, p, metadata)
     if hasattr(sink, "write"):
         _write(sink, *args)
         return
@@ -704,29 +897,40 @@ def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
 
 def _write_levels_chunk(sink: BinaryIO, arr: HostArray, field: dt.Field,
                         desc: psch.ColumnDescriptor, opts: _Options,
-                        crypto=None):
+                        crypto=None, v2: bool = False):
     """One leaf chunk of a nested column: its levels and present values
-    in one v1 data page; returns the chunk and its page locations."""
+    in one data page (v1, or v2 as the JAX writer writes a nested chunk
+    under data_page_version "2.0"); returns the chunk and its page
+    locations."""
     defs, reps, leaf = lv.generate_levels_nested(arr, field)
-    levels = b""
-    if desc.max_rep_level:
-        levels += enc.levels_encode_v1(reps, enc.bit_width_for(
-            desc.max_rep_level))
-    if desc.max_def_level:
-        levels += enc.levels_encode_v1(defs, enc.bit_width_for(
-            desc.max_def_level))
-    payload = levels + enc.plain_encode(desc.physical_type,
-                                        _physical_leaf(leaf, desc))
-    body = comp.compress(opts.codec, payload, opts.level)
+    mr, md = desc.max_rep_level, desc.max_def_level
+    data = enc.plain_encode(desc.physical_type, _physical_leaf(leaf, desc))
+    if v2:
+        hdr, body, unc = _v2_page(
+            opts.codec, opts.level,
+            enc.rle_encode(reps, enc.bit_width_for(mr)) if mr else b"",
+            enc.rle_encode(defs, enc.bit_width_for(md)) if md else b"",
+            data, len(defs), int((defs != md).sum()) if md else 0,
+            int((reps == 0).sum()) if mr else len(defs),
+            fmt.Encoding.PLAIN, None)
+    else:
+        levels = b""
+        if mr:
+            levels += enc.levels_encode_v1(reps, enc.bit_width_for(mr))
+        if md:
+            levels += enc.levels_encode_v1(defs, enc.bit_width_for(md))
+        payload = levels + data
+        body, unc = comp.compress(opts.codec, payload, opts.level), \
+            len(payload)
+        hdr = fmt.PageHeader(
+            type=int(fmt.PageType.DATA_PAGE), uncompressed_page_size=unc,
+            compressed_page_size=len(body),
+            data_page_header=fmt.DataPageHeader(
+                num_values=len(defs), encoding=int(fmt.Encoding.PLAIN),
+                definition_level_encoding=int(fmt.Encoding.RLE),
+                repetition_level_encoding=int(fmt.Encoding.RLE)))
     pages = _Pages(sink, crypto)
-    start = pages.write(fmt.PageHeader(
-        type=int(fmt.PageType.DATA_PAGE), uncompressed_page_size=len(payload),
-        compressed_page_size=len(body),
-        data_page_header=fmt.DataPageHeader(
-            num_values=len(defs), encoding=int(fmt.Encoding.PLAIN),
-            definition_level_encoding=int(fmt.Encoding.RLE),
-            repetition_level_encoding=int(fmt.Encoding.RLE))),
-        body, len(payload), 0)
+    start = pages.write(hdr, body, unc, 0)
     meta = fmt.ColumnMetaData(
         type=int(desc.physical_type),
         encodings=[int(fmt.Encoding.PLAIN), int(fmt.Encoding.RLE)],
@@ -738,14 +942,14 @@ def _write_levels_chunk(sink: BinaryIO, arr: HostArray, field: dt.Field,
 
 
 def _write_nested(sink: BinaryIO, arr: HostArray, f: dt.Field, descs,
-                  opts: _Options, cryptos) -> list:
+                  opts: _Options, cryptos, v2: bool) -> list:
     """(chunk, page locations) of each leaf of a nested column's rows."""
     if f.type.id == dt.TypeId.MAP:
         f, arr = lv.map_storage_field(f), lv.map_storage_data(arr)
     elif f.type.id == dt.TypeId.FIXED_SIZE_LIST:
         f, arr = lv.fsl_storage_field(f), lv.fsl_storage_data(arr)
     return [_write_levels_chunk(sink, *lv.prune_to_leaf(arr, f, path), desc,
-                                opts, crypto)
+                                opts, crypto, v2)
             for path, desc, crypto in zip(lv.leaf_paths(f.type), descs,
                                           cryptos)]
 
@@ -811,7 +1015,15 @@ def _page_index(chunk: fmt.ColumnChunk, locations, ctx, module: int):
 
 
 def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
-           encs, write_page_index=False, encryption=None) -> None:
+           encs, props: Optional[WriterProperties] = None,
+           metadata=None) -> None:
+    props = props or WriterProperties(write_page_index=False)
+    encryption = props.encryption
+    v2 = props.data_page_version == "2.0"
+    sorting = [fmt.SortingColumn(column_idx=sc.column_idx,
+                                 descending=sc.descending,
+                                 nulls_first=sc.nulls_first)
+               for sc in props.sorting_columns or ()] or None
     encrypted_footer = encryption is not None and \
         not encryption.plaintext_footer
     sink.write(MAGIC_ENCRYPTED if encrypted_footer else MAGIC)
@@ -836,14 +1048,15 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
                 for k, (chunk, locs) in zip(lis, _write_nested(
                         sink, v.slice(a, b - a), dt.Field(name, v.type, True),
                         [leaves[k] for k in lis], opts[name],
-                        [cryptos[k][0] for k in lis])):
+                        [cryptos[k][0] for k in lis], v2)):
                     chunks.append(chunk)
                     written.append((chunk, None, locs, cryptos[k], leaves[k]))
                 continue
             m = masks.get(name)
             chunk, bloom, locs = _write_chunk(
                 sink, v[a:b], None if m is None else np.asarray(m)[a:b],
-                desc, opts[name], encs.get(name), dictionary, cryptos[li][0])
+                desc, opts[name], encs.get(name), dictionary, cryptos[li][0],
+                props.bloom_filter_fpp, v2)
             chunks.append(chunk)
             written.append((chunk, bloom, locs, cryptos[li], desc))
         total = sum(c.meta_data.total_compressed_size for c in chunks)
@@ -851,7 +1064,8 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
         # it and readers take it from this field, not the list position
         row_groups.append(fmt.RowGroup(
             columns=chunks, total_byte_size=total, num_rows=b - a,
-            file_offset=rg_start, total_compressed_size=total,
+            sorting_columns=sorting, file_offset=rg_start,
+            total_compressed_size=total,
             ordinal=len(row_groups)))
     # the bloom filters after the row groups, then the page index, as the
     # JAX writer lays them out
@@ -869,7 +1083,7 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
         chunk.meta_data.bloom_filter_offset = sink.tell()
         chunk.meta_data.bloom_filter_length = len(blob)
         sink.write(blob)
-    if write_page_index:
+    if props.page_index:
         for rg in range(len(row_groups)):
             here = written[rg * len(leaves):(rg + 1) * len(leaves)]
             for module, where in ((encm.COLUMN_INDEX_MODULE, "column_index"),
@@ -884,10 +1098,12 @@ def _write(sink, cols, masks, elements, leaves, n, opts, row_group_size,
             _populate_crypto_metadata(chunk, desc, ctx, key_meta,
                                       uses_footer, encryption)
     meta = fmt.FileMetaData(
-        version=2, schema=elements, num_rows=n, row_groups=row_groups,
-        created_by=CREATED_BY,
+        version=1 if props.version == "1.0" else 2, schema=elements,
+        num_rows=n, row_groups=row_groups, created_by=props.created_by,
         column_orders=[fmt.ColumnOrder(TYPE_ORDER=fmt.TypeDefinedOrder())
-                       for _ in leaves])
+                       for _ in leaves],
+        key_value_metadata=[fmt.KeyValue(key=k, value=v) for k, v in zip(
+            metadata.keys, metadata.values)] if metadata else None)
     if encrypted_footer:
         # [FileCryptoMetaData][encrypted FileMetaData][u32 combined
         # length]["PARE"] (reference file/file_writer.go closeEncryptedFile)

@@ -242,19 +242,42 @@ without one. Phases:
      against the numpy values (`cli`); every K1 and K3 call of enc_q6
      and enc_ctr_columns against the plain version
      (`encryption_path_checks`);
-  21. a `kernels` JSON line, then the last line
+  21. Arrow Flight on the port's own gRPC, in a temporary directory:
+     the Q6 columns of the first 6,001,215 rows sorted by l_sdate,
+     written with WriterProperties (data page v2, format 2.6, l_sdate
+     DELTA_BINARY_PACKED in zstd, l_qty a dictionary in snappy, l_price
+     and l_disc snappy, no statistics on l_disc, l_sdate declared the
+     sorting column, key/value metadata, 1,048,576-row groups, 1 MiB
+     pages), its footer checked (`flight_file`); the file read by
+     parquet.read_table in a spawned server process and served in
+     1,048,576-row HostBatches; TPC-H Q6 over a DoGet stream, each
+     batch to the card (K1, K3), every column bit for bit, with the
+     stream, copy and compute ms, the IPC body MB/s, the same bytes over
+     a plain loopback socket and the device idle share (`flight_q6`);
+     DoPut of the same batches, each acknowledged with its row count and
+     l_qty sum (`flight_put`); DoExchange against a port server in this
+     process that runs Q6 on the card per received batch and returns
+     one row (`flight_exchange`); the 11 ported integration scenarios
+     port to port (`flight_scenarios`); every K1 and K3 call of
+     flight_q6 and flight_exchange against the plain version
+     (`flight_path_checks`);
+  22. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 21 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 22 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 20 against the plain version: a run that times every
+10 to 14 and 18 to 21 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 20 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 21 run only in a tree
 that has their entry points.
 
-Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
+With --only flight it runs phases 1 and 2, makes the data and runs
+phase 21 alone, then prints the phase's launches and errors and no
+`kernels` or ok line: a quick check of the Flight phase on the card.
+
+Usage: python3 chip_smoke.py [--sf 10] [--timing-only] [--only flight]
 """
 from __future__ import annotations
 
@@ -6405,6 +6428,457 @@ def encryption_phases(li, dev, card: str, timing_only: bool = False) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+FLIGHT_ROWS = LINEITEM_SF1         # rows of the Flight paths (SF1's lineitem)
+FLIGHT_BATCH_ROWS = 1 << 20        # rows of a served HostBatch
+FLIGHT_SORT_COLUMN = Q6_COLUMNS.index("l_sdate")
+FLIGHT_METADATA = {"tpch.table": "lineitem", "tpch.scale": "1",
+                   "sorted_by": "l_sdate"}
+FLIGHT_CREATED_BY = "arrow_go_tpu_torch flight phase"
+FLIGHT_CODECS = {"l_price": "SNAPPY", "l_disc": "SNAPPY", "l_sdate": "ZSTD",
+                 "l_qty": "SNAPPY"}
+
+
+def flight_writer_properties(rows_per_group: int = DATASET_ROWS_PER_GROUP,
+                             page_bytes: int = DATASET_PAGE_BYTES):
+    """The WriterProperties of the served file: data page v2, format
+    2.6, l_sdate DELTA_BINARY_PACKED in zstd, l_qty a dictionary in
+    snappy, l_price and l_disc snappy, no statistics on l_disc, the rows
+    declared sorted by l_sdate, the dataset's layout."""
+    return tpq.WriterProperties(
+        data_page_version="2.0", version="2.6", created_by=FLIGHT_CREATED_BY,
+        compression="snappy", data_page_size=page_bytes,
+        max_row_group_length=rows_per_group,
+        sorting_columns=[tpq.SortingColumn(FLIGHT_SORT_COLUMN)],
+        column_properties={
+            "l_sdate": {"encoding": "delta_binary_packed",
+                        "compression": "zstd"},
+            "l_qty": {"use_dictionary": True, "compression": "snappy"},
+            "l_price": {"compression": "snappy"},
+            "l_disc": {"compression": "snappy", "write_statistics": False}})
+
+
+def flight_table(li, n: int) -> dict:
+    """The first n rows of the Q6 columns, sorted by l_sdate (stable), as
+    the served file declares them."""
+    order = np.argsort(li["l_sdate"][:n], kind="stable")
+    return {c: li[c][:n][order] for c in Q6_COLUMNS}
+
+
+def flight_batch(table: dict) -> HostBatch:
+    """The table as one HostBatch (REQUIRED fields, IPC_TYPES) whose
+    schema carries FLIGHT_METADATA."""
+    schema = dt.Schema([dt.Field(c, IPC_TYPES[c], False) for c in Q6_COLUMNS],
+                       dt.Metadata(FLIGHT_METADATA))
+    return HostBatch(schema, [HostArray(table[c], None, IPC_TYPES[c])
+                              for c in Q6_COLUMNS], len(table["l_qty"]))
+
+
+def write_flight_file(path: str, table: dict, **layout) -> int:
+    tpq.write_table(flight_batch(table), path,
+                    properties=flight_writer_properties(**layout))
+    return os.path.getsize(path)
+
+
+def check_flight_footer(path: str) -> dict:
+    """The served file's footer against its properties: format version
+    2, created_by, only DATA_PAGE_V2 data pages, each column's codec,
+    l_sdate DELTA_BINARY_PACKED, l_qty dictionary-coded, no statistics
+    on l_disc, the sorting column in every row group and the key/value
+    metadata."""
+    from arrow_go_tpu_torch.parquet.device_read import _iter_pages
+    pf = tpq.ParquetFile(path)
+    md = pf.metadata
+    kv = {k.key: k.value for k in md.key_value_metadata or []}
+    pages, codecs = {}, {}
+    try:
+        if (md.version, md.created_by, kv) != (2, FLIGHT_CREATED_BY,
+                                               FLIGHT_METADATA):
+            raise AssertionError(f"flight file footer: {md.version} "
+                                 f"{md.created_by!r} {kv}")
+        for rg in md.row_groups:
+            if [(s.column_idx, bool(s.descending), bool(s.nulls_first))
+                    for s in rg.sorting_columns or []] != \
+                    [(FLIGHT_SORT_COLUMN, False, False)]:
+                raise AssertionError("flight file: a row group's sorting "
+                                     "columns")
+            for ch in rg.columns:
+                m = ch.meta_data
+                name = m.path_in_schema[0]
+                codecs[name] = tpq.format.Codec(m.codec).name
+                for hdr, _ in _iter_pages(pf, ch):
+                    ptype = tpq.format.PageType(hdr.type).name
+                    sub = hdr.data_page_header_v2 or \
+                        hdr.dictionary_page_header or hdr.data_page_header
+                    pages.setdefault(name, set()).add(
+                        (ptype, tpq.format.Encoding(sub.encoding).name))
+                if (m.statistics is None) != (name == "l_disc"):
+                    raise AssertionError(f"flight file: {name} statistics")
+    finally:
+        pf.close()
+    data_kinds = {p for v in pages.values() for p, _ in v} - {
+        "DICTIONARY_PAGE"}
+    if data_kinds != {"DATA_PAGE_V2"} or codecs != FLIGHT_CODECS or \
+            ("DATA_PAGE_V2", "DELTA_BINARY_PACKED") not in pages["l_sdate"] \
+            or ("DICTIONARY_PAGE", "PLAIN") not in pages["l_qty"]:
+        raise AssertionError(f"flight file pages {pages}, codecs {codecs}")
+    return {"version": md.version, "created_by": md.created_by,
+            "row_groups": len(md.row_groups), "codecs": codecs,
+            "pages": {k: sorted(map(list, v)) for k, v in pages.items()},
+            "sorting_column": Q6_COLUMNS[FLIGHT_SORT_COLUMN],
+            "key_value_metadata": kv}
+
+
+def _loopback_server(batches, listener) -> None:
+    """The transport's yardstick: each accepted connection is sent the
+    batches' column buffers, the bytes of their IPC bodies, by sendall."""
+    while True:
+        try:
+            conn, _ = listener.accept()
+        except OSError:
+            return
+        with conn:
+            for b in batches:
+                for c in b.columns:
+                    conn.sendall(memoryview(np.ascontiguousarray(c.values)
+                                            ).cast("B"))
+
+
+def flight_server_main(path: str, rows: int, pipe) -> None:
+    """The served process: the file read through the port's read front
+    (decoded on the CPU, as this host-side service asks), served in
+    HostBatches of `rows` rows by DoGet, DoPut acknowledging each batch
+    with its row count and l_qty sum, and the loopback yardstick on a
+    second port. Sends (Flight port, yardstick port, row count), then
+    serves until the pipe says stop."""
+    import socket
+    import threading
+    from arrow_go_tpu_torch import flight as fl
+    hb = tpq.read_table(path, device="cpu")
+    batches = [hb.slice(a, rows) for a in range(0, hb.num_rows, rows)]
+
+    class Server(fl.FlightServerBase):
+        def do_get(self, ctx, ticket):
+            return hb.schema, batches
+
+        def do_put(self, ctx, desc, reader):
+            for b in reader:
+                qty = int(b.column("l_qty").values.astype(np.int64).sum())
+                yield f"{b.num_rows}:{qty}".encode()
+
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(4)
+    threading.Thread(target=_loopback_server, args=(batches, listener),
+                     daemon=True).start()
+    with Server("grpc://127.0.0.1:0") as srv:
+        pipe.send((srv.port, listener.getsockname()[1], hb.num_rows))
+        pipe.recv()
+    listener.close()
+
+
+def start_flight_server(path: str, rows: int = FLIGHT_BATCH_ROWS):
+    """flight_server_main in a spawned process, so that the server's and
+    the client's Python do not share one interpreter lock; returns
+    (process, pipe, (Flight port, yardstick port, rows))."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    ours, theirs = ctx.Pipe()
+    proc = ctx.Process(target=flight_server_main, args=(path, rows, theirs),
+                       daemon=True)
+    proc.start()
+    t0 = time.perf_counter()
+    while not ours.poll(0.5):
+        if not proc.is_alive() or time.perf_counter() - t0 > 300:
+            proc.kill()
+            raise AssertionError("the flight server process did not start")
+    return proc, ours, ours.recv()
+
+
+def stop_flight_server(proc, pipe) -> None:
+    pipe.send("stop")
+    proc.join(30)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(10)
+
+
+def flight_q6(client, dev, times=None, source=None) -> dict:
+    """TPC-H Q6 over a DoGet stream: each HostBatch the port's client
+    reads to the card (host_batch_to_device), filtered (K1) and summed
+    (K3), added across batches. `times` gathers the wait on the stream
+    (`stream_s`: the call and each batch's arrival and IPC decode, the
+    transport overlapping the card work), the copy to the card (`h2d_s`),
+    the compute (`compute_s`), the batches, rows and IPC body bytes;
+    with `source` each batch is held bit for bit against it, outside
+    the spans."""
+    from arrow_go_tpu_torch import flight as fl
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    t_call = time.perf_counter()
+    reader = client.do_get(fl.Ticket(b"lineitem"))
+    revenue, count, row, n, body = 0.0, 0, 0, 0, 0
+    spans = {"stream_s": time.perf_counter() - t_call, "h2d_s": 0.0,
+             "compute_s": 0.0}
+    while True:
+        t0 = time.perf_counter()
+        hb = reader.read_next_batch()
+        if hb is None:
+            break
+        t1 = time.perf_counter()
+        db = host_batch_to_device(hb, dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        rev = q6_revenue(db)
+        if rev.length:
+            revenue += pc.agg_sum(rev)
+        count += rev.length
+        _sync(dev)
+        t3 = time.perf_counter()
+        for k, v in zip(spans, (t1 - t0, t2 - t1, t3 - t2)):
+            spans[k] += v
+        body += sum(c.values.nbytes for c in hb.columns)
+        if source is not None:
+            for f, c in zip(hb.schema.fields, hb.columns):
+                _same_bits(f"flight_q6 {f.name} batch {n}", c.values,
+                           source[f.name][row:row + hb.num_rows])
+        row += hb.num_rows
+        n += 1
+    if times is not None:
+        times.update(spans, batches=n, rows=row, body_bytes=body)
+    return {"revenue": revenue, "count": count}
+
+
+def flight_stream_ms(client) -> tuple:
+    """(ms, IPC body bytes) of one DoGet read to its end with no other
+    work: the transport's own time."""
+    from arrow_go_tpu_torch import flight as fl
+    t0 = time.perf_counter()
+    body = sum(c.values.nbytes for hb in client.do_get(fl.Ticket(
+        b"lineitem")) for c in hb.columns)
+    return (time.perf_counter() - t0) * 1e3, body
+
+
+def loopback_ms(port: int, nbytes: int) -> float:
+    """ms to receive `nbytes` from the yardstick server into one buffer
+    over a plain loopback socket."""
+    import socket
+    buf = bytearray(nbytes)
+    mv = memoryview(buf)
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        got = 0
+        while got < nbytes:
+            k = s.recv_into(mv[got:])
+            if not k:
+                raise AssertionError("the yardstick closed early")
+            got += k
+    return (time.perf_counter() - t0) * 1e3
+
+
+def flight_batches(table: dict, rows: int = FLIGHT_BATCH_ROWS) -> list:
+    hb = flight_batch(table)
+    return [hb.slice(a, rows) for a in range(0, hb.num_rows, rows)]
+
+
+def flight_put(client, batches) -> list:
+    """DoPut of `batches`; each acknowledgement must be the batch's row
+    count and l_qty sum."""
+    from arrow_go_tpu_torch import flight as fl
+    acks = client.do_put(fl.FlightDescriptor.for_path("lineitem"),
+                         batches[0].schema, batches)
+    want = [f"{b.num_rows}:{int(b.column('l_qty').values.sum(dtype=np.int64))}"
+            .encode() for b in batches]
+    if acks != want:
+        raise AssertionError(f"flight_put: acknowledgements {acks[:3]}..., "
+                             f"want {want[:3]}...")
+    return acks
+
+
+def q6_exchange_server(dev):
+    """A port Flight server whose DoExchange moves each received batch to
+    `dev`, runs Q6 on it (K1, K3) and returns Q6's one-row result."""
+    from arrow_go_tpu_torch import flight as fl
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    schema = dt.Schema([dt.Field("revenue", dt.float64, False),
+                        dt.Field("count", dt.int64, False)])
+
+    class Server(fl.FlightServerBase):
+        def do_exchange(self, ctx, desc, reader):
+            revenue, count = 0.0, 0
+            for hb in reader:
+                rev = q6_revenue(host_batch_to_device(hb, dev))
+                if rev.length:
+                    revenue += pc.agg_sum(rev)
+                count += rev.length
+            return HostBatch(schema, [
+                HostArray(np.array([revenue]), None, dt.float64),
+                HostArray(np.array([count], np.int64), None, dt.int64)], 1)
+    return Server("grpc://127.0.0.1:0")
+
+
+def flight_exchange(client, batches) -> dict:
+    from arrow_go_tpu_torch import flight as fl
+    out = client.do_exchange(fl.FlightDescriptor.for_command(b"q6"),
+                             batches[0].schema, batches).read_all()
+    return {"revenue": float(out.column("revenue").values[0]),
+            "count": int(out.column("count").values[0])}
+
+
+def flight_scenarios() -> dict:
+    """The ported integration scenarios, port server with port client:
+    seconds each (a failure raises)."""
+    import contextlib
+    from arrow_go_tpu_torch.flight import integration
+    out = {}
+    for name in sorted(integration.SCENARIOS):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # the runners' lines
+            integration.run_scenario_inprocess(name)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def flight_phases(li, dev, card: str, timing_only: bool = False) -> dict:
+    """This slice's paths over the first FLIGHT_ROWS rows of the Q6
+    columns, sorted by l_sdate, in a temporary directory: the file
+    written with flight_writer_properties and its footer checked
+    (`flight_file`); served from a spawned process (`flight_server`);
+    `flight_q6` (DoGet, each batch to the card, Q6 with K1 and K3, beside
+    the same bytes over a plain loopback socket), `flight_put` (DoPut,
+    every batch acknowledged), `flight_exchange` (DoExchange against a
+    port server in this process that runs Q6 on the card),
+    `flight_scenarios` and `flight_path_checks` (every K1 and K3 call of
+    flight_q6 and flight_exchange against the plain version; not with
+    `timing_only`). Each path is timed as a median of 3 after one
+    counted run. Returns the launch counts and the largest kernel -
+    plain difference."""
+    from arrow_go_tpu_torch import flight as fl
+    t_phase = time.perf_counter()
+    launches, checks = {}, {}
+    root_dir = tempfile.TemporaryDirectory()
+    n = min(FLIGHT_ROWS, len(li["l_okey"]))
+    table = flight_table(li, n)
+    want = q6_oracle(table)
+    path = os.path.join(root_dir.name, "lineitem_q6.parquet")
+    t0 = time.perf_counter()
+    nbytes = write_flight_file(path, table)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"flight_file": {
+        **check_flight_footer(path), "rows": n, "file_bytes": nbytes,
+        "write_ms": write_ms, "card": card, "verified": True}}), flush=True)
+
+    t0 = time.perf_counter()
+    proc, pipe, (port, yard_port, served) = start_flight_server(path)
+    start_ms = (time.perf_counter() - t0) * 1e3
+    exch = None
+    try:
+        if served != n:
+            raise AssertionError(f"the server read {served} rows, wrote {n}")
+        client = fl.FlightClient(f"grpc://127.0.0.1:{port}")
+        # flight_q6
+        got, launches["Flight Q6"] = run_path(
+            "Flight Q6", lambda: flight_q6(client, dev), ("K1", "K3"))
+        check_q6(got, want)
+        split = {}
+        if flight_q6(client, dev, split, source=table) != got:
+            raise AssertionError("flight_q6: two streams differ")
+        runs = []
+        for _ in range(3):
+            times = {}
+            t0 = time.perf_counter()
+            if flight_q6(client, dev, times) != got:
+                raise AssertionError("flight_q6: a run differs")
+            times["ms"] = (time.perf_counter() - t0) * 1e3
+            runs.append(times)
+        med = sorted(runs, key=lambda t: t["ms"])[1]
+        body = split["body_bytes"]
+        streams = [flight_stream_ms(client) for _ in range(3)]
+        if any(b != body for _, b in streams):
+            raise AssertionError("flight_q6: a stream's bytes differ")
+        stream_ms = sorted(ms for ms, _ in streams)[1]
+        yard = sorted(loopback_ms(yard_port, body) for _ in range(3))[1]
+        prof = profile_device(lambda: flight_q6(client, dev),
+                              lambda o: check_q6(o, want), top=6)
+        checks["flight_q6"] = (lambda: flight_q6(client, dev),
+                               lambda o: check_q6(o, want), "Flight Q6")
+        print(json.dumps({"flight_q6": {
+            **got, "oracle": want, "rows": split["rows"],
+            "batches": split["batches"], "ipc_body_bytes": body,
+            "ms_runs": [t["ms"] for t in runs], "ms_median": med["ms"],
+            "stream_wait_ms": med["stream_s"] * 1e3,
+            "stream_ms_runs": [ms for ms, _ in streams],
+            "stream_ms": stream_ms, "stream_mb_per_s": body / stream_ms / 1e3,
+            "copy_ms": med["h2d_s"] * 1e3,
+            "compute_ms": med["compute_s"] * 1e3,
+            "loopback_socket_ms": yard,
+            "loopback_socket_mb_per_s": body / yard / 1e3,
+            "server_start_ms": start_ms, "profile": prof,
+            "verified_bits": True,
+            "launches_per_run": launches["Flight Q6"], "card": card,
+            "verified": True}}), flush=True)
+
+        # flight_put
+        batches = flight_batches(table)
+        _, launches["Flight put"] = run_path(
+            "Flight put", lambda: flight_put(client, batches), ())
+        put_runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            flight_put(client, batches)
+            put_runs.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({"flight_put": {
+            "rows": n, "batches": len(batches), "ipc_body_bytes": body,
+            "ms_runs": put_runs, "ms_median": float(np.median(put_runs)),
+            "mb_per_s": body / float(np.median(put_runs)) / 1e3,
+            "acknowledged": True, "card": card, "verified": True}}),
+            flush=True)
+        client.close()
+
+        # flight_exchange: the server side on the card, in this process
+        exch = q6_exchange_server(dev)
+        exch.serve()
+        xclient = fl.FlightClient(f"grpc://127.0.0.1:{exch.port}")
+        got, launches["Flight exchange"] = run_path(
+            "Flight exchange", lambda: flight_exchange(xclient, batches),
+            ("K1", "K3"))
+        check_q6(got, want)
+        outs, x_runs = timed(lambda: flight_exchange(xclient, batches))
+        for out in outs:
+            check_q6(out, want)
+        checks["flight_exchange"] = (
+            lambda: flight_exchange(xclient, batches),
+            lambda o: check_q6(o, want), "Flight exchange")
+        print(json.dumps({"flight_exchange": {
+            **got, "oracle": want, "rows": n, "ipc_body_bytes": body,
+            "ms_runs": x_runs, "ms_median": float(np.median(x_runs)),
+            "mb_per_s": body / float(np.median(x_runs)) / 1e3,
+            "launches_per_run": launches["Flight exchange"], "card": card,
+            "verified": True}}), flush=True)
+
+        scen = flight_scenarios()
+        print(json.dumps({"flight_scenarios": {
+            "passed": sorted(scen), "s": scen, "card": card,
+            "verified": True}}), flush=True)
+
+        held = {}
+        if not timing_only:
+            for key, (fn, check, name) in checks.items():
+                out, held[key] = check_path_calls(key, fn, launches[name],
+                                                  k3=True)
+                check(out)
+            print(json.dumps({"flight_path_checks": held}), flush=True)
+        xclient.close()
+    finally:
+        if exch is not None:
+            exch.shutdown()
+        stop_flight_server(proc, pipe)
+        root_dir.cleanup()
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"flight_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -6420,6 +6894,10 @@ def main(argv=None) -> int:
                          "kernels and ok lines: a run that times every "
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
+    ap.add_argument("--only", choices=["flight"],
+                    help="run only this phase, on the data of --sf, after "
+                         "the build: no kernel sweeps, no other phase, "
+                         "and neither the kernels nor the ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6440,6 +6918,18 @@ def main(argv=None) -> int:
         print(f"build: {native.build().name} in "
               f"{time.perf_counter() - t0:.1f} s (g++)", flush=True)
 
+    n_li = LINEITEM_SF10 if args.sf == 10 else int(round(LINEITEM_SF1
+                                                         * args.sf))
+    n_ord = n_li // 4
+    if args.only == "flight":
+        li, _ = make_data(n_li, n_ord)
+        add_quantity(li)
+        out = flight_phases(li, dev, card)
+        print(json.dumps({"flight_only": {
+            "launches": out["launches"], "max_abs_err": out["errs"]}}))
+        print(f"total: {time.perf_counter() - t_start:.1f} s (flight only)")
+        return 0
+
     if args.timing_only:
         k1_err = k2_err = k3_err = 0.0
     else:
@@ -6447,9 +6937,6 @@ def main(argv=None) -> int:
         k2_err = check_k2(dev)
         k3_err = check_k3(dev)
 
-    n_li = LINEITEM_SF10 if args.sf == 10 else int(round(LINEITEM_SF1
-                                                         * args.sf))
-    n_ord = n_li // 4
     t0 = time.perf_counter()
     li, orders = make_data(n_li, n_ord)
     li_db = agt.batch_to_device(li, device=dev)
@@ -6604,6 +7091,8 @@ def main(argv=None) -> int:
             interop_phases(li, orders, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.parquet.keytools"):
             encryption_phases(li, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.flight"):
+            flight_phases(li, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -6644,6 +7133,9 @@ def main(argv=None) -> int:
     encs = encryption_phases(li, dev, card)
     k1_err = max(k1_err, encs["errs"]["K1"])
     k3_err = max(k3_err, encs["errs"]["K3"])
+    flights = flight_phases(li, dev, card)
+    k1_err = max(k1_err, flights["errs"]["K1"])
+    k3_err = max(k3_err, flights["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -6653,7 +7145,8 @@ def main(argv=None) -> int:
                **dists["launches"], **nested["launches"],
                **front["launches"], **more["launches"],
                **ipcs["launches"], **fmts["launches"],
-               **inter["launches"], **encs["launches"]}
+               **inter["launches"], **encs["launches"],
+               **flights["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -108,8 +108,39 @@ def test_json_integration(sample, capsys):
     assert arrjson.read_arrjson(open(j2).read())[0].num_rows == 3
     assert _out(tcli.main, ["cat", a2]) == _out(jcli.main, ["cat",
                                                             arrow_path])
-    with pytest.raises(ArrowNotImplemented, match="flight"):
-        tcli.main(["flight-integration", "list"])
+
+
+def test_flight_integration_lists_the_ported_scenarios():
+    """The JAX CLI's list less the two FlightSQL scenarios, which the
+    port's CLI refuses."""
+    from arrow_go_tpu_torch.flight import integration as tfi
+    got = _out(tcli.main, ["flight-integration", "list"]).split()
+    want = [n for n in _out(jcli.main, ["flight-integration",
+                                        "list"]).split()
+            if not n.startswith("flight_sql")]
+    assert got == want == sorted(tfi.SCENARIOS) and len(got) == 11
+    for name in ("flight_sql", "flight_sql:ingestion"):
+        with pytest.raises(ArrowNotImplemented, match="flight sql"):
+            tcli.main(["flight-integration", "client", "--scenario", name,
+                       "--uri", "grpc://localhost:1"])
+
+
+@pytest.mark.parametrize("name", ["ordered", "session_options"])
+def test_flight_integration_runs_a_scenario(name):
+    """The port's CLI client against the port's scenario server, and
+    against the JAX one."""
+    pytest.importorskip("grpc")
+    from arrow_go_tpu.flight import integration as jfi
+    from arrow_go_tpu_torch.flight import integration as tfi
+    for fi in (tfi, jfi):
+        srv = fi.run_scenario_server(name, block=False)
+        try:
+            out = _out(tcli.main, ["flight-integration", "client",
+                                   "--scenario", name, "--port",
+                                   str(srv.port)])
+        finally:
+            srv.shutdown()
+        assert f"scenario {name!r} passed" in out
 
 
 def test_json_integration_validate_mismatch(sample, tmp_path):

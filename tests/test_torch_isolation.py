@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 its native codec library, nor its ci/ workers) nor pyarrow nor zstandard
-nor xxhash nor flatbuffers nor triton nor cffi nor protobuf, its own
+nor xxhash nor flatbuffers nor triton nor cffi nor protobuf nor grpc nor
+h2 nor hpack (its Flight runs on its own gRPC with those blocked), its own
 codec library is built from its own source with no switch or fallback,
 and it never moves to the CPU unless asked."""
 import ast
@@ -20,7 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(arrow_go_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "arrow_go_tpu", "arrow_go_tpu.native", "pyarrow",
              "zstandard", "xxhash", "triton", "ci", "flatbuffers", "cffi",
-             "google.protobuf", "cryptography")
+             "google.protobuf", "cryptography", "grpc", "h2", "hpack")
 
 
 def _forbidden(name: str) -> bool:
@@ -85,7 +86,17 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.parquet.encryption\n"
             "import arrow_go_tpu_torch.parquet.keytools\n"
             "import arrow_go_tpu_torch.cli\n"
+            "import arrow_go_tpu_torch.flight\n"
+            "import arrow_go_tpu_torch.flight.hpack\n"
+            "import arrow_go_tpu_torch.flight.h2\n"
+            "import arrow_go_tpu_torch.flight.rpc\n"
+            "import arrow_go_tpu_torch.flight.messages\n"
+            "import arrow_go_tpu_torch.flight.wire\n"
+            "import arrow_go_tpu_torch.flight.service\n"
+            "import arrow_go_tpu_torch.flight.session\n"
+            "import arrow_go_tpu_torch.flight.integration\n"
             "arrow_go_tpu_torch.interop, arrow_go_tpu_torch.cdata\n"
+            "arrow_go_tpu_torch.flight\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
             f"bad = [m for m in sys.modules if m in {FORBIDDEN!r}"
             f" or m.startswith({tuple(f + '.' for f in FORBIDDEN)!r})]\n"
@@ -123,7 +134,11 @@ def test_the_scan_reaches_the_new_modules():
                 "formats/avro.py", "interop/__init__.py",
                 "interop/protowire.py", "interop/arrjson.py",
                 "compute/substrait.py", "cdata.py",
-                "parquet/encryption.py", "parquet/keytools.py", "cli.py"):
+                "parquet/encryption.py", "parquet/keytools.py", "cli.py",
+                "flight/__init__.py", "flight/hpack.py", "flight/h2.py",
+                "flight/rpc.py", "flight/messages.py", "flight/wire.py",
+                "flight/service.py", "flight/session.py",
+                "flight/integration.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
@@ -279,3 +294,35 @@ def test_formats_run_on_the_card_unless_asked(monkeypatch, tmp_path):
             node, ast.Import) else [node.module or ""])}
     assert avro.native.zstd_decompress.__module__ == \
         "arrow_go_tpu_torch.native"
+
+
+def test_flight_runs_with_grpc_protobuf_and_pyarrow_blocked():
+    """A port server and client trade batches, actions and a scenario
+    in a process where importing grpc, google.protobuf, h2, hpack,
+    pyarrow or the JAX package fails."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {('grpc', 'google', 'h2', 'hpack', 'pyarrow', 'jax', 'arrow_go_tpu')!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "from arrow_go_tpu_torch import dtypes as dt, flight as fl\n"
+        "from arrow_go_tpu_torch.device.block import HostArray, HostBatch\n"
+        "from arrow_go_tpu_torch.flight import integration\n"
+        "hb = HostBatch(dt.Schema([dt.Field('a', dt.int64, False)]),\n"
+        "               [HostArray(np.arange(100000), None, dt.int64)], 100000)\n"
+        "class S(fl.FlightServerBase):\n"
+        "    def do_get(self, ctx, t): return hb.schema, [hb, hb]\n"
+        "    def do_action(self, ctx, a): yield fl.Result(a.body[::-1])\n"
+        "with S('grpc://127.0.0.1:0') as s:\n"
+        "    with fl.FlightClient(f'grpc://127.0.0.1:{s.port}') as c:\n"
+        "        got = c.do_get(fl.Ticket(b'x')).read_all()\n"
+        "        body = list(c.do_action(fl.Action('r', b'abc')))[0].body\n"
+        "integration.run_scenario_inprocess('session_options')\n"
+        "print(got.num_rows, int(got.column('a').values.sum()), body)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split("\n")[-2] == f"200000 {2 * sum(range(100000))} b'cba'"
