@@ -12,8 +12,8 @@ Usage:
 Tables are HostBatches. A parquet file is read by `parquet.read_table`,
 whose columns decode on the card unless `--device` names another device
 (`--device cpu`); the text printed for a file is the JAX CLI's.
-`flight-integration` lists, serves and runs the ported Flight scenarios
-(flight/integration.py); the FlightSQL ones raise ArrowNotImplemented.
+`flight-integration` lists, serves and runs the Flight integration
+scenarios (flight/integration.py), the two FlightSQL ones included.
 """
 from __future__ import annotations
 
@@ -170,7 +170,7 @@ def cmd_json_integration(args):
 def cmd_flight_integration(args):
     """The archery Flight integration drivers (reference
     arrow/flight/cmd/arrow-flight-integration-{server,client}) over the
-    ported scenarios; the FlightSQL ones raise ArrowNotImplemented."""
+    scenarios of flight/integration.py."""
     from .flight import integration as fi
     if args.role == "list":
         for name in sorted(fi.SCENARIOS):

@@ -44,6 +44,7 @@ from ..device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                             host_array_to_device, host_batch_to_device,
                             list_take_device, nested_array, pad_length,
                             row_mask)
+from ..array.record import ChunkedArray
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from ..ops.decimal import to_ints
@@ -163,8 +164,15 @@ def _mask_on(mask, dev, P: int) -> DeviceColumn:
     return mask
 
 
+def _combined(v):
+    """A ChunkedArray as one HostArray (its chunks concatenated);
+    anything else as it is."""
+    return v.combine() if isinstance(v, ChunkedArray) else v
+
+
 def _host_mask(mask):
     """A boolean filter mask -> (values, validity) bool ndarrays."""
+    mask = _combined(mask)
     if isinstance(mask, DeviceColumn):
         mask = column_to_host(mask)
     if not isinstance(mask, HostArray) or mask.type != dt.bool_:
@@ -232,8 +240,10 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
     host; one with another column (nested, day_time_interval, ...)
     filters on the host (compute/nested_selection.py), as the JAX
     package routes them. A host input or mask gives a host result, as
-    in the JAX package."""
+    in the JAX package; a ChunkedArray of values or of the mask is
+    combined first, as a HostArray."""
     options = options or FilterOptions()
+    values, mask = _combined(values), _combined(mask)
     host_mask = isinstance(mask, HostArray)
     if isinstance(values, DeviceBatch):
         out = _filter_device_batch(values, mask, options)
@@ -278,8 +288,10 @@ def _device_of(other, device):
 
 def _host_take_indices(indices: HostArray, n_src: int,
                        options: TakeOptions) -> np.ndarray:
-    """Take-indices of any integer type -> int64 ndarray with -1 for
-    null slots, bounds-checked before the null slots become -1."""
+    """Take-indices of any integer type (a HostArray or a ChunkedArray,
+    combined) -> int64 ndarray with -1 for null slots, bounds-checked
+    before the null slots become -1."""
+    indices = _combined(indices)
     if not indices.type.is_integer:
         raise ArrowNotImplemented("take indices must be integer")
     idx = np.asarray(indices.values).astype(np.int64)
@@ -326,8 +338,11 @@ def take(values, indices, options: Optional[TakeOptions] = None,
     DeviceListColumn or DeviceBatch takes on its device; a DeviceBatch's
     HostColumns on the host. A DeviceColumn by host indices, or a flat
     HostArray by DeviceColumn indices, moves both to the device, and
-    the result comes back to the host, as the JAX package's take does."""
+    the result comes back to the host, as the JAX package's take does.
+    A ChunkedArray of values or indices is combined first, as a
+    HostArray."""
     options = options or TakeOptions()
+    values, indices = _combined(values), _combined(indices)
     if isinstance(values, (HostBatch, HostArray)) and isinstance(
             indices, DeviceColumn):
         if isinstance(values, HostBatch) or not values.type.on_device:
@@ -530,9 +545,13 @@ def sort(values, options: Optional[SortOptions] = None, *,
 # ---------------------------------------------------------------------------
 
 def _as_device(values, what: str = "") -> DeviceColumn:
-    """`values` as a DeviceColumn; naming `what` refuses a decimal128 /
-    decimal256 column (the JAX package has no such aggregate or set
-    operation: it fails there on the limb matrix's shape)."""
+    """`values` as a DeviceColumn (a ChunkedArray combined and moved to
+    the card, as the JAX package moves it to its device); naming `what`
+    refuses a decimal128 / decimal256 column (the JAX package has no
+    such aggregate or set operation: it fails there on the limb
+    matrix's shape)."""
+    if isinstance(values, ChunkedArray):
+        values = host_array_to_device(values.combine(), torchenv.device())
     if not isinstance(values, DeviceColumn):
         raise ArrowNotImplemented(
             f"the port aggregates DeviceColumns, got {type(values).__name__}")

@@ -23,6 +23,7 @@ import torch
 
 from .. import dtypes as dt
 from .. import torchenv
+from ..array.record import ChunkedArray
 from ..device.block import (DeviceColumn, HostArray, RunEndEncodedArray,
                             host_array_to_device, row_mask)
 from ..ops.compaction import compact_flagged
@@ -61,12 +62,14 @@ def device_runs(col: DeviceColumn):
 
 def run_end_encode(values, run_end_type: dt.DataType = dt.int32,
                    device=None) -> RunEndEncodedArray:
-    """A flat HostArray or DeviceColumn as a run_end_encoded array (a
-    HostArray moves to `device`, the card unless named). A decimal128 /
-    decimal256 limb column and a nested column raise ArrowNotImplemented:
-    the JAX package fails on both."""
+    """A flat HostArray, ChunkedArray (combined) or DeviceColumn as a
+    run_end_encoded array (a host column moves to `device`, the card
+    unless named). A decimal128 / decimal256 limb column and a nested
+    column raise ArrowNotImplemented: the JAX package fails on both."""
     if run_end_type not in RUN_END_TYPES:
         raise ArrowInvalid("run-ends must be int16/int32/int64")
+    if isinstance(values, ChunkedArray):
+        values = values.combine()
     if isinstance(values, HostArray):
         if values.type.is_nested:
             raise ArrowNotImplemented(f"run_end_encode of {values.type}")

@@ -33,10 +33,9 @@ _EPOCH_DATE = datetime.date(1970, 1, 1)
 def infer_type(values: list) -> dt.DataType:
     """The type the JAX package's builders infer for a Python list (the
     first non-null value decides; arrow_go_tpu/array/builders.py)."""
-    non_null = [v for v in values if v is not None]
-    if not non_null:
+    v = next((x for x in values if x is not None), None)
+    if v is None:
         return dt.null
-    v = non_null[0]
     if isinstance(v, (bool, np.bool_)):
         return dt.bool_
     if isinstance(v, (int, np.integer)):
@@ -47,6 +46,7 @@ def infer_type(values: list) -> dt.DataType:
         return dt.string
     if isinstance(v, (bytes, bytearray)):
         return dt.binary
+    non_null = [x for x in values if x is not None]
     if isinstance(v, pydec.Decimal):
         scale = max(-x.as_tuple().exponent for x in non_null
                     if isinstance(x, pydec.Decimal))

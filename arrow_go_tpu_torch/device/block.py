@@ -57,6 +57,8 @@ from __future__ import annotations
 
 import datetime
 import decimal as pydec
+import itertools
+import operator
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -758,7 +760,8 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
     (key, value) pairs) and a dictionary type (its values, coded in
     first-occurrence order). Another type raises ArrowNotImplemented."""
     n = len(values)
-    ok = np.array([v is not None for v in values], np.bool_)
+    ok = np.fromiter(map(operator.is_not, values, itertools.repeat(None)),
+                     np.bool_, n)
     mask = None if ok.all() else ok
     if t.id == dt.TypeId.NULL:
         return null_array(n)
@@ -812,7 +815,11 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
         raise ArrowNotImplemented(f"a {t} column from Python values")
     out = np.zeros(n, t.np_dtype)
     if ok.any():
-        out[ok] = [_coerce(v, t) for v in values if v is not None]
+        present = values if mask is None else \
+            [v for v in values if v is not None]
+        if t.id in (dt.TypeId.DATE32, dt.TypeId.TIMESTAMP):
+            present = [_coerce(v, t) for v in present]
+        out[ok] = present
     return HostArray(out, mask, t)
 
 

@@ -1,12 +1,13 @@
-"""The Flight integration scenarios that need no FlightSQL (after
-arrow_go_tpu/flight/integration.py:103-429; reference
+"""The Flight integration scenarios (after
+arrow_go_tpu/flight/integration.py; reference
 arrow/internal/flight_integration/scenario.go and the archery drivers
-cmd/arrow-flight-integration-{server,client}), on the port's own gRPC.
+cmd/arrow-flight-integration-{server,client}), on the port's own gRPC;
+`flight_sql` and `flight_sql:ingestion` against the SQLite example
+server (flight/sql.py).
 
 Each scenario is a (server factory, client runner) pair in SCENARIOS;
 the client raises AssertionError (or an rpc.RpcError) on any deviation.
-`flight_sql` and `flight_sql:ingestion` raise ArrowNotImplemented: the
-port has no FlightSQL. From the CLI:
+From the CLI:
 
     python -m arrow_go_tpu_torch.cli flight-integration server --scenario ordered
     python -m arrow_go_tpu_torch.cli flight-integration client \\
@@ -21,16 +22,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import dtypes as dt
-from ..compute.errors import ArrowNotImplemented
 from ..device.block import HostArray, HostBatch
 from . import messages as fm
 from .rpc import RpcError, StatusCode
 from .service import (Action, FlightClient, FlightDescriptor, FlightEndpoint,
                       FlightInfo, FlightServerBase, Result, Ticket)
 from .session import CookieMiddleware, SessionManager
-
-SQL_SCENARIOS = ("flight_sql", "flight_sql:ingestion")
-
 
 class Scenario:
     def __init__(self, name: str,
@@ -53,8 +50,6 @@ def _register(name):
 
 
 def scenario(name: str) -> Scenario:
-    if name in SQL_SCENARIOS:
-        raise ArrowNotImplemented("flight sql is not ported")
     if name not in SCENARIOS:
         raise KeyError(f"no flight integration scenario {name!r}")
     return SCENARIOS[name]
@@ -437,6 +432,78 @@ def _session_options():
             assert c.close_session() == fm.CloseSessionResult.STATUS_CLOSED
 
     return Server, client
+
+
+# ---------------------------------------------------------------------------
+# flight_sql / flight_sql:ingestion (reference scenario.go:77-91, backed by
+# the SQLite example server like flightsql/example)
+# ---------------------------------------------------------------------------
+
+def _sqlite_server():
+    from .sql import SQLiteFlightSQLServer
+    return SQLiteFlightSQLServer
+
+
+@_register("flight_sql")
+def _flight_sql():
+    def client(uri: str):
+        from .sql import FlightSQLClient, table
+        with FlightSQLClient(uri) as c:
+            c.execute_update(
+                "CREATE TABLE IF NOT EXISTS intTable "
+                "(id INTEGER PRIMARY KEY, keyName TEXT, value INTEGER)")
+            assert c.execute_update(
+                "INSERT INTO intTable (keyName, value) VALUES "
+                "('one', 1), ('zero', 0), ('negative one', -1)") == 3
+            t = c.execute_query(
+                "SELECT keyName, value FROM intTable ORDER BY value")
+            assert t.to_pydict() == {
+                "keyName": ["negative one", "zero", "one"],
+                "value": [-1, 0, 1]}, t.to_pydict()
+            # catalog metadata round trips
+            tables = c.get_tables(table_types=["table"])
+            assert "intTable" in tables.column("table_name").to_pylist()
+            assert c.get_table_types().num_rows >= 1
+            info = c.get_sql_info()
+            assert info.num_rows > 0
+            # prepared statement with parameter binding
+            ps = c.prepare("SELECT keyName FROM intTable WHERE value = ?")
+            ps.set_parameters(table({"p": [1]}))
+            got = ps.execute()
+            assert got.to_pydict() == {"keyName": ["one"]}, got.to_pydict()
+            ps.close()
+            # transaction commit/rollback
+            txn = c.begin_transaction()
+            c.execute_update("INSERT INTO intTable (keyName, value) "
+                             "VALUES ('txn', 9)")
+            c.rollback(txn)
+            t = c.execute_query(
+                "SELECT COUNT(*) AS c FROM intTable WHERE value = 9")
+            assert t.to_pydict()["c"] == [0]
+            c.execute_update("DROP TABLE intTable")
+
+    return _sqlite_server(), client
+
+
+@_register("flight_sql:ingestion")
+def _flight_sql_ingestion():
+    def client(uri: str):
+        from .sql import FlightSQLClient, table
+        with FlightSQLClient(uri) as c:
+            data = table({"a": [1, 2, 3], "b": ["x", "y", "z"]})
+            assert c.execute_ingest(data, "ingest_tbl") == 3
+            assert c.execute_ingest(data, "ingest_tbl",
+                                    if_exists="append") == 3
+            t = c.execute_query("SELECT COUNT(*) AS c FROM ingest_tbl")
+            assert t.to_pydict()["c"] == [6]
+            assert c.execute_ingest(data, "ingest_tbl",
+                                    if_exists="replace") == 3
+            t = c.execute_query(
+                "SELECT a, b FROM ingest_tbl ORDER BY a")
+            assert t.to_pydict() == {"a": [1, 2, 3], "b": ["x", "y", "z"]}
+            c.execute_update("DROP TABLE ingest_tbl")
+
+    return _sqlite_server(), client
 
 
 # ---------------------------------------------------------------------------

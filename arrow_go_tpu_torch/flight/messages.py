@@ -6,7 +6,9 @@ enums, the CancelStatus enum and google.protobuf.Timestamp.
 Each message class lists its fields as (number, name, kind); the codec
 writes them in field-number order and skips a proto3 scalar at its
 default, as protobuf serializes, so the bytes equal Flight_pb2's (a
-map's entries go in insertion order, which protobuf leaves undefined).
+map's entries go in insertion order, which protobuf leaves undefined; a
+repeated number is packed, as proto3 writes it, and read packed or
+not). A map's `sub` is its value's message class, or "string".
 A message field or an explicit-presence field (`optional`, a oneof
 member) is None when unset. The method names follow the generated
 classes: `SerializeToString`, `FromString`, `HasField`, `WhichOneof`.
@@ -19,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 from ..interop import protowire as pw
 
-_VARINT = {"uint64", "int64", "int32", "bool", "enum"}
+_VARINT = {"uint64", "uint32", "int64", "int32", "bool", "enum"}
 _SIGNED = {"int64", "int32", "enum"}
 
 
@@ -109,8 +111,17 @@ class Message:
                 for k, mv in v.items():
                     entry = bytearray()
                     pw.put_field_str(entry, 1, k)
-                    pw.put_field_bytes(entry, 2, mv.SerializeToString())
+                    if f.sub == "string":
+                        pw.put_field_str(entry, 2, mv)
+                    else:
+                        pw.put_field_bytes(entry, 2, mv.SerializeToString())
                     pw.put_field_bytes(out, f.number, bytes(entry))
+            elif f.repeated and f.kind in _VARINT:
+                if v:
+                    packed = bytearray()
+                    for x in v:
+                        pw.put_varint(packed, int(x))
+                    pw.put_field_bytes(out, f.number, bytes(packed))
             elif f.repeated:
                 for x in v:
                     _put(out, f, x)
@@ -127,13 +138,22 @@ class Message:
         nums = cls._by_number()
         for number, wt, raw in pw.fields(data):
             f = nums.get(number)
+            if f is not None and f.repeated and f.kind in _VARINT and \
+                    wt == pw.WT_BYTES:
+                raw, p = bytes(raw), 0
+                while p < len(raw):
+                    x, p = pw.get_varint(raw, p)
+                    getattr(msg, f.name).append(_get(f, x))
+                continue
             if f is None or wt != _wire_type(f):
                 continue                          # an unknown field
             if f.kind == "map":
                 d = pw.to_dict(raw)
                 key = bytes(pw.first(d, 1, b"")).decode("utf-8")
-                getattr(msg, f.name)[key] = f.sub.FromString(
-                    pw.first(d, 2, b""))
+                value = pw.first(d, 2, b"")
+                getattr(msg, f.name)[key] = (
+                    bytes(value).decode("utf-8") if f.sub == "string"
+                    else f.sub.FromString(value))
                 continue
             v = _get(f, raw)
             if f.repeated:

@@ -261,23 +261,44 @@ without one. Phases:
      port to port (`flight_scenarios`); every K1 and K3 call of
      flight_q6 and flight_exchange against the plain version
      (`flight_path_checks`);
-  22. a `kernels` JSON line, then the last line
+  22. Flight SQL: the Q6 columns of the first 1,048,576 rows at their
+     widths (l_price, l_disc float64; l_qty, l_sdate int32) ingested
+     into a port SQLite example server in this process by execute_ingest
+     (`flightsql_ingest`); TPC-H Q6 from a FlightSQL query (the four
+     columns by execute_query: GetFlightInfo and DoGet each run the
+     query on the server; batch to the card, K1, K3) against numpy and
+     SQLite's own aggregate through a prepared statement with Q6's
+     bounds bound as parameters, with the query / copy / compute split,
+     the IPC body bytes and the device idle share (`flightsql_q6`); the
+     query's l_disc in 4 chunks as a ChunkedArray filtered by Q6's mask
+     on the card (K1), held by array_equal against numpy (`chunked`);
+     the DB-API driver: the parameterised Q6 aggregate through a cursor,
+     an executemany rolled back and one committed, each counted
+     (`flightsql_dbapi`); get_tables, get_sql_info, get_xdbc_type_info
+     and get_primary_keys on lineitem (`flightsql_catalog`); the two
+     FlightSQL integration scenarios port to port
+     (`flightsql_scenarios`); every K1 and K3 call of flightsql_q6 and
+     the chunked filter against the plain version
+     (`flightsql_path_checks`);
+  23. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 22 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 23 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 21 against the plain version: a run that times every
+10 to 14 and 18 to 22 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 21 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 22 run only in a tree
 that has their entry points.
 
-With --only flight it runs phases 1 and 2, makes the data and runs
-phase 21 alone, then prints the phase's launches and errors and no
-`kernels` or ok line: a quick check of the Flight phase on the card.
+With --only flight (or flightsql) it runs phases 1 and 2, makes the data
+and runs phase 21 (or 22) alone, then prints the phase's launches and
+errors and no `kernels` or ok line: a quick check of that phase on the
+card.
 
-Usage: python3 chip_smoke.py [--sf 10] [--timing-only] [--only flight]
+Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
+                             [--only flight|flightsql]
 """
 from __future__ import annotations
 
@@ -452,10 +473,15 @@ def compute_q6(li_db: DeviceBatch) -> dict:
             "count": pc.agg_count(rev, pc.CountOptions("all"))}
 
 
+def q6_rows(li) -> np.ndarray:
+    """The rows that pass Q6's WHERE clause, by numpy."""
+    return ((li["l_sdate"] >= Q6_DATE_LO) & (li["l_sdate"] < Q6_DATE_HI)
+            & (li["l_disc"] >= Q6_DISC_LO) & (li["l_disc"] <= Q6_DISC_HI)
+            & (li["l_qty"] < Q6_QTY))
+
+
 def q6_oracle(li) -> dict:
-    m = ((li["l_sdate"] >= Q6_DATE_LO) & (li["l_sdate"] < Q6_DATE_HI)
-         & (li["l_disc"] >= Q6_DISC_LO) & (li["l_disc"] <= Q6_DISC_HI)
-         & (li["l_qty"] < Q6_QTY))
+    m = q6_rows(li)
     return {"revenue": float(np.sum(li["l_price"][m] * li["l_disc"][m])),
             "count": int(m.sum())}
 
@@ -3987,9 +4013,7 @@ def nested_phases(li, orders, dev, card: str,
     q6_mask = pc.execute_scalar_expression(q6_expression(), li_db)
     price_col = li_db.column("l_price")
     del li_db
-    q6_keep = ((li["l_sdate"] >= Q6_DATE_LO) & (li["l_sdate"] < Q6_DATE_HI)
-               & (li["l_disc"] >= Q6_DISC_LO) & (li["l_disc"] <= Q6_DISC_HI)
-               & (li["l_qty"] < Q6_QTY))
+    q6_keep = q6_rows(li)
     qty = torch.from_numpy(li["l_qty"]).to(dev)
     P_li = agt.pad_length(n_li)
     qty8 = torch.zeros(P_li, dtype=torch.int8, device=dev)
@@ -6879,6 +6903,315 @@ def flight_phases(li, dev, card: str, timing_only: bool = False) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+FLIGHTSQL_ROWS = 1 << 20           # rows of the FlightSQL paths (a cut)
+FLIGHTSQL_TIMED_RUNS = 1           # timed runs of flightsql_q6 (a cut from 3)
+FLIGHTSQL_CHUNKS = 4               # chunks of the ChunkedArray check
+FLIGHTSQL_MARK = 99_999            # l_sdate of the DB-API's inserted rows
+FLIGHTSQL_DBAPI_ROWS = 1000
+Q6_SQL = "SELECT l_price, l_disc, l_qty, l_sdate FROM lineitem"
+Q6_AGG_SQL = ("SELECT SUM(l_price * l_disc), COUNT(*) FROM lineitem "
+              "WHERE l_sdate >= ? AND l_sdate < ? AND l_disc >= ? "
+              "AND l_disc <= ? AND l_qty < ?")
+Q6_PARAMS = (Q6_DATE_LO, Q6_DATE_HI, Q6_DISC_LO, Q6_DISC_HI, Q6_QTY)
+
+
+def flightsql_batch(table: dict) -> HostBatch:
+    """The Q6 columns as one HostBatch at their widths (IPC_TYPES)."""
+    schema = dt.Schema([dt.Field(c, IPC_TYPES[c], False) for c in Q6_COLUMNS])
+    return HostBatch(schema, [HostArray(table[c], None, IPC_TYPES[c])
+                              for c in Q6_COLUMNS], len(table["l_qty"]))
+
+
+def flightsql_q6(client, dev, times=None, keep=None) -> dict:
+    """TPC-H Q6 from a FlightSQL query: Q6_SQL by GetFlightInfo (the
+    server runs the query for its schema and row count) and DoGet (it
+    runs it again and streams the result), the HostBatch to the card,
+    compute_q6 (K1, K3). `times` gathers the GetFlightInfo and DoGet
+    seconds (`info_s`, `doget_s`: the server's two runs of the query,
+    the columns' inference and the IPC stream), the copy (`h2d_s`), the
+    compute (`compute_s`), the rows, the IPC body bytes and the result's
+    column types; `keep` (a dict) receives the HostBatch."""
+    from arrow_go_tpu_torch.device.block import host_batch_to_device
+    t0 = time.perf_counter()
+    info = client.execute(Q6_SQL)
+    t1 = time.perf_counter()
+    hb = client.do_get(info.endpoints[0].ticket).read_all()
+    t2 = time.perf_counter()
+    db = host_batch_to_device(hb, dev)
+    _sync(dev)
+    t3 = time.perf_counter()
+    out = compute_q6(db)
+    _sync(dev)
+    t4 = time.perf_counter()
+    if info.total_records != hb.num_rows:
+        raise AssertionError(f"flightsql_q6: FlightInfo says "
+                             f"{info.total_records} rows, DoGet gave "
+                             f"{hb.num_rows}")
+    if times is not None:
+        times.update(info_s=t1 - t0, doget_s=t2 - t1, h2d_s=t3 - t2,
+                     compute_s=t4 - t3, rows=hb.num_rows,
+                     body_bytes=sum(c.values.nbytes for c in hb.columns),
+                     types={f.name: str(f.type) for f in hb.schema.fields})
+    if keep is not None:
+        keep["batch"] = hb
+    return out
+
+
+def sqlite_q6(client) -> dict:
+    """SQLite's own Q6 aggregate: Q6_AGG_SQL prepared, Q6's bounds bound
+    as a one-row parameter batch, executed."""
+    from arrow_go_tpu_torch.flight import sql as fsql
+    ps = client.prepare(Q6_AGG_SQL)
+    try:
+        ps.set_parameters(fsql.table({f"p{i}": [v] for i, v in
+                                      enumerate(Q6_PARAMS)}))
+        out = ps.execute()
+    finally:
+        ps.close()
+    return {"revenue": float(out.columns[0].values[0]),
+            "count": int(out.columns[1].values[0])}
+
+
+def chunked_filter(hb: HostBatch, keep: np.ndarray, dev):
+    """The batch's l_disc in FLIGHTSQL_CHUNKS chunks as a ChunkedArray,
+    filtered by Q6's mask on `dev` (filter_ combines it: one K1)."""
+    from arrow_go_tpu_torch.array import ChunkedArray
+    col = hb.column("l_disc")
+    step = -(-len(col) // FLIGHTSQL_CHUNKS)
+    ca = ChunkedArray([col.slice(a, step) for a in range(0, len(col), step)],
+                      col.type)
+    out = pc.filter_(ca, HostArray(keep, None, dt.bool_), device=dev)
+    return ca, out
+
+
+def check_chunked(ca, out, keep: np.ndarray) -> None:
+    from arrow_go_tpu_torch.array import array_equal
+    want = HostArray(ca.combine().values[keep], None, ca.type)
+    if ca.num_chunks != FLIGHTSQL_CHUNKS or not array_equal(out, want):
+        raise AssertionError(f"chunked: {ca.num_chunks} chunks, filter of "
+                             f"{len(out)} rows, numpy {len(want)}")
+
+
+def flightsql_dbapi(uri: str, want: dict) -> dict:
+    """Through dbapi.connect: the parameterised Q6 aggregate by a Cursor
+    (held against `want`), an executemany of FLIGHTSQL_DBAPI_ROWS rows
+    inside the implicit transaction (counted there) rolled back and
+    counted as gone,
+    then another committed and counted as kept, then deleted. Returns
+    ms of each step."""
+    from arrow_go_tpu_torch.flight import dbapi
+    ms = {}
+    rows = [(float(i), 0.0, 1, FLIGHTSQL_MARK)
+            for i in range(FLIGHTSQL_DBAPI_ROWS)]
+    count_sql = "SELECT COUNT(*) FROM lineitem WHERE l_sdate = ?"
+    with dbapi.connect(uri) as conn:
+        cur = conn.cursor()
+        t0 = time.perf_counter()
+        cur.execute(Q6_AGG_SQL, Q6_PARAMS)
+        revenue, count = cur.fetchone()
+        ms["q6_cursor"] = (time.perf_counter() - t0) * 1e3
+        check_q6({"revenue": revenue, "count": count}, want)
+        if cur.description[1][0] != "COUNT(*)" or cur.rowcount != 1:
+            raise AssertionError(f"flightsql_dbapi: {cur.description}")
+        for end in ("rollback", "commit"):
+            t0 = time.perf_counter()
+            cur.executemany("INSERT INTO lineitem (l_price, l_disc, l_qty, "
+                            "l_sdate) VALUES (?, ?, ?, ?)", rows)
+            inserted = cur.rowcount
+            inside = cur.execute(count_sql, (FLIGHTSQL_MARK,)).fetchone()[0]
+            if not inserted == inside == len(rows):
+                raise AssertionError(f"flightsql_dbapi: {inserted} rows "
+                                     f"inserted, {inside} seen inside the "
+                                     f"transaction")
+            getattr(conn, end)()
+            ms[f"executemany_{end}"] = (time.perf_counter() - t0) * 1e3
+            kept = cur.execute(count_sql, (FLIGHTSQL_MARK,)).fetchone()[0]
+            if kept != (0 if end == "rollback" else len(rows)):
+                raise AssertionError(f"flightsql_dbapi: {kept} rows after "
+                                     f"{end}")
+        cur.execute("DELETE FROM lineitem WHERE l_sdate = ?",
+                    (FLIGHTSQL_MARK,))
+        conn.commit()
+        if cur.execute(count_sql, (FLIGHTSQL_MARK,)).fetchone()[0] != 0:
+            raise AssertionError("flightsql_dbapi: the rows were not "
+                                 "deleted")
+    return ms
+
+
+def flightsql_catalog(client) -> dict:
+    """get_tables, get_sql_info, get_xdbc_type_info and get_primary_keys
+    on lineitem, each result checked; ms each."""
+    from arrow_go_tpu_torch.flight import SqlInfo
+    from arrow_go_tpu_torch.flight import sql as fsql
+    out = {}
+
+    def call(name, fn, check):
+        t0 = time.perf_counter()
+        got = fn()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        if not check(got):
+            raise AssertionError(f"flightsql_catalog: {name} "
+                                 f"{got.to_pydict()}")
+
+    call("get_tables", lambda: client.get_tables(
+        table_name_filter_pattern="lineitem"),
+        lambda t: t.to_pydict() == {
+            "catalog_name": ["main"], "db_schema_name": ["main"],
+            "table_name": ["lineitem"], "table_type": ["TABLE"]})
+    call("get_sql_info", client.get_sql_info,
+         lambda t: dict(zip(t.column("info_name").to_pylist(),
+                            t.column("value").to_pylist())) == {
+             SqlInfo.FLIGHT_SQL_SERVER_NAME: "arrow_go_tpu sqlite example",
+             SqlInfo.FLIGHT_SQL_SERVER_VERSION: "1.0.0",
+             SqlInfo.FLIGHT_SQL_SERVER_READ_ONLY: False,
+             SqlInfo.FLIGHT_SQL_SERVER_SQL: True,
+             SqlInfo.FLIGHT_SQL_SERVER_TRANSACTION: 1,
+             SqlInfo.SQL_IDENTIFIER_QUOTE_CHAR: '"',
+             SqlInfo.SQL_KEYWORDS: ["SELECT", "FROM", "WHERE", "INSERT"]})
+    call("get_xdbc_type_info", client.get_xdbc_type_info,
+         lambda t: t.column("type_name").to_pylist() ==
+         ["INTEGER", "REAL", "TEXT", "BLOB"] and
+         t.column("data_type").to_pylist() == [4, 8, 12, -3])
+    call("get_xdbc_type_info_real", lambda: client.get_xdbc_type_info(8),
+         lambda t: t.column("type_name").to_pylist() == ["REAL"])
+    call("get_primary_keys", lambda: client.get_primary_keys("lineitem"),
+         lambda t: t.num_rows == 0 and
+         t.schema == fsql.SCHEMA_PRIMARY_KEYS)
+    return out
+
+
+def flightsql_scenarios() -> dict:
+    """The two FlightSQL integration scenarios, port server with port
+    client: seconds each (a failure raises)."""
+    import contextlib
+    from arrow_go_tpu_torch.flight import integration
+    out = {}
+    for name in ("flight_sql", "flight_sql:ingestion"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # the runners' lines
+            integration.run_scenario_inprocess(name)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def flightsql_phases(li, dev, card: str, timing_only: bool = False) -> dict:
+    """This slice's paths over the first FLIGHTSQL_ROWS rows of the Q6
+    columns, against a port SQLiteFlightSQLServer on an ephemeral
+    loopback port in this process (its threads): `flightsql_ingest`,
+    `flightsql_q6` (timed as the median of FLIGHTSQL_TIMED_RUNS after
+    one counted run; each run takes seconds of the host's Python),
+    `chunked`, `flightsql_dbapi`, `flightsql_catalog`,
+    `flightsql_scenarios` and `flightsql_path_checks` (every K1 and K3
+    call of flightsql_q6 and the chunked filter against the plain
+    version; not with `timing_only`). Returns the launch counts and the
+    largest kernel - plain difference."""
+    import sqlite3                    # the server's backend: no sqlite, no phase
+    from arrow_go_tpu_torch.flight import sql as fsql
+    t_phase = time.perf_counter()
+    launches, held = {}, {}
+    n = min(FLIGHTSQL_ROWS, len(li["l_okey"]))
+    table = {c: li[c][:n] for c in Q6_COLUMNS}
+    want = q6_oracle(table)
+    srv = fsql.SQLiteFlightSQLServer("grpc://127.0.0.1:0")
+    t0 = time.perf_counter()
+    srv.serve()
+    start_ms = (time.perf_counter() - t0) * 1e3
+    uri = f"grpc://127.0.0.1:{srv.port}"
+    client = fsql.FlightSQLClient(uri)
+    try:
+        # flightsql_ingest
+        batch = flightsql_batch(table)
+        t0 = time.perf_counter()
+        acked = client.execute_ingest(batch, "lineitem")
+        ingest_ms = (time.perf_counter() - t0) * 1e3
+        stored = client.execute_query(
+            "SELECT COUNT(*) AS n FROM lineitem").column("n").values[0]
+        if not acked == stored == n:
+            raise AssertionError(f"flightsql_ingest: {n} rows sent, "
+                                 f"{acked} acknowledged, {stored} stored")
+        print(json.dumps({"flightsql_ingest": {
+            "rows": n, "acknowledged": acked, "stored": int(stored),
+            "ms": ingest_ms, "rows_per_s": n / ingest_ms * 1e3,
+            "sqlite_version": sqlite3.sqlite_version,
+            "server_start_ms": start_ms, "card": card,
+            "verified": True}}), flush=True)
+
+        # flightsql_q6 (the counted run keeps its batch for `chunked`)
+        kept = {}
+        got, launches["FlightSQL Q6"] = run_path(
+            "FlightSQL Q6", lambda: flightsql_q6(client, dev, keep=kept),
+            ("K1", "K3"))
+        check_q6(got, want)
+        lite = sqlite_q6(client)
+        check_q6(lite, want)
+        check_q6(got, lite)
+        runs = []
+        for _ in range(FLIGHTSQL_TIMED_RUNS):
+            times = {}
+            t0 = time.perf_counter()
+            if flightsql_q6(client, dev, times) != got:
+                raise AssertionError("flightsql_q6: a run differs")
+            times["ms"] = (time.perf_counter() - t0) * 1e3
+            runs.append(times)
+        med = sorted(runs, key=lambda t: t["ms"])[len(runs) // 2]
+        prof = profile_device(lambda: flightsql_q6(client, dev),
+                              lambda o: check_q6(o, want), top=6)
+        print(json.dumps({"flightsql_q6": {
+            **got, "oracle": want, "sqlite": lite, "rows": med["rows"],
+            "column_types": med["types"], "ipc_body_bytes": med["body_bytes"],
+            "ms_runs": [t["ms"] for t in runs], "ms_median": med["ms"],
+            "query_ms": (med["info_s"] + med["doget_s"]) * 1e3,
+            "get_flight_info_ms": med["info_s"] * 1e3,
+            "do_get_ms": med["doget_s"] * 1e3,
+            "copy_ms": med["h2d_s"] * 1e3,
+            "compute_ms": med["compute_s"] * 1e3, "profile": prof,
+            "launches_per_run": launches["FlightSQL Q6"], "card": card,
+            "verified": True}}), flush=True)
+
+        # chunked: the query result's l_disc as a ChunkedArray
+        hb = kept["batch"]
+        keep = q6_rows({c: hb.column(c).values for c in Q6_COLUMNS})
+        (ca, out), launches["chunked filter"] = run_path(
+            "chunked filter", lambda: chunked_filter(hb, keep, dev), ("K1",))
+        check_chunked(ca, out, keep)
+        print(json.dumps({"chunked": {
+            "chunks": ca.num_chunks, "rows": len(ca), "kept": len(out),
+            "type": str(ca.type), "launches_per_run":
+            launches["chunked filter"], "card": card, "verified": True}}),
+            flush=True)
+
+        print(json.dumps({"flightsql_dbapi": {
+            "ms": flightsql_dbapi(uri, want),
+            "rows_a_transaction": FLIGHTSQL_DBAPI_ROWS, "card": card,
+            "verified": True}}), flush=True)
+        print(json.dumps({"flightsql_catalog": {
+            "ms": flightsql_catalog(client), "card": card,
+            "verified": True}}), flush=True)
+        scen = flightsql_scenarios()
+        print(json.dumps({"flightsql_scenarios": {
+            "passed": sorted(scen), "s": scen, "card": card,
+            "verified": True}}), flush=True)
+
+        if not timing_only:
+            q6_out, held["flightsql_q6"] = check_path_calls(
+                "flightsql_q6", lambda: flightsql_q6(client, dev),
+                launches["FlightSQL Q6"], k3=True)
+            check_q6(q6_out, want)
+            (ca, out), held["chunked"] = check_path_calls(
+                "chunked", lambda: chunked_filter(hb, keep, dev),
+                launches["chunked filter"])
+            check_chunked(ca, out, keep)
+            print(json.dumps({"flightsql_path_checks": held}), flush=True)
+    finally:
+        client.close()
+        srv.shutdown()
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"flightsql_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -6894,7 +7227,7 @@ def main(argv=None) -> int:
                          "kernels and ok lines: a run that times every "
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
-    ap.add_argument("--only", choices=["flight"],
+    ap.add_argument("--only", choices=["flight", "flightsql"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -6921,13 +7254,15 @@ def main(argv=None) -> int:
     n_li = LINEITEM_SF10 if args.sf == 10 else int(round(LINEITEM_SF1
                                                          * args.sf))
     n_ord = n_li // 4
-    if args.only == "flight":
+    if args.only:
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
-        out = flight_phases(li, dev, card)
-        print(json.dumps({"flight_only": {
+        phase = flight_phases if args.only == "flight" else flightsql_phases
+        out = phase(li, dev, card)
+        print(json.dumps({f"{args.only}_only": {
             "launches": out["launches"], "max_abs_err": out["errs"]}}))
-        print(f"total: {time.perf_counter() - t_start:.1f} s (flight only)")
+        print(f"total: {time.perf_counter() - t_start:.1f} s "
+              f"({args.only} only)")
         return 0
 
     if args.timing_only:
@@ -7093,6 +7428,8 @@ def main(argv=None) -> int:
             encryption_phases(li, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.flight"):
             flight_phases(li, dev, card, timing_only=True)
+        if importlib.util.find_spec("arrow_go_tpu_torch.flight.sql"):
+            flightsql_phases(li, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -7136,6 +7473,9 @@ def main(argv=None) -> int:
     flights = flight_phases(li, dev, card)
     k1_err = max(k1_err, flights["errs"]["K1"])
     k3_err = max(k3_err, flights["errs"]["K3"])
+    fsql = flightsql_phases(li, dev, card)
+    k1_err = max(k1_err, fsql["errs"]["K1"])
+    k3_err = max(k3_err, fsql["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -7146,7 +7486,7 @@ def main(argv=None) -> int:
                **front["launches"], **more["launches"],
                **ipcs["launches"], **fmts["launches"],
                **inter["launches"], **encs["launches"],
-               **flights["launches"]}
+               **flights["launches"], **fsql["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -18,7 +18,6 @@ from arrow_go_tpu.interop import arrjson
 from arrow_go_tpu_torch import cli as tcli
 from arrow_go_tpu_torch import formats as tformats
 from arrow_go_tpu_torch import parquet as tpq
-from arrow_go_tpu_torch.compute.errors import ArrowNotImplemented
 
 
 @pytest.fixture
@@ -111,21 +110,17 @@ def test_json_integration(sample, capsys):
 
 
 def test_flight_integration_lists_the_ported_scenarios():
-    """The JAX CLI's list less the two FlightSQL scenarios, which the
-    port's CLI refuses."""
+    """The JAX CLI's list, unfiltered: the two FlightSQL scenarios are
+    ported too."""
     from arrow_go_tpu_torch.flight import integration as tfi
     got = _out(tcli.main, ["flight-integration", "list"]).split()
-    want = [n for n in _out(jcli.main, ["flight-integration",
-                                        "list"]).split()
-            if not n.startswith("flight_sql")]
-    assert got == want == sorted(tfi.SCENARIOS) and len(got) == 11
-    for name in ("flight_sql", "flight_sql:ingestion"):
-        with pytest.raises(ArrowNotImplemented, match="flight sql"):
-            tcli.main(["flight-integration", "client", "--scenario", name,
-                       "--uri", "grpc://localhost:1"])
+    want = _out(jcli.main, ["flight-integration", "list"]).split()
+    assert got == want == sorted(tfi.SCENARIOS) and len(got) == 13
+    assert {"flight_sql", "flight_sql:ingestion"} <= set(got)
 
 
-@pytest.mark.parametrize("name", ["ordered", "session_options"])
+@pytest.mark.parametrize("name", ["ordered", "session_options",
+                                  "flight_sql", "flight_sql:ingestion"])
 def test_flight_integration_runs_a_scenario(name):
     """The port's CLI client against the port's scenario server, and
     against the JAX one."""

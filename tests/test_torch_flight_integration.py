@@ -1,8 +1,9 @@
-"""The 11 Flight integration scenarios that need no FlightSQL
-(arrow_go_tpu_torch/flight/integration.py): each port to port, then
-crossed with the JAX runner both ways (the JAX server with the port's
-client, the port's server with the JAX client), and the CLI's server
-in a subprocess driven by the port's client."""
+"""The 13 Flight integration scenarios
+(arrow_go_tpu_torch/flight/integration.py), the two FlightSQL ones
+included: each port to port, then crossed with the JAX runner both ways
+(the JAX server with the port's client, the port's server with the JAX
+client), and the CLI's server in a subprocess driven by the port's
+client."""
 import os
 import select
 import subprocess
@@ -10,21 +11,20 @@ import sys
 
 import pytest
 
-from arrow_go_tpu_torch.compute.errors import ArrowNotImplemented
 from arrow_go_tpu_torch.flight import integration as tfi
 
 NAMES = sorted(tfi.SCENARIOS)
 
 
 def test_the_ported_scenarios():
+    """Every JAX scenario, the FlightSQL ones included, is ported."""
     grpc = pytest.importorskip("grpc")  # noqa: F841
     from arrow_go_tpu.flight import integration as jfi
-    assert len(NAMES) == 11
-    assert set(NAMES) | set(tfi.SQL_SCENARIOS) == set(jfi.SCENARIOS)
-    for name in tfi.SQL_SCENARIOS:
-        with pytest.raises(ArrowNotImplemented,
-                           match="flight sql is not ported"):
-            tfi.run_scenario_inprocess(name)
+    assert len(NAMES) == 13
+    assert set(NAMES) == set(jfi.SCENARIOS)
+    assert {"flight_sql", "flight_sql:ingestion"} <= set(NAMES)
+    with pytest.raises(KeyError, match="no flight integration scenario"):
+        tfi.scenario("flight_sql:nope")
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -95,6 +95,14 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.flight.service\n"
             "import arrow_go_tpu_torch.flight.session\n"
             "import arrow_go_tpu_torch.flight.integration\n"
+            "import arrow_go_tpu_torch.flight.sql_messages\n"
+            "import arrow_go_tpu_torch.flight.sql\n"
+            "import arrow_go_tpu_torch.flight.dbapi\n"
+            "import arrow_go_tpu_torch.array\n"
+            "import arrow_go_tpu_torch.array.record\n"
+            "import arrow_go_tpu_torch.array.compare\n"
+            "import arrow_go_tpu_torch.memory\n"
+            "import arrow_go_tpu_torch.memory.buffer\n"
             "arrow_go_tpu_torch.interop, arrow_go_tpu_torch.cdata\n"
             "arrow_go_tpu_torch.flight\n"
             "arrow_go_tpu_torch.compute.default_registry()\n"
@@ -138,7 +146,10 @@ def test_the_scan_reaches_the_new_modules():
                 "flight/__init__.py", "flight/hpack.py", "flight/h2.py",
                 "flight/rpc.py", "flight/messages.py", "flight/wire.py",
                 "flight/service.py", "flight/session.py",
-                "flight/integration.py"):
+                "flight/integration.py", "flight/sql_messages.py",
+                "flight/sql.py", "flight/dbapi.py", "array/__init__.py",
+                "array/record.py", "array/compare.py",
+                "memory/__init__.py", "memory/buffer.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
@@ -297,7 +308,8 @@ def test_formats_run_on_the_card_unless_asked(monkeypatch, tmp_path):
 
 
 def test_flight_runs_with_grpc_protobuf_and_pyarrow_blocked():
-    """A port server and client trade batches, actions and a scenario
+    """A port server and client trade batches, actions and two scenarios
+    (one of them the FlightSQL scenario over the SQLite example server)
     in a process where importing grpc, google.protobuf, h2, hpack,
     pyarrow or the JAX package fails."""
     code = (
@@ -321,6 +333,7 @@ def test_flight_runs_with_grpc_protobuf_and_pyarrow_blocked():
         "        got = c.do_get(fl.Ticket(b'x')).read_all()\n"
         "        body = list(c.do_action(fl.Action('r', b'abc')))[0].body\n"
         "integration.run_scenario_inprocess('session_options')\n"
+        "integration.run_scenario_inprocess('flight_sql')\n"
         "print(got.num_rows, int(got.column('a').values.sum()), body)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
