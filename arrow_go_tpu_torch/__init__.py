@@ -6,15 +6,27 @@ of the group-sized result, or -> scalar aggregates) on an NVIDIA Hopper
 card, with hand-written CUDA kernels where the JAX package has Pallas
 kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
-arrow_go_tpu. `interop` (the integration JSON, the protobuf wire format),
-`cdata` (the C data interface) and `flight` (Arrow Flight and Flight SQL
-on the port's own gRPC) load on first use, as in the JAX package;
-`array` (ChunkedArray, the HostArray comparisons) and `memory` (Buffer,
-Allocator, TrackedAllocator) are numpy only and load with the package.
+arrow_go_tpu. The top level carries the JAX package's names: the types
+(`dtypes`), `array`, `nulls`, `from_numpy`, `concat_arrays`,
+`record_batch` and `table` over the HostArray / HostBatch stand-ins
+(array/arrays.py, array/record.py), ChunkedArray and the buffers.
+`interop`, `cdata`, `flight`, `dataset`, `cli`, `tensor`, `ipc`,
+`parallel` and `native` load on first use, as in the JAX package.
 """
-from . import array, compute, dtypes, extensions, formats, memory, parquet
+from . import compute, dtypes, extensions, formats, memory, parquet
 from . import torchenv
-from .array.record import ChunkedArray
+from .dtypes import (  # noqa: F401
+    DataType, Field, Metadata, Schema, TimeUnit, TypeId,
+    binary, bool_, date32, date64, decimal32, decimal64, decimal128,
+    decimal256, dense_union, dictionary, duration, field, fixed_size_binary,
+    fixed_size_list, float16, float32, float64, from_numpy_dtype, int8,
+    int16, int32, int64, large_binary, large_list, large_string, list_,
+    map_, month_interval, null, run_end_encoded, schema, sparse_union,
+    string, struct, time32, time64, timestamp, uint8, uint16, uint32,
+    uint64,
+)
+from .array.arrays import array, concat_arrays, from_numpy, nulls
+from .array.record import ChunkedArray, record_batch, table
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                            ExtensionArray, HostArray, HostBatch, HostColumn,
                            ListViewArray, UnionArray, batch_from_numpy,
@@ -23,18 +35,24 @@ from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                            pad_length)
 from .memory.buffer import Allocator, Buffer, TrackedAllocator
 
-__all__ = ["array", "compute", "dtypes", "extensions", "formats", "memory",
-           "parquet", "torchenv", "ChunkedArray", "Allocator", "Buffer",
-           "TrackedAllocator",
+__version__ = "0.1.0"
+
+__all__ = ["array", "compute", "concat_arrays", "dtypes", "extensions",
+           "formats", "from_numpy", "memory", "nulls", "parquet",
+           "record_batch", "table", "torchenv", "ChunkedArray",
+           "Allocator", "Buffer", "TrackedAllocator",
            "DeviceBatch", "DeviceColumn", "DeviceListColumn",
            "ExtensionArray", "HostArray", "HostBatch", "HostColumn",
            "ListViewArray", "UnionArray", "batch_from_numpy",
            "batch_to_device", "list_from_device", "list_take_device",
            "list_to_device", "null_array", "pad_length"]
 
+_LAZY = ("interop", "cdata", "flight", "dataset", "cli", "tensor", "ipc",
+         "parallel", "native")
+
 
 def __getattr__(name):
-    if name in ("interop", "cdata", "flight"):
+    if name in _LAZY:
         import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod

@@ -8,18 +8,18 @@ first, as the JAX ones do.
 A string column's chunks are dictionary-coded HostArrays; a chunk whose
 type is dictionary<int32, T> counts as a chunk of type T, the field type
 a port schema gives such a column.
+
+`record_batch` and `table` (after arrow_go_tpu/array/record.py:324-335)
+both build a HostBatch, the port's RecordBatch and Table.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 from .. import dtypes as dt
-from ..device.block import HostArray, concat_host_arrays, from_pylist
-
-
-def _same_type(chunk: dt.DataType, t: dt.DataType) -> bool:
-    return chunk == t or (chunk.id == dt.TypeId.DICTIONARY
-                          and chunk.value_type == t)
+from ..device.block import (HostArray, HostBatch, concat_host_arrays,
+                            from_pylist)
+from .arrays import _same_type, array, field_type
 
 
 class ChunkedArray:
@@ -114,3 +114,34 @@ class ChunkedArray:
     def __repr__(self):
         return (f"ChunkedArray({self._type}, chunks={self.num_chunks}, "
                 f"len={len(self)})")
+
+
+def record_batch(data, names: Optional[Sequence[str]] = None,
+                 schema: Optional[dt.Schema] = None) -> HostBatch:
+    """A HostBatch of a {name: values} dict (each column by `array`, under
+    `schema`'s types when given, else its values' type) or of a list of
+    HostArrays named by `names`. ValueError when the columns' lengths
+    differ."""
+    if isinstance(data, dict):
+        if schema is not None:
+            cols = [array(v, f.type) for v, f in zip(data.values(),
+                                                     schema.fields)]
+        else:
+            cols = [array(v) for v in data.values()]
+            schema = dt.Schema([dt.Field(k, field_type(c))
+                                for k, c in zip(data, cols)])
+    else:
+        cols = [array(c) for c in data]
+        schema = dt.Schema([dt.Field(k, field_type(c))
+                            for k, c in zip(names, cols)])
+    n = len(cols[0]) if cols else 0
+    for f, c in zip(schema.fields, cols):
+        if len(c) != n:
+            raise ValueError(f"column {f.name} length {len(c)} != {n}")
+    return HostBatch(schema, cols, n)
+
+
+def table(data, names: Optional[Sequence[str]] = None,
+          schema: Optional[dt.Schema] = None) -> HostBatch:
+    """`record_batch`: the port's Table is one HostBatch."""
+    return record_batch(data, names, schema)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import dtypes as dt
+from .array.arrays import field_type as array_field_type
 from .compute.errors import ArrowInvalid, ArrowNotImplemented
 from .device.block import HostArray, HostBatch, nested_array, null_array
 from .ipc import _concat_batches, _dictionary_array, _dictionary_values
@@ -497,22 +498,13 @@ def _export_into(c: ArrowArray, arr: HostArray, t: dt.DataType) -> None:
     c.release = _release_array
 
 
-def _field_type(arr: HostArray) -> dt.DataType:
-    """A HostArray's field type (a string column's value type)."""
-    t = arr.type
-    if t.id == dt.TypeId.DICTIONARY and t.value_type.codes_on_device \
-            and t.index_type == dt.int32:
-        return t.value_type
-    return t
-
-
 def export_array(arr: HostArray, out_array_ptr, out_schema_ptr=None,
                  field_type: Optional[dt.DataType] = None) -> None:
     """Fill the ArrowArray at `out_array_ptr` (and the ArrowSchema at
     `out_schema_ptr`, a nullable field named "") with `arr` under
     `field_type` (by default the HostArray's: a dictionary-coded string
     column's value type)."""
-    t = field_type or _field_type(arr)
+    t = field_type or array_field_type(arr)
     _export_into(_as(out_array_ptr, ArrowArray), arr, t)
     if out_schema_ptr is not None:
         export_schema(dt.Field("", t, True), out_schema_ptr)

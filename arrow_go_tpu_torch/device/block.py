@@ -756,7 +756,8 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
     timestamp (datetimes or units), the decimals (Decimals, floats or
     unscaled ints), the binary-like types and fixed_size_binary
     (dictionary-coded, first-occurrence order), struct (dicts; a missing
-    key is a null field), list and large_list (lists), map (dicts or
+    key is a null field), list, large_list and fixed_size_list (lists; a
+    null fixed-size row holds list_size null children), map (dicts or
     (key, value) pairs) and a dictionary type (its values, coded in
     first-occurrence order). Another type raises ArrowNotImplemented."""
     n = len(values)
@@ -802,6 +803,13 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
         cols = [from_pylist([None if v is None else v.get(f.name)
                              for v in values], f.type) for f in t.fields()]
         return nested_array(t, n, mask, cols)
+    if t.id == dt.TypeId.FIXED_SIZE_LIST:
+        k = t.list_size
+        rows = [[None] * k if v is None else list(v) for v in values]
+        if any(len(r) != k for r in rows):
+            raise ValueError("fixed size list length mismatch")
+        return nested_array(t, n, mask, [from_pylist(
+            [x for r in rows for x in r], t.value_type)])
     if t.id in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST):
         lens = [0 if v is None else len(v) for v in values]
         off = np.zeros(n + 1, np.int64)

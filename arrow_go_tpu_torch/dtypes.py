@@ -895,6 +895,19 @@ class Schema:
             f"{f.name}: {f.type}" for f in self._fields) + ">"
 
 
+def field(name: str, type: DataType, nullable: bool = True,
+          metadata: Metadata = EMPTY_METADATA) -> Field:
+    return Field(name, type, nullable, metadata)
+
+
+def schema(fields, metadata: Metadata = EMPTY_METADATA) -> Schema:
+    """A Schema of Fields, (name, type) pairs or a {name: type} dict."""
+    if isinstance(fields, dict):
+        fields = [Field(k, v) for k, v in fields.items()]
+    return Schema([f if isinstance(f, Field) else Field(f[0], f[1])
+                   for f in fields], metadata)
+
+
 def common_numeric_type(a: DataType, b: DataType) -> DataType:
     """Implicit cast target of a binary numeric kernel (numpy promotion,
     as the reference's DispatchBest, compute/exec.go:100, and the JAX

@@ -8,8 +8,9 @@ Commands travel as `google.protobuf.Any`-packed messages inside
 FlightDescriptor.cmd, a Ticket or an action's body, as the spec has
 them. Results are HostBatches where the JAX package returns Tables: a
 query's columns are typed as the JAX `table(dict)` types them
-(compute/scalars.infer_type, the first non-null value deciding; no row
-or no value gives the null type) and built by device/block.from_pylist.
+(array/record.table: compute/scalars.infer_type, the first non-null
+value deciding; no row or no value gives the null type) and built by
+device/block.from_pylist.
 A handler's error reaches the client as `rpc.RpcError` with status
 UNKNOWN, where the JAX client raises `grpc.RpcError`.
 """
@@ -23,7 +24,7 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..compute.scalars import infer_type
+from ..array.record import table
 from ..device.block import HostArray, HostBatch, UnionArray, from_pylist
 from . import messages as fm
 from . import sql_messages as sqlpb
@@ -106,16 +107,6 @@ SCHEMA_XDBC_TYPE_INFO = dt.Schema([
     dt.Field("datetime_subcode", dt.int32),
     dt.Field("num_prec_radix", dt.int32),
     dt.Field("interval_precision", dt.int32)])
-
-
-def table(data: Dict[str, list]) -> HostBatch:
-    """A HostBatch of Python columns, typed as the JAX `table(dict)`
-    types them: each column's type inferred from its values
-    (compute/scalars.infer_type), its array built by from_pylist."""
-    types = {k: infer_type(v) for k, v in data.items()}
-    n = len(next(iter(data.values()))) if data else 0
-    return HostBatch(dt.Schema([dt.Field(k, t) for k, t in types.items()]),
-                     [from_pylist(v, types[k]) for k, v in data.items()], n)
 
 
 def _rows_table(names: List[str], rows: list) -> HostBatch:

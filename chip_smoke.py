@@ -280,25 +280,41 @@ without one. Phases:
      (`flightsql_scenarios`); every K1 and K3 call of flightsql_q6 and
      the chunked filter against the plain version
      (`flightsql_path_checks`);
-  23. a `kernels` JSON line, then the last line
+  23. the examples, each stage's output the next one's input: the
+     end-to-end demo (examples/torch_end_to_end.py) over 1,048,576
+     orders in a temporary directory: csv text read by read_csv, written
+     to snappy parquet with bloom filters in 4 row groups, scanned by
+     the dataset with the order_id guard pruning 2 row groups and the
+     amount filter on the card (K1), row group 0's amount summed by K3,
+     grouped by region on the card, joined with a dimension batch,
+     sorted, through an IPC zstd file, served and read back over
+     Flight, and ranked by a FlightSQL query over sqlite; every printed
+     value against numpy, each stage's seconds (`end_to_end`); the
+     distributed example (examples/torch_distributed_query.py) at world
+     size 1 on one NCCL group, its counts against numpy
+     (`distributed_example`); pyarrow_interop: without pyarrow its first
+     call raises ImportError, with it the ranked batch round-trips
+     (`pyarrow_interop`); every K1, K2 and K3 call of one more run of
+     each example against the plain version (`examples_path_checks`);
+  24. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 23 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 24 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 22 against the plain version: a run that times every
+10 to 14 and 18 to 23 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 22 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 23 run only in a tree
 that has their entry points.
 
-With --only flight (or flightsql) it runs phases 1 and 2, makes the data
-and runs phase 21 (or 22) alone, then prints the phase's launches and
-errors and no `kernels` or ok line: a quick check of that phase on the
-card.
+With --only flight (or flightsql, or examples) it runs phases 1 and 2,
+makes the data (but for examples) and runs phase 21 (or 22, or 23)
+alone, then prints the phase's launches and errors and no `kernels` or
+ok line: a quick check of that phase on the card.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
-                             [--only flight|flightsql]
+                             [--only flight|flightsql|examples]
 """
 from __future__ import annotations
 
@@ -1229,7 +1245,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     result against the plain version on the same inputs, bit for bit
     (these launches compare; they are not the path's counted run), and
     with `k3` every K3 call of the aggregates (reduce_with_count_host)
-    too, as check_k3 holds K3. Fails unless as many calls were held as
+    and of `reduce` itself too, as check_k3 holds K3. Fails unless as many calls were held as
     `counted` says the path's counted run launched. Returns (fn's
     result, {kernel: summary})."""
     from arrow_go_tpu_torch.compute import join as cjoin, run_ends
@@ -1239,6 +1255,7 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
     if k3:
         seen["K3"] = []
     reduce_host = reductions.reduce_with_count_host
+    reduce_dev = reductions.reduce
     fill_u32 = scan.cummax_u32
 
     def k1(keep, payloads):
@@ -1265,6 +1282,15 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
                 [got], [scan.cummax_u32_plain(x)])))
         return got
 
+    def k3_held(values, op, acc, want) -> None:
+        if values.dtype.is_floating_point and op == "sum":
+            ok = np.isclose(acc, want, rtol=K3_RTOL[values.dtype], atol=0)
+        else:
+            ok = acc == want
+        if not ok:
+            raise AssertionError(f"{name}: K3 {acc!r}, plain {want!r}")
+        seen["K3"].append((values.shape[0], 1, abs(acc - want)))
+
     def k3_host(values, validity, n, op):
         acc, count = reduce_host(values, validity, n, op)
         want, want_count = reductions.reduce_with_count_plain(
@@ -1272,21 +1298,25 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
         if count != int(want_count):
             raise AssertionError(f"{name}: K3 count {count}, plain "
                                  f"{int(want_count)}")
-        if values.dtype.is_floating_point and op == "sum":
-            ok = np.isclose(acc, want.item(), rtol=K3_RTOL[values.dtype],
-                            atol=0)
-        else:
-            ok = acc == want.item()
-        if not ok:
-            raise AssertionError(f"{name}: K3 {acc!r}, plain {want.item()!r}")
-        seen["K3"].append((values.shape[0], 1, abs(acc - want.item())))
+        k3_held(values, op, acc, want.item())
         return acc, count
+
+    def k3_reduce(values, validity, n, op):
+        got = reduce_dev(values, validity, n, op)
+        k3_held(values, op, got.item(), reductions.reduce_plain(
+            values, validity, n, op).item())
+        return got
+
+    # _reduce_cuda counts its launch on the module's `reduce`: while the
+    # holder stands in for it, those launches count on the holder
+    k3_reduce.launches = 0
 
     patches = [(m, "compact_flagged", k1)
                for m in (selection, groupagg, pjoin, cjoin, run_ends)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
         (pjoin, "cummax_u32", k2_fill), (scan, "cummax_u32", k2_fill)] + (
-        [(reductions, "reduce_with_count_host", k3_host)] if k3 else [])
+        [(reductions, "reduce_with_count_host", k3_host),
+         (reductions, "reduce", k3_reduce)] if k3 else [])
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
     for m, attr, f in patches:
         setattr(m, attr, f)
@@ -7212,6 +7242,169 @@ def flightsql_phases(li, dev, card: str, timing_only: bool = False) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+EXAMPLE_ROWS = 1 << 20             # orders of the end-to-end demo
+EXAMPLE_REGIONS = ["east", "west", "north"]
+EXAMPLE_MANAGERS = ["ann", "bo", "chi"]
+
+
+def _example(name: str):
+    """examples/<name>.py of this tree, loaded as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def end_to_end_oracle(rows: int) -> dict:
+    """What the end-to-end demo prints over `rows` orders, from numpy:
+    order i has region i mod 3 and amount (7 i mod 100) + 0.5; the scan
+    keeps amount > 50 and i >= rows // 2; row group 0 is the first
+    rows // 4 orders; groups in first-occurrence order; the ranking by
+    the sum descending (the sums differ), each region's manager."""
+    i = np.arange(rows, dtype=np.int64)
+    region = i % 3
+    amount = (i * 7) % 100 + 0.5
+    keep = (amount > 50) & (i >= rows // 2)
+    kr, ka = region[keep], amount[keep]
+    _, first = np.unique(kr, return_index=True)
+    order = kr[np.sort(first)]
+    groups = {"region": [EXAMPLE_REGIONS[r] for r in order],
+              "amount_sum": [float(ka[kr == r].sum()) for r in order],
+              "amount_count": [int((kr == r).sum()) for r in order],
+              "amount_max": [float(ka[kr == r].max()) for r in order]}
+    rank = np.argsort(-np.asarray(groups["amount_sum"]), kind="stable")
+    ranked = {k: [v[j] for j in rank] for k, v in groups.items()}
+    ranked["manager"] = [EXAMPLE_MANAGERS[EXAMPLE_REGIONS.index(r)]
+                         for r in ranked["region"]]
+    return {"csv_rows": rows, "csv_names": ["order_id", "region", "amount"],
+            "row_groups": 4, "scan_rows": int(keep.sum()),
+            "device_sum": float(amount[:rows // 4].sum()),
+            "device_rows": rows // 4, "group_by": groups, "ranked": ranked,
+            "flight": True, "top_region": ranked["region"][0]}
+
+
+def check_end_to_end(got: dict, want: dict) -> None:
+    """Every printed value of the demo exactly the oracle's (the sums are
+    of halves, exact in float64 in any order)."""
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"end_to_end {k}: {got[k]!r}, numpy {v!r}")
+
+
+def distributed_oracle(dq) -> dict:
+    """The distributed example's counts at world size 1, from numpy over
+    its own data functions."""
+    q, s = dq.query_data(1), dq.skew_data(1)
+    valid = q["valid"]
+    rk_counts = np.bincount(s["rk"], minlength=int(s["rk"].max()) + 1)
+    return {"groups": len(np.unique(q["keys"][valid])),
+            "pairs": int(valid.sum()),        # a permutation: one match each
+            "sorted_rows": int(valid.sum()),
+            "sorted_min": int(q["amounts"][valid].min()),
+            "sorted_max": int(q["amounts"][valid].max()),
+            "skew_groups": len(np.unique(s["zkeys"])),
+            "hot_rows": int((s["zkeys"] == 7).sum()),
+            "hot_pairs": int(rk_counts[s["zkeys"]].sum()),
+            "string_groups": len(set(zip(s["s1"].tolist(),
+                                         s["s2"].tolist())))}
+
+
+def pyarrow_check(batch: HostBatch) -> dict:
+    """pyarrow_interop as this machine allows: without pyarrow, the first
+    call raises ImportError("pyarrow not available"); with it, the demo's
+    ranked batch round-trips through table_to_pyarrow and
+    table_from_pyarrow. Either branch asserts."""
+    from arrow_go_tpu_torch.interop import pyarrow_interop as px
+    if importlib.util.find_spec("pyarrow") is None:
+        try:
+            px.type_to_pyarrow(dt.int64)
+        except ImportError as e:
+            if str(e) != "pyarrow not available":
+                raise
+            return {"pyarrow": None, "first_call": f"ImportError: {e}"}
+        raise AssertionError("pyarrow_interop ran without pyarrow")
+    table = px.table_to_pyarrow(batch)
+    table.validate(full=True)
+    back = px.table_from_pyarrow(table)
+    if back.to_pydict() != batch.to_pydict() or \
+            back.schema != batch.schema:
+        raise AssertionError("pyarrow round trip of the ranked batch")
+    import pyarrow
+    return {"pyarrow": pyarrow.__version__, "rows": table.num_rows,
+            "round_trip": True}
+
+
+def examples_phases(dev, card: str, timing_only: bool = False) -> dict:
+    """This slice's paths: examples/torch_end_to_end.main at EXAMPLE_ROWS
+    orders on the card in a temporary directory (`end_to_end`: every
+    printed value against end_to_end_oracle, each stage's seconds of the
+    counted run), examples/torch_distributed_query.run at world size 1
+    on one NCCL group (`distributed_example`, its counts against
+    distributed_oracle), the pyarrow check of this machine
+    (`pyarrow_interop`), and every K1, K2 and K3 call of one more run of
+    each example against the plain version (`examples_path_checks`; not
+    with `timing_only`). Returns the launch counts and the largest
+    kernel - plain difference."""
+    t_phase = time.perf_counter()
+    e2e = _example("torch_end_to_end")
+    dq = _example("torch_distributed_query")
+    launches, held = {}, {}
+    want = end_to_end_oracle(EXAMPLE_ROWS)
+    with tempfile.TemporaryDirectory() as root:
+        def demo(run: str):
+            os.mkdir(os.path.join(root, run))
+            return e2e.main(EXAMPLE_ROWS, dev, os.path.join(root, run))
+        t0 = time.perf_counter()
+        got, launches["end_to_end"] = run_path(
+            "end_to_end", lambda: demo("counted"), ("K1", "K3"))
+        ms = (time.perf_counter() - t0) * 1e3
+        check_end_to_end(got, want)
+        print(json.dumps({"end_to_end": {
+            "rows": EXAMPLE_ROWS, "ms": ms,
+            "stage_ms": {k: v * 1e3 for k, v in got["stage_s"].items()},
+            "scan_rows": got["scan_rows"], "device_sum": got["device_sum"],
+            "group_by": got["group_by"], "top_region": got["top_region"],
+            "parquet_bytes": got["parquet_bytes"],
+            "ipc_bytes": got["ipc_bytes"],
+            "launches_per_run": launches["end_to_end"], "card": card,
+            "verified": True}}), flush=True)
+        if not timing_only:
+            again, held["end_to_end"] = check_path_calls(
+                "end_to_end", lambda: demo("held"),
+                launches["end_to_end"], k3=True)
+            check_end_to_end(again, want)
+
+    dwant = distributed_oracle(dq)
+    t0 = time.perf_counter()
+    dgot, launches["distributed_example"] = run_path(
+        "distributed_example", lambda: dq.run(dev), ())
+    dms = (time.perf_counter() - t0) * 1e3
+    if dgot != dwant:
+        raise AssertionError(f"distributed example: {dgot}, numpy {dwant}")
+    print(json.dumps({"distributed_example": {
+        **dgot, "world_size": 1, "backend": "nccl", "ms": dms,
+        "launches_per_run": launches["distributed_example"], "card": card,
+        "verified": True}}), flush=True)
+    if not timing_only:
+        dagain, held["distributed_example"] = check_path_calls(
+            "distributed_example", lambda: dq.run(dev),
+            launches["distributed_example"])
+        if dagain != dwant:
+            raise AssertionError("distributed example: the held run differs")
+        print(json.dumps({"examples_path_checks": held}), flush=True)
+
+    print(json.dumps({"pyarrow_interop": {
+        **pyarrow_check(got["ranked_batch"]), "card": card,
+        "verified": True}}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K2", "K3")}
+    print(json.dumps({"examples_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -7227,7 +7420,7 @@ def main(argv=None) -> int:
                          "kernels and ok lines: a run that times every "
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
-    ap.add_argument("--only", choices=["flight", "flightsql"],
+    ap.add_argument("--only", choices=["flight", "flightsql", "examples"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -7254,11 +7447,14 @@ def main(argv=None) -> int:
     n_li = LINEITEM_SF10 if args.sf == 10 else int(round(LINEITEM_SF1
                                                          * args.sf))
     n_ord = n_li // 4
-    if args.only:
+    if args.only == "examples":
+        out = examples_phases(dev, card)
+    elif args.only:
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
         phase = flight_phases if args.only == "flight" else flightsql_phases
         out = phase(li, dev, card)
+    if args.only:
         print(json.dumps({f"{args.only}_only": {
             "launches": out["launches"], "max_abs_err": out["errs"]}}))
         print(f"total: {time.perf_counter() - t_start:.1f} s "
@@ -7430,6 +7626,9 @@ def main(argv=None) -> int:
             flight_phases(li, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.flight.sql"):
             flightsql_phases(li, dev, card, timing_only=True)
+        if os.path.exists(os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "examples", "torch_end_to_end.py")):
+            examples_phases(dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -7476,6 +7675,10 @@ def main(argv=None) -> int:
     fsql = flightsql_phases(li, dev, card)
     k1_err = max(k1_err, fsql["errs"]["K1"])
     k3_err = max(k3_err, fsql["errs"]["K3"])
+    exs = examples_phases(dev, card)
+    k1_err = max(k1_err, exs["errs"]["K1"])
+    k2_err = max(k2_err, exs["errs"]["K2"])
+    k3_err = max(k3_err, exs["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -7486,7 +7689,8 @@ def main(argv=None) -> int:
                **front["launches"], **more["launches"],
                **ipcs["launches"], **fmts["launches"],
                **inter["launches"], **encs["launches"],
-               **flights["launches"], **fsql["launches"]}
+               **flights["launches"], **fsql["launches"],
+               **exs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -101,6 +101,8 @@ def test_import_leaves_jax_and_reference_out():
             "import arrow_go_tpu_torch.array\n"
             "import arrow_go_tpu_torch.array.record\n"
             "import arrow_go_tpu_torch.array.compare\n"
+            "import arrow_go_tpu_torch.array.arrays\n"
+            "import arrow_go_tpu_torch.interop.pyarrow_interop\n"
             "import arrow_go_tpu_torch.memory\n"
             "import arrow_go_tpu_torch.memory.buffer\n"
             "arrow_go_tpu_torch.interop, arrow_go_tpu_torch.cdata\n"
@@ -148,14 +150,16 @@ def test_the_scan_reaches_the_new_modules():
                 "flight/service.py", "flight/session.py",
                 "flight/integration.py", "flight/sql_messages.py",
                 "flight/sql.py", "flight/dbapi.py", "array/__init__.py",
-                "array/record.py", "array/compare.py",
-                "memory/__init__.py", "memory/buffer.py"):
+                "array/record.py", "array/compare.py", "array/arrays.py",
+                "memory/__init__.py", "memory/buffer.py",
+                "interop/pyarrow_interop.py"):
         assert f"arrow_go_tpu_torch/{mod}" in scanned, mod
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_end_to_end.py",
+       ROOT / "examples" / "torch_distributed_query.py"]))
 def test_no_forbidden_module_level_imports(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in tree.body:
