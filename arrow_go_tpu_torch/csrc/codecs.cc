@@ -395,7 +395,8 @@ int64_t agt_rle_parse(const uint8_t* src, size_t len, int64_t n,
 // holds deltas: the index of its first delta, the bit offset of its
 // packed values in src, its bit width and its block's min delta. Returns
 // the number of rows; -1 when the stream ends early or a row would pass
-// cap; -2 when a width passes 32 (`*bad_width` gets it).
+// cap; -2 when a width passes 64, which no stream of 64-bit deltas has
+// (`*bad_width` gets it). Every width from 0 to 64 is walked.
 int64_t agt_delta_parse(const uint8_t* src, size_t n, size_t pos,
                         int64_t total, int64_t values_per_miniblock,
                         int64_t miniblocks, int64_t cap, int64_t* starts,
@@ -414,7 +415,7 @@ int64_t agt_delta_parse(const uint8_t* src, size_t n, size_t pos,
         pos += (size_t)miniblocks;
         for (int64_t m = 0; m < miniblocks && got < total; m++) {
             int32_t w = widths[m];
-            if (w > 32) { *bad_width = w; return -2; }
+            if (w > 64) { *bad_width = w; return -2; }
             size_t nbytes = ((size_t)values_per_miniblock * w + 7) / 8;
             if (rows >= cap || pos + nbytes > n) return -1;
             starts[rows] = got - 1;

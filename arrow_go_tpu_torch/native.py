@@ -193,9 +193,9 @@ def delta_parse(data, pos: int, total: int, values_per_miniblock: int,
                 miniblocks: int):
     """Per-miniblock tables of a DELTA_BINARY_PACKED stream whose header
     ends at `pos`: (first delta index, bit offset into `data`, width,
-    min delta) as int64 / int64 / int32 / int64 arrays. A miniblock wider
-    than 32 bits raises ArrowNotImplemented (as the JAX package's device
-    read does); a stream that ends early raises ArrowInvalid."""
+    min delta) as int64 / int64 / int32 / int64 arrays, every width from
+    0 to 64. A miniblock wider than 64 bits (a corrupt stream) or a
+    stream that ends early raises ArrowInvalid."""
     cap = max(-(-(total - 1) // values_per_miniblock), 0)
     starts = np.empty(max(cap, 1), np.int64)
     bit0 = np.empty_like(starts)
@@ -208,8 +208,8 @@ def delta_parse(data, pos: int, total: int, values_per_miniblock: int,
         starts.ctypes.data, bit0.ctypes.data, width.ctypes.data,
         mins.ctypes.data, bad.ctypes.data)
     if rows == -2:
-        raise ArrowNotImplemented(f"device DELTA decode with a "
-                                  f"{int(bad[0])}-bit miniblock width")
+        raise ArrowInvalid(f"DELTA_BINARY_PACKED miniblock width "
+                           f"{int(bad[0])} passes 64 bits")
     if rows < 0:
         raise ArrowInvalid("DELTA_BINARY_PACKED stream ends early")
     return starts[:rows], bit0[:rows], width[:rows], mins[:rows]

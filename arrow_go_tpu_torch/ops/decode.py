@@ -20,7 +20,8 @@ The JAX package's power-of-two padding of the segment tables was a
 guard against recompiles and has no counterpart here; PLAIN values come
 out of the byte tensor by `Tensor.view`. Words travel as int32 tensors
 carrying u32 bits and are widened to int64 before any shift, so no
-shift touches a sign bit. Gathers clamp their indices, as JAX gathers
+shift touches a sign bit but the one that places a 64-bit DELTA
+value's high half. Gathers clamp their indices, as JAX gathers
 do, so a corrupt stream cannot index past a buffer.
 """
 from __future__ import annotations
@@ -161,12 +162,19 @@ def plain_decode_device(raw: torch.Tensor, np_dtype, n: int) -> torch.Tensor:
     return b.view(t)
 
 
+def byte_stream_split_rows_device(raw: torch.Tensor, width: int,
+                                  n: int) -> torch.Tensor:
+    """BYTE_STREAM_SPLIT of any width: `width` planes of n bytes -> the
+    (n, width) uint8 matrix of the n values' little-endian bytes."""
+    return raw[: n * width].reshape(width, n).t().contiguous()
+
+
 def byte_stream_split_decode_device(raw: torch.Tensor, np_dtype,
                                     n: int) -> torch.Tensor:
-    """BYTE_STREAM_SPLIT: k planes of n bytes -> n k-byte values."""
+    """BYTE_STREAM_SPLIT of a numeric type: its rows viewed as values."""
     k = np.dtype(np_dtype).itemsize
-    interleaved = raw[: n * k].reshape(k, n).t().contiguous().reshape(-1)
-    return plain_decode_device(interleaved, np_dtype, n)
+    return byte_stream_split_rows_device(raw, k, n).view(
+        torch_dtype(np_dtype)).reshape(-1)
 
 
 def dict_decode_device(indices: torch.Tensor,
@@ -194,10 +202,10 @@ class FixedRows:
 
     def __init__(self, width: int, fn):
         self.width = width
-        self._fn = fn
+        self.of_rows = fn        # (m, width) byte matrix -> m values
 
     def __call__(self, raw: torch.Tensor, m: int) -> torch.Tensor:
-        return self._fn(raw[: m * self.width].reshape(m, self.width))
+        return self.of_rows(raw[: m * self.width].reshape(m, self.width))
 
 
 _BYTE_PAIRS = 0x00FF00FF00FF00FF
@@ -291,16 +299,26 @@ def _uvarint(data, pos: int) -> Tuple[int, int]:
         shift += 7
 
 
+def delta_count(data) -> int:
+    """The value count of a DELTA_BINARY_PACKED stream: its header's
+    third varint, after the block size and the miniblocks per block."""
+    pos = 0
+    for _ in range(3):
+        count, pos = _uvarint(data, pos)
+    return count
+
+
 def parse_delta_segments(data):
     """Host control parse of a DELTA_BINARY_PACKED stream. Returns
     (mb_starts, mb_bit0, mb_width, mb_min, words, first, total): per
     miniblock that holds deltas, the index of its first delta (int64),
     the bit offset of its packed values in `words` (int64), its width
-    (int32) and its block's min delta (int64); `words` is the stream
-    itself as uint32 words (+ guard word), so the packed values are not
-    copied out of it; then the first value and the value count. A width
-    over 32 raises ArrowNotImplemented, as the JAX package's device read
-    does (its decode reads a two-word window)."""
+    (int32, 0 to 64) and its block's min delta (int64); `words` is the
+    stream itself as uint32 words (+ guard word), so the packed values
+    are not copied out of it; then the first value and the value count.
+    A width over 64 raises ArrowInvalid. The JAX package's device read
+    refuses widths over 32 (its TPU decode reads a two-word window); the
+    port decodes every width, as the JAX package's host read does."""
     data = memoryview(data)
     block_size, pos = _uvarint(data, 0)
     miniblocks, pos = _uvarint(data, pos)
@@ -315,13 +333,27 @@ def parse_delta_segments(data):
     return st, b0, wd, mn, words_from_bytes(data), first, total
 
 
+def _half(a: torch.Tensor, b: torch.Tensor, off: torch.Tensor
+          ) -> torch.Tensor:
+    """The 32 bits of the word pair (a, b) (u32 values in int64) that
+    start at bit `off` (0..31) of a."""
+    return ((a >> off) | torch.where(off > 0, b << torch.where(
+        off > 0, 32 - off, 0), 0)) & _U32
+
+
 def delta_decode_device(mb_starts: torch.Tensor, mb_bit0: torch.Tensor,
                         mb_width: torch.Tensor, mb_min: torch.Tensor,
-                        words: torch.Tensor, first: int,
-                        n: int) -> torch.Tensor:
+                        words: torch.Tensor, first: int, n: int,
+                        wide: bool = True) -> torch.Tensor:
     """n int64 values from the tables of parse_delta_segments (as int64 /
-    int64 / int32-or-int64 / int64 / int32-word tensors). Deltas and the
-    prefix sum wrap in int64, as the format and the JAX package do."""
+    int64 / int32-or-int64 / int64 / int32-word tensors). A delta of
+    width w at bit `off` of its first u32 word spans up to three words:
+    its low 32 bits are read from words 0 and 1, its high 32 bits (w >
+    32) from words 1 and 2, each half masked to its share of w (so no
+    mask is 2**64 - 1), the high half shifted into bits 32-63 as the
+    int64 carries u64 bits. `wide` False (every width at most 32, as the
+    host parse shows) skips the high half. Deltas and the prefix sum
+    wrap in int64, as the format and the JAX package do."""
     dev = words.device
     if n <= 1:
         return torch.full((n,), first, dtype=torch.int64, device=dev)
@@ -332,10 +364,12 @@ def delta_decode_device(mb_starts: torch.Tensor, mb_bit0: torch.Tensor,
     w64 = words.to(torch.int64) & _U32
     wi = bit0 >> 5
     off = bit0 & 31
-    lo = _take(w64, wi) >> off
-    hi = torch.where(off > 0, _take(w64, wi + 1) << torch.where(
-        off > 0, 32 - off, 0), 0)
-    raw = (lo | hi) & ((1 << w) - 1)
+    w1 = _take(w64, wi + 1)
+    raw = _half(_take(w64, wi), w1, off) & ((1 << w.clamp(max=32)) - 1)
+    if wide:
+        hi = _half(w1, _take(w64, wi + 2), off) & (
+            (1 << (w - 32).clamp(min=0)) - 1)
+        raw = raw | (hi << 32)
     deltas = raw + _take(mb_min, seg)
     out = torch.empty(n, dtype=torch.int64, device=dev)
     out[0] = first

@@ -29,10 +29,13 @@ two's complement into sign-extended little-endian limbs, a float16's two
 bytes into float16, an INT96's day and nanoseconds into a timestamp in
 ns; a fixed_size_binary column's rows become codes over its distinct
 rows, the JAX package's layout), encodings PLAIN /
-RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT /
-DELTA_BINARY_PACKED (INT32/INT64, miniblocks up to 32 bits wide), v1 and
-v2 data pages, codecs UNCOMPRESSED, SNAPPY, GZIP, LZ4_RAW and ZSTD (the
-host decompresses; `times` splits its seconds out as "decompress_s", a
+RLE_DICTIONARY / PLAIN_DICTIONARY / BYTE_STREAM_SPLIT (of every width:
+its planes transposed into rows on the device) / DELTA_BINARY_PACKED
+(INT32/INT64, every miniblock width up to 64) / RLE (BOOLEAN: a 4-byte
+length, then the hybrid at width 1) / DELTA_BYTE_ARRAY (a
+FIXED_LEN_BYTE_ARRAY page: its prefixes and suffixes rebuilt on the host
+into rows, staged as a PLAIN page's are), v1 and v2 data pages, codecs
+UNCOMPRESSED, SNAPPY, GZIP, LZ4_RAW and ZSTD (the host decompresses; `times` splits its seconds out as "decompress_s", a
 part of "parse_s"). String and binary columns read as their dictionary
 codes (`codes_only` in the JAX package): a dictionary(int32, string)
 column of int32 codes on the device and its values on the host. A chunk
@@ -76,6 +79,9 @@ from .reader import read_field_host
 from .thrift import CompactReader
 
 _DICT_ENCODINGS = {fmt.Encoding.RLE_DICTIONARY, fmt.Encoding.PLAIN_DICTIONARY}
+# a FIXED_LEN_BYTE_ARRAY page's encodings besides PLAIN and dictionary
+_FIXED_ENCODINGS = {fmt.Encoding.BYTE_STREAM_SPLIT,
+                    fmt.Encoding.DELTA_BYTE_ARRAY}
 
 Host = Dict[str, torch.Tensor]
 Decoded = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -317,23 +323,33 @@ def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
     page, where the fused read takes one of the chunk's: unspecified in
     both. With `codes_only` (a string column) the page decodes to its
     int32 dictionary codes. `rows` (a FIXED_LEN_BYTE_ARRAY or INT96
-    column) takes a PLAIN page's bytes and its value count to the
-    column's values; np_dtype is then None."""
+    column) takes a PLAIN page's bytes and its value count, or a row
+    matrix, to the column's values; np_dtype is then None."""
     nv, def_stream, vals_raw, encoding = split
     if def_stream is not None:
         _stage_rle(stager, host, key + "def", def_stream, nv, 1)
     phys = desc.physical_type
     k = rows.width if rows is not None else np.dtype(np_dtype).itemsize
-    # clamp: trailing padding bytes must not push n_present past nv
-    n_present = min(len(vals_raw) // k, nv)
     if rows is not None and encoding not in _DICT_ENCODINGS | {
-            fmt.Encoding.PLAIN}:
+            fmt.Encoding.PLAIN} and (phys != fmt.Type.FIXED_LEN_BYTE_ARRAY
+                                     or encoding not in _FIXED_ENCODINGS):
         raise ArrowNotImplemented(
             f"device decode of {phys.name} pages in {encoding.name}")
-    if rows is not None and encoding == fmt.Encoding.PLAIN:
+    if rows is not None and encoding == fmt.Encoding.DELTA_BYTE_ARRAY:
+        # walked on the host into rows, then read as a PLAIN page's
+        vals_raw = enc.fixed_delta_byte_array_decode(vals_raw, nv, k)
+        encoding = fmt.Encoding.PLAIN
+    # clamp: trailing padding bytes must not push n_present past nv
+    n_present = min(len(vals_raw) // k, nv)
+    if rows is not None and encoding not in _DICT_ENCODINGS:
+        # a PLAIN or BYTE_STREAM_SPLIT page's bytes
         host[key + "raw"] = stager.bytes([vals_raw[:n_present * k]])
+        split = encoding == fmt.Encoding.BYTE_STREAM_SPLIT
 
         def dense(d):
+            if split:
+                return _pad(rows.of_rows(dd.byte_stream_split_rows_device(
+                    d[key + "raw"], k, n_present)), nv)
             return _pad(rows(d[key + "raw"], n_present), nv)
     elif codes_only:
         if encoding not in _DICT_ENCODINGS:
@@ -350,6 +366,7 @@ def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
         st, b0, wd, mn, words, first, total = dd.parse_delta_segments(
             vals_raw)
         n_present = min(total, nv)
+        wide = bool(wd.max() > 32)
         for name, a in (("st", st), ("b0", b0), ("wd", wd), ("mn", mn),
                         ("words", words)):
             host[key + "delta." + name] = stager.array(a)
@@ -358,8 +375,18 @@ def _plan_page(split, desc, np_dtype, has_dict, codes_only, stager, host,
             out = dd.delta_decode_device(
                 *(d[key + "delta." + name]
                   for name in ("st", "b0", "wd", "mn", "words")),
-                first, n_present)
+                first, n_present, wide)
             return _pad(out.to(dd.torch_dtype(np_dtype)), nv)
+    elif encoding == fmt.Encoding.RLE and phys == fmt.Type.BOOLEAN:
+        # a 4-byte length, then the hybrid at width 1 over the present
+        # values (v1 and v2 pages alike)
+        if len(vals_raw) < 4:
+            raise ArrowInvalid("RLE boolean page without its length")
+        (ln,) = struct.unpack_from("<I", vals_raw, 0)
+        _stage_rle(stager, host, key + "bits", vals_raw[4:4 + ln], nv, 1)
+
+        def dense(d):
+            return _rle(d, key + "bits", 1, nv).to(torch.bool)
     elif encoding == fmt.Encoding.PLAIN and phys == fmt.Type.BOOLEAN:
         # PLAIN boolean is 1-bit packed over the present values
         host[key + "bits"] = stager.array(dd.words_from_bytes(vals_raw))

@@ -1,6 +1,7 @@
 """Parquet encodings on the host: PLAIN, the RLE/bit-packed hybrid, the
-DELTA_BINARY_PACKED encoder and the byte-array encodings
-DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY.
+DELTA_BINARY_PACKED encoder, BYTE_STREAM_SPLIT of every width and the
+byte-array encodings DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY (of
+string and binary values, or of a FIXED_LEN_BYTE_ARRAY column's rows).
 
 Port of the parts of arrow_go_tpu/parquet/encodings.py that the port's
 writer and the host decode of dictionary and string pages need
@@ -25,6 +26,7 @@ import numpy as np
 
 from .. import native
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
+from ..ops.decode import delta_count
 from . import format as fmt
 
 _PHYS_NP = {
@@ -292,7 +294,12 @@ def delta_binary_packed_encode(values, block_size: int = 128,
 # ---------------------------------------------------------------------------
 
 def _ends_data(values) -> Tuple[np.ndarray, np.ndarray]:
-    """A list of byte strings as (int64 ends, uint8 data)."""
+    """A list of byte strings, or an (n, width) uint8 matrix of rows, as
+    (int64 ends, uint8 data)."""
+    if isinstance(values, np.ndarray) and values.ndim == 2:
+        n, width = values.shape
+        return np.arange(1, n + 1, dtype=np.int64) * width, \
+            np.ascontiguousarray(values, np.uint8).reshape(-1)
     values = [bytes(v) for v in values]
     ends = np.cumsum(np.fromiter(map(len, values), np.int64, len(values)),
                      dtype=np.int64)
@@ -309,6 +316,13 @@ def _common_prefixes(ends: np.ndarray, data: np.ndarray) -> np.ndarray:
     lens = np.diff(ends, prepend=0)
     starts = ends - lens
     width = int(lens.max())
+    if width and (lens == width).all():
+        # values of one length (a FIXED_LEN_BYTE_ARRAY column's rows): the
+        # first column where a row differs from the one before, or width
+        rows = data.reshape(n, width)
+        same = rows[1:] == rows[:-1]
+        out[1:] = np.where(same.all(1), width, np.argmin(same, 1))
+        return out
     step = max(1, (1 << 24) // max(width, 1))
     for a in range(1, n, step):
         b = min(a + step, n)
@@ -338,7 +352,8 @@ def delta_length_byte_array_encode(values) -> bytes:
 def delta_byte_array_encode(values) -> bytes:
     """DELTA_BYTE_ARRAY: each value's prefix length shared with the value
     before it (DELTA_BINARY_PACKED), then the suffixes as
-    DELTA_LENGTH_BYTE_ARRAY."""
+    DELTA_LENGTH_BYTE_ARRAY. `values` may be an (n, width) uint8 matrix of
+    a FIXED_LEN_BYTE_ARRAY column's rows."""
     ends, data = _ends_data(values)
     prefix = _common_prefixes(ends, data)
     lens = np.diff(ends, prepend=0)
@@ -375,6 +390,20 @@ def byte_array_decode(encoding: fmt.Encoding, data, n: int
     raise ArrowNotImplemented(f"byte-array decode of {encoding.name}")
 
 
+def fixed_delta_byte_array_decode(data, nv: int, width: int) -> np.ndarray:
+    """The values of a FIXED_LEN_BYTE_ARRAY page in DELTA_BYTE_ARRAY (at
+    most nv: its stream's count), their bytes back to back (uint8), the
+    prefixes and suffixes rebuilt by the codec library; a value of
+    another length than `width` raises ArrowInvalid."""
+    n = min(delta_count(data), nv)
+    ends, out = byte_array_decode(fmt.Encoding.DELTA_BYTE_ARRAY, data, n)
+    if (np.diff(ends, prepend=0) != width).any():
+        raise ArrowInvalid(f"a DELTA_BYTE_ARRAY value of a "
+                           f"FIXED_LEN_BYTE_ARRAY({width}) column is not "
+                           f"{width} bytes")
+    return out
+
+
 def _delta_lengths(mv: memoryview, n: int):
     lens, used = native.delta_decode(mv, n)
     if len(lens) < n or (len(lens) and lens.min() < 0):
@@ -386,3 +415,27 @@ def _delta_lengths(mv: memoryview, n: int):
     if total > len(body):
         raise ArrowInvalid("DELTA_LENGTH_BYTE_ARRAY values pass the page")
     return ends, body[:total], used + total
+
+
+# ---------------------------------------------------------------------------
+# BYTE_STREAM_SPLIT (arrow_go_tpu/parquet/encodings.py:329,415; reference
+# parquet/internal/encoding/byte_stream_split.go)
+# ---------------------------------------------------------------------------
+
+def byte_stream_split_encode(rows: np.ndarray) -> bytes:
+    """An (n, width) uint8 matrix of values' little-endian bytes (a
+    FIXED_LEN_BYTE_ARRAY column's rows, or a numeric column viewed as
+    bytes) -> its `width` planes of n bytes, byte j of every value in
+    plane j."""
+    return np.ascontiguousarray(np.asarray(rows, np.uint8).T).tobytes()
+
+
+def byte_stream_split_decode(data, n: int, width: int) -> np.ndarray:
+    """`width` planes of n bytes -> the (n, width) uint8 matrix of the
+    values' bytes (byte_stream_split_encode's input); a page shorter
+    than its planes raises ArrowInvalid."""
+    if len(data) < n * width:
+        raise ArrowInvalid(f"BYTE_STREAM_SPLIT page of {len(data)} bytes "
+                           f"holds no {n} values of {width} bytes")
+    planes = np.frombuffer(data, np.uint8, count=n * width)
+    return np.ascontiguousarray(planes.reshape(width, n).T)

@@ -16,9 +16,13 @@ is read on the host, as the JAX reader reads it
 (arrow_go_tpu/parquet/reader.py:_read_field): `read_field_host`
 decodes each of its leaf chunks' repetition and definition levels (the
 codec library's RLE walk) and present values (PLAIN, dictionary,
-DELTA_BINARY_PACKED and the byte-array encodings; a FIXED_LEN_BYTE_ARRAY
-or INT96 leaf raises ArrowNotImplemented), and parquet/levels.py
-rebuilds the column.
+DELTA_BINARY_PACKED at every width, RLE booleans, BYTE_STREAM_SPLIT of
+every physical type and the byte-array encodings, DELTA_BYTE_ARRAY on a
+FIXED_LEN_BYTE_ARRAY leaf too), and parquet/levels.py rebuilds the
+column. A FIXED_LEN_BYTE_ARRAY or INT96 leaf's rows take the values the
+flat device route gives them (ops/decode.py on CPU tensors): decimal128
+and decimal256 limbs, float16, fixed_size_binary codes over its distinct
+rows, INT96 as timestamp[ns].
 
 Encrypted files (encryption.py): the PARE magic (an encrypted footer,
 decrypted with the footer key) or a plaintext footer that names an
@@ -486,10 +490,21 @@ def _split_levels(hdr, body, desc, codec):
     return reps, defs, vals, fmt.Encoding(dph.encoding or 0)
 
 
-def _page_values(phys: fmt.Type, encoding: fmt.Encoding, raw, n: int,
-                 dictionary):
+_BSS_WIDTHS = {fmt.Type.INT32: 4, fmt.Type.INT64: 8, fmt.Type.FLOAT: 4,
+               fmt.Type.DOUBLE: 8}
+
+
+def _row_width(desc) -> int:
+    """The bytes of a FIXED_LEN_BYTE_ARRAY or INT96 value."""
+    return 12 if desc.physical_type == fmt.Type.INT96 else desc.type_length
+
+
+def _page_values(desc, encoding: fmt.Encoding, raw, n: int, dictionary):
     """The n present values of a page: a numpy array of the physical
-    type, or (int64 ends, uint8 data) rows of a BYTE_ARRAY leaf."""
+    type, (int64 ends, uint8 data) rows of a BYTE_ARRAY leaf, or the
+    (n, width) uint8 rows of a FIXED_LEN_BYTE_ARRAY or INT96 leaf."""
+    phys = desc.physical_type
+    fixed = phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96)
     if encoding in _DICT_ENCODINGS:
         if dictionary is None:
             raise ArrowInvalid("dictionary page missing")
@@ -500,19 +515,60 @@ def _page_values(phys: fmt.Type, encoding: fmt.Encoding, raw, n: int,
         return dictionary[codes]
     if phys == fmt.Type.BYTE_ARRAY:
         return enc.byte_array_decode(encoding, raw, n)
-    if encoding == fmt.Encoding.DELTA_BINARY_PACKED:
+    if encoding == fmt.Encoding.BYTE_STREAM_SPLIT and phys != fmt.Type.INT96:
+        rows = enc.byte_stream_split_decode(raw, n, _BSS_WIDTHS.get(
+            phys, desc.type_length))
+        return rows if fixed else enc.plain_decode(phys, rows, n)
+    if fixed and encoding == fmt.Encoding.PLAIN:
+        w = _row_width(desc)
+        if len(raw) < n * w:
+            raise ArrowInvalid(f"PLAIN page holds no {n} values of {w} "
+                               f"bytes")
+        return np.frombuffer(raw, np.uint8, count=n * w).reshape(n, w)
+    if phys == fmt.Type.FIXED_LEN_BYTE_ARRAY and \
+            encoding == fmt.Encoding.DELTA_BYTE_ARRAY:
+        w = desc.type_length
+        out = enc.fixed_delta_byte_array_decode(raw, n, w)
+        if len(out) < n * w:
+            raise ArrowInvalid(f"DELTA_BYTE_ARRAY page holds "
+                               f"{len(out) // w} values, not {n}")
+        return out.reshape(n, w)
+    if encoding == fmt.Encoding.RLE and phys == fmt.Type.BOOLEAN:
+        (ln,) = struct.unpack_from("<I", raw, 0)
+        return native.rle_decode(raw[4:4 + ln], n, 1).astype(np.bool_)
+    if encoding == fmt.Encoding.DELTA_BINARY_PACKED and phys in (
+            fmt.Type.INT32, fmt.Type.INT64):
         vals, _ = native.delta_decode(raw, n)
         return vals.astype(np.int32 if phys == fmt.Type.INT32 else np.int64)
-    if encoding == fmt.Encoding.PLAIN:
+    if encoding == fmt.Encoding.PLAIN and not fixed:
         return enc.plain_decode(phys, raw, n)
-    raise ArrowNotImplemented(f"host decode of {encoding.name} pages")
+    raise ArrowNotImplemented(f"host decode of {phys.name} pages in "
+                              f"{encoding.name}")
+
+
+def _fixed_leaf(desc, rows: np.ndarray) -> HostArray:
+    """A FIXED_LEN_BYTE_ARRAY or INT96 leaf's (n, width) rows as the flat
+    device route gives its values (device_read._fixed_rows, on CPU
+    tensors): a fixed_size_binary leaf as codes over its distinct rows."""
+    import torch
+    from ..ops import decode as dd
+    from ..ops.convert import host_view
+    from .device_read import _fixed_rows
+    t = desc.arrow_type
+    mat = torch.from_numpy(np.ascontiguousarray(rows, np.uint8))
+    if t.id == dt.TypeId.FIXED_SIZE_BINARY:
+        codes, dictionary = dd.fixed_size_codes(mat, None)
+        return HostArray(codes.numpy(), None, dt.dictionary(dt.int32, t),
+                         dictionary)
+    values = _fixed_rows(t, desc.physical_type, desc.type_length).of_rows(mat)
+    return HostArray(host_view(values.numpy(), t), None, t)
 
 
 def _leaf_array(desc, parts) -> HostArray:
     """A leaf's present values as a flat HostArray of its type: strings
     and binaries as a dictionary array (first-occurrence codes), a
-    narrow or unsigned integer or temporal type from its physical
-    ints."""
+    FIXED_LEN_BYTE_ARRAY or INT96 leaf by _fixed_leaf, a narrow or
+    unsigned integer or temporal type from its physical ints."""
     t = desc.arrow_type
     if desc.physical_type == fmt.Type.BYTE_ARRAY:
         from .device_read import _dictionary_from_rows
@@ -523,6 +579,9 @@ def _leaf_array(desc, parts) -> HostArray:
             np.zeros(0, np.uint8)
         codes, dictionary = factorize(_dictionary_from_rows(ends, data, t))
         return HostArray(codes, None, dt.dictionary(dt.int32, t), dictionary)
+    if desc.physical_type in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
+        return _fixed_leaf(desc, np.concatenate(parts) if parts else np.zeros(
+            (0, _row_width(desc)), np.uint8))
     phys = np.concatenate(parts) if parts else np.zeros(
         0, psch.physical_np_dtype(t))
     if t == dt.bool_:
@@ -538,9 +597,6 @@ def _read_leaf(pf: ParquetFile, rg_i: int, li: int):
     from .device_read import _iter_pages
     desc = pf.leaves[li]
     phys = desc.physical_type
-    if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
-        raise ArrowNotImplemented(
-            f"a nested column's {phys.name} leaf is not ported")
     ctx = pf.column_crypto(rg_i, li)
     chunk = pf.metadata.row_groups[rg_i].columns[li]
     codec = chunk.meta_data.codec or 0
@@ -553,14 +609,14 @@ def _read_leaf(pf: ParquetFile, rg_i: int, li: int):
                                       hdr.uncompressed_page_size)
             nvd = hdr.dictionary_page_header.num_values or 0
             dictionary = native.plain_byte_array(payload, nvd)[:2] if \
-                phys == fmt.Type.BYTE_ARRAY else np.asarray(
-                    enc.plain_decode(phys, payload, nvd))
+                phys == fmt.Type.BYTE_ARRAY else np.asarray(_page_values(
+                    desc, fmt.Encoding.PLAIN, payload, nvd, None))
             continue
         if ptype not in (fmt.PageType.DATA_PAGE, fmt.PageType.DATA_PAGE_V2):
             raise ArrowNotImplemented(f"page type {ptype.name}")
         r, d, raw, encoding = _split_levels(hdr, body, desc, codec)
         n_present = int((d == desc.max_def_level).sum())
-        parts.append(_page_values(phys, encoding, raw, n_present,
+        parts.append(_page_values(desc, encoding, raw, n_present,
                                   dictionary))
         defs.append(d)
         reps.append(r)

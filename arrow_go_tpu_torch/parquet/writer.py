@@ -24,10 +24,12 @@ in key order) until its dictionary reaches `dictionary_pagesize_limit`
 bytes, and PLAIN from the next page on, as the reference falls back
 (column_writer.go FallbackToPlainEncoding): the pages written before
 stay dictionary coded, so one chunk mixes both encodings.
-`column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED
-and a string or binary column DELTA_LENGTH_BYTE_ARRAY or
-DELTA_BYTE_ARRAY (with no dictionary); `use_dictionary` may name
-columns.
+`column_encodings` writes an INT32/INT64 column DELTA_BINARY_PACKED,
+a string or binary column DELTA_LENGTH_BYTE_ARRAY or DELTA_BYTE_ARRAY,
+a FIXED_LEN_BYTE_ARRAY column DELTA_BYTE_ARRAY, and a FLOAT, DOUBLE,
+INT32, INT64 or FIXED_LEN_BYTE_ARRAY column BYTE_STREAM_SPLIT (each with
+no dictionary; the value bytes of the JAX writer's _encode_values);
+`use_dictionary` may name columns.
 A column's type is its numpy dtype's (`dt.from_numpy_dtype`) unless
 `types` names it: a date32 column of int32 days, say. Such a column is
 written with the JAX writer's annotations (DATE, TIME, TIMESTAMP,
@@ -47,7 +49,9 @@ validity its own, one chunk a leaf through parquet/levels.py (a map as
 its list<struct<key, value>> storage, a fixed_size_list as a list, as
 the JAX writer writes them): one v1 data page a chunk, repetition and
 definition levels RLE, the leaf's present values PLAIN, no statistics.
-Its leaves are bool, integer, float, temporal, string or binary.
+Its leaves are of any flat type: bool, integer, float, temporal, string,
+binary, and the FIXED_LEN_BYTE_ARRAY and INT96 ones (decimal, float16,
+fixed_size_binary, an INT96 timestamp) as a flat column writes them.
 
 With `encryption` (encryption.FileEncryptionProperties) the file is
 written as the JAX writer writes it under parquet modular encryption:
@@ -79,7 +83,7 @@ from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import dtypes as dt
-from ..compute.errors import ArrowInvalid, ArrowNotImplemented
+from ..compute.errors import ArrowInvalid
 from ..device.block import (HostArray, HostBatch, dictionary_type,
                             factorize)
 from . import bloom as bloom_mod
@@ -351,6 +355,11 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             data = enc.delta_length_byte_array_encode(present[p0:p1])
         elif value_encoding == fmt.Encoding.DELTA_BYTE_ARRAY:
             data = enc.delta_byte_array_encode(present[p0:p1])
+        elif value_encoding == fmt.Encoding.BYTE_STREAM_SPLIT:
+            part = np.ascontiguousarray(present[p0:p1])
+            data = enc.byte_stream_split_encode(
+                part if fixed else part.view(np.uint8).reshape(
+                    len(part), part.dtype.itemsize))
         else:
             data = enc.plain_encode(phys, present[p0:p1])
         if v2:
@@ -399,9 +408,17 @@ _ENCODING_NAMES = {
     "plain": fmt.Encoding.PLAIN,
     "delta_binary_packed": fmt.Encoding.DELTA_BINARY_PACKED,
     "delta_length_byte_array": fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY,
-    "delta_byte_array": fmt.Encoding.DELTA_BYTE_ARRAY}
-_BYTE_ARRAY_ENCODINGS = {fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY,
-                         fmt.Encoding.DELTA_BYTE_ARRAY}
+    "delta_byte_array": fmt.Encoding.DELTA_BYTE_ARRAY,
+    "byte_stream_split": fmt.Encoding.BYTE_STREAM_SPLIT}
+# the physical types each encoding but PLAIN takes (JAX writer.py:126-152)
+_ENCODING_TYPES = {
+    fmt.Encoding.DELTA_BINARY_PACKED: {fmt.Type.INT32, fmt.Type.INT64},
+    fmt.Encoding.DELTA_LENGTH_BYTE_ARRAY: {fmt.Type.BYTE_ARRAY},
+    fmt.Encoding.DELTA_BYTE_ARRAY: {fmt.Type.BYTE_ARRAY,
+                                    fmt.Type.FIXED_LEN_BYTE_ARRAY},
+    fmt.Encoding.BYTE_STREAM_SPLIT: {fmt.Type.FLOAT, fmt.Type.DOUBLE,
+                                     fmt.Type.INT32, fmt.Type.INT64,
+                                     fmt.Type.FIXED_LEN_BYTE_ARRAY}}
 _STAT_PACK = {fmt.Type.INT32: "<i", fmt.Type.INT64: "<q",
               fmt.Type.FLOAT: "<f", fmt.Type.DOUBLE: "<d"}
 MAX_STAT_BYTES = 64    # the JAX writer's bound on byte-string statistics
@@ -770,10 +787,14 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
            default, zstd 3).
     use_dictionary: for every column, or by column name (True for the
            columns not named).
-    column_encodings: a value encoding by column name: "plain",
-           "delta_binary_packed" (INT32/INT64 columns; no dictionary),
-           "delta_length_byte_array" or "delta_byte_array" (string and
-           binary columns; no dictionary).
+    column_encodings: a value encoding by column name, each but "plain"
+           with no dictionary: "plain", "delta_binary_packed"
+           (INT32/INT64 columns), "delta_length_byte_array" (string and
+           binary columns), "delta_byte_array" (string, binary and
+           FIXED_LEN_BYTE_ARRAY columns) or "byte_stream_split" (FLOAT,
+           DOUBLE, INT32, INT64 and FIXED_LEN_BYTE_ARRAY columns); an
+           encoding the column's physical type does not take raises
+           ArrowInvalid.
     write_statistics: each chunk's null count, min and max (the JAX
            writer's rules: byte strings only when the first present
            value is under 64 bytes, nothing for INT96).
@@ -812,7 +833,7 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
         if e is None:
             continue
         if e.lower() not in _ENCODING_NAMES:
-            raise ArrowNotImplemented(f"encoding {e!r} is not ported")
+            raise ArrowInvalid(f"unknown encoding {e!r}")
         encs[name] = _ENCODING_NAMES[e.lower()]
     fields, cols = [], {}
     n = None
@@ -849,14 +870,14 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
             raise ArrowInvalid(f"column {name!r}: expected length {n}")
         if m is not None and (len(m) != n or np.asarray(m).dtype != np.bool_):
             raise ArrowInvalid(f"mask of {name!r}: expected bool[{n}]")
-        if encs.get(name) == fmt.Encoding.DELTA_BINARY_PACKED and (
-                t.is_binary_like or psch.physical_for(t)[0] not in (
-                    fmt.Type.INT32, fmt.Type.INT64)):
-            raise ArrowInvalid(f"column {name!r}: DELTA_BINARY_PACKED "
-                               f"takes INT32/INT64")
-        if encs.get(name) in _BYTE_ARRAY_ENCODINGS and dictionary is None:
-            raise ArrowInvalid(f"column {name!r}: {encs[name].name} takes "
-                               f"string or binary values")
+        e = encs.get(name, fmt.Encoding.PLAIN)
+        if e != fmt.Encoding.PLAIN:
+            ptype = fmt.Type.BYTE_ARRAY if dictionary is not None else \
+                phys if phys is not None else psch.physical_for(t)[0]
+            if ptype not in _ENCODING_TYPES[e]:
+                takes = sorted(x.name for x in _ENCODING_TYPES[e])
+                raise ArrowInvalid(f"column {name!r}: {e.name} takes "
+                                   f"{takes}, not {ptype.name}")
         fields.append(dt.Field(name, t, m is not None))
         cols[name] = (v, dictionary)
     n = n or 0
@@ -878,14 +899,21 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
 
 
 def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
-    """A nested column's present leaf values as plain_encode takes them."""
+    """A nested column's present leaf values as plain_encode takes them:
+    a FIXED_LEN_BYTE_ARRAY or INT96 leaf as its (n, width) byte rows (a
+    fixed_size_binary leaf's codes looked up in its dictionary), a
+    decimal on INT32 / INT64 as its unscaled ints, as a flat column of
+    the type is written."""
     t = desc.arrow_type
+    ptype = desc.physical_type
+    if t.is_decimal or ptype in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
+                                 fmt.Type.INT96):
+        if leaf.dictionary is not None:
+            return _host_column(leaf, None)[0]
+        return _fixed_values(".".join(desc.path), leaf.values, t, ptype)
     if leaf.dictionary is not None:
         page_values = _string_bytes(leaf.dictionary, t)
         return [page_values[c] for c in leaf.values.tolist()]
-    if t.is_decimal or desc.physical_type in (
-            fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
-        raise ArrowNotImplemented(f"a nested column's {t} leaf")
     if t == dt.bool_:
         return leaf.values
     phys = psch.physical_np_dtype(t)

@@ -173,7 +173,7 @@ without one. Phases:
      15 batches, exact (`ipc_stream`); the lineitem sorted by l_sdate in
      8 lz4 .arrow files in a temporary directory, Q6 through the dataset
      scanner (one device batch a file), equal to `ipc_q6` and to phase
-     12's parquet `dataset_q6` (`ipc_dataset_q6`); 65,536 orders as
+     12's parquet `dataset_q6` (`ipc_dataset_q6`); 16,384 orders as
      parquet.variant objects of o_okey, o_odate and o_opri (a cut: the
      variant Builder encodes row by row in Python), shredded to typed_value int64 /
      int32 / string, round-tripped through the port's parquet writer and
@@ -182,7 +182,7 @@ without one. Phases:
      against the plain column's filter (`variant`); every K1 and K3 call
      of one more run of the uncompressed `ipc_q6`, `ipc_dataset_q6` and
      the variant filter against the plain version (`ipc_path_checks`);
-  18. the file formats over the first 3,000,607 rows (half of TPC-H
+  18. the file formats over the first 1,500,303 rows (a quarter of TPC-H
      SF1's lineitem; a cut of depth) of the same arrays: Q1's seven columns
      as csv text built by array operations (l_sdate as ISO dates, the
      flags as letters, floats as their repr), its first 65,536 rows
@@ -296,25 +296,47 @@ without one. Phases:
      call raises ImportError, with it the ranked batch round-trips
      (`pyarrow_interop`); every K1, K2 and K3 call of one more run of
      each example against the plain version (`examples_path_checks`);
-  24. a `kernels` JSON line, then the last line
+  24. the parquet encodings other writers use, over the first 6,001,215
+     rows (SF1's lineitem), in a temporary directory: three files
+     written by the port's writer with data page v2 in the dataset's
+     layout (1,048,576-row groups, 1 MiB pages, zstd level 3,
+     statistics): bss_delta (l_price, l_disc, l_qty BYTE_STREAM_SPLIT;
+     l_ts, a timestamp[us] of the ship day and a seeded time of day,
+     and l_sday, the day as int64, DELTA_BINARY_PACKED, l_ts's widest
+     miniblock over 32 bits; l_isr, l_rflag == "R", PLAIN), flba_bss
+     and flba_delta (the money columns DECIMAL(15,2) in 16-byte FLBA,
+     BYTE_STREAM_SPLIT or DELTA_BYTE_ARRAY), each page's encoding
+     checked (`encodings_files`); each file scanned on the card, every
+     column bit for bit, with the parse / copy / decode split and each
+     bss_delta column's decode alone (`encodings_scan`); TPC-H Q6 from
+     bss_delta with the ship date as an l_ts range (K1, K3), its count
+     the date Q6's (`ts_q6`); decimal Q6 from flba_bss and flba_delta
+     (K1), exact (`encodings_decimal_q6`); a BOOLEAN RLE page of l_isr
+     (rle_encode at width 1, with and without 5% nulls) through the
+     device read's page plan, exact, and, where pyarrow is installed,
+     bss_delta's rows written by pyarrow (v2: l_isr RLE), scanned bit
+     for bit, Q6 from it equal to Q6 from bss_delta (`rle_booleans`);
+     every K1 and K3 call of each Q6 against the plain version
+     (`encodings_path_checks`);
+  25. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 24 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 25 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 23 against the plain version: a run that times every
+10 to 14 and 18 to 24 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 23 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 24 run only in a tree
 that has their entry points.
 
-With --only flight (or flightsql, or examples) it runs phases 1 and 2,
-makes the data (but for examples) and runs phase 21 (or 22, or 23)
-alone, then prints the phase's launches and errors and no `kernels` or
-ok line: a quick check of that phase on the card.
+With --only flight (or flightsql, examples, encodings) it runs phases 1
+and 2, makes the data (but for examples) and runs phase 21 (or 22, 23,
+24) alone, then prints the phase's launches and errors and no `kernels`
+or ok line: a quick check of that phase on the card.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
-                             [--only flight|flightsql|examples]
+                             [--only flight|flightsql|examples|encodings]
 """
 from __future__ import annotations
 
@@ -2184,6 +2206,10 @@ def check_mixed_join(left_db: DeviceBatch, left: dict) -> dict:
     return res
 
 
+SWEEP_TIMED_RUNS = 1    # timed runs a join sweep case (3 before the
+                        # encodings phase: a cut)
+
+
 def join_phases(li, orders, dev, snappy, card: str,
                 timing_only: bool = False) -> dict:
     """This slice's paths, at the scale of `li`: TPC-H Q4 (semi join),
@@ -2263,7 +2289,8 @@ def join_phases(li, orders, dev, snappy, card: str,
                                         launches["joins"])
     per_type = {}
     for how, route in cases:
-        outs, runs = timed(lambda: sweep_join(how, route, hosts, devs))
+        outs, runs = timed(lambda: sweep_join(how, route, hosts, devs),
+                           SWEEP_TIMED_RUNS)
         for out in outs:
             if sweep_checksums(out) != wants[how]:
                 raise AssertionError(f"join sweep {how} ({route}) timed run")
@@ -2884,19 +2911,19 @@ def fixed_files(rng, dev) -> dict:
             len(f.dictionary), "verified": True}
 
 
-def data_page_encodings(blob: bytes) -> dict:
-    """Each column's data pages counted by encoding: a FLBA chunk whose
-    dictionary passed its limit shows RLE_DICTIONARY pages, then
-    PLAIN ones."""
+def data_page_encodings(blob) -> dict:
+    """Each column's data pages (v1 and v2) of row group 0 counted by
+    encoding: a FLBA chunk whose dictionary passed its limit shows
+    RLE_DICTIONARY pages, then PLAIN ones. `blob`: bytes or a path."""
     from arrow_go_tpu_torch.parquet.device_read import _iter_pages
     pf = tpq.ParquetFile(blob)
     out = {}
     for c in pf.metadata.row_groups[0].columns:
         kinds = []
         for hdr, _ in _iter_pages(pf, c):
-            if hdr.data_page_header is not None:
-                kinds.append(tpq.format.Encoding(
-                    hdr.data_page_header.encoding).name)
+            h = hdr.data_page_header or hdr.data_page_header_v2
+            if h is not None:
+                kinds.append(tpq.format.Encoding(h.encoding or 0).name)
         out[c.meta_data.path_in_schema[0]] = {
             k: kinds.count(k) for k in dict.fromkeys(kinds)}
         out[c.meta_data.path_in_schema[0]]["order"] = list(
@@ -3064,6 +3091,8 @@ DATASET_ROWS_PER_GROUP = 1 << 20
 DATASET_PAGE_BYTES = 1 << 20
 DATASET_DICT_LIMIT = 1 << 20
 DATASET_LEVEL = 3
+DATASET_TIMED_RUNS = 1  # timed runs of dataset Q6 and Q10 (3 before the
+                        # encodings phase: a cut)
 LI_DATASET_FILES, ORD_DATASET_FILES = 8, 2
 LI_DATASET_COLUMNS = ["l_okey", "l_sdate", "l_qty", "l_price", "l_disc",
                       "l_rflag"]
@@ -3386,7 +3415,7 @@ def dataset_phases(li, orders, dev, card: str,
             got, launches[name] = run_path(name, run, ("K1", "K3"))
             check_q6(got, q6_want)
             results[key] = got
-            outs, runs[key] = timed(run)
+            outs, runs[key] = timed(run, DATASET_TIMED_RUNS)
             for out in outs:
                 check_q6(out, q6_want)
             split = {}
@@ -3403,7 +3432,7 @@ def dataset_phases(li, orders, dev, card: str,
         out, launches["dataset Q10"] = run_path("dataset Q10", q10,
                                                 ("K1", "K2"))
         check_q10(out, q10_want)
-        outs, runs["dataset_q10"] = timed(q10)
+        outs, runs["dataset_q10"] = timed(q10, DATASET_TIMED_RUNS)
         for out in outs:
             check_q10(out, q10_want)
         f, lit, call = pc.field, pc.literal, pc.call
@@ -3628,6 +3657,10 @@ def zipf_keys(n: int, n_keys: int, dev) -> torch.Tensor:
     return torch.from_numpy(rng.permutation(n_keys)).to(dev)[ranks]
 
 
+DIST_TIMED_RUNS = 1     # timed runs a dist path (3 before the encodings
+                        # phase: a cut)
+
+
 def dist_phases(li, orders, dev, card: str,
                 timing_only: bool = False) -> dict:
     """This slice's paths on one NCCL process group of world size 1
@@ -3641,7 +3674,8 @@ def dist_phases(li, orders, dev, card: str,
     (distributed_sort of orders on (o_odate, o_okey)) and
     `dist_streamed` (make_group_by_sum_streamed against
     make_group_by_sum by l_okey), each against numpy after one counted
-    run, then 3 timed runs. Every K1 and K2 call of one more run of each
+    run, then DIST_TIMED_RUNS timed runs. Every K1 and K2 call of one
+    more run of each
     path is held against the plain version (not with `timing_only`).
     Returns each path's launch counts and the largest kernel - plain
     difference."""
@@ -3680,8 +3714,8 @@ def _dist_paths(li, orders, dev, card, timing_only) -> dict:
         return out
 
     def run(key, name, fn, check, needs, **extra):
-        """One counted run, 3 timed runs, each checked; the exchange's
-        bytes and the peak memory of the counted run."""
+        """One counted run, DIST_TIMED_RUNS timed runs, each checked; the
+        exchange's bytes and the peak memory of the counted run."""
         for f in (pmesh.all_to_all, pmesh.all_gather):
             f.bytes = 0
         torch.cuda.reset_peak_memory_stats()
@@ -3689,7 +3723,7 @@ def _dist_paths(li, orders, dev, card, timing_only) -> dict:
         check(got)
         moved = pmesh.all_to_all.bytes + pmesh.all_gather.bytes
         peak = torch.cuda.max_memory_allocated()
-        outs, runs[key] = timed(fn)
+        outs, runs[key] = timed(fn, DIST_TIMED_RUNS)
         for o in outs:
             check(o)
         paths[key] = {**extra, "ms_runs": runs[key],
@@ -4823,7 +4857,7 @@ IPC_COMPRESSED_BATCHES = 8
 IPC_THREADS = os.cpu_count() or 8  # (de)compression threads
 IPC_Q6_COLUMNS = ["l_price", "l_disc", "l_qty", "l_sdate"]
 IPC_STREAM_BATCHES = 15
-VARIANT_ROWS = 1 << 16            # rows of the variant column (a cut)
+VARIANT_ROWS = 1 << 14            # rows of the variant column (a cut)
 VARIANT_ODATE_MAX = 720           # the shredded o_odate's filter
 IPC_TYPES = {"l_price": dt.float64, "l_disc": dt.float64, "l_qty": dt.int32,
              "l_sdate": dt.int32, "l_okey": dt.int64}
@@ -5240,9 +5274,10 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
 # phase 18: the file formats (CSV, line-delimited JSON, Avro)
 # ---------------------------------------------------------------------------
 
-# lineitem rows of the CSV and Avro paths (a cut: half of TPC-H SF1's
-# lineitem since the interop phase, SF1's before)
-FORMATS_ROWS = LINEITEM_SF1 // 2
+# lineitem rows of the CSV and Avro paths (a cut: a quarter of TPC-H
+# SF1's lineitem since the encodings phase, half since the interop
+# phase, SF1's before)
+FORMATS_ROWS = LINEITEM_SF1 // 4
 CSV_CHECK_ROWS = 1 << 16          # rows held against the port's write_csv
 CSV_STREAM_ROWS = 1 << 19         # rows of the streamed read (a cut)
 CSV_STREAM_CHUNK = 1 << 18
@@ -5626,7 +5661,8 @@ def _ms(times: dict) -> dict:
 def formats_phases(li, orders, dev, card: str,
                    timing_only: bool = False) -> dict:
     """This slice's paths over the first FORMATS_ROWS rows of the arrays
-    already in memory (half of TPC-H SF1's lineitem; a cut of depth):
+    already in memory (a quarter of TPC-H SF1's lineitem; a cut of
+    depth):
     `csv_q1` (Q1's seven columns as csv text built by csv_text, its first
     CSV_CHECK_ROWS rows held byte for byte against the port's write_csv,
     read by read_csv on the numpy tier, every column held against its
@@ -7405,6 +7441,395 @@ def examples_phases(dev, card: str, timing_only: bool = False) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# the parquet encodings other writers use, over SF1's lineitem rows
+# ---------------------------------------------------------------------------
+
+ENCODINGS_ROWS = LINEITEM_SF1      # rows of the encodings phase (SF1)
+US_PER_DAY = 86_400_000_000
+TS_US = dt.timestamp("us") if hasattr(dt, "timestamp") else None
+BSS, DBP, DBA = "byte_stream_split", "delta_binary_packed", "delta_byte_array"
+# each file's columns in encodings other than the writer's default (the
+# rest: l_isr PLAIN, l_sdate dictionary-coded)
+ENCODING_FILES = {
+    "bss_delta": {"l_price": BSS, "l_disc": BSS, "l_qty": BSS,
+                  "l_ts": DBP, "l_sday": DBP},
+    "flba_bss": {"l_price": BSS, "l_disc": BSS, "l_qty": BSS},
+    "flba_delta": {"l_price": DBA, "l_disc": DBA, "l_qty": DBA}}
+TS_Q6_COLUMNS = ["l_price", "l_disc", "l_qty", "l_ts"]
+DEC_Q6_COLUMNS = ["l_sdate", "l_qty", "l_price", "l_disc"]
+
+
+def encodings_sources(li, n: int) -> dict:
+    """The three files' columns over the first n rows. bss_delta: l_price
+    and l_disc (float64), l_qty (int64), l_ts (timestamp[us]: l_sdate's
+    day in us plus a seeded offset within the day, so its unsorted
+    deltas need miniblocks about 48 bits wide), l_sday (l_sdate as
+    int64: the same rows' narrow DELTA column) and l_isr (BOOLEAN,
+    l_rflag == "R"); the FLBA files: l_sdate and the money columns as
+    DECIMAL(15,2) cents in 16-byte FLBA."""
+    sdate = li["l_sdate"][:n]
+    codes, values = li["l_rflag"]
+    offset = np.random.default_rng(21).integers(0, US_PER_DAY, n)
+    a = {"l_price": li["l_price"][:n], "l_disc": li["l_disc"][:n],
+         "l_qty": li["l_qty"][:n].astype(np.int64),
+         "l_ts": sdate.astype(np.int64) * US_PER_DAY + offset,
+         "l_sday": sdate.astype(np.int64),
+         "l_isr": codes[:n] == list(values).index("R")}
+    cents = money_cents({c: li[c][:n] for c in ("l_price", "l_disc",
+                                                "l_tax", "l_qty")})
+    fixed = {"l_sdate": sdate, "l_qty": cents["l_qty"],
+             "l_price": cents["l_price"], "l_disc": cents["l_disc"]}
+    return {"bss_delta": a, "flba_bss": fixed, "flba_delta": fixed}
+
+
+def encodings_types(name: str) -> dict:
+    if name == "bss_delta":
+        return {"l_ts": TS_US}
+    return {"l_sdate": dt.date32, "l_qty": MONEY128, "l_price": MONEY128,
+            "l_disc": MONEY128}
+
+
+def write_encodings_file(path: str, name: str, table: dict) -> int:
+    """One of ENCODING_FILES in the dataset's layout (row groups of
+    DATASET_ROWS_PER_GROUP rows, DATASET_PAGE_BYTES pages, zstd level
+    DATASET_LEVEL, statistics) in DATA_PAGE_V2 pages; returns its
+    bytes."""
+    tpq.write_table(table, path, types=encodings_types(name),
+                    properties=tpq.WriterProperties(
+                        data_page_version="2.0", compression="zstd",
+                        compression_level=DATASET_LEVEL,
+                        data_page_size=DATASET_PAGE_BYTES,
+                        max_row_group_length=DATASET_ROWS_PER_GROUP,
+                        column_properties={
+                            c: {"encoding": e}
+                            for c, e in ENCODING_FILES[name].items()}))
+    return os.path.getsize(path)
+
+
+def file_batches(path: str, dev, columns=None, times=None) -> list:
+    """Every row group of a file on the card (read_batch_device)."""
+    with tpq.ParquetFile(path) as pf:
+        return [tpq.read_batch_device(pf, i, columns, device=dev,
+                                      times=times)
+                for i in range(pf.num_row_groups)]
+
+
+def widest_delta(path: str, column: str) -> int:
+    """The widest DELTA_BINARY_PACKED miniblock of a column's pages."""
+    from arrow_go_tpu_torch.ops import decode as dd
+    from arrow_go_tpu_torch.parquet import device_read as tdr
+    widest = 0
+    with tpq.ParquetFile(path) as pf:
+        li_, desc = tdr._leaf_of(pf, column)
+        clock = tdr._Clock(None, None)
+        for rg in range(pf.num_row_groups):
+            chunk = pf.metadata.row_groups[rg].columns[li_]
+            for hdr, body in tdr._iter_pages(pf, chunk):
+                if hdr.data_page_header_v2 is None:
+                    continue
+                nv, _, vals, _ = tdr._split_page(
+                    hdr, body, desc, chunk.meta_data.codec or 0, clock)
+                widest = max(widest, int(dd.parse_delta_segments(vals)[2]
+                                         .max()))
+    return widest
+
+
+def check_encodings_scan(what: str, batches: list, table: dict) -> None:
+    """Every column of a file's row-group batches equals its source, bit
+    for bit (a decimal by its limbs)."""
+    row0 = 0
+    for db in batches:
+        n = db.length
+        for c in db.schema.names:
+            want = np.asarray(table[c])[row0:row0 + n]
+            col = db.column(c)
+            if col.type.limbs:
+                check_limbs(f"{what} {c}", col, want)
+            else:
+                _equal(f"{what} {c}", col.values[:n].cpu().numpy(), want)
+        row0 += n
+    if row0 != len(table["l_price"]):
+        raise AssertionError(f"{what}: {row0} rows scanned")
+
+
+def ts_q6_expression():
+    """Q6's WHERE clause with the ship date as l_ts in [the first us of
+    1994, the first us of 1995): the same rows as the day range."""
+    f, lit, call = pc.field, pc.literal, pc.call
+    conds = [call("greater_equal", [f("l_ts"), lit(Q6_DATE_LO * US_PER_DAY)]),
+             call("less", [f("l_ts"), lit(Q6_DATE_HI * US_PER_DAY)]),
+             call("greater_equal", [f("l_disc"), lit(Q6_DISC_LO)]),
+             call("less_equal", [f("l_disc"), lit(Q6_DISC_HI)]),
+             call("less", [f("l_qty"), lit(Q6_QTY)])]
+    pred = conds[0]
+    for c in conds[1:]:
+        pred = call("and", [pred, c])
+    return pred
+
+
+def ts_q6(path: str, dev, times=None) -> dict:
+    """TPC-H Q6 from a bss_delta file: each row group scanned on the card,
+    filtered by ts_q6_expression (K1), l_price * l_disc summed (K3),
+    added across row groups."""
+    revenue, count = 0.0, 0
+    for db in file_batches(path, dev, TS_Q6_COLUMNS, times):
+        mask = pc.execute_scalar_expression(ts_q6_expression(), db)
+        kept = pc.filter(project(db, ["l_price", "l_disc"]), mask)
+        rev = pc.execute_scalar_expression(
+            pc.call("multiply", [pc.field("l_price"), pc.field("l_disc")]),
+            kept)
+        if rev.length:
+            revenue += pc.agg_sum(rev)
+        count += rev.length
+    return {"revenue": revenue, "count": count}
+
+
+def file_decimal_q6(path: str, dev, times=None) -> list:
+    """decimal_q6 from an FLBA file: each row group's product
+    column (K1 filter, limb multiply)."""
+    return [decimal_q6(db)
+            for db in file_batches(path, dev, DEC_Q6_COLUMNS, times)]
+
+
+def rle_boolean_pages(bits: np.ndarray, dev, rng) -> dict:
+    """The l_isr value stream as a BOOLEAN RLE page (a 4-byte length,
+    then encodings.rle_encode at width 1) decoded through the device
+    read's page plan on the card, without and with a definition-level
+    stream that nulls 5% of the rows, held exactly against numpy."""
+    from arrow_go_tpu_torch.parquet import device_read as tdr
+    from arrow_go_tpu_torch.parquet import encodings as tenc
+    from arrow_go_tpu_torch.parquet.schema import ColumnDescriptor
+    n = len(bits)
+    present = rng.random(n) >= 0.05
+    desc = ColumnDescriptor(("l_isr",), tpq.format.Type.BOOLEAN, 0, 1, 0,
+                            dt.bool_, [])
+    out = {}
+    for kind, defs in (("required", None), ("nulls", present)):
+        vals = bits if defs is None else bits[defs]
+        body = tenc.rle_encode(vals.astype(np.uint32), 1)
+        stream = len(body).to_bytes(4, "little") + body
+        def_stream = None if defs is None else tenc.rle_encode(
+            defs.astype(np.uint32), 1)
+        host = {}
+        decode = tdr._plan_page((n, def_stream, stream,
+                                 tpq.format.Encoding.RLE), desc, np.bool_,
+                                False, False, tdr._Stager(dev), host, "p.")
+        shipped = tdr._ship(host, dev)
+        (got, mask), ms = _sync_ms(lambda: decode(shipped))
+        if defs is None:
+            if mask is not None:
+                raise AssertionError("RLE booleans: a mask without levels")
+            _equal("RLE booleans", got.cpu().numpy(), bits)
+        else:
+            _equal("RLE booleans' validity", mask.cpu().numpy(), defs)
+            _equal("RLE booleans under nulls", got.cpu().numpy()[defs],
+                   vals)
+        out[kind] = {"stream_bytes": len(stream), "decode_ms": ms}
+    return out
+
+
+def pyarrow_encodings(path: str, table: dict) -> dict:
+    """bss_delta's rows as pyarrow writes them: data page v2, no
+    dictionary, l_price and l_disc BYTE_STREAM_SPLIT, l_ts
+    DELTA_BINARY_PACKED, l_isr (pyarrow's v2 default) RLE; the dataset's
+    layout. Returns the file's bytes and pyarrow's version."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    cols = {c: table[c] for c in ("l_price", "l_disc", "l_qty", "l_isr")}
+    cols["l_ts"] = pa.array(table["l_ts"], pa.timestamp("us"))
+    pq.write_table(pa.table(cols), path, data_page_version="2.0",
+                   use_dictionary=False, compression="zstd",
+                   compression_level=DATASET_LEVEL,
+                   row_group_size=DATASET_ROWS_PER_GROUP,
+                   data_page_size=DATASET_PAGE_BYTES,
+                   use_byte_stream_split=["l_price", "l_disc"],
+                   column_encoding={"l_ts": "DELTA_BINARY_PACKED"})
+    return {"pyarrow": pa.__version__, "file_bytes": os.path.getsize(path)}
+
+
+def encodings_phases(li, dev, card: str, timing_only: bool = False) -> dict:
+    """This slice's paths over the first ENCODINGS_ROWS rows (SF1's
+    lineitem), the files in a temporary directory: `encodings_files`
+    (the three ENCODING_FILES written by the port's writer, side by side,
+    each page's encodings, l_ts's widest DELTA miniblock, which must pass
+    32 bits), `encodings_scan` (each file scanned on the card by
+    read_batch_device and held bit for bit against its source, with the
+    host-parse / copy / device-decode split, and each bss_delta column's
+    device decode alone), `ts_q6` (Q6 from bss_delta with the ship date
+    as an l_ts range, its count the date Q6's on the same rows),
+    `encodings_decimal_q6` (decimal Q6 from flba_bss and flba_delta),
+    `rle_booleans` (rle_boolean_pages; with pyarrow installed also
+    bss_delta's rows written by pyarrow, its l_isr pages RLE, scanned bit
+    for bit and Q6 from it equal to Q6 from bss_delta) and
+    `encodings_path_checks` (every K1 and K3 call of each Q6 against the
+    plain version; not with `timing_only`). Returns each path's launch
+    counts and the largest kernel - plain difference."""
+    t_phase = time.perf_counter()
+    stages = {}
+
+    def stage(name):
+        """Adds the seconds since the last mark to stages[name]."""
+        now = time.perf_counter()
+        stages[name] = stages.get(name, 0.0) + now - stage.mark
+        stage.mark = now
+    stage.mark = t_phase
+    n = min(ENCODINGS_ROWS, len(li["l_okey"]))
+    tables = encodings_sources(li, n)
+    stage("sources_s")
+    root_dir = tempfile.TemporaryDirectory()
+    paths = {name: os.path.join(root_dir.name, f"{name}.parquet")
+             for name in ENCODING_FILES}
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        nbytes = dict(zip(paths, pool.map(
+            lambda name: write_encodings_file(paths[name], name,
+                                              tables[name]), paths)))
+    write_s = time.perf_counter() - t0
+    widest = widest_delta(paths["bss_delta"], "l_ts")
+    if widest <= 32:
+        raise AssertionError(f"l_ts's widest DELTA miniblock is {widest} "
+                             f"bits, not over 32")
+    encs = {name: data_page_encodings(p) for name, p in paths.items()}
+    for name, want in ENCODING_FILES.items():
+        for c, e in want.items():
+            if encs[name][c]["order"] != [e.upper()]:
+                raise AssertionError(f"{name}.{c}: pages {encs[name][c]}")
+    print(json.dumps({"encodings_files": {
+        "rows": n, "file_bytes": nbytes, "write_s": write_s,
+        "page_encodings": encs, "l_ts_widest_delta_bits": widest,
+        "l_sday_widest_delta_bits": widest_delta(paths["bss_delta"],
+                                                 "l_sday"),
+        "card": card}}), flush=True)
+    stage("write_s")
+
+    scans = {}
+    for name, p in paths.items():
+        times = {}
+        t0 = time.perf_counter()
+        batches = file_batches(p, dev, None, times)
+        times["ms"] = (time.perf_counter() - t0) * 1e3
+        check_encodings_scan(name, batches, tables[name])
+        del batches
+        scans[name] = {k[:-2] + "_ms" if k.endswith("_s") else k: v * 1e3
+                       if k.endswith("_s") else v for k, v in times.items()}
+    columns = {}
+    for c in tables["bss_delta"]:
+        times = {}
+        file_batches(paths["bss_delta"], dev, [c], times)
+        columns[c] = {"decode_ms": times["decode_s"] * 1e3,
+                      "parse_ms": times["parse_s"] * 1e3,
+                      "encoding": encs["bss_delta"][c]["order"]}
+    print(json.dumps({"encodings_scan": {
+        "split_ms": scans, "bss_delta_columns": columns, "card": card,
+        "verified": True}}), flush=True)
+    stage("scan_s")
+
+    launches, checks = {}, {}
+    a = tables["bss_delta"]
+    q6_want = q6_oracle({"l_sdate": li["l_sdate"][:n], **a})
+    got, launches["ts Q6"] = run_path(
+        "ts Q6", lambda: ts_q6(paths["bss_delta"], dev), ("K1", "K3"))
+    check_q6(got, q6_want)
+    times = {}
+    again, ms = _sync_ms(lambda: ts_q6(paths["bss_delta"], dev, times))
+    if again != got:
+        raise AssertionError(f"ts Q6: a run gave {again}, first {got}")
+    checks["ts_q6"] = (lambda: ts_q6(paths["bss_delta"], dev),
+                       lambda o: check_q6(o, q6_want), "ts Q6")
+    print(json.dumps({"ts_q6": {
+        **got, "oracle": q6_want, "ms": ms, "split_ms": _ms(times),
+        "launches_per_run": launches["ts Q6"], "card": card,
+        "verified": True}}), flush=True)
+    stage("ts_q6_s")
+
+    fixed = tables["flba_bss"]
+    keep = ((fixed["l_sdate"] >= Q6_DATE_LO) & (fixed["l_sdate"] < Q6_DATE_HI)
+            & (fixed["l_disc"] >= 5) & (fixed["l_disc"] <= 7)
+            & (fixed["l_qty"] < Q6_QTY * 100))
+    if int(keep.sum()) != q6_want["count"]:
+        raise AssertionError(f"decimal Q6 keeps {int(keep.sum())} rows, "
+                             f"ts Q6 {q6_want['count']}")
+    q6_check, dec_want = decimal_q6_check(fixed, keep)
+
+    def check_dec(revs):
+        rows = [r.length for r in revs]
+        if sum(rows) != len(dec_want):
+            raise AssertionError(f"decimal Q6: {sum(rows)} rows kept")
+        lo = np.concatenate([_limb_ints(r, r.length)[0] for r in revs])
+        hi = np.concatenate([_limb_ints(r, r.length)[1] for r in revs])
+        for r in revs:
+            if str(r.type) != "decimal128(31, 4)":
+                raise AssertionError(f"decimal Q6: product type {r.type}")
+        _equal("decimal Q6 low limbs", lo, dec_want)
+        _equal("decimal Q6 high limbs", hi, dec_want >> 63)
+    dec = {}
+    for name in ("flba_bss", "flba_delta"):
+        key = f"decimal Q6 ({name})"
+        revs, launches[key] = run_path(
+            key, lambda: file_decimal_q6(paths[name], dev), ("K1",))
+        check_dec(revs)
+        times = {}
+        revs, ms = _sync_ms(lambda: file_decimal_q6(paths[name], dev,
+                                                    times))
+        check_dec(revs)
+        checks[name] = ((lambda p=paths[name]: file_decimal_q6(p, dev)),
+                        check_dec, key)
+        dec[name] = {"rows_kept": int(keep.sum()), "ms": ms,
+                     "split_ms": _ms(times),
+                     "launches_per_run": launches[key]}
+    print(json.dumps({"encodings_decimal_q6": {
+        **dec, "card": card, "verified": True}}), flush=True)
+    stage("decimal_q6_s")
+
+    rle = {"pages": rle_boolean_pages(a["l_isr"], dev,
+                                      np.random.default_rng(22))}
+    stage("rle_pages_s")
+    if importlib.util.find_spec("pyarrow") is None:
+        rle["pyarrow"] = None
+    else:
+        ppath = os.path.join(root_dir.name, "pyarrow.parquet")
+        rle.update(pyarrow_encodings(ppath, a))
+        pencs = data_page_encodings(ppath)
+        if [pencs[c]["order"] for c in ("l_isr", "l_ts", "l_price")] != [
+                ["RLE"], ["DELTA_BINARY_PACKED"], ["BYTE_STREAM_SPLIT"]]:
+            raise AssertionError(f"pyarrow's pages: {pencs}")
+        # l_isr's RLE pages bit for bit; Q6 below reads the others
+        check_encodings_scan("pyarrow", file_batches(ppath, dev, ["l_isr"]),
+                             {c: a[c] for c in ("l_isr", "l_price")})
+        pgot, launches["pyarrow ts Q6"] = run_path(
+            "pyarrow ts Q6", lambda: ts_q6(ppath, dev), ("K1", "K3"))
+        if pgot != got:
+            raise AssertionError(f"Q6 from pyarrow's file {pgot}, from "
+                                 f"the port's {got}")
+        checks["pyarrow_ts_q6"] = (lambda: ts_q6(ppath, dev),
+                                   lambda o: check_q6(o, q6_want),
+                                   "pyarrow ts Q6")
+        rle.update(page_encodings=pencs, q6=pgot,
+                   launches_per_run=launches["pyarrow ts Q6"])
+    print(json.dumps({"rle_booleans": {
+        **rle, "branch": "pyarrow" if rle.get("pyarrow") else
+        "page level only", "card": card, "verified": True}}), flush=True)
+    stage("pyarrow_s")
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            out, held[key] = check_path_calls(key, fn, launches[name],
+                                              k3=True)
+            check(out)
+        print(json.dumps({"encodings_path_checks": held}), flush=True)
+    root_dir.cleanup()
+    stage("path_checks_s")
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"encodings_phase": {
+        "s": time.perf_counter() - t_phase, **stages, "card": card}}),
+        flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -7420,7 +7845,8 @@ def main(argv=None) -> int:
                          "kernels and ok lines: a run that times every "
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
-    ap.add_argument("--only", choices=["flight", "flightsql", "examples"],
+    ap.add_argument("--only", choices=["flight", "flightsql", "examples",
+                                       "encodings"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -7449,6 +7875,11 @@ def main(argv=None) -> int:
     n_ord = n_li // 4
     if args.only == "examples":
         out = examples_phases(dev, card)
+    elif args.only == "encodings":
+        li, _ = make_data(n_li, n_ord)
+        add_quantity(li)
+        add_q1_columns(li)
+        out = encodings_phases(li, dev, card)
     elif args.only:
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
@@ -7629,6 +8060,8 @@ def main(argv=None) -> int:
         if os.path.exists(os.path.join(os.path.dirname(os.path.abspath(
                 __file__)), "examples", "torch_end_to_end.py")):
             examples_phases(dev, card, timing_only=True)
+        if hasattr(tpq.encodings, "byte_stream_split_encode"):
+            encodings_phases(li, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -7679,6 +8112,9 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, exs["errs"]["K1"])
     k2_err = max(k2_err, exs["errs"]["K2"])
     k3_err = max(k3_err, exs["errs"]["K3"])
+    pqe = encodings_phases(li, dev, card)
+    k1_err = max(k1_err, pqe["errs"]["K1"])
+    k3_err = max(k3_err, pqe["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -7690,7 +8126,7 @@ def main(argv=None) -> int:
                **ipcs["launches"], **fmts["launches"],
                **inter["launches"], **encs["launches"],
                **flights["launches"], **fsql["launches"],
-               **exs["launches"]}
+               **exs["launches"], **pqe["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -434,27 +434,36 @@ def test_fixed_size_codes_match_the_jax_row_codes(width):
 
 
 def test_fixed_length_page_of_another_encoding_raises():
-    """A FLBA page in BYTE_STREAM_SPLIT (or any encoding but PLAIN and
-    dictionary) is not decoded on the device: it raises."""
+    """A FLBA page in BYTE_STREAM_SPLIT decodes on the device to the JAX
+    read_table's values; one in an encoding neither package reads for
+    FLBA (RLE, rewritten into the page header) raises in both."""
     rng = np.random.default_rng(50)
     buf = io.BytesIO()
     tpq.write_table({"p": _unscaled(rng, 100, 10)}, buf,
-                    types={"p": dt.decimal128(15, 2)}, use_dictionary=False)
+                    types={"p": dt.decimal128(15, 2)}, use_dictionary=False,
+                    column_encodings={"p": "byte_stream_split"})
     blob = bytearray(buf.getvalue())
+    got = column_to_host(tpq.read_batch_device(
+        tpq.ParquetFile(bytes(blob)), 0, device="cpu").column("p"))
+    assert got.to_pylist() == jpq.read_table(bytes(blob)).column(
+        0).to_pylist()
     pf = tpq.ParquetFile(bytes(blob))
     from arrow_go_tpu_torch.parquet.device_read import _iter_pages
     (hdr, _), = list(_iter_pages(pf, pf.metadata.row_groups[0].columns[0]))
-    # rewrite the one data page's encoding field (PLAIN, 0) as
-    # BYTE_STREAM_SPLIT (9) in its thrift header
+    assert hdr.data_page_header.encoding == int(
+        fmt.Encoding.BYTE_STREAM_SPLIT)
+    # rewrite the one data page's encoding field (BYTE_STREAM_SPLIT, 9)
+    # as RLE (3) in its thrift header
     from arrow_go_tpu_torch.parquet.thrift import CompactWriter
-    hdr.data_page_header.encoding = int(fmt.Encoding.BYTE_STREAM_SPLIT)
+    old = CompactWriter()
+    old.write_struct(hdr)
+    hdr.data_page_header.encoding = int(fmt.Encoding.RLE)
     w = CompactWriter()
     w.write_struct(hdr)
     start = pf.metadata.row_groups[0].columns[0].meta_data.data_page_offset
-    old = CompactWriter()
-    hdr.data_page_header.encoding = int(fmt.Encoding.PLAIN)
-    old.write_struct(hdr)
     assert len(old.out) == len(w.out)
     blob[start:start + len(w.out)] = w.out
     with pytest.raises(pc.ArrowNotImplemented):
         tpq.read_batch_device(tpq.ParquetFile(bytes(blob)), 0, device="cpu")
+    with pytest.raises(Exception, match="RLE"):
+        jpq.read_table(bytes(blob))

@@ -278,8 +278,8 @@ def test_byte_array_walks_match_the_jax_decoders(rng):
 
 @pytest.mark.parametrize("width", [1, 7, 31, 33, 63, 64])
 def test_delta_lengths_decode_past_32_bits(width):
-    """The host DELTA decode takes every miniblock width up to 64 (the
-    device DELTA path stops at 32)."""
+    """The host DELTA decode takes every miniblock width up to 64, as the
+    device DELTA path does."""
     rng = np.random.default_rng(width)
     v = rng.integers(-(2 ** 62), 2 ** 62, 700) if width > 62 else \
         np.cumsum(rng.integers(0, 2 ** (width - 1), 700))
