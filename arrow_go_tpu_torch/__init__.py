@@ -7,9 +7,11 @@ card, with hand-written CUDA kernels where the JAX package has Pallas
 kernels (csrc/) and a plain PyTorch version beside each. Module paths
 mirror the JAX package. The port imports torch and numpy, never jax or
 arrow_go_tpu. The top level carries the JAX package's names: the types
-(`dtypes`), `array`, `nulls`, `from_numpy`, `concat_arrays`,
-`record_batch` and `table` over the HostArray / HostBatch stand-ins
-(array/arrays.py, array/record.py), ChunkedArray and the buffers.
+(`dtypes`), `Array` (the port's HostArray, whose subclasses are the
+JAX array classes), `ArrayData`, `make_array`, `array`, `nulls`,
+`from_numpy`, `concat_arrays`, `make_builder`, `RecordBatch` (a
+HostBatch), `ChunkedArray`, `Column`, `Table`, `record_batch`, `table`
+(array/) and the buffers.
 `interop`, `cdata`, `flight`, `dataset`, `cli`, `tensor`, `ipc`,
 `parallel` and `native` load on first use, as in the JAX package.
 """
@@ -25,8 +27,12 @@ from .dtypes import (  # noqa: F401
     string, struct, time32, time64, timestamp, uint8, uint16, uint32,
     uint64,
 )
-from .array.arrays import array, concat_arrays, from_numpy, nulls
-from .array.record import ChunkedArray, record_batch, table
+from .array.arrays import (Array, ArrayData, array, from_numpy,
+                           make_array, nulls)
+from .array.builders import make_builder
+from .array.concat import concat_arrays
+from .array.record import (ChunkedArray, Column, RecordBatch, Table,
+                           record_batch, table)
 from .device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                            ExtensionArray, HostArray, HostBatch, HostColumn,
                            ListViewArray, UnionArray, batch_from_numpy,
@@ -38,8 +44,10 @@ from .memory.buffer import Allocator, Buffer, TrackedAllocator
 __version__ = "0.1.0"
 
 __all__ = ["array", "compute", "concat_arrays", "dtypes", "extensions",
-           "formats", "from_numpy", "memory", "nulls", "parquet",
-           "record_batch", "table", "torchenv", "ChunkedArray",
+           "formats", "from_numpy", "make_array", "make_builder", "memory",
+           "nulls", "parquet", "record_batch", "table", "torchenv",
+           "Array", "ArrayData", "ChunkedArray", "Column", "RecordBatch",
+           "Table",
            "Allocator", "Buffer", "TrackedAllocator",
            "DeviceBatch", "DeviceColumn", "DeviceListColumn",
            "ExtensionArray", "HostArray", "HostBatch", "HostColumn",

@@ -13,7 +13,8 @@ HostArrays, then calls the array's `release`, as the JAX import does
 module-level CFUNCTYPE object, so none is freed while a struct points
 at it.
 
-Layout of an exported column, under its field's type: a string, binary,
+Layout of an exported column, under its field's type (array/layout.py,
+shared with `Array.data` and `make_array`): a string, binary,
 large_string or large_binary column (dictionary-coded in the port) as
 offsets and data gathered by ipc/core's `_row_bytes`, a dictionary field
 as its indices with its dictionary as a child array, decimal128 and
@@ -42,15 +43,14 @@ from ctypes import (CFUNCTYPE, POINTER, Structure, c_char_p, c_int,
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from . import dtypes as dt
+from .array import layout
 from .array.arrays import field_type as array_field_type
+from .array.record import host_batch
 from .compute.errors import ArrowInvalid, ArrowNotImplemented
-from .device.block import HostArray, HostBatch, nested_array, null_array
-from .ipc import _concat_batches, _dictionary_array, _dictionary_values
-from .ipc.core import _offsets, _row_bytes, coded_column
-from .ops.decode import fixed_size_codes
+from .device.block import HostArray, HostBatch, nested_array
+from .ipc import _concat_batches
 
 
 class ArrowSchema(Structure):
@@ -395,69 +395,32 @@ def _buffer(a, keep: list) -> int:
     return a.ctypes.data
 
 
-def _bits(mask: np.ndarray) -> np.ndarray:
-    return np.packbits(np.asarray(mask, np.bool_), bitorder="little")
+_REFUSED = (dt.TypeId.STRING_VIEW, dt.TypeId.BINARY_VIEW,
+            dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW,
+            dt.TypeId.SPARSE_UNION, dt.TypeId.DENSE_UNION,
+            dt.TypeId.RUN_END_ENCODED, dt.TypeId.EXTENSION,
+            dt.TypeId.INTERVAL_MONTHS)
 
 
-def _column_buffers(arr: HostArray, t: dt.DataType) -> Tuple[list, list]:
-    """(buffers, [(child field type, child HostArray)]) of a column of
-    field type `t`, each buffer a numpy array (None: a NULL validity)."""
-    tid = t.id
-    n = len(arr)
-    if tid == dt.TypeId.NULL:
-        return [], []
-    if tid in (dt.TypeId.STRING_VIEW, dt.TypeId.BINARY_VIEW,
-               dt.TypeId.LIST_VIEW, dt.TypeId.LARGE_LIST_VIEW,
-               dt.TypeId.SPARSE_UNION, dt.TypeId.DENSE_UNION,
-               dt.TypeId.RUN_END_ENCODED, dt.TypeId.EXTENSION) or (
-            t.np_dtype is not None and t.np_dtype.names) or \
-            tid == dt.TypeId.INTERVAL_MONTHS:
-        raise ArrowNotImplemented(f"cdata export of {t}")
-    validity = None if arr.mask is None or arr.mask.all() else \
-        _bits(arr.mask)
-    if tid == dt.TypeId.BOOL:
-        return [validity, _bits(arr.values)], []
-    if tid == dt.TypeId.DICTIONARY:
-        return [validity, np.asarray(arr.values, t.index_type.np_dtype)], []
-    if tid == dt.TypeId.FIXED_SIZE_BINARY:
-        w = t.byte_width
-        table = np.frombuffer(b"".join(arr.dictionary), np.uint8).reshape(
-            -1, w) if len(arr.dictionary) else np.zeros((1, w), np.uint8)
-        rows = table[np.asarray(arr.values, np.int64)]
-        if arr.mask is not None:
-            rows[~arr.mask] = 0
-        return [validity, rows], []
-    if t.is_binary_like:
-        ends, data = _row_bytes(arr)
-        return [validity, _offsets(ends, t.offset_dtype), data], []
-    if t.limbs:                     # little-endian limbs: the Arrow layout
-        return [validity, np.ascontiguousarray(arr.values)], []
-    if t.np_dtype is not None:
-        return [validity, np.ascontiguousarray(arr.values)], []
-    if tid in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST, dt.TypeId.MAP):
-        off = np.asarray(arr.offsets, np.int64)
-        lo = int(off[0]) if n else 0
-        child = arr.children[0].slice(lo, int(off[-1]) - lo) if n else \
-            arr.children[0].slice(0, 0)
-        return [validity, (off - lo).astype(t.offset_dtype)], \
-            [(t.fields()[0].type, child)]
-    if tid == dt.TypeId.FIXED_SIZE_LIST:
-        return [validity], [(t.value_type,
-                             arr.children[0].slice(0, n * t.list_size))]
-    if tid == dt.TypeId.STRUCT:
-        return [validity], [(f.type, c) for f, c in zip(t.fields(),
-                                                        arr.children)]
-    raise ArrowNotImplemented(f"cdata export of {t}")
+def _refuse(t: dt.DataType, what: str) -> None:
+    """The types the JAX module's C data interface refuses (views,
+    unions, run_end_encoded, intervals, list views, extensions), at any
+    depth, raise ArrowNotImplemented."""
+    if t.id in _REFUSED or (t.np_dtype is not None and t.np_dtype.names):
+        raise ArrowNotImplemented(f"cdata {what} of {t}")
+    for f in t.fields():
+        _refuse(f.type, what)
+    if t.id == dt.TypeId.DICTIONARY:
+        _refuse(t.value_type, what)
 
 
 def _fill_array(c: ArrowArray, arr: HostArray, t: dt.DataType,
                 keep: list) -> None:
-    bufs, kids = _column_buffers(arr, t)
+    bufs, kids = layout.column_buffers(arr, t)
     n = len(arr)
     c.length = n
     c.offset = 0
-    c.null_count = n if t.id == dt.TypeId.NULL else (
-        0 if arr.mask is None else int(n - np.count_nonzero(arr.mask)))
+    c.null_count = layout.null_count(arr, t)
     c.n_buffers = len(bufs)
     if bufs:
         barr = (c_void_p * len(bufs))(*[
@@ -482,8 +445,7 @@ def _fill_array(c: ArrowArray, arr: HostArray, t: dt.DataType,
     if t.id == dt.TypeId.DICTIONARY:
         d = ArrowArray()
         keep.append(d)
-        _fill_array(d, _dictionary_array(arr.dictionary, t.value_type),
-                    t.value_type, keep)
+        _fill_array(d, layout.dictionary_column(arr, t), t.value_type, keep)
         d.release = _release_child_array
         c.dictionary = ctypes.pointer(d)
     else:
@@ -492,6 +454,7 @@ def _fill_array(c: ArrowArray, arr: HostArray, t: dt.DataType,
 
 
 def _export_into(c: ArrowArray, arr: HostArray, t: dt.DataType) -> None:
+    _refuse(t, "export")
     keep: list = []
     _fill_array(c, arr, t, keep)
     c.private_data = _keep.add(keep)
@@ -542,68 +505,17 @@ def _copy(ptr: Optional[int], nbytes: int) -> np.ndarray:
 
 def _import_column(c: ArrowArray, t: dt.DataType) -> HostArray:
     """The HostArray of an ArrowArray of field type `t`, copied out and
-    cut to rows [offset, offset + length)."""
-    n, off = int(c.length), int(c.offset)
-    total = n + off
-    tid = t.id
-    if tid == dt.TypeId.NULL:
-        return null_array(n)
-    bufs = [c.buffers[i] for i in range(c.n_buffers)] if c.buffers else []
-    bufs += [None] * (3 - len(bufs))
+    cut to rows [offset, offset + length) (array/layout.py)."""
+    _refuse(t, "import")
+    ptrs = [c.buffers[i] for i in range(c.n_buffers)] if c.buffers else []
 
-    def bits(ptr) -> np.ndarray:
-        raw = _copy(ptr, (total + 7) // 8)
-        return np.unpackbits(raw, count=total, bitorder="little")[
-            off:].astype(np.bool_)
+    def reader(ptr):
+        return None if not ptr else (lambda nbytes: _copy(ptr, nbytes))
 
-    mask = bits(bufs[0]) if bufs[0] and c.null_count != 0 else None
-    if mask is not None and mask.all():
-        mask = None
-    if tid == dt.TypeId.BOOL:
-        return HostArray(bits(bufs[1]), mask, t)
-    if tid == dt.TypeId.DICTIONARY:
-        it = t.index_type.np_dtype
-        idx = _copy(bufs[1], total * it.itemsize).view(it)[off:]
-        vals = _import_column(c.dictionary.contents, t.value_type)
-        return HostArray(idx, mask, t,
-                         _dictionary_values(vals, t.value_type))
-    if tid == dt.TypeId.FIXED_SIZE_BINARY:
-        w = t.byte_width
-        rows = _copy(bufs[1], total * w).reshape(total, w)[off:].copy()
-        codes, dictionary = fixed_size_codes(
-            torch.from_numpy(rows),
-            None if mask is None else torch.from_numpy(mask))
-        return HostArray(codes.numpy(), mask, dt.dictionary(dt.int32, t),
-                         dictionary)
-    if t.limbs:
-        w = t.bit_width // 8
-        raw = _copy(bufs[1], total * w)
-        return HostArray(raw.view(np.int64).reshape(total, t.limbs)[off:],
-                         mask, t)
-    if t.is_binary_like:
-        od = np.dtype(t.offset_dtype)
-        offsets = _copy(bufs[1], (total + 1) * od.itemsize).view(od).astype(
-            np.int64) if bufs[1] else np.zeros(total + 1, np.int64)
-        data = _copy(bufs[2], int(offsets[-1]))
-        lo = int(offsets[off])
-        return coded_column(offsets[off + 1:] - lo,
-                            data[lo:int(offsets[-1])], mask, t)
-    if t.np_dtype is not None:
-        w = t.np_dtype.itemsize
-        return HostArray(_copy(bufs[1], total * w).view(t.np_dtype)[off:],
-                         mask, t)
-    kids = [_import_column(c.children[i].contents, f.type)
-            for i, f in zip(range(c.n_children), t.fields())]
-    if tid in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST, dt.TypeId.MAP):
-        od = np.dtype(t.offset_dtype)
-        offsets = _copy(bufs[1], (total + 1) * od.itemsize).view(od)[off:]
-        return nested_array(t, n, mask, kids, offsets)
-    if tid == dt.TypeId.FIXED_SIZE_LIST:
-        k = t.list_size
-        return nested_array(t, n, mask, [kids[0].slice(off * k, n * k)])
-    if tid == dt.TypeId.STRUCT:
-        return nested_array(t, n, mask, [k.slice(off, n) for k in kids])
-    raise ArrowNotImplemented(f"cdata import of {t}")
+    return layout.import_column(
+        t, c.length, c.offset, c.null_count, [reader(p) for p in ptrs],
+        lambda i, ct: _import_column(c.children[i].contents, ct),
+        lambda: _import_column(c.dictionary.contents, t.value_type))
 
 
 def _import_and_release(c: ArrowArray, t: dt.DataType) -> HostArray:
@@ -662,7 +574,8 @@ _device_streams: Dict[int, _StreamState] = {}
 def _source(source) -> Tuple[dt.Schema, object]:
     """(schema, iterator of HostBatches) of a HostBatch, a (schema,
     iterable) pair, or anything with `.schema` that iterates HostBatches
-    (a stream reader)."""
+    (a stream reader); a Table is its combined chunks."""
+    source = host_batch(source)
     if isinstance(source, HostBatch):
         return source.schema, iter([source])
     if isinstance(source, tuple):

@@ -44,7 +44,7 @@ from ..device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                             host_array_to_device, host_batch_to_device,
                             list_take_device, nested_array, pad_length,
                             row_mask)
-from ..array.record import ChunkedArray
+from ..array.record import ChunkedArray, host_batch
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from ..ops.decimal import to_ints
@@ -242,6 +242,7 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
     package routes them. A host input or mask gives a host result, as
     in the JAX package; a ChunkedArray of values or of the mask is
     combined first, as a HostArray."""
+    values = host_batch(values)
     options = options or FilterOptions()
     values, mask = _combined(values), _combined(mask)
     host_mask = isinstance(mask, HostArray)
@@ -341,6 +342,7 @@ def take(values, indices, options: Optional[TakeOptions] = None,
     the result comes back to the host, as the JAX package's take does.
     A ChunkedArray of values or indices is combined first, as a
     HostArray."""
+    values = host_batch(values)
     options = options or TakeOptions()
     values, indices = _combined(values), _combined(indices)
     if isinstance(values, (HostBatch, HostArray)) and isinstance(

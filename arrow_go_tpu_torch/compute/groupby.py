@@ -25,7 +25,7 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import (DeviceBatch, HostArray, HostBatch, _unpack_words,
-                            pad_length, row_mask)
+                            batch_to_device, pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
 from ..ops.convert import as_int64, convert, host_view
 from ..ops.sort import _orderable_bits, sortable
@@ -170,16 +170,18 @@ def _segment_agg(enc, skey, v, t, vmask, agg: str, values_sorted,
     raise ArrowNotImplemented(agg)
 
 
-def group_by(data: DeviceBatch, keys,
-             aggregations: Sequence[Tuple[str, str]]) -> HostBatch:
+def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
+             device=None) -> HostBatch:
     """GROUP BY `keys` with aggregations [(column, agg), ...], agg one of
     sum, count, count_all, min, max, mean, product, any, all, first, last.
+    `data` is a DeviceBatch, or a HostBatch, RecordBatch or Table, which
+    moves to `device` (the card unless named) first.
 
     Output columns: key columns (first-occurrence values) followed by
     '<col>_<agg>' result columns, as a HostBatch.
     """
     if not isinstance(data, DeviceBatch):
-        raise ArrowNotImplemented("the port groups DeviceBatches")
+        data = batch_to_device(data, device)
     if isinstance(keys, str):
         keys = [keys]
     for _, agg in aggregations:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             HostColumn, concat_host_arrays,
                             device_batch_to_host, host_batch_to_device,
@@ -105,6 +106,7 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
     returns, for all eight types; the join runs on `device` (the card
     unless named). `output_columns` projects the output: only the named
     columns (post-suffix names) are gathered."""
+    left, right = host_batch(left), host_batch(right)
     if join_type not in _HOWS:
         raise ArrowNotImplemented(f"join type {join_type!r}")
     left_keys, right_keys = _key_lists(keys, left_keys, right_keys)

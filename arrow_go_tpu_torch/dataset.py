@@ -85,6 +85,13 @@ class Fragment:
     def schema(self) -> dt.Schema:
         raise NotImplementedError
 
+    def scan(self, columns, guards, use_threads: bool = True,
+             device=None) -> List[HostBatch]:
+        """The file's rows `guards` may match (all row groups of a file
+        that is one unit), projected to `columns`, read on the host as
+        batches (none when it has no rows)."""
+        raise NotImplementedError
+
 
 class ParquetFragment(Fragment):
     def schema(self) -> dt.Schema:
@@ -96,6 +103,13 @@ class ParquetFragment(Fragment):
         """(the row groups `guards` keep, the file's row groups)."""
         with ParquetFile(self.path) as pf:
             return self._kept(pf, guards, bloom), pf.num_row_groups
+
+    def scan(self, columns, guards, use_threads: bool = True,
+             device=None) -> List[HostBatch]:
+        with ParquetFile(self.path) as pf:
+            hb = pf.read_table(columns, guards or None,
+                               use_threads=use_threads, device=device)
+        return hb.to_batches() if hb.num_rows else []
 
     @staticmethod
     def _kept(pf, guards, bloom: bool = True) -> list:
@@ -117,6 +131,13 @@ class _WholeFile(Fragment):
 
     def _read(self) -> HostBatch:
         raise NotImplementedError
+
+    def scan(self, columns, guards, use_threads: bool = True,
+             device=None) -> List[HostBatch]:
+        hb = self._read()
+        if columns:
+            hb = hb.select(columns)
+        return hb.to_batches() if hb.num_rows else []
 
     def kept_row_groups(self, guards, bloom: bool = True) -> Tuple[list,
                                                                    int]:

@@ -151,6 +151,19 @@ class DeviceColumn:
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def null_count(self) -> int:
+        """The null rows of [0, length) (a popcount of the words; one
+        read of the device)."""
+        if self.validity is None:
+            return 0
+        from ..ops import bitmap
+        return self.length - int(bitmap.popcount_words(self.validity))
+
+    def with_values(self, values: torch.Tensor) -> "DeviceColumn":
+        return DeviceColumn(values, self.validity, self.length, self.type,
+                            self.dictionary)
+
     def validity_mask(self) -> torch.Tensor:
         """Expanded bool mask over the padded domain (False beyond length),
         cached after the first expansion (columns are never mutated in
@@ -178,6 +191,10 @@ class HostColumn:
     @property
     def type(self) -> dt.DataType:
         return self.array.type
+
+    @property
+    def null_count(self) -> int:
+        return self.array.null_count
 
 
 @dataclass
@@ -329,9 +346,13 @@ def batch_from_numpy(fields: Sequence[Tuple[str, str]],
     return DeviceBatch(dt.Schema(flds), cols, int(length))
 
 
-def batch_to_device(data: Dict[str, object], device=None,
+def batch_to_device(data, device=None,
                     pad: Optional[int] = None) -> DeviceBatch:
-    """Null-free numpy columns (all of one length) -> a padded DeviceBatch.
+    """A padded DeviceBatch on `device` (the card unless named) of a
+    RecordBatch, a HostBatch or a Table (its chunks combined;
+    host_batch_to_device: a column the block format does not carry
+    rides as a HostColumn, as in the JAX package), or of a dict of
+    null-free numpy columns (all of one length).
 
     A string column is a numpy str/object array (dictionary-encoded here,
     first-occurrence order) or an (int32 codes, values) pair taken as it
@@ -339,6 +360,9 @@ def batch_to_device(data: Dict[str, object], device=None,
     is: one the device block format does not carry as a HostColumn
     (`DataType.on_device`), a flat one as a DeviceColumn with its
     validity."""
+    if not isinstance(data, dict):
+        from ..array.record import host_batch
+        return host_batch_to_device(host_batch(data), device, pad)
     hosts = {k: v for k, v in data.items() if isinstance(v, HostArray)}
     flat = {k: v for k, v in data.items() if k not in hosts}
     if not hosts:
@@ -410,6 +434,21 @@ def decimal_value(unscaled: int, scale: int) -> pydec.Decimal:
     return pydec.Decimal(unscaled).scaleb(-scale, pydec.Context(prec=80))
 
 
+# the JAX package's class of each type id (array/arrays.py fills it)
+_CLASSES: Dict[dt.TypeId, type] = {}
+
+
+def _class_for(t: dt.DataType) -> type:
+    """The class of a column of type t: a coded column (dictionary<int32,
+    T> of a string-like or fixed_size_binary T) is one of T (StringArray,
+    BinaryArray, ...), any other dictionary column a DictionaryArray."""
+    tid = t.id
+    if tid == dt.TypeId.DICTIONARY and t.index_type == dt.int32 and \
+            t.value_type.codes_on_device:
+        tid = t.value_type.id
+    return _CLASSES.get(tid, HostArray)
+
+
 class HostArray:
     """A numpy-backed column: values[:n] plus an optional bool mask
     (True = valid). A dictionary column holds codes in `values` and the
@@ -421,7 +460,27 @@ class HostArray:
     and one child HostArray (a map's is struct<key, value>); a
     fixed_size_list one child whose rows [i * k, (i + 1) * k) are row
     i's (present under null rows too); a struct one child of n rows a
-    field."""
+    field.
+
+    HostArray is the port's `Array` (array/arrays.py): constructing one
+    gives the JAX package's class for its type (NumericArray,
+    StringArray, ListArray, ...; `_class_for`), each a subclass with
+    the JAX methods, and every port function keeps taking them. A slice
+    remembers the array it was cut from (`offset`), so `data`, its
+    Arrow layout as an ArrayData, is that array's at the slice's offset
+    as in the JAX package; an array made from an ArrayData
+    (`make_array`) keeps it."""
+
+    _data = None        # the ArrayData it was made from (make_array)
+    _base = None        # the array a slice was cut from
+    _offset = 0         # the slice's first row in that array's layout
+
+    def __new__(cls, *args, **kwargs):
+        if cls is HostArray:
+            t = args[2] if len(args) > 2 else kwargs.get("type")
+            if t is not None:
+                cls = _class_for(t)
+        return object.__new__(cls)
 
     def __init__(self, values: Optional[np.ndarray],
                  mask: Optional[np.ndarray], type: dt.DataType,
@@ -450,11 +509,103 @@ class HostArray:
             return np.full(self.length, self.type.id != dt.TypeId.NULL)
         return self.mask
 
-    def unscaled(self) -> list:
-        """A decimal array's unscaled values as Python ints."""
+    def unscaled(self, i: Optional[int] = None):
+        """A decimal array's unscaled values as Python ints (row i's
+        alone when i is given, as the JAX DecimalArray's `unscaled`)."""
+        if i is not None:
+            return self.slice(i, 1).unscaled()[0]
         if self.type.limbs:
             return to_ints(self.values).tolist()
         return self.values.tolist()
+
+    # -- the JAX package's Array ------------------------------------------
+    @property
+    def offset(self) -> int:
+        """The first row in the layout `data` holds (0 unless sliced)."""
+        return self._offset
+
+    @property
+    def data(self):
+        """The Arrow layout of the array as an ArrayData (array/layout.py):
+        built on each call, a slice's being its source's at `offset`."""
+        if self._data is not None:
+            return self._data
+        if self._base is not None:
+            return self._base.data.slice(self._offset - self._base._offset,
+                                         self.length)
+        from ..array.arrays import array_data
+        return array_data(self)
+
+    def _sliced(self, out: "HostArray", offset: int) -> "HostArray":
+        """`out`, rows cut from `offset` on, remembering its source."""
+        out._base = self._base if self._base is not None else self
+        out._offset = self._offset + offset
+        return out
+
+    @property
+    def null_count(self) -> int:
+        if self.type.id == dt.TypeId.NULL:
+            return self.length
+        return int(self.length - np.count_nonzero(self.validity_bools()))
+
+    def is_valid(self, i: int) -> bool:
+        if self.mask is not None:
+            return bool(self.mask[i])
+        if type(self).validity_bools is HostArray.validity_bools:
+            return self.type.id != dt.TypeId.NULL
+        return bool(self.validity_bools()[i])
+
+    def is_null(self, i: int) -> bool:
+        return not self.is_valid(i)
+
+    def value(self, i: int):
+        """Row i's Python value, read whatever its validity."""
+        row = self.slice(i, 1)
+        if row.mask is not None:
+            row.mask = None
+        return row.to_pylist()[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            start, stop, step = i.indices(len(self))
+            if step != 1:
+                raise ValueError("only step-1 slices supported")
+            return self.slice(start, stop - start)
+        if i < 0:
+            i += len(self)
+        if self.is_null(i):
+            return None
+        return self.value(i)
+
+    def __iter__(self):
+        return iter(self.to_pylist())
+
+    def to_numpy(self, zero_copy_only: bool = True) -> np.ndarray:
+        """The values: a flat column's numpy values, else an object array
+        of `to_pylist`."""
+        if self.values is not None and self.dictionary is None:
+            return self.values
+        out = np.empty(self.length, dtype=object)
+        out[:] = self.to_pylist()
+        return out
+
+    def equals(self, other: "HostArray") -> bool:
+        """Same field type, length and Python values (array/compare.py)."""
+        from ..array.compare import array_equal
+        return array_equal(self, other)
+
+    def __eq__(self, other):
+        if isinstance(other, HostArray):
+            return self.equals(other)
+        return NotImplemented
+
+    __hash__ = object.__hash__
+
+    def __repr__(self) -> str:
+        vals = self.to_pylist()
+        if len(vals) > 20:
+            vals = vals[:20] + ["..."]
+        return f"<{type(self).__name__}({self.type})>{vals}"
 
     def _nested_values(self) -> list:
         t, n = self.type, self.length
@@ -503,30 +654,35 @@ class HostArray:
             return vals
         return [v if ok else None for v, ok in zip(vals, oks)]
 
-    def slice(self, offset: int, length: int) -> "HostArray":
-        """Rows [offset, offset + length) (views of the same buffers; a
-        list's child is shared, a fixed_size_list's and a struct's
-        children are sliced)."""
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "HostArray":
+        """Rows [offset, offset + length) (to the end without a length;
+        views of the same buffers; a list's child is shared, a
+        fixed_size_list's and a struct's children are sliced)."""
+        if length is None:
+            length = self.length - offset
         end = min(offset + length, self.length)
         offset = min(offset, end)
         mask = None if self.mask is None else self.mask[offset:end]
         t = self.type
+        cls = type(self)
         if t.id == dt.TypeId.NULL:
-            return HostArray(None, None, t, length=end - offset)
-        if not t.is_nested:
-            return HostArray(self.values[offset:end], mask, t,
-                             self.dictionary)
-        if t.id == dt.TypeId.STRUCT:
-            return HostArray(None, mask, t, children=[
+            out = cls(None, None, t, length=end - offset)
+        elif not t.is_nested:
+            out = cls(self.values[offset:end], mask, t, self.dictionary)
+        elif t.id == dt.TypeId.STRUCT:
+            out = cls(None, mask, t, children=[
                 c.slice(offset, end - offset) for c in self.children],
                 length=end - offset)
-        if t.id == dt.TypeId.FIXED_SIZE_LIST:
+        elif t.id == dt.TypeId.FIXED_SIZE_LIST:
             k = t.list_size
-            return HostArray(None, mask, t, children=[
+            out = cls(None, mask, t, children=[
                 self.children[0].slice(offset * k, (end - offset) * k)],
                 length=end - offset)
-        return HostArray(None, mask, t, offsets=self.offsets[offset:end + 1],
-                         children=self.children)
+        else:
+            out = cls(None, mask, t, offsets=self.offsets[offset:end + 1],
+                      children=self.children)
+        return self._sliced(out, offset)
 
 
 class RunEndEncodedArray(HostArray):
@@ -544,7 +700,7 @@ class RunEndEncodedArray(HostArray):
         self.mask = self.dictionary = self.offsets = None
         self.children = [run_ends, values]
         self.length = int(length)
-        self.offset = int(offset)
+        self._offset = int(offset)
 
     @property
     def run_ends(self) -> HostArray:
@@ -571,7 +727,7 @@ class RunEndEncodedArray(HostArray):
     def is_valid(self, i: int) -> bool:
         return bool(self.values.validity_bools()[self._physical_index(i)])
 
-    def __getitem__(self, i: int):
+    def value(self, i: int):
         return self.values.slice(self._physical_index(i), 1).to_pylist()[0]
 
     def decode(self) -> HostArray:
@@ -591,7 +747,10 @@ class RunEndEncodedArray(HostArray):
     def to_pylist(self) -> list:
         return self.decode().to_pylist()
 
-    def slice(self, offset: int, length: int) -> "RunEndEncodedArray":
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "RunEndEncodedArray":
+        if length is None:
+            length = self.length - offset
         end = min(offset + length, self.length)
         offset = min(offset, end)
         return RunEndEncodedArray(self.run_ends, self.values, end - offset,
@@ -603,6 +762,13 @@ class ListViewArray(HostArray):
     ListViewArray): `offsets` and `sizes` (n each, the type's offset
     dtype) into one child, row i being the child's rows [offsets[i],
     offsets[i] + sizes[i]), in any order. A slice keeps the child."""
+
+    def __new__(cls, *args, **kwargs):
+        t = args[0] if args else kwargs.get("t")
+        if cls is ListViewArray and t is not None and \
+                t.id == dt.TypeId.LARGE_LIST_VIEW:
+            cls = LargeListViewArray
+        return object.__new__(cls)
 
     def __init__(self, t: dt.DataType, mask: Optional[np.ndarray],
                  offsets: np.ndarray, sizes: np.ndarray, child: HostArray):
@@ -625,12 +791,20 @@ class ListViewArray(HostArray):
         return [v if ok else None
                 for v, ok in zip(rows, self.validity_bools().tolist())]
 
-    def slice(self, offset: int, length: int) -> "ListViewArray":
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "ListViewArray":
+        if length is None:
+            length = self.length - offset
         end = min(offset + length, self.length)
         offset = min(offset, end)
         mask = None if self.mask is None else self.mask[offset:end]
-        return ListViewArray(self.type, mask, self.offsets[offset:end],
-                             self.sizes[offset:end], self.children[0])
+        return self._sliced(ListViewArray(
+            self.type, mask, self.offsets[offset:end],
+            self.sizes[offset:end], self.children[0]), offset)
+
+
+class LargeListViewArray(ListViewArray):
+    """A large_list_view column: int64 offsets and sizes."""
 
 
 class UnionArray(HostArray):
@@ -657,6 +831,9 @@ class UnionArray(HostArray):
     def dense(self) -> bool:
         return self.type.id == dt.TypeId.DENSE_UNION
 
+    def child(self, i: int) -> HostArray:
+        return self.children[i]
+
     def child_rows(self) -> Tuple[np.ndarray, np.ndarray]:
         """(the child index of each row, its row in that child)."""
         lut = np.zeros(256, np.int64)
@@ -682,16 +859,20 @@ class UnionArray(HostArray):
                   for k, c in enumerate(self.children)]
         return [values[k][p] for k, p in zip(cid.tolist(), pos.tolist())]
 
-    def slice(self, offset: int, length: int) -> "UnionArray":
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "UnionArray":
+        if length is None:
+            length = self.length - offset
         end = min(offset + length, self.length)
         offset = min(offset, end)
         if self.dense:
-            return UnionArray(self.type, self.type_ids[offset:end],
-                              self.children,
-                              self.value_offsets[offset:end])
-        return UnionArray(self.type, self.type_ids[offset:end],
-                          [c.slice(offset, end - offset)
-                           for c in self.children])
+            out = UnionArray(self.type, self.type_ids[offset:end],
+                             self.children, self.value_offsets[offset:end])
+        else:
+            out = UnionArray(self.type, self.type_ids[offset:end],
+                             [c.slice(offset, end - offset)
+                              for c in self.children])
+        return self._sliced(out, offset)
 
 
 class ExtensionArray(HostArray):
@@ -716,8 +897,10 @@ class ExtensionArray(HostArray):
     def to_pylist(self) -> list:
         return self.storage.to_pylist()
 
-    def slice(self, offset: int, length: int) -> "ExtensionArray":
-        return ExtensionArray(self.type, self.storage.slice(offset, length))
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "ExtensionArray":
+        return self._sliced(ExtensionArray(
+            self.type, self.storage.slice(offset, length)), offset)
 
 
 def null_array(n: int) -> HostArray:
@@ -775,11 +958,11 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
                     else v
                 codes[i] = memo.setdefault(key, len(memo))
         uniq = list(memo)
+        cls = _CLASSES[dt.TypeId.DICTIONARY]
         if t.value_type.codes_on_device:
-            return HostArray(codes, mask, t,
-                             dictionary_values(uniq, t.value_type))
+            return cls(codes, mask, t, dictionary_values(uniq, t.value_type))
         d = from_pylist(uniq, t.value_type)
-        return HostArray(codes, mask, t, d.values)
+        return cls(codes, mask, t, d.values)
     if t.id == dt.TypeId.MAP:
         rows = [[] if v is None else list(v.items() if isinstance(v, dict)
                                            else v) for v in values]
@@ -832,7 +1015,12 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
 
 
 class HostBatch:
-    """Schema + HostArrays: the host-side RecordBatch of the port."""
+    """Schema + HostArrays: the host-side RecordBatch of the port, which
+    the readers return. It carries the JAX RecordBatch's methods and the
+    JAX Table's (`from_batches`, `combine_chunks`, which gives the batch
+    itself, and `to_batches`), so code written for either runs on a read
+    result; its `column` is the array, where a JAX Table's is a
+    ChunkedArray (array/record.py has RecordBatch and Table)."""
 
     def __init__(self, schema: dt.Schema, columns: List[HostArray],
                  num_rows: int):
@@ -840,12 +1028,55 @@ class HostBatch:
         self.columns = list(columns)
         self.num_rows = num_rows
 
+    def _like(self, schema: dt.Schema, columns: List[HostArray],
+              num_rows: int) -> "HostBatch":
+        return type(self)(schema, columns, num_rows)
+
     @classmethod
-    def from_arrays(cls, arrays: Dict[str, HostArray]) -> "HostBatch":
-        cols = list(arrays.values())
+    def from_arrays(cls, arrays, names: Optional[Sequence[str]] = None,
+                    metadata: dt.Metadata = dt.EMPTY_METADATA
+                    ) -> "HostBatch":
+        """A batch of a {name: HostArray} dict (each field of its array's
+        type), or of HostArrays named by `names` (each field of its
+        array's field type, as the JAX RecordBatch.from_arrays)."""
+        if isinstance(arrays, dict):
+            names, cols = list(arrays), list(arrays.values())
+            types = [a.type for a in cols]
+        else:
+            from ..array.arrays import field_type
+            cols = list(arrays)
+            types = [field_type(a) for a in cols]
         n = len(cols[0]) if cols else 0
-        return cls(dt.Schema([dt.Field(k, a.type)
-                              for k, a in arrays.items()]), cols, n)
+        return cls(dt.Schema([dt.Field(k, t) for k, t in zip(names, types)],
+                             metadata), cols, n)
+
+    @classmethod
+    def from_pydict(cls, data: Dict[str, object],
+                    schema: Optional[dt.Schema] = None) -> "HostBatch":
+        from ..array.record import RecordBatch
+        rb = RecordBatch.from_pydict(data, schema)
+        return cls(rb.schema, rb.columns, rb.num_rows)
+
+    @classmethod
+    def from_batches(cls, batches: Sequence["HostBatch"],
+                     schema: Optional[dt.Schema] = None) -> "HostBatch":
+        """One batch of the batches' rows in order (their columns
+        concatenated, array/concat.py)."""
+        from ..array.concat import concat_arrays
+        if schema is None:
+            if not batches:
+                raise ValueError("need schema for empty table")
+            schema = batches[0].schema
+        if len(batches) == 1:
+            return cls(schema, batches[0].columns, batches[0].num_rows)
+        cols = [concat_arrays([b.columns[i] for b in batches], f.type)
+                if batches else from_pylist([], f.type)
+                for i, f in enumerate(schema.fields)]
+        return cls(schema, cols, sum(b.num_rows for b in batches))
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
 
     def column(self, key: Union[str, int]) -> HostArray:
         if isinstance(key, str):
@@ -855,16 +1086,69 @@ class HostBatch:
             key = i
         return self.columns[key]
 
+    def __getitem__(self, key) -> HostArray:
+        return self.column(key)
+
+    def column_name(self, i: int) -> str:
+        return self.schema.field(i).name
+
+    def select(self, names: Sequence[str]) -> "HostBatch":
+        idxs = [self.schema.field_index(n) for n in names]
+        return self._like(dt.Schema([self.schema.field(i) for i in idxs],
+                                    self.schema.metadata),
+                          [self.columns[i] for i in idxs], self.num_rows)
+
+    def set_column(self, i: int, field: dt.Field,
+                   col: HostArray) -> "HostBatch":
+        cols = list(self.columns)
+        cols[i] = col
+        return self._like(self.schema.set_field(i, field), cols,
+                          self.num_rows)
+
+    def add_column(self, i: int, field: dt.Field,
+                   col: HostArray) -> "HostBatch":
+        cols = list(self.columns)
+        cols.insert(i, col)
+        return self._like(self.schema.add_field(i, field), cols,
+                          self.num_rows)
+
     def to_pydict(self) -> Dict[str, list]:
         return {f.name: c.to_pylist()
                 for f, c in zip(self.schema.fields, self.columns)}
 
-    def slice(self, offset: int, length: int) -> "HostBatch":
+    def to_pylist(self) -> List[dict]:
+        d = self.to_pydict()
+        return [dict(zip(d, row)) for row in zip(*d.values())] if d else []
+
+    def equals(self, other: "HostBatch", check_metadata: bool = False
+               ) -> bool:
+        """The same schema and the same Python values a column."""
+        return self.schema.equals(other.schema, check_metadata) and all(
+            a.equals(b) for a, b in zip(self.columns, other.columns))
+
+    def slice(self, offset: int, length: Optional[int] = None
+              ) -> "HostBatch":
         """Rows [offset, offset + length) (views of the same buffers)."""
+        if length is None:
+            length = self.num_rows - offset
         end = min(offset + length, self.num_rows)
-        return HostBatch(self.schema, [c.slice(offset, length)
-                                       for c in self.columns],
-                         max(end - offset, 0))
+        return self._like(self.schema, [c.slice(offset, length)
+                                        for c in self.columns],
+                          max(end - offset, 0))
+
+    def combine_chunks(self) -> "HostBatch":
+        """The batch itself: its columns are one chunk each."""
+        return self
+
+    def to_batches(self, max_chunksize: Optional[int] = None
+                   ) -> List["HostBatch"]:
+        """The rows as batches of at most `max_chunksize` rows (the
+        batch itself without it)."""
+        n = self.num_rows
+        if max_chunksize is None or n <= max_chunksize:
+            return [self]
+        return [self.slice(s, min(max_chunksize, n - s))
+                for s in range(0, n, max_chunksize)]
 
 
 def _concat_nested(arrays: Sequence[HostArray], mask) -> HostArray:
@@ -991,19 +1275,66 @@ def column_to_host(col: DeviceColumn) -> HostArray:
                      col.type, col.dictionary)
 
 
-def host_batch_to_device(hb: HostBatch, device=None) -> DeviceBatch:
-    """A HostBatch as a DeviceBatch on `device` (the card unless named);
-    a column the block format does not carry rides as a HostColumn."""
+def host_batch_to_device(hb: HostBatch, device=None,
+                         pad: Optional[int] = None) -> DeviceBatch:
+    """A HostBatch as a DeviceBatch on `device` (the card unless named),
+    each column padded to `pad` (default pad_length of its rows); a
+    column the block format does not carry rides as a HostColumn."""
     dev = torchenv.device(device)
+    P = pad if pad is not None else pad_length(hb.num_rows)
     return DeviceBatch(hb.schema, [
-        host_array_to_device(c, dev) if c.type.on_device else HostColumn(c)
-        for c in hb.columns], hb.num_rows)
+        host_array_to_device(c, dev, P) if c.type.on_device
+        else HostColumn(c) for c in hb.columns], hb.num_rows)
 
 
 def device_batch_to_host(db: DeviceBatch) -> HostBatch:
     return HostBatch(db.schema, [
         c.array if isinstance(c, HostColumn) else column_to_host(c)
         for c in db.columns], db.length)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's names (arrow_go_tpu/device/block.py:435-623)
+# ---------------------------------------------------------------------------
+
+def to_device(arr: HostArray, pad: Optional[int] = None,
+              device=None) -> DeviceColumn:
+    """A HostArray as a DeviceColumn on `device` (the card unless named),
+    padded to `pad` (host_array_to_device)."""
+    return host_array_to_device(arr, torchenv.device(device), pad)
+
+
+def from_device(col: DeviceColumn) -> HostArray:
+    """The [0, length) rows of a DeviceColumn (column_to_host)."""
+    return column_to_host(col)
+
+
+def array_from_host(vals: np.ndarray, mask: Optional[np.ndarray],
+                    t: dt.DataType, dictionary, n: int) -> HostArray:
+    """The host tail of `from_device`: a HostArray of type t from values
+    already read off the device (their first n rows, in the device's
+    storage dtype or the host's) and an unpacked bool mask (dropped
+    when it clears no row); a dictionary column keeps `dictionary`."""
+    if t.id == dt.TypeId.NULL:
+        return null_array(n)
+    if mask is not None:
+        mask = np.asarray(mask, np.bool_)[:n]
+        if mask.all():
+            mask = None
+    vals = np.asarray(vals)[:n]
+    if t.limbs:
+        vals = np.ascontiguousarray(vals).view(np.int64)
+    elif t.np_dtype is not None and vals.dtype != t.np_dtype:
+        vals = host_view(vals, t)
+    return HostArray(vals, mask, t, dictionary)
+
+
+def batch_from_device(db: DeviceBatch):
+    """The [0, length) rows of a DeviceBatch as a RecordBatch (a
+    HostColumn's array as it is)."""
+    from ..array.record import RecordBatch
+    hb = device_batch_to_host(db)
+    return RecordBatch(hb.schema, hb.columns, hb.num_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1037,8 +1368,12 @@ class DeviceListColumn:
     def null_count(self) -> int:
         if self.validity is None:
             return 0
-        return self.length - int(valid_rows(self.validity, self.padded,
-                                            self.length, self.device).sum())
+        return self.length - int(self.validity_mask().sum())
+
+    def validity_mask(self) -> torch.Tensor:
+        """Valid rows over the padded domain (False beyond length)."""
+        return valid_rows(self.validity, self.padded, self.length,
+                          self.device)
 
 
 def list_to_device(arr: HostArray, pad: Optional[int] = None,
@@ -1131,3 +1466,6 @@ def list_take_device(col: DeviceListColumn, idx: torch.Tensor,
         total, child.type, child.dictionary)
     return DeviceListColumn(new_off.to(torch.int32), new_child,
                             bitmap.pack_mask(in_row), count, col.type)
+
+
+from ..array import arrays as _arrays  # noqa: E402,F401  (registers _CLASSES)

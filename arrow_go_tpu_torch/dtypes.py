@@ -120,6 +120,19 @@ def _unit(u) -> TimeUnit:
     return timeunit_from_str(u) if isinstance(u, str) else TimeUnit(u)
 
 
+class BufferKind(enum.IntEnum):
+    """The role of a buffer in a type's Arrow layout (reference
+    DataTypeLayout), as `DataType.buffer_kinds` lists them."""
+
+    VALIDITY = 0
+    DATA = 1
+    OFFSETS = 2
+    TYPE_IDS = 3
+    SIZES = 4
+    VIEWS = 5
+    ALWAYS_NULL = 6
+
+
 _INTEGERS = (TypeId.UINT8, TypeId.INT8, TypeId.UINT16, TypeId.INT16,
              TypeId.UINT32, TypeId.INT32, TypeId.UINT64, TypeId.INT64)
 _UNSIGNED = (TypeId.UINT8, TypeId.UINT16, TypeId.UINT32, TypeId.UINT64)
@@ -177,6 +190,57 @@ class DataType:
     @property
     def is_decimal(self) -> bool:
         return self.id in _DECIMALS
+
+    @property
+    def is_fixed_width(self) -> bool:
+        """One fixed-size value a row: a type with a numpy dtype, bool,
+        fixed_size_binary (the JAX package's test; not decimal128 or
+        decimal256, whose values it holds as limbs)."""
+        return self.np_dtype is not None or self.id == TypeId.BOOL
+
+    @property
+    def is_primitive(self) -> bool:
+        return self.is_numeric or self.id == TypeId.BOOL or self.is_temporal
+
+    @property
+    def byte_width(self) -> int:
+        """Bytes a value (ValueError for bool, whose values are bits)."""
+        if self.bit_width % 8:
+            raise ValueError(f"{self} has no byte width")
+        return self.bit_width // 8
+
+    @property
+    def device_dtype(self):
+        """The torch dtype a device column of this type is stored in:
+        int32 codes for the types coded on the device, the limbs' int64
+        for decimal128 / decimal256, else `torch_dtype` (None for a type
+        that stays on the host). The JAX package gives a numpy dtype."""
+        if self.codes_on_device:
+            return torch.int32
+        return self.torch_dtype
+
+    def buffer_kinds(self) -> List[BufferKind]:
+        """The buffers of the type's Arrow layout, validity first where
+        there is one (array/layout.py builds them)."""
+        tid = self.id
+        if tid in (TypeId.NULL, TypeId.RUN_END_ENCODED):
+            return []
+        if tid in (TypeId.STRING, TypeId.BINARY, TypeId.LARGE_STRING,
+                   TypeId.LARGE_BINARY):
+            return [BufferKind.VALIDITY, BufferKind.OFFSETS, BufferKind.DATA]
+        if tid in (TypeId.STRING_VIEW, TypeId.BINARY_VIEW):
+            return [BufferKind.VALIDITY, BufferKind.VIEWS]
+        if tid in (TypeId.LIST, TypeId.LARGE_LIST, TypeId.MAP):
+            return [BufferKind.VALIDITY, BufferKind.OFFSETS]
+        if tid in (TypeId.LIST_VIEW, TypeId.LARGE_LIST_VIEW):
+            return [BufferKind.VALIDITY, BufferKind.OFFSETS, BufferKind.SIZES]
+        if tid in (TypeId.FIXED_SIZE_LIST, TypeId.STRUCT):
+            return [BufferKind.VALIDITY]
+        if tid == TypeId.SPARSE_UNION:
+            return [BufferKind.TYPE_IDS]
+        if tid == TypeId.DENSE_UNION:
+            return [BufferKind.TYPE_IDS, BufferKind.OFFSETS]
+        return [BufferKind.VALIDITY, BufferKind.DATA]
 
     @property
     def limbs(self) -> int:
@@ -287,57 +351,131 @@ class TimestampType(_UnitType):
         return f"timestamp[{self.unit}]"
 
 
-bool_ = DataType(TypeId.BOOL, "bool", np.bool_, torch.bool, 1)
-int8 = DataType(TypeId.INT8, "int8", np.int8, torch.int8, 8)
-int16 = DataType(TypeId.INT16, "int16", np.int16, torch.int16, 16)
-int32 = DataType(TypeId.INT32, "int32", np.int32, torch.int32, 32)
-int64 = DataType(TypeId.INT64, "int64", np.int64, torch.int64, 64)
-uint8 = DataType(TypeId.UINT8, "uint8", np.uint8, torch.uint8, 8)
-uint16 = DataType(TypeId.UINT16, "uint16", np.uint16, torch.int16, 16)
-uint32 = DataType(TypeId.UINT32, "uint32", np.uint32, torch.int32, 32)
-uint64 = DataType(TypeId.UINT64, "uint64", np.uint64, torch.int64, 64)
-float16 = DataType(TypeId.FLOAT16, "halffloat", np.float16, torch.float16,
-                   16)
-float32 = DataType(TypeId.FLOAT32, "float", np.float32, torch.float32, 32)
-float64 = DataType(TypeId.FLOAT64, "double", np.float64, torch.float64, 64)
-date32 = DataType(TypeId.DATE32, "date32", np.int32, torch.int32, 32)
-date64 = DataType(TypeId.DATE64, "date64", np.int64, torch.int64, 64)
+def _simple_type(cls_name: str, type_id: TypeId, name: str, np_dtype,
+                 torch_dtype, bit_width: int, doc: str) -> type:
+    """A DataType subclass of one parameterless type (the JAX package's
+    Int32Type, Date32Type, ...): `Int32Type()` equals `int32`."""
+    def __init__(self):
+        DataType.__init__(self, type_id, name, np_dtype, torch_dtype,
+                          bit_width)
+    return type(cls_name, (DataType,), {"__init__": __init__,
+                                        "__doc__": doc})
+
+
+NullType = _simple_type("NullType", TypeId.NULL, "null", None, None, 0,
+                        "A column of the null type holds a length only "
+                        "(int8 zeros with no valid row on the device).")
+BooleanType = _simple_type("BooleanType", TypeId.BOOL, "bool", np.bool_,
+                           torch.bool, 1, "bool: numpy and torch bool.")
+Int8Type = _simple_type("Int8Type", TypeId.INT8, "int8", np.int8,
+                        torch.int8, 8, "int8.")
+Int16Type = _simple_type("Int16Type", TypeId.INT16, "int16", np.int16,
+                         torch.int16, 16, "int16.")
+Int32Type = _simple_type("Int32Type", TypeId.INT32, "int32", np.int32,
+                         torch.int32, 32, "int32.")
+Int64Type = _simple_type("Int64Type", TypeId.INT64, "int64", np.int64,
+                         torch.int64, 64, "int64.")
+UInt8Type = _simple_type("UInt8Type", TypeId.UINT8, "uint8", np.uint8,
+                         torch.uint8, 8, "uint8.")
+UInt16Type = _simple_type("UInt16Type", TypeId.UINT16, "uint16", np.uint16,
+                          torch.int16, 16, "uint16: raw bits in int16.")
+UInt32Type = _simple_type("UInt32Type", TypeId.UINT32, "uint32", np.uint32,
+                          torch.int32, 32, "uint32: raw bits in int32.")
+UInt64Type = _simple_type("UInt64Type", TypeId.UINT64, "uint64", np.uint64,
+                          torch.int64, 64, "uint64: raw bits in int64.")
+Float16Type = _simple_type("Float16Type", TypeId.FLOAT16, "halffloat",
+                           np.float16, torch.float16, 16, "float16.")
+Float32Type = _simple_type("Float32Type", TypeId.FLOAT32, "float",
+                           np.float32, torch.float32, 32, "float32.")
+Float64Type = _simple_type("Float64Type", TypeId.FLOAT64, "double",
+                           np.float64, torch.float64, 64, "float64.")
+Date32Type = _simple_type("Date32Type", TypeId.DATE32, "date32", np.int32,
+                          torch.int32, 32, "Days since 1970-01-01.")
+Date64Type = _simple_type("Date64Type", TypeId.DATE64, "date64", np.int64,
+                          torch.int64, 64,
+                          "Milliseconds since 1970-01-01.")
 # the intervals: months as int32 (on the device too); (days, ms) and
 # (months, days, ns) as numpy structured values, host columns only
-month_interval = DataType(TypeId.INTERVAL_MONTHS, "month_interval",
-                          np.int32, torch.int32, 32)
-day_time_interval = DataType(
-    TypeId.INTERVAL_DAY_TIME, "day_time_interval",
-    [("days", np.int32), ("milliseconds", np.int32)], None, 64)
-month_day_nano_interval = DataType(
-    TypeId.INTERVAL_MONTH_DAY_NANO, "month_day_nano_interval",
+MonthIntervalType = _simple_type(
+    "MonthIntervalType", TypeId.INTERVAL_MONTHS, "month_interval", np.int32,
+    torch.int32, 32, "Months as int32, on the device too.")
+DayTimeIntervalType = _simple_type(
+    "DayTimeIntervalType", TypeId.INTERVAL_DAY_TIME, "day_time_interval",
+    [("days", np.int32), ("milliseconds", np.int32)], None, 64,
+    "(days, milliseconds) int32 pairs, a host column only.")
+MonthDayNanoIntervalType = _simple_type(
+    "MonthDayNanoIntervalType", TypeId.INTERVAL_MONTH_DAY_NANO,
+    "month_day_nano_interval",
     [("months", np.int32), ("days", np.int32), ("nanoseconds", np.int64)],
-    None, 128)
-# a column of the null type holds a length only (int8 zeros with no
-# valid row on the device, as in the JAX package)
-null = DataType(TypeId.NULL, "null", None, None)
+    None, 128, "(months, days, nanoseconds), a host column only.")
+
+bool_ = BooleanType()
+int8 = Int8Type()
+int16 = Int16Type()
+int32 = Int32Type()
+int64 = Int64Type()
+uint8 = UInt8Type()
+uint16 = UInt16Type()
+uint32 = UInt32Type()
+uint64 = UInt64Type()
+float16 = Float16Type()
+float32 = Float32Type()
+float64 = Float64Type()
+date32 = Date32Type()
+date64 = Date64Type()
+month_interval = MonthIntervalType()
+day_time_interval = DayTimeIntervalType()
+month_day_nano_interval = MonthDayNanoIntervalType()
+null = NullType()
 
 
-class BinaryType(DataType):
+class _BinaryLike(DataType):
     """string, binary and their large (int64 offsets) and view forms.
     Host values are Python str / bytes objects; a column of any of them
     is a dictionary(int32, ...) column of codes, on the host and on the
-    device (device/block.py), so the offsets or 16-byte views of the
-    JAX package's layouts are never built. `offset_dtype` is the JAX
-    type's (None for a view type, which has no offsets)."""
+    device (device/block.py); `Array.data` builds the JAX package's
+    offsets or 16-byte views (array/layout.py). `offset_dtype` is the
+    JAX type's (None for a view type, which has no offsets)."""
 
-    def __init__(self, type_id: TypeId, name: str, offset_dtype=None):
+    _SPEC: tuple = ()
+
+    def __init__(self):
+        type_id, name, offset_dtype = self._SPEC
         super().__init__(type_id, name, None, None)
         self.offset_dtype = None if offset_dtype is None else np.dtype(
             offset_dtype)
 
 
-string = BinaryType(TypeId.STRING, "utf8", np.int32)
-binary = BinaryType(TypeId.BINARY, "binary", np.int32)
-large_string = BinaryType(TypeId.LARGE_STRING, "large_utf8", np.int64)
-large_binary = BinaryType(TypeId.LARGE_BINARY, "large_binary", np.int64)
-string_view = BinaryType(TypeId.STRING_VIEW, "string_view")
-binary_view = BinaryType(TypeId.BINARY_VIEW, "binary_view")
+class BinaryType(_BinaryLike):
+    _SPEC = (TypeId.BINARY, "binary", np.int32)
+
+
+class StringType(_BinaryLike):
+    _SPEC = (TypeId.STRING, "utf8", np.int32)
+
+
+class LargeBinaryType(_BinaryLike):
+    _SPEC = (TypeId.LARGE_BINARY, "large_binary", np.int64)
+
+
+class LargeStringType(_BinaryLike):
+    _SPEC = (TypeId.LARGE_STRING, "large_utf8", np.int64)
+
+
+class BinaryViewType(_BinaryLike):
+    _SPEC = (TypeId.BINARY_VIEW, "binary_view", None)
+
+
+class StringViewType(BinaryViewType):
+    _SPEC = (TypeId.STRING_VIEW, "string_view", None)
+
+
+string = StringType()
+binary = BinaryType()
+large_string = LargeStringType()
+large_binary = LargeBinaryType()
+string_view = StringViewType()
+binary_view = BinaryViewType()
 
 
 class DecimalType(DataType):
@@ -366,20 +504,40 @@ class DecimalType(DataType):
         return f"{self.name}({self.precision}, {self.scale})"
 
 
-def decimal32(precision, scale=0) -> DecimalType:
-    return DecimalType(TypeId.DECIMAL32, precision, scale)
+class Decimal32Type(DecimalType):
+    def __init__(self, precision: int, scale: int = 0):
+        super().__init__(TypeId.DECIMAL32, precision, scale)
 
 
-def decimal64(precision, scale=0) -> DecimalType:
-    return DecimalType(TypeId.DECIMAL64, precision, scale)
+class Decimal64Type(DecimalType):
+    def __init__(self, precision: int, scale: int = 0):
+        super().__init__(TypeId.DECIMAL64, precision, scale)
 
 
-def decimal128(precision, scale=0) -> DecimalType:
-    return DecimalType(TypeId.DECIMAL128, precision, scale)
+class Decimal128Type(DecimalType):
+    def __init__(self, precision: int, scale: int = 0):
+        super().__init__(TypeId.DECIMAL128, precision, scale)
 
 
-def decimal256(precision, scale=0) -> DecimalType:
-    return DecimalType(TypeId.DECIMAL256, precision, scale)
+class Decimal256Type(DecimalType):
+    def __init__(self, precision: int, scale: int = 0):
+        super().__init__(TypeId.DECIMAL256, precision, scale)
+
+
+def decimal32(precision, scale=0) -> Decimal32Type:
+    return Decimal32Type(precision, scale)
+
+
+def decimal64(precision, scale=0) -> Decimal64Type:
+    return Decimal64Type(precision, scale)
+
+
+def decimal128(precision, scale=0) -> Decimal128Type:
+    return Decimal128Type(precision, scale)
+
+
+def decimal256(precision, scale=0) -> Decimal256Type:
+    return Decimal256Type(precision, scale)
 
 
 class FixedSizeBinaryType(DataType):
@@ -389,10 +547,18 @@ class FixedSizeBinaryType(DataType):
     def __init__(self, byte_width: int):
         super().__init__(TypeId.FIXED_SIZE_BINARY, "fixed_size_binary", None,
                          None, int(byte_width) * 8)
-        self.byte_width = int(byte_width)
+        self._byte_width = int(byte_width)
+
+    @property
+    def byte_width(self) -> int:
+        return self._byte_width
+
+    @property
+    def is_fixed_width(self) -> bool:
+        return True
 
     def _eq_extra(self) -> tuple:
-        return (self.byte_width,)
+        return (self._byte_width,)
 
     def __str__(self) -> str:
         return f"fixed_size_binary[{self.byte_width}]"
@@ -406,23 +572,38 @@ def timestamp(unit="us", tz: Optional[str] = None) -> TimestampType:
     return TimestampType(unit, tz)
 
 
-def time32(unit="ms") -> _UnitType:
-    if _unit(unit) not in (TimeUnit.SECOND, TimeUnit.MILLISECOND):
-        raise ValueError("time32 requires s or ms unit")
-    return _UnitType(TypeId.TIME32, "time32", np.int32, torch.int32, 32,
-                     unit)
+class Time32Type(_UnitType):
+    def __init__(self, unit=TimeUnit.MILLISECOND):
+        if _unit(unit) not in (TimeUnit.SECOND, TimeUnit.MILLISECOND):
+            raise ValueError("time32 requires s or ms unit")
+        super().__init__(TypeId.TIME32, "time32", np.int32, torch.int32, 32,
+                         unit)
 
 
-def time64(unit="us") -> _UnitType:
-    if _unit(unit) not in (TimeUnit.MICROSECOND, TimeUnit.NANOSECOND):
-        raise ValueError("time64 requires us or ns unit")
-    return _UnitType(TypeId.TIME64, "time64", np.int64, torch.int64, 64,
-                     unit)
+class Time64Type(_UnitType):
+    def __init__(self, unit=TimeUnit.MICROSECOND):
+        if _unit(unit) not in (TimeUnit.MICROSECOND, TimeUnit.NANOSECOND):
+            raise ValueError("time64 requires us or ns unit")
+        super().__init__(TypeId.TIME64, "time64", np.int64, torch.int64, 64,
+                         unit)
 
 
-def duration(unit="us") -> _UnitType:
-    return _UnitType(TypeId.DURATION, "duration", np.int64, torch.int64, 64,
-                     unit)
+class DurationType(_UnitType):
+    def __init__(self, unit=TimeUnit.MICROSECOND):
+        super().__init__(TypeId.DURATION, "duration", np.int64, torch.int64,
+                         64, unit)
+
+
+def time32(unit="ms") -> Time32Type:
+    return Time32Type(unit)
+
+
+def time64(unit="us") -> Time64Type:
+    return Time64Type(unit)
+
+
+def duration(unit="us") -> DurationType:
+    return DurationType(unit)
 
 
 class DictionaryType(DataType):
@@ -538,9 +719,15 @@ class Metadata:
     def __len__(self) -> int:
         return len(self.keys)
 
+    def __bool__(self) -> bool:
+        return len(self.keys) > 0
+
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self.values[self.keys.index(key)] if key in self.keys \
             else default
+
+    def with_pair(self, key: str, value: str) -> "Metadata":
+        return Metadata(keys=self.keys + [key], values=self.values + [value])
 
     def to_dict(self) -> Dict[str, str]:
         return dict(zip(self.keys, self.values))
@@ -573,11 +760,18 @@ class Field:
     def with_name(self, name: str) -> "Field":
         return Field(name, self.type, self.nullable, self.metadata)
 
+    def with_type(self, type: DataType) -> "Field":
+        return Field(self.name, type, self.nullable, self.metadata)
+
+    def equals(self, other: "Field", check_metadata: bool = False) -> bool:
+        ok = (self.name, self.type, self.nullable) == (
+            other.name, other.type, other.nullable)
+        return ok and (not check_metadata or self.metadata == other.metadata)
+
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Field):
             return NotImplemented
-        return (self.name, self.type, self.nullable) == (
-            other.name, other.type, other.nullable)
+        return self.equals(other)
 
     def __hash__(self):
         return hash((self.name, self.type, self.nullable))
@@ -676,6 +870,10 @@ class StructType(DataType):
 
     def field(self, i: int) -> Field:
         return self._fields[i]
+
+    def field_by_name(self, name: str) -> Optional[Field]:
+        i = self.field_index(name)
+        return self._fields[i] if i >= 0 else None
 
     def field_index(self, name: str) -> int:
         for i, f in enumerate(self._fields):
@@ -786,13 +984,26 @@ class UnionType(DataType):
         return f"{self.name}<{inner}>"
 
 
-def sparse_union(fields, type_codes=None) -> UnionType:
-    return UnionType(TypeId.SPARSE_UNION, "sparse_union", fields,
-                     type_codes)
+class SparseUnionType(UnionType):
+    def __init__(self, fields: Sequence[Field],
+                 type_codes: Optional[Sequence[int]] = None):
+        super().__init__(TypeId.SPARSE_UNION, "sparse_union", fields,
+                         type_codes)
 
 
-def dense_union(fields, type_codes=None) -> UnionType:
-    return UnionType(TypeId.DENSE_UNION, "dense_union", fields, type_codes)
+class DenseUnionType(UnionType):
+    def __init__(self, fields: Sequence[Field],
+                 type_codes: Optional[Sequence[int]] = None):
+        super().__init__(TypeId.DENSE_UNION, "dense_union", fields,
+                         type_codes)
+
+
+def sparse_union(fields, type_codes=None) -> SparseUnionType:
+    return SparseUnionType(fields, type_codes)
+
+
+def dense_union(fields, type_codes=None) -> DenseUnionType:
+    return DenseUnionType(fields, type_codes)
 
 
 class ExtensionType(DataType):
@@ -876,19 +1087,59 @@ class Schema:
     def names(self) -> List[str]:
         return [f.name for f in self._fields]
 
+    @property
+    def types(self) -> List[DataType]:
+        return [f.type for f in self._fields]
+
     def __len__(self) -> int:
+        return len(self._fields)
+
+    @property
+    def num_fields(self) -> int:
         return len(self._fields)
 
     def field(self, i: int) -> Field:
         return self._fields[i]
 
+    def field_by_name(self, name: str) -> Optional[Field]:
+        i = self._index.get(name, -1)
+        return self._fields[i] if i >= 0 else None
+
     def field_index(self, name: str) -> int:
         return self._index.get(name, -1)
+
+    def has_field(self, name: str) -> bool:
+        return name in self._index
+
+    def add_field(self, i: int, f: Field) -> "Schema":
+        fields = list(self._fields)
+        fields.insert(i, f)
+        return Schema(fields, self.metadata)
+
+    def remove_field(self, i: int) -> "Schema":
+        fields = list(self._fields)
+        fields.pop(i)
+        return Schema(fields, self.metadata)
+
+    def set_field(self, i: int, f: Field) -> "Schema":
+        fields = list(self._fields)
+        fields[i] = f
+        return Schema(fields, self.metadata)
+
+    def with_metadata(self, md: Metadata) -> "Schema":
+        return Schema(self._fields, md)
+
+    def equals(self, other: "Schema", check_metadata: bool = False) -> bool:
+        if len(self) != len(other) or not all(
+                a.equals(b, check_metadata)
+                for a, b in zip(self._fields, other._fields)):
+            return False
+        return not check_metadata or self.metadata == other.metadata
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Schema):
             return NotImplemented
-        return self._fields == other._fields
+        return self.equals(other)
 
     def __repr__(self):
         return "schema<" + ", ".join(

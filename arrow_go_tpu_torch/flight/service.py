@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from .. import dtypes as dt
 from .. import ipc
+from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid
 from ..device.block import HostBatch
 from ..ipc import core as ipc_core, metadata as ipc_md
@@ -212,7 +213,7 @@ def batches_to_flight_data(schema: dt.Schema, batches,
     it = iter(batches)
     try:
         for b in it:
-            w.write(b)
+            w.write(host_batch(b))
             yield from w.out
             w.out.clear()
         yield from w.out
@@ -277,6 +278,7 @@ class FlightDataReader(ipc._Reader):
 
 
 def _batches_of(out) -> Tuple[dt.Schema, Any]:
+    out = host_batch(out)
     if isinstance(out, HostBatch):
         return out.schema, [out]
     schema, batches = out

@@ -24,7 +24,7 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..array.record import table
+from ..array.record import host_batch, table
 from ..device.block import HostArray, HostBatch, UnionArray, from_pylist
 from . import messages as fm
 from . import sql_messages as sqlpb
@@ -113,7 +113,7 @@ def _rows_table(names: List[str], rows: list) -> HostBatch:
     """A query's rows as a HostBatch (a column a name; a repeated name
     keeps its last column, as a dict does in the JAX package)."""
     cols = list(zip(*rows)) if rows else [[] for _ in names]
-    return table({n: list(c) for n, c in zip(names, cols)})
+    return host_batch(table({n: list(c) for n, c in zip(names, cols)}))
 
 
 def _strings(values) -> HostArray:
@@ -420,7 +420,9 @@ FlightSQLServerBase._GET_SCHEMAS = {
 
 
 def _batches(data) -> Tuple[dt.Schema, list]:
-    """(schema, batches) of a HostBatch or a (schema, batches) pair."""
+    """(schema, batches) of a HostBatch (a RecordBatch, or a Table's
+    combined chunks) or a (schema, batches) pair."""
+    data = host_batch(data)
     if isinstance(data, HostBatch):
         return data.schema, [data]
     schema, batches = data

@@ -43,6 +43,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 import numpy as np
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid
 from ..device.block import (HostArray, HostBatch, concat_host_arrays,
                             from_pylist)
@@ -667,6 +668,7 @@ def write_csv(data: Union[HostBatch, Sequence[HostBatch]], sink,
     repr, bytes decoded as UTF-8, every other value by str; quoting is
     csv's minimal rule."""
     opts = options or WriteOptions()
+    data = host_batch(data)
     batches = [data] if isinstance(data, HostBatch) else list(data)
     schema = batches[0].schema
     own = False

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..compute.scalars import infer_type
 from ..device.block import HostBatch, from_pylist
 
@@ -61,6 +62,7 @@ def write_json(data: Union[HostBatch, Sequence[HostBatch]], sink) -> None:
     """One JSON object a row (`json.dumps` of its Python values: bytes
     decoded as UTF-8, Decimals as strings, tuples as lists), each on its
     own line, to a path, a text stream or a binary stream."""
+    data = host_batch(data)
     batches = [data] if isinstance(data, HostBatch) else list(data)
     names = batches[0].schema.names
     out = io.StringIO()

@@ -38,7 +38,7 @@ import numpy as np
 from .. import cdata
 from .. import dtypes as dt
 from ..array.arrays import field_type
-from ..array.record import ChunkedArray
+from ..array.record import ChunkedArray, host_batch
 from ..device.block import (HostArray, HostBatch, ListViewArray,
                             RunEndEncodedArray, UnionArray,
                             concat_host_arrays, from_pylist, null_array)
@@ -314,7 +314,10 @@ def _from_pyarrow(parr, t: dt.DataType) -> HostArray:
 
 
 def record_batch_to_pyarrow(rb: HostBatch):
+    """A HostBatch (a RecordBatch, or a Table's combined chunks) as a
+    pyarrow RecordBatch."""
     pa = _pa()
+    rb = host_batch(rb)
     return pa.RecordBatch.from_arrays(
         [array_to_pyarrow(c, f.type)
          for c, f in zip(rb.columns, rb.schema.fields)],
@@ -328,8 +331,9 @@ def record_batch_from_pyarrow(prb) -> HostBatch:
 
 
 def table_to_pyarrow(t: HostBatch):
-    """A HostBatch as a pyarrow Table: a ChunkedArray column one pyarrow
-    chunk per chunk, any other column one chunk."""
+    """A HostBatch or a Table as a pyarrow Table: a ChunkedArray column
+    (each of a Table's) one pyarrow chunk per chunk, any other column one
+    chunk."""
     pa = _pa()
     cols = []
     for c, f in zip(t.columns, t.schema.fields):

@@ -31,6 +31,7 @@ from typing import BinaryIO, Dict, List, Optional, Union
 import numpy as np
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid
 from ..device.block import (ExtensionArray, HostArray, HostBatch,
                             concat_host_arrays, dictionary_values)
@@ -168,6 +169,9 @@ class StreamWriter:
         return blocks
 
     def write(self, batch: HostBatch) -> None:
+        """Write a HostBatch (a RecordBatch, or a Table's combined
+        chunks)."""
+        batch = host_batch(batch)
         if self._closed:
             raise ArrowInvalid("writer closed")
         if not self._wrote_schema:
@@ -391,6 +395,9 @@ class FileWriter(StreamWriter):
         self._put(MAGIC + b"\0\0")
 
     def write(self, batch: HostBatch) -> None:
+        """Write a HostBatch (a RecordBatch, or a Table's combined
+        chunks)."""
+        batch = host_batch(batch)
         if self._closed:
             raise ArrowInvalid("writer closed")
         if not self._wrote_schema:
@@ -536,3 +543,9 @@ def open_file(source, use_mmap: bool = False,
               decompress_concurrency: int = 0) -> FileReader:
     return FileReader(source, use_mmap=use_mmap,
                       decompress_concurrency=decompress_concurrency)
+
+
+def dt_chunked_empty(t: dt.DataType):
+    """An empty ChunkedArray of type t (a column of a Table of no batch)."""
+    from ..array.record import ChunkedArray
+    return ChunkedArray([], t)

@@ -648,3 +648,12 @@ def load_array(br: BodyReader, t: dt.DataType, dictionaries: dict,
     if tid == dt.TypeId.STRUCT:
         return nested_array(t, n, mask, [child(f) for f in t.fields()])
     raise ArrowNotImplemented(f"IPC load of {t}")
+
+
+def compact(data):
+    """An ArrayData rewritten at offset 0 with exactly sized buffers (its
+    rows read out and laid out again, array/arrays.py)."""
+    from ..array.arrays import array_data, make_array
+    if data.offset == 0:
+        return data
+    return array_data(make_array(data))

@@ -548,3 +548,62 @@ def aes_gcm_decrypt(key, nonce, data, aad=b"") -> memoryview:
                                              ptr, len(src),
                                              out.ctypes.data))
     return memoryview(out)[:n]
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's other names (arrow_go_tpu/native/__init__.py)
+# ---------------------------------------------------------------------------
+
+def available() -> bool:
+    """True once the codec library is built and loaded. A build that
+    fails raises, as every walk does: the port has no Python codec for
+    a False to choose (the JAX module's falls back to one)."""
+    lib()
+    return True
+
+
+def bitunpack32(data, n: int, width: int) -> np.ndarray:
+    """n `width`-bit LSB-first values (width <= 32) as uint32 (numpy)."""
+    if n == 0 or width == 0:
+        return np.zeros(n, np.uint32)
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+    need = n * width
+    if bits.size < need:
+        bits = np.pad(bits, (0, need - bits.size))
+    bits = bits[:need].reshape(n, width).astype(np.uint32)
+    return (bits << np.arange(width, dtype=np.uint32)).sum(
+        axis=1, dtype=np.uint32)
+
+
+def bitpack32(values: np.ndarray, width: int) -> bytes:
+    """uint32 values packed into `width`-bit LSB-first bytes (numpy)."""
+    values = np.ascontiguousarray(values, np.uint32)
+    if not len(values) or width == 0:
+        return b""
+    bits = (values[:, None] >> np.arange(width, dtype=np.uint32)) & 1
+    return np.packbits(bits.astype(np.uint8).ravel(),
+                       bitorder="little").tobytes()
+
+
+def byte_array_unpack(data, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A PLAIN BYTE_ARRAY stream of n values -> (int64 offsets (n + 1),
+    the values' bytes back to back), plain_byte_array's walk."""
+    ends, out, _ = plain_byte_array(data, n)
+    return np.concatenate([[0], ends]).astype(np.int64), out
+
+
+def factorize_offsets(data: np.ndarray, offsets: np.ndarray,
+                      valid: Optional[np.ndarray] = None):
+    """First-occurrence codes of offsets + data byte rows (a null row, by
+    `valid`, as the empty string): (int32 codes, int64 row of each
+    distinct value's first appearance), `factorize`'s walk."""
+    off = np.asarray(offsets, np.int64)
+    n = len(off) - 1
+    lo = int(off[0]) if n >= 0 else 0
+    ends = off[1:] - lo
+    data = np.asarray(data, np.uint8)[lo:int(off[-1])]
+    if valid is not None:
+        ends = np.append(ends, ends[-1] if n else 0)   # an empty row
+        ends, data = gather_rows(ends, data, np.where(
+            np.asarray(valid, np.bool_), np.arange(n), n))
+    return factorize(ends, data)

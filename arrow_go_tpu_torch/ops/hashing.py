@@ -73,6 +73,12 @@ def encode_sorted_with(values: torch.Tensor, t: dt.DataType,
     return SortedEncode(sidx, start, svalid, run_id, n_unique), spayloads
 
 
+def encode_sorted(values: torch.Tensor, t: dt.DataType,
+                  validity: Optional[torch.Tensor], n) -> SortedEncode:
+    """One radix-key sort -> sorted-domain run structure."""
+    return encode_sorted_with(values, t, validity, n)[0]
+
+
 def encode_codes(values: torch.Tensor, t: dt.DataType,
                  validity: Optional[torch.Tensor], n,
                  order: str = "first_occurrence") -> EncodeResult:

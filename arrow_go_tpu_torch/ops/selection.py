@@ -87,3 +87,17 @@ def take_validity(validity: Optional[torch.Tensor], indices: torch.Tensor,
             torch.int32)) & 1
         mask = in_range & (bits == 1)
     return bitmap.pack_mask(mask[:P_out])
+
+
+def take_indices_checked(indices: torch.Tensor,
+                         indices_validity: Optional[torch.Tensor], n_idx,
+                         n_src) -> torch.Tensor:
+    """Bounds check for take (reference take with BoundsCheck): the count
+    of valid rows below n_idx whose index is outside [0, n_src), as a
+    0-d device tensor (the caller raises)."""
+    P = indices.shape[0]
+    row = torch.arange(P, device=indices.device) < n_idx
+    if indices_validity is not None:
+        row = row & bitmap.expand_words(indices_validity, P)
+    bad = row & ((indices < 0) | (indices >= n_src))
+    return bad.sum(dtype=torch.int32)

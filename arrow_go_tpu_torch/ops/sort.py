@@ -40,6 +40,12 @@ def f64_bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int64)
 
 
+def f64_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of f64_bits: int64 IEEE-754 bit patterns -> float64 (one
+    bit view; the JAX package rebuilds them arithmetically on a TPU)."""
+    return bits.contiguous().view(torch.float64)
+
+
 def _orderable_bits(values: torch.Tensor,
                     t: Optional[dt.DataType] = None) -> torch.Tensor:
     """Radix key: int64 carrying the u64 bit pattern whose unsigned order

@@ -8,7 +8,7 @@ need no second exchange.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -16,6 +16,10 @@ from ..ops import bitmap, hashing
 from . import shuffle as shuf
 from .shuffle import _dt_of
 from .mesh import Mesh
+
+
+class GroupAggSpec(NamedTuple):
+    agg: str   # 'sum' | 'count' | 'min' | 'max'
 
 
 def _max_of(d: torch.dtype):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import (DeviceBatch, HostArray, HostBatch,
                             concat_host_arrays, device_batch_to_host)
@@ -32,6 +33,9 @@ from .mesh import Mesh, all_gather, make_mesh
 
 
 def _as_batch(data) -> HostBatch:
+    """A DeviceBatch's rows on the host, a Table's chunks combined
+    (array/record.host_batch), a HostBatch as it is."""
+    data = host_batch(data)
     if isinstance(data, DeviceBatch):
         return device_batch_to_host(data)
     if not isinstance(data, HostBatch):

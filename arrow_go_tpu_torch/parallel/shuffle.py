@@ -9,7 +9,7 @@ and read by the host, which retries with a larger capacity.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -70,6 +70,13 @@ def _pack_for_send(dest: torch.Tensor, valid: torch.Tensor, n_parts: int,
     return packed, counts[:n_parts].to(torch.int32), overflow
 
 
+class ShuffleResult(NamedTuple):
+    """A rank's received rows (padded to capacity) and counts by source."""
+    data: Tuple[torch.Tensor, ...]    # each [D*cap] rows
+    counts: torch.Tensor              # [D] rows received from each rank
+    overflow: torch.Tensor            # any send bucket overflowed
+
+
 def shuffle_shard_fn(mesh: Mesh, cap: int):
     """Returns the per-rank body: (dest, valid, *cols) -> (received cols
     [D*cap] each, counts[D] received from each rank, overflow all-reduced
@@ -80,7 +87,7 @@ def shuffle_shard_fn(mesh: Mesh, cap: int):
         packed, counts, overflow = _pack_for_send(dest, valid, D, cap, cols)
         received = tuple(all_to_all(mesh, p) for p in packed)
         recv_counts = all_to_all(mesh, counts)
-        return received, recv_counts, all_max(mesh, overflow)
+        return ShuffleResult(received, recv_counts, all_max(mesh, overflow))
 
     return body
 

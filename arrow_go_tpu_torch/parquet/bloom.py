@@ -178,3 +178,113 @@ def build_bloom_filter(hashes: np.ndarray, ndv: int,
     bf = BloomFilter(optimal_num_blocks(ndv, fpp))
     bf.insert_hashes(hashes)
     return bf
+
+
+MIN_BLOOM_BYTES = 32
+MAX_BLOOM_BYTES = 128 * 1024 * 1024
+
+
+def optimal_num_bytes(ndv: int, fpp: float = 0.01) -> int:
+    return optimal_num_blocks(ndv, fpp) * BYTES_PER_BLOCK
+
+
+def _bounded_pow2(num_bytes: int, max_bytes: int) -> int:
+    num_bytes = max(num_bytes, MIN_BLOOM_BYTES)
+    if num_bytes & (num_bytes - 1):
+        num_bytes = 1 << num_bytes.bit_length()
+    return max(min(num_bytes, max_bytes), MIN_BLOOM_BYTES)
+
+
+class AdaptiveBloomFilter:
+    """Candidate-set bloom builder for streams of unknown NDV (after the
+    JAX package's; reference parquet/metadata/adaptive_bloom_filter.go:65
+    NewAdaptiveBlockSplitBloomFilter): filters at halving sizes, the
+    distinct hashes counted against the largest, a candidate dropped
+    once its expected NDV is exceeded, and the smallest survivor the
+    result. The port's writer sizes its filters from the exact count of
+    distinct values instead (build_bloom_filter)."""
+
+    _NDV_STEP = 500
+
+    def __init__(self, max_bytes: int = 1 << 20, num_candidates: int = 12,
+                 fpp: float = 0.01):
+        if not (0 < fpp < 1):
+            raise ValueError("fpp must be in (0, 1)")
+        max_bytes = max(MIN_BLOOM_BYTES, min(MAX_BLOOM_BYTES, max_bytes))
+        self.max_bytes = max_bytes
+        self.fpp = fpp
+        self.num_distinct = 0
+        self.finalized = False
+        self._candidates: list = []      # (expected_ndv, BloomFilter)
+        size = _bounded_pow2(max_bytes, max_bytes)
+        for _ in range(num_candidates):
+            ndv = self._expected_ndv(size)
+            if ndv <= 0:
+                break
+            nb = _bounded_pow2(size, max_bytes)
+            self._candidates.append((ndv, BloomFilter(nb // BYTES_PER_BLOCK)))
+            size = _bounded_pow2(size // 2, max_bytes)
+        if not self._candidates:
+            self._candidates.append(
+                (16, BloomFilter(MIN_BLOOM_BYTES // BYTES_PER_BLOCK)))
+        self._largest = max(self._candidates,
+                            key=lambda c: c[1].num_blocks)[1]
+
+    def _expected_ndv(self, num_bytes: int) -> int:
+        ndv, optimal = 0, 0
+        while optimal < num_bytes:
+            ndv += self._NDV_STEP
+            optimal = optimal_num_bytes(ndv, self.fpp)
+        return max(0, ndv - self._NDV_STEP)
+
+    def _prune(self) -> None:
+        self._candidates = [
+            (ndv, bf) for ndv, bf in self._candidates
+            if bf is self._largest or ndv >= self.num_distinct]
+
+    def insert_hash(self, h: int) -> None:
+        self.insert_bulk([h])
+
+    def insert_bulk(self, hashes) -> None:
+        """Insert hashes, counting the ones new to the largest filter
+        (one count before the inserts, as the JAX builder does)."""
+        if self.finalized:
+            raise ValueError("adaptive bloom filter already finalized")
+        hashes = np.asarray(list(hashes) if not isinstance(
+            hashes, np.ndarray) else hashes, np.uint64)
+        if not len(hashes):
+            return
+        absent = ~self._largest.check_hashes(hashes)
+        self.num_distinct += len(np.unique(hashes[absent]))
+        self._prune()
+        for _, bf in self._candidates:
+            bf.insert_hashes(hashes)
+
+    def insert(self, v, phys: fmt.Type) -> None:
+        self.insert_hash(hash_value(v, phys))
+
+    def check_hash(self, h: int) -> bool:
+        return self._largest.check_hash(h)
+
+    def size(self) -> int:
+        return self._optimal().num_blocks * BYTES_PER_BLOCK
+
+    def _optimal(self) -> BloomFilter:
+        return min(self._candidates, key=lambda c: c[1].num_blocks)[1]
+
+    def finalize(self) -> BloomFilter:
+        """The smallest surviving candidate: what a writer stores."""
+        self.finalized = True
+        return self._optimal()
+
+
+def build_bloom_filter_adaptive(values, phys: fmt.Type, fpp: float = 0.01,
+                                max_bytes: int = 1 << 20) -> BloomFilter:
+    """A filter of `values` (Python values, or what `hash_values` takes)
+    of physical type `phys`, sized by an AdaptiveBloomFilter, for a
+    stream whose NDV is unknown."""
+    ab = AdaptiveBloomFilter(max_bytes=max_bytes, fpp=fpp)
+    ab.insert_bulk(hash_values(values, phys) if isinstance(
+        values, (np.ndarray, tuple)) else [hash_value(v, phys)
+                                            for v in values])
+    return ab.finalize()

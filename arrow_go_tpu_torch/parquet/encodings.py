@@ -20,7 +20,7 @@ once, where the JAX encoder loops in Python over blocks and miniblocks.
 from __future__ import annotations
 
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -439,3 +439,54 @@ def byte_stream_split_decode(data, n: int, width: int) -> np.ndarray:
                            f"holds no {n} values of {width} bytes")
     planes = np.frombuffer(data, np.uint8, count=n * width)
     return np.ascontiguousarray(planes.reshape(width, n).T)
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's host decoders (arrow_go_tpu/parquet/encodings.py:68-327),
+# on the codec library's walks
+# ---------------------------------------------------------------------------
+
+def byte_array_decode_vectorized(data, n: int
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """A PLAIN BYTE_ARRAY page of n values -> (int64 offsets (n + 1),
+    uint8 data)."""
+    return native.byte_array_unpack(data, n)
+
+
+def rle_decode(data, n: int, bit_width: int) -> np.ndarray:
+    """n values of an RLE / bit-packed hybrid stream, as uint32."""
+    if bit_width == 0:
+        return np.zeros(n, np.uint32)
+    return native.rle_decode(data, n, bit_width)
+
+
+def levels_decode_v1(data, n: int, bit_width: int) -> Tuple[np.ndarray, int]:
+    """V1 data page levels (a u32 byte length, then the hybrid stream):
+    (levels, bytes used)."""
+    (ln,) = struct.unpack_from("<I", data, 0)
+    return rle_decode(memoryview(data)[4:4 + ln], n, bit_width), 4 + ln
+
+
+def delta_binary_packed_decode(data, n: Optional[int] = None
+                               ) -> Tuple[np.ndarray, int]:
+    """A DELTA_BINARY_PACKED stream -> (int64 values, its first n when n
+    is given; bytes the whole stream uses)."""
+    values, used = native.delta_decode(data, delta_count(data))
+    return (values if n is None else values[:n]), used
+
+
+def delta_length_byte_array_decode(data, n: int) -> list:
+    """The first n values of a DELTA_LENGTH_BYTE_ARRAY page, as bytes."""
+    ends, body, _ = _delta_lengths(memoryview(data), n)
+    return _rows(ends, body)
+
+
+def delta_byte_array_decode(data, n: int) -> list:
+    """The first n values of a DELTA_BYTE_ARRAY page, as bytes."""
+    return _rows(*byte_array_decode(fmt.Encoding.DELTA_BYTE_ARRAY, data, n))
+
+
+def _rows(ends: np.ndarray, data: np.ndarray) -> list:
+    raw = data.tobytes()
+    starts = np.concatenate([[0], ends[:-1]]).tolist() if len(ends) else []
+    return [raw[a:b] for a, b in zip(starts, ends.tolist())]

@@ -427,6 +427,13 @@ _STAT_PACK = {fmt.Type.INT32: "<i", fmt.Type.INT64: "<q",
               fmt.Type.FLOAT: "<f", fmt.Type.DOUBLE: "<d"}
 
 
+# the JAX module's functions of a ParquetFile (arrow_go_tpu/parquet/
+# reader.py:690-735)
+read_column_index = ParquetFile.read_column_index
+read_offset_index = ParquetFile.read_offset_index
+read_bloom_filter = ParquetFile.read_bloom_filter
+
+
 def _decode_stats(st: fmt.Statistics, desc):
     """(min, max) of a chunk's statistics as Python values, or None."""
     if st.min_value is None or st.max_value is None:

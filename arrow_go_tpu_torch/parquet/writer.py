@@ -83,6 +83,7 @@ from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import dtypes as dt
+from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid
 from ..device.block import (HostArray, HostBatch, dictionary_type,
                             factorize)
@@ -813,6 +814,7 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
     encryption: parquet modular encryption of the file (module doc).
     sink:  a path or a binary file object.
     """
+    data = host_batch(data)
     metadata = None
     if isinstance(data, HostBatch):
         metadata = data.schema.metadata

@@ -154,8 +154,9 @@ without one. Phases:
      o_odate < 720 on K1 (`typed_filter`); the same orders with
      day_time and month_day_nano intervals, a dense and a sparse union,
      a list_view<double> of each order's l_price and a uuid extension,
-     through the host route by that predicate and by 15 M seeded take
-     indices, 5% null, with ms and peak host bytes a column
+     through the host route by that predicate and by 3.75 M seeded take
+     indices (a quarter of the orders since PR 22), 5% null, with ms and
+     peak host bytes a column
      (`host_types_filter`); each exact against numpy, and every K1 and
      K2 call of one more run of Q12 views and typed_filter against the
      plain version (`types_path_checks`);
@@ -318,25 +319,41 @@ without one. Phases:
      for bit, Q6 from it equal to Q6 from bss_delta (`rle_booleans`);
      every K1 and K3 call of each Q6 against the plain version
      (`encodings_path_checks`);
-  25. a `kernels` JSON line, then the last line
+  25. the JAX data-model API (arrays_phases) over the first 6,001,215
+     rows (SF1's lineitem): the Q6 and Q1 columns as ArrayData layouts
+     (all-set validity bitmaps and the values; l_rflag and l_lstatus as
+     dictionary layout), `make_array` of each, a RecordBatch a
+     1,048,576-row batch, Table.from_batches, select, combine_chunks and
+     to_batches (`arrays_table`, with each stage's seconds); Q6 (K1, K3)
+     and Q1 (K1) from `batch_to_device` of that batch, exact against
+     numpy (`arrays_q6`, `arrays_q1`); batch_from_device of Q6's
+     columns equal to their source (`arrays_round_trip`); the first
+     1,048,576 orders through make_builder(...).append_values (1% of
+     o_opri nulls), each column `to_device`, the o_odate window's filter
+     (K1) exact against numpy, bitutil.count_set_bits of o_opri's
+     validity equal to its device words' popcount (`arrays_orders`);
+     every K1 and K3 call of the three paths against the plain version
+     (`arrays_path_checks`);
+  26. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 25 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 26 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 24 against the plain version: a run that times every
+10 to 14 and 18 to 25 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 24 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 25 run only in a tree
 that has their entry points.
 
-With --only flight (or flightsql, examples, encodings) it runs phases 1
-and 2, makes the data (but for examples) and runs phase 21 (or 22, 23,
-24) alone, then prints the phase's launches and errors and no `kernels`
-or ok line: a quick check of that phase on the card.
+With --only flight (or flightsql, examples, encodings, arrays) it runs
+phases 1 and 2, makes the data (but for examples) and runs phase 21 (or
+22, 23, 24, 25) alone, then prints the phase's launches and errors and
+no `kernels` or ok line: a quick check of that phase on the card.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
-                             [--only flight|flightsql|examples|encodings]
+                             [--only flight|flightsql|examples|encodings|
+                                     arrays]
 """
 from __future__ import annotations
 
@@ -4482,6 +4499,9 @@ def front_phases(li, orders, dev, card: str) -> dict:
 
 
 TYPES_TAKE_NULL = 0.05            # share of null take indices
+# the host take's indices: a quarter of the orders (all of them before
+# the arrays phase; a cut that keeps the script in its time limit)
+TYPES_TAKE_SHARE = 4
 
 
 def _months(odate: np.ndarray) -> np.ndarray:
@@ -4712,8 +4732,9 @@ def types_phases(li, orders, dev, card: str) -> dict:
     K1; exact against numpy), `host_types_filter` (the same orders with
     day_time / month_day_nano intervals, a dense and a sparse union, a
     list_view<double> of each order's l_price and a uuid, through the
-    host route by the same predicate and by 15 M seeded take indices,
-    5% null; exact against numpy, ms and peak host bytes a column) and
+    host route by the same predicate and by a quarter of the orders'
+    count of seeded take indices (3.75 M at SF10), 5% null; exact
+    against numpy, ms and peak host bytes a column) and
     `types_path_checks` (every K1 and K2 call of one more run of Q12
     views and typed_filter against the plain version). Returns each
     path's launch counts and the largest kernel - plain difference."""
@@ -4818,8 +4839,9 @@ def types_phases(li, orders, dev, card: str) -> dict:
     build_s = time.perf_counter() - t0
     n_ord = len(keep)
     g = np.random.default_rng(13)
-    idx = g.integers(0, n_ord, n_ord)
-    idx[g.random(n_ord) < TYPES_TAKE_NULL] = -1
+    n_take = n_ord // TYPES_TAKE_SHARE
+    idx = g.integers(0, n_ord, n_take)
+    idx[g.random(n_take) < TYPES_TAKE_NULL] = -1
     host = host_types_runs(hhb, parts, keep, idx)
     print(json.dumps({"host_types_filter": {
         **host, "build_s": build_s, "child_rows": len(parts["child"]),
@@ -7830,6 +7852,238 @@ def encodings_phases(li, dev, card: str, timing_only: bool = False) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+ARRAYS_ROWS = LINEITEM_SF1        # rows of the arrays phase (SF1)
+ARRAYS_BATCH_ROWS = 1 << 20       # rows a RecordBatch of the Table
+ARRAYS_ORDERS = 1 << 20           # orders built through the builders
+ARRAYS_NULL_SHARE = 0.01          # o_opri rows appended as nulls
+ARRAYS_ODATE = (710, 720)         # the orders' o_odate window
+ARRAYS_NUMERIC = {"l_okey": dt.int64, "l_qty": dt.int32,
+                  "l_price": dt.float64, "l_disc": dt.float64,
+                  "l_tax": dt.float64, "l_sdate": dt.int32}
+ARRAYS_FLAGS = ("l_rflag", "l_lstatus")
+
+
+def string_data(values) -> "object":
+    """An ArrayData of a string column of `values` (offsets and data)."""
+    from arrow_go_tpu_torch.array.arrays import ArrayData
+    from arrow_go_tpu_torch.memory.buffer import Buffer
+    raw = [v.encode() for v in values]
+    off = np.zeros(len(raw) + 1, np.int32)
+    np.cumsum([len(v) for v in raw], out=off[1:])
+    return ArrayData(dt.string, len(raw), [None, Buffer.wrap(off),
+                                           Buffer.from_bytes(b"".join(raw))])
+
+
+def lineitem_layouts(li, n: int, rows: int) -> list:
+    """{column: ArrayData} a batch of `rows` lineitem rows, its first n:
+    the numeric columns as an all-set validity bitmap and their values
+    (views of the arrays), the two flags as dictionary layout (int32
+    indices, the flag values a string dictionary)."""
+    from arrow_go_tpu_torch.array.arrays import ArrayData
+    from arrow_go_tpu_torch.memory import bitutil
+    from arrow_go_tpu_torch.memory.buffer import Buffer
+    valid = Buffer(bitutil.pack_bits(np.ones(rows, np.bool_)))
+    dicts = {c: string_data(li[c][1]) for c in ARRAYS_FLAGS}
+    out = []
+    for a in range(0, n, rows):
+        m = min(rows, n - a)
+        bits = valid.slice(0, bitutil.bytes_for_bits(m))
+        datas = {c: ArrayData(t, m, [bits, Buffer.wrap(li[c][a:a + m])])
+                 for c, t in ARRAYS_NUMERIC.items()}
+        for c in ARRAYS_FLAGS:
+            datas[c] = ArrayData(dt.dictionary(dt.int32, dt.string), m,
+                                 [None, Buffer.wrap(li[c][0][a:a + m])],
+                                 dictionary=dicts[c])
+        out.append(datas)
+    return out
+
+
+def orders_values(orders, m: int):
+    """(o_okey, o_odate, o_opri with a seeded ARRAYS_NULL_SHARE of None)
+    of the first m orders, as the builders take them."""
+    rng = np.random.default_rng(21)
+    codes, values = orders["o_opri"]
+    pri = values[codes[:m]].tolist()
+    for i in np.flatnonzero(rng.random(m) < ARRAYS_NULL_SHARE).tolist():
+        pri[i] = None
+    return orders["o_okey"][:m], orders["o_odate"][:m], pri
+
+
+def build_orders(okey, odate, pri) -> dict:
+    """The three orders columns through make_builder(...).append_values
+    (a None of o_opri goes to append_null)."""
+    out = {}
+    for name, t, vals in (("o_okey", dt.int64, okey),
+                          ("o_odate", dt.date32, odate),
+                          ("o_opri", dt.string, pri)):
+        b = agt.make_builder(t)
+        b.append_values(vals)
+        out[name] = b.finish()
+    return out
+
+
+def orders_window(cols: dict, dev) -> dict:
+    """o_okey, o_odate and o_opri each `to_device`, then the o_odate
+    window's filter (K1): rows kept, and the valid o_opri among them."""
+    from arrow_go_tpu_torch.array.arrays import field_type
+    from arrow_go_tpu_torch.device import to_device
+    db = DeviceBatch(dt.Schema([dt.Field(k, field_type(a))
+                                for k, a in cols.items()]),
+                     [to_device(a, device=dev) for a in cols.values()],
+                     len(cols["o_okey"]))
+    f, lit, call = pc.field, pc.literal, pc.call
+    mask = pc.execute_scalar_expression(call("and", [
+        call("greater_equal", [f("o_odate"), lit(ARRAYS_ODATE[0])]),
+        call("less", [f("o_odate"), lit(ARRAYS_ODATE[1])])]), db)
+    kept = pc.filter(db, mask)
+    return {"kept": kept.length,
+            "kept_opri_valid": pc.agg_count(kept.column("o_opri"))}
+
+
+def arrays_phases(li, orders, dev, card: str,
+                  timing_only: bool = False) -> dict:
+    """The JAX data-model API on the card, over the first ARRAYS_ROWS
+    rows (SF1's lineitem) of the SF10 arrays: the Q6 and Q1 columns as
+    ArrayData layouts (lineitem_layouts), `make_array` of each, one
+    `RecordBatch.from_arrays` a 1,048,576-row batch, `Table.from_batches`,
+    `select`, `combine_chunks` and `to_batches()[0]`; then Q6 (K1, K3)
+    and Q1 (K1, group_by) from `batch_to_device` of that batch, exact
+    against numpy (`arrays_q6`, `arrays_q1`); `batch_from_device` of
+    Q6's columns equal to their source (`arrays_round_trip`); the first
+    ARRAYS_ORDERS orders through make_builder(...).append_values (1% of
+    o_opri append_null), each column `to_device`, the o_odate window's
+    filter (K1) and its count exact against numpy, and
+    bitutil.count_set_bits of o_opri's validity equal to the popcount
+    of its device words (`arrays_orders`); every K1 and K3 call of the
+    three paths against the plain version (`arrays_path_checks`; not
+    with `timing_only`). Returns each path's launch counts and the
+    largest kernel - plain difference."""
+    from arrow_go_tpu_torch.array.arrays import make_array
+    from arrow_go_tpu_torch.memory import bitutil
+    t_phase = time.perf_counter()
+    n = min(ARRAYS_ROWS, len(li["l_okey"]))
+    sub = {c: li[c][:n] for c in ARRAYS_NUMERIC}
+    sub.update({c: (li[c][0][:n], li[c][1]) for c in ARRAYS_FLAGS})
+    layouts = lineitem_layouts(li, n, ARRAYS_BATCH_ROWS)
+    stages = {}
+    t0 = time.perf_counter()
+    arrays = [{c: make_array(d) for c, d in b.items()} for b in layouts]
+    stages["make_array_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = [agt.RecordBatch.from_arrays(list(b.values()), list(b))
+               for b in arrays]
+    table = agt.Table.from_batches(batches)
+    stages["from_batches_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    combined = table.select(Q1_COLUMNS).combine_chunks()
+    stages["combine_chunks_s"] = time.perf_counter() - t0
+    rb = combined.to_batches()[0]
+    if (table.num_rows, combined.column(0).num_chunks, rb.num_rows) != (
+            n, 1, n) or table.column("l_price").num_chunks != len(batches):
+        raise AssertionError(f"arrays: table of {table.num_rows} rows, "
+                             f"batch of {rb.num_rows}")
+    print(json.dumps({"arrays_table": {
+        "rows": n, "batches": len(batches), "columns": table.schema.names,
+        "selected": rb.schema.names,
+        "classes": sorted({type(a).__name__ for b in arrays
+                           for a in b.values()}), **stages,
+        "card": card}}), flush=True)
+
+    launches, checks = {}, {}
+    q6_want = q6_oracle(sub)
+    q1_want = q1_oracle(sub)
+    got, launches["arrays Q6"] = run_path(
+        "arrays Q6", lambda: compute_q6(agt.batch_to_device(rb, device=dev)),
+        ("K1", "K3"))
+    check_q6(got, q6_want)
+    db, to_card_ms = _sync_ms(lambda: agt.batch_to_device(rb, device=dev))
+    outs, q6_runs = timed(lambda: compute_q6(db))
+    for out in outs:
+        check_q6(out, q6_want)
+    checks["q6"] = (lambda: compute_q6(agt.batch_to_device(rb, device=dev)),
+                    lambda o: check_q6(o, q6_want), "arrays Q6")
+    print(json.dumps({"arrays_q6": {
+        **got, "oracle": q6_want, "to_card_ms": to_card_ms,
+        "compute_ms_runs": q6_runs,
+        "compute_ms_median": float(np.median(q6_runs)),
+        "launches_per_run": launches["arrays Q6"], "card": card,
+        "verified": True}}), flush=True)
+    out, launches["arrays Q1"] = run_path(
+        "arrays Q1", lambda: compute_q1(agt.batch_to_device(rb, device=dev)),
+        ("K1",))
+    check_q1(out, q1_want)
+    out, q1_ms = _sync_ms(lambda: compute_q1(db))
+    check_q1(out, q1_want)
+    checks["q1"] = (lambda: compute_q1(agt.batch_to_device(rb, device=dev)),
+                    lambda o: check_q1(o, q1_want), "arrays Q1")
+    print(json.dumps({"arrays_q1": {
+        "groups": out.num_rows, "compute_ms": q1_ms,
+        "launches_per_run": launches["arrays Q1"], "card": card,
+        "verified": True}}), flush=True)
+
+    src = rb.select(Q6_COLUMNS)
+    t0 = time.perf_counter()
+    back = agt.device.batch_from_device(project(db, Q6_COLUMNS))
+    from_card_s = time.perf_counter() - t0
+    if not isinstance(back, agt.RecordBatch) or not back.equals(src):
+        raise AssertionError("arrays: batch_from_device of Q6's columns "
+                             "differs from its source")
+    del db
+    print(json.dumps({"arrays_round_trip": {
+        "rows": back.num_rows, "columns": back.schema.names,
+        "from_card_s": from_card_s, "card": card, "equal": True}}),
+        flush=True)
+
+    m = min(ARRAYS_ORDERS, len(orders["o_okey"]))
+    okey, odate, pri = orders_values(orders, m)
+    t0 = time.perf_counter()
+    cols = build_orders(okey, odate, pri)
+    build_s = time.perf_counter() - t0
+    nulls = np.array([p is None for p in pri])
+    keep = (odate >= ARRAYS_ODATE[0]) & (odate < ARRAYS_ODATE[1])
+    o_want = {"kept": int(keep.sum()),
+              "kept_opri_valid": int((keep & ~nulls).sum())}
+    if [type(a).__name__ for a in cols.values()] != [
+            "NumericArray", "Date32Array", "StringArray"] or \
+            cols["o_opri"].null_count != int(nulls.sum()):
+        raise AssertionError(f"arrays: built {cols}")
+
+    def check_orders(got):
+        if got != o_want:
+            raise AssertionError(f"arrays orders: {got}, numpy {o_want}")
+    got, launches["arrays orders"] = run_path(
+        "arrays orders", lambda: orders_window(cols, dev), ("K1",))
+    check_orders(got)
+    checks["orders"] = (lambda: orders_window(cols, dev), check_orders,
+                        "arrays orders")
+    from arrow_go_tpu_torch.device import to_device
+    words = to_device(cols["o_opri"], device=dev).validity
+    host_bits = bitutil.count_set_bits(cols["o_opri"].data.validity.data,
+                                       0, m)
+    dev_bits = int(bitmap.popcount_words(words))
+    if host_bits != dev_bits or host_bits != m - int(nulls.sum()):
+        raise AssertionError(f"arrays: count_set_bits {host_bits}, device "
+                             f"popcount {dev_bits}")
+    print(json.dumps({"arrays_orders": {
+        "rows": m, "nulls": int(nulls.sum()), "build_s": build_s,
+        "builder_rows_per_s": 3 * m / build_s, **got,
+        "set_bits": host_bits, "launches_per_run": launches["arrays orders"],
+        "card": card, "verified": True}}), flush=True)
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            out, held[key] = check_path_calls(name, fn, launches[name],
+                                              k3=True)
+            check(out)
+        print(json.dumps({"arrays_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K3")}
+    print(json.dumps({"arrays_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -7846,7 +8100,7 @@ def main(argv=None) -> int:
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
     ap.add_argument("--only", choices=["flight", "flightsql", "examples",
-                                       "encodings"],
+                                       "encodings", "arrays"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -7875,6 +8129,12 @@ def main(argv=None) -> int:
     n_ord = n_li // 4
     if args.only == "examples":
         out = examples_phases(dev, card)
+    elif args.only == "arrays":
+        li, orders = make_data(n_li, n_ord)
+        add_quantity(li)
+        add_q1_columns(li)
+        add_join_columns(li, orders)
+        out = arrays_phases(li, orders, dev, card)
     elif args.only == "encodings":
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
@@ -8062,6 +8322,8 @@ def main(argv=None) -> int:
             examples_phases(dev, card, timing_only=True)
         if hasattr(tpq.encodings, "byte_stream_split_encode"):
             encodings_phases(li, dev, card, timing_only=True)
+        if hasattr(agt, "make_builder"):
+            arrays_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -8115,6 +8377,9 @@ def main(argv=None) -> int:
     pqe = encodings_phases(li, dev, card)
     k1_err = max(k1_err, pqe["errs"]["K1"])
     k3_err = max(k3_err, pqe["errs"]["K3"])
+    arrs = arrays_phases(li, orders, dev, card)
+    k1_err = max(k1_err, arrs["errs"]["K1"])
+    k3_err = max(k3_err, arrs["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -8126,7 +8391,7 @@ def main(argv=None) -> int:
                **ipcs["launches"], **fmts["launches"],
                **inter["launches"], **encs["launches"],
                **flights["launches"], **fsql["launches"],
-               **exs["launches"], **pqe["launches"]}
+               **exs["launches"], **pqe["launches"], **arrs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

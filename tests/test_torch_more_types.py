@@ -109,7 +109,7 @@ def test_the_nested_union_and_extension_types_match(name):
         assert t.type_codes == jt.type_codes
         assert [t.child_id(c) for c in t.type_codes] == [
             jt.child_id(c) for c in jt.type_codes]
-        assert t != make_t().__class__(t.id, t.name, t.fields(), [1, 2])
+        assert t != type(t)(t.fields(), [1, 2])
     if name == "extension":
         assert (t.storage_type, t.extension_name, t.serialized) == (
             dt.int16, "x.y", b"ab")

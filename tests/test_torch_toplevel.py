@@ -23,17 +23,9 @@ from torch_parity import port_type, same_array, same_table
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# JAX names the port does not carry, each beside the port's stand-in
-# (ROADMAP §1: the JAX `array/` and `memory/` layers)
-STAND_INS = {
-    "Array": "HostArray",
-    "ArrayData": "HostArray",
-    "Column": "ChunkedArray",
-    "RecordBatch": "HostBatch",
-    "Table": "HostBatch",
-    "make_builder": "device.block.from_pylist",
-    "make_array": "device.block.HostArray",
-}
+# JAX names the port does not carry, each beside the port's stand-in:
+# none since the port has the JAX data-model classes (array/)
+STAND_INS: dict = {}
 
 
 def _jax_public_names() -> set:
@@ -134,7 +126,8 @@ def test_tables_of_python_data_equal_the_jax_ones(name, make):
     data = TABLES[name]
     got = getattr(agt, make)(data)
     want = getattr(jagt, make)(data)
-    assert isinstance(got, HostBatch)
+    assert isinstance(got, agt.Table if make == "table" else agt.RecordBatch)
+    assert isinstance(agt.RecordBatch.from_pydict(data), HostBatch)
     same_table(got, want, name)
     assert [f.nullable for f in got.schema.fields] == \
         [f.nullable for f in want.schema.fields]

@@ -75,6 +75,9 @@ def port_type(jt):
     if tid == jdt.TypeId.DICTIONARY:
         return tdt.dictionary(port_type(jt.index_type),
                               port_type(jt.value_type), jt.ordered)
+    if tid == jdt.TypeId.RUN_END_ENCODED:
+        return tdt.run_end_encoded(port_type(jt.run_ends_type),
+                                   port_type(jt.values_type))
     return tdt.type_for_name(str(jt))
 
 
@@ -216,9 +219,10 @@ def port_array(ja):
         return nested_array(pt, n, mask, [port_array(ja.field(i))
                                           for i in range(ja.num_fields)])
     if tid == jdt.TypeId.DICTIONARY:
+        from arrow_go_tpu_torch.array.arrays import DictionaryArray
         vt = pt.value_type
         values = ja.dictionary.to_pylist()
-        return HostArray(np.asarray(ja.indices.to_numpy(),
+        return DictionaryArray(np.asarray(ja.indices.to_numpy(),
                                     pt.index_type.np_dtype), mask, pt,
                          dictionary_values(values, vt)
                          if vt.is_binary_like else np.asarray(values,
@@ -355,7 +359,7 @@ def _exact(v):
 
 
 def same_table(got, want, what: str = "") -> None:
-    """A port HostBatch equal to a JAX Table or RecordBatch: names, field
+    """A port HostBatch or Table equal to a JAX Table or RecordBatch: names, field
     types (a dictionary field by its value type where the port codes a
     string), rows, each column as same_array and its Python values
     exactly (floats bit for bit, NaN where NaN)."""
@@ -365,9 +369,10 @@ def same_table(got, want, what: str = "") -> None:
             what, got.schema, want.schema)
     assert got.num_rows == want.num_rows, what
     for i, name in enumerate(want.schema.names):
-        w = want.column(i)
+        w, g = want.column(i), got.column(i)
         if hasattr(w, "combine"):
             w = w.combine()
-        same_array(got.column(i), w, f"{what} {name}")
-        assert _exact(got.column(i).to_pylist()) == _exact(w.to_pylist()), (
-            what, name)
+        if hasattr(g, "combine"):       # a port Table's ChunkedArray
+            g = g.combine()
+        same_array(g, w, f"{what} {name}")
+        assert _exact(g.to_pylist()) == _exact(w.to_pylist()), (what, name)
