@@ -8,7 +8,8 @@ the JAX package)."""
 from typing import Optional
 
 from .. import dtypes as dt
-from .cast import CastOptions, can_cast, cast_device
+from . import cast as _cast
+from .cast import CastOptions, cast_device
 from .errors import (ArrowError, ArrowIndexError, ArrowInvalid, ArrowKeyError,
                      ArrowNotImplemented)
 from .expression import (Expression, FieldRef, Literal, call,
@@ -50,6 +51,10 @@ def cast(values, target_type: dt.DataType,
                                             "options": options},
                          device=device)
 
+
+def can_cast(from_type: dt.DataType, to_type: dt.DataType) -> bool:
+    """Whether the registry's cast takes `from_type` to `to_type`."""
+    return _cast.can_cast(from_type, to_type)
 
 
 def _wrap1(name: str):

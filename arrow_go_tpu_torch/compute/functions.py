@@ -44,7 +44,7 @@ from ..device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
                             host_array_to_device, host_batch_to_device,
                             list_take_device, nested_array, pad_length,
                             row_mask)
-from ..array.record import ChunkedArray, host_batch
+from ..array.record import ChunkedArray, RecordBatch, Table, host_batch
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from ..ops.decimal import to_ints
@@ -229,6 +229,17 @@ def _filter_column(col: DeviceColumn, mask,
     return _trim(DeviceColumn(v, w, count, col.type, col.dictionary), count)
 
 
+def _like_input(result, values):
+    """A Table's selection as a Table and a RecordBatch's as a
+    RecordBatch, as the JAX package's `_wrap_table` hands them back; any
+    other result (a reader's HostBatch's among them) as it is."""
+    if isinstance(result, HostBatch) and isinstance(values,
+                                                    (Table, RecordBatch)):
+        rb = RecordBatch(result.schema, result.columns, result.num_rows)
+        return Table.from_batches([rb]) if isinstance(values, Table) else rb
+    return result
+
+
 def filter_(values, mask, options: Optional[FilterOptions] = None,
             device=None):
     """The rows where `mask` (a boolean DeviceColumn or HostArray) is
@@ -241,8 +252,13 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
     filters on the host (compute/nested_selection.py), as the JAX
     package routes them. A host input or mask gives a host result, as
     in the JAX package; a ChunkedArray of values or of the mask is
-    combined first, as a HostArray."""
-    values = host_batch(values)
+    combined first, as a HostArray. A Table's result is a Table, a
+    RecordBatch's a RecordBatch."""
+    return _like_input(_filter(host_batch(values), mask, options, device),
+                       values)
+
+
+def _filter(values, mask, options: Optional[FilterOptions], device):
     options = options or FilterOptions()
     values, mask = _combined(values), _combined(mask)
     host_mask = isinstance(mask, HostArray)
@@ -341,8 +357,13 @@ def take(values, indices, options: Optional[TakeOptions] = None,
     HostArray by DeviceColumn indices, moves both to the device, and
     the result comes back to the host, as the JAX package's take does.
     A ChunkedArray of values or indices is combined first, as a
-    HostArray."""
-    values = host_batch(values)
+    HostArray. A Table's result is a Table, a RecordBatch's a
+    RecordBatch."""
+    return _like_input(_take(host_batch(values), indices, options, device),
+                       values)
+
+
+def _take(values, indices, options: Optional[TakeOptions], device):
     options = options or TakeOptions()
     values, indices = _combined(values), _combined(indices)
     if isinstance(values, (HostBatch, HostArray)) and isinstance(
@@ -350,8 +371,8 @@ def take(values, indices, options: Optional[TakeOptions] = None,
         if isinstance(values, HostBatch) or not values.type.on_device:
             indices = column_to_host(indices)
         else:
-            return column_to_host(take(host_array_to_device(
-                values, indices.device), indices, options))
+            return column_to_host(_take(host_array_to_device(
+                values, indices.device), indices, options, device))
     if isinstance(values, HostBatch):
         hidx = _host_take_indices(indices, values.num_rows, options)
         return HostBatch(values.schema,
@@ -361,8 +382,8 @@ def take(values, indices, options: Optional[TakeOptions] = None,
         return nested_selection.take_host_vec(
             values, _host_take_indices(indices, len(values), options))
     if isinstance(indices, HostArray) and isinstance(values, DeviceColumn):
-        return column_to_host(take(values, host_array_to_device(
-            indices, values.device), options))
+        return column_to_host(_take(values, host_array_to_device(
+            indices, values.device), options, device))
     if not isinstance(indices, DeviceColumn):
         raise ArrowNotImplemented(
             f"take of {type(values).__name__} by {type(indices).__name__}")
@@ -546,20 +567,37 @@ def sort(values, options: Optional[SortOptions] = None, *,
 # scalar aggregates (reference compute "sum"/"min_max"/"count"/"mean")
 # ---------------------------------------------------------------------------
 
-def _as_device(values, what: str = "") -> DeviceColumn:
-    """`values` as a DeviceColumn (a ChunkedArray combined and moved to
-    the card, as the JAX package moves it to its device); naming `what`
-    refuses a decimal128 / decimal256 column (the JAX package has no
-    such aggregate or set operation: it fails there on the limb
-    matrix's shape)."""
-    if isinstance(values, ChunkedArray):
-        values = host_array_to_device(values.combine(), torchenv.device())
+def _as_device(values, what: str = "", device=None,
+               pad: Optional[int] = None) -> DeviceColumn:
+    """`values` as a DeviceColumn: a ChunkedArray combined, and a
+    HostArray moved to `device` (the card unless named; padded to `pad`
+    when given), as the JAX package moves host input to its device.
+    Naming `what` refuses a decimal128 / decimal256 column (the JAX
+    package has no such aggregate or set operation: it fails there on
+    the limb matrix's shape)."""
+    values = _combined(values)
+    if isinstance(values, HostArray):
+        values = host_array_to_device(values, torchenv.device(device), pad)
     if not isinstance(values, DeviceColumn):
         raise ArrowNotImplemented(
-            f"the port aggregates DeviceColumns, got {type(values).__name__}")
+            f"expected an array or a DeviceColumn, got "
+            f"{type(values).__name__}")
     if what and values.type.limbs:
         raise ArrowNotImplemented(f"{what} of {values.type}")
     return values
+
+
+def _maybe_host(result, *inputs):
+    """`result` on the host when any input was a host array or batch,
+    as the JAX package's `_maybe_host` hands it back."""
+    if not any(isinstance(i, (HostArray, ChunkedArray, HostBatch))
+               for i in inputs):
+        return result
+    if isinstance(result, DeviceColumn):
+        return column_to_host(result)
+    if isinstance(result, DeviceBatch):
+        return device_batch_to_host(result)
+    return result
 
 
 def _n_valid(col: DeviceColumn) -> int:
@@ -610,33 +648,34 @@ def _agg_result(acc, t: dt.DataType, op: str):
     return acc
 
 
-def _reduce(values, op: str):
+def _reduce(values, op: str, device=None):
     """One masked reduction as a Python scalar; None when no row is
     valid. The accumulator and the valid count come from one K3 launch
     and one device-to-host copy. A decimal32 / decimal64 column reduces
-    its unscaled ints, as the JAX package does."""
-    col = _as_device(values, op)
+    its unscaled ints, as the JAX package does. Host input reduces on
+    `device` (the card unless named)."""
+    col = _as_device(values, op, device)
     acc, count = reductions.reduce_with_count_host(
         _agg_operand(col, op), col.validity, col.length, op)
     return None if count == 0 else _agg_result(acc, col.type, op)
 
 
-def agg_sum(values, options=None):
-    return _reduce(values, "sum")
+def agg_sum(values, options=None, device=None):
+    return _reduce(values, "sum", device)
 
 
-def agg_min(values, options=None):
-    return _reduce(values, "min")
+def agg_min(values, options=None, device=None):
+    return _reduce(values, "min", device)
 
 
-def agg_max(values, options=None):
-    return _reduce(values, "max")
+def agg_max(values, options=None, device=None):
+    return _reduce(values, "max", device)
 
 
-def agg_mean(values, options=None):
+def agg_mean(values, options=None, device=None):
     """Sum over count of the valid rows, in float64, from one K3 launch
     and one device-to-host copy; None when no row is valid."""
-    col = _as_device(values, "mean")
+    col = _as_device(values, "mean", device)
     total, count = reductions.reduce_with_count_host(
         _agg_operand(col, "sum"), col.validity, col.length, "sum")
     if count == 0:
@@ -644,9 +683,10 @@ def agg_mean(values, options=None):
     return float(_agg_result(total, col.type, "sum")) / count
 
 
-def agg_count(values, options: Optional[CountOptions] = None):
+def agg_count(values, options: Optional[CountOptions] = None,
+              device=None):
     options = options or CountOptions()
-    col = _as_device(values)
+    col = _as_device(values, device=device)
     if options.mode == "only_valid":
         return _n_valid(col)
     if options.mode == "only_null":
@@ -654,13 +694,14 @@ def agg_count(values, options: Optional[CountOptions] = None):
     return col.length
 
 
-def min_max(values, options=None):
-    return {"min": agg_min(values), "max": agg_max(values)}
+def min_max(values, options=None, device=None):
+    col = _as_device(values, device=device)
+    return {"min": agg_min(col), "max": agg_max(col)}
 
 
-def agg_count_distinct(values, options=None):
+def agg_count_distinct(values, options=None, device=None):
     """Distinct values, a null counting as one (one host read)."""
-    col = _as_device(values, "count_distinct")
+    col = _as_device(values, "count_distinct", device)
     res = hashing.encode_codes(col.values, col.type, col.validity,
                                col.length, order="key")
     n_unique, has_null = torch.stack([res.n_unique,
@@ -668,29 +709,30 @@ def agg_count_distinct(values, options=None):
     return n_unique + has_null
 
 
-def agg_any(values, options=None):
-    col = _as_device(values, "any")
+def agg_any(values, options=None, device=None):
+    col = _as_device(values, "any", device)
     return bool((col.values & col.validity_mask()).any())
 
 
-def agg_all(values, options=None):
-    col = _as_device(values, "all")
+def agg_all(values, options=None, device=None):
+    col = _as_device(values, "all", device)
     return bool((col.values | ~col.validity_mask()).all())
 
 
-def agg_product(values, options=None):
+def agg_product(values, options=None, device=None):
     """Product of the valid rows (K3), None when there is none; bool and
     every integer type multiply in int64 (uint64 bits), as `jnp.prod`
     promotes them; integer products wrap."""
-    return _reduce(values, "prod")
+    return _reduce(values, "prod", device)
 
 
-def agg_variance(values, options: Optional[VarianceOptions] = None):
+def agg_variance(values, options: Optional[VarianceOptions] = None,
+                 device=None):
     """Population variance (ddof 0) or with `options.ddof`, in float64:
     two K3 sums, of the values (with their count) and of the squared
     deviations from their mean. Unsigned values read unsigned."""
     options = options or VarianceOptions()
-    col = _as_device(values, "variance")
+    col = _as_device(values, "variance", device)
     t = col.type
     x = convert.convert(col.values, t, dt.float64) if (
         t.is_numeric or t == dt.bool_) else col.values.to(torch.float64)
@@ -703,8 +745,9 @@ def agg_variance(values, options: Optional[VarianceOptions] = None):
         return float(np.float64(sq) / np.float64(count - options.ddof))
 
 
-def agg_stddev(values, options: Optional[VarianceOptions] = None):
-    return float(np.sqrt(agg_variance(values, options)))
+def agg_stddev(values, options: Optional[VarianceOptions] = None,
+               device=None):
+    return float(np.sqrt(agg_variance(values, options, device)))
 
 
 # ---------------------------------------------------------------------------
@@ -746,36 +789,39 @@ def _with_null(vals: torch.Tensor, null_at) -> tuple:
     return out, words, n
 
 
-def unique(values, options=None) -> DeviceColumn:
+def unique(values, options=None, device=None):
     """The distinct values in first-occurrence order, a null (if any)
     where it first occurs. A dictionary column's result is a dictionary
-    column of its distinct values."""
-    col = _as_device(values, "unique")
+    column of its distinct values. Host input is hashed on `device`
+    (the card unless named) and its result comes back to the host."""
+    col = _as_device(values, "unique", device)
     _, first, null_at = _first_occurrences(col)
     vals = col.values.index_select(0, first)
     if col.dictionary is None:
         out, words, n = _with_null(vals, null_at)
-        return DeviceColumn(out, words, n, col.type)
+        return _maybe_host(DeviceColumn(out, words, n, col.type), values)
     codes = vals.cpu().numpy()
     k = len(codes)
     out, words, n = _with_null(torch.arange(k, dtype=torch.int32,
                                             device=col.device), null_at)
-    return DeviceColumn(out, words, n, col.type, col.dictionary[codes])
+    return _maybe_host(DeviceColumn(out, words, n, col.type,
+                                    col.dictionary[codes]), values)
 
 
-def dictionary_encode(values, options=None) -> DeviceColumn:
+def dictionary_encode(values, options=None, device=None):
     """int32 codes into a dictionary of the distinct non-null values in
     first-occurrence order; null rows keep their validity (code 0). A
-    dictionary column comes back as it is."""
-    col = _as_device(values, "dictionary_encode")
+    dictionary column comes back as it is. Host input encodes on
+    `device` (the card unless named) and comes back to the host."""
+    col = _as_device(values, "dictionary_encode", device)
     if col.dictionary is not None:
-        return col
+        return _maybe_host(col, values)
     codes, first, _ = _first_occurrences(col)
     dictionary = convert.host_view(
         col.values.index_select(0, first).cpu().numpy(), col.type)
-    return DeviceColumn(torch.where(codes >= 0, codes, 0).to(torch.int32),
-                        col.validity, col.length,
-                        dt.dictionary(dt.int32, col.type), dictionary)
+    return _maybe_host(DeviceColumn(
+        torch.where(codes >= 0, codes, 0).to(torch.int32), col.validity,
+        col.length, dt.dictionary(dt.int32, col.type), dictionary), values)
 
 
 def _with_null_host(vals: np.ndarray, null_at) -> tuple:
@@ -795,10 +841,7 @@ def value_counts(values, options=None, device=None) -> HostArray:
     with its count: one encode, one count scatter and one host read of
     the group-sized results (the JAX package builds the same struct row
     by row). A HostArray counts on `device` (the card unless named)."""
-    col = values if isinstance(values, DeviceColumn) else \
-        host_array_to_device(values, torchenv.device(device)) \
-        if isinstance(values, HostArray) else values
-    col = _as_device(col, "value_counts")
+    col = _as_device(values, "value_counts", device)
     res = hashing.encode_codes(col.values, col.type, col.validity,
                                col.length)
     counts = hashing.value_counts_from_codes(res, col.padded, col.length)
@@ -964,36 +1007,40 @@ def _limb_lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
 
 
 def is_in(values, options: Optional[SetLookupOptions] = None,
-          value_set=None) -> DeviceColumn:
+          value_set=None, device=None):
     """Whether each row's value is in the value set. A null row is true
     when the set holds a null and `skip_nulls` is off, else false; the
-    result has no nulls."""
+    result has no nulls. Host input looks up on `device` (the card
+    unless named) and its result comes back to the host."""
     options = _set_options(options, value_set)
-    col = _as_device(values, "is_in")
+    col = _as_device(values, "is_in", device)
     vset = _set_list(options.value_set, col.type)
     out = _lookup(col, vset) >= 0
     if None in vset and not options.skip_nulls and \
             col.validity is not None:
         out = out | ~bitmap.expand_words(col.validity, col.padded)
-    return DeviceColumn(out & row_mask(col.padded, col.length, col.device),
-                        None, col.length, dt.bool_)
+    return _maybe_host(DeviceColumn(
+        out & row_mask(col.padded, col.length, col.device), None,
+        col.length, dt.bool_), values)
 
 
 def index_in(values, options: Optional[SetLookupOptions] = None,
-             value_set=None) -> DeviceColumn:
+             value_set=None, device=None):
     """The first position of each row's value in the value set (int32),
     null where it is not there. A null row takes the position of the
-    set's first null, if it has one."""
+    set's first null, if it has one. Host input looks up on `device`
+    (the card unless named) and its result comes back to the host."""
     options = _set_options(options, value_set)
-    col = _as_device(values)
+    col = _as_device(values, device=device)
     vset = _set_list(options.value_set, col.type)
     idx = _limb_lookup(col, vset) if col.type.limbs else _lookup(col, vset)
     if None in vset:
         isnull = ~col.validity_mask() & row_mask(col.padded, col.length,
                                                  col.device)
         idx = torch.where(isnull, vset.index(None), idx)
-    return DeviceColumn(torch.where(idx >= 0, idx, 0).to(torch.int32),
-                        bitmap.pack_mask(idx >= 0), col.length, dt.int32)
+    return _maybe_host(DeviceColumn(
+        torch.where(idx >= 0, idx, 0).to(torch.int32),
+        bitmap.pack_mask(idx >= 0), col.length, dt.int32), values)
 
 
 # ---------------------------------------------------------------------------
@@ -1058,14 +1105,15 @@ def _storage_scalar(v, t: dt.DataType):
     return v
 
 
-def fill_null(values, fill_value) -> DeviceColumn:
+def fill_null(values, fill_value, device=None):
     """Null rows take `fill_value` (a scalar or a DeviceColumn's row).
     String operands select in one code space (`_one_code_space`) and the
     result carries its dictionary; a string fill beside a column that is
-    not a string column raises ArrowInvalid."""
-    col = _as_device(values)
+    not a string column raises ArrowInvalid. Host values fill on
+    `device` (the card unless named) and come back to the host."""
+    col = _as_device(values, device=device)
     if col.validity is None:
-        return col
+        return _maybe_host(col, values)
     if _is_dict(col) or _is_dict(fill_value):
         col, fill_value = _one_code_space(col, fill_value,
                                           "fill_null operands")
@@ -1073,19 +1121,26 @@ def fill_null(values, fill_value) -> DeviceColumn:
         torch.full((col.padded,), _storage_scalar(fill_value, col.type),
                    dtype=col.values.dtype, device=col.device)
     isvalid = bitmap.expand_words(col.validity, col.padded)
-    return DeviceColumn(torch.where(isvalid, col.values, fv), None,
-                        col.length, col.type, col.dictionary)
+    return _maybe_host(DeviceColumn(torch.where(isvalid, col.values, fv),
+                                    None, col.length, col.type,
+                                    col.dictionary), values)
 
 
-def if_else(cond, left, right) -> DeviceColumn:
+def if_else(cond, left, right, device=None):
     """left where cond, else right (scalars broadcast; two scalars make
     an int64, float64 or bool column). A null cond gives a null row; the
     result always carries its validity words. String operands select in
     one code space (`_one_code_space`) and the result carries its
     dictionary; a string column beside a column that is not a string
-    column raises ArrowInvalid."""
-    c = _as_device(cond)
+    column raises ArrowInvalid. Host operands select on `device` (the
+    card unless named; host arrays beside a DeviceColumn cond on its
+    device) and the result comes back to the host."""
+    inputs = (cond, left, right)
+    c = _as_device(cond, device=device)
     P, dev = c.padded, c.device
+    left, right = (_as_device(x, device=dev, pad=P)
+                   if isinstance(x, (HostArray, ChunkedArray)) else x
+                   for x in (left, right))
     if _is_dict(left) or _is_dict(right):
         left, right = _one_code_space(left, right, "if_else operands")
     col = left if isinstance(left, DeviceColumn) else right
@@ -1114,8 +1169,9 @@ def if_else(cond, left, right) -> DeviceColumn:
     if c.validity is not None:
         chosen = chosen & bitmap.expand_words(c.validity, P)
     dictionary = col.dictionary if isinstance(col, DeviceColumn) else None
-    return DeviceColumn(torch.where(c.values, lv, rv), bitmap.pack_mask(
-        chosen), c.length, t, dictionary)
+    return _maybe_host(DeviceColumn(torch.where(c.values, lv, rv),
+                                    bitmap.pack_mask(chosen), c.length, t,
+                                    dictionary), *inputs)
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,16 @@
 Port of arrow_go_tpu/compute/registry.py (reference
 arrow/compute/registry.go:30, functions.go Function/Arity/kinds,
 exec.go:191 CallFunction). A name resolves to a Python callable over
-whole DeviceColumns. HostArray arguments move to the device
-(`torchenv.device()`: the card unless the caller named one) and the
-results of such a call come back to the host. While `utils.metrics.
+whole DeviceColumns. HostArray and ChunkedArray arguments move to the
+device (`torchenv.device()`: the card unless the caller named one) and
+the results of such a call come back to the host. While `utils.metrics.
 metrics` is enabled, each call is recorded there (calls, rows, host
 seconds), as in the JAX package: the host clock with no device
 synchronize, so on the card it times the dispatch, not the device work.
 """
 from __future__ import annotations
 
+import decimal
 import enum
 import threading
 from dataclasses import dataclass
@@ -20,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from .. import torchenv
+from ..array.record import ChunkedArray
 from ..device.block import (DeviceColumn, HostArray, column_to_host,
                             host_array_to_device, pad_length)
 from ..utils.metrics import metrics
@@ -145,15 +147,16 @@ def new_child_registry() -> FunctionRegistry:
 
 def _is_scalar(v) -> bool:
     return v is None or isinstance(v, (int, float, bool, str, bytes,
-                                       np.generic))
+                                       decimal.Decimal, np.generic))
 
 
 def call_function(name: str, args: Sequence[Any], options: Any = None,
                   registry: Optional[FunctionRegistry] = None, device=None):
     """The CallFunction entry point (reference compute/exec.go:191).
-    DeviceColumns and scalars pass as they are; HostArrays move to
-    `device` (the card unless named), padded to the widest argument,
-    and the result comes back to the host."""
+    DeviceColumns and scalars (a `decimal.Decimal` too) pass as they
+    are; HostArrays and ChunkedArrays (combined first) move to `device`
+    (the card unless named), padded to the widest argument, and the
+    result comes back to the host."""
     reg = registry or default_registry()
     fn = reg.get_function(name)
     fn.validate_arity(len(args))
@@ -161,6 +164,7 @@ def call_function(name: str, args: Sequence[Any], options: Any = None,
         with metrics.time_op(name):
             return fn.exec(*args, options=options, device=device)
 
+    args = [a.combine() if isinstance(a, ChunkedArray) else a for a in args]
     pad = max([a.padded for a in args if isinstance(a, DeviceColumn)]
               + [pad_length(len(a)) for a in args
                  if isinstance(a, HostArray)], default=None)

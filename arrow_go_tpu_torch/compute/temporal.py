@@ -7,7 +7,9 @@ as int64 vector arithmetic on its device: the calendar decomposition
 uses the branch-free civil-from-days / days-from-civil algorithms
 (Howard Hinnant's public-domain date algorithms), and every division
 is a floor division, so values before 1970 round toward -inf as well.
-UTC and fixed offsets ("+05:30") run on the device; a named zone
+A HostArray or ChunkedArray (combined) moves to `device` (the card
+unless named) and the result is a DeviceColumn there, as the JAX
+package's is. UTC and fixed offsets ("+05:30") run on the device; a named zone
 observes DST, so it takes the host path through `zoneinfo` and the
 result returns to the column's device. `v * tick` wraps in int64 for
 values past about 292 years of nanoseconds, as in the JAX package.
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..device.block import DeviceColumn
+from .. import torchenv
+from ..array.record import ChunkedArray
+from ..device.block import DeviceColumn, host_array_to_device
 from .errors import ArrowInvalid
 
 DAY_NS = 86_400_000_000_000
@@ -248,9 +252,13 @@ def _fixed_offset_ns(tz: str) -> int:
     return sign * (int(hh) * 3600 + int(mm) * 60) * 10**9
 
 
-def _round_temporal(col: DeviceColumn, mode: str, multiple: int, unit: str,
+def _round_temporal(values, mode: str, multiple: int, unit: str,
                     week_starts_monday: bool, ceil_is_strictly_greater: bool,
-                    calendar_based_origin: bool) -> DeviceColumn:
+                    calendar_based_origin: bool, device=None) -> DeviceColumn:
+    if isinstance(values, ChunkedArray):
+        values = values.combine()
+    col = values if isinstance(values, DeviceColumn) else \
+        host_array_to_device(values, torchenv.device(device))
     t = col.type
     if multiple <= 0:
         raise ArrowInvalid("rounding multiple must be positive")
@@ -299,31 +307,36 @@ def _round_temporal(col: DeviceColumn, mode: str, multiple: int, unit: str,
 def floor_temporal(values, multiple: int = 1, unit: str = "day", *,
                    week_starts_monday: bool = True,
                    ceil_is_strictly_greater: bool = False,
-                   calendar_based_origin: bool = False) -> DeviceColumn:
+                   calendar_based_origin: bool = False,
+                   device=None) -> DeviceColumn:
     """Round temporal values down to the nearest multiple of `unit`
-    (reference FloorTemporalKernel, rounding.go:1205)."""
+    (reference FloorTemporalKernel, rounding.go:1205). A DeviceColumn
+    rounds on its device, host input on `device` (the card unless
+    named)."""
     return _round_temporal(values, "floor", multiple, unit,
                            week_starts_monday, ceil_is_strictly_greater,
-                           calendar_based_origin)
+                           calendar_based_origin, device)
 
 
 def ceil_temporal(values, multiple: int = 1, unit: str = "day", *,
                   week_starts_monday: bool = True,
                   ceil_is_strictly_greater: bool = False,
-                  calendar_based_origin: bool = False) -> DeviceColumn:
+                  calendar_based_origin: bool = False,
+                  device=None) -> DeviceColumn:
     """Round temporal values up to the nearest multiple of `unit`
     (reference CeilTemporalKernel, rounding.go:1211)."""
     return _round_temporal(values, "ceil", multiple, unit,
                            week_starts_monday, ceil_is_strictly_greater,
-                           calendar_based_origin)
+                           calendar_based_origin, device)
 
 
 def round_temporal(values, multiple: int = 1, unit: str = "day", *,
                    week_starts_monday: bool = True,
                    ceil_is_strictly_greater: bool = False,
-                   calendar_based_origin: bool = False) -> DeviceColumn:
+                   calendar_based_origin: bool = False,
+                   device=None) -> DeviceColumn:
     """Round temporal values to the nearest multiple of `unit`
     (reference RoundTemporalKernel, rounding.go:1217)."""
     return _round_temporal(values, "half", multiple, unit,
                            week_starts_monday, ceil_is_strictly_greater,
-                           calendar_based_origin)
+                           calendar_based_origin, device)

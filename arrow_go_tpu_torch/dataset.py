@@ -240,28 +240,33 @@ class Dataset:
 
     def scanner(self, columns: Optional[List[str]] = None,
                 filter: Optional[ex.Expression] = None,
-                device=None) -> "Scanner":
-        return Scanner(self, columns, filter, device)
+                use_threads: bool = True, *, device=None) -> "Scanner":
+        return Scanner(self, columns, filter, use_threads, device=device)
 
     def to_table(self, columns: Optional[List[str]] = None,
                  filter: Optional[ex.Expression] = None,
-                 device=None) -> HostBatch:
-        return self.scanner(columns, filter, device).to_table()
+                 use_threads: bool = True, *, device=None) -> HostBatch:
+        return self.scanner(columns, filter, use_threads,
+                            device=device).to_table()
 
     def count_rows(self, filter: Optional[ex.Expression] = None,
                    device=None) -> int:
-        return self.scanner(None, filter, device).count_rows()
+        return self.scanner(None, filter, device=device).count_rows()
 
 
 class Scanner:
     """A projection (`columns`) and a filter over a Dataset. Batches are
-    read and filtered on `device`, the card unless named."""
+    read and filtered on `device`, the card unless named. `use_threads`
+    is the JAX scanner's staging knob (a worker pool over fragments):
+    the port reads the fragments in order, one row group at a time onto
+    the device, with the same rows in the same order."""
 
     def __init__(self, dataset: Dataset, columns=None, filter=None,
-                 device=None):
+                 use_threads: bool = True, *, device=None):
         self.dataset = dataset
         self.columns = columns
         self.filter = filter
+        self.use_threads = use_threads
         self.device = device
         self._guards = _simple_guards(filter) if filter is not None else []
 

@@ -1078,13 +1078,12 @@ class HostBatch:
     def num_columns(self) -> int:
         return len(self.columns)
 
-    def column(self, key: Union[str, int]) -> HostArray:
-        if isinstance(key, str):
-            i = self.schema.field_index(key)
+    def column(self, i: Union[str, int]) -> HostArray:
+        if isinstance(i, str):
+            name, i = i, self.schema.field_index(i)
             if i < 0:
-                raise KeyError(f"no column {key!r}")
-            key = i
-        return self.columns[key]
+                raise KeyError(f"no column {name!r}")
+        return self.columns[i]
 
     def __getitem__(self, key) -> HostArray:
         return self.column(key)

@@ -684,11 +684,11 @@ def type_for_name(name: str) -> DataType:
         unit)
 
 
-def from_numpy_dtype(d) -> DataType:
+def from_numpy_dtype(dt) -> DataType:
     """Type of a numpy dtype: the fixed-width numeric dtypes, and
     datetime64 (D: date32; s/ms/us/ns: timestamp) and timedelta64
     (s/ms/us/ns: duration), as the JAX package maps them."""
-    d = np.dtype(d)
+    d = np.dtype(dt)
     t = _FROM_NUMPY.get(d)
     if t is not None:
         return t
@@ -760,8 +760,8 @@ class Field:
     def with_name(self, name: str) -> "Field":
         return Field(name, self.type, self.nullable, self.metadata)
 
-    def with_type(self, type: DataType) -> "Field":
-        return Field(self.name, type, self.nullable, self.metadata)
+    def with_type(self, dt: DataType) -> "Field":
+        return Field(self.name, dt, self.nullable, self.metadata)
 
     def equals(self, other: "Field", check_metadata: bool = False) -> bool:
         ok = (self.name, self.type, self.nullable) == (

@@ -180,6 +180,12 @@ class StreamWriter:
         self._batch(batch.columns, [f.type for f in self.schema.fields],
                     batch.num_rows)
 
+    def write_table(self, table) -> None:
+        """Write each of `table.to_batches()` (a Table's combined
+        chunks, one batch) as a record batch."""
+        for b in table.to_batches():
+            self.write(b)
+
     def _end(self) -> None:
         if not self._wrote_schema:
             self._write_schema()

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from .. import torchenv
+
 WORD_BITS = 32
 _U32 = 0xFFFFFFFF
 
@@ -89,8 +91,10 @@ def _pad_guard(nwords: int, padded: int, device) -> torch.Tensor:
     return _low_bits(torch.clamp(padded - idx, 0, WORD_BITS))
 
 
-def length_words(padded: int, length, device) -> torch.Tensor:
-    """Packed words of the row mask i < length."""
+def length_words(padded: int, length, device=None) -> torch.Tensor:
+    """Packed words of the row mask i < length, on `device` (the card
+    unless named)."""
+    device = torchenv.device(device)
     nwords = padded // WORD_BITS
     idx = torch.arange(nwords, dtype=torch.int64, device=device) * WORD_BITS
     return _low_bits(torch.clamp(length - idx, 0, WORD_BITS))

@@ -172,9 +172,20 @@ class BloomFilter:
         return bf
 
 
-def build_bloom_filter(hashes: np.ndarray, ndv: int,
+def build_bloom_filter(values, phys: fmt.Type,
                        fpp: float = 0.01) -> BloomFilter:
-    """A filter sized for `ndv` distinct values holding `hashes`."""
+    """A filter sized for the distinct `values` (of physical type
+    `phys`) holding each of them, as the JAX package builds it."""
+    vals = [bytes(v) if isinstance(v, (bytearray, memoryview)) else v
+            for v in values]
+    hashes = np.array([hash_value(v, phys) for v in vals], np.uint64)
+    return _build_from_hashes(hashes, len(set(vals)), fpp)
+
+
+def _build_from_hashes(hashes: np.ndarray, ndv: int,
+                       fpp: float = 0.01) -> BloomFilter:
+    """A filter sized for `ndv` distinct values holding `hashes` (the
+    writer's builder: one vectorized hash of the distinct values)."""
     bf = BloomFilter(optimal_num_blocks(ndv, fpp))
     bf.insert_hashes(hashes)
     return bf
@@ -202,7 +213,7 @@ class AdaptiveBloomFilter:
     distinct hashes counted against the largest, a candidate dropped
     once its expected NDV is exceeded, and the smallest survivor the
     result. The port's writer sizes its filters from the exact count of
-    distinct values instead (build_bloom_filter)."""
+    distinct values instead (_build_from_hashes)."""
 
     _NDV_STEP = 500
 

@@ -58,7 +58,10 @@ def _byte_array_encode(values) -> bytes:
     return out.tobytes()
 
 
-def plain_encode(phys: fmt.Type, values) -> bytes:
+def plain_encode(phys: fmt.Type, values, type_length: int = 0) -> bytes:
+    """PLAIN bytes of `values`: a FIXED_LEN_BYTE_ARRAY or INT96 column
+    as its (n, width) uint8 rows (or, as the JAX package takes it, a
+    sequence of byte strings of `type_length` bytes)."""
     if phys in _PHYS_NP:
         return np.ascontiguousarray(values, dtype=_PHYS_NP[phys]).tobytes()
     if phys == fmt.Type.BOOLEAN:
@@ -67,13 +70,17 @@ def plain_encode(phys: fmt.Type, values) -> bytes:
     if phys == fmt.Type.BYTE_ARRAY:
         return _byte_array_encode(values)
     if phys in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
-        # rows of type_length (or 12) bytes, as an (n, width) uint8 matrix
+        if not isinstance(values, np.ndarray) and len(values) and \
+                isinstance(values[0], (bytes, bytearray, memoryview)):
+            return b"".join(bytes(v) for v in values)
         return np.ascontiguousarray(values, dtype=np.uint8).tobytes()
     raise NotImplementedError(phys)
 
 
-def plain_decode(phys: fmt.Type, data, n: int):
-    """PLAIN values: a numpy array, or a list of bytes for BYTE_ARRAY."""
+def plain_decode(phys: fmt.Type, data, n: int, type_length: int = 0):
+    """PLAIN values: a numpy array, a list of bytes for BYTE_ARRAY and,
+    as in the JAX package, for FIXED_LEN_BYTE_ARRAY (`type_length` bytes
+    each), and an (n, 12) uint8 matrix for INT96."""
     if phys in _PHYS_NP:
         return np.frombuffer(data, dtype=_PHYS_NP[phys], count=n)
     if phys == fmt.Type.BOOLEAN:
@@ -84,6 +91,11 @@ def plain_decode(phys: fmt.Type, data, n: int):
         raw = body.tobytes()
         return [raw[a:b] for a, b in zip([0] + ends[:-1].tolist(),
                                          ends.tolist())]
+    if phys == fmt.Type.FIXED_LEN_BYTE_ARRAY:
+        w = type_length
+        return [bytes(data[i * w:(i + 1) * w]) for i in range(n)]
+    if phys == fmt.Type.INT96:
+        return np.frombuffer(data, np.uint8, count=n * 12).reshape(n, 12)
     raise NotImplementedError(phys)
 
 
@@ -422,23 +434,23 @@ def _delta_lengths(mv: memoryview, n: int):
 # parquet/internal/encoding/byte_stream_split.go)
 # ---------------------------------------------------------------------------
 
-def byte_stream_split_encode(rows: np.ndarray) -> bytes:
+def byte_stream_split_encode(raw: np.ndarray) -> bytes:
     """An (n, width) uint8 matrix of values' little-endian bytes (a
     FIXED_LEN_BYTE_ARRAY column's rows, or a numeric column viewed as
     bytes) -> its `width` planes of n bytes, byte j of every value in
     plane j."""
-    return np.ascontiguousarray(np.asarray(rows, np.uint8).T).tobytes()
+    return np.ascontiguousarray(np.asarray(raw, np.uint8).T).tobytes()
 
 
-def byte_stream_split_decode(data, n: int, width: int) -> np.ndarray:
-    """`width` planes of n bytes -> the (n, width) uint8 matrix of the
-    values' bytes (byte_stream_split_encode's input); a page shorter
-    than its planes raises ArrowInvalid."""
-    if len(data) < n * width:
+def byte_stream_split_decode(data, n: int, byte_width: int) -> np.ndarray:
+    """`byte_width` planes of n bytes -> the (n, byte_width) uint8
+    matrix of the values' bytes (byte_stream_split_encode's input); a
+    page shorter than its planes raises ArrowInvalid."""
+    if len(data) < n * byte_width:
         raise ArrowInvalid(f"BYTE_STREAM_SPLIT page of {len(data)} bytes "
-                           f"holds no {n} values of {width} bytes")
-    planes = np.frombuffer(data, np.uint8, count=n * width)
-    return np.ascontiguousarray(planes.reshape(width, n).T)
+                           f"holds no {n} values of {byte_width} bytes")
+    planes = np.frombuffer(data, np.uint8, count=n * byte_width)
+    return np.ascontiguousarray(planes.reshape(byte_width, n).T)
 
 
 # ---------------------------------------------------------------------------

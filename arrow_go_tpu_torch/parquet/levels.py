@@ -76,15 +76,15 @@ def fsl_storage_field(f: dt.Field) -> dt.Field:
                                                  vf.nullable)), f.nullable)
 
 
-def fsl_storage_data(arr: HostArray) -> HostArray:
+def fsl_storage_data(data: HostArray) -> HostArray:
     """A fixed_size_list column as list storage: offsets i * list_size
     over the same child rows."""
-    k = arr.type.list_size
-    vf = arr.type.value_field
-    offsets = np.arange(len(arr) + 1, dtype=np.int64) * k
-    return HostArray(None, arr.mask, dt.ListType(dt.Field(
+    k = data.type.list_size
+    vf = data.type.value_field
+    offsets = np.arange(len(data) + 1, dtype=np.int64) * k
+    return HostArray(None, data.mask, dt.ListType(dt.Field(
         vf.name, vf.type, vf.nullable)),
-        offsets=offsets.astype(np.int32), children=arr.children)
+        offsets=offsets.astype(np.int32), children=data.children)
 
 
 def map_storage_field(f: dt.Field) -> dt.Field:
@@ -93,11 +93,11 @@ def map_storage_field(f: dt.Field) -> dt.Field:
         "key_value", f.type.value_type, False)), f.nullable)
 
 
-def map_storage_data(arr: HostArray) -> HostArray:
+def map_storage_data(data: HostArray) -> HostArray:
     """A map column as list storage over the same offsets and entries."""
-    return HostArray(None, arr.mask, dt.ListType(dt.Field(
-        "key_value", arr.type.value_type, False)), offsets=arr.offsets,
-        children=arr.children)
+    return HostArray(None, data.mask, dt.ListType(dt.Field(
+        "key_value", data.type.value_type, False)), offsets=data.offsets,
+        children=data.children)
 
 
 def leaf_paths(t: dt.DataType) -> List[Tuple[int, ...]]:

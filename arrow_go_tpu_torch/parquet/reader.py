@@ -46,7 +46,7 @@ import io
 import os
 import struct
 import threading
-from typing import BinaryIO, List, Optional, Union
+from typing import BinaryIO, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -360,15 +360,19 @@ class ParquetFile:
                 if columns is None or f.name in columns]
 
     def read_row_group(self, i: int, columns: Optional[List[str]] = None,
-                       use_threads: bool = True, device=None):
+                       row_range: Optional[Tuple[int, int]] = None,
+                       use_threads: bool = True, *, device=None):
         """Row group i's `columns` (all by default) as a HostBatch, read
-        by read_batch_device on `device`."""
+        by read_batch_device on `device`; `row_range=(start, count)`
+        keeps those rows of the group, as the JAX reader cuts it (the
+        port reads the group whole and cuts it)."""
         from ..device.block import HostBatch, device_batch_to_host
         from .device_read import read_batch_device
         hb = device_batch_to_host(read_batch_device(
             self, i, self._selected(columns), device=device))
-        return HostBatch(dt.Schema(hb.schema.fields, self.schema.metadata),
-                         hb.columns, hb.num_rows)
+        hb = HostBatch(dt.Schema(hb.schema.fields, self.schema.metadata),
+                       hb.columns, hb.num_rows)
+        return hb if row_range is None else hb.slice(*row_range)
 
     def _concat(self, batches: list, columns: Optional[List[str]]):
         from ..dataset import _empty
@@ -408,7 +412,7 @@ class ParquetFile:
             lo, hi = max(offset, row0), min(offset + num_rows, row0 + n)
             if lo < hi:
                 batches.append(self.read_row_group(
-                    i, columns, device=device).slice(lo - row0, hi - lo))
+                    i, columns, (lo - row0, hi - lo), device=device))
             row0 += n
         return self._concat(batches, columns)
 

@@ -512,9 +512,9 @@ def _bloom(phys: fmt.Type, present, page_values: Optional[list],
     else:
         item = present.dtype.itemsize
         uniq = np.unique(np.ascontiguousarray(present).view(f"i{item}"))
-        return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
+        return bloom_mod._build_from_hashes(bloom_mod.hash_values(
             uniq.view(present.dtype), phys), len(uniq), fpp)
-    return bloom_mod.build_bloom_filter(bloom_mod.hash_values(
+    return bloom_mod._build_from_hashes(bloom_mod.hash_values(
         enc._ends_data(rows), phys), len(rows), fpp)
 
 
@@ -572,7 +572,8 @@ def _string_type(dictionary: np.ndarray, t: Optional[dt.DataType]
 
 def _host_column(v: HostArray, mask):
     """A flat HostArray as write_table's (values or (codes, values),
-    mask, type); an extension column as its storage."""
+    mask, type); an extension column as its storage, a dictionary of
+    numbers as its values (the JAX writer writes the value type)."""
     if mask is not None:
         raise ArrowInvalid("a HostArray column carries its validity")
     if v.type.id == dt.TypeId.EXTENSION:
@@ -586,6 +587,11 @@ def _host_column(v: HostArray, mask):
         rows = table[np.clip(v.values, 0, None)] if len(table) else \
             np.zeros((len(v), vt.byte_width), np.uint8)
         return rows, v.mask, vt
+    if not vt.is_binary_like:       # a dictionary of numbers: its values
+        table = np.asarray(v.dictionary)
+        if not len(table):
+            return np.zeros(len(v), vt.np_dtype), v.mask, vt
+        return table[np.clip(v.values, 0, len(table) - 1)], v.mask, vt
     return (v.values, v.dictionary), v.mask, vt
 
 
@@ -706,14 +712,16 @@ class WriterProperties:
 
 def _keyword_properties(names, compression, use_dictionary,
                         dictionary_pagesize_limit, data_page_size,
-                        column_encodings, store_decimal_as_integer,
-                        compression_level, write_statistics,
-                        write_bloom_filters, write_page_index, encryption
-                        ) -> WriterProperties:
-    """write_table's keywords as WriterProperties: the by-name forms of
-    use_dictionary, column_encodings and write_bloom_filters (of the
-    columns `names`) become column properties."""
-    per: Dict[str, dict] = {}
+                        column_properties, column_encodings,
+                        store_decimal_as_integer, compression_level,
+                        write_statistics, write_bloom_filters,
+                        write_page_index, encryption) -> WriterProperties:
+    """write_table's keywords as WriterProperties: `column_properties`,
+    and over them the by-name forms of use_dictionary, column_encodings
+    and write_bloom_filters (of the columns `names`), become column
+    properties."""
+    per: Dict[str, dict] = {name: dict(props) for name, props in
+                            (column_properties or {}).items()}
     for name, e in (column_encodings or {}).items():
         per.setdefault(name, {})["encoding"] = e
     if isinstance(use_dictionary, dict):
@@ -749,30 +757,33 @@ def _batch_columns(hb: HostBatch) -> Dict[str, HostArray]:
     return data
 
 
-def write_table(data: Union[HostBatch, Dict[str, object]], sink,
-                masks: Optional[Dict[str, np.ndarray]] = None,
+def write_table(table: Union[HostBatch, Dict[str, object]], sink,
+                row_group_size: Optional[int] = None,
                 compression: str = "none",
                 use_dictionary: Union[bool, Dict[str, bool]] = True,
-                dictionary_pagesize_limit: int = 1 << 20,
+                write_page_index: bool = False,
+                write_bloom_filters: Union[bool, Sequence[str]] = False,
                 data_page_size: Optional[int] = None,
-                row_group_size: Optional[int] = None,
+                column_properties: Optional[Dict[str, dict]] = None,
+                encryption: Optional[encm.FileEncryptionProperties] = None,
+                properties: Optional[WriterProperties] = None, *,
+                masks: Optional[Dict[str, np.ndarray]] = None,
+                dictionary_pagesize_limit: int = 1 << 20,
                 column_encodings: Optional[Dict[str, str]] = None,
                 types: Optional[Dict[str, dt.DataType]] = None,
                 store_decimal_as_integer: bool = False,
                 int96_timestamps: bool = False,
                 compression_level: Optional[int] = None,
-                write_statistics: bool = True,
-                write_bloom_filters: Union[bool, Sequence[str]] = False,
-                write_page_index: bool = False,
-                encryption: Optional[encm.FileEncryptionProperties] = None,
-                properties: Optional[WriterProperties] = None
-                ) -> None:
-    """Write columns (all of one length) to a parquet file.
+                write_statistics: bool = True) -> None:
+    """Write columns (all of one length) to a parquet file. The
+    parameters up to `properties` are the JAX writer's, by name and in
+    its order; the port's own keywords follow them.
 
-    data:  a HostBatch (its schema's key/value metadata goes into the
-           footer; `_batch_columns` says how its fields are written), or
-           numpy arrays by name; a string (or bytes) column is a numpy
-           str/object array or an (int32 codes, values) pair.
+    table: a HostBatch, a Table or a RecordBatch (the schema's
+           key/value metadata goes into the footer; `_batch_columns`
+           says how its fields are written), or numpy arrays by name;
+           a string (or bytes) column is a numpy str/object array or an
+           (int32 codes, values) pair.
            A HostArray goes as its values, codes and validity (a flat
            one) or through parquet/levels.py (a nested one); an
            extension column as its storage, as the JAX writer writes it.
@@ -788,6 +799,11 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
            default, zstd 3).
     use_dictionary: for every column, or by column name (True for the
            columns not named).
+    column_properties: per-column overrides by column name, as
+           WriterProperties takes them ({"col": {"compression": "zstd",
+           "use_dictionary": False, "encoding": "delta_binary_packed",
+           ...}}); the by-name forms of use_dictionary, column_encodings
+           and write_bloom_filters override them.
     column_encodings: a value encoding by column name, each but "plain"
            with no dictionary: "plain", "delta_binary_packed"
            (INT32/INT64 columns), "delta_length_byte_array" (string and
@@ -814,16 +830,16 @@ def write_table(data: Union[HostBatch, Dict[str, object]], sink,
     encryption: parquet modular encryption of the file (module doc).
     sink:  a path or a binary file object.
     """
-    data = host_batch(data)
+    data = host_batch(table)
     metadata = None
     if isinstance(data, HostBatch):
         metadata = data.schema.metadata
         data = _batch_columns(data)
     p = properties or _keyword_properties(
         list(data), compression, use_dictionary, dictionary_pagesize_limit,
-        data_page_size, column_encodings, store_decimal_as_integer,
-        compression_level, write_statistics, write_bloom_filters,
-        write_page_index, encryption)
+        data_page_size, column_properties, column_encodings,
+        store_decimal_as_integer, compression_level, write_statistics,
+        write_bloom_filters, write_page_index, encryption)
     store_decimal_as_integer = p.store_decimal_as_integer
     comp.codec_for_name(p.compression)          # an unknown codec raises
     masks = dict(masks or {})
@@ -909,7 +925,8 @@ def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
     t = desc.arrow_type
     ptype = desc.physical_type
     if t.is_decimal or ptype in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
-                                 fmt.Type.INT96):
+                                 fmt.Type.INT96) or (
+            leaf.dictionary is not None and not t.is_binary_like):
         if leaf.dictionary is not None:
             return _host_column(leaf, None)[0]
         return _fixed_values(".".join(desc.path), leaf.values, t, ptype)

@@ -106,8 +106,9 @@ without one. Phases:
      and Q10 against the plain version (`dataset_path_checks`);
   13. the distributed tier (arrow_go_tpu_torch.parallel) on one NCCL
      process group of world size 1, every exchange through NCCL's
-     all_to_all: TPC-H Q1's keys with sum, mean, count, min and max of
-     three columns over every lineitem row through distributed_group_by
+     all_to_all, over the first 14,996,512 lineitem rows (about a
+     quarter of SF10's) and every order: TPC-H Q1's keys with sum, mean, count, min
+     and max of three columns through distributed_group_by
      (`dist_q1`); lineitem joined with the orders of a date window by
      make_distributed_join, all six join types (`dist_join`); Zipf(1.1)
      lineitem keys joined with every order, hot_k=16, inner and left
@@ -334,26 +335,42 @@ without one. Phases:
      validity equal to its device words' popcount (`arrays_orders`);
      every K1 and K3 call of the three paths against the plain version
      (`arrays_path_checks`);
-  26. a `kernels` JSON line, then the last line
+  26. the JAX package's host API (hostapi_phases) over the first
+     6,001,215 rows (SF1's lineitem) as a Table of ChunkedArrays in
+     1,048,576-row chunks, every call on host objects, the port moving
+     the data to the card itself: Q6 with its predicate built by the
+     compute wrappers (greater_equal, less, and_, ...), pc.filter of the
+     Table (a Table; K1) and pc.sum of pc.multiply (K3), exact against
+     numpy (`hostapi_q6`); floor_temporal of l_sdate (date32) by month,
+     then unique and value_counts on the host (`hostapi_temporal`);
+     is_in of l_okey against a seeded 1% value set and fill_null of a
+     1%-null l_disc (`hostapi_lookups`); the Table through
+     ipc.new_stream(...).write_table and back, Q6 of the read batch equal
+     to the Table's, and through parquet.write_table with a positional
+     row_group_size, read_row_group(2, row_range=(1000, 50000)) equal to
+     numpy's slice (`hostapi_writers`); every K1 and K3 call of each
+     stage against the plain version (`hostapi_path_checks`);
+  27. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 26 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 27 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 25 against the plain version: a run that times every
+10 to 14 and 18 to 26 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 25 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 26 run only in a tree
 that has their entry points.
 
-With --only flight (or flightsql, examples, encodings, arrays) it runs
-phases 1 and 2, makes the data (but for examples) and runs phase 21 (or
-22, 23, 24, 25) alone, then prints the phase's launches and errors and
-no `kernels` or ok line: a quick check of that phase on the card.
+With --only flight (or flightsql, examples, encodings, arrays, hostapi)
+it runs phases 1 and 2, makes the data (but for examples) and runs phase
+21 (or 22, 23, 24, 25, 26) alone, then prints the phase's launches and
+errors and no `kernels` or ok line: a quick check of that phase on the
+card.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
                              [--only flight|flightsql|examples|encodings|
-                                     arrays]
+                                     arrays|hostapi]
 """
 from __future__ import annotations
 
@@ -3676,6 +3693,10 @@ def zipf_keys(n: int, n_keys: int, dev) -> torch.Tensor:
 
 DIST_TIMED_RUNS = 1     # timed runs a dist path (3 before the encodings
                         # phase: a cut)
+# lineitem rows of the dist paths (all of SF10's before the host-API
+# phase: a cut): about a quarter, a multiple of the streamed group-by's 4
+# chunks, which read no row past the last whole chunk
+DIST_ROWS = LINEITEM_SF10 // 16 * 4
 
 
 def dist_phases(li, orders, dev, card: str,
@@ -3812,7 +3833,8 @@ def _dist_paths(li, orders, dev, card, timing_only) -> dict:
         wants = oracle(join_sums, *host)
         for how in ("inner", "left outer"):
             want = wants[how]
-            kw = {"cap_shuffle": n_li, "cap_out": n_li + n_ord, "how": how}
+            kw = {"cap_shuffle": max(n_li, n_ord), "cap_out": n_li + n_ord,
+                  "how": how}
             fn = pdist.make_distributed_join(mesh, **kw, **hot_kw)
             plain = pdist.make_distributed_join(mesh, **kw)
 
@@ -8084,6 +8106,268 @@ def arrays_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+HOSTAPI_ROWS = LINEITEM_SF1       # rows of the host-API phase (SF1)
+HOSTAPI_CHUNK_ROWS = 1 << 20      # rows a chunk of its Table's columns
+HOSTAPI_TYPES = {"l_okey": dt.int64, "l_price": dt.float64,
+                 "l_disc": dt.float64, "l_qty": dt.int32,
+                 "l_sdate": dt.date32}
+HOSTAPI_SET_SHARE = 0.01          # the is_in value set: 1% of the order keys
+HOSTAPI_NULL_SHARE = 0.01         # l_disc rows made null for fill_null
+HOSTAPI_ROW_GROUP = 2             # read_row_group(2, row_range=...)
+HOSTAPI_ROW_RANGE = (1_000, 50_000)
+
+
+def hostapi_table(li, n: int):
+    """A Table of the first n rows of HOSTAPI_TYPES' columns, each a
+    ChunkedArray of HOSTAPI_CHUNK_ROWS-row HostArrays (views of the
+    arrays; l_sdate typed date32)."""
+    from arrow_go_tpu_torch.array.record import ChunkedArray, Table
+    schema = dt.Schema([dt.Field(c, t) for c, t in HOSTAPI_TYPES.items()])
+    cols = [ChunkedArray([HostArray(li[c][a:min(a + HOSTAPI_CHUNK_ROWS, n)],
+                                    None, t)
+                          for a in range(0, n, HOSTAPI_CHUNK_ROWS)], t)
+            for c, t in HOSTAPI_TYPES.items()]
+    return Table(schema, cols, n)
+
+
+def hostapi_q6(t) -> dict:
+    """TPC-H Q6 in the JAX package's host-API style over a Table (or a
+    batch): the predicate from the columns through the compute wrappers,
+    `pc.filter` of the whole table, `pc.sum` of `pc.multiply`. Each call
+    takes host arrays and moves them to the card itself."""
+    sd, disc, qty = (t.column(c) for c in ("l_sdate", "l_disc", "l_qty"))
+    mask = pc.and_(pc.and_(pc.and_(pc.and_(
+        pc.greater_equal(sd, Q6_DATE_LO), pc.less(sd, Q6_DATE_HI)),
+        pc.greater_equal(disc, Q6_DISC_LO)), pc.less_equal(disc, Q6_DISC_HI)),
+        pc.less(qty, Q6_QTY))
+    kept = pc.filter(t, mask)
+    return {"revenue": pc.sum(pc.multiply(kept.column("l_price"),
+                                          kept.column("l_disc"))),
+            "count": kept.num_rows, "kept_class": type(kept).__name__}
+
+
+def month_floor_oracle(days: np.ndarray) -> np.ndarray:
+    """Each date32 day floored to its month's first day, by numpy."""
+    return days.astype("datetime64[D]").astype("datetime64[M]").astype(
+        "datetime64[D]").astype(np.int64).astype(np.int32)
+
+
+def first_occurrence_counts(v: np.ndarray) -> tuple:
+    """(distinct values in first-occurrence order, each one's count)."""
+    vals, first, counts = np.unique(v, return_index=True, return_counts=True)
+    order = np.argsort(first, kind="stable")
+    return vals[order], counts[order]
+
+
+def hostapi_temporal(t) -> dict:
+    """floor_temporal of the host l_sdate column by month (a DeviceColumn
+    on the card, as the JAX package returns), then `pc.unique` and
+    `pc.value_counts` of it brought to the host."""
+    from arrow_go_tpu_torch.device import from_device
+    months = pc.floor_temporal(t.column("l_sdate"), unit="month")
+    hm = from_device(months)
+    return {"months": hm, "unique": pc.unique(hm),
+            "value_counts": pc.value_counts(hm)}
+
+
+def check_hostapi_temporal(got: dict, days: np.ndarray) -> int:
+    want = month_floor_oracle(days)
+    if not np.array_equal(np.asarray(got["months"].values), want):
+        raise AssertionError("hostapi: floor_temporal by month differs "
+                             "from numpy")
+    vals, counts = first_occurrence_counts(want)
+    u, vc = got["unique"], got["value_counts"]
+    if not isinstance(u, HostArray) or \
+            not np.array_equal(np.asarray(u.values), vals):
+        raise AssertionError("hostapi: unique of the months differs")
+    if not np.array_equal(np.asarray(vc.children[0].values), vals) or \
+            not np.array_equal(np.asarray(vc.children[1].values), counts):
+        raise AssertionError("hostapi: value_counts of the months differs")
+    return len(vals)
+
+
+def hostapi_lookups(t, value_set: HostArray, disc: HostArray) -> dict:
+    """`pc.is_in` of the host l_okey column against a host value set and
+    `pc.fill_null` of a host l_disc with nulls: host results."""
+    return {"is_in": pc.is_in(t.column("l_okey"), value_set=value_set),
+            "fill_null": pc.fill_null(disc, 0.0)}
+
+
+def check_hostapi_lookups(got: dict, okey: np.ndarray, vs: np.ndarray,
+                          disc: np.ndarray, valid: np.ndarray) -> int:
+    hit = np.isin(okey, vs)
+    isin, filled = got["is_in"], got["fill_null"]
+    if not isinstance(isin, HostArray) or isin.mask is not None and \
+            not isin.mask.all() or \
+            not np.array_equal(np.asarray(isin.values), hit):
+        raise AssertionError("hostapi: is_in differs from numpy")
+    want = np.where(valid, disc, 0.0)
+    if not isinstance(filled, HostArray) or filled.null_count or \
+            not np.array_equal(np.asarray(filled.values).view(np.int64),
+                               want.view(np.int64)):
+        raise AssertionError("hostapi: fill_null differs from numpy")
+    return int(hit.sum())
+
+
+def hostapi_write_read(t, root: str) -> dict:
+    """The Table through `ipc.new_stream(...).write_table` and back, Q6 of
+    the read batch; the Table through `parquet.write_table` with a
+    positional row_group_size and row group HOSTAPI_ROW_GROUP's
+    HOSTAPI_ROW_RANGE read back by `read_row_group(row_range=)`."""
+    stream = os.path.join(root, "lineitem.arrows")
+    times = {}
+    t0 = time.perf_counter()
+    with open(stream, "wb") as f:
+        w = agt.ipc.new_stream(f, t.schema)
+        w.write_table(t)
+        w.close()
+    times["ipc_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(stream, "rb") as f:
+        back = agt.ipc.open_stream(f.read()).read_all()
+    times["ipc_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q6 = hostapi_q6(back)
+    times["ipc_q6_s"] = time.perf_counter() - t0
+    path = os.path.join(root, "lineitem.parquet")
+    t0 = time.perf_counter()
+    tpq.write_table(t, path, HOSTAPI_CHUNK_ROWS)
+    times["parquet_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pf = tpq.ParquetFile(path)
+    rg = pf.read_row_group(HOSTAPI_ROW_GROUP, row_range=HOSTAPI_ROW_RANGE)
+    times["row_range_read_s"] = time.perf_counter() - t0
+    return {"q6": q6, "row_groups": pf.num_row_groups, "rows": rg,
+            "bytes": {"ipc": os.path.getsize(stream),
+                      "parquet": os.path.getsize(path)}, **times}
+
+
+def check_hostapi_rows(rg, sub: dict) -> None:
+    """The row_range read equals numpy's slice of each column, bit for
+    bit."""
+    a = HOSTAPI_ROW_GROUP * HOSTAPI_CHUNK_ROWS + HOSTAPI_ROW_RANGE[0]
+    n = HOSTAPI_ROW_RANGE[1]
+    if rg.num_rows != n or rg.schema.names != list(HOSTAPI_TYPES):
+        raise AssertionError(f"hostapi: row_range read {rg.num_rows} rows "
+                             f"of {rg.schema.names}")
+    for c in HOSTAPI_TYPES:
+        col = rg.column(c)
+        want = sub[c][a:a + n]
+        got = np.asarray(col.values)[:n]
+        if col.null_count or not np.array_equal(
+                got.view(f"u{got.dtype.itemsize}"),
+                want.view(f"u{want.dtype.itemsize}")):
+            raise AssertionError(f"hostapi: row_range column {c} differs")
+
+
+def hostapi_phases(li, dev, card: str, timing_only: bool = False) -> dict:
+    """The JAX package's host API on the card, over the first HOSTAPI_ROWS
+    rows (SF1's lineitem) of the SF10 arrays as a Table of ChunkedArrays
+    (HOSTAPI_CHUNK_ROWS-row chunks): every call takes host objects and
+    the port moves the data to the card itself. Q6 through the compute
+    wrappers and `pc.filter` of the Table (K1, K3; `hostapi_q6`);
+    floor_temporal by month, then unique and value_counts on the host
+    (`hostapi_temporal`); is_in against a seeded 1% value set and
+    fill_null of a 1%-null l_disc (`hostapi_lookups`); the Table through
+    an IPC stream's write_table and back with Q6 again, and through
+    parquet.write_table with a positional row_group_size, one row group
+    read back by read_row_group(row_range=) (`hostapi_writers`); each
+    exact against numpy (Q6's revenue within check_q6's tolerance), each
+    stage driven once by run_path, and every K1 and K3 call of each
+    stage held against the plain version (`hostapi_path_checks`; not
+    with `timing_only`). Returns each stage's launch counts and the
+    largest kernel - plain difference."""
+    t_phase = time.perf_counter()
+    n = min(HOSTAPI_ROWS, len(li["l_okey"]))
+    sub = {c: li[c][:n] for c in HOSTAPI_TYPES}
+    t = hostapi_table(li, n)
+    rng = np.random.default_rng(24)
+    n_keys = int(li["l_okey"].max()) + 1
+    vs = np.sort(rng.choice(n_keys, int(n_keys * HOSTAPI_SET_SHARE),
+                            replace=False)).astype(np.int64)
+    value_set = HostArray(vs, None, dt.int64)
+    valid = rng.random(n) >= HOSTAPI_NULL_SHARE
+    disc = HostArray(sub["l_disc"], valid, dt.float64)
+    launches, checks, stages = {}, {}, {}
+
+    def stage(key, name, fn, check, needs):
+        t0 = time.perf_counter()
+        out, launches[name] = run_path(name, fn, needs)
+        stages[key] = time.perf_counter() - t0
+        checked = check(out)
+        checks[key] = (fn, check, name)
+        return out, checked
+
+    q6_want = q6_oracle(sub)
+
+    def check_q6_table(got):
+        if got["kept_class"] != "Table":
+            raise AssertionError(f"hostapi: filter of a Table gave a "
+                                 f"{got['kept_class']}")
+        check_q6(got, q6_want)
+    got, _ = stage("q6", "hostapi Q6", lambda: hostapi_q6(t),
+                   check_q6_table, ("K1", "K3"))
+    print(json.dumps({"hostapi_q6": {
+        "rows": n, "chunks": t.column("l_price").num_chunks,
+        "revenue": got["revenue"], "count": got["count"],
+        "oracle": q6_want, "s": stages["q6"],
+        "launches_per_run": launches["hostapi Q6"], "card": card,
+        "verified": True}}), flush=True)
+
+    out, months = stage(
+        "temporal", "hostapi temporal", lambda: hostapi_temporal(t),
+        lambda o: check_hostapi_temporal(o, sub["l_sdate"]), ("K1", "K2"))
+    print(json.dumps({"hostapi_temporal": {
+        "months": months, "s": stages["temporal"],
+        "launches_per_run": launches["hostapi temporal"], "card": card,
+        "verified": True}}), flush=True)
+
+    out, hits = stage(
+        "lookups", "hostapi lookups",
+        lambda: hostapi_lookups(t, value_set, disc),
+        lambda o: check_hostapi_lookups(o, sub["l_okey"], vs,
+                                        sub["l_disc"], valid), ())
+    print(json.dumps({"hostapi_lookups": {
+        "value_set": len(vs), "is_in_hits": hits,
+        "nulls_filled": int((~valid).sum()), "s": stages["lookups"],
+        "launches_per_run": launches["hostapi lookups"], "card": card,
+        "verified": True}}), flush=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        def check_writers(o):
+            if (o["q6"]["count"], o["q6"]["revenue"]) != (
+                    got["count"], got["revenue"]):
+                raise AssertionError(f"hostapi: Q6 of the IPC read "
+                                     f"{o['q6']}, of the Table {got}")
+            check_hostapi_rows(o["rows"], sub)
+        wr, _ = stage("writers", "hostapi writers",
+                      lambda: hostapi_write_read(t, root), check_writers,
+                      ("K1", "K3"))
+        print(json.dumps({"hostapi_writers": {
+            "row_groups": wr["row_groups"], "bytes": wr["bytes"],
+            "row_range": [HOSTAPI_ROW_GROUP, *HOSTAPI_ROW_RANGE],
+            **{k: v for k, v in wr.items() if k.endswith("_s")},
+            "s": stages["writers"],
+            "launches_per_run": launches["hostapi writers"], "card": card,
+            "verified": True}}), flush=True)
+
+        held = {}
+        if not timing_only:
+            for key, (fn, check, name) in checks.items():
+                if not any(launches[name].values()):
+                    continue
+                o, held[key] = check_path_calls(name, fn, launches[name],
+                                                k3=True)
+                check(o)
+            print(json.dumps({"hostapi_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K2", "K3")}
+    print(json.dumps({"hostapi_phase": {
+        "s": time.perf_counter() - t_phase, "stages_s": stages,
+        "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def _line_end(text: bytes, rows: int) -> int:
     """The offset just past the header and `rows` lines of csv text."""
     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -8100,7 +8384,7 @@ def main(argv=None) -> int:
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
     ap.add_argument("--only", choices=["flight", "flightsql", "examples",
-                                       "encodings", "arrays"],
+                                       "encodings", "arrays", "hostapi"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -8135,6 +8419,10 @@ def main(argv=None) -> int:
         add_q1_columns(li)
         add_join_columns(li, orders)
         out = arrays_phases(li, orders, dev, card)
+    elif args.only == "hostapi":
+        li, _ = make_data(n_li, n_ord)
+        add_quantity(li)
+        out = hostapi_phases(li, dev, card)
     elif args.only == "encodings":
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
@@ -8302,7 +8590,8 @@ def main(argv=None) -> int:
         if importlib.util.find_spec("arrow_go_tpu_torch.dataset"):
             dataset_phases(li, orders, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.parallel.api"):
-            dist_phases(li, orders, dev, card, timing_only=True)
+            dist_phases(_rows(li, 0, DIST_ROWS), orders, dev, card,
+                        timing_only=True)
         if hasattr(agt, "list_take_device"):
             nested_phases(li, orders, dev, card, timing_only=True)
         if importlib.util.find_spec("arrow_go_tpu_torch.formats") and \
@@ -8324,6 +8613,8 @@ def main(argv=None) -> int:
             encodings_phases(li, dev, card, timing_only=True)
         if hasattr(agt, "make_builder"):
             arrays_phases(li, orders, dev, card, timing_only=True)
+        if hasattr(agt.ipc.StreamWriter, "write_table"):
+            hostapi_phases(li, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -8339,7 +8630,7 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, dsets["errs"]["K1"])
     k2_err = max(k2_err, dsets["errs"]["K2"])
     k3_err = max(k3_err, dsets["errs"]["K3"])
-    dists = dist_phases(li, orders, dev, card)
+    dists = dist_phases(_rows(li, 0, DIST_ROWS), orders, dev, card)
     k1_err = max(k1_err, dists["errs"]["K1"])
     k2_err = max(k2_err, dists["errs"]["K2"])
     nested = nested_phases(li, orders, dev, card)
@@ -8380,6 +8671,10 @@ def main(argv=None) -> int:
     arrs = arrays_phases(li, orders, dev, card)
     k1_err = max(k1_err, arrs["errs"]["K1"])
     k3_err = max(k3_err, arrs["errs"]["K3"])
+    hapi = hostapi_phases(li, dev, card)
+    k1_err = max(k1_err, hapi["errs"]["K1"])
+    k2_err = max(k2_err, hapi["errs"]["K2"])
+    k3_err = max(k3_err, hapi["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -8391,7 +8686,8 @@ def main(argv=None) -> int:
                **ipcs["launches"], **fmts["launches"],
                **inter["launches"], **encs["launches"],
                **flights["launches"], **fsql["launches"],
-               **exs["launches"], **pqe["launches"], **arrs["launches"]}
+               **exs["launches"], **pqe["launches"], **arrs["launches"],
+               **hapi["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

@@ -353,3 +353,139 @@ def test_the_parallel_names():
     from arrow_go_tpu_torch.parallel.shuffle import ShuffleResult
     assert GroupAggSpec("sum").agg == "sum"
     assert ShuffleResult._fields == ("data", "counts", "overflow")
+
+
+# ---------------------------------------------------------------------------
+# the signatures: a call written against the JAX package binds the same
+# way on the port
+# ---------------------------------------------------------------------------
+
+# functions and methods (and constructors) whose JAX parameters the port
+# does not take as the JAX package does, each with why
+EXEMPT_SIGNATURES = {
+    "arrow_go_tpu.array.arrays.Array.__init__":
+        "a port array is built from its values, mask, type and "
+        "dictionary; `make_array(data)` takes the JAX ArrayData form "
+        "(ROADMAP §3, PR 22)",
+    "arrow_go_tpu.device.block.batch_to_device":
+        "`batch_to_device(data, device=None, pad=None)` keeps the port's "
+        "argument order (ROADMAP §3, PR 22)",
+    "arrow_go_tpu.dtypes.UnionType.__init__":
+        "the abstract base takes its type id and name; the concrete "
+        "SparseUnionType / DenseUnionType take (fields, type_codes) as "
+        "the JAX ones do",
+    "arrow_go_tpu.ipc.core.collect_body":
+        "IPC plumbing over a HostArray and its type (the JAX one walks "
+        "an ArrayData), with the byte order",
+    "arrow_go_tpu.ipc.core.build_record_batch_parts":
+        "IPC plumbing: the port's columns are HostArrays, typed by the "
+        "schema's field types, with the byte order",
+    "arrow_go_tpu.ipc.core.load_array":
+        "IPC plumbing: the port's reader resolves dictionaries by id and "
+        "field ids",
+    "arrow_go_tpu.ops.decode.parse_delta_segments":
+        "the port's parse reads every width to 64 and the stream's own "
+        "count; its result tuple is its device decode's",
+    "arrow_go_tpu.ops.groupagg.segment_min_max":
+        "the port's group keys are one int64 key; the JAX ones are "
+        "(flag, hi, lo) u32 lanes for the TPU",
+    "arrow_go_tpu.ops.reductions.reduce":
+        "`impl=` picks the TPU's Pallas or XLA path and `mask=` feeds it; "
+        "the port's K3 wrapper picks its path from the tensor",
+    "arrow_go_tpu.ops.reductions.mean":
+        "`impl=` is TPU-only, as for reduce",
+    "arrow_go_tpu.parallel.mesh.make_mesh":
+        "the port's mesh is a torch.distributed group, one process per "
+        "card, not n_devices of one process",
+    "arrow_go_tpu.parallel.mesh.initialize_multihost":
+        "torch.distributed's init_method, world_size and rank take the "
+        "place of the JAX coordinator arguments",
+    "arrow_go_tpu.parallel.multiproc.collect":
+        "gathers over the port's process group, which it is given",
+    "arrow_go_tpu.parallel.multiproc.worker_env":
+        "a worker's environment on torch.distributed has no local "
+        "device list",
+    "arrow_go_tpu.parallel.multiproc.launch":
+        "launches `python -m <module>` workers of one card each; core "
+        "pinning and local device lists are JAX-process knobs",
+    "arrow_go_tpu.parallel.shuffle.shuffle_shard_fn":
+        "the shard function runs over the port's process group, not a "
+        "part count of one process's devices",
+}
+
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _callables():
+    """(key, JAX callable, port callable) for every public function and
+    every public method or constructor of a public class that a JAX
+    module defines and the port's module of the same path also has."""
+    out = []
+    for _, module in MODULES:
+        if module in EXEMPT_MODULES:
+            continue
+        jm = importlib.import_module(module)
+        tm = importlib.import_module(
+            module.replace("arrow_go_tpu", "arrow_go_tpu_torch", 1))
+        for name, obj in vars(jm).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != jm.__name__ or not hasattr(tm, name):
+                continue
+            if inspect.isfunction(obj):
+                out.append((f"{module}.{name}", obj, getattr(tm, name)))
+            elif isinstance(obj, type):
+                port_cls = getattr(tm, name)
+                for attr, m in vars(obj).items():
+                    if attr.startswith("_") and attr != "__init__":
+                        continue
+                    pm = inspect.getattr_static(port_cls, attr, None)
+                    m, pm = (getattr(x, "__func__", x) for x in (m, pm))
+                    if inspect.isfunction(m) and callable(pm):
+                        out.append((f"{module}.{name}.{attr}", m, pm))
+    return out
+
+
+def _params(fn) -> list:
+    return [p for p in inspect.signature(fn).parameters.values()
+            if p.name not in ("self", "cls")]
+
+
+def _signature_faults(jf, tf) -> list:
+    """What a JAX call of `jf` would bind differently on `tf`: a JAX
+    parameter the port lacks, and JAX positional parameters that are not
+    the port's first ones, in order."""
+    jp, tp = _params(jf), _params(tf)
+    names = {p.name for p in tp}
+    faults = [f"lacks {p.name!r}" for p in jp
+              if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
+              and p.name not in names]
+    jpos = [p.name for p in jp if p.kind in _POSITIONAL]
+    tpos = [p.name for p in tp if p.kind in _POSITIONAL]
+    if tpos[:len(jpos)] != jpos:
+        faults.append(f"positional {jpos} but the port's are {tpos}")
+    return faults
+
+
+CALLABLES = _callables()
+
+
+def test_the_signature_walk_covers_the_api():
+    keys = {k for k, _, _ in CALLABLES}
+    assert len(keys) > 900
+    assert {"arrow_go_tpu.parquet.writer.write_table",
+            "arrow_go_tpu.parquet.reader.ParquetFile.read_row_group",
+            "arrow_go_tpu.dataset.Scanner.__init__",
+            "arrow_go_tpu.compute.can_cast"} <= keys
+    assert set(EXEMPT_SIGNATURES) <= keys
+
+
+@pytest.mark.parametrize("key,jf,tf", CALLABLES,
+                         ids=[k for k, _, _ in CALLABLES])
+def test_every_jax_signature_binds_on_the_port(key, jf, tf):
+    faults = _signature_faults(jf, tf)
+    if key in EXEMPT_SIGNATURES:
+        assert faults, f"{key} binds as the JAX one now: take it out of " \
+                       f"EXEMPT_SIGNATURES"
+        return
+    assert faults == [], key

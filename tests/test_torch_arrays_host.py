@@ -177,20 +177,28 @@ def test_chunked_run_end_encode_matches_jax(kind, seed):
 
 def test_chunked_aggregates_combine_on_the_card(monkeypatch):
     """An aggregate of a ChunkedArray combines it and moves it to the
-    card, as the JAX package moves it to its device; with no card that
-    raises, and with the card mapped to the CPU the results are the JAX
-    ones (tests/test_compute.py::test_chunked_array_input)."""
+    card, and one of a HostArray moves it there too, as the JAX package
+    moves both to its device; with no card that raises, and with the
+    card mapped to the CPU the results are the JAX ones
+    (tests/test_compute.py::test_chunked_array_input)."""
     j, t = _both("int64", [[1, 2], [None, 4]])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpc.agg_sum(t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpc.agg_sum(t.combine())
     monkeypatch.setattr(torchenv, "device",
                         lambda dev=None: torch.device("cpu"))
     assert tpc.agg_sum(t) == jpc.sum(j) == 7
     assert tpc.agg_min(t) == jpc.min(j)
     assert tpc.agg_count(t) == jpc.count(j)
+    assert tpc.agg_sum(t.combine()) == jpc.sum(j.combine()) == 7
+    assert tpc.unique(t.combine()).to_pylist() == \
+        jpc.unique(j.combine()).to_pylist()
     jf, tf = _both("float64", _chunks("float64", 4))
     assert tpc.agg_mean(tf) == pytest.approx(jpc.mean(jf), rel=1e-12)
+    assert tpc.agg_mean(tf.combine()) == pytest.approx(
+        jpc.mean(jf.combine()), rel=1e-12)
 
 
 # ---------------------------------------------------------------------------

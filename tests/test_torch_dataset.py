@@ -545,3 +545,44 @@ def test_string_pages_of_each_encoding(tpch, encoding):
         assert list(tc.dictionary) == jc.dictionary.to_pylist()
         np.testing.assert_array_equal(tc.values[:tb.length].numpy(),
                                       np.asarray(jc.values)[:jb.length])
+
+
+# ---------------------------------------------------------------------------
+# use_threads in the JAX position (the JAX scanner's worker pool; the
+# port's staging knob): the same rows either way, and a JAX call's
+# positional arguments bind as in the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("use_threads", [True, False])
+def test_dataset_parallel_scan_matches_serial_as_jax(pq_dir, use_threads):
+    """tests/test_dataset.py::test_dataset_parallel_scan_matches_serial."""
+    jf, tf = _both("less", "id", 250)
+    want = jdataset(pq_dir).to_table(["id", "v"], jf, use_threads)
+    got = dataset(pq_dir).to_table(["id", "v"], tf, use_threads, device=CPU)
+    _same_table(got, want)
+    assert got.num_rows == 250
+    assert got.to_pydict() == dataset(pq_dir).to_table(
+        columns=["id", "v"], filter=tf, use_threads=not use_threads,
+        device=CPU).to_pydict()
+
+
+def test_scanner_takes_use_threads_positionally_as_jax(pq_dir):
+    from arrow_go_tpu.dataset import Scanner as JScanner
+    from arrow_go_tpu_torch.dataset import Scanner
+    jf, tf = _both("greater_equal", "id", 120)
+    ds, jds = dataset(pq_dir), jdataset(pq_dir)
+    for use_threads in (True, False):
+        sc = ds.scanner(["id"], tf, use_threads, device=CPU)
+        assert sc.use_threads is use_threads and sc.device == CPU
+        _same_table(sc.to_table(), jds.scanner(["id"], jf,
+                                               use_threads).to_table())
+        _same_table(Scanner(ds, ["id", "cat"], tf, use_threads,
+                            device=CPU).to_table(),
+                    JScanner(jds, ["id", "cat"], jf, use_threads).to_table())
+
+
+def test_a_device_passed_by_position_is_refused(pq_dir):
+    """`device` is keyword-only after use_threads: a positional third
+    argument is use_threads, as in the JAX package."""
+    with pytest.raises(TypeError):
+        dataset(pq_dir).to_table(None, None, True, CPU)

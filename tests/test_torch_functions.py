@@ -632,3 +632,216 @@ def test_filter_of_host_arrays_and_batches_matches_jax(cols,
         assert got == want or np.allclose(
             [np.nan if x is None else x for x in got],
             [np.nan if x is None else x for x in want], equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# host input: a HostArray or a ChunkedArray moves to the device (the JAX
+# `_as_device`) and a host input gets a host result back (`_maybe_host`)
+# ---------------------------------------------------------------------------
+
+HOST_COLS = ["i32", "i64", "f64", "s", "b", "small"]
+
+
+def _host_pair(cols, col, form):
+    """Column `col` of both batches on the host: as one array, or as a
+    ChunkedArray of three chunks (one of them a single row)."""
+    import arrow_go_tpu as jagt
+    import arrow_go_tpu_torch as tagt
+    jdb, tdb = cols
+    ja, ta = from_device(jdb.column(col)), column_to_host(tdb.column(col))
+    if form == "array":
+        return ja, ta
+    cuts = [(0, 250), (250, 251), (251, N)]
+    return (jagt.ChunkedArray([ja.slice(a, b - a) for a, b in cuts]),
+            tagt.ChunkedArray([ta.slice(a, b - a) for a, b in cuts]))
+
+
+def _host_result(got):
+    from arrow_go_tpu_torch.device.block import HostArray
+    assert isinstance(got, HostArray), type(got)
+    return got
+
+
+@pytest.mark.parametrize("col", HOST_COLS)
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_unique_of_host_input_matches_jax(cols, col, form):
+    ja, ta = _host_pair(cols, col, form)
+    got = _host_result(pc.unique(ta, device="cpu"))
+    assert _pylist_nan(got.to_pylist()) == _pylist_nan(
+        jf.unique(ja).to_pylist())
+
+
+@pytest.mark.parametrize("col", ["i32", "i64", "f64", "small"])
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_dictionary_encode_of_host_input_matches_jax(cols, col, form):
+    ja, ta = _host_pair(cols, col, form)
+    got = _host_result(pc.dictionary_encode(ta, device="cpu"))
+    want = jf.dictionary_encode(ja)
+    assert _pylist_nan(got.to_pylist()) == _pylist_nan(want.to_pylist())
+    codes = want.indices.to_pylist()
+    valid = np.array([i is not None for i in codes])
+    np.testing.assert_array_equal(
+        np.asarray(got.values)[valid],
+        np.asarray([i for i in codes if i is not None], np.int32))
+    assert _pylist_nan(got.dictionary.tolist()) == _pylist_nan(
+        want.dictionary.to_pylist())
+
+
+@pytest.mark.parametrize("col,which", SET_CASES)
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_set_lookups_of_host_input_match_jax(cols, col, which, form):
+    ja, ta = _host_pair(cols, col, form)
+    vset = SETS[col][which]
+    for skip in (False, True):
+        got = _host_result(pc.is_in(ta, pc.SetLookupOptions(vset, skip),
+                                    device="cpu"))
+        assert got.to_pylist() == jf.is_in(
+            ja, jf.SetLookupOptions(vset, skip)).to_pylist()
+    got = _host_result(pc.index_in(ta, value_set=vset, device="cpu"))
+    assert got.to_pylist() == jf.index_in(ja, value_set=vset).to_pylist()
+
+
+@pytest.mark.parametrize("col", ["i32", "f64", "i64", "b"])
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_fill_null_of_host_input_matches_jax(cols, col, form):
+    ja, ta = _host_pair(cols, col, form)
+    fill = {"i32": 7, "f64": -1.0, "i64": 0, "b": True}[col]
+    got = _host_result(pc.fill_null(ta, fill, device="cpu"))
+    assert _pylist_nan(got.to_pylist()) == _pylist_nan(
+        jf.fill_null(ja, fill).to_pylist())
+    assert got.null_count == 0
+
+
+@pytest.mark.parametrize("left,right", [("i32", "amt"), ("f64", 0.5),
+                                        (-4, "i64"), ("b", "c")])
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_if_else_of_host_input_matches_jax(cols, left, right, form):
+    jc, tc = _host_pair(cols, "c", form)
+
+    def arg(which, a):
+        return _host_pair(cols, a, form)[which] if isinstance(a, str) else a
+    got = _host_result(pc.if_else(tc, arg(1, left), arg(1, right),
+                                  device="cpu"))
+    want = jf.if_else(jc, arg(0, left), arg(0, right))
+    assert _pylist_nan(got.to_pylist()) == _pylist_nan(want.to_pylist())
+
+
+def test_if_else_of_host_operands_beside_a_device_cond_matches_jax(cols):
+    jdb, tdb = cols
+    ja, ta = _host_pair(cols, "i32", "array")
+    got = pc.if_else(tdb.column("b"), ta, -1)
+    want = jf.if_else(jdb.column("b"), ja, -1)
+    assert _pylist_nan(got.to_pylist()) == _pylist_nan(want.to_pylist())
+
+
+@pytest.mark.parametrize("fn", ["agg_sum", "agg_min", "agg_max", "agg_mean",
+                                "agg_count", "agg_product", "agg_variance",
+                                "agg_stddev", "agg_count_distinct",
+                                "min_max"])
+@pytest.mark.parametrize("col", ["i32", "i64", "f64", "small"])
+@pytest.mark.parametrize("form", ["array", "chunked"])
+def test_aggregates_of_host_input_match_jax(cols, fn, col, form):
+    ja, ta = _host_pair(cols, col, form)
+    got = getattr(pc, fn)(ta, device="cpu")
+    want = getattr(jf, fn)(ja)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        got, want = list(got.values()), list(want.values())
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=1e-9,
+                               equal_nan=True)
+
+
+def test_any_all_of_host_input_match_jax(cols):
+    for form in ("array", "chunked"):
+        for col in ("b", "c"):
+            ja, ta = _host_pair(cols, col, form)
+            assert pc.agg_any(ta, device="cpu") == jf.agg_any(ja)
+            assert pc.agg_all(ta, device="cpu") == jf.agg_all(ja)
+
+
+def test_value_counts_of_a_chunked_array_matches_jax(cols):
+    ja, ta = _host_pair(cols, "small", "chunked")
+    assert pc.value_counts(ta, device="cpu").to_pylist() == \
+        jf.value_counts(ja).to_pylist()
+
+
+def test_the_decimal128_refusals_stay(cols):
+    """The JAX package fails on a decimal128 column's limb matrix in the
+    aggregates and unique: the port refuses host input there too."""
+    from decimal import Decimal
+
+    import arrow_go_tpu_torch as tagt
+    from arrow_go_tpu.compute.errors import ArrowNotImplemented
+    a = tagt.array([Decimal("1.5"), None, Decimal("2.25")],
+                   tdt.decimal128(10, 2))
+    for fn in (pc.agg_sum, pc.unique, pc.agg_mean):
+        with pytest.raises(Exception) as e:
+            fn(a, device="cpu")
+        assert type(e.value).__name__ == ArrowNotImplemented.__name__
+
+
+# ---------------------------------------------------------------------------
+# a Table's selection is a Table and a RecordBatch's a RecordBatch
+# ---------------------------------------------------------------------------
+
+def _table_pair(cols):
+    """The batch's flat columns as a Table of three chunks a column and
+    as a RecordBatch, in both packages."""
+    import arrow_go_tpu as jagt
+    import arrow_go_tpu_torch as tagt
+    from arrow_go_tpu.device.block import batch_from_device
+    from arrow_go_tpu_torch.device.block import device_batch_to_host
+    jdb, tdb = cols
+    names = ["i32", "i64", "f64", "s", "b"]
+    jhb, thb = batch_from_device(jdb), device_batch_to_host(tdb)
+    jrb = jagt.RecordBatch.from_arrays([jhb.column(n) for n in names], names)
+    trb = tagt.RecordBatch.from_arrays([thb.column(n) for n in names], names)
+    cuts = [(0, 300), (300, 301), (301, N)]
+    jt = jagt.Table.from_batches([jrb.slice(a, b - a) for a, b in cuts])
+    tt = tagt.Table.from_batches([trb.slice(a, b - a) for a, b in cuts])
+    return (jt, tt), (jrb, trb)
+
+
+@pytest.mark.parametrize("form", ["table", "record_batch"])
+@pytest.mark.parametrize("null_selection", ["drop", "emit_null"])
+def test_filter_of_a_table_or_record_batch_keeps_its_class(cols, form,
+                                                           null_selection):
+    """tests/test_nested_selection.py::test_filter_table_returns_table."""
+    import arrow_go_tpu_torch as tagt
+    (jt, tt), (jrb, trb) = _table_pair(cols)
+    jv, tv = (jt, tt) if form == "table" else (jrb, trb)
+    jm, tm = _host_pair(cols, "c", "array")
+    want = jf.filter_(jv, jm, jf.FilterOptions(null_selection))
+    got = pc.filter(tv, tm, pc.FilterOptions(null_selection), device="cpu")
+    assert type(got) is (tagt.Table if form == "table" else tagt.RecordBatch)
+    assert type(want).__name__ == type(got).__name__
+    assert got.num_rows == want.num_rows
+    assert _pylist_nan(got.to_pydict()["f64"]) == _pylist_nan(
+        want.to_pydict()["f64"])
+    assert {k: v for k, v in got.to_pydict().items() if k != "f64"} == \
+        {k: v for k, v in want.to_pydict().items() if k != "f64"}
+
+
+@pytest.mark.parametrize("form", ["table", "record_batch"])
+def test_take_of_a_table_or_record_batch_keeps_its_class(cols, form):
+    import arrow_go_tpu as jagt
+    import arrow_go_tpu_torch as tagt
+    (jt, tt), (jrb, trb) = _table_pair(cols)
+    jv, tv = (jt, tt) if form == "table" else (jrb, trb)
+    idx = np.random.default_rng(9).integers(0, N, 50)
+    want = jf.take(jv, jagt.from_numpy(idx))
+    got = pc.take(tv, tagt.from_numpy(idx), device="cpu")
+    assert type(got) is (tagt.Table if form == "table" else tagt.RecordBatch)
+    assert type(want).__name__ == type(got).__name__
+    assert _pylist_nan(got.to_pydict()["f64"]) == _pylist_nan(
+        want.to_pydict()["f64"])
+    assert got.to_pydict()["s"] == want.to_pydict()["s"]
+
+
+def test_a_readers_host_batch_keeps_its_class(cols):
+    from arrow_go_tpu_torch.device.block import HostBatch, device_batch_to_host
+    _, tdb = cols
+    thb = device_batch_to_host(tdb)
+    got = pc.filter(thb, thb.column("c"), device="cpu")
+    assert type(got) is HostBatch

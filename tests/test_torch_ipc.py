@@ -749,3 +749,70 @@ def test_lz4_linked_blocks_decode():
     want = jnative.lz4_frame_decompress(frame, 10000)
     assert len(want) == 10000 and want[5000:] == first
     assert bytes(native.lz4_frame_decompress(frame, 10000)) == want
+
+
+# ---------------------------------------------------------------------------
+# StreamWriter.write_table / FileWriter.write_table (the JAX writers')
+# ---------------------------------------------------------------------------
+
+def _two_tables():
+    """The same 3-chunk Table (int, float, string with nulls) in both
+    packages."""
+    import arrow_go_tpu_torch as tagt
+    rng = np.random.default_rng(24)
+    n = 500
+    cols = {"x": rng.integers(-9, 9, n).astype(np.int32),
+            "y": rng.normal(size=n),
+            "s": np.array(["a", "bb", "", "ccc"], object)[
+                rng.integers(0, 4, n)]}
+    masks = {c: rng.random(n) > 0.1 for c in cols}
+    cuts = [(0, 200), (200, 201), (201, n)]
+
+    def table(pkg, from_list):
+        batches = []
+        for a, b in cuts:
+            batches.append(pkg.record_batch({
+                c: from_list([None if not masks[c][i] else v[i].item()
+                              if hasattr(v[i], "item") else v[i]
+                              for i in range(a, b)], c)
+                for c, v in cols.items()}))
+        return pkg.Table.from_batches(batches)
+    jtypes = {"x": jdt.int32, "y": jdt.float64, "s": jdt.string}
+    ttypes = {"x": dt.int32, "y": dt.float64, "s": dt.string}
+    return (table(agt, lambda v, c: agt.array(v, jtypes[c])),
+            table(tagt, lambda v, c: tagt.array(v, ttypes[c])))
+
+
+@pytest.mark.parametrize("fmt", ["stream", "file"])
+@pytest.mark.parametrize("compression", [None, "lz4", "zstd"])
+def test_write_table_writes_what_jax_writes(fmt, compression):
+    jt, tt = _two_tables()
+    jbuf, tbuf = io.BytesIO(), io.BytesIO()
+    jw = (jipc.new_stream if fmt == "stream" else jipc.new_file)(
+        jbuf, jt.schema, compression=compression)
+    tw = (ipc.new_stream if fmt == "stream" else ipc.new_file)(
+        tbuf, tt.schema, compression=compression)
+    jw.write_table(jt)
+    tw.write_table(tt)
+    jw.close()
+    tw.close()
+    jopen = jipc.open_stream if fmt == "stream" else jipc.open_file
+    topen = ipc.open_stream if fmt == "stream" else ipc.open_file
+    want = jopen(jbuf.getvalue()).read_all().to_pydict()
+    assert jopen(tbuf.getvalue()).read_all().to_pydict() == want
+    assert topen(tbuf.getvalue()).read_all().to_pydict() == want
+    assert topen(jbuf.getvalue()).read_all().to_pydict() == want
+    if compression is None and fmt == "stream":
+        assert tbuf.getvalue() == jbuf.getvalue()
+
+
+def test_write_table_after_close_raises_as_jax():
+    jt, tt = _two_tables()
+    w = ipc.new_stream(io.BytesIO(), tt.schema)
+    w.close()
+    with pytest.raises(ArrowInvalid):
+        w.write_table(tt)
+    jw = jipc.new_stream(io.BytesIO(), jt.schema)
+    jw.close()
+    with pytest.raises(JArrowInvalid):
+        jw.write_table(jt)

@@ -520,3 +520,207 @@ def test_keyword_path_writes_its_old_bytes(name):
     tpq.write_table(data, buf, masks=masks, **kw)
     assert hashlib.sha256(buf.getvalue()).hexdigest() == \
         KEYWORD_DIGESTS[name]
+
+
+# ---------------------------------------------------------------------------
+# write_table's JAX parameters, by position and by name; read_row_group's
+# row_range; a dictionary of numbers; the JAX bloom builder
+# ---------------------------------------------------------------------------
+
+# the JAX writer's parameters after (table, sink), in its order
+JAX_ARGS = (300, "zstd", False, True, False, 4096,
+            {"f": {"compression": "gzip"}, "s": {"use_dictionary": True}})
+JAX_NAMES = ("row_group_size", "compression", "use_dictionary",
+             "write_page_index", "write_bloom_filters", "data_page_size",
+             "column_properties")
+
+
+def _chunk_facts(blob) -> list:
+    """Per row group: its rows and, per column, (codec, a dictionary page,
+    a page index, a bloom filter)."""
+    md = tpq.ParquetFile(blob).metadata
+    return [(rg.num_rows, [(c.meta_data.codec,
+                            c.meta_data.dictionary_page_offset is not None,
+                            c.offset_index_offset is not None,
+                            c.meta_data.bloom_filter_offset is not None)
+                           for c in rg.columns])
+            for rg in md.row_groups]
+
+
+def test_write_table_binds_the_jax_arguments_positionally():
+    t = _flat_table(1000)
+    jbuf, pbuf, kbuf = io.BytesIO(), io.BytesIO(), io.BytesIO()
+    t = agt.table({k: t.column(k) for k in ("id", "price", "name")})
+    t = agt.table({"id": t.column("id"), "f": t.column("price"),
+                   "s": t.column("name")})
+    jpq.write_table(t, jbuf, *JAX_ARGS)
+    tpq.write_table(_port(t), pbuf, *JAX_ARGS)
+    tpq.write_table(_port(t), kbuf, **dict(zip(JAX_NAMES, JAX_ARGS)))
+    assert pbuf.getvalue() == kbuf.getvalue()
+    facts = _chunk_facts(pbuf.getvalue())
+    assert facts == _chunk_facts(jbuf.getvalue())
+    assert [rows for rows, _ in facts] == [300, 300, 300, 100]
+    assert facts[0][1][1][0] == int(fmt.Codec.GZIP)
+    assert facts[0][1][0][0] == int(fmt.Codec.ZSTD)
+    want = jpq.read_table(jbuf.getvalue()).to_pydict()
+    assert jpq.read_table(pbuf.getvalue()).to_pydict() == want
+    assert _port_read(pbuf.getvalue()).to_pydict() == want
+
+
+@pytest.mark.parametrize("props", [
+    {"f": {"compression": "gzip", "compression_level": 9}},
+    {"id": {"encoding": "delta_binary_packed"}, "s": {"compression": "zstd",
+                                                      "use_dictionary": False}},
+    {"id": {"write_statistics": False}, "f": {"use_dictionary": False}},
+])
+def test_column_properties_write_what_the_jax_writer_writes(props):
+    """tests/test_parquet.py::test_multi_page_and_column_properties and
+    the delta encoders' cases, with the JAX keyword."""
+    t = _flat_table(2000)
+    t = agt.table({"id": t.column("id"), "f": t.column("price"),
+                   "s": t.column("name")})
+    jbuf, pbuf = io.BytesIO(), io.BytesIO()
+    jpq.write_table(t, jbuf, data_page_size=4096, write_page_index=False,
+                    column_properties=props)
+    tpq.write_table(_port(t), pbuf, compression="snappy",
+                    data_page_size=4096, column_properties=props)
+    fp, fj = footer(pbuf.getvalue(), True), footer(jbuf.getvalue(), True)
+    for cp, cj in zip(fp["row_groups"][0]["columns"],
+                      fj["row_groups"][0]["columns"]):
+        assert (cp["codec"], cp["stats"] is None) == \
+            (cj["codec"], cj["stats"] is None), cp["path"]
+        named = props.get(cp["path"][0], {})
+        # a numeric chunk the properties leave alone is dictionary-coded
+        # by the port (test_numeric_dictionary_is_a_recorded_deviation)
+        if "encoding" in named or named.get("use_dictionary") is False:
+            assert (cp["pages"], cp["dictionary"]) == \
+                (cj["pages"], cj["dictionary"]), cp["path"]
+    want = jpq.read_table(jbuf.getvalue()).to_pydict()
+    assert jpq.read_table(pbuf.getvalue()).to_pydict() == want
+    assert _port_read(pbuf.getvalue()).to_pydict() == want
+    assert pa.table(papq.read_table(io.BytesIO(pbuf.getvalue()))) \
+        .to_pydict() == want
+
+
+def test_the_by_name_keywords_win_over_column_properties():
+    data = {"a": np.arange(100, dtype=np.int64),
+            "b": np.arange(100, dtype=np.int64)}
+    buf = io.BytesIO()
+    tpq.write_table(data, buf, column_properties={
+        "a": {"encoding": "plain", "compression": "zstd"},
+        "b": {"use_dictionary": True}},
+        column_encodings={"a": "delta_binary_packed"},
+        use_dictionary={"b": False})
+    pf = tpq.ParquetFile(buf.getvalue())
+    a, b = (c.meta_data for c in pf.metadata.row_groups[0].columns)
+    assert int(fmt.Encoding.DELTA_BINARY_PACKED) in a.encodings
+    assert a.codec == int(fmt.Codec.ZSTD)
+    assert b.dictionary_page_offset is None
+
+
+@pytest.mark.parametrize("row_range", [(0, 10), (17, 283), (290, 10),
+                                       (0, 300), (299, 1)])
+@pytest.mark.parametrize("columns", [None, ["name", "id"]])
+def test_read_row_group_row_range_matches_jax(row_range, columns):
+    t = _flat_table(1000)
+    buf = io.BytesIO()
+    jpq.write_table(t, buf, row_group_size=300)
+    blob = buf.getvalue()
+    jf, tf = jpq.ParquetFile(blob), tpq.ParquetFile(blob)
+    for i in (0, 2):
+        want = jf.read_row_group(i, columns, row_range)
+        got = tf.read_row_group(i, columns, row_range, device="cpu")
+        assert got.num_rows == want.num_rows == row_range[1]
+        assert got.to_pydict() == want.to_pydict()
+        assert tf.read_row_group(i, columns=columns, row_range=row_range,
+                                 use_threads=False, device="cpu"
+                                 ).to_pydict() == want.to_pydict()
+
+
+def test_read_rows_spans_row_groups_through_row_range():
+    t = _flat_table(1000)
+    buf = io.BytesIO()
+    jpq.write_table(t, buf, row_group_size=300)
+    tf = tpq.ParquetFile(buf.getvalue())
+    got = tf.read_rows(250, 400, device="cpu").to_pydict()
+    assert got == t.slice(250, 400).to_pydict()
+
+
+@pytest.mark.parametrize("index", ["int16", "int8", "int32"])
+@pytest.mark.parametrize("value", ["int64", "float64", "int32"])
+def test_a_dictionary_of_numbers_round_trips_as_jax(index, value):
+    """tests/test_fuzz_roundtrips.py::test_canonical_parquet_roundtrip
+    [dictionary]: the JAX writer writes the value type."""
+    import arrow_go_tpu_torch as tagt
+    vals = [7, 9, 7, None, 9, 11] if value != "float64" else \
+        [7.5, 9.0, 7.5, None, 9.0, -1.25]
+    jt = agt.table({"d": agt.array(vals, jdt.dictionary(
+        getattr(jdt, index), getattr(jdt, value)))})
+    tt = tagt.table({"d": tagt.array(vals, tdt.dictionary(
+        getattr(tdt, index), getattr(tdt, value)))})
+    jbuf, pbuf = io.BytesIO(), io.BytesIO()
+    jpq.write_table(jt, jbuf)
+    tpq.write_table(tt, pbuf)
+    want = jpq.read_table(jbuf.getvalue())
+    assert want.to_pydict() == {"d": vals}
+    for blob in (jbuf.getvalue(), pbuf.getvalue()):
+        assert jpq.read_table(blob).to_pydict() == {"d": vals}
+        got = _port_read(blob)
+        assert got.to_pydict() == {"d": vals}
+        assert str(got.schema.field(0).type) == str(want.schema.field(0).type)
+    assert papq.read_table(io.BytesIO(pbuf.getvalue())).to_pydict() == \
+        {"d": vals}
+
+
+def test_a_nested_dictionary_of_numbers_round_trips_as_jax():
+    import arrow_go_tpu_torch as tagt
+    vals = [{"d": 7}, {"d": 9}, None, {"d": None}]
+    jt = agt.table({"s": agt.array(vals, jdt.struct([jdt.Field(
+        "d", jdt.dictionary(jdt.int16, jdt.int64))]))})
+    tt = tagt.table({"s": tagt.array(vals, tdt.struct([tdt.Field(
+        "d", tdt.dictionary(tdt.int16, tdt.int64))]))})
+    jbuf, pbuf = io.BytesIO(), io.BytesIO()
+    jpq.write_table(jt, jbuf)
+    tpq.write_table(tt, pbuf)
+    for blob in (jbuf.getvalue(), pbuf.getvalue()):
+        assert jpq.read_table(blob).to_pydict() == {"s": vals}
+        assert _port_read(blob).to_pydict() == {"s": vals}
+
+
+@pytest.mark.parametrize("phys,values", [
+    ("INT32", list(range(-50, 50))), ("INT64", [1 << 40, 3, 3, -7]),
+    ("DOUBLE", [0.5, -1.25, 0.5, 1e300]), ("FLOAT", [0.5, 2.0]),
+    ("BYTE_ARRAY", [b"a", b"", b"xyz", b"a"]),
+    ("BYTE_ARRAY", ["text", "", "text", "ünï"]),
+    ("FIXED_LEN_BYTE_ARRAY", [b"abcd", b"wxyz"])])
+@pytest.mark.parametrize("fpp", [0.01, 0.1])
+def test_build_bloom_filter_takes_values_as_jax(phys, values, fpp):
+    from arrow_go_tpu.parquet import bloom as jbloom
+    from arrow_go_tpu.parquet import format as jfmt
+    got = tbloom.build_bloom_filter(values, getattr(fmt.Type, phys), fpp)
+    want = jbloom.build_bloom_filter(values, getattr(jfmt.Type, phys), fpp)
+    np.testing.assert_array_equal(got.blocks, want.blocks)
+    assert all(got.check(v, getattr(fmt.Type, phys)) for v in values)
+
+
+def test_the_encoding_helpers_take_the_jax_arguments():
+    from arrow_go_tpu.parquet import encodings as je
+    from arrow_go_tpu.parquet import format as jfmt
+    from arrow_go_tpu_torch.parquet import encodings as te
+    rows = [b"abcd", b"wxyz", b"0123"]
+    blob = je.plain_encode(jfmt.Type.FIXED_LEN_BYTE_ARRAY, rows, 4)
+    assert te.plain_encode(fmt.Type.FIXED_LEN_BYTE_ARRAY, rows,
+                           type_length=4) == blob
+    assert te.plain_decode(fmt.Type.FIXED_LEN_BYTE_ARRAY, blob, 3,
+                           type_length=4) == \
+        je.plain_decode(jfmt.Type.FIXED_LEN_BYTE_ARRAY, blob, 3, 4) == rows
+    i96 = np.arange(24, dtype=np.uint8).tobytes()
+    np.testing.assert_array_equal(
+        te.plain_decode(fmt.Type.INT96, i96, 2),
+        je.plain_decode(jfmt.Type.INT96, i96, 2))
+    raw = np.arange(30, dtype=np.uint8).reshape(10, 3)
+    enc = je.byte_stream_split_encode(raw)
+    assert te.byte_stream_split_encode(raw=raw) == enc
+    np.testing.assert_array_equal(
+        te.byte_stream_split_decode(enc, 10, byte_width=3),
+        je.byte_stream_split_decode(enc, 10, byte_width=3))

@@ -429,8 +429,10 @@ def test_bloom_filter_round_trip_and_sizing():
         for fpp in (0.01, 0.05):
             assert tbloom.optimal_num_blocks(ndv, fpp) == \
                 jbloom.optimal_num_blocks(ndv, fpp)
-    bf = tbloom.build_bloom_filter(
-        tbloom.hash_values(np.arange(1000), tfmt.Type.INT64), 1000)
+    bf = tbloom.build_bloom_filter(range(1000), tfmt.Type.INT64)
+    np.testing.assert_array_equal(
+        bf.blocks, jbloom.build_bloom_filter(range(1000),
+                                             jbloom.fmt.Type.INT64).blocks)
     back = tbloom.BloomFilter.deserialize(bf.serialize())
     np.testing.assert_array_equal(back.blocks, bf.blocks)
     assert bf.serialize() == jbloom.BloomFilter.deserialize(

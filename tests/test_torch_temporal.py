@@ -6,6 +6,7 @@ calendar_based_origin); UTC, a fixed offset and a named zone. Values
 and validity bit for bit."""
 import numpy as np
 import pytest
+import torch
 
 from arrow_go_tpu.compute import temporal as jtemp
 from arrow_go_tpu.compute.errors import ArrowInvalid as JaxInvalid
@@ -125,3 +126,65 @@ def test_a_non_temporal_column_raises_as_jax():
         jtemp.floor_temporal(jax_column(v, None, dt.int64))
     with pytest.raises(pc.ArrowInvalid):
         temporal.floor_temporal(port_column(v, None, dt.int64))
+
+
+# ---------------------------------------------------------------------------
+# host input: a HostArray or a ChunkedArray moves to the device and the
+# result is a DeviceColumn there, as the JAX package's is
+# (tests/test_temporal.py:_ours_vs_oracle)
+# ---------------------------------------------------------------------------
+
+def _host_both(t, form, n=90, seed=3):
+    import arrow_go_tpu as jagt
+    import arrow_go_tpu_torch as tagt
+    from test_torch_types import jax_type
+    rng = np.random.default_rng(seed)
+    v = temporal_values(t, n, rng)
+    mask = rng.random(n) < 0.9
+    ja = jagt.from_numpy(v, mask, jax_type(t))
+    ta = tagt.from_numpy(v, mask, t)
+    if form == "chunked":
+        cuts = [(0, 40), (40, 41), (41, n)]
+        ja = jagt.ChunkedArray([ja.slice(a, b - a) for a, b in cuts])
+        ta = tagt.ChunkedArray([ta.slice(a, b - a) for a, b in cuts])
+    return ja, ta
+
+
+@pytest.mark.parametrize("form", ["array", "chunked"])
+@pytest.mark.parametrize("unit", ["second", "hour", "day", "week", "month",
+                                  "year"])
+@pytest.mark.parametrize("t", [dt.date32, dt.timestamp("ms"),
+                               dt.timestamp("us", "UTC"),
+                               dt.timestamp("s", "+05:30")], ids=str)
+def test_host_input_rounds_on_the_device_as_jax(t, unit, form,
+                                                monkeypatch):
+    from arrow_go_tpu_torch import torchenv
+    from arrow_go_tpu_torch.device.block import DeviceColumn
+    ja, ta = _host_both(t, form)
+    for mode in MODES:
+        want = getattr(jtemp, mode)(ja, multiple=2, unit=unit)
+        got = getattr(pc, mode)(ta, multiple=2, unit=unit, device="cpu")
+        assert isinstance(got, DeviceColumn)
+        same_column(got, want)
+    # without `device`, the port's default device: the card, here mapped
+    # to the CPU as a test may
+    monkeypatch.setattr(torchenv, "device",
+                        lambda dev=None: torch.device("cpu"))
+    same_column(pc.floor_temporal(ta, unit=unit),
+                jtemp.floor_temporal(ja, unit=unit))
+
+
+def test_host_input_without_a_device_needs_the_card(monkeypatch):
+    _, ta = _host_both(dt.date32, "array")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pc.floor_temporal(ta, unit="month")
+
+
+def test_host_input_through_the_registry_matches_jax():
+    import arrow_go_tpu.compute as jpc
+    ja, ta = _host_both(dt.timestamp("ms"), "chunked")
+    opts = {"unit": "minute", "multiple": 15}
+    want = jpc.call_function("round_temporal", [ja], opts)
+    got = pc.call_function("round_temporal", [ta], opts, device="cpu")
+    assert got.to_pylist() == want.to_pylist()
