@@ -8,11 +8,14 @@ its type (block._class_for), so `array`, `from_numpy`, `from_pylist`,
 every port function keeps taking them. The port keeps its one
 representation: numpy values and a bool mask, a string-like or
 fixed_size_binary column as int32 codes into a host dictionary (its
-`type` dictionary<int32, T>, its class T's: StringArray, BinaryArray,
-...), a nested column as child HostArrays. The JAX methods read it:
-`BinaryArray.offsets` / `value_bytes` / `value_lengths` /
-`total_values_bytes` the rows its codes name, `DictionaryArray.indices`
-/ `decode`, `DecimalArray.unscaled_array`, `StructArray.field`.
+`type` T, its class T's: StringArray, BinaryArray, ...; the numpy
+values in `dict_values`), a dictionary column as codes of its index
+type into `dict_values` (a DictionaryArray, whose `dictionary` is an
+Array of the value type), a nested column as child HostArrays. The JAX
+methods read it: `BinaryArray.offsets` / `value_bytes` /
+`value_lengths` / `total_values_bytes` the rows its codes name,
+`DictionaryArray.indices` / `dictionary` / `decode`,
+`DecimalArray.unscaled_array`, `StructArray.field`.
 
 `ArrayData` is the JAX container (type, length, buffers, children,
 dictionary, offset, null count) over the port's Buffers. `Array.data`
@@ -26,11 +29,9 @@ The factories: `array` builds through device/block.from_pylist with the
 type compute/scalars.infer_type gives (a run_end_encoded or list view
 type through its builder), `nulls` through null_array (or
 compute/nested_selection.null_rows), and `from_numpy` wraps the values;
-`concat_arrays` is array/concat.py's. A string column's field type is
-its value type (`field_type`). Where the port's values differ from the
-JAX ones (a coded column's `values` are its codes, a DictionaryArray's
-`dictionary` a numpy array of its values, a nested column's `values`
-None), ROADMAP §3 records it.
+`concat_arrays` is array/concat.py's. Where the port's values differ
+from the JAX ones (a coded column's `values` are its codes, a nested
+column's `values` None), ROADMAP §3 records it.
 """
 from __future__ import annotations
 
@@ -47,23 +48,6 @@ from ..memory import bitutil
 from ..memory.buffer import Buffer
 
 Array = HostArray
-
-
-def field_type(arr: HostArray) -> dt.DataType:
-    """The field type of a HostArray: a dictionary-coded string or binary
-    column (int32 codes) is a column of its value type, as the readers'
-    schemas name it; any other array its own type."""
-    t = arr.type
-    if t.id == dt.TypeId.DICTIONARY and t.value_type.codes_on_device \
-            and t.index_type == dt.int32 and \
-            not isinstance(arr, DictionaryArray):
-        return t.value_type
-    return t
-
-
-def _same_type(got: dt.DataType, want: dt.DataType) -> bool:
-    return got == want or (got.id == dt.TypeId.DICTIONARY
-                           and got.value_type == want)
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +106,9 @@ def array_data(arr: HostArray, t: Optional[dt.DataType] = None
     by default) at offset 0, a run_end_encoded one at its offset."""
     from . import layout
     if t is None:
-        t = field_type(arr)
+        t = arr.type
     bufs, kids = layout.column_buffers(arr, t)
-    children = [c.data if field_type(c) == ct else array_data(c, ct)
+    children = [c.data if c.type == ct else array_data(c, ct)
                 for ct, c in kids]
     dictionary = array_data(layout.dictionary_column(arr, t)) \
         if t.id == dt.TypeId.DICTIONARY else None
@@ -233,12 +217,12 @@ class _CodedBytes(HostArray):
         """Row i's bytes (b"" for a null row, as its layout holds it)."""
         if not self.is_valid(i):
             return b""
-        return _encoded(self.dictionary[int(self.values[i])])
+        return _encoded(self.dict_values[int(self.values[i])])
 
     def value_lengths(self) -> np.ndarray:
         """The byte length of each row (0 for a null row), int64."""
-        lens = np.fromiter((len(_encoded(v)) for v in self.dictionary),
-                           np.int64, len(self.dictionary))
+        lens = np.fromiter((len(_encoded(v)) for v in self.dict_values),
+                           np.int64, len(self.dict_values))
         if not len(lens):
             return np.zeros(self.length, np.int64)
         out = lens[np.asarray(self.values, np.int64)]
@@ -322,26 +306,41 @@ class StructArray(HostArray):
 
 
 class DictionaryArray(HostArray):
-    """An explicit dictionary column: codes of `type.index_type` (its
-    `values`) into `dictionary`, a numpy array of the value type's
-    values (str / bytes objects for a string-like value type)."""
+    """A dictionary column: codes of `type.index_type` (its `values`,
+    `indices` as an Array) into `dictionary`, an Array of the value
+    type as in the JAX package. The values it holds are `dict_values`,
+    a numpy array (str / bytes objects for a string-like value type)."""
 
     @property
     def indices(self) -> HostArray:
         return HostArray(np.asarray(self.values, self.type.index_type.np_dtype),
                          self.mask, self.type.index_type)
 
+    @property
+    def dictionary(self) -> HostArray:
+        """The dictionary's values as an Array of the value type (a
+        string-like one coded over the same values)."""
+        from ..ipc import _dictionary_array
+        return _dictionary_array(self.dict_values, self.type.value_type)
+
+    @dictionary.setter
+    def dictionary(self, values) -> None:
+        if isinstance(values, HostArray):
+            from ..ipc import _dictionary_values
+            values = _dictionary_values(values, self.type.value_type)
+        self.dict_values = values
+
     def decode(self) -> HostArray:
         """dictionary[indices] as a column of the value type (a string-
-        like one coded over the same dictionary)."""
+        like one coded over the same values)."""
         vt = self.type.value_type
         codes = np.asarray(self.values, np.int64)
         if self.mask is not None:
             codes = np.where(self.mask, codes, 0)
         if vt.codes_on_device:
-            return HostArray(codes.astype(np.int32), self.mask,
-                             dt.dictionary(dt.int32, vt), self.dictionary)
-        vals = np.asarray(self.dictionary)
+            return HostArray(codes.astype(np.int32), self.mask, vt,
+                             self.dict_values)
+        vals = np.asarray(self.dict_values)
         out = vals[codes] if len(vals) else np.zeros(len(codes), vals.dtype)
         return HostArray(out, self.mask, vt)
 
@@ -437,7 +436,7 @@ def with_validity(arr: HostArray, mask: np.ndarray) -> HostArray:
                                                       if mask is not None
                                                       else np.ones(len(arr),
                                                                    bool)))
-    out = type(arr)(arr.values, mask, arr.type, arr.dictionary,
+    out = type(arr)(arr.values, mask, arr.type, arr.dict_values,
                     offsets=arr.offsets if arr.type.is_nested else None,
                     children=arr.children, length=arr.length)
     return out

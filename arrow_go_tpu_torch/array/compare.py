@@ -1,9 +1,9 @@
 """HostArray equality, approximate equality and the edit-script diff
 (after arrow_go_tpu/array/compare.py; reference arrow/array/compare.go
 and diff.go). Both arrays are compared by type and length first, then by
-their Python values (`to_pylist`): a dictionary-coded column by the
-values its codes name. The type of a dictionary-coded column is its
-value type here, as a port schema's field carries it.
+their Python values (`to_pylist`): a coded column by the values its
+codes name. A string column and a dictionary<int32, string> column of
+the same values differ, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -12,17 +12,11 @@ from typing import List
 
 import numpy as np
 
-from .. import dtypes as dt
 from ..device.block import HostArray
 
 
-def _value_type(a: HostArray) -> dt.DataType:
-    t = a.type
-    return t.value_type if t.id == dt.TypeId.DICTIONARY else t
-
-
 def array_equal(a: HostArray, b: HostArray) -> bool:
-    if _value_type(a) != _value_type(b) or len(a) != len(b):
+    if a.type != b.type or len(a) != len(b):
         return False
     return a.to_pylist() == b.to_pylist()
 
@@ -31,9 +25,9 @@ def array_approx_equal(a: HostArray, b: HostArray, atol: float = 1e-5,
                        nans_equal: bool = False) -> bool:
     """Elementwise equality with float tolerance
     (reference arrayApproxEqual)."""
-    if _value_type(a) != _value_type(b) or len(a) != len(b):
+    if a.type != b.type or len(a) != len(b):
         return False
-    if not _value_type(a).is_floating:
+    if not a.type.is_floating:
         return array_equal(a, b)
     for x, y in zip(a.to_pylist(), b.to_pylist()):
         if x is None or y is None:

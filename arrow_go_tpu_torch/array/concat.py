@@ -12,7 +12,7 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..device.block import HostArray, concat_host_arrays
-from .arrays import DictionaryArray, _same_type, field_type
+from .arrays import DictionaryArray
 
 
 def concat_arrays(arrays: Sequence[HostArray],
@@ -22,15 +22,15 @@ def concat_arrays(arrays: Sequence[HostArray],
     arrays = list(arrays)
     if not arrays:
         raise ValueError("concat of zero arrays")
-    t = type or field_type(arrays[0])
+    t = type or arrays[0].type
     for a in arrays:
-        if not _same_type(a.type, t):
+        if a.type != t:
             raise ValueError(f"concat type mismatch: {a.type} vs {t}")
     out = concat_host_arrays(arrays)
-    if out.dictionary is None:
+    if out.dict_values is None:
         return out
     codes = out.values if out.mask is None else \
         np.where(out.mask, out.values, 0).astype(out.values.dtype)
     cls = DictionaryArray if isinstance(arrays[0], DictionaryArray) \
         else HostArray
-    return cls(codes, out.mask, out.type, out.dictionary)
+    return cls(codes, out.mask, out.type, out.dict_values)

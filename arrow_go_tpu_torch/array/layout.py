@@ -79,8 +79,8 @@ def fixed_size_rows(arr: HostArray, t: dt.DataType) -> np.ndarray:
     """A coded fixed_size_binary column's rows as an (n, width) uint8
     matrix, a null row zeros."""
     w = t.byte_width
-    table = np.frombuffer(b"".join(arr.dictionary), np.uint8).reshape(
-        -1, w) if len(arr.dictionary) else np.zeros((1, w), np.uint8)
+    table = np.frombuffer(b"".join(arr.dict_values), np.uint8).reshape(
+        -1, w) if len(arr.dict_values) else np.zeros((1, w), np.uint8)
     rows = table[np.asarray(arr.values, np.int64)]
     if arr.mask is not None:
         rows[~arr.mask] = 0
@@ -145,7 +145,7 @@ def column_buffers(arr: HostArray, t: dt.DataType
 def dictionary_column(arr: HostArray, t: dt.DataType) -> HostArray:
     """The values of a dictionary field's dictionary as a column of its
     value type."""
-    return _dictionary_array(arr.dictionary, t.value_type)
+    return _dictionary_array(arr.dict_values, t.value_type)
 
 
 def import_column(t: dt.DataType, length: int, offset: int,
@@ -210,8 +210,7 @@ def import_column(t: dt.DataType, length: int, offset: int,
         codes, values = fixed_size_codes(
             torch.from_numpy(rows),
             None if mask is None else torch.from_numpy(mask))
-        return HostArray(codes.numpy(), mask, dt.dictionary(dt.int32, t),
-                         values)
+        return HostArray(codes.numpy(), mask, t, values)
     if t.limbs:
         return HostArray(array(1, np.int64, total * t.limbs).reshape(
             total, t.limbs)[off:].copy(), mask, t)

@@ -7,9 +7,8 @@ that takes a HostBatch takes one; it adds the JAX constructor's checks
 and static constructors. A Table is a schema plus one ChunkedArray a
 column, kept apart until `combine_chunks`; the port's entry points that
 take a HostBatch take a Table through `host_batch`, which combines its
-chunks. A ChunkedArray's chunks are HostArrays of one field type; a
-chunk whose type is dictionary<int32, T> (a coded string column) counts
-as a chunk of type T, the field type a port schema gives such a column.
+chunks. A ChunkedArray's chunks are HostArrays of its one type, and a
+batch's columns have its fields' types, as the JAX constructors check.
 The compute functions that take a ChunkedArray (filter, take, the
 aggregates, run_end_encode) combine it first, as the JAX ones do.
 """
@@ -19,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 from .. import dtypes as dt
 from ..device.block import HostArray, HostBatch, from_pylist
-from .arrays import _same_type, array, field_type
+from .arrays import array
 
 
 class RecordBatch(HostBatch):
@@ -35,7 +34,7 @@ class RecordBatch(HostBatch):
             if len(c) != num_rows:
                 raise ValueError(f"column {f.name} length {len(c)} != "
                                  f"{num_rows}")
-            if not _same_type(c.type, f.type):
+            if c.type != f.type:
                 raise ValueError(f"column {f.name} type {c.type} != schema "
                                  f"{f.type}")
         super().__init__(schema, list(columns), num_rows)
@@ -48,7 +47,7 @@ class RecordBatch(HostBatch):
         {name: HostArray} dict)."""
         if isinstance(columns, dict):
             names, columns = list(columns), list(columns.values())
-        fields = [dt.Field(n, field_type(c), True)
+        fields = [dt.Field(n, c.type, True)
                   for n, c in zip(names, columns)]
         return RecordBatch(dt.Schema(fields, metadata), columns)
 
@@ -76,7 +75,7 @@ class ChunkedArray:
                 raise ValueError("need type for empty chunked array")
             type = chunks[0].type
         for c in chunks:
-            if not _same_type(c.type, type):
+            if c.type != type:
                 raise ValueError("chunk type mismatch")
         self._chunks = chunks
         self._type = type
@@ -163,7 +162,7 @@ class Column:
     """Field + chunked data (reference arrow.Column, table.go:65)."""
 
     def __init__(self, field: dt.Field, data: ChunkedArray):
-        if not _same_type(data.type, field.type):
+        if data.type != field.type:
             raise ValueError("field/data type mismatch")
         self.field = field
         self.data = data
@@ -209,7 +208,7 @@ class Table:
     @staticmethod
     def from_arrays(columns: Sequence[HostArray],
                     names: Sequence[str]) -> "Table":
-        fields = [dt.Field(n, field_type(c)) for n, c in zip(names, columns)]
+        fields = [dt.Field(n, c.type) for n, c in zip(names, columns)]
         return Table(dt.Schema(fields),
                      [ChunkedArray([c], f.type)
                       for c, f in zip(columns, fields)])

@@ -46,7 +46,6 @@ import numpy as np
 
 from . import dtypes as dt
 from .array import layout
-from .array.arrays import field_type as array_field_type
 from .array.record import host_batch
 from .compute.errors import ArrowInvalid, ArrowNotImplemented
 from .device.block import HostArray, HostBatch, nested_array
@@ -465,9 +464,8 @@ def export_array(arr: HostArray, out_array_ptr, out_schema_ptr=None,
                  field_type: Optional[dt.DataType] = None) -> None:
     """Fill the ArrowArray at `out_array_ptr` (and the ArrowSchema at
     `out_schema_ptr`, a nullable field named "") with `arr` under
-    `field_type` (by default the HostArray's: a dictionary-coded string
-    column's value type)."""
-    t = field_type or array_field_type(arr)
+    `field_type` (by default the HostArray's type)."""
+    t = field_type or arr.type
     _export_into(_as(out_array_ptr, ArrowArray), arr, t)
     if out_schema_ptr is not None:
         export_schema(dt.Field("", t, True), out_schema_ptr)

@@ -26,6 +26,12 @@ _JSON = (".json", ".jsonl", ".ndjson")
 
 
 def _read_any(path: str, device=None):
+    """The file's rows as one batch (a reader's Table combined)."""
+    from .array.record import host_batch
+    return host_batch(_read_file(path, device))
+
+
+def _read_file(path: str, device=None):
     from . import formats, ipc, parquet
     if path.endswith(_PARQUET):
         return parquet.read_table(path, device=device)
@@ -47,7 +53,7 @@ def _read_any(path: str, device=None):
 def _write_any(hb, path: str):
     from . import formats, ipc, parquet
     if path.endswith(_PARQUET):
-        parquet.write_table(hb, path, compression="snappy")
+        parquet.write_table(hb, path)
     elif path.endswith(_IPC_FILE) or path.endswith(".arrows"):
         new = ipc.new_stream if path.endswith(".arrows") else ipc.new_file
         with open(path, "wb") as f:

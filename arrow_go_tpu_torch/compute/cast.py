@@ -159,7 +159,7 @@ def cast_device(col: DeviceColumn, to_t: dt.DataType,
         if not (vt.is_numeric or vt == dt.bool_):
             raise ArrowNotImplemented(f"device cast from {from_t}")
         table = torch.from_numpy(storage_view(np.ascontiguousarray(
-            col.dictionary, vt.np_dtype), vt))
+            col.dict_values, vt.np_dtype), vt))
         if not len(table):
             table = torch.zeros(1, dtype=vt.torch_dtype)
         codes = col.values.to(torch.int64).clamp(0, table.shape[0] - 1)
@@ -254,14 +254,14 @@ def _ticks(delta: _dt.timedelta, t: dt.DataType) -> int:
 
 
 def _string_array(strs, valid, to_t: dt.DataType) -> HostArray:
-    """Python str values (None where not valid) as a dictionary HostArray
-    of `to_t` (a string type, or a binary type of their UTF-8 bytes)."""
+    """Python str values (None where not valid) as a coded HostArray of
+    `to_t` (a string type, or a binary type of their UTF-8 bytes)."""
     vals = np.empty(len(strs), dtype=object)
     vals[:] = [s if to_t.is_utf8 or s is None else s.encode()
                for s in strs]
     codes, dictionary = factorize(vals, valid)
-    return HostArray(codes, None if valid.all() else valid,
-                     dt.dictionary(dt.int32, to_t), dictionary)
+    return HostArray(codes, None if valid.all() else valid, to_t,
+                     dictionary)
 
 
 def _decimal_array(values, valid, to_t: dt.DataType) -> HostArray:
@@ -305,8 +305,9 @@ def _cast_child(child: HostArray, to_t: dt.DataType,
                 options: Optional[CastOptions]) -> HostArray:
     """A list's child cast to its new value type: on the host, a fixed-
     width cast through the plain device cast on the CPU."""
-    t = child.type.value_type if child.dictionary is not None else \
-        child.type
+    if child.type.id == dt.TypeId.DICTIONARY:
+        child = child.decode()
+    t = child.type
     if t == to_t:
         return child
     if _fixed(t) and _fixed(to_t):
@@ -371,9 +372,10 @@ def cast_host(arr: HostArray, to_t: dt.DataType,
               options: Optional[CastOptions] = None) -> HostArray:
     """The host cast path: any cast with a binary-like side, and the
     list casts. A string or binary result (of any of the six binary-like
-    types) is a dictionary HostArray (codes and values); a cast among
-    them re-types the dictionary and keeps the codes, so its cost is the
-    dictionary's, not the column's."""
+    types) is a coded HostArray (codes and values); a cast among them
+    re-types the dictionary and keeps the codes, so its cost is the
+    dictionary's, not the column's. A dictionary column casts as its
+    decoded values."""
     from_t = arr.type
     if from_t == to_t:
         return arr
@@ -381,31 +383,27 @@ def cast_host(arr: HostArray, to_t: dt.DataType,
         return _cast_list(arr, to_t, options)
     if from_t.is_nested or to_t.is_nested:
         raise ArrowNotImplemented(f"cast {from_t} -> {to_t}")
-    if from_t.id == dt.TypeId.DICTIONARY and from_t.value_type.is_binary_like \
-            and to_t.is_binary_like:
-        if from_t.value_type == to_t:
-            return arr
-        # a re-typed dictionary: the codes and the mask stay as they are
-        values = np.empty(len(arr.dictionary), dtype=object)
-        values[:] = [_as_text(v) if to_t.is_utf8 else _as_bytes(v)
-                     for v in arr.dictionary]
-        return HostArray(arr.values, arr.mask, dt.dictionary(dt.int32, to_t),
-                         values)
-    valid = arr.validity_bools()
     if from_t.id == dt.TypeId.DICTIONARY:
-        vt = from_t.value_type
-        if not vt.is_binary_like:
-            decoded = np.asarray(arr.dictionary, vt.np_dtype)[
-                np.clip(arr.values, 0, max(len(arr.dictionary) - 1, 0))]
-            return cast_host(HostArray(decoded, arr.mask, vt), to_t,
-                             options)
+        arr = arr.decode()
+        from_t = arr.type
+        if from_t == to_t:
+            return arr
+    if from_t.is_binary_like and to_t.is_binary_like:
+        # a re-typed dictionary: the codes and the mask stay as they are
+        values = np.empty(len(arr.dict_values), dtype=object)
+        values[:] = [_as_text(v) if to_t.is_utf8 else _as_bytes(v)
+                     for v in arr.dict_values]
+        return HostArray(arr.values, arr.mask, to_t, values)
+    valid = arr.validity_bools()
+    if from_t.is_binary_like:
+        vt = from_t
         out = []
         for code, ok in zip(arr.values.tolist(), valid.tolist()):
             if not ok:
                 out.append(None)
                 continue
             try:
-                out.append(_parse_value(arr.dictionary[code], to_t))
+                out.append(_parse_value(arr.dict_values[code], to_t))
             except (ValueError, ArithmeticError) as e:
                 raise ArrowInvalid(f"cast {vt} -> {to_t}: {e}") from None
         return _typed_array(out, valid, to_t)

@@ -39,8 +39,8 @@ import torch
 from .. import dtypes as dt
 from .. import torchenv
 from ..device.block import (DeviceBatch, DeviceColumn, DeviceListColumn,
-                            HostArray, HostBatch, HostColumn, column_to_host,
-                            device_batch_to_host, factorize,
+                            HostArray, HostBatch, HostColumn, as_dictionary,
+                            column_to_host, device_batch_to_host, factorize,
                             host_array_to_device, host_batch_to_device,
                             list_take_device, nested_array, pad_length,
                             row_mask)
@@ -107,9 +107,9 @@ def _trim(col: DeviceColumn, count: int) -> DeviceColumn:
         words = col.validity[: newP // 32] if col.validity is not None \
             else None
         return DeviceColumn(col.values[:newP], words, count, col.type,
-                            col.dictionary)
+                            col.dict_values)
     return DeviceColumn(col.values, col.validity, count, col.type,
-                        col.dictionary)
+                        col.dict_values)
 
 
 def _filter_batch(mvals, mvalidity, col_vals, col_valids, length,
@@ -211,7 +211,7 @@ def _filter_device_batch(db: DeviceBatch, mask,
                                                                   hidx)))
             continue
         v, w = next(outs)
-        cols.append(_trim(DeviceColumn(v, w, count, c.type, c.dictionary),
+        cols.append(_trim(DeviceColumn(v, w, count, c.type, c.dict_values),
                           count))
     return DeviceBatch(db.schema, cols, count)
 
@@ -226,7 +226,7 @@ def _filter_column(col: DeviceColumn, mask,
                                     [col.values], [col.validity],
                                     col.length, options.null_selection)
     count = int(cnt)
-    return _trim(DeviceColumn(v, w, count, col.type, col.dictionary), count)
+    return _trim(DeviceColumn(v, w, count, col.type, col.dict_values), count)
 
 
 def _like_input(result, values):
@@ -344,7 +344,7 @@ def _take_device_column(col: DeviceColumn, idx: torch.Tensor,
     return DeviceColumn(selection.gather(col.values, idx),
                         selection.take_validity(col.validity, idx, count,
                                                 idx.shape[0]),
-                        count, col.type, col.dictionary)
+                        count, col.type, col.dict_values)
 
 
 def take(values, indices, options: Optional[TakeOptions] = None,
@@ -379,8 +379,12 @@ def _take(values, indices, options: Optional[TakeOptions], device):
                          [nested_selection.take_host_vec(c, hidx) for c in values.columns],
                          len(hidx))
     if isinstance(values, HostArray):
-        return nested_selection.take_host_vec(
+        out = nested_selection.take_host_vec(
             values, _host_take_indices(indices, len(values), options))
+        # the JAX package takes a longer flat column on its device, and
+        # its string-like result comes back as from_device gives it
+        return as_dictionary(out) if values.type.on_device and \
+            len(values) > _HOST_SMALL else out
     if isinstance(indices, HostArray) and isinstance(values, DeviceColumn):
         return column_to_host(_take(values, host_array_to_device(
             indices, values.device), options, device))
@@ -433,8 +437,8 @@ def _host_sort_operand(arr: HostArray, desc: bool, nulls_first: bool):
     ints, and the rank of its null placement."""
     v = np.ascontiguousarray(arr.values)
     d = v.dtype
-    if arr.dictionary is not None:
-        rank = _dictionary_rank(arr.dictionary)
+    if arr.dict_values is not None:
+        rank = _dictionary_rank(arr.dict_values)
         keys = [rank[np.clip(v, 0, len(rank) - 1)].astype(np.uint64)]
     elif v.ndim == 2:
         u = v.view(np.uint64)
@@ -485,8 +489,8 @@ def _column_sort_key(col: DeviceColumn, descending: bool,
     """A device column's sort operand; a dictionary column's codes sort
     by their values' rank (host-computed from the dictionary)."""
     rank = None
-    if col.dictionary is not None:
-        rank = torch.from_numpy(_dictionary_rank(col.dictionary)).to(
+    if col.dict_values is not None:
+        rank = torch.from_numpy(_dictionary_rank(col.dict_values)).to(
             col.device)
     return sort_ops.sort_key(col.values, col.type, col.validity, col.length,
                              descending=descending, nulls_first=nulls_first,
@@ -526,8 +530,10 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
     """Sort indices of a HostArray (returned as a HostArray) or a
     DeviceColumn (returned as a DeviceColumn); of a HostBatch or a
     DeviceBatch by `options.keys` (the record form; a HostArray or a
-    DeviceColumn back). Host input longer than _HOST_SMALL rows sorts on
-    `device` (the card unless named)."""
+    DeviceColumn back). A ChunkedArray is combined first. Host input
+    longer than _HOST_SMALL rows sorts on `device` (the card unless
+    named)."""
+    values = _combined(values)
     nulls_first = ((options.null_placement if options else null_placement)
                    == "at_start")
     if isinstance(values, (HostBatch, DeviceBatch)):
@@ -797,15 +803,17 @@ def unique(values, options=None, device=None):
     col = _as_device(values, "unique", device)
     _, first, null_at = _first_occurrences(col)
     vals = col.values.index_select(0, first)
-    if col.dictionary is None:
+    if col.dict_values is None:
         out, words, n = _with_null(vals, null_at)
         return _maybe_host(DeviceColumn(out, words, n, col.type), values)
     codes = vals.cpu().numpy()
     k = len(codes)
     out, words, n = _with_null(torch.arange(k, dtype=torch.int32,
                                             device=col.device), null_at)
-    return _maybe_host(DeviceColumn(out, words, n, col.type,
-                                    col.dictionary[codes]), values)
+    res = _maybe_host(DeviceColumn(out, words, n, col.type,
+                                   col.dict_values[codes]), values)
+    # a host result is a column of the value type, as the JAX one
+    return res.decode() if isinstance(res, HostArray) else res
 
 
 def dictionary_encode(values, options=None, device=None):
@@ -814,7 +822,7 @@ def dictionary_encode(values, options=None, device=None):
     dictionary column comes back as it is. Host input encodes on
     `device` (the card unless named) and comes back to the host."""
     col = _as_device(values, "dictionary_encode", device)
-    if col.dictionary is not None:
+    if col.dict_values is not None:
         return _maybe_host(col, values)
     codes, first, _ = _first_occurrences(col)
     dictionary = convert.host_view(
@@ -856,11 +864,13 @@ def value_counts(values, options=None, device=None) -> HostArray:
     cnts = counts[:n_unique].cpu().numpy()
     if null_at is not None:
         cnts = np.insert(cnts, null_at, null_count)
-    vtype = col.type.value_type if col.dictionary is not None else col.type
-    st = dt.struct([dt.Field("values", vtype), dt.Field("counts", dt.int64)])
+    uniq = HostArray(vals, mask, col.type, col.dict_values)
+    if col.type.id == dt.TypeId.DICTIONARY:
+        uniq = uniq.decode()
+    st = dt.struct([dt.Field("values", uniq.type),
+                    dt.Field("counts", dt.int64)])
     return nested_array(st, len(cnts), None, [
-        HostArray(vals, mask, col.type, col.dictionary),
-        HostArray(cnts.astype(np.int64), None, dt.int64)])
+        uniq, HostArray(cnts.astype(np.int64), None, dt.int64)])
 
 
 def _scalar_array(v, n: int) -> HostArray:
@@ -870,8 +880,7 @@ def _scalar_array(v, n: int) -> HostArray:
         t = dt.string if isinstance(v, str) else dt.binary
         d = np.empty(1, dtype=object)
         d[0] = v
-        return HostArray(np.zeros(n, np.int32), None,
-                         dt.dictionary(dt.int32, t), d)
+        return HostArray(np.zeros(n, np.int32), None, t, d)
     t = dt.bool_ if isinstance(v, bool) else dt.int64 if isinstance(
         v, int) else dt.float64
     return HostArray(np.full(n, v, t.np_dtype), None, t)
@@ -903,8 +912,7 @@ def make_struct(*args, options=None) -> HostArray:
                 for a in args]
     nullable = list(options.field_nullability or [])
     nullable += [True] * (len(children) - len(nullable))
-    st = dt.struct([dt.Field(nm, c.type.value_type if c.dictionary
-                             is not None else c.type, bool(nb))
+    st = dt.struct([dt.Field(nm, c.type, bool(nb))
                     for nm, c, nb in zip(names, children, nullable)])
     return nested_array(st, n, None, children)
 
@@ -970,12 +978,12 @@ def _set_table(col: DeviceColumn, vset: list):
 def _lookup(col: DeviceColumn, vset: list) -> torch.Tensor:
     """Per row: the first position of its value in the set, -1 when not
     there (null rows included)."""
-    if col.dictionary is not None:
+    if col.dict_values is not None:
         where = {}
         for i, v in enumerate(vset):
             if v is not None:
                 where.setdefault(v, i)
-        table = torch.tensor([where.get(v, -1) for v in col.dictionary]
+        table = torch.tensor([where.get(v, -1) for v in col.dict_values]
                              or [-1], dtype=torch.int32, device=col.device)
         idx = table.index_select(0, col.values.to(torch.int64).clamp(
             0, table.shape[0] - 1))
@@ -1054,9 +1062,9 @@ def shared_dict_codes(a: DeviceColumn, b: DeviceColumn, what: str):
     dictionaries, then one gather per column on its device. Returns (a's
     int32 codes, b's, the merged dictionary). Raises ArrowInvalid unless
     both columns are dictionaries."""
-    if a.dictionary is None or b.dictionary is None:
+    if a.dict_values is None or b.dict_values is None:
         raise ArrowInvalid(f"{what} must both be strings/dictionary")
-    ad, bd = a.dictionary, b.dictionary
+    ad, bd = a.dict_values, b.dict_values
     codes, merged = factorize(np.concatenate([ad, bd]))
 
     def remap(col, table):
@@ -1082,7 +1090,7 @@ def _one_code_space(x, y, what: str):
     x_col = isinstance(x, DeviceColumn)
     col, s = (x, y) if x_col else (y, x)
     if isinstance(s, (str, bytes)):
-        d = col.dictionary
+        d = col.dict_values
         hit = np.flatnonzero(d == s)
         if len(hit):
             s = int(hit[0])
@@ -1094,7 +1102,7 @@ def _one_code_space(x, y, what: str):
 
 
 def _is_dict(x) -> bool:
-    return isinstance(x, DeviceColumn) and x.dictionary is not None
+    return isinstance(x, DeviceColumn) and x.dict_values is not None
 
 
 def _storage_scalar(v, t: dt.DataType):
@@ -1123,7 +1131,7 @@ def fill_null(values, fill_value, device=None):
     isvalid = bitmap.expand_words(col.validity, col.padded)
     return _maybe_host(DeviceColumn(torch.where(isvalid, col.values, fv),
                                     None, col.length, col.type,
-                                    col.dictionary), values)
+                                    col.dict_values), values)
 
 
 def if_else(cond, left, right, device=None):
@@ -1168,7 +1176,7 @@ def if_else(cond, left, right, device=None):
     chosen = torch.where(c.values, lm, rm)
     if c.validity is not None:
         chosen = chosen & bitmap.expand_words(c.validity, P)
-    dictionary = col.dictionary if isinstance(col, DeviceColumn) else None
+    dictionary = col.dict_values if isinstance(col, DeviceColumn) else None
     return _maybe_host(DeviceColumn(torch.where(c.values, lv, rv),
                                     bitmap.pack_mask(chosen), c.length, t,
                                     dictionary), *inputs)
@@ -1319,8 +1327,9 @@ def _exec_cast(a, options=None, device=None):
     """cast's routing: a DeviceColumn casts on its device (to a string
     or decimal type on the host); a HostArray casts on the host when a
     side is binary-like, decimal or nested, else on `device` (the card
-    unless named) and back."""
+    unless named) and back. A ChunkedArray is combined first."""
     from ..device.block import column_to_host
+    a = _combined(a)
     if isinstance(options, dt.DataType):
         to_t, opts = options, None
     elif isinstance(options, dict):

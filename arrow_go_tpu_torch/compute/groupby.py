@@ -4,7 +4,7 @@ Port of arrow_go_tpu/compute/groupby.py: the sort-based grouping core
 (ops/hashing.py) plus segment aggregation in the key-sorted domain
 (ops/groupagg.py), for every aggregation the JAX package takes. The
 group count is read on the host once; then the group-sized results and
-the key representatives come back as a HostBatch.
+the key representatives come back as a RecordBatch.
 
 Null keys form their own group; groups appear in first-occurrence
 order (PARITY.md D3). A dictionary (string) key groups on its int32
@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..device.block import (DeviceBatch, HostArray, HostBatch, _unpack_words,
+from ..array.record import RecordBatch
+from ..device.block import (DeviceBatch, HostArray, _unpack_words,
                             batch_to_device, pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
 from ..ops.convert import as_int64, convert, host_view
@@ -171,16 +172,20 @@ def _segment_agg(enc, skey, v, t, vmask, agg: str, values_sorted,
 
 
 def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
-             device=None) -> HostBatch:
+             device=None) -> RecordBatch:
     """GROUP BY `keys` with aggregations [(column, agg), ...], agg one of
     sum, count, count_all, min, max, mean, product, any, all, first, last.
     `data` is a DeviceBatch, or a HostBatch, RecordBatch or Table, which
     moves to `device` (the card unless named) first.
 
     Output columns: key columns (first-occurrence values) followed by
-    '<col>_<agg>' result columns, as a HostBatch.
+    '<col>_<agg>' result columns, as a RecordBatch. A key column comes
+    back as from_device gives it (a string key of a DeviceBatch as a
+    DictionaryArray), a host input's key column of its own type, as in
+    the JAX package.
     """
-    if not isinstance(data, DeviceBatch):
+    host_input = not isinstance(data, DeviceBatch)
+    if host_input:
         data = batch_to_device(data, device)
     if isinstance(keys, str):
         keys = [keys]
@@ -193,13 +198,13 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
         if c.type.limbs:
             raise ArrowNotImplemented(f"group_by over a {c.type} column")
     for (_, agg), vcol in zip(aggregations, agg_cols):
-        if vcol.dictionary is not None and agg not in ("count", "count_all"):
+        if vcol.dict_values is not None and agg not in ("count", "count_all"):
             raise ArrowNotImplemented(f"{agg} on string/dictionary column")
     n_groups_dev, rep_rows, results = _group_program(
         [c.values for c in key_cols], [c.validity for c in key_cols],
         [c.values for c in agg_cols], [c.validity for c in agg_cols],
         data.length,
-        [dt.int32 if c.dictionary is not None else c.type for c in key_cols],
+        [dt.int32 if c.dict_values is not None else c.type for c in key_cols],
         [agg for _, agg in aggregations], [c.type for c in agg_cols])
 
     # the group COUNT first (one scalar), then only group-sized slices
@@ -216,7 +221,12 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
         kwords = selection.take_validity(c.validity, idx, n_groups, kb)
         kmask = _unpack_words(kwords.cpu().numpy().view(np.uint32),
                               n_groups)
-        out_cols.append(HostArray(kvals, kmask, c.type, c.dictionary))
+        key = HostArray(kvals, kmask, c.type, c.dict_values)
+        if host_input and c.type.id == dt.TypeId.DICTIONARY and \
+                data.schema.field(data.schema.field_index(name)).type.id \
+                != dt.TypeId.DICTIONARY:
+            key = key.decode()
+        out_cols.append(key)
         names.append(name)
     for (col_name, agg), vcol, (res, valid) in zip(aggregations, agg_cols,
                                                    results):
@@ -226,9 +236,9 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
         mask_np = None if valid is None else valid[:n_groups].cpu().numpy()
         out_cols.append(HostArray(res_np, mask_np, t))
         names.append(f"{col_name}_{agg}")
-    return HostBatch(dt.Schema([dt.Field(nm, c.type)
-                                for nm, c in zip(names, out_cols)]),
-                     out_cols, n_groups)
+    return RecordBatch(dt.Schema([dt.Field(nm, c.type)
+                                  for nm, c in zip(names, out_cols)]),
+                       out_cols, n_groups)
 
 
 def _sum_lane(v: torch.Tensor, t: dt.DataType) -> torch.Tensor:

@@ -10,8 +10,8 @@ columns are gathered. Null keys never match (SQL semantics); an outer
 join keeps its outer side's null-key rows, with a null opposite side.
 
 DeviceBatch inputs return a DeviceBatch (inner and the outer types).
-HostBatch inputs (the port's stand-in for the JAX package's RecordBatch
-path) return a HostBatch for all eight types; a long probe side streams
+HostBatch inputs (a RecordBatch or a Table among them: the JAX
+package's RecordBatch path) return a RecordBatch for all eight types; a long probe side streams
 through the join in chunks of `probe_chunk` rows where the join type
 decomposes over probe rows. A carried nested column (a HostColumn, or
 a nested column of a HostBatch) gathers on the host through the pair
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..array.record import host_batch
+from ..array.record import RecordBatch, host_batch
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             HostColumn, concat_host_arrays,
                             device_batch_to_host, host_batch_to_device,
@@ -102,8 +102,8 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
 
     DeviceBatch in (either side; a HostBatch beside it moves to its
     device): the joined columns stay on the device and a DeviceBatch
-    returns; inner and outer types only. HostBatch in: a HostBatch
-    returns, for all eight types; the join runs on `device` (the card
+    returns; inner and outer types only. HostBatch in: a RecordBatch
+    returns, as in the JAX package, for all eight types; the join runs on `device` (the card
     unless named). `output_columns` projects the output: only the named
     columns (post-suffix names) are gathered."""
     left, right = host_batch(left), host_batch(right)
@@ -136,19 +136,21 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
                            right_suffix=right_suffix, probe_chunk=chunk,
                            output_columns=output_columns, device=device)
                  for lo in range(0, left.num_rows, chunk)]
-        return HostBatch(parts[0].schema, [
+        return RecordBatch(parts[0].schema, [
             concat_host_arrays([p.columns[i] for p in parts])
             for i in range(len(parts[0].columns))],
             sum(p.num_rows for p in parts))
     ldb = host_batch_to_device(_renumber_keys(left, left_keys), device)
     rdb = host_batch_to_device(_renumber_keys(right, right_keys), device)
     if join_type in _DEVICE_HOWS:
-        return device_batch_to_host(_join_device(
+        out = device_batch_to_host(_join_device(
             ldb, rdb, left_keys, right_keys, join_type, left_suffix,
             right_suffix, output_columns))
-    verdict = semi_verdict(ldb, rdb, left_keys, right_keys, join_type)
-    kept = right if join_type.startswith("right") else left
-    return _project(_select_left(kept, verdict), output_columns)
+    else:
+        verdict = semi_verdict(ldb, rdb, left_keys, right_keys, join_type)
+        kept = right if join_type.startswith("right") else left
+        out = _project(_select_left(kept, verdict), output_columns)
+    return RecordBatch(out.schema, out.columns, out.num_rows)
 
 
 def semi_verdict(ldb: DeviceBatch, rdb: DeviceBatch, left_keys: Sequence[str],
@@ -182,17 +184,17 @@ def _renumber_keys(batch: HostBatch, keys) -> HostBatch:
     for name in keys:
         i = batch.schema.field_index(name)
         arr = cols[i]
-        if arr.dictionary is None:
+        if arr.dict_values is None:
             continue
         valid = arr.validity_bools()
         uniq, first = np.unique(arr.values[valid], return_index=True)
         order = uniq[np.argsort(first, kind="stable")]
-        remap = np.zeros(max(len(arr.dictionary), 1), np.int32)
+        remap = np.zeros(max(len(arr.dict_values), 1), np.int32)
         remap[order] = np.arange(len(order), dtype=np.int32)
         codes = np.where(valid, remap[np.clip(arr.values, 0,
                                               len(remap) - 1)], 0)
         cols[i] = HostArray(codes.astype(np.int32), arr.mask, arr.type,
-                            arr.dictionary[order])
+                            arr.dict_values[order])
     return HostBatch(batch.schema, cols, batch.num_rows)
 
 
@@ -265,7 +267,7 @@ def _gather_column(col, idx: torch.Tensor, out_n: int, trim_to: int,
     vals = selection.gather(col.values, idx)[:trim_to]
     words = selection.take_validity(col.validity, idx, out_n, idx.shape[0])
     return DeviceColumn(vals, words[:(trim_to + 31) // 32], out_n, col.type,
-                        col.dictionary)
+                        col.dict_values)
 
 
 def _emit_join_output(ldb, rdb, li, ri, out_n, left_keys, right_keys,

@@ -347,7 +347,7 @@ def _compare_dict_scalar(op: str, a: DeviceColumn, lit) -> DeviceColumn:
     fn = {"equal": operator.eq, "not_equal": operator.ne,
           "less": operator.lt, "less_equal": operator.le,
           "greater": operator.gt, "greater_equal": operator.ge}[op]
-    dvals = list(a.dictionary)
+    dvals = list(a.dict_values)
     if isinstance(lit, bytes) and dvals and isinstance(dvals[0], str):
         lit = lit.decode("utf-8")
     table = torch.tensor([bool(fn(v, lit)) for v in dvals] or [False],

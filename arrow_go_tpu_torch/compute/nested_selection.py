@@ -86,9 +86,8 @@ def null_rows(t: dt.DataType, n: int) -> HostArray:
         return RunEndEncodedArray(HostArray(ends, None, t.run_ends_type),
                                   null_rows(t.values_type, len(ends)), n)
     if t.id == dt.TypeId.DICTIONARY or t.codes_on_device:
-        dict_t = t if t.id == dt.TypeId.DICTIONARY else dt.dictionary(
-            dt.int32, t)
-        return HostArray(np.zeros(n, np.int32), mask, dict_t,
+        idx_t = t.index_type if t.id == dt.TypeId.DICTIONARY else dt.int32
+        return HostArray(np.zeros(n, idx_t.np_dtype), mask, t,
                          np.zeros(0, object))
     return HostArray(storage_zeros(t, n), mask, t)
 
@@ -101,10 +100,10 @@ def _take_flat(arr: HostArray, idx: np.ndarray) -> HostArray:
         return HostArray(np.zeros((len(idx),) + arr.values.shape[1:],
                                   arr.values.dtype),
                          mask if len(idx) else None, arr.type,
-                         arr.dictionary)
+                         arr.dict_values)
     safe = np.where(idx < 0, 0, idx)
     return HostArray(arr.values[safe], _out_mask(arr, idx, safe), arr.type,
-                     arr.dictionary)
+                     arr.dict_values)
 
 
 def _take_run_ends(arr: RunEndEncodedArray, idx: np.ndarray
@@ -190,9 +189,7 @@ def _take_union(arr: UnionArray, idx: np.ndarray) -> UnionArray:
     neg = idx < 0
     if neg.any():
         c0 = children[0]
-        children[0] = concat_host_arrays([c0, null_rows(
-            c0.type.value_type if c0.dictionary is not None else c0.type,
-            1)])
+        children[0] = concat_host_arrays([c0, null_rows(c0.type, 1)])
         tids = np.where(neg, np.int8(arr.type.type_codes[0]), tids)
         voff = np.where(neg, np.int32(len(c0)), voff)
     return UnionArray(arr.type, tids, children, voff)

@@ -88,7 +88,9 @@ def run_end_encode(values, run_end_type: dt.DataType = dt.int32,
         run_end_type.np_dtype)
     run_values = HostArray(host_view(vals.cpu().numpy(), col.type),
                            None if ok_np.all() else ok_np, col.type,
-                           col.dictionary)
+                           col.dict_values)
+    if isinstance(values, HostArray) and values.type != col.type:
+        run_values = run_values.decode()     # the host column's own type
     return RunEndEncodedArray(HostArray(ends, None, run_end_type),
                               run_values, col.length)
 

@@ -133,7 +133,7 @@ def array_of(values: list, t: dt.DataType) -> HostArray:
     if t.codes_on_device:
         codes, d = factorize(dictionary_values(
             ["" if v is None else v for v in values], t), mask)
-        return HostArray(codes, mask, dt.dictionary(dt.int32, t), d)
+        return HostArray(codes, mask, t, d)
     if t.np_dtype is not None and t.np_dtype.names:      # an interval
         zero = (0,) * len(t.np_dtype.names)
         return HostArray(np.array([zero if v is None else tuple(v)
@@ -204,8 +204,7 @@ def make_array_from_scalar(s: Scalar, length: int) -> HostArray:
     mask = None if s.is_valid else np.zeros(length, np.bool_)
     if t.codes_on_device:
         d = dictionary_values([s.value] if s.is_valid else [], t)
-        return HostArray(np.zeros(length, np.int32), mask,
-                         dt.dictionary(dt.int32, t), d)
+        return HostArray(np.zeros(length, np.int32), mask, t, d)
     v = storage_value(s.value, t) if s.is_valid else 0
     if t.limbs:
         return HostArray(np.tile(from_ints([v], t.limbs), (length, 1)),

@@ -13,7 +13,7 @@ column comes back as a HostColumn, read on the host
 it; any other column the device read cannot take raises, where the JAX
 package's Scanner drops to its host reader. An `.arrow` or `.feather`
 fragment is an Arrow IPC file (the JAX package's IpcFragment): its
-record batches are read on the host (ipc.open_file, read_all),
+record batches are read on the host (ipc.open_file),
 projected and shipped to the device with host_batch_to_device, one
 DeviceBatch a file; no guard prunes it. A `.csv` fragment (the JAX
 package's CsvFragment) is read whole by formats.read_csv, its types
@@ -37,8 +37,7 @@ from .compute.errors import ArrowInvalid
 from .compute.functions import filter_
 from .compute.nested_selection import null_rows
 from .device.block import (DeviceBatch, HostArray, HostBatch,
-                           concat_host_arrays, device_batch_to_host,
-                           host_batch_to_device)
+                           device_batch_to_host, host_batch_to_device)
 from .parquet import ParquetFile, read_batch_device
 
 _OPS = {"equal": "==", "less": "<", "less_equal": "<=", "greater": ">",
@@ -107,8 +106,7 @@ class ParquetFragment(Fragment):
     def scan(self, columns, guards, use_threads: bool = True,
              device=None) -> List[HostBatch]:
         with ParquetFile(self.path) as pf:
-            hb = pf.read_table(columns, guards or None,
-                               use_threads=use_threads, device=device)
+            hb = pf.read_host(columns, guards or None, device=device)
         return hb.to_batches() if hb.num_rows else []
 
     @staticmethod
@@ -186,7 +184,7 @@ class IpcFragment(_WholeFile):
         r = ipc.open_file(self.path,
                           decompress_concurrency=os.cpu_count() or 1)
         try:
-            return r.read_all()
+            return ipc._concat_batches(r.schema, list(r))
         finally:
             r.close()
 
@@ -245,7 +243,7 @@ class Dataset:
 
     def to_table(self, columns: Optional[List[str]] = None,
                  filter: Optional[ex.Expression] = None,
-                 use_threads: bool = True, *, device=None) -> HostBatch:
+                 use_threads: bool = True, *, device=None):
         return self.scanner(columns, filter, use_threads,
                             device=device).to_table()
 
@@ -320,23 +318,16 @@ class Scanner:
                 yield HostBatch(hb.schema, [_used_entries(c)
                                             for c in hb.columns], hb.num_rows)
 
-    def to_table(self, times: Optional[dict] = None) -> HostBatch:
-        """Every batch in one HostBatch; a string column's dictionaries
-        merge in first-occurrence order (concat_host_arrays). With no
-        rows, the schema's fields (those of `columns`, in schema order)
-        with empty columns."""
+    def to_table(self, times: Optional[dict] = None):
+        """Every batch as a Table, a chunk each, as the JAX Scanner gives
+        it. With no rows, the schema's fields (those of `columns`, in
+        schema order) with no chunk."""
+        from .array.record import Table
         batches = list(self.batches(times))
-        if batches:
-            first = batches[0]
-            _same_types([b.schema for b in batches])
-            return HostBatch(first.schema, [
-                concat_host_arrays([b.columns[i] for b in batches])
-                for i in range(len(first.columns))],
-                sum(b.num_rows for b in batches))
-        fields = [f for f in self.dataset.schema.fields
-                  if self.columns is None or f.name in self.columns]
-        return HostBatch(dt.Schema(fields), [_empty(f.type) for f in fields],
-                         0)
+        _same_types([b.schema for b in batches])
+        return Table.from_batches(batches, None if batches else dt.Schema(
+            [f for f in self.dataset.schema.fields
+             if self.columns is None or f.name in self.columns]))
 
     def count_rows(self) -> int:
         """The rows that pass the filter; fragments whose kept rows have
@@ -360,13 +351,13 @@ def _used_entries(col: HostArray) -> HostArray:
     """A dictionary column with its dictionary cut to the entries its
     valid rows use, in their order (a row group's dictionary can be far
     longer than a filtered batch); a null row takes code 0."""
-    if col.dictionary is None:
+    if col.dict_values is None:
         return col
     valid = col.validity_bools()
     used, inv = np.unique(col.values[valid], return_inverse=True)
     codes = np.zeros(len(col), np.int32)
     codes[valid] = inv.reshape(-1)
-    return HostArray(codes, col.mask, col.type, col.dictionary[used])
+    return HostArray(codes, col.mask, col.type, col.dict_values[used])
 
 
 def _empty(t: dt.DataType) -> HostArray:

@@ -22,7 +22,10 @@ JAX package: int32 codes live on the device, the values stay in a host
 dictionary (a numpy object array of str or bytes) that rides the column.
 A fixed_size_binary column is coded the same way, over its distinct
 values in byte order (the JAX package's np.unique of the rows;
-ops/decode.fixed_size_codes).
+ops/decode.fixed_size_codes). A host column keeps the same storage under
+its own type (a StringArray is typed string), goes to the device as a
+dictionary<int32, T> column with its codes as they are, and comes back
+from `from_device` as a DictionaryArray, as in the JAX package.
 
 A decimal128 or decimal256 column holds a (padded, 2) or (padded, 4)
 int64 matrix of little-endian limbs (dtypes.py); every other column a
@@ -152,6 +155,12 @@ class DeviceColumn:
         return self.values.device
 
     @property
+    def dict_values(self) -> Optional[np.ndarray]:
+        """The host values the codes index (`dictionary`), under the
+        name a HostArray keeps them by."""
+        return self.dictionary
+
+    @property
     def null_count(self) -> int:
         """The null rows of [0, length) (a popcount of the words; one
         read of the device)."""
@@ -245,10 +254,15 @@ def dictionary_values(values, t: dt.DataType) -> np.ndarray:
     return out
 
 
-def dictionary_type(dictionary) -> dt.DataType:
-    """binary for a dictionary of bytes values, string otherwise."""
-    return dt.binary if len(dictionary) and isinstance(
-        dictionary[0], (bytes, bytearray)) else dt.string
+def dictionary_type(values) -> dt.DataType:
+    """The type of a column of str or bytes values: by the numpy dtype
+    where it names one (bytes "S": binary, "U": string, even with no
+    row), else binary for bytes values and string otherwise."""
+    kind = getattr(values, "dtype", np.dtype(object)).kind
+    if kind in "SU":
+        return dt.binary if kind == "S" else dt.string
+    return dt.binary if len(values) and isinstance(
+        values[0], (bytes, bytearray)) else dt.string
 
 
 def factorize(values: np.ndarray, mask: Optional[np.ndarray] = None
@@ -260,6 +274,11 @@ def factorize(values: np.ndarray, mask: Optional[np.ndarray] = None
     live = values if mask is None else values[mask]
     if not len(live):
         return np.zeros(len(values), np.int32), values[:0].astype(object)
+    if values.dtype == object:
+        try:
+            return _factorize_objects(values, mask, live)
+        except TypeError:               # an unhashable value: sort below
+            pass
     uniq, first, inv = np.unique(live, return_index=True,
                                  return_inverse=True)
     order = np.argsort(first, kind="stable")
@@ -271,6 +290,21 @@ def factorize(values: np.ndarray, mask: Optional[np.ndarray] = None
     else:
         codes[mask] = code_of[inv.reshape(-1)]
     return codes, uniq[order].astype(object)
+
+
+def _factorize_objects(values: np.ndarray, mask, live: np.ndarray):
+    """factorize of an object array by a dict memo (first occurrence
+    order, hashing each value once, no sort)."""
+    rows = live.tolist()
+    uniq = list(dict.fromkeys(rows))
+    index = {v: i for i, v in enumerate(uniq)}
+    got = np.fromiter(map(index.__getitem__, rows), np.int32, len(rows))
+    codes = got if mask is None else np.zeros(len(values), np.int32)
+    if mask is not None:
+        codes[mask] = got
+    out = np.empty(len(uniq), dtype=object)
+    out[:] = uniq
+    return codes, out
 
 
 def storage_zeros(t: dt.DataType, P: int) -> np.ndarray:
@@ -380,8 +414,7 @@ def batch_to_device(data, device=None,
             if len(a) != n:
                 raise ValueError(f"column {name!r} has {len(a)} rows, "
                                  f"not {n}")
-            t = a.type.value_type if a.dictionary is not None else a.type
-            fields.append(dt.Field(name, t))
+            fields.append(dt.Field(name, a.type))
             cols.append(host_array_to_device(a, dev, P) if a.type.on_device
                         else HostColumn(a))
         else:
@@ -400,10 +433,12 @@ def _flat_batch_to_device(data: Dict[str, object], device,
         v = data[name]
         if isinstance(v, tuple):
             codes, dictionary = np.asarray(v[0], np.int32), v[1]
+            st = dictionary_type(dictionary)
         else:
             v = np.asarray(v)
             codes = dictionary = None
             if v.dtype.kind in "USO":
+                st = dictionary_type(v)
                 codes, dictionary = factorize(v)
         m = len(codes if codes is not None else v)
         n = m if n is None else n
@@ -419,7 +454,7 @@ def _flat_batch_to_device(data: Dict[str, object], device,
             continue
         host = np.zeros(pad if pad is not None else pad_length(n), np.int32)
         host[:n] = codes
-        fields.append((name, dictionary_type(dictionary).name))
+        fields.append((name, st.name))
         columns.append((host, None, dictionary))
     return batch_from_numpy(fields, columns, n or 0, device)
 
@@ -439,20 +474,19 @@ _CLASSES: Dict[dt.TypeId, type] = {}
 
 
 def _class_for(t: dt.DataType) -> type:
-    """The class of a column of type t: a coded column (dictionary<int32,
-    T> of a string-like or fixed_size_binary T) is one of T (StringArray,
-    BinaryArray, ...), any other dictionary column a DictionaryArray."""
-    tid = t.id
-    if tid == dt.TypeId.DICTIONARY and t.index_type == dt.int32 and \
-            t.value_type.codes_on_device:
-        tid = t.value_type.id
-    return _CLASSES.get(tid, HostArray)
+    """The class of a column of type t, by its type id (a string column
+    a StringArray, a dictionary column a DictionaryArray)."""
+    return _CLASSES.get(t.id, HostArray)
 
 
 class HostArray:
     """A numpy-backed column: values[:n] plus an optional bool mask
-    (True = valid). A dictionary column holds codes in `values` and the
-    values they index in `dictionary`.
+    (True = valid). A coded column (a string-like or fixed_size_binary
+    type, or a dictionary type) holds codes in `values` and the values
+    they index in `dict_values`, a numpy array (str / bytes objects for
+    a string-like value type). `dictionary` names the same numpy array,
+    but for a DictionaryArray, whose `dictionary` is an Array of its
+    value type as in the JAX package.
 
     A nested column (list, large_list, map, fixed_size_list, struct)
     has no `values`: a list or map holds `offsets` (n + 1, the type's
@@ -491,7 +525,7 @@ class HostArray:
         self.values = None if values is None else np.asarray(values)
         self.mask = None if mask is None else np.asarray(mask, np.bool_)
         self.type = type
-        self.dictionary = dictionary
+        self.dict_values = dictionary
         self.offsets = None if offsets is None else np.asarray(offsets)
         self.children = list(children)
         if self.values is not None:
@@ -503,6 +537,15 @@ class HostArray:
 
     def __len__(self) -> int:
         return self.length
+
+    @property
+    def dictionary(self) -> Optional[np.ndarray]:
+        """The values the codes of a coded column index (`dict_values`)."""
+        return self.dict_values
+
+    @dictionary.setter
+    def dictionary(self, values) -> None:
+        self.dict_values = values
 
     def validity_bools(self) -> np.ndarray:
         if self.mask is None:
@@ -583,14 +626,14 @@ class HostArray:
     def to_numpy(self, zero_copy_only: bool = True) -> np.ndarray:
         """The values: a flat column's numpy values, else an object array
         of `to_pylist`."""
-        if self.values is not None and self.dictionary is None:
+        if self.values is not None and self.dict_values is None:
             return self.values
         out = np.empty(self.length, dtype=object)
         out[:] = self.to_pylist()
         return out
 
     def equals(self, other: "HostArray") -> bool:
-        """Same field type, length and Python values (array/compare.py)."""
+        """Same type, length and Python values (array/compare.py)."""
         from ..array.compare import array_equal
         return array_equal(self, other)
 
@@ -647,8 +690,8 @@ class HostArray:
         else:
             vals = self.values.tolist()
         oks = self.validity_bools().tolist()
-        if self.dictionary is not None:
-            vals = [self.dictionary[c] if ok else None
+        if self.dict_values is not None:
+            vals = [self.dict_values[c] if ok else None
                     for c, ok in zip(vals, oks)]
         if self.mask is None:
             return vals
@@ -669,7 +712,7 @@ class HostArray:
         if t.id == dt.TypeId.NULL:
             out = cls(None, None, t, length=end - offset)
         elif not t.is_nested:
-            out = cls(self.values[offset:end], mask, t, self.dictionary)
+            out = cls(self.values[offset:end], mask, t, self.dict_values)
         elif t.id == dt.TypeId.STRUCT:
             out = cls(None, mask, t, children=[
                 c.slice(offset, end - offset) for c in self.children],
@@ -694,10 +737,8 @@ class RunEndEncodedArray(HostArray):
 
     def __init__(self, run_ends: HostArray, values: HostArray, length: int,
                  offset: int = 0):
-        vt = values.type.value_type if values.dictionary is not None \
-            else values.type
-        self.type = dt.run_end_encoded(run_ends.type, vt)
-        self.mask = self.dictionary = self.offsets = None
+        self.type = dt.run_end_encoded(run_ends.type, values.type)
+        self.mask = self.dict_values = self.offsets = None
         self.children = [run_ends, values]
         self.length = int(length)
         self._offset = int(offset)
@@ -742,7 +783,7 @@ class RunEndEncodedArray(HostArray):
                 np.arange(len(lens), dtype=np.int64), lens))
         mask = None if vals.mask is None else np.repeat(vals.mask, lens)
         return HostArray(np.repeat(vals.values, lens, axis=0), mask,
-                         vals.type, vals.dictionary)
+                         vals.type, vals.dict_values)
 
     def to_pylist(self) -> list:
         return self.decode().to_pylist()
@@ -773,7 +814,7 @@ class ListViewArray(HostArray):
     def __init__(self, t: dt.DataType, mask: Optional[np.ndarray],
                  offsets: np.ndarray, sizes: np.ndarray, child: HostArray):
         self.type = t
-        self.values = self.dictionary = None
+        self.values = self.dict_values = None
         self.mask = None if mask is None else np.asarray(mask, np.bool_)
         self.offsets = np.ascontiguousarray(offsets, t.offset_dtype)
         self.sizes = np.ascontiguousarray(sizes, t.offset_dtype)
@@ -820,7 +861,7 @@ class UnionArray(HostArray):
                  children: Sequence[HostArray],
                  value_offsets: Optional[np.ndarray] = None):
         self.type = t
-        self.values = self.dictionary = self.offsets = self.mask = None
+        self.values = self.dict_values = self.offsets = self.mask = None
         self.type_ids = np.ascontiguousarray(type_ids, np.int8)
         self.value_offsets = None if value_offsets is None else \
             np.ascontiguousarray(value_offsets, np.int32)
@@ -882,7 +923,7 @@ class ExtensionArray(HostArray):
 
     def __init__(self, t: dt.DataType, storage: HostArray):
         self.type = t
-        self.values = self.dictionary = self.offsets = None
+        self.values = self.dict_values = self.offsets = None
         self.mask = storage.mask
         self.children = [storage]
         self.length = len(storage)
@@ -976,12 +1017,13 @@ def from_pylist(values: Sequence, t: dt.DataType) -> HostArray:
         return array_of(values, t)
     if t.codes_on_device:
         obj = np.empty(n, dtype=object)
-        obj[:] = [("" if t.is_utf8 else b"") if v is None else
-                  (v.encode() if isinstance(v, str) and not t.is_utf8
-                   else v) for v in values]
+        if t.is_utf8:           # factorize reads the valid rows only
+            obj[:] = values
+        else:
+            obj[:] = [b"" if v is None else v.encode()
+                      if isinstance(v, str) else v for v in values]
         codes, dictionary = factorize(obj, ok)
-        return HostArray(codes, mask, dt.dictionary(dt.int32, t),
-                         dictionary_values(dictionary, t))
+        return HostArray(codes, mask, t, dictionary_values(dictionary, t))
     if t.id == dt.TypeId.STRUCT:
         cols = [from_pylist([None if v is None else v.get(f.name)
                              for v in values], f.type) for f in t.fields()]
@@ -1036,19 +1078,16 @@ class HostBatch:
     def from_arrays(cls, arrays, names: Optional[Sequence[str]] = None,
                     metadata: dt.Metadata = dt.EMPTY_METADATA
                     ) -> "HostBatch":
-        """A batch of a {name: HostArray} dict (each field of its array's
-        type), or of HostArrays named by `names` (each field of its
-        array's field type, as the JAX RecordBatch.from_arrays)."""
+        """A batch of a {name: HostArray} dict, or of HostArrays named by
+        `names`, each field of its array's type."""
         if isinstance(arrays, dict):
             names, cols = list(arrays), list(arrays.values())
-            types = [a.type for a in cols]
         else:
-            from ..array.arrays import field_type
             cols = list(arrays)
-            types = [field_type(a) for a in cols]
         n = len(cols[0]) if cols else 0
-        return cls(dt.Schema([dt.Field(k, t) for k, t in zip(names, types)],
-                             metadata), cols, n)
+        return cls(dt.Schema([dt.Field(k, a.type)
+                              for k, a in zip(names, cols)], metadata),
+                   cols, n)
 
     @classmethod
     def from_pydict(cls, data: Dict[str, object],
@@ -1212,17 +1251,17 @@ def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
         return _concat_list_views(arrays, mask)
     if first.type.is_nested:
         return _concat_nested(arrays, mask)
-    if first.dictionary is None or all(
-            a.dictionary is first.dictionary or np.array_equal(
-                a.dictionary, first.dictionary) for a in arrays[1:]):
+    if first.dict_values is None or all(
+            a.dict_values is first.dict_values or np.array_equal(
+                a.dict_values, first.dict_values) for a in arrays[1:]):
         values = np.concatenate([a.values for a in arrays])
-        return HostArray(values, mask, first.type, first.dictionary)
-    codes, merged = factorize(np.concatenate([a.dictionary
+        return HostArray(values, mask, first.type, first.dict_values)
+    codes, merged = factorize(np.concatenate([a.dict_values
                                               for a in arrays]))
     parts, base = [], 0
     for a in arrays:
-        remap = codes[base:base + len(a.dictionary)]
-        base += len(a.dictionary)
+        remap = codes[base:base + len(a.dict_values)]
+        base += len(a.dict_values)
         parts.append(remap[np.clip(a.values, 0, max(len(remap) - 1, 0))]
                      if len(remap) else np.zeros(len(a), np.int32))
     return HostArray(np.concatenate(parts).astype(np.int32), mask,
@@ -1232,8 +1271,10 @@ def concat_host_arrays(arrays: Sequence[HostArray]) -> HostArray:
 def host_array_to_device(arr: HostArray, dev,
                          pad: Optional[int] = None) -> DeviceColumn:
     """A flat HostArray as a DeviceColumn on `dev`: values padded to `pad`
-    (default pad_length(n)), validity words when it has a mask; a
-    dictionary array keeps its codes and dictionary; a null column is
+    (default pad_length(n)), validity words when it has a mask; a coded
+    column keeps its codes and dictionary (a string-like or
+    fixed_size_binary column of type T as a dictionary<int32, T> column,
+    as the JAX to_device gives it); a null column is
     int8 zeros with all-false words; an extension column is its
     storage's column under the extension type. A column the block
     format does not carry raises ArrowNotImplemented (it rides a batch
@@ -1251,12 +1292,14 @@ def host_array_to_device(arr: HostArray, dev,
     if arr.type.id == dt.TypeId.EXTENSION:
         col = host_array_to_device(arr.storage, dev, P)
         return DeviceColumn(col.values, col.validity, n, arr.type)
-    host = storage_zeros(arr.type, P)
+    t = dt.dictionary(dt.int32, arr.type) if arr.type.codes_on_device \
+        else arr.type
+    host = storage_zeros(t, P)
     host[:n] = arr.values
     words = None if arr.mask is None else _words_to_tensor(
         _pack_words(arr.mask, P), dev)
-    return DeviceColumn(torch.from_numpy(storage_view(host, arr.type)).to(
-        dev), words, n, arr.type, arr.dictionary)
+    return DeviceColumn(torch.from_numpy(storage_view(host, t)).to(
+        dev), words, n, t, arr.dict_values)
 
 
 def column_to_host(col: DeviceColumn) -> HostArray:
@@ -1287,9 +1330,19 @@ def host_batch_to_device(hb: HostBatch, device=None,
 
 
 def device_batch_to_host(db: DeviceBatch) -> HostBatch:
-    return HostBatch(db.schema, [
-        c.array if isinstance(c, HostColumn) else column_to_host(c)
-        for c in db.columns], db.length)
+    """The [0, length) rows of a DeviceBatch as a HostBatch: a coded
+    column whose field is not a dictionary comes back decoded to the
+    field's type, each field taking its column's type (the JAX
+    batch_from_device)."""
+    fields, cols = [], []
+    for f, c in zip(db.schema.fields, db.columns):
+        a = c.array if isinstance(c, HostColumn) else column_to_host(c)
+        if a.type.id == dt.TypeId.DICTIONARY and \
+                f.type.id != dt.TypeId.DICTIONARY:
+            a = a.decode()
+        fields.append(f if f.type == a.type else f.with_type(a.type))
+        cols.append(a)
+    return HostBatch(dt.Schema(fields, db.schema.metadata), cols, db.length)
 
 
 # ---------------------------------------------------------------------------
@@ -1303,8 +1356,19 @@ def to_device(arr: HostArray, pad: Optional[int] = None,
     return host_array_to_device(arr, torchenv.device(device), pad)
 
 
+def as_dictionary(arr: HostArray) -> HostArray:
+    """A string-like or fixed_size_binary column as the dictionary<int32,
+    T> column of the same codes: the class the JAX from_device gives a
+    column that went through the device. Any other column as it is."""
+    if not arr.type.codes_on_device:
+        return arr
+    return HostArray(arr.values, arr.mask, dt.dictionary(dt.int32, arr.type),
+                     arr.dict_values)
+
+
 def from_device(col: DeviceColumn) -> HostArray:
-    """The [0, length) rows of a DeviceColumn (column_to_host)."""
+    """The [0, length) rows of a DeviceColumn (column_to_host): a coded
+    column a DictionaryArray, as in the JAX package."""
     return column_to_host(col)
 
 

@@ -432,8 +432,8 @@ null = NullType()
 class _BinaryLike(DataType):
     """string, binary and their large (int64 offsets) and view forms.
     Host values are Python str / bytes objects; a column of any of them
-    is a dictionary(int32, ...) column of codes, on the host and on the
-    device (device/block.py); `Array.data` builds the JAX package's
+    is int32 codes into a host dictionary of its values, typed T on the
+    host and dictionary(int32, T) on the device (device/block.py); `Array.data` builds the JAX package's
     offsets or 16-byte views (array/layout.py). `offset_dtype` is the
     JAX type's (None for a view type, which has no offsets)."""
 

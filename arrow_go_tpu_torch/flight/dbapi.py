@@ -8,7 +8,8 @@ Parameters go to the server as a one-row HostBatch (a column a
 parameter, typed as `sql.table` types it) through the prepared
 statement's DoPut binding. A statement that changes data opens a
 transaction first when none is open (`commit` / `rollback` end it);
-`fetch_arrow_table` gives the result as a HostBatch.
+`fetch_arrow_table` gives the result as the client's read gives it, a
+Table.
 """
 from __future__ import annotations
 
@@ -232,9 +233,9 @@ class Cursor:
         self._pos = len(self._rows)
         return out
 
-    def fetch_arrow_table(self) -> HostBatch:
-        """Extension: the whole result set as one HostBatch (the
-        reference driver exposes the same through its Rows)."""
+    def fetch_arrow_table(self):
+        """Extension: the whole result set as one Table (the reference
+        driver exposes the same through its Rows)."""
         if self._table is None:
             raise ProgrammingError("no result set")
         return self._table

@@ -5,8 +5,8 @@ record_batch_writer.go).
 
 Record batches are HostBatches: a DoGet or DoExchange handler returns a
 HostBatch or a (schema, batches) pair, where the JAX handler returns a
-Table or a pair, and `FlightDataReader.read_all` gives one HostBatch, as
-the port's IPC readers do. The FlightData stream carries the IPC
+Table or a pair, and `FlightDataReader.read_all` gives a Table of the
+batches, as the port's IPC readers and the JAX reader do. The FlightData stream carries the IPC
 messages of the port's `ipc/` (the schema, dictionary batches sent again
 when they change, record batches), each body written once into the
 frames (flight/wire.py). Errors reach the client as `rpc.RpcError`

@@ -24,7 +24,7 @@ import numpy as np
 
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
-from ..array.record import host_batch, table
+from ..array.record import Table, host_batch, table
 from ..device.block import HostArray, HostBatch, UnionArray, from_pylist
 from . import messages as fm
 from . import sql_messages as sqlpb
@@ -452,7 +452,7 @@ class FlightSQLClient:
     def do_get(self, ticket: Ticket):
         return self._inner.do_get(ticket)
 
-    def execute_query(self, query: str) -> HostBatch:
+    def execute_query(self, query: str) -> Table:
         info = self.execute(query)
         return self._inner.do_get(info.endpoints[0].ticket).read_all()
 
@@ -466,60 +466,60 @@ class FlightSQLClient:
             return sqlpb.DoPutUpdateResult.FromString(acks[0]).record_count
         return 0
 
-    def _get(self, cmd) -> HostBatch:
+    def _get(self, cmd) -> Table:
         desc = FlightDescriptor.for_command(pack_any(cmd))
         info = self._inner.get_flight_info(desc)
         return self._inner.do_get(info.endpoints[0].ticket).read_all()
 
-    def get_catalogs(self) -> HostBatch:
+    def get_catalogs(self) -> Table:
         return self._get(sqlpb.CommandGetCatalogs())
 
-    def get_db_schemas(self, catalog: Optional[str] = None) -> HostBatch:
+    def get_db_schemas(self, catalog: Optional[str] = None) -> Table:
         return self._get(sqlpb.CommandGetDbSchemas(catalog=catalog))
 
     def get_tables(self, catalog=None, db_schema_filter_pattern=None,
                    table_name_filter_pattern=None,
-                   table_types=()) -> HostBatch:
+                   table_types=()) -> Table:
         return self._get(sqlpb.CommandGetTables(
             catalog=catalog,
             db_schema_filter_pattern=db_schema_filter_pattern,
             table_name_filter_pattern=table_name_filter_pattern,
             table_types=list(table_types)))
 
-    def get_table_types(self) -> HostBatch:
+    def get_table_types(self) -> Table:
         return self._get(sqlpb.CommandGetTableTypes())
 
     def get_primary_keys(self, table: str, catalog=None,
-                         db_schema=None) -> HostBatch:
+                         db_schema=None) -> Table:
         return self._get(sqlpb.CommandGetPrimaryKeys(
             catalog=catalog, db_schema=db_schema, table=table))
 
     def get_imported_keys(self, table: str, catalog=None,
-                          db_schema=None) -> HostBatch:
+                          db_schema=None) -> Table:
         return self._get(sqlpb.CommandGetImportedKeys(
             catalog=catalog, db_schema=db_schema, table=table))
 
     def get_exported_keys(self, table: str, catalog=None,
-                          db_schema=None) -> HostBatch:
+                          db_schema=None) -> Table:
         return self._get(sqlpb.CommandGetExportedKeys(
             catalog=catalog, db_schema=db_schema, table=table))
 
     def get_cross_reference(self, pk_table: str, fk_table: str,
                             pk_catalog=None, pk_db_schema=None,
-                            fk_catalog=None, fk_db_schema=None) -> HostBatch:
+                            fk_catalog=None, fk_db_schema=None) -> Table:
         return self._get(sqlpb.CommandGetCrossReference(
             pk_catalog=pk_catalog, pk_db_schema=pk_db_schema,
             pk_table=pk_table, fk_catalog=fk_catalog,
             fk_db_schema=fk_db_schema, fk_table=fk_table))
 
-    def get_sql_info(self, info=()) -> HostBatch:
+    def get_sql_info(self, info=()) -> Table:
         return self._get(sqlpb.CommandGetSqlInfo(info=list(info)))
 
     def get_xdbc_type_info(self, data_type: Optional[int] = None
-                           ) -> HostBatch:
+                           ) -> Table:
         return self._get(sqlpb.CommandGetXdbcTypeInfo(data_type=data_type))
 
-    def execute_substrait(self, plan: bytes, version: str = "") -> HostBatch:
+    def execute_substrait(self, plan: bytes, version: str = "") -> Table:
         cmd = sqlpb.CommandStatementSubstraitPlan(
             plan=sqlpb.SubstraitPlan(plan=plan, version=version))
         return self._get(cmd)
@@ -620,7 +620,7 @@ class PreparedStatement:
         return FlightDescriptor.for_command(pack_any(cls(
             prepared_statement_handle=self.handle)))
 
-    def execute(self) -> HostBatch:
+    def execute(self) -> Table:
         inner = self._client._inner
         info = inner.get_flight_info(
             self._descriptor(sqlpb.CommandPreparedStatementQuery))

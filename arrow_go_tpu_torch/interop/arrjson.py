@@ -317,7 +317,7 @@ def _column_to_json(name: str, arr: HostArray, t: dt.DataType
         return out
     if tid == dt.TypeId.FIXED_SIZE_BINARY:
         zero = bytes(t.byte_width)
-        table = list(arr.dictionary) or [zero]
+        table = list(arr.dict_values) or [zero]
         codes = np.asarray(arr.values, np.int64).tolist()
         out["DATA"] = [(bytes(table[c]) if ok else zero).hex().upper()
                        for c, ok in zip(codes,
@@ -429,8 +429,7 @@ def _column_from_json(j: Dict[str, Any], f: dt.Field,
         codes, dictionary = fixed_size_codes(
             torch.from_numpy(rows),
             None if mask is None else torch.from_numpy(mask))
-        return HostArray(codes.numpy(), mask, dt.dictionary(dt.int32, t),
-                         dictionary)
+        return HostArray(codes.numpy(), mask, t, dictionary)
     if tid in (dt.TypeId.LIST, dt.TypeId.LARGE_LIST, dt.TypeId.MAP):
         return nested_array(t, n, mask, kids(),
                             np.array(j["OFFSET"], t.offset_dtype))
@@ -450,8 +449,8 @@ def _collect_dictionaries(t: dt.DataType, arr: HostArray, memo: _DictMemo,
     paired with the values of this batch's column."""
     if t.id == dt.TypeId.DICTIONARY:
         did = memo.new_id()
-        if did not in out and arr.dictionary is not None:
-            out[did] = arr.dictionary
+        if did not in out and arr.dict_values is not None:
+            out[did] = arr.dict_values
         return
     for cf, ca in zip(t.fields(), arr.children):
         _collect_dictionaries(cf.type, ca, memo, out)

@@ -14,11 +14,10 @@ depth) cross by cdata.export_array into `pa.Array._import_from_c` and by
 on each side from the layout: the null column, month_day_nano values as
 their 16-byte records, list views from offsets, sizes and child, run-end
 encoding from its two children, unions from type codes (a dense one's
-offsets) and children; string_view and binary_view (dictionary-coded in
-the port) go as Python values, as the JAX module sends them. A field's
-type names what a HostArray is: a dictionary-coded string column is a
-string column unless its field (`type=`, a batch's schema) says
-dictionary.
+offsets) and children; string_view and binary_view (coded in the port)
+go as Python values, as the JAX module sends them; a dictionary column
+the C data path does not carry goes as its indices and its dictionary.
+A HostArray goes as its type unless `type=` names another.
 
 The JAX module's refusals and losses are kept: month and day-time
 intervals and extension types raise NotImplementedError, large_list and
@@ -37,7 +36,6 @@ import numpy as np
 
 from .. import cdata
 from .. import dtypes as dt
-from ..array.arrays import field_type
 from ..array.record import ChunkedArray, host_batch
 from ..device.block import (HostArray, HostBatch, ListViewArray,
                             RunEndEncodedArray, UnionArray,
@@ -221,10 +219,10 @@ def _bitmap(pa, mask: Optional[np.ndarray]):
 
 
 def array_to_pyarrow(arr: HostArray, type: Optional[dt.DataType] = None):
-    """A HostArray as a pyarrow array of `type_to_pyarrow` of its field
-    type (`type`, else `field_type(arr)`)."""
+    """A HostArray as a pyarrow array of `type_to_pyarrow` of its type
+    (or of `type`)."""
     pa = _pa()
-    t = type if type is not None else field_type(arr)
+    t = type if type is not None else arr.type
     pt_ = type_to_pyarrow(t)
     n = len(arr)
     if _through_c(t):
@@ -238,6 +236,10 @@ def array_to_pyarrow(arr: HostArray, type: Optional[dt.DataType] = None):
     tid = t.id
     if tid == _T.NULL:
         return pa.nulls(n)
+    if tid == _T.DICTIONARY:      # of a type the C data path does not carry
+        return pa.DictionaryArray.from_arrays(
+            array_to_pyarrow(arr.indices), array_to_pyarrow(arr.dictionary),
+            ordered=t.ordered)
     if tid == _T.INTERVAL_MONTH_DAY_NANO:
         return pa.Array.from_buffers(pt_, n, [
             _bitmap(pa, arr.mask),
@@ -271,8 +273,8 @@ def array_to_pyarrow(arr: HostArray, type: Optional[dt.DataType] = None):
 
 def array_from_pyarrow(parr) -> HostArray:
     """A pyarrow array as a HostArray (copied out), of type
-    `type_from_pyarrow(parr.type)`: a string or binary column
-    dictionary-coded."""
+    `type_from_pyarrow(parr.type)`: a string or binary column typed as
+    it is, coded in the port."""
     return _from_pyarrow(parr, type_from_pyarrow(parr.type))
 
 

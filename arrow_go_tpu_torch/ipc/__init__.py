@@ -5,9 +5,8 @@ reader, writer.go:125 the stream writer, file_reader.go:248 and
 file_writer.go:267 the file with its footer, internal/dictutils the
 dictionary ids, body compression). The writers take the port's
 HostBatches, the readers give HostBatches (ipc/core.py says how each
-type is laid out); `read_all` gives one HostBatch of every batch's rows
-(concat_host_arrays; an extension column's storages are joined under
-its type), where the JAX package gives a Table.
+type is laid out); `read_all` gives a Table of them, a chunk each, as
+the JAX package does.
 
 new_stream / open_stream: the streaming format.
 new_file / open_file:     the file format ("ARROW1" magic and footer).
@@ -71,7 +70,7 @@ def _dictionaries(schema: dt.Schema, columns, mapper: DictMapper) -> dict:
         if f.type.id == dt.TypeId.EXTENSION:
             arr = arr.storage
         if f.type.id == dt.TypeId.DICTIONARY:
-            out[mapper.field_to_id[id(f)]] = arr.dictionary
+            out[mapper.field_to_id[id(f)]] = arr.dict_values
             return
         for cf, ca in zip(f.type.fields(), arr.children):
             walk(cf, ca)
@@ -81,18 +80,20 @@ def _dictionaries(schema: dt.Schema, columns, mapper: DictMapper) -> dict:
 
 
 def _dictionary_array(values, vt: dt.DataType) -> HostArray:
-    """A dictionary's values as a column of its value type."""
-    if vt.is_binary_like:
-        return HostArray(np.arange(len(values), dtype=np.int32), None,
-                         dt.dictionary(dt.int32, vt), values)
+    """A dictionary's values as a column of its value type (a string-like
+    or fixed_size_binary one coded over the same values)."""
+    if vt.codes_on_device:
+        return HostArray(np.arange(len(values), dtype=np.int32), None, vt,
+                         values)
     return HostArray(np.asarray(values, vt.np_dtype), None, vt)
 
 
 def _dictionary_values(arr: HostArray, vt: dt.DataType):
     """A DictionaryBatch's column as the port's dictionary: an object
-    array of str / bytes (a binary-like value type) or the values."""
-    if vt.is_binary_like:
-        return dictionary_values(arr.dictionary[np.asarray(arr.values)], vt)
+    array of str / bytes (a string-like or fixed_size_binary value type)
+    or the values."""
+    if vt.codes_on_device:
+        return dictionary_values(arr.dict_values[np.asarray(arr.values)], vt)
     return arr.values
 
 
@@ -277,9 +278,10 @@ class _Reader:
                                f"batch's {n} rows")
         return HostBatch(self.schema, cols, n)
 
-    def read_all(self) -> HostBatch:
-        """Every batch's rows in one HostBatch."""
-        return _concat_batches(self.schema, list(self))
+    def read_all(self):
+        """Every batch as a Table, a chunk each (the JAX reader's)."""
+        from ..array.record import Table
+        return Table.from_batches(list(self), self.schema)
 
 
 def _concat_batches(schema: dt.Schema, batches: List[HostBatch]

@@ -85,7 +85,7 @@ def _row_bytes(arr: HostArray) -> Tuple[np.ndarray, np.ndarray]:
     """A dictionary-coded column's rows as (int64 ends, uint8 data), a
     null row empty: native.gather_rows of its codes, a null row pointing
     at an empty entry past the dictionary."""
-    ends, data = _dictionary_rows(arr.dictionary)
+    ends, data = _dictionary_rows(arr.dict_values)
     ends = np.append(ends, ends[-1] if len(ends) else 0)
     idx = np.asarray(arr.values, np.int64)
     if arr.mask is not None:
@@ -208,8 +208,8 @@ def collect_body(arr: HostArray, t: dt.DataType, nodes: List[FieldNode],
                            big))
     elif tid == dt.TypeId.FIXED_SIZE_BINARY:
         w = t.byte_width
-        table = np.frombuffer(b"".join(arr.dictionary), np.uint8).reshape(
-            -1, w) if len(arr.dictionary) else np.zeros((1, w), np.uint8)
+        table = np.frombuffer(b"".join(arr.dict_values), np.uint8).reshape(
+            -1, w) if len(arr.dict_values) else np.zeros((1, w), np.uint8)
         rows = table[np.asarray(arr.values, np.int64)]
         if nc:
             rows[~arr.mask] = 0
@@ -524,8 +524,7 @@ def coded_column(ends: np.ndarray, data: np.ndarray, mask, t: dt.DataType
     values = [raw[starts[i]:src_ends[i]] for i in first.tolist()]
     if t.is_utf8:
         values = [v.decode("utf-8", "surrogateescape") for v in values]
-    return HostArray(codes, mask, dt.dictionary(dt.int32, t),
-                     dictionary_values(values, t))
+    return HostArray(codes, mask, t, dictionary_values(values, t))
 
 
 def _view_rows(views: np.ndarray, bufs: list, n: int):
@@ -602,8 +601,7 @@ def load_array(br: BodyReader, t: dt.DataType, dictionaries: dict,
         codes, dictionary = fixed_size_codes(
             torch.from_numpy(rows.copy()),
             None if mask is None else torch.from_numpy(mask))
-        return HostArray(codes.numpy(), mask, dt.dictionary(dt.int32, t),
-                         dictionary)
+        return HostArray(codes.numpy(), mask, t, dictionary)
     if t.limbs:
         w = t.bit_width // 8
         raw = br.next_buffer()

@@ -45,7 +45,7 @@ def _as_batch(data) -> HostBatch:
 
 def _tier_values(c: HostArray, name: str, key: bool) -> np.ndarray:
     """A column's values as the tier carries them (see the module doc)."""
-    if c.dictionary is not None:
+    if c.dict_values is not None:
         return np.asarray(c.values, np.int32)
     t = c.type
     if t.limbs or c.values.ndim != 1:
@@ -118,10 +118,10 @@ def _decode_key(vals: np.ndarray, col: HostArray,
                 mask: Optional[np.ndarray] = None) -> HostArray:
     """Values back to a HostArray of the column's type; mask (True =
     valid) restores the nulls that rode the exchange as a bool column."""
-    if col.dictionary is not None:
+    if col.dict_values is not None:
         codes = np.clip(vals.astype(np.int64), 0,
-                        max(len(col.dictionary) - 1, 0)).astype(np.int32)
-        return HostArray(codes, mask, col.type, col.dictionary)
+                        max(len(col.dict_values) - 1, 0)).astype(np.int32)
+        return HostArray(codes, mask, col.type, col.dict_values)
     return HostArray(vals.astype(col.type.np_dtype, copy=False), mask,
                      col.type)
 
@@ -171,7 +171,7 @@ def distributed_group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
     for (cname, agg), (vi, _), vals, mask in zip(
             aggregations, agg_specs, got[nk:nk + na], got[nk + na:]):
         c = val_cols[vi]
-        if agg in ("min", "max") and c.dictionary is None:
+        if agg in ("min", "max") and c.dict_values is None:
             vals = vals.astype(c.type.np_dtype)
         elif agg == "sum" and c.type.is_unsigned_integer:
             vals = vals.view(np.uint64)
@@ -208,11 +208,11 @@ def distributed_hash_join(left, right, keys, mesh: Optional[Mesh] = None,
     rp = rp + rp_masks
     # string keys must share ONE code space across both sides
     for nm, lc, rc in zip(keys, lk_cols, rk_cols):
-        if (lc.dictionary is None) != (rc.dictionary is None):
+        if (lc.dict_values is None) != (rc.dict_values is None):
             raise ArrowInvalid(f"join key {nm}: both sides must be "
                                "strings or both numeric")
-        if lc.dictionary is not None and \
-                list(lc.dictionary) != list(rc.dictionary):
+        if lc.dict_values is not None and \
+                list(lc.dict_values) != list(rc.dict_values):
             raise ArrowNotImplemented(
                 f"join key {nm}: dictionary code spaces differ; "
                 "unify dictionaries before a distributed join")

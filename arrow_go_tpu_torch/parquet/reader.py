@@ -7,8 +7,9 @@ parquet/file/file_reader.go:51).
 
 Flat values are not read on the host here: `device_read.read_batch_device`
 reads the column chunks of a row group and decodes them on the device,
-and the read front returns its batches as HostBatches
-(`device_batch_to_host`), one read of a row group's chunks each. The
+and the read front returns its batches as RecordBatches
+(`device_batch_to_host`), one read of a row group's chunks each, and a
+whole read as a Table of them, as the JAX reader does. The
 JAX reader's `use_threads` and `ReaderProperties.buffered_stream` /
 `buffer_size` change how it stages its I/O, not what it reads: they are
 accepted and change nothing here. A nested column (list, map, struct)
@@ -351,7 +352,7 @@ class ParquetFile:
         return len(self.metadata.row_groups or [])
 
     # -- the read front: each row group through read_batch_device on
-    #    `device` (the card unless named), back as a HostBatch ---------
+    #    `device` (the card unless named), back as a RecordBatch -------
 
     def _selected(self, columns: Optional[List[str]]) -> List[str]:
         """The top-level fields `columns` names, in schema order (a name
@@ -362,21 +363,44 @@ class ParquetFile:
     def read_row_group(self, i: int, columns: Optional[List[str]] = None,
                        row_range: Optional[Tuple[int, int]] = None,
                        use_threads: bool = True, *, device=None):
-        """Row group i's `columns` (all by default) as a HostBatch, read
+        """Row group i's `columns` (all by default) as a RecordBatch, read
         by read_batch_device on `device`; `row_range=(start, count)`
         keeps those rows of the group, as the JAX reader cuts it (the
         port reads the group whole and cuts it)."""
-        from ..device.block import HostBatch, device_batch_to_host
+        from ..array.record import RecordBatch
+        from ..device.block import device_batch_to_host
         from .device_read import read_batch_device
         hb = device_batch_to_host(read_batch_device(
             self, i, self._selected(columns), device=device))
-        hb = HostBatch(dt.Schema(hb.schema.fields, self.schema.metadata),
-                       hb.columns, hb.num_rows)
-        return hb if row_range is None else hb.slice(*row_range)
+        if row_range is not None:
+            hb = hb.slice(*row_range)
+        return RecordBatch(dt.Schema(hb.schema.fields, self.schema.metadata),
+                           hb.columns, hb.num_rows)
 
-    def _concat(self, batches: list, columns: Optional[List[str]]):
+    def _schema_of(self, columns: Optional[List[str]]) -> dt.Schema:
+        return dt.Schema([self.schema.field(self.schema.field_index(c))
+                          for c in self._selected(columns)],
+                         self.schema.metadata)
+
+    def _table(self, batches: list, columns: Optional[List[str]]):
+        """The batches as a Table, a chunk each (the JAX reader's)."""
+        from ..array.record import Table
+        return Table.from_batches(
+            batches, None if batches else self._schema_of(columns))
+
+    def _kept_groups(self, filters: Optional[List[tuple]]) -> List[int]:
+        return [i for i in range(self.num_row_groups)
+                if not filters or self._row_group_may_match(i, filters)]
+
+    def read_host(self, columns: Optional[List[str]] = None,
+                  filters: Optional[List[tuple]] = None, device=None):
+        """The row groups read_table reads, in one HostBatch (a string
+        column's dictionaries merged in first-occurrence order): what
+        the dataset scan works on."""
         from ..dataset import _empty
         from ..device.block import HostBatch, concat_host_arrays
+        batches = [self.read_row_group(i, columns, device=device)
+                   for i in self._kept_groups(filters)]
         if len(batches) == 1:
             return batches[0]
         if batches:
@@ -384,26 +408,22 @@ class ParquetFile:
                 concat_host_arrays([b.columns[i] for b in batches])
                 for i in range(len(batches[0].columns))],
                 sum(b.num_rows for b in batches))
-        fields = [self.schema.field(self.schema.field_index(c))
-                  for c in self._selected(columns)]
-        return HostBatch(dt.Schema(fields, self.schema.metadata),
-                         [_empty(f.type) for f in fields], 0)
+        sch = self._schema_of(columns)
+        return HostBatch(sch, [_empty(f.type) for f in sch.fields], 0)
 
     def read_table(self, columns: Optional[List[str]] = None,
                    filters: Optional[List[tuple]] = None,
                    use_threads: bool = True, device=None):
         """Every row group that `filters` ((column, op, literal), ANDed)
         may match by statistics and bloom filters, its `columns` read as
-        read_row_group reads them, in one HostBatch (a string column's
-        dictionaries merged in first-occurrence order)."""
-        keep = [i for i in range(self.num_row_groups)
-                if not filters or self._row_group_may_match(i, filters)]
-        return self._concat([self.read_row_group(i, columns, device=device)
-                             for i in keep], columns)
+        read_row_group reads them: a Table, one chunk a row group, as
+        the JAX reader gives it."""
+        return self._table([self.read_row_group(i, columns, device=device)
+                            for i in self._kept_groups(filters)], columns)
 
     def read_rows(self, offset: int, num_rows: int,
                   columns: Optional[List[str]] = None, device=None):
-        """Rows [offset, offset + num_rows) as a HostBatch: the row groups
+        """Rows [offset, offset + num_rows) as a Table: the row groups
         that hold them, read whole and cut (the JAX reader's SeekToRow
         analog, which also skips pages outside the range)."""
         batches, row0 = [], 0
@@ -414,7 +434,7 @@ class ParquetFile:
                 batches.append(self.read_row_group(
                     i, columns, (lo - row0, hi - lo), device=device))
             row0 += n
-        return self._concat(batches, columns)
+        return self._table(batches, columns)
 
     def close(self) -> None:
         if self._owned:
@@ -569,8 +589,7 @@ def _fixed_leaf(desc, rows: np.ndarray) -> HostArray:
     mat = torch.from_numpy(np.ascontiguousarray(rows, np.uint8))
     if t.id == dt.TypeId.FIXED_SIZE_BINARY:
         codes, dictionary = dd.fixed_size_codes(mat, None)
-        return HostArray(codes.numpy(), None, dt.dictionary(dt.int32, t),
-                         dictionary)
+        return HostArray(codes.numpy(), None, t, dictionary)
     values = _fixed_rows(t, desc.physical_type, desc.type_length).of_rows(mat)
     return HostArray(host_view(values.numpy(), t), None, t)
 
@@ -589,7 +608,7 @@ def _leaf_array(desc, parts) -> HostArray:
         data = np.concatenate([d for _, d in parts]) if parts else \
             np.zeros(0, np.uint8)
         codes, dictionary = factorize(_dictionary_from_rows(ends, data, t))
-        return HostArray(codes, None, dt.dictionary(dt.int32, t), dictionary)
+        return HostArray(codes, None, t, dictionary)
     if desc.physical_type in (fmt.Type.FIXED_LEN_BYTE_ARRAY, fmt.Type.INT96):
         return _fixed_leaf(desc, np.concatenate(parts) if parts else np.zeros(
             (0, _row_width(desc)), np.uint8))
@@ -676,7 +695,7 @@ def read_table(source, columns: Optional[List[str]] = None,
                decryption: Optional[encm.FileDecryptionProperties] = None,
                properties: Optional[ReaderProperties] = None,
                use_threads: bool = True, device=None):
-    """A parquet file's table as a HostBatch (ParquetFile.read_table),
-    read on `device` (the card unless named)."""
+    """A parquet file's table as a Table (ParquetFile.read_table), read
+    on `device` (the card unless named)."""
     with ParquetFile(source, decryption, properties) as pf:
         return pf.read_table(columns, filters, use_threads, device)

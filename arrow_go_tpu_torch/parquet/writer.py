@@ -317,7 +317,9 @@ def _write_chunk(sink: BinaryIO, vals: np.ndarray,
             dictionary_page_header=fmt.DictionaryPageHeader(
                 num_values=len(keys), encoding=int(fmt.Encoding.PLAIN))),
             body, len(page))
-        value_encoding = fmt.Encoding.RLE_DICTIONARY
+        # v1 data pages say PLAIN_DICTIONARY, as the JAX writer's do
+        value_encoding = fmt.Encoding.RLE_DICTIONARY if v2 else \
+            fmt.Encoding.PLAIN_DICTIONARY
         row_bytes = width / 8
     else:
         value_encoding = encoding or fmt.Encoding.PLAIN
@@ -578,21 +580,21 @@ def _host_column(v: HostArray, mask):
         raise ArrowInvalid("a HostArray column carries its validity")
     if v.type.id == dt.TypeId.EXTENSION:
         v = v.storage
-    if v.dictionary is None:
+    if v.dict_values is None:
         return v.values, v.mask, v.type
-    vt = v.type.value_type
+    vt = v.type.value_type if v.type.id == dt.TypeId.DICTIONARY else v.type
     if vt.id == dt.TypeId.FIXED_SIZE_BINARY:     # its (n, width) bytes
-        table = np.frombuffer(b"".join(v.dictionary), np.uint8).reshape(
+        table = np.frombuffer(b"".join(v.dict_values), np.uint8).reshape(
             -1, vt.byte_width)
         rows = table[np.clip(v.values, 0, None)] if len(table) else \
             np.zeros((len(v), vt.byte_width), np.uint8)
         return rows, v.mask, vt
     if not vt.is_binary_like:       # a dictionary of numbers: its values
-        table = np.asarray(v.dictionary)
+        table = np.asarray(v.dict_values)
         if not len(table):
             return np.zeros(len(v), vt.np_dtype), v.mask, vt
         return table[np.clip(v.values, 0, len(table) - 1)], v.mask, vt
-    return (v.values, v.dictionary), v.mask, vt
+    return (v.values, v.dict_values), v.mask, vt
 
 
 def _prepare(name: str, v, mask: Optional[np.ndarray],
@@ -752,16 +754,16 @@ def _batch_columns(hb: HostBatch) -> Dict[str, HostArray]:
     for f, c in zip(hb.schema.fields, hb.columns):
         if f.nullable and c.mask is None and c.values is not None:
             c = HostArray(c.values, np.ones(len(c), np.bool_), c.type,
-                          c.dictionary)
+                          c.dict_values)
         data[f.name] = c
     return data
 
 
 def write_table(table: Union[HostBatch, Dict[str, object]], sink,
                 row_group_size: Optional[int] = None,
-                compression: str = "none",
+                compression: str = "snappy",
                 use_dictionary: Union[bool, Dict[str, bool]] = True,
-                write_page_index: bool = False,
+                write_page_index: bool = True,
                 write_bloom_filters: Union[bool, Sequence[str]] = False,
                 data_page_size: Optional[int] = None,
                 column_properties: Optional[Dict[str, dict]] = None,
@@ -926,12 +928,12 @@ def _physical_leaf(leaf: HostArray, desc: psch.ColumnDescriptor):
     ptype = desc.physical_type
     if t.is_decimal or ptype in (fmt.Type.FIXED_LEN_BYTE_ARRAY,
                                  fmt.Type.INT96) or (
-            leaf.dictionary is not None and not t.is_binary_like):
-        if leaf.dictionary is not None:
+            leaf.dict_values is not None and not t.is_binary_like):
+        if leaf.dict_values is not None:
             return _host_column(leaf, None)[0]
         return _fixed_values(".".join(desc.path), leaf.values, t, ptype)
-    if leaf.dictionary is not None:
-        page_values = _string_bytes(leaf.dictionary, t)
+    if leaf.dict_values is not None:
+        page_values = _string_bytes(leaf.dict_values, t)
         return [page_values[c] for c in leaf.values.tolist()]
     if t == dt.bool_:
         return leaf.values

@@ -1027,6 +1027,22 @@ def check_rows(what: str, out: HostBatch, want: dict) -> None:
             raise AssertionError(f"{what} {k}: {got[k]!r}, oracle {v!r}")
 
 
+def one_batch(t):
+    """A reader's result as one batch: a Table's chunks combined, a batch
+    as it is."""
+    return t.to_batches()[0]
+
+
+def write_parquets(jobs: dict) -> dict:
+    """write_parquet of each {name: (table, *arguments)}, a thread a file
+    (the codecs and most of numpy release the GIL): {name: bytes}."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {k: pool.submit(write_parquet, *args)
+                   for k, args in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def write_parquet(table: dict, compression: str = "none",
                   column_encodings=None, types=None) -> bytes:
     """One row group, dictionary on (PLAIN past the 1 MiB dictionary
@@ -1040,7 +1056,7 @@ def write_parquet(table: dict, compression: str = "none",
     if types:
         extra["types"] = types
     tpq.write_table(table, buf, data_page_size=8 << 20,
-                    compression=compression, **extra)
+                    compression=compression, write_page_index=False, **extra)
     return buf.getvalue()
 
 
@@ -1752,10 +1768,10 @@ def check_scan(dbs: dict, sources: dict, types=None) -> None:
                 raise AssertionError(f"scan {tname}.{name}: type {c.type}")
             if isinstance(want, tuple):
                 want, values = want
-                if c.dictionary is None or \
-                        list(c.dictionary) != list(values):
+                if c.dict_values is None or \
+                        list(c.dict_values) != list(values):
                     raise AssertionError(f"scan {tname}.{name}: dictionary "
-                                         f"{c.dictionary!r}")
+                                         f"{c.dict_values!r}")
             n = len(want)
             if db.length != n or c.length != n or \
                     c.padded != agt.pad_length(n) or c.validity is not None:
@@ -1830,14 +1846,16 @@ def q1_phases(li, orders, dev) -> dict:
     launches = {}
     add_q1_columns(li)
     t0 = time.perf_counter()
-    snappy = {"lineitem": write_parquet(li, "snappy", types=LI_TYPES),
-              "orders": write_parquet(orders, "snappy")}
-    delta = {"l_okey": write_parquet(
-        {"l_okey": li["l_okey"]}, "snappy",
-        {"l_okey": "delta_binary_packed"}),
-        "o_okey": write_parquet({"o_okey": orders["o_okey"]}, "snappy",
-                                {"o_okey": "delta_binary_packed"})}
+    files = write_parquets({
+        "lineitem": (li, "snappy", None, LI_TYPES),
+        "orders": (orders, "snappy"),
+        "l_okey": ({"l_okey": li["l_okey"]}, "snappy",
+                   {"l_okey": "delta_binary_packed"}),
+        "o_okey": ({"o_okey": orders["o_okey"]}, "snappy",
+                   {"o_okey": "delta_binary_packed"})})
     write_s = time.perf_counter() - t0
+    snappy = {k: files[k] for k in ("lineitem", "orders")}
+    delta = {k: files[k] for k in ("l_okey", "o_okey")}
     encodings = {}
     for tname, blob in {**snappy, **delta}.items():
         pf = tpq.ParquetFile(blob)
@@ -1941,8 +1959,7 @@ def sweep_sides(li, orders):
 def sweep_host_batch(side: dict) -> HostBatch:
     arrays = {}
     for name, (vals, valid, dictionary) in side.items():
-        t = dt.int64 if dictionary is None else dt.dictionary(dt.int32,
-                                                              dt.string)
+        t = dt.int64 if dictionary is None else dt.string
         arrays[name] = HostArray(vals, valid, t, dictionary)
     return HostBatch.from_arrays(arrays)
 
@@ -2002,16 +2019,16 @@ def sweep_checksums(out) -> dict:
         res["rows"] = out.num_rows
         for f, c in zip(out.schema.fields, out.columns):
             ok = c.validity_bools()
-            vals = c.values if c.dictionary is None else _canonical(
-                c.dictionary)[c.values]
+            vals = c.values if c.dict_values is None else _canonical(
+                c.dict_values)[c.values]
             res[f.name] = (int(ok.sum()), int(vals[ok].astype(np.int64).sum()))
         return res
     res["rows"] = out.length
     for f, c in zip(out.schema.fields, out.columns):
         ok = c.validity_mask()
         vals = c.values.to(torch.int64)
-        if c.dictionary is not None:
-            vals = torch.from_numpy(_canonical(c.dictionary)).to(
+        if c.dict_values is not None:
+            vals = torch.from_numpy(_canonical(c.dict_values)).to(
                 vals.device).index_select(0, vals.clamp(0))
         res[f.name] = tuple(torch.stack([
             ok.sum(), torch.where(ok, vals, 0).sum()]).tolist())
@@ -2084,7 +2101,7 @@ def check_functions(got: dict, want: dict) -> None:
     codes, dictionary = want["dictionary_encode"]
     de = got["dictionary_encode"]
     if not np.array_equal(de.values, codes) or \
-            de.dictionary.tolist() != dictionary.tolist():
+            de.dict_values.tolist() != dictionary.tolist():
         raise AssertionError("functions dictionary_encode: differs")
     for k in ("unique_rflag", "unique_qty", "count_distinct", "product",
               "any", "all"):
@@ -2138,7 +2155,7 @@ def _string_ids(col: DeviceColumn, names) -> torch.Tensor:
     """Each row of [0, length) as its string's index in `names`, -1 where
     null, on the column's device."""
     at = {v: i for i, v in enumerate(names)}
-    table = torch.tensor([at[v] for v in col.dictionary] or [-1],
+    table = torch.tensor([at[v] for v in col.dict_values] or [-1],
                          device=col.device)
     ids = table.index_select(0, col.values.to(torch.int64).clamp(
         0, table.shape[0] - 1))
@@ -2159,7 +2176,7 @@ def check_string_selections(li_s: DeviceBatch, li) -> dict:
     cond = DeviceColumn(big.values, bitmap.pack_mask(rows % 13 != 0), n,
                         dt.bool_)
     holed = DeviceColumn(rflag.values, bitmap.pack_mask(rows % 7 != 0), n,
-                         rflag.type, rflag.dictionary)
+                         rflag.type, rflag.dict_values)
     rcodes, rvalues = li["l_rflag"]
     scodes, svalues = li["l_lstatus"]
     names = sorted(set(rvalues) | set(svalues) | {"X"})
@@ -2200,7 +2217,7 @@ def check_mixed_join(left_db: DeviceBatch, left: dict) -> dict:
     order its renumbering gives), against numpy."""
     dictionary = np.array(sorted(MIXED_MODES), dtype=object)
     at = {v: i for i, v in enumerate(dictionary)}
-    t = dt.dictionary(dt.int32, dt.string)
+    t = dt.string
     right = HostBatch.from_arrays({
         "r_mode": HostArray(np.array([at[m] for m in MIXED_MODES], np.int32),
                             None, t, dictionary),
@@ -2924,7 +2941,8 @@ def fixed_files(rng, dev) -> dict:
                     masks={"h": mask, "f": mask, "t": mask},
                     types={"h": dt.float16, "f": dt.fixed_size_binary(12),
                            "t": dt.timestamp("ns")},
-                    compression="snappy", data_page_size=1 << 20,
+                    compression="snappy", write_page_index=False,
+                    data_page_size=1 << 20,
                     int96_timestamps=True)
     blob = buf.getvalue()
     times = {}
@@ -2934,7 +2952,7 @@ def fixed_files(rng, dev) -> dict:
     _equal("FLOAT16 scan", _host(db.column("h"))[mask], h[mask])
     _equal("INT96 scan", _host(db.column("t"))[mask], ts[mask])
     f = db.column("f")
-    rows = np.frombuffer(b"".join(f.dictionary), np.uint8).reshape(-1, 12)
+    rows = np.frombuffer(b"".join(f.dict_values), np.uint8).reshape(-1, 12)
     _equal("fixed_size_binary scan", rows[_host(f)][mask], fsb[mask])
     encs = {c.meta_data.path_in_schema[0]: [
         tpq.format.Encoding(e).name for e in c.meta_data.encodings]
@@ -2942,7 +2960,7 @@ def fixed_files(rng, dev) -> dict:
     return {"rows": n, "file_bytes": len(blob), "scan_ms": ms,
             "split_ms": {k[:-2] + "_ms": v * 1e3 for k, v in times.items()},
             "encodings": encs, "fixed_size_binary_distinct":
-            len(f.dictionary), "verified": True}
+            len(f.dict_values), "verified": True}
 
 
 def data_page_encodings(blob) -> dict:
@@ -3180,7 +3198,7 @@ def write_dataset(root: str, lis, ords, cust, compression: str = "zstd",
                 if compression == "zstd" else None,
                 data_page_size=DATASET_PAGE_BYTES,
                 row_group_size=rows_per_group,
-                dictionary_pagesize_limit=dict_limit)
+                dictionary_pagesize_limit=dict_limit, write_page_index=False)
     out, jobs = {}, []
 
     def write(table, name, data, **extra):
@@ -3260,8 +3278,8 @@ def dataset_q10(li_ds, ord_ds, cust_ds, dev) -> HostBatch:
     by o_custkey; the partial sums are combined, the top 20 taken, and
     their names read from the customer dataset."""
     f, lit, call = pc.field, pc.literal, pc.call
-    orders = ord_ds.to_table(columns=["o_okey", "o_custkey"],
-                             filter=q10_window(), device=dev)
+    orders = one_batch(ord_ds.to_table(columns=["o_okey", "o_custkey"],
+                                       filter=q10_window(), device=dev))
     ord_db = agt.device.block.host_batch_to_device(orders, dev)
     returned = call("equal", [f("l_rflag"), lit("R")])
     rev_expr = call("multiply", [f("l_price"), call("subtract", [
@@ -3334,7 +3352,7 @@ def dataset_lookup(ord_ds, key: int, dev) -> dict:
     sc = ord_ds.scanner(columns=["o_okey"], filter=expr, device=dev)
     kept = [sum(len(k) for _, k, _ in sc.row_groups(bloom))
             for bloom in (False, True)]
-    okeys = sc.to_table().column("o_okey").values
+    okeys = one_batch(sc.to_table()).column("o_okey").values
     return {"key": key, "rows": len(okeys), "o_okey": np.sort(okeys),
             "kept_by_stats": kept[0], "kept_by_bloom": kept[1]}
 
@@ -3348,7 +3366,7 @@ def check_string_pages(ds, names: np.ndarray, dev, times=None) -> int:
             times=times):
         c = db.column("c_name")
         codes = c.values[:c.length].cpu().numpy()
-        got = c.dictionary[codes]
+        got = c.dict_values[codes]
         want = names[start:start + c.length]
         if c.validity is not None or not np.array_equal(got, want):
             raise AssertionError("string pages: values differ")
@@ -3356,7 +3374,7 @@ def check_string_pages(ds, names: np.ndarray, dev, times=None) -> int:
         # largest before it, and the largest is the dictionary's last
         run = np.maximum.accumulate(np.concatenate(([-1], codes)))
         if (codes > run[:-1] + 1).any() or \
-                run[-1] + 1 != len(c.dictionary):
+                run[-1] + 1 != len(c.dict_values):
             raise AssertionError("string pages: codes not in first-"
                                  "occurrence order")
         start += c.length
@@ -3554,8 +3572,7 @@ def host_batch(table: dict, names) -> HostBatch:
     for nm in names:
         v = table[nm]
         if isinstance(v, tuple):
-            cols[nm] = HostArray(v[0], None, dt.dictionary(dt.int32,
-                                                           dt.string), v[1])
+            cols[nm] = HostArray(v[0], None, dt.string, v[1])
         else:
             cols[nm] = HostArray(v, None, dt.from_numpy_dtype(v.dtype))
     return HostBatch.from_arrays(cols)
@@ -4542,8 +4559,7 @@ def typed_orders(orders) -> tuple:
     okey, odate = orders["o_okey"], orders["o_odate"]
     n = len(okey)
     pcodes, pvalues = orders["o_opri"]
-    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
-                     pvalues)
+    opri = HostArray(pcodes, None, dt.string, pvalues)
     m_ok, b_ok = okey % 11 != 0, okey % 13 != 0
     cols = {
         "o_okey": HostArray(okey, None, dt.int64),
@@ -4578,9 +4594,9 @@ def check_typed_filter(out: HostBatch, want: dict, keep: np.ndarray):
         ok = np.ones(len(keep), np.bool_) if ok is None else ok
         _equal(f"typed_filter {name} validity", col.validity_bools(),
                ok[keep])
-        if col.dictionary is not None:       # codes into the dictionary
+        if col.dict_values is not None:       # codes into the dictionary
             codes, values = vals
-            if list(col.dictionary) != list(values):
+            if list(col.dict_values) != list(values):
                 raise AssertionError(f"typed_filter {name}: dictionary")
             got, vals = col.values, codes
         else:
@@ -4618,8 +4634,7 @@ def host_typed_orders(orders, li, dev) -> tuple:
     mdn["nanoseconds"] = okey * 1000
     odd = (okey % 2).astype(np.int8)
     fields = [dt.Field("k", dt.int64), dt.Field("p", dt.string)]
-    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
-                     pvalues)
+    opri = HostArray(pcodes, None, dt.string, pvalues)
     kids = [HostArray(okey, None, dt.int64), opri]
     rank = np.zeros(n, np.int32)
     for k in (0, 1):
@@ -4642,8 +4657,8 @@ def host_typed_orders(orders, li, dev) -> tuple:
     raw[:, 15] |= 0x40
     uuids = raw.view("S16").reshape(n).astype(object)
     uuid = ExtensionArray(extensions.uuid, HostArray(
-        np.arange(n, dtype=np.int32), None,
-        dt.dictionary(dt.int32, dt.fixed_size_binary(16)), uuids))
+        np.arange(n, dtype=np.int32), None, dt.fixed_size_binary(16),
+        uuids))
     hb = HostBatch.from_arrays({"o_day_time": HostArray(
         day_time, None, dt.day_time_interval), "o_mdn": HostArray(
         mdn, None, dt.month_day_nano_interval), "o_dense": dense,
@@ -4700,7 +4715,7 @@ def check_host_types(what: str, cols: dict, parts: dict,
     _equal(f"{what} o_prices child", lv.children[0].values,
            parts["child"][pos])
     u = cols["o_uuid"]
-    if u.storage.dictionary is not parts["uuids"]:
+    if u.storage.dict_values is not parts["uuids"]:
         raise AssertionError(f"{what} o_uuid: the dictionary was copied")
     _equal(f"{what} o_uuid validity", u.validity_bools(), ok)
     _equal(f"{what} o_uuid codes", u.storage.values[ok],
@@ -4764,10 +4779,8 @@ def types_phases(li, orders, dev, card: str) -> dict:
     launches, held, runs = {}, {}, {}
     mcodes, modes = li["l_smode"]
     pcodes, pvalues = orders["o_opri"]
-    smode = HostArray(mcodes, None, dt.dictionary(dt.int32, dt.string),
-                      modes)
-    opri = HostArray(pcodes, None, dt.dictionary(dt.int32, dt.string),
-                     pvalues)
+    smode = HostArray(mcodes, None, dt.string, modes)
+    opri = HostArray(pcodes, None, dt.string, pvalues)
     # (the registry is built at its first call: warm it on one row)
     pc.call_function("cast_string_view", [smode.slice(0, 1)])
     t0 = time.perf_counter()
@@ -4777,7 +4790,7 @@ def types_phases(li, orders, dev, card: str) -> dict:
     opri_l = pc.call_function("cast_large_string", [opri])
     cast_ls_ms = (time.perf_counter() - t0) * 1e3
     if smode_v.values is not mcodes or opri_l.values is not pcodes or \
-            list(smode_v.dictionary) != list(modes):
+            list(smode_v.dict_values) != list(modes):
         raise AssertionError("q12_views: a cast copied the codes")
     li_cols = {c: li[c] for c in ("l_okey", "l_sdate", "l_cdate",
                                   "l_rdate")}
@@ -5042,10 +5055,10 @@ def stream_orders(orders) -> tuple:
     write_ms = (time.perf_counter() - t0) * 1e3
     blob = sink.getbuffer()
     t0 = time.perf_counter()
-    got = ipc.open_stream(blob).read_all()
+    got = one_batch(ipc.open_stream(blob).read_all())
     read_ms = (time.perf_counter() - t0) * 1e3
     opri = got.column("o_opri")
-    if list(opri.dictionary) != list(values) or not np.array_equal(
+    if list(opri.dict_values) != list(values) or not np.array_equal(
             opri.values, codes) or not np.array_equal(
             got.column("o_custkey").values, ck):
         raise AssertionError("ipc_stream: the orders differ after the "
@@ -5125,7 +5138,8 @@ def variant_phase(orders, dev, card: str) -> tuple:
     want = sh.to_pylist()
     t0 = time.perf_counter()
     sink = io.BytesIO()
-    tpq.write_table({"v": sh}, sink)
+    tpq.write_table({"v": sh}, sink, compression="none",
+                    write_page_index=False)
     ms["parquet_write"] = (time.perf_counter() - t0) * 1e3
     pq_bytes = len(sink.getvalue())
     t0 = time.perf_counter()
@@ -5140,7 +5154,8 @@ def variant_phase(orders, dev, card: str) -> tuple:
     schema = dt.Schema([dt.Field("v", sh.type)])
     with ipc.new_stream(sink, schema) as w:
         w.write(HostBatch(schema, [sh], n))
-    back = ipc.open_stream(sink.getvalue()).read_all().column("v")
+    back = one_batch(ipc.open_stream(sink.getvalue()).read_all()).column(
+        "v")
     ms["ipc_round_trip"] = (time.perf_counter() - t0) * 1e3
     if back.type != sh.type or back.to_pylist() != want:
         raise AssertionError("variant: the IPC round trip differs")
@@ -5252,7 +5267,7 @@ def ipc_phases(li, orders, dev, card: str, dataset_q6_result=None) -> dict:
     print(json.dumps({"ipc_stream": {
         "rows": got.num_rows, "batches": IPC_STREAM_BATCHES,
         "bytes": len(blob), "write_ms": write_ms, "read_ms": read_ms,
-        "dictionary": list(got.column("o_opri").dictionary), "card": card,
+        "dictionary": list(got.column("o_opri").dict_values), "card": card,
         "verified": True}}), flush=True)
     launches["IPC stream"] = {k: 0 for k in KERNELS}
     del blob, got
@@ -5416,14 +5431,14 @@ def csv_writer_batch(table: dict, names, n: int) -> HostBatch:
     for name in names:
         v = table[name]
         if isinstance(v, tuple):
-            cols.append(HostArray(v[0][:n], None, dt.dictionary(
-                dt.int32, dt.string), dictionary_values(v[1], dt.string)))
+            cols.append(HostArray(v[0][:n], None, dt.string,
+                                  dictionary_values(v[1], dt.string)))
             fields.append(dt.Field(name, dt.string))
         elif name == "l_sdate":
             iso = np.datetime_as_string(v[:n].astype("datetime64[D]"))
             uniq, inv = np.unique(iso, return_inverse=True)
-            cols.append(HostArray(inv.astype(np.int32), None, dt.dictionary(
-                dt.int32, dt.string), dictionary_values(uniq, dt.string)))
+            cols.append(HostArray(inv.astype(np.int32), None, dt.string,
+                                  dictionary_values(uniq, dt.string)))
             fields.append(dt.Field(name, dt.string))
         else:
             t = dt.from_numpy_dtype(v.dtype)
@@ -5447,7 +5462,9 @@ def check_csv_writer(table: dict, names, text: bytes, n: int) -> int:
 def _same_column(what: str, got: HostArray, want, t: dt.DataType) -> None:
     """A read column equals its numpy source: its type, no nulls, values
     bit for bit; a flag, given as (codes, values), by its letters."""
-    gt = got.type.value_type if got.dictionary is not None else got.type
+    if got.type.id == dt.TypeId.DICTIONARY:
+        got = got.decode()
+    gt = got.type
     if got.mask is not None or gt.id != t.id:
         raise AssertionError(f"{what}: read as {gt} with "
                              f"{0 if got.mask is None else (~got.mask).sum()}"
@@ -5455,7 +5472,7 @@ def _same_column(what: str, got: HostArray, want, t: dt.DataType) -> None:
     if isinstance(want, tuple):
         codes, values = want
         where = {v: i for i, v in enumerate(values)}
-        remap = np.array([where[v] for v in got.dictionary], np.int32)
+        remap = np.array([where[v] for v in got.dict_values], np.int32)
         if not np.array_equal(remap[got.values], codes):
             raise AssertionError(f"{what}: letters differ from the source")
         return
@@ -5664,8 +5681,8 @@ def orders_json_batch(orders, n: int) -> HostBatch:
             "o_custkey": HostArray(orders["o_custkey"][:n], None,
                                    dt.int64),
             "o_odate": HostArray(orders["o_odate"][:n], None, dt.int32),
-            "o_opri": HostArray(codes[:n], None, dt.dictionary(
-                dt.int32, dt.string), dictionary_values(values, dt.string))}
+            "o_opri": HostArray(codes[:n], None, dt.string,
+                                dictionary_values(values, dt.string))}
     return HostBatch(dt.Schema([dt.Field(k, dt.string if k == "o_opri"
                                          else a.type)
                                 for k, a in cols.items()]),
@@ -6075,7 +6092,7 @@ def arrjson_orders_batch(orders, n: int) -> HostBatch:
     return HostBatch(dt.Schema([dt.Field(f.name, o_opri if f.name == "o_opri"
                                          else f.type)
                                 for f in hb.schema.fields]),
-                     [HostArray(col.values, None, o_opri, col.dictionary)
+                     [HostArray(col.values, None, o_opri, col.dict_values)
                       if c is col else c for c in hb.columns], n)
 
 
@@ -6252,6 +6269,7 @@ def write_encrypted(path: str, table: dict, encryption, **extra) -> int:
     groups of DATASET_ROWS_PER_GROUP rows, DATASET_PAGE_BYTES pages, the
     DATASET_DICT_LIMIT dictionary limit) under `encryption`; returns its
     bytes."""
+    extra.setdefault("write_page_index", False)
     tpq.write_table(table, path, compression="snappy",
                     data_page_size=DATASET_PAGE_BYTES,
                     row_group_size=DATASET_ROWS_PER_GROUP,
@@ -6274,9 +6292,10 @@ def encrypted_q6(path: str, decryption, dev, times=None,
         pf.close()
 
 
-def check_read_table(what: str, hb: HostBatch, table: dict, n: int) -> None:
-    """Every column of a read_table HostBatch equals its numpy source
-    over [0, n), bit for bit."""
+def check_read_table(what: str, t, table: dict, n: int) -> None:
+    """Every column of a read_table result equals its numpy source over
+    [0, n), bit for bit."""
+    hb = one_batch(t)
     if hb.num_rows != n:
         raise AssertionError(f"{what}: {hb.num_rows} rows, wrote {n}")
     for f, c in zip(hb.schema.fields, hb.columns):
@@ -6362,7 +6381,7 @@ def cli_phase(root: str, table: dict, dev) -> dict:
         return buf.getvalue()
     n = len(table["l_qty"])
     src = os.path.join(root, "cli.parquet")
-    tpq.write_table(table, src, compression="snappy")
+    tpq.write_table(table, src, compression="snappy", write_page_index=False)
     t0 = time.perf_counter()
     ls = run("ls", src)
     want = [f"rows: {n}"] + [f"  {c}: {dt.from_numpy_dtype(table[c].dtype)}"
@@ -6687,7 +6706,7 @@ def flight_server_main(path: str, rows: int, pipe) -> None:
     import socket
     import threading
     from arrow_go_tpu_torch import flight as fl
-    hb = tpq.read_table(path, device="cpu")
+    hb = one_batch(tpq.read_table(path, device="cpu"))
     batches = [hb.slice(a, rows) for a in range(0, hb.num_rows, rows)]
 
     class Server(fl.FlightServerBase):
@@ -6851,8 +6870,8 @@ def q6_exchange_server(dev):
 
 def flight_exchange(client, batches) -> dict:
     from arrow_go_tpu_torch import flight as fl
-    out = client.do_exchange(fl.FlightDescriptor.for_command(b"q6"),
-                             batches[0].schema, batches).read_all()
+    out = one_batch(client.do_exchange(fl.FlightDescriptor.for_command(
+        b"q6"), batches[0].schema, batches).read_all())
     return {"revenue": float(out.column("revenue").values[0]),
             "count": int(out.column("count").values[0])}
 
@@ -7045,7 +7064,7 @@ def flightsql_q6(client, dev, times=None, keep=None) -> dict:
     t0 = time.perf_counter()
     info = client.execute(Q6_SQL)
     t1 = time.perf_counter()
-    hb = client.do_get(info.endpoints[0].ticket).read_all()
+    hb = one_batch(client.do_get(info.endpoints[0].ticket).read_all())
     t2 = time.perf_counter()
     db = host_batch_to_device(hb, dev)
     _sync(dev)
@@ -7075,7 +7094,7 @@ def sqlite_q6(client) -> dict:
     try:
         ps.set_parameters(fsql.table({f"p{i}": [v] for i, v in
                                       enumerate(Q6_PARAMS)}))
-        out = ps.execute()
+        out = one_batch(ps.execute())
     finally:
         ps.close()
     return {"revenue": float(out.columns[0].values[0]),
@@ -7234,8 +7253,8 @@ def flightsql_phases(li, dev, card: str, timing_only: bool = False) -> dict:
         t0 = time.perf_counter()
         acked = client.execute_ingest(batch, "lineitem")
         ingest_ms = (time.perf_counter() - t0) * 1e3
-        stored = client.execute_query(
-            "SELECT COUNT(*) AS n FROM lineitem").column("n").values[0]
+        stored = one_batch(client.execute_query(
+            "SELECT COUNT(*) AS n FROM lineitem")).column("n").values[0]
         if not acked == stored == n:
             raise AssertionError(f"flightsql_ingest: {n} rows sent, "
                                  f"{acked} acknowledged, {stored} stored")
@@ -7947,9 +7966,8 @@ def build_orders(okey, odate, pri) -> dict:
 def orders_window(cols: dict, dev) -> dict:
     """o_okey, o_odate and o_opri each `to_device`, then the o_odate
     window's filter (K1): rows kept, and the valid o_opri among them."""
-    from arrow_go_tpu_torch.array.arrays import field_type
     from arrow_go_tpu_torch.device import to_device
-    db = DeviceBatch(dt.Schema([dt.Field(k, field_type(a))
+    db = DeviceBatch(dt.Schema([dt.Field(k, a.type)
                                 for k, a in cols.items()]),
                      [to_device(a, device=dev) for a in cols.values()],
                      len(cols["o_okey"]))
@@ -8231,7 +8249,8 @@ def hostapi_write_read(t, root: str) -> dict:
     times["ipc_q6_s"] = time.perf_counter() - t0
     path = os.path.join(root, "lineitem.parquet")
     t0 = time.perf_counter()
-    tpq.write_table(t, path, HOSTAPI_CHUNK_ROWS)
+    tpq.write_table(t, path, HOSTAPI_CHUNK_ROWS, compression="none",
+                    write_page_index=False)
     times["parquet_write_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pf = tpq.ParquetFile(path)
@@ -8374,6 +8393,281 @@ def _line_end(text: bytes, rows: int) -> int:
     return int(nl[rows]) + 1
 
 
+STRINGS_ROWS = LINEITEM_SF1       # lineitem rows of the strings phase (SF1)
+STRINGS_ORDERS = 1_500_000        # its orders (TPC-H spec 4.2.5 at SF1)
+STRINGS_PYARROW_ROWS = 1 << 16    # rows of the pyarrow import
+# TPC-H spec 4.2.3: L_SHIPINSTRUCT's four values, in string order
+SHIPINSTRUCTS = np.array(["COLLECT COD", "DELIVER IN PERSON", "NONE",
+                          "TAKE BACK RETURN"], dtype=object)
+STRINGS_Q12_COLUMNS = ["l_okey", "l_smode", "l_sdate", "l_rdate",
+                       "l_cdate"]
+
+
+def strings_rows(li, orders):
+    """SF1's rows of the SF10 arrays, as make_data's dicts: the first
+    STRINGS_ROWS lineitem rows, their l_okey taken mod STRINGS_ORDERS so
+    that each row's order is one of the first STRINGS_ORDERS orders, and
+    l_sinstruct drawn uniform over SHIPINSTRUCTS (seed 25); those
+    orders' o_okey and o_opri."""
+    n = min(STRINGS_ROWS, len(li["l_okey"]))
+    m = min(STRINGS_ORDERS, len(orders["o_okey"]))
+    sub = {c: li[c][:n] for c in ("l_sdate", "l_rdate", "l_cdate")}
+    sub["l_okey"] = li["l_okey"][:n] % m
+    codes, modes = li["l_smode"]
+    sub["l_smode"] = (codes[:n], modes)
+    sub["l_sinstruct"] = (np.random.default_rng(25).integers(
+        0, len(SHIPINSTRUCTS), n).astype(np.int32), SHIPINSTRUCTS)
+    pcodes, pvalues = orders["o_opri"]
+    return sub, {"o_okey": orders["o_okey"][:m],
+                 "o_opri": (pcodes[:m], pvalues)}
+
+
+STRINGS_TYPES = {"l_smode": (dt.string, "StringArray"),
+                 "l_sinstruct": (dt.string, "StringArray"),
+                 "o_opri": (dt.string, "StringArray"),
+                 "o_opri_dict": (dt.dictionary(dt.int32, dt.string),
+                                 "DictionaryArray")}
+
+
+def strings_tables(sub, ords) -> tuple:
+    """The lineitem and orders Tables as a JAX user builds them: `array`
+    of numpy object arrays for l_smode and l_sinstruct and of numpy
+    arrays for the numbers, `array` of a Python list for o_opri, and
+    o_opri again as an explicit dictionary<int32, string> column
+    (o_opri_dict). Each string column's type and class are held to the
+    JAX package's rules. Returns (lineitem, orders, seconds by
+    column)."""
+    secs, li_cols, ord_cols = {}, {}, {}
+    for c in ("l_okey", "l_sdate", "l_rdate", "l_cdate"):
+        li_cols[c] = agt.array(sub[c])
+    for c in ("l_smode", "l_sinstruct"):
+        codes, values = sub[c]
+        obj = values[codes]
+        t0 = time.perf_counter()
+        li_cols[c] = agt.array(obj)
+        secs[c] = time.perf_counter() - t0
+    pcodes, pvalues = ords["o_opri"]
+    pri = pvalues[pcodes].tolist()
+    ord_cols["o_okey"] = agt.array(ords["o_okey"])
+    t0 = time.perf_counter()
+    ord_cols["o_opri"] = agt.array(pri)
+    secs["o_opri"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ord_cols["o_opri_dict"] = agt.array(pri, STRINGS_TYPES["o_opri_dict"][0])
+    secs["o_opri_dict"] = time.perf_counter() - t0
+    for name, a in {**li_cols, **ord_cols}.items():
+        want_t, want_cls = STRINGS_TYPES.get(name, (a.type, type(a).__name__))
+        if a.type != want_t or type(a).__name__ != want_cls:
+            raise AssertionError(f"strings {name}: {type(a).__name__} of "
+                                 f"{a.type}, not {want_cls} of {want_t}")
+    d = ord_cols["o_opri_dict"].dictionary
+    first = list(dict.fromkeys(pri))
+    if type(d).__name__ != "StringArray" or d.to_pylist() != first:
+        raise AssertionError(f"strings o_opri_dict: dictionary {d!r}")
+    return agt.table(li_cols), agt.table(ord_cols), secs
+
+
+def strings_q12(li_t, ord_t, dev) -> HostBatch:
+    """TPC-H Q12 from the Tables through the public API: batch_to_device
+    of each, then compute_q12 (the filter and the hash encodes on K1,
+    the join's expansion on K2, group_by)."""
+    li_db = agt.batch_to_device(li_t.select(STRINGS_Q12_COLUMNS), device=dev)
+    ord_db = agt.batch_to_device(ord_t.select(["o_okey", "o_opri"]),
+                                 device=dev)
+    return compute_q12(li_db, ord_db)
+
+
+def check_strings_q12(out, want: dict) -> None:
+    """Q12's counts exactly as `want`, its l_smode key the DictionaryArray
+    (with an Array dictionary) the JAX from_device gives."""
+    key = out.column("l_smode")
+    if type(key).__name__ != "DictionaryArray" or \
+            type(key.dictionary).__name__ != "StringArray":
+        raise AssertionError(f"strings Q12: key {type(key).__name__} "
+                             f"of {key.type}")
+    got = {c: out.column(c).to_pylist()
+           for c in ("l_smode", "high_sum", "low_sum")}
+    if got != want:
+        raise AssertionError(f"strings Q12: {got}, want {want}")
+
+
+def _same_strings(what: str, got, src) -> None:
+    """A read column equal to its source, value for value (a coded
+    column by the values its codes name)."""
+    if got.dict_values is None:
+        same = np.array_equal(got.values, src.values)
+    else:
+        same = np.array_equal(got.dict_values[got.values],
+                              src.dict_values[src.values])
+    if len(got) != len(src) or not same:
+        raise AssertionError(f"strings {what}: the values differ")
+
+
+def strings_files(tables: dict, root: str, dev) -> dict:
+    """Each Table through an IPC stream (write_table, read_all) and
+    through parquet.write_table with the JAX defaults (snappy, page
+    index; v1 dictionary pages PLAIN_DICTIONARY) and read_table on
+    `dev`: each read a Table, its fields typed as the JAX readers give
+    them (a dictionary field kept by IPC, utf8 from parquet), each
+    column equal to its source. Returns seconds and bytes."""
+    out = {}
+    for name, t in tables.items():
+        src = one_batch(t)
+        sink = io.BytesIO()
+        t0 = time.perf_counter()
+        with agt.ipc.new_stream(sink, t.schema) as w:
+            w.write_table(t)
+        back = agt.ipc.open_stream(sink.getvalue()).read_all()
+        out[f"{name}_ipc_s"] = time.perf_counter() - t0
+        out[f"{name}_ipc_bytes"] = len(sink.getvalue())
+        if type(back).__name__ != "Table" or back.schema != t.schema:
+            raise AssertionError(f"strings {name} ipc: {back.schema}")
+        got = one_batch(back)
+        for f in t.schema.fields:
+            c = got.column(f.name)
+            if type(c).__name__ != type(src.column(f.name)).__name__:
+                raise AssertionError(f"strings {name} ipc {f.name}: "
+                                     f"{type(c).__name__}")
+            _same_strings(f"{name} ipc {f.name}", c, src.column(f.name))
+        path = os.path.join(root, f"{name}.parquet")
+        t0 = time.perf_counter()
+        tpq.write_table(t, path)
+        out[f"{name}_parquet_write_s"] = time.perf_counter() - t0
+        out[f"{name}_parquet_bytes"] = os.path.getsize(path)
+        with tpq.ParquetFile(path) as pf:
+            for ch in pf.metadata.row_groups[0].columns:
+                encs = {tpq.format.Encoding(e).name
+                        for e in ch.meta_data.encodings}
+                if ch.meta_data.codec != tpq.format.Codec.SNAPPY or \
+                        ch.column_index_offset is None or \
+                        "RLE_DICTIONARY" in encs:
+                    raise AssertionError(f"strings {name} parquet: "
+                                         f"{ch.meta_data}")
+        t0 = time.perf_counter()
+        back = tpq.read_table(path, device=dev)
+        out[f"{name}_parquet_read_s"] = time.perf_counter() - t0
+        want = [dt.Field(f.name, f.type.value_type
+                         if f.type.id == dt.TypeId.DICTIONARY else f.type,
+                         f.nullable) for f in t.schema.fields]
+        if type(back).__name__ != "Table" or \
+                [(f.name, f.type) for f in back.schema.fields] != \
+                [(f.name, f.type) for f in want] or \
+                type(back.column(0)).__name__ != "ChunkedArray":
+            raise AssertionError(f"strings {name} parquet: {back.schema}")
+        got = one_batch(back)
+        for f in t.schema.fields:
+            _same_strings(f"{name} parquet {f.name}", got.column(f.name),
+                          src.column(f.name))
+    return out
+
+
+def strings_pyarrow(sub) -> dict:
+    """pyarrow's string and dictionary arrays of the first
+    STRINGS_PYARROW_ROWS ship modes imported (`string`, a StringArray;
+    dictionary<int32, string>, a DictionaryArray) and exported back.
+    Fails, where pyarrow is missing, as any phase fails."""
+    import pyarrow as pa
+    from arrow_go_tpu_torch.interop.pyarrow_interop import (
+        array_from_pyarrow, array_to_pyarrow)
+    codes, modes = sub["l_smode"]
+    vals = modes[codes[:STRINGS_PYARROW_ROWS]].tolist()
+    t0 = time.perf_counter()
+    for parr, t, cls in (
+            (pa.array(vals, pa.string()), dt.string, "StringArray"),
+            (pa.array(vals, pa.string()).dictionary_encode(),
+             dt.dictionary(dt.int32, dt.string), "DictionaryArray")):
+        a = array_from_pyarrow(parr)
+        if a.type != t or type(a).__name__ != cls:
+            raise AssertionError(f"strings pyarrow: {type(a).__name__} of "
+                                 f"{a.type} from {parr.type}")
+        back = array_to_pyarrow(a)
+        if back.type != parr.type or back.to_pylist() != vals:
+            raise AssertionError(f"strings pyarrow: {back.type} back")
+    return {"pyarrow": pa.__version__, "rows": len(vals),
+            "s": time.perf_counter() - t0}
+
+
+def strings_phases(li, orders, dev, card: str,
+                   timing_only: bool = False) -> dict:
+    """The JAX string and dictionary arrays on the card, over SF1's rows
+    of the SF10 arrays (strings_rows): the Tables built as a JAX user
+    builds them (strings_tables: each string column's type and class
+    held), TPC-H Q12 from them through batch_to_device (K1, K2; its key
+    the DictionaryArray from_device gives), exact against numpy and
+    against compute_q12 of the same rows given as numpy codes
+    (`strings_q12`); batch_from_device of the two string columns,
+    StringArrays over the codes they left with (`strings_round_trip`);
+    the Tables through IPC and parquet with the JAX writer defaults in a
+    temporary directory (`strings_files`); pyarrow's string and
+    dictionary arrays imported (`strings_pyarrow`); every K1 and K2 call
+    of Q12 held against the plain version (`strings_path_checks`; not
+    with `timing_only`). Returns the path's launch counts and the
+    largest kernel - plain difference."""
+    t_phase = time.perf_counter()
+    sub, ords = strings_rows(li, orders)
+    t0 = time.perf_counter()
+    li_t, ord_t, col_s = strings_tables(sub, ords)
+    build_s = time.perf_counter() - t0
+    print(json.dumps({"strings_tables": {
+        "lineitem_rows": li_t.num_rows, "orders_rows": ord_t.num_rows,
+        "types": {f.name: str(f.type) for t in (li_t, ord_t)
+                  for f in t.schema.fields if f.name in STRINGS_TYPES},
+        "build_s": build_s, "array_s": col_s, "card": card}}), flush=True)
+
+    want = q12_oracle(sub, ords)
+    launches = {}
+    out, launches["strings Q12"] = run_path(
+        "strings Q12", lambda: strings_q12(li_t, ord_t, dev), ("K1", "K2"))
+    check_strings_q12(out, want)
+    out, q12_ms = _sync_ms(lambda: strings_q12(li_t, ord_t, dev))
+    check_strings_q12(out, want)
+    ref = compute_q12(
+        agt.batch_to_device({c: sub[c] for c in STRINGS_Q12_COLUMNS},
+                            device=dev),
+        agt.batch_to_device({"o_okey": ords["o_okey"],
+                             "o_opri": ords["o_opri"]}, device=dev))
+    check_strings_q12(ref, want)
+    print(json.dumps({"strings_q12": {
+        **want, "ms": q12_ms, "launches_per_run": launches["strings Q12"],
+        "key_class": type(out.column("l_smode")).__name__,
+        "equals_numpy_codes_q12": True, "card": card, "verified": True}}),
+        flush=True)
+
+    src = one_batch(li_t.select(["l_smode", "l_sinstruct"]))
+    t0 = time.perf_counter()
+    back = agt.device.batch_from_device(agt.batch_to_device(src, device=dev))
+    trip_s = time.perf_counter() - t0
+    for f in src.schema.fields:
+        a, b = back.column(f.name), src.column(f.name)
+        if type(a).__name__ != "StringArray" or a.type != dt.string or \
+                not np.array_equal(a.values, b.values) or \
+                a.dict_values is not b.dict_values:
+            raise AssertionError(f"strings round trip {f.name}: "
+                                 f"{type(a).__name__} of {a.type}")
+    print(json.dumps({"strings_round_trip": {
+        "rows": back.num_rows, "s": trip_s, "card": card,
+        "equal": True}}), flush=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        files = strings_files({"lineitem": li_t, "orders": ord_t}, root, dev)
+    print(json.dumps({"strings_files": {**files, "card": card,
+                                        "verified": True}}), flush=True)
+    print(json.dumps({"strings_pyarrow": strings_pyarrow(sub)}), flush=True)
+
+    held = {}
+    if not timing_only:
+        out, held["q12"] = check_path_calls(
+            "strings Q12", lambda: strings_q12(li_t, ord_t, dev),
+            launches["strings Q12"])
+        check_strings_q12(out, want)
+        print(json.dumps({"strings_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K2")}
+    print(json.dumps({"strings_phase": {
+        "s": time.perf_counter() - t_phase, "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -8384,7 +8678,8 @@ def main(argv=None) -> int:
                          "path and kernel shape, for comparing two trees "
                          "in turns on one card")
     ap.add_argument("--only", choices=["flight", "flightsql", "examples",
-                                       "encodings", "arrays", "hostapi"],
+                                       "encodings", "arrays", "hostapi",
+                                       "strings"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -8423,6 +8718,10 @@ def main(argv=None) -> int:
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
         out = hostapi_phases(li, dev, card)
+    elif args.only == "strings":
+        li, orders = make_data(n_li, n_ord)
+        add_join_columns(li, orders)
+        out = strings_phases(li, orders, dev, card)
     elif args.only == "encodings":
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
@@ -8492,7 +8791,7 @@ def main(argv=None) -> int:
     # the same tables as parquet bytes, written by the port's writer
     add_quantity(li)
     t0 = time.perf_counter()
-    blobs = {"lineitem": write_parquet(li), "orders": write_parquet(orders)}
+    blobs = write_parquets({"lineitem": (li,), "orders": (orders,)})
     write_s = time.perf_counter() - t0
     encodings = {}
     for tname, blob in blobs.items():
@@ -8615,6 +8914,8 @@ def main(argv=None) -> int:
             arrays_phases(li, orders, dev, card, timing_only=True)
         if hasattr(agt.ipc.StreamWriter, "write_table"):
             hostapi_phases(li, dev, card, timing_only=True)
+        if hasattr(agt.device.block, "as_dictionary"):
+            strings_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -8675,6 +8976,9 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, hapi["errs"]["K1"])
     k2_err = max(k2_err, hapi["errs"]["K2"])
     k3_err = max(k3_err, hapi["errs"]["K3"])
+    strs = strings_phases(li, orders, dev, card)
+    k1_err = max(k1_err, strs["errs"]["K1"])
+    k2_err = max(k2_err, strs["errs"]["K2"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -8687,7 +8991,7 @@ def main(argv=None) -> int:
                **inter["launches"], **encs["launches"],
                **flights["launches"], **fsql["launches"],
                **exs["launches"], **pqe["launches"], **arrs["launches"],
-               **hapi["launches"]}
+               **hapi["launches"], **strs["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",

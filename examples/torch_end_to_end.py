@@ -26,8 +26,7 @@ from arrow_go_tpu_torch import compute as pc  # noqa: E402
 from arrow_go_tpu_torch import flight as fl  # noqa: E402
 from arrow_go_tpu_torch import formats, ipc, parquet, torchenv  # noqa: E402
 from arrow_go_tpu_torch.dataset import dataset  # noqa: E402
-from arrow_go_tpu_torch.device.block import (  # noqa: E402
-    host_batch_to_device)
+from arrow_go_tpu_torch.device.block import batch_to_device  # noqa: E402
 from arrow_go_tpu_torch.ops import reductions  # noqa: E402
 from arrow_go_tpu_torch.parquet.device_read import (  # noqa: E402
     read_batch_device)
@@ -74,7 +73,8 @@ def main(rows: int = 1000, device=None, root=None) -> dict:
     # 2. parquet with bloom filters, multiple row groups
     pq_path = os.path.join(tmp, "orders.parquet")
     parquet.write_table(orders, pq_path, row_group_size=max(rows // 4, 1),
-                        write_bloom_filters=True, compression="snappy")
+                        write_bloom_filters=True, compression="snappy",
+                        write_page_index=False)
     out.update(parquet_bytes=os.path.getsize(pq_path),
                row_groups=parquet.ParquetFile(pq_path).num_row_groups)
     print(f"[parquet] wrote {out['parquet_bytes']} bytes, "
@@ -103,7 +103,7 @@ def main(rows: int = 1000, device=None, root=None) -> dict:
     done("device scan")
 
     # 4. group-by on the card
-    by_region = pc.group_by(host_batch_to_device(hot, dev), "region",
+    by_region = pc.group_by(batch_to_device(hot, dev), "region",
                             [("amount", "sum"), ("amount", "count"),
                              ("amount", "max")])
     out["group_by"] = by_region.to_pydict()

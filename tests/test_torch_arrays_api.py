@@ -79,12 +79,13 @@ def test_string_binary():
         np.testing.assert_array_equal(s.value_lengths(), [5, 0, 0, 6])
         assert s.value_bytes(3) == "wörld".encode() and \
             s.total_values_bytes() == 11
-    # a port string column is coded: its type is dictionary<int32, utf8>
-    # and its field type utf8, where the JAX type is utf8 (ROADMAP §3)
+    # a port string column is coded (int32 codes into its values) and
+    # typed utf8, as the JAX one
     s = agt.array(["hello", "", None, "wörld"])
-    assert s.type == dt.dictionary(dt.int32, dt.string)
-    assert A.field_type(s) == dt.string and s.data.type == dt.string
+    assert s.type == dt.string and s.data.type == dt.string
     assert jagt.array(["hello"]).type == jdt.string
+    assert s.values.dtype == np.int32 and s.dict_values.tolist() == [
+        "hello", "", "wörld"]
 
 
 def test_large_string():
@@ -94,8 +95,7 @@ def test_large_string():
         assert s.offsets.dtype == np.int64
         assert type(s).__name__ == "LargeStringArray"
     assert jagt.array(["a"], jdt.large_string).type == jdt.large_string
-    assert A.field_type(agt.array(["a"], dt.large_string)) == \
-        dt.large_string
+    assert agt.array(["a"], dt.large_string).type == dt.large_string
 
 
 @pytest.mark.parametrize("pkg,d", BOTH, ids=["jax", "port"])
@@ -152,12 +152,11 @@ def test_dictionary_array():
         assert a.indices.to_pylist()[:3] == [0, 1, 0]
         assert a.indices.type.name == "int16"
         assert a.decode().to_pylist() == vals
-    # the port's dictionary is a numpy array of the values, the JAX one
-    # an Array (ROADMAP §3)
-    assert want.dictionary.to_pylist() == ["x", "y", "z"]
-    assert isinstance(got.dictionary, np.ndarray)
-    assert got.dictionary.tolist() == ["x", "y", "z"]
-    assert not hasattr(got.dictionary, "to_pylist")
+    # the dictionary is an Array of the value type in both packages
+    for a in (got, want):
+        assert a.dictionary.to_pylist() == ["x", "y", "z"]
+        assert type(a.dictionary).__name__ == "StringArray"
+        assert type(a.decode()).__name__ == "StringArray"
 
 
 def test_decimal128():
@@ -243,7 +242,7 @@ def test_concat_dictionary_unifies():
                                                          jdt.string))])
     assert type(got).__name__ == "DictionaryArray"
     assert got.to_pylist() == want.to_pylist() == ["x", "y", None, "y", "z"]
-    assert got.dictionary.tolist() == want.dictionary.to_pylist() == \
+    assert got.dictionary.to_pylist() == want.dictionary.to_pylist() == \
         ["x", "y", "z"]
     assert got.indices.to_pylist() == want.indices.to_pylist()
     same_data(got.data, want.data, "unified")
@@ -651,10 +650,8 @@ def test_a_table_goes_through_the_distributed_tier():
 
 
 def test_a_read_results_column_is_an_array():
-    # the readers keep returning a HostBatch, which carries the Table
-    # methods (combine_chunks gives the batch itself, to_batches cuts
-    # it); its `column` is the array, where the JAX read gives a Table
-    # whose `column` is a ChunkedArray (ROADMAP §3)
+    # the readers return a Table, as the JAX read does: its `column` is
+    # a ChunkedArray, one chunk a row group, whose chunks are arrays
     import arrow_go_tpu.parquet as jpq
     from arrow_go_tpu_torch import parquet
     rb = agt.record_batch({"a": list(range(10)), "s": ["x", None] * 5})
@@ -662,10 +659,13 @@ def test_a_read_results_column_is_an_array():
     parquet.write_table(rb, buf)
     got = parquet.read_table(io.BytesIO(buf.getvalue()), device="cpu")
     want = jpq.read_table(io.BytesIO(buf.getvalue()))
-    assert isinstance(got, HostBatch) and not isinstance(got, agt.Table)
-    assert isinstance(got.column("a"), HostArray)
-    assert type(want.column("a")).__name__ == "ChunkedArray"
-    assert got.combine_chunks() is got
+    assert isinstance(got, agt.Table) and not isinstance(got, HostBatch)
+    for t in (got, want):
+        assert type(t.column("a")).__name__ == "ChunkedArray"
+        assert t.column("a").num_chunks == 1
+    assert isinstance(got.column("a").chunk(0), HostArray)
+    assert type(got.column("s").chunk(0)).__name__ == "StringArray"
+    assert got.schema.field(1).type == dt.string
     assert [b.num_rows for b in got.to_batches(4)] == [4, 4, 2] == \
         [b.num_rows for b in want.to_batches(4)]
     assert got.to_pydict() == want.to_pydict()

@@ -166,15 +166,20 @@ def test_unknown_formats_raise_in_both(fmt):
 
 
 def test_default_field_type_of_a_coded_string_column():
-    """A dictionary-coded string HostArray exports as a string (`u`)
-    unless `field_type` names its dictionary field type."""
-    arr = HostArray(np.array([1, 0, 1], np.int32), None,
-                    dt.dictionary(dt.int32, dt.string),
-                    np.array(["x", "y"], dtype=object))
+    """A coded string HostArray exports as a string (`u`), its type; a
+    dictionary column over the same codes as its dictionary field type,
+    by default or when `field_type` names it."""
+    codes = np.array([1, 0, 1], np.int32)
+    values = np.array(["x", "y"], dtype=object)
+    arr = HostArray(codes, None, dt.string, values)
     s, a = tcd.schema_handles()
     tcd.export_array(arr, a, s)
     assert tcd.ArrowSchema.from_address(s).format == b"u"
     assert jcd.import_array(a, s).to_pylist() == ["y", "x", "y"]
+    arr = HostArray(codes, None, dt.dictionary(dt.int32, dt.string), values)
+    s, a = tcd.schema_handles()
+    tcd.export_array(arr, a, s)
+    assert tcd.ArrowSchema.from_address(s).format == b"i"
     s, a = tcd.schema_handles()
     tcd.export_array(arr, a, s, field_type=arr.type)
     assert tcd.ArrowSchema.from_address(s).format == b"i"

@@ -457,4 +457,4 @@ def test_ingested_int32_reads_back_as_int64(typed_servers):
             assert c.execute_ingest(hb, "narrow", if_exists="replace") == 5
             out = c.execute_query("SELECT q FROM narrow ORDER BY q")
         assert out.schema.field(0).type == tdt.int64
-        assert out.column("q").values.tolist() == list(range(5))
+        assert out.column("q").combine().values.tolist() == list(range(5))

@@ -340,7 +340,8 @@ def test_flight_runs_with_grpc_protobuf_and_pyarrow_blocked():
         "        body = list(c.do_action(fl.Action('r', b'abc')))[0].body\n"
         "integration.run_scenario_inprocess('session_options')\n"
         "integration.run_scenario_inprocess('flight_sql')\n"
-        "print(got.num_rows, int(got.column('a').values.sum()), body)\n")
+        "print(got.num_rows, int(got.column('a').combine().values.sum()),"
+        " body)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

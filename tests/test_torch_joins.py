@@ -280,5 +280,5 @@ def test_concat_host_arrays_keeps_or_merges_dictionaries(shared):
     out = concat_host_arrays([a, b])
     assert out.to_pylist() == ["x", "y"] + (["y", None] if shared
                                             else ["x", None])
-    assert (out.dictionary is d1) == shared
+    assert (out.dict_values is d1) == shared
     assert agt.array(out.to_pylist()).to_pylist() == out.to_pylist()

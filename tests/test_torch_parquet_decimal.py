@@ -236,9 +236,9 @@ def test_fixed_chunk_falls_back_to_plain_part_way():
     for hdr, _ in _iter_pages(pf, chunk):
         if hdr.data_page_header is not None:
             kinds.append(fmt.Encoding(hdr.data_page_header.encoding))
-    assert kinds[0] == fmt.Encoding.RLE_DICTIONARY
+    assert kinds[0] == fmt.Encoding.PLAIN_DICTIONARY       # v1 pages
     assert kinds[-1] == fmt.Encoding.PLAIN
-    assert set(kinds) == {fmt.Encoding.RLE_DICTIONARY, fmt.Encoding.PLAIN}
+    assert set(kinds) == {fmt.Encoding.PLAIN_DICTIONARY, fmt.Encoding.PLAIN}
     jt = jpq.read_table(io.BytesIO(blob))
     got = tpq.read_batch_device(pf, 0, device="cpu").column("p")
     _same_read(got, to_device(jt.column("p").combine()))

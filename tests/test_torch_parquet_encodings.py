@@ -194,7 +194,7 @@ def test_delta_widths_read_as_jax(phys, width, version):
     assert _encodings(blob) == {"DELTA_BINARY_PACKED"}
     assert max(widths) == width
     _same_read(blob, f"{phys} width {width}")
-    got = tpq.read_table(blob, device="cpu").column("v").values
+    got = tpq.read_table(blob, device="cpu").column("v").combine().values
     np.testing.assert_array_equal(got, v)
 
 

@@ -435,17 +435,22 @@ def test_reader_properties_and_nested_columns():
 
 
 def test_port_writes_unencrypted_files_as_before():
-    """write_page_index defaults to off: a file written without
-    encryption or a page index has the bytes it had, and with the index
-    the JAX reader finds the same entries the port's reader does."""
+    """write_page_index defaults to on, as in the JAX writer: a file
+    written with it off and no encryption has the bytes it had, and with
+    the index the JAX reader finds the same entries the port's reader
+    does."""
     data, masks = _port_columns()
     a, b = io.BytesIO(), io.BytesIO()
-    tpq.write_table(data, a, masks=masks)
-    tpq.write_table(data, b, masks=masks, write_page_index=False,
-                    encryption=None)
+    tpq.write_table(data, a, masks=masks, compression="none",
+                    write_page_index=False)
+    tpq.write_table(data, b, masks=masks, compression="none",
+                    write_page_index=False, encryption=None)
     assert a.getvalue() == b.getvalue()
     pf = tpq.ParquetFile(a.getvalue())
     assert pf.read_column_index(0, 0) is None
+    d = io.BytesIO()
+    tpq.write_table(data, d, masks=masks)
+    assert tpq.ParquetFile(d.getvalue()).read_column_index(0, 0) is not None
     c = io.BytesIO()
     tpq.write_table(data, c, masks=masks, write_page_index=True,
                     data_page_size=512)

@@ -24,7 +24,7 @@ from arrow_go_tpu.compute.errors import \
 import arrow_go_tpu_torch.compute as pc
 from arrow_go_tpu_torch import dtypes as dt
 from arrow_go_tpu_torch import parquet as tpq
-from arrow_go_tpu_torch.device.block import column_to_host
+from arrow_go_tpu_torch.device.block import device_batch_to_host
 from arrow_go_tpu_torch.parquet.reader import read_field_host
 from test_torch_more_types import jax_case
 from torch_parity import port_array, same_array
@@ -96,13 +96,14 @@ def test_both_readers_read_both_writers_files(writer):
     jt = jpq.read_table(io.BytesIO(blob))
     pf = tpq.ParquetFile(blob)
     db = tpq.read_batch_device(pf, 0, device="cpu")
+    back = device_batch_to_host(db)       # each field's type, as JAX's
     for name, a in cols.items():
         want = _storage_of(a)
         assert str(jt.schema.field_by_name(name).type) == STORAGE[name]
         assert str(pf.schema.field(pf.schema.field_index(name)).type) == \
             STORAGE[name]
         same_array(port_array(jt.column(name).combine()), want, name)
-        same_array(column_to_host(db.column(name)), want, name)
+        same_array(back.column(name), want, name)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

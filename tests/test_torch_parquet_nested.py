@@ -220,7 +220,7 @@ def test_a_dataset_with_a_nested_column(tmp_path):
     jexpr_ = jpc.call("less", [jpc.field("k"), jpc.literal(4)])
     jt = jds.to_table(filter=jexpr_)
     for i in range(2):
-        same_array(got.column(i), jt.column(i).combine())
+        same_array(got.column(i).combine(), jt.column(i).combine())
     keep = np.concatenate([k for k, _ in parts]) < 4
     assert got.column("c").to_pylist() == [
         v for v, kk in zip(want, keep) if kk]

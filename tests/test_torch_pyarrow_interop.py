@@ -25,7 +25,6 @@ from arrow_go_tpu.array.record import Table as JTable
 from arrow_go_tpu.interop import pyarrow_interop as jpx
 
 from arrow_go_tpu_torch import dtypes as dt
-from arrow_go_tpu_torch.array.arrays import field_type
 from arrow_go_tpu_torch.array.record import ChunkedArray
 from arrow_go_tpu_torch.device.block import HostBatch
 from arrow_go_tpu_torch.interop import pyarrow_interop as tpx
@@ -178,14 +177,12 @@ def _source(values, jt):
 
 
 def _same_import(got, want, src, what, jax_misreads=False):
-    """The port's import of `src` equal to the JAX module's: its field
-    type (a dictionary array by its own type) and values, pyarrow's own;
+    """The port's import of `src` equal to the JAX module's: its type and
+    values, pyarrow's own;
     with `jax_misreads`, the JAX module's values differ from pyarrow's
     (ROADMAP §3) and only the type is compared with them."""
     wt = _port_type(want.type)
-    gt = got.type if want.type.id == jdt.TypeId.DICTIONARY else \
-        field_type(got)
-    assert gt == wt, (what, gt, wt)
+    assert got.type == wt, (what, got.type, wt)
     assert _pylist(got.to_pylist()) == _comparable(src), what
     if jax_misreads:
         assert _pylist(want.to_pylist()) != _comparable(src), what

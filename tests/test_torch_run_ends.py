@@ -30,7 +30,7 @@ from arrow_go_tpu_torch.device.block import (HostArray, HostBatch,
                                              host_array_to_device)
 from arrow_go_tpu_torch.ops import compaction
 from arrow_go_tpu_torch.ops.decimal import from_ints
-from torch_parity import (field_type, jax_array, jax_type, port_array,
+from torch_parity import (jax_array, jax_type, port_array,
                           same_array)
 
 TYPES = [dt.bool_, dt.int8, dt.int16, dt.int32, dt.int64, dt.uint8,
@@ -76,17 +76,10 @@ def runs_of(t, n: int = N, seed: int = 0, null_p: float = 0.15) -> HostArray:
 def same_ree(got, want, what: str = "") -> None:
     """A port RunEndEncodedArray equal to a JAX one: type, length, run
     ends (dtype too), run values (floats by their bits) and rows. The
-    JAX package types the runs of a string device column as its
-    dictionary type; the port types them as strings (a recorded
-    deviation), and the values are compared as Python values."""
+    runs of a string device column are of its dictionary type in both
+    packages, as from_device gives the column."""
     assert isinstance(got, RunEndEncodedArray), what
     wt = want.type
-    if wt.values_type.id == jdt.TypeId.DICTIONARY:
-        assert str(got.type) == str(jdt.run_end_encoded(
-            wt.run_ends_type, wt.values_type.value_type)), what
-        assert got.values.to_pylist() == want.values.to_pylist(), what
-        assert got.decode().to_pylist() == want.decode().to_pylist(), what
-        return
     assert str(got.type) == str(wt), (what, got.type, wt)
     assert len(got) == len(want), what
     ends = np.asarray(want.run_ends.to_numpy())
@@ -100,7 +93,7 @@ def same_ree(got, want, what: str = "") -> None:
 
 def same_bits(got: HostArray, want, what: str) -> None:
     """Float values bit for bit on the valid rows (NaN, -0.0)."""
-    if field_type(got).is_floating:
+    if got.type.is_floating:
         ok = got.validity_bools()
         w = np.asarray(want.to_numpy())
         np.testing.assert_array_equal(

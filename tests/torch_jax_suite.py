@@ -62,17 +62,6 @@ WHOLE_FILE = {
         "the JAX benchmark harness, bench.py, which the port does not carry"),
 }
 
-_CODES = deviation(
-    "PR 22: a string-like or fixed_size_binary column is int32 codes into "
-    "a host dictionary, its type dictionary<int32, T>")
-_DICT = deviation(
-    "PR 22: an explicit DictionaryArray's dictionary is a numpy array")
-_COLUMN = deviation(
-    "PR 22: the readers return a HostBatch, whose column is an array")
-_PAGE_INDEX = deviation(
-    "PR 17: write_page_index defaults to False in the port's write_table")
-_V1_DICT = deviation(
-    "PR 18: a v1 dictionary data page says RLE_DICTIONARY")
 _NESTED_FILTER = deviation(
     "PR 11: the port's DeviceBatch filter takes a batch with HostColumns "
     "(nested columns) and filters them on the host; the JAX one refuses it")
@@ -89,15 +78,6 @@ _JAXENV = replaced("jaxenv by torchenv (utils.memwatch reads torch.cuda)")
 # file -> {test id (a class's cases as Class::name; parameters in
 # brackets) -> reason}
 EXPECTED: dict[str, dict[str, str]] = {
-    "test_arrays.py": {
-        'test_concat_dictionary_unifies': _DICT,
-        'test_dictionary_array': _DICT,
-        'test_large_string': _CODES,
-        'test_string_binary': _CODES,
-    },
-    "test_compute.py": {
-        'test_dictionary_encode': _DICT,
-    },
     "test_device_ops.py": {
         'test_bitmap_words_roundtrip': JAX_ARRAYS,
         'test_device_list_column_take_filter': JAX_ARRAYS,
@@ -141,7 +121,6 @@ EXPECTED: dict[str, dict[str, str]] = {
         'test_reductions_parity[xla-uint32-max]': JAX_ARRAYS,
         'test_reductions_parity[xla-uint32-min]': JAX_ARRAYS,
         'test_reductions_parity[xla-uint32-sum]': JAX_ARRAYS,
-        'test_string_ingest_vectorized_roundtrip': _CODES,
         'test_take_bounds_check': JAX_ARRAYS,
     },
     "test_device_pipeline.py": {
@@ -161,12 +140,6 @@ EXPECTED: dict[str, dict[str, str]] = {
         'test_cancel_query_action': _SQL_PB2,
         'test_tables_with_included_schema': _SQL_PB2,
     },
-    "test_interop.py": {
-        "test_roundtrip_pyarrow_to_ours[['a', None, 'bc', '']-utf8]": _CODES,
-        "test_roundtrip_pyarrow_to_ours[['big', None]-large_utf8]": _CODES,
-        "test_roundtrip_pyarrow_to_ours[[b'\\\\x00', None]-binary]": _CODES,
-        "test_roundtrip_pyarrow_to_ours[[b'abc', None]-fixed_size_binary[3]]": _CODES,
-    },
     "test_ipc.py": {
         'test_big_endian_file_roundtrip': private("FileReader._swap"),
         'test_big_endian_stream_roundtrip': private("StreamReader._swap"),
@@ -183,17 +156,11 @@ EXPECTED: dict[str, dict[str, str]] = {
         'test_device_memory_watcher_detects_leak': _JAXENV,
     },
     "test_parquet.py": {
-        'test_buffered_stream_large_chunk': _COLUMN,
         'test_codecs_both_directions[brotli]':
             private("parquet.compress._brotli_backend"),
-        'test_dictionary_encoding_used': _V1_DICT,
-        'test_multi_page_and_column_properties': _PAGE_INDEX,
     },
     "test_parquet_device_read.py": {
         'test_device_read_unsupported_falls_through': _PLAIN_STRINGS,
-    },
-    "test_parquet_encryption.py": {
-        'test_encrypted_bloom_and_page_index': _PAGE_INDEX,
     },
     "test_parquet_properties.py": {
         'test_adaptive_bloom_filter_sizes_to_ndv':
@@ -204,8 +171,6 @@ EXPECTED: dict[str, dict[str, str]] = {
             private("device.block._factorize_binary"),
         'test_factorize_view_types_no_row_loop':
             private("device.block._factorize_binary"),
-        'test_view_casts': _CODES,
-        'test_view_pyarrow_interop_direct': _CODES,
     },
 }
 

@@ -163,17 +163,12 @@ def same_batch(got, want) -> None:
 # nested arrays: the JAX package's host Arrays <-> the port's HostArrays
 # ---------------------------------------------------------------------------
 
-def field_type(a):
-    """A port HostArray's field type (a dictionary array's value type)."""
-    return a.type.value_type if a.dictionary is not None else a.type
-
-
 def port_array(ja):
     """The port's HostArray of a JAX package host Array, nested types
     recursively with their offsets (as they stand, sliced arrays too),
     validity at every level and a fixed_size_list's child rows under
-    null rows; a string, binary or fixed_size_binary leaf becomes a
-    dictionary array, a
+    null rows; a string-like or fixed_size_binary leaf becomes the port's
+    column of that type (codes into its values), a
     primitive leaf its values (0 under a null). A null array becomes the
     port's null column, an interval its structured values, a list view
     its offsets, sizes and child, a union its type codes (a dense one's
@@ -225,7 +220,7 @@ def port_array(ja):
         return DictionaryArray(np.asarray(ja.indices.to_numpy(),
                                     pt.index_type.np_dtype), mask, pt,
                          dictionary_values(values, vt)
-                         if vt.is_binary_like else np.asarray(values,
+                         if vt.codes_on_device else np.asarray(values,
                                                               vt.np_dtype))
     if t.is_decimal:
         ints = [int(u) for u in ja.unscaled_array()]
@@ -237,8 +232,7 @@ def port_array(ja):
         obj = np.empty(n, dtype=object)
         obj[:] = ["" if v is None else v for v in vals]
         codes, dictionary = factorize(obj, ok)
-        return HostArray(codes, mask, agt_torch.dtypes.dictionary(
-            agt_torch.dtypes.int32, pt), dictionary)
+        return HostArray(codes, mask, pt, dictionary)
     out = np.zeros(n, pt.np_dtype)
     out[ok] = [v for v in vals if v is not None]
     return HostArray(out, mask, pt)
@@ -258,7 +252,7 @@ def port_record_batch(rb):
 def jax_array(a):
     """The JAX package's host Array of a port HostArray (its Python
     values through the JAX builders)."""
-    return agt.array(a.to_pylist(), jax_type(field_type(a)))
+    return agt.array(a.to_pylist(), jax_type(a.type))
 
 
 def same_array(got, want, what: str = "") -> None:
@@ -269,16 +263,14 @@ def same_array(got, want, what: str = "") -> None:
     and dense offsets, are held exactly, its children as they stand. A
     union's validity is its rows' `is_valid` (the JAX package's
     `validity_bools` of a union reads its type-code buffer as a bitmap,
-    ROADMAP §3). A JAX DictionaryArray (a string filter's result) is
-    held as the port's dictionary-coded column of its value type."""
+    ROADMAP §3). A DictionaryArray is held by its type and values."""
     from arrow_go_tpu import dtypes as jdt
     from arrow_go_tpu.array.arrays import make_array
-    if want.type.id == jdt.TypeId.DICTIONARY and got.dictionary is not None:
-        assert str(field_type(got)) == str(want.type.value_type), what
+    assert str(got.type) == str(want.type), (what, got.type, want.type)
+    if want.type.id == jdt.TypeId.DICTIONARY:
+        assert type(got).__name__ == "DictionaryArray", what
         assert got.to_pylist() == want.to_pylist(), what
         return
-    assert str(field_type(got)) == str(want.type), (what, field_type(got),
-                                                    want.type)
     assert len(got) == len(want), what
     tid = want.type.id
     unions = (jdt.TypeId.SPARSE_UNION, jdt.TypeId.DENSE_UNION)
@@ -360,9 +352,8 @@ def _exact(v):
 
 def same_table(got, want, what: str = "") -> None:
     """A port HostBatch or Table equal to a JAX Table or RecordBatch: names, field
-    types (a dictionary field by its value type where the port codes a
-    string), rows, each column as same_array and its Python values
-    exactly (floats bit for bit, NaN where NaN)."""
+    types, rows, each column as same_array and its Python values exactly
+    (floats bit for bit, NaN where NaN)."""
     assert list(got.schema.names) == list(want.schema.names), what
     assert [f.type for f in got.schema.fields] == \
         [port_type(f.type) for f in want.schema.fields], (
