@@ -313,21 +313,21 @@ class DictionaryArray(HostArray):
 
     @property
     def indices(self) -> HostArray:
-        return HostArray(np.asarray(self.values, self.type.index_type.np_dtype),
-                         self.mask, self.type.index_type)
+        it = self.type.index_type
+        return HostArray(np.asarray(self.values, it.np_dtype), self.mask, it)
 
     @property
     def dictionary(self) -> HostArray:
         """The dictionary's values as an Array of the value type (a
         string-like one coded over the same values)."""
-        from ..ipc import _dictionary_array
-        return _dictionary_array(self.dict_values, self.type.value_type)
+        return block.dictionary_as_array(self.dict_values,
+                                        self.type.value_type)
 
     @dictionary.setter
     def dictionary(self, values) -> None:
         if isinstance(values, HostArray):
-            from ..ipc import _dictionary_values
-            values = _dictionary_values(values, self.type.value_type)
+            values = block.dictionary_from_array(values,
+                                                 self.type.value_type)
         self.dict_values = values
 
     def decode(self) -> HostArray:

@@ -38,9 +38,9 @@ import torch
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import (ExtensionArray, HostArray, ListViewArray,
-                            RunEndEncodedArray, UnionArray, nested_array,
-                            null_array)
-from ..ipc import _dictionary_array, _dictionary_values
+                            RunEndEncodedArray, UnionArray,
+                            dictionary_as_array, dictionary_from_array,
+                            nested_array, null_array)
 from ..ipc.core import (_offsets, _row_bytes, _view_rows, _views,
                         coded_column)
 from ..ops.decode import fixed_size_codes
@@ -145,7 +145,7 @@ def column_buffers(arr: HostArray, t: dt.DataType
 def dictionary_column(arr: HostArray, t: dt.DataType) -> HostArray:
     """The values of a dictionary field's dictionary as a column of its
     value type."""
-    return _dictionary_array(arr.dict_values, t.value_type)
+    return dictionary_as_array(arr.dict_values, t.value_type)
 
 
 def import_column(t: dt.DataType, length: int, offset: int,
@@ -202,7 +202,7 @@ def import_column(t: dt.DataType, length: int, offset: int,
     if tid == dt.TypeId.DICTIONARY:
         from .arrays import DictionaryArray
         idx = array(1, t.index_type.np_dtype, total)[off:].copy()
-        return DictionaryArray(idx, mask, t, _dictionary_values(
+        return DictionaryArray(idx, mask, t, dictionary_from_array(
             dictionary(), t.value_type))
     if tid == dt.TypeId.FIXED_SIZE_BINARY:
         w = t.byte_width

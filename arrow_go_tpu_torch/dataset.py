@@ -106,8 +106,8 @@ class ParquetFragment(Fragment):
     def scan(self, columns, guards, use_threads: bool = True,
              device=None) -> List[HostBatch]:
         with ParquetFile(self.path) as pf:
-            hb = pf.read_host(columns, guards or None, device=device)
-        return hb.to_batches() if hb.num_rows else []
+            t = pf.read_table(columns, guards or None, use_threads, device)
+        return t.to_batches() if t.num_rows else []
 
     @staticmethod
     def _kept(pf, guards, bloom: bool = True) -> list:

@@ -101,6 +101,10 @@ def _unpack_words(words: np.ndarray, n: int) -> np.ndarray:
     return np.unpackbits(bits, bitorder="little")[:n].astype(np.bool_)
 
 
+def _value_type(t: dt.DataType) -> dt.DataType:
+    return t.value_type if t.id == dt.TypeId.DICTIONARY else t
+
+
 def row_mask(padded: int, length, device) -> torch.Tensor:
     """mask[i] = i < length (length a Python int or a 0-d tensor)."""
     return torch.arange(padded, device=device) < length
@@ -116,7 +120,7 @@ def valid_rows(validity: Optional[torch.Tensor], padded: int, length,
     return m
 
 
-@dataclass
+@dataclass(init=False)
 class DeviceColumn:
     """One column resident in device memory.
 
@@ -126,18 +130,31 @@ class DeviceColumn:
               or None (all valid)
     length:   logical row count
     type:     the logical type (dictionary(int32, string) for strings)
-    dictionary: the host values the codes of a dictionary column index
-              (numpy object array), else None
+    dict_values: the host values the codes of a dictionary column index
+              (numpy object array), else None; `dictionary` gives them
+              as an Array of the value type, as the JAX DeviceColumn's
     """
 
     values: torch.Tensor
     validity: Optional[torch.Tensor]
     length: int
     type: dt.DataType
-    dictionary: Optional[np.ndarray] = None
+    dict_values: Optional[np.ndarray] = None
     _mask_cache: Optional[torch.Tensor] = None
 
-    def __post_init__(self):
+    def __init__(self, values: torch.Tensor,
+                 validity: Optional[torch.Tensor], length: int,
+                 type: dt.DataType, dictionary=None,
+                 _mask_cache: Optional[torch.Tensor] = None):
+        """`dictionary` as the JAX DeviceColumn takes it, an Array of the
+        value type, or as the port keeps it, numpy values."""
+        if isinstance(dictionary, HostArray):
+            dictionary = dictionary_from_array(dictionary,
+                                               _value_type(type))
+        self.values, self.validity = values, validity
+        self.length, self.type = length, type
+        self.dict_values = dictionary
+        self._mask_cache = _mask_cache
         if self.values.shape[0] % WORD_BITS:
             raise ValueError(
                 f"padded length {self.values.shape[0]} not word-aligned")
@@ -155,10 +172,12 @@ class DeviceColumn:
         return self.values.device
 
     @property
-    def dict_values(self) -> Optional[np.ndarray]:
-        """The host values the codes index (`dictionary`), under the
-        name a HostArray keeps them by."""
-        return self.dictionary
+    def dictionary(self) -> Optional["HostArray"]:
+        """The values the codes index as an Array of the value type (the
+        JAX DeviceColumn's), or None."""
+        if self.dict_values is None:
+            return None
+        return dictionary_as_array(self.dict_values, _value_type(self.type))
 
     @property
     def null_count(self) -> int:
@@ -171,7 +190,7 @@ class DeviceColumn:
 
     def with_values(self, values: torch.Tensor) -> "DeviceColumn":
         return DeviceColumn(values, self.validity, self.length, self.type,
-                            self.dictionary)
+                            self.dict_values)
 
     def validity_mask(self) -> torch.Tensor:
         """Expanded bool mask over the padded domain (False beyond length),
@@ -252,6 +271,24 @@ def dictionary_values(values, t: dt.DataType) -> np.ndarray:
     out = np.empty(len(vals), dtype=object)
     out[:] = vals
     return out
+
+
+def dictionary_as_array(values, vt: dt.DataType) -> "HostArray":
+    """A dictionary's values as an Array of its value type (a string-like
+    or fixed_size_binary one coded over the same values)."""
+    if vt.codes_on_device:
+        return HostArray(np.arange(len(values), dtype=np.int32), None, vt,
+                         values)
+    return HostArray(np.asarray(values, vt.np_dtype), None, vt)
+
+
+def dictionary_from_array(arr: "HostArray", vt: dt.DataType):
+    """An Array of a dictionary's values as the port keeps them: an
+    object array of str / bytes (a string-like or fixed_size_binary value
+    type) or the values."""
+    if vt.codes_on_device:
+        return dictionary_values(arr.dict_values[np.asarray(arr.values)], vt)
+    return arr.values
 
 
 def dictionary_type(values) -> dt.DataType:
@@ -484,9 +521,8 @@ class HostArray:
     (True = valid). A coded column (a string-like or fixed_size_binary
     type, or a dictionary type) holds codes in `values` and the values
     they index in `dict_values`, a numpy array (str / bytes objects for
-    a string-like value type). `dictionary` names the same numpy array,
-    but for a DictionaryArray, whose `dictionary` is an Array of its
-    value type as in the JAX package.
+    a string-like value type). A DictionaryArray's `dictionary` is those
+    values as an Array of its value type, as in the JAX package.
 
     A nested column (list, large_list, map, fixed_size_list, struct)
     has no `values`: a list or map holds `offsets` (n + 1, the type's
@@ -518,14 +554,14 @@ class HostArray:
 
     def __init__(self, values: Optional[np.ndarray],
                  mask: Optional[np.ndarray], type: dt.DataType,
-                 dictionary: Optional[np.ndarray] = None, *,
+                 dict_values: Optional[np.ndarray] = None, *,
                  offsets: Optional[np.ndarray] = None,
                  children: Sequence["HostArray"] = (),
                  length: Optional[int] = None):
         self.values = None if values is None else np.asarray(values)
         self.mask = None if mask is None else np.asarray(mask, np.bool_)
         self.type = type
-        self.dict_values = dictionary
+        self.dict_values = dict_values
         self.offsets = None if offsets is None else np.asarray(offsets)
         self.children = list(children)
         if self.values is not None:
@@ -537,15 +573,6 @@ class HostArray:
 
     def __len__(self) -> int:
         return self.length
-
-    @property
-    def dictionary(self) -> Optional[np.ndarray]:
-        """The values the codes of a coded column index (`dict_values`)."""
-        return self.dict_values
-
-    @dictionary.setter
-    def dictionary(self, values) -> None:
-        self.dict_values = values
 
     def validity_bools(self) -> np.ndarray:
         if self.mask is None:
@@ -1314,7 +1341,7 @@ def column_to_host(col: DeviceColumn) -> HostArray:
     if col.validity is not None:
         mask = _unpack_words(col.validity.cpu().numpy().view(np.uint32), n)
     return HostArray(host_view(col.values[:n].cpu().numpy(), col.type), mask,
-                     col.type, col.dictionary)
+                     col.type, col.dict_values)
 
 
 def host_batch_to_device(hb: HostBatch, device=None,
@@ -1332,17 +1359,15 @@ def host_batch_to_device(hb: HostBatch, device=None,
 def device_batch_to_host(db: DeviceBatch) -> HostBatch:
     """The [0, length) rows of a DeviceBatch as a HostBatch: a coded
     column whose field is not a dictionary comes back decoded to the
-    field's type, each field taking its column's type (the JAX
-    batch_from_device)."""
-    fields, cols = [], []
+    field's type (the JAX batch_from_device)."""
+    cols = []
     for f, c in zip(db.schema.fields, db.columns):
         a = c.array if isinstance(c, HostColumn) else column_to_host(c)
         if a.type.id == dt.TypeId.DICTIONARY and \
                 f.type.id != dt.TypeId.DICTIONARY:
             a = a.decode()
-        fields.append(f if f.type == a.type else f.with_type(a.type))
         cols.append(a)
-    return HostBatch(dt.Schema(fields, db.schema.metadata), cols, db.length)
+    return HostBatch(db.schema, cols, db.length)
 
 
 # ---------------------------------------------------------------------------
@@ -1526,7 +1551,7 @@ def list_take_device(col: DeviceListColumn, idx: torch.Tensor,
     new_child = DeviceColumn(
         selection.gather(child.values, child_idx),
         selection.take_validity(child.validity, child_idx, total, cap),
-        total, child.type, child.dictionary)
+        total, child.type, child.dict_values)
     return DeviceListColumn(new_off.to(torch.int32), new_child,
                             bitmap.pack_mask(in_row), count, col.type)
 

@@ -32,9 +32,9 @@ import torch
 from .. import dtypes as dt
 from ..compute.errors import ArrowInvalid, ArrowNotImplemented
 from ..device.block import (HostArray, HostBatch, ListViewArray,
-                            RunEndEncodedArray, UnionArray, nested_array,
-                            null_array)
-from ..ipc import _dictionary_array, _dictionary_values
+                            RunEndEncodedArray, UnionArray,
+                            dictionary_as_array, dictionary_from_array,
+                            nested_array, null_array)
 from ..ipc.core import (_list_view_compacted, _offsets, _ree_rebased,
                         _row_bytes, _view_rows, _views, coded_column)
 from ..ops.decimal import from_ints
@@ -479,7 +479,7 @@ def write_arrjson(batches: List[HostBatch], sink=None) -> str:
         doc["dictionaries"] = []
         for did in sorted(values):
             vf = memo.value_fields[did]
-            col = _dictionary_array(values[did], vf.type)
+            col = dictionary_as_array(values[did], vf.type)
             doc["dictionaries"].append(
                 {"id": did, "data": {"count": len(col), "columns": [
                     _column_to_json(vf.name, col, vf.type)]}})
@@ -526,7 +526,7 @@ def read_arrjson(source) -> List[HostBatch]:
             except ArrowInvalid:
                 rest.append(dj)
                 continue
-            dicts[did] = _dictionary_values(col, vf.type)
+            dicts[did] = dictionary_from_array(col, vf.type)
         if not rest:
             break
         todo = rest

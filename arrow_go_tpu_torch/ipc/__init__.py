@@ -33,7 +33,8 @@ from .. import dtypes as dt
 from ..array.record import host_batch
 from ..compute.errors import ArrowInvalid
 from ..device.block import (ExtensionArray, HostArray, HostBatch,
-                            concat_host_arrays, dictionary_values)
+                            concat_host_arrays, dictionary_as_array,
+                            dictionary_from_array)
 from . import core, metadata as md
 from .fb import Builder, Reader as FbReader
 
@@ -77,24 +78,6 @@ def _dictionaries(schema: dt.Schema, columns, mapper: DictMapper) -> dict:
     for f, c in zip(schema.fields, columns):
         walk(f, c)
     return out
-
-
-def _dictionary_array(values, vt: dt.DataType) -> HostArray:
-    """A dictionary's values as a column of its value type (a string-like
-    or fixed_size_binary one coded over the same values)."""
-    if vt.codes_on_device:
-        return HostArray(np.arange(len(values), dtype=np.int32), None, vt,
-                         values)
-    return HostArray(np.asarray(values, vt.np_dtype), None, vt)
-
-
-def _dictionary_values(arr: HostArray, vt: dt.DataType):
-    """A DictionaryBatch's column as the port's dictionary: an object
-    array of str / bytes (a string-like or fixed_size_binary value type)
-    or the values."""
-    if vt.codes_on_device:
-        return dictionary_values(arr.dict_values[np.asarray(arr.values)], vt)
-    return arr.values
 
 
 def _same(a, b) -> bool:
@@ -163,7 +146,7 @@ class StreamWriter:
             delta = self._deltas and prev is not None and \
                 len(values) > len(prev) and _same(prev, values[:len(prev)])
             new = values[len(prev):] if delta else values
-            blocks.append(self._batch([_dictionary_array(new, vt)], [vt],
+            blocks.append(self._batch([dictionary_as_array(new, vt)], [vt],
                                       len(new), dictionary_id=did,
                                       is_delta=delta))
             self._sent[did] = values
@@ -256,7 +239,7 @@ class _Reader:
         if rb is None:
             raise ArrowInvalid("dictionary batch without its data")
         br = core.BodyReader(rb, body, big=self._big)
-        values = _dictionary_values(core.load_array(br, vt, {}), vt)
+        values = dictionary_from_array(core.load_array(br, vt, {}), vt)
         self.decompress_s += br.decompress_s
         if db.bool_(2) and did in self.dictionaries:     # a delta
             values = np.concatenate([self.dictionaries[did], values])

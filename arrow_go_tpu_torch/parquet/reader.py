@@ -388,29 +388,6 @@ class ParquetFile:
         return Table.from_batches(
             batches, None if batches else self._schema_of(columns))
 
-    def _kept_groups(self, filters: Optional[List[tuple]]) -> List[int]:
-        return [i for i in range(self.num_row_groups)
-                if not filters or self._row_group_may_match(i, filters)]
-
-    def read_host(self, columns: Optional[List[str]] = None,
-                  filters: Optional[List[tuple]] = None, device=None):
-        """The row groups read_table reads, in one HostBatch (a string
-        column's dictionaries merged in first-occurrence order): what
-        the dataset scan works on."""
-        from ..dataset import _empty
-        from ..device.block import HostBatch, concat_host_arrays
-        batches = [self.read_row_group(i, columns, device=device)
-                   for i in self._kept_groups(filters)]
-        if len(batches) == 1:
-            return batches[0]
-        if batches:
-            return HostBatch(batches[0].schema, [
-                concat_host_arrays([b.columns[i] for b in batches])
-                for i in range(len(batches[0].columns))],
-                sum(b.num_rows for b in batches))
-        sch = self._schema_of(columns)
-        return HostBatch(sch, [_empty(f.type) for f in sch.fields], 0)
-
     def read_table(self, columns: Optional[List[str]] = None,
                    filters: Optional[List[tuple]] = None,
                    use_threads: bool = True, device=None):
@@ -418,8 +395,11 @@ class ParquetFile:
         may match by statistics and bloom filters, its `columns` read as
         read_row_group reads them: a Table, one chunk a row group, as
         the JAX reader gives it."""
-        return self._table([self.read_row_group(i, columns, device=device)
-                            for i in self._kept_groups(filters)], columns)
+        return self._table(
+            [self.read_row_group(i, columns, device=device)
+             for i in range(self.num_row_groups)
+             if not filters or self._row_group_may_match(i, filters)],
+            columns)
 
     def read_rows(self, offset: int, num_rows: int,
                   columns: Optional[List[str]] = None, device=None):

@@ -12,13 +12,14 @@ filter.
 
 With `use_dictionary` a boolean column chunk is PLAIN and every other
 one but a FIXED_LEN_BYTE_ARRAY one is dictionary encoded (a PLAIN
-dictionary page, RLE_DICTIONARY data pages) unless its dictionary page
-would pass `dictionary_pagesize_limit` bytes; then the whole chunk is
-PLAIN. A numeric dictionary holds
-the distinct bit patterns in ascending order, so -0.0, 0.0 and NaN
-payloads survive a round trip; a string dictionary holds the values in
-first-occurrence order (the JAX package's DictionaryBuilder), or, for a
-column given as (codes, values), those values as they stand.
+dictionary page; PLAIN_DICTIONARY data pages in v1, RLE_DICTIONARY in
+v2, as the JAX writer marks them) unless its dictionary page would pass
+`dictionary_pagesize_limit` bytes; then the whole chunk is PLAIN.
+A numeric dictionary holds the distinct bit patterns in ascending
+order, so -0.0, 0.0 and NaN payloads survive a round trip; a string
+dictionary holds the values in first-occurrence order (the JAX
+package's DictionaryBuilder), or, for a column given as (codes,
+values), those values as they stand.
 A FIXED_LEN_BYTE_ARRAY chunk is dictionary encoded (its distinct values
 in key order) until its dictionary reaches `dictionary_pagesize_limit`
 bytes, and PLAIN from the next page on, as the reference falls back

@@ -1033,13 +1033,21 @@ def one_batch(t):
     return t.to_batches()[0]
 
 
-def write_parquets(jobs: dict) -> dict:
+def write_parquets(jobs: dict, file_s: dict) -> dict:
     """write_parquet of each {name: (table, *arguments)}, a thread a file
-    (the codecs and most of numpy release the GIL): {name: bytes}."""
+    (the codecs and most of numpy release the GIL): {name: bytes}, and
+    each file's own seconds, taken while the others ran, into `file_s`.
+    Their wall time is not the sum of serial writes that scripts before
+    the threads printed as `write_s`."""
     from concurrent.futures import ThreadPoolExecutor
+
+    def timed(k, args):
+        t0 = time.perf_counter()
+        out = write_parquet(*args)
+        file_s[k] = time.perf_counter() - t0
+        return out
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        futures = {k: pool.submit(write_parquet, *args)
-                   for k, args in jobs.items()}
+        futures = {k: pool.submit(timed, k, args) for k, args in jobs.items()}
         return {k: f.result() for k, f in futures.items()}
 
 
@@ -1845,14 +1853,14 @@ def q1_phases(li, orders, dev) -> dict:
     lineitem. Returns each path's launch counts."""
     launches = {}
     add_q1_columns(li)
-    t0 = time.perf_counter()
+    t0, file_s = time.perf_counter(), {}
     files = write_parquets({
         "lineitem": (li, "snappy", None, LI_TYPES),
         "orders": (orders, "snappy"),
         "l_okey": ({"l_okey": li["l_okey"]}, "snappy",
                    {"l_okey": "delta_binary_packed"}),
         "o_okey": ({"o_okey": orders["o_okey"]}, "snappy",
-                   {"o_okey": "delta_binary_packed"})})
+                   {"o_okey": "delta_binary_packed"})}, file_s)
     write_s = time.perf_counter() - t0
     snappy = {k: files[k] for k in ("lineitem", "orders")}
     delta = {k: files[k] for k in ("l_okey", "o_okey")}
@@ -1863,7 +1871,7 @@ def q1_phases(li, orders, dev) -> dict:
             encodings[f"{tname}.{c.meta_data.path_in_schema[0]}"] = [
                 tpq.format.Encoding(e).name for e in c.meta_data.encodings]
     print(json.dumps({"parquet_snappy": {
-        "write_s": write_s,
+        "write_s": write_s, "write_file_s": file_s,
         "bytes": {k: len(b) for k, b in {**snappy, **delta}.items()},
         "encodings": encodings}}), flush=True)
     print(json.dumps({"scan_snappy": time_scan(
@@ -8790,8 +8798,8 @@ def main(argv=None) -> int:
 
     # the same tables as parquet bytes, written by the port's writer
     add_quantity(li)
-    t0 = time.perf_counter()
-    blobs = write_parquets({"lineitem": (li,), "orders": (orders,)})
+    t0, file_s = time.perf_counter(), {}
+    blobs = write_parquets({"lineitem": (li,), "orders": (orders,)}, file_s)
     write_s = time.perf_counter() - t0
     encodings = {}
     for tname, blob in blobs.items():
@@ -8800,7 +8808,8 @@ def main(argv=None) -> int:
             encodings[f"{tname}.{c.meta_data.path_in_schema[0]}"] = [
                 tpq.format.Encoding(e).name for e in c.meta_data.encodings]
     print(json.dumps({"parquet": {
-        "write_s": write_s, "bytes": {k: len(b) for k, b in blobs.items()},
+        "write_s": write_s, "write_file_s": file_s,
+        "bytes": {k: len(b) for k, b in blobs.items()},
         "encodings": encodings}}), flush=True)
 
     # scan: both files, every column, three runs with the phase split

@@ -201,7 +201,7 @@ def test_a_coded_string_column_reads_back_as_the_ports():
     pb = HostBatch(dt.Schema([dt.Field("s", dt.string)]), [arr], 5)
     got = taj.read_arrjson(taj.write_arrjson([pb]))[0].columns[0]
     assert got.to_pylist() == ["x", "z", None, "x", "z"]
-    assert list(got.dictionary) == ["x", "z"]
+    assert list(got.dict_values) == ["x", "z"]
     assert got.values.tolist()[:2] == [0, 1]
 
 

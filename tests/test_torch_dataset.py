@@ -242,7 +242,7 @@ def test_dataset_device_batches(pq_dir):
     got = []
     for db in dataset(pq_dir).scanner().device_batches(device=CPU):
         c = db.column("cat")
-        got.extend(c.dictionary[c.values[:db.length].numpy()].tolist())
+        got.extend(c.dict_values[c.values[:db.length].numpy()].tolist())
     assert got[:4] == ["c0", "c1", "c2", "c3"] and len(got) == 300
 
 
@@ -542,7 +542,7 @@ def test_string_pages_of_each_encoding(tpch, encoding):
         device=CPU))
     for jb, tb in zip(jbs, tbs):
         jc, tc = jb.column("c_name"), tb.column("c_name")
-        assert list(tc.dictionary) == jc.dictionary.to_pylist()
+        assert list(tc.dict_values) == jc.dictionary.to_pylist()
         np.testing.assert_array_equal(tc.values[:tb.length].numpy(),
                                       np.asarray(jc.values)[:jb.length])
 

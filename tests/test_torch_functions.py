@@ -321,7 +321,7 @@ def test_fill_null_matches_jax(cols, col):
     fill = {"i32": 7, "f64": -1.0, "s": 2, "b": True}[col]
     tc = pc.fill_null(tdb.column(col), fill)
     _same(tc, jf.fill_null(jdb.column(col), fill))
-    assert tc.dictionary is tdb.column(col).dictionary
+    assert tc.dict_values is tdb.column(col).dict_values
     _same(pc.fill_null(tdb.column("i64"), 0),
           jf.fill_null(jdb.column("i64"), 0))
 
@@ -402,7 +402,7 @@ def test_string_selections_give_the_python_values(fname, args, want):
         return getattr(mod, fname)(*[db.column(a) if a in STR_DATA else a
                                      for a in args])
     out = call(pc, tdb)
-    assert out.type == tdb.column("a").type and out.dictionary is not None
+    assert out.type == tdb.column("a").type and out.dict_values is not None
     assert column_to_host(out).to_pylist() == want
     # the same through an expression
     expr = pc.call(fname, [pc.field(a) if a in STR_DATA else pc.literal(a)
@@ -444,7 +444,7 @@ def test_dictionary_encode_matches_jax(cols, col):
     np.testing.assert_array_equal(tc.values.numpy()[:n],
                                   np.asarray(jc.values)[:n])
     assert (tc.validity is None) == (jc.validity is None)
-    assert _pylist_nan(tc.dictionary.tolist()) == _pylist_nan(
+    assert _pylist_nan(tc.dict_values.tolist()) == _pylist_nan(
         jc.dictionary.to_pylist())
     s = tdb.column("s")
     assert pc.dictionary_encode(s) is s

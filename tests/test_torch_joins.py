@@ -92,7 +92,7 @@ def test_string_keys_with_differing_dictionaries_pair_the_right_rows():
     tr = agt_torch.batch_to_device(right, device="cpu")
     out = device_batch_to_host(pc.hash_join(tl, tr, "k"))
     assert out.to_pydict() == {"k": ["b", "a"], "x": [0, 1], "y": [20, 10]}
-    assert out.column("k").dictionary is not None
+    assert out.column("k").dict_values is not None
     jl, jr = jax_batch(left), jax_batch(right)
     _same_device(pc.hash_join(port_batch(jl), port_batch(jr), "k"),
                  jpc.hash_join(jl, jr, "k"))

@@ -459,7 +459,7 @@ def test_device_columns_match_the_jax_to_device(name):
     np.testing.assert_array_equal(col.values.numpy()[ok],
                                   np.asarray(jc.values)[ok])
     if jc.dictionary is not None:
-        assert list(col.dictionary) == jc.dictionary.to_pylist()
+        assert list(col.dict_values) == jc.dictionary.to_pylist()
     same_array(column_to_host(col), from_device(jc), name)
 
 

@@ -200,7 +200,7 @@ def test_string_and_nested_columns_raise(column):
                                 device="cpu").column("c")
     valid = col.validity_mask()[:3].tolist()
     assert valid == [True, True, False]
-    assert [col.dictionary[c] for c in col.values[:2].tolist()] == ["a", "b"]
+    assert [col.dict_values[c] for c in col.values[:2].tolist()] == ["a", "b"]
 
 
 def _port_file(data, masks, **kw) -> bytes:
@@ -309,7 +309,7 @@ def _jax_mixed_file(data, masks, **props) -> bytes:
 
 
 def _same_strings(tc, jc) -> None:
-    assert list(tc.dictionary) == jc.dictionary.to_pylist()
+    assert list(tc.dict_values) == jc.dictionary.to_pylist()
 
 
 def _check_mixed_source(tdb, data, masks) -> None:
@@ -322,8 +322,8 @@ def _check_mixed_source(tdb, data, masks) -> None:
                                   bitorder="little")[:n].astype(bool)
             np.testing.assert_array_equal(valid, m)
         got = c.values[:n].numpy()
-        if c.dictionary is not None:
-            got = c.dictionary[got]
+        if c.dict_values is not None:
+            got = c.dict_values[got]
         np.testing.assert_array_equal(got[m], v[m])
 
 
@@ -391,9 +391,9 @@ def test_port_writer_strings_and_delta_read_by_jax_and_port(
         _same_strings(tdb.column(name), jdb.column(name))
     _check_mixed_source(tdb, data, masks)
     if strings == "codes":
-        assert list(tdb.column("s").dictionary) == list(FLAGS)
+        assert list(tdb.column("s").dict_values) == list(FLAGS)
     else:   # first-occurrence order, as the JAX DictionaryBuilder
-        assert list(tdb.column("s").dictionary) == list(
+        assert list(tdb.column("s").dict_values) == list(
             dict.fromkeys(data["s"].tolist()))
 
 
@@ -407,7 +407,7 @@ def test_port_writer_string_past_the_dictionary_limit_is_plain(rng):
     col = tpq.read_batch_device(tpq.ParquetFile(blob), 0,
                                 device="cpu").column("s")
     assert col.values[:3000].tolist() == list(range(3000))
-    assert list(col.dictionary) == vals.tolist()
+    assert list(col.dict_values) == vals.tolist()
 
 
 def test_port_writer_rejects_bad_string_codes_and_delta_types(rng):

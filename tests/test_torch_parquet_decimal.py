@@ -55,7 +55,7 @@ def _same_fixed(got, want) -> None:
     np.testing.assert_array_equal(got.validity_mask()[:n].numpy(), ok)
     np.testing.assert_array_equal(got.values[:n].numpy()[ok],
                                   np.asarray(want.values)[:n][ok])
-    assert list(got.dictionary) == want.dictionary.to_pylist()
+    assert list(got.dict_values) == want.dictionary.to_pylist()
 
 
 def _same_read(got, want) -> None:
@@ -63,7 +63,7 @@ def _same_read(got, want) -> None:
     the same type, padding, valid rows and their values, bit for bit (a
     nullable leaf without nulls keeps its validity words in the port's
     device read, where `to_device` drops them)."""
-    if got.dictionary is not None:
+    if got.dict_values is not None:
         _same_fixed(got, want)
         return
     if want.validity is None and got.validity is not None:

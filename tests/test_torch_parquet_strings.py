@@ -97,7 +97,7 @@ def _same_batches(path, dictionary_chunks: bool) -> int:
         np.testing.assert_array_equal(words_u32(tc.validity),
                                       np.asarray(jc.validity))
         valid = tc.validity_mask()[:n].numpy()
-        jd, td = jc.dictionary.to_pylist(), list(tc.dictionary)
+        jd, td = jc.dictionary.to_pylist(), list(tc.dict_values)
         assert td == jd
         jcodes = np.asarray(jc.values)[:n]
         tcodes = tc.values[:n].numpy()
@@ -242,11 +242,11 @@ def test_chunk_that_falls_back_part_way_merges_one_dictionary(rng, tmp_path,
     jbs = list(jdataset(str(path)).scanner().device_batches())
     tbs = list(tdataset(str(path)).scanner(device="cpu").device_batches())
     jc, tc = jbs[0].column("s"), tbs[0].column("s")
-    assert list(tc.dictionary) == jc.dictionary.to_pylist()
+    assert list(tc.dict_values) == jc.dictionary.to_pylist()
     np.testing.assert_array_equal(tc.values[:2000].numpy(),
                                   np.asarray(jc.values)[:2000])
     valid = tc.validity_mask()[:2000].numpy()
-    assert [tc.dictionary[c] if ok else None for c, ok in
+    assert [tc.dict_values[c] if ok else None for c, ok in
             zip(tc.values[:2000].tolist(), valid)] == py
 
 
@@ -460,10 +460,10 @@ def test_row_group_of_mixed_chunks_keeps_dictionary_order(rng, tmp_path):
     jb = next(jdataset(str(path)).scanner().device_batches())
     tb = next(tdataset(str(path)).scanner(device="cpu").device_batches())
     tc, jc = tb.column("flag"), jb.column("flag")
-    assert list(tc.dictionary) == ["N", "R", "A"]
+    assert list(tc.dict_values) == ["N", "R", "A"]
     assert jc.dictionary.to_pylist() == list(dict.fromkeys(
         flags[codes].tolist()))
-    assert tc.dictionary[tc.values[:n].numpy()].tolist() == \
+    assert tc.dict_values[tc.values[:n].numpy()].tolist() == \
         [jc.dictionary.to_pylist()[c] for c in np.asarray(jc.values)[:n]]
-    assert list(tb.column("name").dictionary) == \
+    assert list(tb.column("name").dict_values) == \
         jb.column("name").dictionary.to_pylist() == names.tolist()

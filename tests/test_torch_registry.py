@@ -275,7 +275,7 @@ def _same(got, want, rtol=None) -> None:
     if isinstance(want, JaxColumn):
         assert isinstance(got, DeviceColumn)
         if want.dictionary is not None:       # dictionary_encode
-            assert list(got.dictionary) == want.dictionary.to_pylist()
+            assert list(got.dict_values) == want.dictionary.to_pylist()
             got = DeviceColumn(got.values, got.validity, got.length,
                                dt.int32)
             want = JaxColumn(want.values, want.validity, want.length,
@@ -295,7 +295,7 @@ def _same(got, want, rtol=None) -> None:
             assert str(got.type) == str(want.type)
             assert got.to_pylist() == want.to_pylist()
             return
-        if got.dictionary is not None:
+        if got.dict_values is not None:
             assert got.to_pylist() == want.to_pylist()
             return
         same_column(host_array_to_device(got, "cpu"), to_device(want))

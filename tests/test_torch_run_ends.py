@@ -173,7 +173,7 @@ def test_dictionary_codes_compare_and_keep_the_dictionary():
     column's dictionary and decode to the JAX strings."""
     arr = runs_of(dt.string, seed=9)
     got = pc.run_end_encode(arr, device="cpu")
-    assert got.values.dictionary is arr.dictionary
+    assert got.values.dict_values is arr.dict_values
     same_ree(got, jencode(jax_array(arr)))
 
 

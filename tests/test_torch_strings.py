@@ -27,12 +27,12 @@ def test_batch_to_device_codes_and_dictionary_match_jax(rng):
     tc, jc = tdb.column("s"), jdb.column("s")
     assert tc.type == tdt.dictionary(tdt.int32, tdt.string)
     assert tdb.schema.field(0).type == tdt.string
-    assert list(tc.dictionary) == jc.dictionary.to_pylist()
+    assert list(tc.dict_values) == jc.dictionary.to_pylist()
     np.testing.assert_array_equal(tc.values.numpy(), np.asarray(jc.values))
     # (codes, values) pairs are taken as they stand
     pair = agt_torch.batch_to_device(
         {"s": (np.array([2, 0, 2], np.int32), WORDS)}, device="cpu")
-    assert list(pair.column("s").dictionary) == list(WORDS)
+    assert list(pair.column("s").dict_values) == list(WORDS)
     assert pair.column("s").values[:3].tolist() == [2, 0, 2]
 
 
@@ -53,16 +53,16 @@ def test_filter_and_take_carry_the_dictionary(rng):
     want = [w if ok else None for w, ok in zip(data["s"][sel],
                                                 masks["s"][sel])]
     col = f.column("s")
-    assert list(col.dictionary) == jf.column("s").dictionary.to_pylist()
+    assert list(col.dict_values) == jf.column("s").dictionary.to_pylist()
     got = HostArray(col.values[:f.length].numpy(),
                     np.unpackbits(col.validity.numpy().view(np.uint8),
                                   bitorder="little")[:f.length].astype(bool),
-                    col.type, col.dictionary)
+                    col.type, col.dict_values)
     assert got.to_pylist() == want
     idx = agt_torch.batch_to_device({"i": np.array([3, 0, 3])},
                                     device="cpu").column(0)
     t = pc.take(col, idx)
-    assert t.dictionary is col.dictionary
+    assert t.dict_values is col.dict_values
     hidx = HostArray(np.array([2, 0, 1]), None, tdt.int64)
     assert pc.take(got, hidx).to_pylist() == [want[2], want[0], want[1]]
 

@@ -263,7 +263,7 @@ def test_dictionary_encode_of_unsigned_matches_jax(t, rng):
 def test_dictionary_encode_of_uint32_example_from_the_fault():
     v = np.array([2 ** 32 - 1, 2 ** 31 + 3, 2 ** 32 - 1], np.uint32)
     got = pc.dictionary_encode(port_column(v, None, dt.uint32))
-    assert got.dictionary.tolist() == [4294967295, 2147483651]
+    assert got.dict_values.tolist() == [4294967295, 2147483651]
 
 
 # F12: unsigned scalars in fill_null and if_else fill as their bits
