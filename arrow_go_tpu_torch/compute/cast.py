@@ -167,6 +167,10 @@ def cast_device(col: DeviceColumn, to_t: dt.DataType,
         return cast_device(DeviceColumn(decoded, col.validity, col.length,
                                         vt), to_t, options)
     if from_t.is_temporal and to_t.is_temporal:
+        if not (_fixed(from_t) and _fixed(to_t)):
+            # a day_time / month_day_nano interval is no number a row:
+            # the JAX package's jnp cast fails on it with TypeError
+            raise TypeError(f"device cast {from_t} -> {to_t}")
         return _rescale(col, to_t, options)
     if not (_fixed(from_t) and _fixed(to_t)):
         raise ArrowNotImplemented(f"device cast {from_t} -> {to_t}")

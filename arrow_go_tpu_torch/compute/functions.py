@@ -10,7 +10,8 @@ index_in against a host value set; fill_null and if_else; and the
 scalar aggregates sum / min / max / mean / count / min_max / product /
 variance / stddev (masked reductions, K3 on the card; bool, the narrow
 integers and float16 widened to the JAX package's accumulators first,
-unsigned values read unsigned), count_distinct, any and all;
+unsigned values read unsigned; a string-like column refused), and
+count_distinct, any and all;
 `value_counts` and `make_struct`, whose struct results are host
 columns. filter_ and take take DeviceBatches, DeviceColumns,
 DeviceListColumns, HostBatches and HostArrays; a column the device
@@ -51,6 +52,7 @@ from ..ops.decimal import to_ints
 from . import nested_selection
 from .cast import cast_device, cast_host
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
+from .kernels import refuse_codes
 
 
 @dataclass
@@ -499,13 +501,14 @@ def _column_sort_key(col: DeviceColumn, descending: bool,
 
 def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
                  device):
-    """sort_indices of a HostBatch or DeviceBatch by options.keys, first
-    key most significant, stable."""
+    """sort_indices of a HostBatch, Table (its key columns combined) or
+    DeviceBatch by options.keys, first key most significant, stable."""
     if not options or not options.keys:
         raise ArrowInvalid("record sort requires SortOptions.keys")
     descs = [k.order == "descending" for k in options.keys]
-    if isinstance(values, HostBatch):
-        cols = [values.column(k.target) for k in options.keys]
+    host = not isinstance(values, DeviceBatch)
+    if host:
+        cols = [_combined(values.column(k.target)) for k in options.keys]
         if values.num_rows <= _HOST_SMALL:
             lex = _lex_keys(cols, descs, nulls_first)
             perm = np.lexsort(lex).astype(np.int64) if lex else \
@@ -519,7 +522,7 @@ def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
         n = values.length
     perm = sort_ops.argsort_multi([_column_sort_key(c, desc, nulls_first)
                                    for c, desc in zip(cols, descs)])
-    if isinstance(values, HostBatch):
+    if host:
         return HostArray(perm[:n].cpu().numpy(), None, dt.int64)
     return DeviceColumn(perm, None, n, dt.int64)
 
@@ -530,13 +533,14 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
     """Sort indices of a HostArray (returned as a HostArray) or a
     DeviceColumn (returned as a DeviceColumn); of a HostBatch or a
     DeviceBatch by `options.keys` (the record form; a HostArray or a
-    DeviceColumn back). A ChunkedArray is combined first. Host input
-    longer than _HOST_SMALL rows sorts on `device` (the card unless
-    named)."""
+    DeviceColumn back); of a Table too, its key columns combined (the
+    JAX package combines the whole Table into one RecordBatch). A
+    ChunkedArray is combined first. Host input longer than _HOST_SMALL
+    rows sorts on `device` (the card unless named)."""
     values = _combined(values)
     nulls_first = ((options.null_placement if options else null_placement)
                    == "at_start")
-    if isinstance(values, (HostBatch, DeviceBatch)):
+    if isinstance(values, (HostBatch, Table, DeviceBatch)):
         return _sort_record(values, options, nulls_first, device)
     desc = (options.keys[0].order == "descending") if (
         options and options.keys) else order == "descending"
@@ -559,11 +563,12 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
 def sort(values, options: Optional[SortOptions] = None, *,
          order: str = "ascending", null_placement: str = "at_end",
          device=None):
-    """A sorted copy of a HostArray, DeviceColumn, HostBatch or
+    """A sorted copy of a HostArray, DeviceColumn, HostBatch, Table or
     DeviceBatch: take(values, sort_indices(values)), the reference's
-    "sort" MetaFunction (compute/vector_sort.go:65-82). A batch sorts by
-    `options.keys`; host input longer than _HOST_SMALL rows sorts on
-    `device` (the card unless named)."""
+    "sort" MetaFunction (compute/vector_sort.go:65-82). A batch or a
+    Table sorts by `options.keys` (a Table's result is a Table); host
+    input longer than _HOST_SMALL rows sorts on `device` (the card
+    unless named)."""
     idx = sort_indices(values, options, order=order,
                        null_placement=null_placement, device=device)
     return take(values, idx, device=device)
@@ -574,13 +579,15 @@ def sort(values, options: Optional[SortOptions] = None, *,
 # ---------------------------------------------------------------------------
 
 def _as_device(values, what: str = "", device=None,
-               pad: Optional[int] = None) -> DeviceColumn:
+               pad: Optional[int] = None,
+               numbers: bool = False) -> DeviceColumn:
     """`values` as a DeviceColumn: a ChunkedArray combined, and a
     HostArray moved to `device` (the card unless named; padded to `pad`
     when given), as the JAX package moves host input to its device.
     Naming `what` refuses a decimal128 / decimal256 column (the JAX
     package has no such aggregate or set operation: it fails there on
-    the limb matrix's shape)."""
+    the limb matrix's shape); `numbers` refuses a string-like column too
+    (`kernels.refuse_codes`: its rows are dictionary codes)."""
     values = _combined(values)
     if isinstance(values, HostArray):
         values = host_array_to_device(values, torchenv.device(device), pad)
@@ -590,6 +597,8 @@ def _as_device(values, what: str = "", device=None,
             f"{type(values).__name__}")
     if what and values.type.limbs:
         raise ArrowNotImplemented(f"{what} of {values.type}")
+    if numbers:
+        refuse_codes(values, what)
     return values
 
 
@@ -659,8 +668,9 @@ def _reduce(values, op: str, device=None):
     valid. The accumulator and the valid count come from one K3 launch
     and one device-to-host copy. A decimal32 / decimal64 column reduces
     its unscaled ints, as the JAX package does. Host input reduces on
-    `device` (the card unless named)."""
-    col = _as_device(values, op, device)
+    `device` (the card unless named). A string-like column raises
+    ArrowNotImplemented: its rows are dictionary codes."""
+    col = _as_device(values, op, device, numbers=True)
     acc, count = reductions.reduce_with_count_host(
         _agg_operand(col, op), col.validity, col.length, op)
     return None if count == 0 else _agg_result(acc, col.type, op)
@@ -681,7 +691,7 @@ def agg_max(values, options=None, device=None):
 def agg_mean(values, options=None, device=None):
     """Sum over count of the valid rows, in float64, from one K3 launch
     and one device-to-host copy; None when no row is valid."""
-    col = _as_device(values, "mean", device)
+    col = _as_device(values, "mean", device, numbers=True)
     total, count = reductions.reduce_with_count_host(
         _agg_operand(col, "sum"), col.validity, col.length, "sum")
     if count == 0:
@@ -715,13 +725,23 @@ def agg_count_distinct(values, options=None, device=None):
     return n_unique + has_null
 
 
+def _bitwise_operand(values, what: str, device) -> DeviceColumn:
+    """A column of any / all: bool or integer words (a float column
+    raises TypeError, as jnp's bitwise operators do in the JAX
+    package)."""
+    col = _as_device(values, what, device)
+    if col.type.is_floating:
+        raise TypeError(f"{what} does not accept a {col.type} column")
+    return col
+
+
 def agg_any(values, options=None, device=None):
-    col = _as_device(values, "any", device)
+    col = _bitwise_operand(values, "any", device)
     return bool((col.values & col.validity_mask()).any())
 
 
 def agg_all(values, options=None, device=None):
-    col = _as_device(values, "all", device)
+    col = _bitwise_operand(values, "all", device)
     return bool((col.values | ~col.validity_mask()).all())
 
 
@@ -738,7 +758,7 @@ def agg_variance(values, options: Optional[VarianceOptions] = None,
     two K3 sums, of the values (with their count) and of the squared
     deviations from their mean. Unsigned values read unsigned."""
     options = options or VarianceOptions()
-    col = _as_device(values, "variance", device)
+    col = _as_device(values, "variance", device, numbers=True)
     t = col.type
     x = convert.convert(col.values, t, dt.float64) if (
         t.is_numeric or t == dt.bool_) else col.values.to(torch.float64)
@@ -889,9 +909,11 @@ def _scalar_array(v, n: int) -> HostArray:
 def make_struct(*args, options=None) -> HostArray:
     """Zip columns into one struct column whose rows are never null
     (nulls stay in the children), as the JAX package's make_struct:
-    DeviceColumns come to the host, HostArrays go as they are, a Python
-    scalar repeats. options: MakeStructOptions, a dict of its fields,
-    or a list of field names (missing names are "0", "1", ...)."""
+    DeviceColumns come to the host, HostArrays go as they are (a
+    ChunkedArray combined), a Python scalar repeats. options:
+    MakeStructOptions, a dict of its fields, or a list of field names
+    (missing names are "0", "1", ...)."""
+    args = [_combined(a) for a in args]
     if options is None:
         options = MakeStructOptions()
     elif isinstance(options, dict):
@@ -1113,21 +1135,31 @@ def _storage_scalar(v, t: dt.DataType):
     return v
 
 
+def _in_storage(x: torch.Tensor, t: dt.DataType) -> torch.Tensor:
+    """An operand's values in the storage dtype of the result type t, as
+    the JAX package's host result takes them (`astype`: a float
+    truncates toward zero into an integer type)."""
+    return x if x.dtype == t.device_dtype else x.to(t.device_dtype)
+
+
 def fill_null(values, fill_value, device=None):
-    """Null rows take `fill_value` (a scalar or a DeviceColumn's row).
-    String operands select in one code space (`_one_code_space`) and the
-    result carries its dictionary; a string fill beside a column that is
-    not a string column raises ArrowInvalid. Host values fill on
-    `device` (the card unless named) and come back to the host."""
+    """Null rows take `fill_value` (a scalar or a DeviceColumn's row);
+    the result keeps the column's type and its storage dtype (a fill of
+    another type is converted, `_in_storage`). String operands select in
+    one code space (`_one_code_space`) and the result carries its
+    dictionary; a string fill beside a column that is not a string
+    column raises ArrowInvalid. Host values fill on `device` (the card
+    unless named) and come back to the host."""
     col = _as_device(values, device=device)
     if col.validity is None:
         return _maybe_host(col, values)
     if _is_dict(col) or _is_dict(fill_value):
         col, fill_value = _one_code_space(col, fill_value,
                                           "fill_null operands")
-    fv = fill_value.values if isinstance(fill_value, DeviceColumn) else \
-        torch.full((col.padded,), _storage_scalar(fill_value, col.type),
-                   dtype=col.values.dtype, device=col.device)
+    fv = _in_storage(fill_value.values, col.type) if isinstance(
+        fill_value, DeviceColumn) else torch.full(
+            (col.padded,), _storage_scalar(fill_value, col.type),
+            dtype=col.values.dtype, device=col.device)
     isvalid = bitmap.expand_words(col.validity, col.padded)
     return _maybe_host(DeviceColumn(torch.where(isvalid, col.values, fv),
                                     None, col.length, col.type,
@@ -1136,8 +1168,11 @@ def fill_null(values, fill_value, device=None):
 
 def if_else(cond, left, right, device=None):
     """left where cond, else right (scalars broadcast; two scalars make
-    an int64, float64 or bool column). A null cond gives a null row; the
-    result always carries its validity words. String operands select in
+    an int64, float64 or bool column). The result has the type of left
+    (of right when left is a scalar) and its storage dtype: the other
+    operand is converted (`_in_storage`), as the JAX package's host
+    result is. A null cond gives a null row; the result always carries
+    its validity words. String operands select in
     one code space (`_one_code_space`) and the result carries its
     dictionary; a string column beside a column that is not a string
     column raises ArrowInvalid. Host operands select on `device` (the
@@ -1166,7 +1201,7 @@ def if_else(cond, left, right, device=None):
         if isinstance(x, DeviceColumn):
             ok = torch.ones(P, dtype=torch.bool, device=dev) \
                 if x.validity is None else bitmap.expand_words(x.validity, P)
-            return x.values, ok
+            return _in_storage(x.values, t), ok
         return (torch.full((P,), _storage_scalar(x, t), dtype=t.torch_dtype,
                            device=dev),
                 torch.ones(P, dtype=torch.bool, device=dev))
@@ -1284,7 +1319,7 @@ def register_all(reg) -> None:
     add("run_end_decode", K.VECTOR, Arity.unary(),
         lambda a, options=None, device=None: run_ends.run_end_decode(a),
         raw_args=True)
-    add("unique", K.VECTOR, Arity.unary(), unique)
+    add("unique", K.VECTOR, Arity.unary(), unique, raw_args=True)
     add("value_counts", K.VECTOR, Arity.unary(), value_counts,
         raw_args=True)
     add("dictionary_encode", K.VECTOR, Arity.unary(), dictionary_encode)

@@ -20,6 +20,13 @@ when they share a type; a Python int beside a temporal column is
 broadcast to the column's type. `round_` and `round_to_multiple` take
 the nine round modes.
 
+A string-like or fixed_size_binary operand (or a dictionary of one)
+of an arithmetic or math function, or of `round_to_multiple`, raises
+ArrowNotImplemented (`refuse_codes`): its rows are dictionary codes.
+Bool operands follow the JAX package's jnp functions: abs, floor, ceil
+and trunc give the bool column back, negate, sign and subtract raise
+TypeError, and divide gives a or not b (the bool of a float quotient).
+
 decimal128 and decimal256 operands (limb matrices) take
 `_decimal_binary`, as in the JAX package: add, subtract and the
 compares align the scales by powers of ten, multiply adds precisions
@@ -185,13 +192,30 @@ def _wide_decimal(x) -> bool:
     return isinstance(x, DeviceColumn) and x.type.limbs > 0
 
 
+def refuse_codes(x, what: str) -> None:
+    """ArrowNotImplemented when `x` is a column of a string-like or
+    fixed_size_binary type, or a dictionary of one: its rows are codes
+    into a dictionary, and a number made of a code means nothing (the
+    JAX package computes on its own codes, or fails)."""
+    t = getattr(x, "type", None)
+    if t is None:
+        return
+    vt = t.value_type if t.id == dt.TypeId.DICTIONARY else t
+    if vt.codes_on_device:
+        raise ArrowNotImplemented(f"{what} of a {t} column")
+
+
 def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
     if _wide_decimal(a) or _wide_decimal(b):
         return _decimal_binary(op, a, b)
     if op not in _ARITH_BINARY:
         raise ArrowNotImplemented(f"arithmetic {op!r} is not ported")
+    refuse_codes(a, op)
+    refuse_codes(b, op)
     a, b = _align(a, b)
     to = dt.common_numeric_type(a.type, b.type)
+    if to == dt.bool_ and op in ("subtract", "divide"):
+        return _bool_binary(op, a, b)
     if op in _FLOAT_ONLY and not to.is_floating:
         to = dt.float64
     if op.startswith(("bit_wise", "shift")) and not to.is_integer:
@@ -212,10 +236,32 @@ def arithmetic_binary(op: str, a, b, checked: bool = True) -> DeviceColumn:
     return DeviceColumn(out, validity, n, to)
 
 
+def _bool_binary(op: str, a: DeviceColumn, b: DeviceColumn) -> DeviceColumn:
+    """subtract and divide of two bool operands, as the JAX package gives
+    them: subtract raises TypeError (jnp has no bool subtract); divide
+    is the bool of the float quotient, a / b != 0 (NaN counting as
+    true), so a or not b."""
+    if op == "subtract":
+        raise TypeError("subtract does not accept bool operands")
+    return DeviceColumn(a.values | ~b.values, _out_validity(a, b),
+                        max(a.length, b.length), dt.bool_)
+
+
+#: unary functions of a bool column: the column as it is, or TypeError,
+#: as the JAX package's jnp functions give them
+_BOOL_SAME = ("abs", "floor", "ceil", "trunc")
+_BOOL_REFUSED = ("negate", "sign")
+
+
 def arithmetic_unary(op: str, a: DeviceColumn,
                      checked: bool = True) -> DeviceColumn:
     if op not in _ARITH_UNARY:
         raise ArrowNotImplemented(f"arithmetic {op!r} is not ported")
+    refuse_codes(a, op)
+    if a.type == dt.bool_ and op in _BOOL_SAME:
+        return DeviceColumn(a.values, a.validity, a.length, dt.bool_)
+    if a.type == dt.bool_ and op in _BOOL_REFUSED:
+        raise TypeError(f"{op} does not accept a bool column")
     to = a.type
     if op in _FLOAT_ONLY and not to.is_floating:
         to = dt.float64
@@ -480,7 +526,9 @@ def round_(a: DeviceColumn, ndigits: int = 0,
 def round_to_multiple(a: DeviceColumn, multiple: float,
                       mode: str = "half_to_even") -> DeviceColumn:
     """Round a float column to a multiple of `multiple` (> 0); any other
-    column comes back as it is."""
+    column but a string-like one (ArrowNotImplemented) comes back as it
+    is."""
+    refuse_codes(a, "round_to_multiple")
     if multiple <= 0:
         raise ArrowInvalid("multiple must be positive")
     if not a.type.is_floating:

@@ -718,8 +718,13 @@ class HostArray:
             vals = self.values.tolist()
         oks = self.validity_bools().tolist()
         if self.dict_values is not None:
-            vals = [self.dict_values[c] if ok else None
-                    for c, ok in zip(vals, oks)]
+            # a numeric, bool or temporal dictionary as Python values
+            # (float32 widened), as the JAX package gives them
+            d = self.dict_values
+            if isinstance(d, np.ndarray) and d.dtype != object and \
+                    d.ndim == 1:
+                d = d.tolist()
+            vals = [d[c] if ok else None for c, ok in zip(vals, oks)]
         if self.mask is None:
             return vals
         return [v if ok else None for v, ok in zip(vals, oks)]
@@ -1327,6 +1332,18 @@ def host_array_to_device(arr: HostArray, dev,
         _pack_words(arr.mask, P), dev)
     return DeviceColumn(torch.from_numpy(storage_view(host, t)).to(
         dev), words, n, t, arr.dict_values)
+
+
+def check_storage(col: DeviceColumn) -> DeviceColumn:
+    """`col` as it is; AssertionError when its values are not held in
+    its type's storage dtype (`DataType.device_dtype`), the rule every
+    DeviceColumn a compute function returns keeps, so that a kernel, a
+    cast or a sort reads them as their type."""
+    want = col.type.device_dtype
+    if want is not None and col.values.dtype != want:
+        raise AssertionError(f"{col.type} column held as "
+                             f"{col.values.dtype}, not {want}")
+    return col
 
 
 def column_to_host(col: DeviceColumn) -> HostArray:

@@ -350,27 +350,43 @@ without one. Phases:
      row_group_size, read_row_group(2, row_range=(1000, 50000)) equal to
      numpy's slice (`hostapi_writers`); every K1 and K3 call of each
      stage against the plain version (`hostapi_path_checks`);
-  27. a `kernels` JSON line, then the last line
+  27. the JAX string and dictionary arrays (strings_phases) over SF1's
+     rows: Tables of string columns built with `array`, TPC-H Q12 from
+     them (K1, K2), the round trip, IPC and parquet with the JAX writer
+     defaults, pyarrow's arrays (`strings_*` lines);
+  28. the repaired parity faults (repairs_phases) over SF1's rows
+     (6,001,215 lineitem and 1,500,000 orders rows) written to parquet
+     in a temporary directory and read back as Tables of six and two
+     chunks: sort_indices and sort of the lineitem Table by (l_okey
+     descending, l_sdate), bit for bit against np.lexsort
+     (`repairs_sort`); make_struct of two ChunkedArray columns
+     (`repairs_struct`); call_function("unique") of the orders' o_opri
+     strings, a utf8 StringArray (`repairs_unique`); the sum (K3) of
+     if_else(l_sdate > 10000, l_qty int64, l_price float64), exact
+     against numpy's truncating astype, its storage int64
+     (`repairs_if_else_sum`); every kernel call of each stage against
+     the plain version (`repairs_path_checks`);
+  29. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
-With --timing-only it skips phases 3, 15, 16, 17 and 27 and, of phase 9,
+With --timing-only it skips phases 3, 15, 16, 17 and 29 and, of phase 9,
 all but the three queries and K2's timings, and holds no call of phases
-10 to 14 and 18 to 26 against the plain version: a run that times every
+10 to 14 and 18 to 28 against the plain version: a run that times every
 path and kernel shape using only entry points that earlier trees have
 too, so that two trees can be run in turns on one card (copy this
 script into a tree unpacked with `git archive` and run it there, then
-here, here, there). Phases 8 to 14 and 18 to 26 run only in a tree
+here, here, there). Phases 8 to 14 and 18 to 28 run only in a tree
 that has their entry points.
 
-With --only flight (or flightsql, examples, encodings, arrays, hostapi)
-it runs phases 1 and 2, makes the data (but for examples) and runs phase
-21 (or 22, 23, 24, 25, 26) alone, then prints the phase's launches and
-errors and no `kernels` or ok line: a quick check of that phase on the
-card.
+With --only flight (or flightsql, examples, encodings, arrays, hostapi,
+strings, repairs) it runs phases 1 and 2, makes the data (but for
+examples) and runs phase 21 (or 22, 23, 24, 25, 26, 27, 28) alone, then
+prints the phase's launches and errors and no `kernels` or ok line: a
+quick check of that phase on the card.
 
 Usage: python3 chip_smoke.py [--sf 10] [--timing-only]
                              [--only flight|flightsql|examples|encodings|
-                                     arrays|hostapi]
+                                     arrays|hostapi|strings|repairs]
 """
 from __future__ import annotations
 
@@ -8676,6 +8692,217 @@ def strings_phases(li, orders, dev, card: str,
     return {"launches": launches, "errs": errs}
 
 
+# ---------------------------------------------------------------------------
+# the repaired parity faults F15-F22 on the card
+# ---------------------------------------------------------------------------
+
+REPAIRS_ROWS = LINEITEM_SF1       # lineitem rows of the repairs phase (SF1)
+REPAIRS_ORDERS = 1_500_000        # orders rows (SF1)
+REPAIRS_ROW_GROUP = 1_048_576     # rows a parquet row group: six chunks
+REPAIRS_CUTOFF = 10_000           # if_else: l_qty where l_sdate > it
+REPAIRS_KEYS = [("l_okey", "descending"), ("l_sdate", "ascending")]
+
+
+def repairs_tables(li, orders, root: str) -> tuple:
+    """SF1's lineitem (l_okey, l_sdate as date32, l_qty as int64,
+    l_price) and orders (o_okey, o_opri as a string column) written by
+    parquet.write_table into `root` in REPAIRS_ROW_GROUP-row groups and
+    read back on the card by parquet.read_table: Tables of six and two
+    chunks, as a user reads them. Returns (lineitem, orders, sources,
+    seconds)."""
+    n = min(REPAIRS_ROWS, len(li["l_okey"]))
+    m = min(REPAIRS_ORDERS, len(orders["o_okey"]))
+    src = {"l_okey": li["l_okey"][:n], "l_sdate": li["l_sdate"][:n],
+           "l_qty": li["l_qty"][:n].astype(np.int64),
+           "l_price": li["l_price"][:n]}
+    pcodes, pvalues = orders["o_opri"]
+    li_t = agt.table({"l_okey": src["l_okey"],
+                      "l_sdate": HostArray(src["l_sdate"], None, dt.date32),
+                      "l_qty": src["l_qty"], "l_price": src["l_price"]})
+    ord_t = agt.table({"o_okey": orders["o_okey"][:m],
+                       "o_opri": HostArray(pcodes[:m], None, dt.string,
+                                           pvalues)})
+    secs, back = {}, {}
+    for name, t in (("lineitem", li_t), ("orders", ord_t)):
+        path = os.path.join(root, f"{name}.parquet")
+        t0 = time.perf_counter()
+        tpq.write_table(t, path, REPAIRS_ROW_GROUP, compression="none",
+                        write_page_index=False)
+        secs[f"{name}_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back[name] = tpq.read_table(path)
+        secs[f"{name}_read_s"] = time.perf_counter() - t0
+    src["o_opri"] = pvalues[pcodes[:m]]
+    return back["lineitem"], back["orders"], src, secs
+
+
+def repairs_sort_options():
+    return pc.SortOptions([pc.SortKey(c, o) for c, o in REPAIRS_KEYS])
+
+
+def repairs_sort_oracle(src: dict) -> dict:
+    """np.lexsort's order of the lineitem rows (l_okey descending, then
+    l_sdate, stable) and each column taken by it."""
+    order = np.lexsort((src["l_sdate"], -src["l_okey"])).astype(np.int64)
+    return {"order": order, **{c: src[c][order] for c in (
+        "l_okey", "l_sdate", "l_qty", "l_price")}}
+
+
+def check_repairs_sort(idx, table, want: dict) -> np.ndarray:
+    """F15: sort_indices of the Table bit for bit against np.lexsort, and
+    the sorted Table's columns numpy's take by that order."""
+    got = np.asarray(idx.values)
+    if type(idx).__name__ != "NumericArray" or not np.array_equal(
+            got, want["order"]):
+        raise AssertionError(f"repairs: sort_indices of the Table differs "
+                             f"from np.lexsort ({type(idx).__name__})")
+    if type(table).__name__ != "Table" or \
+            table.num_rows != len(want["order"]):
+        raise AssertionError(f"repairs: sort of a Table gave a "
+                             f"{type(table).__name__}")
+    for c in ("l_okey", "l_sdate", "l_qty", "l_price"):
+        col = np.asarray(table.column(c).combine().values)
+        if not np.array_equal(col, want[c]):
+            raise AssertionError(f"repairs: sorted column {c} differs")
+    return want["order"]
+
+
+def check_repairs_struct(st, src: dict) -> str:
+    """F16: make_struct of two ChunkedArray columns, each child its
+    source column."""
+    if type(st).__name__ != "StructArray" or len(st) != len(src["l_okey"]):
+        raise AssertionError(f"repairs: make_struct gave "
+                             f"{type(st).__name__}")
+    for child, c in zip(st.children, ("l_okey", "l_sdate")):
+        if not np.array_equal(np.asarray(child.values), src[c]):
+            raise AssertionError(f"repairs: make_struct child {c} differs")
+    return str(st.type)
+
+
+def check_repairs_unique(u, src: dict) -> list:
+    """F17: the registry's unique of the string column is a utf8
+    StringArray of the distinct values in first-occurrence order."""
+    vals, first = np.unique(src["o_opri"], return_index=True)
+    want = vals[np.argsort(first, kind="stable")].tolist()
+    if type(u).__name__ != "StringArray" or u.type != dt.string or \
+            u.to_pylist() != want:
+        raise AssertionError(f"repairs: unique gave {type(u).__name__} of "
+                             f"{u.type}: {u.to_pylist()[:8]}")
+    return want
+
+
+def repairs_if_else_sum(db: DeviceBatch) -> dict:
+    """F22: if_else(l_sdate > REPAIRS_CUTOFF, l_qty int64, l_price float64)
+    on the card, its storage asserted to be the int64 of its type, and
+    its sum (K3)."""
+    mask = pc.call_function("greater", [db.column("l_sdate"),
+                                        REPAIRS_CUTOFF])
+    picked = pc.if_else(mask, db.column("l_qty"), db.column("l_price"))
+    agt.device.block.check_storage(picked)
+    if picked.type != dt.int64 or picked.values.dtype != torch.int64:
+        raise AssertionError(f"repairs: if_else gave {picked.type} held "
+                             f"as {picked.values.dtype}")
+    return {"sum": pc.sum(picked), "type": str(picked.type),
+            "storage": str(picked.values.dtype)}
+
+
+def repairs_phases(li, orders, dev, card: str,
+                   timing_only: bool = False) -> dict:
+    """The repaired parity faults on the card, over SF1's rows of the
+    SF10 arrays (repairs_tables: written to parquet in a temporary
+    directory, read back as Tables of six and two chunks): F15
+    sort_indices of the lineitem Table by (l_okey descending, l_sdate),
+    bit for bit against np.lexsort, and `sort` of it, a Table
+    (`repairs_sort`); F16 make_struct of two of its ChunkedArray columns
+    (`repairs_struct`); F17 call_function("unique") of the orders
+    Table's o_opri strings, a utf8 StringArray equal to numpy's
+    first-occurrence values (`repairs_unique`); F22 the sum (K3) of
+    if_else(l_sdate > cutoff, l_qty int64, l_price float64) on the card,
+    held against numpy's truncating astype, its storage int64
+    (`repairs_if_else_sum`); every K1, K2 and K3 call of each stage
+    against the plain version (`repairs_path_checks`; not with
+    `timing_only`). Each stage is driven once by run_path and timed
+    once more. Returns each stage's launch counts and the largest
+    kernel - plain difference."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        li_t, ord_t, src, io_s = repairs_tables(li, orders, root)
+    chunks = li_t.column("l_okey").num_chunks
+    print(json.dumps({"repairs_tables": {
+        "lineitem_rows": li_t.num_rows, "orders_rows": ord_t.num_rows,
+        "lineitem_chunks": chunks,
+        "orders_chunks": ord_t.column("o_opri").num_chunks, **io_s,
+        "card": card}}), flush=True)
+    db = agt.batch_to_device(li_t.select(["l_sdate", "l_qty", "l_price"]),
+                             device=dev)
+    pick = np.where(src["l_sdate"] > REPAIRS_CUTOFF, src["l_qty"],
+                    src["l_price"].astype(np.int64))
+    sum_want = int(pick.sum())
+    sort_want = repairs_sort_oracle(src)
+    launches, checks, ms = {}, {}, {}
+
+    def stage(key, name, fn, check, needs=()):
+        out, launches[name] = run_path(name, fn, needs)
+        checked = check(out)
+        out, ms[key] = _sync_ms(fn)
+        check(out)
+        checks[key] = (fn, check, name)
+        return checked
+
+    order = stage("sort", "repairs sort", lambda: (
+        pc.sort_indices(li_t, repairs_sort_options()),
+        pc.sort(li_t, repairs_sort_options())),
+        lambda o: check_repairs_sort(o[0], o[1], sort_want))
+    print(json.dumps({"repairs_sort": {
+        "rows": li_t.num_rows, "chunks": chunks, "keys": REPAIRS_KEYS,
+        "first": int(order[0]), "ms": ms["sort"],
+        "launches_per_run": launches["repairs sort"], "card": card,
+        "verified": True}}), flush=True)
+    st = stage("struct", "repairs struct", lambda: pc.make_struct(
+        li_t.column("l_okey"), li_t.column("l_sdate")),
+        lambda o: check_repairs_struct(o, src))
+    print(json.dumps({"repairs_struct": {
+        "type": st, "ms": ms["struct"],
+        "launches_per_run": launches["repairs struct"], "card": card,
+        "verified": True}}), flush=True)
+    uniq = stage("unique", "repairs unique", lambda: pc.call_function(
+        "unique", [ord_t.column("o_opri")]),
+        lambda o: check_repairs_unique(o, src))
+    print(json.dumps({"repairs_unique": {
+        "rows": ord_t.num_rows, "values": uniq, "ms": ms["unique"],
+        "launches_per_run": launches["repairs unique"], "card": card,
+        "verified": True}}), flush=True)
+
+    def check_sum(o):
+        if o["sum"] != sum_want:
+            raise AssertionError(f"repairs: sum of if_else {o['sum']}, "
+                                 f"numpy {sum_want}")
+        return o
+    got = stage("if_else_sum", "repairs if_else sum",
+                lambda: repairs_if_else_sum(db), check_sum, ("K3",))
+    print(json.dumps({"repairs_if_else_sum": {
+        **got, "oracle": sum_want, "cutoff": REPAIRS_CUTOFF,
+        "ms": ms["if_else_sum"],
+        "launches_per_run": launches["repairs if_else sum"], "card": card,
+        "verified": True}}), flush=True)
+
+    held = {}
+    if not timing_only:
+        for key, (fn, check, name) in checks.items():
+            if not any(launches[name].values()):
+                continue
+            o, held[key] = check_path_calls(name, fn, launches[name],
+                                            k3=True)
+            check(o)
+        print(json.dumps({"repairs_path_checks": held}), flush=True)
+    errs = {k: max((h[k]["max_abs_err"] for h in held.values() if k in h),
+                   default=0.0) for k in ("K1", "K2", "K3")}
+    print(json.dumps({"repairs_phase": {
+        "s": time.perf_counter() - t_phase, "stages_ms": ms,
+        "card": card}}), flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=10.0,
@@ -8687,7 +8914,7 @@ def main(argv=None) -> int:
                          "in turns on one card")
     ap.add_argument("--only", choices=["flight", "flightsql", "examples",
                                        "encodings", "arrays", "hostapi",
-                                       "strings"],
+                                       "strings", "repairs"],
                     help="run only this phase, on the data of --sf, after "
                          "the build: no kernel sweeps, no other phase, "
                          "and neither the kernels nor the ok line")
@@ -8730,6 +8957,11 @@ def main(argv=None) -> int:
         li, orders = make_data(n_li, n_ord)
         add_join_columns(li, orders)
         out = strings_phases(li, orders, dev, card)
+    elif args.only == "repairs":
+        li, orders = make_data(n_li, n_ord)
+        add_quantity(li)
+        add_join_columns(li, orders)
+        out = repairs_phases(li, orders, dev, card)
     elif args.only == "encodings":
         li, _ = make_data(n_li, n_ord)
         add_quantity(li)
@@ -8925,6 +9157,8 @@ def main(argv=None) -> int:
             hostapi_phases(li, dev, card, timing_only=True)
         if hasattr(agt.device.block, "as_dictionary"):
             strings_phases(li, orders, dev, card, timing_only=True)
+        if hasattr(agt.device.block, "check_storage"):
+            repairs_phases(li, orders, dev, card, timing_only=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s (timing only)")
         return 0
     joins = join_phases(li, orders, dev, q1["snappy"], card)
@@ -8988,6 +9222,10 @@ def main(argv=None) -> int:
     strs = strings_phases(li, orders, dev, card)
     k1_err = max(k1_err, strs["errs"]["K1"])
     k2_err = max(k2_err, strs["errs"]["K2"])
+    reps = repairs_phases(li, orders, dev, card)
+    k1_err = max(k1_err, reps["errs"]["K1"])
+    k2_err = max(k2_err, reps["errs"]["K2"])
+    k3_err = max(k3_err, reps["errs"]["K3"])
     k3 = k3s[0]
     by_path = {"Q3": launches, "Q6 from bytes": q6_launches,
                "summary from bytes": sum_launches,
@@ -9000,7 +9238,8 @@ def main(argv=None) -> int:
                **inter["launches"], **encs["launches"],
                **flights["launches"], **fsql["launches"],
                **exs["launches"], **pqe["launches"], **arrs["launches"],
-               **hapi["launches"], **strs["launches"]}
+               **hapi["launches"], **strs["launches"],
+               **reps["launches"]}
     kernels = [
         {"name": "compact_flagged", "route": "cuda",
          "source": "arrow_go_tpu_torch/csrc/compaction.cu",
