@@ -27,6 +27,8 @@ from typing import Any, Callable, List, Sequence, Union
 from ..device.block import (DeviceBatch, DeviceColumn, HostBatch,
                             column_to_host, host_batch_to_device)
 from .. import dtypes as dt
+from .. import torchenv
+from ..utils.metrics import metrics
 from . import functions, kernels
 from .cast import CastOptions, cast_device
 from .errors import ArrowInvalid, ArrowKeyError
@@ -234,12 +236,17 @@ def execute_scalar_expression(expr: Expression, batch, device=None) -> Any:
     back to the host, as the JAX package does for a RecordBatch
     (reference exprs/exec.go:440 ExecuteScalarExpression)."""
     if isinstance(batch, HostBatch):
-        out = _eval(expr, host_batch_to_device(batch, device))
-        return column_to_host(out) if isinstance(out, DeviceColumn) else out
+        dev = torchenv.device(device)
+        with metrics.span("execute_scalar_expression", device=dev):
+            out = _eval(expr, host_batch_to_device(batch, dev))
+            return column_to_host(out) if isinstance(out, DeviceColumn) \
+                else out
     if not isinstance(batch, DeviceBatch):
         raise ArrowInvalid("expressions evaluate over a DeviceBatch or a "
                            "HostBatch")
-    return _eval(expr, batch)
+    dev = batch.device_columns[0].device if batch.device_columns else None
+    with metrics.span("execute_scalar_expression", device=dev):
+        return _eval(expr, batch)
 
 
 # the functions a compiled expression may call: those of _apply that

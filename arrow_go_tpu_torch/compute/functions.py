@@ -49,6 +49,7 @@ from ..array.record import ChunkedArray, RecordBatch, Table, host_batch
 from ..ops import bitmap, convert, hashing, reductions, selection
 from ..ops import sort as sort_ops
 from ..ops.decimal import to_ints
+from ..utils.metrics import metrics
 from . import nested_selection
 from .cast import cast_device, cast_host
 from .errors import ArrowIndexError, ArrowInvalid, ArrowNotImplemented
@@ -199,7 +200,7 @@ def _filter_device_batch(db: DeviceBatch, mask,
         cnt, out_vals, out_valids = _filter_batch(
             mcol.values, mcol.validity, [c.values for c in devs],
             [c.validity for c in devs], db.length, options.null_selection)
-        count = int(cnt)
+        count = metrics.host_read(cnt, "filter_count")
         outs = iter(zip(out_vals, out_valids))
     else:
         hidx = _host_filter_indices(mask, options)
@@ -227,7 +228,7 @@ def _filter_column(col: DeviceColumn, mask,
     cnt, (v,), (w,) = _filter_batch(mcol.values, mcol.validity,
                                     [col.values], [col.validity],
                                     col.length, options.null_selection)
-    count = int(cnt)
+    count = metrics.host_read(cnt, "filter_count")
     return _trim(DeviceColumn(v, w, count, col.type, col.dict_values), count)
 
 
@@ -256,8 +257,10 @@ def filter_(values, mask, options: Optional[FilterOptions] = None,
     in the JAX package; a ChunkedArray of values or of the mask is
     combined first, as a HostArray. A Table's result is a Table, a
     RecordBatch's a RecordBatch."""
-    return _like_input(_filter(host_batch(values), mask, options, device),
-                       values)
+    with metrics.span("filter", device=_span_device(values, mask,
+                                                    device=device)):
+        return _like_input(_filter(host_batch(values), mask, options,
+                                   device), values)
 
 
 def _filter(values, mask, options: Optional[FilterOptions], device):
@@ -275,7 +278,8 @@ def _filter(values, mask, options: Optional[FilterOptions], device):
         idx, cnt = selection.filter_indices(mcol.values, mcol.validity,
                                             mcol.length,
                                             options.null_selection)
-        return list_take_device(values, idx, int(cnt))
+        return list_take_device(values, idx,
+                                metrics.host_read(cnt, "filter_count"))
     if isinstance(values, HostBatch):
         if not all(c.type.on_device for c in values.columns):
             hidx = _host_filter_indices(mask, options)
@@ -291,6 +295,17 @@ def _filter(values, mask, options: Optional[FilterOptions], device):
         col = host_array_to_device(values, _device_of(mask, device))
         return column_to_host(_filter_column(col, mask, options))
     raise ArrowNotImplemented(f"filter of {type(values).__name__}")
+
+
+def _span_device(*args, device=None):
+    """The device an operator's span times: that of its first argument
+    on a device, else `device` as given (None: no device events)."""
+    for a in args:
+        if isinstance(a, (DeviceColumn, DeviceListColumn)):
+            return a.device
+        if isinstance(a, DeviceBatch) and a.device_columns:
+            return a.device_columns[0].device
+    return None if device is None else torch.device(device)
 
 
 def _device_of(other, device):
@@ -334,8 +349,8 @@ def _device_take_indices(icol: DeviceColumn, n_src: int,
         raise ArrowNotImplemented("take indices must be integer")
     raw = convert.as_int64(icol.values, icol.type)
     valid = icol.validity_mask()
-    if options.bounds_check and bool(
-            (valid & ((raw < 0) | (raw >= n_src))).any()):
+    if options.bounds_check and metrics.host_read(
+            (valid & ((raw < 0) | (raw >= n_src))).any(), "take_bounds"):
         raise ArrowIndexError(
             f"take index out of bounds (source length {n_src})")
     return torch.where(valid, raw, -1)
@@ -361,8 +376,10 @@ def take(values, indices, options: Optional[TakeOptions] = None,
     A ChunkedArray of values or indices is combined first, as a
     HostArray. A Table's result is a Table, a RecordBatch's a
     RecordBatch."""
-    return _like_input(_take(host_batch(values), indices, options, device),
-                       values)
+    with metrics.span("take", device=_span_device(values, indices,
+                                                  device=device)):
+        return _like_input(_take(host_batch(values), indices, options,
+                                 device), values)
 
 
 def _take(values, indices, options: Optional[TakeOptions], device):
@@ -406,7 +423,8 @@ def _take(values, indices, options: Optional[TakeOptions], device):
         for c in values.columns:
             if isinstance(c, HostColumn):
                 if hidx is None:
-                    hidx = idx[:indices.length].cpu().numpy()
+                    hidx = metrics.host_read(idx[:indices.length],
+                                             "take_indices")
                 cols.append(HostColumn(nested_selection.take_host_vec(
                     c.array, hidx)))
             else:
@@ -523,7 +541,8 @@ def _sort_record(values, options: Optional[SortOptions], nulls_first: bool,
     perm = sort_ops.argsort_multi([_column_sort_key(c, desc, nulls_first)
                                    for c, desc in zip(cols, descs)])
     if host:
-        return HostArray(perm[:n].cpu().numpy(), None, dt.int64)
+        return HostArray(metrics.host_read(perm[:n], "sort_perm"), None,
+                         dt.int64)
     return DeviceColumn(perm, None, n, dt.int64)
 
 
@@ -537,7 +556,13 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
     JAX package combines the whole Table into one RecordBatch). A
     ChunkedArray is combined first. Host input longer than _HOST_SMALL
     rows sorts on `device` (the card unless named)."""
-    values = _combined(values)
+    with metrics.span("sort_indices", device=_span_device(values,
+                                                          device=device)):
+        return _sort_indices(_combined(values), options, order,
+                             null_placement, device)
+
+
+def _sort_indices(values, options, order: str, null_placement: str, device):
     nulls_first = ((options.null_placement if options else null_placement)
                    == "at_start")
     if isinstance(values, (HostBatch, Table, DeviceBatch)):
@@ -552,7 +577,8 @@ def sort_indices(values, options: Optional[SortOptions] = None, *,
         col = host_array_to_device(values, dev)
         perm = sort_ops.argsort_single(_column_sort_key(col, desc,
                                                         nulls_first))
-        return HostArray(perm[:len(values)].cpu().numpy(), None, dt.int64)
+        return HostArray(metrics.host_read(perm[:len(values)], "sort_perm"),
+                         None, dt.int64)
     if not isinstance(values, DeviceColumn):
         raise ArrowNotImplemented(f"sort_indices of {type(values).__name__}")
     perm = sort_ops.argsort_single(_column_sort_key(values, desc,

@@ -4,7 +4,10 @@ Port of arrow_go_tpu/compute/groupby.py: the sort-based grouping core
 (ops/hashing.py) plus segment aggregation in the key-sorted domain
 (ops/groupagg.py), for every aggregation the JAX package takes. The
 group count is read on the host once; then the group-sized results and
-the key representatives come back as a RecordBatch.
+the key representatives come back as a RecordBatch. Spans
+(utils/metrics.py): `group_by`, its phases `group_by.program` and
+`group_by.to_host`; every device->host read goes through
+`metrics.host_read`.
 
 Null keys form their own group; groups appear in first-occurrence
 order (PARITY.md D3). A dictionary (string) key groups on its int32
@@ -24,12 +27,14 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from .. import torchenv
 from ..array.record import RecordBatch
 from ..device.block import (DeviceBatch, HostArray, _unpack_words,
                             batch_to_device, pad_length, row_mask)
 from ..ops import bitmap, groupagg, hashing, selection
 from ..ops.convert import as_int64, convert, host_view
 from ..ops.sort import _orderable_bits, sortable
+from ..utils.metrics import metrics
 from .errors import ArrowNotImplemented
 
 _AGGS = ("sum", "count", "count_all", "min", "max", "mean", "product",
@@ -93,6 +98,7 @@ def _group_program(key_vals, key_valids, agg_vals, agg_valids, length,
     (first_by_run,) = groupagg.compact_runs(enc.start, (enc.sidx,))
     in_run = torch.arange(P, device=dev) < n_groups
     first_x = torch.where(in_run, first_by_run, P)
+    metrics.sort(P)
     order = torch.argsort(first_x, stable=True)
     rep_rows = first_x.index_select(0, order)
 
@@ -185,6 +191,15 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
     the JAX package.
     """
     host_input = not isinstance(data, DeviceBatch)
+    dev = torchenv.device(device) if host_input else (
+        data.device_columns[0].device if data.device_columns else None)
+    with metrics.span("group_by", rows=data.num_rows if host_input
+                      else data.length, device=dev):
+        return _group_by(data, keys, aggregations, device, host_input, dev)
+
+
+def _group_by(data, keys, aggregations, device, host_input: bool,
+              dev) -> RecordBatch:
     if host_input:
         data = batch_to_device(data, device)
     if isinstance(keys, str):
@@ -200,27 +215,37 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
     for (_, agg), vcol in zip(aggregations, agg_cols):
         if vcol.dict_values is not None and agg not in ("count", "count_all"):
             raise ArrowNotImplemented(f"{agg} on string/dictionary column")
-    n_groups_dev, rep_rows, results = _group_program(
-        [c.values for c in key_cols], [c.validity for c in key_cols],
-        [c.values for c in agg_cols], [c.validity for c in agg_cols],
-        data.length,
-        [dt.int32 if c.dict_values is not None else c.type for c in key_cols],
-        [agg for _, agg in aggregations], [c.type for c in agg_cols])
+    with metrics.span("group_by.program", device=dev):
+        n_groups_dev, rep_rows, results = _group_program(
+            [c.values for c in key_cols], [c.validity for c in key_cols],
+            [c.values for c in agg_cols], [c.validity for c in agg_cols],
+            data.length,
+            [dt.int32 if c.dict_values is not None else c.type
+             for c in key_cols],
+            [agg for _, agg in aggregations], [c.type for c in agg_cols])
+    with metrics.span("group_by.to_host", device=dev):
+        return _to_host(data, keys, aggregations, key_cols, agg_cols,
+                        n_groups_dev, rep_rows, results, host_input)
 
-    # the group COUNT first (one scalar), then only group-sized slices
-    # and the key representatives leave the device
-    n_groups = int(n_groups_dev)
+
+def _to_host(data, keys, aggregations, key_cols, agg_cols, n_groups_dev,
+             rep_rows, results, host_input: bool) -> RecordBatch:
+    """The group count first (one scalar), then only group-sized slices
+    and the key representatives leave the device, each read through
+    `metrics.host_read`."""
+    n_groups = metrics.host_read(n_groups_dev, "group_count")
     kb = min(pad_length(max(n_groups, 1)), rep_rows.shape[0])
     idx = torch.where(torch.arange(kb, device=rep_rows.device) < n_groups,
                       rep_rows[:kb], -1)
     out_cols: List[HostArray] = []
     names: List[str] = []
     for name, c in zip(keys, key_cols):
-        kvals = host_view(
-            selection.gather(c.values, idx)[:n_groups].cpu().numpy(), c.type)
+        kvals = host_view(metrics.host_read(
+            selection.gather(c.values, idx)[:n_groups], "group_keys"),
+            c.type)
         kwords = selection.take_validity(c.validity, idx, n_groups, kb)
-        kmask = _unpack_words(kwords.cpu().numpy().view(np.uint32),
-                              n_groups)
+        kmask = _unpack_words(metrics.host_read(
+            kwords, "group_key_validity").view(np.uint32), n_groups)
         key = HostArray(kvals, kmask, c.type, c.dict_values)
         if host_input and c.type.id == dt.TypeId.DICTIONARY and \
                 data.schema.field(data.schema.field_index(name)).type.id \
@@ -231,9 +256,11 @@ def group_by(data, keys, aggregations: Sequence[Tuple[str, str]],
     for (col_name, agg), vcol, (res, valid) in zip(aggregations, agg_cols,
                                                    results):
         t = _out_type(vcol.type, agg)
-        res_np = host_view(res[:n_groups].cpu().numpy(), t).astype(
+        res_np = host_view(metrics.host_read(res[:n_groups],
+                                             "group_values"), t).astype(
             t.np_dtype, copy=False)
-        mask_np = None if valid is None else valid[:n_groups].cpu().numpy()
+        mask_np = None if valid is None else metrics.host_read(
+            valid[:n_groups], "group_validity")
         out_cols.append(HostArray(res_np, mask_np, t))
         names.append(f"{col_name}_{agg}")
     return RecordBatch(dt.Schema([dt.Field(nm, c.type)

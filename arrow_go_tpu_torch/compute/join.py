@@ -8,6 +8,8 @@ that count once to size the output bucket (count-then-materialize), the
 pair expansion runs at that capacity, and only the projected output
 columns are gathered. Null keys never match (SQL semantics); an outer
 join keeps its outer side's null-key rows, with a null opposite side.
+Spans (utils/metrics.py): `hash_join` and its phases, `semi_verdict`;
+every device->host read goes through `metrics.host_read`.
 
 DeviceBatch inputs return a DeviceBatch (inner and the outer types).
 HostBatch inputs (a RecordBatch or a Table among them: the JAX
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from .. import torchenv
 from ..array.record import RecordBatch, host_batch
 from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
                             HostColumn, concat_host_arrays,
@@ -34,6 +37,7 @@ from ..device.block import (DeviceBatch, DeviceColumn, HostArray, HostBatch,
 from ..ops import bitmap, hashing, selection
 from ..ops.compaction import compact_flagged
 from ..parallel.join import join_expand, join_sorted_state, local_join_semi
+from ..utils.metrics import metrics
 from .errors import ArrowInvalid, ArrowNotImplemented
 from .functions import shared_dict_codes
 from .nested_selection import take_host_vec
@@ -122,19 +126,32 @@ def hash_join(left, right, keys=None, *, left_keys=None, right_keys=None,
             # HostBatch route, so the row order matches it
             return batch if isinstance(batch, DeviceBatch) else \
                 host_batch_to_device(_renumber_keys(batch, keys), dev)
-        ldb, rdb = on_device(left, left_keys), on_device(right, right_keys)
-        return _join_device(ldb, rdb, left_keys, right_keys, join_type,
-                            left_suffix, right_suffix, output_columns)
+        with metrics.span("hash_join", rows=left.length if isinstance(
+                left, DeviceBatch) else left.num_rows, device=dev):
+            ldb, rdb = on_device(left, left_keys), on_device(right,
+                                                             right_keys)
+            return _join_device(ldb, rdb, left_keys, right_keys, join_type,
+                                left_suffix, right_suffix, output_columns)
     if not (isinstance(left, HostBatch) and isinstance(right, HostBatch)):
         raise ArrowNotImplemented(
             "the port joins DeviceBatches or HostBatches")
+    with metrics.span("hash_join", rows=left.num_rows,
+                      device=torchenv.device(device)):
+        return _join_host(left, right, left_keys, right_keys, join_type,
+                          left_suffix, right_suffix, probe_chunk,
+                          output_columns, device)
+
+
+def _join_host(left, right, left_keys, right_keys, join_type, left_suffix,
+               right_suffix, probe_chunk, output_columns, device):
+    """The HostBatch route: a RecordBatch for all eight types, a long
+    probe side in chunks where the join type decomposes over probe
+    rows."""
     chunk = probe_chunk or PROBE_CHUNK_DEFAULT
     if left.num_rows > chunk and join_type in _CHUNKABLE:
-        parts = [hash_join(left.slice(lo, chunk), right,
-                           left_keys=left_keys, right_keys=right_keys,
-                           join_type=join_type, left_suffix=left_suffix,
-                           right_suffix=right_suffix, probe_chunk=chunk,
-                           output_columns=output_columns, device=device)
+        parts = [_join_host(left.slice(lo, chunk), right, left_keys,
+                            right_keys, join_type, left_suffix, right_suffix,
+                            chunk, output_columns, device)
                  for lo in range(0, left.num_rows, chunk)]
         return RecordBatch(parts[0].schema, [
             concat_host_arrays([p.columns[i] for p in parts])
@@ -162,17 +179,20 @@ def semi_verdict(ldb: DeviceBatch, rdb: DeviceBatch, left_keys: Sequence[str],
     anti join keeps its row."""
     if join_type not in _HOWS[4:]:
         raise ArrowInvalid(f"not a semi or anti join: {join_type!r}")
-    lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
-    if join_type.startswith("right"):
-        ldb, rdb, lcodes, rcodes = rdb, ldb, rcodes, lcodes
-    how = "left semi" if join_type.endswith("semi") else "left anti"
-    in_l = row_mask(ldb.padded, ldb.length, lcodes.device)
-    verdict = local_join_semi(lcodes, in_l & (lcodes >= 0), rcodes,
-                              row_mask(rdb.padded, rdb.length, rcodes.device)
-                              & (rcodes >= 0), how)
-    if how == "left anti":
-        verdict = verdict | ~(lcodes >= 0)
-    return verdict & in_l
+    with metrics.span("semi_verdict",
+                      device=ldb.column(left_keys[0]).values.device):
+        lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
+        if join_type.startswith("right"):
+            ldb, rdb, lcodes, rcodes = rdb, ldb, rcodes, lcodes
+        how = "left semi" if join_type.endswith("semi") else "left anti"
+        in_l = row_mask(ldb.padded, ldb.length, lcodes.device)
+        verdict = local_join_semi(lcodes, in_l & (lcodes >= 0), rcodes,
+                                  row_mask(rdb.padded, rdb.length,
+                                           rcodes.device)
+                                  & (rcodes >= 0), how)
+        if how == "left anti":
+            verdict = verdict | ~(lcodes >= 0)
+        return verdict & in_l
 
 
 def _renumber_keys(batch: HostBatch, keys) -> HostBatch:
@@ -209,7 +229,8 @@ def _project(batch: HostBatch, cols) -> HostBatch:
 
 def _select_left(batch: HostBatch, mask: torch.Tensor) -> HostBatch:
     """The rows of `batch` where `mask` (over its padded rows) is set."""
-    idx = np.flatnonzero(mask[:batch.num_rows].cpu().numpy())
+    idx = np.flatnonzero(metrics.host_read(mask[:batch.num_rows],
+                                           "semi_rows"))
     return HostBatch(batch.schema, [take_host_vec(c, idx)
                                     for c in batch.columns], len(idx))
 
@@ -218,40 +239,51 @@ def _join_device(ldb, rdb, left_keys, right_keys, join_type, left_suffix,
                  right_suffix, output_columns):
     """Two phases sharing the sorted state: phase 1 sorts and counts, the
     host reads `total` (and an outer join's null-key counts, in the same
-    copy) to size the output bucket, phase 2 expands at that capacity."""
-    lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
+    copy) to size the output bucket, phase 2 expands at that capacity.
+    Spans: hash_join.key_codes, .sorted_state, .size_read, .expand and
+    .emit (utils/metrics.py)."""
+    dev = ldb.column(left_keys[0]).values.device
+    with metrics.span("hash_join.key_codes", device=dev):
+        lcodes, rcodes = _key_codes(ldb, rdb, left_keys, right_keys)
     PL, PR = ldb.padded, rdb.padded
-    dev = lcodes.device
-    in_l = row_mask(PL, ldb.length, dev)
-    in_r = row_mask(PR, rdb.length, dev)
-    st = join_sorted_state(lcodes, in_l & (lcodes >= 0), rcodes,
-                           in_r & (rcodes >= 0), how=join_type)
-    # outer joins also emit the NULL-KEY rows of their outer side: they
-    # match nothing but stay in the output with a null opposite side
-    null_left = in_l & (lcodes < 0) if join_type in (
-        "left outer", "full outer") else None
-    null_right = in_r & (rcodes < 0) if join_type in (
-        "right outer", "full outer") else None
-    reads = [st.total] + [m.sum() for m in (null_left, null_right)
-                          if m is not None]
-    counts = torch.stack(reads).tolist()     # the single host read
+    with metrics.span("hash_join.sorted_state", device=dev):
+        in_l = row_mask(PL, ldb.length, dev)
+        in_r = row_mask(PR, rdb.length, dev)
+        st = join_sorted_state(lcodes, in_l & (lcodes >= 0), rcodes,
+                               in_r & (rcodes >= 0), how=join_type)
+        # outer joins also emit the NULL-KEY rows of their outer side:
+        # they match nothing but stay in the output with a null opposite
+        # side
+        null_left = in_l & (lcodes < 0) if join_type in (
+            "left outer", "full outer") else None
+        null_right = in_r & (rcodes < 0) if join_type in (
+            "right outer", "full outer") else None
+        reads = [st.total] + [m.sum() for m in (null_left, null_right)
+                              if m is not None]
+    with metrics.span("hash_join.size_read", device=dev):
+        # the single host read
+        counts = list(map(int, metrics.host_read(torch.stack(reads),
+                                                 "join_size")))
     total = counts[0]
     n_null_l = counts[1] if null_left is not None else 0
     n_null_r = counts[-1] if null_right is not None else 0
     out_n = total + n_null_l + n_null_r
-    li, ri, _ = join_expand(st, pad_length(max(out_n, 1)))
-    # ri arrives as key-sorted right RANKS: resolve them to right rows
-    ri = torch.where(ri >= 0, selection.gather(st.rperm, ri), -1)
-    for mask, n, idx, at in ((null_left, n_null_l, li, total),
-                             (null_right, n_null_r, ri, total + n_null_l)):
-        if n:
-            iota = torch.arange(mask.shape[0], dtype=torch.int64,
-                                device=dev)
-            (rows,) = compact_flagged(mask, (iota,))
-            idx[at:at + n] = rows[:n]
-    return _emit_join_output(ldb, rdb, li, ri, out_n, left_keys,
-                             right_keys, join_type, left_suffix,
-                             right_suffix, output_columns)
+    with metrics.span("hash_join.expand", device=dev):
+        li, ri, _ = join_expand(st, pad_length(max(out_n, 1)))
+        # ri arrives as key-sorted right RANKS: resolve them to right rows
+        ri = torch.where(ri >= 0, selection.gather(st.rperm, ri), -1)
+        for mask, n, idx, at in ((null_left, n_null_l, li, total),
+                                 (null_right, n_null_r, ri,
+                                  total + n_null_l)):
+            if n:
+                iota = torch.arange(mask.shape[0], dtype=torch.int64,
+                                    device=dev)
+                (rows,) = compact_flagged(mask, (iota,))
+                idx[at:at + n] = rows[:n]
+    with metrics.span("hash_join.emit", device=dev):
+        return _emit_join_output(ldb, rdb, li, ri, out_n, left_keys,
+                                 right_keys, join_type, left_suffix,
+                                 right_suffix, output_columns)
 
 
 def _gather_column(col, idx: torch.Tensor, out_n: int, trim_to: int,
@@ -262,7 +294,8 @@ def _gather_column(col, idx: torch.Tensor, out_n: int, trim_to: int,
     if isinstance(col, HostColumn):
         key = id(idx)
         if key not in host_idx:
-            host_idx[key] = idx[:out_n].cpu().numpy().astype(np.int64)
+            host_idx[key] = metrics.host_read(
+                idx[:out_n], "join_pairs").astype(np.int64)
         return HostColumn(take_host_vec(col.array, host_idx[key]))
     vals = selection.gather(col.values, idx)[:trim_to]
     words = selection.take_validity(col.validity, idx, out_n, idx.shape[0])

@@ -5,10 +5,14 @@ arrow/compute/registry.go:30, functions.go Function/Arity/kinds,
 exec.go:191 CallFunction). A name resolves to a Python callable over
 whole DeviceColumns. HostArray and ChunkedArray arguments move to the
 device (`torchenv.device()`: the card unless the caller named one) and
-the results of such a call come back to the host. While `utils.metrics.
-metrics` is enabled, each call is recorded there (calls, rows, host
-seconds), as in the JAX package: the host clock with no device
-synchronize, so on the card it times the dispatch, not the device work.
+the results of such a call come back to the host. While the spans of
+`utils.metrics.metrics` are on, each call is a span there, and its
+calls, rows and host seconds count in `Snapshot.ops`, as the JAX package
+records them: host time only, so on the card it times the dispatch. The
+device time of the work is that of the operators' own spans (CUDA events
+of hash_join, group_by, filter, take, sort_indices and
+execute_scalar_expression), on the clock torch.profiler stamps its
+events with.
 """
 from __future__ import annotations
 

@@ -72,6 +72,7 @@ from .. import dtypes as dt
 from .. import torchenv
 from ..ops.convert import host_view, storage_view
 from ..ops.decimal import to_ints
+from ..utils.metrics import metrics
 
 LANE = 128
 WORD_BITS = 32
@@ -1347,7 +1348,8 @@ def check_storage(col: DeviceColumn) -> DeviceColumn:
 
 
 def column_to_host(col: DeviceColumn) -> HostArray:
-    """The [0, length) rows of a DeviceColumn as a HostArray."""
+    """The [0, length) rows of a DeviceColumn as a HostArray (read
+    through `metrics.host_read`)."""
     n = col.length
     if col.type.id == dt.TypeId.NULL:
         return null_array(n)
@@ -1356,9 +1358,11 @@ def column_to_host(col: DeviceColumn) -> HostArray:
             col.values, col.validity, n, col.type.storage_type)))
     mask = None
     if col.validity is not None:
-        mask = _unpack_words(col.validity.cpu().numpy().view(np.uint32), n)
-    return HostArray(host_view(col.values[:n].cpu().numpy(), col.type), mask,
-                     col.type, col.dict_values)
+        mask = _unpack_words(metrics.host_read(
+            col.validity, "column_validity").view(np.uint32), n)
+    return HostArray(host_view(metrics.host_read(col.values[:n],
+                                                 "column_values"), col.type),
+                     mask, col.type, col.dict_values)
 
 
 def host_batch_to_device(hb: HostBatch, device=None,

@@ -5,10 +5,11 @@ front, keep order" step (filter, the join's rank -> row map, group-by
 run boundaries, segment aggregates) goes through `compact_flagged`.
 
 On a CUDA tensor it launches K1 (csrc/compaction.cu), the hand-written
-Hopper kernel that replaces the TPU stitch kernel `_stitch`. On a CPU
-tensor it runs the plain version, a stable argsort on ~keep. Both give
-the whole stable partition: kept rows in order, then the un-kept rows
-in order. The JAX package's 32-bit lane codec and roll-and-merge were
+Hopper kernel that replaces the TPU stitch kernel `_stitch`, and counts
+the launch and its `least_bytes` as `kernel.K1` (utils/metrics.py). On
+a CPU tensor it runs the plain version, a stable argsort on ~keep (no
+count). Both give the whole stable partition: kept rows in order, then
+the un-kept rows in order. The JAX package's 32-bit lane codec and roll-and-merge were
 TPU workarounds and have no counterpart here.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from .. import cuda_build
 from ..torchenv import use_kernels
+from ..utils.metrics import metrics
 
 _MAX_PAYLOADS = 16             # MAX_PAYLOADS in csrc/compaction.cu
 _TILE = 4096                   # TILE in csrc/compaction.cu
@@ -62,7 +64,12 @@ def compact_flagged(keep: torch.Tensor,
     return _compact_cuda(keep, payloads)
 
 
-compact_flagged.launches = 0
+def least_bytes(keep: torch.Tensor,
+                payloads: Sequence[torch.Tensor]) -> int:
+    """The bytes K1 moves at the least, the model of its bound: the keep
+    flags read once, every payload read once and written once."""
+    n = keep.numel()
+    return n + 2 * n * sum(p.element_size() for p in payloads)
 
 
 def _lib():
@@ -126,5 +133,5 @@ def _compact_cuda(keep: torch.Tensor, payloads: Tuple[torch.Tensor, ...]):
             cuda_build.stream_scratch("compaction", keep.device, stream,
                                       _SCRATCH_WORDS).data_ptr(),
             stream), "K1 compact")
-    compact_flagged.launches += 1
+    metrics.kernel("K1", least_bytes(keep, payloads))
     return outs

@@ -10,11 +10,12 @@ On a CUDA tensor `reduce` and `reduce_with_count` launch K3
 (csrc/reduce.cu), the hand-written Hopper kernel that replaces the TPU
 kernel `_reduce_kernel`: one launch that expands the packed validity
 words itself, as the TPU kernel does, and counts the rows it takes in
-the same pass. `reduce_with_count_host` reads the accumulator and the
-count with one device-to-host copy. On a CPU tensor the plain versions
-run: `reduce_plain` (the JAX package's `reduce_xla`: a masked torch
-reduction) and `reduce_with_count_plain` (`reduce_plain` +
-`count_valid`). The TPU kernel takes 32-bit lanes only and leaves int64
+the same pass; each launch counts with its `least_bytes` as `kernel.K3`
+(utils/metrics.py). `reduce_with_count_host` reads the accumulator and
+the count with one device-to-host copy (`metrics.host_read`). On a CPU
+tensor the plain versions run: `reduce_plain` (the JAX package's
+`reduce_xla`: a masked torch reduction) and `reduce_with_count_plain`
+(`reduce_plain` + `count_valid`). The TPU kernel takes 32-bit lanes only and leaves int64
 and float64 to XLA; on the card K3 takes all four types the port
 carries: int32, int64, float32 and float64.
 
@@ -32,6 +33,7 @@ import torch
 from .. import cuda_build
 from ..device.block import valid_rows
 from ..torchenv import use_kernels
+from ..utils.metrics import metrics
 from . import bitmap
 
 OPS = ("sum", "prod", "min", "max")
@@ -101,7 +103,12 @@ def reduce(values: torch.Tensor, validity: Optional[torch.Tensor], n: int,
                    _acc_dtype(op, values.dtype))
 
 
-reduce.launches = 0
+def least_bytes(values: torch.Tensor, validity: Optional[torch.Tensor],
+                n: int) -> int:
+    """The bytes K3 moves at the least, the model of its bound: the n
+    values read once, and their validity words where there are some."""
+    return n * values.element_size() + (0 if validity is None
+                                        else -(-n // 32) * 4)
 
 
 def count_valid(values: torch.Tensor, validity: Optional[torch.Tensor],
@@ -141,7 +148,8 @@ def reduce_with_count_host(values: torch.Tensor,
     if not use_kernels(values):
         acc, cnt = reduce_with_count_plain(values, validity, n, op)
         return acc.item(), int(cnt)
-    host = _reduce_cuda(values, validity, n, op).cpu()
+    host = torch.from_numpy(metrics.host_read(
+        _reduce_cuda(values, validity, n, op), "reduce"))
     return _acc_of(host, _acc_dtype(op, values.dtype)).item(), int(host[1])
 
 
@@ -199,5 +207,5 @@ def _reduce_cuda(values: torch.Tensor, validity: Optional[torch.Tensor],
             None if validity is None else validity.data_ptr(), n,
             int(values.data_ptr() % 16 == 0), scratch.data_ptr(),
             _PARTIALS, out.data_ptr(), stream), "K3 reduce")
-    reduce.launches += 1
+    metrics.kernel("K3", least_bytes(values, validity, n))
     return out

@@ -7,7 +7,8 @@ several lo lanes share one hi lane. The join state's one-lane fills
 
 On a CUDA tensor `cummax_u64_lanes` and `cummax_u32` launch K2
 (csrc/scan.cu), the hand-written Hopper kernel that replaces the TPU
-scan kernel, one launch a call. On a CPU tensor they run the plain
+scan kernel, one launch a call, counted with its `least_bytes` as
+`kernel.K2` (utils/metrics.py). On a CPU tensor they run the plain
 versions: a cummax over each pack as int64 with the sign bit flipped,
 an exact u64 order (ops/groupagg.cummax_u64), and a cummax of the low
 32 bits. Both take every length.
@@ -21,6 +22,7 @@ import torch
 
 from .. import cuda_build
 from ..torchenv import use_kernels
+from ..utils.metrics import metrics
 
 _MAX_LO = 4                    # MAX_LO in csrc/scan.cu
 _TILE = 256 * 8                # TILE in csrc/scan.cu
@@ -69,13 +71,16 @@ def cummax_u64_lanes(hi: torch.Tensor, los: Sequence[torch.Tensor]
     return _cummax_cuda(hi, los)
 
 
-cummax_u64_lanes.launches = 0
+def least_bytes(n: int, lo_lanes: int) -> int:
+    """The bytes K2 moves at the least, the model of its bound: the hi
+    lane and each lo lane, n int64 each, read once and written once."""
+    return 2 * n * 8 * (1 + lo_lanes)
 
 
 def cummax_u32(x: torch.Tensor) -> torch.Tensor:
     """Running max of one int64 lane carrying u32 values: K2's hi-only
     mode, one lane read and one written (torch.cummax on the card is a
-    slow per-row scan). Its launches count in `cummax_u64_lanes`'s."""
+    slow per-row scan)."""
     return cummax_u64_lanes(x, [])[0]
 
 
@@ -143,5 +148,5 @@ def _cummax_cuda(hi: torch.Tensor, los: List[torch.Tensor]):
             hi.data_ptr(), k, in_ptrs, out_hi.data_ptr(), out_ptrs, n,
             int(aligned), scratch.data_ptr(), cap, epoch, stream),
             "K2 cummax_u64_lanes")
-    cummax_u64_lanes.launches += 1
+    metrics.kernel("K2", least_bytes(n, k))
     return [out_hi] + out_los

@@ -23,6 +23,7 @@ import torch
 
 from .. import dtypes as dt
 from ..device.block import row_mask
+from ..utils.metrics import metrics
 from . import bitmap
 from .convert import as_int64
 
@@ -88,9 +89,13 @@ def lexsort_stable(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stable multi-key argsort, first key most significant: the
     permutation `jax.lax.sort(keys + (iota,), num_keys=len(keys),
     is_stable=True)` returns as its last operand. Keys are compared in
-    torch's order for their dtype (signed for ints)."""
+    torch's order for their dtype (signed for ints). Counted as one
+    sort of len(keys) passes (utils/metrics.py)."""
+    keys = list(keys)
+    if keys:
+        metrics.sort(keys[0].shape[0], len(keys))
     perm = None
-    for k in reversed(list(keys)):
+    for k in reversed(keys):
         kk = k if perm is None else k.index_select(0, perm)
         order = torch.sort(kk, stable=True).indices
         perm = order if perm is None else perm.index_select(0, order)

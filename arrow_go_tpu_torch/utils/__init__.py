@@ -1,5 +1,6 @@
 """Observability helpers of the port (mirrors arrow_go_tpu.utils):
-per-function metrics and a profiler trace, and the device-memory leak
-watcher. The debug assertions are `utils.debug`."""
+the spans and counters of utils/metrics.py and a profiler trace, and
+the device-memory leak watcher. The debug assertions are
+`utils.debug`."""
 from .memwatch import DeviceMemoryWatcher, device_live_bytes  # noqa: F401
 from .metrics import Metrics, metrics, trace  # noqa: F401

@@ -412,6 +412,7 @@ from arrow_go_tpu_torch import parquet as tpq
 from arrow_go_tpu_torch.device.block import (DeviceBatch, DeviceColumn,
                                              HostArray, HostBatch)
 from arrow_go_tpu_torch.ops import bitmap, compaction, reductions, scan
+from arrow_go_tpu_torch.utils.metrics import metrics
 
 LINEITEM_SF1 = 6_001_215          # TPC-H spec 4.2.5: lineitem rows at SF1
 LINEITEM_SF10 = 59_986_052        # ... and at SF10
@@ -422,8 +423,7 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM memory rate (data sheet)
 Q6_DATE_LO, Q6_DATE_HI = 8766, 9131
 Q6_DISC_LO, Q6_DISC_HI = 0.05, 0.07
 Q6_QTY = 24
-KERNELS = {"K1": compaction.compact_flagged, "K2": scan.cummax_u64_lanes,
-           "K3": reductions.reduce}
+KERNELS = ("K1", "K2", "K3")     # kernel.K1 ... in utils/metrics.py
 # the engine's snappy lineitem annotates l_sdate as DATE (a tree without
 # the temporal types writes it as INT32)
 LI_TYPES = {"l_sdate": dt.date32} if hasattr(dt, "date32") else None
@@ -1403,10 +1403,6 @@ def check_path_calls(name: str, fn, counted: dict, k3: bool = False):
             values, validity, n, op).item())
         return got
 
-    # _reduce_cuda counts its launch on the module's `reduce`: while the
-    # holder stands in for it, those launches count on the holder
-    k3_reduce.launches = 0
-
     patches = [(m, "compact_flagged", k1)
                for m in (selection, groupagg, pjoin, cjoin, run_ends)] + [
         (pjoin, "cummax_u64_lanes", k2), (hashing, "cummax_u64_lanes", k2),
@@ -1753,15 +1749,19 @@ def _nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def kernel_launches() -> dict:
+    """Launches of K1, K2 and K3 counted so far (utils/metrics.py)."""
+    return {k: metrics.counter(f"kernel.{k}").count for k in KERNELS}
+
+
 def run_path(name: str, fn, needs):
-    """Drive one path once with every launch count set to 0 just before
-    it and read just after; fails unless each kernel in `needs`
+    """Drive one path once, counting each kernel's launches from just
+    before it to just after; fails unless each kernel in `needs`
     launched. Returns (result, counts)."""
-    for k in KERNELS.values():
-        k.launches = 0
+    before = kernel_launches()
     out = fn()
     torch.cuda.synchronize()
-    counts = {k: f.launches for k, f in KERNELS.items()}
+    counts = {k: n - before[k] for k, n in kernel_launches().items()}
     missing = [k for k in needs if counts[k] < 1]
     if missing:
         raise AssertionError(f"{name} did not launch {missing}: {counts}")
@@ -4419,7 +4419,7 @@ def front_phases(li, orders, dev, card: str) -> dict:
     difference."""
     from arrow_go_tpu_torch.tensor import tensor
     from arrow_go_tpu_torch.utils import (DeviceMemoryWatcher,
-                                          device_live_bytes, metrics, trace)
+                                          device_live_bytes, trace)
     t_phase = time.perf_counter()
     n_li = len(li["l_okey"])
     cols = ["l_okey", "l_price", "l_disc", "l_sdate", "l_qty"]
@@ -4511,15 +4511,13 @@ def front_phases(li, orders, dev, card: str) -> dict:
         metrics.disable()
     check_q6(got, q6_want)
     snap = {k: {"calls": s.calls, "rows": s.rows, "host_ms": s.total_s * 1e3}
-            for k, s in metrics.snapshot().items()}
+            for k, s in metrics.snapshot().ops.items()}
     metrics.reset()
     with tempfile.TemporaryDirectory() as d:
-        for k in KERNELS.values():
-            k.launches = 0
         with trace("compiled_q6", log_dir=d, device=dev):
             check_q6(compiled(li_db)[0], q6_want)
         torch.cuda.synchronize()
-        counted = {k: f.launches for k, f in KERNELS.items()}
+        counted = kernel_launches()
         path = os.path.join(d, "compiled_q6.json")
         trace_bytes = os.path.getsize(path)
         events = kernel_events(path)

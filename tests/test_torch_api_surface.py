@@ -411,6 +411,15 @@ EXEMPT_SIGNATURES = {
     "arrow_go_tpu.parallel.shuffle.shuffle_shard_fn":
         "the shard function runs over the port's process group, not a "
         "part count of one process's devices",
+    "arrow_go_tpu.utils.metrics.OpStats.__init__":
+        "no `bytes` field: no caller ever passed bytes; the port counts "
+        "what kernels and host reads move in its counters",
+    "arrow_go_tpu.utils.metrics.Metrics.time_op":
+        "no `nbytes`: no caller ever passed it; the port counts what "
+        "kernels and host reads move in its counters",
+    "arrow_go_tpu.utils.metrics.Metrics.record":
+        "no `nbytes`: no caller ever passed it; the port counts what "
+        "kernels and host reads move in its counters",
 }
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
